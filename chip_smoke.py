@@ -45,10 +45,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back runs, by
-    CUDA events after a warm-up (the forest planes stay hot in L2, as
-    they do for a server answering batch after batch)."""
+def event_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls from Python,
+    by CUDA events after a warm-up: the device time plus whatever the
+    host's launch rate leaves the card idle between calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -62,36 +62,110 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def visit_counts(pk, dev, X):
-    """What this input makes the traversal touch: distinct (tree, node)
-    records, distinct (tree, leaf) values, and (tree, row, level) visits."""
-    planes = pk._planes(dev)
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``: ``reps`` calls captured into one CUDA
+    graph, replayed and timed by CUDA events, so no Python runs between
+    launches.  The forest planes stay hot in L2, as they do for a server
+    answering batch after batch."""
+    fn()                                   # builds and loads the kernel
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+# node planes the traversal function reads (kernel_args' names)
+PLANES = ("sf", "thr", "left", "right", "mt", "dl", "ic", "co", "cn")
+
+
+def reads(pk, dev, X):
+    """What the traversal function must read for this input, each item
+    once: per plane, the (tree, node) entries some row's decision needs;
+    the bitset words some categorical decision tests; the (tree, leaf)
+    values reached; and the (tree, row, level) visits.
+
+    A decision reads ``sf`` (and ``ic`` where the forest has categories);
+    a numerical one reads ``mt``, then ``dl`` if the value is missing or
+    ``thr`` if not; a categorical one reads ``cn``, ``co`` and, for a value
+    inside the bitset, one word; every decision reads the child it takes."""
+    p = pk.kernel_args(dev)
+    has_cat = dev.forest.has_cat
     T, I = dev.split_feature.shape
-    node = torch.zeros((T, X.shape[0]), dtype=torch.int32, device=X.device)
-    seen = torch.zeros((T, I), dtype=torch.bool, device=X.device)
+    n = X.shape[0]
+    need = {k: torch.zeros((T, I), dtype=torch.bool, device=X.device)
+            for k in PLANES}
+    word_need = torch.zeros(dev.cat_words.numel(), dtype=torch.bool,
+                            device=X.device)
+    node = torch.zeros((T, n), dtype=torch.int32, device=X.device)
     tid = torch.arange(T, device=X.device)[:, None].expand_as(node)
+    rid = torch.arange(n, device=X.device)[None, :].expand_as(node)
     visits = 0
     for _ in range(max(int(dev.forest.max_depth), 1)):
         live = node >= 0
+        if not bool(live.any()):
+            break
         visits += int(live.sum())
-        seen[tid[live], node[live].long()] = True
-        node = pk.decide_step(node, X, **planes)
-    leaf_seen = torch.zeros(dev.leaf_value.shape, dtype=torch.bool,
+        t, nd, r = tid[live], node[live].long(), rid[live]
+        v = X[r, p["sf"][t, nd].long()]
+        m = p["mt"][t, nd]
+        nan = torch.isnan(v)
+        fz = torch.where(nan & (m != 2), torch.zeros_like(v), v)
+        missing = ((m == 1) & (fz.abs() <= pk.K_ZERO_F32)) | ((m == 2) & nan)
+        cat = (p["ic"][t, nd] != 0) if has_cat else torch.zeros_like(nan)
+        num = ~cat
+        need["sf"][t, nd] = True
+        if has_cat:
+            need["ic"][t, nd] = True
+        need["mt"][t[num], nd[num]] = True
+        need["dl"][t[num & missing], nd[num & missing]] = True
+        need["thr"][t[num & ~missing], nd[num & ~missing]] = True
+        if has_cat and bool(cat.any()):
+            need["co"][t[cat], nd[cat]] = True
+            need["cn"][t[cat], nd[cat]] = True
+            iv = torch.where(nan, torch.full_like(v, -1.0), v).trunc()
+            iv = iv.clamp(-1.0, pk._CAT_IV_MAX).to(torch.int32)
+            nw = p["cn"][t, nd]
+            inside = cat & (iv >= 0) & (iv < nw * 32)
+            widx = p["co"][t, nd] + torch.minimum(
+                iv.clamp_min(0) // 32, (nw - 1).clamp_min(0))
+            word_need[widx[inside].long()] = True
+        nxt = pk.decide_step(node, X, **pk._planes(dev))
+        went_left = nxt[live] == p["left"][t, nd]
+        need["left"][t[went_left], nd[went_left]] = True
+        need["right"][t[~went_left], nd[~went_left]] = True
+        node = nxt
+    leaf_need = torch.zeros(dev.leaf_value.shape, dtype=torch.bool,
                             device=X.device)
-    leaf_seen[tid, (~node).long()] = True
-    return int(seen.sum()), int(leaf_seen.sum()), visits
+    leaf_need[tid, (~node).long()] = True
+    entries = {k: int(v.sum()) for k, v in need.items()}
+    return entries, int(word_need.sum()), int(leaf_need.sum()), visits
 
 
 def bound(pk, dev, X, num_class, emit_scores):
     """Least time the card could take: the larger of bytes over HBM rate
-    (X, the node records and leaf values this input reaches, the bitset
-    words, the output, each once) and f32 operations over the f32 rate."""
+    (X, the plane entries, bitset words and leaf values this input needs,
+    and the output, each once) and f32 operations over the f32 rate."""
     n, F = X.shape
     T = dev.num_trees
-    nodes, leaves, visits = visit_counts(pk, dev, X)
-    nbytes = n * F * 4 + nodes * 9 * 4
-    if dev.forest.has_cat:
-        nbytes += dev.cat_words.numel() * 4
+    entries, words, leaves, visits = reads(pk, dev, X)
+    nbytes = n * F * 4 + sum(entries.values()) * 4 + words * 4
     ops = visits * OPS_PER_VISIT
     if emit_scores:
         nbytes += leaves * 4 + max(num_class, 1) * n * 4
@@ -100,7 +174,8 @@ def bound(pk, dev, X, num_class, emit_scores):
         nbytes += T * n * 4
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
-    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+    return {"bytes": nbytes, "plane_entries": entries, "bitset_words": words,
+            "ops": ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -151,17 +226,22 @@ def phase_kernel(pk, models):
                                          row_seed=n_t + 1))
             Xt = torch.from_numpy(X.astype(np.float32)).cuda()
             for scores in (False, True):
-                kms = cuda_ms(lambda: pk.fused_traverse(
-                    dev, Xt, K, emit_scores=scores),
-                    reps=50 if n_t <= 1024 else 10)
-                pms = cuda_ms(lambda: pk.traverse_plain(
-                    dev, Xt, K, emit_scores=scores),
-                    reps=5 if n_t <= 1024 else 2, warmup=1)
+                def kernel():
+                    return pk.fused_traverse(dev, Xt, K, emit_scores=scores)
+
+                def plain():
+                    return pk.traverse_plain(dev, Xt, K, emit_scores=scores)
+
+                reps_k = 50 if n_t <= 1024 else 10
+                reps_p = 5 if n_t <= 1024 else 2
                 b = bound(pk, dev, Xt, K, scores)
                 row = {"phase": "kernel", "forest": name, "rows": n_t,
                        "mode": "scores" if scores else "leaves",
                        "trees": dev.num_trees, "features": F,
-                       "kernel_ms": kms, "plain_ms": pms,
+                       "kernel_ms": graph_ms(kernel, reps_k),
+                       "kernel_event_ms": event_ms(kernel, reps_k),
+                       "plain_ms": graph_ms(plain, reps_p),
+                       "plain_event_ms": event_ms(plain, reps_p, warmup=1),
                        "library_ms": None, **b}
                 rows[(name, n_t, scores)] = row
                 emit(row)

@@ -110,8 +110,8 @@ class Booster:
         (float32 scores summed in the pinned tree order); ``device=False``
         runs the host float64 NumPy path.  ``pred_early_stop`` /
         ``pred_early_stop_freq`` / ``pred_early_stop_margin`` mirror the
-        reference (src/boosting/prediction_early_stop.cpp) and run on the
-        host path.
+        reference (src/boosting/prediction_early_stop.cpp) and run only on
+        the host path: with ``device=True`` they raise.
         """
         X = np.ascontiguousarray(np.asarray(data, np.float64))
         if X.ndim == 1:
@@ -141,6 +141,10 @@ class Booster:
 
         early_stop = None
         if kwargs.get("pred_early_stop"):
+            if device:
+                raise LightGBMError(
+                    "pred_early_stop runs on the host path only; pass "
+                    "device=False to predict with early stop")
             from .predict import make_early_stop
             obj = (self.objective_name or "").split(" ")[0]
             kind = ("binary" if obj == "binary"
@@ -152,7 +156,7 @@ class Booster:
                 float(kwargs.get("pred_early_stop_margin", 10.0)),
                 int(kwargs.get("pred_early_stop_freq", 10)))
 
-        if device and early_stop is None:
+        if device:
             raw = self._device_forest(forest).predict_raw(X, num_class=K)
         else:
             raw = forest.predict_raw(X, num_class=K, early_stop=early_stop)

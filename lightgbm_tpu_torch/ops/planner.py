@@ -2,8 +2,10 @@
 ``lightgbm_tpu/ops/planner.py`` that the predict path reads).
 
 The JAX planner elects a predict chunk and a row tile from a VMEM model
-of the TPU core.  Neither model applies on the H100, so the port fixes
-both here:
+of the TPU core, and pads each chunk to a ladder rung (``bucket_rows``)
+to bound its compiled shapes.  Neither applies on the H100: the kernel
+is compiled once and launches on the unpadded rows.  The port fixes
+both sizes here:
 
 - ``PREDICT_CHUNK_ROWS``: rows per ``DeviceForest.predict_raw`` /
   ``predict_leaf`` call to the traversal kernel.  65,536 rows keep the
@@ -17,32 +19,12 @@ both here:
 
 from __future__ import annotations
 
-# smallest ladder rung (JAX planner: compile time dwarfs pad waste below it)
-MIN_BUCKET_ROWS = 4096
-
 PREDICT_CHUNK_ROWS = 1 << 16
 TILE_ROWS = 128
 MIN_TILE_ROWS = 32
 # shared memory a block may use without / with the dynamic opt-in (H100)
 SMEM_DEFAULT_BYTES = 48 * 1024
 SMEM_MAX_BYTES = 227 * 1024
-
-
-def bucket_rows(n: int) -> int:
-    """Smallest ladder rung >= n; rungs are {2^k, 1.5 * 2^k}.
-
-    Two rungs per octave bound pad waste at 50% (just past a power of
-    two) while keeping the distinct-shape count logarithmic in the
-    row-count range.
-    """
-    n = max(int(n), 1)
-    if n <= MIN_BUCKET_ROWS:
-        return MIN_BUCKET_ROWS
-    base = 1 << (n.bit_length() - 1)        # 2^k <= n
-    for rung in (base, base + (base >> 1), base << 1):
-        if rung >= n:
-            return rung
-    return base << 1                        # unreachable
 
 
 def tile_rows_for(num_features: int) -> int:

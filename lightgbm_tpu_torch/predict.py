@@ -265,15 +265,6 @@ class DeviceForest:
         self.num_features = int(f.split_feature.max(initial=0)) + 1
         self._epilogue_ok: dict = {}
 
-    def _call_chunk(self, n: int) -> int:
-        """Rows per kernel call: the fixed chunk ceiling, or the row
-        count's ladder rung when that is smaller.  (The JAX package pads
-        a chunk to that rung to bound its compiled shapes; the kernel
-        launches on the unpadded rows, so here the rung only caps the
-        chunk.)"""
-        return max(min(planner.PREDICT_CHUNK_ROWS,
-                       planner.bucket_rows(max(n, 1))), 1)
-
     def _to_device(self, X: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(X, np.float32)) \
             .to(self.device)
@@ -344,7 +335,7 @@ class DeviceForest:
         n = X.shape[0]
         K = max(num_class, 1)
         out = np.zeros((K, n), np.float64)
-        cr = self._call_chunk(n)
+        cr = planner.PREDICT_CHUNK_ROWS
         for s in range(0, n, cr):
             e = min(s + cr, n)
             scores = _pk.fused_traverse(self, self._to_device(X[s:e]), K,
@@ -356,7 +347,7 @@ class DeviceForest:
         """Leaf indices [n, T]."""
         n = X.shape[0]
         out = np.zeros((n, self.forest.num_trees), np.int32)
-        cr = self._call_chunk(n)
+        cr = planner.PREDICT_CHUNK_ROWS
         for s in range(0, n, cr):
             e = min(s + cr, n)
             out[s:e] = self._leaves(self._to_device(X[s:e])).cpu().numpy().T

@@ -11,7 +11,7 @@ Quick start::
 
 Module map: ``server`` (facade: submit/deadlines/backpressure/drain),
 ``batcher`` (micro-batch scheduler + bucket ladder), ``registry``
-(program LRU + the active model), ``errors`` (typed rejections); the
+(program cache + the active model), ``errors`` (typed rejections); the
 metrics registry is ``obs.metrics``.
 """
 

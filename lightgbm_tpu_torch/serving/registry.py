@@ -2,20 +2,21 @@
 (model digest, row bucket, num_class) (counterpart of
 ``lightgbm_tpu/serving/registry.py``).
 
-``ProgramRegistry`` is an LRU of predict callables keyed
+``ProgramRegistry`` caches predict callables keyed
 ``(digest, bucket_rows, num_class)``; a miss builds the callable and
-counts a ``bucket_misses`` metric, a hit is free.  PyTorch runs eagerly,
-so a program is a closure over the model's ``DeviceForest`` and building
-one compiles nothing; the CUDA kernel itself is built once per process
-at its first launch.  ``ModelRegistry`` holds the active model.
+counts a ``bucket_misses`` metric, a hit counts ``bucket_hits``.  PyTorch
+runs eagerly, so a program is a closure over the model's
+``DeviceForest``: building one compiles and allocates nothing, and the
+cache needs no bound (one entry per ladder rung).  The CUDA kernel
+itself is built once per process at its first launch.
+``ModelRegistry`` holds the active model.
 """
 
 from __future__ import annotations
 
 import hashlib
 import threading
-from collections import OrderedDict
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -97,29 +98,22 @@ class CompiledModel:
 
 
 class ProgramRegistry:
-    """LRU of predict programs keyed (digest, bucket_rows, num_class)."""
+    """Predict programs keyed (digest, bucket_rows, num_class)."""
 
-    def __init__(self, metrics, max_programs: int = 64):
+    def __init__(self, metrics):
         self.metrics = metrics
-        self.max_programs = max_programs
         self._lock = threading.Lock()
-        self._lru: "OrderedDict[Tuple[str, int, int], Callable]" = \
-            OrderedDict()
+        self._programs: Dict[Tuple[str, int, int], Callable] = {}
 
     def get(self, model: CompiledModel, bucket_rows: int) -> Callable:
         key = (model.digest, bucket_rows, model.num_class)
         with self._lock:
-            prog = self._lru.get(key)
+            prog = self._programs.get(key)
             if prog is not None:
-                self._lru.move_to_end(key)
                 self.metrics.counter("bucket_hits").inc()
                 return prog
-            prog = model.make_program(bucket_rows)
-            self._lru[key] = prog
+            prog = self._programs[key] = model.make_program(bucket_rows)
             self.metrics.counter("bucket_misses").inc()
-            while len(self._lru) > self.max_programs:
-                self._lru.popitem(last=False)
-                self.metrics.counter("program_evictions").inc()
         return prog
 
     def warm(self, model: CompiledModel, buckets) -> int:

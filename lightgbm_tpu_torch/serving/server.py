@@ -47,7 +47,6 @@ class ServingConfig:
     max_queue_rows: int = 1 << 16     # backpressure: reject beyond this
     default_deadline_ms: Optional[float] = None   # None = no deadline
     backend: str = "device"           # "device" (the Booster's) | "host"
-    max_programs: int = 64            # program-LRU capacity
     raw_score: bool = True            # False: predict()-style transform
     num_iteration: Optional[int] = None
     start_iteration: int = 0
@@ -128,8 +127,7 @@ class Server:
         self.metrics = MetricsRegistry()
         self.ladder = BucketLadder(config.min_bucket_rows,
                                    config.max_batch_rows)
-        self.programs = ProgramRegistry(self.metrics,
-                                        max_programs=config.max_programs)
+        self.programs = ProgramRegistry(self.metrics)
         self.models = ModelRegistry(
             booster, self.metrics, backend=config.backend,
             num_iteration=config.num_iteration,

@@ -15,6 +15,7 @@ from lightgbm_tpu.predict import DeviceForest as JaxDeviceForest
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.convert import stacked_forest_from_numpy
+from lightgbm_tpu_torch.ops import planner
 from lightgbm_tpu_torch.predict import DeviceForest
 from lightgbm_tpu_torch.testing import (salt_rows, synthetic_model_text,
                                         synthetic_rows)
@@ -120,6 +121,25 @@ def test_early_stop_host_path(model):
     want = jb.predict(X, raw_score=True, **kw)
     got = tb.predict(X, raw_score=True, device=False, **kw)
     assert np.array_equal(_bits(got), _bits(want))
+
+
+def test_device_forest_chunks_are_seamless(model, monkeypatch):
+    _name, _text, _jb, tb, X = model
+    K = tb.num_tree_per_iteration
+    dev = _port_device_forest(tb)
+    whole_raw = dev.predict_raw(X, num_class=K)
+    whole_leaf = dev.predict_leaf(X)
+    # a chunk that does not divide the rows leaves a ragged last call
+    monkeypatch.setattr(planner, "PREDICT_CHUNK_ROWS", 37)
+    assert np.array_equal(_bits(dev.predict_raw(X, num_class=K)),
+                          _bits(whole_raw))
+    assert np.array_equal(dev.predict_leaf(X), whole_leaf)
+
+
+def test_early_stop_refuses_device_path(model):
+    _name, _text, _jb, tb, X = model
+    with pytest.raises(lt.LightGBMError, match="device=False"):
+        tb.predict(X, raw_score=True, pred_early_stop=True)
 
 
 def test_device_forest_predict_raw_padded(model):

@@ -198,9 +198,6 @@ def test_wrapper_checks_its_input(pair):
 
 
 def test_planner_tiles():
-    assert tplanner.bucket_rows(1) == tplanner.MIN_BUCKET_ROWS
-    assert tplanner.bucket_rows(5000) == 6144
-    assert tplanner.bucket_rows(1 << 16) == 1 << 16
     assert tplanner.tile_rows_for(28) == 128
     assert tplanner.tile_rows_for(136) == 32
     with pytest.raises(ValueError):
