@@ -3,15 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA traversal kernel from ``lightgbm_tpu_torch/ops/csrc`` with
-``nvcc``, holds it against its plain PyTorch version on the card, then
-serves a HIGGS-width model (28 features, 500 trees, 255 leaves, binary;
-random leaf-wise trees from a seed) through ``Booster.serve()`` and
-``Booster.predict()`` on the card.  Each phase prints one JSON line.
-Any failed check raises, and the script exits non-zero; it exits
-non-zero without a result where CUDA is absent or the package is
-missing.  The last lines are the kernel table, the card's name and power
-limit as ``nvidia-smi`` reports them, and
+Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
+``nvcc`` (one process per source, all at once), then:
+
+- ``kernel``/``serve``: holds the traversal kernel (B1) against its plain
+  PyTorch version, then serves a HIGGS-width model (28 features, 500
+  trees, 255 leaves, binary; random trees from a seed) through
+  ``Booster.serve()`` and ``Booster.predict()`` on the card;
+- ``train``: trains a HIGGS-width binary model (1,000,000 x 28 f32 rows
+  from a seed, 255 leaves, 255 bins, 10 rounds, a 100,000-row valid set)
+  through ``Dataset`` and ``train`` on the card — binning (B3), root and
+  frontier histograms (B4), the frontier histogram -> split pair (B2)
+  and the scans (B5) — and checks that the model text is byte-identical
+  to a second run with every kernel replaced by its plain version, that
+  the valid logloss falls every round and that the card's predictions
+  match the host's;
+- ``ingest``/``hist``: holds B3, B4, B2 and B5 against their plain
+  versions at the training run's shapes, bit for bit, and times them;
+- ``wide_bins``: a short run at ``max_bin=1023`` (int32 binned matrix,
+  1023-bin scans) against its plain-version twin.
+
+Each phase prints one JSON line.  Any failed check raises, and the
+script exits non-zero; it exits non-zero without a result where CUDA is
+absent or the package is missing.  The last lines are the kernel table,
+the card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -39,6 +54,21 @@ CHECK_ROWS = (8, 64, 1000, 1024, 65536 + 37)
 TIMED_ROWS = (8, 64, 1024, 65536)
 SERVE_REQUESTS, SERVE_THREADS, MAX_REQUEST_ROWS = 320, 8, 1500
 PREDICT_ROWS = 100_000
+# the training run (BASELINE's HIGGS width) and the histogram check's
+# frontier width: one level of KCAP = 128 candidates
+TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 1_000_000, 100_000, 10
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+                "learning_rate": 0.1, "metric": ["auc", "binary_logloss"],
+                "verbose": -1}
+HIST_SLOTS = 128
+# a short run with groups of more than 256 bins: the int32 binned layout
+# and a 1024-thread scan
+WIDE_ROWS, WIDE_ROUNDS = 200_000, 3
+WIDE_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 1023,
+               "verbose": -1}
+# f32 operations per (child, feature, bin) of the gain scan: two
+# directions of ~20 adds/multiplies/divides/compares each
+SCAN_OPS_PER_CELL = 40
 
 
 def emit(obj) -> None:
@@ -352,6 +382,412 @@ def batch_breakdown(dev, forest, F, seed, reps: int = 21) -> dict:
             "bucket1024_gather_ms": float(np.median(gather))}
 
 
+def bytes_or_ops(nbytes: float, ops: float) -> dict:
+    """Least time on the card: the larger of bytes over the HBM rate and
+    operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| over two tensors (equal infinities count 0), or
+    over the fields of two ``NumericFeatureBest`` tuples."""
+    if hasattr(a, "_fields"):
+        return max(max_abs_err(getattr(a, f), getattr(b, f))
+                   for f in a._fields)
+    a, b = a.double(), b.double()
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def kernel_launches():
+    """Current launch counts of the four training kernels (B3, B4, B5,
+    B2)."""
+    from lightgbm_tpu_torch.ops import fused, ingest
+    return {"ingest": ingest.launch_counts["ingest"],
+            **fused.launch_counts}
+
+
+def reset_training_counts() -> None:
+    from lightgbm_tpu_torch.ops import fused, ingest
+    fused.reset_launch_counts()
+    ingest.reset_launch_counts()
+
+
+def train_once(lt, X, y, Xv, yv):
+    """Dataset + valid set + ``train`` on the card; returns (datasets,
+    booster, evals, construct seconds, train seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y)
+    vs = ds.create_valid(Xv, label=yv)
+    ds.construct()
+    vs.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    evals = {}
+    t1 = time.perf_counter()
+    bst = lt.train(TRAIN_PARAMS, ds, TRAIN_ROUNDS, valid_sets=[vs],
+                   valid_names=["valid"], evals_result=evals,
+                   verbose_eval=False)
+    torch.cuda.synchronize()
+    return ds, vs, bst, evals, construct_s, time.perf_counter() - t1
+
+
+def plain_kernels():
+    """Replace every training kernel's launcher by its plain version
+    (returns the originals for ``restore_kernels``)."""
+    from lightgbm_tpu_torch.ops import fused, ingest
+    saved = (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda)
+    ingest._bin_cuda = (lambda X, tables, bounds, cats, gp, mb:
+                        ingest.bin_plain(X, tables, bounds, cats))
+    fused._accumulate_cuda = fused.accumulate_plain
+    fused._scan_cuda = (lambda *args, pair=False, **kw:
+                        fused.scan_plain(*args, **kw))
+    return saved
+
+
+def restore_kernels(saved) -> None:
+    from lightgbm_tpu_torch.ops import fused, ingest
+    ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda = saved
+
+
+def phase_train(lt):
+    """The training path on the card; returns (launches, datasets, raw
+    train matrix, booster)."""
+    from lightgbm_tpu_torch.testing import higgs_like
+    from lightgbm_tpu_torch.utils.timer import SectionTimer
+    X, y = higgs_like(TRAIN_ROWS, seed=11)
+    Xv, yv = higgs_like(VALID_ROWS, seed=12)
+
+    reset_training_counts()
+    ds, vs, bst, evals, construct_s, train_s = train_once(lt, X, y, Xv, yv)
+    launches = kernel_launches()
+    text = bst.model_to_string()
+    trees = bst.num_trees()
+    if trees != TRAIN_ROUNDS:
+        raise AssertionError(f"trained {trees} trees, not {TRAIN_ROUNDS}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+    ll = evals["valid"]["binary_logloss"]
+    if not all(b < a for a, b in zip(ll, ll[1:])):
+        raise AssertionError(f"valid logloss does not fall: {ll}")
+    raw_dev = bst.predict(Xv, raw_score=True)
+    raw_host = bst.predict(Xv, raw_score=True, device=False)
+    leaf_dev = bst.predict(Xv[:20000], pred_leaf=True)
+    leaf_host = bst.predict(Xv[:20000], pred_leaf=True, device=False)
+    if raw_dev.shape != (VALID_ROWS,) or not np.isfinite(raw_dev).all():
+        raise AssertionError("Booster.predict gave a bad result")
+    if not np.array_equal(leaf_dev, leaf_host):
+        raise AssertionError("leaf ids on the card differ from the host's")
+    # f32 sums of ten leaf values on the card vs f64 on the host
+    pred_err = float(np.abs(raw_dev - raw_host).max())
+    if not np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"predictions differ from the host: {pred_err}")
+
+    # the same run with every kernel replaced by its plain version: every
+    # sum is an exact integer, so the model text must be the same bytes;
+    # and with no kernel launched, every count stays at 0
+    saved = plain_kernels()
+    reset_training_counts()
+    try:
+        _, _, bst_p, evals_p, _, plain_train_s = train_once(lt, X, y, Xv, yv)
+    finally:
+        restore_kernels(saved)
+    plain_launches = kernel_launches()
+    if any(plain_launches.values()):
+        raise AssertionError(f"launch counts rose with no kernel launched: "
+                             f"{plain_launches}")
+    if bst_p.model_to_string() != text:
+        raise AssertionError("the model text differs from the plain-version "
+                             "run")
+
+    # a third run through Booster.update() with a section timer: where a
+    # tree's time goes (the timer synchronises the card at each section),
+    # and each tree's (candidates, committed) per frontier round
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    grow = gbdt_mod.grow_tree_rounds
+    rounds = []
+
+    def logged_grow(*args, **kw):
+        rounds.append([])
+        return grow(*args, rounds=rounds[-1], **kw)
+
+    bst_t = lt.Booster(TRAIN_PARAMS, train_set=ds)
+    bst_t.add_valid(vs, "valid")
+    timer = SectionTimer(cuda=True)
+    bst_t.boosting.timer = timer
+    gbdt_mod.grow_tree_rounds = logged_grow
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(TRAIN_ROUNDS):
+            bst_t.update()
+    finally:
+        gbdt_mod.grow_tree_rounds = grow
+    timed_s = time.perf_counter() - t0
+    trees = text.partition("end of trees")[0]
+    if bst_t.model_to_string().partition("end of trees")[0] != trees:
+        raise AssertionError("the timed run's trees differ")
+    per_tree = {k: v / TRAIN_ROUNDS for k, v in timer.seconds.items()}
+    per_tree["other"] = timed_s / TRAIN_ROUNDS - sum(per_tree.values())
+    emit({"phase": "train", "rows": TRAIN_ROWS, "valid_rows": VALID_ROWS,
+          "features": X.shape[1], "rounds": TRAIN_ROUNDS,
+          "num_leaves": TRAIN_PARAMS["num_leaves"],
+          "leaves_per_tree": [m.num_leaves for m in bst.models],
+          "construct_s": construct_s, "train_s": train_s,
+          "s_per_tree": train_s / TRAIN_ROUNDS,
+          "plain_s_per_tree": plain_train_s / TRAIN_ROUNDS,
+          "timed_s_per_tree": timed_s / TRAIN_ROUNDS,
+          "breakdown_s_per_tree": per_tree,
+          "valid_auc": evals["valid"]["auc"], "valid_logloss": ll,
+          "launches": launches,
+          "launches_per_tree": {k: v / TRAIN_ROUNDS
+                                for k, v in launches.items()},
+          "rounds_per_tree": [len(r) for r in rounds],
+          "rollbacks_per_tree": [sum(m < k for k, m in r) for r in rounds],
+          "predict_max_abs_err_vs_host_f64": pred_err,
+          "checked": "model text byte-identical to the plain run"})
+    return launches, ds, X, bst
+
+
+def edge_rows(ds, F: int, X) -> np.ndarray:
+    """Rows at every bin bound of every feature (the f32 nearest the
+    bound and its two neighbours), plus NaN, +-inf, +-1e30, denormals
+    and the salted rows of ``ops.ingest.salt_rows``."""
+    from lightgbm_tpu_torch.ops.ingest import salt_rows
+    cols = []
+    for f in range(F):
+        ub = np.asarray(ds.bin_mappers[f].bin_upper_bound, np.float64)
+        ub = ub[np.isfinite(ub)].astype(np.float32)
+        cols.append(np.concatenate([
+            ub, np.nextafter(ub, np.float32(np.inf)),
+            np.nextafter(ub, np.float32(-np.inf))]))
+    width = max(len(c) for c in cols)
+    grid = np.zeros((width, F), np.float32)
+    for f, c in enumerate(cols):
+        grid[:len(c), f] = c
+    special = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30, 1e-40, -1e-40,
+                        1e-45, 0.0, -0.0], np.float32)
+    spec = np.repeat(special[:, None], F, axis=1)
+    return np.concatenate([salt_rows(F, X), spec, grid]).astype(np.float32)
+
+
+def phase_ingest(ds, X):
+    """B3 against the host oracle ``Dataset._bin_block`` at the training
+    shape plus edge rows, byte for byte; its times."""
+    from lightgbm_tpu_torch.ops import ingest as ING
+    n, F = X.shape
+    tables = ING.build_ingest_tables(ds)
+    binner = ING.DeviceBinner(tables, "cuda")
+    Xc = np.concatenate([X, edge_rows(ds, F, X)])
+    got = binner(torch.from_numpy(Xc).cuda()).cpu().numpy()
+    ref = np.zeros((Xc.shape[0], tables.num_groups), tables.out_dtype)
+    with np.errstate(invalid="ignore", over="ignore"):
+        ds._bin_block(Xc.astype(np.float64), ref)
+    if not np.array_equal(got.T, ref):
+        bad = int((got.T != ref).sum())
+        raise AssertionError(f"binned bytes differ from _bin_block at {bad} "
+                             "entries")
+    Xt = torch.from_numpy(X).cuda()
+    plain_out = binner.plain(Xt)
+    max_err = max_abs_err(binner(Xt), plain_out)
+    if max_err != 0.0:
+        raise AssertionError(f"B3 differs from its plain version by {max_err} "
+                             "bins")
+    del plain_out
+    cols = [s.column for s in tables.specs if not s.is_cat]
+    XT = Xt[:, cols].T.contiguous()
+    bw = tables.bounds.shape[1]
+    row = {"phase": "ingest", "rows": n, "features": F,
+           "groups": tables.num_groups, "checked_rows": int(Xc.shape[0]),
+           "checked": "byte-identical to _bin_block", "max_abs_err": max_err,
+           "kernel_ms": graph_ms(lambda: binner(Xt), 20),
+           "plain_ms": event_ms(lambda: binner.plain(Xt), 3, warmup=1),
+           "library_ms": event_ms(
+               lambda: torch.searchsorted(binner.bounds, XT), 20),
+           **bytes_or_ops(4 * n * F + n * tables.num_groups,
+                          n * tables.num_groups
+                          * (int(np.ceil(np.log2(bw + 1))) + 4))}
+    emit(row)
+    return row
+
+
+def phase_hist(ds, bst):
+    """B4, B2 and B5 against their plain versions at one frontier level
+    of the training run (K = 128 slots, about half the rows slotted, the
+    run's gradients after its last round); their times.  Kernels are
+    timed from CUDA graphs; the plain versions and the library call sync
+    with the host (``nonzero``, ``bincount``) and cannot be captured, so
+    they are timed by CUDA events over back-to-back calls."""
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.ops.histogram import (_vals_t, accumulate_plain,
+                                                  fixed_point_scales)
+    from lightgbm_tpu_torch.ops.split import fixed_to_f32
+    gb = bst.boosting
+    binned_t = ds.binned_t
+    F, n = binned_t.shape
+    K, B = HIST_SLOTS, gb.num_bins
+    hp = gb.grower_cfg.hp
+    mt = gb.meta_t
+    nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    grad, hess = gb.objective.get_gradients(gb.train_score[0])
+    vals = _vals_t(grad, hess, torch.ones_like(grad)).contiguous()
+    scales = fixed_point_scales(vals)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    r = torch.rand(n, device="cuda", generator=g)
+    pick = torch.randint(0, K, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    other = torch.randint(0, K, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    slot = torch.where(r < 0.5, pick, torch.full_like(pick, K))
+    parent = accumulate_plain(binned_t, vals, torch.where(r < 0.5, pick,
+                                                          other), K, B,
+                              scales)
+    small_left = torch.rand(K, device="cuda", generator=g) < 0.5
+
+    small = fused.accumulate(binned_t, vals, slot, K, B, scales)
+    small_p = accumulate_plain(binned_t, vals, slot, K, B, scales)
+    if not torch.equal(small, small_p):
+        raise AssertionError("B4 differs from its plain version")
+    # in value units: each channel's fixed-point difference times 2**-s
+    err_b4 = max(max_abs_err(small[:, c], small_p[:, c]) * 2.0 ** -scales[c]
+                 for c in range(3))
+    del small_p
+    children = fused.derive_children(small, small_left, parent)
+    sums = torch.stack([fixed_to_f32(children[:, c, 0].sum(-1),
+                                     [scales[c]], 0) for c in range(3)])
+
+    def same(a, b):
+        for name in a._fields:
+            x, y = getattr(a, name), getattr(b, name)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if not torch.equal(x, y):
+                return False
+        return True
+
+    def b5():
+        return fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
+                                  small_left=small_left, parent=parent)
+
+    def b5_plain():
+        return fused.scan_plain(small, scales, sums, nb, mty, db, hp,
+                                small_left=small_left, parent=parent)
+
+    def b2():
+        return fused.frontier_splits(binned_t, vals, slot, K, B, scales,
+                                     sums, small_left, parent, nb, mty, db,
+                                     hp)
+
+    def b2_plain():
+        seg = accumulate_plain(binned_t, vals, slot, K, B, scales)
+        return seg, fused.scan_plain(seg, scales, sums, nb, mty, db, hp,
+                                     small_left=small_left, parent=parent)
+
+    best_k5, best_p5 = b5(), b5_plain()
+    if not same(best_k5, best_p5):
+        raise AssertionError("B5 differs from its plain version in bits")
+    err_b5 = max_abs_err(best_k5, best_p5)
+    seg_k, best_k = b2()
+    seg_p, best_p = b2_plain()
+    if not (torch.equal(seg_k, seg_p) and same(best_k, best_p)):
+        raise AssertionError("B2 differs from its plain version in bits")
+    err_b2 = max(max_abs_err(best_k, best_p),
+                 *(max_abs_err(seg_k[:, c], seg_p[:, c]) * 2.0 ** -scales[c]
+                   for c in range(3)))
+    del seg_k, seg_p
+    torch.cuda.synchronize()
+
+    # torch.bincount over the flattened (slot, feature, bin) index with
+    # f32 weights, one call per channel: the library yardstick for B4
+    rows = torch.nonzero(slot < K).flatten()
+    idx = ((slot[rows].to(torch.int64)[None, :] * F
+            + torch.arange(F, device="cuda")[:, None]) * B
+           + binned_t[:, rows].to(torch.int64)).flatten()
+    wts = [vals[c, rows][None, :].expand(F, -1).flatten().contiguous()
+           for c in range(3)]
+
+    def library():
+        for w in wts:
+            torch.bincount(idx, weights=w, minlength=K * F * B)
+
+    m = int(rows.numel())
+    NC = 2 * K
+    hist_bytes = K * 3 * F * B * 8
+    tuple_bytes = NC * F * 4 * 6
+    acc = bytes_or_ops(n * F + 12 * n + 4 * n + hist_bytes, 3 * m * F)
+    scan = bytes_or_ops(2 * hist_bytes + 3 * NC * 4 + K * 4 + 3 * F * 4
+                        + tuple_bytes, NC * F * B * SCAN_OPS_PER_CELL)
+    pair = bytes_or_ops(n * F + 12 * n + 4 * n + 2 * hist_bytes + 3 * NC * 4
+                        + K * 4 + 3 * F * 4 + tuple_bytes,
+                        acc["ops"] + scan["ops"])
+    rows_out = {
+        "fused_frontier_accumulate": {
+            "kernel_ms": graph_ms(
+                lambda: fused.accumulate(binned_t, vals, slot, K, B,
+                                         scales), 10),
+            "plain_ms": event_ms(lambda: accumulate_plain(
+                binned_t, vals, slot, K, B, scales), 2, warmup=1),
+            "library_ms": event_ms(library, 5), "max_abs_err": err_b4,
+            **acc},
+        "fused_sibling_scan": {
+            "kernel_ms": graph_ms(b5, 10),
+            "plain_ms": event_ms(b5_plain, 2, warmup=1),
+            "library_ms": None, "max_abs_err": err_b5, **scan},
+        "fused_frontier_splits": {
+            "kernel_ms": graph_ms(b2, 10),
+            "plain_ms": event_ms(b2_plain, 2, warmup=1),
+            "library_ms": None, "max_abs_err": err_b2, **pair},
+    }
+    emit({"phase": "hist", "rows": n, "features": F, "bins": B, "slots": K,
+          "slotted_rows": m, "scales": list(scales),
+          "checked": "bit-identical to the plain versions",
+          **{k: v for k, v in rows_out.items()}})
+    return rows_out
+
+
+def phase_wide_bins(lt):
+    """Groups of more than 256 bins (``max_bin=1023``): B3 writes int32,
+    B4 reads it, B5 scans 1023 bins.  B3 against ``_bin_block`` byte for
+    byte, and a short training run against its plain-version twin, model
+    text byte for byte."""
+    from lightgbm_tpu_torch.testing import higgs_like
+    X, y = higgs_like(WIDE_ROWS, seed=13)
+    X[::97, 3] = np.nan
+
+    def run():
+        ds = lt.Dataset(X, label=y,
+                        params={"max_bin": WIDE_PARAMS["max_bin"]})
+        bst = lt.train(WIDE_PARAMS, ds, WIDE_ROUNDS, verbose_eval=False)
+        return ds, bst.model_to_string()
+
+    ds, text = run()
+    if ds.binned_t.dtype != torch.int32:
+        raise AssertionError(f"wide groups binned as {ds.binned_t.dtype}")
+    ref = np.zeros((WIDE_ROWS, ds.num_groups), ds.binned_dtype())
+    ds._bin_block(X.astype(np.float64), ref)
+    if not np.array_equal(ds.binned_t.cpu().numpy().T, ref):
+        raise AssertionError("wide-bin binned matrix differs from "
+                             "_bin_block")
+    saved = plain_kernels()
+    try:
+        _, text_p = run()
+    finally:
+        restore_kernels(saved)
+    if text != text_p:
+        raise AssertionError("wide-bin model text differs from the "
+                             "plain-version run")
+    emit({"phase": "wide_bins", "rows": WIDE_ROWS,
+          "max_num_bin": int(ds.feature_meta().max_num_bin),
+          "binned": str(ds.binned_t.dtype), "rounds": WIDE_ROUNDS,
+          "checked": "binned bytes equal _bin_block; model text "
+                     "byte-identical to the plain run"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -373,14 +809,16 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    lib = _build.build(["traverse"])["traverse"]
-    info = _build.build_info["traverse"]
+    libs = _build.build(["traverse", "ingest", "fused"])
+    root = os.path.dirname(os.path.abspath(__file__))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "fresh": info["seconds"] > 0,
-          "library": os.path.relpath(lib, os.path.dirname(
-              os.path.abspath(__file__))),
-          "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "libraries": {
+              name: {"path": os.path.relpath(lib, root),
+                     "fresh": _build.build_info[name]["seconds"] > 0,
+                     "ptxas": [ln.strip() for ln in
+                               _build.build_info[name]["ptxas"].splitlines()
+                               if "registers" in ln or "spill" in ln]}
+              for name, lib in libs.items()}})
 
     t0 = time.perf_counter()
     higgs = synthetic_model_text(28, 500, 255, seed=7)
@@ -398,16 +836,40 @@ def main() -> int:
 
     rows, max_err = phase_kernel(pk, models)
     launches = phase_serve(pk, models["higgs_500x255"][0], 28, 7)
+    del models
+    train_launches, ds, X, bst = phase_train(lt)
+    ing = phase_ingest(ds, X)
+    hist = phase_hist(ds, bst)
+    phase_wide_bins(lt)
 
     head = rows[("higgs_500x255", TIMED_ROWS[2], False)]
-    emit({"kernels": [{
+    table = [{
         "name": KERNEL, "route": "cuda",
         "source": "lightgbm_tpu_torch/ops/csrc/traverse.cu",
         "replaces": "lightgbm_tpu/ops/predict_kernels.py:238",
         "launches": launches, "max_abs_err": max_err,
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}]
+    fused_src = "lightgbm_tpu_torch/ops/csrc/fused.cu"
+    for name, src, replaces, r in (
+            ("ingest", "lightgbm_tpu_torch/ops/csrc/ingest.cu",
+             "lightgbm_tpu/ops/ingest.py:233", ing),
+            ("fused_frontier_splits", fused_src,
+             "lightgbm_tpu/ops/fused.py:151",
+             hist["fused_frontier_splits"]),
+            ("fused_frontier_accumulate", fused_src,
+             "lightgbm_tpu/ops/fused.py:375",
+             hist["fused_frontier_accumulate"]),
+            ("fused_sibling_scan", fused_src,
+             "lightgbm_tpu/ops/fused.py:403", hist["fused_sibling_scan"])):
+        table.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,23 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-Today it serves models: a LightGBM-format model text loads into
-``Booster``, whose ``predict`` and ``serve`` route rows through a
-hand-written CUDA traversal kernel on an NVIDIA Hopper card
-(``ops/csrc/traverse.cu``) and through its plain PyTorch version on the
-CPU.  Training is not ported yet.
+It trains and serves models.  ``Dataset`` bins rows on the card
+(``ops/csrc/ingest.cu``); ``train`` grows each tree with the
+batched-frontier grower, whose histograms and split scans run in
+hand-written CUDA kernels (``ops/csrc/fused.cu``); ``Booster.predict``
+and ``serve`` route rows through the traversal kernel
+(``ops/csrc/traverse.cu``).  On the CPU (``device="cpu"``) every kernel
+runs as its plain PyTorch version.  The slice trains single-device
+``gbdt`` with the ``regression`` and ``binary`` objectives on numeric
+features; other configurations raise ``NotImplementedError``.
 """
 
 from .basic import Booster
+from .callback import early_stopping, log_evaluation, record_evaluation
+from .dataset import Dataset
+from .engine import train
 from .utils.log import LightGBMError
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 
 def serve(model, config=None, device=None, **overrides):
@@ -22,4 +29,6 @@ def serve(model, config=None, device=None, **overrides):
     return Server(model, config=config, **overrides)
 
 
-__all__ = ["Booster", "LightGBMError", "serve", "__version__"]
+__all__ = ["Booster", "Dataset", "LightGBMError", "early_stopping",
+           "log_evaluation", "record_evaluation", "serve", "train",
+           "__version__"]

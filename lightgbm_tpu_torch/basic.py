@@ -1,10 +1,14 @@
-"""Booster: the user-facing handle of a loaded model (counterpart of the
-loaded-model half of ``lightgbm_tpu/basic.py``).
+"""Booster: the user-facing model handle (counterpart of
+``lightgbm_tpu/basic.py``).
 
-reference: python-package/lightgbm/basic.py:1704 (class Booster).  The
-Booster owns one torch device.  ``device=None`` means the CUDA card, and
-a host without one raises instead of quietly running on the CPU; the
-CPU is used only when the caller asks for it (``device="cpu"``).
+reference: python-package/lightgbm/basic.py:1704 (class Booster).  A
+Booster either trains (``train_set=``, through ``boosting.GBDT``) or
+holds a loaded model (``model_file=``/``model_str=``); both predict and
+serve through the same path.  The Booster owns one torch device: a
+training Booster takes its Dataset's; a loaded one takes ``device``,
+where ``None`` means the CUDA card, and a host without one raises
+instead of quietly running on the CPU; the CPU is used only when the
+caller asks for it (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,44 +39,123 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Booster:
-    def __init__(self, params: Optional[dict] = None, *,
+    def __init__(self, params: Optional[dict] = None, train_set=None, *,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None, device=None):
         self.params = dict(params or {})
-        self.device = resolve_device(device)
         self.best_iteration = -1
+        self.best_score: Dict = {}
+        self.boosting = None
+        self._loaded: Optional[dict] = None
+        if train_set is not None:
+            self.device = train_set.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"the Dataset lives on {self.device}, not "
+                                 f"{device}")
+            self._init_train(train_set)
+            return
+        self.device = resolve_device(device)
         if model_file is not None:
             with open(model_file) as fh:
                 model_str = fh.read()
         if model_str is None:
-            raise ValueError("need model_file or model_str")
+            raise ValueError("need train_set, model_file or model_str")
         self._loaded = load_model_from_string(model_str)
         self.pandas_categorical = self._loaded.get("pandas_categorical")
+
+    # -------------------------------------------------------------- training
+
+    def _init_train(self, train_set) -> None:
+        from .boosting.gbdt import GBDT, check_supported
+        from .config import Config
+        from .objectives import create_objective
+        self.config = Config.from_params(self.params)
+        check_supported(self.config)
+        merged = dict(self.config.to_dataset_params())
+        merged.update(train_set.params)
+        train_set.params = merged
+        train_set.construct()
+        self.train_set = train_set
+        self.pandas_categorical = None
+        self.objective = create_objective(self.config)
+        self.boosting = GBDT(self.config, train_set, self.objective)
+        self._train_data_name = "training"
+        names = self.config.metric or self.config.default_metric()
+        self._metric_names = [m for m in names if m.lower()
+                              not in ("none", "na", "null", "custom")]
+        self.boosting.set_metrics(
+            self._build_metrics(train_set.metadata, train_set.num_data), [])
+
+    def _build_metrics(self, metadata, num_data):
+        from .metrics import create_metric
+        ms = []
+        for name in self._metric_names:
+            m = create_metric(name, self.config)
+            if m is not None:
+                m.init(metadata, num_data)
+                ms.append(m)
+        return ms
+
+    def add_valid(self, data, name: str) -> "Booster":
+        if data.reference is None:
+            data.reference = self.train_set
+        data.construct()
+        self.boosting.add_valid(data, name)
+        self.boosting.valid_metrics.append(
+            self._build_metrics(data.metadata, data.num_data))
+        return self
+
+    def update(self) -> bool:
+        """One boosting iteration; True when training stopped (no more
+        splits).  reference: basic.py:2089 Booster.update."""
+        return self.boosting.train_one_iter()
+
+    def current_iteration(self) -> int:
+        if self.boosting is not None:
+            return self.boosting.current_iteration()
+        return len(self.models) // self.num_tree_per_iteration
+
+    def eval_train(self):
+        name = self._train_data_name
+        return [(name, n, v, h) for (_, n, v, h) in self.boosting.eval_train()]
+
+    def eval_valid(self):
+        return list(self.boosting.eval_valid())
 
     # ------------------------------------------------------------- structure
 
     @property
     def models(self) -> List[HostTree]:
+        if self.boosting is not None:
+            return self.boosting.models
         return self._loaded["models"]
 
     @property
     def num_tree_per_iteration(self) -> int:
+        if self.boosting is not None:
+            return self.boosting.num_tree_per_iteration
         return self._loaded["num_tree_per_iteration"]
 
     @property
     def num_class(self) -> int:
+        if self.boosting is not None:
+            return self.config.num_class
         return self._loaded["num_class"]
 
     def num_trees(self) -> int:
         return len(self.models)
 
     def num_features(self) -> int:
+        if self.boosting is not None:
+            return self.train_set.num_total_features
         return self._loaded["max_feature_idx"] + 1
 
     def num_feature(self) -> int:
         return self.num_features()
 
     def feature_name(self) -> List[str]:
+        if self.boosting is not None:
+            return list(self.train_set.feature_names)
         return self._loaded["feature_names"]
 
     # ------------------------------------------------------------- inference
@@ -232,14 +315,23 @@ class Booster:
 
     @property
     def sub_model_name(self) -> str:
+        if self.boosting is not None:
+            return "tree"
         return self._loaded["sub_model_name"]
 
     @property
     def average_output(self) -> bool:
+        if self.boosting is not None:
+            return False
         return self._loaded["average_output"]
 
     @property
     def objective_name(self) -> str:
+        if self.boosting is not None:
+            name = self.objective.name
+            if name == "binary":
+                return f"binary sigmoid:{self.config.sigmoid:g}"
+            return name
         return self._loaded["objective_name"]
 
     @property
@@ -256,7 +348,15 @@ class Booster:
 
     @property
     def feature_infos(self) -> List[str]:
-        return self._loaded["feature_infos"]
+        """reference format: [min:max] per numeric feature, "none" for a
+        trivial one."""
+        if self.boosting is None:
+            return self._loaded["feature_infos"]
+        out = []
+        for m in self.train_set.bin_mappers:
+            out.append("none" if m.is_trivial
+                       else f"[{m.min_val:g}:{m.max_val:g}]")
+        return out
 
     @property
     def params_str(self) -> str:

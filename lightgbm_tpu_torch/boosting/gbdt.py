@@ -1,0 +1,288 @@
+"""GBDT training loop on one device (counterpart of the single-device part
+of ``lightgbm_tpu/boosting/gbdt.py``).
+
+reference: src/boosting/gbdt.cpp — GBDT::Init (:42), TrainOneIter (:338),
+Bagging (:163), BoostFromAverage (:302), UpdateScore (:459).  One
+iteration: gradients from the objective (torch, on the device) ->
+bagging mask -> one tree by the batched-frontier grower with the fused
+histogram kernels -> shrinkage -> train and valid score updates -> the
+host tree.  Bagging and column sampling draw from NumPy ``RandomState``
+streams seeded as the JAX package seeds them, so both packages sample
+the same rows and features.
+
+The configurations the slice does not cover raise ``NotImplementedError``
+naming the ROADMAP item that brings them; none is trained another way.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..dataset import Dataset
+from ..grower import GrowerConfig, predict_leaf_index_binned
+from ..grower_rounds import grow_tree_rounds
+from ..objectives import ObjectiveFunction
+from ..tree import HostTree, tree_to_host
+from ..utils.log import log_info, log_warning
+
+K_EPSILON = 1e-15
+
+
+def check_supported(config: Config) -> None:
+    """Raise ``NotImplementedError`` for every configuration outside the
+    slice (single-device gbdt, numeric features, f32 gradients)."""
+    c = config
+
+    def no(what: str, item: str) -> None:
+        raise NotImplementedError(
+            f"{what} is not ported to lightgbm_tpu_torch yet; it waits for "
+            f"ROADMAP queue A ({item})")
+
+    if c.use_quantized_grad:
+        no("use_quantized_grad", "quantized training with a bit-exact "
+           "threefry2x32")
+    if c.boosting not in ("gbdt", "gbrt"):
+        no(f"boosting={c.boosting}", "GOSS, DART and RF")
+    if c.num_class > 1 or c.objective in ("multiclass", "multiclassova"):
+        no("multiclass", "multiclass")
+    if c.monotone_constraints and any(int(v) for v in c.monotone_constraints):
+        no("monotone_constraints", "categorical and monotone")
+    if c.extra_trees:
+        no("extra_trees", "per-node randomness")
+    if c.feature_fraction_bynode < 1.0:
+        no("feature_fraction_bynode", "per-node randomness")
+    if (c.cegb_penalty_split > 0.0 or c.cegb_penalty_feature_lazy
+            or c.cegb_penalty_feature_coupled):
+        no("CEGB", "CEGB and forced splits")
+    if c.forcedsplits_filename:
+        no("forced splits", "CEGB and forced splits")
+    tl = str(c.tree_learner).lower()
+    if tl not in ("serial", "serial_tree_learner") or c.num_machines > 1:
+        no(f"tree_learner={c.tree_learner}", "sharded training")
+    if c.tpu_tree_growth not in ("auto", "rounds"):
+        no(f"tpu_tree_growth={c.tpu_tree_growth}", "the serial grower")
+    if c.tpu_hist_method not in ("auto", "fused"):
+        no(f"tpu_hist_method={c.tpu_hist_method}",
+           "EFB and the staged histogram family")
+
+
+class GBDT:
+    """reference: class GBDT (src/boosting/gbdt.h)."""
+
+    boosting_type = "gbdt"
+
+    def __init__(self, config: Config, train_set: Dataset,
+                 objective: Optional[ObjectiveFunction]):
+        check_supported(config)
+        if objective is None:
+            raise NotImplementedError(
+                "custom objectives wait for ROADMAP queue A (objectives)")
+        self.config = config
+        self.train_set = train_set.construct()
+        self.device = self.train_set.device
+        self.objective = objective
+        self.num_class = config.num_class
+        self.num_tree_per_iteration = 1
+        self.iter = 0
+        self.models: List[HostTree] = []
+        self.shrinkage_rate = config.learning_rate
+        self.meta = self.train_set.feature_meta()
+        if self.meta.has_bundles:
+            raise NotImplementedError(
+                "this dataset bundles features (EFB); bundled datasets wait "
+                "for ROADMAP queue A (EFB and the staged histogram family) — "
+                "pass enable_bundle=False")
+        if bool(self.meta.is_categorical.any()):
+            raise NotImplementedError(
+                "categorical features wait for ROADMAP queue A (categorical "
+                "and monotone)")
+        self.num_data = self.train_set.num_data
+        self.num_bins = int(self.meta.max_num_bin)
+        self.binned_t = self.train_set.binned_t
+        self.meta_t = self.meta.tensors(self.device)
+        objective.init(self.train_set.metadata, self.num_data, self.device)
+        n = self.num_data
+        self.train_score = torch.zeros((1, n), dtype=torch.float32,
+                                       device=self.device)
+        self.init_scores = [0.0]
+        self._init_score_added = False
+        isc = self.train_set.metadata.init_score
+        if isc is not None:
+            self.train_score += torch.as_tensor(
+                np.asarray(isc, np.float32).reshape(1, n), device=self.device)
+            self._init_score_added = True
+        self.valid_sets: List[Dataset] = []
+        self.valid_names: List[str] = []
+        self.valid_scores: List[torch.Tensor] = []
+        self.train_metrics: list = []
+        self.valid_metrics: List[list] = []
+        self._rng = np.random.RandomState(config.bagging_seed)
+        self._feature_rng = np.random.RandomState(
+            config.feature_fraction_seed)
+        self._cur_mask = None
+        self._row_valid = torch.ones(n, dtype=torch.float32,
+                                     device=self.device)
+        self._ones_fmask = None
+        self.grower_cfg = GrowerConfig(
+            num_leaves=config.num_leaves, max_depth=config.max_depth,
+            hp=config.split_hyperparams(), num_bins=self.num_bins,
+            round_width=config.tpu_round_width)
+        # a utils.timer.SectionTimer here splits each iteration's time
+        # into sections; None keeps the run free of synchronisation
+        self.timer = None
+
+    def _section(self, name: str):
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.section(name)
+
+    # ------------------------------------------------------------------ setup
+
+    def add_valid(self, valid_set: Dataset, name: str) -> None:
+        valid_set.construct()
+        if valid_set.device != self.device:
+            raise ValueError(f"valid set on {valid_set.device}, training on "
+                             f"{self.device}")
+        self.valid_sets.append(valid_set)
+        self.valid_names.append(name)
+        nv = valid_set.num_data
+        vs = torch.zeros((1, nv), dtype=torch.float32, device=self.device)
+        isc = valid_set.metadata.init_score
+        if isc is not None:
+            vs += torch.as_tensor(np.asarray(isc, np.float32).reshape(1, nv),
+                                  device=self.device)
+        self.valid_scores.append(vs)
+
+    def set_metrics(self, train_metrics, valid_metrics_per_set) -> None:
+        self.train_metrics = train_metrics
+        self.valid_metrics = valid_metrics_per_set
+
+    # --------------------------------------------------------------- training
+
+    def _bagging_mask(self, it: int) -> torch.Tensor:
+        """reference: GBDT::Bagging (gbdt.cpp:163-244) as a weight mask,
+        with the JAX package's RandomState draws."""
+        c = self.config
+        n = self.num_data
+        need = c.bagging_freq > 0 and c.bagging_fraction < 1.0
+        need_posneg = (c.pos_bagging_fraction < 1.0
+                       or c.neg_bagging_fraction < 1.0)
+        if not (need or need_posneg):
+            return self._row_valid
+        if it % max(c.bagging_freq, 1) != 0 and self._cur_mask is not None:
+            return self._cur_mask
+        if need_posneg:
+            lbl = np.asarray(self.train_set.metadata.label) > 0
+            u = self._rng.rand(n)
+            keep = np.where(lbl, u < c.pos_bagging_fraction,
+                            u < c.neg_bagging_fraction)
+        else:
+            cnt = int(n * c.bagging_fraction)
+            idx = self._rng.choice(n, size=cnt, replace=False)
+            keep = np.zeros(n, bool)
+            keep[idx] = True
+        self._cur_mask = torch.as_tensor(keep.astype(np.float32),
+                                         device=self.device)
+        return self._cur_mask
+
+    def _feature_masks(self) -> torch.Tensor:
+        """Per-tree column sampling (reference: ColSampler by-tree,
+        col_sampler.hpp:19), [1, F]."""
+        F = len(self.train_set.used_features)
+        frac = self.config.feature_fraction
+        if frac >= 1.0:
+            if self._ones_fmask is None:
+                self._ones_fmask = torch.ones((1, F), dtype=torch.float32,
+                                              device=self.device)
+            return self._ones_fmask
+        cnt = max(1, int(round(F * frac)))
+        masks = np.zeros((1, F), np.float32)
+        masks[0, self._feature_rng.choice(F, size=cnt, replace=False)] = 1.0
+        return torch.as_tensor(masks, device=self.device)
+
+    def boost_from_average(self) -> None:
+        """reference: GBDT::BoostFromAverage (gbdt.cpp:313)."""
+        if self.iter > 0 or self._init_score_added:
+            return
+        if not self.config.boost_from_average:
+            return
+        self._init_score_added = True
+        s = self.objective.boost_from_score(0)
+        if abs(s) > K_EPSILON:
+            self.init_scores[0] = s
+            self.train_score[0] += float(np.float32(s))
+            for vs in self.valid_scores:
+                vs[0] += float(np.float32(s))
+            log_info(f"Start training from score {s:.6f}")
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; True when training should stop (no
+        splittable leaf).  reference: GBDT::TrainOneIter."""
+        self.boost_from_average()
+        with self._section("objective"):
+            grad, hess = self.objective.get_gradients(self.train_score[0])
+            mask = self._bagging_mask(self.iter)
+            fmask = self._feature_masks()
+        tree, leaf_id = grow_tree_rounds(
+            self.binned_t, grad, hess, mask, self.meta, self.grower_cfg,
+            feature_mask=fmask[0], meta_t=self.meta_t, timer=self.timer)
+        with self._section("score"):
+            lr = float(np.float32(self.shrinkage_rate))
+            tree = tree._replace(leaf_value=tree.leaf_value * lr,
+                                 internal_value=tree.internal_value * lr)
+            self.train_score[0] += tree.leaf_value[leaf_id]
+        return self._finish_iter(tree)
+
+    def _finish_iter(self, tree) -> bool:
+        """Host tree, first-iteration bias, valid-score updates; True
+        when training should stop."""
+        with self._section("host_tree"):
+            ht = tree_to_host(tree, self.train_set, self.shrinkage_rate)
+        if ht.num_leaves <= 1:
+            log_warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            if self.iter == 0 and not self.models:
+                ht.leaf_value[:1] = self.init_scores[0]
+                self.models.append(ht)
+            return True
+        if self.iter == 0 and abs(self.init_scores[0]) > K_EPSILON:
+            ht.add_bias(self.init_scores[0])
+        self.models.append(ht)
+        with self._section("score"):
+            for i, vs in enumerate(self.valid_sets):
+                leaf = predict_leaf_index_binned(tree, vs.binned_t,
+                                                 self.meta_t)
+                self.valid_scores[i][0] += tree.leaf_value[leaf]
+        self.iter += 1
+        return False
+
+    # ------------------------------------------------------------------- eval
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        return self._eval("training", self.train_score, self.train_metrics)
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        for i, name in enumerate(self.valid_names):
+            out.extend(self._eval(name, self.valid_scores[i],
+                                  self.valid_metrics[i]))
+        return out
+
+    def _eval(self, dataname, score, metrics):
+        s = score.cpu().numpy()[0]
+        out = []
+        for m in metrics:
+            for (mname, val, hib) in m.eval(s, self.objective):
+                out.append((dataname, mname, val, hib))
+        return out
+
+    def num_trees(self) -> int:
+        return len(self.models)
+
+    def current_iteration(self) -> int:
+        return self.iter

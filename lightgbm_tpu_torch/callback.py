@@ -1,0 +1,118 @@
+"""Training callbacks: log/record evaluation and early stopping
+(counterpart of part of ``lightgbm_tpu/callback.py``).
+
+reference: python-package/lightgbm/callback.py (print_evaluation :60,
+record_evaluation :85, early_stopping :150).
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable, List
+
+CallbackEnv = collections.namedtuple(
+    "CallbackEnv",
+    ["model", "params", "iteration", "begin_iteration", "end_iteration",
+     "evaluation_result_list"])
+
+
+class EarlyStopException(Exception):
+    def __init__(self, best_iteration: int, best_score):
+        super().__init__()
+        self.best_iteration = best_iteration
+        self.best_score = best_score
+
+
+def _format_eval_result(value) -> str:
+    return f"{value[0]}'s {value[1]}: {value[2]:g}"
+
+
+def log_evaluation(period: int = 1) -> Callable:
+    """Print the evaluation results every ``period`` iterations."""
+    def _callback(env: CallbackEnv) -> None:
+        if period > 0 and env.evaluation_result_list and \
+                (env.iteration + 1) % period == 0:
+            result = "\t".join(_format_eval_result(x)
+                               for x in env.evaluation_result_list)
+            print(f"[{env.iteration + 1}]\t{result}")
+    _callback.order = 10
+    return _callback
+
+
+print_evaluation = log_evaluation
+
+
+def record_evaluation(eval_result: dict) -> Callable:
+    """Record every evaluation into ``eval_result[data][metric]``."""
+    if not isinstance(eval_result, dict):
+        raise TypeError("eval_result should be a dict")
+    eval_result.clear()
+
+    def _callback(env: CallbackEnv) -> None:
+        for item in env.evaluation_result_list:
+            eval_result.setdefault(item[0], collections.OrderedDict())
+            eval_result[item[0]].setdefault(item[1], []).append(item[2])
+    _callback.order = 20
+    return _callback
+
+
+def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
+                   verbose: bool = True) -> Callable:
+    """reference: callback.py:150."""
+    best_score: List = []
+    best_iter: List = []
+    best_score_list: List = []
+    cmp_op: List = []
+    first_metric: List[str] = [""]
+
+    def _init(env: CallbackEnv) -> None:
+        if not env.evaluation_result_list:
+            raise ValueError(
+                "For early stopping, at least one dataset and eval metric is "
+                "required for evaluation")
+        if verbose:
+            print(f"Training until validation scores don't improve for "
+                  f"{stopping_rounds} rounds")
+        first_metric[0] = env.evaluation_result_list[0][1].split(" ")[-1]
+        for eval_ret in env.evaluation_result_list:
+            best_iter.append(0)
+            best_score_list.append(None)
+            if eval_ret[3]:
+                best_score.append(float("-inf"))
+                cmp_op.append(lambda x, y: x > y)
+            else:
+                best_score.append(float("inf"))
+                cmp_op.append(lambda x, y: x < y)
+
+    def _callback(env: CallbackEnv) -> None:
+        if not cmp_op:
+            if not env.evaluation_result_list:
+                return
+            _init(env)
+        for i in range(len(env.evaluation_result_list)):
+            score = env.evaluation_result_list[i][2]
+            if best_score_list[i] is None or cmp_op[i](score, best_score[i]):
+                best_score[i] = score
+                best_iter[i] = env.iteration
+                best_score_list[i] = env.evaluation_result_list
+            name = env.evaluation_result_list[i][1].split(" ")
+            if first_metric_only and first_metric[0] != name[-1]:
+                continue
+            if env.iteration - best_iter[i] >= stopping_rounds:
+                if verbose:
+                    print("Early stopping, best iteration is:\n"
+                          f"[{best_iter[i] + 1}]\t"
+                          + "\t".join(_format_eval_result(x)
+                                      for x in best_score_list[i]))
+                raise EarlyStopException(best_iter[i], best_score_list[i])
+            if env.iteration == env.end_iteration - 1:
+                if verbose:
+                    print("Did not meet early stopping. Best iteration is:\n"
+                          f"[{best_iter[i] + 1}]\t"
+                          + "\t".join(_format_eval_result(x)
+                                      for x in best_score_list[i]))
+                raise EarlyStopException(best_iter[i], best_score_list[i])
+            if first_metric_only:
+                break
+    _callback.order = 30
+    return _callback

@@ -1,0 +1,120 @@
+"""Training entry point (counterpart of ``train`` in
+``lightgbm_tpu/engine.py``).
+
+reference: python-package/lightgbm/engine.py:18.  One boosting iteration
+per step; the JAX package's macro-chunks and pause control are not
+ported.  Training runs on the Dataset's device: ``device=None`` keeps
+it (a new Dataset defaults to the CUDA card), ``device="cpu"`` moves a
+not-yet-constructed Dataset and its valid sets to the CPU.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Callable, List, Optional
+
+from . import callback as callback_mod
+from .basic import Booster, resolve_device
+from .config import Config
+from .dataset import Dataset
+
+
+def _place(ds: Dataset, device) -> None:
+    if ds.device == device:
+        return
+    if ds.constructed:
+        raise ValueError(f"the Dataset was constructed on {ds.device}; "
+                         f"cannot train it on {device}")
+    ds.device = device
+
+
+def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
+          valid_sets: Optional[List[Dataset]] = None,
+          valid_names: Optional[List[str]] = None,
+          early_stopping_rounds: Optional[int] = None,
+          evals_result: Optional[dict] = None,
+          verbose_eval=True, callbacks: Optional[List[Callable]] = None,
+          device=None, **unsupported) -> Booster:
+    """Train a model; returns the Booster (reference: engine.py:18)."""
+    for key, val in unsupported.items():
+        if val is not None:
+            raise NotImplementedError(
+                f"train(..., {key}=) waits for ROADMAP queue A "
+                "(training options)")
+    params = dict(params)
+    cfg = Config.from_params(params)
+    if "num_iterations" in {Config.canonical_key(k) for k in params}:
+        num_boost_round = cfg.num_iterations
+    params["num_iterations"] = num_boost_round
+    if isinstance(valid_sets, Dataset):
+        valid_sets = [valid_sets]
+    if isinstance(valid_names, str):
+        valid_names = [valid_names]
+    if device is not None:
+        dev = resolve_device(device)
+        for ds in [train_set] + list(valid_sets or []):
+            _place(ds, dev)
+
+    booster = Booster(params=params, train_set=train_set)
+    train_in_valid = False
+    if valid_sets:
+        names_given = valid_names is not None
+        valid_names = valid_names or [f"valid_{i}"
+                                      for i in range(len(valid_sets))]
+        for vs, name in zip(valid_sets, valid_names):
+            if vs is train_set:
+                train_in_valid = True
+                if names_given:
+                    booster._train_data_name = name
+                continue
+            booster.add_valid(vs, name)
+
+    cbs = set(callbacks or [])
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        cbs.add(callback_mod.early_stopping(
+            early_stopping_rounds, cfg.first_metric_only,
+            verbose=bool(verbose_eval)))
+    if cfg.early_stopping_round and cfg.early_stopping_round > 0:
+        cbs.add(callback_mod.early_stopping(
+            cfg.early_stopping_round, cfg.first_metric_only,
+            verbose=bool(verbose_eval)))
+    if verbose_eval is True:
+        cbs.add(callback_mod.log_evaluation())
+    elif isinstance(verbose_eval, int) and verbose_eval > 0:
+        cbs.add(callback_mod.log_evaluation(verbose_eval))
+    if evals_result is not None:
+        cbs.add(callback_mod.record_evaluation(evals_result))
+    cbs_after = sorted(cbs, key=lambda cb: getattr(cb, "order", 0))
+
+    mf = max(int(cfg.metric_freq), 1)
+    eval_possible = bool(
+        (valid_sets and booster.boosting.valid_metrics)
+        or cfg.is_provide_training_metric or train_in_valid)
+    evaluation_result_list = []
+    for i in range(num_boost_round):
+        finished = booster.update()
+        evaluation_result_list = []
+        if eval_possible and (i + 1) % mf == 0:
+            if cfg.is_provide_training_metric or train_in_valid:
+                evaluation_result_list.extend(booster.eval_train())
+            evaluation_result_list.extend(booster.eval_valid())
+        try:
+            for cb in cbs_after:
+                cb(callback_mod.CallbackEnv(booster, params, i, 0,
+                                            num_boost_round,
+                                            evaluation_result_list))
+        except callback_mod.EarlyStopException as e:
+            booster.best_iteration = e.best_iteration + 1
+            for item in e.best_score:
+                booster.best_score.setdefault(item[0],
+                                              collections.OrderedDict())
+                booster.best_score[item[0]][item[1]] = item[2]
+            break
+        if finished:
+            break
+    if booster.best_iteration <= 0:
+        booster.best_iteration = booster.current_iteration()
+        for item in evaluation_result_list:
+            booster.best_score.setdefault(item[0], collections.OrderedDict())
+            booster.best_score[item[0]][item[1]] = item[2]
+    return booster

@@ -1,0 +1,157 @@
+"""Tree arrays, grower configuration and the bin-space decision rule
+(counterpart of the shared half of ``lightgbm_tpu/grower.py``).
+
+Node numbering matches the reference Tree (include/LightGBM/tree.h:60-85):
+internal node s = s-th split; child pointers >= 0 are internal nodes,
+negative values are leaves encoded as ``~leaf_index``; the left child
+keeps the parent's leaf index, the right child gets leaf index
+``num_leaves``.  The serial ``grow_tree`` is not ported (the trainer
+runs ``grower_rounds.grow_tree_rounds``); categorical splits are not
+ported either, so the arrays carry numeric splits only.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .binning import MissingType
+from .ops.split import SplitHyperparams
+
+
+class TreeArrays(NamedTuple):
+    """Flat-array tree on the device; L leaves, L-1 internal nodes."""
+
+    split_feature: torch.Tensor    # [L-1] int64 (index into used features)
+    threshold_bin: torch.Tensor    # [L-1] int32
+    default_left: torch.Tensor     # [L-1] bool
+    left_child: torch.Tensor       # [L-1] int32 (>= 0 node, < 0 ~leaf)
+    right_child: torch.Tensor      # [L-1] int32
+    split_gain: torch.Tensor       # [L-1] f32
+    internal_value: torch.Tensor   # [L-1] f32
+    internal_weight: torch.Tensor  # [L-1] f32
+    internal_count: torch.Tensor   # [L-1] f32
+    leaf_value: torch.Tensor       # [L] f32
+    leaf_weight: torch.Tensor      # [L] f32
+    leaf_count: torch.Tensor       # [L] f32
+    leaf_parent: torch.Tensor      # [L] int64
+    leaf_depth: torch.Tensor       # [L] int32
+    num_leaves: int
+
+    @staticmethod
+    def empty(L: int, device) -> "TreeArrays":
+        n = max(L - 1, 1)
+
+        def z(k, dt):
+            return torch.zeros(k, dtype=dt, device=device)
+        return TreeArrays(
+            split_feature=z(n, torch.int64), threshold_bin=z(n, torch.int32),
+            default_left=z(n, torch.bool), left_child=z(n, torch.int32),
+            right_child=z(n, torch.int32), split_gain=z(n, torch.float32),
+            internal_value=z(n, torch.float32),
+            internal_weight=z(n, torch.float32),
+            internal_count=z(n, torch.float32),
+            leaf_value=z(L, torch.float32), leaf_weight=z(L, torch.float32),
+            leaf_count=z(L, torch.float32),
+            leaf_parent=torch.full((L,), -1, dtype=torch.int64,
+                                   device=device),
+            leaf_depth=z(L, torch.int32), num_leaves=1)
+
+    def to_numpy(self) -> dict:
+        return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                for k, v in self._asdict().items()}
+
+
+class _LeafBest(NamedTuple):
+    """Per-leaf cached best split (structure of arrays over leaves)."""
+
+    gain: torch.Tensor
+    feature: torch.Tensor
+    threshold: torch.Tensor
+    default_left: torch.Tensor
+    left_sum_grad: torch.Tensor
+    left_sum_hess: torch.Tensor
+    left_count: torch.Tensor
+    right_sum_grad: torch.Tensor
+    right_sum_hess: torch.Tensor
+    right_count: torch.Tensor
+
+    @staticmethod
+    def empty(L: int, device) -> "_LeafBest":
+        def z(dt):
+            return torch.zeros(L, dtype=dt, device=device)
+        return _LeafBest(
+            gain=torch.full((L,), -float("inf"), dtype=torch.float32,
+                            device=device),
+            feature=z(torch.int64), threshold=z(torch.int32),
+            default_left=z(torch.bool), left_sum_grad=z(torch.float32),
+            left_sum_hess=z(torch.float32), left_count=z(torch.float32),
+            right_sum_grad=z(torch.float32), right_sum_hess=z(torch.float32),
+            right_count=z(torch.float32))
+
+    def store(self, ids: torch.Tensor, r) -> None:
+        """``self[ids] = r`` field by field, in place."""
+        for name in self._fields:
+            getattr(self, name)[ids] = getattr(r, name).to(
+                getattr(self, name).dtype)
+
+
+class GrowerConfig(NamedTuple):
+    """Grower configuration (the fields the fused rounds grower reads)."""
+
+    num_leaves: int = 31
+    max_depth: int = -1
+    hp: SplitHyperparams = SplitHyperparams()
+    num_bins: int = 255            # padded bin axis B
+    round_width: int = 128         # max splits committed per round
+
+
+def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,
+                  default_bin, num_bin) -> torch.Tensor:
+    """Numeric decision rule in bin space (reference: DenseBin::SplitInner,
+    src/io/dense_bin.hpp): missing rows follow ``default_left``, others
+    compare ``bin <= threshold``.  Every argument broadcasts per row."""
+    col = col.to(torch.int32)
+    is_missing = (((missing_type == MissingType.NAN) & (col == num_bin - 1))
+                  | ((missing_type == MissingType.ZERO)
+                     & (col == default_bin)))
+    return torch.where(is_missing, node_dl, col <= node_thr)
+
+
+def feature_bin(binned_t: torch.Tensor, feat: torch.Tensor,
+                meta_t: dict) -> torch.Tensor:
+    """Each row's bin of feature ``feat[row]`` (a per-row used-feature
+    index) from the [G, n] group matrix: one gather along the group axis,
+    then the EFB decode (singleton groups decode to themselves)."""
+    grp = meta_t["feat_group"][feat]
+    col = binned_t.gather(0, grp.to(torch.int64)[None, :])[0].to(torch.int32)
+    dec = col - meta_t["feat_start"][feat] + 1
+    nb = meta_t["num_bin"][feat]
+    return torch.where((dec >= 1) & (dec < nb), dec, torch.zeros_like(dec))
+
+
+def predict_leaf_index_binned(tree: TreeArrays, binned_t: torch.Tensor,
+                              meta_t: dict) -> torch.Tensor:
+    """Route binned rows ([G, n] feature-major) to leaf indices, all rows
+    one level per step (reference: Tree::Predict, tree.h:190)."""
+    n = binned_t.shape[1]
+    dev = binned_t.device
+    if tree.num_leaves <= 1:
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    while True:
+        live = node >= 0
+        if not bool(live.any()):
+            break
+        nd = node.clamp_min(0)
+        feat = tree.split_feature[nd]
+        binf = feature_bin(binned_t, feat, meta_t)
+        gl = row_goes_left(binf, tree.threshold_bin[nd],
+                           tree.default_left[nd],
+                           meta_t["missing_type"][feat],
+                           meta_t["default_bin"][feat],
+                           meta_t["num_bin"][feat])
+        nxt = torch.where(gl, tree.left_child[nd], tree.right_child[nd])
+        node = torch.where(live, nxt.to(torch.int64), node)
+    return ~node

@@ -1,0 +1,228 @@
+"""Batched-frontier leaf-wise tree growth (counterpart of the fused,
+unsharded, numeric arm of ``lightgbm_tpu/grower_rounds.py``).
+
+Same semantics as LightGBM's best-first growth (reference:
+src/treelearner/serial_tree_learner.cpp:149-193), a ROUND of splits at a
+time: each round applies the top ``k = min(#positive-gain leaves, leaf
+budget, KCAP)`` candidates in (gain desc, leaf asc) order, which is the
+sequence best-first would produce provided no child created by the round
+outranks the round's weakest applied candidate.  That proviso is checked
+after the children's best splits are known; the round commits only the
+maximal exact prefix (at least one split: the single best-first step).
+Trees, node and leaf numbering included, are those of the serial grower.
+
+The JAX package runs this as a ``lax.while_loop``; here it is a Python
+loop that reads ``k`` and the committed prefix ``m`` on the host once per
+round.  Per round: candidate ranking, row routing (one gather of each
+row's split-feature bin), the smaller-child slot of every row, the fused
+histogram -> split kernels (``ops.fused.frontier_splits``: accumulate +
+sibling scan), the feature pick, the exact-prefix check and the commit.
+The root histogram is the accumulate kernel with slot 0 for every member
+row, and its best split the scan kernel in leaf mode.
+
+Histograms are exact int64 fixed point at one scale per channel and tree
+(``ops/histogram.py``); the cache [L, 3, F, B] stays in int64, so every
+sibling ``parent - small`` is exact.  Leaf sums and gains are f32 from
+the scan, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+
+from .grower import (GrowerConfig, TreeArrays, _LeafBest, feature_bin,
+                     row_goes_left)
+from .ops import fused
+from .ops.histogram import _vals_t, fixed_point_scales
+from .ops.split import SplitResult, fixed_to_f32, leaf_output
+
+
+def _rows(r: SplitResult, sl) -> SplitResult:
+    return SplitResult(*(getattr(r, f)[sl] for f in r._fields))
+
+
+def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
+                     hess: torch.Tensor, row_mask: torch.Tensor, meta,
+                     cfg: GrowerConfig,
+                     feature_mask: Optional[torch.Tensor] = None,
+                     meta_t: Optional[dict] = None, timer=None,
+                     rounds: Optional[list] = None):
+    """Grow one tree.  ``binned_t`` [G, n] uint8/int32 (G == F: no
+    bundles), ``grad``/``hess``/``row_mask`` [n] f32 on the same device;
+    ``feature_mask`` [F] (0 = feature not sampled); ``timer`` a
+    ``utils.timer.SectionTimer``; ``rounds``, when given, gets one
+    ``(k, m)`` per round: candidates, and splits committed (m < k is a
+    rollback to the exact prefix).  Returns (TreeArrays, leaf_id [n]
+    int64)."""
+    meta = meta.resolved()
+    if meta.has_bundles:
+        raise NotImplementedError(
+            "EFB-bundled datasets wait for ROADMAP queue A (EFB and the "
+            "staged histogram family)")
+    if bool(meta.is_categorical.any()):
+        raise NotImplementedError(
+            "categorical features wait for ROADMAP queue A (categorical "
+            "and monotone)")
+    dev = binned_t.device
+    G, n = binned_t.shape
+    L = cfg.num_leaves
+    B = cfg.num_bins
+    hp = cfg.hp
+    KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
+    mt = meta_t if meta_t is not None else meta.tensors(dev)
+    num_bin, missing_type, default_bin = (
+        mt["num_bin"], mt["missing_type"], mt["default_bin"])
+    if timer is None:
+        def section(_name):
+            return contextlib.nullcontext()
+    else:
+        section = timer.section
+    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+
+    with section("kernels"):
+        vals = _vals_t(grad, hess, row_mask).contiguous()
+        scales = fixed_point_scales(vals)
+        member = row_mask > 0
+        # root: the accumulate kernel with slot 0 for every member row
+        slot0 = torch.where(member, 0, 1).to(torch.int32)
+        root = fused.accumulate(binned_t, vals, slot0, 1, B, scales)
+        # feature 0's bins partition the member rows: exact totals
+        root_sums = fixed_to_f32(root[0, :, 0, :].sum(-1), scales, 0)
+        nfb = fused.sibling_scan(root, scales, root_sums[:, None], num_bin,
+                                 missing_type, default_bin, hp)
+        r0 = fused.pick_fused_best(nfb, root_sums[0:1], root_sums[1:2],
+                                   root_sums[2:3], feature_mask)
+
+    tree = TreeArrays.empty(L, dev)
+    best = _LeafBest.empty(L, dev)
+    best.store(torch.zeros(1, dtype=torch.int64, device=dev), r0)
+    hist = torch.zeros((L, 3, G, B), dtype=torch.int64, device=dev)
+    hist[0] = root[0]
+    leaf_sg = torch.zeros(L, dtype=torch.float32, device=dev)
+    leaf_sh = torch.zeros_like(leaf_sg)
+    leaf_cnt = torch.zeros_like(leaf_sg)
+    leaf_sg[0], leaf_sh[0], leaf_cnt[0] = root_sums[0], root_sums[1], \
+        root_sums[2]
+    leaf_parent_side = torch.zeros(L, dtype=torch.int32, device=dev)
+    leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
+    iota_L = torch.arange(L, device=dev)
+    num_leaves, split_idx = 1, 0
+
+    while split_idx < L - 1:
+        with section("routing"):
+            gains = torch.where(iota_L < num_leaves, best.gain, neg_inf)
+            pos = gains > 0.0
+            npos = int(pos.sum())
+            if npos == 0:
+                break
+            k = min(npos, L - num_leaves, KCAP)
+            # total order (gain desc, leaf asc) = successive best-first picks
+            order = torch.argsort(-gains, stable=True)
+            idl = order[:k]
+            crank_leaf = torch.full((L,), k, dtype=torch.int64, device=dev)
+            crank_leaf[idl] = torch.arange(k, device=dev)
+            small_left_l = best.left_count <= best.right_count
+            # every row's goes-left bit under its leaf's cached split
+            crank = crank_leaf[leaf_id]
+            f_r = best.feature[leaf_id]
+            binf = feature_bin(binned_t, f_r, mt)
+            gl = row_goes_left(binf, best.threshold[leaf_id],
+                               best.default_left[leaf_id], missing_type[f_r],
+                               default_bin[f_r], num_bin[f_r])
+            row_small = gl == small_left_l[leaf_id]
+            slot = torch.where(row_small & (crank < k) & member, crank,
+                               k).to(torch.int32)
+            ph = hist[idl]
+            b = best
+            csums = torch.stack([
+                torch.cat([b.left_sum_grad[idl], b.right_sum_grad[idl]]),
+                torch.cat([b.left_sum_hess[idl], b.right_sum_hess[idl]]),
+                torch.cat([b.left_count[idl], b.right_count[idl]])])
+
+        with section("kernels"):
+            seg, nfb = fused.frontier_splits(
+                binned_t, vals, slot, k, B, scales, csums, small_left_l[idl],
+                ph, num_bin, missing_type, default_bin, hp)
+            res = fused.pick_fused_best(nfb, csums[0], csums[1], csums[2],
+                                        feature_mask)
+
+        with section("routing"):
+            if cfg.max_depth > 0:
+                depth_c = tree.leaf_depth[idl] + 1
+                dd = torch.cat([depth_c, depth_c])
+                res = res._replace(gain=torch.where(dd >= cfg.max_depth,
+                                                    neg_inf, res.gain))
+            # maximal exact prefix: candidate i is the best-first pop at
+            # step i iff its gain >= every child of candidates 0..i-1
+            cg = torch.where(torch.isnan(res.gain), neg_inf, res.gain)
+            pcm = torch.cummax(torch.maximum(cg[:k], cg[k:]), dim=0).values
+            prev = torch.cat([neg_inf[None], pcm[:-1]])
+            follow = gains[idl] >= prev
+            follow[0] = True
+            m = min(k, int(torch.cumprod(follow.to(torch.int64),
+                                         dim=0).sum()))
+            if rounds is not None:
+                rounds.append((k, m))
+
+            # -- commit the first m candidates
+            ids = idl[:m]
+            r_ = torch.arange(m, device=dev)
+            node_of = split_idx + r_
+            newleaf = num_leaves + r_
+            par = tree.leaf_parent[ids]
+            side = leaf_parent_side[ids]
+            lfix = (par >= 0) & (side == 0)
+            rfix = (par >= 0) & (side == 1)
+            tree.left_child[par[lfix]] = node_of[lfix].to(torch.int32)
+            tree.right_child[par[rfix]] = node_of[rfix].to(torch.int32)
+            tree.split_feature[node_of] = b.feature[ids]
+            tree.threshold_bin[node_of] = b.threshold[ids]
+            tree.default_left[node_of] = b.default_left[ids]
+            tree.left_child[node_of] = (~ids).to(torch.int32)
+            tree.right_child[node_of] = (~newleaf).to(torch.int32)
+            tree.split_gain[node_of] = b.gain[ids]
+            tree.internal_value[node_of] = leaf_output(
+                leaf_sg[ids], leaf_sh[ids], hp.lambda_l1, hp.lambda_l2,
+                hp.max_delta_step)
+            tree.internal_weight[node_of] = leaf_sh[ids]
+            tree.internal_count[node_of] = leaf_cnt[ids]
+            depth = tree.leaf_depth[ids] + 1
+            tree.leaf_parent[ids] = node_of
+            tree.leaf_parent[newleaf] = node_of
+            tree.leaf_depth[ids] = depth
+            tree.leaf_depth[newleaf] = depth
+            leaf_parent_side[ids] = 0
+            leaf_parent_side[newleaf] = 1
+            # rows of a split leaf that go right take the new leaf
+            leaf_id = torch.where((crank < m) & ~gl, num_leaves + crank,
+                                  leaf_id)
+            leaf_sg[newleaf] = b.right_sum_grad[ids]
+            leaf_sh[newleaf] = b.right_sum_hess[ids]
+            leaf_cnt[newleaf] = b.right_count[ids]
+            leaf_sg[ids] = b.left_sum_grad[ids]
+            leaf_sh[ids] = b.left_sum_hess[ids]
+            leaf_cnt[ids] = b.left_count[ids]
+            small = seg[:m]
+            h_par = hist[ids]
+            h_left = torch.where(small_left_l[ids][:, None, None, None],
+                                 small, h_par - small)
+            hist[ids] = h_left
+            hist[newleaf] = h_par - h_left
+            best.store(ids, _rows(res, slice(0, m)))
+            best.store(newleaf, _rows(res, slice(k, k + m)))
+            num_leaves += m
+            split_idx += m
+
+    lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
+                     hp.max_delta_step)
+    active = iota_L < num_leaves
+    zero = torch.zeros_like(lv)
+    tree = tree._replace(
+        leaf_value=torch.where(active, lv, zero),
+        leaf_weight=torch.where(active, leaf_sh, zero),
+        leaf_count=torch.where(active, leaf_cnt, zero),
+        num_leaves=num_leaves)
+    return tree, leaf_id

@@ -1,0 +1,349 @@
+"""Histogram -> split search for a whole frontier (counterpart of
+``lightgbm_tpu/ops/fused.py``).
+
+The JAX package's Pallas megakernel (``_fused_call``) streams the binned
+rows once per frontier round, accumulates the K smaller-child
+histograms in a VMEM arena, derives each sibling from its parent and
+scans both children's per-feature gains.  On Hopper it is two kernels
+in ``csrc/fused.cu``, launched back to back on the current stream:
+
+- ``accumulate`` (kernel B4, the counterpart of
+  ``fused_frontier_accumulate``): [K, 3, F, B] int64 fixed-point sums of
+  the rows of each slot;
+- ``sibling_scan`` (kernel B5, the counterpart of ``fused_sibling_scan``):
+  sibling derive in int64 + the gain scan, six [NC, F] tuples.
+
+``frontier_splits`` runs the pair (the megakernel's function, B2).
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs
+the plain version (``ops.histogram.accumulate_plain``,
+``ops.split.numeric_feature_scan``) for CPU tensors; the two agree bit
+for bit because every sum is an exact integer (``ops/histogram.py``).
+``launch_counts`` counts kernel launches per entry, each where its
+kernel is launched; a B2 is counted at the scan launch that completes
+its pair.
+
+The functions named after the JAX package's (``fused_frontier_splits``,
+``fused_segment_splits``, ``fused_frontier_accumulate``,
+``fused_sibling_scan``) keep its f32 histograms at the interface and
+convert to fixed point inside; the grower calls the fixed-point entries
+directly and keeps its histogram cache in int64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import planner
+from .histogram import (accumulate_plain, fixed_point_scales, hist_scales,
+                        to_fixed)
+from .split import (K_MIN_SCORE, NumericFeatureBest, SplitHyperparams,
+                    SplitResult, f32, fixed_to_f32, numeric_feature_scan)
+
+_counts_lock = threading.Lock()
+launch_counts = {"fused_frontier_splits": 0,
+                 "fused_frontier_accumulate": 0,
+                 "fused_sibling_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    with _counts_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count(name: str) -> None:
+    with _counts_lock:
+        launch_counts[name] += 1
+
+
+# ----------------------------------------------------------------------
+# plain versions
+# ----------------------------------------------------------------------
+
+def derive_children(small: torch.Tensor, small_left: torch.Tensor,
+                    parent: torch.Tensor) -> torch.Tensor:
+    """[K, 3, F, B] smaller-child + parent int64 -> [2K, 3, F, B]
+    children [left 0..K-1, right K..2K-1], exact."""
+    sl = small_left.to(torch.bool)[:, None, None, None]
+    h_left = torch.where(sl, small, parent - small)
+    return torch.cat([h_left, parent - h_left])
+
+
+def scan_plain(small, scales, child_sums, num_bin, missing_type,
+               default_bin, hp, small_left=None, parent=None):
+    hist = (small if parent is None
+            else derive_children(small, small_left, parent))
+    return numeric_feature_scan(hist, scales, child_sums[0], child_sums[1],
+                                child_sums[2], num_bin, missing_type,
+                                default_bin, hp)
+
+
+# ----------------------------------------------------------------------
+# the kernels
+# ----------------------------------------------------------------------
+
+_lib_lock = threading.Lock()
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    with _lib_lock:
+        if _lib_handle is None:
+            from . import _build
+            lib = _build.load("fused")
+            p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.fused_accumulate.argtypes = [
+                p, i, p, p, i, i, i, i,        # binned, bytes, vals, slot, n F K B
+                i, i, i, p, i, i, i, p]        # s0-2, out, chunks, sb, threads, stream
+            lib.fused_accumulate.restype = ctypes.c_int
+            lib.fused_scan.argtypes = [
+                p, p, p, p, p, p, p,           # small parent sl sums nb mt db
+                i, i, i, i, i, i, i,           # K F B NC s0 s1 s2
+                i, fl, fl, fl, fl, fl,         # use_l1 l1 l2 mgain mdata mhess
+                p, p, p, p, p, p, p]           # six outputs, stream
+            lib.fused_scan.restype = ctypes.c_int
+            _lib_handle = lib
+        return _lib_handle
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins, scales):
+    F, n = binned_t.shape
+    K, B = int(num_slots), int(num_bins)
+    out = torch.zeros((K, 3, F, B), dtype=torch.int64,
+                      device=binned_t.device)
+    if n == 0 or K == 0 or F == 0:
+        return out
+    sb = planner.fused_slots_per_block(B)
+    chunks = planner.fused_row_chunks(n, F, -(-K // sb))
+    lib = _lib()
+    with torch.cuda.device(binned_t.device):
+        rc = lib.fused_accumulate(
+            binned_t.data_ptr(), binned_t.element_size(), vals_t.data_ptr(),
+            slot.data_ptr(), n, F, K, B, *scales, out.data_ptr(), chunks,
+            sb, planner.FUSED_ACC_THREADS, _stream(binned_t))
+    if rc != 0:
+        raise RuntimeError(f"accumulate kernel launch failed: CUDA error {rc}")
+    _count("fused_frontier_accumulate")
+    return out
+
+
+def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
+               default_bin, hp, small_left=None, parent=None, pair=False):
+    K, _, F, B = small.shape
+    NC = 2 * K if parent is not None else K
+    dev = small.device
+    outs = [torch.empty((NC, F), dtype=dt, device=dev) for dt in
+            (torch.float32, torch.int32, torch.int32, torch.float32,
+             torch.float32, torch.float32)]
+    if NC == 0 or F == 0:
+        return _best(outs)
+    if B > planner.FUSED_SCAN_MAX_BINS:
+        raise ValueError(f"the scan kernel takes at most "
+                         f"{planner.FUSED_SCAN_MAX_BINS} bins, got {B}")
+    sl = (small_left.to(torch.int32).contiguous()
+          if small_left is not None else None)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.fused_scan(
+            small.data_ptr(),
+            None if parent is None else parent.data_ptr(),
+            None if sl is None else sl.data_ptr(),
+            child_sums.data_ptr(), num_bin.data_ptr(),
+            missing_type.data_ptr(), default_bin.data_ptr(),
+            K, F, B, NC, *scales, int(hp.lambda_l1 > 0.0),
+            f32(hp.lambda_l1), f32(hp.lambda_l2),
+            f32(hp.min_gain_to_split), f32(hp.min_data_in_leaf),
+            f32(hp.min_sum_hessian_in_leaf),
+            *(o.data_ptr() for o in outs), _stream(small))
+    if rc != 0:
+        raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
+    _count("fused_sibling_scan")
+    if pair:
+        # the launch that completes an accumulate -> scan pair (B2)
+        _count("fused_frontier_splits")
+    return _best(outs)
+
+
+def _best(outs) -> NumericFeatureBest:
+    gain, thr, dl, lg, lh, lc = outs
+    return NumericFeatureBest(gain=gain, threshold=thr,
+                              default_left=dl.to(torch.bool),
+                              left_sum_grad=lg, left_sum_hess=lh,
+                              left_count=lc)
+
+
+def _check_device(*ts) -> str:
+    kinds = {t.device.type for t in ts if t is not None}
+    if len(kinds) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no fused kernels for device {kind}")
+    return kind
+
+
+# ----------------------------------------------------------------------
+# fixed-point entries (the grower's)
+# ----------------------------------------------------------------------
+
+def accumulate(binned_t: torch.Tensor, vals_t: torch.Tensor,
+               slot: torch.Tensor, num_slots: int, num_bins: int,
+               scales: Sequence[int]) -> torch.Tensor:
+    """Kernel B4: [K, 3, F, B] int64 sums of ``round(vals * 2**s)`` per
+    (slot, channel, feature, bin); ``slot == num_slots`` drops a row.
+    ``binned_t`` [F, n] uint8/int32, ``vals_t`` [3, n] f32, ``slot`` [n]
+    int32, all contiguous."""
+    if _check_device(binned_t, vals_t, slot) == "cpu":
+        return accumulate_plain(binned_t, vals_t, slot, num_slots,
+                                num_bins, scales)
+    if binned_t.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"binned matrix must be uint8 or int32, got "
+                         f"{binned_t.dtype}")
+    if vals_t.dtype != torch.float32 or slot.dtype != torch.int32:
+        raise ValueError("vals_t must be float32 and slot int32")
+    if not (binned_t.is_contiguous() and vals_t.is_contiguous()
+            and slot.is_contiguous()):
+        raise ValueError("accumulate takes contiguous tensors")
+    return _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
+                            tuple(int(s) for s in scales))
+
+
+def sibling_scan(small: torch.Tensor, scales: Sequence[int],
+                 child_sums: torch.Tensor, num_bin: torch.Tensor,
+                 missing_type: torch.Tensor, default_bin: torch.Tensor,
+                 hp: SplitHyperparams,
+                 small_left: Optional[torch.Tensor] = None,
+                 parent: Optional[torch.Tensor] = None, pair: bool = False
+                 ) -> NumericFeatureBest:
+    """Kernel B5: derive the children (parent mode: ``small`` holds each
+    candidate's smaller child, ``parent`` its parent; leaf mode: ``small``
+    holds the children) and scan them.  ``child_sums`` [3, NC] f32;
+    meta [F] int32.  Returns [NC, F] tuples.  ``pair`` (set by
+    ``frontier_splits``) also counts the launch as one of B2."""
+    if _check_device(small, child_sums, parent) == "cpu":
+        return scan_plain(small, scales, child_sums, num_bin, missing_type,
+                          default_bin, hp, small_left, parent)
+    if small.dtype != torch.int64 or (parent is not None
+                                      and parent.dtype != torch.int64):
+        raise ValueError("the scan kernel takes int64 histograms")
+    meta = [m.to(torch.int32).contiguous()
+            for m in (num_bin, missing_type, default_bin)]
+    return _scan_cuda(small.contiguous(), tuple(int(s) for s in scales),
+                      child_sums.to(torch.float32).contiguous(), *meta, hp,
+                      small_left,
+                      None if parent is None else parent.contiguous(),
+                      pair=pair)
+
+
+def frontier_splits(binned_t, vals_t, slot, num_slots, num_bins, scales,
+                    child_sums, small_left, parent, num_bin, missing_type,
+                    default_bin, hp):
+    """The megakernel's function (B2): accumulate the K smaller-child
+    histograms (B4), then derive each sibling and scan both children
+    (B5).  Returns (smaller-child hist [K, 3, F, B] int64, [2K, F]
+    tuples)."""
+    seg = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
+    nfb = sibling_scan(seg, scales, child_sums, num_bin, missing_type,
+                       default_bin, hp, small_left=small_left,
+                       parent=parent, pair=True)
+    return seg, nfb
+
+
+# ----------------------------------------------------------------------
+# the JAX package's interface (f32 histograms)
+# ----------------------------------------------------------------------
+
+def _meta(num_bin, missing_type, default_bin, device):
+    return [torch.as_tensor(np.asarray(m), dtype=torch.int32, device=device)
+            if not isinstance(m, torch.Tensor) else
+            m.to(device=device, dtype=torch.int32)
+            for m in (num_bin, missing_type, default_bin)]
+
+
+def fused_frontier_accumulate(binned_t, vals_t, slot, num_slots: int,
+                              num_bins: int) -> torch.Tensor:
+    """The K slot histograms [K, 3, F, B] f32 (each cell the f32 of its
+    exact sum)."""
+    scales = fixed_point_scales(vals_t)
+    hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
+    return fixed_to_f32(hist, scales, 1)
+
+
+def fused_sibling_scan(small_hist, child_sums, num_bin, missing_type,
+                       default_bin, hp: SplitHyperparams, small_left=None,
+                       parent_hist=None) -> NumericFeatureBest:
+    """Sibling derive + gain scan on given f32 histograms (converted to
+    fixed point at scales that bound every prefix of every child)."""
+    hs = [small_hist] + ([parent_hist] if parent_hist is not None else [])
+    scales = hist_scales(*hs)
+    small = to_fixed(small_hist, scales, 1)
+    parent = (to_fixed(parent_hist, scales, 1)
+              if parent_hist is not None else None)
+    meta = _meta(num_bin, missing_type, default_bin, small.device)
+    return sibling_scan(small, scales, torch.as_tensor(child_sums), *meta,
+                        hp, small_left=small_left, parent=parent)
+
+
+def fused_segment_splits(binned_t, vals_t, slot, num_slots: int,
+                         num_bins: int, slot_sums, num_bin, missing_type,
+                         default_bin, hp: SplitHyperparams
+                         ) -> Tuple[torch.Tensor, NumericFeatureBest]:
+    """Leaf mode: K slot histograms and their per-feature-best splits."""
+    scales = fixed_point_scales(vals_t)
+    hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
+    meta = _meta(num_bin, missing_type, default_bin, hist.device)
+    best = sibling_scan(hist, scales, torch.as_tensor(slot_sums), *meta, hp)
+    return fixed_to_f32(hist, scales, 1), best
+
+
+def fused_frontier_splits(binned_t, vals_t, slot, num_slots: int,
+                          num_bins: int, child_sums, small_left,
+                          parent_hist, num_bin, missing_type, default_bin,
+                          hp: SplitHyperparams
+                          ) -> Tuple[torch.Tensor, NumericFeatureBest]:
+    """Frontier mode: the K smaller-child histograms (f32) and the [2K, F]
+    tuples of both children of every candidate."""
+    scales = tuple(min(a, b) for a, b in zip(fixed_point_scales(vals_t),
+                                             hist_scales(parent_hist)))
+    parent = to_fixed(parent_hist, scales, 1)
+    meta = _meta(num_bin, missing_type, default_bin, parent.device)
+    seg, best = frontier_splits(
+        binned_t, vals_t, slot, num_slots, num_bins, scales,
+        torch.as_tensor(child_sums), torch.as_tensor(small_left), parent,
+        *meta, hp)
+    return fixed_to_f32(seg, scales, 1), best
+
+
+def pick_fused_best(best: NumericFeatureBest, sum_grad, sum_hess, num_data,
+                    feature_mask: Optional[torch.Tensor] = None
+                    ) -> SplitResult:
+    """argmax over features of the per-feature-best tuples (ties ->
+    smaller feature index), over the leading children axis; the feature
+    mask applies here, as ``feature_best_splits`` applies it."""
+    gain = best.gain
+    if feature_mask is not None:
+        gain = torch.where(feature_mask.to(torch.bool), gain,
+                           torch.full_like(gain, K_MIN_SCORE))
+    f = torch.argmax(gain, dim=-1)
+
+    def sel(a):
+        return a.gather(-1, f[..., None])[..., 0]
+
+    blg, blh, blc = (sel(best.left_sum_grad), sel(best.left_sum_hess),
+                     sel(best.left_count))
+    return SplitResult(
+        gain=sel(gain), feature=f, threshold=sel(best.threshold),
+        default_left=sel(best.default_left),
+        left_sum_grad=blg, left_sum_hess=blh, left_count=blc,
+        right_sum_grad=sum_grad - blg, right_sum_hess=sum_hess - blh,
+        right_count=num_data.to(torch.float32) - blc)

@@ -1,5 +1,5 @@
-"""Predict-path sizing (counterpart of the parts of
-``lightgbm_tpu/ops/planner.py`` that the predict path reads).
+"""Kernel sizing (counterpart of the parts of ``lightgbm_tpu/ops/planner.py``
+that the predict path and the fused training path read).
 
 The JAX planner elects a predict chunk and a row tile from a VMEM model
 of the TPU core, and pads each chunk to a ladder rung (``bucket_rows``)
@@ -14,7 +14,21 @@ both sizes here:
   thread per row), staged in shared memory as a ``[rows, F]`` f32 tile.
   128 rows of 28 features are 14 KiB; wider feature counts shrink the
   tile (``tile_rows_for``) so the tile stays inside the 48 KiB a block
-  gets without opting in, then opt into the larger dynamic limit.
+  gets without opting in, then opt into the larger dynamic limit.  The
+  binning kernel (``csrc/ingest.cu``) stages its row tiles the same way.
+
+The fused histogram kernels (``csrc/fused.cu``) take fixed tiles; the
+JAX planner's ``plan_fused`` VMEM model does not apply:
+
+- ``FUSED_SLOTS_PER_BLOCK``: slots whose [slots, 3, B] int64 arena one
+  accumulate block holds in shared memory: 16 x 3 x 256 x 8 bytes = 96
+  KiB at 256 bins, two blocks per SM.  Fewer for wider bin axes.
+- ``FUSED_ACC_THREADS``: threads per accumulate block (rows in flight).
+- ``FUSED_TARGET_BLOCKS``: accumulate blocks to aim for (about four per
+  SM of the 132); the row axis is cut into as many chunks as that needs
+  over features x slot blocks, with at least ``FUSED_MIN_CHUNK_ROWS``
+  rows a chunk, since every chunk flushes its whole arena.
+- ``FUSED_SCAN_MAX_BINS``: the scan kernel runs one thread per bin.
 """
 
 from __future__ import annotations
@@ -40,3 +54,28 @@ def tile_rows_for(num_features: int) -> int:
     raise ValueError(
         f"{num_features} features do not fit the traversal kernel's "
         f"shared-memory row tile ({SMEM_MAX_BYTES} bytes per block)")
+
+
+FUSED_SLOTS_PER_BLOCK = 16
+FUSED_ACC_THREADS = 512
+FUSED_TARGET_BLOCKS = 4 * 132
+FUSED_MIN_CHUNK_ROWS = 4096
+FUSED_SCAN_MAX_BINS = 1024
+
+
+def fused_slots_per_block(num_bins: int) -> int:
+    """Slots per accumulate block for a ``num_bins`` bin axis."""
+    per_slot = 3 * 8 * max(int(num_bins), 1)
+    sb = min(FUSED_SLOTS_PER_BLOCK, SMEM_MAX_BYTES // per_slot)
+    if sb < 1:
+        raise ValueError(f"{num_bins} bins do not fit the accumulate "
+                         f"kernel's shared-memory arena")
+    return sb
+
+
+def fused_row_chunks(rows: int, num_features: int, slot_blocks: int) -> int:
+    """Row chunks of one accumulate launch (grid axis x)."""
+    per_chunk = max(int(num_features) * int(slot_blocks), 1)
+    want = -(-FUSED_TARGET_BLOCKS // per_chunk)
+    most = max(int(rows) // FUSED_MIN_CHUNK_ROWS, 1)
+    return max(1, min(want, most))

@@ -210,3 +210,17 @@ def synthetic_model_text(num_features: int, num_trees: int,
         params_str="",
         feature_importance_int=lambda: list(zip(names, imp.tolist())))
     return save_model_to_string(model) + "\npandas_categorical:null\n"
+
+
+def higgs_like(rows: int, seed: int, num_features: int = 28):
+    """Training rows at HIGGS width: ``num_features`` dense f32 columns
+    (every third one non-negative and skewed, like the momenta of the
+    UCI HIGGS set) and a 0/1 label with signal in a few of them.
+    Returns (X [rows, F] f32, y [rows] f32)."""
+    rng = np.random.RandomState(seed)
+    X = rng.standard_normal((rows, num_features)).astype(np.float32)
+    X[:, ::3] = np.abs(X[:, ::3]) ** 1.5
+    logit = (1.2 * X[:, 0] - 0.8 * X[:, 1] * X[:, 2]
+             + 0.6 * np.sin(2.0 * X[:, 4]) + 0.3 * X[:, 5:9].sum(axis=1)
+             - 1.0 + 0.7 * rng.standard_normal(rows))
+    return X, (logit > 0).astype(np.float32)

@@ -55,6 +55,13 @@ class HostTree:
     shrinkage: float = 1.0
     real_feature_index: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
 
+    # ------------------------------------------------------------- transforms
+
+    def add_bias(self, val: float) -> None:
+        """reference: Tree::AddBias (tree.h:169)."""
+        self.leaf_value = self.leaf_value + val
+        self.internal_value = self.internal_value + val
+
     # ------------------------------------------------------------- prediction
 
     def _decide(self, fval: np.ndarray, node: int) -> np.ndarray:
@@ -118,3 +125,45 @@ class HostTree:
                 else:
                     md = max(md, d)
         return md
+
+
+def tree_to_host(tree_arrays, train_set, shrinkage: float) -> HostTree:
+    """Trained ``TreeArrays`` (bin thresholds over used features, on any
+    device) -> a self-contained HostTree (double thresholds, real feature
+    indices).  Numeric splits only, as the port trains them."""
+    ta = tree_arrays.to_numpy()
+    nl = int(ta["num_leaves"])
+    ns = max(nl - 1, 0)
+    used = train_set.used_features
+    mappers = train_set.bin_mappers
+    split_feature_inner = np.asarray(ta["split_feature"][:ns], np.int32)
+    real_feat = np.array([used[f] for f in split_feature_inner], np.int32) \
+        if ns else np.zeros(0, np.int32)
+    thr_bin = np.asarray(ta["threshold_bin"][:ns], np.int32)
+    dl = np.asarray(ta["default_left"][:ns], bool)
+    threshold = np.zeros(ns, np.float64)
+    decision_type = np.zeros(ns, np.int8)
+    for s in range(ns):
+        m = mappers[used[split_feature_inner[s]]]
+        dt = K_DEFAULT_LEFT_MASK if dl[s] else 0
+        dt |= (m.missing_type & 3) << 2
+        r = m.num_bin - 1 - (1 if m.missing_type == MISSING_NAN else 0)
+        tb = min(int(thr_bin[s]), max(r - 1, 0))
+        threshold[s] = m.bin_upper_bound[tb]
+        decision_type[s] = dt
+
+    def f64(name, k):
+        return np.asarray(ta[name][:k], np.float64)
+    return HostTree(
+        num_leaves=nl, split_feature=real_feat,
+        split_feature_inner=split_feature_inner, threshold=threshold,
+        threshold_in_bin=thr_bin, decision_type=decision_type,
+        left_child=np.asarray(ta["left_child"][:ns], np.int32),
+        right_child=np.asarray(ta["right_child"][:ns], np.int32),
+        split_gain=f64("split_gain", ns),
+        internal_value=f64("internal_value", ns),
+        internal_weight=f64("internal_weight", ns),
+        internal_count=f64("internal_count", ns),
+        leaf_value=f64("leaf_value", nl), leaf_weight=f64("leaf_weight", nl),
+        leaf_count=f64("leaf_count", nl), shrinkage=shrinkage,
+        real_feature_index=real_feat)
