@@ -21,7 +21,15 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``ingest``/``hist``: holds B3, B4, B2 and B5 against their plain
   versions at the training run's shapes, bit for bit, and times them;
 - ``wide_bins``: a short run at ``max_bin=1023`` (int32 binned matrix,
-  1023-bin scans) against its plain-version twin.
+  1023-bin scans) against its plain-version twin;
+- ``efb_train``: the airline table one-hot encoded (1,000,000 x 674 f32,
+  EFB bundles; ``testing.airline_like``) trained on the staged arm: B3's
+  EFB fold, the whole-dataset histogram (B6) for each root, B4 segment
+  histograms, the int64 expansion and B5 in leaf mode; then
+  ``Booster.predict`` through B1 against B1's plain version;
+- ``hist6``: B6 against its plain version on that group matrix, timed;
+- ``cat_train``: the same table with six native categorical features on
+  the fused arm with the categorical merge, and B3's categorical branch.
 
 Each phase prints one JSON line.  Any failed check raises, and the
 script exits non-zero; it exits non-zero without a result where CUDA is
@@ -61,6 +69,10 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "metric": ["auc", "binary_logloss"],
                 "verbose": -1}
 HIST_SLOTS = 128
+# the categorical phases: the airline table at a tenth of the Flight Delay
+# set's rows, the training run's parameters; B3 is checked against the
+# host oracle on the first EFB_ORACLE_ROWS rows of the one-hot matrix
+EFB_ROWS, EFB_VALID_ROWS, EFB_ORACLE_ROWS = 1_000_000, 100_000, 250_000
 # a short run with groups of more than 256 bins: the int32 binned layout
 # and a 1024-thread scan
 WIDE_ROWS, WIDE_ROUNDS = 200_000, 3
@@ -403,25 +415,26 @@ def max_abs_err(a, b) -> float:
 
 
 def kernel_launches():
-    """Current launch counts of the four training kernels (B3, B4, B5,
-    B2)."""
-    from lightgbm_tpu_torch.ops import fused, ingest
+    """Current launch counts of the training kernels (B3, B4, B5, B2,
+    B6)."""
+    from lightgbm_tpu_torch.ops import fused, histogram, ingest
     return {"ingest": ingest.launch_counts["ingest"],
-            **fused.launch_counts}
+            **fused.launch_counts, **histogram.launch_counts}
 
 
 def reset_training_counts() -> None:
-    from lightgbm_tpu_torch.ops import fused, ingest
+    from lightgbm_tpu_torch.ops import fused, histogram, ingest
     fused.reset_launch_counts()
     ingest.reset_launch_counts()
+    histogram.reset_launch_counts()
 
 
-def train_once(lt, X, y, Xv, yv):
+def train_once(lt, X, y, Xv, yv, params, rounds, categorical):
     """Dataset + valid set + ``train`` on the card; returns (datasets,
     booster, evals, construct seconds, train seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ds = lt.Dataset(X, label=y)
+    ds = lt.Dataset(X, label=y, categorical_feature=categorical)
     vs = ds.create_valid(Xv, label=yv)
     ds.construct()
     vs.construct()
@@ -429,7 +442,7 @@ def train_once(lt, X, y, Xv, yv):
     construct_s = time.perf_counter() - t0
     evals = {}
     t1 = time.perf_counter()
-    bst = lt.train(TRAIN_PARAMS, ds, TRAIN_ROUNDS, valid_sets=[vs],
+    bst = lt.train(params, ds, rounds, valid_sets=[vs],
                    valid_names=["valid"], evals_result=evals,
                    verbose_eval=False)
     torch.cuda.synchronize()
@@ -439,62 +452,67 @@ def train_once(lt, X, y, Xv, yv):
 def plain_kernels():
     """Replace every training kernel's launcher by its plain version
     (returns the originals for ``restore_kernels``)."""
-    from lightgbm_tpu_torch.ops import fused, ingest
-    saved = (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda)
+    from lightgbm_tpu_torch.ops import fused, histogram, ingest
+    saved = (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda,
+             histogram._histogram_cuda)
     ingest._bin_cuda = (lambda X, tables, bounds, cats, gp, mb:
                         ingest.bin_plain(X, tables, bounds, cats))
     fused._accumulate_cuda = fused.accumulate_plain
     fused._scan_cuda = (lambda *args, pair=False, **kw:
                         fused.scan_plain(*args, **kw))
+    histogram._histogram_cuda = histogram.histogram_plain
     return saved
 
 
 def restore_kernels(saved) -> None:
-    from lightgbm_tpu_torch.ops import fused, ingest
-    ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda = saved
+    from lightgbm_tpu_torch.ops import fused, histogram, ingest
+    (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda,
+     histogram._histogram_cuda) = saved
 
 
-def phase_train(lt):
-    """The training path on the card; returns (launches, datasets, raw
-    train matrix, booster)."""
-    from lightgbm_tpu_torch.testing import higgs_like
+def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto"):
+    """The training path on the card three times: the main run (counts
+    set to 0 just before it and read just after), the same run with every
+    kernel replaced by its plain version (its model text must be the same
+    bytes, since every sum is an exact integer, and no count may rise),
+    and a run through ``Booster.update()`` with a section timer (where a
+    tree's time goes; the timer synchronises the card at each section)
+    that logs each tree's (candidates, committed) per frontier round.
+    Checks the trees, the falling valid logloss and the card's
+    predictions against the host's; returns what the phases report."""
+    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     from lightgbm_tpu_torch.utils.timer import SectionTimer
-    X, y = higgs_like(TRAIN_ROWS, seed=11)
-    Xv, yv = higgs_like(VALID_ROWS, seed=12)
-
     reset_training_counts()
-    ds, vs, bst, evals, construct_s, train_s = train_once(lt, X, y, Xv, yv)
+    ds, vs, bst, evals, construct_s, train_s = train_once(
+        lt, X, y, Xv, yv, params, rounds, categorical)
     launches = kernel_launches()
     text = bst.model_to_string()
-    trees = bst.num_trees()
-    if trees != TRAIN_ROUNDS:
-        raise AssertionError(f"trained {trees} trees, not {TRAIN_ROUNDS}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the training path never launched {name}")
+    if bst.num_trees() != rounds:
+        raise AssertionError(f"trained {bst.num_trees()} trees, not {rounds}")
     ll = evals["valid"]["binary_logloss"]
     if not all(b < a for a, b in zip(ll, ll[1:])):
         raise AssertionError(f"valid logloss does not fall: {ll}")
+    auc = evals["valid"]["auc"]
+    if not auc[-1] > auc[0]:
+        raise AssertionError(f"valid AUC does not rise: {auc}")
     raw_dev = bst.predict(Xv, raw_score=True)
     raw_host = bst.predict(Xv, raw_score=True, device=False)
     leaf_dev = bst.predict(Xv[:20000], pred_leaf=True)
     leaf_host = bst.predict(Xv[:20000], pred_leaf=True, device=False)
-    if raw_dev.shape != (VALID_ROWS,) or not np.isfinite(raw_dev).all():
+    if raw_dev.shape != (Xv.shape[0],) or not np.isfinite(raw_dev).all():
         raise AssertionError("Booster.predict gave a bad result")
     if not np.array_equal(leaf_dev, leaf_host):
         raise AssertionError("leaf ids on the card differ from the host's")
-    # f32 sums of ten leaf values on the card vs f64 on the host
+    # f32 sums of the leaf values on the card vs f64 on the host
     pred_err = float(np.abs(raw_dev - raw_host).max())
     if not np.allclose(raw_dev, raw_host, rtol=1e-5, atol=1e-6):
         raise AssertionError(f"predictions differ from the host: {pred_err}")
 
-    # the same run with every kernel replaced by its plain version: every
-    # sum is an exact integer, so the model text must be the same bytes;
-    # and with no kernel launched, every count stays at 0
     saved = plain_kernels()
     reset_training_counts()
     try:
-        _, _, bst_p, evals_p, _, plain_train_s = train_once(lt, X, y, Xv, yv)
+        _, _, bst_p, _, _, plain_train_s = train_once(
+            lt, X, y, Xv, yv, params, rounds, categorical)
     finally:
         restore_kernels(saved)
     plain_launches = kernel_launches()
@@ -504,19 +522,16 @@ def phase_train(lt):
     if bst_p.model_to_string() != text:
         raise AssertionError("the model text differs from the plain-version "
                              "run")
+    del bst_p
 
-    # a third run through Booster.update() with a section timer: where a
-    # tree's time goes (the timer synchronises the card at each section),
-    # and each tree's (candidates, committed) per frontier round
-    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     grow = gbdt_mod.grow_tree_rounds
-    rounds = []
+    rounds_log = []
 
     def logged_grow(*args, **kw):
-        rounds.append([])
-        return grow(*args, rounds=rounds[-1], **kw)
+        rounds_log.append([])
+        return grow(*args, rounds=rounds_log[-1], **kw)
 
-    bst_t = lt.Booster(TRAIN_PARAMS, train_set=ds)
+    bst_t = lt.Booster(params, train_set=ds)
     bst_t.add_valid(vs, "valid")
     timer = SectionTimer(cuda=True)
     bst_t.boosting.timer = timer
@@ -524,34 +539,61 @@ def phase_train(lt):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        for _ in range(TRAIN_ROUNDS):
+        for _ in range(rounds):
             bst_t.update()
     finally:
         gbdt_mod.grow_tree_rounds = grow
     timed_s = time.perf_counter() - t0
-    trees = text.partition("end of trees")[0]
-    if bst_t.model_to_string().partition("end of trees")[0] != trees:
+    if (bst_t.model_to_string().partition("end of trees")[0]
+            != text.partition("end of trees")[0]):
         raise AssertionError("the timed run's trees differ")
-    per_tree = {k: v / TRAIN_ROUNDS for k, v in timer.seconds.items()}
-    per_tree["other"] = timed_s / TRAIN_ROUNDS - sum(per_tree.values())
-    emit({"phase": "train", "rows": TRAIN_ROWS, "valid_rows": VALID_ROWS,
-          "features": X.shape[1], "rounds": TRAIN_ROUNDS,
-          "num_leaves": TRAIN_PARAMS["num_leaves"],
-          "leaves_per_tree": [m.num_leaves for m in bst.models],
-          "construct_s": construct_s, "train_s": train_s,
-          "s_per_tree": train_s / TRAIN_ROUNDS,
-          "plain_s_per_tree": plain_train_s / TRAIN_ROUNDS,
-          "timed_s_per_tree": timed_s / TRAIN_ROUNDS,
-          "breakdown_s_per_tree": per_tree,
-          "valid_auc": evals["valid"]["auc"], "valid_logloss": ll,
-          "launches": launches,
-          "launches_per_tree": {k: v / TRAIN_ROUNDS
-                                for k, v in launches.items()},
-          "rounds_per_tree": [len(r) for r in rounds],
-          "rollbacks_per_tree": [sum(m < k for k, m in r) for r in rounds],
-          "predict_max_abs_err_vs_host_f64": pred_err,
-          "checked": "model text byte-identical to the plain run"})
-    return launches, ds, X, bst
+    per_tree = {k: v / rounds for k, v in timer.seconds.items()}
+    per_tree["other"] = timed_s / rounds - sum(per_tree.values())
+    return {"ds": ds, "vs": vs, "bst": bst, "launches": launches, "row": {
+        "rows": X.shape[0], "valid_rows": Xv.shape[0],
+        "features": X.shape[1], "rounds": rounds,
+        "num_leaves": params["num_leaves"],
+        "leaves_per_tree": [m.num_leaves for m in bst.models],
+        "construct_s": construct_s, "train_s": train_s,
+        "s_per_tree": train_s / rounds,
+        "plain_s_per_tree": plain_train_s / rounds,
+        "timed_s_per_tree": timed_s / rounds,
+        "breakdown_s_per_tree": per_tree,
+        "valid_auc": auc, "valid_logloss": ll, "launches": launches,
+        "launches_per_tree": {k: v / rounds for k, v in launches.items()},
+        "rounds_per_tree": [len(r) for r in rounds_log],
+        "rollbacks_per_tree": [sum(m < k for k, m in r) for r in rounds_log],
+        "predict_max_abs_err_vs_host_f64": pred_err,
+        "checked": "model text byte-identical to the plain run"}}
+
+
+def expect_launches(launches: dict, positive=(), zero=(), exact=None):
+    for name in positive:
+        if launches[name] <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+    for name in zero:
+        if launches[name] != 0:
+            raise AssertionError(f"{name} launched {launches[name]} times; "
+                                 "this path must not launch it")
+    for name, n in (exact or {}).items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"not {n}")
+
+
+def phase_train(lt):
+    """The training path on the card; returns (launches, datasets, raw
+    train matrix, booster)."""
+    from lightgbm_tpu_torch.testing import higgs_like
+    X, y = higgs_like(TRAIN_ROWS, seed=11)
+    Xv, yv = higgs_like(VALID_ROWS, seed=12)
+    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
+    # the fused arm: B4 roots, B2 (B4 + B5) rounds, no B6
+    expect_launches(r["launches"], positive=(
+        "ingest", "fused_frontier_splits", "fused_frontier_accumulate",
+        "fused_sibling_scan"), zero=("histogram_pallas",))
+    emit({"phase": "train", **r["row"]})
+    return r["launches"], r["ds"], X, r["bst"]
 
 
 def edge_rows(ds, F: int, X) -> np.ndarray:
@@ -788,6 +830,160 @@ def phase_wide_bins(lt):
                      "byte-identical to the plain run"})
 
 
+def predict_vs_plain(pk, bst, Xv) -> int:
+    """``Booster.predict`` of the valid rows through B1 (scores mode),
+    bit for bit against B1's plain version; returns the B1 launches of
+    that call."""
+    pk.reset_launch_counts()
+    raw = bst.predict(Xv, raw_score=True)
+    launches = pk.launch_counts[KERNEL]
+    forest = bst._forest(0, len(bst.models))
+    dev = bst._device_forest(forest)
+    plain = pk.traverse_plain(dev, torch.from_numpy(
+        np.ascontiguousarray(Xv, np.float32)).cuda(), 1, emit_scores=True)
+    plain = plain.cpu().numpy().astype(np.float64)[0]
+    if not np.array_equal(raw.view(np.uint64), plain.view(np.uint64)):
+        raise AssertionError("Booster.predict differs from B1's plain version")
+    if launches <= 0:
+        raise AssertionError("Booster.predict never launched B1")
+    return launches
+
+
+def oracle_check(ds, X) -> int:
+    """B3 against the host oracle ``Dataset._bin_block`` on the dataset's
+    own layout (EFB groups, categorical codes): ``X`` plus the edge rows
+    (bin bounds, salted rows, every category code and its neighbours),
+    byte for byte; returns the rows checked."""
+    from lightgbm_tpu_torch.ops import ingest as ING
+    F = X.shape[1]
+    edge = [edge_rows(ds, F, X)]
+    for f in ds.used_features:
+        codes = np.asarray(ds.bin_mappers[f].bin_2_categorical, np.float64)
+        if codes.size:
+            vals = np.concatenate([codes, codes + 0.4, codes - 0.4,
+                                   [codes.max() + 1.0, -1.0, -2.0]])
+            block = np.repeat(X[:1], vals.size, axis=0)
+            block[:, f] = vals.astype(np.float32)
+            edge.append(block)
+    tables = ING.build_ingest_tables(ds)
+    binner = ING.DeviceBinner(tables, "cuda")
+    Xc = np.concatenate([X] + edge).astype(np.float32)
+    got = binner(torch.from_numpy(Xc).cuda()).cpu().numpy()
+    ref = np.zeros((Xc.shape[0], tables.num_groups), tables.out_dtype)
+    with np.errstate(invalid="ignore", over="ignore"):
+        ds._bin_block(Xc.astype(np.float64), ref)
+    if not np.array_equal(got.T, ref):
+        bad = int((got.T != ref).sum())
+        raise AssertionError(f"binned bytes differ from _bin_block at {bad} "
+                             "entries")
+    return int(Xc.shape[0])
+
+
+def phase_efb_train(lt, pk):
+    """``airline_onehot_1m``: the airline table one-hot encoded (674 f32
+    features, EFB bundles) trained on the staged arm: B3's EFB fold, B6
+    for each root, B4 segment histograms, the int64 expansion and B5 in
+    leaf mode.  Returns (launches, dataset, booster)."""
+    from lightgbm_tpu_torch.testing import airline_like, one_hot
+    X8, y = airline_like(EFB_ROWS, seed=11)
+    Xv8, yv = airline_like(EFB_VALID_ROWS, seed=12)
+    X, Xv = one_hot(X8), one_hot(Xv8)
+    del X8, Xv8
+    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
+    ds = r["ds"]
+    if not ds.feature_meta().has_bundles:
+        raise AssertionError("the one-hot table did not bundle")
+    expect_launches(r["launches"], positive=(
+        "fused_frontier_accumulate", "fused_sibling_scan"),
+        zero=("fused_frontier_splits",),
+        exact={"histogram_pallas": TRAIN_ROUNDS, "ingest": 2})
+    checked = oracle_check(ds, X[:EFB_ORACLE_ROWS])
+    b1 = predict_vs_plain(pk, r["bst"], Xv)
+    emit({"phase": "efb_train", "config": "airline_onehot_1m", **r["row"],
+          "used_features": len(ds.used_features), "groups": ds.num_groups,
+          "max_group_bin": int(ds.max_group_bin),
+          "max_num_bin": int(ds.feature_meta().max_num_bin),
+          "b3_oracle_rows": checked, "predict_b1_launches": b1,
+          "predict": "bit-identical to B1's plain version"})
+    return r["launches"], ds, r["bst"]
+
+
+def phase_cat_train(lt, pk):
+    """``airline_cat_1m``: the same table with its six categorical
+    columns as native ``categorical_feature`` (8 features, no bundles) on
+    the fused arm with the categorical merge, and B3's categorical
+    branch."""
+    from lightgbm_tpu_torch.testing import AIRLINE_CATEGORICAL, airline_like
+    X, y = airline_like(EFB_ROWS, seed=11)
+    Xv, yv = airline_like(EFB_VALID_ROWS, seed=12)
+    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS,
+                      categorical=list(AIRLINE_CATEGORICAL))
+    ds = r["ds"]
+    meta = ds.feature_meta()
+    if meta.has_bundles or int(meta.is_categorical.sum()) != 6:
+        raise AssertionError("the categorical table is not 6 categorical "
+                             "features without bundles")
+    expect_launches(r["launches"], positive=(
+        "fused_frontier_splits", "fused_frontier_accumulate",
+        "fused_sibling_scan"), zero=("histogram_pallas",),
+        exact={"ingest": 2})
+    checked = oracle_check(ds, X)
+    b1 = predict_vs_plain(pk, r["bst"], Xv)
+    cat_splits = sum(int((m.decision_type[:m.num_leaves - 1] & 1).sum())
+                     for m in r["bst"].models)
+    if cat_splits == 0:
+        raise AssertionError("no categorical split was made")
+    emit({"phase": "cat_train", "config": "airline_cat_1m", **r["row"],
+          "num_bin": meta.num_bin.tolist(), "categorical_splits": cat_splits,
+          "b3_oracle_rows": checked, "predict_b1_launches": b1,
+          "predict": "bit-identical to B1's plain version"})
+
+
+def phase_hist6(ds, bst):
+    """B6 against its plain version, bit for bit on int64, on the
+    ``efb_train`` group matrix with the first tree's gradients; its time
+    from a CUDA graph, its bound and ``torch.bincount`` x 3."""
+    from lightgbm_tpu_torch.ops import histogram as H
+    gb = bst.boosting
+    binned_t = ds.binned_t
+    G, n = binned_t.shape
+    Bg = int(ds.max_group_bin)
+    init = float(np.float32(gb.init_scores[0]))
+    grad, hess = gb.objective.get_gradients(
+        torch.full((n,), init, dtype=torch.float32, device="cuda"))
+    vals = H._vals_t(grad, hess, torch.ones_like(grad)).contiguous()
+    scales = H.fixed_point_scales(vals)
+    got = H.histogram_fixed(binned_t, vals, Bg, scales)
+    want = H.histogram_plain(binned_t, vals, Bg, scales)
+    if not torch.equal(got, want):
+        raise AssertionError("B6 differs from its plain version")
+    err = max(max_abs_err(got[c], want[c]) * 2.0 ** -scales[c]
+              for c in range(3))
+    del got, want
+    idx = (torch.arange(G, device="cuda")[:, None] * Bg
+           + binned_t.to(torch.int64)).flatten()
+    wts = [vals[c][None, :].expand(G, -1).flatten().contiguous()
+           for c in range(3)]
+
+    def library():
+        for w in wts:
+            torch.bincount(idx, weights=w, minlength=G * Bg)
+
+    row = {"phase": "hist6", "rows": n, "groups": G, "group_bins": Bg,
+           "scales": list(scales), "max_abs_err": err,
+           "checked": "bit-identical to the plain version (int64)",
+           "kernel_ms": graph_ms(
+               lambda: H.histogram_fixed(binned_t, vals, Bg, scales), 20),
+           "plain_ms": event_ms(
+               lambda: H.histogram_plain(binned_t, vals, Bg, scales), 3,
+               warmup=1),
+           "library_ms": event_ms(library, 5),
+           **bytes_or_ops(binned_t.element_size() * G * n + 12 * n
+                          + 3 * G * Bg * 8, 3 * n * G)}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -809,7 +1005,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    libs = _build.build(["traverse", "ingest", "fused"])
+    libs = _build.build(["traverse", "ingest", "fused", "histogram"])
     root = os.path.dirname(os.path.abspath(__file__))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {
@@ -840,7 +1036,12 @@ def main() -> int:
     train_launches, ds, X, bst = phase_train(lt)
     ing = phase_ingest(ds, X)
     hist = phase_hist(ds, bst)
+    del ds, X, bst
     phase_wide_bins(lt)
+    efb_launches, efb_ds, efb_bst = phase_efb_train(lt, pk)
+    hist6 = phase_hist6(efb_ds, efb_bst)
+    del efb_ds, efb_bst
+    phase_cat_train(lt, pk)
 
     head = rows[("higgs_500x255", TIMED_ROWS[2], False)]
     table = [{
@@ -869,6 +1070,14 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    table.append({
+        "name": "histogram_pallas", "route": "cuda",
+        "source": "lightgbm_tpu_torch/ops/csrc/histogram.cu",
+        "replaces": "lightgbm_tpu/ops/histogram.py:199",
+        "launches": efb_launches["histogram_pallas"],
+        "max_abs_err": hist6["max_abs_err"], "ms": hist6["kernel_ms"],
+        "plain_ms": hist6["plain_ms"], "bound_ms": hist6["bound_ms"],
+        "bound_by": hist6["bound_by"], "library_ms": hist6["library_ms"]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

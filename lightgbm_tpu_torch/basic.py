@@ -21,6 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .binning import BinType
 from .model_text import load_model_from_string, save_model_to_string
 from .tree import HostTree
 from .utils.log import LightGBMError
@@ -348,14 +349,19 @@ class Booster:
 
     @property
     def feature_infos(self) -> List[str]:
-        """reference format: [min:max] per numeric feature, "none" for a
-        trivial one."""
+        """reference format: [min:max] per numeric feature, the
+        ':'-joined categories of a categorical one, "none" for a trivial
+        one."""
         if self.boosting is None:
             return self._loaded["feature_infos"]
         out = []
         for m in self.train_set.bin_mappers:
-            out.append("none" if m.is_trivial
-                       else f"[{m.min_val:g}:{m.max_val:g}]")
+            if m.is_trivial:
+                out.append("none")
+            elif m.bin_type == BinType.CATEGORICAL:
+                out.append(":".join(str(c) for c in m.bin_2_categorical))
+            else:
+                out.append(f"[{m.min_val:g}:{m.max_val:g}]")
         return out
 
     @property

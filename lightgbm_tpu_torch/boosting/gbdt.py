@@ -4,8 +4,9 @@ of ``lightgbm_tpu/boosting/gbdt.py``).
 reference: src/boosting/gbdt.cpp — GBDT::Init (:42), TrainOneIter (:338),
 Bagging (:163), BoostFromAverage (:302), UpdateScore (:459).  One
 iteration: gradients from the objective (torch, on the device) ->
-bagging mask -> one tree by the batched-frontier grower with the fused
-histogram kernels -> shrinkage -> train and valid score updates -> the
+bagging mask -> one tree by the batched-frontier grower (its fused arm,
+or its staged arm for a dataset with EFB bundles or a staged
+``tpu_hist_method``) -> shrinkage -> train and valid score updates -> the
 host tree.  Bagging and column sampling draw from NumPy ``RandomState``
 streams seeded as the JAX package seeds them, so both packages sample
 the same rows and features.
@@ -27,6 +28,8 @@ from ..dataset import Dataset
 from ..grower import GrowerConfig, predict_leaf_index_binned
 from ..grower_rounds import grow_tree_rounds
 from ..objectives import ObjectiveFunction
+from ..ops.histogram import HIST_METHODS
+from ..ops.split import MAX_CAT_WORDS
 from ..tree import HostTree, tree_to_host
 from ..utils.log import log_info, log_warning
 
@@ -35,7 +38,8 @@ K_EPSILON = 1e-15
 
 def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError`` for every configuration outside the
-    slice (single-device gbdt, numeric features, f32 gradients)."""
+    port so far (single-device gbdt, f32 gradients, numeric, bundled and
+    categorical features)."""
     c = config
 
     def no(what: str, item: str) -> None:
@@ -66,9 +70,9 @@ def check_supported(config: Config) -> None:
         no(f"tree_learner={c.tree_learner}", "sharded training")
     if c.tpu_tree_growth not in ("auto", "rounds"):
         no(f"tpu_tree_growth={c.tpu_tree_growth}", "the serial grower")
-    if c.tpu_hist_method not in ("auto", "fused"):
-        no(f"tpu_hist_method={c.tpu_hist_method}",
-           "EFB and the staged histogram family")
+    if c.tpu_hist_method not in HIST_METHODS:
+        raise ValueError(f"unknown tpu_hist_method {c.tpu_hist_method!r}; "
+                         f"expected one of {', '.join(HIST_METHODS)}")
 
 
 class GBDT:
@@ -92,15 +96,16 @@ class GBDT:
         self.models: List[HostTree] = []
         self.shrinkage_rate = config.learning_rate
         self.meta = self.train_set.feature_meta()
-        if self.meta.has_bundles:
-            raise NotImplementedError(
-                "this dataset bundles features (EFB); bundled datasets wait "
-                "for ROADMAP queue A (EFB and the staged histogram family) — "
-                "pass enable_bundle=False")
-        if bool(self.meta.is_categorical.any()):
-            raise NotImplementedError(
-                "categorical features wait for ROADMAP queue A (categorical "
-                "and monotone)")
+        wide = [f for f in np.nonzero(self.meta.is_categorical)[0]
+                if self.meta.num_bin[f] > 32 * MAX_CAT_WORDS]
+        if wide:
+            raise ValueError(
+                f"categorical features {wide} (used-feature indices) have "
+                f"more than {32 * MAX_CAT_WORDS} bins; categorical split "
+                f"bitsets cover {32 * MAX_CAT_WORDS} (lower max_bin)")
+        if config.tpu_hist_method == "fused" and self.meta.has_bundles:
+            log_warning("tpu_hist_method=fused does not apply to a dataset "
+                        "with EFB bundles; training on the staged arm")
         self.num_data = self.train_set.num_data
         self.num_bins = int(self.meta.max_num_bin)
         self.binned_t = self.train_set.binned_t
@@ -131,7 +136,8 @@ class GBDT:
         self.grower_cfg = GrowerConfig(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             hp=config.split_hyperparams(), num_bins=self.num_bins,
-            round_width=config.tpu_round_width)
+            round_width=config.tpu_round_width,
+            hist_method=config.tpu_hist_method)
         # a utils.timer.SectionTimer here splits each iteration's time
         # into sections; None keeps the run free of synchronisation
         self.timer = None

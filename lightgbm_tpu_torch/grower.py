@@ -6,8 +6,9 @@ internal node s = s-th split; child pointers >= 0 are internal nodes,
 negative values are leaves encoded as ``~leaf_index``; the left child
 keeps the parent's leaf index, the right child gets leaf index
 ``num_leaves``.  The serial ``grow_tree`` is not ported (the trainer
-runs ``grower_rounds.grow_tree_rounds``); categorical splits are not
-ported either, so the arrays carry numeric splits only.
+runs ``grower_rounds.grow_tree_rounds``).  A categorical split keeps the
+bins that go left in a bitset of ``MAX_CAT_WORDS`` words (int64 tensors
+holding uint32 values).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .binning import MissingType
-from .ops.split import SplitHyperparams
+from .ops.split import MAX_CAT_WORDS, SplitHyperparams
 
 
 class TreeArrays(NamedTuple):
@@ -26,6 +27,8 @@ class TreeArrays(NamedTuple):
     split_feature: torch.Tensor    # [L-1] int64 (index into used features)
     threshold_bin: torch.Tensor    # [L-1] int32
     default_left: torch.Tensor     # [L-1] bool
+    is_categorical: torch.Tensor   # [L-1] bool
+    cat_bitset: torch.Tensor       # [L-1, MAX_CAT_WORDS] int64 (bins left)
     left_child: torch.Tensor       # [L-1] int32 (>= 0 node, < 0 ~leaf)
     right_child: torch.Tensor      # [L-1] int32
     split_gain: torch.Tensor       # [L-1] f32
@@ -47,7 +50,10 @@ class TreeArrays(NamedTuple):
             return torch.zeros(k, dtype=dt, device=device)
         return TreeArrays(
             split_feature=z(n, torch.int64), threshold_bin=z(n, torch.int32),
-            default_left=z(n, torch.bool), left_child=z(n, torch.int32),
+            default_left=z(n, torch.bool), is_categorical=z(n, torch.bool),
+            cat_bitset=torch.zeros((n, MAX_CAT_WORDS), dtype=torch.int64,
+                                   device=device),
+            left_child=z(n, torch.int32),
             right_child=z(n, torch.int32), split_gain=z(n, torch.float32),
             internal_value=z(n, torch.float32),
             internal_weight=z(n, torch.float32),
@@ -76,6 +82,8 @@ class _LeafBest(NamedTuple):
     right_sum_grad: torch.Tensor
     right_sum_hess: torch.Tensor
     right_count: torch.Tensor
+    is_categorical: torch.Tensor
+    cat_bitset: torch.Tensor
 
     @staticmethod
     def empty(L: int, device) -> "_LeafBest":
@@ -88,7 +96,9 @@ class _LeafBest(NamedTuple):
             default_left=z(torch.bool), left_sum_grad=z(torch.float32),
             left_sum_hess=z(torch.float32), left_count=z(torch.float32),
             right_sum_grad=z(torch.float32), right_sum_hess=z(torch.float32),
-            right_count=z(torch.float32))
+            right_count=z(torch.float32), is_categorical=z(torch.bool),
+            cat_bitset=torch.zeros((L, MAX_CAT_WORDS), dtype=torch.int64,
+                                   device=device))
 
     def store(self, ids: torch.Tensor, r) -> None:
         """``self[ids] = r`` field by field, in place."""
@@ -98,25 +108,40 @@ class _LeafBest(NamedTuple):
 
 
 class GrowerConfig(NamedTuple):
-    """Grower configuration (the fields the fused rounds grower reads)."""
+    """Grower configuration (the fields the rounds grower reads).
+    ``hist_method`` elects the arm: the fused one for ``auto``/``fused``
+    on a dataset without bundles, the staged one otherwise."""
 
     num_leaves: int = 31
     max_depth: int = -1
     hp: SplitHyperparams = SplitHyperparams()
     num_bins: int = 255            # padded bin axis B
     round_width: int = 128         # max splits committed per round
+    hist_method: str = "auto"
 
 
 def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,
-                  default_bin, num_bin) -> torch.Tensor:
-    """Numeric decision rule in bin space (reference: DenseBin::SplitInner,
+                  default_bin, num_bin, node_cat=None,
+                  node_bitset=None) -> torch.Tensor:
+    """Decision rule in bin space (reference: DenseBin::SplitInner,
     src/io/dense_bin.hpp): missing rows follow ``default_left``, others
-    compare ``bin <= threshold``.  Every argument broadcasts per row."""
+    compare ``bin <= threshold``; categorical rows (``node_cat``) go left
+    when their bin is in the node's bitset, ``node_bitset`` [8] or one
+    bitset per row [n, 8].  Every other argument broadcasts per row."""
     col = col.to(torch.int32)
     is_missing = (((missing_type == MissingType.NAN) & (col == num_bin - 1))
                   | ((missing_type == MissingType.ZERO)
                      & (col == default_bin)))
-    return torch.where(is_missing, node_dl, col <= node_thr)
+    num_left = torch.where(is_missing, node_dl, col <= node_thr)
+    if node_bitset is None:
+        return num_left
+    word = (col >> 5).clamp(0, MAX_CAT_WORDS - 1).to(torch.int64)
+    if node_bitset.dim() == 2:
+        w = node_bitset.gather(1, word[:, None])[:, 0]
+    else:
+        w = node_bitset[word]
+    cat_left = ((w >> (col & 31).to(torch.int64)) & 1) == 1
+    return torch.where(node_cat, cat_left, num_left)
 
 
 def feature_bin(binned_t: torch.Tensor, feat: torch.Tensor,
@@ -140,6 +165,7 @@ def predict_leaf_index_binned(tree: TreeArrays, binned_t: torch.Tensor,
     if tree.num_leaves <= 1:
         return torch.zeros(n, dtype=torch.int64, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
+    has_cat = bool(tree.is_categorical.any())
     while True:
         live = node >= 0
         if not bool(live.any()):
@@ -151,7 +177,9 @@ def predict_leaf_index_binned(tree: TreeArrays, binned_t: torch.Tensor,
                            tree.default_left[nd],
                            meta_t["missing_type"][feat],
                            meta_t["default_bin"][feat],
-                           meta_t["num_bin"][feat])
+                           meta_t["num_bin"][feat],
+                           *((tree.is_categorical[nd], tree.cat_bitset[nd])
+                             if has_cat else ()))
         nxt = torch.where(gl, tree.left_child[nd], tree.right_child[nd])
         node = torch.where(live, nxt.to(torch.int64), node)
     return ~node

@@ -1,5 +1,5 @@
-"""Batched-frontier leaf-wise tree growth (counterpart of the fused,
-unsharded, numeric arm of ``lightgbm_tpu/grower_rounds.py``).
+"""Batched-frontier leaf-wise tree growth (counterpart of the unsharded
+arms of ``lightgbm_tpu/grower_rounds.py``).
 
 Same semantics as LightGBM's best-first growth (reference:
 src/treelearner/serial_tree_learner.cpp:149-193), a ROUND of splits at a
@@ -14,16 +14,30 @@ Trees, node and leaf numbering included, are those of the serial grower.
 The JAX package runs this as a ``lax.while_loop``; here it is a Python
 loop that reads ``k`` and the committed prefix ``m`` on the host once per
 round.  Per round: candidate ranking, row routing (one gather of each
-row's split-feature bin), the smaller-child slot of every row, the fused
-histogram -> split kernels (``ops.fused.frontier_splits``: accumulate +
-sibling scan), the feature pick, the exact-prefix check and the commit.
-The root histogram is the accumulate kernel with slot 0 for every member
-row, and its best split the scan kernel in leaf mode.
+row's split-feature bin, the EFB decode, the bitset test of categorical
+splits), the smaller-child slot of every row, the histogram and split
+search of both children of every candidate, the feature pick, the
+exact-prefix check and the commit.  Two arms, as in the JAX package:
+
+- **fused** (no EFB bundles, ``hist_method`` ``auto`` or ``fused``): the
+  histogram -> split pair ``ops.fused.frontier_splits`` (B4 then B5) on
+  the [F, n] matrix.  The root histogram is B4 with slot 0 for every
+  member row.  Categorical columns are searched on their slice of the
+  derived children (``ops.split._best_categorical``) and merged over the
+  kernel's numeric tuples (``pick_fused_best``).
+- **staged** (bundles, or any other ``hist_method`` name): histograms of
+  the [G, n] group matrix at the group bin axis Bg; the root is B6
+  (``ops.histogram.histogram_fixed``), each round's smaller children B4
+  (the segment histogram); siblings are ``parent - small`` in int64;
+  ``expand_hist`` turns each [3, G, Bg] group histogram into [3, F, B]
+  per-feature ones (bin 0 rebuilt from the exact totals), and
+  ``ops.split.best_split_for_leaf`` searches them (B5 in leaf mode plus
+  the categorical search).
 
 Histograms are exact int64 fixed point at one scale per channel and tree
-(``ops/histogram.py``); the cache [L, 3, F, B] stays in int64, so every
+(``ops/histogram.py``); the cache [L, 3, G, Bg] stays in int64, so every
 sibling ``parent - small`` is exact.  Leaf sums and gains are f32 from
-the scan, as in the JAX package.
+the scans, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,8 +50,35 @@ import torch
 from .grower import (GrowerConfig, TreeArrays, _LeafBest, feature_bin,
                      row_goes_left)
 from .ops import fused
-from .ops.histogram import _vals_t, fixed_point_scales
-from .ops.split import SplitResult, fixed_to_f32, leaf_output
+from .ops.histogram import _vals_t, fixed_point_scales, histogram_fixed
+from .ops.split import (SplitResult, _best_categorical,
+                        best_split_for_leaf, fixed_to_f32, leaf_output)
+
+def make_expand_hist(meta_t: dict, num_bins: int, group_bins: int):
+    """The staged arm's ``expand_hist`` (reference: grower_rounds.py:199-
+    215): a function from group histograms [NC, 3, G, Bg] int64 to
+    per-feature ones [NC, 3, F, B].  Feature f's bin b >= 1 is merged bin
+    ``feat_start[f] + b - 1`` of column ``feat_group[f]``; its bin 0
+    (FixHistogram) is the leaf's total minus its other bins.  The totals
+    are the sum over any one group's bins (every group column holds one
+    bin per row), so in int64 the rebuilt bin is exact."""
+    B, Bg = int(num_bins), int(group_bins)
+    fg = meta_t["feat_group"].to(torch.int64)
+    fs = meta_t["feat_start"].to(torch.int64)
+    nb = meta_t["num_bin"].to(torch.int64)
+    b = torch.arange(B, device=fg.device)
+    merged = (fs[:, None] + b[None, :] - 1).clamp(0, Bg - 1)
+    flat = fg[:, None] * Bg + merged                               # [F, B]
+    drop = ~((b[None, :] >= 1) & (b[None, :] < nb[:, None]))
+
+    def expand_hist(ghist: torch.Tensor) -> torch.Tensor:
+        NC, C, G, _ = ghist.shape
+        h = ghist.reshape(NC, C, G * Bg)[:, :, flat]               # [NC,C,F,B]
+        h.masked_fill_(drop, 0)
+        totals = ghist[:, :, 0, :].sum(-1)                         # [NC, C]
+        h[..., 0] = totals[..., None] - h.sum(-1)
+        return h
+    return expand_hist
 
 
 def _rows(r: SplitResult, sl) -> SplitResult:
@@ -50,31 +91,31 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                      feature_mask: Optional[torch.Tensor] = None,
                      meta_t: Optional[dict] = None, timer=None,
                      rounds: Optional[list] = None):
-    """Grow one tree.  ``binned_t`` [G, n] uint8/int32 (G == F: no
-    bundles), ``grad``/``hess``/``row_mask`` [n] f32 on the same device;
+    """Grow one tree.  ``binned_t`` [G, n] uint8/int32 (the EFB group
+    matrix), ``grad``/``hess``/``row_mask`` [n] f32 on the same device;
     ``feature_mask`` [F] (0 = feature not sampled); ``timer`` a
     ``utils.timer.SectionTimer``; ``rounds``, when given, gets one
     ``(k, m)`` per round: candidates, and splits committed (m < k is a
     rollback to the exact prefix).  Returns (TreeArrays, leaf_id [n]
     int64)."""
     meta = meta.resolved()
-    if meta.has_bundles:
-        raise NotImplementedError(
-            "EFB-bundled datasets wait for ROADMAP queue A (EFB and the "
-            "staged histogram family)")
-    if bool(meta.is_categorical.any()):
-        raise NotImplementedError(
-            "categorical features wait for ROADMAP queue A (categorical "
-            "and monotone)")
     dev = binned_t.device
     G, n = binned_t.shape
     L = cfg.num_leaves
     B = cfg.num_bins
     hp = cfg.hp
+    # the JAX trainer's arm election (boosting/gbdt.py:690-707) for the
+    # configurations the port trains
+    fused_arm = cfg.hist_method in ("auto", "fused") and not meta.has_bundles
+    Bg = meta.max_group_bin if meta.has_bundles else B
     KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
     mt = meta_t if meta_t is not None else meta.tensors(dev)
     num_bin, missing_type, default_bin = (
         mt["num_bin"], mt["missing_type"], mt["default_bin"])
+    is_cat = torch.as_tensor(meta.is_categorical, device=dev)
+    cat_idx = torch.nonzero(is_cat).flatten() if is_cat.any() else None
+    expand_hist = (make_expand_hist(mt, B, Bg) if meta.has_bundles
+                   else (lambda h: h))
     if timer is None:
         def section(_name):
             return contextlib.nullcontext()
@@ -82,25 +123,36 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
         section = timer.section
     neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
 
+    def search(ghist: torch.Tensor, sums: torch.Tensor) -> SplitResult:
+        """Best splits of children given their group histograms
+        [NC, 3, G, Bg] int64 and totals [3, NC] f32 (the staged arm's
+        search, and both arms' root)."""
+        with section("expansion"):
+            h = expand_hist(ghist)
+        with section("kernels"):
+            return best_split_for_leaf(h, scales, sums[0], sums[1], sums[2],
+                                       num_bin, missing_type, default_bin,
+                                       is_cat, hp, feature_mask)
+
     with section("kernels"):
         vals = _vals_t(grad, hess, row_mask).contiguous()
         scales = fixed_point_scales(vals)
         member = row_mask > 0
-        # root: the accumulate kernel with slot 0 for every member row
-        slot0 = torch.where(member, 0, 1).to(torch.int32)
-        root = fused.accumulate(binned_t, vals, slot0, 1, B, scales)
-        # feature 0's bins partition the member rows: exact totals
-        root_sums = fixed_to_f32(root[0, :, 0, :].sum(-1), scales, 0)
-        nfb = fused.sibling_scan(root, scales, root_sums[:, None], num_bin,
-                                 missing_type, default_bin, hp)
-        r0 = fused.pick_fused_best(nfb, root_sums[0:1], root_sums[1:2],
-                                   root_sums[2:3], feature_mask)
+        if fused_arm:
+            # the accumulate kernel with slot 0 for every member row
+            slot0 = torch.where(member, 0, 1).to(torch.int32)
+            root = fused.accumulate(binned_t, vals, slot0, 1, B, scales)[0]
+        else:
+            root = histogram_fixed(binned_t, vals, Bg, scales)
+        # group 0's bins partition the member rows: exact totals
+        root_sums = fixed_to_f32(root[:, 0, :].sum(-1), scales, 0)
+    r0 = search(root[None], root_sums[:, None])
 
     tree = TreeArrays.empty(L, dev)
     best = _LeafBest.empty(L, dev)
     best.store(torch.zeros(1, dtype=torch.int64, device=dev), r0)
-    hist = torch.zeros((L, 3, G, B), dtype=torch.int64, device=dev)
-    hist[0] = root[0]
+    hist = torch.zeros((L, 3, G, Bg), dtype=torch.int64, device=dev)
+    hist[0] = root
     leaf_sg = torch.zeros(L, dtype=torch.float32, device=dev)
     leaf_sh = torch.zeros_like(leaf_sg)
     leaf_cnt = torch.zeros_like(leaf_sg)
@@ -131,7 +183,10 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
             binf = feature_bin(binned_t, f_r, mt)
             gl = row_goes_left(binf, best.threshold[leaf_id],
                                best.default_left[leaf_id], missing_type[f_r],
-                               default_bin[f_r], num_bin[f_r])
+                               default_bin[f_r], num_bin[f_r],
+                               *((best.is_categorical[leaf_id],
+                                  best.cat_bitset[leaf_id])
+                                 if cat_idx is not None else ()))
             row_small = gl == small_left_l[leaf_id]
             slot = torch.where(row_small & (crank < k) & member, crank,
                                k).to(torch.int32)
@@ -142,12 +197,34 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                 torch.cat([b.left_sum_hess[idl], b.right_sum_hess[idl]]),
                 torch.cat([b.left_count[idl], b.right_count[idl]])])
 
-        with section("kernels"):
-            seg, nfb = fused.frontier_splits(
-                binned_t, vals, slot, k, B, scales, csums, small_left_l[idl],
-                ph, num_bin, missing_type, default_bin, hp)
-            res = fused.pick_fused_best(nfb, csums[0], csums[1], csums[2],
-                                        feature_mask)
+        sl = small_left_l[idl]
+        if fused_arm:
+            with section("kernels"):
+                seg, nfb = fused.frontier_splits(
+                    binned_t, vals, slot, k, B, scales, csums, sl, ph,
+                    num_bin, missing_type, default_bin, hp)
+                cat_best = None
+                if cat_idx is not None:
+                    # the categorical columns of both children, derived
+                    # from the cached parents and the smaller children
+                    sm_c, ph_c = seg[:, :, cat_idx], ph[:, :, cat_idx]
+                    hl_c = torch.where(sl[:, None, None, None], sm_c,
+                                       ph_c - sm_c)
+                    cat_best = _best_categorical(
+                        torch.cat([hl_c, ph_c - hl_c]), scales, csums[0],
+                        csums[1], csums[2], num_bin[cat_idx],
+                        missing_type[cat_idx], hp)
+                res = fused.pick_fused_best(nfb, csums[0], csums[1],
+                                            csums[2], feature_mask,
+                                            cat_best, cat_idx)
+        else:
+            with section("kernels"):
+                # the smaller children's segment histograms (B4)
+                seg = fused.accumulate(binned_t, vals, slot, k, Bg, scales)
+            with section("expansion"):
+                h_left = torch.where(sl[:, None, None, None], seg, ph - seg)
+                children = torch.cat([h_left, ph - h_left])
+            res = search(children, csums)
 
         with section("routing"):
             if cfg.max_depth > 0:
@@ -181,6 +258,8 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
             tree.split_feature[node_of] = b.feature[ids]
             tree.threshold_bin[node_of] = b.threshold[ids]
             tree.default_left[node_of] = b.default_left[ids]
+            tree.is_categorical[node_of] = b.is_categorical[ids]
+            tree.cat_bitset[node_of] = b.cat_bitset[ids]
             tree.left_child[node_of] = (~ids).to(torch.int32)
             tree.right_child[node_of] = (~newleaf).to(torch.int32)
             tree.split_gain[node_of] = b.gain[ids]

@@ -3,8 +3,9 @@ with a plain C interface, and load them through ``ctypes``.
 
 Each ``ops/csrc/<name>.cu`` compiles on first use into
 ``build/lightgbm_tpu_torch/lib<name>-<digest>.so`` beside the package
-(``build/`` is git-ignored), where ``<digest>`` hashes the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+(``build/`` is git-ignored), where ``<digest>`` hashes the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused.
 Several sources build in parallel, one ``nvcc`` each.  Nothing here runs
 at import time: a host without ``nvcc`` imports the package and only
 fails when a CUDA tensor reaches a kernel.
@@ -54,6 +55,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):    # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

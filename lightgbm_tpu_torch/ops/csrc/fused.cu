@@ -14,12 +14,12 @@
 //                      parent mode) + child sums [3, NC] + meta [F]
 //                      -> six [NC, F] per-feature-best tuples
 //
-// Exact fixed point.  Channel c of a row's value block enters as
-// llrint(ldexp((double)v, s_c)) with one power-of-two scale per channel
-// and tree chosen by the caller, s_c = 62 - ceil(log2(max|v_c| * n + 1)):
-// the scaling is exact in f64, any sum of n such values fits in int64,
-// and the one rounding costs at most 2^-(s_c+1) per row (dyadic values
-// convert exactly).  Integer sums are associative, so the histograms, the
+// Exact fixed point (fixed_point.cuh, shared with histogram.cu).  Channel
+// c of a row's value block enters as llrint(ldexp((double)v, s_c)) with
+// one power-of-two scale per channel and tree chosen by the caller,
+// s_c = 62 - ceil(log2(max|v_c| * n + 1)): the scaling is exact in f64,
+// any sum of n such values fits in int64, and the one rounding costs at
+// most 2^-(s_c+1) per row (dyadic values convert exactly).  Integer sums are associative, so the histograms, the
 // sibling parent - small and the prefix sums over bins are the same bits
 // in any order: no unordered f32 atomics, and the plain PyTorch versions
 // (ops/histogram.py accumulate_plain, ops/split.py numeric_feature_scan)
@@ -50,6 +50,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fixed_point.cuh"
+
 namespace {
 
 constexpr float kEps = 1e-15f;
@@ -58,14 +60,6 @@ constexpr int kMissingNone = 0;
 constexpr int kMissingZero = 1;
 constexpr int kMissingNaN = 2;
 constexpr int kDefaultSmem = 48 * 1024;
-
-__device__ __forceinline__ long long to_fixed(float v, int s) {
-  return llrint(ldexp(static_cast<double>(v), s));
-}
-
-__device__ __forceinline__ float fixed_to_f32(long long p, double inv) {
-  return __double2float_rn(__dmul_rn(__ll2double_rn(p), inv));
-}
 
 template <typename BinT>
 __global__ void accumulate_kernel(const BinT* __restrict__ binned,

@@ -41,8 +41,9 @@ import torch
 from . import planner
 from .histogram import (accumulate_plain, fixed_point_scales, hist_scales,
                         to_fixed)
-from .split import (K_MIN_SCORE, NumericFeatureBest, SplitHyperparams,
-                    SplitResult, f32, fixed_to_f32, numeric_feature_scan)
+from .split import (NumericFeatureBest, PerFeatureBest, SplitHyperparams,
+                    SplitResult, f32, fixed_to_f32, merge_categorical,
+                    numeric_feature_scan, pick_best_feature)
 
 _counts_lock = threading.Lock()
 launch_counts = {"fused_frontier_splits": 0,
@@ -325,25 +326,18 @@ def fused_frontier_splits(binned_t, vals_t, slot, num_slots: int,
 
 
 def pick_fused_best(best: NumericFeatureBest, sum_grad, sum_hess, num_data,
-                    feature_mask: Optional[torch.Tensor] = None
-                    ) -> SplitResult:
+                    feature_mask: Optional[torch.Tensor] = None,
+                    cat_best: Optional[PerFeatureBest] = None,
+                    cat_idx: Optional[torch.Tensor] = None) -> SplitResult:
     """argmax over features of the per-feature-best tuples (ties ->
     smaller feature index), over the leading children axis; the feature
-    mask applies here, as ``feature_best_splits`` applies it."""
-    gain = best.gain
-    if feature_mask is not None:
-        gain = torch.where(feature_mask.to(torch.bool), gain,
-                           torch.full_like(gain, K_MIN_SCORE))
-    f = torch.argmax(gain, dim=-1)
+    mask applies here, as ``feature_best_splits`` applies it.
 
-    def sel(a):
-        return a.gather(-1, f[..., None])[..., 0]
-
-    blg, blh, blc = (sel(best.left_sum_grad), sel(best.left_sum_hess),
-                     sel(best.left_count))
-    return SplitResult(
-        gain=sel(gain), feature=f, threshold=sel(best.threshold),
-        default_left=sel(best.default_left),
-        left_sum_grad=blg, left_sum_hess=blh, left_count=blc,
-        right_sum_grad=sum_grad - blg, right_sum_hess=sum_hess - blh,
-        right_count=num_data.to(torch.float32) - blc)
+    Categorical merge: the kernels accumulate and scan every column, but
+    the numeric scan means nothing on a categorical one, so the grower
+    runs ``ops.split._best_categorical`` on the categorical slice of the
+    children's histograms and passes it as ``cat_best`` (fields [..., Fc])
+    with the column indices ``cat_idx``; its tuples replace the numeric
+    ones before the argmax, as in the JAX package."""
+    return pick_best_feature(merge_categorical(best, cat_best, cat_idx),
+                             sum_grad, sum_hess, num_data, feature_mask)

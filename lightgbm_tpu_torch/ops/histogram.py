@@ -1,23 +1,50 @@
-"""Histogram helpers (counterpart of the parts of
-``lightgbm_tpu/ops/histogram.py`` the fused training path reads).
+"""Histograms (counterpart of ``lightgbm_tpu/ops/histogram.py``).
 
 The port accumulates histograms in exact fixed point: channel ``c`` of
 a row's value block enters as ``round(v * 2**s_c)`` in int64, with one
 power-of-two scale per channel and per tree (``fixed_point_scales``).
-Integer sums are associative, so the CUDA kernel (``csrc/fused.cu``)
-and the plain version here give the same bits in any order.
+Integer sums are associative, so the CUDA kernels (``csrc/histogram.cu``,
+``csrc/fused.cu``) and the plain versions here give the same bits in any
+order.
 
-The JAX package's staged histogram family (``histogram_matmul*``,
-``segment_histogram*``, ``pack_cols_u32*``, ``take_from_table``) is TPU
-layout work and has no counterpart here.
+The staged family:
+
+- ``histogram_pallas`` is kernel B6's wrapper (``csrc/histogram.cu``),
+  the whole-dataset histogram of the staged arm's root: for a CUDA
+  tensor it launches the kernel (or raises) and counts the launch in
+  ``launch_counts``; for a CPU tensor it runs ``histogram_plain``, a
+  single-slot int64 ``index_add_`` that shares ``accumulate_plain``'s
+  body.  It returns [3, F, B] f32 like the JAX function;
+  ``histogram_fixed`` returns the int64 sums the grower caches.
+- ``histogram_scatter`` is the plain counterpart of the JAX package's
+  XLA scatter (f32 adds in row order); tests and CPU only.
+- ``build_histogram(..., method=)`` takes every name the JAX package
+  takes (``auto``, ``matmul``, ``matmul_f32``, ``scatter``, ``pallas``,
+  ``fused``).  Those names choose TPU layouts (the MXU one-hot matmul
+  against the XLA scatter) and have no Hopper meaning: every one runs
+  ``histogram_pallas``, so on the card every one launches B6.  The JAX
+  package's timing probe ``measured_best_method`` is not ported.
+- ``segment_histogram``: per-slot histograms; on the card it is the
+  accumulate kernel B4 (``ops/fused.py::accumulate``), which computes
+  exactly this function in the same fixed point.
+- ``subtract_histogram``: the sibling ``parent - child``, exact on int64.
+
+Not ported: ``compacted_segment_histogram`` and ``capacity_schedule``
+(TPU static-shape bucketing; the card launches on unpadded rows), and
+the TPU layout work (``histogram_matmul*``, ``segment_histogram_sorted*``,
+``pack_cols_u32*``, ``take_from_table``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 from typing import Tuple
 
 import torch
+
+from . import planner
 
 # every sum of up to n scaled values stays below 2**62 in magnitude
 FIXED_POINT_BITS = 62
@@ -90,3 +117,158 @@ def accumulate_plain(binned_t: torch.Tensor, vals_t: torch.Tensor,
         for c in range(3):
             out.index_add_(0, (base + c * F * B)[inb], q[c][inb])
     return out.view(K, 3, F, B)
+
+
+# ----------------------------------------------------------------------
+# the staged family: kernel B6 and the functions around it
+# ----------------------------------------------------------------------
+
+HIST_METHODS = ("auto", "matmul", "matmul_f32", "scatter", "pallas", "fused")
+
+_counts_lock = threading.Lock()
+launch_counts = {"histogram_pallas": 0}
+
+
+def reset_launch_counts() -> None:
+    with _counts_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def histogram_plain(binned_t: torch.Tensor, vals_t: torch.Tensor,
+                    num_bins: int, scales) -> torch.Tensor:
+    """B6's function in plain torch: [3, F, B] int64 sums of the
+    fixed-point values of every row (one slot holding all rows)."""
+    slot = torch.zeros(binned_t.shape[1], dtype=torch.int32,
+                       device=binned_t.device)
+    return accumulate_plain(binned_t, vals_t, slot, 1, num_bins, scales)[0]
+
+
+_lib_lock = threading.Lock()
+_lib_handle = None
+
+
+def _lib():
+    global _lib_handle
+    with _lib_lock:
+        if _lib_handle is None:
+            from . import _build
+            lib = _build.load("histogram")
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.histogram_build.argtypes = [
+                p, i, p, i, i, i,          # binned, bytes, vals, n, F, B
+                i, i, i, p, i, i, i, p]    # s0-2, out, chunks, ft, threads,
+            lib.histogram_build.restype = ctypes.c_int   # stream
+            _lib_handle = lib
+        return _lib_handle
+
+
+def _histogram_cuda(binned_t, vals_t, num_bins, scales):
+    F, n = binned_t.shape
+    B = int(num_bins)
+    out = torch.zeros((3, F, B), dtype=torch.int64, device=binned_t.device)
+    if n == 0 or F == 0:
+        return out
+    ft = planner.hist_feat_tile(B)
+    chunks = planner.hist_row_chunks(n, F, ft)
+    lib = _lib()
+    with torch.cuda.device(binned_t.device):
+        rc = lib.histogram_build(
+            binned_t.data_ptr(), binned_t.element_size(), vals_t.data_ptr(),
+            n, F, B, *scales, out.data_ptr(), chunks, ft,
+            planner.HIST_THREADS,
+            torch.cuda.current_stream(binned_t.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"histogram kernel launch failed: CUDA error {rc}")
+    with _counts_lock:
+        launch_counts["histogram_pallas"] += 1
+    return out
+
+
+def histogram_fixed(binned_t: torch.Tensor, vals_t: torch.Tensor,
+                    num_bins: int, scales) -> torch.Tensor:
+    """Kernel B6: [3, F, B] int64 sums of ``round(vals * 2**s)`` per
+    (channel, feature, bin) over every row.  ``binned_t`` [F, n]
+    uint8/int32, ``vals_t`` [3, n] f32 (already masked), contiguous."""
+    kinds = {binned_t.device.type, vals_t.device.type}
+    if kinds == {"cpu"}:
+        return histogram_plain(binned_t, vals_t, num_bins, scales)
+    if kinds != {"cuda"}:
+        raise ValueError(f"no histogram kernel for devices {sorted(kinds)}")
+    if binned_t.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"binned matrix must be uint8 or int32, got "
+                         f"{binned_t.dtype}")
+    if vals_t.dtype != torch.float32 or vals_t.shape != (3, binned_t.shape[1]):
+        raise ValueError("vals_t must be [3, n] float32")
+    if not (binned_t.is_contiguous() and vals_t.is_contiguous()):
+        raise ValueError("the histogram kernel takes contiguous tensors")
+    return _histogram_cuda(binned_t, vals_t, num_bins,
+                           tuple(int(s) for s in scales))
+
+
+def histogram_pallas(binned_t: torch.Tensor, vals_t: torch.Tensor,
+                     num_bins: int) -> torch.Tensor:
+    """[3, F, B] f32 sums of (g, h, w) over the rows (the JAX function's
+    interface): B6 at ``fixed_point_scales(vals_t)``, each cell the f32
+    of its exact sum."""
+    from .split import fixed_to_f32
+    scales = fixed_point_scales(vals_t)
+    return fixed_to_f32(histogram_fixed(binned_t, vals_t.contiguous(),
+                                        num_bins, scales), scales, 0)
+
+
+def histogram_scatter(binned_t: torch.Tensor, vals_t: torch.Tensor,
+                      num_bins: int) -> torch.Tensor:
+    """The JAX package's XLA scatter in plain torch: f32 adds of each
+    row's (g, h, w) into its bins, rows in ascending order; [3, F, B].
+    Tests and CPU only."""
+    if binned_t.device.type != "cpu":
+        raise ValueError("histogram_scatter is the CPU reference; the card "
+                         "runs histogram_pallas")
+    F, n = binned_t.shape
+    B = int(num_bins)
+    flat = (binned_t.to(torch.int64).T
+            + torch.arange(F, dtype=torch.int64)[None, :] * B)     # [n, F]
+    upd = vals_t.to(torch.float32).T[:, None, :].expand(n, F, 3)
+    hist = torch.zeros((F * B, 3), dtype=torch.float32)
+    hist.index_add_(0, flat.reshape(-1), upd.reshape(-1, 3))
+    return hist.view(F, B, 3).permute(2, 0, 1).contiguous()
+
+
+def build_histogram(binned_t: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, mask: torch.Tensor, num_bins: int,
+                    method: str = "auto") -> torch.Tensor:
+    """Masked histogram [3, F, B] f32 = sums over rows of (g, h, 1) * mask.
+
+    ``method`` takes every name the JAX package takes; each chooses a
+    TPU layout there and none has a Hopper meaning, so every one runs
+    ``histogram_pallas`` (B6 on the card, its plain version on the
+    CPU)."""
+    if method not in HIST_METHODS:
+        raise ValueError(f"unknown histogram method {method!r}")
+    return histogram_pallas(binned_t, _vals_t(grad, hess, mask).contiguous(),
+                            num_bins)
+
+
+def segment_histogram(binned_t: torch.Tensor, grad: torch.Tensor,
+                      hess: torch.Tensor, weights: torch.Tensor,
+                      slot: torch.Tensor, num_slots: int,
+                      num_bins: int) -> torch.Tensor:
+    """Per-slot masked histograms [S, 3, F, B] f32: row r adds its
+    (g, h, 1) * w to slot[r]'s histogram; ``slot == num_slots`` drops the
+    row.  The accumulate kernel B4 (``ops/fused.py::accumulate``) at
+    ``fixed_point_scales``, each cell the f32 of its exact sum."""
+    from . import fused
+    from .split import fixed_to_f32
+    vals = _vals_t(grad, hess, weights).contiguous()
+    scales = fixed_point_scales(vals)
+    hist = fused.accumulate(binned_t, vals, slot.to(torch.int32).contiguous(),
+                            num_slots, num_bins, scales)
+    return fixed_to_f32(hist, scales, 1)
+
+
+def subtract_histogram(parent: torch.Tensor,
+                       child: torch.Tensor) -> torch.Tensor:
+    """The sibling ``parent - child`` (reference: FeatureHistogram::
+    Subtract, feature_histogram.hpp:79-84); exact on int64."""
+    return parent - child

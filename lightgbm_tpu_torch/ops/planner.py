@@ -29,6 +29,19 @@ JAX planner's ``plan_fused`` VMEM model does not apply:
   over features x slot blocks, with at least ``FUSED_MIN_CHUNK_ROWS``
   rows a chunk, since every chunk flushes its whole arena.
 - ``FUSED_SCAN_MAX_BINS``: the scan kernel runs one thread per bin.
+
+The whole-dataset histogram kernel (``csrc/histogram.cu``, B6) takes
+fixed tiles too; the JAX kernel's (feat_tile, block_rows) VMEM grid
+does not apply:
+
+- ``HIST_FEAT_TILE``: features whose [features, 3, B] int64 arena one
+  block holds in shared memory: 8 x 3 x 256 x 8 bytes = 48 KiB at 256
+  bins, inside the default limit.  Wider bin axes shrink the tile
+  (``hist_feat_tile``).
+- ``HIST_THREADS``: threads per block (rows in flight).
+- The row axis is cut as the accumulate kernel's is
+  (``hist_row_chunks``): about four blocks per SM over the feature
+  tiles, at least ``FUSED_MIN_CHUNK_ROWS`` rows a chunk.
 """
 
 from __future__ import annotations
@@ -79,3 +92,23 @@ def fused_row_chunks(rows: int, num_features: int, slot_blocks: int) -> int:
     want = -(-FUSED_TARGET_BLOCKS // per_chunk)
     most = max(int(rows) // FUSED_MIN_CHUNK_ROWS, 1)
     return max(1, min(want, most))
+
+
+HIST_FEAT_TILE = 8
+HIST_THREADS = 512
+
+
+def hist_feat_tile(num_bins: int) -> int:
+    """Features per histogram block for a ``num_bins`` bin axis: the
+    fixed ``HIST_FEAT_TILE`` shrunk until the arena fits the default
+    shared memory (one feature at least, up to the per-block maximum)."""
+    per_feature = 3 * 8 * max(int(num_bins), 1)
+    if per_feature > SMEM_MAX_BYTES:
+        raise ValueError(f"{num_bins} bins do not fit the histogram "
+                         f"kernel's shared-memory arena")
+    return max(1, min(HIST_FEAT_TILE, SMEM_DEFAULT_BYTES // per_feature))
+
+
+def hist_row_chunks(rows: int, num_features: int, feat_tile: int) -> int:
+    """Row chunks of one histogram launch (grid axis x)."""
+    return fused_row_chunks(rows, -(-int(num_features) // int(feat_tile)), 1)

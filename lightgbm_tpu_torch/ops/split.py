@@ -1,30 +1,42 @@
-"""Best-split search over histograms (counterpart of the numeric half of
+"""Best-split search over histograms (counterpart of
 ``lightgbm_tpu/ops/split.py``).
 
 reference: src/treelearner/feature_histogram.hpp:782
-FindBestThresholdSequentially.  Both missing-direction variants are
-evaluated for every (feature, threshold) cell at once: prefix sums along
-the bin axis, L1/L2-thresholded gains, masked argmax.  The semantics are
-the JAX package's ``numeric_feature_scan`` (minimum-data checks on exact
-counts, reverse direction winning ties, ``default_left`` rules for
-features without a missing direction).
+FindBestThresholdSequentially (numeric) and :259-460
+FindBestThresholdCategoricalInner (categorical).  Both missing-direction
+variants are evaluated for every (feature, threshold) cell at once:
+prefix sums along the bin axis, L1/L2-thresholded gains, masked argmax.
+The semantics are the JAX package's ``numeric_feature_scan`` (minimum-data
+checks on exact counts, reverse direction winning ties, ``default_left``
+rules for features without a missing direction) and ``_best_categorical``
+(one-hot mode up to ``max_cat_to_onehot`` bins, otherwise many-vs-many
+over categories sorted by ``sum_grad / (sum_hess + cat_smooth)``).
 
 The port's histograms are exact integers: every value ``v`` of channel
-``c`` enters as ``round(v * 2**s_c)`` in int64 (``ops/fused.py``), so a
-histogram cell, a sibling ``parent - small`` and a prefix over bins are
-exact whatever order they are summed in.  ``numeric_feature_scan`` takes
-such an int64 histogram and its three scales, converts each prefix to
-f32 as ``float((double)p * 2**-s_c)``, and from there runs the f32 gain
-formulas elementwise.  It is the plain version of the scan half of the
-CUDA kernel in ``csrc/fused.cu``, which takes the same steps in the same
-order, so the two agree bit for bit.  Monotone constraints and
-extra-trees thresholds are not ported (the trainer refuses them).
+``c`` enters as ``round(v * 2**s_c)`` in int64 (``ops/histogram.py``), so
+a histogram cell, a sibling ``parent - small`` and a prefix over bins
+are exact whatever order they are summed in.  ``numeric_feature_scan``
+takes such an int64 histogram and its three scales, converts each prefix
+to f32 as ``float((double)p * 2**-s_c)``, and from there runs the f32
+gain formulas elementwise.  It is the plain version of the scan kernel
+B5 in ``csrc/fused.cu``, which takes the same steps in the same order, so
+the two agree bit for bit.  ``_best_categorical`` converts the same way
+(cells, and prefixes over the sorted categories); it is plain torch on
+every device, as the JAX package's is XLA.
+
+The staged search (``feature_best_splits``, ``best_split_for_leaf``,
+``pick_best_feature``) runs the numeric scan through
+``ops.fused.sibling_scan`` in leaf mode (B5 on the card) and merges the
+categorical tuples over it.  Categorical bitsets cover ``MAX_CAT_WORDS``
+32-bit words (256 bins), held in int64 tensors (torch has no shifts on
+uint32).  Monotone constraints and extra-trees thresholds are not ported
+(the trainer refuses them).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +45,7 @@ from ..binning import MissingType
 
 K_EPSILON = 1e-15
 K_MIN_SCORE = -math.inf
+MAX_CAT_WORDS = 8  # categorical bitsets cover up to 256 bins
 # the f32 constants the JAX package's weakly typed arithmetic rounds to
 _EPS32 = float(np.float32(K_EPSILON))
 _TWO_EPS32 = float(np.float32(2 * K_EPSILON))
@@ -62,11 +75,11 @@ def f32(x: float) -> float:
 
 
 class SplitResult(NamedTuple):
-    """Per-leaf best split; every field [...] (numeric splits only)."""
+    """Per-leaf best split; every field [...]."""
 
     gain: torch.Tensor          # shifted gain (minus parent gain + min gain)
     feature: torch.Tensor       # int64 used-feature index
-    threshold: torch.Tensor     # int32 bin threshold
+    threshold: torch.Tensor     # int32 bin threshold (categorical: set size)
     default_left: torch.Tensor  # bool
     left_sum_grad: torch.Tensor
     left_sum_hess: torch.Tensor
@@ -74,6 +87,22 @@ class SplitResult(NamedTuple):
     right_sum_grad: torch.Tensor
     right_sum_hess: torch.Tensor
     right_count: torch.Tensor
+    is_categorical: torch.Tensor  # bool
+    cat_bitset: torch.Tensor    # [..., MAX_CAT_WORDS] int64: bins going left
+
+
+class PerFeatureBest(NamedTuple):
+    """Per-feature best split candidates ([..., F] tensors; the bitset
+    [..., F, MAX_CAT_WORDS] int64)."""
+
+    gain: torch.Tensor
+    threshold: torch.Tensor      # int32
+    default_left: torch.Tensor   # bool
+    left_sum_grad: torch.Tensor
+    left_sum_hess: torch.Tensor
+    left_count: torch.Tensor
+    is_categorical: torch.Tensor
+    cat_bitset: torch.Tensor
 
 
 class NumericFeatureBest(NamedTuple):
@@ -228,3 +257,241 @@ def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
         left_sum_grad=pick(left_l[0], left_r[0]),
         left_sum_hess=pick(left_l[1], left_r[1]),
         left_count=pick(left_l[2], left_r[2]))
+
+
+# ----------------------------------------------------------------------
+# categorical search and the staged per-feature search
+# ----------------------------------------------------------------------
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[..., idx[...]]`` along the last axis (idx one fewer dim)."""
+    return a.gather(-1, idx[..., None])[..., 0]
+
+
+def _best_categorical(hist: torch.Tensor, scales: Sequence[int],
+                      sum_grad: torch.Tensor, sum_hess: torch.Tensor,
+                      num_data: torch.Tensor, num_bin: torch.Tensor,
+                      missing_type: torch.Tensor,
+                      hp: SplitHyperparams) -> PerFeatureBest:
+    """Categorical split search, vectorized over children and features.
+
+    ``hist`` [NC, 3, F, B] int64 fixed point at ``scales``; ``sum_*``
+    [NC] f32 child totals; ``num_bin``/``missing_type`` [F].  One-hot mode
+    (``num_bin <= max_cat_to_onehot``): the best single category against
+    the rest.  Otherwise categories with at least ``min_data_per_group //
+    4`` rows are sorted by ``g / (h + cat_smooth)`` and scanned from both
+    ends, at most ``max_cat_threshold`` categories on the left;
+    ``lambda_l2 += cat_l2``.  Returns per-feature tuples whose threshold
+    is the many-vs-many split position and whose bitset holds the bins
+    going left (never the NaN bin)."""
+    NC, _, F, B = hist.shape
+    dev = hist.device
+    l1, l2 = hp.lambda_l1, hp.lambda_l2 + hp.cat_l2
+    neg_inf = torch.tensor(K_MIN_SCORE, dtype=torch.float32, device=dev)
+    cells = fixed_to_f32(hist, scales, -3)
+    g, h, c = cells[:, 0], cells[:, 1], cells[:, 2]               # [NC,F,B]
+    sg = sum_grad.to(torch.float32)[:, None]
+    sh = sum_hess.to(torch.float32)[:, None]
+    nd = num_data.to(torch.float32)[:, None]
+    total_g, total_h = sg[..., None], (sh + _TWO_EPS32)[..., None]
+    n3 = nd[..., None]
+    parent_gain = leaf_gain(sg, sh + _TWO_EPS32, l1, l2)           # [NC, 1]
+    mgs = parent_gain + f32(hp.min_gain_to_split)
+    mgs3 = mgs[..., None]
+    min_data = f32(hp.min_data_in_leaf)
+    min_hess = f32(hp.min_sum_hessian_in_leaf)
+    bins = torch.arange(B, device=dev)
+    valid_bin = bins[None, :] < num_bin.to(torch.int64)[:, None]   # [F, B]
+
+    def gains(lg, lh, lc, ok):
+        rg, rh, rc = total_g - lg, total_h - lh, n3 - lc
+        ok = (ok & (lc >= min_data) & (rc >= min_data)
+              & (lh >= min_hess) & (rh >= min_hess))
+        gn = leaf_gain(lg, lh, l1, l2) + leaf_gain(rg, rh, l1, l2)
+        return torch.where(ok & (gn > mgs3), gn, neg_inf)
+
+    # --- one-hot mode: each category against the rest
+    oh_lh = h + _EPS32
+    onehot = gains(g, oh_lh, c, valid_bin)
+    oh_k = torch.argmax(onehot, dim=-1)                           # [NC, F]
+    oh_gain = _take(onehot, oh_k)
+
+    # --- many-vs-many over the sorted usable categories
+    usable = valid_bin & (c >= float(max(1, hp.min_data_per_group // 4)))
+    ratio = torch.where(usable, g / (h + f32(hp.cat_smooth)),
+                        torch.full_like(g, math.inf))
+    order = torch.argsort(ratio, dim=-1, stable=True)             # [NC,F,B]
+    s_usable = usable.gather(-1, order)
+    sorted_hist = hist.gather(-1, order[:, None].expand(-1, 3, -1, -1))
+    prefix = sorted_hist.masked_fill(~s_usable[:, None], 0).cumsum(-1)
+    tot = prefix[..., -1:]
+    pg, ph, pc = fixed_to_f32(prefix, scales, -3).unbind(1)
+    qg, qh, qc = fixed_to_f32(tot - prefix, scales, -3).unbind(1)
+    k_idx = bins.view(1, 1, B)
+    max_k = min(hp.max_cat_threshold, B)
+    n_usable = s_usable.sum(-1, keepdim=True)
+
+    def scan_dir(lg, lh, lc, size_ok):
+        gn = gains(lg, lh, lc, size_ok)
+        kk = torch.argmax(gn, dim=-1)
+        return (_take(gn, kk), kk,
+                (_take(lg, kk), _take(lh - _EPS32, kk), _take(lc, kk)))
+
+    lo_gain, lo_k, lo_sums = scan_dir(pg, ph + _EPS32, pc, k_idx < max_k)
+    left_size = n_usable - 1 - k_idx
+    hi_gain, hi_k, hi_sums = scan_dir(qg, qh + _EPS32, qc,
+                                      (left_size <= max_k) & (left_size >= 1))
+    use_lo = lo_gain >= hi_gain
+    mm_gain = torch.where(use_lo, lo_gain, hi_gain)
+    mm_k = torch.where(use_lo, lo_k, hi_k)
+    mm = [torch.where(use_lo, a, b) for a, b in zip(lo_sums, hi_sums)]
+
+    is_onehot = (num_bin <= hp.max_cat_to_onehot)[None, :]        # [1, F]
+    cat_gain = torch.where(is_onehot, oh_gain, mm_gain)
+    cat_gain = torch.where(torch.isfinite(cat_gain), cat_gain - mgs, neg_inf)
+    cat_lg = torch.where(is_onehot, _take(g, oh_k), mm[0])
+    cat_lh = torch.where(is_onehot, _take(oh_lh, oh_k) - _EPS32, mm[1])
+    cat_lc = torch.where(is_onehot, _take(c, oh_k), mm[2])
+
+    # bins going left: one-hot {oh_k}; low side sorted[0..k]; high side
+    # sorted[k+1..]
+    in_left = torch.where(use_lo[..., None], k_idx <= mm_k[..., None],
+                          (k_idx > mm_k[..., None]) & s_usable)
+    member = torch.zeros_like(s_usable).scatter(-1, order,
+                                                in_left & s_usable)
+    member = torch.where(is_onehot[..., None], k_idx == oh_k[..., None],
+                         member)
+    # the NaN category never sits in the stored left set: swap the sides
+    # (the same partition) where it would
+    is_nan_bin = ((k_idx == (num_bin.to(torch.int64) - 1)[None, :, None])
+                  & (missing_type == MissingType.NAN)[None, :, None])
+    nan_left = (member & is_nan_bin).any(-1)
+    member = torch.where(nan_left[..., None], valid_bin & ~member & ~is_nan_bin,
+                         member)
+    cat_lg = torch.where(nan_left, sg - cat_lg, cat_lg)
+    cat_lh = torch.where(nan_left, sh - cat_lh, cat_lh)
+    cat_lc = torch.where(nan_left, nd - cat_lc, cat_lc)
+    return PerFeatureBest(
+        gain=cat_gain, threshold=mm_k.to(torch.int32),
+        default_left=torch.zeros_like(nan_left),
+        left_sum_grad=cat_lg, left_sum_hess=cat_lh, left_count=cat_lc,
+        is_categorical=torch.ones_like(nan_left),
+        cat_bitset=member_bitset(member))
+
+
+def member_bitset(member: torch.Tensor) -> torch.Tensor:
+    """[..., B] bool bin membership -> [..., MAX_CAT_WORDS] int64 words
+    (bin b is bit b % 32 of word b // 32; bins past 256 are dropped)."""
+    B = member.shape[-1]
+    nb = min(B, 32 * MAX_CAT_WORDS)
+    bits = torch.zeros(member.shape[:-1] + (32 * MAX_CAT_WORDS,),
+                       dtype=torch.int64, device=member.device)
+    bits[..., :nb] = member[..., :nb].to(torch.int64)
+    weight = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=member.device),
+        torch.arange(32, device=member.device))
+    return (bits.view(member.shape[:-1] + (MAX_CAT_WORDS, 32))
+            * weight).sum(-1)
+
+
+def merge_categorical(best: NumericFeatureBest,
+                      cat_best: Optional[PerFeatureBest] = None,
+                      cat_idx: Optional[torch.Tensor] = None
+                      ) -> PerFeatureBest:
+    """Per-feature tuples of every feature: the numeric scan's, with the
+    categorical columns ``cat_idx`` overwritten by ``cat_best`` (the JAX
+    package's ``where(is_categorical, cat, numeric)``)."""
+    shape = best.gain.shape
+    dev = best.gain.device
+    out = PerFeatureBest(
+        gain=best.gain, threshold=best.threshold,
+        default_left=best.default_left, left_sum_grad=best.left_sum_grad,
+        left_sum_hess=best.left_sum_hess, left_count=best.left_count,
+        is_categorical=torch.zeros(shape, dtype=torch.bool, device=dev),
+        cat_bitset=torch.zeros(shape + (MAX_CAT_WORDS,), dtype=torch.int64,
+                               device=dev))
+    if cat_best is None:
+        return out
+    merged = []
+    for name in PerFeatureBest._fields:
+        a = getattr(out, name).clone()
+        if name == "cat_bitset":
+            a[..., cat_idx, :] = cat_best.cat_bitset
+        else:
+            a[..., cat_idx] = getattr(cat_best, name).to(a.dtype)
+        merged.append(a)
+    return PerFeatureBest(*merged)
+
+
+def pick_best_feature(pf: PerFeatureBest, sum_grad, sum_hess, num_data,
+                      feature_mask: Optional[torch.Tensor] = None
+                      ) -> SplitResult:
+    """argmax over features (the last axis; ties -> smaller feature
+    index, reference: SplitInfo::operator>, split_info.hpp:126-155).  The
+    feature mask applies here, as ``feature_best_splits`` applies it."""
+    gain = pf.gain
+    if feature_mask is not None:
+        gain = torch.where(feature_mask.to(torch.bool), gain,
+                           torch.full_like(gain, K_MIN_SCORE))
+    f = torch.argmax(gain, dim=-1)
+    blg, blh, blc = (_take(pf.left_sum_grad, f), _take(pf.left_sum_hess, f),
+                     _take(pf.left_count, f))
+    bitset = pf.cat_bitset.gather(
+        -2, f[..., None, None].expand(f.shape + (1, MAX_CAT_WORDS)))[..., 0, :]
+    return SplitResult(
+        gain=_take(gain, f), feature=f, threshold=_take(pf.threshold, f),
+        default_left=_take(pf.default_left, f),
+        left_sum_grad=blg, left_sum_hess=blh, left_count=blc,
+        right_sum_grad=sum_grad - blg, right_sum_hess=sum_hess - blh,
+        right_count=num_data.to(torch.float32) - blc,
+        is_categorical=_take(pf.is_categorical, f), cat_bitset=bitset)
+
+
+def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
+                        sum_grad: torch.Tensor, sum_hess: torch.Tensor,
+                        num_data: torch.Tensor, num_bin: torch.Tensor,
+                        missing_type: torch.Tensor,
+                        default_bin: torch.Tensor,
+                        is_categorical: torch.Tensor, hp: SplitHyperparams,
+                        feature_mask: Optional[torch.Tensor] = None
+                        ) -> PerFeatureBest:
+    """Best split PER FEATURE of each child.
+
+    ``hist`` [NC, 3, F, B] int64 fixed point at ``scales``; ``sum_*``
+    [NC] f32 child totals; meta [F].  The numeric scan is B5 in leaf mode
+    (``ops.fused.sibling_scan``: the kernel on the card, its plain
+    version on the CPU); the categorical columns are searched by
+    ``_best_categorical`` on their slice and merged over it.  The
+    feature mask sets a masked feature's gain to -inf."""
+    from .fused import sibling_scan
+    sums = torch.stack([sum_grad.to(torch.float32),
+                        sum_hess.to(torch.float32),
+                        num_data.to(torch.float32)])
+    nfb = sibling_scan(hist, scales, sums, num_bin, missing_type,
+                       default_bin, hp)
+    cat_idx = torch.nonzero(is_categorical.to(torch.bool)).flatten()
+    cat_best = None
+    if cat_idx.numel():
+        cat_idx = cat_idx.to(hist.device)
+        cat_best = _best_categorical(hist[:, :, cat_idx], scales, sum_grad,
+                                     sum_hess, num_data, num_bin[cat_idx],
+                                     missing_type[cat_idx], hp)
+    pf = merge_categorical(nfb, cat_best, cat_idx)
+    if feature_mask is not None:
+        pf = pf._replace(gain=torch.where(
+            feature_mask.to(torch.bool), pf.gain,
+            torch.full_like(pf.gain, K_MIN_SCORE)))
+    return pf
+
+
+def best_split_for_leaf(hist: torch.Tensor, scales: Sequence[int],
+                        sum_grad, sum_hess, num_data, num_bin, missing_type,
+                        default_bin, is_categorical, hp: SplitHyperparams,
+                        feature_mask: Optional[torch.Tensor] = None
+                        ) -> SplitResult:
+    """Best split over all features of each child (see
+    ``feature_best_splits``); [NC] fields."""
+    pf = feature_best_splits(hist, scales, sum_grad, sum_hess, num_data,
+                             num_bin, missing_type, default_bin,
+                             is_categorical, hp, feature_mask)
+    return pick_best_feature(pf, sum_grad, sum_hess, num_data)

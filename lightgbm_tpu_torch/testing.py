@@ -224,3 +224,73 @@ def higgs_like(rows: int, seed: int, num_features: int = 28):
              + 0.6 * np.sin(2.0 * X[:, 4]) + 0.3 * X[:, 5:9].sum(axis=1)
              - 1.0 + 0.7 * rng.standard_normal(rows))
     return X, (logit > 0).astype(np.float32)
+
+
+# the airline on-time schema of the benchm-ml benchmark (2005-2006 ASA
+# Data Expo rows): name, first code, number of codes; DepTime (hhmm) and
+# Distance are numeric
+AIRLINE_COLUMNS = (("Month", 1, 12), ("DayofMonth", 1, 31),
+                   ("DayOfWeek", 1, 7), ("DepTime", None, None),
+                   ("UniqueCarrier", 0, 22), ("Origin", 0, 300),
+                   ("Dest", 0, 300), ("Distance", None, None))
+AIRLINE_CATEGORICAL = tuple(i for i, (_, lo, _) in enumerate(AIRLINE_COLUMNS)
+                            if lo is not None)
+
+
+def _airport_weights(count: int) -> np.ndarray:
+    """Zipf-Mandelbrot airport frequencies, 1 / (rank + 10)^2: the busiest
+    airport takes 9% of the flights, and the busiest 232 of 300 take 99%
+    (so a 255-bin categorical mapper keeps them all in one bin each)."""
+    w = 1.0 / (np.arange(1, count + 1) + 10.0) ** 2
+    return w / w.sum()
+
+
+def airline_like(rows: int, seed: int):
+    """Rows of the airline schema (``AIRLINE_COLUMNS``), f32, and a 0/1
+    label "departure delayed by 15 minutes or more".
+
+    Month, DayofMonth and DayOfWeek are uniform; UniqueCarrier has 22
+    codes, Origin and Dest 300 each with Zipf-skewed frequencies (airport
+    ranks are a fixed shuffle of the codes); DepTime is hhmm between
+    05:00 and 23:59, Distance in miles.  The label is a seeded logistic
+    of per-category effects (drawn once, the same for every ``seed``)
+    plus a late-departure term; about one row in five is positive.
+    Returns (X [rows, 8] f32, y [rows] f32)."""
+    fx = np.random.RandomState(2009)          # the effects, fixed
+    effects = {name: fx.normal(0.0, 0.35, k)
+               for name, lo, k in AIRLINE_COLUMNS if lo is not None}
+    rank_of = {name: fx.permutation(300) for name in ("Origin", "Dest")}
+    rng = np.random.RandomState(seed)
+    X = np.zeros((rows, len(AIRLINE_COLUMNS)), np.float32)
+    logit = np.full(rows, -1.6)
+    for j, (name, lo, k) in enumerate(AIRLINE_COLUMNS):
+        if name in rank_of:
+            codes = rank_of[name][rng.choice(k, rows, p=_airport_weights(k))]
+        elif lo is not None:
+            codes = rng.randint(0, k, rows)
+        else:
+            continue
+        X[:, j] = codes + lo
+        logit += effects[name][codes]
+    hour = rng.randint(5, 24, rows)
+    X[:, 3] = hour * 100 + rng.randint(0, 60, rows)
+    X[:, 7] = np.round(np.exp(rng.normal(6.4, 0.6, rows)))
+    logit += 0.12 * (hour - 14) + 0.2 * rng.standard_normal(rows)
+    y = rng.rand(rows) < 1.0 / (1.0 + np.exp(-logit))
+    return X, y.astype(np.float32)
+
+
+def one_hot(X: np.ndarray) -> np.ndarray:
+    """The airline rows with every categorical column one-hot encoded in
+    place (12 + 31 + 7 + 22 + 300 + 300 columns, DepTime and Distance
+    kept): [rows, 674] f32."""
+    widths = [1 if lo is None else k for _, lo, k in AIRLINE_COLUMNS]
+    out = np.zeros((X.shape[0], sum(widths)), np.float32)
+    at = 0
+    for j, (_, lo, k) in enumerate(AIRLINE_COLUMNS):
+        if lo is None:
+            out[:, at] = X[:, j]
+        else:
+            out[np.arange(X.shape[0]), at + X[:, j].astype(np.int64) - lo] = 1
+        at += widths[j]
+    return out

@@ -130,7 +130,9 @@ class HostTree:
 def tree_to_host(tree_arrays, train_set, shrinkage: float) -> HostTree:
     """Trained ``TreeArrays`` (bin thresholds over used features, on any
     device) -> a self-contained HostTree (double thresholds, real feature
-    indices).  Numeric splits only, as the port trains them."""
+    indices).  A categorical split's bin bitset becomes a bitset over
+    category values (``cat_boundaries``/``cat_threshold``, the node's
+    threshold its index), as the JAX package's ``tree_to_host`` does."""
     ta = tree_arrays.to_numpy()
     nl = int(ta["num_leaves"])
     ns = max(nl - 1, 0)
@@ -141,10 +143,28 @@ def tree_to_host(tree_arrays, train_set, shrinkage: float) -> HostTree:
         if ns else np.zeros(0, np.int32)
     thr_bin = np.asarray(ta["threshold_bin"][:ns], np.int32)
     dl = np.asarray(ta["default_left"][:ns], bool)
+    is_cat = np.asarray(ta["is_categorical"][:ns], bool)
     threshold = np.zeros(ns, np.float64)
     decision_type = np.zeros(ns, np.int8)
+    cat_boundaries = [0]
+    cat_threshold = []
     for s in range(ns):
         m = mappers[used[split_feature_inner[s]]]
+        if is_cat[s]:
+            # bin bitset -> category-value bitset
+            bin_bits = np.asarray(ta["cat_bitset"][s], np.uint32)
+            cats = [m.bin_2_categorical[b] for b in range(m.num_bin)
+                    if (bin_bits[b // 32] >> (b % 32)) & 1
+                    and b < len(m.bin_2_categorical)
+                    and m.bin_2_categorical[b] >= 0]
+            words = np.zeros((max(cats) if cats else 0) // 32 + 1, np.uint32)
+            for cv in cats:
+                words[cv // 32] |= np.uint32(1) << np.uint32(cv % 32)
+            threshold[s] = len(cat_boundaries) - 1
+            cat_boundaries.append(cat_boundaries[-1] + len(words))
+            cat_threshold.extend(words.tolist())
+            decision_type[s] = K_CATEGORICAL_MASK | ((m.missing_type & 3) << 2)
+            continue
         dt = K_DEFAULT_LEFT_MASK if dl[s] else 0
         dt |= (m.missing_type & 3) << 2
         r = m.num_bin - 1 - (1 if m.missing_type == MISSING_NAN else 0)
@@ -165,5 +185,8 @@ def tree_to_host(tree_arrays, train_set, shrinkage: float) -> HostTree:
         internal_weight=f64("internal_weight", ns),
         internal_count=f64("internal_count", ns),
         leaf_value=f64("leaf_value", nl), leaf_weight=f64("leaf_weight", nl),
-        leaf_count=f64("leaf_count", nl), shrinkage=shrinkage,
-        real_feature_index=real_feat)
+        leaf_count=f64("leaf_count", nl),
+        num_cat=len(cat_boundaries) - 1,
+        cat_boundaries=np.asarray(cat_boundaries, np.int32),
+        cat_threshold=np.asarray(cat_threshold, np.uint32),
+        shrinkage=shrinkage, real_feature_index=real_feat)

@@ -36,7 +36,10 @@ def test_import_pulls_in_no_jax():
     for mod in ("basic", "convert", "model_text", "predict", "testing",
                 "tree", "obs.metrics", "ops._build", "ops.planner",
                 "ops.predict_kernels", "serving.batcher", "serving.errors",
-                "serving.registry", "serving.server", "utils.log"):
+                "serving.registry", "serving.server", "utils.log",
+                "binning", "dataset", "engine", "grower", "grower_rounds",
+                "boosting.gbdt", "ops.fused", "ops.histogram", "ops.ingest",
+                "ops.split"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
