@@ -29,7 +29,19 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   ``Booster.predict`` through B1 against B1's plain version;
 - ``hist6``: B6 against its plain version on that group matrix, timed;
 - ``cat_train``: the same table with six native categorical features on
-  the fused arm with the categorical merge, and B3's categorical branch.
+  the fused arm with the categorical merge, and B3's categorical branch;
+- ``quant_hist``: B4, B5 and B2 in their int8/int32 mode (quantized
+  gradients) against their plain versions at the training run's shapes,
+  exact, and timed, with ``quantize_gradients`` (threefry included);
+- ``quant_train``: ``higgs_quant_1m``, the training run's dataset again
+  with ``use_quantized_grad`` (LightGBM's defaults: 4 bins, stochastic
+  rounding, no leaf renewal): the card's quantized gradients of the
+  first tree and of the scores after the last bit-equal to the CPU
+  port's, the model text byte-identical to the
+  plain-version run, only the int8 kernels launched; then 3 rounds at 16
+  bins without stochastic rounding and with leaf renewal, and 3 rounds
+  of the one-hot table on the staged arm, each against its plain-version
+  run.
 
 Each phase prints one JSON line.  Any failed check raises, and the
 script exits non-zero; it exits non-zero without a result where CUDA is
@@ -79,8 +91,18 @@ WIDE_ROWS, WIDE_ROUNDS = 200_000, 3
 WIDE_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 1023,
                "verbose": -1}
 # f32 operations per (child, feature, bin) of the gain scan: two
-# directions of ~20 adds/multiplies/divides/compares each
+# directions of ~20 adds/multiplies/divides/compares each; the quantized
+# scan adds the count estimate (convert, multiply, round) per cell
 SCAN_OPS_PER_CELL = 40
+QUANT_COUNT_OPS_PER_CELL = 3
+# quantized training (higgs_quant_1m): the training run's data and
+# parameters with LightGBM's quantized-training defaults; the two short
+# runs take the other rounding/renewal branches and the staged arm
+QUANT_PARAMS = dict(TRAIN_PARAMS, use_quantized_grad=True)
+QUANT_BRANCH_PARAMS = dict(QUANT_PARAMS, num_grad_quant_bins=16,
+                           stochastic_rounding=False,
+                           quant_train_renew_leaf=True)
+QUANT_SHORT_ROUNDS = 3
 
 
 def emit(obj) -> None:
@@ -429,13 +451,18 @@ def reset_training_counts() -> None:
     histogram.reset_launch_counts()
 
 
-def train_once(lt, X, y, Xv, yv, params, rounds, categorical):
-    """Dataset + valid set + ``train`` on the card; returns (datasets,
+def train_once(lt, X, y, Xv, yv, params, rounds, categorical,
+               datasets=None):
+    """Dataset + valid set + ``train`` on the card (``datasets``: a
+    constructed (train, valid) pair to reuse instead); returns (datasets,
     booster, evals, construct seconds, train seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ds = lt.Dataset(X, label=y, categorical_feature=categorical)
-    vs = ds.create_valid(Xv, label=yv)
+    if datasets is None:
+        ds = lt.Dataset(X, label=y, categorical_feature=categorical)
+        vs = ds.create_valid(Xv, label=yv)
+    else:
+        ds, vs = datasets
     ds.construct()
     vs.construct()
     torch.cuda.synchronize()
@@ -470,7 +497,8 @@ def restore_kernels(saved) -> None:
      histogram._histogram_cuda) = saved
 
 
-def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto"):
+def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
+                  datasets=None):
     """The training path on the card three times: the main run (counts
     set to 0 just before it and read just after), the same run with every
     kernel replaced by its plain version (its model text must be the same
@@ -479,12 +507,14 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto"):
     tree's time goes; the timer synchronises the card at each section)
     that logs each tree's (candidates, committed) per frontier round.
     Checks the trees, the falling valid logloss and the card's
-    predictions against the host's; returns what the phases report."""
+    predictions against the host's; returns what the phases report.
+    ``datasets``: a constructed (train, valid) pair that every run
+    reuses."""
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     from lightgbm_tpu_torch.utils.timer import SectionTimer
     reset_training_counts()
     ds, vs, bst, evals, construct_s, train_s = train_once(
-        lt, X, y, Xv, yv, params, rounds, categorical)
+        lt, X, y, Xv, yv, params, rounds, categorical, datasets)
     launches = kernel_launches()
     text = bst.model_to_string()
     if bst.num_trees() != rounds:
@@ -512,7 +542,7 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto"):
     reset_training_counts()
     try:
         _, _, bst_p, _, _, plain_train_s = train_once(
-            lt, X, y, Xv, yv, params, rounds, categorical)
+            lt, X, y, Xv, yv, params, rounds, categorical, datasets)
     finally:
         restore_kernels(saved)
     plain_launches = kernel_launches()
@@ -567,6 +597,11 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto"):
         "checked": "model text byte-identical to the plain run"}}
 
 
+F32_ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
+               "fused_sibling_scan")
+INT8_ENTRIES = tuple(name + "_int8" for name in F32_ENTRIES)
+
+
 def expect_launches(launches: dict, positive=(), zero=(), exact=None):
     for name in positive:
         if launches[name] <= 0:
@@ -591,9 +626,9 @@ def phase_train(lt):
     # the fused arm: B4 roots, B2 (B4 + B5) rounds, no B6
     expect_launches(r["launches"], positive=(
         "ingest", "fused_frontier_splits", "fused_frontier_accumulate",
-        "fused_sibling_scan"), zero=("histogram_pallas",))
+        "fused_sibling_scan"), zero=("histogram_pallas",) + INT8_ENTRIES)
     emit({"phase": "train", **r["row"]})
-    return r["launches"], r["ds"], X, r["bst"]
+    return r, (X, y, Xv, yv)
 
 
 def edge_rows(ds, F: int, X) -> np.ndarray:
@@ -895,7 +930,7 @@ def phase_efb_train(lt, pk):
         raise AssertionError("the one-hot table did not bundle")
     expect_launches(r["launches"], positive=(
         "fused_frontier_accumulate", "fused_sibling_scan"),
-        zero=("fused_frontier_splits",),
+        zero=("fused_frontier_splits",) + INT8_ENTRIES,
         exact={"histogram_pallas": TRAIN_ROUNDS, "ingest": 2})
     checked = oracle_check(ds, X[:EFB_ORACLE_ROWS])
     b1 = predict_vs_plain(pk, r["bst"], Xv)
@@ -925,7 +960,7 @@ def phase_cat_train(lt, pk):
                              "features without bundles")
     expect_launches(r["launches"], positive=(
         "fused_frontier_splits", "fused_frontier_accumulate",
-        "fused_sibling_scan"), zero=("histogram_pallas",),
+        "fused_sibling_scan"), zero=("histogram_pallas",) + INT8_ENTRIES,
         exact={"ingest": 2})
     checked = oracle_check(ds, X)
     b1 = predict_vs_plain(pk, r["bst"], Xv)
@@ -984,6 +1019,274 @@ def phase_hist6(ds, bst):
     return row
 
 
+def same_bits(a, b) -> bool:
+    """Two ``NumericFeatureBest`` tuples equal bit for bit."""
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def quant_check(gb, score, it) -> dict:
+    """Quantization on the card against the CPU port, for the gradients
+    at ``score`` with the booster's key of iteration ``it``: levels and
+    scales must be the same bits (PyTorch's CUDA division by a CPU
+    scalar multiplies by the reciprocal, so the scales stay device
+    tensors; ``rows_differing_under_cpu_scalar_division`` counts the
+    rows whose ``g / scale`` that would have changed)."""
+    from lightgbm_tpu_torch.ops.histogram import quantize_gradients
+    from lightgbm_tpu_torch.utils import threefry
+    n = gb.num_data
+    grad, hess = gb.objective.get_gradients(score)
+    ones = torch.ones_like(grad)
+    key = threefry.fold_in(threefry.fold_in(
+        threefry.fold_in(gb._node_key_base, it), 0x51475442), 0)
+    bins = gb.config.num_grad_quant_bins
+    card = quantize_gradients(grad, hess, ones, bins, key)
+    host = quantize_gradients(grad.cpu(), hess.cpu(), ones.cpu(), bins, key)
+    same = [torch.equal(a.cpu(), b) for a, b in zip(card[:2], host[:2])]
+    same += [np.float32(a.item()).tobytes() == np.float32(b.item()).tobytes()
+             for a, b in zip(card[2:], host[2:])]
+    if not all(same):
+        raise AssertionError(f"the card's quantized gradients differ from "
+                             f"the CPU port's (gq, hq, g_scale, h_scale: "
+                             f"{same})")
+    # what a division by a Python float (a CPU scalar) would have given
+    x = grad * ones
+    recip_rows = int((x / card[2] != x / float(card[2])).sum())
+    return {"rows": n, "iteration": it,
+            "distinct_gradients": int(torch.unique(grad).numel()),
+            "gq_hq_scales_bit_equal_to_cpu": True,
+            "g_scale": float(card[2]), "h_scale": float(card[3]),
+            "rows_differing_under_cpu_scalar_division": recip_rows}
+
+
+def phase_quant_hist(ds, bst):
+    """B4, B5 and B2 in the int8/int32 mode against their plain versions
+    at one frontier level of the training run (K = 128 slots, about half
+    the rows slotted), with int8 levels that ``quantize_gradients`` made
+    on the card from the run's last gradients; exact (integer sums), so
+    ``max_abs_err`` must be 0.  Kernels timed from CUDA graphs; plain
+    versions, ``torch.bincount`` x 2 and ``quantize_gradients`` by CUDA
+    events."""
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.ops.histogram import (_vals_t_int,
+                                                  accumulate_plain,
+                                                  quantize_gradients)
+    from lightgbm_tpu_torch.ops.split import QuantScales
+    from lightgbm_tpu_torch.utils import threefry
+    gb = bst.boosting
+    binned_t = ds.binned_t
+    F, n = binned_t.shape
+    K, B = HIST_SLOTS, gb.num_bins
+    hp = gb.grower_cfg.hp
+    mt = gb.meta_t
+    nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    grad, hess = gb.objective.get_gradients(gb.train_score[0])
+    ones = torch.ones_like(grad)
+    key = threefry.fold_in(threefry.fold_in(threefry.prng_key(0),
+                                            0x51475442), 0)
+
+    def quantize():
+        return quantize_gradients(grad, hess, ones, 4, key)
+
+    gq, hq, gs, hs = quantize()
+    qs = QuantScales(float(gs), float(hs))
+    vals = _vals_t_int(gq, hq, ones > 0).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    r = torch.rand(n, device="cuda", generator=g)
+    pick = torch.randint(0, K, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    other = torch.randint(0, K, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    slot = torch.where(r < 0.5, pick, torch.full_like(pick, K))
+    pslot = torch.where(r < 0.5, pick, other)
+    parent = accumulate_plain(binned_t, vals, pslot, K, B)
+    small_left = torch.rand(K, device="cuda", generator=g) < 0.5
+
+    small = fused.accumulate(binned_t, vals, slot, K, B)
+    small_p = accumulate_plain(binned_t, vals, slot, K, B)
+    if small.dtype != torch.int32 or not torch.equal(small, small_p):
+        raise AssertionError("B4 int8 differs from its plain version")
+    err_b4 = max_abs_err(small, small_p)
+    del small_p
+    children = fused.derive_children(small, small_left, parent)
+    n_par = torch.bincount(pslot, minlength=K)
+    n_small = torch.bincount(slot[slot < K], minlength=K)
+    n_left = torch.where(small_left, n_small, n_par - n_small)
+    tot = children[:, :, 0].to(torch.int64).sum(-1).to(torch.float32)
+    sums = torch.stack([tot[:, 0] * gs, tot[:, 1] * hs,
+                        torch.cat([n_left, n_par - n_left]).float()])
+
+    def b5():
+        return fused.sibling_scan(small, qs, sums, nb, mty, db, hp,
+                                  small_left=small_left, parent=parent)
+
+    def b5_plain():
+        return fused.scan_plain(small, qs, sums, nb, mty, db, hp,
+                                small_left=small_left, parent=parent)
+
+    def b2():
+        return fused.frontier_splits(binned_t, vals, slot, K, B, qs, sums,
+                                     small_left, parent, nb, mty, db, hp)
+
+    def b2_plain():
+        seg = accumulate_plain(binned_t, vals, slot, K, B)
+        return seg, fused.scan_plain(seg, qs, sums, nb, mty, db, hp,
+                                     small_left=small_left, parent=parent)
+
+    best_k5, best_p5 = b5(), b5_plain()
+    if not same_bits(best_k5, best_p5):
+        raise AssertionError("B5 (quantized) differs from its plain version "
+                             "in bits")
+    if not bool(torch.isfinite(best_k5.gain).any()):
+        raise AssertionError("B5 (quantized) found no split")
+    err_b5 = max_abs_err(best_k5, best_p5)
+    seg_k, best_k = b2()
+    seg_p, best_p = b2_plain()
+    if not (torch.equal(seg_k, seg_p) and same_bits(best_k, best_p)):
+        raise AssertionError("B2 (int8) differs from its plain version")
+    err_b2 = max(max_abs_err(best_k, best_p), max_abs_err(seg_k, seg_p))
+    del seg_k, seg_p
+    for err in (err_b4, err_b5, err_b2):
+        if err != 0.0:
+            raise AssertionError(f"an int8 kernel is off by {err}")
+    torch.cuda.synchronize()
+
+    # torch.bincount over the flattened (slot, feature, bin) index with
+    # the levels as f32 weights (exact: sums below 2**24), one call per
+    # channel: the library yardstick for B4 int8
+    rows = torch.nonzero(slot < K).flatten()
+    idx = ((slot[rows].to(torch.int64)[None, :] * F
+            + torch.arange(F, device="cuda")[:, None]) * B
+           + binned_t[:, rows].to(torch.int64)).flatten()
+    wts = [vals[c, rows].float()[None, :].expand(F, -1).flatten().contiguous()
+           for c in range(2)]
+
+    def library():
+        for w in wts:
+            torch.bincount(idx, weights=w, minlength=K * F * B)
+
+    m = int(rows.numel())
+    NC = 2 * K
+    hist_bytes = K * 2 * F * B * 4
+    tuple_bytes = NC * F * 4 * 6
+    in_bytes = n * F + 2 * n + 4 * n
+    acc = bytes_or_ops(in_bytes + hist_bytes, 2 * m * F)
+    scan_ops = NC * F * B * (SCAN_OPS_PER_CELL + QUANT_COUNT_OPS_PER_CELL)
+    scan = bytes_or_ops(2 * hist_bytes + 3 * NC * 4 + K * 4 + 3 * F * 4
+                        + tuple_bytes, scan_ops)
+    pair = bytes_or_ops(in_bytes + 2 * hist_bytes + 3 * NC * 4 + K * 4
+                        + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
+    rows_out = {
+        "fused_frontier_accumulate": {
+            "kernel_ms": graph_ms(
+                lambda: fused.accumulate(binned_t, vals, slot, K, B), 10),
+            "plain_ms": event_ms(lambda: accumulate_plain(
+                binned_t, vals, slot, K, B), 2, warmup=1),
+            "library_ms": event_ms(library, 5), "max_abs_err": err_b4,
+            **acc},
+        "fused_sibling_scan": {
+            "kernel_ms": graph_ms(b5, 10),
+            "plain_ms": event_ms(b5_plain, 2, warmup=1),
+            "library_ms": None, "max_abs_err": err_b5, **scan},
+        "fused_frontier_splits": {
+            "kernel_ms": graph_ms(b2, 10),
+            "plain_ms": event_ms(b2_plain, 2, warmup=1),
+            "library_ms": None, "max_abs_err": err_b2, **pair},
+    }
+    quant_ms = event_ms(quantize, 10)
+    emit({"phase": "quant_hist", "rows": n, "features": F, "bins": B,
+          "slots": K, "slotted_rows": m, "quant_bins": 4,
+          "g_scale": qs.g, "h_scale": qs.h,
+          "checked": "exact: equal to the plain versions (int32 sums, "
+                     "tuples bit for bit)",
+          "quantize_gradients_ms": quant_ms,
+          "quantize_gradients_bytes": 8 * n + 2 * n,
+          **rows_out})
+    return rows_out
+
+
+def short_quant_run(lt, ds, params, positive, zero):
+    """``QUANT_SHORT_ROUNDS`` rounds of ``params`` on a reused dataset, on
+    the kernels and then on their plain versions: the model texts must be
+    the same bytes.  Returns the kernel run's launch counts."""
+    reset_training_counts()
+    bst = lt.train(params, ds, QUANT_SHORT_ROUNDS, verbose_eval=False)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    expect_launches(launches, positive=positive, zero=zero)
+    if not bst.boosting._quant_on or bst.num_trees() != QUANT_SHORT_ROUNDS:
+        raise AssertionError("the short run did not train quantized trees")
+    saved = plain_kernels()
+    try:
+        bst_p = lt.train(params, ds, QUANT_SHORT_ROUNDS, verbose_eval=False)
+    finally:
+        restore_kernels(saved)
+    if bst_p.model_to_string() != bst.model_to_string():
+        raise AssertionError("the short quantized run's model text differs "
+                             "from its plain-version run")
+    return launches
+
+
+def phase_quant_train(lt, f32_run, data, efb_ds):
+    """``higgs_quant_1m``: the training run's datasets with
+    ``use_quantized_grad`` and LightGBM's defaults, through
+    ``training_runs``; then the other branches (16 bins, no stochastic
+    rounding, leaf renewal) and the staged arm (the one-hot table), 3
+    rounds each.  Returns the main run's launch counts."""
+    ds, f32_row = f32_run["ds"], f32_run["row"]
+    r = training_runs(lt, *data, QUANT_PARAMS, TRAIN_ROUNDS,
+                      datasets=(ds, f32_run["vs"]))
+    expect_launches(r["launches"], positive=INT8_ENTRIES,
+                    zero=F32_ENTRIES + ("histogram_pallas", "ingest"))
+    if not r["bst"].boosting._quant_on:
+        raise AssertionError("the quantized run trained f32 histograms")
+    gb = r["bst"].boosting
+    init = float(np.float32(gb.init_scores[0]))
+    checks = [quant_check(gb, torch.full((gb.num_data,), init,
+                                         device="cuda"), 0),
+              quant_check(gb, gb.train_score[0], TRAIN_ROUNDS)]
+    branch = short_quant_run(
+        lt, ds, QUANT_BRANCH_PARAMS,
+        positive=INT8_ENTRIES + ("fused_frontier_accumulate",),
+        zero=("fused_frontier_splits", "fused_sibling_scan",
+              "histogram_pallas"))
+    staged = short_quant_run(
+        lt, efb_ds, QUANT_PARAMS,
+        positive=("fused_frontier_accumulate_int8",
+                  "fused_sibling_scan_int8"),
+        zero=F32_ENTRIES + ("fused_frontier_splits_int8",
+                            "histogram_pallas"))
+    row = r["row"]
+    cfg = r["bst"].boosting.config
+    emit({"phase": "quant_train", "config": "higgs_quant_1m", **row,
+          "datasets": "reused from phase train",
+          "quant": {k: getattr(cfg, k) for k in (
+              "use_quantized_grad", "num_grad_quant_bins",
+              "stochastic_rounding", "quant_train_renew_leaf")},
+          "round10_vs_f32": {
+              "auc": [row["valid_auc"][-1], f32_row["valid_auc"][-1]],
+              "logloss": [row["valid_logloss"][-1],
+                          f32_row["valid_logloss"][-1]]},
+          "quantize_check_first_and_after_last_tree": checks,
+          "branch_run": {"rounds": QUANT_SHORT_ROUNDS,
+                         "params": {k: QUANT_BRANCH_PARAMS[k] for k in (
+                             "num_grad_quant_bins", "stochastic_rounding",
+                             "quant_train_renew_leaf")},
+                         "launches": branch,
+                         "checked": "model text byte-identical to the "
+                                    "plain run"},
+          "staged_run": {"config": "airline_onehot_1m",
+                         "rounds": QUANT_SHORT_ROUNDS, "launches": staged,
+                         "checked": "model text byte-identical to the "
+                                    "plain run"}})
+    return r["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1033,14 +1336,20 @@ def main() -> int:
     rows, max_err = phase_kernel(pk, models)
     launches = phase_serve(pk, models["higgs_500x255"][0], 28, 7)
     del models
-    train_launches, ds, X, bst = phase_train(lt)
-    ing = phase_ingest(ds, X)
+    train_run, train_data = phase_train(lt)
+    train_launches, ds, bst = (train_run["launches"], train_run["ds"],
+                               train_run["bst"])
+    ing = phase_ingest(ds, train_data[0])
     hist = phase_hist(ds, bst)
-    del ds, X, bst
+    qhist = phase_quant_hist(ds, bst)
+    del ds, bst
+    train_run.pop("bst")
     phase_wide_bins(lt)
     efb_launches, efb_ds, efb_bst = phase_efb_train(lt, pk)
     hist6 = phase_hist6(efb_ds, efb_bst)
-    del efb_ds, efb_bst
+    del efb_bst
+    quant_launches = phase_quant_train(lt, train_run, train_data, efb_ds)
+    del train_run, train_data, efb_ds
     phase_cat_train(lt, pk)
 
     head = rows[("higgs_500x255", TIMED_ROWS[2], False)]
@@ -1067,6 +1376,17 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, replaces in (
+            ("fused_frontier_splits", "lightgbm_tpu/ops/fused.py:151"),
+            ("fused_frontier_accumulate", "lightgbm_tpu/ops/fused.py:375"),
+            ("fused_sibling_scan", "lightgbm_tpu/ops/fused.py:403")):
+        r = qhist[name]
+        table.append({
+            "name": f"{name}[int8]", "route": "cuda", "source": fused_src,
+            "replaces": replaces, "launches": quant_launches[name + "_int8"],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -11,6 +11,15 @@ host tree.  Bagging and column sampling draw from NumPy ``RandomState``
 streams seeded as the JAX package seeds them, so both packages sample
 the same rows and features.
 
+Quantized-gradient training (``use_quantized_grad``): each iteration
+quantizes the gradients with the bagging mask as weights
+(``ops.histogram.quantize_gradients``) and grows the tree from the int8
+levels.  Stochastic rounding draws from the JAX package's threefry key
+chain, reproduced bit for bit by ``utils/threefry.py``: the base key
+``PRNGKey((extra_trees_seed * 2654435761 ^ feature_fraction_seed) %
+2**31)``, the iteration's key ``fold_in(base, iter)``, and the
+quantization key ``fold_in(fold_in(key, 0x51475442), k)`` of class k.
+
 The configurations the slice does not cover raise ``NotImplementedError``
 naming the ROADMAP item that brings them; none is trained another way.
 """
@@ -28,9 +37,10 @@ from ..dataset import Dataset
 from ..grower import GrowerConfig, predict_leaf_index_binned
 from ..grower_rounds import grow_tree_rounds
 from ..objectives import ObjectiveFunction
-from ..ops.histogram import HIST_METHODS
+from ..ops.histogram import HIST_METHODS, quantize_gradients
 from ..ops.split import MAX_CAT_WORDS
 from ..tree import HostTree, tree_to_host
+from ..utils import threefry
 from ..utils.log import log_info, log_warning
 
 K_EPSILON = 1e-15
@@ -38,8 +48,8 @@ K_EPSILON = 1e-15
 
 def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError`` for every configuration outside the
-    port so far (single-device gbdt, f32 gradients, numeric, bundled and
-    categorical features)."""
+    port so far (single-device gbdt, f32 or quantized gradients, numeric,
+    bundled and categorical features)."""
     c = config
 
     def no(what: str, item: str) -> None:
@@ -47,12 +57,13 @@ def check_supported(config: Config) -> None:
             f"{what} is not ported to lightgbm_tpu_torch yet; it waits for "
             f"ROADMAP queue A ({item})")
 
-    if c.use_quantized_grad:
-        no("use_quantized_grad", "quantized training with a bit-exact "
-           "threefry2x32")
     if c.boosting not in ("gbdt", "gbrt"):
         no(f"boosting={c.boosting}", "GOSS, DART and RF")
-    if c.num_class > 1 or c.objective in ("multiclass", "multiclassova"):
+    multiclass = c.num_class > 1 or c.objective in ("multiclass",
+                                                    "multiclassova")
+    if multiclass and c.use_quantized_grad:
+        no("quantized multiclass (per-class scales)", "multiclass")
+    if multiclass:
         no("multiclass", "multiclass")
     if c.monotone_constraints and any(int(v) for v in c.monotone_constraints):
         no("monotone_constraints", "categorical and monotone")
@@ -79,6 +90,9 @@ class GBDT:
     """reference: class GBDT (src/boosting/gbdt.h)."""
 
     boosting_type = "gbdt"
+    # quantized-gradient training applies (the JAX package's DART clears
+    # it: its reweighting would compound round-local quantization scales)
+    _quant_ok = True
 
     def __init__(self, config: Config, train_set: Dataset,
                  objective: Optional[ObjectiveFunction]):
@@ -133,11 +147,47 @@ class GBDT:
         self._row_valid = torch.ones(n, dtype=torch.float32,
                                      device=self.device)
         self._ones_fmask = None
+        # the JAX package's f32 fallback (boosting/gbdt.py:642-666), as it
+        # is there; check_supported has already refused every blocker on
+        # it that the port does not train, so of these only an all-zero
+        # monotone_constraints list can still reach it
+        cegb_enabled = bool(config.cegb_penalty_split > 0.0
+                            or config.cegb_penalty_feature_coupled
+                            or config.cegb_penalty_feature_lazy)
+        quant_on = bool(config.use_quantized_grad)
+        if quant_on:
+            blockers = []
+            if not type(self)._quant_ok:
+                blockers.append(f"boosting={self.boosting_type}")
+            if cegb_enabled:
+                blockers.append("CEGB")
+            if config.monotone_constraints:
+                blockers.append("monotone_constraints")
+            if config.extra_trees:
+                blockers.append("extra_trees (random thresholds)")
+            if blockers:
+                quant_on = False
+                if not getattr(self, "_quant_warned", False):
+                    self._quant_warned = True
+                    log_warning(
+                        "use_quantized_grad=true is not supported with "
+                        + ", ".join(blockers)
+                        + "; falling back to f32 histograms for this "
+                        "booster (training proceeds unquantized)")
+        self._quant_on = quant_on
+        # the last iteration's (g_scale, h_scale), 0-dim f32 tensors
+        self._quant_scales = None
+        # per-node randomness base key; advanced by iteration
+        self._node_key_base = threefry.prng_key(
+            (config.extra_trees_seed * 2654435761
+             ^ config.feature_fraction_seed) % (2 ** 31))
         self.grower_cfg = GrowerConfig(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             hp=config.split_hyperparams(), num_bins=self.num_bins,
             round_width=config.tpu_round_width,
-            hist_method=config.tpu_hist_method)
+            hist_method=config.tpu_hist_method, quant=quant_on,
+            quant_bins=config.num_grad_quant_bins,
+            quant_renew=config.quant_train_renew_leaf)
         # a utils.timer.SectionTimer here splits each iteration's time
         # into sections; None keeps the run free of synchronisation
         self.timer = None
@@ -234,15 +284,29 @@ class GBDT:
             grad, hess = self.objective.get_gradients(self.train_score[0])
             mask = self._bagging_mask(self.iter)
             fmask = self._feature_masks()
+        quant_vals = None
+        if self._quant_on:
+            with self._section("quantize"):
+                rng = self._node_key()
+                qkey = threefry.fold_in(threefry.fold_in(rng, 0x51475442), 0)
+                quant_vals = quantize_gradients(
+                    grad, hess, mask, self.config.num_grad_quant_bins, qkey,
+                    stochastic=self.config.stochastic_rounding)
+                self._quant_scales = quant_vals[2:]
         tree, leaf_id = grow_tree_rounds(
             self.binned_t, grad, hess, mask, self.meta, self.grower_cfg,
-            feature_mask=fmask[0], meta_t=self.meta_t, timer=self.timer)
+            feature_mask=fmask[0], meta_t=self.meta_t, timer=self.timer,
+            quant_vals=quant_vals)
         with self._section("score"):
             lr = float(np.float32(self.shrinkage_rate))
             tree = tree._replace(leaf_value=tree.leaf_value * lr,
                                  internal_value=tree.internal_value * lr)
             self.train_score[0] += tree.leaf_value[leaf_id]
         return self._finish_iter(tree)
+
+    def _node_key(self):
+        """This iteration's key: ``fold_in(base, iter)``."""
+        return threefry.fold_in(self._node_key_base, self.iter)
 
     def _finish_iter(self, tree) -> bool:
         """Host tree, first-iteration bias, valid-score updates; True

@@ -110,7 +110,12 @@ class _LeafBest(NamedTuple):
 class GrowerConfig(NamedTuple):
     """Grower configuration (the fields the rounds grower reads).
     ``hist_method`` elects the arm: the fused one for ``auto``/``fused``
-    on a dataset without bundles, the staged one otherwise."""
+    on a dataset without bundles, the staged one otherwise.  ``quant``:
+    quantized-gradient training (``use_quantized_grad``), int32 level
+    histograms from the int8 values of ``ops.histogram.
+    quantize_gradients``; ``quant_bins`` is ``num_grad_quant_bins``;
+    ``quant_renew`` re-fits the leaf outputs from the true gradient sums
+    (``quant_train_renew_leaf``)."""
 
     num_leaves: int = 31
     max_depth: int = -1
@@ -118,6 +123,9 @@ class GrowerConfig(NamedTuple):
     num_bins: int = 255            # padded bin axis B
     round_width: int = 128         # max splits committed per round
     hist_method: str = "auto"
+    quant: bool = False
+    quant_bins: int = 4
+    quant_renew: bool = False
 
 
 def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,

@@ -38,6 +38,20 @@ Histograms are exact int64 fixed point at one scale per channel and tree
 (``ops/histogram.py``); the cache [L, 3, G, Bg] stays in int64, so every
 sibling ``parent - small`` is exact.  Leaf sums and gains are f32 from
 the scans, as in the JAX package.
+
+Quantized training (``cfg.quant``, ``quant_vals`` from
+``ops.histogram.quantize_gradients``): histograms hold the int32 sums
+of the int8 (grad, hess) levels, [.., 2, G, Bg], and the scans take
+``ops.split.QuantScales``, estimating each bin's count from its hess
+sum.  The root is B4 in int8 mode with one slot for the member rows on
+both arms (root sums ``f32(sum q) * scale``, root count the member
+rows); the fused arm runs B2 in int8 mode, and its categorical merge
+adds the estimated counts to the categorical slices first; the staged
+arm runs B4 int8 for the segments, ``make_expand_hist`` on the integer
+group histograms (bin 0 rebuilt in integers, before the count estimate:
+the JAX package rebuilds it after its f32 rescale, ROADMAP queue C) and
+B5 in leaf mode.  ``cfg.quant_renew`` re-fits the leaf outputs from
+the true gradient sums (``ops.renew.quant_train_renew_leaf``).
 """
 
 from __future__ import annotations
@@ -50,9 +64,11 @@ import torch
 from .grower import (GrowerConfig, TreeArrays, _LeafBest, feature_bin,
                      row_goes_left)
 from .ops import fused
-from .ops.histogram import _vals_t, fixed_point_scales, histogram_fixed
-from .ops.split import (SplitResult, _best_categorical,
-                        best_split_for_leaf, fixed_to_f32, leaf_output)
+from .ops.histogram import (_vals_t, _vals_t_int, fixed_point_scales,
+                            histogram_fixed)
+from .ops.split import (QuantScales, SplitResult, _best_categorical,
+                        best_split_for_leaf, fixed_to_f32, leaf_output,
+                        quant_count_hist)
 
 def make_expand_hist(meta_t: dict, num_bins: int, group_bins: int):
     """The staged arm's ``expand_hist`` (reference: grower_rounds.py:199-
@@ -61,7 +77,8 @@ def make_expand_hist(meta_t: dict, num_bins: int, group_bins: int):
     ``feat_start[f] + b - 1`` of column ``feat_group[f]``; its bin 0
     (FixHistogram) is the leaf's total minus its other bins.  The totals
     are the sum over any one group's bins (every group column holds one
-    bin per row), so in int64 the rebuilt bin is exact."""
+    bin per row), so in integers the rebuilt bin is exact (int64 fixed
+    point, or the int32 levels of quantized training)."""
     B, Bg = int(num_bins), int(group_bins)
     fg = meta_t["feat_group"].to(torch.int64)
     fs = meta_t["feat_start"].to(torch.int64)
@@ -90,14 +107,16 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                      cfg: GrowerConfig,
                      feature_mask: Optional[torch.Tensor] = None,
                      meta_t: Optional[dict] = None, timer=None,
-                     rounds: Optional[list] = None):
+                     rounds: Optional[list] = None,
+                     quant_vals: Optional[tuple] = None):
     """Grow one tree.  ``binned_t`` [G, n] uint8/int32 (the EFB group
     matrix), ``grad``/``hess``/``row_mask`` [n] f32 on the same device;
     ``feature_mask`` [F] (0 = feature not sampled); ``timer`` a
     ``utils.timer.SectionTimer``; ``rounds``, when given, gets one
     ``(k, m)`` per round: candidates, and splits committed (m < k is a
-    rollback to the exact prefix).  Returns (TreeArrays, leaf_id [n]
-    int64)."""
+    rollback to the exact prefix); ``quant_vals`` (``cfg.quant``): ``(gq,
+    hq, g_scale, h_scale)`` from ``ops.histogram.quantize_gradients``.
+    Returns (TreeArrays, leaf_id [n] int64)."""
     meta = meta.resolved()
     dev = binned_t.device
     G, n = binned_t.shape
@@ -135,23 +154,38 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                                        is_cat, hp, feature_mask)
 
     with section("kernels"):
-        vals = _vals_t(grad, hess, row_mask).contiguous()
-        scales = fixed_point_scales(vals)
         member = row_mask > 0
-        if fused_arm:
-            # the accumulate kernel with slot 0 for every member row
-            slot0 = torch.where(member, 0, 1).to(torch.int32)
-            root = fused.accumulate(binned_t, vals, slot0, 1, B, scales)[0]
+        slot0 = torch.where(member, 0, 1).to(torch.int32)
+        if cfg.quant:
+            if quant_vals is None:
+                raise ValueError("cfg.quant needs quant_vals=(gq, hq, "
+                                 "g_scale, h_scale)")
+            gq, hq, g_scale, h_scale = quant_vals
+            vals = _vals_t_int(gq, hq, member).contiguous()
+            scales = QuantScales(float(g_scale), float(h_scale))
+            # B4 in int8 mode, slot 0 for every member row, on both arms
+            root = fused.accumulate(binned_t, vals, slot0, 1, Bg)[0]
+            qsum = vals.to(torch.int64).sum(1).to(torch.float32)
+            root_sums = torch.stack([qsum[0] * g_scale, qsum[1] * h_scale,
+                                     member.sum().to(torch.float32)])
         else:
-            root = histogram_fixed(binned_t, vals, Bg, scales)
-        # group 0's bins partition the member rows: exact totals
-        root_sums = fixed_to_f32(root[:, 0, :].sum(-1), scales, 0)
+            vals = _vals_t(grad, hess, row_mask).contiguous()
+            scales = fixed_point_scales(vals)
+            if fused_arm:
+                # the accumulate kernel with slot 0 for every member row
+                root = fused.accumulate(binned_t, vals, slot0, 1, B,
+                                        scales)[0]
+            else:
+                root = histogram_fixed(binned_t, vals, Bg, scales)
+            # group 0's bins partition the member rows: exact totals
+            root_sums = fixed_to_f32(root[:, 0, :].sum(-1), scales, 0)
     r0 = search(root[None], root_sums[:, None])
 
     tree = TreeArrays.empty(L, dev)
     best = _LeafBest.empty(L, dev)
     best.store(torch.zeros(1, dtype=torch.int64, device=dev), r0)
-    hist = torch.zeros((L, 3, G, Bg), dtype=torch.int64, device=dev)
+    hist = torch.zeros((L,) + tuple(root.shape), dtype=root.dtype,
+                       device=dev)
     hist[0] = root
     leaf_sg = torch.zeros(L, dtype=torch.float32, device=dev)
     leaf_sh = torch.zeros_like(leaf_sg)
@@ -210,10 +244,12 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                     sm_c, ph_c = seg[:, :, cat_idx], ph[:, :, cat_idx]
                     hl_c = torch.where(sl[:, None, None, None], sm_c,
                                        ph_c - sm_c)
+                    chc = torch.cat([hl_c, ph_c - hl_c])
+                    if cfg.quant:
+                        chc = quant_count_hist(chc, csums[2])
                     cat_best = _best_categorical(
-                        torch.cat([hl_c, ph_c - hl_c]), scales, csums[0],
-                        csums[1], csums[2], num_bin[cat_idx],
-                        missing_type[cat_idx], hp)
+                        chc, scales, csums[0], csums[1], csums[2],
+                        num_bin[cat_idx], missing_type[cat_idx], hp)
                 res = fused.pick_fused_best(nfb, csums[0], csums[1],
                                             csums[2], feature_mask,
                                             cat_best, cat_idx)
@@ -295,6 +331,12 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
             num_leaves += m
             split_idx += m
 
+    if cfg.quant and cfg.quant_renew:
+        # leaf outputs from the true gradient sums of each leaf's rows
+        from .ops.renew import quant_train_renew_leaf
+        with section("kernels"):
+            leaf_sg, leaf_sh = quant_train_renew_leaf(leaf_id, grad, hess,
+                                                      row_mask, L)
     lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
                      hp.max_delta_step)
     active = iota_L < num_leaves

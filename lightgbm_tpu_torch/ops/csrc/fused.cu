@@ -3,43 +3,61 @@
 // Replaces the Pallas megakernel lightgbm_tpu/ops/fused.py::_fused_call
 // (pallas_call at fused.py:329, body _accumulate_tile + _derive_and_scan)
 // and its two halves, fused_frontier_accumulate (fused.py:375) and
-// fused_sibling_scan (fused.py:403, pallas_call at :512).  On the TPU one
-// kernel carried the slot arena in VMEM from the last row tile into the
-// scan; on Hopper blocks run in no order and nothing carries between
-// them, so the function is two kernels launched back to back:
+// fused_sibling_scan (fused.py:403, pallas_call at :512), in both of the
+// Pallas kernel's modes: f32 values, and the int8/int32 mode of
+// quantized-gradient training.  On the TPU one kernel carried the slot
+// arena in VMEM from the last row tile into the scan; on Hopper blocks
+// run in no order and nothing carries between them, so the function is
+// two kernels launched back to back:
 //
-//   accumulate_kernel  binned [F, n] u8/i32, vals [3, n] f32, slot [n] i32
-//                      -> hist [K, 3, F, B] int64 (fixed point)
-//   scan_kernel        hist (+ parent [K, 3, F, B] and small_left [K] in
-//                      parent mode) + child sums [3, NC] + meta [F]
+//   accumulate_kernel  binned [F, n] u8/i32, slot [n] i32, and either
+//                        vals [3, n] f32 -> hist [K, 3, F, B] int64
+//                                           (fixed point), or
+//                        vals [2, n] int8 -> hist [K, 2, F, B] int32
+//                                           (sums of quantized levels)
+//   scan_kernel        hist (+ parent of the same layout and small_left
+//                      [K] in parent mode) + child sums [3, NC] + meta [F]
 //                      -> six [NC, F] per-feature-best tuples
 //
-// Exact fixed point (fixed_point.cuh, shared with histogram.cu).  Channel
-// c of a row's value block enters as llrint(ldexp((double)v, s_c)) with
-// one power-of-two scale per channel and tree chosen by the caller,
-// s_c = 62 - ceil(log2(max|v_c| * n + 1)): the scaling is exact in f64,
-// any sum of n such values fits in int64, and the one rounding costs at
-// most 2^-(s_c+1) per row (dyadic values convert exactly).  Integer sums are associative, so the histograms, the
-// sibling parent - small and the prefix sums over bins are the same bits
-// in any order: no unordered f32 atomics, and the plain PyTorch versions
-// (ops/histogram.py accumulate_plain, ops/split.py numeric_feature_scan)
-// give the same bits by construction.  Each prefix converts to f32 as
-// (float)((double)p * 2^-s_c); from there the gain formulas run in f32
-// with __fadd_rn/__fmul_rn/__fdiv_rn (and --fmad=false), in the order of
-// numeric_feature_scan.
+// Exact integers in both modes.  f32 mode (fixed_point.cuh, shared with
+// histogram.cu): channel c of a row's value block enters as
+// llrint(ldexp((double)v, s_c)) with one power-of-two scale per channel
+// and tree chosen by the caller, s_c = 62 - ceil(log2(max|v_c| * n + 1)):
+// the scaling is exact in f64, any sum of n such values fits in int64,
+// and the one rounding costs at most 2^-(s_c+1) per row (dyadic values
+// convert exactly).  int8 mode: the values are already integer levels
+// (grad in [-31, 31], hess in [0, 63] at most), summed as they are in
+// int32, which holds n * 63 for n up to ~34 M rows (the wrapper refuses
+// more).  Integer sums are associative, so the histograms, the sibling
+// parent - small and the prefix sums over bins are the same bits in any
+// order: no unordered f32 atomics, and the plain PyTorch versions
+// (ops/histogram.py accumulate_plain, ops/split.py numeric_feature_scan
+// and quant_count_hist) give the same bits by construction.
+//
+// The scan converts each int64 prefix p of channel c to f32 as
+// (float)((double)p * m_c): m_c = 2^-s_c in f32 mode; in int8 mode the
+// channels are (grad, hess, estimated count) with multipliers (g_scale,
+// h_scale, 1), the count channel of bin b being rintf(f32(H_b) * cf),
+// cf = cnt / max(f32(sum_b H_b), 1) over the block's own feature (any
+// feature's bins partition the child's rows).  From there the gain
+// formulas run in f32 with __fadd_rn/__fmul_rn/__fdiv_rn (and
+// --fmad=false), in the order of numeric_feature_scan.
 //
 // What bounds it on the H100.  accumulate: atomic throughput, not bytes.
-// A block owns one feature, a block of slots (kSlotsPerBlock) and a chunk
-// of rows; its [slots, 3, B] int64 arena lives in shared memory and takes
-// one 64-bit shared atomic per (row, channel) of its slots; hot bins (a
-// feature whose rows crowd into few bins) serialise there.  Every block
-// re-reads slot[] for its rows, so each row is read once per (feature,
-// slot block): K / kSlotsPerBlock times more slot traffic than the bound,
-// mostly from L2.  The arena is flushed with int64 global atomics, which
-// costs (row chunks) x F x K x 3 x B at most.  scan: one block per (child,
-// feature), one thread per bin; a block-wide int64 scan (warp shuffles)
-// and two arg-max reductions; it is bound by launch and latency at these
-// sizes (~7k blocks of 256 threads).
+// A block owns one feature, a block of slots and a chunk of rows; its
+// [slots, C, B] arena (int64 with 3 channels, or int32 with 2) lives in
+// shared memory and takes one shared atomic per (row, channel) of its
+// slots; hot bins (a feature whose rows crowd into few bins) serialise
+// there.  Every block re-reads slot[] for its rows, so each row is read
+// once per (feature, slot block): K / slots_per_block times more slot
+// traffic than the bound, mostly from L2.  The arena is flushed with
+// global atomics, which costs (row chunks) x F x K x C x B at most.  The
+// int8 mode moves a third of the value bytes and does 32-bit atomics on
+// two channels instead of 64-bit ones on three.  scan: one block per
+// (child, feature), one thread per bin; a block-wide int64 scan (warp
+// shuffles), in int8 mode one more block sum (the hess total), and two
+// arg-max reductions; it is bound by launch and latency at these sizes
+// (~7k blocks of 256 threads).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //        --fmad=false -shared -Xcompiler -fPIC.
@@ -49,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "fixed_point.cuh"
 
@@ -61,20 +81,44 @@ constexpr int kMissingZero = 1;
 constexpr int kMissingNaN = 2;
 constexpr int kDefaultSmem = 48 * 1024;
 
-template <typename BinT>
+// the value types of the two modes: channels, the arena's accumulator
+// (two's complement, so unsigned wrap-around adds signed values exactly)
+// and a row's integer value of channel c
+template <typename ValT>
+struct ValTraits;
+
+template <>
+struct ValTraits<float> {
+  static constexpr int kChannels = 3;
+  using Acc = unsigned long long;  // int64 fixed point
+  __device__ static long long level(float v, int s) { return to_fixed(v, s); }
+};
+
+template <>
+struct ValTraits<int8_t> {
+  static constexpr int kChannels = 2;
+  using Acc = unsigned int;  // int32 sums of quantized levels
+  __device__ static int level(int8_t v, int) { return v; }
+};
+
+template <typename BinT, typename ValT>
 __global__ void accumulate_kernel(const BinT* __restrict__ binned,
-                                  const float* __restrict__ vals,
+                                  const ValT* __restrict__ vals,
                                   const int* __restrict__ slot, int n, int F,
                                   int K, int B, int s0, int s1, int s2,
                                   int rows_per_chunk, int slots_per_block,
-                                  unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long arena[];  // [slots, 3, B]
+                                  typename ValTraits<ValT>::Acc* __restrict__ out) {
+  using Acc = typename ValTraits<ValT>::Acc;
+  constexpr int C = ValTraits<ValT>::kChannels;
+  extern __shared__ __align__(8) unsigned char smem[];
+  Acc* arena = reinterpret_cast<Acc*>(smem);  // [slots, C, B]
   const int f = blockIdx.y;
   const int k0 = blockIdx.z * slots_per_block;
   const int ns = min(slots_per_block, K - k0);
-  const int cells = ns * 3 * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) arena[i] = 0ull;
+  const int cells = ns * C * B;
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) arena[i] = 0;
   __syncthreads();
+  const int sc[3] = {s0, s1, s2};
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
   const long long r1 = min(static_cast<long long>(n), r0 + rows_per_chunk);
   const BinT* col = binned + static_cast<size_t>(f) * n;
@@ -83,24 +127,23 @@ __global__ void accumulate_kernel(const BinT* __restrict__ binned,
     if (s < 0 || s >= ns) continue;
     const int b = static_cast<int>(col[r]);
     if (b < 0 || b >= B) continue;  // the one-hot drops out-of-range bins
-    unsigned long long* cell = arena + static_cast<size_t>(s) * 3 * B + b;
-    const long long q0 = to_fixed(vals[r], s0);
-    const long long q1 = to_fixed(vals[static_cast<size_t>(n) + r], s1);
-    const long long q2 = to_fixed(vals[2 * static_cast<size_t>(n) + r], s2);
-    // two's complement: unsigned wrap-around adds signed values exactly
-    if (q0) atomicAdd(cell, static_cast<unsigned long long>(q0));
-    if (q1) atomicAdd(cell + B, static_cast<unsigned long long>(q1));
-    if (q2) atomicAdd(cell + 2 * B, static_cast<unsigned long long>(q2));
+    Acc* cell = arena + static_cast<size_t>(s) * C * B + b;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const auto q = ValTraits<ValT>::level(
+          vals[static_cast<size_t>(c) * n + r], sc[c]);
+      if (q) atomicAdd(cell + c * B, static_cast<Acc>(q));
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const unsigned long long v = arena[i];
-    if (v == 0ull) continue;
-    const int s = i / (3 * B);
-    const int rem = i - s * 3 * B;
+    const Acc v = arena[i];
+    if (v == 0) continue;
+    const int s = i / (C * B);
+    const int rem = i - s * C * B;
     const int c = rem / B;
     const int b = rem - c * B;
-    atomicAdd(out + ((static_cast<size_t>(k0 + s) * 3 + c) * F + f) * B + b,
+    atomicAdd(out + ((static_cast<size_t>(k0 + s) * C + c) * F + f) * B + b,
               v);
   }
 }
@@ -128,6 +171,17 @@ __device__ long long block_scan(long long v, long long* warp_tot) {
   if (wid > 0) v += warp_tot[wid - 1];
   __syncthreads();  // warp_tot is reused by the next scan
   return v;
+}
+
+// the sum over the block, in every thread
+__device__ long long block_sum(long long v, long long* warp_tot,
+                               long long* total) {
+  const long long inc = block_scan(v, warp_tot);
+  if (threadIdx.x == blockDim.x - 1) *total = inc;
+  __syncthreads();
+  const long long r = *total;
+  __syncthreads();
+  return r;
 }
 
 struct Arg {
@@ -211,23 +265,31 @@ __device__ __forceinline__ DirResult eval_dir(float lg, float lh, float lc,
   return {(ok && gain > mgs) ? gain : -INFINITY, lg, lh, lc};
 }
 
-// one block per (child c, feature f), one thread per bin
-__global__ void scan_kernel(const long long* __restrict__ small,
-                            const long long* __restrict__ parent,
+// one block per (child c, feature f), one thread per bin.  kQuant: the
+// histograms hold int32 (grad, hess) levels and the count channel is
+// estimated here; otherwise int64 (grad, hess, count) fixed point
+template <bool kQuant>
+__global__ void scan_kernel(const void* __restrict__ small_v,
+                            const void* __restrict__ parent_v,
                             const int* __restrict__ small_left,
                             const float* __restrict__ sums,
                             const int* __restrict__ num_bin,
                             const int* __restrict__ missing_type,
                             const int* __restrict__ default_bin, int K, int F,
-                            int B, int NC, int s0, int s1, int s2, Hyper hp,
-                            float* __restrict__ out_gain,
+                            int B, int NC, double m0, double m1, double m2,
+                            Hyper hp, float* __restrict__ out_gain,
                             int* __restrict__ out_thr,
                             int* __restrict__ out_dl,
                             float* __restrict__ out_lg,
                             float* __restrict__ out_lh,
                             float* __restrict__ out_lc) {
+  using HistT = std::conditional_t<kQuant, int, long long>;
+  constexpr int C = kQuant ? 2 : 3;  // stored channels
+  const HistT* small = static_cast<const HistT*>(small_v);
+  const HistT* parent = static_cast<const HistT*>(parent_v);
   __shared__ long long warp_tot[32];
   __shared__ long long miss_sh[3];
+  __shared__ long long total_sh;
   __shared__ Arg arg_sh[32];
   const int c = blockIdx.x;
   const int f = blockIdx.y;
@@ -246,11 +308,11 @@ __global__ void scan_kernel(const long long* __restrict__ small,
   // h_left = small_left ? small : parent - small, h_right = parent - h_left
   const bool pmode = parent != nullptr;
   const int k = (pmode && c >= K) ? c - K : c;
-  long long v[3];
-  for (int ch = 0; ch < 3; ++ch) {
+  long long v[3] = {0, 0, 0};
+  for (int ch = 0; ch < C; ++ch) {
     long long x = 0;
     if (in) {
-      const size_t idx = ((static_cast<size_t>(k) * 3 + ch) * F + f) * B + t;
+      const size_t idx = ((static_cast<size_t>(k) * C + ch) * F + f) * B + t;
       x = small[idx];
       if (pmode) {
         const long long p = parent[idx];
@@ -260,6 +322,18 @@ __global__ void scan_kernel(const long long* __restrict__ small,
     }
     v[ch] = x;
   }
+  const float sg = sums[c];
+  const float sh = sums[NC + c];
+  const float cnt = sums[2 * NC + c];
+  if constexpr (kQuant) {
+    // estimated counts (reference feature_histogram.hpp:813, in f32):
+    // C_b = round_half_even(f32(H_b) * cnt / max(f32(sum_b H_b), 1))
+    const long long tot = block_sum(v[1], warp_tot, &total_sh);
+    const float cf = __fdiv_rn(cnt, fmaxf(__ll2float_rn(tot), 1.0f));
+    v[2] = in ? static_cast<long long>(
+                    rintf(__fmul_rn(__ll2float_rn(v[1]), cf)))
+              : 0;
+  }
   if (t < 3) miss_sh[t] = 0;
   __syncthreads();
   if (in && is_miss)
@@ -268,16 +342,13 @@ __global__ void scan_kernel(const long long* __restrict__ small,
   long long pre[3];
   for (int ch = 0; ch < 3; ++ch) pre[ch] = block_scan(keep ? v[ch] : 0, warp_tot);
 
-  const double inv[3] = {ldexp(1.0, -s0), ldexp(1.0, -s1), ldexp(1.0, -s2)};
+  const double mult[3] = {m0, m1, m2};
   float pf[3], ms[3];
   for (int ch = 0; ch < 3; ++ch) {
-    pf[ch] = fixed_to_f32(pre[ch], inv[ch]);
-    ms[ch] = fixed_to_f32(miss_sh[ch], inv[ch]);
+    pf[ch] = fixed_to_f32(pre[ch], mult[ch]);
+    ms[ch] = fixed_to_f32(miss_sh[ch], mult[ch]);
   }
 
-  const float sg = sums[c];
-  const float sh = sums[NC + c];
-  const float cnt = sums[2 * NC + c];
   const float total_h = __fadd_rn(sh, kTwoEps);
   const float mgs = __fadd_rn(leaf_gain(sg, total_h, hp), hp.min_gain);
 
@@ -320,52 +391,68 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-// out must be zeroed by the caller; bin_bytes is 1 (uint8) or 4 (int32).
+// out must be zeroed by the caller; bin_bytes is 1 (uint8) or 4 (int32);
+// val_bytes 4 takes vals [3, n] f32 and writes int64 [K, 3, F, B] at the
+// scales s0-s2, val_bytes 1 takes vals [2, n] int8 and writes int32
+// [K, 2, F, B].
 extern "C" int fused_accumulate(const void* binned, int bin_bytes,
-                                const void* vals, const void* slot, int n,
-                                int F, int K, int B, int s0, int s1, int s2,
-                                void* out, int row_chunks,
-                                int slots_per_block, int threads,
-                                void* stream) {
+                                const void* vals, int val_bytes,
+                                const void* slot, int n, int F, int K, int B,
+                                int s0, int s1, int s2, void* out,
+                                int row_chunks, int slots_per_block,
+                                int threads, void* stream) {
   if (n <= 0 || K <= 0 || F <= 0) return 0;
   if (B <= 0 || row_chunks <= 0 || slots_per_block <= 0 || threads <= 0 ||
       threads > 1024 || threads % 32 != 0)
     return cudaErrorInvalidValue;
   const int ns = slots_per_block < K ? slots_per_block : K;
-  const size_t smem = static_cast<size_t>(ns) * 3 * B * sizeof(long long);
   const int rows_per_chunk = (n + row_chunks - 1) / row_chunks;
   const dim3 grid(row_chunks, F, (K + slots_per_block - 1) / slots_per_block);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(vals);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(slot);
-  unsigned long long* o = static_cast<unsigned long long*>(out);
   cudaError_t err;
-  if (bin_bytes == 1) {
-    if ((err = allow_smem(accumulate_kernel<uint8_t>, smem)) != cudaSuccess) return err;
-    accumulate_kernel<uint8_t><<<grid, threads, smem, s>>>(
-        static_cast<const uint8_t*>(binned), v, sl, n, F, K, B, s0, s1, s2,
-        rows_per_chunk, slots_per_block, o);
-  } else if (bin_bytes == 4) {
-    if ((err = allow_smem(accumulate_kernel<int>, smem)) != cudaSuccess) return err;
-    accumulate_kernel<int><<<grid, threads, smem, s>>>(
-        static_cast<const int*>(binned), v, sl, n, F, K, B, s0, s1, s2,
-        rows_per_chunk, slots_per_block, o);
+#define LAUNCH(BinT, ValT)                                                    \
+  do {                                                                        \
+    using Acc = ValTraits<ValT>::Acc;                                         \
+    const size_t smem = static_cast<size_t>(ns) *                             \
+                        ValTraits<ValT>::kChannels * B * sizeof(Acc);         \
+    if ((err = allow_smem(accumulate_kernel<BinT, ValT>, smem)) !=            \
+        cudaSuccess)                                                          \
+      return err;                                                             \
+    accumulate_kernel<BinT, ValT><<<grid, threads, smem, st>>>(               \
+        static_cast<const BinT*>(binned), static_cast<const ValT*>(vals), sl, \
+        n, F, K, B, s0, s1, s2, rows_per_chunk, slots_per_block,              \
+        static_cast<Acc*>(out));                                              \
+  } while (0)
+  if (bin_bytes == 1 && val_bytes == 4) {
+    LAUNCH(uint8_t, float);
+  } else if (bin_bytes == 4 && val_bytes == 4) {
+    LAUNCH(int, float);
+  } else if (bin_bytes == 1 && val_bytes == 1) {
+    LAUNCH(uint8_t, int8_t);
+  } else if (bin_bytes == 4 && val_bytes == 1) {
+    LAUNCH(int, int8_t);
   } else {
     return cudaErrorInvalidValue;
   }
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 // parent == nullptr selects leaf mode (NC == K); otherwise parent mode
 // (NC == 2K: children [left 0..K-1, right K..2K-1]).  sums is [3, NC].
+// quant == 0: small/parent int64 [K, 3, F, B]; quant == 1: int32
+// [K, 2, F, B] levels.  m0-m2 are the channel multipliers (2^-s_c, or
+// g_scale, h_scale, 1).
 extern "C" int fused_scan(const void* small, const void* parent,
                           const void* small_left, const void* sums,
                           const void* num_bin, const void* missing_type,
                           const void* default_bin, int K, int F, int B,
-                          int NC, int s0, int s1, int s2, int use_l1,
-                          float l1, float l2, float min_gain, float min_data,
-                          float min_hess, void* gain, void* thr, void* dl,
-                          void* lg, void* lh, void* lc, void* stream) {
+                          int NC, int quant, double m0, double m1, double m2,
+                          int use_l1, float l1, float l2, float min_gain,
+                          float min_data, float min_hess, void* gain,
+                          void* thr, void* dl, void* lg, void* lh, void* lc,
+                          void* stream) {
   if (NC <= 0 || F <= 0) return 0;
   if (B <= 0 || B > 1024) return cudaErrorInvalidValue;
   if (parent != nullptr && (small_left == nullptr || NC != 2 * K))
@@ -373,13 +460,20 @@ extern "C" int fused_scan(const void* small, const void* parent,
   if (parent == nullptr && NC != K) return cudaErrorInvalidValue;
   const int threads = (B + 31) / 32 * 32;
   const Hyper hp{use_l1, l1, l2, min_gain, min_data, min_hess};
-  scan_kernel<<<dim3(NC, F), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(small),
-      static_cast<const long long*>(parent),
-      static_cast<const int*>(small_left), static_cast<const float*>(sums),
-      static_cast<const int*>(num_bin), static_cast<const int*>(missing_type),
-      static_cast<const int*>(default_bin), K, F, B, NC, s0, s1, s2, hp,
-      static_cast<float*>(gain), static_cast<int*>(thr), static_cast<int*>(dl),
-      static_cast<float*>(lg), static_cast<float*>(lh), static_cast<float*>(lc));
+  const dim3 grid(NC, F);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ARGS                                                                \
+  small, parent, static_cast<const int*>(small_left),                       \
+      static_cast<const float*>(sums), static_cast<const int*>(num_bin),    \
+      static_cast<const int*>(missing_type),                                \
+      static_cast<const int*>(default_bin), K, F, B, NC, m0, m1, m2, hp,    \
+      static_cast<float*>(gain), static_cast<int*>(thr),                    \
+      static_cast<int*>(dl), static_cast<float*>(lg),                       \
+      static_cast<float*>(lh), static_cast<float*>(lc)
+  if (quant)
+    scan_kernel<true><<<grid, threads, 0, st>>>(ARGS);
+  else
+    scan_kernel<false><<<grid, threads, 0, st>>>(ARGS);
+#undef ARGS
   return static_cast<int>(cudaGetLastError());
 }

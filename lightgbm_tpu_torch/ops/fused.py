@@ -9,24 +9,30 @@ in ``csrc/fused.cu``, launched back to back on the current stream:
 
 - ``accumulate`` (kernel B4, the counterpart of
   ``fused_frontier_accumulate``): [K, 3, F, B] int64 fixed-point sums of
-  the rows of each slot;
+  the rows of each slot, or, for the int8 levels of quantized training
+  ([2, n] values), [K, 2, F, B] int32 sums;
 - ``sibling_scan`` (kernel B5, the counterpart of ``fused_sibling_scan``):
-  sibling derive in int64 + the gain scan, six [NC, F] tuples.
+  exact sibling derive + the gain scan, six [NC, F] tuples; given
+  ``ops.split.QuantScales`` it takes int32 level histograms and
+  estimates the count channel (``ops.split.quant_count_hist``).
 
 ``frontier_splits`` runs the pair (the megakernel's function, B2).
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version (``ops.histogram.accumulate_plain``,
 ``ops.split.numeric_feature_scan``) for CPU tensors; the two agree bit
 for bit because every sum is an exact integer (``ops/histogram.py``).
-``launch_counts`` counts kernel launches per entry, each where its
-kernel is launched; a B2 is counted at the scan launch that completes
-its pair.
+``launch_counts`` counts kernel launches per entry and mode, each where
+its kernel is launched (``fused_frontier_accumulate`` and
+``fused_frontier_accumulate_int8``, ...); a B2 is counted at the scan
+launch that completes its pair.
 
 The functions named after the JAX package's (``fused_frontier_splits``,
 ``fused_segment_splits``, ``fused_frontier_accumulate``,
 ``fused_sibling_scan``) keep its f32 histograms at the interface and
-convert to fixed point inside; the grower calls the fixed-point entries
-directly and keeps its histogram cache in int64.
+convert to fixed point inside, and take the JAX package's int8 values
+and int32 histograms with ``quant_scales`` in the quantized mode; the
+grower calls the fixed-point entries directly and keeps its histogram
+cache in int64 (int32 when quantized).
 """
 
 from __future__ import annotations
@@ -39,16 +45,18 @@ import numpy as np
 import torch
 
 from . import planner
-from .histogram import (accumulate_plain, fixed_point_scales, hist_scales,
-                        to_fixed)
-from .split import (NumericFeatureBest, PerFeatureBest, SplitHyperparams,
-                    SplitResult, f32, fixed_to_f32, merge_categorical,
-                    numeric_feature_scan, pick_best_feature)
+from .histogram import (INT32_SAFE_ROWS, accumulate_plain,
+                        fixed_point_scales, hist_scales, to_fixed)
+from .split import (NumericFeatureBest, PerFeatureBest, QuantScales,
+                    SplitHyperparams, SplitResult, channel_multipliers, f32,
+                    fixed_to_f32, merge_categorical, numeric_feature_scan,
+                    pick_best_feature, quant_count_hist)
 
+_ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
+            "fused_sibling_scan")
 _counts_lock = threading.Lock()
-launch_counts = {"fused_frontier_splits": 0,
-                 "fused_frontier_accumulate": 0,
-                 "fused_sibling_scan": 0}
+launch_counts = {name + mode: 0 for mode in ("", "_int8")
+                 for name in _ENTRIES}
 
 
 def reset_launch_counts() -> None:
@@ -57,9 +65,9 @@ def reset_launch_counts() -> None:
             launch_counts[k] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, quant: bool) -> None:
     with _counts_lock:
-        launch_counts[name] += 1
+        launch_counts[name + ("_int8" if quant else "")] += 1
 
 
 # ----------------------------------------------------------------------
@@ -68,7 +76,7 @@ def _count(name: str) -> None:
 
 def derive_children(small: torch.Tensor, small_left: torch.Tensor,
                     parent: torch.Tensor) -> torch.Tensor:
-    """[K, 3, F, B] smaller-child + parent int64 -> [2K, 3, F, B]
+    """[K, C, F, B] smaller-child + parent integers -> [2K, C, F, B]
     children [left 0..K-1, right K..2K-1], exact."""
     sl = small_left.to(torch.bool)[:, None, None, None]
     h_left = torch.where(sl, small, parent - small)
@@ -79,6 +87,8 @@ def scan_plain(small, scales, child_sums, num_bin, missing_type,
                default_bin, hp, small_left=None, parent=None):
     hist = (small if parent is None
             else derive_children(small, small_left, parent))
+    if isinstance(scales, QuantScales):
+        hist = quant_count_hist(hist, child_sums[2])
     return numeric_feature_scan(hist, scales, child_sums[0], child_sums[1],
                                 child_sums[2], num_bin, missing_type,
                                 default_bin, hp)
@@ -99,13 +109,15 @@ def _lib():
             from . import _build
             lib = _build.load("fused")
             p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            d = ctypes.c_double
             lib.fused_accumulate.argtypes = [
-                p, i, p, p, i, i, i, i,        # binned, bytes, vals, slot, n F K B
+                p, i, p, i, p,                 # binned, bytes, vals, bytes, slot
+                i, i, i, i,                    # n F K B
                 i, i, i, p, i, i, i, p]        # s0-2, out, chunks, sb, threads, stream
             lib.fused_accumulate.restype = ctypes.c_int
             lib.fused_scan.argtypes = [
                 p, p, p, p, p, p, p,           # small parent sl sums nb mt db
-                i, i, i, i, i, i, i,           # K F B NC s0 s1 s2
+                i, i, i, i, i, d, d, d,        # K F B NC quant m0 m1 m2
                 i, fl, fl, fl, fl, fl,         # use_l1 l1 l2 mgain mdata mhess
                 p, p, p, p, p, p, p]           # six outputs, stream
             lib.fused_scan.restype = ctypes.c_int
@@ -117,24 +129,28 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins, scales):
+def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
+                     scales=None):
     F, n = binned_t.shape
     K, B = int(num_slots), int(num_bins)
-    out = torch.zeros((K, 3, F, B), dtype=torch.int64,
+    quant = vals_t.dtype == torch.int8
+    out = torch.zeros((K, 2, F, B) if quant else (K, 3, F, B),
+                      dtype=torch.int32 if quant else torch.int64,
                       device=binned_t.device)
     if n == 0 or K == 0 or F == 0:
         return out
-    sb = planner.fused_slots_per_block(B)
+    sb = planner.fused_slots_per_block(B, quant)
     chunks = planner.fused_row_chunks(n, F, -(-K // sb))
     lib = _lib()
     with torch.cuda.device(binned_t.device):
         rc = lib.fused_accumulate(
             binned_t.data_ptr(), binned_t.element_size(), vals_t.data_ptr(),
-            slot.data_ptr(), n, F, K, B, *scales, out.data_ptr(), chunks,
+            vals_t.element_size(), slot.data_ptr(), n, F, K, B,
+            *((0, 0, 0) if quant else scales), out.data_ptr(), chunks,
             sb, planner.FUSED_ACC_THREADS, _stream(binned_t))
     if rc != 0:
         raise RuntimeError(f"accumulate kernel launch failed: CUDA error {rc}")
-    _count("fused_frontier_accumulate")
+    _count("fused_frontier_accumulate", quant)
     return out
 
 
@@ -153,6 +169,7 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
                          f"{planner.FUSED_SCAN_MAX_BINS} bins, got {B}")
     sl = (small_left.to(torch.int32).contiguous()
           if small_left is not None else None)
+    quant = isinstance(scales, QuantScales)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.fused_scan(
@@ -161,17 +178,18 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
             None if sl is None else sl.data_ptr(),
             child_sums.data_ptr(), num_bin.data_ptr(),
             missing_type.data_ptr(), default_bin.data_ptr(),
-            K, F, B, NC, *scales, int(hp.lambda_l1 > 0.0),
+            K, F, B, NC, int(quant), *channel_multipliers(scales),
+            int(hp.lambda_l1 > 0.0),
             f32(hp.lambda_l1), f32(hp.lambda_l2),
             f32(hp.min_gain_to_split), f32(hp.min_data_in_leaf),
             f32(hp.min_sum_hessian_in_leaf),
             *(o.data_ptr() for o in outs), _stream(small))
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
-    _count("fused_sibling_scan")
+    _count("fused_sibling_scan", quant)
     if pair:
         # the launch that completes an accumulate -> scan pair (B2)
-        _count("fused_frontier_splits")
+        _count("fused_frontier_splits", quant)
     return _best(outs)
 
 
@@ -199,24 +217,38 @@ def _check_device(*ts) -> str:
 
 def accumulate(binned_t: torch.Tensor, vals_t: torch.Tensor,
                slot: torch.Tensor, num_slots: int, num_bins: int,
-               scales: Sequence[int]) -> torch.Tensor:
+               scales: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Kernel B4: [K, 3, F, B] int64 sums of ``round(vals * 2**s)`` per
     (slot, channel, feature, bin); ``slot == num_slots`` drops a row.
     ``binned_t`` [F, n] uint8/int32, ``vals_t`` [3, n] f32, ``slot`` [n]
-    int32, all contiguous."""
+    int32, all contiguous.  An int8 ``vals_t`` [2, n] (quantized levels;
+    ``scales`` unused) gives the [K, 2, F, B] int32 sums of the levels,
+    for at most ``INT32_SAFE_ROWS`` rows."""
+    if vals_t.dtype == torch.int8:
+        if vals_t.dim() != 2 or vals_t.shape[0] != 2:
+            raise ValueError(f"int8 vals_t must be [2, n], got "
+                             f"{tuple(vals_t.shape)}")
+        if binned_t.shape[1] > INT32_SAFE_ROWS:
+            raise ValueError(
+                f"{binned_t.shape[1]} rows: int32 sums of quantized levels "
+                f"hold at most {INT32_SAFE_ROWS} rows")
+    elif scales is None:
+        raise ValueError("f32 values need their fixed-point scales")
     if _check_device(binned_t, vals_t, slot) == "cpu":
         return accumulate_plain(binned_t, vals_t, slot, num_slots,
                                 num_bins, scales)
     if binned_t.dtype not in (torch.uint8, torch.int32):
         raise ValueError(f"binned matrix must be uint8 or int32, got "
                          f"{binned_t.dtype}")
-    if vals_t.dtype != torch.float32 or slot.dtype != torch.int32:
-        raise ValueError("vals_t must be float32 and slot int32")
+    if (vals_t.dtype not in (torch.float32, torch.int8)
+            or slot.dtype != torch.int32):
+        raise ValueError("vals_t must be float32 or int8 and slot int32")
     if not (binned_t.is_contiguous() and vals_t.is_contiguous()
             and slot.is_contiguous()):
         raise ValueError("accumulate takes contiguous tensors")
-    return _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
-                            tuple(int(s) for s in scales))
+    return _accumulate_cuda(
+        binned_t, vals_t, slot, num_slots, num_bins,
+        None if vals_t.dtype == torch.int8 else tuple(int(s) for s in scales))
 
 
 def sibling_scan(small: torch.Tensor, scales: Sequence[int],
@@ -230,16 +262,22 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
     candidate's smaller child, ``parent`` its parent; leaf mode: ``small``
     holds the children) and scan them.  ``child_sums`` [3, NC] f32;
     meta [F] int32.  Returns [NC, F] tuples.  ``pair`` (set by
-    ``frontier_splits``) also counts the launch as one of B2."""
+    ``frontier_splits``) also counts the launch as one of B2.
+    ``scales``: the f32 mode's fixed-point exponents with int64 [K, 3,
+    F, B] histograms, or ``QuantScales`` with int32 [K, 2, F, B] level
+    histograms (quantized mode)."""
     if _check_device(small, child_sums, parent) == "cpu":
         return scan_plain(small, scales, child_sums, num_bin, missing_type,
                           default_bin, hp, small_left, parent)
-    if small.dtype != torch.int64 or (parent is not None
-                                      and parent.dtype != torch.int64):
-        raise ValueError("the scan kernel takes int64 histograms")
+    quant = isinstance(scales, QuantScales)
+    want = torch.int32 if quant else torch.int64
+    if small.dtype != want or (parent is not None and parent.dtype != want):
+        raise ValueError(f"the scan kernel takes {want} histograms in "
+                         f"{'the quantized' if quant else 'the f32'} mode")
     meta = [m.to(torch.int32).contiguous()
             for m in (num_bin, missing_type, default_bin)]
-    return _scan_cuda(small.contiguous(), tuple(int(s) for s in scales),
+    return _scan_cuda(small.contiguous(),
+                      scales if quant else tuple(int(s) for s in scales),
                       child_sums.to(torch.float32).contiguous(), *meta, hp,
                       small_left,
                       None if parent is None else parent.contiguous(),
@@ -251,7 +289,8 @@ def frontier_splits(binned_t, vals_t, slot, num_slots, num_bins, scales,
                     default_bin, hp):
     """The megakernel's function (B2): accumulate the K smaller-child
     histograms (B4), then derive each sibling and scan both children
-    (B5).  Returns (smaller-child hist [K, 3, F, B] int64, [2K, F]
+    (B5).  Returns (smaller-child hist [K, 3, F, B] int64, or [K, 2, F,
+    B] int32 for int8 values with ``QuantScales``, and [2K, F]
     tuples)."""
     seg = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
     nfb = sibling_scan(seg, scales, child_sums, num_bin, missing_type,
@@ -271,10 +310,18 @@ def _meta(num_bin, missing_type, default_bin, device):
             for m in (num_bin, missing_type, default_bin)]
 
 
+def _quant(quant_scales) -> QuantScales:
+    if quant_scales is None:
+        raise ValueError("quantized fused kernels need quant_scales")
+    return QuantScales(float(quant_scales[0]), float(quant_scales[1]))
+
+
 def fused_frontier_accumulate(binned_t, vals_t, slot, num_slots: int,
                               num_bins: int) -> torch.Tensor:
     """The K slot histograms [K, 3, F, B] f32 (each cell the f32 of its
-    exact sum)."""
+    exact sum); for int8 ``vals_t`` [2, n], [K, 2, F, B] int32."""
+    if vals_t.dtype == torch.int8:
+        return accumulate(binned_t, vals_t, slot, num_slots, num_bins)
     scales = fixed_point_scales(vals_t)
     hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
     return fixed_to_f32(hist, scales, 1)
@@ -282,9 +329,18 @@ def fused_frontier_accumulate(binned_t, vals_t, slot, num_slots: int,
 
 def fused_sibling_scan(small_hist, child_sums, num_bin, missing_type,
                        default_bin, hp: SplitHyperparams, small_left=None,
-                       parent_hist=None) -> NumericFeatureBest:
+                       parent_hist=None, quant_scales=None
+                       ) -> NumericFeatureBest:
     """Sibling derive + gain scan on given f32 histograms (converted to
-    fixed point at scales that bound every prefix of every child)."""
+    fixed point at scales that bound every prefix of every child), or on
+    integer [K, 2, F, B] level histograms with ``quant_scales`` (g, h)."""
+    if not small_hist.dtype.is_floating_point:
+        meta = _meta(num_bin, missing_type, default_bin, small_hist.device)
+        return sibling_scan(
+            small_hist.to(torch.int32), _quant(quant_scales),
+            torch.as_tensor(child_sums), *meta, hp, small_left=small_left,
+            parent=(parent_hist.to(torch.int32) if parent_hist is not None
+                    else None))
     hs = [small_hist] + ([parent_hist] if parent_hist is not None else [])
     scales = hist_scales(*hs)
     small = to_fixed(small_hist, scales, 1)
@@ -297,9 +353,16 @@ def fused_sibling_scan(small_hist, child_sums, num_bin, missing_type,
 
 def fused_segment_splits(binned_t, vals_t, slot, num_slots: int,
                          num_bins: int, slot_sums, num_bin, missing_type,
-                         default_bin, hp: SplitHyperparams
+                         default_bin, hp: SplitHyperparams,
+                         quant_scales=None
                          ) -> Tuple[torch.Tensor, NumericFeatureBest]:
-    """Leaf mode: K slot histograms and their per-feature-best splits."""
+    """Leaf mode: K slot histograms and their per-feature-best splits
+    (int32 histograms for int8 ``vals_t`` with ``quant_scales``)."""
+    if vals_t.dtype == torch.int8:
+        hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins)
+        meta = _meta(num_bin, missing_type, default_bin, hist.device)
+        return hist, sibling_scan(hist, _quant(quant_scales),
+                                  torch.as_tensor(slot_sums), *meta, hp)
     scales = fixed_point_scales(vals_t)
     hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
     meta = _meta(num_bin, missing_type, default_bin, hist.device)
@@ -310,10 +373,18 @@ def fused_segment_splits(binned_t, vals_t, slot, num_slots: int,
 def fused_frontier_splits(binned_t, vals_t, slot, num_slots: int,
                           num_bins: int, child_sums, small_left,
                           parent_hist, num_bin, missing_type, default_bin,
-                          hp: SplitHyperparams
+                          hp: SplitHyperparams, quant_scales=None
                           ) -> Tuple[torch.Tensor, NumericFeatureBest]:
-    """Frontier mode: the K smaller-child histograms (f32) and the [2K, F]
-    tuples of both children of every candidate."""
+    """Frontier mode: the K smaller-child histograms (f32; int32 for int8
+    ``vals_t`` with ``quant_scales``) and the [2K, F] tuples of both
+    children of every candidate."""
+    if vals_t.dtype == torch.int8:
+        parent = parent_hist.to(torch.int32)
+        meta = _meta(num_bin, missing_type, default_bin, parent.device)
+        return frontier_splits(
+            binned_t, vals_t, slot, num_slots, num_bins,
+            _quant(quant_scales), torch.as_tensor(child_sums),
+            torch.as_tensor(small_left), parent, *meta, hp)
     scales = tuple(min(a, b) for a, b in zip(fixed_point_scales(vals_t),
                                              hist_scales(parent_hist)))
     parent = to_fixed(parent_hist, scales, 1)

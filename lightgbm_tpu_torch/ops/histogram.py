@@ -27,12 +27,33 @@ The staged family:
 - ``segment_histogram``: per-slot histograms; on the card it is the
   accumulate kernel B4 (``ops/fused.py::accumulate``), which computes
   exactly this function in the same fixed point.
-- ``subtract_histogram``: the sibling ``parent - child``, exact on int64.
+- ``subtract_histogram``: the sibling ``parent - child``, exact on int64
+  (and on the int32 histograms of quantized training).
+
+The integer family (quantized-gradient training, ``use_quantized_grad``):
+
+- ``quant_levels``/``quantize_gradients``: each round's gradients and
+  hessians, weights folded in, as int8 levels with one f32 scale per
+  channel; stochastic rounding draws from the port's threefry
+  (``utils/threefry.py``), bit-equal to the JAX package's draws;
+- ``_vals_t_int``: the [2, n] int8 value block (no count row: counts
+  are estimated from the hessian channel at split time,
+  ``ops.split.quant_count_hist``);
+- ``build_histogram_int`` / ``segment_histogram_int``: [2, F, B] and
+  [S, 2, F, B] int32 sums of the levels.  On the card both are the
+  accumulate kernel B4 in its int8 mode (``ops/fused.py::accumulate``;
+  one slot for ``build_histogram_int``); the plain version is an exact
+  int64 ``index_add_`` cast to int32.  A sum of n levels of magnitude at
+  most 63 (``num_grad_quant_bins`` <= 64) fits int32 up to
+  ``INT32_SAFE_ROWS`` rows, and the accumulate wrapper raises above it.
 
 Not ported: ``compacted_segment_histogram`` and ``capacity_schedule``
 (TPU static-shape bucketing; the card launches on unpadded rows), and
 the TPU layout work (``histogram_matmul*``, ``segment_histogram_sorted*``,
-``pack_cols_u32*``, ``take_from_table``).
+``pack_cols_u32*``, ``take_from_table``), with their integer twins
+(``histogram_matmul_int``, ``histogram_scatter_int``, the packed,
+sorted and compacted ``*_int`` variants); ``psum_quant_hist`` (the
+sharded int16/int32 all-reduce) waits for multi-GPU training.
 """
 
 from __future__ import annotations
@@ -48,6 +69,10 @@ from . import planner
 
 # every sum of up to n scaled values stays below 2**62 in magnitude
 FIXED_POINT_BITS = 62
+# the largest quantization level (num_grad_quant_bins <= 64) and the rows
+# whose sums of such levels fit int32 (the JAX package's bound, ~34 M)
+QUANT_MAX_LEVEL = 63
+INT32_SAFE_ROWS = (2 ** 31 - 1) // QUANT_MAX_LEVEL
 
 
 def _vals_t(grad: torch.Tensor, hess: torch.Tensor,
@@ -95,28 +120,35 @@ def to_fixed(x: torch.Tensor, scales, channel_dim: int) -> torch.Tensor:
 
 def accumulate_plain(binned_t: torch.Tensor, vals_t: torch.Tensor,
                      slot: torch.Tensor, num_slots: int, num_bins: int,
-                     scales) -> torch.Tensor:
+                     scales=None) -> torch.Tensor:
     """The accumulate kernel's function in plain torch: per (slot,
     channel, feature, bin) int64 sums of the fixed-point values of the
     rows with ``slot`` in [0, num_slots) (``slot == num_slots`` drops a
-    row).  ``binned_t`` [F, n] uint8/int32; returns [K, 3, F, B]."""
+    row).  ``binned_t`` [F, n] uint8/int32; returns [K, 3, F, B].  An
+    int8 ``vals_t`` [2, n] (quantized levels, ``scales`` unused) gives
+    the int32 sums [K, 2, F, B] of the levels."""
     F, n = binned_t.shape
     K, B = int(num_slots), int(num_bins)
-    out = torch.zeros(K * 3 * F * B, dtype=torch.int64,
+    quant = vals_t.dtype == torch.int8
+    C = 2 if quant else 3
+    out = torch.zeros(K * C * F * B, dtype=torch.int64,
                       device=binned_t.device)
     keep = (slot >= 0) & (slot < K)
     rows = torch.nonzero(keep).flatten()
     if rows.numel() == 0:
-        return out.view(K, 3, F, B)
-    q = to_fixed(vals_t[:, rows], scales, 0)                # [3, m]
+        out = out.view(K, C, F, B)
+        return out.to(torch.int32) if quant else out
+    q = (vals_t[:, rows].to(torch.int64) if quant
+         else to_fixed(vals_t[:, rows], scales, 0))         # [C, m]
     s = slot[rows].to(torch.int64)
     for f in range(F):
         b = binned_t[f, rows].to(torch.int64)
         inb = b < B                                         # one-hot drops
-        base = (s * 3 * F + f) * B + b
-        for c in range(3):
+        base = (s * C * F + f) * B + b
+        for c in range(C):
             out.index_add_(0, (base + c * F * B)[inb], q[c][inb])
-    return out.view(K, 3, F, B)
+    out = out.view(K, C, F, B)
+    return out.to(torch.int32) if quant else out
 
 
 # ----------------------------------------------------------------------
@@ -272,3 +304,89 @@ def subtract_histogram(parent: torch.Tensor,
     """The sibling ``parent - child`` (reference: FeatureHistogram::
     Subtract, feature_histogram.hpp:79-84); exact on int64."""
     return parent - child
+
+
+# ----------------------------------------------------------------------
+# the integer family (quantized-gradient training)
+# ----------------------------------------------------------------------
+
+def quant_levels(num_bins: int) -> Tuple[int, int]:
+    """(grad level bound, hess level bound) for ``num_grad_quant_bins``
+    (reference: gradient_discretizer.cpp): gradients take signed levels
+    in [-(bins/2 - 1), bins/2 - 1], hessians [0, bins - 1]."""
+    return max(num_bins // 2 - 1, 1), max(num_bins - 1, 1)
+
+
+def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
+                       weights: torch.Tensor, num_bins: int, key,
+                       stochastic: bool = True):
+    """One class's grad/hess as int8 levels (the JAX function's
+    arithmetic, f32 throughout).
+
+    Weights are folded in first (``g * w``); each channel's scale is
+    ``max(max|g * w|, 1e-30) / level_bound``; stochastic rounding is
+    ``floor(x / scale + u)`` with ``u = threefry.uniform(key, (2, n))``
+    (row i of channel c takes ``u[c, i]``), otherwise round half to
+    even; then clip to the levels.  Returns ``(gq int8 [n], hq int8 [n],
+    g_scale, h_scale)``, the scales 0-dim f32 tensors on the device.
+
+    The scales stay device tensors on purpose: PyTorch's CUDA true
+    division by a CPU scalar multiplies by its reciprocal, which can
+    round differently from a division; dividing by a tensor on the
+    card divides."""
+    from ..utils import threefry
+    qg, qh = quant_levels(num_bins)
+    gw = grad * weights
+    hw = hess * weights
+    dev = gw.device
+    lg = torch.tensor(qg, dtype=torch.float32, device=dev)
+    lh = torch.tensor(qh, dtype=torch.float32, device=dev)
+    g_scale = torch.clamp_min(gw.abs().amax(), 1e-30) / lg
+    h_scale = torch.clamp_min(hw.abs().amax(), 1e-30) / lh
+    if stochastic:
+        u = threefry.uniform(key, (2,) + tuple(gw.shape), device=dev)
+        gq = torch.floor(gw / g_scale + u[0])
+        hq = torch.floor(hw / h_scale + u[1])
+    else:
+        gq = torch.round(gw / g_scale)
+        hq = torch.round(hw / h_scale)
+    gq = gq.clamp(-qg, qg).to(torch.int8)
+    hq = hq.clamp(0, qh).to(torch.int8)
+    return gq, hq, g_scale, h_scale
+
+
+def _vals_t_int(gq: torch.Tensor, hq: torch.Tensor,
+                member: torch.Tensor) -> torch.Tensor:
+    """[2, n] int8 value block (g, h) * member: the integer twin of
+    ``_vals_t`` (no count row)."""
+    return torch.stack([gq, hq]) * member.to(torch.int8)[None, :]
+
+
+def build_histogram_int(binned_t: torch.Tensor, gq: torch.Tensor,
+                        hq: torch.Tensor, member: torch.Tensor,
+                        num_bins: int, method: str = "auto",
+                        levels=None) -> torch.Tensor:
+    """Masked integer histogram [2, F, B] int32: per-bin (sum gq, sum hq)
+    over the ``member`` rows.  ``method`` takes the JAX package's names;
+    none has a Hopper meaning: on the card this is B4 in int8 mode with
+    one slot holding the member rows.  ``levels`` (the JAX package's
+    packing hint) is unused."""
+    from . import fused
+    if method not in HIST_METHODS:
+        raise ValueError(f"unknown histogram method {method!r}")
+    vals = _vals_t_int(gq, hq, member).contiguous()
+    slot = torch.where(member.to(torch.bool), 0, 1).to(torch.int32)
+    return fused.accumulate(binned_t, vals, slot, 1, num_bins)[0]
+
+
+def segment_histogram_int(binned_t: torch.Tensor, gq: torch.Tensor,
+                          hq: torch.Tensor, member: torch.Tensor,
+                          slot: torch.Tensor, num_slots: int,
+                          num_bins: int, levels=None) -> torch.Tensor:
+    """Per-slot integer histograms [S, 2, F, B] int32; non-members and
+    ``slot == num_slots`` drop the row.  B4 in int8 mode on the card."""
+    from . import fused
+    vals = _vals_t_int(gq, hq, member).contiguous()
+    slot_m = torch.where(member.to(torch.bool), slot.to(torch.int32),
+                         int(num_slots)).to(torch.int32).contiguous()
+    return fused.accumulate(binned_t, vals, slot_m, num_slots, num_bins)

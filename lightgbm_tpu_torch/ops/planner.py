@@ -22,7 +22,9 @@ JAX planner's ``plan_fused`` VMEM model does not apply:
 
 - ``FUSED_SLOTS_PER_BLOCK``: slots whose [slots, 3, B] int64 arena one
   accumulate block holds in shared memory: 16 x 3 x 256 x 8 bytes = 96
-  KiB at 256 bins, two blocks per SM.  Fewer for wider bin axes.
+  KiB at 256 bins, two blocks per SM.  Fewer for wider bin axes.  The
+  int8 mode's [slots, 2, B] int32 arena takes
+  ``FUSED_SLOTS_PER_BLOCK_INT8`` = 32 slots in 64 KiB at 256 bins.
 - ``FUSED_ACC_THREADS``: threads per accumulate block (rows in flight).
 - ``FUSED_TARGET_BLOCKS``: accumulate blocks to aim for (about four per
   SM of the 132); the row axis is cut into as many chunks as that needs
@@ -70,16 +72,19 @@ def tile_rows_for(num_features: int) -> int:
 
 
 FUSED_SLOTS_PER_BLOCK = 16
+FUSED_SLOTS_PER_BLOCK_INT8 = 32
 FUSED_ACC_THREADS = 512
 FUSED_TARGET_BLOCKS = 4 * 132
 FUSED_MIN_CHUNK_ROWS = 4096
 FUSED_SCAN_MAX_BINS = 1024
 
 
-def fused_slots_per_block(num_bins: int) -> int:
-    """Slots per accumulate block for a ``num_bins`` bin axis."""
-    per_slot = 3 * 8 * max(int(num_bins), 1)
-    sb = min(FUSED_SLOTS_PER_BLOCK, SMEM_MAX_BYTES // per_slot)
+def fused_slots_per_block(num_bins: int, quant: bool = False) -> int:
+    """Slots per accumulate block for a ``num_bins`` bin axis: a [slots,
+    3, B] int64 arena, or in the int8 mode a [slots, 2, B] int32 one."""
+    per_slot = (2 * 4 if quant else 3 * 8) * max(int(num_bins), 1)
+    cap = FUSED_SLOTS_PER_BLOCK_INT8 if quant else FUSED_SLOTS_PER_BLOCK
+    sb = min(cap, SMEM_MAX_BYTES // per_slot)
     if sb < 1:
         raise ValueError(f"{num_bins} bins do not fit the accumulate "
                          f"kernel's shared-memory arena")

@@ -24,6 +24,23 @@ the two agree bit for bit.  ``_best_categorical`` converts the same way
 (cells, and prefixes over the sorted categories); it is plain torch on
 every device, as the JAX package's is XLA.
 
+Quantized training (``use_quantized_grad``) feeds the same scans.  Its
+histograms hold integer levels [.., 2, F, B] (grad, hess) with one f32
+scale per channel (``QuantScales``); ``quant_count_hist`` adds the
+per-bin count channel ``round_half_even(f32(H_b) * cf)``, ``cf =
+f32(num_data) / max(f32(sum_b H_b), 1)`` (reference: the count factor
+of feature_histogram.hpp:813, in the JAX package's f32 arithmetic:
+x64 is never enabled there), so the scans take an int64 (G, H, C)
+histogram and the channel multipliers ``(g_scale, h_scale, 1)`` where
+the f32 mode takes ``2**-s_c``: ``fixed_to_f32`` converts a prefix as
+``float((double)p * m_c)`` in both modes, and one scan body, in plain
+torch and in kernel B5, serves both.  The count channel equals the JAX
+package's bit for bit; grad and hess prefixes are exact integers
+rounded to f32 once, where the JAX package sums f32 per-bin values
+``fl(q_b * s)``, so tuples are bit-identical where those sums are exact
+(power-of-two scales) and otherwise tie-break alike only where exact
+arithmetic does not tie.
+
 The staged search (``feature_best_splits``, ``best_split_for_leaf``,
 ``pick_best_feature``) runs the numeric scan through
 ``ops.fused.sibling_scan`` in leaf mode (B5 on the card) and merges the
@@ -148,17 +165,83 @@ def leaf_gain_given_output(g: torch.Tensor, h: torch.Tensor, l1: float,
     return -(2.0 * sg * out + (h + f32(l2)) * out * out)
 
 
-def fixed_to_f32(p: torch.Tensor, scales: Sequence[int],
-                 channel_dim: int) -> torch.Tensor:
-    """int64 fixed-point sums -> f32: ``float((double)p * 2**-s_c)`` with
-    ``s_c`` the scale of the channel along ``channel_dim`` (the int64 ->
-    f64 conversion rounds to nearest, the scaling is exact, the f64 ->
-    f32 conversion rounds to nearest — the kernel's two steps)."""
+class QuantScales(NamedTuple):
+    """The f32 scales of quantized gradients and hessians: a level q of
+    channel c stands for ``q * scale_c`` (``ops.histogram.
+    quantize_gradients``).  Passed where the f32 mode passes its
+    fixed-point exponents, it selects the scans' quantized mode."""
+
+    g: float
+    h: float
+
+
+def channel_multipliers(scales) -> tuple:
+    """Per-channel multipliers that turn integer sums into values: the
+    f32 mode's ``2**-s_c`` for fixed-point exponents ``s_c``; ``(g_scale,
+    h_scale, 1)`` for ``QuantScales`` (grad, hess, estimated count)."""
+    if isinstance(scales, QuantScales):
+        return float(scales.g), float(scales.h), 1.0
+    return tuple(math.ldexp(1.0, -int(s)) for s in scales)
+
+
+def fixed_to_f32(p: torch.Tensor, scales, channel_dim: int) -> torch.Tensor:
+    """Integer sums -> f32: ``float((double)p * m_c)`` with ``m_c`` the
+    multiplier of the channel along ``channel_dim``
+    (``channel_multipliers``).  The int64 -> f64 conversion is exact
+    below 2**53; in the f32 mode the scaling by 2**-s_c is exact too,
+    and the f64 -> f32 conversion rounds to nearest — the kernel's
+    steps.  A quantized sum below 2**24 times an f32 scale is exact in
+    f64, so it rounds once, as the JAX package's f32 product does."""
+    mult = channel_multipliers(scales)
+    if isinstance(scales, QuantScales):
+        mult = mult[:p.shape[channel_dim]]
     shape = [1] * p.dim()
-    shape[channel_dim] = len(scales)
-    inv = torch.tensor([math.ldexp(1.0, -int(s)) for s in scales],
-                       dtype=torch.float64, device=p.device).view(shape)
-    return (p.to(torch.float64) * inv).to(torch.float32)
+    shape[channel_dim] = len(mult)
+    m = torch.tensor(mult, dtype=torch.float64, device=p.device).view(shape)
+    return (p.to(torch.float64) * m).to(torch.float32)
+
+
+def quant_count_hist(hist_int: torch.Tensor, num_data: torch.Tensor,
+                     cnt_factor: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Integer histogram [..., 2, F, B] (grad, hess levels) -> int64
+    [..., 3, F, B] with the estimated count channel ``C_b =
+    round_half_even(f32(H_b) * cf)``.  ``num_data`` [...] f32 is each
+    histogram's row count; ``cnt_factor`` [...] defaults to each
+    FEATURE's own ``f32(num_data) / max(f32(sum_b H_b), 1)``, which is
+    what kernel B5 computes in its block (any feature's bins partition
+    the leaf's rows, so every feature gives the factor the JAX package
+    reads from feature 0)."""
+    hi = hist_int.to(torch.int64)
+    h = hi[..., 1, :, :]                                        # [..., F, B]
+    if cnt_factor is None:
+        tot = h.sum(-1).to(torch.float32)                       # [..., F]
+        cf = (num_data.to(torch.float32)[..., None]
+              / torch.clamp_min(tot, 1.0))[..., None]
+    else:
+        cf = cnt_factor.to(torch.float32)[..., None, None]
+    c = torch.round(h.to(torch.float32) * cf).to(torch.int64)
+    return torch.stack([hi[..., 0, :, :], h, c], dim=-3)
+
+
+def quant_rescale_hist(hist_int: torch.Tensor, g_scale, h_scale,
+                       num_data, cnt_factor=None) -> torch.Tensor:
+    """The JAX function (``lightgbm_tpu/ops/split.py:585``): integer
+    [..., 2, F, B] -> f32 [..., 3, F, B] ``(f32(G) * g_scale, f32(H) *
+    h_scale, round(f32(H) * cf))``, ``cf`` from feature 0's hess total
+    unless given.  The scans take ``quant_count_hist``'s integers
+    instead; this is their f32 image, cell for cell."""
+    num_data = torch.as_tensor(num_data, dtype=torch.float32,
+                               device=hist_int.device)
+    if cnt_factor is None:
+        tot = hist_int[..., 1, 0, :].to(torch.int64).sum(-1).to(
+            torch.float32)
+        cnt_factor = num_data / torch.clamp_min(tot, 1.0)
+    h3 = quant_count_hist(hist_int, num_data,
+                          torch.as_tensor(cnt_factor, dtype=torch.float32,
+                                          device=hist_int.device))
+    return fixed_to_f32(h3, QuantScales(float(g_scale), float(h_scale)),
+                        -3)
 
 
 def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
@@ -170,7 +253,8 @@ def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
     """Per-feature best numeric split of each child.
 
     ``hist`` [NC, 3, F, B] int64 fixed-point (grad, hess, count) with
-    ``scales`` (s_grad, s_hess, s_count); ``sum_*`` [NC] f32 child
+    ``scales`` (s_grad, s_hess, s_count), or the (G, H, C) integers of
+    ``quant_count_hist`` with ``QuantScales``; ``sum_*`` [NC] f32 child
     totals; ``num_bin``/``missing_type``/``default_bin`` [F] int32.
     A feature with ``num_bin`` 0 (padding) has no valid bin: gain -inf.
     """
@@ -457,7 +541,8 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
                         ) -> PerFeatureBest:
     """Best split PER FEATURE of each child.
 
-    ``hist`` [NC, 3, F, B] int64 fixed point at ``scales``; ``sum_*``
+    ``hist`` [NC, 3, F, B] int64 fixed point at ``scales`` (or [NC, 2, F,
+    B] integer levels with ``QuantScales``); ``sum_*``
     [NC] f32 child totals; meta [F].  The numeric scan is B5 in leaf mode
     (``ops.fused.sibling_scan``: the kernel on the card, its plain
     version on the CPU); the categorical columns are searched by
@@ -473,8 +558,11 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
     cat_best = None
     if cat_idx.numel():
         cat_idx = cat_idx.to(hist.device)
-        cat_best = _best_categorical(hist[:, :, cat_idx], scales, sum_grad,
-                                     sum_hess, num_data, num_bin[cat_idx],
+        ch = hist[:, :, cat_idx]
+        if isinstance(scales, QuantScales):
+            ch = quant_count_hist(ch, sums[2])
+        cat_best = _best_categorical(ch, scales, sum_grad, sum_hess,
+                                     num_data, num_bin[cat_idx],
                                      missing_type[cat_idx], hp)
     pf = merge_categorical(nfb, cat_best, cat_idx)
     if feature_mask is not None:

@@ -1,0 +1,111 @@
+"""Threefry2x32 keys and uniform draws, bit-equal to ``jax.random``.
+
+The JAX package draws the noise of stochastic gradient rounding
+(``quantize_gradients``) from ``jax.random`` threefry keys, so the port
+needs the same bits to train the same quantized trees.  This module is
+the port's own threefry2x32-20 (Salmon et al., "Parallel random numbers:
+as easy as 1, 2, 3", SC 2011), with JAX's key derivation and bit layout
+(``jax/_src/prng.py``: ``threefry_seed``, ``_threefry_fold_in``,
+``threefry_2x32``, ``iota_2x32_shape``, the two ``_threefry_random_bits``
+variants; ``jax/_src/random.py``: ``_uniform``):
+
+- ``prng_key(seed)``: the ``jax.random.PRNGKey`` of an integer seed, a
+  pair of uint32 words ``(seed >> 32, seed & 0xFFFFFFFF)`` (a seed that
+  fits int32 gives ``(0, seed mod 2**32)``);
+- ``fold_in(key, data)``: ``threefry2x32(key, (0, data))``;
+- ``random_bits(key, shape)``: 32-bit words.  With JAX's
+  ``jax_threefry_partitionable`` (the default since JAX 0.5) element i
+  of the flattened shape is ``y1 ^ y2`` of ``threefry2x32(key, (i >> 32,
+  i & 0xFFFFFFFF))``; without it the counters ``0..m-1`` (padded to even
+  length) are split into halves that form the pairs, and the two output
+  halves are concatenated;
+- ``uniform(key, shape)``: f32 in [0, 1), ``bitcast((bits >> 9) |
+  0x3F800000) - 1``.
+
+Keys are tuples of two Python ints.  Draws are plain PyTorch on the
+device of the caller's choosing: torch has few operations on uint32,
+so the words live in int64 tensors, masked to 32 bits after every add
+and shift.  ``PARTITIONABLE`` selects the variant the trainer draws
+with; it matches JAX's default, and tests set it from
+``jax.config.jax_threefry_partitionable``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+MASK = 0xFFFFFFFF
+PARTITIONABLE = True
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = Tuple[int, int]
+Word = Union[int, torch.Tensor]
+
+
+def _rotl(x: Word, r: int) -> Word:
+    return ((x << r) & MASK) | (x >> (32 - r))
+
+
+def threefry2x32(key: Key, x1: Word, x2: Word) -> Tuple[Word, Word]:
+    """Threefry2x32 with 20 rounds of the counter pair ``(x1, x2)``
+    (Python ints or int64 tensors holding uint32 values) under ``key``;
+    returns the pair of output words, masked to 32 bits."""
+    k1, k2 = key
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x = [(x1 + ks[0]) & MASK, (x2 + ks[1]) & MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & MASK
+    return x[0], x[1]
+
+
+def prng_key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)``.  JAX without x64 holds a seed that
+    fits int32 as int32, so its high word is 0 and the low word is the
+    seed modulo 2**32."""
+    seed = int(seed)
+    if -(1 << 31) <= seed < (1 << 31):
+        return 0, seed & MASK
+    return (seed >> 32) & MASK, seed & MASK
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)`` (``data`` taken as uint32)."""
+    return threefry2x32(key, 0, int(data) & MASK)
+
+
+def random_bits(key: Key, shape: Sequence[int], device=None,
+                partitionable: bool = None) -> torch.Tensor:
+    """32-bit random words of ``shape`` (int64 tensor of uint32 values)."""
+    if partitionable is None:
+        partitionable = PARTITIONABLE
+    shape = tuple(int(s) for s in shape)
+    m = 1
+    for s in shape:
+        m *= s
+    if partitionable:
+        i = torch.arange(m, dtype=torch.int64, device=device)
+        y1, y2 = threefry2x32(key, i >> 32, i & MASK)
+        return (y1 ^ y2).view(shape)
+    if m >= MASK:
+        raise NotImplementedError("the non-partitionable draw of 2**32 - 1 "
+                                  "words or more is not ported")
+    half = (m + 1) // 2
+    counts = torch.arange(2 * half, dtype=torch.int64, device=device)
+    counts[m:] = 0                                   # the odd-size pad
+    y1, y2 = threefry2x32(key, counts[:half], counts[half:])
+    return torch.cat([y1, y2])[:m].view(shape)
+
+
+def uniform(key: Key, shape: Sequence[int], device=None,
+            partitionable: bool = None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: f32 in [0, 1)."""
+    bits = random_bits(key, shape, device, partitionable)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0

@@ -335,7 +335,10 @@ def test_counts_rise_only_where_a_kernel_launches(monkeypatch):
     seg, _ = pair()
     assert TFU.launch_counts == {"fused_frontier_splits": 1,
                                  "fused_frontier_accumulate": 1,
-                                 "fused_sibling_scan": 1}
+                                 "fused_sibling_scan": 1,
+                                 "fused_frontier_splits_int8": 0,
+                                 "fused_frontier_accumulate_int8": 0,
+                                 "fused_sibling_scan_int8": 0}
     TFU.sibling_scan(seg, scales, csums, *_meta_t(), THP(**HP),
                      small_left=sl, parent=parent)
     assert TFU.launch_counts["fused_sibling_scan"] == 2
@@ -346,3 +349,167 @@ def test_counts_rise_only_where_a_kernel_launches(monkeypatch):
     TFU.reset_launch_counts()
     pair()
     assert not any(TFU.launch_counts.values())
+
+
+# ----------------------------------------------------------------------
+# the quantized (int8 / int32) mode
+# ----------------------------------------------------------------------
+# Levels as quantize_gradients makes them: grad in [-qg, qg], hess in
+# [0, qh], zero for non-member rows.  "dyadic": num_grad_quant_bins = 2
+# (qg = qh = 1) at the power-of-two scales max|g| = 0.5 and max|h| = 0.25
+# (g_scale 0.5, h_scale 0.25): every f32 value and sum is exact in both
+# packages, so the tuples are bit-identical.  "random": 16 bins (qg 7,
+# qh 15) at scales that are not powers of two: the JAX package sums the
+# f32 per-bin values fl(q_b * s), the port rounds each exact integer
+# prefix once, so gains agree to rtol=1e-5 and the structure (threshold,
+# default_left) and the estimated counts (exact integers in both) are
+# equal.  The histograms are int32 sums and equal in both cases.
+QSCALES = {True: (2, 0.5, 0.25), False: (16, 0.0371, 0.0123)}
+
+
+def _hist_int(binned, vq, slot):
+    out = np.zeros((K, 2, F, B), np.int64)
+    rows = np.nonzero(slot < K)[0]
+    for f in range(F):
+        for c in range(2):
+            np.add.at(out[:, c, f], (slot[rows], binned[f, rows]),
+                      vq[c, rows].astype(np.int64))
+    return out.astype(np.int32)
+
+
+def _qsums(hist, gs, hs, counts):
+    tot = hist[:, :, 0, :].astype(np.int64).sum(-1)          # [NC, 2]
+    return np.stack([tot[:, 0].astype(np.float32) * np.float32(gs),
+                     tot[:, 1].astype(np.float32) * np.float32(hs),
+                     counts.astype(np.float32)])
+
+
+def _run_quant(seed, dyadic):
+    from lightgbm_tpu_torch.ops.split import QuantScales
+    binned, vals, slot, slot_parent, small_left = _data(seed, True)
+    bins, gs, hs = QSCALES[dyadic]
+    qg, qh = max(bins // 2 - 1, 1), bins - 1
+    rng = np.random.RandomState(seed + 100)
+    member = vals[2] > 0
+    vq = (np.stack([rng.randint(-qg, qg + 1, N), rng.randint(0, qh + 1, N)])
+          * member).astype(np.int8)
+    small = _hist_int(binned, vq, slot)
+    parent = _hist_int(binned, vq, slot_parent.astype(np.int32))
+    sl = small_left[:, None, None, None]
+    left = np.where(sl, small, parent - small)
+    kids = np.concatenate([left, parent - left])
+    ones = np.stack([member, member]).astype(np.int8)
+    n_small = _hist_int(binned, ones, slot)[:, 0, 0].sum(-1)
+    n_par = _hist_int(binned, ones, slot_parent.astype(np.int32))[:, 0, 0]
+    n_par = n_par.sum(-1)
+    n_left = np.where(small_left, n_small, n_par - n_small)
+    csums = _qsums(kids, gs, hs, np.concatenate([n_left, n_par - n_left]))
+    ssums = _qsums(small, gs, hs, n_small)
+    jq = (np.float32(gs), np.float32(hs))
+    ts_ = QuantScales(float(np.float32(gs)), float(np.float32(hs)))
+    jb, jv, js = jnp.asarray(binned), jnp.asarray(vq), jnp.asarray(slot)
+    tb, tv, ts = (torch.from_numpy(binned), torch.from_numpy(vq),
+                  torch.from_numpy(slot))
+    jhp, thp = JHP(**HP), THP(**HP)
+    out = {}
+    out["frontier"] = (
+        JFU.fused_frontier_splits(jb, jv, js, K, B, jnp.asarray(csums),
+                                  jnp.asarray(small_left),
+                                  jnp.asarray(parent), *_meta_j(), jhp,
+                                  quant_scales=jq, interpret=True),
+        TFU.fused_frontier_splits(tb, tv, ts, K, B, torch.from_numpy(csums),
+                                  torch.from_numpy(small_left),
+                                  torch.from_numpy(parent), *_meta_t(), thp,
+                                  quant_scales=jq))
+    out["segment"] = (
+        JFU.fused_segment_splits(jb, jv, js, K, B, jnp.asarray(ssums),
+                                 *_meta_j(), jhp, quant_scales=jq,
+                                 interpret=True),
+        TFU.fused_segment_splits(tb, tv, ts, K, B, torch.from_numpy(ssums),
+                                 *_meta_t(), thp, quant_scales=jq))
+    out["accumulate"] = (
+        JFU.fused_frontier_accumulate(jb, jv, js, K, B, interpret=True),
+        TFU.fused_frontier_accumulate(tb, tv, ts, K, B))
+    out["scan_parent"] = (
+        JFU.fused_sibling_scan(jnp.asarray(small), jnp.asarray(csums),
+                               *_meta_j(), jhp,
+                               small_left=jnp.asarray(small_left),
+                               parent_hist=jnp.asarray(parent),
+                               quant_scales=jq, interpret=True),
+        TFU.fused_sibling_scan(torch.from_numpy(small),
+                               torch.from_numpy(csums), *_meta_t(), thp,
+                               small_left=torch.from_numpy(small_left),
+                               parent_hist=torch.from_numpy(parent),
+                               quant_scales=jq))
+    out["scan_leaf"] = (
+        JFU.fused_sibling_scan(jnp.asarray(small), jnp.asarray(ssums),
+                               *_meta_j(), jhp, quant_scales=jq,
+                               interpret=True),
+        TFU.fused_sibling_scan(torch.from_numpy(small),
+                               torch.from_numpy(ssums), *_meta_t(), thp,
+                               quant_scales=jq))
+    # the grower's entries: B2 and B4 + B5 (leaf mode) with QuantScales
+    seg, best = TFU.frontier_splits(
+        tb, tv, ts, K, B, ts_, torch.from_numpy(csums),
+        torch.from_numpy(small_left), torch.from_numpy(parent), *_meta_t(),
+        thp)
+    out["frontier_direct"] = (out["frontier"][0], (seg, best))
+    hist = TFU.accumulate(tb, tv, ts, K, B)
+    out["segment_direct"] = (out["segment"][0], (hist, TFU.sibling_scan(
+        hist, ts_, torch.from_numpy(ssums), *_meta_t(), thp)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def quant_dyadic():
+    return _run_quant(seed=3, dyadic=True)
+
+
+@pytest.fixture(scope="module")
+def quant_random():
+    return _run_quant(seed=5, dyadic=False)
+
+
+@pytest.mark.parametrize("fn", FUNCTIONS)
+def test_quantized_dyadic_scales_are_bit_identical(quant_dyadic, fn):
+    (jh, jbest), (th, tbest) = _split(quant_dyadic[fn])
+    if jh is not None:
+        assert _np(th).dtype == np.int32
+        assert np.array_equal(_np(jh), _np(th))
+    if jbest is not None:
+        assert np.isfinite(_np(tbest.gain)).any()
+        for name in FIELDS:
+            j, t = _np(getattr(jbest, name)), _np(getattr(tbest, name))
+            if j.dtype == np.float32:
+                j, t = j.view(np.int32), t.view(np.int32)
+            assert np.array_equal(j, t), name
+
+
+@pytest.mark.parametrize("fn", FUNCTIONS)
+def test_quantized_random_scales_same_structure(quant_random, fn):
+    (jh, jbest), (th, tbest) = _split(quant_random[fn])
+    if jh is not None:
+        assert np.array_equal(_np(jh), _np(th))
+    if jbest is not None:
+        for name in ("threshold", "default_left", "left_count"):
+            assert np.array_equal(_np(getattr(jbest, name)),
+                                  _np(getattr(tbest, name))), name
+        jg, tg = _np(jbest.gain), _np(tbest.gain)
+        assert np.array_equal(np.isfinite(jg), np.isfinite(tg))
+        fin = np.isfinite(jg)
+        assert fin.any()
+        np.testing.assert_allclose(tg[fin], jg[fin], rtol=1e-5)
+        for name in ("left_sum_grad", "left_sum_hess"):
+            np.testing.assert_allclose(_np(getattr(tbest, name))[fin],
+                                       _np(getattr(jbest, name))[fin],
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_quantized_scan_needs_scales():
+    binned, vals, slot, _, _ = _data(3, True)
+    vq = np.zeros((2, N), np.int8)
+    with pytest.raises(ValueError, match="quant_scales"):
+        TFU.fused_segment_splits(torch.from_numpy(binned),
+                                 torch.from_numpy(vq), torch.from_numpy(slot),
+                                 K, B, torch.ones((3, K)), *_meta_t(),
+                                 THP(**HP))

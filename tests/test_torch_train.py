@@ -266,7 +266,8 @@ def test_binary_gradients_within_two_ulps():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"use_quantized_grad": True}, "quantized"),
+    ({"use_quantized_grad": True, "objective": "multiclass",
+      "num_class": 3}, "quantized"),
     ({"boosting": "goss"}, "GOSS"),
     ({"boosting": "dart"}, "GOSS, DART and RF"),
     ({"objective": "multiclass", "num_class": 3}, "multiclass"),
