@@ -109,6 +109,40 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# template arguments of the accumulate kernel as the mangled name spells
+# them
+_MANGLED = {"h": "uint8_t", "i": "int", "f": "float", "a": "int8_t"}
+
+
+def sass_atomics(_build, lib, kernel: str) -> dict:
+    """The atomic opcodes (``ATOMS``/``ATOM``/``RED``) in the SASS of each
+    instance of ``kernel`` in a built library, by ``cuobjdump -sass``
+    from the toolkit that built it: a 64-bit shared add that compiles to
+    a compare-and-swap loop shows as ``ATOMS.CAST.SPIN.64``."""
+    import re
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = None
+            if kernel in m.group(1):
+                t = re.search(kernel + r"I(\w)(\w)E", m.group(1))
+                func = (f"{kernel}<{_MANGLED.get(t.group(1), t.group(1))}, "
+                        f"{_MANGLED.get(t.group(2), t.group(2))}>"
+                        if t else m.group(1))
+                found[func] = set()
+            continue
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9._]+)", line)
+        if m and func is not None:
+            found[func].add(m.group(1))
+    if not found:
+        raise AssertionError(f"no {kernel} in the SASS of {lib}")
+    return {k: sorted(v) for k, v in sorted(found.items())}
+
+
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean time of ``fn`` over ``reps`` back-to-back calls from Python,
     by CUDA events after a warm-up: the device time plus whatever the
@@ -482,8 +516,7 @@ def plain_kernels():
     from lightgbm_tpu_torch.ops import fused, histogram, ingest
     saved = (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda,
              histogram._histogram_cuda)
-    ingest._bin_cuda = (lambda X, tables, bounds, cats, gp, mb:
-                        ingest.bin_plain(X, tables, bounds, cats))
+    ingest._bin_cuda = lambda X, binner: binner.plain(X)
     fused._accumulate_cuda = fused.accumulate_plain
     fused._scan_cuda = (lambda *args, pair=False, **kw:
                         fused.scan_plain(*args, **kw))
@@ -598,11 +631,18 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
 
 
 F32_ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
-               "fused_sibling_scan")
+               "fused_sibling_scan", "fused_slot_order")
 INT8_ENTRIES = tuple(name + "_int8" for name in F32_ENTRIES)
 
 
 def expect_launches(launches: dict, positive=(), zero=(), exact=None):
+    # B4 sorts the rows before every accumulate, and the training path
+    # runs the sort nowhere else
+    for mode in ("", "_int8"):
+        if (launches["fused_slot_order" + mode]
+                != launches["fused_frontier_accumulate" + mode]):
+            raise AssertionError(f"B4{mode}: {launches} sorts for "
+                                 "accumulates")
     for name in positive:
         if launches[name] <= 0:
             raise AssertionError(f"the training path never launched {name}")
@@ -624,9 +664,8 @@ def phase_train(lt):
     Xv, yv = higgs_like(VALID_ROWS, seed=12)
     r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
     # the fused arm: B4 roots, B2 (B4 + B5) rounds, no B6
-    expect_launches(r["launches"], positive=(
-        "ingest", "fused_frontier_splits", "fused_frontier_accumulate",
-        "fused_sibling_scan"), zero=("histogram_pallas",) + INT8_ENTRIES)
+    expect_launches(r["launches"], positive=("ingest",) + F32_ENTRIES,
+                    zero=("histogram_pallas",) + INT8_ENTRIES)
     emit({"phase": "train", **r["row"]})
     return r, (X, y, Xv, yv)
 
@@ -676,12 +715,19 @@ def phase_ingest(ds, X):
         raise AssertionError(f"B3 differs from its plain version by {max_err} "
                              "bins")
     del plain_out
+    layouts = ingest_layouts(ING, tables, Xc[-100_003:], ref[-100_003:])
     cols = [s.column for s in tables.specs if not s.is_cat]
     XT = Xt[:, cols].T.contiguous()
     bw = tables.bounds.shape[1]
     row = {"phase": "ingest", "rows": n, "features": F,
            "groups": tables.num_groups, "checked_rows": int(Xc.shape[0]),
            "checked": "byte-identical to _bin_block", "max_abs_err": max_err,
+           "plan": {"tile_rows": binner.kernel_state().plan.tile_rows,
+                    "chunks": len(binner.kernel_state().plan.chunks) - 1,
+                    "smem_bytes": binner.kernel_state().plan.smem_bytes,
+                    "blocks": ING.planner.ingest_grid(
+                        binner.kernel_state().plan, n)},
+           "layouts": layouts,
            "kernel_ms": graph_ms(lambda: binner(Xt), 20),
            "plain_ms": event_ms(lambda: binner.plain(Xt), 3, warmup=1),
            "library_ms": event_ms(
@@ -693,10 +739,39 @@ def phase_ingest(ds, X):
     return row
 
 
+def ingest_layouts(ING, tables, Xc, ref) -> list:
+    """B3 byte for byte against ``_bin_block``'s ``ref`` where the kernel
+    takes its other paths: X at an address that is not 16-byte aligned
+    (scalar loads, and a row count that leaves ragged output words), and
+    tables cut into several group chunks (a small table budget)."""
+    from lightgbm_tpu_torch.ops import planner
+    n, F = Xc.shape
+    buf = torch.empty(n * F + 1, dtype=torch.float32, device="cuda")
+    buf[1:] = torch.from_numpy(Xc).cuda().flatten()
+    saved = planner.INGEST_TABLE_BYTES
+    done = []
+    try:
+        for name, X, budget in (
+                ("misaligned", buf[1:].view(n, F), saved),
+                ("group_chunks", torch.from_numpy(Xc).cuda(), 4096)):
+            planner.INGEST_TABLE_BYTES = budget
+            binner = ING.DeviceBinner(tables, "cuda")
+            got = binner(X).cpu().numpy()
+            if not np.array_equal(got.T, ref):
+                raise AssertionError(f"B3 ({name}) differs from _bin_block")
+            done.append({"layout": name, "rows": n, "chunks":
+                         len(binner.kernel_state().plan.chunks) - 1})
+    finally:
+        planner.INGEST_TABLE_BYTES = saved
+    return done
+
+
 def phase_hist(ds, bst):
     """B4, B2 and B5 against their plain versions at one frontier level
     of the training run (K = 128 slots, about half the rows slotted, the
-    run's gradients after its last round); their times.  Kernels are
+    run's gradients after its last round); their times.  B4 and its sort
+    also at a root and a deep round (``b4_shapes``) and on the edge cases
+    of ``b4_edge_cases``.  Kernels are
     timed from CUDA graphs; the plain versions and the library call sync
     with the host (``nonzero``, ``bincount``) and cannot be captured, so
     they are timed by CUDA events over back-to-back calls."""
@@ -779,38 +854,21 @@ def phase_hist(ds, bst):
     del seg_k, seg_p
     torch.cuda.synchronize()
 
-    # torch.bincount over the flattened (slot, feature, bin) index with
-    # f32 weights, one call per channel: the library yardstick for B4
-    rows = torch.nonzero(slot < K).flatten()
-    idx = ((slot[rows].to(torch.int64)[None, :] * F
-            + torch.arange(F, device="cuda")[:, None]) * B
-           + binned_t[:, rows].to(torch.int64)).flatten()
-    wts = [vals[c, rows][None, :].expand(F, -1).flatten().contiguous()
-           for c in range(3)]
-
-    def library():
-        for w in wts:
-            torch.bincount(idx, weights=w, minlength=K * F * B)
-
-    m = int(rows.numel())
+    m = int((slot < K).sum())
     NC = 2 * K
     hist_bytes = K * 3 * F * B * 8
     tuple_bytes = NC * F * 4 * 6
-    acc = bytes_or_ops(n * F + 12 * n + 4 * n + hist_bytes, 3 * m * F)
     scan = bytes_or_ops(2 * hist_bytes + 3 * NC * 4 + K * 4 + 3 * F * 4
                         + tuple_bytes, NC * F * B * SCAN_OPS_PER_CELL)
-    pair = bytes_or_ops(n * F + 12 * n + 4 * n + 2 * hist_bytes + 3 * NC * 4
-                        + K * 4 + 3 * F * 4 + tuple_bytes,
-                        acc["ops"] + scan["ops"])
+    shapes = b4_shapes(fused, accumulate_plain, binned_t, vals, scales, B,
+                       slot, seed=7)
+    acc = shapes["frontier"]
+    pair = bytes_or_ops(acc["bytes"] + hist_bytes + 3 * NC * 4 + K * 4
+                        + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
+    edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, scales, B)
     rows_out = {
-        "fused_frontier_accumulate": {
-            "kernel_ms": graph_ms(
-                lambda: fused.accumulate(binned_t, vals, slot, K, B,
-                                         scales), 10),
-            "plain_ms": event_ms(lambda: accumulate_plain(
-                binned_t, vals, slot, K, B, scales), 2, warmup=1),
-            "library_ms": event_ms(library, 5), "max_abs_err": err_b4,
-            **acc},
+        "fused_frontier_accumulate": dict(acc, max_abs_err=err_b4),
+        "fused_slot_order": slot_order_row(fused, slot, K, vals, scales),
         "fused_sibling_scan": {
             "kernel_ms": graph_ms(b5, 10),
             "plain_ms": event_ms(b5_plain, 2, warmup=1),
@@ -823,8 +881,145 @@ def phase_hist(ds, bst):
     emit({"phase": "hist", "rows": n, "features": F, "bins": B, "slots": K,
           "slotted_rows": m, "scales": list(scales),
           "checked": "bit-identical to the plain versions",
+          "b4_shapes": shapes, "b4_edge_cases": edges,
           **{k: v for k, v in rows_out.items()}})
     return rows_out
+
+
+# B4's frontier shapes besides the training run's level (K = 128 with
+# about half the rows slotted): a root (one slot holding every row) and a
+# deep round (K = 128, about 5% of the rows slotted)
+B4_SHAPES = (("root", 1, 1.0), ("deep", HIST_SLOTS, 0.05))
+
+
+def b4_bound(n, F, B, K, m, quant, bin_bytes=1):
+    """B4's least time: each slot read once, the slotted rows' bins and
+    values once, the [K, C, F, B] sums written once; one add per
+    (slotted row, feature, channel)."""
+    C, val_bytes, cell = (2, 2, 4) if quant else (3, 12, 8)
+    return bytes_or_ops(4 * n + m * (F * bin_bytes + val_bytes)
+                        + K * C * F * B * cell, C * m * F)
+
+
+def b4_shapes(fused, accumulate_plain, binned_t, vals, scales, B, slot,
+              seed):
+    """B4 (sort + accumulate) at the frontier shape (``slot``, K =
+    ``HIST_SLOTS``) and at ``B4_SHAPES``: each equal to
+    ``accumulate_plain`` and its sort to ``slot_order_plain`` and
+    ``sorted_values_plain`` (``torch.equal``), then the kernel's time
+    from a CUDA graph, the plain version's and ``torch.bincount`` x C
+    (one call per channel over the flattened (slot, feature, bin) index
+    of the slotted rows, the levels as f32 weights in int8 mode: exact,
+    sums below 2**24)."""
+    F, n = binned_t.shape
+    quant = vals.dtype == torch.int8
+    C = 2 if quant else 3
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, K, frac in (("frontier", HIST_SLOTS, None),) + B4_SHAPES:
+        if frac is not None:
+            r = torch.rand(n, device="cuda", generator=g)
+            pick = torch.randint(0, K, (n,), device="cuda", generator=g,
+                                 dtype=torch.int32)
+            slot = torch.where(r < frac, pick, torch.full_like(pick, K))
+        got = fused.accumulate(binned_t, vals, slot, K, B, scales)
+        want = accumulate_plain(binned_t, vals, slot, K, B, scales)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B4 differs from its plain version at the "
+                                 f"{name} shape")
+        del got, want
+        sort_vs_plain(fused, slot, K, vals, scales, f"the {name} shape")
+        rows = torch.nonzero(slot < K).flatten()
+        m = int(rows.numel())
+        idx = ((slot[rows].to(torch.int64)[None, :] * F
+                + torch.arange(F, device="cuda")[:, None]) * B
+               + binned_t[:, rows].to(torch.int64)).flatten()
+        wts = [vals[c, rows].float()[None, :].expand(F, -1).flatten()
+               .contiguous() for c in range(C)]
+
+        def library():
+            for w in wts:
+                torch.bincount(idx, weights=w, minlength=K * F * B)
+
+        out[name] = {
+            "slots": K, "slotted_rows": m,
+            "kernel_ms": graph_ms(lambda: fused.accumulate(
+                binned_t, vals, slot, K, B, scales), 10),
+            "plain_ms": event_ms(lambda: accumulate_plain(
+                binned_t, vals, slot, K, B, scales), 2, warmup=1),
+            "library_ms": event_ms(library, 5),
+            "sort_ms": graph_ms(lambda: fused._slot_order_cuda(
+                slot, K, vals, scales), 10),
+            **b4_bound(n, F, B, K, m, quant, binned_t.element_size())}
+        del idx, wts
+    return out
+
+
+def sort_vs_plain(fused, slot, K, vals, scales, where) -> float:
+    """B4's sort as the path runs it (``_slot_order_cuda``: order,
+    offsets and the slotted rows' values in sorted order) against
+    ``slot_order_plain`` and ``sorted_values_plain``: raises unless all
+    three are equal; returns the largest |difference| over them."""
+    order, meta, sv = fused._slot_order_cuda(slot, K, vals, scales)
+    p_order, p_offsets = fused.slot_order_plain(slot, K)
+    p_sv = fused.sorted_values_plain(vals, p_order, p_offsets, scales)
+    pairs = ((order, p_order), (meta[:K + 1], p_offsets),
+             (sv[:p_sv.shape[0]], p_sv))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"B4's sort differs from its plain version at "
+                             f"{where}")
+    return max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               if a.numel() else 0.0 for a, b in pairs)
+
+
+def slot_order_row(fused, slot, K, vals, scales):
+    """B4's sort at the frontier shape, the variant the path runs (it
+    lays out the slotted rows' values too): held to its plain version,
+    its time from a CUDA graph and the plain version's.  No one PyTorch
+    call computes it; ``torch.argsort(stable=True)`` gives the order
+    alone (``argsort_order_only_ms``)."""
+    n = slot.shape[0]
+    err = sort_vs_plain(fused, slot, K, vals, scales, "the frontier shape")
+    m = int((slot < K).sum())
+    C, in_b, out_b = (2, 1, 1) if vals.dtype == torch.int8 else (3, 4, 8)
+
+    def plain():
+        order, offsets = fused.slot_order_plain(slot, K)
+        return fused.sorted_values_plain(vals, order, offsets, scales)
+
+    return {"kernel_ms": graph_ms(lambda: fused._slot_order_cuda(
+                slot, K, vals, scales), 10),
+            "plain_ms": event_ms(plain, 5),
+            "library_ms": None,
+            "argsort_order_only_ms": event_ms(
+                lambda: torch.argsort(slot, stable=True), 5),
+            "max_abs_err": err, "slotted_rows": m,
+            **bytes_or_ops(8 * n + 8 * (K + 1) + m * C * (in_b + out_b), n)}
+
+
+def b4_edge_cases(fused, accumulate_plain, binned_t, vals, scales, B):
+    """B4 against its plain version on the card where the sort has
+    nothing or little to do: every row dropped, and slots left empty."""
+    n = binned_t.shape[1]
+    K = HIST_SLOTS
+    g = torch.Generator(device="cuda").manual_seed(9)
+    pick = torch.randint(0, K // 8, (n,), device="cuda", generator=g,
+                         dtype=torch.int32) * 8      # 7 of 8 slots empty
+    cases = {"all_dropped": torch.full((n,), K, dtype=torch.int32,
+                                       device="cuda"),
+             "empty_slots": pick}
+    for name, slot in cases.items():
+        got = fused.accumulate(binned_t, vals, slot, K, B, scales)
+        want = accumulate_plain(binned_t, vals, slot, K, B, scales)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B4 differs from its plain version: {name}")
+        sort_vs_plain(fused, slot, K, vals, scales, name)
+        if name == "all_dropped" and bool(got.any()):
+            raise AssertionError("B4 summed dropped rows")
+    return {"cases": sorted(cases), "checked": "equal to the plain version"}
 
 
 def phase_wide_bins(lt):
@@ -858,11 +1053,45 @@ def phase_wide_bins(lt):
     if text != text_p:
         raise AssertionError("wide-bin model text differs from the "
                              "plain-version run")
-    emit({"phase": "wide_bins", "rows": WIDE_ROWS,
-          "max_num_bin": int(ds.feature_meta().max_num_bin),
+    B = int(ds.feature_meta().max_num_bin)
+    emit({"phase": "wide_bins", "rows": WIDE_ROWS, "max_num_bin": B,
           "binned": str(ds.binned_t.dtype), "rounds": WIDE_ROUNDS,
+          "b4_int32_bins": b4_wide_bins(ds.binned_t, B),
           "checked": "binned bytes equal _bin_block; model text "
-                     "byte-identical to the plain run"})
+                     "byte-identical to the plain run; B4 on int32 bins "
+                     "equal to its plain version"})
+
+
+def b4_wide_bins(binned_t, B) -> dict:
+    """B4 on the int32 binned matrix of ``max_bin=1023`` in both modes
+    (f32 values at their fixed-point scales, int8 levels), K = 64 with
+    about half the rows slotted, against its plain version."""
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.ops.histogram import (accumulate_plain,
+                                                  fixed_point_scales)
+    n = binned_t.shape[1]
+    K = 64
+    g = torch.Generator(device="cuda").manual_seed(10)
+    r = torch.rand(n, device="cuda", generator=g)
+    pick = torch.randint(0, K, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    slot = torch.where(r < 0.5, pick, torch.full_like(pick, K))
+    vals = torch.randn((3, n), device="cuda", generator=g)
+    vals[2] = 1.0
+    levels = torch.randint(-31, 32, (2, n), device="cuda", generator=g,
+                           dtype=torch.int32).to(torch.int8)
+    out = {}
+    for mode, v, sc in (("f32", vals, fixed_point_scales(vals)),
+                        ("int8", levels, None)):
+        got = fused.accumulate(binned_t, v, slot, K, B, sc)
+        want = accumulate_plain(binned_t, v, slot, K, B, sc)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"B4 ({mode}) differs from its plain "
+                                 f"version on int32 bins")
+        out[mode] = {"kernel_ms": graph_ms(
+            lambda: fused.accumulate(binned_t, v, slot, K, B, sc), 5)}
+    return {"slots": K, "bins": B, **out}
 
 
 def predict_vs_plain(pk, bst, Xv) -> int:
@@ -914,6 +1143,52 @@ def oracle_check(ds, X) -> int:
     return int(Xc.shape[0])
 
 
+def b3_at(ds, X) -> dict:
+    """B3 at a training phase's own shape, the whole train matrix: equal
+    to its plain version, its time from a CUDA graph, the plain
+    version's, one ``torch.searchsorted`` over the numerical columns, and
+    the bound (X once, the bins once; a descent of h + 4 steps per (row,
+    member)); beside them the host's parts of a Dataset's binning: the
+    ragged tables and plan (``kernel_state``) and the copy of X to the
+    card."""
+    from lightgbm_tpu_torch.ops import ingest as ING
+    n, F = X.shape
+    tables = ING.build_ingest_tables(ds)
+    binner = ING.DeviceBinner(tables, "cuda")
+    t0 = time.perf_counter()
+    state = binner.kernel_state()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xt = torch.from_numpy(X).cuda()
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    err = max_abs_err(binner(Xt), binner.plain(Xt))
+    if err != 0.0:
+        raise AssertionError(f"B3 differs from its plain version by {err} "
+                             "bins")
+    cols = [s.column for s in tables.specs if not s.is_cat]
+    XT = Xt[:, cols].T.contiguous()
+    depth = int(state.members[:, 5].sum()) + 4 * len(tables.specs)
+    row = {"rows": n, "features": F, "groups": tables.num_groups,
+           "plan": {"tile_rows": state.plan.tile_rows,
+                    "chunks": len(state.plan.chunks) - 1,
+                    "smem_bytes": state.plan.smem_bytes,
+                    "blocks": ING.planner.ingest_grid(state.plan, n)},
+           "kernel_ms": graph_ms(lambda: binner(Xt), 5),
+           "plain_ms": event_ms(lambda: binner.plain(Xt), 1, warmup=1),
+           "library_ms": event_ms(
+               lambda: torch.searchsorted(binner.bounds, XT), 5),
+           "max_abs_err": err, "host_tables_s": tables_s,
+           "host_copy_x_s": copy_s,
+           **bytes_or_ops(4 * n * F + n * tables.num_groups
+                          * (1 if ING.device_dtype(tables) == torch.uint8
+                             else 4),
+                          n * depth)}
+    del Xt, XT
+    return row
+
+
 def phase_efb_train(lt, pk):
     """``airline_onehot_1m``: the airline table one-hot encoded (674 f32
     features, EFB bundles) trained on the staged arm: B3's EFB fold, B6
@@ -929,12 +1204,14 @@ def phase_efb_train(lt, pk):
     if not ds.feature_meta().has_bundles:
         raise AssertionError("the one-hot table did not bundle")
     expect_launches(r["launches"], positive=(
-        "fused_frontier_accumulate", "fused_sibling_scan"),
-        zero=("fused_frontier_splits",) + INT8_ENTRIES,
+        "fused_frontier_accumulate", "fused_sibling_scan",
+        "fused_slot_order"), zero=("fused_frontier_splits",) + INT8_ENTRIES,
         exact={"histogram_pallas": TRAIN_ROUNDS, "ingest": 2})
     checked = oracle_check(ds, X[:EFB_ORACLE_ROWS])
+    b3 = b3_at(ds, X)
     b1 = predict_vs_plain(pk, r["bst"], Xv)
     emit({"phase": "efb_train", "config": "airline_onehot_1m", **r["row"],
+          "b3": b3,
           "used_features": len(ds.used_features), "groups": ds.num_groups,
           "max_group_bin": int(ds.max_group_bin),
           "max_num_bin": int(ds.feature_meta().max_num_bin),
@@ -958,10 +1235,9 @@ def phase_cat_train(lt, pk):
     if meta.has_bundles or int(meta.is_categorical.sum()) != 6:
         raise AssertionError("the categorical table is not 6 categorical "
                              "features without bundles")
-    expect_launches(r["launches"], positive=(
-        "fused_frontier_splits", "fused_frontier_accumulate",
-        "fused_sibling_scan"), zero=("histogram_pallas",) + INT8_ENTRIES,
-        exact={"ingest": 2})
+    expect_launches(r["launches"], positive=F32_ENTRIES,
+                    zero=("histogram_pallas",) + INT8_ENTRIES,
+                    exact={"ingest": 2})
     checked = oracle_check(ds, X)
     b1 = predict_vs_plain(pk, r["bst"], Xv)
     cat_splits = sum(int((m.decision_type[:m.num_leaves - 1] & 1).sum())
@@ -1069,9 +1345,10 @@ def phase_quant_hist(ds, bst):
     at one frontier level of the training run (K = 128 slots, about half
     the rows slotted), with int8 levels that ``quantize_gradients`` made
     on the card from the run's last gradients; exact (integer sums), so
-    ``max_abs_err`` must be 0.  Kernels timed from CUDA graphs; plain
-    versions, ``torch.bincount`` x 2 and ``quantize_gradients`` by CUDA
-    events."""
+    ``max_abs_err`` must be 0.  B4 also at ``b4_shapes`` and
+    ``b4_edge_cases``, as in ``phase_hist``.  Kernels timed from CUDA
+    graphs; plain versions, ``torch.bincount`` x 2 and
+    ``quantize_gradients`` by CUDA events."""
     from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.ops.histogram import (_vals_t_int,
                                                   accumulate_plain,
@@ -1156,39 +1433,22 @@ def phase_quant_hist(ds, bst):
             raise AssertionError(f"an int8 kernel is off by {err}")
     torch.cuda.synchronize()
 
-    # torch.bincount over the flattened (slot, feature, bin) index with
-    # the levels as f32 weights (exact: sums below 2**24), one call per
-    # channel: the library yardstick for B4 int8
-    rows = torch.nonzero(slot < K).flatten()
-    idx = ((slot[rows].to(torch.int64)[None, :] * F
-            + torch.arange(F, device="cuda")[:, None]) * B
-           + binned_t[:, rows].to(torch.int64)).flatten()
-    wts = [vals[c, rows].float()[None, :].expand(F, -1).flatten().contiguous()
-           for c in range(2)]
-
-    def library():
-        for w in wts:
-            torch.bincount(idx, weights=w, minlength=K * F * B)
-
-    m = int(rows.numel())
+    m = int((slot < K).sum())
     NC = 2 * K
     hist_bytes = K * 2 * F * B * 4
     tuple_bytes = NC * F * 4 * 6
-    in_bytes = n * F + 2 * n + 4 * n
-    acc = bytes_or_ops(in_bytes + hist_bytes, 2 * m * F)
     scan_ops = NC * F * B * (SCAN_OPS_PER_CELL + QUANT_COUNT_OPS_PER_CELL)
     scan = bytes_or_ops(2 * hist_bytes + 3 * NC * 4 + K * 4 + 3 * F * 4
                         + tuple_bytes, scan_ops)
-    pair = bytes_or_ops(in_bytes + 2 * hist_bytes + 3 * NC * 4 + K * 4
+    shapes = b4_shapes(fused, accumulate_plain, binned_t, vals, None, B,
+                       slot, seed=8)
+    acc = shapes["frontier"]
+    pair = bytes_or_ops(acc["bytes"] + hist_bytes + 3 * NC * 4 + K * 4
                         + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
+    edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, None, B)
     rows_out = {
-        "fused_frontier_accumulate": {
-            "kernel_ms": graph_ms(
-                lambda: fused.accumulate(binned_t, vals, slot, K, B), 10),
-            "plain_ms": event_ms(lambda: accumulate_plain(
-                binned_t, vals, slot, K, B), 2, warmup=1),
-            "library_ms": event_ms(library, 5), "max_abs_err": err_b4,
-            **acc},
+        "fused_frontier_accumulate": dict(acc, max_abs_err=err_b4),
+        "fused_slot_order": slot_order_row(fused, slot, K, vals, None),
         "fused_sibling_scan": {
             "kernel_ms": graph_ms(b5, 10),
             "plain_ms": event_ms(b5_plain, 2, warmup=1),
@@ -1204,6 +1464,7 @@ def phase_quant_hist(ds, bst):
           "g_scale": qs.g, "h_scale": qs.h,
           "checked": "exact: equal to the plain versions (int32 sums, "
                      "tuples bit for bit)",
+          "b4_shapes": shapes, "b4_edge_cases": edges,
           "quantize_gradients_ms": quant_ms,
           "quantize_gradients_bytes": 8 * n + 2 * n,
           **rows_out})
@@ -1252,13 +1513,14 @@ def phase_quant_train(lt, f32_run, data, efb_ds):
               quant_check(gb, gb.train_score[0], TRAIN_ROUNDS)]
     branch = short_quant_run(
         lt, ds, QUANT_BRANCH_PARAMS,
-        positive=INT8_ENTRIES + ("fused_frontier_accumulate",),
+        positive=INT8_ENTRIES + ("fused_frontier_accumulate",
+                                 "fused_slot_order"),
         zero=("fused_frontier_splits", "fused_sibling_scan",
               "histogram_pallas"))
     staged = short_quant_run(
         lt, efb_ds, QUANT_PARAMS,
         positive=("fused_frontier_accumulate_int8",
-                  "fused_sibling_scan_int8"),
+                  "fused_sibling_scan_int8", "fused_slot_order_int8"),
         zero=F32_ENTRIES + ("fused_frontier_splits_int8",
                             "histogram_pallas"))
     row = r["row"]
@@ -1316,7 +1578,10 @@ def main() -> int:
                      "fresh": _build.build_info[name]["seconds"] > 0,
                      "ptxas": [ln.strip() for ln in
                                _build.build_info[name]["ptxas"].splitlines()
-                               if "registers" in ln or "spill" in ln]}
+                               if "registers" in ln or "spill" in ln],
+                     **({"accumulate_atomics": sass_atomics(
+                         _build, lib, "accumulate_kernel")}
+                        if name == "fused" else {})}
               for name, lib in libs.items()}})
 
     t0 = time.perf_counter()
@@ -1371,6 +1636,8 @@ def main() -> int:
             ("fused_frontier_accumulate", fused_src,
              "lightgbm_tpu/ops/fused.py:375",
              hist["fused_frontier_accumulate"]),
+            ("fused_slot_order", fused_src,
+             "lightgbm_tpu/ops/fused.py:375", hist["fused_slot_order"]),
             ("fused_sibling_scan", fused_src,
              "lightgbm_tpu/ops/fused.py:403", hist["fused_sibling_scan"])):
         table.append({
@@ -1382,6 +1649,7 @@ def main() -> int:
     for name, replaces in (
             ("fused_frontier_splits", "lightgbm_tpu/ops/fused.py:151"),
             ("fused_frontier_accumulate", "lightgbm_tpu/ops/fused.py:375"),
+            ("fused_slot_order", "lightgbm_tpu/ops/fused.py:375"),
             ("fused_sibling_scan", "lightgbm_tpu/ops/fused.py:403")):
         r = qhist[name]
         table.append({

@@ -7,17 +7,19 @@
 // Pallas kernel's modes: f32 values, and the int8/int32 mode of
 // quantized-gradient training.  On the TPU one kernel carried the slot
 // arena in VMEM from the last row tile into the scan; on Hopper blocks
-// run in no order and nothing carries between them, so the function is
-// two kernels launched back to back:
+// run in no order and nothing carries between them, so the function is a
+// sort, an accumulate and a scan launched back to back:
 //
-//   accumulate_kernel  binned [F, n] u8/i32, slot [n] i32, and either
-//                        vals [3, n] f32 -> hist [K, 3, F, B] int64
-//                                           (fixed point), or
-//                        vals [2, n] int8 -> hist [K, 2, F, B] int32
-//                                           (sums of quantized levels)
-//   scan_kernel        hist (+ parent of the same layout and small_left
-//                      [K] in parent mode) + child sums [3, NC] + meta [F]
-//                      -> six [NC, F] per-feature-best tuples
+//   slot_count_kernel,   slot [n] i32 -> order [n] (the rows by slot,
+//   slot_scan_kernel,      stable), offsets [K + 1], and the slotted
+//   slot_scatter_kernel    rows' values in sorted order: int64 fixed
+//                          point [n, 3] or int8 levels [n, 2]
+//   accumulate_kernel    binned [F, n] u8/i32 + the sorted rows
+//                          -> hist [K, 3, F, B] int64 (fixed point),
+//                             or [K, 2, F, B] int32 (sums of levels)
+//   scan_kernel          hist (+ parent of the same layout and small_left
+//                        [K] in parent mode) + child sums [3, NC] + meta [F]
+//                        -> six [NC, F] per-feature-best tuples
 //
 // Exact integers in both modes.  f32 mode (fixed_point.cuh, shared with
 // histogram.cu): channel c of a row's value block enters as
@@ -43,21 +45,43 @@
 // formulas run in f32 with __fadd_rn/__fmul_rn/__fdiv_rn (and
 // --fmad=false), in the order of numeric_feature_scan.
 //
-// What bounds it on the H100.  accumulate: atomic throughput, not bytes.
-// A block owns one feature, a block of slots and a chunk of rows; its
-// [slots, C, B] arena (int64 with 3 channels, or int32 with 2) lives in
-// shared memory and takes one shared atomic per (row, channel) of its
-// slots; hot bins (a feature whose rows crowd into few bins) serialise
-// there.  Every block re-reads slot[] for its rows, so each row is read
-// once per (feature, slot block): K / slots_per_block times more slot
-// traffic than the bound, mostly from L2.  The arena is flushed with
-// global atomics, which costs (row chunks) x F x K x C x B at most.  The
-// int8 mode moves a third of the value bytes and does 32-bit atomics on
-// two channels instead of 64-bit ones on three.  scan: one block per
-// (child, feature), one thread per bin; a block-wide int64 scan (warp
-// shuffles), in int8 mode one more block sum (the hess total), and two
-// arg-max reductions; it is bound by launch and latency at these sizes
-// (~7k blocks of 256 threads).
+// What bounds it on the H100.  The accumulate's byte bound is the binned
+// matrix once plus the values, the slots and the output (~0.02 ms at 1 M
+// rows x 28 features).  A first design gave each block a block of 16
+// slots and a chunk of ALL rows and skipped the rows of other slots: the
+// cost grew as n * F * ceil(K / 16) whatever the slotted rows m, each
+// row's slot was read 224 times a launch, the f32 arena took 64-bit
+// shared atomics (a compare-and-swap loop on sm_90) and the fixed-point
+// conversion ran once per (row, feature, channel).  So B4 now runs in
+// two steps (four launches on one stream, no host sync):
+//
+// 1. A stable counting sort of the rows by slot (K + 1 <= 129 keys at the
+//    grower's widths; one radix pass): per-block key counts (a block of
+//    32 warps holds 8,192 rows, each warp loads its 256 keys at once),
+//    one block's exclusive scan over (key, block), and a stable scatter
+//    that also writes each slotted row's values once in sorted order,
+//    converted once per (row, channel).  It moves the slots twice, the
+//    values once and the order and sorted values once: bytes, ~20 MB at
+//    1 M rows.
+// 2. The accumulate walks the sorted list: a block owns a segment of at
+//    most seg_rows rows of ONE slot and a tile of features, keeps that
+//    slot's [ft, C, B] arena in shared memory (B6's layout), gathers each
+//    row's bins, and flushes once.  Work grows with m, not n * K / 16,
+//    each slot is read once, and a segment that is a whole slot stores
+//    its cells without atomics.  What bounds it now is the shared-atomic
+//    rate and hot bins (rows that crowd into few bins serialise), and
+//    the bin gather: rows of a slot are sparse in [0, n), so each
+//    gathered byte is a 32-byte sector, from L2 where the binned matrix
+//    fits (28 MB at 1 M x 28).  The f32 mode splits each int64 value
+//    into hi/lo 32-bit halves with an exact carry (accumulate_kernel),
+//    so every shared atomic is a native 32-bit ATOMS.ADD; the int8 mode
+//    adds its levels into int32 on two channels.  Zero values add
+//    nothing and are skipped.
+//
+// scan: one block per (child, feature), one thread per bin; a block-wide
+// int64 scan (warp shuffles), in int8 mode one more block sum (the hess
+// total), and two arg-max reductions; it is bound by launch and latency
+// at these sizes (~7k blocks of 256 threads).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //        --fmad=false -shared -Xcompiler -fPIC.
@@ -81,70 +105,307 @@ constexpr int kMissingZero = 1;
 constexpr int kMissingNaN = 2;
 constexpr int kDefaultSmem = 48 * 1024;
 
-// the value types of the two modes: channels, the arena's accumulator
-// (two's complement, so unsigned wrap-around adds signed values exactly)
-// and a row's integer value of channel c
+// the value types of the two modes: channels, a row's integer value of
+// channel c as the sort stores it (Q), and the flushed sum's type
 template <typename ValT>
 struct ValTraits;
 
 template <>
 struct ValTraits<float> {
   static constexpr int kChannels = 3;
-  using Acc = unsigned long long;  // int64 fixed point
-  __device__ static long long level(float v, int s) { return to_fixed(v, s); }
+  using Q = long long;             // int64 fixed point
+  using Out = unsigned long long;  // two's complement int64 sums
+  __device__ static Q level(float v, int s) { return to_fixed(v, s); }
 };
 
 template <>
 struct ValTraits<int8_t> {
   static constexpr int kChannels = 2;
-  using Acc = unsigned int;  // int32 sums of quantized levels
-  __device__ static int level(int8_t v, int) { return v; }
+  using Q = int8_t;           // the quantized level as it is
+  using Out = unsigned int;   // two's complement int32 sums
+  __device__ static Q level(int8_t v, int) { return v; }
 };
 
-template <typename BinT, typename ValT>
-__global__ void accumulate_kernel(const BinT* __restrict__ binned,
-                                  const ValT* __restrict__ vals,
-                                  const int* __restrict__ slot, int n, int F,
-                                  int K, int B, int s0, int s1, int s2,
-                                  int rows_per_chunk, int slots_per_block,
-                                  typename ValTraits<ValT>::Acc* __restrict__ out) {
-  using Acc = typename ValTraits<ValT>::Acc;
-  constexpr int C = ValTraits<ValT>::kChannels;
-  extern __shared__ __align__(8) unsigned char smem[];
-  Acc* arena = reinterpret_cast<Acc*>(smem);  // [slots, C, B]
-  const int f = blockIdx.y;
-  const int k0 = blockIdx.z * slots_per_block;
-  const int ns = min(slots_per_block, K - k0);
-  const int cells = ns * C * B;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) arena[i] = 0;
-  __syncthreads();
-  const int sc[3] = {s0, s1, s2};
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
-  const long long r1 = min(static_cast<long long>(n), r0 + rows_per_chunk);
-  const BinT* col = binned + static_cast<size_t>(f) * n;
-  for (long long r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int s = slot[r] - k0;
-    if (s < 0 || s >= ns) continue;
-    const int b = static_cast<int>(col[r]);
-    if (b < 0 || b >= B) continue;  // the one-hot drops out-of-range bins
-    Acc* cell = arena + static_cast<size_t>(s) * C * B + b;
+// ---------------------------------------------------------------------
+// B4, step 1: a stable counting sort of the rows by slot
+// ---------------------------------------------------------------------
+
+// A sort block owns kSortWarps * kWarpRows consecutive rows; each warp
+// loads its kWarpRows keys at once (kSteps loads in flight), then walks
+// them 32 at a time in row order.
+constexpr int kSortWarps = 32;
+constexpr int kWarpRows = 256;
+constexpr int kSteps = kWarpRows / 32;
+constexpr int kSortBlockRows = kSortWarps * kWarpRows;
+
+// a row's sort key: its slot, or K for a dropped row
+__device__ __forceinline__ int slot_key(int s, int K) {
+  return (s >= 0 && s < K) ? s : K;
+}
+
+// this warp's keys (-1 past n) and its per-key counts in cnt [K + 1];
+// __match_any_sync groups the lanes of equal keys, so each step adds one
+// count per key
+__device__ __forceinline__ void warp_keys(const int* __restrict__ slot,
+                                          int n, int K, int r0, int lane,
+                                          int (&keys)[kSteps], int* cnt) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const auto q = ValTraits<ValT>::level(
-          vals[static_cast<size_t>(c) * n + r], sc[c]);
-      if (q) atomicAdd(cell + c * B, static_cast<Acc>(q));
+  for (int u = 0; u < kSteps; ++u) {
+    const int r = r0 + 32 * u + lane;
+    keys[u] = r < n ? slot_key(slot[r], K) : -1;
+  }
+  for (int k = lane; k <= K; k += 32) cnt[k] = 0;
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const unsigned peers = __match_any_sync(0xffffffffu, keys[u]);
+    if (keys[u] >= 0 && lane == __ffs(peers) - 1) cnt[keys[u]] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// counts[key * nblk + blk] = rows of sort block blk with that key
+__global__ void slot_count_kernel(const int* __restrict__ slot, int n, int K,
+                                  int nblk, int* __restrict__ counts) {
+  extern __shared__ int cnt_sh[];  // [kSortWarps, K + 1]
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  int keys[kSteps];
+  warp_keys(slot, n, K, blockIdx.x * kSortBlockRows + w * kWarpRows, lane,
+            keys, cnt_sh + w * (K + 1));
+  __syncthreads();
+  for (int k = threadIdx.x; k <= K; k += blockDim.x) {
+    int t = 0;
+    for (int v = 0; v < kSortWarps; ++v) t += cnt_sh[v * (K + 1) + k];
+    counts[static_cast<size_t>(k) * nblk + blockIdx.x] = t;
+  }
+}
+
+// exclusive scan of a[0, len) in place by the whole block (blockDim a
+// multiple of 32): each thread scans a run of ceil(len / blockDim)
+// entries; returns the total
+__device__ int block_exclusive_scan(int* a, int len, int* warp_sh) {
+  const int T = blockDim.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int wid = t >> 5;
+  const int per = (len + T - 1) / T;
+  const int b = min(len, t * per);
+  const int e = min(len, b + per);
+  int s = 0;
+#pragma unroll 8
+  for (int i = b; i < e; ++i) s += a[i];
+  int v = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  if (lane == 31) warp_sh[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    const int nw = T >> 5;
+    int x = lane < nw ? warp_sh[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane < nw) warp_sh[lane] = x;
+  }
+  __syncthreads();
+  int run = v - s + (wid > 0 ? warp_sh[wid - 1] : 0);
+  const int total = warp_sh[(T >> 5) - 1];
+  for (int i = b; i < e; ++i) {
+    const int x = a[i];
+    a[i] = run;
+    run += x;
+  }
+  __syncthreads();  // a[] and warp_sh are read again by the caller
+  return total;
+}
+
+// one block: counts -> exclusive prefixes over (key, sort block), so
+// counts[key * nblk + blk] is the first sorted position of that block's
+// rows with that key; offsets[k] = counts[k * nblk] (k <= K: offsets[K]
+// is the number of slotted rows); seg_start[k] = the first accumulate
+// segment of slot k, each slot cut into ceil(m_k / acc_rows) segments
+// (seg_start[K] = their total)
+__global__ void slot_scan_kernel(int* __restrict__ counts, int nblk, int K,
+                                 int acc_rows, int* __restrict__ offsets,
+                                 int* __restrict__ seg_start) {
+  __shared__ int warp_sh[32];
+  block_exclusive_scan(counts, (K + 1) * nblk, warp_sh);
+  for (int k = threadIdx.x; k <= K; k += blockDim.x)
+    offsets[k] = counts[static_cast<size_t>(k) * nblk];
+  __syncthreads();
+  for (int k = threadIdx.x; k <= K; k += blockDim.x)
+    seg_start[k] =
+        k < K ? (offsets[k + 1] - offsets[k] + acc_rows - 1) / acc_rows : 0;
+  __syncthreads();
+  block_exclusive_scan(seg_start, K + 1, warp_sh);
+}
+
+// order[pos] = row, stable: each warp counts its keys again, the block
+// turns the block's prefix of each key into per-warp prefixes (earlier
+// warps hold earlier rows), and each warp walks its rows in order; a
+// lane's rank among the equal keys of its step is the popcount of the
+// lower peers.  The slotted rows' values land in sorted order too,
+// converted once per (row, channel): sv[pos * C + c] (int64 fixed
+// point, or the int8 level; a row's channels side by side, one scattered
+// write a row).
+template <typename ValT>
+__global__ void slot_scatter_kernel(const int* __restrict__ slot, int n, int K,
+                                    int nblk, const int* __restrict__ counts,
+                                    const ValT* __restrict__ vals, int s0,
+                                    int s1, int s2,
+                                    typename ValTraits<ValT>::Q* __restrict__ sv,
+                                    int* __restrict__ order) {
+  constexpr int C = ValTraits<ValT>::kChannels;
+  extern __shared__ int pos_sh[];  // [kSortWarps, K + 1]
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kSortBlockRows + w * kWarpRows;
+  int keys[kSteps];
+  int* next = pos_sh + w * (K + 1);
+  warp_keys(slot, n, K, r0, lane, keys, next);
+  __syncthreads();
+  for (int k = threadIdx.x; k <= K; k += blockDim.x) {
+    int run = counts[static_cast<size_t>(k) * nblk + blockIdx.x];
+    for (int v = 0; v < kSortWarps; ++v) {
+      const int c = pos_sh[v * (K + 1) + k];
+      pos_sh[v * (K + 1) + k] = run;
+      run += c;
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const Acc v = arena[i];
-    if (v == 0) continue;
-    const int s = i / (C * B);
-    const int rem = i - s * C * B;
+  const int sc[3] = {s0, s1, s2};
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int u = 0; u < kSteps; ++u) {
+    const int r = r0 + 32 * u + lane;
+    const int key = keys[u];
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (key >= 0) {
+      const int pos = next[key] + __popc(peers & below);
+      order[pos] = r;
+      if (key < K) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          sv[static_cast<size_t>(pos) * C + c] = ValTraits<ValT>::level(
+              vals[static_cast<size_t>(c) * n + r], sc[c]);
+      }
+    }
+    __syncwarp();
+    if (key >= 0 && lane == __ffs(peers) - 1) next[key] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------
+// B4, step 2: accumulate over the sorted rows
+// ---------------------------------------------------------------------
+
+// One block per (segment of one slot's sorted rows, feature tile): it
+// keeps the slot's [ft, C, B] arena in shared memory, gathers each row's
+// bins binned[f, order[i]] (row ids ascend within a slot, so the gather
+// walks forward), and flushes the arena into out[k] once: plain stores
+// when the segment is the whole slot (no other block writes those cells),
+// global atomics on the non-zero cells otherwise.  Blocks past the
+// device-side segment total exit.
+//
+// f32 mode: no 64-bit shared atomics.  A row's int64 value q splits
+// exactly as q = hi * 2^32 + lo (hi = q >> 32 arithmetic, lo = q &
+// 0xffffffff); lo adds into a uint32 arena with atomicAdd, whose return
+// value tells whether this add wrapped (old + lo < old), and hi + carry
+// adds into a second uint32 arena.  Then hi_acc * 2^32 + lo_acc == sum q
+// (mod 2^64), the int64 arithmetic of the sums themselves, so the
+// recombined value is exact whenever the int64 sum is.  Nor does the hi
+// arena wrap at the grower's scales: fixed_point_scales gives |q| <=
+// 2^62 / n, so |hi + carry| <= 2^30 / n + 2 per row and a block's sum over
+// at most n rows stays within 2^30 + 2n < 2^31 (n < 2^29).
+template <typename BinT, typename ValT>
+__global__ void accumulate_kernel(
+    const BinT* __restrict__ binned, int n, int F, int K, int B,
+    const int* __restrict__ order,
+    const typename ValTraits<ValT>::Q* __restrict__ sv,
+    const int* __restrict__ offsets, const int* __restrict__ seg_start,
+    int seg_rows, int feat_tile, typename ValTraits<ValT>::Out* __restrict__ out) {
+  using Q = typename ValTraits<ValT>::Q;
+  using Out = typename ValTraits<ValT>::Out;
+  constexpr int C = ValTraits<ValT>::kChannels;
+  constexpr bool kSplit = std::is_same<ValT, float>::value;
+  extern __shared__ unsigned int arena[];  // lo [ft, C, B] (+ hi [ft, C, B])
+  const int seg = blockIdx.x;
+  if (seg >= seg_start[K]) return;
+  // the slot of this segment: the last k with seg_start[k] <= seg (a slot
+  // with no rows has no segment)
+  int lo_k = 0, hi_k = K - 1;
+  while (lo_k < hi_k) {
+    const int mid = (lo_k + hi_k + 1) >> 1;
+    if (seg_start[mid] <= seg) lo_k = mid;
+    else hi_k = mid - 1;
+  }
+  const int k = lo_k;
+  const int p0 = offsets[k] + (seg - seg_start[k]) * seg_rows;
+  const int p1 = min(offsets[k + 1], p0 + seg_rows);
+  const bool whole = seg_start[k + 1] - seg_start[k] == 1;
+  const int f0 = blockIdx.y * feat_tile;
+  const int ft = min(feat_tile, F - f0);
+  const int cells = ft * C * B;
+  unsigned int* lo_ar = arena;
+  unsigned int* hi_ar = arena + cells;
+  for (int i = threadIdx.x; i < (kSplit ? 2 : 1) * cells; i += blockDim.x)
+    arena[i] = 0u;
+  __syncthreads();
+  const BinT* col = binned + static_cast<size_t>(f0) * n;
+  for (int i = p0 + threadIdx.x; i < p1; i += blockDim.x) {
+    const int r = order[i];
+    Q q[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) q[c] = sv[static_cast<size_t>(i) * C + c];
+    for (int j0 = 0; j0 < ft; j0 += 4) {
+      int bb[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        bb[u] = j0 + u < ft
+                    ? static_cast<int>(col[static_cast<size_t>(j0 + u) * n + r])
+                    : -1;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int b = bb[u];
+        if (b < 0 || b >= B) continue;  // the one-hot drops out-of-range bins
+        const int cell = (j0 + u) * C * B + b;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if constexpr (kSplit) {
+            const unsigned int lo = static_cast<unsigned int>(q[c]);
+            unsigned int hi = static_cast<unsigned int>(q[c] >> 32);
+            if (lo) {
+              const unsigned int old = atomicAdd(lo_ar + cell + c * B, lo);
+              hi += (old + lo < old) ? 1u : 0u;
+            }
+            if (hi) atomicAdd(hi_ar + cell + c * B, hi);
+          } else {
+            if (q[c]) atomicAdd(lo_ar + cell + c * B,
+                                static_cast<unsigned int>(static_cast<int>(q[c])));
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < cells; x += blockDim.x) {
+    Out v;
+    if constexpr (kSplit)
+      v = (static_cast<unsigned long long>(hi_ar[x]) << 32) + lo_ar[x];
+    else
+      v = lo_ar[x];
+    const int j = x / (C * B);
+    const int rem = x - j * C * B;
     const int c = rem / B;
     const int b = rem - c * B;
-    atomicAdd(out + ((static_cast<size_t>(k0 + s) * C + c) * F + f) * B + b,
-              v);
+    Out* dst = out + ((static_cast<size_t>(k) * C + c) * F + f0 + j) * B + b;
+    if (whole) *dst = v;
+    else if (v) atomicAdd(dst, v);
   }
 }
 
@@ -391,38 +652,90 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 }  // namespace
 
-// out must be zeroed by the caller; bin_bytes is 1 (uint8) or 4 (int32);
-// val_bytes 4 takes vals [3, n] f32 and writes int64 [K, 3, F, B] at the
-// scales s0-s2, val_bytes 1 takes vals [2, n] int8 and writes int32
-// [K, 2, F, B].
-extern "C" int fused_accumulate(const void* binned, int bin_bytes,
-                                const void* vals, int val_bytes,
-                                const void* slot, int n, int F, int K, int B,
-                                int s0, int s1, int s2, void* out,
-                                int row_chunks, int slots_per_block,
-                                int threads, void* stream) {
-  if (n <= 0 || K <= 0 || F <= 0) return 0;
-  if (B <= 0 || row_chunks <= 0 || slots_per_block <= 0 || threads <= 0 ||
-      threads > 1024 || threads % 32 != 0)
+// B4, step 1: order [n] (slotted rows by slot, ascending row id within a
+// slot, dropped rows last), offsets [K + 1] and seg_start [K + 1] (the
+// accumulate's segments of acc_rows sorted rows); nblk is the number of
+// sort blocks, ceil(n / 8192) (8192 rows a block; any other value is
+// refused), and counts int32 scratch of (K + 1) * nblk entries.
+// val_bytes 4 takes vals [3, n] f32 and writes sv [n, 3] int64 at the
+// scales s0-s2, val_bytes 1 takes vals [2, n] int8 and writes sv [n, 2]
+// int8, each slotted row's values at its sorted position.
+extern "C" int fused_slot_order(const void* slot, int n, int K, int nblk,
+                                const void* vals, int val_bytes, int s0,
+                                int s1, int s2, int acc_rows, void* counts,
+                                void* order, void* offsets, void* seg_start,
+                                void* sv, void* stream) {
+  if (n <= 0 || K <= 0) return 0;
+  if (acc_rows <= 0 || vals == nullptr || sv == nullptr ||
+      nblk != (n + kSortBlockRows - 1) / kSortBlockRows ||
+      static_cast<long long>(K + 1) * nblk > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int ns = slots_per_block < K ? slots_per_block : K;
-  const int rows_per_chunk = (n + row_chunks - 1) / row_chunks;
-  const dim3 grid(row_chunks, F, (K + slots_per_block - 1) / slots_per_block);
+  const size_t smem = static_cast<size_t>(kSortWarps) * (K + 1) * sizeof(int);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(slot);
+  int* cn = static_cast<int*>(counts);
+  cudaError_t err;
+  if ((err = allow_smem(slot_count_kernel, smem)) != cudaSuccess) return err;
+  slot_count_kernel<<<nblk, kSortWarps * 32, smem, st>>>(sl, n, K, nblk, cn);
+  slot_scan_kernel<<<1, 1024, 0, st>>>(cn, nblk, K, acc_rows,
+                                       static_cast<int*>(offsets),
+                                       static_cast<int*>(seg_start));
+#define SCATTER(ValT)                                                       \
+  do {                                                                      \
+    if ((err = allow_smem(slot_scatter_kernel<ValT>, smem)) != cudaSuccess) \
+      return err;                                                           \
+    slot_scatter_kernel<ValT><<<nblk, kSortWarps * 32, smem, st>>>(         \
+        sl, n, K, nblk, cn, static_cast<const ValT*>(vals), s0, s1, s2,     \
+        static_cast<ValTraits<ValT>::Q*>(sv), static_cast<int*>(order));    \
+  } while (0)
+  if (val_bytes == 4) {
+    SCATTER(float);
+  } else if (val_bytes == 1) {
+    SCATTER(int8_t);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+#undef SCATTER
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B4, step 2: out must be zeroed by the caller; bin_bytes is 1 (uint8) or
+// 4 (int32); val_bytes 4 takes sv [n, 3] int64 and writes int64 [K, 3, F,
+// B], val_bytes 1 takes sv [n, 2] int8 and writes int32 [K, 2, F, B].
+// The grid's x axis is segs (ops/planner.py acc_segments), which must
+// cover any slot layout, ceil(n / seg_rows) + K, so it holds the
+// device-side total seg_start[K].
+extern "C" int fused_accumulate(const void* binned, int bin_bytes,
+                                int val_bytes, const void* order,
+                                const void* sv, const void* offsets,
+                                const void* seg_start, int n, int F, int K,
+                                int B, int seg_rows, int segs, int feat_tile,
+                                int threads, void* out, void* stream) {
+  if (n <= 0 || K <= 0 || F <= 0) return 0;
+  if (B <= 0 || seg_rows <= 0 || feat_tile <= 0 || threads <= 0 ||
+      threads > 1024 || threads % 32 != 0 ||
+      segs < (static_cast<long long>(n) + seg_rows - 1) / seg_rows + K)
+    return cudaErrorInvalidValue;
+  const int ft = feat_tile < F ? feat_tile : F;
+  const dim3 grid(static_cast<unsigned>(segs), (F + feat_tile - 1) / feat_tile);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* od = static_cast<const int*>(order);
+  const int* off = static_cast<const int*>(offsets);
+  const int* ss = static_cast<const int*>(seg_start);
   cudaError_t err;
 #define LAUNCH(BinT, ValT)                                                    \
   do {                                                                        \
-    using Acc = ValTraits<ValT>::Acc;                                         \
-    const size_t smem = static_cast<size_t>(ns) *                             \
-                        ValTraits<ValT>::kChannels * B * sizeof(Acc);         \
+    using Tr = ValTraits<ValT>;                                               \
+    const size_t smem = static_cast<size_t>(ft) * Tr::kChannels * B *         \
+                        sizeof(unsigned int) *                                \
+                        (std::is_same<ValT, float>::value ? 2 : 1);           \
     if ((err = allow_smem(accumulate_kernel<BinT, ValT>, smem)) !=            \
         cudaSuccess)                                                          \
       return err;                                                             \
     accumulate_kernel<BinT, ValT><<<grid, threads, smem, st>>>(               \
-        static_cast<const BinT*>(binned), static_cast<const ValT*>(vals), sl, \
-        n, F, K, B, s0, s1, s2, rows_per_chunk, slots_per_block,              \
-        static_cast<Acc*>(out));                                              \
+        static_cast<const BinT*>(binned), n, F, K, B, od,                     \
+        static_cast<const Tr::Q*>(sv), off, ss, seg_rows, feat_tile,          \
+        static_cast<Tr::Out*>(out));                                          \
   } while (0)
   if (bin_bytes == 1 && val_bytes == 4) {
     LAUNCH(uint8_t, float);

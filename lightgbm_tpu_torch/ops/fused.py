@@ -10,7 +10,12 @@ in ``csrc/fused.cu``, launched back to back on the current stream:
 - ``accumulate`` (kernel B4, the counterpart of
   ``fused_frontier_accumulate``): [K, 3, F, B] int64 fixed-point sums of
   the rows of each slot, or, for the int8 levels of quantized training
-  ([2, n] values), [K, 2, F, B] int32 sums;
+  ([2, n] values), [K, 2, F, B] int32 sums.  It sorts the rows by slot
+  on the card first (``_slot_order_cuda``, a stable counting sort whose
+  plain version is ``slot_order_plain``; it also lays the slotted rows'
+  values out in sorted order), then accumulates each slot's run of
+  rows, so its work grows with the slotted rows, not with every row
+  times the slots;
 - ``sibling_scan`` (kernel B5, the counterpart of ``fused_sibling_scan``):
   exact sibling derive + the gain scan, six [NC, F] tuples; given
   ``ops.split.QuantScales`` it takes int32 level histograms and
@@ -24,7 +29,8 @@ for bit because every sum is an exact integer (``ops/histogram.py``).
 ``launch_counts`` counts kernel launches per entry and mode, each where
 its kernel is launched (``fused_frontier_accumulate`` and
 ``fused_frontier_accumulate_int8``, ...); a B2 is counted at the scan
-launch that completes its pair.
+launch that completes its pair, and B4's sort under
+``fused_slot_order`` (once before every accumulate).
 
 The functions named after the JAX package's (``fused_frontier_splits``,
 ``fused_segment_splits``, ``fused_frontier_accumulate``,
@@ -53,7 +59,7 @@ from .split import (NumericFeatureBest, PerFeatureBest, QuantScales,
                     pick_best_feature, quant_count_hist)
 
 _ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
-            "fused_sibling_scan")
+            "fused_sibling_scan", "fused_slot_order")
 _counts_lock = threading.Lock()
 launch_counts = {name + mode: 0 for mode in ("", "_int8")
                  for name in _ENTRIES}
@@ -83,6 +89,34 @@ def derive_children(small: torch.Tensor, small_left: torch.Tensor,
     return torch.cat([h_left, parent - h_left])
 
 
+def slot_order_plain(slot: torch.Tensor, num_slots: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sort step of B4 in plain torch: ``order`` [n] int32, the rows
+    with ``slot`` in [0, K) grouped by slot (ascending row id within a
+    slot), the dropped rows last; ``offsets`` [K + 1] int32, slot k's
+    rows at ``order[offsets[k]:offsets[k + 1]]``."""
+    K = int(num_slots)
+    s = slot.to(torch.int64)
+    key = torch.where((s >= 0) & (s < K), s, torch.full_like(s, K))
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    offsets = torch.zeros(K + 1, dtype=torch.int32, device=slot.device)
+    if K:
+        offsets[1:] = torch.cumsum(torch.bincount(key, minlength=K + 1)[:K],
+                                   0).to(torch.int32)
+    return order, offsets
+
+
+def sorted_values_plain(vals_t: torch.Tensor, order: torch.Tensor,
+                        offsets: torch.Tensor, scales=None) -> torch.Tensor:
+    """What B4's sort lays out beside ``order``, in plain torch: the
+    slotted rows' values in sorted order, [m, C] with m = offsets[K]:
+    int64 ``to_fixed`` at ``scales`` for f32 ``vals_t`` [3, n], the int8
+    levels [2, n] as they are."""
+    rows = order[:int(offsets[-1])].to(torch.int64)
+    q = vals_t if vals_t.dtype == torch.int8 else to_fixed(vals_t, scales, 0)
+    return q[:, rows].t().contiguous()
+
+
 def scan_plain(small, scales, child_sums, num_bin, missing_type,
                default_bin, hp, small_left=None, parent=None):
     hist = (small if parent is None
@@ -110,10 +144,17 @@ def _lib():
             lib = _build.load("fused")
             p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             d = ctypes.c_double
+            lib.fused_slot_order.argtypes = [
+                p, i, i, i, p, i,              # slot n K nblk vals bytes
+                i, i, i, i,                    # s0-2 acc_rows
+                p, p, p, p, p, p]              # counts order offsets
+            #                                    seg_start sv stream
+            lib.fused_slot_order.restype = ctypes.c_int
             lib.fused_accumulate.argtypes = [
-                p, i, p, i, p,                 # binned, bytes, vals, bytes, slot
-                i, i, i, i,                    # n F K B
-                i, i, i, p, i, i, i, p]        # s0-2, out, chunks, sb, threads, stream
+                p, i, i, p, p, p, p,           # binned bytes vbytes order
+                i, i, i, i,                    # sv offsets seg_start; n F K B
+                i, i, i, i, p, p]              # seg_rows segs ft threads
+            #                                    out stream
             lib.fused_accumulate.restype = ctypes.c_int
             lib.fused_scan.argtypes = [
                 p, p, p, p, p, p, p,           # small parent sl sums nb mt db
@@ -129,6 +170,37 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _slot_order_cuda(slot, num_slots, vals_t, scales=None):
+    """B4's sort on the card: (order [n], meta [2(K + 1)] = offsets then
+    the accumulate's segment starts, sv = the slotted rows' values in
+    sorted order, [n, C] of which the first offsets[K] rows are written:
+    int64 fixed point at ``scales``, or the int8 levels as they are).
+    Three launches on the current stream, no host sync; the plain
+    version is ``slot_order_plain`` and ``sorted_values_plain``."""
+    n, K = slot.shape[0], int(num_slots)
+    dev = slot.device
+    nblk = planner.sort_blocks(n)
+    counts = torch.empty((K + 1) * nblk, dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    meta = torch.empty(2 * (K + 1), dtype=torch.int32, device=dev)
+    quant = vals_t.dtype == torch.int8
+    sv = torch.empty((n, vals_t.shape[0]), device=dev,
+                     dtype=torch.int8 if quant else torch.int64)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.fused_slot_order(
+            slot.data_ptr(), n, K, nblk, vals_t.data_ptr(),
+            vals_t.element_size(),
+            *(scales if scales is not None else (0, 0, 0)),
+            planner.acc_seg_rows(n), counts.data_ptr(), order.data_ptr(),
+            meta.data_ptr(), meta.data_ptr() + 4 * (K + 1), sv.data_ptr(),
+            _stream(slot))
+    if rc != 0:
+        raise RuntimeError(f"slot sort kernel launch failed: CUDA error {rc}")
+    _count("fused_slot_order", quant)
+    return order, meta, sv
+
+
 def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
                      scales=None):
     F, n = binned_t.shape
@@ -139,15 +211,16 @@ def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
                       device=binned_t.device)
     if n == 0 or K == 0 or F == 0:
         return out
-    sb = planner.fused_slots_per_block(B, quant)
-    chunks = planner.fused_row_chunks(n, F, -(-K // sb))
+    ft = planner.acc_feat_tile(F, B, quant)
+    order, meta, sv = _slot_order_cuda(slot, K, vals_t, scales)
     lib = _lib()
     with torch.cuda.device(binned_t.device):
         rc = lib.fused_accumulate(
-            binned_t.data_ptr(), binned_t.element_size(), vals_t.data_ptr(),
-            vals_t.element_size(), slot.data_ptr(), n, F, K, B,
-            *((0, 0, 0) if quant else scales), out.data_ptr(), chunks,
-            sb, planner.FUSED_ACC_THREADS, _stream(binned_t))
+            binned_t.data_ptr(), binned_t.element_size(),
+            vals_t.element_size(), order.data_ptr(), sv.data_ptr(),
+            meta.data_ptr(), meta.data_ptr() + 4 * (K + 1), n, F, K, B,
+            planner.acc_seg_rows(n), planner.acc_segments(n, K), ft,
+            planner.ACC_THREADS, out.data_ptr(), _stream(binned_t))
     if rc != 0:
         raise RuntimeError(f"accumulate kernel launch failed: CUDA error {rc}")
     _count("fused_frontier_accumulate", quant)

@@ -5,6 +5,10 @@ mappers and EFB layout into the trainer's feature-major [G, n] matrix.
 For a CUDA tensor it launches ``csrc/ingest.cu`` (built by ``_build``)
 or raises; for a CPU tensor it runs ``bin_plain``, the same function in
 plain torch.  ``launch_counts["ingest"]`` counts the kernel's launches.
+The kernel reads its own form of the tables (``kernel_tables``): ragged
+runs of 32-bit words, each feature's own bounds or categorical codes as
+a search tree in BFS order, staged in shared memory in group chunks
+that ``ops/planner.py::ingest_plan`` sizes.
 
 Byte parity with the host oracle (``Dataset._bin_block``: f64
 ``searchsorted`` against f64 upper bounds) rests on the directed-rounded
@@ -196,54 +200,147 @@ def _lib():
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.ingest_bin.argtypes = [
                 p, ll, i,          # X, n, F
-                p, i, p, i,        # bounds, bw, cats, cw
-                p, p, i,           # group_ptr, members, G
-                i, i, p, p]        # out_bytes, tile_rows, out, stream
+                p, p, p, p, i,     # group_ptr, members, words, chunks, nchunks
+                i, i, i, i,        # G, out_bytes, tile_rows, grid_x
+                i, i, p, p]        # threads, smem_bytes, out, stream
             lib.ingest_bin.restype = ctypes.c_int
             _lib_handle = lib
         return _lib_handle
 
 
-def _member_table(tables: IngestTables) -> Tuple[np.ndarray, np.ndarray]:
-    """CSR over groups of the member specs, in ascending used-feature
-    order within each group: (group_ptr [G+1], members [M, 6]) int32."""
+class KernelTables(NamedTuple):
+    """The kernel's ragged tables, host-side: per group (CSR), its member
+    records in ascending used-feature order, each pointing at its own
+    run of ``words``.  A run is a perfect search tree of depth h in BFS
+    (Eytzinger) order, 2^h - 1 entries whose in-order walk is sorted
+    (``eytzinger``): a numerical feature's real bounds (f32 bits, padded
+    with +inf only to 2^h - 1), or a categorical feature's non-negative
+    codes (padded with INT32_MAX) followed by each node's index in the
+    code row (a code below 0 can never match).  Runs follow the member
+    order, so a group's runs are contiguous: ``group_words`` holds their
+    boundaries."""
+
+    group_ptr: np.ndarray    # int32 [G + 1]
+    members: np.ndarray      # int32 [max(M, 1), 6]: column, start, flags,
+    #                          num_bin, word offset, tree depth h
+    words: np.ndarray        # int32 [max(W, 1)]
+    group_words: np.ndarray  # int32 [G + 1]
+
+
+FLAG_CAT, FLAG_NAN_LAST = 1, 2
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+def ragged_bounds(tables: IngestTables, row: int) -> np.ndarray:
+    """A numerical feature's bound row without its +inf padding."""
+    b = tables.bounds[row]
+    keep = np.flatnonzero(~np.isposinf(b))
+    return b[:keep[-1] + 1 if keep.size else 0]
+
+
+def eytzinger(sorted_vals: np.ndarray, pad) -> Tuple[np.ndarray, np.ndarray,
+                                                     int]:
+    """``sorted_vals`` as a perfect search tree of depth h =
+    bit_length(len) in BFS order, padded with ``pad`` to 2^h - 1
+    entries: (tree, each node's rank in the padded sorted run, h).
+    Node i (1-based) sits at [i - 1], its children at 2i and 2i + 1."""
+    L = len(sorted_vals)
+    h = int(L).bit_length()
+    size = (1 << h) - 1
+    padded = np.concatenate([sorted_vals, np.full(size - L, pad,
+                                                  sorted_vals.dtype)])
+    rank = np.empty(size, np.int64)
+    nxt = 0
+    stack, i = [], 1
+    while stack or i <= size:             # in-order walk of the BFS tree
+        while i <= size:
+            stack.append(i)
+            i *= 2
+        i = stack.pop()
+        rank[i - 1] = nxt
+        nxt += 1
+        i = 2 * i + 1
+    return padded[rank], rank, h
+
+
+def kernel_tables(tables: IngestTables) -> KernelTables:
+    """``tables`` as the kernel stages them (see ``KernelTables``)."""
     G = tables.num_groups
     by_group = [[] for _ in range(G)]
     for s in tables.specs:
         by_group[s.group].append(s)
     ptr = np.zeros(G + 1, np.int32)
-    rows = []
+    gw = np.zeros(G + 1, np.int32)
+    rows, runs = [], []
+    off = 0
     for g, members in enumerate(by_group):
         ptr[g + 1] = ptr[g] + len(members)
-        rows.extend([s.column, s.start, int(s.is_cat), s.num_bin, s.row,
-                     int(s.nan_as_last)] for s in members)
+        for s in members:
+            if s.is_cat:
+                codes = tables.cats[s.row]
+                idx = np.nonzero(codes >= 0)[0]
+                idx = idx[np.argsort(codes[idx], kind="stable")]
+                tree, rank, h = eytzinger(codes[idx].astype(np.int32),
+                                          _INT32_MAX)
+                where = np.concatenate([idx, np.full(len(tree) - len(idx),
+                                                     -1)])
+                run = np.concatenate([tree, where[rank]]).astype(np.int32)
+            else:
+                tree, _, h = eytzinger(ragged_bounds(tables, s.row),
+                                       np.float32(np.inf))
+                run = tree.view(np.int32)
+            flags = (FLAG_CAT if s.is_cat else 0) | (
+                FLAG_NAN_LAST if s.nan_as_last else 0)
+            rows.append([s.column, s.start, flags, s.num_bin, off, h])
+            runs.append(run)
+            off += len(run)
+        gw[g + 1] = off
+    if G and not np.all(np.diff(ptr) > 0):
+        raise ValueError("every group needs a member: the kernel stores a "
+                         "group's bins from its members' warps")
     members = np.asarray(rows, np.int32).reshape(-1, 6)
     if members.size == 0:
         members = np.zeros((1, 6), np.int32)
-    return ptr, members
+    words = (np.concatenate(runs).astype(np.int32) if off
+             else np.zeros(1, np.int32))
+    return KernelTables(ptr, members, words, gw)
 
 
-def _bin_cuda(X: torch.Tensor, tables: IngestTables, bounds: torch.Tensor,
-              cats: torch.Tensor, group_ptr: torch.Tensor,
-              members: torch.Tensor) -> torch.Tensor:
+def _bin_cuda(X: torch.Tensor, binner: "DeviceBinner") -> torch.Tensor:
     n, F = X.shape
-    G = tables.num_groups
-    out = torch.empty((G, n), dtype=device_dtype(tables), device=X.device)
+    G = binner.tables.num_groups
+    out = torch.empty((G, n), dtype=device_dtype(binner.tables),
+                      device=X.device)
     if n == 0:
         return out
+    state = binner.kernel_state()
+    plan = state.plan
     lib = _lib()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.ingest_bin(
-            X.data_ptr(), n, F, bounds.data_ptr(), bounds.shape[1],
-            cats.data_ptr(), cats.shape[1], group_ptr.data_ptr(),
-            members.data_ptr(), G, out.element_size(),
-            planner.tile_rows_for(F), out.data_ptr(), stream)
+            X.data_ptr(), n, F, state.group_ptr.data_ptr(),
+            state.members.data_ptr(), state.words.data_ptr(),
+            state.chunks.data_ptr(), len(plan.chunks) - 1, G,
+            out.element_size(), plan.tile_rows,
+            planner.ingest_grid(plan, n), plan.threads,
+            plan.smem_bytes, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ingest kernel launch failed: CUDA error {rc}")
     with _counts_lock:
         launch_counts["ingest"] += 1
     return out
+
+
+class _KernelState(NamedTuple):
+    """What one binner's kernel launches share: the ragged tables and the
+    group chunks on the card, and the launch plan."""
+
+    plan: "planner.IngestPlan"
+    group_ptr: torch.Tensor
+    members: torch.Tensor
+    words: torch.Tensor
+    chunks: torch.Tensor
 
 
 class DeviceBinner:
@@ -252,16 +349,27 @@ class DeviceBinner:
     ``__call__`` returns the FEATURE-MAJOR [G, n] matrix (uint8, or int32
     where a group has more than 256 bins) on the input's device — the
     JAX package's binner returns [n, G]; the port writes the trainer's
-    layout directly."""
+    layout directly.  The kernel's ragged tables and launch plan are
+    made at the first CUDA call (``ops/planner.py ingest_plan``)."""
 
     def __init__(self, tables: IngestTables, device=None):
         self.tables = tables
         dev = torch.device("cpu" if device is None else device)
         self.bounds = torch.from_numpy(tables.bounds).to(dev)
         self.cats = torch.from_numpy(tables.cats).to(dev)
-        ptr, members = _member_table(tables)
-        self.group_ptr = torch.from_numpy(ptr).to(dev)
-        self.members = torch.from_numpy(members).to(dev)
+        self._state: Optional[_KernelState] = None
+
+    def kernel_state(self) -> _KernelState:
+        if self._state is None:
+            kt = kernel_tables(self.tables)
+            plan = planner.ingest_plan(self.tables.num_features,
+                                       kt.group_ptr, kt.group_words)
+            dev = self.bounds.device
+            self._state = _KernelState(
+                plan, *(torch.from_numpy(a).to(dev) for a in (
+                    kt.group_ptr, kt.members, kt.words,
+                    np.asarray(plan.chunks, np.int32))))
+        return self._state
 
     def plain(self, X: torch.Tensor) -> torch.Tensor:
         return bin_plain(X, self.tables, self.bounds, self.cats)
@@ -282,5 +390,4 @@ class DeviceBinner:
             return self.plain(X)
         if X.device.type != "cuda":
             raise ValueError(f"no binning kernel for device {X.device}")
-        return _bin_cuda(X, self.tables, self.bounds, self.cats,
-                         self.group_ptr, self.members)
+        return _bin_cuda(X, self)

@@ -1,5 +1,5 @@
 """Kernel sizing (counterpart of the parts of ``lightgbm_tpu/ops/planner.py``
-that the predict path and the fused training path read).
+that the predict path and the training kernels read).
 
 The JAX planner elects a predict chunk and a row tile from a VMEM model
 of the TPU core, and pads each chunk to a ladder rung (``bucket_rows``)
@@ -14,26 +14,49 @@ both sizes here:
   thread per row), staged in shared memory as a ``[rows, F]`` f32 tile.
   128 rows of 28 features are 14 KiB; wider feature counts shrink the
   tile (``tile_rows_for``) so the tile stays inside the 48 KiB a block
-  gets without opting in, then opt into the larger dynamic limit.  The
-  binning kernel (``csrc/ingest.cu``) stages its row tiles the same way.
+  gets without opting in, then opt into the larger dynamic limit.
 
-The fused histogram kernels (``csrc/fused.cu``) take fixed tiles; the
-JAX planner's ``plan_fused`` VMEM model does not apply:
+The accumulate kernel B4 (``csrc/fused.cu``) runs over the rows sorted
+by slot; the JAX planner's ``plan_fused`` VMEM model does not apply:
 
-- ``FUSED_SLOTS_PER_BLOCK``: slots whose [slots, 3, B] int64 arena one
-  accumulate block holds in shared memory: 16 x 3 x 256 x 8 bytes = 96
-  KiB at 256 bins, two blocks per SM.  Fewer for wider bin axes.  The
-  int8 mode's [slots, 2, B] int32 arena takes
-  ``FUSED_SLOTS_PER_BLOCK_INT8`` = 32 slots in 64 KiB at 256 bins.
-- ``FUSED_ACC_THREADS``: threads per accumulate block (rows in flight).
-- ``FUSED_TARGET_BLOCKS``: accumulate blocks to aim for (about four per
-  SM of the 132); the row axis is cut into as many chunks as that needs
-  over features x slot blocks, with at least ``FUSED_MIN_CHUNK_ROWS``
-  rows a chunk, since every chunk flushes its whole arena.
+- The sort: a block of 32 warps counts, and later scatters,
+  ``SORT_BLOCK_ROWS`` = 8,192 consecutive rows (256 a warp, fixed in
+  ``csrc/fused.cu``, which refuses a block count other than
+  ``sort_blocks``); one block scans the (K + 1) x ``sort_blocks``
+  per-(key, block) counts.
+- The accumulate's feature tile (``acc_feat_tile``): features whose
+  [Ft, C, B] arena of one slot one block holds in shared memory (two
+  uint32 words a cell in f32 mode, the hi/lo halves; one in int8 mode),
+  at most ``ACC_MAX_FEAT_TILE`` and ``ACC_ARENA_BYTES``, balanced over
+  the tiles: 7 features (42 KiB f32, 14 KiB int8) at 28 features and
+  255 bins; 2 (f32) at 1023 bins.
+- The accumulate's segments (``acc_seg_rows``): a block takes at most S
+  sorted rows of one slot, S about n / ``ACC_TARGET_SEGS`` (at least
+  ``ACC_MIN_SEG_ROWS``), so a launch has at most ceil(n / S) + K
+  segments (``acc_segments``, the grid's x axis the wrapper launches;
+  blocks past the device-side total exit).  At 1 M rows S = 4,096: a
+  root (K = 1) is 245 segments, and a frontier slot of under 4,096 rows
+  is one segment that stores its arena without atomics.
+- ``ACC_THREADS``: threads per accumulate block (rows in flight).
 - ``FUSED_SCAN_MAX_BINS``: the scan kernel runs one thread per bin.
 
+The binning kernel B3 (``csrc/ingest.cu``) stages its tables once per
+persistent block (``ingest_plan``): the member records and ragged
+bound/code words of a chunk of groups, at most ``INGEST_TABLE_BYTES``
+(and what the card's per-block maximum leaves beside the smallest X
+tile); more groups are cut into several chunks (the grid's y axis).
+Its X tile is the largest of ``INGEST_TILE_ROWS`` whose column-major
+[F, rows + 4] f32 tile and tables fit ``INGEST_SMEM_TARGET``, else 32
+rows (a warp bins a tile's rows, rows / 32 a lane); ``ingest_grid``
+launches as many blocks as the card holds at once (``SM_COUNT`` x
+blocks per SM by shared memory and registers), each walking row tiles;
+a block's warps split the chunk's members evenly, 8 warps where two
+blocks fit an SM, else 16 (``INGEST_THREADS``).  The smallest tile,
+144 F + 4,096 bytes, caps a binner at about 1,580 features, less its
+largest group's tables.
+
 The whole-dataset histogram kernel (``csrc/histogram.cu``, B6) takes
-fixed tiles too; the JAX kernel's (feat_tile, block_rows) VMEM grid
+fixed tiles; the JAX kernel's (feat_tile, block_rows) VMEM grid
 does not apply:
 
 - ``HIST_FEAT_TILE``: features whose [features, 3, B] int64 arena one
@@ -41,12 +64,15 @@ does not apply:
   bins, inside the default limit.  Wider bin axes shrink the tile
   (``hist_feat_tile``).
 - ``HIST_THREADS``: threads per block (rows in flight).
-- The row axis is cut as the accumulate kernel's is
-  (``hist_row_chunks``): about four blocks per SM over the feature
-  tiles, at least ``FUSED_MIN_CHUNK_ROWS`` rows a chunk.
+- The row axis is cut into chunks (``hist_row_chunks``): about
+  ``HIST_TARGET_BLOCKS`` blocks (four per SM) over the feature tiles,
+  at least ``HIST_MIN_CHUNK_ROWS`` rows a chunk, since every chunk
+  flushes its whole arena.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 PREDICT_CHUNK_ROWS = 1 << 16
 TILE_ROWS = 128
@@ -71,36 +97,60 @@ def tile_rows_for(num_features: int) -> int:
         f"shared-memory row tile ({SMEM_MAX_BYTES} bytes per block)")
 
 
-FUSED_SLOTS_PER_BLOCK = 16
-FUSED_SLOTS_PER_BLOCK_INT8 = 32
-FUSED_ACC_THREADS = 512
-FUSED_TARGET_BLOCKS = 4 * 132
-FUSED_MIN_CHUNK_ROWS = 4096
 FUSED_SCAN_MAX_BINS = 1024
+SORT_BLOCK_ROWS = 8192
+ACC_THREADS = 512
+ACC_MAX_FEAT_TILE = 8
+ACC_ARENA_BYTES = 64 * 1024
+ACC_TARGET_SEGS = 256
+ACC_MIN_SEG_ROWS = 2048
+ACC_SEG_ROWS_STEP = 512
 
 
-def fused_slots_per_block(num_bins: int, quant: bool = False) -> int:
-    """Slots per accumulate block for a ``num_bins`` bin axis: a [slots,
-    3, B] int64 arena, or in the int8 mode a [slots, 2, B] int32 one."""
-    per_slot = (2 * 4 if quant else 3 * 8) * max(int(num_bins), 1)
-    cap = FUSED_SLOTS_PER_BLOCK_INT8 if quant else FUSED_SLOTS_PER_BLOCK
-    sb = min(cap, SMEM_MAX_BYTES // per_slot)
-    if sb < 1:
+def sort_blocks(rows: int) -> int:
+    """Blocks of one sort: the counts scratch holds (K + 1) x this many
+    int32."""
+    return -(-max(int(rows), 1) // SORT_BLOCK_ROWS)
+
+
+def acc_seg_rows(rows: int) -> int:
+    """Most sorted rows of one slot that one accumulate block takes."""
+    want = -(-max(int(rows), 1) // ACC_TARGET_SEGS)
+    want = -(-want // ACC_SEG_ROWS_STEP) * ACC_SEG_ROWS_STEP
+    return max(ACC_MIN_SEG_ROWS, want)
+
+
+def acc_segments(rows: int, num_slots: int) -> int:
+    """The accumulate grid's x axis: a bound on the segments of any slot
+    layout, ceil(n / S) + K (each slot's last segment may be short)."""
+    return -(-max(int(rows), 1) // acc_seg_rows(rows)) + int(num_slots)
+
+
+def acc_arena_bytes(feat_tile: int, num_bins: int, quant: bool) -> int:
+    """Shared memory of one accumulate block: [Ft, C, B] cells of one
+    uint32 (int8 mode, C = 2) or two (f32 mode's hi/lo halves, C = 3)."""
+    return int(feat_tile) * (2 * 4 if quant else 3 * 8) * max(int(num_bins), 1)
+
+
+def acc_feat_tile(num_features: int, num_bins: int, quant: bool = False
+                  ) -> int:
+    """Features per accumulate block: as many as ``ACC_MAX_FEAT_TILE``
+    and ``ACC_ARENA_BYTES`` allow, balanced over the tiles.  Raises when
+    one feature's arena exceeds the card's per-block maximum."""
+    per = acc_arena_bytes(1, num_bins, quant)
+    if per > SMEM_MAX_BYTES:
         raise ValueError(f"{num_bins} bins do not fit the accumulate "
                          f"kernel's shared-memory arena")
-    return sb
-
-
-def fused_row_chunks(rows: int, num_features: int, slot_blocks: int) -> int:
-    """Row chunks of one accumulate launch (grid axis x)."""
-    per_chunk = max(int(num_features) * int(slot_blocks), 1)
-    want = -(-FUSED_TARGET_BLOCKS // per_chunk)
-    most = max(int(rows) // FUSED_MIN_CHUNK_ROWS, 1)
-    return max(1, min(want, most))
+    most = max(1, min(ACC_MAX_FEAT_TILE, ACC_ARENA_BYTES // per))
+    F = max(int(num_features), 1)
+    tiles = -(-F // most)
+    return -(-F // tiles)
 
 
 HIST_FEAT_TILE = 8
 HIST_THREADS = 512
+HIST_TARGET_BLOCKS = 4 * 132
+HIST_MIN_CHUNK_ROWS = 4096
 
 
 def hist_feat_tile(num_bins: int) -> int:
@@ -116,4 +166,101 @@ def hist_feat_tile(num_bins: int) -> int:
 
 def hist_row_chunks(rows: int, num_features: int, feat_tile: int) -> int:
     """Row chunks of one histogram launch (grid axis x)."""
-    return fused_row_chunks(rows, -(-int(num_features) // int(feat_tile)), 1)
+    per_chunk = -(-int(num_features) // int(feat_tile))
+    want = -(-HIST_TARGET_BLOCKS // max(per_chunk, 1))
+    most = max(int(rows) // HIST_MIN_CHUNK_ROWS, 1)
+    return max(1, min(want, most))
+
+
+SM_COUNT = 132
+SMEM_PER_SM_BYTES = 228 * 1024
+# threads a block: the fewer while two blocks fit an SM's shared memory,
+# else the more, to split a wide chunk's members over more warps (H100:
+# 1 M x 28 in 0.152 ms at 256 against 0.164 at 512; 1 M x 674, one block
+# an SM, 3.22 ms at 512 against 4.83 at 256)
+INGEST_THREADS = (256, 512)
+# threads an SM holds within the kernel's registers (its
+# __launch_bounds__(512, 2): at most 64 a thread)
+INGEST_SM_THREADS = 1024
+INGEST_TILE_ROWS = (128, 64, 32)
+INGEST_SMEM_TARGET = 100 * 1024
+INGEST_TABLE_BYTES = 96 * 1024
+_MEMBER_INTS = 6
+
+
+class IngestPlan(NamedTuple):
+    """One binner's launch shape: rows per X tile, the group chunks as
+    (group, member, word) boundaries (nchunks + 1 triples), the dynamic
+    shared memory of a block, and its threads."""
+
+    tile_rows: int
+    chunks: Tuple[Tuple[int, int, int], ...]
+    smem_bytes: int
+    threads: int
+
+
+def _ingest_tile_bytes(num_features: int, tile_rows: int,
+                       threads: int) -> int:
+    """The column-major [F, rows + 4] f32 X tile and the warps' partial
+    bins of the groups they share, [warps, 2, rows] int32."""
+    return 4 * (int(num_features) * (tile_rows + 4)
+                + 2 * (threads // 32) * tile_rows)
+
+
+def _ingest_blocks_per_sm(smem_bytes: int, threads: int) -> int:
+    return max(1, min(INGEST_SM_THREADS // threads,
+                      SMEM_PER_SM_BYTES // (smem_bytes + 1024)))
+
+
+def ingest_plan(num_features: int, group_ptr, group_words) -> IngestPlan:
+    """Cut the groups into chunks whose tables (member records, group
+    pointers, words) fit beside an X tile, and pick the tile and the
+    block's threads.  ``group_ptr`` [G + 1] are the member boundaries of
+    the groups, ``group_words`` [G + 1] their word boundaries.  Raises
+    where even one group beside the smallest tile exceeds the per-block
+    maximum."""
+    gp = [int(x) for x in group_ptr]
+    gw = [int(x) for x in group_words]
+    G = len(gp) - 1
+    small = _ingest_tile_bytes(num_features, INGEST_TILE_ROWS[-1],
+                               INGEST_THREADS[-1])
+    budget = min(INGEST_TABLE_BYTES, SMEM_MAX_BYTES - small)
+
+    def table_bytes(a: int, b: int) -> int:
+        return 4 * (_MEMBER_INTS * (gp[b] - gp[a]) + (b - a + 1)
+                    + (gw[b] - gw[a]))
+
+    chunks = [(0, gp[0], gw[0])]
+    first = 0
+    for g in range(G):
+        if table_bytes(g, g + 1) > budget:
+            raise ValueError(
+                f"group {g}'s binning tables ({table_bytes(g, g + 1)} "
+                f"bytes) do not fit the kernel's shared memory beside a "
+                f"{num_features}-feature row tile")
+        if table_bytes(first, g + 1) > budget:
+            chunks.append((g, gp[g], gw[g]))
+            first = g
+    chunks.append((G, gp[G], gw[G]))
+    tables = max([table_bytes(a[0], b[0]) for a, b in zip(chunks, chunks[1:])]
+                 + [4])
+    for threads in INGEST_THREADS:
+        for rows in INGEST_TILE_ROWS:
+            smem = _ingest_tile_bytes(num_features, rows, threads) + tables
+            if smem <= INGEST_SMEM_TARGET:
+                break
+        if _ingest_blocks_per_sm(smem, threads) >= 2:
+            break
+    if smem > SMEM_MAX_BYTES:
+        raise ValueError(f"{num_features} features do not fit the binning "
+                         f"kernel's shared-memory row tile")
+    return IngestPlan(rows, tuple(chunks), smem, threads)
+
+
+def ingest_grid(plan: IngestPlan, rows: int) -> int:
+    """Persistent blocks per chunk: as many as the card holds at once
+    (by shared memory and registers), at most one per row tile."""
+    per_sm = _ingest_blocks_per_sm(plan.smem_bytes, plan.threads)
+    chunks = len(plan.chunks) - 1
+    tiles = -(-int(rows) // plan.tile_rows)
+    return max(1, min(tiles, SM_COUNT * per_sm // max(chunks, 1)))

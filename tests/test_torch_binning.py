@@ -188,3 +188,250 @@ def test_binner_refuses_bad_input():
 def test_dataset_refuses_input_it_does_not_bin():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.Dataset("train.csv", device="cpu").construct()
+
+
+# ----------------------------------------------------------------------
+# the kernel's own tables (ragged, staged in shared memory) and its
+# launch plan; the kernel runs only on the card, where chip_smoke.py holds
+# it against _bin_block byte for byte
+# ----------------------------------------------------------------------
+
+def _tables(params, categorical=True, bundle=True):
+    X = _matrix()
+    if categorical:
+        X[:, 5] = np.floor(np.abs(X[:, 5]))
+        params = dict(params, categorical_feature=[5])
+    params = dict(params, enable_bundle=bundle)
+    _, t = _pair(X, params)
+    return X, t, ting.build_ingest_tables(t)
+
+
+def _descend(tree, h, x, less):
+    """The kernel's descent of a BFS-order search tree: the leaf reached
+    (i - 2^h is the count of entries ``less`` than x) and the last node
+    left to the left (0 if none)."""
+    i = np.ones(len(x), np.int64)
+    cand = np.zeros(len(x), np.int64)
+    for _ in range(h):
+        go = less(tree[i - 1], x)
+        cand = np.where(go, cand, i)
+        i = 2 * i + go
+    return i, cand
+
+
+def _member_bins(X, kt, m):
+    """Member m's bins by the kernel's lookups over the ragged tables,
+    in numpy: descents of its feature's search tree."""
+    column, start, flags, nb, off, h = kt.members[m]
+    size = (1 << h) - 1
+    v = X[:, column]
+    nan = np.isnan(v)
+    if flags & ting.FLAG_CAT:
+        codes = kt.words[off:off + size]
+        where = kt.words[off + size:off + 2 * size]
+        miss = nan | (np.abs(v) >= 2.0 ** 31)
+        iv = np.where(miss, -1, np.trunc(np.where(miss, 0, v)))
+        _, cand = _descend(codes, h, iv, np.less)
+        hit = (iv >= 0) & (cand > 0)
+        hit &= codes[np.maximum(cand, 1) - 1] == iv
+        b = np.where(hit, where[np.maximum(cand, 1) - 1], nb - 1)
+    else:
+        tree = kt.words[off:off + size].view(np.float32)
+        leaf, _ = _descend(tree, h, np.where(nan, 0, v)
+                           .astype(np.float32), np.less)
+        b = leaf - (1 << h)
+        if flags & ting.FLAG_NAN_LAST:
+            b = np.where(nan, nb - 1, b)
+    return b
+
+
+def _kernel_model(X, kt, G):
+    """The kernel's lookups, then the EFB fold in member order."""
+    out = np.zeros((G, len(X)), np.int64)
+    for g in range(G):
+        for m in range(kt.group_ptr[g], kt.group_ptr[g + 1]):
+            b = _member_bins(X, kt, m)
+            out[g] = np.where(b != 0, kt.members[m, 1] + b - 1, out[g])
+    return out
+
+
+def _warp_split_model(X, kt, G, warps):
+    """The kernel's split of a chunk's members over its warps, in numpy:
+    warp w folds members [w M / W, (w + 1) M / W); a group wholly inside
+    is stored, a shared one leaves partials (-1: no non-zero bin) in
+    slot 0 (the group the warp starts in) or 1 (the group it ends in),
+    which the warp where the group starts folds in warp order."""
+    gp = kt.group_ptr.astype(np.int64)
+    M = int(gp[-1])
+    out = np.full((G, len(X)), -7, np.int64)
+    part = np.full((warps, 2, len(X)), -9, np.int64)
+    span = [(w * M // warps, (w + 1) * M // warps) for w in range(warps)]
+
+    def group_of(m):
+        return int(np.searchsorted(gp, m, side="right") - 1)
+
+    for w, (mb, me) in enumerate(span):
+        m, g = mb, (group_of(mb) if mb < me else 0)
+        while m < me:
+            end = min(gp[g + 1], me)
+            col = np.full(len(X), -1, np.int64)
+            for k in range(m, end):
+                b = _member_bins(X, kt, k)
+                col = np.where(b != 0, kt.members[k, 1] + b - 1, col)
+            m = end
+            head, tail = gp[g] < mb, gp[g + 1] > me
+            if head:
+                part[w, 0] = col
+            if tail:
+                part[w, 1] = col
+            if not (head or tail):
+                out[g] = np.maximum(col, 0)
+            g += 1
+    for w, (mb, me) in enumerate(span):
+        if mb == me:
+            continue
+        g = group_of(me - 1)
+        if not (gp[g] >= mb and gp[g + 1] > me):
+            continue
+        w_end = (int(gp[g + 1]) * warps + M - 1) // M - 1
+        col = np.zeros(len(X), np.int64)
+        for v in range(w, w_end + 1):
+            if span[v][0] == span[v][1]:
+                continue
+            p = part[v, 1 if v == w else 0]
+            col = np.where(p >= 0, p, col)
+        out[g] = col
+    return out
+
+
+def _in_order(tree):
+    """A BFS-order tree's entries in in-order (sorted) order."""
+    order, stack, i = [], [], 1
+    while stack or i <= len(tree):
+        while i <= len(tree):
+            stack.append(i)
+            i *= 2
+        i = stack.pop()
+        order.append(i - 1)
+        i = 2 * i + 1
+    return np.asarray(tree)[order]
+
+
+@pytest.mark.parametrize("params", [{"max_bin": 63},
+                                    {"max_bin": 15, "zero_as_missing": True},
+                                    {"max_bin": 255}])
+def test_ragged_tables_give_back_every_feature(params):
+    X, t, tables = _tables(params)
+    kt = ting.kernel_tables(tables)
+    assert kt.group_ptr[-1] == len(tables.specs)
+    by_group = sorted(range(len(tables.specs)),
+                      key=lambda i: (tables.specs[i].group, i))
+    for rec, i in zip(kt.members, by_group):
+        s = tables.specs[i]
+        column, start, flags, nb, off, h = rec
+        size = (1 << h) - 1
+        assert (column, start, nb) == (s.column, s.start, s.num_bin)
+        assert bool(flags & ting.FLAG_CAT) == s.is_cat
+        assert bool(flags & ting.FLAG_NAN_LAST) == s.nan_as_last
+        if s.is_cat:
+            row = tables.cats[s.row]
+            real = int((row >= 0).sum())
+            assert h == real.bit_length()
+            codes = _in_order(kt.words[off:off + size])
+            where = _in_order(kt.words[off + size:off + 2 * size])
+            assert np.all(np.diff(codes[:real]) > 0)
+            assert (codes[real:] == np.iinfo(np.int32).max).all()
+            assert np.array_equal(row[where[:real]], codes[:real])
+            assert set(where[:real]) == set(np.nonzero(row >= 0)[0])
+        else:
+            bounds = ting.ragged_bounds(tables, s.row)
+            row = tables.bounds[s.row]
+            assert np.isposinf(row[len(bounds):]).all()
+            assert h == len(bounds).bit_length()
+            got = _in_order(kt.words[off:off + size].view(np.float32))
+            assert np.array_equal(got[:len(bounds)], bounds)
+            assert np.isposinf(got[len(bounds):]).all()
+    groups = [s.group for s in tables.specs]
+    for g in range(tables.num_groups):
+        a, b = kt.group_ptr[g], kt.group_ptr[g + 1]
+        assert b - a == groups.count(g)
+        if b > a:
+            last = kt.members[b - 1]
+            width = ((1 << last[5]) - 1) * (2 if last[2] & ting.FLAG_CAT
+                                            else 1)
+            assert kt.group_words[g] == kt.members[a, 4]
+            assert kt.group_words[g + 1] == last[4] + width
+    rows = np.concatenate([ting.salt_rows(X.shape[1], X),
+                           _matrix(seed=7, n=700)]).astype(np.float32)
+    rows[-50:, 5] = np.array([-3.0, 1e9, 7.7, -0.5, 2 ** 31] * 10,
+                             np.float32)
+    plain = ting.DeviceBinner(tables, "cpu")(torch.from_numpy(rows))
+    assert np.array_equal(_kernel_model(rows, kt, tables.num_groups),
+                          plain.numpy())
+
+
+@pytest.mark.parametrize("warps", [1, 3, 16, 200])
+def test_warps_split_groups_by_members(warps):
+    """The kernel's even split of a chunk's members over its warps, with
+    the partials of shared groups folded in warp order, gives the EFB
+    fold's bins: on the one-hot airline table (groups of 1 to ~230
+    members) and rows that set many members of a group at once, with
+    more warps than members too."""
+    from lightgbm_tpu_torch.testing import airline_like, one_hot
+    X8, y = airline_like(3000, seed=5)
+    X = one_hot(X8)
+    ds = lt.Dataset(X, label=y, device="cpu").construct()
+    tables = ting.build_ingest_tables(ds)
+    kt = ting.kernel_tables(tables)
+    assert np.diff(kt.group_ptr).max() > 16      # a group spans warps
+    # rows where many members of a bundle are non-zero at once: the
+    # fold keeps the last, so the partials' order decides the bin
+    clash = (np.random.RandomState(warps).rand(200, X.shape[1]) < 0.3)
+    rows = np.concatenate([X[:300], clash.astype(np.float32),
+                           np.ones((2, X.shape[1]), np.float32)])
+    want = ting.DeviceBinner(tables, "cpu")(torch.from_numpy(rows)).numpy()
+    got = _warp_split_model(rows, kt, tables.num_groups, warps)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("budget", [None, 2048, 700])
+def test_ingest_plan_chunks_fit_and_cover(budget, monkeypatch):
+    from lightgbm_tpu_torch.ops import planner
+    _, _, tables = _tables({"max_bin": 63}, bundle=False)
+    kt = ting.kernel_tables(tables)
+    if budget is not None:
+        monkeypatch.setattr(planner, "INGEST_TABLE_BYTES", budget)
+    plan = planner.ingest_plan(tables.num_features, kt.group_ptr,
+                               kt.group_words)
+    G = tables.num_groups
+    ch = np.asarray(plan.chunks)
+    assert tuple(ch[0]) == (0, 0, 0)
+    assert tuple(ch[-1]) == (G, kt.group_ptr[G], kt.group_words[G])
+    assert np.all(np.diff(ch[:, 0]) > 0)
+    assert plan.tile_rows in planner.INGEST_TILE_ROWS
+    assert plan.threads in planner.INGEST_THREADS
+    assert plan.smem_bytes <= planner.SMEM_MAX_BYTES
+    for a, b in zip(ch, ch[1:]):
+        assert tuple(a[1:]) == (kt.group_ptr[a[0]], kt.group_words[a[0]])
+        tables_bytes = 4 * (6 * (b[1] - a[1]) + (b[0] - a[0] + 1)
+                            + (b[2] - a[2]))
+        assert tables_bytes <= planner.INGEST_TABLE_BYTES
+        assert (planner._ingest_tile_bytes(tables.num_features,
+                                           plan.tile_rows, plan.threads)
+                + tables_bytes <= plan.smem_bytes)
+    if budget == 700:
+        assert len(ch) - 1 > 1
+    grid = planner.ingest_grid(plan, 1_000_000)
+    assert 1 <= grid <= planner.SM_COUNT * 8
+    assert planner.ingest_grid(plan, 5) == 1
+    with pytest.raises(ValueError):
+        monkeypatch.setattr(planner, "INGEST_TABLE_BYTES", 16)
+        planner.ingest_plan(tables.num_features, kt.group_ptr,
+                            kt.group_words)
+
+
+def test_ingest_plan_refuses_rows_too_wide():
+    from lightgbm_tpu_torch.ops import planner
+    with pytest.raises(ValueError):
+        planner.ingest_plan(100_000, np.zeros(2, np.int32),
+                            np.zeros(2, np.int32))

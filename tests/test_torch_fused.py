@@ -37,6 +37,7 @@ from lightgbm_tpu.ops import fused as JFU
 from lightgbm_tpu.ops.split import SplitHyperparams as JHP
 
 from lightgbm_tpu_torch.ops import fused as TFU
+from lightgbm_tpu_torch.ops import planner
 from lightgbm_tpu_torch.ops.histogram import (_vals_t, accumulate_plain,
                                               fixed_point_scales, to_fixed)
 from lightgbm_tpu_torch.ops.split import SplitHyperparams as THP
@@ -306,8 +307,15 @@ def test_counts_rise_only_where_a_kernel_launches(monkeypatch):
     scan launch that completes its pair; with the launchers replaced by
     their plain versions no count rises.  (The CUDA library is faked,
     so the test needs no card.)"""
+    calls = {}
+
     class Lib:
+        def fused_slot_order(self, *args):
+            calls["sort"] = args
+            return 0
+
         def fused_accumulate(self, *args):
+            calls["accumulate"] = args
             return 0
 
         def fused_scan(self, *args):
@@ -336,13 +344,23 @@ def test_counts_rise_only_where_a_kernel_launches(monkeypatch):
     assert TFU.launch_counts == {"fused_frontier_splits": 1,
                                  "fused_frontier_accumulate": 1,
                                  "fused_sibling_scan": 1,
+                                 "fused_slot_order": 1,
                                  "fused_frontier_splits_int8": 0,
                                  "fused_frontier_accumulate_int8": 0,
-                                 "fused_sibling_scan_int8": 0}
+                                 "fused_sibling_scan_int8": 0,
+                                 "fused_slot_order_int8": 0}
     TFU.sibling_scan(seg, scales, csums, *_meta_t(), THP(**HP),
                      small_left=sl, parent=parent)
     assert TFU.launch_counts["fused_sibling_scan"] == 2
     assert TFU.launch_counts["fused_frontier_splits"] == 1
+    # the grids launched are the planner's: sort blocks, segments
+    n = ts.shape[0]
+    assert calls["sort"][3] == planner.sort_blocks(n)
+    assert calls["accumulate"][11:13] == (planner.acc_seg_rows(n),
+                                          planner.acc_segments(n, K))
+    TFU._slot_order_cuda(ts, K, tv, scales)   # counts under its own key
+    assert TFU.launch_counts["fused_slot_order"] == 2
+    assert TFU.launch_counts["fused_frontier_accumulate"] == 1
     monkeypatch.setattr(TFU, "_accumulate_cuda", TFU.accumulate_plain)
     monkeypatch.setattr(TFU, "_scan_cuda", lambda *args, pair=False, **kw:
                         TFU.scan_plain(*args, **kw))
@@ -513,3 +531,133 @@ def test_quantized_scan_needs_scales():
                                  torch.from_numpy(vq), torch.from_numpy(slot),
                                  K, B, torch.ones((3, K)), *_meta_t(),
                                  THP(**HP))
+
+
+# ----------------------------------------------------------------------
+# B4's redesign: the sort by slot, the hi/lo split of the f32 arena, and
+# the planner's tiles.  Each holds a plain model of what the kernels do
+# (they run only on the card, where chip_smoke.py holds them against
+# accumulate_plain and slot_order_plain bit for bit).
+# ----------------------------------------------------------------------
+
+SORT_CASES = {
+    "random": (5000, 7, 0.6),
+    "root": (3000, 1, 1.0),
+    "all_dropped": (2000, 5, 0.0),
+    "empty_slots": (4000, 9, 0.8),
+    "many_slots": (6000, 128, 0.5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_slot_order_plain_is_a_stable_sort(case):
+    n, K, frac = SORT_CASES[case]
+    rng = np.random.RandomState(len(case))
+    slot = np.where(rng.rand(n) < frac, rng.randint(0, K, n),
+                    rng.choice([K, K + 4, -1], n)).astype(np.int32)
+    if case == "empty_slots":
+        slot[np.isin(slot, [0, 3, 8])] = K
+    key = np.where((slot >= 0) & (slot < K), slot, K)
+    order, offsets = TFU.slot_order_plain(torch.from_numpy(slot), K)
+    assert order.dtype == torch.int32 and offsets.dtype == torch.int32
+    assert np.array_equal(order.numpy(), np.argsort(key, kind="stable"))
+    want = np.concatenate([[0], np.cumsum(np.bincount(key,
+                                                      minlength=K + 1)[:K])])
+    assert np.array_equal(offsets.numpy(), want)
+    # the values laid out beside the order: each slotted row's fixed-
+    # point values (f32 mode) or levels (int8 mode) at its sorted position
+    v = rng.randn(3, n).astype(np.float32)
+    scales = fixed_point_scales(torch.from_numpy(v))
+    q = to_fixed(torch.from_numpy(v), scales, 0).numpy()
+    m = int(offsets[-1])
+    rows = np.argsort(key, kind="stable")[:m]
+    sv = TFU.sorted_values_plain(torch.from_numpy(v), order, offsets, scales)
+    assert sv.dtype == torch.int64 and np.array_equal(sv.numpy(), q[:, rows].T)
+    lv = rng.randint(-31, 32, (2, n)).astype(np.int8)
+    sl = TFU.sorted_values_plain(torch.from_numpy(lv), order, offsets)
+    assert sl.dtype == torch.int8 and np.array_equal(sl.numpy(), lv[:, rows].T)
+
+
+def _split_sum(q: np.ndarray) -> np.int64:
+    """The f32 arena's arithmetic on one cell: each int64 value split as
+    hi * 2^32 + lo, lo added into a uint32 cell whose old value tells
+    whether the add wrapped, hi + carry into a second uint32 cell, and
+    the two recombined mod 2^64 at the flush."""
+    u = q.view(np.uint64)
+    lo = u & np.uint64(0xffffffff)
+    hi = u >> np.uint64(32)                      # the arithmetic shift's bits
+    old = (np.cumsum(lo) - lo) & np.uint64(0xffffffff)
+    carry = ((old + lo) >> np.uint64(32)).astype(np.uint64)
+    hi_acc = (hi + carry).sum() & np.uint64(0xffffffff)
+    lo_acc = lo.sum() & np.uint64(0xffffffff)
+    with np.errstate(over="ignore"):
+        return np.array([(hi_acc << np.uint64(32)) + lo_acc],
+                        np.uint64).view(np.int64)[0]
+
+
+@pytest.mark.parametrize("kind", ["random", "negative", "near_limit",
+                                  "tiny"])
+def test_hi_lo_split_sums_are_the_int64_sums(kind):
+    rng = np.random.RandomState(3)
+    n = 4096
+    if kind == "random":
+        v = rng.randn(3, n) * [[3.0], [0.2], [1.0]]
+    elif kind == "negative":
+        v = -np.abs(rng.randn(3, n)) - 1e-3
+    elif kind == "near_limit":
+        # every value at the channel's maximum: sums reach 2^62 - O(2^s)
+        v = np.sign(rng.randn(3, n)) * 7.5
+        v[:, : n // 2] = 7.5
+    else:
+        v = rng.randn(3, n) * 1e-30
+    vals = torch.from_numpy(v.astype(np.float32))
+    scales = fixed_point_scales(vals)
+    q = to_fixed(vals, scales, 0).numpy()
+    cells = rng.randint(0, 5, n)                 # five arena cells a channel
+    for c in range(3):
+        for cell in range(5):
+            qc = q[c, cells == cell]
+            want = int(torch.from_numpy(qc).sum())
+            assert _split_sum(qc) == want
+            assert _split_sum(qc[::-1].copy()) == want   # any add order
+    if kind == "near_limit":
+        assert abs(int(torch.from_numpy(q[0, : n // 2]).sum())) > 2 ** 60
+
+
+@pytest.mark.parametrize("F,B,quant", [(28, 255, False), (28, 255, True),
+                                       (28, 1023, False), (28, 1023, True),
+                                       (1, 255, False), (674, 256, False),
+                                       (9, 4096, True)])
+def test_accumulate_tiles_fit_the_card(F, B, quant):
+    ft = planner.acc_feat_tile(F, B, quant)
+    assert 1 <= ft <= min(F, planner.ACC_MAX_FEAT_TILE)
+    arena = planner.acc_arena_bytes(ft, B, quant)
+    assert arena <= planner.SMEM_MAX_BYTES
+    if planner.acc_arena_bytes(1, B, quant) <= planner.ACC_ARENA_BYTES:
+        assert arena <= planner.ACC_ARENA_BYTES
+    tiles = -(-F // ft)
+    assert (tiles - 1) * ft < F <= tiles * ft    # balanced, no empty tile
+    with pytest.raises(ValueError):
+        planner.acc_feat_tile(F, 10 ** 5, quant)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096, 4097, 1_000_000, 10_000_037])
+def test_accumulate_segments_cover_every_slot_layout(n):
+    """The grid's ceil(n / S) + K segments cover any split of the slotted
+    rows over K slots: one slot holding every row, every slot one row
+    (or S + 1 rows), random sizes; and the sort scratch covers its
+    blocks."""
+    S = planner.acc_seg_rows(n)
+    assert S % 32 == 0 and S >= planner.ACC_MIN_SEG_ROWS
+    rng = np.random.RandomState(n % 1000)
+    for K in (1, 7, 128):
+        layouts = [np.array([n] + [0] * (K - 1)),
+                   np.minimum(1, np.maximum(n - np.arange(K), 0)),
+                   np.bincount(rng.randint(0, K, n), minlength=K)]
+        if n >= K * (S + 1):
+            layouts.append(np.full(K, S + 1))
+        for m in layouts:
+            assert m.sum() <= n
+            need = int(np.sum(-(-m // S)))
+            assert need <= planner.acc_segments(n, K)
+        assert planner.sort_blocks(n) * planner.SORT_BLOCK_ROWS >= n
