@@ -20,6 +20,9 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   match the host's;
 - ``ingest``/``hist``: holds B3, B4, B2 and B5 against their plain
   versions at the training run's shapes, bit for bit, and times them;
+  B5 also in its monotone + bounds mode (parent mode) and its
+  random-threshold mode (leaf mode), and, in ``quant_hist``, its int8
+  monotone + bounds mode;
 - ``wide_bins``: a short run at ``max_bin=1023`` (int32 binned matrix,
   1023-bin scans) against its plain-version twin;
 - ``efb_train``: the airline table one-hot encoded (1,000,000 x 674 f32,
@@ -28,6 +31,9 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   histograms, the int64 expansion and B5 in leaf mode; then
   ``Booster.predict`` through B1 against B1's plain version;
 - ``hist6``: B6 against its plain version on that group matrix, timed;
+- ``onehot_scan``: B5 in leaf mode at that table's widest shape (256
+  children of [3, F, 255] expanded histograms), against its plain
+  version, timed;
 - ``cat_train``: the same table with six native categorical features on
   the fused arm with the categorical merge, and B3's categorical branch;
 - ``quant_hist``: B4, B5 and B2 in their int8/int32 mode (quantized
@@ -41,7 +47,23 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   plain-version run, only the int8 kernels launched; then 3 rounds at 16
   bins without stochastic rounding and with leaf renewal, and 3 rounds
   of the one-hot table on the staged arm, each against its plain-version
-  run.
+  run;
+- ``rand_train``: ``higgs_rand_1m``, the training run's datasets with
+  ``extra_trees`` and ``feature_fraction_bynode=0.5`` (the staged arm:
+  B6 roots, B4 segments, B5 with random thresholds in leaf mode), model
+  text byte-identical to the plain-version run, valid AUC rising; then
+  3 quantized rounds with bynode only (B4 and B5 int8 in leaf mode);
+- ``mono_train``: ``mono_train_1m``, upstream LightGBM's monotone data
+  at HIGGS width (1,000,000 x 28, constraints +1, -1, 0), regression,
+  255 leaves, 10 rounds, on the fused arm (B2 with B5 in the monotone +
+  bounds mode), model text byte-identical to the plain-version run,
+  valid l2 falling, and predictions through B1 monotone on a sweep of
+  x0 and x1; then 3 constrained rounds of the one-hot table (the staged
+  arm, B5 in leaf mode with bounds);
+- ``wide_ingest``: B3 at 200,000 x 2,000 f32 features (chunks that
+  stage their own columns) and on one EFB group whose tables exceed 96
+  KiB (member parts over successive launches), each byte-identical to
+  ``Dataset._bin_block`` and equal to its plain version.
 
 Each phase prints one JSON line.  Any failed check raises, and the
 script exits non-zero; it exits non-zero without a result where CUDA is
@@ -103,6 +125,29 @@ QUANT_BRANCH_PARAMS = dict(QUANT_PARAMS, num_grad_quant_bins=16,
                            stochastic_rounding=False,
                            quant_train_renew_leaf=True)
 QUANT_SHORT_ROUNDS = 3
+# monotone constraints (mono_train): upstream LightGBM's monotone data at
+# HIGGS width, regression, the training run's size and tree parameters;
+# then the one-hot airline table with DepTime (column 50) increasing
+MONO_PARAMS = {"objective": "regression", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "metric": ["l2"], "verbose": -1}
+ONEHOT_DEPTIME = 50
+SWEEP_POINTS, SWEEP_ROWS = 101, 10
+# per-node randomness (rand_train): the training run with extra trees and
+# half the features a node; then quantized rounds with bynode only
+RAND_PARAMS = dict(TRAIN_PARAMS, extra_trees=True,
+                   feature_fraction_bynode=0.5)
+RAND_QUANT_PARAMS = dict(TRAIN_PARAMS, feature_fraction_bynode=0.5,
+                         use_quantized_grad=True)
+# f32 operations per (child, feature, bin) of the monotone scan: the
+# plain scan's 40 plus, in each direction, two leaf outputs, two clamps,
+# the direction test and two gains from outputs (~30 more)
+MONO_OPS_PER_CELL = 70
+# C-1: B3 at 2,000 features (200,000 rows, a tenth NaN); mappers from a
+# 10,000-row sample; _bin_block checks the first WIDE_ORACLE_ROWS rows
+# and the edge rows (B3's plain version all of them); an EFB group of the
+# first OVERSIZE_MEMBERS of those features, whose tables exceed 96 KiB
+WIDE_INGEST_ROWS, WIDE_INGEST_FEATURES = 200_000, 2_000
+WIDE_SAMPLE_ROWS, WIDE_ORACLE_ROWS, OVERSIZE_MEMBERS = 10_000, 20_000, 120
 
 
 def emit(obj) -> None:
@@ -531,7 +576,7 @@ def restore_kernels(saved) -> None:
 
 
 def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
-                  datasets=None):
+                  datasets=None, falling="binary_logloss", rising="auc"):
     """The training path on the card three times: the main run (counts
     set to 0 just before it and read just after), the same run with every
     kernel replaced by its plain version (its model text must be the same
@@ -539,25 +584,28 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     and a run through ``Booster.update()`` with a section timer (where a
     tree's time goes; the timer synchronises the card at each section)
     that logs each tree's (candidates, committed) per frontier round.
-    Checks the trees, the falling valid logloss and the card's
-    predictions against the host's; returns what the phases report.
-    ``datasets``: a constructed (train, valid) pair that every run
-    reuses."""
+    Checks the trees, the valid metric ``falling`` falling every round,
+    ``rising`` (if any) higher after the last round than after the first,
+    and the card's predictions against the host's; returns what the
+    phases report.  ``datasets``: a constructed (train, valid) pair that
+    every run reuses."""
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.utils.timer import SectionTimer
     reset_training_counts()
     ds, vs, bst, evals, construct_s, train_s = train_once(
         lt, X, y, Xv, yv, params, rounds, categorical, datasets)
     launches = kernel_launches()
+    modes = dict(fused.scan_modes)
     text = bst.model_to_string()
     if bst.num_trees() != rounds:
         raise AssertionError(f"trained {bst.num_trees()} trees, not {rounds}")
-    ll = evals["valid"]["binary_logloss"]
+    ll = evals["valid"][falling]
     if not all(b < a for a, b in zip(ll, ll[1:])):
-        raise AssertionError(f"valid logloss does not fall: {ll}")
-    auc = evals["valid"]["auc"]
-    if not auc[-1] > auc[0]:
-        raise AssertionError(f"valid AUC does not rise: {auc}")
+        raise AssertionError(f"valid {falling} does not fall: {ll}")
+    auc = evals["valid"][rising] if rising else None
+    if rising and not auc[-1] > auc[0]:
+        raise AssertionError(f"valid {rising} does not rise: {auc}")
     raw_dev = bst.predict(Xv, raw_score=True)
     raw_host = bst.predict(Xv, raw_score=True, device=False)
     leaf_dev = bst.predict(Xv[:20000], pred_leaf=True)
@@ -622,8 +670,11 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         "plain_s_per_tree": plain_train_s / rounds,
         "timed_s_per_tree": timed_s / rounds,
         "breakdown_s_per_tree": per_tree,
-        "valid_auc": auc, "valid_logloss": ll, "launches": launches,
+        **({"valid_auc": auc, "valid_logloss": ll}
+           if falling == "binary_logloss" else {"valid_" + falling: ll}),
+        "launches": launches,
         "launches_per_tree": {k: v / rounds for k, v in launches.items()},
+        "b5_launches_by_mode": modes,
         "rounds_per_tree": [len(r) for r in rounds_log],
         "rollbacks_per_tree": [sum(m < k for k, m in r) for r in rounds_log],
         "predict_max_abs_err_vs_host_f64": pred_err,
@@ -723,7 +774,7 @@ def phase_ingest(ds, X):
            "groups": tables.num_groups, "checked_rows": int(Xc.shape[0]),
            "checked": "byte-identical to _bin_block", "max_abs_err": max_err,
            "plan": {"tile_rows": binner.kernel_state().plan.tile_rows,
-                    "chunks": len(binner.kernel_state().plan.chunks) - 1,
+                    "chunks": binner.kernel_state().plan.num_chunks,
                     "smem_bytes": binner.kernel_state().plan.smem_bytes,
                     "blocks": ING.planner.ingest_grid(
                         binner.kernel_state().plan, n)},
@@ -760,7 +811,7 @@ def ingest_layouts(ING, tables, Xc, ref) -> list:
             if not np.array_equal(got.T, ref):
                 raise AssertionError(f"B3 ({name}) differs from _bin_block")
             done.append({"layout": name, "rows": n, "chunks":
-                         len(binner.kernel_state().plan.chunks) - 1})
+                         binner.kernel_state().plan.num_chunks})
     finally:
         planner.INGEST_TABLE_BYTES = saved
     return done
@@ -866,6 +917,8 @@ def phase_hist(ds, bst):
     pair = bytes_or_ops(acc["bytes"] + hist_bytes + 3 * NC * 4 + K * 4
                         + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
     edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, scales, B)
+    modes = b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp,
+                         small_left, parent, quant=False)
     rows_out = {
         "fused_frontier_accumulate": dict(acc, max_abs_err=err_b4),
         "fused_slot_order": slot_order_row(fused, slot, K, vals, scales),
@@ -882,8 +935,8 @@ def phase_hist(ds, bst):
           "slotted_rows": m, "scales": list(scales),
           "checked": "bit-identical to the plain versions",
           "b4_shapes": shapes, "b4_edge_cases": edges,
-          **{k: v for k, v in rows_out.items()}})
-    return rows_out
+          "b5_modes": modes, **{k: v for k, v in rows_out.items()}})
+    return dict(rows_out, b5_modes=modes)
 
 
 # B4's frontier shapes besides the training run's level (K = 128 with
@@ -1145,12 +1198,12 @@ def oracle_check(ds, X) -> int:
 
 def b3_at(ds, X) -> dict:
     """B3 at a training phase's own shape, the whole train matrix: equal
-    to its plain version, its time from a CUDA graph, the plain
-    version's, one ``torch.searchsorted`` over the numerical columns, and
-    the bound (X once, the bins once; a descent of h + 4 steps per (row,
-    member)); beside them the host's parts of a Dataset's binning: the
-    ragged tables and plan (``kernel_state``) and the copy of X to the
-    card."""
+    to its plain version, its launches a binning, its time from a CUDA
+    graph, the plain version's, one ``torch.searchsorted`` over the
+    numerical columns, and the bound (the columns B3 reads once, the bins
+    once; a descent of h + 4 steps per (row, member)); beside them the
+    host's parts of a Dataset's binning: the ragged tables and plan
+    (``kernel_state``) and the copy of X to the card."""
     from lightgbm_tpu_torch.ops import ingest as ING
     n, F = X.shape
     tables = ING.build_ingest_tables(ds)
@@ -1163,25 +1216,39 @@ def b3_at(ds, X) -> dict:
     Xt = torch.from_numpy(X).cuda()
     torch.cuda.synchronize()
     copy_s = time.perf_counter() - t0
-    err = max_abs_err(binner(Xt), binner.plain(Xt))
+    ING.reset_launch_counts()
+    got = binner(Xt)
+    per_binning = ING.launch_counts["ingest"]
+    err = max_abs_err(got, binner.plain(Xt))
     if err != 0.0:
         raise AssertionError(f"B3 differs from its plain version by {err} "
                              "bins")
+    del got
     cols = [s.column for s in tables.specs if not s.is_cat]
     XT = Xt[:, cols].T.contiguous()
     depth = int(state.members[:, 5].sum()) + 4 * len(tables.specs)
-    row = {"rows": n, "features": F, "groups": tables.num_groups,
-           "plan": {"tile_rows": state.plan.tile_rows,
-                    "chunks": len(state.plan.chunks) - 1,
-                    "smem_bytes": state.plan.smem_bytes,
-                    "blocks": ING.planner.ingest_grid(state.plan, n)},
+    read = len({s.column for s in tables.specs})     # columns B3 reads
+    plan = state.plan
+    row = {"rows": n, "features": F, "used_features": len(tables.specs),
+           "groups": tables.num_groups,
+           "plan": {"tile_rows": plan.tile_rows,
+                    "whole_rows": plan.whole_rows,
+                    "launches": len(plan.launches),
+                    "chunks": plan.num_chunks,
+                    "largest_chunk_columns": max(
+                        c[7] - c[6] for launch in plan.launches
+                        for c in launch),
+                    "smem_bytes": plan.smem_bytes, "threads": plan.threads,
+                    "blocks": [ING.planner.ingest_grid(plan, n, j)
+                               for j in range(len(plan.launches))]},
+           "launches_per_binning": per_binning,
            "kernel_ms": graph_ms(lambda: binner(Xt), 5),
            "plain_ms": event_ms(lambda: binner.plain(Xt), 1, warmup=1),
            "library_ms": event_ms(
                lambda: torch.searchsorted(binner.bounds, XT), 5),
            "max_abs_err": err, "host_tables_s": tables_s,
            "host_copy_x_s": copy_s,
-           **bytes_or_ops(4 * n * F + n * tables.num_groups
+           **bytes_or_ops(4 * n * read + n * tables.num_groups
                           * (1 if ING.device_dtype(tables) == torch.uint8
                              else 4),
                           n * depth)}
@@ -1217,7 +1284,8 @@ def phase_efb_train(lt, pk):
           "max_num_bin": int(ds.feature_meta().max_num_bin),
           "b3_oracle_rows": checked, "predict_b1_launches": b1,
           "predict": "bit-identical to B1's plain version"})
-    return r["launches"], ds, r["bst"]
+    return (dict(r["launches"], b5_modes=r["row"]["b5_launches_by_mode"]),
+            ds, r["bst"])
 
 
 def phase_cat_train(lt, pk):
@@ -1446,6 +1514,8 @@ def phase_quant_hist(ds, bst):
     pair = bytes_or_ops(acc["bytes"] + hist_bytes + 3 * NC * 4 + K * 4
                         + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
     edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, None, B)
+    modes = b5_mode_rows(fused, small, qs, sums, nb, mty, db, hp,
+                         small_left, parent, quant=True)
     rows_out = {
         "fused_frontier_accumulate": dict(acc, max_abs_err=err_b4),
         "fused_slot_order": slot_order_row(fused, slot, K, vals, None),
@@ -1467,30 +1537,35 @@ def phase_quant_hist(ds, bst):
           "b4_shapes": shapes, "b4_edge_cases": edges,
           "quantize_gradients_ms": quant_ms,
           "quantize_gradients_bytes": 8 * n + 2 * n,
-          **rows_out})
-    return rows_out
+          "b5_modes": modes, **rows_out})
+    return dict(rows_out, b5_modes=modes)
 
 
-def short_quant_run(lt, ds, params, positive, zero):
+def short_run(lt, ds, params, positive, zero, quant=True):
     """``QUANT_SHORT_ROUNDS`` rounds of ``params`` on a reused dataset, on
     the kernels and then on their plain versions: the model texts must be
-    the same bytes.  Returns the kernel run's launch counts."""
+    the same bytes.  Returns the kernel run's launch counts, with B5's
+    launches by mode under ``b5_modes``.  ``quant``: the run must train
+    quantized (or, False, f32) trees."""
+    from lightgbm_tpu_torch.ops import fused
     reset_training_counts()
     bst = lt.train(params, ds, QUANT_SHORT_ROUNDS, verbose_eval=False)
     torch.cuda.synchronize()
     launches = kernel_launches()
+    modes = dict(fused.scan_modes)
     expect_launches(launches, positive=positive, zero=zero)
-    if not bst.boosting._quant_on or bst.num_trees() != QUANT_SHORT_ROUNDS:
-        raise AssertionError("the short run did not train quantized trees")
+    if (bst.boosting._quant_on != quant
+            or bst.num_trees() != QUANT_SHORT_ROUNDS):
+        raise AssertionError("the short run did not train the trees asked")
     saved = plain_kernels()
     try:
         bst_p = lt.train(params, ds, QUANT_SHORT_ROUNDS, verbose_eval=False)
     finally:
         restore_kernels(saved)
     if bst_p.model_to_string() != bst.model_to_string():
-        raise AssertionError("the short quantized run's model text differs "
-                             "from its plain-version run")
-    return launches
+        raise AssertionError("the short run's model text differs from its "
+                             "plain-version run")
+    return dict(launches, b5_modes=modes)
 
 
 def phase_quant_train(lt, f32_run, data, efb_ds):
@@ -1511,13 +1586,13 @@ def phase_quant_train(lt, f32_run, data, efb_ds):
     checks = [quant_check(gb, torch.full((gb.num_data,), init,
                                          device="cuda"), 0),
               quant_check(gb, gb.train_score[0], TRAIN_ROUNDS)]
-    branch = short_quant_run(
+    branch = short_run(
         lt, ds, QUANT_BRANCH_PARAMS,
         positive=INT8_ENTRIES + ("fused_frontier_accumulate",
                                  "fused_slot_order"),
         zero=("fused_frontier_splits", "fused_sibling_scan",
               "histogram_pallas"))
-    staged = short_quant_run(
+    staged = short_run(
         lt, efb_ds, QUANT_PARAMS,
         positive=("fused_frontier_accumulate_int8",
                   "fused_sibling_scan_int8", "fused_slot_order_int8"),
@@ -1546,7 +1621,349 @@ def phase_quant_train(lt, f32_run, data, efb_ds):
                          "rounds": QUANT_SHORT_ROUNDS, "launches": staged,
                          "checked": "model text byte-identical to the "
                                     "plain run"}})
-    return r["launches"]
+    return dict(r["launches"], b5_modes=r["row"]["b5_launches_by_mode"])
+
+
+def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
+                 parent, quant):
+    """B5's other modes at a frontier level's shape (K candidates, NC = 2K
+    children), each bit for bit against its plain version, with its time
+    (CUDA graph), the plain version's (CUDA events) and its bound: the
+    monotone + bounds mode in parent mode (constraints +1, -1, 0 by
+    feature; a quarter of the children unbounded, the rest bounded near
+    0, so the clamp bites), and (f32) the random-threshold mode in leaf
+    mode on the derived children (one threshold per (child, feature),
+    ``ops.split.random_thresholds`` of uniforms)."""
+    from lightgbm_tpu_torch.ops.split import random_thresholds
+    K, C, F, B = small.shape
+    NC = 2 * K
+    dev = small.device
+    g = torch.Generator(device="cuda").manual_seed(9)
+    mono = torch.zeros(F, dtype=torch.int32, device=dev)
+    mono[0::3], mono[1::3] = 1, -1
+    free = torch.rand(NC, device=dev, generator=g) < 0.25
+    lo = -0.02 - 0.1 * torch.rand(NC, device=dev, generator=g)
+    hi = 0.02 + 0.1 * torch.rand(NC, device=dev, generator=g)
+    bounds = (torch.where(free, torch.full_like(lo, -np.inf), lo),
+              torch.where(free, torch.full_like(hi, np.inf), hi))
+    cell = 4 if quant else 8
+    count_ops = QUANT_COUNT_OPS_PER_CELL if quant else 0
+    meta_bytes = 3 * NC * 4 + 3 * F * 4
+    tuple_bytes = NC * F * 4 * 6
+    rows = {}
+
+    def check(name, k, p, free_k):
+        if not same_bits(k, p):
+            raise AssertionError(f"B5 ({name}) differs from its plain "
+                                 "version in bits")
+        if not bool(torch.isfinite(k.gain).any()):
+            raise AssertionError(f"B5 ({name}) found no split")
+        if same_bits(k, free_k):
+            raise AssertionError(f"B5 ({name}) elects what the plain mode "
+                                 "elects: the mode did not bite")
+        return max_abs_err(k, p)
+
+    def mono_k():
+        return fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
+                                  small_left=small_left, parent=parent,
+                                  monotone_constraints=mono,
+                                  child_bounds=bounds)
+
+    def mono_p():
+        return fused.scan_plain(small, scales, sums, nb, mty, db, hp,
+                                small_left=small_left, parent=parent,
+                                monotone_constraints=mono,
+                                child_bounds=bounds)
+    free_k = fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
+                                small_left=small_left, parent=parent)
+    err = check("monotone+bounds", mono_k(), mono_p(), free_k)
+    rows["monotone+bounds"] = {
+        "children": NC, "features": F, "bins": B, "max_abs_err": err,
+        "kernel_ms": graph_ms(mono_k, 10),
+        "plain_ms": event_ms(mono_p, 2, warmup=1), "library_ms": None,
+        **bytes_or_ops(2 * K * C * F * B * cell + meta_bytes + K * 4
+                       + F * 4 + 2 * NC * 4 + tuple_bytes,
+                       NC * F * B * (MONO_OPS_PER_CELL + count_ops))}
+    if quant:
+        return rows
+    leaf = fused.derive_children(small, small_left, parent).contiguous()
+    thr = random_thresholds(torch.rand((NC, F), device=dev, generator=g), nb)
+
+    def rand_k():
+        return fused.sibling_scan(leaf, scales, sums, nb, mty, db, hp,
+                                  rand_thr=thr)
+
+    def rand_p():
+        return fused.scan_plain(leaf, scales, sums, nb, mty, db, hp,
+                                rand_thr=thr)
+    err = check("rand_thr", rand_k(), rand_p(),
+                fused.sibling_scan(leaf, scales, sums, nb, mty, db, hp))
+    rows["rand_thr"] = {
+        "children": NC, "features": F, "bins": B, "max_abs_err": err,
+        "kernel_ms": graph_ms(rand_k, 10),
+        "plain_ms": event_ms(rand_p, 2, warmup=1), "library_ms": None,
+        **bytes_or_ops(NC * C * F * B * cell + meta_bytes + NC * F * 4
+                       + tuple_bytes, NC * F * B * SCAN_OPS_PER_CELL)}
+    return rows
+
+
+def phase_onehot_scan(ds, bst):
+    """B5 in leaf mode at the staged arm's widest shape: 2 x 128 children
+    of the one-hot airline table, [256, 3, F, B] per-feature histograms
+    (B4 group histograms of random slots, expanded as the grower expands
+    them), with the last tree's gradients; bit for bit against the plain
+    version, timed."""
+    from lightgbm_tpu_torch.grower_rounds import make_expand_hist
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops.split import fixed_to_f32
+    gb = bst.boosting
+    binned_t = ds.binned_t
+    G, n = binned_t.shape
+    Bg, B = int(ds.max_group_bin), gb.num_bins
+    NC = 2 * HIST_SLOTS
+    hp = gb.grower_cfg.hp
+    mt = gb.meta_t
+    nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    grad, hess = gb.objective.get_gradients(gb.train_score[0])
+    vals = H._vals_t(grad, hess, torch.ones_like(grad)).contiguous()
+    scales = H.fixed_point_scales(vals)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    slot = torch.randint(0, NC, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    ghist = fused.accumulate(binned_t, vals, slot, NC, Bg, scales)
+    hist = make_expand_hist(mt, B, Bg)(ghist).contiguous()
+    sums = torch.stack([fixed_to_f32(ghist[:, c, 0].sum(-1), [scales[c]], 0)
+                        for c in range(3)])
+    del ghist
+    F = hist.shape[2]
+
+    def k():
+        return fused.sibling_scan(hist, scales, sums, nb, mty, db, hp)
+
+    def p():
+        return fused.scan_plain(hist, scales, sums, nb, mty, db, hp)
+    best_k, best_p = k(), p()
+    if not same_bits(best_k, best_p):
+        raise AssertionError("B5 (onehot leaf mode) differs from its plain "
+                             "version in bits")
+    if not bool(torch.isfinite(best_k.gain).any()):
+        raise AssertionError("B5 (onehot leaf mode) found no split")
+    row = {"phase": "onehot_scan", "children": NC, "features": F,
+           "bins": B, "checked": "bit-identical to the plain version",
+           "max_abs_err": max_abs_err(best_k, best_p),
+           "kernel_ms": graph_ms(k, 5),
+           "plain_ms": event_ms(p, 1, warmup=1), "library_ms": None,
+           **bytes_or_ops(NC * 3 * F * B * 8 + 3 * NC * 4 + 3 * F * 4
+                          + NC * F * 4 * 6, NC * F * B * SCAN_OPS_PER_CELL)}
+    del hist, best_p
+    emit(row)
+    return row
+
+
+def phase_rand_train(lt, f32_run, data):
+    """``higgs_rand_1m``: the training run's datasets with extra trees and
+    ``feature_fraction_bynode=0.5``, through ``training_runs``: the staged
+    arm, B6 for each root, B4 segments and B5 in leaf mode with random
+    thresholds (the bynode masks apply outside the kernel); then 3
+    quantized rounds with bynode only (B4 and B5 int8 in leaf mode).
+    Returns (the main run's launches, B5's launches by mode)."""
+    r = training_runs(lt, *data, RAND_PARAMS, TRAIN_ROUNDS,
+                      datasets=(f32_run["ds"], f32_run["vs"]))
+    expect_launches(r["launches"], positive=(
+        "fused_frontier_accumulate", "fused_sibling_scan",
+        "fused_slot_order"), zero=("fused_frontier_splits", "ingest")
+        + INT8_ENTRIES, exact={"histogram_pallas": TRAIN_ROUNDS})
+    modes = r["row"]["b5_launches_by_mode"]
+    if modes != {"rand_thr": r["launches"]["fused_sibling_scan"]}:
+        raise AssertionError(f"B5 ran other modes than rand_thr: {modes}")
+    quant = short_run(
+        lt, f32_run["ds"], RAND_QUANT_PARAMS,
+        positive=("fused_frontier_accumulate_int8",
+                  "fused_sibling_scan_int8", "fused_slot_order_int8"),
+        zero=F32_ENTRIES + ("fused_frontier_splits_int8",
+                            "histogram_pallas"))
+    emit({"phase": "rand_train", "config": "higgs_rand_1m", **r["row"],
+          "datasets": "reused from phase train",
+          "params": {k: RAND_PARAMS[k] for k in (
+              "extra_trees", "feature_fraction_bynode")},
+          "bynode_feature_cnt":
+              r["bst"].boosting.grower_cfg.bynode_feature_cnt,
+          "quant_bynode_run": {"rounds": QUANT_SHORT_ROUNDS,
+                               "launches": quant,
+                               "checked": "model text byte-identical to "
+                                          "the plain run"}})
+    return r["launches"], modes
+
+
+def monotone_sweep(pk, bst, Xv) -> dict:
+    """``Booster.predict`` through B1 on a 101-point sweep of x0 and of x1
+    at 10 base rows (tests/test_engine.py's check): non-decreasing in x0,
+    non-increasing in x1, exactly (every row sums the same trees in the
+    same order, and f32 rounding is monotone)."""
+    pk.reset_launch_counts()
+    grid = np.linspace(0.0, 1.0, SWEEP_POINTS, dtype=np.float32)
+    worst = {0: 0.0, 1: 0.0}
+    for row in Xv[:SWEEP_ROWS]:
+        for col, sign in ((0, 1.0), (1, -1.0)):
+            sweep = np.repeat(row[None, :], SWEEP_POINTS, axis=0)
+            sweep[:, col] = grid
+            d = sign * np.diff(bst.predict(sweep))
+            worst[col] = min(worst[col], float(d.min()))
+    launches = pk.launch_counts[KERNEL]
+    if worst[0] < 0 or worst[1] < 0:
+        raise AssertionError(f"predictions break the constraints: {worst}")
+    if launches <= 0:
+        raise AssertionError("the sweep never launched B1")
+    return {"base_rows": SWEEP_ROWS, "points": SWEEP_POINTS,
+            "b1_launches": launches,
+            "min_step_x0_increasing": worst[0],
+            "min_step_x1_decreasing": worst[1]}
+
+
+def phase_mono_train(lt, pk, efb_ds):
+    """``mono_train_1m``: upstream LightGBM's monotone data at HIGGS width
+    (1,000,000 x 28, constraints +1, -1, 0 on x0..x2), regression, 255
+    leaves, through ``training_runs`` on the fused arm: B3, B4 roots and
+    B2 (B4 + B5) in the monotone + bounds mode; the valid l2 falls every
+    round, the model text equals the plain-version run's, and B1's
+    predictions keep the constraints on a sweep.  Then 3 rounds of the
+    one-hot airline table (staged arm) with DepTime constrained: B5 in
+    leaf mode with constraints and bounds.  Returns (the main run's
+    launches, B5's launches by mode)."""
+    from lightgbm_tpu_torch.testing import MONOTONE_CONSTRAINTS, monotone_like
+    X, y = monotone_like(TRAIN_ROWS, seed=21)
+    Xv, yv = monotone_like(VALID_ROWS, seed=22)
+    params = dict(MONO_PARAMS,
+                  monotone_constraints=list(MONOTONE_CONSTRAINTS))
+    r = training_runs(lt, X, y, Xv, yv, params, TRAIN_ROUNDS, falling="l2",
+                      rising=None)
+    expect_launches(r["launches"], positive=("ingest",) + F32_ENTRIES,
+                    zero=("histogram_pallas",) + INT8_ENTRIES)
+    modes = r["row"]["b5_launches_by_mode"]
+    if modes != {"monotone+bounds": r["launches"]["fused_sibling_scan"]}:
+        raise AssertionError(f"B5 ran other modes than monotone+bounds: "
+                             f"{modes}")
+    sweep = monotone_sweep(pk, r["bst"], Xv)
+    mc = [0] * efb_ds.num_total_features
+    mc[ONEHOT_DEPTIME] = 1
+    onehot = short_run(
+        lt, efb_ds, dict(TRAIN_PARAMS, monotone_constraints=mc),
+        positive=("fused_frontier_accumulate", "fused_sibling_scan",
+                  "fused_slot_order", "histogram_pallas"),
+        zero=("fused_frontier_splits",) + INT8_ENTRIES, quant=False)
+    if set(onehot["b5_modes"]) != {"monotone+bounds"}:
+        raise AssertionError(f"the one-hot run's B5 modes: "
+                             f"{onehot['b5_modes']}")
+    emit({"phase": "mono_train", "config": "mono_train_1m", **r["row"],
+          "monotone_constraints": list(MONOTONE_CONSTRAINTS),
+          "sweep": sweep,
+          "onehot_run": {"config": "airline_onehot_1m", "rounds":
+                         QUANT_SHORT_ROUNDS, "monotone_column":
+                         ONEHOT_DEPTIME, "launches": onehot,
+                         "checked": "model text byte-identical to the "
+                                    "plain run"}})
+    return r["launches"], modes
+
+
+def bin_oracle(ds, X, out_dtype, groups) -> np.ndarray:
+    """``Dataset._bin_block`` of the rows of ``X`` on the host, in eight
+    threads over row blocks (each block column-major in f64)."""
+    from concurrent.futures import ThreadPoolExecutor
+    ref = np.zeros((X.shape[0], groups), out_dtype)
+    step = -(-X.shape[0] // 8)
+
+    def one(i):
+        block = np.asfortranarray(X[i:i + step], dtype=np.float64)
+        with np.errstate(invalid="ignore", over="ignore"):
+            ds._bin_block(block, ref[i:i + step])
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(one, range(0, X.shape[0], step)))
+    return ref
+
+
+def b3_check(ds, X, oracle_rows) -> dict:
+    """``b3_at`` for ``ds``'s layout, and B3 byte for byte against
+    ``_bin_block`` on the first ``oracle_rows`` rows plus the edge rows."""
+    from lightgbm_tpu_torch.ops import ingest as ING
+    row = b3_at(ds, X)
+    tables = ING.build_ingest_tables(ds)
+    Xc = np.concatenate([X[:oracle_rows], edge_rows(ds, X.shape[1], X)])
+    out = ING.DeviceBinner(tables, "cuda")(
+        torch.from_numpy(Xc).cuda()).cpu().numpy()
+    ref = bin_oracle(ds, Xc, tables.out_dtype, tables.num_groups)
+    if not np.array_equal(out.T, ref):
+        bad = int((out.T != ref).sum())
+        raise AssertionError(f"B3 differs from _bin_block at {bad} entries")
+    return dict(row, checked_rows=int(Xc.shape[0]),
+                checked="byte-identical to _bin_block; equal to the plain "
+                        "version on every row")
+
+
+def phase_wide_ingest(lt):
+    """C-1: B3 binning what the host bins at any width.  200,000 x 2,000
+    f32 numeric features, a tenth NaN, through ``Dataset`` on the card
+    (the chunks stage their own columns); then the first
+    ``OVERSIZE_MEMBERS`` of those features as one EFB group (the
+    Dataset's mappers, the group's starts as EFB lays them out), whose
+    tables exceed 96 KiB and are binned in member parts over successive
+    launches, on rows where every member is non-zero (conflicts).  Each
+    byte-identical to ``_bin_block``.  Returns both rows."""
+    import copy
+    from lightgbm_tpu_torch.ops import ingest as ING
+    rng = np.random.default_rng(31)
+    n, F = WIDE_INGEST_ROWS, WIDE_INGEST_FEATURES
+    X = rng.standard_normal((n, F), dtype=np.float32)
+    X[rng.random((n, F), dtype=np.float32) < 0.1] = np.nan
+    y = rng.random(n, dtype=np.float32)
+    ING.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y,
+                    params={"bin_construct_sample_cnt": WIDE_SAMPLE_ROWS})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    construct_launches = ING.launch_counts["ingest"]
+    if construct_launches <= 0:
+        raise AssertionError("the Dataset never launched B3")
+    Xt = torch.from_numpy(X).cuda()
+    if not torch.equal(ds.binned_t.to(torch.int32),
+                       ING.DeviceBinner(ING.build_ingest_tables(ds),
+                                        "cuda").plain(Xt).to(torch.int32)):
+        raise AssertionError("the Dataset's binned matrix differs from B3's "
+                             "plain version")
+    del Xt
+    wide = b3_check(ds, X, WIDE_ORACLE_ROWS)
+    if wide["plan"]["chunks"] < 2 or wide["plan"]["largest_chunk_columns"] \
+            >= F:
+        raise AssertionError(f"the 2,000-feature plan stages whole rows: "
+                             f"{wide['plan']}")
+    wide.update(construct_s=construct_s,
+                construct_launches=construct_launches)
+    # one EFB group of the first OVERSIZE_MEMBERS features
+    M = OVERSIZE_MEMBERS
+    grp = copy.copy(ds)
+    grp.used_features = list(ds.used_features[:M])
+    nbs = np.array([ds.bin_mappers[f].num_bin for f in grp.used_features])
+    grp.feat_group = np.zeros(M, np.int32)
+    grp.feat_start = (1 + np.concatenate([[0], np.cumsum(nbs - 1)[:-1]])
+                      ).astype(np.int32)
+    grp._group_size = [M]
+    grp.num_groups = 1
+    grp.max_group_bin = int(1 + (nbs - 1).sum())
+    kt = ING.kernel_tables(ING.build_ingest_tables(grp))
+    table_bytes = 4 * (6 * M + 2 + int(kt.group_words[-1]))
+    if table_bytes <= 96 * 1024:
+        raise AssertionError(f"the group's tables are {table_bytes} bytes")
+    over = b3_check(grp, X, WIDE_ORACLE_ROWS)
+    if over["plan"]["launches"] < 2:
+        raise AssertionError(f"the oversize group was not split: "
+                             f"{over['plan']}")
+    over.update(members=M, table_bytes=table_bytes)
+    emit({"phase": "wide_ingest", "features_2000": wide,
+          "oversize_group": over})
+    return wide, over
 
 
 def main() -> int:
@@ -1604,6 +2021,7 @@ def main() -> int:
     train_run, train_data = phase_train(lt)
     train_launches, ds, bst = (train_run["launches"], train_run["ds"],
                                train_run["bst"])
+    train_modes = train_run["row"]["b5_launches_by_mode"]
     ing = phase_ingest(ds, train_data[0])
     hist = phase_hist(ds, bst)
     qhist = phase_quant_hist(ds, bst)
@@ -1612,10 +2030,15 @@ def main() -> int:
     phase_wide_bins(lt)
     efb_launches, efb_ds, efb_bst = phase_efb_train(lt, pk)
     hist6 = phase_hist6(efb_ds, efb_bst)
+    onehot = phase_onehot_scan(efb_ds, efb_bst)
     del efb_bst
     quant_launches = phase_quant_train(lt, train_run, train_data, efb_ds)
-    del train_run, train_data, efb_ds
+    rand_launches, rand_modes = phase_rand_train(lt, train_run, train_data)
+    del train_run, train_data
+    mono_launches, mono_modes = phase_mono_train(lt, pk, efb_ds)
+    del efb_ds
     phase_cat_train(lt, pk)
+    wide, over = phase_wide_ingest(lt)
 
     head = rows[("higgs_500x255", TIMED_ROWS[2], False)]
     table = [{
@@ -1655,6 +2078,49 @@ def main() -> int:
         table.append({
             "name": f"{name}[int8]", "route": "cuda", "source": fused_src,
             "replaces": replaces, "launches": quant_launches[name + "_int8"],
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for row in table:
+        if row["name"] == "fused_sibling_scan":
+            row["modes"] = train_modes
+        elif row["name"] == "fused_sibling_scan[int8]":
+            row["modes"] = quant_launches["b5_modes"]
+    scan_src = "lightgbm_tpu/ops/fused.py:403"
+    for name, r, launches, modes in (
+            # B5's modes: launches of the mode in the main-path run that
+            # drives it; the int8 monotone mode is on no training path
+            # (train falls back to f32 under monotone constraints, as the
+            # JAX package does, and reaches it only through the
+            # JAX-signature wrappers): its row counts B5 int8's launches
+            # in quant_train, whose modes it lists
+            ("fused_sibling_scan[monotone+bounds]",
+             hist["b5_modes"]["monotone+bounds"],
+             mono_modes.get("monotone+bounds", 0), mono_modes),
+            ("fused_sibling_scan[int8,monotone+bounds]",
+             qhist["b5_modes"]["monotone+bounds"],
+             quant_launches["fused_sibling_scan_int8"],
+             quant_launches["b5_modes"]),
+            ("fused_sibling_scan[rand_thr]", hist["b5_modes"]["rand_thr"],
+             rand_modes.get("rand_thr", 0), rand_modes),
+            ("fused_sibling_scan[onehot leaf]", onehot,
+             efb_launches["fused_sibling_scan"],
+             efb_launches["b5_modes"])):
+        table.append({
+            "name": name, "route": "cuda", "source": fused_src,
+            "replaces": scan_src, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "modes": modes})
+    for name, r in (("ingest[2000 features]", wide),
+                    ("ingest[oversize EFB group]", over)):
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "lightgbm_tpu_torch/ops/csrc/ingest.cu",
+            "replaces": "lightgbm_tpu/ops/ingest.py:233",
+            "launches": (r.get("construct_launches")
+                         or r["launches_per_binning"]),
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -19,6 +19,10 @@ chain, reproduced bit for bit by ``utils/threefry.py``: the base key
 ``PRNGKey((extra_trees_seed * 2654435761 ^ feature_fraction_seed) %
 2**31)``, the iteration's key ``fold_in(base, iter)``, and the
 quantization key ``fold_in(fold_in(key, 0x51475442), k)`` of class k.
+The same iteration key drives per-node randomness (``extra_trees``,
+``feature_fraction_bynode``): the grower's key is ``fold_in(key, k)``.
+Monotone constraints are given per original feature and aligned with
+the used features (a feature dropped at binning drops its constraint).
 
 The configurations the slice does not cover raise ``NotImplementedError``
 naming the ROADMAP item that brings them; none is trained another way.
@@ -65,12 +69,6 @@ def check_supported(config: Config) -> None:
         no("quantized multiclass (per-class scales)", "multiclass")
     if multiclass:
         no("multiclass", "multiclass")
-    if c.monotone_constraints and any(int(v) for v in c.monotone_constraints):
-        no("monotone_constraints", "categorical and monotone")
-    if c.extra_trees:
-        no("extra_trees", "per-node randomness")
-    if c.feature_fraction_bynode < 1.0:
-        no("feature_fraction_bynode", "per-node randomness")
     if (c.cegb_penalty_split > 0.0 or c.cegb_penalty_feature_lazy
             or c.cegb_penalty_feature_coupled):
         no("CEGB", "CEGB and forced splits")
@@ -149,8 +147,8 @@ class GBDT:
         self._ones_fmask = None
         # the JAX package's f32 fallback (boosting/gbdt.py:642-666), as it
         # is there; check_supported has already refused every blocker on
-        # it that the port does not train, so of these only an all-zero
-        # monotone_constraints list can still reach it
+        # it that the port does not train (CEGB and the boostings other
+        # than gbdt)
         cegb_enabled = bool(config.cegb_penalty_split > 0.0
                             or config.cegb_penalty_feature_coupled
                             or config.cegb_penalty_feature_lazy)
@@ -181,13 +179,33 @@ class GBDT:
         self._node_key_base = threefry.prng_key(
             (config.extra_trees_seed * 2654435761
              ^ config.feature_fraction_seed) % (2 ** 31))
+        # feature_fraction_bynode -> the per-node sample count (reference:
+        # ColSampler::GetCnt, col_sampler.hpp:28-33, as the JAX package
+        # computes it, boosting/gbdt.py:587-594)
+        F_used = len(self.train_set.used_features)
+        bynode_cnt = 0
+        if config.feature_fraction_bynode < 1.0:
+            bynode_cnt = max(
+                int(round(F_used * config.feature_fraction_bynode)),
+                min(2, F_used))
+        # monotone constraints per original feature -> the used features
+        # (reference: the JAX package's boosting/gbdt.py:943-955)
+        self._monotone = None
+        mc = config.monotone_constraints
+        if mc:
+            full = np.zeros(self.train_set.num_total_features, np.int32)
+            full[:len(mc)] = np.asarray(mc, np.int32)
+            self._monotone = torch.as_tensor(
+                full[np.asarray(self.train_set.used_features, np.int64)],
+                device=self.device)
         self.grower_cfg = GrowerConfig(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             hp=config.split_hyperparams(), num_bins=self.num_bins,
             round_width=config.tpu_round_width,
             hist_method=config.tpu_hist_method, quant=quant_on,
             quant_bins=config.num_grad_quant_bins,
-            quant_renew=config.quant_train_renew_leaf)
+            quant_renew=config.quant_train_renew_leaf,
+            bynode_feature_cnt=bynode_cnt)
         # a utils.timer.SectionTimer here splits each iteration's time
         # into sections; None keeps the run free of synchronisation
         self.timer = None
@@ -285,9 +303,9 @@ class GBDT:
             mask = self._bagging_mask(self.iter)
             fmask = self._feature_masks()
         quant_vals = None
+        rng = self._node_key()
         if self._quant_on:
             with self._section("quantize"):
-                rng = self._node_key()
                 qkey = threefry.fold_in(threefry.fold_in(rng, 0x51475442), 0)
                 quant_vals = quantize_gradients(
                     grad, hess, mask, self.config.num_grad_quant_bins, qkey,
@@ -296,7 +314,8 @@ class GBDT:
         tree, leaf_id = grow_tree_rounds(
             self.binned_t, grad, hess, mask, self.meta, self.grower_cfg,
             feature_mask=fmask[0], meta_t=self.meta_t, timer=self.timer,
-            quant_vals=quant_vals)
+            quant_vals=quant_vals, monotone_constraints=self._monotone,
+            rng_key=threefry.fold_in(rng, 0))
         with self._section("score"):
             lr = float(np.float32(self.shrinkage_rate))
             tree = tree._replace(leaf_value=tree.leaf_value * lr,

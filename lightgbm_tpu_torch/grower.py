@@ -115,7 +115,10 @@ class GrowerConfig(NamedTuple):
     histograms from the int8 values of ``ops.histogram.
     quantize_gradients``; ``quant_bins`` is ``num_grad_quant_bins``;
     ``quant_renew`` re-fits the leaf outputs from the true gradient sums
-    (``quant_train_renew_leaf``)."""
+    (``quant_train_renew_leaf``).  ``bynode_feature_cnt`` > 0 samples
+    that many features per node (``feature_fraction_bynode``); it and
+    ``hp.extra_trees`` draw per-node randomness and elect the staged
+    arm."""
 
     num_leaves: int = 31
     max_depth: int = -1
@@ -126,6 +129,7 @@ class GrowerConfig(NamedTuple):
     quant: bool = False
     quant_bins: int = 4
     quant_renew: bool = False
+    bynode_feature_cnt: int = 0
 
 
 def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,

@@ -52,6 +52,30 @@ group histograms (bin 0 rebuilt in integers, before the count estimate:
 the JAX package rebuilds it after its f32 rescale, ROADMAP queue C) and
 B5 in leaf mode.  ``cfg.quant_renew`` re-fits the leaf outputs from
 the true gradient sums (``ops.renew.quant_train_renew_leaf``).
+
+Monotone constraints (``monotone_constraints`` [F]) ride both arms, as
+in the JAX package: every leaf carries output bounds ``leaf_min`` /
+``leaf_max`` (from -inf/+inf); a candidate's children inherit them,
+narrowed at the midpoint of the candidate's clamped child outputs on a
+numeric split of a constrained feature (``child_bounds``); the scans
+(B5 on both arms, B2 on the fused one) take the constraints and the
+children's bounds, and the final leaf values are clamped to the bounds.
+
+Per-node randomness (``hp.extra_trees``, ``cfg.bynode_feature_cnt``)
+elects the staged arm, as in the JAX package; its root is then B6 even
+without bundles.  Each searched node draws from its own threefry key,
+``fold_in(fold_in(rng_key, parent + 1), side)`` with the node's parent
+id and side (the root: parent -1, side 0; a round's candidate i:
+``split_idx + i``, side 0 for its left child and 1 for its right): the
+bynode feature mask from ``uniform(fold_in(key, 0), (F,))`` and the
+extra-trees uniforms ``uniform(fold_in(key, 1), (F, 2))`` (column 0 the
+numeric threshold B5 takes in leaf mode, column 1 the categorical
+draw).  A node's id is at most ``num_leaves - 2``, so the draws of every
+node a tree can search are made in one vectorised call when the tree
+starts (``node_draws``, ~1,000 tensor operations of threefry) and each
+search gathers its nodes' rows (a call a round cost 1.12 s of launches
+a 255-leaf tree: ``chip_smoke.py`` ``rand_train``, NVIDIA H100 80GB
+HBM3, 700.00 W).
 """
 
 from __future__ import annotations
@@ -67,8 +91,10 @@ from .ops import fused
 from .ops.histogram import (_vals_t, _vals_t_int, fixed_point_scales,
                             histogram_fixed)
 from .ops.split import (QuantScales, SplitResult, _best_categorical,
-                        best_split_for_leaf, fixed_to_f32, leaf_output,
+                        best_split_for_leaf, clip, fixed_to_f32, leaf_output,
                         quant_count_hist)
+from .utils import threefry
+
 
 def make_expand_hist(meta_t: dict, num_bins: int, group_bins: int):
     """The staged arm's ``expand_hist`` (reference: grower_rounds.py:199-
@@ -102,20 +128,48 @@ def _rows(r: SplitResult, sl) -> SplitResult:
     return SplitResult(*(getattr(r, f)[sl] for f in r._fields))
 
 
+def node_draws(rng_key, parents: torch.Tensor, sides: torch.Tensor,
+               num_features: int, bynode_cnt: int, extra_trees: bool):
+    """Per-node randomness of the searched nodes (reference:
+    grower_rounds.py one_leaf_best): the node keys
+    ``fold_in(fold_in(rng_key, parent + 1), side)``, then the bynode
+    mask [N, F] f32 (the ``bynode_cnt`` smallest of ``uniform(fold_in(key,
+    0), (F,))``, ties kept) and the extra-trees uniforms [N, F, 2]
+    (``uniform(fold_in(key, 1), (F, 2))``); None for a mode that is
+    off."""
+    F = int(num_features)
+    keys = threefry.fold_in(threefry.fold_in(
+        threefry.key_tensor(rng_key, parents.device),
+        parents.to(torch.int64) + 1), sides.to(torch.int64))
+    mask = eru = None
+    if bynode_cnt > 0:
+        u = threefry.uniform(threefry.fold_in(keys, 0), (F,))
+        kth = torch.kthvalue(u, min(int(bynode_cnt), F), dim=-1).values
+        mask = (u <= kth[:, None]).to(torch.float32)
+    if extra_trees:
+        eru = threefry.uniform(threefry.fold_in(keys, 1), (F, 2))
+    return mask, eru
+
+
 def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, row_mask: torch.Tensor, meta,
                      cfg: GrowerConfig,
                      feature_mask: Optional[torch.Tensor] = None,
                      meta_t: Optional[dict] = None, timer=None,
                      rounds: Optional[list] = None,
-                     quant_vals: Optional[tuple] = None):
+                     quant_vals: Optional[tuple] = None,
+                     monotone_constraints: Optional[torch.Tensor] = None,
+                     rng_key=None):
     """Grow one tree.  ``binned_t`` [G, n] uint8/int32 (the EFB group
     matrix), ``grad``/``hess``/``row_mask`` [n] f32 on the same device;
     ``feature_mask`` [F] (0 = feature not sampled); ``timer`` a
     ``utils.timer.SectionTimer``; ``rounds``, when given, gets one
     ``(k, m)`` per round: candidates, and splits committed (m < k is a
     rollback to the exact prefix); ``quant_vals`` (``cfg.quant``): ``(gq,
-    hq, g_scale, h_scale)`` from ``ops.histogram.quantize_gradients``.
+    hq, g_scale, h_scale)`` from ``ops.histogram.quantize_gradients``;
+    ``monotone_constraints`` [F] int32 in {-1, 0, 1} (used features);
+    ``rng_key`` the tree's threefry key (a pair of ints) for per-node
+    randomness, ``PRNGKey(0)`` when that is on and no key is given.
     Returns (TreeArrays, leaf_id [n] int64)."""
     meta = meta.resolved()
     dev = binned_t.device
@@ -123,9 +177,15 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
     L = cfg.num_leaves
     B = cfg.num_bins
     hp = cfg.hp
-    # the JAX trainer's arm election (boosting/gbdt.py:690-707) for the
-    # configurations the port trains
-    fused_arm = cfg.hist_method in ("auto", "fused") and not meta.has_bundles
+    F = len(meta.num_bin)
+    use_mc = monotone_constraints is not None
+    use_rng = hp.extra_trees or cfg.bynode_feature_cnt > 0
+    if use_rng and rng_key is None:
+        rng_key = threefry.prng_key(0)
+    # the JAX trainer's arm election (boosting/gbdt.py:690-707,
+    # grower_rounds.py:168) for the configurations the port trains
+    fused_arm = (cfg.hist_method in ("auto", "fused")
+                 and not meta.has_bundles and not use_rng)
     Bg = meta.max_group_bin if meta.has_bundles else B
     KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
     mt = meta_t if meta_t is not None else meta.tensors(dev)
@@ -141,17 +201,39 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
     else:
         section = timer.section
     neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+    mc = (monotone_constraints.to(device=dev, dtype=torch.int32)
+          if use_mc else None)
+    if use_rng:
+        with section("draws"):
+            # every (parent, side) a tree can search: parent -1 (the
+            # root) .. L - 2, row (parent + 1) * 2 + side
+            ids = torch.arange(-1, L - 1, device=dev).repeat_interleave(2)
+            all_mask, all_eru = node_draws(
+                rng_key, ids, torch.arange(2, device=dev).repeat(L), F,
+                cfg.bynode_feature_cnt, hp.extra_trees)
 
-    def search(ghist: torch.Tensor, sums: torch.Tensor) -> SplitResult:
+    def search(ghist: torch.Tensor, sums: torch.Tensor, bounds=None,
+               parents=None, sides=None) -> SplitResult:
         """Best splits of children given their group histograms
         [NC, 3, G, Bg] int64 and totals [3, NC] f32 (the staged arm's
-        search, and both arms' root)."""
+        search, and both arms' root); ``bounds`` ([NC], [NC]) their
+        output bounds (monotone constraints), ``parents``/``sides`` [NC]
+        their node ids (per-node randomness)."""
+        fm, eru = feature_mask, None
+        if use_rng:
+            with section("draws"):
+                row = (parents + 1) * 2 + sides
+                if all_mask is not None:
+                    fm = all_mask[row] if fm is None else \
+                        fm[None, :] * all_mask[row]
+                if all_eru is not None:
+                    eru = all_eru[row]
         with section("expansion"):
             h = expand_hist(ghist)
         with section("kernels"):
             return best_split_for_leaf(h, scales, sums[0], sums[1], sums[2],
                                        num_bin, missing_type, default_bin,
-                                       is_cat, hp, feature_mask)
+                                       is_cat, hp, fm, mc, bounds, eru)
 
     with section("kernels"):
         member = row_mask > 0
@@ -179,7 +261,13 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                 root = histogram_fixed(binned_t, vals, Bg, scales)
             # group 0's bins partition the member rows: exact totals
             root_sums = fixed_to_f32(root[:, 0, :].sum(-1), scales, 0)
-    r0 = search(root[None], root_sums[:, None])
+    leaf_min = torch.full((L,), -float("inf"), dtype=torch.float32,
+                          device=dev)
+    leaf_max = torch.full_like(leaf_min, float("inf"))
+    root_ids = torch.tensor([-1], dtype=torch.int64, device=dev)
+    r0 = search(root[None], root_sums[:, None],
+                (leaf_min[:1], leaf_max[:1]) if use_mc else None,
+                root_ids, torch.zeros_like(root_ids))
 
     tree = TreeArrays.empty(L, dev)
     best = _LeafBest.empty(L, dev)
@@ -196,6 +284,29 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
     leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
     iota_L = torch.arange(L, device=dev)
     num_leaves, split_idx = 1, 0
+
+    def child_bounds(ids: torch.Tensor):
+        """The bounds the two children of each leaf ``ids``' cached split
+        inherit (reference: grower_rounds.py child_bounds): the parent's,
+        narrowed at the midpoint of the clamped child outputs on a
+        numeric split of a constrained feature."""
+        b = best
+        p_min, p_max = leaf_min[ids], leaf_max[ids]
+        l_out = clip(leaf_output(b.left_sum_grad[ids], b.left_sum_hess[ids],
+                                 hp.lambda_l1, hp.lambda_l2,
+                                 hp.max_delta_step), p_min, p_max)
+        r_out = clip(leaf_output(b.right_sum_grad[ids],
+                                 b.right_sum_hess[ids], hp.lambda_l1,
+                                 hp.lambda_l2, hp.max_delta_step),
+                     p_min, p_max)
+        mid = (l_out + r_out) * 0.5
+        mc_f = mc[b.feature[ids].clamp(0, F - 1)]
+        upd = ~b.is_categorical[ids] & (mc_f != 0)
+        lo, hi = torch.maximum(p_min, mid), torch.minimum(p_max, mid)
+        return (torch.where(upd & (mc_f < 0), lo, p_min),
+                torch.where(upd & (mc_f > 0), hi, p_max),
+                torch.where(upd & (mc_f > 0), lo, p_min),
+                torch.where(upd & (mc_f < 0), hi, p_max))
 
     while split_idx < L - 1:
         with section("routing"):
@@ -230,13 +341,19 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                 torch.cat([b.left_sum_grad[idl], b.right_sum_grad[idl]]),
                 torch.cat([b.left_sum_hess[idl], b.right_sum_hess[idl]]),
                 torch.cat([b.left_count[idl], b.right_count[idl]])])
+            cbounds = cb = None
+            if use_mc:
+                cb = child_bounds(idl)     # l_min, l_max, r_min, r_max
+                cbounds = (torch.cat([cb[0], cb[2]]),
+                           torch.cat([cb[1], cb[3]]))
 
         sl = small_left_l[idl]
         if fused_arm:
             with section("kernels"):
                 seg, nfb = fused.frontier_splits(
                     binned_t, vals, slot, k, B, scales, csums, sl, ph,
-                    num_bin, missing_type, default_bin, hp)
+                    num_bin, missing_type, default_bin, hp,
+                    monotone_constraints=mc, child_bounds=cbounds)
                 cat_best = None
                 if cat_idx is not None:
                     # the categorical columns of both children, derived
@@ -260,7 +377,11 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
             with section("expansion"):
                 h_left = torch.where(sl[:, None, None, None], seg, ph - seg)
                 children = torch.cat([h_left, ph - h_left])
-            res = search(children, csums)
+            node_k = split_idx + torch.arange(k, device=dev)
+            res = search(children, csums, cbounds,
+                         torch.cat([node_k, node_k]),
+                         torch.cat([torch.zeros_like(node_k),
+                                    torch.ones_like(node_k)]))
 
         with section("routing"):
             if cfg.max_depth > 0:
@@ -311,6 +432,9 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
             tree.leaf_depth[newleaf] = depth
             leaf_parent_side[ids] = 0
             leaf_parent_side[newleaf] = 1
+            if use_mc:
+                leaf_min[ids], leaf_max[ids] = cb[0][:m], cb[1][:m]
+                leaf_min[newleaf], leaf_max[newleaf] = cb[2][:m], cb[3][:m]
             # rows of a split leaf that go right take the new leaf
             leaf_id = torch.where((crank < m) & ~gl, num_leaves + crank,
                                   leaf_id)
@@ -339,6 +463,8 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                                                       row_mask, L)
     lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
                      hp.max_delta_step)
+    if use_mc:
+        lv = clip(lv, leaf_min, leaf_max)      # the output clamp
     active = iota_L < num_leaves
     zero = torch.zeros_like(lv)
     tree = tree._replace(

@@ -81,7 +81,14 @@
 // scan: one block per (child, feature), one thread per bin; a block-wide
 // int64 scan (warp shuffles), in int8 mode one more block sum (the hess
 // total), and two arg-max reductions; it is bound by launch and latency
-// at these sizes (~7k blocks of 256 threads).
+// at these sizes (~7k blocks of 256 threads).  Three optional inputs, a
+// null pointer each where the mode is off, give the scan the other
+// modes of numeric_feature_scan: mono [F] int32 (monotone constraints:
+// the gain from each side's leaf output, clamped and tested against the
+// feature's direction, reference feature_histogram.hpp:714-747), bounds
+// [2, NC] f32 (each child's output clamp, rows lo and hi) and rand_thr
+// [NC, F] int32 (extra trees, leaf mode: the one threshold a (child,
+// feature) may take).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //        --fmad=false -shared -Xcompiler -fPIC.
@@ -495,48 +502,103 @@ __device__ Arg block_argmax(Arg a, Arg* sh) {
 
 struct Hyper {
   int use_l1;
-  float l1, l2, min_gain, min_data, min_hess;
+  float l1, l2, min_gain, min_data, min_hess, max_delta_step;
 };
 
+// reference: ThresholdL1 (feature_histogram.hpp:661)
+__device__ __forceinline__ float threshold_l1(float g, const Hyper& hp) {
+  if (!hp.use_l1) return g;
+  const float sign = (g > 0.0f) ? 1.0f : ((g < 0.0f) ? -1.0f : 0.0f);
+  float m = __fsub_rn(fabsf(g), hp.l1);
+  m = m > 0.0f ? m : 0.0f;
+  return __fmul_rn(sign, m);
+}
+
 __device__ __forceinline__ float leaf_gain(float g, float h, const Hyper& hp) {
-  float sg = g;
-  if (hp.use_l1) {
-    const float sign = (g > 0.0f) ? 1.0f : ((g < 0.0f) ? -1.0f : 0.0f);
-    float m = __fsub_rn(fabsf(g), hp.l1);
-    m = m > 0.0f ? m : 0.0f;
-    sg = __fmul_rn(sign, m);
-  }
+  const float sg = threshold_l1(g, hp);
   return __fdiv_rn(__fmul_rn(sg, sg), __fadd_rn(h, hp.l2));
+}
+
+// jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)), NaN kept
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  x = x < lo ? lo : x;
+  return x > hi ? hi : x;
+}
+
+// reference: CalculateSplittedLeafOutput (feature_histogram.hpp:669)
+__device__ __forceinline__ float leaf_output(float g, float h,
+                                             const Hyper& hp) {
+  const float out = __fdiv_rn(-threshold_l1(g, hp), __fadd_rn(h, hp.l2));
+  if (hp.max_delta_step > 0.0f)
+    return clip(out, -hp.max_delta_step, hp.max_delta_step);
+  return out;
+}
+
+// reference: GetLeafGainGivenOutput (feature_histogram.hpp:760),
+// -(2 sg out + (h + l2) out out) in that order
+__device__ __forceinline__ float leaf_gain_given_output(float g, float h,
+                                                        float out,
+                                                        const Hyper& hp) {
+  const float sg = threshold_l1(g, hp);
+  const float a = __fmul_rn(__fmul_rn(2.0f, sg), out);
+  const float b = __fmul_rn(__fmul_rn(__fadd_rn(h, hp.l2), out), out);
+  return -__fadd_rn(a, b);
 }
 
 struct DirResult {
   float gain, lg, lh, lc;
 };
 
+// mc: the feature's monotone constraint, or kNoMono where the mode is off;
+// lo_b/hi_b the child's output bounds (-inf/+inf where none are given)
+constexpr int kNoMono = 2;
+
 __device__ __forceinline__ DirResult eval_dir(float lg, float lh, float lc,
                                               float sg, float total_h,
-                                              float cnt, float mgs,
+                                              float cnt, float mgs, int mc,
+                                              float lo_b, float hi_b,
+                                              bool has_bounds,
                                               const Hyper& hp) {
   const float rg = __fsub_rn(sg, lg);
   const float rh = __fsub_rn(total_h, lh);
   const float rc = __fsub_rn(cnt, lc);
   const bool ok = lc >= hp.min_data && rc >= hp.min_data &&
                   lh >= hp.min_hess && rh >= hp.min_hess;
-  const float gain = __fadd_rn(leaf_gain(lg, lh, hp), leaf_gain(rg, rh, hp));
+  float gain;
+  if (mc == kNoMono) {
+    gain = __fadd_rn(leaf_gain(lg, lh, hp), leaf_gain(rg, rh, hp));
+  } else {
+    float lo = leaf_output(lg, lh, hp);
+    float ro = leaf_output(rg, rh, hp);
+    if (has_bounds) {
+      lo = clip(lo, lo_b, hi_b);
+      ro = clip(ro, lo_b, hi_b);
+    }
+    const bool bad = (mc > 0 && lo > ro) || (mc < 0 && lo < ro);
+    gain = __fadd_rn(leaf_gain_given_output(lg, lh, lo, hp),
+                     leaf_gain_given_output(rg, rh, ro, hp));
+    if (bad) gain = -INFINITY;
+  }
   return {(ok && gain > mgs) ? gain : -INFINITY, lg, lh, lc};
 }
 
 // one block per (child c, feature f), one thread per bin.  kQuant: the
 // histograms hold int32 (grad, hess) levels and the count channel is
-// estimated here; otherwise int64 (grad, hess, count) fixed point
-template <bool kQuant>
+// estimated here; otherwise int64 (grad, hess, count) fixed point.
+// kModes: any of mono, bounds, rand_thr may be given (each null where
+// off); without it the plain scan is compiled alone, the code of the
+// plain launches before those inputs existed
+template <bool kQuant, bool kModes>
 __global__ void scan_kernel(const void* __restrict__ small_v,
                             const void* __restrict__ parent_v,
                             const int* __restrict__ small_left,
                             const float* __restrict__ sums,
                             const int* __restrict__ num_bin,
                             const int* __restrict__ missing_type,
-                            const int* __restrict__ default_bin, int K, int F,
+                            const int* __restrict__ default_bin,
+                            const int* __restrict__ mono,
+                            const float* __restrict__ bounds,
+                            const int* __restrict__ rand_thr, int K, int F,
                             int B, int NC, double m0, double m1, double m2,
                             Hyper hp, float* __restrict__ out_gain,
                             int* __restrict__ out_thr,
@@ -613,15 +675,23 @@ __global__ void scan_kernel(const void* __restrict__ small_v,
   const float total_h = __fadd_rn(sh, kTwoEps);
   const float mgs = __fadd_rn(leaf_gain(sg, total_h, hp), hp.min_gain);
 
+  const int mc = kModes && mono != nullptr ? mono[f] : kNoMono;
+  const bool has_bounds = kModes && bounds != nullptr;
+  const float lo_b = has_bounds ? bounds[c] : -INFINITY;
+  const float hi_b = has_bounds ? bounds[NC + c] : INFINITY;
   const DirResult dr = eval_dir(pf[0], __fadd_rn(pf[1], kEps), pf[2], sg,
-                                total_h, cnt, mgs, hp);
+                                total_h, cnt, mgs, mc, lo_b, hi_b,
+                                has_bounds, hp);
   const DirResult dl = eval_dir(
       __fadd_rn(pf[0], ms[0]), __fadd_rn(__fadd_rn(pf[1], ms[1]), kEps),
-      __fadd_rn(pf[2], ms[2]), sg, total_h, cnt, mgs, hp);
+      __fadd_rn(pf[2], ms[2]), sg, total_h, cnt, mgs, mc, lo_b, hi_b,
+      has_bounds, hp);
 
   const int na_dir = (has_md && mt == kMissingNaN) ? 1 : 0;
-  const bool t_valid = t < nb - 1 - na_dir && valid &&
-                       !(mt == kMissingZero && is_miss);
+  const bool t_valid =
+      t < nb - 1 - na_dir && valid && !(mt == kMissingZero && is_miss) &&
+      (!kModes || rand_thr == nullptr ||
+       t == rand_thr[static_cast<size_t>(c) * F + f]);
   const float g_r = (t_valid && has_md) ? dr.gain : -INFINITY;
   const float g_l = t_valid ? dl.gain : -INFINITY;
 
@@ -756,37 +826,50 @@ extern "C" int fused_accumulate(const void* binned, int bin_bytes,
 // (NC == 2K: children [left 0..K-1, right K..2K-1]).  sums is [3, NC].
 // quant == 0: small/parent int64 [K, 3, F, B]; quant == 1: int32
 // [K, 2, F, B] levels.  m0-m2 are the channel multipliers (2^-s_c, or
-// g_scale, h_scale, 1).
+// g_scale, h_scale, 1).  mono [F] int32, bounds [2, NC] f32 and rand_thr
+// [NC, F] int32 (leaf mode only) may each be null: the mode is off.
 extern "C" int fused_scan(const void* small, const void* parent,
                           const void* small_left, const void* sums,
                           const void* num_bin, const void* missing_type,
-                          const void* default_bin, int K, int F, int B,
-                          int NC, int quant, double m0, double m1, double m2,
-                          int use_l1, float l1, float l2, float min_gain,
-                          float min_data, float min_hess, void* gain,
+                          const void* default_bin, const void* mono,
+                          const void* bounds, const void* rand_thr, int K,
+                          int F, int B, int NC, int quant, double m0,
+                          double m1, double m2, int use_l1, float l1,
+                          float l2, float min_gain, float min_data,
+                          float min_hess, float max_delta_step, void* gain,
                           void* thr, void* dl, void* lg, void* lh, void* lc,
                           void* stream) {
   if (NC <= 0 || F <= 0) return 0;
   if (B <= 0 || B > 1024) return cudaErrorInvalidValue;
-  if (parent != nullptr && (small_left == nullptr || NC != 2 * K))
+  if (parent != nullptr && (small_left == nullptr || NC != 2 * K ||
+                            rand_thr != nullptr))
     return cudaErrorInvalidValue;
   if (parent == nullptr && NC != K) return cudaErrorInvalidValue;
   const int threads = (B + 31) / 32 * 32;
-  const Hyper hp{use_l1, l1, l2, min_gain, min_data, min_hess};
+  const Hyper hp{use_l1, l1, l2, min_gain, min_data, min_hess,
+                 max_delta_step};
   const dim3 grid(NC, F);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ARGS                                                                \
   small, parent, static_cast<const int*>(small_left),                       \
       static_cast<const float*>(sums), static_cast<const int*>(num_bin),    \
       static_cast<const int*>(missing_type),                                \
-      static_cast<const int*>(default_bin), K, F, B, NC, m0, m1, m2, hp,    \
+      static_cast<const int*>(default_bin), static_cast<const int*>(mono),  \
+      static_cast<const float*>(bounds), static_cast<const int*>(rand_thr), \
+      K, F, B, NC, m0, m1, m2, hp,                                          \
       static_cast<float*>(gain), static_cast<int*>(thr),                    \
       static_cast<int*>(dl), static_cast<float*>(lg),                       \
       static_cast<float*>(lh), static_cast<float*>(lc)
-  if (quant)
-    scan_kernel<true><<<grid, threads, 0, st>>>(ARGS);
+  const bool modes = mono != nullptr || bounds != nullptr ||
+                     rand_thr != nullptr;
+  if (quant && modes)
+    scan_kernel<true, true><<<grid, threads, 0, st>>>(ARGS);
+  else if (quant)
+    scan_kernel<true, false><<<grid, threads, 0, st>>>(ARGS);
+  else if (modes)
+    scan_kernel<false, true><<<grid, threads, 0, st>>>(ARGS);
   else
-    scan_kernel<false><<<grid, threads, 0, st>>>(ARGS);
+    scan_kernel<false, false><<<grid, threads, 0, st>>>(ARGS);
 #undef ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,7 +67,17 @@
 //
 // Tables larger than a block's shared memory (many features, many bins)
 // are cut by ops/planner.py into group chunks whose tables fit: grid.y
-// walks the chunks, and each chunk re-reads the X tiles.
+// walks the chunks, and each chunk re-reads the X tiles.  Up to about
+// 1,500 features every chunk stages whole rows of X (all F columns, the
+// float4 path above).  Wider, a chunk stages only the C distinct
+// columns its members read, [C, rows + 4], gathered with scalar loads
+// through its column list (one more table in shared memory): the tile
+// no longer grows with F, so no width is refused.  A group whose tables
+// exceed one chunk is cut into member parts, each its own chunk of a
+// later launch on the same stream: the first part bins every row, a
+// later part (overlay) stores only the rows where one of its members has
+// a non-zero bin, so the parts fold in member order like the members of
+// one chunk.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //        --fmad=false -shared -Xcompiler -fPIC (no fast math: NaN tests).
@@ -82,6 +92,16 @@ namespace {
 
 // member record: column, start, flags, num_bin, word offset, tree depth
 constexpr int kMemberInts = 6;
+// chunk record: groups [g0, g1), members [m0, m1), words [w0, w1),
+// columns [c0, c1) (ops/planner.py CHUNK_INTS)
+constexpr int kChunkInts = 8;
+// a launch's mode (the kernel's template argument, one for all its
+// chunks): every chunk stages whole rows of X (all F columns, read as
+// float4), or gathers its own columns, or gathers them as a later part
+// of split groups (overlay: only non-zero bins are stored)
+constexpr int kWholeRows = 0;
+constexpr int kGathered = 1;
+constexpr int kOverlay = 2;
 constexpr int kFlagCat = 1;
 constexpr int kFlagNanLast = 2;
 constexpr float kCatHuge = 2147483648.0f;
@@ -243,14 +263,23 @@ __device__ __forceinline__ bool store_lane(int* dst, const int (&col)[LR]) {
 }
 
 // a lane's LR bins of one group (avail of its rows inside the tile, > 0),
-// one store where whole and aligned
-template <typename OutT, int LR>
+// one store where whole and aligned; col[i] < 0 is no member's non-zero
+// bin: 0, or, in an overlay launch, left as an earlier launch wrote it
+template <typename OutT, int LR, bool kOverlayStore>
 __device__ __forceinline__ void store_rows(OutT* dst, int avail,
-                                           const int (&col)[LR]) {
-  if (LR <= avail && store_lane<LR>(dst, col)) return;
+                                           int (&col)[LR]) {
+  if constexpr (kOverlayStore) {
 #pragma unroll
-  for (int i = 0; i < LR; ++i)
-    if (i < avail) dst[i] = static_cast<OutT>(col[i]);
+    for (int i = 0; i < LR; ++i)
+      if (i < avail && col[i] >= 0) dst[i] = static_cast<OutT>(col[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < LR; ++i) col[i] = max(col[i], 0);
+    if (LR <= avail && store_lane<LR>(dst, col)) return;
+#pragma unroll
+    for (int i = 0; i < LR; ++i)
+      if (i < avail) dst[i] = static_cast<OutT>(col[i]);
+  }
 }
 
 // the last group g in [0, ng) with gp[g] <= m
@@ -265,38 +294,52 @@ __device__ __forceinline__ int group_of(const int* gp, int ng, int m) {
 }
 
 // LR = tile_rows / 32: a lane bins LR consecutive rows, so every lane of
-// a warp works whatever tile the planner picks
-template <typename OutT, int LR>
+// a warp works whatever tile the planner picks; kMode: kWholeRows,
+// kGathered or kOverlay
+template <typename OutT, int LR, int kMode>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     ingest_kernel(const float* __restrict__ X, long long n, int F,
                   int tile_rows, const int* __restrict__ group_ptr,
                   const int* __restrict__ members,
                   const int* __restrict__ words,
-                  const int* __restrict__ chunks, OutT* __restrict__ out) {
+                  const int* __restrict__ chunks,
+                  const int* __restrict__ columns, OutT* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int stride = tile_rows + 4;  // column-major [F, R + 4]
+  const int stride = tile_rows + 4;  // column-major [C, R + 4]
   const int gmask = tile_rows / 4 - 1;
   const int warps = blockDim.x >> 5;
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
   // this block's group chunk: groups [g0, g1), members [m0, m1), words
-  // [w0, w1)
-  const int* ch = chunks + 3 * blockIdx.y;
-  const int g0 = ch[0], m0 = ch[1], w0 = ch[2];
-  const int ng = ch[3] - g0, nm = ch[4] - m0, nw = ch[5] - w0;
-  float* xs = reinterpret_cast<float*>(smem);                  // [F, stride]
-  int* part = reinterpret_cast<int*>(xs + F * stride);  // [warps, 2, R]
+  // [w0, w1), columns [c0, c1) of the column lists; a member's column is
+  // its index in the chunk's list (the raw column in kWholeRows)
+  constexpr bool kGather = kMode != kWholeRows;
+  const int* ch = chunks + kChunkInts * blockIdx.y;
+  const int g0 = ch[0], m0 = ch[2], w0 = ch[4];
+  const int ng = ch[1] - g0, nm = ch[3] - m0, nw = ch[5] - w0;
+  const int c0 = kGather ? ch[6] : 0;
+  const int nc = kGather ? ch[7] - c0 : F;
+  float* xs = reinterpret_cast<float*>(smem);                 // [C, stride]
+  int* part = reinterpret_cast<int*>(xs + nc * stride);  // [warps, 2, R]
   int* mem_sh = part + 2 * warps * tile_rows;
   int* gp_sh = mem_sh + kMemberInts * nm;                      // [ng + 1]
   int* tab_sh = gp_sh + ng + 1;                                // [nw]
+  int* col_sh = tab_sh + nw;                      // [nc], gathered chunks
   for (int i = threadIdx.x; i < nm * kMemberInts; i += blockDim.x) {
     int x = members[kMemberInts * m0 + i];
     if (i % kMemberInts == 4) x -= w0;
     mem_sh[i] = x;
   }
+  // a part of a split group holds some of its group's members: [0, nm)
+  // (whole-row chunks hold whole groups; the clamp there pushed the
+  // 28-feature kernel over its 64 registers into a spill)
   for (int i = threadIdx.x; i <= ng; i += blockDim.x)
-    gp_sh[i] = group_ptr[g0 + i] - m0;
+    gp_sh[i] = kGather ? min(max(group_ptr[g0 + i] - m0, 0), nm)
+                       : group_ptr[g0 + i] - m0;
   for (int i = threadIdx.x; i < nw; i += blockDim.x) tab_sh[i] = words[w0 + i];
+  if constexpr (kGather)
+    for (int i = threadIdx.x; i < nc; i += blockDim.x)
+      col_sh[i] = columns[c0 + i];
   __syncthreads();
 
   // This warp bins members [mb, me) of the chunk, an equal share, so a
@@ -325,7 +368,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   // kVec a thread at once, the next tile's first kVec float4 in flight
   // while this tile is binned (a misaligned X takes scalar loads)
   const long long tiles = (n + tile_rows - 1) / tile_rows;
-  const bool vec = (reinterpret_cast<uintptr_t>(X) & 15) == 0;
+  const bool vec = !kGather && (reinterpret_cast<uintptr_t>(X) & 15) == 0;
   float4 pre[kVec];
   long long tile = blockIdx.x;
   if (vec && tile < tiles)
@@ -336,7 +379,15 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
                                           n - r0));
     const int total = rows * F;
     __syncthreads();  // the tables are staged; the last tile is done
-    if (vec) {
+    if constexpr (kGather) {
+      // the chunk's own columns, gathered: a row's columns are read by
+      // neighbouring threads, so a run of adjacent columns is coalesced
+      for (int e = threadIdx.x; e < rows * nc; e += blockDim.x) {
+        const int r = e / nc;
+        const int c = e - r * nc;
+        xs[xpos(r, c, stride, gmask)] = __ldg(X + (r0 + r) * F + col_sh[c]);
+      }
+    } else if (vec) {
       const int total4 = total >> 2;
       store_chunk(xs, stride, gmask, F, total4, 0, pre);
       for (int base = kVec * blockDim.x; base < total4;
@@ -396,9 +447,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
           if (tail) part[(2 * wid + 1) * tile_rows + LR * q + i] = col[i];
         }
       } else if (avail > 0) {
-#pragma unroll
-        for (int i = 0; i < LR; ++i) col[i] = max(col[i], 0);
-        store_rows<OutT, LR>(
+        store_rows<OutT, LR, kMode == kOverlay>(
             out + static_cast<size_t>(g0 + g) * n + r0 + LR * q, avail, col);
       }
     }
@@ -406,7 +455,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     if (merges && avail > 0) {
       int col[LR];
 #pragma unroll
-      for (int i = 0; i < LR; ++i) col[i] = 0;
+      for (int i = 0; i < LR; ++i) col[i] = kMode == kOverlay ? -1 : 0;
       for (int w = wid; w <= w_end; ++w) {
         if (static_cast<long long>(w) * nm / warps ==
             static_cast<long long>(w + 1) * nm / warps)
@@ -417,8 +466,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
         for (int i = 0; i < LR; ++i)
           if (p[i] >= 0) col[i] = p[i];
       }
-      store_rows<OutT, LR>(
-          out + static_cast<size_t>(g0 + g_last) * n + r0 + LR * q, avail, col);
+      store_rows<OutT, LR, kMode == kOverlay>(
+          out + static_cast<size_t>(g0 + g_last) * n + r0 + LR * q, avail,
+          col);
     }
   }
 }
@@ -434,21 +484,26 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }  // namespace
 
 // out_bytes is 1 (uint8 out) or 4 (int32 out); out is [G, n].  members
-// [M, 6] (column, start, flags, num_bin, word offset, tree depth), group_ptr
-// [G + 1] and words [W] are the ragged tables; chunks [nchunks + 1, 3]
-// holds the (group, member, word) boundaries of the group chunks, and
-// smem_bytes covers the X tile, the byte staging and the largest chunk's
-// tables (ops/planner.py ingest_plan).
+// [M, 6] (column index in its chunk's list, start, flags, num_bin, word
+// offset, tree depth), group_ptr [G + 1] and words [W] are the ragged
+// tables; chunks [nchunks, 8] holds this launch's chunk records (groups,
+// members, words, columns) and columns the chunks' column lists; mode is
+// kWholeRows (0), kGathered (1) or kOverlay (2); smem_bytes covers the
+// largest chunk's X tile, partials and tables (ops/planner.py
+// ingest_plan).  A binning whose plan has several launches makes them in
+// order on one stream.
 extern "C" int ingest_bin(const void* X, long long n, int F,
                           const void* group_ptr, const void* members,
                           const void* words, const void* chunks, int nchunks,
-                          int G, int out_bytes, int tile_rows, int grid_x,
+                          const void* columns, int mode, int G,
+                          int out_bytes, int tile_rows, int grid_x,
                           int threads, int smem_bytes, void* out,
                           void* stream) {
   if (n <= 0 || G <= 0) return 0;
   if ((tile_rows != 32 && tile_rows != 64 && tile_rows != 128) ||
       nchunks <= 0 || grid_x <= 0 || threads <= 0 ||
-      threads > kMaxThreads || threads % 32 != 0 || smem_bytes <= 0)
+      threads > kMaxThreads || threads % 32 != 0 || smem_bytes <= 0 ||
+      mode < kWholeRows || mode > kOverlay)
     return cudaErrorInvalidValue;
   const dim3 grid(grid_x, nchunks);
   const size_t smem = static_cast<size_t>(smem_bytes);
@@ -458,22 +513,32 @@ extern "C" int ingest_bin(const void* X, long long n, int F,
   const int* mb = static_cast<const int*>(members);
   const int* wd = static_cast<const int*>(words);
   const int* ch = static_cast<const int*>(chunks);
+  const int* cl = static_cast<const int*>(columns);
   cudaError_t err;
-#define LAUNCH(OutT, LR)                                                   \
-  do {                                                                     \
-    if ((err = allow_smem(ingest_kernel<OutT, LR>, smem)) != cudaSuccess)  \
-      return err;                                                          \
-    ingest_kernel<OutT, LR><<<grid, threads, smem, s>>>(                   \
-        x, n, F, tile_rows, gp, mb, wd, ch, static_cast<OutT*>(out));      \
+#define LAUNCH(OutT, LR, M)                                                  \
+  do {                                                                       \
+    if ((err = allow_smem(ingest_kernel<OutT, LR, M>, smem)) != cudaSuccess) \
+      return err;                                                            \
+    ingest_kernel<OutT, LR, M><<<grid, threads, smem, s>>>(                  \
+        x, n, F, tile_rows, gp, mb, wd, ch, cl, static_cast<OutT*>(out));    \
+  } while (0)
+#define BY_MODE(OutT, LR)                 \
+  do {                                    \
+    if (mode == kWholeRows)               \
+      LAUNCH(OutT, LR, kWholeRows);       \
+    else if (mode == kGathered)           \
+      LAUNCH(OutT, LR, kGathered);        \
+    else                                  \
+      LAUNCH(OutT, LR, kOverlay);         \
   } while (0)
 #define BY_TILE(OutT)               \
   do {                              \
     if (tile_rows == 128)           \
-      LAUNCH(OutT, 4);              \
+      BY_MODE(OutT, 4);             \
     else if (tile_rows == 64)       \
-      LAUNCH(OutT, 2);              \
+      BY_MODE(OutT, 2);             \
     else                            \
-      LAUNCH(OutT, 1);              \
+      BY_MODE(OutT, 1);             \
   } while (0)
   if (out_bytes == 1) {
     BY_TILE(uint8_t);
@@ -483,6 +548,7 @@ extern "C" int ingest_bin(const void* X, long long n, int F,
     return cudaErrorInvalidValue;
   }
 #undef BY_TILE
+#undef BY_MODE
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,11 @@ in ``csrc/fused.cu``, launched back to back on the current stream:
 - ``sibling_scan`` (kernel B5, the counterpart of ``fused_sibling_scan``):
   exact sibling derive + the gain scan, six [NC, F] tuples; given
   ``ops.split.QuantScales`` it takes int32 level histograms and
-  estimates the count channel (``ops.split.quant_count_hist``).
+  estimates the count channel (``ops.split.quant_count_hist``).  Three
+  optional inputs select its other modes, in both: monotone constraints
+  [F] (the monotone gain form), the children's output bounds [2, NC]
+  (the clamp) and, in leaf mode, one random threshold per (child,
+  feature) [NC, F] (extra trees).
 
 ``frontier_splits`` runs the pair (the megakernel's function, B2).
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
@@ -30,7 +34,10 @@ for bit because every sum is an exact integer (``ops/histogram.py``).
 its kernel is launched (``fused_frontier_accumulate`` and
 ``fused_frontier_accumulate_int8``, ...); a B2 is counted at the scan
 launch that completes its pair, and B4's sort under
-``fused_slot_order`` (once before every accumulate).
+``fused_slot_order`` (once before every accumulate).  ``scan_modes``
+splits B5's launches by the optional inputs they took (``plain``,
+``monotone``, ``bounds``, ``rand_thr``, joined by ``+``; ``_int8`` for
+the quantized mode).
 
 The functions named after the JAX package's (``fused_frontier_splits``,
 ``fused_segment_splits``, ``fused_frontier_accumulate``,
@@ -63,12 +70,14 @@ _ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
 _counts_lock = threading.Lock()
 launch_counts = {name + mode: 0 for mode in ("", "_int8")
                  for name in _ENTRIES}
+scan_modes: dict = {}
 
 
 def reset_launch_counts() -> None:
     with _counts_lock:
         for k in launch_counts:
             launch_counts[k] = 0
+        scan_modes.clear()
 
 
 def _count(name: str, quant: bool) -> None:
@@ -118,14 +127,16 @@ def sorted_values_plain(vals_t: torch.Tensor, order: torch.Tensor,
 
 
 def scan_plain(small, scales, child_sums, num_bin, missing_type,
-               default_bin, hp, small_left=None, parent=None):
+               default_bin, hp, small_left=None, parent=None,
+               monotone_constraints=None, child_bounds=None, rand_thr=None):
     hist = (small if parent is None
             else derive_children(small, small_left, parent))
     if isinstance(scales, QuantScales):
         hist = quant_count_hist(hist, child_sums[2])
     return numeric_feature_scan(hist, scales, child_sums[0], child_sums[1],
                                 child_sums[2], num_bin, missing_type,
-                                default_bin, hp)
+                                default_bin, hp, monotone_constraints,
+                                child_bounds, rand_thr)
 
 
 # ----------------------------------------------------------------------
@@ -158,8 +169,10 @@ def _lib():
             lib.fused_accumulate.restype = ctypes.c_int
             lib.fused_scan.argtypes = [
                 p, p, p, p, p, p, p,           # small parent sl sums nb mt db
+                p, p, p,                       # mono bounds rand_thr
                 i, i, i, i, i, d, d, d,        # K F B NC quant m0 m1 m2
-                i, fl, fl, fl, fl, fl,         # use_l1 l1 l2 mgain mdata mhess
+                i, fl, fl, fl, fl, fl, fl,     # use_l1 l1 l2 mgain mdata
+                #                                mhess max_delta_step
                 p, p, p, p, p, p, p]           # six outputs, stream
             lib.fused_scan.restype = ctypes.c_int
             _lib_handle = lib
@@ -228,7 +241,9 @@ def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
 
 
 def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
-               default_bin, hp, small_left=None, parent=None, pair=False):
+               default_bin, hp, small_left=None, parent=None,
+               monotone_constraints=None, child_bounds=None, rand_thr=None,
+               pair=False):
     K, _, F, B = small.shape
     NC = 2 * K if parent is not None else K
     dev = small.device
@@ -251,15 +266,23 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
             None if sl is None else sl.data_ptr(),
             child_sums.data_ptr(), num_bin.data_ptr(),
             missing_type.data_ptr(), default_bin.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (monotone_constraints, child_bounds, rand_thr)),
             K, F, B, NC, int(quant), *channel_multipliers(scales),
             int(hp.lambda_l1 > 0.0),
             f32(hp.lambda_l1), f32(hp.lambda_l2),
             f32(hp.min_gain_to_split), f32(hp.min_data_in_leaf),
-            f32(hp.min_sum_hessian_in_leaf),
+            f32(hp.min_sum_hessian_in_leaf), f32(hp.max_delta_step),
             *(o.data_ptr() for o in outs), _stream(small))
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
     _count("fused_sibling_scan", quant)
+    mode = "+".join(name for name, t in (
+        ("monotone", monotone_constraints), ("bounds", child_bounds),
+        ("rand_thr", rand_thr)) if t is not None) or "plain"
+    with _counts_lock:
+        key = mode + ("_int8" if quant else "")
+        scan_modes[key] = scan_modes.get(key, 0) + 1
     if pair:
         # the launch that completes an accumulate -> scan pair (B2)
         _count("fused_frontier_splits", quant)
@@ -329,7 +352,10 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
                  missing_type: torch.Tensor, default_bin: torch.Tensor,
                  hp: SplitHyperparams,
                  small_left: Optional[torch.Tensor] = None,
-                 parent: Optional[torch.Tensor] = None, pair: bool = False
+                 parent: Optional[torch.Tensor] = None,
+                 monotone_constraints: Optional[torch.Tensor] = None,
+                 child_bounds: Optional[tuple] = None,
+                 rand_thr: Optional[torch.Tensor] = None, pair: bool = False
                  ) -> NumericFeatureBest:
     """Kernel B5: derive the children (parent mode: ``small`` holds each
     candidate's smaller child, ``parent`` its parent; leaf mode: ``small``
@@ -338,10 +364,17 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
     ``frontier_splits``) also counts the launch as one of B2.
     ``scales``: the f32 mode's fixed-point exponents with int64 [K, 3,
     F, B] histograms, or ``QuantScales`` with int32 [K, 2, F, B] level
-    histograms (quantized mode)."""
-    if _check_device(small, child_sums, parent) == "cpu":
+    histograms (quantized mode).  ``monotone_constraints`` [F] int32
+    selects the monotone gain form, ``child_bounds`` ([NC], [NC]) f32
+    the children's output clamp, ``rand_thr`` [NC, F] int32 (leaf mode
+    only) one valid threshold per (child, feature)."""
+    if rand_thr is not None and parent is not None:
+        raise ValueError("random thresholds are a leaf-mode input")
+    if _check_device(small, child_sums, parent, monotone_constraints,
+                     rand_thr, *(child_bounds or ())) == "cpu":
         return scan_plain(small, scales, child_sums, num_bin, missing_type,
-                          default_bin, hp, small_left, parent)
+                          default_bin, hp, small_left, parent,
+                          monotone_constraints, child_bounds, rand_thr)
     quant = isinstance(scales, QuantScales)
     want = torch.int32 if quant else torch.int64
     if small.dtype != want or (parent is not None and parent.dtype != want):
@@ -349,26 +382,45 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
                          f"{'the quantized' if quant else 'the f32'} mode")
     meta = [m.to(torch.int32).contiguous()
             for m in (num_bin, missing_type, default_bin)]
+    NC = small.shape[0] * (2 if parent is not None else 1)
+    F = small.shape[2]
+    mono = bounds = thr = None
+    if monotone_constraints is not None:
+        mono = monotone_constraints.to(torch.int32).contiguous()
+        if mono.shape != (F,):
+            raise ValueError(f"monotone_constraints must be [{F}]")
+    if child_bounds is not None:
+        bounds = torch.stack([b.to(torch.float32) for b in child_bounds]
+                             ).contiguous()
+        if bounds.shape != (2, NC):
+            raise ValueError(f"child_bounds must be two [{NC}] vectors")
+    if rand_thr is not None:
+        thr = rand_thr.to(torch.int32).contiguous()
+        if thr.shape != (NC, F):
+            raise ValueError(f"rand_thr must be [{NC}, {F}]")
     return _scan_cuda(small.contiguous(),
                       scales if quant else tuple(int(s) for s in scales),
                       child_sums.to(torch.float32).contiguous(), *meta, hp,
                       small_left,
                       None if parent is None else parent.contiguous(),
-                      pair=pair)
+                      mono, bounds, thr, pair=pair)
 
 
 def frontier_splits(binned_t, vals_t, slot, num_slots, num_bins, scales,
                     child_sums, small_left, parent, num_bin, missing_type,
-                    default_bin, hp):
+                    default_bin, hp, monotone_constraints=None,
+                    child_bounds=None):
     """The megakernel's function (B2): accumulate the K smaller-child
     histograms (B4), then derive each sibling and scan both children
-    (B5).  Returns (smaller-child hist [K, 3, F, B] int64, or [K, 2, F,
-    B] int32 for int8 values with ``QuantScales``, and [2K, F]
-    tuples)."""
+    (B5, with the monotone constraints and bounds when given).  Returns
+    (smaller-child hist [K, 3, F, B] int64, or [K, 2, F, B] int32 for
+    int8 values with ``QuantScales``, and [2K, F] tuples)."""
     seg = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
     nfb = sibling_scan(seg, scales, child_sums, num_bin, missing_type,
                        default_bin, hp, small_left=small_left,
-                       parent=parent, pair=True)
+                       parent=parent,
+                       monotone_constraints=monotone_constraints,
+                       child_bounds=child_bounds, pair=True)
     return seg, nfb
 
 
@@ -389,6 +441,19 @@ def _quant(quant_scales) -> QuantScales:
     return QuantScales(float(quant_scales[0]), float(quant_scales[1]))
 
 
+def _mono(monotone_constraints, child_bounds, device) -> dict:
+    """The JAX signature's optional scan inputs as tensors on ``device``."""
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x, dtype=dtype, device=device)
+    return {"monotone_constraints": (
+                None if monotone_constraints is None
+                else t(monotone_constraints, torch.int32)),
+            "child_bounds": (
+                None if child_bounds is None
+                else tuple(t(b, torch.float32) for b in child_bounds))}
+
+
 def fused_frontier_accumulate(binned_t, vals_t, slot, num_slots: int,
                               num_bins: int) -> torch.Tensor:
     """The K slot histograms [K, 3, F, B] f32 (each cell the f32 of its
@@ -402,18 +467,22 @@ def fused_frontier_accumulate(binned_t, vals_t, slot, num_slots: int,
 
 def fused_sibling_scan(small_hist, child_sums, num_bin, missing_type,
                        default_bin, hp: SplitHyperparams, small_left=None,
-                       parent_hist=None, quant_scales=None
+                       parent_hist=None, quant_scales=None,
+                       monotone_constraints=None, child_bounds=None
                        ) -> NumericFeatureBest:
     """Sibling derive + gain scan on given f32 histograms (converted to
     fixed point at scales that bound every prefix of every child), or on
-    integer [K, 2, F, B] level histograms with ``quant_scales`` (g, h)."""
+    integer [K, 2, F, B] level histograms with ``quant_scales`` (g, h);
+    ``monotone_constraints`` [F] and ``child_bounds`` ([NC], [NC]) as in
+    the JAX package."""
+    mono = _mono(monotone_constraints, child_bounds, small_hist.device)
     if not small_hist.dtype.is_floating_point:
         meta = _meta(num_bin, missing_type, default_bin, small_hist.device)
         return sibling_scan(
             small_hist.to(torch.int32), _quant(quant_scales),
             torch.as_tensor(child_sums), *meta, hp, small_left=small_left,
             parent=(parent_hist.to(torch.int32) if parent_hist is not None
-                    else None))
+                    else None), **mono)
     hs = [small_hist] + ([parent_hist] if parent_hist is not None else [])
     scales = hist_scales(*hs)
     small = to_fixed(small_hist, scales, 1)
@@ -421,43 +490,49 @@ def fused_sibling_scan(small_hist, child_sums, num_bin, missing_type,
               if parent_hist is not None else None)
     meta = _meta(num_bin, missing_type, default_bin, small.device)
     return sibling_scan(small, scales, torch.as_tensor(child_sums), *meta,
-                        hp, small_left=small_left, parent=parent)
+                        hp, small_left=small_left, parent=parent, **mono)
 
 
 def fused_segment_splits(binned_t, vals_t, slot, num_slots: int,
                          num_bins: int, slot_sums, num_bin, missing_type,
                          default_bin, hp: SplitHyperparams,
-                         quant_scales=None
+                         quant_scales=None, monotone_constraints=None,
+                         child_bounds=None
                          ) -> Tuple[torch.Tensor, NumericFeatureBest]:
     """Leaf mode: K slot histograms and their per-feature-best splits
     (int32 histograms for int8 ``vals_t`` with ``quant_scales``)."""
+    mono = _mono(monotone_constraints, child_bounds, binned_t.device)
     if vals_t.dtype == torch.int8:
         hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins)
         meta = _meta(num_bin, missing_type, default_bin, hist.device)
         return hist, sibling_scan(hist, _quant(quant_scales),
-                                  torch.as_tensor(slot_sums), *meta, hp)
+                                  torch.as_tensor(slot_sums), *meta, hp,
+                                  **mono)
     scales = fixed_point_scales(vals_t)
     hist = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
     meta = _meta(num_bin, missing_type, default_bin, hist.device)
-    best = sibling_scan(hist, scales, torch.as_tensor(slot_sums), *meta, hp)
+    best = sibling_scan(hist, scales, torch.as_tensor(slot_sums), *meta, hp,
+                        **mono)
     return fixed_to_f32(hist, scales, 1), best
 
 
 def fused_frontier_splits(binned_t, vals_t, slot, num_slots: int,
                           num_bins: int, child_sums, small_left,
                           parent_hist, num_bin, missing_type, default_bin,
-                          hp: SplitHyperparams, quant_scales=None
+                          hp: SplitHyperparams, quant_scales=None,
+                          monotone_constraints=None, child_bounds=None
                           ) -> Tuple[torch.Tensor, NumericFeatureBest]:
     """Frontier mode: the K smaller-child histograms (f32; int32 for int8
     ``vals_t`` with ``quant_scales``) and the [2K, F] tuples of both
     children of every candidate."""
+    mono = _mono(monotone_constraints, child_bounds, binned_t.device)
     if vals_t.dtype == torch.int8:
         parent = parent_hist.to(torch.int32)
         meta = _meta(num_bin, missing_type, default_bin, parent.device)
         return frontier_splits(
             binned_t, vals_t, slot, num_slots, num_bins,
             _quant(quant_scales), torch.as_tensor(child_sums),
-            torch.as_tensor(small_left), parent, *meta, hp)
+            torch.as_tensor(small_left), parent, *meta, hp, **mono)
     scales = tuple(min(a, b) for a, b in zip(fixed_point_scales(vals_t),
                                              hist_scales(parent_hist)))
     parent = to_fixed(parent_hist, scales, 1)
@@ -465,7 +540,7 @@ def fused_frontier_splits(binned_t, vals_t, slot, num_slots: int,
     seg, best = frontier_splits(
         binned_t, vals_t, slot, num_slots, num_bins, scales,
         torch.as_tensor(child_sums), torch.as_tensor(small_left), parent,
-        *meta, hp)
+        *meta, hp, **mono)
     return fixed_to_f32(seg, scales, 1), best
 
 

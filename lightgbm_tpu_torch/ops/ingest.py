@@ -8,7 +8,12 @@ plain torch.  ``launch_counts["ingest"]`` counts the kernel's launches.
 The kernel reads its own form of the tables (``kernel_tables``): ragged
 runs of 32-bit words, each feature's own bounds or categorical codes as
 a search tree in BFS order, staged in shared memory in group chunks
-that ``ops/planner.py::ingest_plan`` sizes.
+that ``ops/planner.py::ingest_plan`` sizes.  A wide table's chunks stage
+only their own columns of X, and a group whose tables exceed a chunk is
+binned in member parts over successive launches on the stream (the
+first part writes every row, each later one its non-zero bins), so B3
+bins any width the host bins; only a single feature whose tables exceed
+the card's shared memory is refused (``ingest_plan``).
 
 Byte parity with the host oracle (``Dataset._bin_block``: f64
 ``searchsorted`` against f64 upper bounds) rests on the directed-rounded
@@ -201,6 +206,7 @@ def _lib():
             lib.ingest_bin.argtypes = [
                 p, ll, i,          # X, n, F
                 p, p, p, p, i,     # group_ptr, members, words, chunks, nchunks
+                p, i,              # columns, mode
                 i, i, i, i,        # G, out_bytes, tile_rows, grid_x
                 i, i, p, p]        # threads, smem_bytes, out, stream
             lib.ingest_bin.restype = ctypes.c_int
@@ -316,31 +322,49 @@ def _bin_cuda(X: torch.Tensor, binner: "DeviceBinner") -> torch.Tensor:
     state = binner.kernel_state()
     plan = state.plan
     lib = _lib()
+    first = 0
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.ingest_bin(
-            X.data_ptr(), n, F, state.group_ptr.data_ptr(),
-            state.members.data_ptr(), state.words.data_ptr(),
-            state.chunks.data_ptr(), len(plan.chunks) - 1, G,
-            out.element_size(), plan.tile_rows,
-            planner.ingest_grid(plan, n), plan.threads,
-            plan.smem_bytes, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"ingest kernel launch failed: CUDA error {rc}")
-    with _counts_lock:
-        launch_counts["ingest"] += 1
+        # the launches of one binning run in order on the stream: a split
+        # group's later parts overwrite the earlier parts' rows
+        for j, launch in enumerate(plan.launches):
+            rc = lib.ingest_bin(
+                X.data_ptr(), n, F, state.group_ptr.data_ptr(),
+                state.members.data_ptr(), state.words.data_ptr(),
+                state.chunks.data_ptr() + 4 * planner.CHUNK_INTS * first,
+                len(launch), state.columns.data_ptr(), plan.mode(j), G,
+                out.element_size(), plan.tile_rows,
+                planner.ingest_grid(plan, n, j), plan.threads,
+                plan.smem_bytes, out.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"ingest kernel launch failed: CUDA error {rc}")
+            with _counts_lock:
+                launch_counts["ingest"] += 1
+            first += len(launch)
     return out
 
 
 class _KernelState(NamedTuple):
-    """What one binner's kernel launches share: the ragged tables and the
-    group chunks on the card, and the launch plan."""
+    """What one binner's kernel launches share: the ragged tables (each
+    member's column its index in its chunk's column list), the chunk
+    records of every launch and the chunks' column lists on the card,
+    and the launch plan."""
 
     plan: "planner.IngestPlan"
     group_ptr: torch.Tensor
     members: torch.Tensor
     words: torch.Tensor
     chunks: torch.Tensor
+    columns: torch.Tensor
+
+
+def plan_tables(num_features: int, kt: KernelTables) -> "planner.IngestPlan":
+    """``ops/planner.py::ingest_plan`` for ``kernel_tables``' output."""
+    M = int(kt.group_ptr[-1])
+    member_words = np.append(kt.members[:M, 4], kt.group_words[-1])
+    return planner.ingest_plan(num_features, kt.group_ptr, member_words,
+                               kt.members[:M, 0])
 
 
 class DeviceBinner:
@@ -350,7 +374,9 @@ class DeviceBinner:
     where a group has more than 256 bins) on the input's device — the
     JAX package's binner returns [n, G]; the port writes the trainer's
     layout directly.  The kernel's ragged tables and launch plan are
-    made at the first CUDA call (``ops/planner.py ingest_plan``)."""
+    made at the first CUDA call (``ops/planner.py ingest_plan``); one
+    binning is one launch, or one for each part of the largest split
+    group (``launch_counts["ingest"]`` counts launches)."""
 
     def __init__(self, tables: IngestTables, device=None):
         self.tables = tables
@@ -362,13 +388,18 @@ class DeviceBinner:
     def kernel_state(self) -> _KernelState:
         if self._state is None:
             kt = kernel_tables(self.tables)
-            plan = planner.ingest_plan(self.tables.num_features,
-                                       kt.group_ptr, kt.group_words)
+            plan = plan_tables(self.tables.num_features, kt)
+            members = kt.members.copy()
+            M = int(kt.group_ptr[-1])
+            members[:M, 0] = plan.local_column
+            chunks = np.asarray([c for launch in plan.launches
+                                 for c in launch] or [[0] * planner.CHUNK_INTS],
+                                np.int32)
             dev = self.bounds.device
             self._state = _KernelState(
                 plan, *(torch.from_numpy(a).to(dev) for a in (
-                    kt.group_ptr, kt.members, kt.words,
-                    np.asarray(plan.chunks, np.int32))))
+                    kt.group_ptr, members, kt.words, chunks,
+                    np.asarray(plan.columns or (0,), np.int32))))
         return self._state
 
     def plain(self, X: torch.Tensor) -> torch.Tensor:

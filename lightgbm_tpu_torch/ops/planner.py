@@ -42,18 +42,34 @@ by slot; the JAX planner's ``plan_fused`` VMEM model does not apply:
 
 The binning kernel B3 (``csrc/ingest.cu``) stages its tables once per
 persistent block (``ingest_plan``): the member records and ragged
-bound/code words of a chunk of groups, at most ``INGEST_TABLE_BYTES``
-(and what the card's per-block maximum leaves beside the smallest X
-tile); more groups are cut into several chunks (the grid's y axis).
-Its X tile is the largest of ``INGEST_TILE_ROWS`` whose column-major
-[F, rows + 4] f32 tile and tables fit ``INGEST_SMEM_TARGET``, else 32
-rows (a warp bins a tile's rows, rows / 32 a lane); ``ingest_grid``
-launches as many blocks as the card holds at once (``SM_COUNT`` x
-blocks per SM by shared memory and registers), each walking row tiles;
-a block's warps split the chunk's members evenly, 8 warps where two
-blocks fit an SM, else 16 (``INGEST_THREADS``).  The smallest tile,
-144 F + 4,096 bytes, caps a binner at about 1,580 features, less its
-largest group's tables.
+bound/code words of a chunk of groups (the grid's y axis walks the
+chunks).  Two layouts of its X tile:
+
+- all columns: while a column-major [F, rows + 4] f32 tile of every
+  column fits beside any single group's tables (about 1,500 features),
+  the chunks are cut by their tables alone (at most
+  ``INGEST_TABLE_BYTES`` and what the card's per-block maximum leaves
+  beside the smallest tile), and every block stages whole rows with
+  vector loads: the layout of the 28- and 674-feature tables;
+- the chunk's own columns: wider tables cut the chunks by their tables
+  plus the [C, rows + 4] tile of the C distinct columns their members
+  read, at most ``INGEST_SMEM_TARGET`` at the smallest tile, and each
+  block gathers its chunk's columns (the column list is one more
+  table).  A group whose tables alone exceed that is split into member
+  parts: the first part bins every row in the first launch, part j in
+  launch j + 1 writes only its non-zero bins, so the parts fold in
+  member order (the EFB fold keeps the last member whose bin is not 0).
+
+The tile is the largest of ``INGEST_TILE_ROWS`` whose chunks all fit
+``INGEST_SMEM_TARGET``, else 32 rows (a warp bins a tile's rows, rows /
+32 a lane); ``ingest_grid`` sizes each launch: as many blocks a chunk as
+the card holds at once (``SM_COUNT`` x blocks per SM by shared memory
+and registers), each walking row tiles; a block's warps split the
+chunk's members evenly, 8 warps where two blocks fit an SM, else 16
+(``INGEST_THREADS``).  Only a member whose own tables and one-column
+tile exceed the card's per-block maximum is refused: a numerical
+feature of more than about 57,000 bins, or a categorical one of more
+than about 28,000 codes.
 
 The whole-dataset histogram kernel (``csrc/histogram.cu``, B6) takes
 fixed tiles; the JAX kernel's (feat_tile, block_rows) VMEM grid
@@ -186,24 +202,46 @@ INGEST_TILE_ROWS = (128, 64, 32)
 INGEST_SMEM_TARGET = 100 * 1024
 INGEST_TABLE_BYTES = 96 * 1024
 _MEMBER_INTS = 6
+# a chunk record: groups [g0, g1), members [m0, m1), words [w0, w1),
+# columns [c0, c1) of the plan's column lists
+CHUNK_INTS = 8
+# the kernel's launch modes (csrc/ingest.cu): whole rows of X; the
+# chunk's own columns; those, as a later part of split groups (only
+# non-zero bins are written)
+MODE_WHOLE_ROWS, MODE_GATHERED, MODE_OVERLAY = 0, 1, 2
 
 
 class IngestPlan(NamedTuple):
-    """One binner's launch shape: rows per X tile, the group chunks as
-    (group, member, word) boundaries (nchunks + 1 triples), the dynamic
-    shared memory of a block, and its threads."""
+    """One binner's launch shape: rows per X tile; the launches, each a
+    tuple of chunk records (``CHUNK_INTS`` ints); the chunks' column
+    lists, concatenated; each member's column index within its chunk's
+    list; the dynamic shared memory of a block, and its threads;
+    whether the chunks stage whole rows of X (all F columns)."""
 
     tile_rows: int
-    chunks: Tuple[Tuple[int, int, int], ...]
+    launches: Tuple[Tuple[Tuple[int, ...], ...], ...]
+    columns: Tuple[int, ...]
+    local_column: Tuple[int, ...]
     smem_bytes: int
     threads: int
+    whole_rows: bool
+
+    @property
+    def num_chunks(self) -> int:
+        return sum(len(launch) for launch in self.launches)
+
+    def mode(self, launch: int) -> int:
+        """The kernel's mode for launch ``launch``."""
+        if self.whole_rows:
+            return MODE_WHOLE_ROWS
+        return MODE_OVERLAY if launch > 0 else MODE_GATHERED
 
 
-def _ingest_tile_bytes(num_features: int, tile_rows: int,
+def _ingest_tile_bytes(num_columns: int, tile_rows: int,
                        threads: int) -> int:
-    """The column-major [F, rows + 4] f32 X tile and the warps' partial
+    """The column-major [C, rows + 4] f32 X tile and the warps' partial
     bins of the groups they share, [warps, 2, rows] int32."""
-    return 4 * (int(num_features) * (tile_rows + 4)
+    return 4 * (int(num_columns) * (tile_rows + 4)
                 + 2 * (threads // 32) * tile_rows)
 
 
@@ -212,55 +250,122 @@ def _ingest_blocks_per_sm(smem_bytes: int, threads: int) -> int:
                       SMEM_PER_SM_BYTES // (smem_bytes + 1024)))
 
 
-def ingest_plan(num_features: int, group_ptr, group_words) -> IngestPlan:
-    """Cut the groups into chunks whose tables (member records, group
-    pointers, words) fit beside an X tile, and pick the tile and the
-    block's threads.  ``group_ptr`` [G + 1] are the member boundaries of
-    the groups, ``group_words`` [G + 1] their word boundaries.  Raises
-    where even one group beside the smallest tile exceeds the per-block
-    maximum."""
+def ingest_plan(num_features: int, group_ptr, member_words,
+                member_columns) -> IngestPlan:
+    """Cut the groups into chunks (and a group too large for one chunk
+    into member parts over successive launches) and pick the X tile and
+    the block's threads.  ``group_ptr`` [G + 1] are the member
+    boundaries of the groups, ``member_words`` [M + 1] the word
+    boundaries of the members' runs, ``member_columns`` [M] the raw
+    column each member reads.  Raises ``ValueError`` only for a member
+    whose own tables and one-column tile exceed the card's per-block
+    maximum (see the module docstring)."""
+    F = int(num_features)
     gp = [int(x) for x in group_ptr]
-    gw = [int(x) for x in group_words]
+    mw = [int(x) for x in member_words]
+    cols = [int(x) for x in member_columns]
     G = len(gp) - 1
-    small = _ingest_tile_bytes(num_features, INGEST_TILE_ROWS[-1],
-                               INGEST_THREADS[-1])
-    budget = min(INGEST_TABLE_BYTES, SMEM_MAX_BYTES - small)
 
-    def table_bytes(a: int, b: int) -> int:
-        return 4 * (_MEMBER_INTS * (gp[b] - gp[a]) + (b - a + 1)
-                    + (gw[b] - gw[a]))
+    def tables(m0: int, m1: int, ng: int, nc: int) -> int:
+        return 4 * (_MEMBER_INTS * (m1 - m0) + (ng + 1) + (mw[m1] - mw[m0])
+                    + nc)
 
-    chunks = [(0, gp[0], gw[0])]
-    first = 0
-    for g in range(G):
-        if table_bytes(g, g + 1) > budget:
-            raise ValueError(
-                f"group {g}'s binning tables ({table_bytes(g, g + 1)} "
-                f"bytes) do not fit the kernel's shared memory beside a "
-                f"{num_features}-feature row tile")
-        if table_bytes(first, g + 1) > budget:
-            chunks.append((g, gp[g], gw[g]))
-            first = g
-    chunks.append((G, gp[G], gw[G]))
-    tables = max([table_bytes(a[0], b[0]) for a, b in zip(chunks, chunks[1:])]
-                 + [4])
+    small_all = _ingest_tile_bytes(F, INGEST_TILE_ROWS[-1],
+                                   INGEST_THREADS[-1])
+    budget = min(INGEST_TABLE_BYTES, SMEM_MAX_BYTES - small_all)
+    # (g0, g1, m0, m1, column set or None for all F) per chunk, per launch
+    launches = [[]]
+    whole_rows = all(tables(gp[g], gp[g + 1], 1, 0) <= budget
+                     for g in range(G))
+    if whole_rows:
+        # every block stages whole rows (all F columns)
+        first = 0
+        for g in range(G + 1):
+            if g == G or tables(gp[first], gp[g + 1], g + 1 - first,
+                                0) > budget:
+                if g > first:
+                    launches[0].append((first, g, gp[first], gp[g], None))
+                first = g
+    else:
+        def cost(m0, m1, ng, cset):
+            return (tables(m0, m1, ng, len(cset))
+                    + _ingest_tile_bytes(len(cset), INGEST_TILE_ROWS[-1],
+                                         INGEST_THREADS[-1]))
+        cur, cset = None, set()
+        for g in range(G):
+            a, b = gp[g], gp[g + 1]
+            gset = set(cols[a:b])
+            if cost(a, b, 1, gset) > INGEST_SMEM_TARGET:
+                if cur is not None:
+                    launches[0].append((cur, g, gp[cur], a, cset))
+                    cur, cset = None, set()
+                parts, m0, pset = [], a, set()
+                for m in range(a, b):
+                    if cost(m, m + 1, 1, {cols[m]}) > SMEM_MAX_BYTES:
+                        raise ValueError(
+                            f"member {m} (column {cols[m]}): its binning "
+                            f"tables ({tables(m, m + 1, 1, 1)} bytes) "
+                            f"exceed the card's shared memory")
+                    if m > m0 and cost(m0, m + 1, 1, pset | {cols[m]}) \
+                            > INGEST_SMEM_TARGET:
+                        parts.append((m0, m, pset))
+                        m0, pset = m, set()
+                    pset = pset | {cols[m]}
+                parts.append((m0, b, pset))
+                for j, (p0, p1, ps) in enumerate(parts):
+                    while len(launches) <= j:
+                        launches.append([])
+                    launches[j].append((g, g + 1, p0, p1, ps))
+                continue
+            if cur is not None and cost(gp[cur], b, g + 1 - cur,
+                                        cset | gset) > INGEST_SMEM_TARGET:
+                launches[0].append((cur, g, gp[cur], a, cset))
+                cur, cset = None, set()
+            if cur is None:
+                cur = g
+            cset = cset | gset
+        if cur is not None:
+            launches[0].append((cur, G, gp[cur], gp[G], cset))
+
+    columns, local = [], list(cols)
+    records, chunk_bytes = [], []
+    for launch in launches:
+        recs = []
+        for g0, g1, m0, m1, cset in launch:
+            c0 = len(columns)
+            if cset is None:
+                lst = list(range(F))
+            else:
+                lst = sorted(cset)
+                pos = {c: i for i, c in enumerate(lst)}
+                for m in range(m0, m1):
+                    local[m] = pos[cols[m]]
+            columns.extend(lst)
+            recs.append((g0, g1, m0, m1, mw[m0], mw[m1], c0, len(columns)))
+            chunk_bytes.append((len(lst), tables(
+                m0, m1, g1 - g0, 0 if cset is None else len(lst))))
+        records.append(tuple(recs))
+    chunk_bytes = chunk_bytes or [(F, 4)]
     for threads in INGEST_THREADS:
         for rows in INGEST_TILE_ROWS:
-            smem = _ingest_tile_bytes(num_features, rows, threads) + tables
+            smem = max(_ingest_tile_bytes(nc, rows, threads) + tb
+                       for nc, tb in chunk_bytes)
             if smem <= INGEST_SMEM_TARGET:
                 break
         if _ingest_blocks_per_sm(smem, threads) >= 2:
             break
     if smem > SMEM_MAX_BYTES:
-        raise ValueError(f"{num_features} features do not fit the binning "
-                         f"kernel's shared-memory row tile")
-    return IngestPlan(rows, tuple(chunks), smem, threads)
+        raise ValueError(f"{F} features do not fit the binning kernel's "
+                         f"shared-memory row tile")
+    return IngestPlan(rows, tuple(records), tuple(columns), tuple(local),
+                      smem, threads, whole_rows)
 
 
-def ingest_grid(plan: IngestPlan, rows: int) -> int:
-    """Persistent blocks per chunk: as many as the card holds at once
-    (by shared memory and registers), at most one per row tile."""
+def ingest_grid(plan: IngestPlan, rows: int, launch: int = 0) -> int:
+    """Persistent blocks per chunk of one launch: as many as the card
+    holds at once (by shared memory and registers), at most one per row
+    tile."""
     per_sm = _ingest_blocks_per_sm(plan.smem_bytes, plan.threads)
-    chunks = len(plan.chunks) - 1
+    chunks = len(plan.launches[launch])
     tiles = -(-int(rows) // plan.tile_rows)
     return max(1, min(tiles, SM_COUNT * per_sm // max(chunks, 1)))

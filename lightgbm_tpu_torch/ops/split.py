@@ -46,8 +46,17 @@ The staged search (``feature_best_splits``, ``best_split_for_leaf``,
 ``ops.fused.sibling_scan`` in leaf mode (B5 on the card) and merges the
 categorical tuples over it.  Categorical bitsets cover ``MAX_CAT_WORDS``
 32-bit words (256 bins), held in int64 tensors (torch has no shifts on
-uint32).  Monotone constraints and extra-trees thresholds are not ported
-(the trainer refuses them).
+uint32).
+
+Monotone constraints (``monotone_constraints`` [F], with each child's
+output bounds ``leaf_output_bounds``) switch the scan to the JAX
+package's monotone form: both sides' outputs are clamped to the child's
+bounds, the gain is taken from the clamped outputs
+(``leaf_gain_given_output``), and a split against the feature's
+direction is rejected.  Extra trees give each (child, feature) one
+random threshold (``rand_thr`` [NC, F], ``random_thresholds``) and each
+categorical feature one random category or sorted position (``rand_u``
+of ``_best_categorical``).
 """
 
 from __future__ import annotations
@@ -244,12 +253,30 @@ def quant_rescale_hist(hist_int: torch.Tensor, g_scale, h_scale,
                         -3)
 
 
+def random_thresholds(u: torch.Tensor, num_bin: torch.Tensor
+                      ) -> torch.Tensor:
+    """Extra trees' numeric thresholds (the JAX package's ``rand_t``):
+    ``floor(u * max(num_bin - 1, 1))`` in f32, int32; ``u`` [..., F]
+    uniforms, ``num_bin`` [F]."""
+    span = torch.clamp_min(num_bin.to(torch.int32) - 1, 1).to(torch.float32)
+    return torch.floor(u.to(torch.float32) * span).to(torch.int32)
+
+
+def clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``minimum(hi, maximum(lo, x))``."""
+    return torch.minimum(hi, torch.maximum(lo, x))
+
+
 def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
                          sum_grad: torch.Tensor, sum_hess: torch.Tensor,
                          num_data: torch.Tensor, num_bin: torch.Tensor,
                          missing_type: torch.Tensor,
                          default_bin: torch.Tensor,
-                         hp: SplitHyperparams) -> NumericFeatureBest:
+                         hp: SplitHyperparams,
+                         monotone_constraints: Optional[torch.Tensor] = None,
+                         leaf_output_bounds: Optional[tuple] = None,
+                         rand_thr: Optional[torch.Tensor] = None
+                         ) -> NumericFeatureBest:
     """Per-feature best numeric split of each child.
 
     ``hist`` [NC, 3, F, B] int64 fixed-point (grad, hess, count) with
@@ -257,6 +284,11 @@ def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
     ``quant_count_hist`` with ``QuantScales``; ``sum_*`` [NC] f32 child
     totals; ``num_bin``/``missing_type``/``default_bin`` [F] int32.
     A feature with ``num_bin`` 0 (padding) has no valid bin: gain -inf.
+    ``monotone_constraints`` [F] int32 in {-1, 0, 1} selects the
+    monotone form (reference: GetSplitGains USE_MC,
+    feature_histogram.hpp:714-747), with ``leaf_output_bounds`` ([NC],
+    [NC]) f32 the children's output clamp; ``rand_thr`` [NC, F] int32
+    leaves one valid threshold per (child, feature) (extra trees).
     """
     F, B = hist.shape[-2], hist.shape[-1]
     dev = hist.device
@@ -305,14 +337,33 @@ def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
         rc = nd - lc
         ok = ((lc >= min_data) & (rc >= min_data)
               & (lh >= min_hess) & (rh >= min_hess))
-        gain = (leaf_gain(lg, lh, hp.lambda_l1, hp.lambda_l2)
-                + leaf_gain(rg, rh, hp.lambda_l1, hp.lambda_l2))
+        if monotone_constraints is None:
+            gain = (leaf_gain(lg, lh, hp.lambda_l1, hp.lambda_l2)
+                    + leaf_gain(rg, rh, hp.lambda_l1, hp.lambda_l2))
+        else:
+            lo = leaf_output(lg, lh, hp.lambda_l1, hp.lambda_l2,
+                             hp.max_delta_step)
+            ro = leaf_output(rg, rh, hp.lambda_l1, hp.lambda_l2,
+                             hp.max_delta_step)
+            if leaf_output_bounds is not None:
+                lob = leaf_output_bounds[0].to(torch.float32)[:, None, None]
+                upb = leaf_output_bounds[1].to(torch.float32)[:, None, None]
+                lo, ro = clip(lo, lob, upb), clip(ro, lob, upb)
+            mc = monotone_constraints.to(torch.int32)[:, None]
+            bad = ((mc > 0) & (lo > ro)) | ((mc < 0) & (lo < ro))
+            gain = (leaf_gain_given_output(lg, lh, hp.lambda_l1,
+                                           hp.lambda_l2, lo)
+                    + leaf_gain_given_output(rg, rh, hp.lambda_l1,
+                                             hp.lambda_l2, ro))
+            gain = torch.where(bad, neg_inf, gain)
         gain = torch.where(ok & (gain > mgs[:, None, None]), gain, neg_inf)
         return gain, (lg, lh - _EPS32, lc)
 
     na_dir = has_md & (mt == MissingType.NAN)
     t_valid = (bins < (nb - 1 - na_dir.to(torch.int32)[:, None])) & valid
     t_valid &= ~((mt[:, None] == MissingType.ZERO) & is_miss)
+    if rand_thr is not None:
+        t_valid = t_valid & (bins == rand_thr.to(torch.int32)[..., None])
 
     gain_r, left_r = eval_dir(False)
     gain_l, left_l = eval_dir(True)
@@ -356,7 +407,9 @@ def _best_categorical(hist: torch.Tensor, scales: Sequence[int],
                       sum_grad: torch.Tensor, sum_hess: torch.Tensor,
                       num_data: torch.Tensor, num_bin: torch.Tensor,
                       missing_type: torch.Tensor,
-                      hp: SplitHyperparams) -> PerFeatureBest:
+                      hp: SplitHyperparams,
+                      rand_u: Optional[torch.Tensor] = None
+                      ) -> PerFeatureBest:
     """Categorical split search, vectorized over children and features.
 
     ``hist`` [NC, 3, F, B] int64 fixed point at ``scales``; ``sum_*``
@@ -367,7 +420,10 @@ def _best_categorical(hist: torch.Tensor, scales: Sequence[int],
     ends, at most ``max_cat_threshold`` categories on the left;
     ``lambda_l2 += cat_l2``.  Returns per-feature tuples whose threshold
     is the many-vs-many split position and whose bitset holds the bins
-    going left (never the NaN bin)."""
+    going left (never the NaN bin).  Extra trees' ``rand_u`` [NC, F]
+    uniforms keep one category (one-hot mode, ``floor(u * num_bin)``)
+    or one sorted position (``floor(u * usable categories)``) per
+    feature."""
     NC, _, F, B = hist.shape
     dev = hist.device
     l1, l2 = hp.lambda_l1, hp.lambda_l2 + hp.cat_l2
@@ -397,6 +453,11 @@ def _best_categorical(hist: torch.Tensor, scales: Sequence[int],
     # --- one-hot mode: each category against the rest
     oh_lh = h + _EPS32
     onehot = gains(g, oh_lh, c, valid_bin)
+    if rand_u is not None:
+        rand_u = rand_u.to(torch.float32)
+        rand_cat = torch.floor(rand_u * num_bin.to(torch.float32)).to(
+            torch.int64)
+        onehot = torch.where(bins == rand_cat[..., None], onehot, neg_inf)
     oh_k = torch.argmax(onehot, dim=-1)                           # [NC, F]
     oh_gain = _take(onehot, oh_k)
 
@@ -415,8 +476,14 @@ def _best_categorical(hist: torch.Tensor, scales: Sequence[int],
     max_k = min(hp.max_cat_threshold, B)
     n_usable = s_usable.sum(-1, keepdim=True)
 
+    if rand_u is not None:
+        rand_pos = torch.floor(
+            rand_u * n_usable[..., 0].to(torch.float32)).to(torch.int64)
+
     def scan_dir(lg, lh, lc, size_ok):
         gn = gains(lg, lh, lc, size_ok)
+        if rand_u is not None:
+            gn = torch.where(k_idx == rand_pos[..., None], gn, neg_inf)
         kk = torch.argmax(gn, dim=-1)
         return (_take(gn, kk), kk,
                 (_take(lg, kk), _take(lh - _EPS32, kk), _take(lc, kk)))
@@ -537,7 +604,10 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
                         missing_type: torch.Tensor,
                         default_bin: torch.Tensor,
                         is_categorical: torch.Tensor, hp: SplitHyperparams,
-                        feature_mask: Optional[torch.Tensor] = None
+                        feature_mask: Optional[torch.Tensor] = None,
+                        monotone_constraints: Optional[torch.Tensor] = None,
+                        leaf_output_bounds: Optional[tuple] = None,
+                        extra_rand_u: Optional[torch.Tensor] = None
                         ) -> PerFeatureBest:
     """Best split PER FEATURE of each child.
 
@@ -547,13 +617,22 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
     (``ops.fused.sibling_scan``: the kernel on the card, its plain
     version on the CPU); the categorical columns are searched by
     ``_best_categorical`` on their slice and merged over it.  The
-    feature mask sets a masked feature's gain to -inf."""
+    feature mask ([F], or [NC, F] per child) sets a masked feature's
+    gain to -inf.  ``monotone_constraints``/``leaf_output_bounds`` go to
+    the numeric scan; extra trees' ``extra_rand_u`` [NC, F, 2] uniforms
+    give the numeric scan its thresholds (column 0,
+    ``random_thresholds``) and the categorical search its draws (column
+    1)."""
     from .fused import sibling_scan
     sums = torch.stack([sum_grad.to(torch.float32),
                         sum_hess.to(torch.float32),
                         num_data.to(torch.float32)])
+    rand_thr = (random_thresholds(extra_rand_u[..., 0], num_bin)
+                if extra_rand_u is not None else None)
     nfb = sibling_scan(hist, scales, sums, num_bin, missing_type,
-                       default_bin, hp)
+                       default_bin, hp,
+                       monotone_constraints=monotone_constraints,
+                       child_bounds=leaf_output_bounds, rand_thr=rand_thr)
     cat_idx = torch.nonzero(is_categorical.to(torch.bool)).flatten()
     cat_best = None
     if cat_idx.numel():
@@ -561,9 +640,11 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
         ch = hist[:, :, cat_idx]
         if isinstance(scales, QuantScales):
             ch = quant_count_hist(ch, sums[2])
-        cat_best = _best_categorical(ch, scales, sum_grad, sum_hess,
-                                     num_data, num_bin[cat_idx],
-                                     missing_type[cat_idx], hp)
+        cat_best = _best_categorical(
+            ch, scales, sum_grad, sum_hess, num_data, num_bin[cat_idx],
+            missing_type[cat_idx], hp,
+            rand_u=(extra_rand_u[..., cat_idx, 1]
+                    if extra_rand_u is not None else None))
     pf = merge_categorical(nfb, cat_best, cat_idx)
     if feature_mask is not None:
         pf = pf._replace(gain=torch.where(
@@ -575,11 +656,16 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
 def best_split_for_leaf(hist: torch.Tensor, scales: Sequence[int],
                         sum_grad, sum_hess, num_data, num_bin, missing_type,
                         default_bin, is_categorical, hp: SplitHyperparams,
-                        feature_mask: Optional[torch.Tensor] = None
+                        feature_mask: Optional[torch.Tensor] = None,
+                        monotone_constraints: Optional[torch.Tensor] = None,
+                        leaf_output_bounds: Optional[tuple] = None,
+                        extra_rand_u: Optional[torch.Tensor] = None
                         ) -> SplitResult:
     """Best split over all features of each child (see
     ``feature_best_splits``); [NC] fields."""
     pf = feature_best_splits(hist, scales, sum_grad, sum_hess, num_data,
                              num_bin, missing_type, default_bin,
-                             is_categorical, hp, feature_mask)
+                             is_categorical, hp, feature_mask,
+                             monotone_constraints, leaf_output_bounds,
+                             extra_rand_u)
     return pick_best_feature(pf, sum_grad, sum_hess, num_data)

@@ -226,6 +226,29 @@ def higgs_like(rows: int, seed: int, num_features: int = 28):
     return X, (logit > 0).astype(np.float32)
 
 
+MONOTONE_CONSTRAINTS = (1, -1, 0)
+
+
+def monotone_like(rows: int, seed: int, num_features: int = 28):
+    """Regression rows for monotone constraints: upstream LightGBM's
+    generator (tests/python_package_test/test_engine.py,
+    test_monotone_constraints), ``x0`` increasing with a ``sin(10 pi
+    x0)`` ripple, ``x1`` decreasing with a ``cos(10 pi x1)`` ripple,
+    ``x2`` free, plus ``higgs_like`` columns to ``num_features`` (HIGGS
+    width); constrain the first three with ``MONOTONE_CONSTRAINTS``.
+    Returns (X [rows, F] f32, y [rows] f32)."""
+    rng = np.random.RandomState(seed)
+    x0, x1, x2 = rng.rand(rows), rng.rand(rows), rng.rand(rows)
+    y = (5 * x0 + np.sin(10 * np.pi * x0)
+         - 5 * x1 - np.cos(10 * np.pi * x1)
+         + 10 * x2 + rng.rand(rows))
+    X = np.empty((rows, num_features), np.float32)
+    X[:, 0], X[:, 1], X[:, 2] = x0, x1, x2
+    if num_features > 3:
+        X[:, 3:] = higgs_like(rows, seed + 1, num_features - 3)[0]
+    return X, y.astype(np.float32)
+
+
 # the airline on-time schema of the benchm-ml benchmark (2005-2006 ASA
 # Data Expo rows): name, first code, number of codes; DepTime (hhmm) and
 # Distance are numeric

@@ -6,7 +6,7 @@ airline table one-hot encoded as in ``airline_onehot_1m``, 1 M rows x
 on ``sys.path``, to compare two commits on one card in one call (run
 them as A, B, B, A):
 
-    PYTHONPATH=<checkout> python3 tools/torch_ingest_compare.py --label A
+    PYTHONPATH=<checkout> python3 -m lightgbm_tpu_torch.tools.torch_ingest_compare --label A
 
 Prints one JSON line: the train Dataset's construct seconds, the host
 seconds of the binner's set-up (its tables and plan) and of copying X to
@@ -55,7 +55,7 @@ def main() -> int:
     tables = ING.build_ingest_tables(ds)
     t0 = time.perf_counter()
     binner = ING.DeviceBinner(tables, "cuda")
-    if hasattr(binner, "kernel_state"):
+    if hasattr(binner, "kernel_state"):    # older checkouts lack it
         binner.kernel_state()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0

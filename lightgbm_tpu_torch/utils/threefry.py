@@ -22,10 +22,14 @@ variants; ``jax/_src/random.py``: ``_uniform``):
 - ``uniform(key, shape)``: f32 in [0, 1), ``bitcast((bits >> 9) |
   0x3F800000) - 1``.
 
-Keys are tuples of two Python ints.  Draws are plain PyTorch on the
-device of the caller's choosing: torch has few operations on uint32,
-so the words live in int64 tensors, masked to 32 bits after every add
-and shift.  ``PARTITIONABLE`` selects the variant the trainer draws
+Keys are tuples of two Python ints, or a batch of keys: an int64
+tensor [N, 2] of uint32 words, for which ``fold_in`` takes one datum
+per key (or one for all) and ``random_bits``/``uniform`` draw [N,
+*shape], key by key what the single-key draw gives (the grower's
+per-node keys, one vectorised call per round).  Draws are plain PyTorch
+on the device of the caller's choosing: torch has few operations on
+uint32, so the words live in int64 tensors, masked to 32 bits after
+every add and shift.  ``PARTITIONABLE`` selects the variant the trainer draws
 with; it matches JAX's default, and tests set it from
 ``jax.config.jax_threefry_partitionable``.
 """
@@ -41,7 +45,7 @@ PARTITIONABLE = True
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
-Key = Tuple[int, int]
+Key = Union[Tuple[int, int], torch.Tensor]
 Word = Union[int, torch.Tensor]
 
 
@@ -51,7 +55,8 @@ def _rotl(x: Word, r: int) -> Word:
 
 def threefry2x32(key: Key, x1: Word, x2: Word) -> Tuple[Word, Word]:
     """Threefry2x32 with 20 rounds of the counter pair ``(x1, x2)``
-    (Python ints or int64 tensors holding uint32 values) under ``key``;
+    (Python ints or int64 tensors holding uint32 values) under ``key``
+    (two words, ints or tensors that broadcast against the counters);
     returns the pair of output words, masked to 32 bits."""
     k1, k2 = key
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
@@ -75,24 +80,45 @@ def prng_key(seed: int) -> Key:
     return (seed >> 32) & MASK, seed & MASK
 
 
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)`` (``data`` taken as uint32)."""
-    return threefry2x32(key, 0, int(data) & MASK)
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in(key, data)`` (``data`` taken as uint32).  For
+    a batch of keys [N, 2] (or [1, 2]), ``data`` is an int or an integer
+    tensor [N] (one datum per key); returns the [N, 2] folded keys."""
+    if not isinstance(key, torch.Tensor):
+        return threefry2x32(key, 0, int(data) & MASK)
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK
+    k1, k2, d = torch.broadcast_tensors(key[:, 0], key[:, 1], d)
+    y1, y2 = threefry2x32((k1, k2), torch.zeros_like(d), d)
+    return torch.stack([y1, y2], dim=1)
+
+
+def key_tensor(key: Key, device=None) -> torch.Tensor:
+    """One key as a batch of one, [1, 2] int64."""
+    return torch.tensor([[int(key[0]), int(key[1])]], dtype=torch.int64,
+                        device=device)
 
 
 def random_bits(key: Key, shape: Sequence[int], device=None,
                 partitionable: bool = None) -> torch.Tensor:
-    """32-bit random words of ``shape`` (int64 tensor of uint32 values)."""
+    """32-bit random words of ``shape`` (int64 tensor of uint32 values);
+    [N, *shape] for a batch of keys [N, 2]."""
     if partitionable is None:
         partitionable = PARTITIONABLE
     shape = tuple(int(s) for s in shape)
     m = 1
     for s in shape:
         m *= s
+    batch = isinstance(key, torch.Tensor)
+    if batch:
+        device = key.device
+        key = (key[:, 0:1], key[:, 1:2])
+        out_shape = (key[0].shape[0],) + shape
+    else:
+        out_shape = shape
     if partitionable:
         i = torch.arange(m, dtype=torch.int64, device=device)
         y1, y2 = threefry2x32(key, i >> 32, i & MASK)
-        return (y1 ^ y2).view(shape)
+        return (y1 ^ y2).reshape(out_shape)
     if m >= MASK:
         raise NotImplementedError("the non-partitionable draw of 2**32 - 1 "
                                   "words or more is not ported")
@@ -100,12 +126,13 @@ def random_bits(key: Key, shape: Sequence[int], device=None,
     counts = torch.arange(2 * half, dtype=torch.int64, device=device)
     counts[m:] = 0                                   # the odd-size pad
     y1, y2 = threefry2x32(key, counts[:half], counts[half:])
-    return torch.cat([y1, y2])[:m].view(shape)
+    return torch.cat([y1, y2], dim=-1)[..., :m].reshape(out_shape)
 
 
 def uniform(key: Key, shape: Sequence[int], device=None,
             partitionable: bool = None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: f32 in [0, 1)."""
+    """``jax.random.uniform(key, shape)``: f32 in [0, 1) ([N, *shape]
+    for a batch of keys [N, 2])."""
     bits = random_bits(key, shape, device, partitionable)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0

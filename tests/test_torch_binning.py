@@ -394,6 +394,60 @@ def test_warps_split_groups_by_members(warps):
     assert np.array_equal(got, want)
 
 
+def _check_plan(plan, kt, num_features):
+    """A plan's chunks cover every member once, in member order within
+    each group (a split group's parts over successive launches, the
+    first writing every row), each chunk's shared memory fits the plan's
+    and the card's, and each member's column is in its chunk's list."""
+    from lightgbm_tpu_torch.ops import planner
+    gp = kt.group_ptr
+    M = int(gp[-1])
+    seen = np.zeros(M, np.int64)
+    assert plan.tile_rows in planner.INGEST_TILE_ROWS
+    assert plan.threads in planner.INGEST_THREADS
+    assert plan.smem_bytes <= planner.SMEM_MAX_BYTES
+    parts = {}
+    assert plan.mode(0) == (planner.MODE_WHOLE_ROWS if plan.whole_rows
+                            else planner.MODE_GATHERED)
+    for j, launch in enumerate(plan.launches):
+        if j:
+            assert plan.mode(j) == planner.MODE_OVERLAY
+        for g0, g1, m0, m1, w0, w1, c0, c1 in launch:
+            assert 0 <= g0 < g1 and m0 < m1 and c0 < c1
+            assert gp[g0] <= m0 and m1 <= gp[g1]
+            assert (w0, w1) == (kt.members[m0, 4],
+                                kt.members[m1, 4] if m1 < M
+                                else kt.group_words[-1])
+            seen[m0:m1] += 1
+            cols = np.asarray(plan.columns[c0:c1])
+            whole = plan.whole_rows
+            if whole:
+                assert np.array_equal(cols, np.arange(num_features))
+            else:
+                assert np.all(np.diff(cols) > 0)
+            for m in range(m0, m1):
+                assert cols[plan.local_column[m]] == kt.members[m, 0]
+            tables = 4 * (6 * (m1 - m0) + (g1 - g0 + 1) + (w1 - w0)
+                          + (0 if whole else c1 - c0))
+            assert (planner._ingest_tile_bytes(c1 - c0, plan.tile_rows,
+                                               plan.threads)
+                    + tables <= plan.smem_bytes)
+            if gp[g0] < m0 or m1 < gp[g1]:
+                assert g1 == g0 + 1                  # a part of one group
+                parts.setdefault(g0, []).append((j, m0, m1))
+            else:
+                assert j == 0
+    assert np.all(seen == 1)
+    for g, ps in parts.items():
+        assert [p[0] for p in ps] == list(range(len(ps)))
+        assert ps[0][1] == gp[g] and ps[-1][2] == gp[g + 1]
+        assert all(a[2] == b[1] for a, b in zip(ps, ps[1:]))
+
+
+def _plan(kt, num_features):
+    return ting.plan_tables(num_features, kt)
+
+
 @pytest.mark.parametrize("budget", [None, 2048, 700])
 def test_ingest_plan_chunks_fit_and_cover(budget, monkeypatch):
     from lightgbm_tpu_torch.ops import planner
@@ -401,37 +455,155 @@ def test_ingest_plan_chunks_fit_and_cover(budget, monkeypatch):
     kt = ting.kernel_tables(tables)
     if budget is not None:
         monkeypatch.setattr(planner, "INGEST_TABLE_BYTES", budget)
-    plan = planner.ingest_plan(tables.num_features, kt.group_ptr,
-                               kt.group_words)
-    G = tables.num_groups
-    ch = np.asarray(plan.chunks)
-    assert tuple(ch[0]) == (0, 0, 0)
-    assert tuple(ch[-1]) == (G, kt.group_ptr[G], kt.group_words[G])
-    assert np.all(np.diff(ch[:, 0]) > 0)
-    assert plan.tile_rows in planner.INGEST_TILE_ROWS
-    assert plan.threads in planner.INGEST_THREADS
-    assert plan.smem_bytes <= planner.SMEM_MAX_BYTES
-    for a, b in zip(ch, ch[1:]):
-        assert tuple(a[1:]) == (kt.group_ptr[a[0]], kt.group_words[a[0]])
-        tables_bytes = 4 * (6 * (b[1] - a[1]) + (b[0] - a[0] + 1)
-                            + (b[2] - a[2]))
-        assert tables_bytes <= planner.INGEST_TABLE_BYTES
-        assert (planner._ingest_tile_bytes(tables.num_features,
-                                           plan.tile_rows, plan.threads)
-                + tables_bytes <= plan.smem_bytes)
+    plan = _plan(kt, tables.num_features)
+    _check_plan(plan, kt, tables.num_features)
+    chunks = [c for launch in plan.launches for c in launch]
+    assert len(plan.launches) == 1                # no group is split
+    if budget is None:
+        assert len(chunks) == 1
+        assert chunks[0][7] - chunks[0][6] == tables.num_features
     if budget == 700:
-        assert len(ch) - 1 > 1
+        assert len(chunks) > 1
     grid = planner.ingest_grid(plan, 1_000_000)
     assert 1 <= grid <= planner.SM_COUNT * 8
     assert planner.ingest_grid(plan, 5) == 1
-    with pytest.raises(ValueError):
-        monkeypatch.setattr(planner, "INGEST_TABLE_BYTES", 16)
-        planner.ingest_plan(tables.num_features, kt.group_ptr,
-                            kt.group_words)
+    # a table budget below one member's tables no longer refuses: the
+    # chunks stage their own columns and the groups split into parts
+    monkeypatch.setattr(planner, "INGEST_TABLE_BYTES", 16)
+    monkeypatch.setattr(planner, "INGEST_SMEM_TARGET", 4096)
+    plan = _plan(kt, tables.num_features)
+    _check_plan(plan, kt, tables.num_features)
+    assert not plan.whole_rows
+    assert all(c[3] - c[2] == 1 for launch in plan.launches
+               for c in launch)
 
 
 def test_ingest_plan_refuses_rows_too_wide():
+    """Only a member whose own tables exceed the card's shared memory is
+    refused; the widest rows are not (they stage a chunk's columns)."""
     from lightgbm_tpu_torch.ops import planner
-    with pytest.raises(ValueError):
-        planner.ingest_plan(100_000, np.zeros(2, np.int32),
-                            np.zeros(2, np.int32))
+    with pytest.raises(ValueError, match="exceed the card"):
+        planner.ingest_plan(3, [0, 1], [0, 60_000], [2])
+    plan = planner.ingest_plan(100_000, [0, 1], [0, 255], [99_999])
+    assert plan.columns == (99_999,) and plan.local_column == (0,)
+
+
+def _wide_tables(num_features, seed=0, n=400):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, num_features).astype(np.float32)
+    X[rng.rand(n, num_features) < 0.1] = np.nan
+    ds = lt.Dataset(X, label=rng.rand(n).astype(np.float32), device="cpu",
+                    params={"max_bin": 63}).construct()
+    return X, ds, ting.build_ingest_tables(ds)
+
+
+@pytest.mark.parametrize("num_features", [2000, 5000])
+def test_ingest_plan_takes_wide_rows(num_features):
+    """2,000 and 5,000 features: chunks of their own columns, each within
+    the card's shared memory, covering every member; the kernel's bins
+    over that plan (numpy model) equal the plain version's."""
+    from lightgbm_tpu_torch.ops import planner
+    X, ds, tables = _wide_tables(num_features)
+    kt = ting.kernel_tables(tables)
+    plan = _plan(kt, tables.num_features)
+    _check_plan(plan, kt, tables.num_features)
+    chunks = plan.launches[0]
+    assert len(plan.launches) == 1 and len(chunks) > 1
+    assert not plan.whole_rows
+    assert all(c[7] - c[6] < num_features for c in chunks)
+    assert plan.smem_bytes <= planner.INGEST_SMEM_TARGET
+    if num_features == 2000:
+        rows = X[:120]
+        want = ting.DeviceBinner(tables, "cpu")(torch.from_numpy(rows))
+        assert np.array_equal(_plan_model(rows, kt, plan, tables.num_groups),
+                              want.numpy())
+
+
+def test_ingest_plan_splits_a_group_of_2000_members():
+    """One group of 2,000 members (tables of 2,000 two-word runs and
+    records) is cut into member parts over successive launches."""
+    from lightgbm_tpu_torch.ops import planner
+    M = 2000
+    gp = [0, M]
+    words = np.arange(M + 1) * 3
+    plan = planner.ingest_plan(M, gp, words, np.arange(M))
+    assert len(plan.launches) > 1
+    assert all(len(launch) == 1 for launch in plan.launches)
+    assert [plan.mode(j) for j in range(len(plan.launches))] == \
+        [planner.MODE_GATHERED] + [planner.MODE_OVERLAY] * (
+            len(plan.launches) - 1)
+    assert plan.launches[0][0][2] == 0 and plan.launches[-1][0][3] == M
+    assert plan.smem_bytes <= planner.SMEM_MAX_BYTES
+
+
+def _plan_model(X, kt, plan, G, part_order=None):
+    """The kernel over a plan, in numpy: launches in order (or the split
+    groups' parts in ``part_order``), each chunk's members fold their
+    non-zero bins in member order through their chunk's column list; a
+    chunk stores its bins (0 where no member's bin is non-zero), a chunk
+    of an overlay launch only the non-zero ones."""
+    from lightgbm_tpu_torch.ops import planner
+    out = np.full((G, len(X)), -5, np.int64)
+    chunks = [c + (plan.mode(j) == planner.MODE_OVERLAY,)
+              for j, launch in enumerate(plan.launches) for c in launch]
+    if part_order is not None:
+        chunks = part_order(chunks)
+    for g0, g1, m0, m1, w0, w1, c0, c1, overlay in chunks:
+        cols = np.asarray(plan.columns[c0:c1])
+        for g in range(g0, g1):
+            a = max(int(kt.group_ptr[g]), m0)
+            b = min(int(kt.group_ptr[g + 1]), m1)
+            col = np.full(len(X), -1, np.int64)
+            for m in range(a, b):
+                rec = kt.members.copy()
+                rec[m, 0] = cols[plan.local_column[m]]
+                bins = _member_bins(X, kt._replace(members=rec), m)
+                col = np.where(bins != 0, kt.members[m, 1] + bins - 1, col)
+            if overlay:
+                out[g] = np.where(col >= 0, col, out[g])
+            else:
+                out[g] = np.maximum(col, 0)
+    return out
+
+
+def test_split_groups_fold_in_part_order(monkeypatch):
+    """A small shared-memory target splits the one-hot airline table's
+    EFB groups into member parts: the parts, applied launch by launch,
+    give the plain version's bins on rows where several members of a
+    group are non-zero at once (EFB conflicts); applied in the reverse
+    order they do not."""
+    from lightgbm_tpu_torch.ops import planner
+    from lightgbm_tpu_torch.testing import airline_like, one_hot
+    X8, y = airline_like(3000, seed=5)
+    X = one_hot(X8)
+    ds = lt.Dataset(X, label=y, device="cpu").construct()
+    tables = ting.build_ingest_tables(ds)
+    kt = ting.kernel_tables(tables)
+    monkeypatch.setattr(planner, "INGEST_TABLE_BYTES", 512)
+    monkeypatch.setattr(planner, "INGEST_SMEM_TARGET", 6000)
+    plan = _plan(kt, tables.num_features)
+    _check_plan(plan, kt, tables.num_features)
+    assert len(plan.launches) > 2
+    clash = (np.random.RandomState(3).rand(150, X.shape[1]) < 0.3)
+    rows = np.concatenate([X[:200], clash.astype(np.float32),
+                           np.ones((2, X.shape[1]), np.float32)])
+    want = ting.DeviceBinner(tables, "cpu")(torch.from_numpy(rows)).numpy()
+    got = _plan_model(rows, kt, plan, tables.num_groups)
+    assert np.array_equal(got, want)
+
+    def parts_reversed(chunks):
+        # every split group's parts in reverse member order, the last
+        # one writing every row
+        by_group = {}
+        for c in chunks:
+            by_group.setdefault((c[0], c[1]), []).append(c)
+        out = []
+        for cs in by_group.values():
+            if len(cs) > 1 or cs[0][8]:
+                cs = [c[:8] + (int(i > 0),)
+                      for i, c in enumerate(sorted(cs, key=lambda c: -c[2]))]
+            out.extend(cs)
+        return out
+    bad = _plan_model(rows, kt, plan, tables.num_groups,
+                      part_order=parts_reversed)
+    assert not np.array_equal(bad, want)

@@ -39,7 +39,7 @@ def test_import_pulls_in_no_jax():
                 "serving.registry", "serving.server", "utils.log",
                 "binning", "dataset", "engine", "grower", "grower_rounds",
                 "boosting.gbdt", "ops.fused", "ops.histogram", "ops.ingest",
-                "ops.split"):
+                "ops.split", "tools.torch_ingest_compare"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 

@@ -407,11 +407,34 @@ def test_zero_monotone_constraints_fall_back_to_f32():
     assert not jb.boosting._quant_on
 
 
+@pytest.mark.parametrize("params,blocker", [
+    ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, "monotone_constraints"),
+    ({"extra_trees": True}, "extra_trees"),
+], ids=["monotone", "extra_trees"])
+def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
+    """Quantization with monotone constraints or extra trees trains f32
+    histograms, with the JAX package's warning, once; the trees are the
+    f32 run's."""
+    from lightgbm_tpu_torch.boosting import gbdt as tgbdt
+    warnings = []
+    monkeypatch.setattr(tgbdt, "log_warning", warnings.append)
+    X, y = _data(5, 1000, "binary")
+    p = dict(BASE, **BINARY, tpu_hist_method="fused", **params)
+    bt = lt.train(dict(p), lt.Dataset(X, label=y, device="cpu"), 2)
+    assert not bt.boosting._quant_on and not bt.boosting.grower_cfg.quant
+    assert len(warnings) == 1 and blocker in warnings[0]
+    assert "falling back to f32" in warnings[0]
+    jb = lgb.Booster(dict(p), train_set=lgb.Dataset(X, label=y))
+    assert not jb.boosting._quant_on
+    f32 = lt.train(dict(p, use_quantized_grad=False),
+                   lt.Dataset(X, label=y, device="cpu"), 2)
+    assert f32.model_to_string().partition("parameters:")[0] == \
+        bt.model_to_string().partition("parameters:")[0]
+
+
 @pytest.mark.parametrize("params,match", [
     ({"boosting": "goss"}, "GOSS, DART and RF"),
     ({"boosting": "dart"}, "GOSS, DART and RF"),
-    ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, "monotone"),
-    ({"extra_trees": True}, "per-node randomness"),
 ])
 def test_unported_combinations_raise(params, match):
     X, y = _data(5, 300, "binary")
