@@ -28,14 +28,18 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``efb_train``: the airline table one-hot encoded (1,000,000 x 674 f32,
   EFB bundles; ``testing.airline_like``) trained on the staged arm: B3's
   EFB fold, the whole-dataset histogram (B6) for each root, B4 segment
-  histograms, the int64 expansion and B5 in leaf mode; then
-  ``Booster.predict`` through B1 against B1's plain version;
+  histograms and B5 in leaf mode on the group histograms (nothing
+  expanded); then ``Booster.predict`` through B1 against B1's plain
+  version;
 - ``hist6``: B6 against its plain version on that group matrix, timed;
 - ``onehot_scan``: B5 in leaf mode at that table's widest shape (256
-  children of [3, F, 255] expanded histograms), against its plain
-  version, timed;
+  children's [3, G, Bg] group histograms), against its plain version
+  (the int64 expansion to [3, F, 255], then the scan), timed, and the
+  old path's expansion timed;
 - ``cat_train``: the same table with six native categorical features on
   the fused arm with the categorical merge, and B3's categorical branch;
+  then B5 at that run's shape (its median round's candidates, 8
+  features of their own bin counts) against its plain version, timed;
 - ``quant_hist``: B4, B5 and B2 in their int8/int32 mode (quantized
   gradients) against their plain versions at the training run's shapes,
   exact, and timed, with ``quantize_gradients`` (threefry included);
@@ -64,6 +68,11 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   stage their own columns) and on one EFB group whose tables exceed 96
   KiB (member parts over successive launches), each byte-identical to
   ``Dataset._bin_block`` and equal to its plain version.
+
+Every training phase also profiles one more tree (``tree_kernel_ms``):
+the device time summed per kernel (B4 with its sort, B5 by mode, B2, B6,
+B3) from ``torch.profiler``, or from CUDA events around the wrappers
+where the profiler records no device time.
 
 Each phase prints one JSON line.  Any failed check raises, and the
 script exits non-zero; it exits non-zero without a result where CUDA is
@@ -232,6 +241,122 @@ def graph_ms(fn, reps: int) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+# the training kernels by the symbols of their CUDA functions, the
+# first match naming an event (B4's sort kernels before B5's scan)
+TREE_KERNELS = (("B4 sort", ("slot_count_kernel", "slot_scan_kernel",
+                             "slot_scatter_kernel")),
+                ("B4", ("accumulate_kernel",)),
+                ("B5", ("scan_kernel",)),
+                ("B6", ("histogram_kernel",)),
+                ("B3", ("ingest_kernel",)),
+                ("B1", ("leaves_kernel", "scores_kernel")))
+
+
+def _tree_kernel(name: str) -> str:
+    for label, symbols in TREE_KERNELS:
+        if any(sym in name for sym in symbols):
+            return label
+    return "other device work"
+
+
+def cuda_event_kernel_ms(step) -> dict:
+    """Device time per training kernel over one call of ``step``, from
+    CUDA events around each wrapper's launches (B4 with its sort, B5, B6,
+    B3), installed here and removed after."""
+    from lightgbm_tpu_torch.ops import fused, histogram, ingest
+    spans = {}
+    saved = (fused._accumulate_cuda, fused._scan_cuda,
+             histogram._histogram_cuda, ingest._bin_cuda)
+
+    def timed(label, fn):
+        def run(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans.setdefault(label, []).append((a, b))
+            return out
+        return run
+    fused._accumulate_cuda = timed("B4", saved[0])
+    fused._scan_cuda = timed("B5", saved[1])
+    histogram._histogram_cuda = timed("B6", saved[2])
+    ingest._bin_cuda = timed("B3", saved[3])
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        (fused._accumulate_cuda, fused._scan_cuda,
+         histogram._histogram_cuda, ingest._bin_cuda) = saved
+    return {k: sum(a.elapsed_time(b) for a, b in v)
+            for k, v in spans.items()}
+
+
+def tree_kernel_ms(step, fused_arm: bool) -> dict:
+    """Device time summed per training kernel over one call of ``step``
+    (one tree): ``torch.profiler``'s CUDA events by kernel symbol, or,
+    where the profiler does not start or records no device time,
+    ``cuda_event_kernel_ms`` over a further call.  B5 is split by the modes its launches took (from
+    ``fused.scan_modes``); on the fused arm B2 is the sum of its B4 and
+    B5 launches.  An error of ``step`` itself propagates."""
+    from lightgbm_tpu_torch.ops import fused
+    before = dict(fused.scan_modes)
+    ms, source = {}, "torch.profiler"
+    # what reached B5 on group histograms, and what was expanded
+    seen = {"b5_on_group_histograms": 0, "expand_groups_calls": 0}
+    scan, expand = fused._scan_cuda, fused.expand_groups
+
+    def scan_seen(*args, **kw):
+        seen["b5_on_group_histograms"] += kw.get("groups") is not None
+        return scan(*args, **kw)
+
+    def expand_seen(*args, **kw):
+        seen["expand_groups_calls"] += 1
+        return expand(*args, **kw)
+    fused._scan_cuda, fused.expand_groups = scan_seen, expand_seen
+    try:
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as exc:              # a profiler without CUPTI
+            prof = None
+            source = (f"cuda events (the profiler did not start: "
+                      f"{type(exc).__name__})")
+        if prof is not None:
+            try:
+                step()
+                torch.cuda.synchronize()
+            finally:
+                prof.__exit__(None, None, None)
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    label = _tree_kernel(e.name)
+                    ms[label] = (ms.get(label, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3)
+        if not any(v > 0 for k, v in ms.items()
+                   if k != "other device work"):
+            if source == "torch.profiler":
+                source = "cuda events (the profiler recorded no kernel time)"
+            # a further tree, every count below taken over it alone
+            before = dict(fused.scan_modes)
+            seen.update(dict.fromkeys(seen, 0))
+            ms = cuda_event_kernel_ms(step)
+    finally:
+        fused._scan_cuda, fused.expand_groups = scan, expand
+    modes = {k: v - before.get(k, 0) for k, v in fused.scan_modes.items()
+             if v - before.get(k, 0)}
+    out = {"source": source, "b5_launches_by_mode": modes, **seen,
+           **{k: ms.get(k, 0.0) for k, _ in TREE_KERNELS},
+           "other device work": ms.get("other device work", 0.0)}
+    out["B5 by mode"] = {"+".join(sorted(modes)): out["B5"]}
+    if fused_arm:
+        out["B2 (B4 + its sort + B5)"] = out["B4"] + out["B4 sort"] \
+            + out["B5"]
+    return out
 
 
 # node planes the traversal function reads (kernel_args' names)
@@ -563,7 +688,7 @@ def plain_kernels():
              histogram._histogram_cuda)
     ingest._bin_cuda = lambda X, binner: binner.plain(X)
     fused._accumulate_cuda = fused.accumulate_plain
-    fused._scan_cuda = (lambda *args, pair=False, **kw:
+    fused._scan_cuda = (lambda *args, pair=False, plan=None, **kw:
                         fused.scan_plain(*args, **kw))
     histogram._histogram_cuda = histogram.histogram_plain
     return saved
@@ -660,7 +785,16 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         raise AssertionError("the timed run's trees differ")
     per_tree = {k: v / rounds for k, v in timer.seconds.items()}
     per_tree["other"] = timed_s / rounds - sum(per_tree.values())
-    return {"ds": ds, "vs": vs, "bst": bst, "launches": launches, "row": {
+    # one more tree, untimed by sections, for its device time by kernel
+    bst_t.boosting.timer = None
+    gb = bst_t.boosting
+    in_tree = tree_kernel_ms(bst_t.update, fused_arm=(
+        gb.grower_cfg.hist_method in ("auto", "fused")
+        and not gb.meta.has_bundles and not gb.grower_cfg.hp.extra_trees
+        and gb.grower_cfg.bynode_feature_cnt == 0))
+    del bst_t
+    return {"ds": ds, "vs": vs, "bst": bst, "launches": launches,
+            "rounds_log": rounds_log, "row": {
         "rows": X.shape[0], "valid_rows": Xv.shape[0],
         "features": X.shape[1], "rounds": rounds,
         "num_leaves": params["num_leaves"],
@@ -670,6 +804,7 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         "plain_s_per_tree": plain_train_s / rounds,
         "timed_s_per_tree": timed_s / rounds,
         "breakdown_s_per_tree": per_tree,
+        "tree_device_ms": in_tree,
         **({"valid_auc": auc, "valid_logloss": ll}
            if falling == "binary_logloss" else {"valid_" + falling: ll}),
         "launches": launches,
@@ -837,6 +972,7 @@ def phase_hist(ds, bst):
     hp = gb.grower_cfg.hp
     mt = gb.meta_t
     nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    plan = fused.scan_tasks(gb.meta.num_bin, B, "cuda")
     grad, hess = gb.objective.get_gradients(gb.train_score[0])
     vals = _vals_t(grad, hess, torch.ones_like(grad)).contiguous()
     scales = fixed_point_scales(vals)
@@ -875,7 +1011,8 @@ def phase_hist(ds, bst):
 
     def b5():
         return fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
-                                  small_left=small_left, parent=parent)
+                                  small_left=small_left, parent=parent,
+                                  plan=plan)
 
     def b5_plain():
         return fused.scan_plain(small, scales, sums, nb, mty, db, hp,
@@ -884,7 +1021,7 @@ def phase_hist(ds, bst):
     def b2():
         return fused.frontier_splits(binned_t, vals, slot, K, B, scales,
                                      sums, small_left, parent, nb, mty, db,
-                                     hp)
+                                     hp, plan=plan)
 
     def b2_plain():
         seg = accumulate_plain(binned_t, vals, slot, K, B, scales)
@@ -918,7 +1055,7 @@ def phase_hist(ds, bst):
                         + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
     edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, scales, B)
     modes = b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp,
-                         small_left, parent, quant=False)
+                         small_left, parent, plan, quant=False)
     rows_out = {
         "fused_frontier_accumulate": dict(acc, max_abs_err=err_b4),
         "fused_slot_order": slot_order_row(fused, slot, K, vals, scales),
@@ -1270,6 +1407,14 @@ def phase_efb_train(lt, pk):
     ds = r["ds"]
     if not ds.feature_meta().has_bundles:
         raise AssertionError("the one-hot table did not bundle")
+    # B5 reads the group histograms; nothing is expanded (no categorical
+    # column)
+    seen = r["row"]["tree_device_ms"]
+    if (seen["expand_groups_calls"] != 0
+            or seen["b5_on_group_histograms"]
+            != sum(seen["b5_launches_by_mode"].values())):
+        raise AssertionError(f"the staged search expanded histograms or "
+                             f"scanned expanded ones: {seen}")
     expect_launches(r["launches"], positive=(
         "fused_frontier_accumulate", "fused_sibling_scan",
         "fused_slot_order"), zero=("fused_frontier_splits",) + INT8_ENTRIES,
@@ -1292,7 +1437,8 @@ def phase_cat_train(lt, pk):
     """``airline_cat_1m``: the same table with its six categorical
     columns as native ``categorical_feature`` (8 features, no bundles) on
     the fused arm with the categorical merge, and B3's categorical
-    branch."""
+    branch; then B5 at the run's own shape (``b5_cat_row``).  Returns
+    (launches, B5's launches by mode, the B5 row)."""
     from lightgbm_tpu_torch.testing import AIRLINE_CATEGORICAL, airline_like
     X, y = airline_like(EFB_ROWS, seed=11)
     Xv, yv = airline_like(EFB_VALID_ROWS, seed=12)
@@ -1312,10 +1458,81 @@ def phase_cat_train(lt, pk):
                      for m in r["bst"].models)
     if cat_splits == 0:
         raise AssertionError("no categorical split was made")
+    ks = sorted(k for tree in r["rounds_log"] for k, _ in tree)
+    b5 = b5_cat_row(ds, r["bst"], ks[len(ks) // 2])
     emit({"phase": "cat_train", "config": "airline_cat_1m", **r["row"],
           "num_bin": meta.num_bin.tolist(), "categorical_splits": cat_splits,
           "b3_oracle_rows": checked, "predict_b1_launches": b1,
-          "predict": "bit-identical to B1's plain version"})
+          "predict": "bit-identical to B1's plain version",
+          "b5_at_this_shape": b5})
+    return r["launches"], r["row"]["b5_launches_by_mode"], b5
+
+
+def b5_cat_row(ds, bst, K: int) -> dict:
+    """B5 in parent mode (B2's scan half) at the ``cat_train`` shape: K
+    candidates (the run's median round), the table's 8 features at their
+    own bin counts, the run's last gradients and random slots (about half
+    the rows slotted); bit for bit against its plain version, its time
+    (CUDA graph), the plain version's (CUDA events) and its bound: each
+    feature's walked bins of the smaller children and of the parents,
+    once."""
+    from lightgbm_tpu_torch.ops import fused, planner
+    from lightgbm_tpu_torch.ops.histogram import (_vals_t, accumulate_plain,
+                                                  fixed_point_scales)
+    from lightgbm_tpu_torch.ops.split import fixed_to_f32
+    gb = bst.boosting
+    binned_t = ds.binned_t
+    F, n = binned_t.shape
+    B = gb.num_bins
+    hp = gb.grower_cfg.hp
+    mt = gb.meta_t
+    nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    plan = fused.scan_tasks(gb.meta.num_bin, B, "cuda")
+    grad, hess = gb.objective.get_gradients(gb.train_score[0])
+    vals = _vals_t(grad, hess, torch.ones_like(grad)).contiguous()
+    scales = fixed_point_scales(vals)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    r = torch.rand(n, device="cuda", generator=g)
+    pick = torch.randint(0, K, (n,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    other = torch.randint(0, K, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+    slot = torch.where(r < 0.5, pick, torch.full_like(pick, K))
+    parent = accumulate_plain(binned_t, vals, torch.where(r < 0.5, pick,
+                                                          other), K, B,
+                              scales)
+    small = accumulate_plain(binned_t, vals, slot, K, B, scales)
+    small_left = torch.rand(K, device="cuda", generator=g) < 0.5
+    children = fused.derive_children(small, small_left, parent)
+    sums = torch.stack([fixed_to_f32(children[:, c, 0].sum(-1),
+                                     [scales[c]], 0) for c in range(3)])
+    del children
+
+    def k():
+        return fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
+                                  small_left=small_left, parent=parent,
+                                  plan=plan)
+
+    def p():
+        return fused.scan_plain(small, scales, sums, nb, mty, db, hp,
+                                small_left=small_left, parent=parent)
+    best_k, best_p = k(), p()
+    if not same_bits(best_k, best_p):
+        raise AssertionError("B5 (cat shape) differs from its plain "
+                             "version in bits")
+    if not bool(torch.isfinite(best_k.gain).any()):
+        raise AssertionError("B5 (cat shape) found no split")
+    NC = 2 * K
+    walked = sum(planner.scan_walked_bins(x, B) for x in gb.meta.num_bin)
+    return {"candidates": K, "children": NC, "features": F, "bins": B,
+            "walked_bins": walked, "tasks": plan.numel() // 32,
+            "checked": "bit-identical to the plain version",
+            "max_abs_err": max_abs_err(best_k, best_p),
+            "kernel_ms": graph_ms(k, 50),
+            "plain_ms": event_ms(p, 5, warmup=1), "library_ms": None,
+            **bytes_or_ops(2 * K * 3 * walked * 8 + 3 * NC * 4 + K * 4
+                           + 3 * F * 4 + plan.numel() * 4 + NC * F * 4 * 6,
+                           NC * walked * SCAN_OPS_PER_CELL)}
 
 
 def phase_hist6(ds, bst):
@@ -1430,6 +1647,7 @@ def phase_quant_hist(ds, bst):
     hp = gb.grower_cfg.hp
     mt = gb.meta_t
     nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    plan = fused.scan_tasks(gb.meta.num_bin, B, "cuda")
     grad, hess = gb.objective.get_gradients(gb.train_score[0])
     ones = torch.ones_like(grad)
     key = threefry.fold_in(threefry.fold_in(threefry.prng_key(0),
@@ -1468,7 +1686,8 @@ def phase_quant_hist(ds, bst):
 
     def b5():
         return fused.sibling_scan(small, qs, sums, nb, mty, db, hp,
-                                  small_left=small_left, parent=parent)
+                                  small_left=small_left, parent=parent,
+                                  plan=plan)
 
     def b5_plain():
         return fused.scan_plain(small, qs, sums, nb, mty, db, hp,
@@ -1476,7 +1695,8 @@ def phase_quant_hist(ds, bst):
 
     def b2():
         return fused.frontier_splits(binned_t, vals, slot, K, B, qs, sums,
-                                     small_left, parent, nb, mty, db, hp)
+                                     small_left, parent, nb, mty, db, hp,
+                                     plan=plan)
 
     def b2_plain():
         seg = accumulate_plain(binned_t, vals, slot, K, B)
@@ -1515,7 +1735,7 @@ def phase_quant_hist(ds, bst):
                         + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
     edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, None, B)
     modes = b5_mode_rows(fused, small, qs, sums, nb, mty, db, hp,
-                         small_left, parent, quant=True)
+                         small_left, parent, plan, quant=True)
     rows_out = {
         "fused_frontier_accumulate": dict(acc, max_abs_err=err_b4),
         "fused_slot_order": slot_order_row(fused, slot, K, vals, None),
@@ -1625,7 +1845,7 @@ def phase_quant_train(lt, f32_run, data, efb_ds):
 
 
 def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
-                 parent, quant):
+                 parent, plan, quant):
     """B5's other modes at a frontier level's shape (K candidates, NC = 2K
     children), each bit for bit against its plain version, with its time
     (CUDA graph), the plain version's (CUDA events) and its bound: the
@@ -1667,7 +1887,7 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
         return fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
                                   small_left=small_left, parent=parent,
                                   monotone_constraints=mono,
-                                  child_bounds=bounds)
+                                  child_bounds=bounds, plan=plan)
 
     def mono_p():
         return fused.scan_plain(small, scales, sums, nb, mty, db, hp,
@@ -1675,7 +1895,8 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
                                 monotone_constraints=mono,
                                 child_bounds=bounds)
     free_k = fused.sibling_scan(small, scales, sums, nb, mty, db, hp,
-                                small_left=small_left, parent=parent)
+                                small_left=small_left, parent=parent,
+                                plan=plan)
     err = check("monotone+bounds", mono_k(), mono_p(), free_k)
     rows["monotone+bounds"] = {
         "children": NC, "features": F, "bins": B, "max_abs_err": err,
@@ -1691,13 +1912,14 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
 
     def rand_k():
         return fused.sibling_scan(leaf, scales, sums, nb, mty, db, hp,
-                                  rand_thr=thr)
+                                  rand_thr=thr, plan=plan)
 
     def rand_p():
         return fused.scan_plain(leaf, scales, sums, nb, mty, db, hp,
                                 rand_thr=thr)
     err = check("rand_thr", rand_k(), rand_p(),
-                fused.sibling_scan(leaf, scales, sums, nb, mty, db, hp))
+                fused.sibling_scan(leaf, scales, sums, nb, mty, db, hp,
+                                   plan=plan))
     rows["rand_thr"] = {
         "children": NC, "features": F, "bins": B, "max_abs_err": err,
         "kernel_ms": graph_ms(rand_k, 10),
@@ -1707,13 +1929,28 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
     return rows
 
 
+def grouped_scan_cells(mt, B: int, Bg: int) -> int:
+    """Cells of one child's channel that B5 in grouped leaf mode must
+    read, each once: group 0's Bg bins (the child's totals) and each
+    feature's bins 1 .. min(num_bin, B) - 1 at their merged places
+    (``feat_start[f] + b - 1`` of column ``feat_group[f]``)."""
+    fg, fs, nb = (mt[k].cpu().numpy().astype(np.int64)
+                  for k in ("feat_group", "feat_start", "num_bin"))
+    reps = np.maximum(np.minimum(nb, B) - 1, 0)
+    f = np.repeat(np.arange(len(nb)), reps)
+    b = 1 + np.arange(int(reps.sum())) - np.repeat(np.cumsum(reps) - reps,
+                                                   reps)
+    return len(np.union1d(np.arange(Bg), fg[f] * Bg + fs[f] + b - 1))
+
+
 def phase_onehot_scan(ds, bst):
     """B5 in leaf mode at the staged arm's widest shape: 2 x 128 children
-    of the one-hot airline table, [256, 3, F, B] per-feature histograms
-    (B4 group histograms of random slots, expanded as the grower expands
-    them), with the last tree's gradients; bit for bit against the plain
-    version, timed."""
-    from lightgbm_tpu_torch.grower_rounds import make_expand_hist
+    of the one-hot airline table, their [256, 3, G, Bg] group histograms
+    (B4 of random slots, with the last tree's gradients) read by B5 as the
+    grower passes them; bit for bit against the plain version, the int64
+    expansion to [256, 3, F, B] then the scan, and timed, with the old
+    path's expansion timed as a row of its own."""
+    from lightgbm_tpu_torch.grower_rounds import group_layout
     from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.ops.split import fixed_to_f32
@@ -1725,6 +1962,8 @@ def phase_onehot_scan(ds, bst):
     hp = gb.grower_cfg.hp
     mt = gb.meta_t
     nb, mty, db = mt["num_bin"], mt["missing_type"], mt["default_bin"]
+    F = nb.shape[0]
+    plan = fused.scan_tasks(gb.meta.num_bin, B, "cuda")
     grad, hess = gb.objective.get_gradients(gb.train_score[0])
     vals = H._vals_t(grad, hess, torch.ones_like(grad)).contiguous()
     scales = H.fixed_point_scales(vals)
@@ -1732,31 +1971,53 @@ def phase_onehot_scan(ds, bst):
     slot = torch.randint(0, NC, (n,), device="cuda", generator=g,
                          dtype=torch.int32)
     ghist = fused.accumulate(binned_t, vals, slot, NC, Bg, scales)
-    hist = make_expand_hist(mt, B, Bg)(ghist).contiguous()
     sums = torch.stack([fixed_to_f32(ghist[:, c, 0].sum(-1), [scales[c]], 0)
                         for c in range(3)])
-    del ghist
-    F = hist.shape[2]
+    groups = group_layout(mt, B)
+
+    def expand(h):
+        return fused.expand_groups(h, groups, nb)
 
     def k():
-        return fused.sibling_scan(hist, scales, sums, nb, mty, db, hp)
+        return fused.sibling_scan(ghist, scales, sums, nb, mty, db, hp,
+                                  groups=groups, plan=plan)
 
     def p():
-        return fused.scan_plain(hist, scales, sums, nb, mty, db, hp)
+        return fused.scan_plain(expand(ghist), scales, sums, nb, mty, db, hp)
     best_k, best_p = k(), p()
     if not same_bits(best_k, best_p):
-        raise AssertionError("B5 (onehot leaf mode) differs from its plain "
-                             "version in bits")
+        raise AssertionError("B5 (onehot leaf mode, group histograms) "
+                             "differs from its plain version in bits")
     if not bool(torch.isfinite(best_k.gain).any()):
         raise AssertionError("B5 (onehot leaf mode) found no split")
+    tuple_bytes = NC * F * 4 * 6
+    # sums, the five meta vectors, the plan's lane entries
+    meta_bytes = 3 * NC * 4 + 5 * F * 4 + plan.numel() * 4
+    cells = grouped_scan_cells(mt, B, Bg)
+    walked = int(torch.clamp(nb, max=B).sum())
     row = {"phase": "onehot_scan", "children": NC, "features": F,
-           "bins": B, "checked": "bit-identical to the plain version",
+           "groups": G, "group_bins": Bg, "bins": B,
+           "input": "group histograms [NC, 3, G, Bg] int64",
+           "group_cells_read": cells,
+           "checked": "bit-identical to the plain version (the int64 "
+                      "expansion, then the scan)",
            "max_abs_err": max_abs_err(best_k, best_p),
-           "kernel_ms": graph_ms(k, 5),
+           "kernel_ms": graph_ms(k, 20),
            "plain_ms": event_ms(p, 1, warmup=1), "library_ms": None,
-           **bytes_or_ops(NC * 3 * F * B * 8 + 3 * NC * 4 + 3 * F * 4
-                          + NC * F * 4 * 6, NC * F * B * SCAN_OPS_PER_CELL)}
-    del hist, best_p
+           # the group cells the scan needs (group 0's row for the
+           # totals, each feature's own bins), once; the meta; the
+           # tuples; the gain arithmetic of every bin a feature has
+           **bytes_or_ops(NC * 3 * cells * 8 + meta_bytes + tuple_bytes,
+                          NC * walked * SCAN_OPS_PER_CELL)}
+    # the old path: the expansion the grower ran before every search, and
+    # the byte bound of a scan over its [NC, 3, F, B] output
+    row["expansion_old_path"] = {
+        "ms": graph_ms(lambda: expand(ghist), 5),
+        **bytes_or_ops(NC * 3 * G * Bg * 8 + NC * 3 * F * B * 8, 0)}
+    row["expanded_input_bound"] = bytes_or_ops(
+        NC * 3 * F * B * 8 + 3 * NC * 4 + 3 * F * 4 + tuple_bytes,
+        NC * F * B * SCAN_OPS_PER_CELL)
+    del ghist, best_p
     emit(row)
     return row
 
@@ -2037,7 +2298,7 @@ def main() -> int:
     del train_run, train_data
     mono_launches, mono_modes = phase_mono_train(lt, pk, efb_ds)
     del efb_ds
-    phase_cat_train(lt, pk)
+    cat_launches, cat_modes, cat_b5 = phase_cat_train(lt, pk)
     wide, over = phase_wide_ingest(lt)
 
     head = rows[("higgs_500x255", TIMED_ROWS[2], False)]
@@ -2105,7 +2366,9 @@ def main() -> int:
              rand_modes.get("rand_thr", 0), rand_modes),
             ("fused_sibling_scan[onehot leaf]", onehot,
              efb_launches["fused_sibling_scan"],
-             efb_launches["b5_modes"])):
+             efb_launches["b5_modes"]),
+            ("fused_sibling_scan[cat shape]", cat_b5,
+             cat_launches["fused_sibling_scan"], cat_modes)):
         table.append({
             "name": name, "route": "cuda", "source": fused_src,
             "replaces": scan_src, "launches": launches,

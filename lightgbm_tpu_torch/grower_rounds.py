@@ -29,10 +29,11 @@ exact-prefix check and the commit.  Two arms, as in the JAX package:
   the [G, n] group matrix at the group bin axis Bg; the root is B6
   (``ops.histogram.histogram_fixed``), each round's smaller children B4
   (the segment histogram); siblings are ``parent - small`` in int64;
-  ``expand_hist`` turns each [3, G, Bg] group histogram into [3, F, B]
-  per-feature ones (bin 0 rebuilt from the exact totals), and
-  ``ops.split.best_split_for_leaf`` searches them (B5 in leaf mode plus
-  the categorical search).
+  ``ops.split.best_split_for_leaf`` searches the children's group
+  histograms: B5 in leaf mode reads each feature's bins from them (bin
+  0 rebuilt from the exact totals; ``ops.fused.GroupLayout``), and only
+  the categorical columns are expanded to [3, Fc, B] per-feature
+  histograms for the categorical search (``ops.fused.expand_groups``).
 
 Histograms are exact int64 fixed point at one scale per channel and tree
 (``ops/histogram.py``); the cache [L, 3, G, Bg] stays in int64, so every
@@ -47,11 +48,11 @@ sum.  The root is B4 in int8 mode with one slot for the member rows on
 both arms (root sums ``f32(sum q) * scale``, root count the member
 rows); the fused arm runs B2 in int8 mode, and its categorical merge
 adds the estimated counts to the categorical slices first; the staged
-arm runs B4 int8 for the segments, ``make_expand_hist`` on the integer
+arm runs B4 int8 for the segments and B5 in leaf mode on the integer
 group histograms (bin 0 rebuilt in integers, before the count estimate:
-the JAX package rebuilds it after its f32 rescale, ROADMAP queue C) and
-B5 in leaf mode.  ``cfg.quant_renew`` re-fits the leaf outputs from
-the true gradient sums (``ops.renew.quant_train_renew_leaf``).
+the JAX package rebuilds it after its f32 rescale, ROADMAP queue C).
+``cfg.quant_renew`` re-fits the leaf outputs from the true gradient
+sums (``ops.renew.quant_train_renew_leaf``).
 
 Monotone constraints (``monotone_constraints`` [F]) ride both arms, as
 in the JAX package: every leaf carries output bounds ``leaf_min`` /
@@ -96,32 +97,11 @@ from .ops.split import (QuantScales, SplitResult, _best_categorical,
 from .utils import threefry
 
 
-def make_expand_hist(meta_t: dict, num_bins: int, group_bins: int):
-    """The staged arm's ``expand_hist`` (reference: grower_rounds.py:199-
-    215): a function from group histograms [NC, 3, G, Bg] int64 to
-    per-feature ones [NC, 3, F, B].  Feature f's bin b >= 1 is merged bin
-    ``feat_start[f] + b - 1`` of column ``feat_group[f]``; its bin 0
-    (FixHistogram) is the leaf's total minus its other bins.  The totals
-    are the sum over any one group's bins (every group column holds one
-    bin per row), so in integers the rebuilt bin is exact (int64 fixed
-    point, or the int32 levels of quantized training)."""
-    B, Bg = int(num_bins), int(group_bins)
-    fg = meta_t["feat_group"].to(torch.int64)
-    fs = meta_t["feat_start"].to(torch.int64)
-    nb = meta_t["num_bin"].to(torch.int64)
-    b = torch.arange(B, device=fg.device)
-    merged = (fs[:, None] + b[None, :] - 1).clamp(0, Bg - 1)
-    flat = fg[:, None] * Bg + merged                               # [F, B]
-    drop = ~((b[None, :] >= 1) & (b[None, :] < nb[:, None]))
-
-    def expand_hist(ghist: torch.Tensor) -> torch.Tensor:
-        NC, C, G, _ = ghist.shape
-        h = ghist.reshape(NC, C, G * Bg)[:, :, flat]               # [NC,C,F,B]
-        h.masked_fill_(drop, 0)
-        totals = ghist[:, :, 0, :].sum(-1)                         # [NC, C]
-        h[..., 0] = totals[..., None] - h.sum(-1)
-        return h
-    return expand_hist
+def group_layout(meta_t: dict, num_bins: int) -> fused.GroupLayout:
+    """Where the dataset's group histograms keep each feature, for B5's
+    grouped leaf mode and ``ops.fused.expand_groups``."""
+    return fused.GroupLayout(meta_t["feat_group"], meta_t["feat_start"],
+                             int(num_bins))
 
 
 def _rows(r: SplitResult, sl) -> SplitResult:
@@ -193,8 +173,9 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
         mt["num_bin"], mt["missing_type"], mt["default_bin"])
     is_cat = torch.as_tensor(meta.is_categorical, device=dev)
     cat_idx = torch.nonzero(is_cat).flatten() if is_cat.any() else None
-    expand_hist = (make_expand_hist(mt, B, Bg) if meta.has_bundles
-                   else (lambda h: h))
+    groups = group_layout(mt, B) if meta.has_bundles else None
+    # B5's warp tasks, planned once a tree from the host meta
+    scan_plan = fused.scan_tasks(meta.num_bin, B, dev)
     if timer is None:
         def section(_name):
             return contextlib.nullcontext()
@@ -216,9 +197,10 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                parents=None, sides=None) -> SplitResult:
         """Best splits of children given their group histograms
         [NC, 3, G, Bg] int64 and totals [3, NC] f32 (the staged arm's
-        search, and both arms' root); ``bounds`` ([NC], [NC]) their
-        output bounds (monotone constraints), ``parents``/``sides`` [NC]
-        their node ids (per-node randomness)."""
+        search, and both arms' root; B5 reads the groups themselves);
+        ``bounds`` ([NC], [NC]) their output bounds (monotone
+        constraints), ``parents``/``sides`` [NC] their node ids (per-node
+        randomness)."""
         fm, eru = feature_mask, None
         if use_rng:
             with section("draws"):
@@ -228,12 +210,11 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                         fm[None, :] * all_mask[row]
                 if all_eru is not None:
                     eru = all_eru[row]
-        with section("expansion"):
-            h = expand_hist(ghist)
         with section("kernels"):
-            return best_split_for_leaf(h, scales, sums[0], sums[1], sums[2],
-                                       num_bin, missing_type, default_bin,
-                                       is_cat, hp, fm, mc, bounds, eru)
+            return best_split_for_leaf(ghist, scales, sums[0], sums[1],
+                                       sums[2], num_bin, missing_type,
+                                       default_bin, is_cat, hp, fm, mc,
+                                       bounds, eru, groups, scan_plan)
 
     with section("kernels"):
         member = row_mask > 0
@@ -353,7 +334,8 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                 seg, nfb = fused.frontier_splits(
                     binned_t, vals, slot, k, B, scales, csums, sl, ph,
                     num_bin, missing_type, default_bin, hp,
-                    monotone_constraints=mc, child_bounds=cbounds)
+                    monotone_constraints=mc, child_bounds=cbounds,
+                    plan=scan_plan)
                 cat_best = None
                 if cat_idx is not None:
                     # the categorical columns of both children, derived
@@ -374,7 +356,7 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
             with section("kernels"):
                 # the smaller children's segment histograms (B4)
                 seg = fused.accumulate(binned_t, vals, slot, k, Bg, scales)
-            with section("expansion"):
+            with section("siblings"):
                 h_left = torch.where(sl[:, None, None, None], seg, ph - seg)
                 children = torch.cat([h_left, ph - h_left])
             node_k = split_idx + torch.arange(k, device=dev)

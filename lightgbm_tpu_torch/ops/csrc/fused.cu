@@ -18,8 +18,10 @@
 //                          -> hist [K, 3, F, B] int64 (fixed point),
 //                             or [K, 2, F, B] int32 (sums of levels)
 //   scan_kernel          hist (+ parent of the same layout and small_left
-//                        [K] in parent mode) + child sums [3, NC] + meta [F]
-//                        -> six [NC, F] per-feature-best tuples
+//                        [K] in parent mode), or in leaf mode the staged
+//                        arm's group histograms [NC, C, G, Bg] with
+//                        feat_group/feat_start [F], + child sums [3, NC] +
+//                        meta [F] -> six [NC, F] per-feature-best tuples
 //
 // Exact integers in both modes.  f32 mode (fixed_point.cuh, shared with
 // histogram.cu): channel c of a row's value block enters as
@@ -78,17 +80,34 @@
 //    adds its levels into int32 on two channels.  Zero values add
 //    nothing and are skipped.
 //
-// scan: one block per (child, feature), one thread per bin; a block-wide
-// int64 scan (warp shuffles), in int8 mode one more block sum (the hess
-// total), and two arg-max reductions; it is bound by launch and latency
-// at these sizes (~7k blocks of 256 threads).  Three optional inputs, a
-// null pointer each where the mode is off, give the scan the other
-// modes of numeric_feature_scan: mono [F] int32 (monotone constraints:
-// the gain from each side's leaf output, clamped and tested against the
-// feature's direction, reference feature_histogram.hpp:714-747), bounds
-// [2, NC] f32 (each child's output clamp, rows lo and hi) and rand_thr
-// [NC, F] int32 (extra trees, leaf mode: the one threshold a (child,
-// feature) may take).
+// scan: a warp per task, kScanWarps tasks of one child a block
+// (ops/planner.py scan_plan).  A feature of more than 32 bins is a task
+// of its own whose lanes walk its bins in 32-bin chunks, to num_bin and
+// never to B, carrying the prefix; narrower features share a task, one
+// lane per bin, each a segment of the warp.  Prefixes are segmented
+// warp-shuffle scans (int64, or int32 for the int8 levels), each lane
+// keeps its own best threshold of each direction over its bins, and one
+// segmented warp reduction per direction picks the feature's: no block
+// barrier.  The int8 mode first sums the feature's hess row for the
+// count estimate.  In leaf mode on the staged arm the kernel reads the
+// group histograms themselves: bin b >= 1 of feature f is merged bin
+// feat_start[f] + b - 1 of column feat_group[f], bin 0 the child's total
+// (group 0's bins, summed once a block) minus the feature's other bins,
+// the expansion the grower made before in int64 [NC, C, F, B].  Its byte
+// bound counts the cells walked (a 2-bin one-hot column is one lane);
+// on the H100 it runs at 2-8x that bound, held by the walk's per-chunk
+// work (three int64 segmented scans, the gain's f64 conversions and
+// IEEE divisions), not by the loads or the shuffles alone: staging the
+// cells with cp.async, prefetching them to L2, and runs of several bins
+// a lane through shared memory (a tenth of the shuffles) all measured
+// slower (PERF.md).
+// Three optional inputs, a null pointer each where the mode is off, give
+// the scan the other modes of numeric_feature_scan: mono [F] int32
+// (monotone constraints: the gain from each side's leaf output, clamped
+// and tested against the feature's direction, reference
+// feature_histogram.hpp:714-747), bounds [2, NC] f32 (each child's output
+// clamp, rows lo and hi) and rand_thr [NC, F] int32 (extra trees, leaf
+// mode: the one threshold a (child, feature) may take).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17
 //        --fmad=false -shared -Xcompiler -fPIC.
@@ -416,46 +435,37 @@ __global__ void accumulate_kernel(
   }
 }
 
-// inclusive int64 scan over the block (blockDim a multiple of 32)
-__device__ long long block_scan(long long v, long long* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
+// ---------------------------------------------------------------------
+// B5: the gain scan, a warp per task (ops/planner.py scan_plan)
+// ---------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+// warp tasks of one scan block (ops/planner.py SCAN_WARPS)
+constexpr int kScanWarps = 4;
+
+// inclusive scan within each lane's segment: lanes [seg, lane] of the warp
+template <typename T>
+__device__ __forceinline__ T seg_scan(T v, int lane, int seg) {
+#pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
+    const T y = __shfl_up_sync(kFull, v, o);
+    if (lane - o >= seg) v += y;
   }
-  if (lane == 31) warp_tot[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    const int nw = blockDim.x >> 5;
-    long long t = lane < nw ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    if (lane < nw) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (wid > 0) v += warp_tot[wid - 1];
-  __syncthreads();  // warp_tot is reused by the next scan
   return v;
 }
 
-// the sum over the block, in every thread
-__device__ long long block_sum(long long v, long long* warp_tot,
-                               long long* total) {
-  const long long inc = block_scan(v, warp_tot);
-  if (threadIdx.x == blockDim.x - 1) *total = inc;
-  __syncthreads();
-  const long long r = *total;
-  __syncthreads();
-  return r;
+// the sum over the warp, in every lane
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
 struct Arg {
   float v;
   int i;
-  int ok;  // 0 for padding threads: they never win
+  int ok;  // 0 for a lane with no candidate: it never wins
 };
 
 // kLast: ties go to the larger index (the reverse scan's "last max");
@@ -467,37 +477,6 @@ __device__ __forceinline__ bool better(const Arg& a, const Arg& b) {
   if (a.v > b.v) return true;
   if (a.v < b.v) return false;
   return kLast ? a.i > b.i : a.i < b.i;
-}
-
-template <bool kLast>
-__device__ Arg block_argmax(Arg a, Arg* sh) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    Arg b;
-    b.v = __shfl_down_sync(0xffffffffu, a.v, o);
-    b.i = __shfl_down_sync(0xffffffffu, a.i, o);
-    b.ok = __shfl_down_sync(0xffffffffu, a.ok, o);
-    if (better<kLast>(b, a)) a = b;
-  }
-  if (lane == 0) sh[wid] = a;
-  __syncthreads();
-  if (wid == 0) {
-    const int nw = blockDim.x >> 5;
-    a = lane < nw ? sh[lane] : Arg{-INFINITY, 0, 0};
-    for (int o = 16; o > 0; o >>= 1) {
-      Arg b;
-      b.v = __shfl_down_sync(0xffffffffu, a.v, o);
-      b.i = __shfl_down_sync(0xffffffffu, a.i, o);
-      b.ok = __shfl_down_sync(0xffffffffu, a.ok, o);
-      if (better<kLast>(b, a)) a = b;
-    }
-    if (lane == 0) sh[0] = a;
-  }
-  __syncthreads();
-  const Arg r = sh[0];
-  __syncthreads();
-  return r;
 }
 
 struct Hyper {
@@ -582,133 +561,299 @@ __device__ __forceinline__ DirResult eval_dir(float lg, float lh, float lc,
   return {(ok && gain > mgs) ? gain : -INFINITY, lg, lh, lc};
 }
 
-// one block per (child c, feature f), one thread per bin.  kQuant: the
-// histograms hold int32 (grad, hess) levels and the count channel is
-// estimated here; otherwise int64 (grad, hess, count) fixed point.
-// kModes: any of mono, bounds, rand_thr may be given (each null where
-// off); without it the plain scan is compiled alone, the code of the
-// plain launches before those inputs existed
-template <bool kQuant, bool kModes>
-__global__ void scan_kernel(const void* __restrict__ small_v,
-                            const void* __restrict__ parent_v,
-                            const int* __restrict__ small_left,
-                            const float* __restrict__ sums,
-                            const int* __restrict__ num_bin,
-                            const int* __restrict__ missing_type,
-                            const int* __restrict__ default_bin,
-                            const int* __restrict__ mono,
-                            const float* __restrict__ bounds,
-                            const int* __restrict__ rand_thr, int K, int F,
-                            int B, int NC, double m0, double m1, double m2,
-                            Hyper hp, float* __restrict__ out_gain,
-                            int* __restrict__ out_thr,
-                            int* __restrict__ out_dl,
-                            float* __restrict__ out_lg,
-                            float* __restrict__ out_lh,
-                            float* __restrict__ out_lc) {
+// the best candidate of each segment [seg, seg_end), in its first lane:
+// each lane combines with the lane o above it while that lane is in the
+// segment (a suffix reduction, so a segment may start at any lane; the
+// order is total, so overlapping ranges give the same result)
+template <bool kLast>
+__device__ __forceinline__ Arg seg_argmax(Arg a, int lane, int seg_end) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    Arg b;
+    b.v = __shfl_down_sync(kFull, a.v, o);
+    b.i = __shfl_down_sync(kFull, a.i, o);
+    b.ok = __shfl_down_sync(kFull, a.ok, o);
+    if (lane + o < seg_end && better<kLast>(b, a)) a = b;
+  }
+  return a;
+}
+
+// A lane's best threshold so far in one direction, with the left sums
+// it would output
+struct Best {
+  Arg a;
+  float lg, lh, lc;
+};
+
+// B5.  A block runs kScanWarps warp tasks of one child c; a task is one
+// feature of more than 32 walked bins (its lanes walk the bins in 32-bin
+// chunks, carrying the prefix) or a run of narrower features packed into
+// the warp's lanes, one lane per bin (ops/planner.py scan_plan; plan
+// holds each lane's f << 5 | first lane of f, -1 for an idle lane).
+// Every prefix is a segmented warp-shuffle scan and every arg-max a
+// segmented warp reduction: no block barrier, and no lane past
+// min(num_bin, B).  kQuant: int32 (grad, hess) level cells, the count
+// channel estimated here; otherwise int64 (grad, hess, count) fixed
+// point.  kModes: any of mono, bounds, rand_thr may be given (each null
+// where off); without it the plain scan is compiled alone.  kGrouped
+// (leaf mode): small is the staged arm's group histograms [NC, C, G, Bg];
+// bin b >= 1 of feature f is merged bin feat_start[f] + b - 1 of column
+// feat_group[f], and bin 0 is the child's total (group 0's bins, summed
+// once a block) minus the feature's other bins.
+template <bool kQuant, bool kModes, bool kGrouped>
+__global__ void __launch_bounds__(kScanWarps * 32)
+    scan_kernel(const void* __restrict__ small_v,
+                const void* __restrict__ parent_v,
+                const int* __restrict__ small_left,
+                const int* __restrict__ feat_group,
+                const int* __restrict__ feat_start,
+                const int* __restrict__ plan, int tasks,
+                const float* __restrict__ sums,
+                const int* __restrict__ num_bin,
+                const int* __restrict__ missing_type,
+                const int* __restrict__ default_bin,
+                const int* __restrict__ mono,
+                const float* __restrict__ bounds,
+                const int* __restrict__ rand_thr, int K, int F, int B, int G,
+                int Bg, int NC, double m0, double m1, double m2, Hyper hp,
+                float* __restrict__ out_gain, int* __restrict__ out_thr,
+                int* __restrict__ out_dl, float* __restrict__ out_lg,
+                float* __restrict__ out_lh, float* __restrict__ out_lc) {
+  // int32 levels (their sums and prefixes fit: the wrapper caps the rows)
+  // or int64 fixed point
   using HistT = std::conditional_t<kQuant, int, long long>;
   constexpr int C = kQuant ? 2 : 3;  // stored channels
   const HistT* small = static_cast<const HistT*>(small_v);
   const HistT* parent = static_cast<const HistT*>(parent_v);
-  __shared__ long long warp_tot[32];
-  __shared__ long long miss_sh[3];
-  __shared__ long long total_sh;
-  __shared__ Arg arg_sh[32];
-  const int c = blockIdx.x;
-  const int f = blockIdx.y;
-  const int t = threadIdx.x;
-  const bool in = t < B;
+  const int nblk = (tasks + kScanWarps - 1) / kScanWarps;
+  const int c = blockIdx.x / nblk;
+  const int task = (blockIdx.x - c * nblk) * kScanWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+
+  __shared__ HistT tot_sh[3];
+  if constexpr (kGrouped) {
+    // the child's totals: every group column holds one bin per row
+    for (int ch = threadIdx.x >> 5; ch < C; ch += kScanWarps) {
+      const HistT* row = small + (static_cast<size_t>(c) * C + ch) * G * Bg;
+      HistT s = 0;
+      for (int b = lane; b < Bg; b += 32) s += row[b];
+      s = warp_sum(s);
+      if (lane == 0) tot_sh[ch] = s;
+    }
+    __syncthreads();
+  }
+  if (task >= tasks) return;  // warp-uniform
+
+  const int e = plan[task * 32 + lane];
+  const bool mine = e >= 0;
+  // an idle lane takes lane 0's feature and a segment of its own
+  const int f = (mine ? e : plan[task * 32]) >> 5;
+  const int seg = mine ? (e & 31) : lane;
   const int nb = num_bin[f];
+  const int nbw = max(min(nb, B), 1);  // bins walked (bin 0 at least)
+  const bool wide = nbw > 32;
+  const int seg_end = mine ? (wide ? 32 : seg + nbw) : lane + 1;
+  const int chunks = wide ? (nbw + 31) / 32 : 1;  // uniform over the task
   const int mt = missing_type[f];
   const bool has_md = mt != kMissingNone && nb > 2;
   int miss_bin = mt == kMissingNaN ? nb - 1
                                    : (mt == kMissingZero ? default_bin[f] : -1);
   if (!has_md) miss_bin = -1;
-  const bool is_miss = t == miss_bin;
-  const bool valid = t < nb;
-
-  // the child's histogram cell: leaf mode reads it; parent mode derives
-  // h_left = small_left ? small : parent - small, h_right = parent - h_left
   const bool pmode = parent != nullptr;
   const int k = (pmode && c >= K) ? c - K : c;
-  long long v[3] = {0, 0, 0};
-  for (int ch = 0; ch < C; ++ch) {
-    long long x = 0;
-    if (in) {
-      const size_t idx = ((static_cast<size_t>(k) * C + ch) * F + f) * B + t;
-      x = small[idx];
-      if (pmode) {
-        const long long p = parent[idx];
-        const long long hl = small_left[k] ? x : p - x;
-        x = c < K ? hl : p - hl;
+  int fg = 0, fs = 0;
+  if constexpr (kGrouped) {
+    fg = feat_group[f];
+    fs = feat_start[f];
+  }
+
+  // bin b of feature ff of the child, channel ch, from the [K, C, F, B]
+  // layout (parent mode: h_left = small_left ? small : parent - small,
+  // h_right = parent - h_left); 0 outside [0, B)
+  auto cell = [&](int ff, int ch, int b) -> HistT {
+    if (b < 0 || b >= B) return 0;
+    const size_t idx = ((static_cast<size_t>(k) * C + ch) * F + ff) * B + b;
+    HistT x = small[idx];
+    if (pmode) {
+      const HistT p = parent[idx];
+      const HistT hl = small_left[k] ? x : p - x;
+      x = c < K ? hl : p - hl;
+    }
+    return x;
+  };
+  // bin b of this lane's feature from the group histograms, bins 1..nb-1
+  auto gcell = [&](int ch, int b) -> HistT {
+    if (b < 1 || b >= nb || b >= B) return 0;
+    return small[((static_cast<size_t>(c) * C + ch) * G + fg) * Bg + fs + b -
+                 1];
+  };
+
+  // first pass.  Grouped: the feature's bins 1..nb-1 (bin 0 is the total
+  // minus them).  Quantized: the feature's hess total for the count
+  // estimate (grouped: the child's total, as the rebuilt bin 0 makes it;
+  // otherwise the sum over all B bins of the feature's row)
+  HistT rest[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) rest[ch] = 0;
+  long long htot = 0;
+  if constexpr (kGrouped) {
+    for (int kc = 0; kc < chunks; ++kc) {
+      const int b = kc * 32 + lane - seg;
+      if (mine && b < nbw) {
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) rest[ch] += gcell(ch, b);
       }
     }
-    v[ch] = x;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+      rest[ch] = __shfl_sync(kFull, seg_scan(rest[ch], lane, seg), seg_end - 1);
+    if constexpr (kQuant) htot = tot_sh[1];
+  } else if constexpr (kQuant) {
+    unsigned starts = __ballot_sync(kFull, mine && lane == seg);
+    while (starts) {
+      const int s = __ffs(starts) - 1;
+      starts &= starts - 1;
+      const int fe = __shfl_sync(kFull, f, s);
+      long long part = 0;
+      for (int b = lane; b < B; b += 32) part += cell(fe, 1, b);
+      part = warp_sum(part);
+      if (seg == s) htot = part;
+    }
   }
+  // the child's bin b of this lane's feature, stored channel ch (the
+  // missing bin's cell; the walk reads its chunks itself)
+  auto value = [&](int ch, int b) -> HistT {
+    if constexpr (kGrouped)
+      return b == 0 ? tot_sh[ch] - rest[ch] : gcell(ch, b);
+    else
+      return cell(f, ch, b);
+  };
+
   const float sg = sums[c];
   const float sh = sums[NC + c];
   const float cnt = sums[2 * NC + c];
-  if constexpr (kQuant) {
-    // estimated counts (reference feature_histogram.hpp:813, in f32):
-    // C_b = round_half_even(f32(H_b) * cnt / max(f32(sum_b H_b), 1))
-    const long long tot = block_sum(v[1], warp_tot, &total_sh);
-    const float cf = __fdiv_rn(cnt, fmaxf(__ll2float_rn(tot), 1.0f));
-    v[2] = in ? static_cast<long long>(
-                    rintf(__fmul_rn(__ll2float_rn(v[1]), cf)))
-              : 0;
-  }
-  if (t < 3) miss_sh[t] = 0;
-  __syncthreads();
-  if (in && is_miss)
-    for (int ch = 0; ch < 3; ++ch) miss_sh[ch] = v[ch];
-  const bool keep = in && valid && !is_miss;
-  long long pre[3];
-  for (int ch = 0; ch < 3; ++ch) pre[ch] = block_scan(keep ? v[ch] : 0, warp_tot);
+  // estimated counts (reference feature_histogram.hpp:813, in f32):
+  // C_b = round_half_even(f32(H_b) * cnt / max(f32(sum_b H_b), 1))
+  float cf = 0.0f;
+  if constexpr (kQuant) cf = __fdiv_rn(cnt, fmaxf(__ll2float_rn(htot), 1.0f));
+  auto count = [&](HistT h) -> HistT {
+    return static_cast<HistT>(
+        rintf(__fmul_rn(__ll2float_rn(static_cast<long long>(h)), cf)));
+  };
 
-  const double mult[3] = {m0, m1, m2};
-  float pf[3], ms[3];
-  for (int ch = 0; ch < 3; ++ch) {
-    pf[ch] = fixed_to_f32(pre[ch], mult[ch]);
-    ms[ch] = fixed_to_f32(miss_sh[ch], mult[ch]);
+  // the missing bin's cell, read before the walk
+  HistT mv[3] = {0, 0, 0};
+  if (mine && miss_bin >= 0 && miss_bin < B) {
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) mv[ch] = value(ch, miss_bin);
+    if constexpr (kQuant) mv[2] = count(mv[1]);
   }
+  const double mult[3] = {m0, m1, m2};
+  float ms[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) ms[ch] = fixed_to_f32(mv[ch], mult[ch]);
 
   const float total_h = __fadd_rn(sh, kTwoEps);
   const float mgs = __fadd_rn(leaf_gain(sg, total_h, hp), hp.min_gain);
-
   const int mc = kModes && mono != nullptr ? mono[f] : kNoMono;
   const bool has_bounds = kModes && bounds != nullptr;
   const float lo_b = has_bounds ? bounds[c] : -INFINITY;
   const float hi_b = has_bounds ? bounds[NC + c] : INFINITY;
-  const DirResult dr = eval_dir(pf[0], __fadd_rn(pf[1], kEps), pf[2], sg,
-                                total_h, cnt, mgs, mc, lo_b, hi_b,
-                                has_bounds, hp);
-  const DirResult dl = eval_dir(
-      __fadd_rn(pf[0], ms[0]), __fadd_rn(__fadd_rn(pf[1], ms[1]), kEps),
-      __fadd_rn(pf[2], ms[2]), sg, total_h, cnt, mgs, mc, lo_b, hi_b,
-      has_bounds, hp);
-
+  const bool use_rt = kModes && rand_thr != nullptr;
+  const int rt = use_rt ? rand_thr[static_cast<size_t>(c) * F + f] : -1;
   const int na_dir = (has_md && mt == kMissingNaN) ? 1 : 0;
-  const bool t_valid =
-      t < nb - 1 - na_dir && valid && !(mt == kMissingZero && is_miss) &&
-      (!kModes || rand_thr == nullptr ||
-       t == rand_thr[static_cast<size_t>(c) * F + f]);
-  const float g_r = (t_valid && has_md) ? dr.gain : -INFINITY;
-  const float g_l = t_valid ? dl.gain : -INFINITY;
 
-  const Arg best_l = block_argmax<true>(Arg{g_l, t, in ? 1 : 0}, arg_sh);
-  const Arg best_r = block_argmax<false>(Arg{g_r, t, in ? 1 : 0}, arg_sh);
-  const bool use_left = best_l.v >= best_r.v;
-  const int tsel = use_left ? best_l.i : best_r.i;
-  if (t == tsel) {
+  // the walk: each lane keeps its own best of each direction (the reverse
+  // scan's last maximum, the forward scan's first) over its bins.  Only a
+  // finite gain is a candidate: where every threshold of a direction is
+  // -inf, the reverse scan's pick is bin B - 1 (below) and the forward
+  // scan's is never output, so neither needs the lane that held it.  A
+  // chunk's cells are loaded while the one before is scanned.
+  HistT carry[3] = {0, 0, 0};
+  Best bl{{-INFINITY, 0, 0}, 0.0f, 0.0f, 0.0f};
+  Best br = bl;
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int b = kc * 32 + lane - seg;
+    const bool inb = mine && b < nbw;
+    const bool keep = inb && b < nb && b != miss_bin;
+    HistT x[3] = {0, 0, 0};
+    if (keep) {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        if constexpr (kGrouped) {
+          x[ch] = b == 0 ? tot_sh[ch] - rest[ch] : gcell(ch, b);
+        } else {
+          const size_t idx =
+              ((static_cast<size_t>(k) * C + ch) * F + f) * B + b;
+          x[ch] = small[idx];
+          if (pmode) {
+            const HistT q = parent[idx];
+            const HistT hl = small_left[k] ? x[ch] : q - x[ch];
+            x[ch] = c < K ? hl : q - hl;
+          }
+        }
+      }
+      if constexpr (kQuant) x[2] = count(x[1]);
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      x[ch] = seg_scan(x[ch], lane, seg) + carry[ch];
+      carry[ch] = __shfl_sync(kFull, x[ch], seg_end - 1);
+    }
+    const bool t_valid = inb && b < nb - 1 - na_dir &&
+                         !(mt == kMissingZero && b == miss_bin) &&
+                         (!use_rt || b == rt);
+    if (t_valid) {
+      float pf[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) pf[ch] = fixed_to_f32(x[ch], mult[ch]);
+      const DirResult dl = eval_dir(
+          __fadd_rn(pf[0], ms[0]), __fadd_rn(__fadd_rn(pf[1], ms[1]), kEps),
+          __fadd_rn(pf[2], ms[2]), sg, total_h, cnt, mgs, mc, lo_b, hi_b,
+          has_bounds, hp);
+      if (dl.gain > -INFINITY && (!bl.a.ok || dl.gain >= bl.a.v))
+        bl = Best{{dl.gain, b, 1}, dl.lg, dl.lh, dl.lc};
+      if (has_md) {
+        const DirResult dr = eval_dir(pf[0], __fadd_rn(pf[1], kEps), pf[2],
+                                      sg, total_h, cnt, mgs, mc, lo_b, hi_b,
+                                      has_bounds, hp);
+        if (dr.gain > -INFINITY && (!br.a.ok || dr.gain > br.a.v))
+          br = Best{{dr.gain, b, 1}, dr.lg, dr.lh, dr.lc};
+      }
+    }
+  }
+
+  const Arg best_l = seg_argmax<true>(bl.a, lane, seg_end);
+  const Arg best_r = seg_argmax<false>(br.a, lane, seg_end);
+  const float lv = __shfl_sync(kFull, best_l.v, seg);
+  const int li = __shfl_sync(kFull, best_l.i, seg);
+  const float rv = __shfl_sync(kFull, best_r.v, seg);
+  const int ri = __shfl_sync(kFull, best_r.i, seg);
+  const bool use_left = lv >= rv;
+  // no valid threshold either way: the reverse scan's last maximum over
+  // all B bins is bin B - 1, whose prefix is the walk's total (bins from
+  // min(num_bin, B) on are never kept)
+  const bool none = use_left && lv == -INFINITY;
+  const int tsel = none ? B - 1 : (use_left ? li : ri);
+  const Arg own = use_left ? bl.a : br.a;
+  if (mine && (none ? lane == seg : (own.ok && own.i == tsel))) {
     const size_t o = static_cast<size_t>(c) * F + f;
-    const float ng = use_left ? best_l.v : best_r.v;
+    const float ng = use_left ? lv : rv;
     out_gain[o] = isfinite(ng) ? __fsub_rn(ng, mgs) : -INFINITY;
     out_thr[o] = tsel;
     out_dl[o] = has_md ? (use_left ? 1 : 0) : (mt != kMissingNaN ? 1 : 0);
-    const DirResult& d = use_left ? dl : dr;
-    out_lg[o] = d.lg;
-    out_lh[o] = __fsub_rn(d.lh, kEps);
-    out_lc[o] = d.lc;
+    if (none) {
+      float pf[3];
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) pf[ch] = fixed_to_f32(carry[ch], mult[ch]);
+      out_lg[o] = __fadd_rn(pf[0], ms[0]);
+      out_lh[o] = __fsub_rn(__fadd_rn(__fadd_rn(pf[1], ms[1]), kEps), kEps);
+      out_lc[o] = __fadd_rn(pf[2], ms[2]);
+    } else {
+      out_lg[o] = use_left ? bl.lg : br.lg;
+      out_lh[o] = __fsub_rn(use_left ? bl.lh : br.lh, kEps);
+      out_lc[o] = use_left ? bl.lc : br.lc;
+    }
   }
 }
 
@@ -822,54 +967,76 @@ extern "C" int fused_accumulate(const void* binned, int bin_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// parent == nullptr selects leaf mode (NC == K); otherwise parent mode
-// (NC == 2K: children [left 0..K-1, right K..2K-1]).  sums is [3, NC].
-// quant == 0: small/parent int64 [K, 3, F, B]; quant == 1: int32
-// [K, 2, F, B] levels.  m0-m2 are the channel multipliers (2^-s_c, or
-// g_scale, h_scale, 1).  mono [F] int32, bounds [2, NC] f32 and rand_thr
-// [NC, F] int32 (leaf mode only) may each be null: the mode is off.
+// B5.  parent == nullptr selects leaf mode (NC == K); otherwise parent
+// mode (NC == 2K: children [left 0..K-1, right K..2K-1]).  sums is [3, NC].
+// quant == 0: int64 cells, quant == 1: int32 levels.  small (and parent)
+// [K, C, F, B]; or, with feat_group and feat_start [F] int32 (leaf mode
+// only), the group histograms [NC, C, G, Bg].  plan: tasks x 32 lane
+// entries (ops/planner.py scan_plan for num_bin and B).  m0-m2 are the
+// channel multipliers (2^-s_c, or g_scale, h_scale, 1).  mono [F] int32,
+// bounds [2, NC] f32 and rand_thr [NC, F] int32 (leaf mode only) may each
+// be null: the mode is off.
 extern "C" int fused_scan(const void* small, const void* parent,
-                          const void* small_left, const void* sums,
-                          const void* num_bin, const void* missing_type,
-                          const void* default_bin, const void* mono,
-                          const void* bounds, const void* rand_thr, int K,
-                          int F, int B, int NC, int quant, double m0,
-                          double m1, double m2, int use_l1, float l1,
-                          float l2, float min_gain, float min_data,
-                          float min_hess, float max_delta_step, void* gain,
-                          void* thr, void* dl, void* lg, void* lh, void* lc,
+                          const void* small_left, const void* feat_group,
+                          const void* feat_start, const void* plan, int tasks,
+                          const void* sums, const void* num_bin,
+                          const void* missing_type, const void* default_bin,
+                          const void* mono, const void* bounds,
+                          const void* rand_thr, int K, int F, int B, int G,
+                          int Bg, int NC, int quant, double m0, double m1,
+                          double m2, int use_l1, float l1, float l2,
+                          float min_gain, float min_data, float min_hess,
+                          float max_delta_step, void* gain, void* thr,
+                          void* dl, void* lg, void* lh, void* lc,
                           void* stream) {
   if (NC <= 0 || F <= 0) return 0;
-  if (B <= 0 || B > 1024) return cudaErrorInvalidValue;
+  if (B <= 0 || tasks <= 0 || plan == nullptr) return cudaErrorInvalidValue;
+  const bool grouped = feat_group != nullptr;
+  if (grouped && (feat_start == nullptr || parent != nullptr || G <= 0 ||
+                  Bg <= 0))
+    return cudaErrorInvalidValue;
   if (parent != nullptr && (small_left == nullptr || NC != 2 * K ||
                             rand_thr != nullptr))
     return cudaErrorInvalidValue;
   if (parent == nullptr && NC != K) return cudaErrorInvalidValue;
-  const int threads = (B + 31) / 32 * 32;
+  const long long blocks =
+      static_cast<long long>(NC) * ((tasks + kScanWarps - 1) / kScanWarps);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const Hyper hp{use_l1, l1, l2, min_gain, min_data, min_hess,
                  max_delta_step};
-  const dim3 grid(NC, F);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ARGS                                                                \
-  small, parent, static_cast<const int*>(small_left),                       \
-      static_cast<const float*>(sums), static_cast<const int*>(num_bin),    \
-      static_cast<const int*>(missing_type),                                \
-      static_cast<const int*>(default_bin), static_cast<const int*>(mono),  \
-      static_cast<const float*>(bounds), static_cast<const int*>(rand_thr), \
-      K, F, B, NC, m0, m1, m2, hp,                                          \
-      static_cast<float*>(gain), static_cast<int*>(thr),                    \
-      static_cast<int*>(dl), static_cast<float*>(lg),                       \
-      static_cast<float*>(lh), static_cast<float*>(lc)
   const bool modes = mono != nullptr || bounds != nullptr ||
                      rand_thr != nullptr;
+#define LAUNCH(Q, M, GR)                                                      \
+  scan_kernel<Q, M, GR><<<static_cast<unsigned>(blocks), kScanWarps * 32, 0, \
+                          st>>>(                                              \
+      small, parent, static_cast<const int*>(small_left),                     \
+      static_cast<const int*>(feat_group),                                    \
+      static_cast<const int*>(feat_start), static_cast<const int*>(plan),     \
+      tasks, static_cast<const float*>(sums),                                 \
+      static_cast<const int*>(num_bin),                                       \
+      static_cast<const int*>(missing_type),                                  \
+      static_cast<const int*>(default_bin), static_cast<const int*>(mono),    \
+      static_cast<const float*>(bounds), static_cast<const int*>(rand_thr),   \
+      K, F, B, G, Bg, NC, m0, m1, m2, hp, static_cast<float*>(gain),          \
+      static_cast<int*>(thr), static_cast<int*>(dl), static_cast<float*>(lg), \
+      static_cast<float*>(lh), static_cast<float*>(lc))
+#define BY_GROUPED(Q, M)      \
+  do {                        \
+    if (grouped)              \
+      LAUNCH(Q, M, true);     \
+    else                      \
+      LAUNCH(Q, M, false);    \
+  } while (0)
   if (quant && modes)
-    scan_kernel<true, true><<<grid, threads, 0, st>>>(ARGS);
+    BY_GROUPED(true, true);
   else if (quant)
-    scan_kernel<true, false><<<grid, threads, 0, st>>>(ARGS);
+    BY_GROUPED(true, false);
   else if (modes)
-    scan_kernel<false, true><<<grid, threads, 0, st>>>(ARGS);
+    BY_GROUPED(false, true);
   else
-    scan_kernel<false, false><<<grid, threads, 0, st>>>(ARGS);
-#undef ARGS
+    BY_GROUPED(false, false);
+#undef BY_GROUPED
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

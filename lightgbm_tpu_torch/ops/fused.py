@@ -23,7 +23,13 @@ in ``csrc/fused.cu``, launched back to back on the current stream:
   optional inputs select its other modes, in both: monotone constraints
   [F] (the monotone gain form), the children's output bounds [2, NC]
   (the clamp) and, in leaf mode, one random threshold per (child,
-  feature) [NC, F] (extra trees).
+  feature) [NC, F] (extra trees).  In leaf mode it also reads the
+  staged arm's group histograms [NC, C, G, Bg] directly, given their
+  ``GroupLayout``: its plain version is ``expand_groups`` (the int64
+  per-feature expansion) followed by the scan.  Its warp tasks
+  (``scan_tasks``, from ``planner.scan_plan``) are built once a tree by
+  the grower and passed in; a caller that passes none has them planned
+  from its ``num_bin`` on the host.
 
 ``frontier_splits`` runs the pair (the megakernel's function, B2).
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
@@ -52,7 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,11 +132,55 @@ def sorted_values_plain(vals_t: torch.Tensor, order: torch.Tensor,
     return q[:, rows].t().contiguous()
 
 
+class GroupLayout(NamedTuple):
+    """Where the staged arm's group histograms keep each feature (the
+    dataset's EFB bundles): feature f's bin b >= 1 is merged bin
+    ``feat_start[f] + b - 1`` of column ``feat_group[f]`` ([F] int32
+    each); ``num_bins`` is the per-feature bin axis B."""
+
+    feat_group: torch.Tensor
+    feat_start: torch.Tensor
+    num_bins: int
+
+
+def expand_groups(ghist: torch.Tensor, groups: GroupLayout,
+                  num_bin: torch.Tensor,
+                  idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Group histograms [NC, C, G, Bg] (int64 fixed point, or the int32
+    levels of quantized training) -> per-feature ones [NC, C, F, B] for
+    the features ``idx`` (all where None), in plain torch (reference:
+    grower_rounds.py:199-215): bin b >= 1 of feature f is merged bin
+    ``feat_start[f] + b - 1`` of column ``feat_group[f]`` for b <
+    ``num_bin[f]``, else 0; bin 0 (FixHistogram) is the child's total
+    minus the feature's other bins.  The totals are the sum over group
+    0's bins (every group column holds one bin per row), so the rebuilt
+    bin is exact."""
+    NC, C, G, Bg = ghist.shape
+    B = int(groups.num_bins)
+    fg, fs, nb = (t.to(device=ghist.device, dtype=torch.int64)
+                  for t in (groups.feat_group, groups.feat_start, num_bin))
+    if idx is not None:
+        fg, fs, nb = fg[idx], fs[idx], nb[idx]
+    b = torch.arange(B, device=ghist.device)
+    merged = (fs[:, None] + b[None, :] - 1).clamp(0, Bg - 1)
+    flat = fg[:, None] * Bg + merged                               # [F, B]
+    drop = ~((b[None, :] >= 1) & (b[None, :] < nb[:, None]))
+    h = ghist.reshape(NC, C, G * Bg)[:, :, flat]                   # [NC,C,F,B]
+    h.masked_fill_(drop, 0)
+    totals = ghist[:, :, 0, :].sum(-1)                             # [NC, C]
+    h[..., 0] = totals[..., None] - h.sum(-1)
+    return h
+
+
 def scan_plain(small, scales, child_sums, num_bin, missing_type,
                default_bin, hp, small_left=None, parent=None,
-               monotone_constraints=None, child_bounds=None, rand_thr=None):
-    hist = (small if parent is None
-            else derive_children(small, small_left, parent))
+               monotone_constraints=None, child_bounds=None, rand_thr=None,
+               groups: Optional[GroupLayout] = None):
+    if groups is not None:
+        hist = expand_groups(small, groups, num_bin)
+    else:
+        hist = (small if parent is None
+                else derive_children(small, small_left, parent))
     if isinstance(scales, QuantScales):
         hist = quant_count_hist(hist, child_sums[2])
     return numeric_feature_scan(hist, scales, child_sums[0], child_sums[1],
@@ -168,9 +218,12 @@ def _lib():
             #                                    out stream
             lib.fused_accumulate.restype = ctypes.c_int
             lib.fused_scan.argtypes = [
-                p, p, p, p, p, p, p,           # small parent sl sums nb mt db
+                p, p, p, p, p, p, i,           # small parent sl fg fs plan
+                #                                tasks
+                p, p, p, p,                    # sums nb mt db
                 p, p, p,                       # mono bounds rand_thr
-                i, i, i, i, i, d, d, d,        # K F B NC quant m0 m1 m2
+                i, i, i, i, i, i, i,           # K F B G Bg NC quant
+                d, d, d,                       # m0 m1 m2
                 i, fl, fl, fl, fl, fl, fl,     # use_l1 l1 l2 mgain mdata
                 #                                mhess max_delta_step
                 p, p, p, p, p, p, p]           # six outputs, stream
@@ -240,11 +293,25 @@ def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
     return out
 
 
+def scan_tasks(num_bin, num_bins: int, device) -> torch.Tensor:
+    """B5's warp tasks for the per-feature bin counts ``num_bin`` (a host
+    sequence) over a bin axis of ``num_bins``: the lane entries of
+    ``planner.scan_plan``, int32 [tasks * 32] on ``device``."""
+    plan = planner.scan_plan([int(x) for x in num_bin], num_bins)
+    return torch.tensor(plan.lanes, dtype=torch.int32, device=device)
+
+
 def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
                default_bin, hp, small_left=None, parent=None,
                monotone_constraints=None, child_bounds=None, rand_thr=None,
-               pair=False):
-    K, _, F, B = small.shape
+               pair=False, groups: Optional[GroupLayout] = None,
+               plan: Optional[torch.Tensor] = None):
+    if groups is None:
+        K, _, F, B = small.shape
+        G = Bg = 0
+    else:
+        K, _, G, Bg = small.shape
+        F, B = num_bin.shape[0], int(groups.num_bins)
     NC = 2 * K if parent is not None else K
     dev = small.device
     outs = [torch.empty((NC, F), dtype=dt, device=dev) for dt in
@@ -252,9 +319,9 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
              torch.float32, torch.float32)]
     if NC == 0 or F == 0:
         return _best(outs)
-    if B > planner.FUSED_SCAN_MAX_BINS:
-        raise ValueError(f"the scan kernel takes at most "
-                         f"{planner.FUSED_SCAN_MAX_BINS} bins, got {B}")
+    if plan is None:
+        plan = scan_tasks(num_bin.tolist(), B, dev)
+    tasks = plan.numel() // planner.SCAN_LANES
     sl = (small_left.to(torch.int32).contiguous()
           if small_left is not None else None)
     quant = isinstance(scales, QuantScales)
@@ -264,11 +331,14 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
             small.data_ptr(),
             None if parent is None else parent.data_ptr(),
             None if sl is None else sl.data_ptr(),
+            *((None, None) if groups is None else
+              (groups.feat_group.data_ptr(), groups.feat_start.data_ptr())),
+            plan.data_ptr(), tasks,
             child_sums.data_ptr(), num_bin.data_ptr(),
             missing_type.data_ptr(), default_bin.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (monotone_constraints, child_bounds, rand_thr)),
-            K, F, B, NC, int(quant), *channel_multipliers(scales),
+            K, F, B, G, Bg, NC, int(quant), *channel_multipliers(scales),
             int(hp.lambda_l1 > 0.0),
             f32(hp.lambda_l1), f32(hp.lambda_l2),
             f32(hp.min_gain_to_split), f32(hp.min_data_in_leaf),
@@ -355,7 +425,9 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
                  parent: Optional[torch.Tensor] = None,
                  monotone_constraints: Optional[torch.Tensor] = None,
                  child_bounds: Optional[tuple] = None,
-                 rand_thr: Optional[torch.Tensor] = None, pair: bool = False
+                 rand_thr: Optional[torch.Tensor] = None, pair: bool = False,
+                 groups: Optional[GroupLayout] = None,
+                 plan: Optional[torch.Tensor] = None
                  ) -> NumericFeatureBest:
     """Kernel B5: derive the children (parent mode: ``small`` holds each
     candidate's smaller child, ``parent`` its parent; leaf mode: ``small``
@@ -364,17 +436,25 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
     ``frontier_splits``) also counts the launch as one of B2.
     ``scales``: the f32 mode's fixed-point exponents with int64 [K, 3,
     F, B] histograms, or ``QuantScales`` with int32 [K, 2, F, B] level
-    histograms (quantized mode).  ``monotone_constraints`` [F] int32
-    selects the monotone gain form, ``child_bounds`` ([NC], [NC]) f32
-    the children's output clamp, ``rand_thr`` [NC, F] int32 (leaf mode
-    only) one valid threshold per (child, feature)."""
+    histograms (quantized mode).  ``groups`` (leaf mode only): ``small``
+    is the staged arm's group histograms [NC, C, G, Bg] and the scan
+    reads each feature's bins from them (``expand_groups``).
+    ``monotone_constraints`` [F] int32 selects the monotone gain form,
+    ``child_bounds`` ([NC], [NC]) f32 the children's output clamp,
+    ``rand_thr`` [NC, F] int32 (leaf mode only) one valid threshold per
+    (child, feature).  ``plan``: the kernel's warp tasks for ``num_bin``
+    and this bin axis (``scan_tasks``), planned here from ``num_bin``
+    (read on the host) where None."""
     if rand_thr is not None and parent is not None:
         raise ValueError("random thresholds are a leaf-mode input")
+    if groups is not None and parent is not None:
+        raise ValueError("group histograms are a leaf-mode input")
     if _check_device(small, child_sums, parent, monotone_constraints,
                      rand_thr, *(child_bounds or ())) == "cpu":
         return scan_plain(small, scales, child_sums, num_bin, missing_type,
                           default_bin, hp, small_left, parent,
-                          monotone_constraints, child_bounds, rand_thr)
+                          monotone_constraints, child_bounds, rand_thr,
+                          groups=groups)
     quant = isinstance(scales, QuantScales)
     want = torch.int32 if quant else torch.int64
     if small.dtype != want or (parent is not None and parent.dtype != want):
@@ -383,7 +463,22 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
     meta = [m.to(torch.int32).contiguous()
             for m in (num_bin, missing_type, default_bin)]
     NC = small.shape[0] * (2 if parent is not None else 1)
-    F = small.shape[2]
+    F = meta[0].shape[0]
+    if groups is None and small.shape[2] != F:
+        raise ValueError(f"{small.shape[2]} histogram features for {F} "
+                         f"meta entries")
+    if groups is not None:
+        groups = GroupLayout(
+            *(t.to(device=small.device, dtype=torch.int32).contiguous()
+              for t in (groups.feat_group, groups.feat_start)),
+            int(groups.num_bins))
+        if groups.feat_group.shape != (F,) or groups.feat_start.shape != (F,):
+            raise ValueError(f"feat_group and feat_start must be [{F}]")
+    if plan is not None and (plan.dtype != torch.int32 or plan.dim() != 1
+                             or plan.numel() % planner.SCAN_LANES
+                             or plan.device != small.device):
+        raise ValueError("plan must be scan_tasks' int32 lane entries on "
+                         "the histograms' device")
     mono = bounds = thr = None
     if monotone_constraints is not None:
         mono = monotone_constraints.to(torch.int32).contiguous()
@@ -403,16 +498,18 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
                       child_sums.to(torch.float32).contiguous(), *meta, hp,
                       small_left,
                       None if parent is None else parent.contiguous(),
-                      mono, bounds, thr, pair=pair)
+                      mono, bounds, thr, pair=pair, groups=groups,
+                      plan=plan)
 
 
 def frontier_splits(binned_t, vals_t, slot, num_slots, num_bins, scales,
                     child_sums, small_left, parent, num_bin, missing_type,
                     default_bin, hp, monotone_constraints=None,
-                    child_bounds=None):
+                    child_bounds=None, plan=None):
     """The megakernel's function (B2): accumulate the K smaller-child
     histograms (B4), then derive each sibling and scan both children
-    (B5, with the monotone constraints and bounds when given).  Returns
+    (B5, with the monotone constraints and bounds when given, and its
+    warp tasks ``plan`` as ``sibling_scan`` takes them).  Returns
     (smaller-child hist [K, 3, F, B] int64, or [K, 2, F, B] int32 for
     int8 values with ``QuantScales``, and [2K, F] tuples)."""
     seg = accumulate(binned_t, vals_t, slot, num_slots, num_bins, scales)
@@ -420,7 +517,7 @@ def frontier_splits(binned_t, vals_t, slot, num_slots, num_bins, scales,
                        default_bin, hp, small_left=small_left,
                        parent=parent,
                        monotone_constraints=monotone_constraints,
-                       child_bounds=child_bounds, pair=True)
+                       child_bounds=child_bounds, pair=True, plan=plan)
     return seg, nfb
 
 

@@ -38,7 +38,15 @@ by slot; the JAX planner's ``plan_fused`` VMEM model does not apply:
   root (K = 1) is 245 segments, and a frontier slot of under 4,096 rows
   is one segment that stores its arena without atomics.
 - ``ACC_THREADS``: threads per accumulate block (rows in flight).
-- ``FUSED_SCAN_MAX_BINS``: the scan kernel runs one thread per bin.
+
+The scan kernel B5 (``csrc/fused.cu``) runs one warp per task and
+``SCAN_WARPS`` tasks of one child a block (``scan_plan``): a feature
+that walks more than 32 bins is a task of its own, whose lanes walk
+its bins in 32-bin chunks; narrower features are packed, in index
+order, into the 32 lanes of shared tasks, one lane per bin.  A feature
+walks ``max(min(num_bin, B), 1)`` bins, so the scan has no bin limit;
+the plan's lane entries (``f << 5 | first lane``) hold at most
+``FUSED_SCAN_MAX_FEATURES`` features.
 
 The binning kernel B3 (``csrc/ingest.cu``) stages its tables once per
 persistent block (``ingest_plan``): the member records and ragged
@@ -113,7 +121,9 @@ def tile_rows_for(num_features: int) -> int:
         f"shared-memory row tile ({SMEM_MAX_BYTES} bytes per block)")
 
 
-FUSED_SCAN_MAX_BINS = 1024
+FUSED_SCAN_MAX_FEATURES = 1 << 26
+SCAN_WARPS = 4
+SCAN_LANES = 32
 SORT_BLOCK_ROWS = 8192
 ACC_THREADS = 512
 ACC_MAX_FEAT_TILE = 8
@@ -121,6 +131,48 @@ ACC_ARENA_BYTES = 64 * 1024
 ACC_TARGET_SEGS = 256
 ACC_MIN_SEG_ROWS = 2048
 ACC_SEG_ROWS_STEP = 512
+
+
+class ScanPlan(NamedTuple):
+    """B5's warp tasks for one feature layout: ``lanes`` holds 32
+    entries a task, ``f << 5 | s`` for a lane of feature f whose first
+    lane is s (-1 for an idle lane); ``tasks`` is their number."""
+
+    lanes: Tuple[int, ...]
+    tasks: int
+
+
+def scan_walked_bins(num_bin: int, num_bins: int) -> int:
+    """Bins B5 walks for a feature: its own, at most the bin axis, and
+    bin 0 at least (a padding feature still writes its tuple)."""
+    return max(min(int(num_bin), int(num_bins)), 1)
+
+
+def scan_plan(num_bin, num_bins: int) -> ScanPlan:
+    """Cut the features ``num_bin`` [F] over a bin axis of ``num_bins``
+    into B5's warp tasks: a feature that walks more than
+    ``SCAN_LANES`` bins takes a task of its own (every lane, in chunks);
+    the others are packed in index order into shared tasks, a run of
+    lanes each.  Tasks follow feature order, so a block's warps read
+    neighbouring features."""
+    F = len(num_bin)
+    if F > FUSED_SCAN_MAX_FEATURES:
+        raise ValueError(f"the scan kernel takes at most "
+                         f"{FUSED_SCAN_MAX_FEATURES} features, got {F}")
+    lanes, cur = [], []
+    for f, nb in enumerate(num_bin):
+        w = scan_walked_bins(nb, num_bins)
+        if w > SCAN_LANES or len(cur) + w > SCAN_LANES:
+            if cur:
+                lanes += cur + [-1] * (SCAN_LANES - len(cur))
+                cur = []
+        if w > SCAN_LANES:
+            lanes += [f << 5] * SCAN_LANES
+        else:
+            cur += [(f << 5) | len(cur)] * w
+    if cur:
+        lanes += cur + [-1] * (SCAN_LANES - len(cur))
+    return ScanPlan(tuple(lanes), len(lanes) // SCAN_LANES)
 
 
 def sort_blocks(rows: int) -> int:

@@ -43,8 +43,9 @@ arithmetic does not tie.
 
 The staged search (``feature_best_splits``, ``best_split_for_leaf``,
 ``pick_best_feature``) runs the numeric scan through
-``ops.fused.sibling_scan`` in leaf mode (B5 on the card) and merges the
-categorical tuples over it.  Categorical bitsets cover ``MAX_CAT_WORDS``
+``ops.fused.sibling_scan`` in leaf mode (B5 on the card, reading the
+staged arm's group histograms where the dataset has bundles) and merges
+the categorical tuples over it.  Categorical bitsets cover ``MAX_CAT_WORDS``
 32-bit words (256 bins), held in int64 tensors (torch has no shifts on
 uint32).
 
@@ -607,23 +608,29 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
                         feature_mask: Optional[torch.Tensor] = None,
                         monotone_constraints: Optional[torch.Tensor] = None,
                         leaf_output_bounds: Optional[tuple] = None,
-                        extra_rand_u: Optional[torch.Tensor] = None
+                        extra_rand_u: Optional[torch.Tensor] = None,
+                        groups=None,
+                        scan_plan: Optional[torch.Tensor] = None
                         ) -> PerFeatureBest:
     """Best split PER FEATURE of each child.
 
     ``hist`` [NC, 3, F, B] int64 fixed point at ``scales`` (or [NC, 2, F,
-    B] integer levels with ``QuantScales``); ``sum_*``
-    [NC] f32 child totals; meta [F].  The numeric scan is B5 in leaf mode
-    (``ops.fused.sibling_scan``: the kernel on the card, its plain
-    version on the CPU); the categorical columns are searched by
-    ``_best_categorical`` on their slice and merged over it.  The
+    B] integer levels with ``QuantScales``), or, with ``groups`` (an
+    ``ops.fused.GroupLayout``), the staged arm's group histograms [NC, C,
+    G, Bg]; ``sum_*`` [NC] f32 child totals; meta [F].  The numeric scan
+    is B5 in leaf mode (``ops.fused.sibling_scan``: the kernel on the
+    card, its plain version on the CPU), on the group histograms where
+    given; the categorical columns are searched by ``_best_categorical``
+    on their slice (expanded from the groups, ``ops.fused.expand_groups``
+    restricted to them) and merged over it.  The
     feature mask ([F], or [NC, F] per child) sets a masked feature's
     gain to -inf.  ``monotone_constraints``/``leaf_output_bounds`` go to
     the numeric scan; extra trees' ``extra_rand_u`` [NC, F, 2] uniforms
     give the numeric scan its thresholds (column 0,
     ``random_thresholds``) and the categorical search its draws (column
-    1)."""
-    from .fused import sibling_scan
+    1).  ``scan_plan``: B5's warp tasks for ``num_bin``
+    (``ops.fused.scan_tasks``), planned by the scan where None."""
+    from .fused import expand_groups, sibling_scan
     sums = torch.stack([sum_grad.to(torch.float32),
                         sum_hess.to(torch.float32),
                         num_data.to(torch.float32)])
@@ -632,12 +639,14 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
     nfb = sibling_scan(hist, scales, sums, num_bin, missing_type,
                        default_bin, hp,
                        monotone_constraints=monotone_constraints,
-                       child_bounds=leaf_output_bounds, rand_thr=rand_thr)
+                       child_bounds=leaf_output_bounds, rand_thr=rand_thr,
+                       groups=groups, plan=scan_plan)
     cat_idx = torch.nonzero(is_categorical.to(torch.bool)).flatten()
     cat_best = None
     if cat_idx.numel():
         cat_idx = cat_idx.to(hist.device)
-        ch = hist[:, :, cat_idx]
+        ch = (hist[:, :, cat_idx] if groups is None
+              else expand_groups(hist, groups, num_bin, cat_idx))
         if isinstance(scales, QuantScales):
             ch = quant_count_hist(ch, sums[2])
         cat_best = _best_categorical(
@@ -659,7 +668,9 @@ def best_split_for_leaf(hist: torch.Tensor, scales: Sequence[int],
                         feature_mask: Optional[torch.Tensor] = None,
                         monotone_constraints: Optional[torch.Tensor] = None,
                         leaf_output_bounds: Optional[tuple] = None,
-                        extra_rand_u: Optional[torch.Tensor] = None
+                        extra_rand_u: Optional[torch.Tensor] = None,
+                        groups=None,
+                        scan_plan: Optional[torch.Tensor] = None
                         ) -> SplitResult:
     """Best split over all features of each child (see
     ``feature_best_splits``); [NC] fields."""
@@ -667,5 +678,5 @@ def best_split_for_leaf(hist: torch.Tensor, scales: Sequence[int],
                              num_bin, missing_type, default_bin,
                              is_categorical, hp, feature_mask,
                              monotone_constraints, leaf_output_bounds,
-                             extra_rand_u)
+                             extra_rand_u, groups, scan_plan)
     return pick_best_feature(pf, sum_grad, sum_hess, num_data)

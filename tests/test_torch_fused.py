@@ -362,7 +362,8 @@ def test_counts_rise_only_where_a_kernel_launches(monkeypatch):
     assert TFU.launch_counts["fused_slot_order"] == 2
     assert TFU.launch_counts["fused_frontier_accumulate"] == 1
     monkeypatch.setattr(TFU, "_accumulate_cuda", TFU.accumulate_plain)
-    monkeypatch.setattr(TFU, "_scan_cuda", lambda *args, pair=False, **kw:
+    monkeypatch.setattr(TFU, "_scan_cuda",
+                        lambda *args, pair=False, plan=None, **kw:
                         TFU.scan_plain(*args, **kw))
     TFU.reset_launch_counts()
     pair()

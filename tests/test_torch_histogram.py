@@ -3,8 +3,9 @@ held against the JAX package's (lightgbm_tpu/ops/histogram.py): kernel
 B6's plain version against ``histogram_pallas`` (the Pallas kernel in
 interpret mode) and ``histogram_scatter``; ``segment_histogram``,
 ``subtract_histogram`` and ``build_histogram``; and the staged arm's
-``expand_hist`` (lightgbm_tpu_torch/grower_rounds.py) against the JAX
-package's per-feature histogram of the same rows.
+expansion of group histograms (``expand_groups``,
+lightgbm_tpu_torch/ops/fused.py) against the JAX package's per-feature
+histogram of the same rows.
 
 On the CPU the port runs the plain versions: exact int64 fixed-point
 sums, each cell converted once to f32.  Tolerances:
@@ -34,7 +35,8 @@ from lightgbm_tpu.ops import histogram as JH
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch.grower_rounds import make_expand_hist
+from lightgbm_tpu_torch.grower_rounds import group_layout
+from lightgbm_tpu_torch.ops.fused import expand_groups
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops.split import fixed_to_f32
 
@@ -228,8 +230,10 @@ def test_expand_hist_matches_per_feature_histograms():
     scales = TH.fixed_point_scales(vals)
     B, Bg = int(meta.max_num_bin), int(meta.max_group_bin)
     ghist = TH.histogram_fixed(ds.binned_t, vals, Bg, scales)
-    expand = make_expand_hist(meta.tensors("cpu"), B, Bg)
-    got = fixed_to_f32(expand(ghist[None])[0], scales, 0).numpy()
+    assert ghist.shape[-1] == Bg
+    mt = meta.tensors("cpu")
+    got = fixed_to_f32(expand_groups(ghist[None], group_layout(mt, B),
+                                     mt["num_bin"])[0], scales, 0).numpy()
     # every feature's own bins, from its bin mapper, through the JAX
     # package's scatter
     per_feature = np.stack([
