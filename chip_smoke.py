@@ -7,8 +7,10 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 ``nvcc`` (one process per source, all at once), then:
 
 - ``kernel``/``serve``: holds the traversal kernel (B1) against its plain
-  PyTorch version, then serves a HIGGS-width model (28 features, 500
-  trees, 255 leaves, binary; random trees from a seed) through
+  PyTorch version in both modes with the node records staged in shared
+  memory and read from global memory (the planner's pick and the other)
+  and times both modes, then serves a HIGGS-width model (28 features,
+  500 trees, 255 leaves, binary; random trees from a seed) through
   ``Booster.serve()`` and ``Booster.predict()`` on the card;
 - ``train``: trains a HIGGS-width binary model (1,000,000 x 28 f32 rows
   from a seed, 255 leaves, 255 bins, 10 rounds, a 100,000-row valid set)
@@ -31,7 +33,10 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   histograms and B5 in leaf mode on the group histograms (nothing
   expanded); then ``Booster.predict`` through B1 against B1's plain
   version;
-- ``hist6``: B6 against its plain version on that group matrix, timed;
+- ``hist6``: B6 against its plain version on that group matrix and on
+  the ``train`` run's 28 uint8 features (``rand_train``'s root shape),
+  timed; the build line shows that its shared atomics are native 32-bit
+  adds;
 - ``onehot_scan``: B5 in leaf mode at that table's widest shape (256
   children's [3, G, Bg] group histograms), against its plain version
   (the int64 expansion to [3, F, 255], then the scan), timed, and the
@@ -100,9 +105,10 @@ PEAK_F32_PER_S = 67e12
 OPS_PER_VISIT = 4
 KERNEL = "fused_traverse"
 # rows checked against the plain version (ragged tiles included) and the
-# timed shapes: the serving buckets and one predict chunk
+# timed shapes: the serving buckets, the monotone sweep's batch (101) and
+# one predict chunk
 CHECK_ROWS = (8, 64, 1000, 1024, 65536 + 37)
-TIMED_ROWS = (8, 64, 1024, 65536)
+TIMED_ROWS = (8, 64, 101, 1024, 65536)
 SERVE_REQUESTS, SERVE_THREADS, MAX_REQUEST_ROWS = 320, 8, 1500
 PREDICT_ROWS = 100_000
 # the training run (BASELINE's HIGGS width) and the histogram check's
@@ -163,9 +169,25 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-# template arguments of the accumulate kernel as the mangled name spells
-# them
+# template arguments of the kernels as the mangled name spells them
 _MANGLED = {"h": "uint8_t", "i": "int", "f": "float", "a": "int8_t"}
+
+
+def _template_args(kernel: str, symbol: str) -> str:
+    """``kernel<...>`` from a mangled symbol's template arguments (types,
+    and bool / int literals), or the symbol itself."""
+    import re
+    m = re.search(kernel + r"I(.*?)EE", symbol)
+    if m is None:
+        return symbol
+    args = []
+    for lit, val, code in re.findall(r"L([bi])(\d+)E|([a-z])",
+                                     m.group(1) + "E"):
+        if code:
+            args.append(_MANGLED.get(code, code))
+        else:
+            args.append(("false", "true")[int(val)] if lit == "b" else val)
+    return f"{kernel}<{', '.join(args)}>"
 
 
 def sass_atomics(_build, lib, kernel: str) -> dict:
@@ -183,18 +205,27 @@ def sass_atomics(_build, lib, kernel: str) -> dict:
         if m:
             func = None
             if kernel in m.group(1):
-                t = re.search(kernel + r"I(\w)(\w)E", m.group(1))
-                func = (f"{kernel}<{_MANGLED.get(t.group(1), t.group(1))}, "
-                        f"{_MANGLED.get(t.group(2), t.group(2))}>"
-                        if t else m.group(1))
+                func = _template_args(kernel, m.group(1))
                 found[func] = set()
             continue
-        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9._]+)", line)
+        m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9._]+)",
+                      line)
         if m and func is not None:
             found[func].add(m.group(1))
     if not found:
         raise AssertionError(f"no {kernel} in the SASS of {lib}")
     return {k: sorted(v) for k, v in sorted(found.items())}
+
+
+def native_shared_atomics(atomics: dict, kernel: str) -> None:
+    """Raise unless every shared atomic of ``kernel`` is a native 32-bit
+    ``ATOMS.ADD`` (no compare-and-swap loop, no 64-bit shared atomic)."""
+    for func, ops in atomics.items():
+        bad = [op for op in ops if "CAS" in op or "SPIN" in op
+               or (op.startswith("ATOMS") and ".64" in op)]
+        if bad or "ATOMS.ADD" not in ops:
+            raise AssertionError(f"{func}: shared atomics {ops}, not native "
+                                 f"32-bit adds ({kernel})")
 
 
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -251,7 +282,7 @@ TREE_KERNELS = (("B4 sort", ("slot_count_kernel", "slot_scan_kernel",
                 ("B5", ("scan_kernel",)),
                 ("B6", ("histogram_kernel",)),
                 ("B3", ("ingest_kernel",)),
-                ("B1", ("leaves_kernel", "scores_kernel")))
+                ("B1", ("descend_kernel", "ordered_sum_kernel")))
 
 
 def _tree_kernel(name: str) -> str:
@@ -447,25 +478,53 @@ def bound(pk, dev, X, num_class, emit_scores):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def plan_variants(dev, X, K, scores: bool) -> list:
+    """The planner's launch for these rows and mode, and the launch with
+    the node records staged in shared memory and read from global
+    memory (the one the planner did not pick, where the trees fit); each
+    (label, plan)."""
+    from lightgbm_tpu_torch.ops import planner
+    n, F = X.shape
+    T, I = dev.split_feature.shape
+    args = (F, I, T, n, bool(dev.forest.has_cat), K, scores)
+    out = [("planned", planner.traverse_plan(*args))]
+    for stage in (False, True):
+        try:
+            plan = planner.traverse_plan(*args, stage=stage)
+        except ValueError:
+            continue               # the trees do not fit: no staged path
+        out.append(("staged" if stage else "global", plan))
+    return out
+
+
 def check_kernel(pk, dev, X, K, host_forest=None):
-    """Kernel vs plain version on the card, both modes; exact."""
-    leaves = pk.fused_traverse(dev, X)
+    """Kernel vs plain version on the card, both modes, at every launch
+    shape of ``plan_variants``; exact.  Returns the shapes checked and
+    the largest |kernel - plain| each mode showed ({"leaves": e,
+    "scores": e})."""
     plain = pk.traverse_plain(dev, X)
-    torch.cuda.synchronize()
-    if not torch.equal(leaves, plain):
-        bad = int((leaves != plain).sum())
-        raise AssertionError(f"leaf ids differ from the plain version at "
-                             f"{bad} of {leaves.numel()} entries")
-    if host_forest is not None:
-        host = host_forest.predict_leaf(X.double().cpu().numpy())
-        if not np.array_equal(leaves.cpu().numpy(), host.T):
-            raise AssertionError("leaf ids differ from the host float64 path")
-    scores = pk.fused_traverse(dev, X, K, emit_scores=True)
     plain_s = pk.traverse_plain(dev, X, K, emit_scores=True)
     torch.cuda.synchronize()
-    if not torch.equal(scores.view(torch.int32), plain_s.view(torch.int32)):
-        raise AssertionError("scores differ from the plain version in bits")
-    return float((scores - plain_s).abs().max())
+    checked, errs = {}, {"leaves": 0.0, "scores": 0.0}
+    for scores, want in ((False, plain), (True, plain_s)):
+        mode = "scores" if scores else "leaves"
+        for label, plan in plan_variants(dev, X, K, scores):
+            got = pk.fused_traverse(dev, X, K, emit_scores=scores, plan=plan)
+            torch.cuda.synchronize()
+            errs[mode] = max(errs[mode], max_abs_err(got, want))
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad = int((got != want).sum())
+                raise AssertionError(
+                    f"{'scores' if scores else 'leaf ids'} differ from the "
+                    f"plain version at {bad} of {got.numel()} entries "
+                    f"({label}: {plan})")
+            checked[f"{mode}:{label}"] = f"{plan.rows}x{plan.trees}"
+            if label == "planned" and not scores and host_forest is not None:
+                host = host_forest.predict_leaf(X.double().cpu().numpy())
+                if not np.array_equal(got.cpu().numpy(), host.T):
+                    raise AssertionError("leaf ids differ from the host "
+                                         "float64 path")
+    return checked, errs
 
 
 def phase_kernel(pk, models):
@@ -473,22 +532,27 @@ def phase_kernel(pk, models):
     buckets and a predict chunk."""
     from lightgbm_tpu_torch.testing import salt_rows, synthetic_rows
     rows = {}
-    max_err = 0.0
+    max_err = {"leaves": 0.0, "scores": 0.0}
     for name, (bst, F, cats, seed) in models.items():
         K = bst.num_tree_per_iteration
         forest = bst._forest(0, len(bst.models) // K)
         dev = bst._device_forest(forest)
+        shapes, errs = {}, {"leaves": 0.0, "scores": 0.0}
         for n in CHECK_ROWS:
             X = salt_rows(synthetic_rows(F, n, cats, seed=seed, row_seed=n))
             Xt = torch.from_numpy(X.astype(np.float32)).cuda()
-            err = check_kernel(pk, dev, Xt, K,
-                               forest if n == CHECK_ROWS[2] and F < 100
-                               else None)
-            max_err = max(max_err, err)
+            shapes[n], e = check_kernel(
+                pk, dev, Xt, K,
+                forest if n == CHECK_ROWS[2] and F < 100 else None)
+            for mode in errs:
+                errs[mode] = max(errs[mode], e[mode])
+                max_err[mode] = max(max_err[mode], e[mode])
         emit({"phase": "kernel", "forest": name, "rows": list(CHECK_ROWS),
-              "checked": "exact", "max_abs_err": max_err})
+              "checked": "bit-identical to the plain version at the "
+                         "planned, staged and global launch shapes",
+              "launch_shapes": shapes, "max_abs_err": errs})
         if F >= 100:
-            continue          # the wide forest checks the big-tile path only
+            continue          # the wide forest is checked, not timed
         for n_t in TIMED_ROWS:
             X = salt_rows(synthetic_rows(F, n_t, cats, seed=seed,
                                          row_seed=n_t + 1))
@@ -503,9 +567,11 @@ def phase_kernel(pk, models):
                 reps_k = 50 if n_t <= 1024 else 10
                 reps_p = 5 if n_t <= 1024 else 2
                 b = bound(pk, dev, Xt, K, scores)
+                plan = plan_variants(dev, Xt, K, scores)[0][1]
                 row = {"phase": "kernel", "forest": name, "rows": n_t,
                        "mode": "scores" if scores else "leaves",
                        "trees": dev.num_trees, "features": F,
+                       "plan": plan._asdict(),
                        "kernel_ms": graph_ms(kernel, reps_k),
                        "kernel_event_ms": event_ms(kernel, reps_k),
                        "plain_ms": graph_ms(plain, reps_p),
@@ -556,6 +622,7 @@ def phase_serve(pk, bst, F, seed):
             t.join(900)
         wall = time.perf_counter() - t0
         metrics = srv.metrics_dict()
+    served_scores = pk.launch_counts[f"{KERNEL}[scores]"]
     if errors:
         raise errors[0]
     if any(t.is_alive() for t in threads) or len(results) != n_req:
@@ -563,7 +630,8 @@ def phase_serve(pk, bst, F, seed):
     t1 = time.perf_counter()
     raw = bst.predict(Xbig, raw_score=True)
     predict_s = time.perf_counter() - t1
-    launches = pk.launch_counts[KERNEL]
+    launches = {mode: pk.launch_counts[f"{KERNEL}[{mode}]"]
+                for mode in ("leaves", "scores")}
 
     host = forest.predict_raw(X)[0]
     for i in range(n_req):
@@ -580,8 +648,10 @@ def phase_serve(pk, bst, F, seed):
         raise AssertionError("Booster.predict differs from the plain version")
     if not np.isfinite(raw).all() or raw.shape != (Xbig.shape[0],):
         raise AssertionError("Booster.predict gave a bad result")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the kernel")
+    if launches["leaves"] + served_scores <= 0:
+        raise AssertionError("serving never launched the kernel")
+    if launches["scores"] <= served_scores:
+        raise AssertionError("Booster.predict never launched the kernel")
     lat_ms = np.array([lat[i] for i in range(n_req)])
     hist = metrics["histograms"]
     emit({"phase": "serve", "requests": n_req, "threads": n_threads,
@@ -1535,11 +1605,14 @@ def b5_cat_row(ds, bst, K: int) -> dict:
                            NC * walked * SCAN_OPS_PER_CELL)}
 
 
-def phase_hist6(ds, bst):
-    """B6 against its plain version, bit for bit on int64, on the
-    ``efb_train`` group matrix with the first tree's gradients; its time
-    from a CUDA graph, its bound and ``torch.bincount`` x 3."""
+def phase_hist6(ds, bst, config: str):
+    """B6 against its plain version, bit for bit on int64, on a training
+    run's binned matrix (``efb_train``'s 9 EFB group columns; the
+    ``higgs_rand_1m`` root's 28 uint8 features, no bundles) with the
+    first tree's gradients; its time from a CUDA graph, its bound and
+    ``torch.bincount`` x 3."""
     from lightgbm_tpu_torch.ops import histogram as H
+    from lightgbm_tpu_torch.ops import planner
     gb = bst.boosting
     binned_t = ds.binned_t
     G, n = binned_t.shape
@@ -1556,6 +1629,25 @@ def phase_hist6(ds, bst):
     err = max(max_abs_err(got[c], want[c]) * 2.0 ** -scales[c]
               for c in range(3))
     del got, want
+    # the kernel's other loads, bit for bit: a row count that is not a
+    # multiple of 4 (scalar loads) and int32 bins (int4 loads), each
+    # both ways
+    also = []
+    m = n - 1 if (n - 1) % 4 else n - 2
+    ragged = (binned_t[:, :m].contiguous(), vals[:, :m].contiguous())
+    for label, b, v in ((f"{binned_t.dtype}, {m} rows", *ragged),
+                        (f"int32, {n} rows", binned_t.int(), vals),
+                        (f"int32, {m} rows", ragged[0].int(), ragged[1])):
+        got = H.histogram_fixed(b, v, Bg, scales)
+        want = H.histogram_plain(b, v, Bg, scales)
+        if not torch.equal(got, want):
+            raise AssertionError(f"B6 differs from its plain version "
+                                 f"({label})")
+        err = max(err, *(max_abs_err(got[c], want[c]) * 2.0 ** -scales[c]
+                         for c in range(3)))
+        also.append(label)
+        del got, want, b, v
+    del ragged
     idx = (torch.arange(G, device="cuda")[:, None] * Bg
            + binned_t.to(torch.int64)).flatten()
     wts = [vals[c][None, :].expand(G, -1).flatten().contiguous()
@@ -1565,9 +1657,11 @@ def phase_hist6(ds, bst):
         for w in wts:
             torch.bincount(idx, weights=w, minlength=G * Bg)
 
-    row = {"phase": "hist6", "rows": n, "groups": G, "group_bins": Bg,
+    row = {"phase": "hist6", "config": config, "rows": n, "groups": G,
+           "group_bins": Bg, "feat_tile": planner.hist_feat_tile(G, Bg),
            "scales": list(scales), "max_abs_err": err,
            "checked": "bit-identical to the plain version (int64)",
+           "also_checked": also,
            "kernel_ms": graph_ms(
                lambda: H.histogram_fixed(binned_t, vals, Bg, scales), 20),
            "plain_ms": event_ms(
@@ -2250,6 +2344,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build(["traverse", "ingest", "fused", "histogram"])
     root = os.path.dirname(os.path.abspath(__file__))
+    # the shared atomics of the two histogram kernels (B4, B6)
+    atomics = {"fused": ("accumulate_atomics", "accumulate_kernel"),
+               "histogram": ("histogram_atomics", "histogram_kernel")}
+    atomics = {name: (key, sass_atomics(_build, libs[name], kernel), kernel)
+               for name, (key, kernel) in atomics.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {
               name: {"path": os.path.relpath(lib, root),
@@ -2257,10 +2356,11 @@ def main() -> int:
                      "ptxas": [ln.strip() for ln in
                                _build.build_info[name]["ptxas"].splitlines()
                                if "registers" in ln or "spill" in ln],
-                     **({"accumulate_atomics": sass_atomics(
-                         _build, lib, "accumulate_kernel")}
-                        if name == "fused" else {})}
+                     **({atomics[name][0]: atomics[name][1]}
+                        if name in atomics else {})}
               for name, lib in libs.items()}})
+    for _key, found, kernel in atomics.values():
+        native_shared_atomics(found, kernel)
 
     t0 = time.perf_counter()
     higgs = synthetic_model_text(28, 500, 255, seed=7)
@@ -2285,12 +2385,13 @@ def main() -> int:
     train_modes = train_run["row"]["b5_launches_by_mode"]
     ing = phase_ingest(ds, train_data[0])
     hist = phase_hist(ds, bst)
+    hist6_rand = phase_hist6(ds, bst, "higgs_rand_1m")
     qhist = phase_quant_hist(ds, bst)
     del ds, bst
     train_run.pop("bst")
     phase_wide_bins(lt)
     efb_launches, efb_ds, efb_bst = phase_efb_train(lt, pk)
-    hist6 = phase_hist6(efb_ds, efb_bst)
+    hist6 = phase_hist6(efb_ds, efb_bst, "airline_onehot_1m")
     onehot = phase_onehot_scan(efb_ds, efb_bst)
     del efb_bst
     quant_launches = phase_quant_train(lt, train_run, train_data, efb_ds)
@@ -2301,15 +2402,29 @@ def main() -> int:
     cat_launches, cat_modes, cat_b5 = phase_cat_train(lt, pk)
     wide, over = phase_wide_ingest(lt)
 
-    head = rows[("higgs_500x255", TIMED_ROWS[2], False)]
-    table = [{
-        "name": KERNEL, "route": "cuda",
-        "source": "lightgbm_tpu_torch/ops/csrc/traverse.cu",
-        "replaces": "lightgbm_tpu/ops/predict_kernels.py:238",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None}]
+    # B1: leaves mode at the 1024-row bucket (serving's routing), scores
+    # mode at the 1024-row bucket and the 65,536-row predict chunk
+    # (Booster.predict); each row with its mode's launches in the serving
+    # run (leaves: the serving batches; scores: the predict chunks) and
+    # the largest error its mode showed in the kernel phase
+    table = []
+    for label, n_t, scores in ((KERNEL, 1024, False),
+                               (f"{KERNEL}[scores]", 1024, True),
+                               (f"{KERNEL}[scores, 65536 rows]", 65536,
+                                True)):
+        mode = "scores" if scores else "leaves"
+        if launches[mode] <= 0:
+            raise AssertionError(f"the main path never launched B1's "
+                                 f"{mode} mode")
+        head = rows[("higgs_500x255", n_t, scores)]
+        table.append({
+            "name": label, "route": "cuda",
+            "source": "lightgbm_tpu_torch/ops/csrc/traverse.cu",
+            "replaces": "lightgbm_tpu/ops/predict_kernels.py:238",
+            "launches": launches[mode], "max_abs_err": max_err[mode],
+            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None})
     fused_src = "lightgbm_tpu_torch/ops/csrc/fused.cu"
     for name, src, replaces, r in (
             ("ingest", "lightgbm_tpu_torch/ops/csrc/ingest.cu",
@@ -2387,14 +2502,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    table.append({
-        "name": "histogram_pallas", "route": "cuda",
-        "source": "lightgbm_tpu_torch/ops/csrc/histogram.cu",
-        "replaces": "lightgbm_tpu/ops/histogram.py:199",
-        "launches": efb_launches["histogram_pallas"],
-        "max_abs_err": hist6["max_abs_err"], "ms": hist6["kernel_ms"],
-        "plain_ms": hist6["plain_ms"], "bound_ms": hist6["bound_ms"],
-        "bound_by": hist6["bound_by"], "library_ms": hist6["library_ms"]})
+    for name, r, n_launch in (
+            ("histogram_pallas", hist6, efb_launches["histogram_pallas"]),
+            ("histogram_pallas[rand shape]", hist6_rand,
+             rand_launches["histogram_pallas"])):
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "lightgbm_tpu_torch/ops/csrc/histogram.cu",
+            "replaces": "lightgbm_tpu/ops/histogram.py:199",
+            "launches": n_launch, "max_abs_err": r["max_abs_err"],
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -338,14 +338,10 @@ __global__ void slot_scatter_kernel(const int* __restrict__ slot, int n, int K,
 // global atomics on the non-zero cells otherwise.  Blocks past the
 // device-side segment total exit.
 //
-// f32 mode: no 64-bit shared atomics.  A row's int64 value q splits
-// exactly as q = hi * 2^32 + lo (hi = q >> 32 arithmetic, lo = q &
-// 0xffffffff); lo adds into a uint32 arena with atomicAdd, whose return
-// value tells whether this add wrapped (old + lo < old), and hi + carry
-// adds into a second uint32 arena.  Then hi_acc * 2^32 + lo_acc == sum q
-// (mod 2^64), the int64 arithmetic of the sums themselves, so the
-// recombined value is exact whenever the int64 sum is.  Nor does the hi
-// arena wrap at the grower's scales: fixed_point_scales gives |q| <=
+// f32 mode: no 64-bit shared atomics.  A row's int64 value adds into two
+// uint32 arenas, the lo and hi halves, with the exact carry
+// (fixed_point.cuh add_fixed_split); the flush joins them.  Nor does the
+// hi arena wrap at the grower's scales: fixed_point_scales gives |q| <=
 // 2^62 / n, so |hi + carry| <= 2^30 / n + 2 per row and a block's sum over
 // at most n rows stays within 2^30 + 2n < 2^31 (n < 2^29).
 template <typename BinT, typename ValT>
@@ -403,13 +399,7 @@ __global__ void accumulate_kernel(
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           if constexpr (kSplit) {
-            const unsigned int lo = static_cast<unsigned int>(q[c]);
-            unsigned int hi = static_cast<unsigned int>(q[c] >> 32);
-            if (lo) {
-              const unsigned int old = atomicAdd(lo_ar + cell + c * B, lo);
-              hi += (old + lo < old) ? 1u : 0u;
-            }
-            if (hi) atomicAdd(hi_ar + cell + c * B, hi);
+            add_fixed_split(lo_ar + cell + c * B, hi_ar + cell + c * B, q[c]);
           } else {
             if (q[c]) atomicAdd(lo_ar + cell + c * B,
                                 static_cast<unsigned int>(static_cast<int>(q[c])));
@@ -422,7 +412,7 @@ __global__ void accumulate_kernel(
   for (int x = threadIdx.x; x < cells; x += blockDim.x) {
     Out v;
     if constexpr (kSplit)
-      v = (static_cast<unsigned long long>(hi_ar[x]) << 32) + lo_ar[x];
+      v = join_fixed_split(hi_ar[x], lo_ar[x]);
     else
       v = lo_ar[x];
     const int j = x / (C * B);

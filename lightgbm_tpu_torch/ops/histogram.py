@@ -201,7 +201,7 @@ def _histogram_cuda(binned_t, vals_t, num_bins, scales):
     out = torch.zeros((3, F, B), dtype=torch.int64, device=binned_t.device)
     if n == 0 or F == 0:
         return out
-    ft = planner.hist_feat_tile(B)
+    ft = planner.hist_feat_tile(F, B)
     chunks = planner.hist_row_chunks(n, F, ft)
     lib = _lib()
     with torch.cuda.device(binned_t.device):

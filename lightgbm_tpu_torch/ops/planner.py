@@ -9,12 +9,31 @@ both sizes here:
 
 - ``PREDICT_CHUNK_ROWS``: rows per ``DeviceForest.predict_raw`` /
   ``predict_leaf`` call to the traversal kernel.  65,536 rows keep the
-  leaves-mode output of a 500-tree forest at 128 MiB on the device.
-- ``TILE_ROWS``: rows per thread block of the traversal kernel (one
-  thread per row), staged in shared memory as a ``[rows, F]`` f32 tile.
-  128 rows of 28 features are 14 KiB; wider feature counts shrink the
-  tile (``tile_rows_for``) so the tile stays inside the 48 KiB a block
-  gets without opting in, then opt into the larger dynamic limit.
+  leaves-mode output of a 500-tree forest, and scores mode's [T, n] f32
+  scratch, at 128 MiB on the device.
+
+The traversal kernel B1 (``csrc/traverse.cu``) descends trees in
+parallel over packed 16-byte node records (``traverse_plan``): a block
+takes R rows (its [R, F] f32 X tile in shared memory) through G trees,
+one thread a (row, tree) pair at a time, and walks P row tiles.
+
+- R: at most ``TRAV_TILE_ROWS`` and the batch's rows rounded up to a
+  power of two, halved until the X tile fits ``TRAV_X_BYTES`` (1,024
+  features take 8 rows; a row of more than ~58,000 features is
+  refused).
+- G: about ``TRAV_TARGET_BLOCKS`` blocks over the (row tile, tree group)
+  grid, at least a warp of pairs a block; a batch of at least
+  ``TRAV_LARGE_TILES`` row tiles aims at ``TRAV_LARGE_TARGET_BLOCKS``
+  (about 30 trees a block at 65,536 rows of a 500-tree forest), and P
+  row tiles a block keep the grid at about that size.
+- The block's trees' records are staged in shared memory when at least
+  ``TRAV_STAGE_MIN_TREES`` (a large batch: all G) fit beside the X tile
+  in ``TRAV_SMEM_BYTES``, a budget that keeps four blocks an SM;
+  otherwise (trees of thousands of leaves, 255-leaf trees at a large
+  batch) the descents read them through L1 from global memory.
+- Scores mode: the descents write leaf values into a [T, n] f32
+  scratch that the ordered sum adds in tree order (``SUM_ROWS`` rows a
+  block, as many trees a chunk as ``SUM_TILE_BYTES`` holds).
 
 The accumulate kernel B4 (``csrc/fused.cu``) runs over the rows sorted
 by slot; the JAX planner's ``plan_fused`` VMEM model does not apply:
@@ -79,46 +98,123 @@ tile exceed the card's per-block maximum is refused: a numerical
 feature of more than about 57,000 bins, or a categorical one of more
 than about 28,000 codes.
 
-The whole-dataset histogram kernel (``csrc/histogram.cu``, B6) takes
-fixed tiles; the JAX kernel's (feat_tile, block_rows) VMEM grid
-does not apply:
+The whole-dataset histogram kernel (``csrc/histogram.cu``, B6): a
+block keeps the [Ft, 3, B] sums of a feature tile as uint32 hi/lo
+halves in shared memory; the JAX kernel's (feat_tile, block_rows) VMEM
+grid does not apply:
 
-- ``HIST_FEAT_TILE``: features whose [features, 3, B] int64 arena one
-  block holds in shared memory: 8 x 3 x 256 x 8 bytes = 48 KiB at 256
-  bins, inside the default limit.  Wider bin axes shrink the tile
-  (``hist_feat_tile``).
-- ``HIST_THREADS``: threads per block (rows in flight).
+- ``hist_feat_tile``: as many features as ``HIST_ARENA_BYTES`` holds
+  (8 bytes a cell), balanced over the tiles, so no tile is a 1-feature
+  tail: 9 bundle columns at 256 bins are one tile of 9; 28 features are
+  two of 14.
+- ``HIST_THREADS``: threads per block; a thread takes
+  ``HIST_ROWS_PER_THREAD`` consecutive rows at a time.
 - The row axis is cut into chunks (``hist_row_chunks``): about
-  ``HIST_TARGET_BLOCKS`` blocks (four per SM) over the feature tiles,
-  at least ``HIST_MIN_CHUNK_ROWS`` rows a chunk, since every chunk
-  flushes its whole arena.
+  ``HIST_TARGET_BLOCKS`` blocks over the feature tiles, at least
+  ``HIST_MIN_CHUNK_ROWS`` rows a chunk, since every chunk flushes its
+  non-zero cells into the output with global atomics.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 PREDICT_CHUNK_ROWS = 1 << 16
-TILE_ROWS = 128
-MIN_TILE_ROWS = 32
+SM_COUNT = 132
 # shared memory a block may use without / with the dynamic opt-in (H100)
 SMEM_DEFAULT_BYTES = 48 * 1024
 SMEM_MAX_BYTES = 227 * 1024
 
+TRAV_THREADS = 256
+TRAV_TILE_ROWS = 128
+TRAV_X_BYTES = 48 * 1024
+TRAV_SMEM_BYTES = 48 * 1024
+TRAV_STAGE_MIN_TREES = 2
+TRAV_TARGET_BLOCKS = 4 * SM_COUNT
+TRAV_LARGE_TILES = SM_COUNT
+TRAV_LARGE_TARGET_BLOCKS = 64 * SM_COUNT
+# a node record (feature and flags, threshold, left, right) and a
+# categorical node's (cat_offset, cat_nwords)
+NODE_RECORD_BYTES = 16
+CAT_RECORD_BYTES = 8
+SUM_ROWS = 32
+SUM_TILE_BYTES = 32 * 1024
 
-def tile_rows_for(num_features: int) -> int:
-    """Rows per traversal block for ``num_features`` f32 columns: the
-    fixed ``TILE_ROWS`` when its X tile fits the default shared memory,
-    else ``MIN_TILE_ROWS``.  Raises when even that tile exceeds the
-    card's per-block maximum."""
-    row_bytes = 4 * max(int(num_features), 1)
-    if TILE_ROWS * row_bytes <= SMEM_DEFAULT_BYTES:
-        return TILE_ROWS
-    if MIN_TILE_ROWS * row_bytes <= SMEM_MAX_BYTES:
-        return MIN_TILE_ROWS
-    raise ValueError(
-        f"{num_features} features do not fit the traversal kernel's "
-        f"shared-memory row tile ({SMEM_MAX_BYTES} bytes per block)")
+
+class TraversePlan(NamedTuple):
+    """One traversal launch: whether it emits scores; rows R and trees G
+    a descent block, the row tiles P it walks, its threads, whether its
+    trees' records are staged in shared memory, and its dynamic shared
+    memory; in scores mode the ordered sum's rows a block and trees a
+    chunk."""
+
+    scores: bool
+    rows: int
+    trees: int
+    row_tiles: int
+    threads: int
+    stage: bool
+    smem_bytes: int
+    sum_rows: int = 0
+    sum_trees: int = 0
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=256)
+def traverse_plan(num_features: int, nodes: int, num_trees: int,
+                  rows: int, has_cat: bool = False, num_class: int = 1,
+                  scores: bool = False, stage=None) -> TraversePlan:
+    """The traversal launch for ``rows`` rows of ``num_features`` f32
+    columns through ``num_trees`` trees of ``nodes`` node slots (see the
+    module docstring).  ``stage`` forces the staging (None: the
+    planner's choice); a forced staging that does not fit raises, as
+    does an X tile of one row that exceeds the card's per-block
+    maximum."""
+    F = max(int(num_features), 1)
+    I = max(int(nodes), 1)
+    T = max(int(num_trees), 1)
+    n = max(int(rows), 1)
+    K = max(int(num_class), 1)
+    R = min(TRAV_TILE_ROWS, _pow2_ceil(n))
+    while R > 1 and R * F * 4 > TRAV_X_BYTES:
+        R //= 2
+    x_bytes = R * F * 4
+    if x_bytes > SMEM_MAX_BYTES:
+        raise ValueError(f"{num_features} features do not fit the "
+                         f"traversal kernel's shared-memory row tile")
+    tiles = -(-n // R)
+    large = tiles >= TRAV_LARGE_TILES
+    target = TRAV_LARGE_TARGET_BLOCKS if large else TRAV_TARGET_BLOCKS
+    # trees a block: about `target` blocks over the (row tile, tree group)
+    # grid, at least a warp of pairs
+    want = min(T, max(-(-T * tiles // target), -(-32 // R)))
+    tree_bytes = I * (NODE_RECORD_BYTES
+                      + (CAT_RECORD_BYTES if has_cat else 0))
+    fits = max(TRAV_SMEM_BYTES - x_bytes, 0) // tree_bytes
+    if stage is None:
+        # staged where the trees fit beside the X tile: all the block
+        # wants when the batch is large, else at least two
+        stage = fits >= (want if large else TRAV_STAGE_MIN_TREES)
+    elif stage and fits < 1:
+        raise ValueError(f"no tree of {nodes} nodes fits the traversal "
+                         f"block's shared memory beside its X tile")
+    G = min(want, fits) if stage else want
+    G = -(-T // -(-T // G))          # the same trees a group (no short tail)
+    smem = x_bytes + (G * tree_bytes if stage else 0)
+    threads = min(TRAV_THREADS, -(-min(R, n) * G // 32) * 32)
+    # a block walks P row tiles with its trees staged once: about
+    # `target` blocks over the tree groups
+    splits = min(tiles, max(1, -(-target // -(-T // G))))
+    P = -(-tiles // splits)
+    if not scores:
+        return TraversePlan(False, R, G, P, threads, bool(stage), smem)
+    SR = min(SUM_ROWS, _pow2_ceil(n))
+    C = max(1, min(T, SUM_TILE_BYTES // (SR * 4)))
+    return TraversePlan(True, R, G, P, threads, bool(stage), smem, SR, C)
 
 
 FUSED_SCAN_MAX_FEATURES = 1 << 26
@@ -215,21 +311,26 @@ def acc_feat_tile(num_features: int, num_bins: int, quant: bool = False
     return -(-F // tiles)
 
 
-HIST_FEAT_TILE = 8
 HIST_THREADS = 512
-HIST_TARGET_BLOCKS = 4 * 132
-HIST_MIN_CHUNK_ROWS = 4096
+HIST_ROWS_PER_THREAD = 4
+HIST_ARENA_BYTES = 112 * 1024
+HIST_TARGET_BLOCKS = 2 * SM_COUNT
+HIST_MIN_CHUNK_ROWS = 2048
 
 
-def hist_feat_tile(num_bins: int) -> int:
-    """Features per histogram block for a ``num_bins`` bin axis: the
-    fixed ``HIST_FEAT_TILE`` shrunk until the arena fits the default
-    shared memory (one feature at least, up to the per-block maximum)."""
+def hist_feat_tile(num_features: int, num_bins: int) -> int:
+    """Features per histogram block: as many [3, B] hi/lo arenas (8
+    bytes a cell) as ``HIST_ARENA_BYTES`` holds, balanced over the
+    tiles.  Raises when one feature's arena exceeds the card's per-block
+    maximum."""
     per_feature = 3 * 8 * max(int(num_bins), 1)
     if per_feature > SMEM_MAX_BYTES:
         raise ValueError(f"{num_bins} bins do not fit the histogram "
                          f"kernel's shared-memory arena")
-    return max(1, min(HIST_FEAT_TILE, SMEM_DEFAULT_BYTES // per_feature))
+    most = max(1, HIST_ARENA_BYTES // per_feature)
+    F = max(int(num_features), 1)
+    tiles = -(-F // most)
+    return -(-F // tiles)
 
 
 def hist_row_chunks(rows: int, num_features: int, feat_tile: int) -> int:
@@ -240,7 +341,6 @@ def hist_row_chunks(rows: int, num_features: int, feat_tile: int) -> int:
     return max(1, min(want, most))
 
 
-SM_COUNT = 132
 SMEM_PER_SM_BYTES = 228 * 1024
 # threads a block: the fewer while two blocks fit an SM's shared memory,
 # else the more, to split a wide chunk's members over more warps (H100:

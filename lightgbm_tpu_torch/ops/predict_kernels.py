@@ -7,16 +7,22 @@ once in torch.  ``leaves_while`` (a data-dependent trip count) and
 ``pinned_leaf_sum`` they are the plain version of the kernel.
 
 ``fused_traverse`` is the kernel's wrapper.  For a CUDA tensor it
-launches ``csrc/traverse.cu`` (built by ``_build``) or raises; for a CPU
-tensor it runs the plain version.  ``launch_counts["fused_traverse"]``
-counts the kernel's launches, so a run can show that its main path went
-through the kernel.
+launches ``csrc/traverse.cu`` (built by ``_build``) at the launch shape
+of ``planner.traverse_plan``, or raises; for a CPU tensor it runs the
+plain version.  The kernel reads the forest as packed node records
+(``pack_nodes``, built once per ``DeviceForest``); the plain version
+reads the unpacked planes.  ``launch_counts["fused_traverse"]`` counts
+the kernel's launches (one a call, whose scores mode runs the descents
+and then the ordered sum), and ``"fused_traverse[leaves]"`` and
+``"fused_traverse[scores]"`` those of each mode, so a run can show that
+its main path went through the kernel in the mode it needs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -33,7 +39,8 @@ K_ZERO_F32 = float(np.float32(1e-35))
 _CAT_IV_MAX = 2147483520.0
 
 _counts_lock = threading.Lock()
-launch_counts = {"fused_traverse": 0}
+launch_counts = {"fused_traverse": 0, "fused_traverse[leaves]": 0,
+                 "fused_traverse[scores]": 0}
 
 
 def reset_launch_counts() -> None:
@@ -107,6 +114,43 @@ def _planes(dev) -> dict:
     return dict(kernel_args(dev), has_cat=dev.forest.has_cat)
 
 
+# the node record's first word: feature | missing type << 28 |
+# default left << 30 | categorical << 31 (csrc/traverse.cu)
+FEATURE_BITS = 28
+_MT_SHIFT, _DL_SHIFT, _CAT_SHIFT = 28, 30, 31
+
+
+def pack_nodes(dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's node records for ``dev``'s planes, on its device:
+    ``nodes`` [T, I, 4] int32, a node's (feature | missing type << 28 |
+    default left << 30 | categorical << 31, the f32 threshold's bits,
+    left, right), and ``cats`` [T, I, 2] int32, a node's (cat_offset,
+    cat_nwords) ([1, 1, 2] zeros for a forest without categorical
+    splits).  Raises for a feature index that needs more than
+    ``FEATURE_BITS`` bits or a missing type outside 0..3."""
+    sf = dev.split_feature.to(torch.int64)
+    mt = dev.missing_type.to(torch.int64)
+    if sf.numel() and (int(sf.min()) < 0
+                       or int(sf.max()) >= 1 << FEATURE_BITS):
+        raise ValueError(f"split features must lie in [0, 2**{FEATURE_BITS})"
+                         f" for the packed node records")
+    if mt.numel() and (int(mt.min()) < 0 or int(mt.max()) > 3):
+        raise ValueError("missing types must lie in 0..3")
+    word = (sf | (mt << _MT_SHIFT)
+            | ((dev.default_left != 0).to(torch.int64) << _DL_SHIFT)
+            | ((dev.is_cat != 0).to(torch.int64) << _CAT_SHIFT))
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word)
+    nodes = torch.stack([word.to(torch.int32),
+                         full_threshold_f32(dev).view(torch.int32),
+                         dev.left, dev.right], dim=-1).contiguous()
+    if dev.forest.has_cat:
+        cats = torch.stack([dev.cat_offset, dev.cat_nwords],
+                           dim=-1).contiguous()
+    else:
+        cats = torch.zeros((1, 1, 2), dtype=torch.int32, device=sf.device)
+    return nodes, cats
+
+
 def leaves_while(dev, Xc: torch.Tensor) -> torch.Tensor:
     """[nc, F] f32 -> leaf index [T, nc], stepping until every row of
     every tree sits on a leaf."""
@@ -173,10 +217,13 @@ def _lib():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.traverse_forest.argtypes = [
                 p, i, i,                      # X, n, F
-                p, p, p, p, p, p, p, p, p,    # sf thr left right mt dl ic co cn
-                p, i, i, i, i, i,             # cw, W, T, I, depth, has_cat
-                p, i, i, i,                   # leaf_value, L, K, tile_rows
-                p, p]                         # out, stream
+                p, p, p, i,                   # nodes, cats, cw, W
+                i, i, i, i,                   # T, I, depth, has_cat
+                p, i, i,                      # leaf_value, L, K
+                i, i, i, i, i,                # rows trees row_tiles
+                                              # threads stage
+                i, i, p, p, p]                # sum_rows sum_trees scratch
+                                              # out stream
             lib.traverse_forest.restype = ctypes.c_int
             _lib_handle = lib
         return _lib_handle
@@ -203,14 +250,18 @@ def _check(dev, X: torch.Tensor, num_class: int, emit_scores: bool) -> None:
 
 
 def fused_traverse(dev, X: torch.Tensor, num_class: int = 1,
-                   emit_scores: bool = False) -> torch.Tensor:
+                   emit_scores: bool = False, plan=None) -> torch.Tensor:
     """Traverse every tree of ``dev`` (a ``DeviceForest``) for the rows of
     ``X`` [n, F] f32: leaf ids [T, n] int32, or raw scores [K, n] f32 in
     the pinned order when ``emit_scores``.
 
-    A CUDA tensor launches the kernel on the current stream (or raises);
-    a CPU tensor runs ``traverse_plain``."""
+    A CUDA tensor launches the kernel on the current stream at ``plan``
+    (a ``planner.TraversePlan``; None: ``planner.traverse_plan``'s), or
+    raises; a CPU tensor runs ``traverse_plain``."""
     _check(dev, X, num_class, emit_scores)
+    if plan is not None and plan.scores != emit_scores:
+        raise ValueError(f"the plan does not emit "
+                         f"{'scores' if emit_scores else 'leaf ids'}")
     if X.device.type == "cpu":
         return traverse_plain(dev, X, num_class, emit_scores)
     if X.device.type != "cuda":
@@ -218,6 +269,9 @@ def fused_traverse(dev, X: torch.Tensor, num_class: int = 1,
     n, F = X.shape
     T, I = dev.split_feature.shape
     K = max(num_class, 1)
+    has_cat = bool(dev.forest.has_cat)
+    if plan is None:
+        plan = planner.traverse_plan(F, I, T, n, has_cat, K, emit_scores)
     if emit_scores:
         out = torch.empty((K, n), dtype=torch.float32, device=X.device)
         lv, L = dev.leaf_value, dev.leaf_value.shape[1]
@@ -226,20 +280,26 @@ def fused_traverse(dev, X: torch.Tensor, num_class: int = 1,
         lv, L = None, 0
     if n == 0:
         return out
-    a = kernel_args(dev)
+    # scores mode: the descents' leaf values, summed by the ordered sum
+    scratch = (torch.empty((T, n), dtype=torch.float32, device=X.device)
+               if emit_scores else None)
     lib = _lib()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.traverse_forest(
-            X.data_ptr(), n, F,
-            *(a[k].data_ptr() for k in ("sf", "thr", "left", "right", "mt",
-                                        "dl", "ic", "co", "cn")),
-            a["cw"].data_ptr(), a["cw"].numel(), T, I,
-            max(int(dev.forest.max_depth), 1), int(dev.forest.has_cat),
-            None if lv is None else lv.data_ptr(), L, K,
-            planner.tile_rows_for(F), out.data_ptr(), stream)
+            X.data_ptr(), n, F, dev.nodes.data_ptr(),
+            dev.cat_records.data_ptr(), dev.cat_words.data_ptr(),
+            dev.cat_words.numel(), T, I, max(int(dev.forest.max_depth), 1),
+            int(has_cat), None if lv is None else lv.data_ptr(), L, K,
+            plan.rows, plan.trees, plan.row_tiles, plan.threads,
+            int(plan.stage),
+            plan.sum_rows, plan.sum_trees,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            stream)
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {rc}")
     with _counts_lock:
         launch_counts["fused_traverse"] += 1
+        launch_counts["fused_traverse[scores]" if emit_scores
+                      else "fused_traverse[leaves]"] += 1
     return out

@@ -261,6 +261,9 @@ class DeviceForest:
         self.cat_words = put(np.ascontiguousarray(f.cat_words, np.uint32)
                              .view(np.int32))
         self.leaf_value = put(f.leaf_value.astype(np.float32))
+        # the kernel's packed node records; the planes above stay for the
+        # plain version
+        self.nodes, self.cat_records = _pk.pack_nodes(self)
         self.num_trees = f.num_trees
         self.num_features = int(f.split_feature.max(initial=0)) + 1
         self._epilogue_ok: dict = {}

@@ -191,14 +191,20 @@ def test_wrapper_checks_its_input(pair):
         tpk.fused_traverse(tdev, torch.from_numpy(np.asfortranarray(X)))
     with pytest.raises(ValueError, match="features"):
         tpk.fused_traverse(tdev, Xt[:, :1].contiguous())
-    before = tpk.launch_counts["fused_traverse"]
+    before = dict(tpk.launch_counts)
     tpk.fused_traverse(tdev, Xt, K, emit_scores=True)
-    # the plain version on the CPU is not a kernel launch
-    assert tpk.launch_counts["fused_traverse"] == before
+    tpk.fused_traverse(tdev, Xt, K)
+    # the plain version on the CPU is not a kernel launch, in either mode
+    assert tpk.launch_counts == before
+    assert set(before) == {"fused_traverse", "fused_traverse[leaves]",
+                           "fused_traverse[scores]"}
 
 
 def test_planner_tiles():
-    assert tplanner.tile_rows_for(28) == 128
-    assert tplanner.tile_rows_for(136) == 32
+    """The traversal block's X tile: 128 rows of 28 features, halved
+    until it fits ``TRAV_X_BYTES`` (64 rows of 136), and refused when one
+    row exceeds the card's per-block maximum."""
+    assert tplanner.traverse_plan(28, 254, 500, 4096).rows == 128
+    assert tplanner.traverse_plan(136, 254, 500, 4096).rows == 64
     with pytest.raises(ValueError):
-        tplanner.tile_rows_for(100_000)
+        tplanner.traverse_plan(100_000, 254, 500, 4096)
