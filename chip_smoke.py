@@ -69,6 +69,32 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   valid l2 falling, and predictions through B1 monotone on a sweep of
   x0 and x1; then 3 constrained rounds of the one-hot table (the staged
   arm, B5 in leaf mode with bounds);
+- ``goss_train``: ``higgs_goss_1m``, the training run's datasets with
+  ``boosting=goss`` for 15 rounds (11-15 sample): model text
+  byte-identical to the plain-version run, sampled rounds counted and
+  the kept rows' share printed; then 3 GOSS rounds of the one-hot table
+  at lr 0.5 (staged arm, B6 roots, sampling from round 3);
+- ``boost_variants``: ``dart`` (a tree must be dropped), ``rf``
+  (averaged output), ``regression_l1`` and ``quantile`` (the percentile
+  renewal on the card), 5 rounds each on ``mono_train``'s dataset, each
+  against its plain-version run;
+- ``multiclass_train``: ``airline_multiclass_1m``, the airline table
+  with its six categorical columns native and a 5-class delay band,
+  ``multiclass`` (the default ``max_cat_threshold``), 10 rounds of 5
+  trees: model text byte-identical to the plain-version run, valid
+  multi_logloss falling every round, B1's scores mode at K = 5 equal to
+  the host's and to its plain version; then 3 rounds of
+  ``multiclassova`` and 3 of quantized multiclass (per-class scales,
+  int8 kernels only), each against its plain-version run;
+- ``rank_train``: ``mslr_lambdarank_1m``, lambdarank at MSLR-WEB30K
+  width (1,000,000 x 136 f32, ~8,100 queries of 1 to 1,250 documents,
+  grades 0-4; ``testing.mslr_like``), 255 leaves, ``eval_at`` 1, 3, 5,
+  10, 10 rounds with a 100,000-row valid set: model text byte-identical
+  to the plain-version run, valid NDCG@10 rising, predictions through B1
+  equal to the host's; each tree's time by section (``objective`` is the
+  lambdarank gradients, also timed alone); then B5 at the run's shape
+  (row ``fused_sibling_scan[rank shape]``) and 3 rounds of
+  ``rank_xendcg`` against their plain-version run;
 - ``wide_ingest``: B3 at 200,000 x 2,000 f32 features (chunks that
   stage their own columns) and on one EFB group whose tables exceed 96
   KiB (member parts over successive launches), each byte-identical to
@@ -157,6 +183,42 @@ RAND_QUANT_PARAMS = dict(TRAIN_PARAMS, feature_fraction_bynode=0.5,
 # plain scan's 40 plus, in each direction, two leaf outputs, two clamps,
 # the direction test and two gains from outputs (~30 more)
 MONO_OPS_PER_CELL = 70
+# the slice of multiclass, ranking and the boosting variants.
+# rank_train (mslr_lambdarank_1m): MSLR-WEB30K width (136 features,
+# grades 0-4; testing.mslr_like), a million of its 2,270,296 training rows
+# with the parameters of LightGBM's docs/Experiments.rst; then
+# rank_xendcg.  multiclass_train (airline_multiclass_1m): the airline table
+# with a 5-class delay band; then multiclassova and quantized multiclass.
+# goss_train (higgs_goss_1m): the training run's data under GOSS past its
+# 1 / lr warm-up; then the one-hot table at lr 0.5.  boost_variants: dart,
+# rf, regression_l1 and quantile on the monotone data.
+RANK_ROWS, RANK_VALID_ROWS, RANK_ROUNDS = 1_000_000, 100_000, 10
+RANK_ORACLE_ROWS = 100_000
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "metric": ["ndcg"],
+               "eval_at": [1, 3, 5, 10], "verbose": -1}
+XENDCG_PARAMS = dict(RANK_PARAMS, objective="rank_xendcg")
+MULTI_ROWS, MULTI_VALID_ROWS, MULTI_ROUNDS, MULTI_CLASSES = (
+    1_000_000, 100_000, 10, 5)
+MULTI_PARAMS = {"objective": "multiclass", "num_class": MULTI_CLASSES,
+                "num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+                "metric": ["multi_logloss", "multi_error"], "verbose": -1}
+OVA_PARAMS = dict(MULTI_PARAMS, objective="multiclassova")
+MULTI_QUANT_PARAMS = dict(MULTI_PARAMS, use_quantized_grad=True)
+GOSS_ROUNDS = 15
+GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss")
+GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
+VARIANT_ROUNDS = 5
+VARIANT_PARAMS = {
+    "dart": dict(MONO_PARAMS, boosting="dart", drop_rate=0.5,
+                 skip_drop=0.0),
+    "rf": dict(MONO_PARAMS, boosting="rf", bagging_freq=1,
+               bagging_fraction=0.632),
+    "regression_l1": dict(MONO_PARAMS, objective="regression_l1",
+                          metric=["l1"]),
+    "quantile": dict(MONO_PARAMS, objective="quantile", alpha=0.9,
+                     metric=["quantile"]),
+}
 # C-1: B3 at 2,000 features (200,000 rows, a tenth NaN); mappers from a
 # 10,000-row sample; _bin_block checks the first WIDE_ORACLE_ROWS rows
 # and the edge rows (B3's plain version all of them); an EFB group of the
@@ -726,15 +788,17 @@ def reset_training_counts() -> None:
 
 
 def train_once(lt, X, y, Xv, yv, params, rounds, categorical,
-               datasets=None):
+               datasets=None, groups=(None, None)):
     """Dataset + valid set + ``train`` on the card (``datasets``: a
-    constructed (train, valid) pair to reuse instead); returns (datasets,
-    booster, evals, construct seconds, train seconds)."""
+    constructed (train, valid) pair to reuse instead; ``groups``: the
+    query sizes of the train and valid rows); returns (datasets, booster,
+    evals, construct seconds, train seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if datasets is None:
-        ds = lt.Dataset(X, label=y, categorical_feature=categorical)
-        vs = ds.create_valid(Xv, label=yv)
+        ds = lt.Dataset(X, label=y, group=groups[0],
+                        categorical_feature=categorical)
+        vs = ds.create_valid(Xv, label=yv, group=groups[1])
     else:
         ds, vs = datasets
     ds.construct()
@@ -771,7 +835,8 @@ def restore_kernels(saved) -> None:
 
 
 def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
-                  datasets=None, falling="binary_logloss", rising="auc"):
+                  datasets=None, falling="binary_logloss", rising="auc",
+                  groups=(None, None)):
     """The training path on the card three times: the main run (counts
     set to 0 just before it and read just after), the same run with every
     kernel replaced by its plain version (its model text must be the same
@@ -779,24 +844,28 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     and a run through ``Booster.update()`` with a section timer (where a
     tree's time goes; the timer synchronises the card at each section)
     that logs each tree's (candidates, committed) per frontier round.
-    Checks the trees, the valid metric ``falling`` falling every round,
-    ``rising`` (if any) higher after the last round than after the first,
-    and the card's predictions against the host's; returns what the
-    phases report.  ``datasets``: a constructed (train, valid) pair that
-    every run reuses."""
+    Checks the trees, the valid metric ``falling`` (if any) falling every
+    round, ``rising`` (if any) higher after the last round than after the
+    first, and the card's predictions against the host's; returns what
+    the phases report.  ``datasets``: a constructed (train, valid) pair
+    that every run reuses (else each run bins its own, the plain-version
+    run through B3's plain version); ``groups``: the query sizes of the
+    train and valid rows."""
     from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.utils.timer import SectionTimer
     reset_training_counts()
     ds, vs, bst, evals, construct_s, train_s = train_once(
-        lt, X, y, Xv, yv, params, rounds, categorical, datasets)
+        lt, X, y, Xv, yv, params, rounds, categorical, datasets, groups)
     launches = kernel_launches()
     modes = dict(fused.scan_modes)
     text = bst.model_to_string()
-    if bst.num_trees() != rounds:
-        raise AssertionError(f"trained {bst.num_trees()} trees, not {rounds}")
-    ll = evals["valid"][falling]
-    if not all(b < a for a, b in zip(ll, ll[1:])):
+    K = bst.num_tree_per_iteration
+    if bst.num_trees() != rounds * K:
+        raise AssertionError(f"trained {bst.num_trees()} trees, not "
+                             f"{rounds * K}")
+    ll = evals["valid"][falling] if falling else None
+    if falling and not all(b < a for a, b in zip(ll, ll[1:])):
         raise AssertionError(f"valid {falling} does not fall: {ll}")
     auc = evals["valid"][rising] if rising else None
     if rising and not auc[-1] > auc[0]:
@@ -805,7 +874,8 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     raw_host = bst.predict(Xv, raw_score=True, device=False)
     leaf_dev = bst.predict(Xv[:20000], pred_leaf=True)
     leaf_host = bst.predict(Xv[:20000], pred_leaf=True, device=False)
-    if raw_dev.shape != (Xv.shape[0],) or not np.isfinite(raw_dev).all():
+    shape = (Xv.shape[0],) if K == 1 else (Xv.shape[0], K)
+    if raw_dev.shape != shape or not np.isfinite(raw_dev).all():
         raise AssertionError("Booster.predict gave a bad result")
     if not np.array_equal(leaf_dev, leaf_host):
         raise AssertionError("leaf ids on the card differ from the host's")
@@ -818,7 +888,8 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     reset_training_counts()
     try:
         _, _, bst_p, _, _, plain_train_s = train_once(
-            lt, X, y, Xv, yv, params, rounds, categorical, datasets)
+            lt, X, y, Xv, yv, params, rounds, categorical, datasets,
+            groups)
     finally:
         restore_kernels(saved)
     plain_launches = kernel_launches()
@@ -853,6 +924,7 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     if (bst_t.model_to_string().partition("end of trees")[0]
             != text.partition("end of trees")[0]):
         raise AssertionError("the timed run's trees differ")
+    # seconds an iteration (num_class trees) by section
     per_tree = {k: v / rounds for k, v in timer.seconds.items()}
     per_tree["other"] = timed_s / rounds - sum(per_tree.values())
     # one more tree, untimed by sections, for its device time by kernel
@@ -875,8 +947,11 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         "timed_s_per_tree": timed_s / rounds,
         "breakdown_s_per_tree": per_tree,
         "tree_device_ms": in_tree,
+        "trees_per_iteration": K,
         **({"valid_auc": auc, "valid_logloss": ll}
-           if falling == "binary_logloss" else {"valid_" + falling: ll}),
+           if falling == "binary_logloss" else
+           {"valid_" + m: evals["valid"][m] for m in (falling, rising)
+            if m}),
         "launches": launches,
         "launches_per_tree": {k: v / rounds for k, v in launches.items()},
         "b5_launches_by_mode": modes,
@@ -1358,14 +1433,16 @@ def predict_vs_plain(pk, bst, Xv) -> int:
     """``Booster.predict`` of the valid rows through B1 (scores mode),
     bit for bit against B1's plain version; returns the B1 launches of
     that call."""
+    K = bst.num_tree_per_iteration
     pk.reset_launch_counts()
     raw = bst.predict(Xv, raw_score=True)
     launches = pk.launch_counts[KERNEL]
-    forest = bst._forest(0, len(bst.models))
+    forest = bst._forest(0, len(bst.models) // K)
     dev = bst._device_forest(forest)
     plain = pk.traverse_plain(dev, torch.from_numpy(
-        np.ascontiguousarray(Xv, np.float32)).cuda(), 1, emit_scores=True)
-    plain = plain.cpu().numpy().astype(np.float64)[0]
+        np.ascontiguousarray(Xv, np.float32)).cuda(), K, emit_scores=True)
+    plain = plain.cpu().numpy().astype(np.float64)
+    plain = plain[0] if K == 1 else np.ascontiguousarray(plain.T)
     if not np.array_equal(raw.view(np.uint64), plain.view(np.uint64)):
         raise AssertionError("Booster.predict differs from B1's plain version")
     if launches <= 0:
@@ -1507,7 +1584,7 @@ def phase_cat_train(lt, pk):
     """``airline_cat_1m``: the same table with its six categorical
     columns as native ``categorical_feature`` (8 features, no bundles) on
     the fused arm with the categorical merge, and B3's categorical
-    branch; then B5 at the run's own shape (``b5_cat_row``).  Returns
+    branch; then B5 at the run's own shape (``b5_run_row``).  Returns
     (launches, B5's launches by mode, the B5 row)."""
     from lightgbm_tpu_torch.testing import AIRLINE_CATEGORICAL, airline_like
     X, y = airline_like(EFB_ROWS, seed=11)
@@ -1529,7 +1606,7 @@ def phase_cat_train(lt, pk):
     if cat_splits == 0:
         raise AssertionError("no categorical split was made")
     ks = sorted(k for tree in r["rounds_log"] for k, _ in tree)
-    b5 = b5_cat_row(ds, r["bst"], ks[len(ks) // 2])
+    b5 = b5_run_row(ds, r["bst"], ks[len(ks) // 2])
     emit({"phase": "cat_train", "config": "airline_cat_1m", **r["row"],
           "num_bin": meta.num_bin.tolist(), "categorical_splits": cat_splits,
           "b3_oracle_rows": checked, "predict_b1_launches": b1,
@@ -1538,11 +1615,12 @@ def phase_cat_train(lt, pk):
     return r["launches"], r["row"]["b5_launches_by_mode"], b5
 
 
-def b5_cat_row(ds, bst, K: int) -> dict:
-    """B5 in parent mode (B2's scan half) at the ``cat_train`` shape: K
-    candidates (the run's median round), the table's 8 features at their
-    own bin counts, the run's last gradients and random slots (about half
-    the rows slotted); bit for bit against its plain version, its time
+def b5_run_row(ds, bst, K: int) -> dict:
+    """B5 in parent mode (B2's scan half) at a fused-arm training run's
+    shape (``cat_train``, ``rank_train``): K candidates (the run's median
+    round), the run's features at their own bin counts, the run's last
+    gradients and random slots (about half the rows slotted); bit for bit
+    against its plain version, its time
     (CUDA graph), the plain version's (CUDA events) and its bound: each
     feature's walked bins of the smaller children and of the parents,
     once."""
@@ -1588,10 +1666,10 @@ def b5_cat_row(ds, bst, K: int) -> dict:
                                 small_left=small_left, parent=parent)
     best_k, best_p = k(), p()
     if not same_bits(best_k, best_p):
-        raise AssertionError("B5 (cat shape) differs from its plain "
+        raise AssertionError("B5 (a run's shape) differs from its plain "
                              "version in bits")
     if not bool(torch.isfinite(best_k.gain).any()):
-        raise AssertionError("B5 (cat shape) found no split")
+        raise AssertionError("B5 (a run's shape) found no split")
     NC = 2 * K
     walked = sum(planner.scan_walked_bins(x, B) for x in gb.meta.num_bin)
     return {"candidates": K, "children": NC, "features": F, "bins": B,
@@ -1855,31 +1933,34 @@ def phase_quant_hist(ds, bst):
     return dict(rows_out, b5_modes=modes)
 
 
-def short_run(lt, ds, params, positive, zero, quant=True):
-    """``QUANT_SHORT_ROUNDS`` rounds of ``params`` on a reused dataset, on
-    the kernels and then on their plain versions: the model texts must be
-    the same bytes.  Returns the kernel run's launch counts, with B5's
-    launches by mode under ``b5_modes``.  ``quant``: the run must train
-    quantized (or, False, f32) trees."""
+def short_run(lt, ds, params, positive, zero, quant=True,
+              rounds=QUANT_SHORT_ROUNDS):
+    """``rounds`` rounds of ``params`` on a reused dataset, on the kernels
+    and then on their plain versions: the model texts must be the same
+    bytes.  Returns the kernel run's launch counts, with B5's launches by
+    mode under ``b5_modes``, and its booster.
+    ``quant``: the run must train quantized (or, False, f32) trees."""
     from lightgbm_tpu_torch.ops import fused
     reset_training_counts()
-    bst = lt.train(params, ds, QUANT_SHORT_ROUNDS, verbose_eval=False)
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, rounds, verbose_eval=False)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = kernel_launches()
     modes = dict(fused.scan_modes)
     expect_launches(launches, positive=positive, zero=zero)
-    if (bst.boosting._quant_on != quant
-            or bst.num_trees() != QUANT_SHORT_ROUNDS):
+    if (bst.boosting._quant_on != quant or bst.num_trees()
+            != rounds * bst.num_tree_per_iteration):
         raise AssertionError("the short run did not train the trees asked")
     saved = plain_kernels()
     try:
-        bst_p = lt.train(params, ds, QUANT_SHORT_ROUNDS, verbose_eval=False)
+        bst_p = lt.train(params, ds, rounds, verbose_eval=False)
     finally:
         restore_kernels(saved)
     if bst_p.model_to_string() != bst.model_to_string():
         raise AssertionError("the short run's model text differs from its "
                              "plain-version run")
-    return dict(launches, b5_modes=modes)
+    return dict(launches, b5_modes=modes, seconds=seconds), bst
 
 
 def phase_quant_train(lt, f32_run, data, efb_ds):
@@ -1900,13 +1981,13 @@ def phase_quant_train(lt, f32_run, data, efb_ds):
     checks = [quant_check(gb, torch.full((gb.num_data,), init,
                                          device="cuda"), 0),
               quant_check(gb, gb.train_score[0], TRAIN_ROUNDS)]
-    branch = short_run(
+    branch, _ = short_run(
         lt, ds, QUANT_BRANCH_PARAMS,
         positive=INT8_ENTRIES + ("fused_frontier_accumulate",
                                  "fused_slot_order"),
         zero=("fused_frontier_splits", "fused_sibling_scan",
               "histogram_pallas"))
-    staged = short_run(
+    staged, _ = short_run(
         lt, efb_ds, QUANT_PARAMS,
         positive=("fused_frontier_accumulate_int8",
                   "fused_sibling_scan_int8", "fused_slot_order_int8"),
@@ -2132,7 +2213,7 @@ def phase_rand_train(lt, f32_run, data):
     modes = r["row"]["b5_launches_by_mode"]
     if modes != {"rand_thr": r["launches"]["fused_sibling_scan"]}:
         raise AssertionError(f"B5 ran other modes than rand_thr: {modes}")
-    quant = short_run(
+    quant, _ = short_run(
         lt, f32_run["ds"], RAND_QUANT_PARAMS,
         positive=("fused_frontier_accumulate_int8",
                   "fused_sibling_scan_int8", "fused_slot_order_int8"),
@@ -2202,7 +2283,7 @@ def phase_mono_train(lt, pk, efb_ds):
     sweep = monotone_sweep(pk, r["bst"], Xv)
     mc = [0] * efb_ds.num_total_features
     mc[ONEHOT_DEPTIME] = 1
-    onehot = short_run(
+    onehot, _ = short_run(
         lt, efb_ds, dict(TRAIN_PARAMS, monotone_constraints=mc),
         positive=("fused_frontier_accumulate", "fused_sibling_scan",
                   "fused_slot_order", "histogram_pallas"),
@@ -2218,7 +2299,7 @@ def phase_mono_train(lt, pk, efb_ds):
                          ONEHOT_DEPTIME, "launches": onehot,
                          "checked": "model text byte-identical to the "
                                     "plain run"}})
-    return r["launches"], modes
+    return r["launches"], modes, r["ds"]
 
 
 def bin_oracle(ds, X, out_dtype, groups) -> np.ndarray:
@@ -2321,6 +2402,178 @@ def phase_wide_ingest(lt):
     return wide, over
 
 
+def phase_rank_train(lt, pk):
+    """``mslr_lambdarank_1m``: lambdarank at MSLR-WEB30K width (1,000,000
+    x 136 f32, about 8,200 queries of 1 to 1,250 documents, grades 0-4;
+    ``testing.mslr_like``) with a 100,000-row valid set, through
+    ``training_runs`` on the fused arm (B3, B4 roots, B2), each run
+    binning its own train and valid rows (the plain-version run through
+    B3's plain version): the model text equals the plain-version run's,
+    valid NDCG@10 rises, and the card's predictions equal the host's and
+    B1's plain version; the section ``objective`` of each tree is the
+    lambdarank gradients (plain PyTorch), also timed alone.  B3 at 136
+    features: byte for byte against ``_bin_block`` on the first
+    ``RANK_ORACLE_ROWS`` rows and the edge rows, and against its plain
+    version on all rows (``b3_at``).  Then B5 at the run's shape, and 3 rounds
+    of ``rank_xendcg`` against their plain-version run.  Returns (the
+    main run's launches, B5's launches by mode, the B5 row)."""
+    from lightgbm_tpu_torch.testing import mslr_like
+    X, y, group = mslr_like(RANK_ROWS, seed=31)
+    Xv, yv, vgroup = mslr_like(RANK_VALID_ROWS, seed=32)
+    r = training_runs(lt, X, y, Xv, yv, RANK_PARAMS, RANK_ROUNDS,
+                      falling=None, rising="ndcg@10", groups=(group, vgroup))
+    ds = r["ds"]
+    if ds.feature_meta().has_bundles:
+        raise AssertionError("the MSLR-width table bundled")
+    expect_launches(r["launches"], positive=("ingest",) + F32_ENTRIES,
+                    zero=("histogram_pallas",) + INT8_ENTRIES,
+                    exact={"ingest": 2})
+    checked = oracle_check(ds, X[:RANK_ORACLE_ROWS])
+    b3 = b3_at(ds, X)
+    b1 = predict_vs_plain(pk, r["bst"], Xv)
+    gb = r["bst"].boosting
+    grad_ms = event_ms(lambda: gb.objective.get_gradients(gb.train_score[0]),
+                       3, warmup=1)
+    ks = sorted(k for tree in r["rounds_log"] for k, _ in tree)
+    b5 = b5_run_row(ds, r["bst"], ks[len(ks) // 2])
+    xendcg, _ = short_run(lt, ds, XENDCG_PARAMS, positive=F32_ENTRIES,
+                       zero=("histogram_pallas",) + INT8_ENTRIES,
+                       quant=False)
+    row = r["row"]
+    objective_s = row["breakdown_s_per_tree"].get("objective", 0.0)
+    emit({"phase": "rank_train", "config": "mslr_lambdarank_1m", **row,
+          "queries": len(group), "valid_queries": len(vgroup),
+          "max_query_rows": int(group.max()),
+          "buckets": {int(Q): len(q) for Q, q in
+                      gb.objective.buckets.items()},
+          "objective_s_per_tree": objective_s,
+          "objective_share_of_timed_tree":
+              objective_s / row["timed_s_per_tree"],
+          "lambdarank_gradients_ms": grad_ms, "b3": b3,
+          "b3_oracle_rows": checked, "predict_b1_launches": b1,
+          "predict": "bit-identical to B1's plain version",
+          "b5_at_this_shape": b5,
+          "xendcg_run": {"rounds": QUANT_SHORT_ROUNDS, "launches": xendcg,
+                         "checked": "model text byte-identical to the "
+                                    "plain run"}})
+    return r["launches"], row["b5_launches_by_mode"], b5
+
+
+def phase_multiclass_train(lt, pk):
+    """``airline_multiclass_1m``: ``multiclass`` (5 classes, 255 leaves,
+    the default ``max_cat_threshold``) on the airline table with its six
+    categorical columns native and a 5-class delay band
+    (``testing.airline_multiclass_like``), 10 rounds of 5 trees, through
+    ``training_runs`` on the fused arm with the categorical merge: the
+    model text equals the plain-version run's, valid multi_logloss falls
+    every round, and B1's scores mode at K = 5 equals the host's and its
+    plain version.  Then 3 rounds of ``multiclassova`` and 3 of quantized
+    multiclass (per-class scales; int8 B4/B5/B2 only), each against its
+    plain-version run.  Returns the main run's launches."""
+    from lightgbm_tpu_torch.testing import (AIRLINE_CATEGORICAL,
+                                            airline_multiclass_like)
+    X, y = airline_multiclass_like(MULTI_ROWS, seed=41)
+    Xv, yv = airline_multiclass_like(MULTI_VALID_ROWS, seed=42)
+    r = training_runs(lt, X, y, Xv, yv, MULTI_PARAMS, MULTI_ROUNDS,
+                      categorical=list(AIRLINE_CATEGORICAL),
+                      falling="multi_logloss", rising=None)
+    ds = r["ds"]
+    expect_launches(r["launches"], positive=F32_ENTRIES,
+                    zero=("histogram_pallas",) + INT8_ENTRIES,
+                    exact={"ingest": 2})
+    b1 = predict_vs_plain(pk, r["bst"], Xv)
+    cat_splits = sum(int((m.decision_type[:m.num_leaves - 1] & 1).sum())
+                     for m in r["bst"].models)
+    if cat_splits == 0:
+        raise AssertionError("no categorical split was made")
+    ova, _ = short_run(lt, ds, OVA_PARAMS, positive=F32_ENTRIES,
+                    zero=("histogram_pallas",) + INT8_ENTRIES, quant=False)
+    quant, qbst = short_run(lt, ds, MULTI_QUANT_PARAMS,
+                            positive=INT8_ENTRIES,
+                            zero=F32_ENTRIES + ("histogram_pallas",))
+    scales = [[float(g), float(h)] for g, h in qbst.boosting._quant_scales]
+    if len(scales) != MULTI_CLASSES or len({tuple(s) for s in scales}) < 2:
+        raise AssertionError(f"quantized multiclass scales: {scales}")
+    emit({"phase": "multiclass_train", "config": "airline_multiclass_1m",
+          **r["row"], "num_class": MULTI_CLASSES,
+          "class_shares": (np.bincount(y.astype(np.int64))
+                           / len(y)).tolist(),
+          "categorical_splits": cat_splits, "predict_b1_launches": b1,
+          "predict": "bit-identical to B1's plain version (K = 5)",
+          "ova_run": {"rounds": QUANT_SHORT_ROUNDS, "launches": ova},
+          "quant_run": {"rounds": QUANT_SHORT_ROUNDS, "launches": quant,
+                        "last_scales_per_class": scales},
+          "checked": "model texts byte-identical to the plain runs"})
+    return r["launches"]
+
+
+def phase_goss_train(lt, f32_run, data, efb_ds):
+    """``higgs_goss_1m``: the training run's datasets with ``boosting=goss``
+    at lr 0.1 for 15 rounds (rounds 11-15 sample, past the 1 / lr
+    warm-up), through ``training_runs`` on the fused arm: the model text
+    equals the plain-version run's and sampled rounds happened (the kept
+    rows' share printed).  Then 3 GOSS rounds of the one-hot table
+    (staged arm, B6 roots) at lr 0.5, sampling from round 3.  Returns the
+    main run's launches."""
+    r = training_runs(lt, *data, GOSS_PARAMS, GOSS_ROUNDS,
+                      datasets=(f32_run["ds"], f32_run["vs"]),
+                      falling=None, rising="auc")
+    expect_launches(r["launches"], positive=F32_ENTRIES,
+                    zero=("histogram_pallas", "ingest") + INT8_ENTRIES)
+    gb = r["bst"].boosting
+    warmup = int(np.ceil(1.0 / GOSS_PARAMS["learning_rate"]))
+    if gb.sampled_iters != GOSS_ROUNDS - warmup:
+        raise AssertionError(f"{gb.sampled_iters} sampled rounds, not "
+                             f"{GOSS_ROUNDS - warmup}")
+    kept = [float(k) for k in gb.kept_share]
+    onehot, obst = short_run(
+        lt, efb_ds, GOSS_ONEHOT_PARAMS,
+        positive=("fused_frontier_accumulate", "fused_sibling_scan",
+                  "fused_slot_order", "histogram_pallas"),
+        zero=("fused_frontier_splits",) + INT8_ENTRIES, quant=False)
+    if obst.boosting.sampled_iters != 1:
+        raise AssertionError("the one-hot GOSS run did not sample round 3")
+    emit({"phase": "goss_train", "config": "higgs_goss_1m", **r["row"],
+          "datasets": "reused from phase train",
+          "sampled_rounds": gb.sampled_iters, "kept_row_share": kept,
+          "onehot_run": {"config": "airline_onehot_1m", "rounds":
+                         QUANT_SHORT_ROUNDS, "learning_rate": 0.5,
+                         "launches": onehot, "kept_row_share":
+                         [float(k) for k in obst.boosting.kept_share],
+                         "checked": "model text byte-identical to the "
+                                    "plain run"}})
+    return r["launches"]
+
+
+def phase_boost_variants(lt, mono_ds):
+    """``dart``, ``rf``, ``regression_l1`` and ``quantile`` (the last two
+    renew their leaves on the card), 5 rounds each on the monotone run's
+    1,000,000 x 28 dataset, each against its plain-version run; DART must
+    drop a tree."""
+    runs = {}
+    for name, params in VARIANT_PARAMS.items():
+        launches, bst = short_run(
+            lt, mono_ds, params, positive=F32_ENTRIES,
+            zero=("histogram_pallas", "ingest") + INT8_ENTRIES,
+            quant=False, rounds=VARIANT_ROUNDS)
+        extra = {}
+        if name == "dart":
+            extra["drops"] = bst.boosting.drops
+            if not any(bst.boosting.drops):
+                raise AssertionError("DART dropped no tree")
+        if (name == "rf"
+                and "\naverage_output\n" not in bst.model_to_string()):
+            raise AssertionError("the RF model text is not averaged")
+        runs[name] = {"rounds": VARIANT_ROUNDS, "s_per_iteration":
+                      launches.pop("seconds") / VARIANT_ROUNDS,
+                      "launches": launches,
+                      "leaves_per_tree": [m.num_leaves for m in bst.models],
+                      **extra}
+    emit({"phase": "boost_variants", "config": "mono_train_1m",
+          "runs": runs, "checked": "model texts byte-identical to the "
+                                   "plain runs"})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2396,10 +2649,15 @@ def main() -> int:
     del efb_bst
     quant_launches = phase_quant_train(lt, train_run, train_data, efb_ds)
     rand_launches, rand_modes = phase_rand_train(lt, train_run, train_data)
+    phase_goss_train(lt, train_run, train_data, efb_ds)
     del train_run, train_data
-    mono_launches, mono_modes = phase_mono_train(lt, pk, efb_ds)
+    mono_launches, mono_modes, mono_ds = phase_mono_train(lt, pk, efb_ds)
     del efb_ds
+    phase_boost_variants(lt, mono_ds)
+    del mono_ds
     cat_launches, cat_modes, cat_b5 = phase_cat_train(lt, pk)
+    phase_multiclass_train(lt, pk)
+    rank_launches, rank_modes, rank_b5 = phase_rank_train(lt, pk)
     wide, over = phase_wide_ingest(lt)
 
     # B1: leaves mode at the 1024-row bucket (serving's routing), scores
@@ -2483,7 +2741,9 @@ def main() -> int:
              efb_launches["fused_sibling_scan"],
              efb_launches["b5_modes"]),
             ("fused_sibling_scan[cat shape]", cat_b5,
-             cat_launches["fused_sibling_scan"], cat_modes)):
+             cat_launches["fused_sibling_scan"], cat_modes),
+            ("fused_sibling_scan[rank shape]", rank_b5,
+             rank_launches["fused_sibling_scan"], rank_modes)):
         table.append({
             "name": name, "route": "cuda", "source": fused_src,
             "replaces": scan_src, "launches": launches,

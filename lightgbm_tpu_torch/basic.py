@@ -67,7 +67,8 @@ class Booster:
     # -------------------------------------------------------------- training
 
     def _init_train(self, train_set) -> None:
-        from .boosting.gbdt import GBDT, check_supported
+        from .boosting import create_boosting
+        from .boosting.gbdt import check_supported
         from .config import Config
         from .objectives import create_objective
         self.config = Config.from_params(self.params)
@@ -79,13 +80,33 @@ class Booster:
         self.train_set = train_set
         self.pandas_categorical = None
         self.objective = create_objective(self.config)
-        self.boosting = GBDT(self.config, train_set, self.objective)
+        self.boosting = create_boosting(self.config, train_set,
+                                        self.objective)
         self._train_data_name = "training"
         names = self.config.metric or self.config.default_metric()
         self._metric_names = [m for m in names if m.lower()
                               not in ("none", "na", "null", "custom")]
+        self._check_metrics()
         self.boosting.set_metrics(
             self._build_metrics(train_set.metadata, train_set.num_data), [])
+
+    def _check_metrics(self) -> None:
+        """The metric/objective conflicts the JAX package refuses
+        (reference: its basic.py:147-170, after Config's own checks)."""
+        from .config import _METRIC_ALIASES
+        c = self.config
+        multi = (c.objective in ("multiclass", "multiclassova")
+                 or (c.objective == "none" and c.num_class > 1))
+        for m in self._metric_names:
+            canon = _METRIC_ALIASES.get(m, m)
+            if (canon in ("multi_logloss", "multi_error", "auc_mu")
+                    and c.num_class <= 1):
+                raise LightGBMError(
+                    "Number of classes should be specified and greater "
+                    "than 1 for multiclass training")
+            if canon in ("binary_logloss", "binary_error") and multi:
+                raise LightGBMError(
+                    "Multiclass objective and metrics don't match")
 
     def _build_metrics(self, metadata, num_data):
         from .metrics import create_metric
@@ -106,9 +127,23 @@ class Booster:
             self._build_metrics(data.metadata, data.num_data))
         return self
 
-    def update(self) -> bool:
+    def update(self, train_set=None, fobj=None) -> bool:
         """One boosting iteration; True when training stopped (no more
-        splits).  reference: basic.py:2089 Booster.update."""
+        splits).  ``fobj(score, train_set) -> (grad, hess)``: a custom
+        objective, given the f32 train scores ([n], or [K, n] for K
+        trees an iteration).  A ``train_set`` other than the booster's
+        own raises.  reference: basic.py:2089 Booster.update."""
+        if train_set is not None and train_set is not self.train_set:
+            raise NotImplementedError(
+                "Booster.update(train_set=) with a new training set waits "
+                "for ROADMAP queue A (training options)")
+        if fobj is not None:
+            score = self.boosting.train_score.cpu().numpy()
+            if self.boosting.num_tree_per_iteration == 1:
+                score = score[0]
+            grad, hess = fobj(score, self.train_set)
+            return self.boosting.train_one_iter(np.asarray(grad),
+                                                np.asarray(hess))
         return self.boosting.train_one_iter()
 
     def current_iteration(self) -> int:
@@ -116,12 +151,34 @@ class Booster:
             return self.boosting.current_iteration()
         return len(self.models) // self.num_tree_per_iteration
 
-    def eval_train(self):
+    def eval_train(self, feval=None):
         name = self._train_data_name
-        return [(name, n, v, h) for (_, n, v, h) in self.boosting.eval_train()]
+        out = [(name, n, v, h) for (_, n, v, h) in self.boosting.eval_train()]
+        return out + self._custom_eval(feval, name,
+                                       self.boosting.train_score,
+                                       self.train_set)
 
-    def eval_valid(self):
-        return list(self.boosting.eval_valid())
+    def eval_valid(self, feval=None):
+        out = list(self.boosting.eval_valid())
+        if feval is not None:
+            for i, name in enumerate(self.boosting.valid_names):
+                out += self._custom_eval(feval, name,
+                                         self.boosting.valid_scores[i],
+                                         self.boosting.valid_sets[i])
+        return out
+
+    def _custom_eval(self, feval, name, score, dataset):
+        """``feval(score, dataset)`` -> (name, value, higher_better) or a
+        list of them, on the f64 scores ([n] or [K, n])."""
+        if feval is None:
+            return []
+        s = score.cpu().numpy().astype(np.float64)
+        if self.boosting.num_tree_per_iteration == 1:
+            s = s[0]
+        ret = feval(s, dataset)
+        if isinstance(ret, tuple):
+            ret = [ret]
+        return [(name, mn, mv, hib) for (mn, mv, hib) in ret]
 
     # ------------------------------------------------------------- structure
 
@@ -323,17 +380,32 @@ class Booster:
     @property
     def average_output(self) -> bool:
         if self.boosting is not None:
-            return False
+            return self.config.boosting in ("rf", "random_forest")
         return self._loaded["average_output"]
 
     @property
     def objective_name(self) -> str:
         if self.boosting is not None:
-            name = self.objective.name
-            if name == "binary":
-                return f"binary sigmoid:{self.config.sigmoid:g}"
-            return name
+            return self._objective_to_string()
         return self._loaded["objective_name"]
+
+    def _objective_to_string(self) -> str:
+        """The model text's objective line (reference: the JAX package's
+        basic.py:770-785); empty for a custom objective."""
+        if self.objective is None:
+            return ""
+        c = self.config
+        name = self.objective.name
+        if name == "binary":
+            return f"binary sigmoid:{c.sigmoid:g}"
+        if name in ("multiclass", "multiclassova"):
+            s = f"{name} num_class:{c.num_class}"
+            if name == "multiclassova":
+                s += f" sigmoid:{c.sigmoid:g}"
+            return s
+        if name == "regression" and c.reg_sqrt:
+            return "regression sqrt"
+        return name
 
     @property
     def label_index(self) -> int:

@@ -1,0 +1,83 @@
+"""Random forest mode (counterpart of ``lightgbm_tpu/boosting/rf.py``).
+
+reference: src/boosting/rf.hpp — bagging is required, there is no
+shrinkage, the gradients are taken once from the constant
+boost-from-average scores (rf.hpp:77-98), every tree carries its class's
+init score as a bias (AddBias, rf.hpp:137), and the train and valid
+scores are the running mean of the trees' outputs (rf.hpp:140-142);
+predictions average over iterations (``average_output`` in the model
+text).  The percentile objectives renew each leaf against the constant
+init score (rf.hpp:130-135).  The running mean is the JAX package's f32
+``(score * it + tree + init) / (it + 1)``, dividing by a device scalar
+(ROADMAP queue C-5).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.log import log_warning
+from .gbdt import GBDT, K_EPSILON
+
+
+class RF(GBDT):
+    boosting_type = "rf"
+
+    def __init__(self, config, train_set, objective):
+        if not (config.bagging_freq > 0
+                and 0.0 < config.bagging_fraction < 1.0):
+            raise ValueError("random forest requires bagging "
+                             "(bagging_freq > 0 and bagging_fraction < 1)")
+        if objective is None:
+            raise ValueError("RF mode does not support custom objective "
+                             "functions, please use built-in objectives")
+        super().__init__(config, train_set, objective)
+        self.shrinkage_rate = 1.0
+        K = self.num_tree_per_iteration
+        # constant per-class init scores, carried by each tree as a bias
+        # and never added to the scores themselves
+        if config.boost_from_average:
+            self.init_scores = [objective.boost_from_score(k)
+                                for k in range(K)]
+        self._init_score_added = True
+        self._init_col = torch.tensor(self.init_scores, dtype=torch.float32,
+                                      device=self.device)[:, None]
+        self._grad, self._hess = self._gradients(
+            self._init_col.expand(K, self.num_data).contiguous())
+
+    def _renew_residual(self, score, k):
+        return self._renew_label - self._init_col[k, 0]
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        if grad is not None:
+            raise ValueError("RF mode does not support custom objectives")
+        it = self.iter
+        with self._section("objective"):
+            mask = self._bagging_mask(it)
+        # grow on it * mean (so "+ tree" keeps the sum), then back to the
+        # running mean with the tree's bias
+        s = self.train_score * it
+        trees = self._grow(s, self._grad, self._hess, mask, 1.0)
+        div = torch.tensor(it + 1, dtype=torch.float32, device=self.device)
+        self.train_score = (s + self._init_col) / div
+        return self._finish_rf(trees, div)
+
+    def _finish_rf(self, trees, div) -> bool:
+        new_models = self._host_trees(trees)
+        for k, ht in enumerate(new_models):
+            if abs(self.init_scores[k]) > K_EPSILON:
+                ht.add_bias(self.init_scores[k])
+        if not any(ht.num_leaves > 1 for ht in new_models):
+            log_warning("Stopped training because there are no more leaves "
+                        "that meet the split requirements")
+            return True
+        self.models.extend(new_models)
+        it = self.iter
+        with self._section("score"):
+            for i, vs in enumerate(self.valid_sets):
+                v = self.valid_scores[i] * it
+                for k, t in enumerate(trees):
+                    v[k] += self._tree_output(t, vs)
+                self.valid_scores[i] = (v + self._init_col) / div
+        self.iter += 1
+        return False

@@ -34,14 +34,20 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[dict] = None,
           verbose_eval=True, callbacks: Optional[List[Callable]] = None,
-          device=None, **unsupported) -> Booster:
-    """Train a model; returns the Booster (reference: engine.py:18)."""
+          device=None, fobj: Optional[Callable] = None,
+          feval: Optional[Callable] = None, **unsupported) -> Booster:
+    """Train a model; returns the Booster (reference: engine.py:18).
+    ``fobj(score, train_set) -> (grad, hess)`` replaces the objective
+    (``objective`` becomes "none"); ``feval(score, dataset) -> (name,
+    value, higher_better)`` (or a list of them) adds metrics."""
     for key, val in unsupported.items():
         if val is not None:
             raise NotImplementedError(
                 f"train(..., {key}=) waits for ROADMAP queue A "
                 "(training options)")
     params = dict(params)
+    if fobj is not None:
+        params["objective"] = "none"
     cfg = Config.from_params(params)
     if "num_iterations" in {Config.canonical_key(k) for k in params}:
         num_boost_round = cfg.num_iterations
@@ -89,15 +95,16 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     mf = max(int(cfg.metric_freq), 1)
     eval_possible = bool(
         (valid_sets and booster.boosting.valid_metrics)
-        or cfg.is_provide_training_metric or train_in_valid)
+        or feval is not None or cfg.is_provide_training_metric
+        or train_in_valid)
     evaluation_result_list = []
     for i in range(num_boost_round):
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         evaluation_result_list = []
         if eval_possible and (i + 1) % mf == 0:
             if cfg.is_provide_training_metric or train_in_valid:
-                evaluation_result_list.extend(booster.eval_train())
-            evaluation_result_list.extend(booster.eval_valid())
+                evaluation_result_list.extend(booster.eval_train(feval))
+            evaluation_result_list.extend(booster.eval_valid(feval))
         try:
             for cb in cbs_after:
                 cb(callback_mod.CallbackEnv(booster, params, i, 0,

@@ -268,17 +268,9 @@ def _airport_weights(count: int) -> np.ndarray:
     return w / w.sum()
 
 
-def airline_like(rows: int, seed: int):
-    """Rows of the airline schema (``AIRLINE_COLUMNS``), f32, and a 0/1
-    label "departure delayed by 15 minutes or more".
-
-    Month, DayofMonth and DayOfWeek are uniform; UniqueCarrier has 22
-    codes, Origin and Dest 300 each with Zipf-skewed frequencies (airport
-    ranks are a fixed shuffle of the codes); DepTime is hhmm between
-    05:00 and 23:59, Distance in miles.  The label is a seeded logistic
-    of per-category effects (drawn once, the same for every ``seed``)
-    plus a late-departure term; about one row in five is positive.
-    Returns (X [rows, 8] f32, y [rows] f32)."""
+def _airline_rows(rows: int, seed: int):
+    """The airline rows and their delay logit, and the generator after
+    drawing them (``airline_like``)."""
     fx = np.random.RandomState(2009)          # the effects, fixed
     effects = {name: fx.normal(0.0, 0.35, k)
                for name, lo, k in AIRLINE_COLUMNS if lo is not None}
@@ -299,8 +291,83 @@ def airline_like(rows: int, seed: int):
     X[:, 3] = hour * 100 + rng.randint(0, 60, rows)
     X[:, 7] = np.round(np.exp(rng.normal(6.4, 0.6, rows)))
     logit += 0.12 * (hour - 14) + 0.2 * rng.standard_normal(rows)
+    return X, logit, rng
+
+
+def airline_like(rows: int, seed: int):
+    """Rows of the airline schema (``AIRLINE_COLUMNS``), f32, and a 0/1
+    label "departure delayed by 15 minutes or more".
+
+    Month, DayofMonth and DayOfWeek are uniform; UniqueCarrier has 22
+    codes, Origin and Dest 300 each with Zipf-skewed frequencies (airport
+    ranks are a fixed shuffle of the codes); DepTime is hhmm between
+    05:00 and 23:59, Distance in miles.  The label is a seeded logistic
+    of per-category effects (drawn once, the same for every ``seed``)
+    plus a late-departure term; about one row in five is positive.
+    Returns (X [rows, 8] f32, y [rows] f32)."""
+    X, logit, rng = _airline_rows(rows, seed)
     y = rng.rand(rows) < 1.0 / (1.0 + np.exp(-logit))
     return X, y.astype(np.float32)
+
+
+# the departure-delay bands of airline_multiclass_like, on the latent
+# delay whose sign is airline_like's label
+DELAY_BANDS = (-2.0, -1.0, 0.0, 1.0)
+
+
+def airline_multiclass_like(rows: int, seed: int):
+    """The ``airline_like`` rows with a 5-class label: the band of the
+    latent delay ``logit - log(u / (1 - u))`` (the same uniform ``u``
+    that draws ``airline_like``'s label, which is "latent > 0") cut at
+    ``DELAY_BANDS``: 0 to 2 on time, 3 and 4 (``airline_like``'s
+    positives) delayed and much delayed.
+    Returns (X [rows, 8] f32, y [rows] f32 in 0..4)."""
+    X, logit, rng = _airline_rows(rows, seed)
+    u = np.clip(rng.rand(rows), 1e-12, 1.0 - 1e-12)
+    latent = logit - np.log(u / (1.0 - u))
+    return X, np.digitize(latent, DELAY_BANDS).astype(np.float32)
+
+
+# MSLR-WEB30K (Qin and Liu, 2013): 136 features, graded relevance 0-4;
+# its training folds hold 2,270,296 rows of about 120 documents a query
+# (LightGBM docs/Experiments.rst), at most ~1,250; the grades' shares
+MSLR_FEATURES = 136
+MSLR_GRADE_SHARES = (0.52, 0.32, 0.13, 0.02, 0.01)
+
+
+def mslr_like(rows: int, seed: int):
+    """Learning-to-rank rows at MSLR-WEB30K width: 136 f32 features
+    (query-document scores, counts and ratios: some non-negative and
+    skewed, some integer-valued), queries of lognormal lengths around
+    120 documents (1 to 1,250; the last query takes the remainder), and
+    graded relevance 0-4 in MSLR's shares from a noisy nonlinear score.
+    Returns (X [rows, 136] f32, y [rows] f32, group [queries] int32)."""
+    F = MSLR_FEATURES
+    rng = np.random.RandomState(seed)
+    sizes = []
+    total = 0
+    while total < rows:
+        s = int(np.clip(np.round(rng.lognormal(np.log(95.0), 0.7)), 1,
+                        1250))
+        s = min(s, rows - total)
+        sizes.append(s)
+        total += s
+    group = np.asarray(sizes, np.int32)
+    X = rng.standard_normal((rows, F)).astype(np.float32)
+    X[:, 0:40] = np.abs(X[:, 0:40]) ** 2
+    X[:, 40:60] = np.floor(np.abs(X[:, 40:60]) * 8.0)
+    X[:, 60:70] = (X[:, 60:70] > 0.5).astype(np.float32)
+    w = np.random.RandomState(136).standard_normal(F).astype(np.float32)
+    w[70:] *= 0.1
+    score = (X[:, :70] @ w[:70] + 0.1 * (X[:, 70:] @ w[70:])
+             + 1.5 * np.tanh(X[:, 0] * X[:, 1]) - X[:, 2] * (X[:, 61] > 0))
+    # a query's own offset, so grades are not one global cut
+    score += np.repeat(rng.standard_normal(len(group)) * score.std() * 0.5,
+                       group)
+    score += rng.standard_normal(rows) * score.std() * 0.5
+    cuts = np.quantile(score, np.cumsum(MSLR_GRADE_SHARES)[:-1])
+    y = np.digitize(score, cuts).astype(np.float32)
+    return X, y, group
 
 
 def one_hot(X: np.ndarray) -> np.ndarray:

@@ -62,6 +62,12 @@ class HostTree:
         self.leaf_value = self.leaf_value + val
         self.internal_value = self.internal_value + val
 
+    def scale(self, rate: float) -> None:
+        """reference: Tree::Shrinkage (tree.h:158)."""
+        self.leaf_value = self.leaf_value * rate
+        self.internal_value = self.internal_value * rate
+        self.shrinkage *= rate
+
     # ------------------------------------------------------------- prediction
 
     def _decide(self, fval: np.ndarray, node: int) -> np.ndarray:

@@ -20,7 +20,11 @@ variants; ``jax/_src/random.py``: ``_uniform``):
   length) are split into halves that form the pairs, and the two output
   halves are concatenated;
 - ``uniform(key, shape)``: f32 in [0, 1), ``bitcast((bits >> 9) |
-  0x3F800000) - 1``.
+  0x3F800000) - 1``;
+- ``split(key, num)``: ``jax.random.split``.  Partitionable, key i is
+  ``threefry2x32(key, (0, i))`` (the fold-in of i); otherwise the
+  counters ``0..2 num - 1`` are split into halves that form the pairs,
+  and the concatenated output words are read in pairs.
 
 Keys are tuples of two Python ints, or a batch of keys: an int64
 tensor [N, 2] of uint32 words, for which ``fold_in`` takes one datum
@@ -136,3 +140,18 @@ def uniform(key: Key, shape: Sequence[int], device=None,
     bits = random_bits(key, shape, device, partitionable)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def split(key: Key, num: int = 2, partitionable: bool = None) -> list:
+    """``jax.random.split(key, num)``: a list of ``num`` keys (pairs of
+    ints)."""
+    if partitionable is None:
+        partitionable = PARTITIONABLE
+    num = int(num)
+    if partitionable:
+        return [threefry2x32(key, 0, i) for i in range(num)]
+    counts = list(range(2 * num))
+    pairs = [threefry2x32(key, counts[i], counts[num + i])
+             for i in range(num)]
+    words = [p[0] for p in pairs] + [p[1] for p in pairs]
+    return [(words[2 * i], words[2 * i + 1]) for i in range(num)]

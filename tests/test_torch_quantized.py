@@ -433,8 +433,8 @@ def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"boosting": "goss"}, "GOSS, DART and RF"),
-    ({"boosting": "dart"}, "GOSS, DART and RF"),
+    ({"cegb_penalty_split": 0.5}, "CEGB and forced splits"),
+    ({"tree_learner": "data"}, "sharded training"),
 ])
 def test_unported_combinations_raise(params, match):
     X, y = _data(5, 300, "binary")

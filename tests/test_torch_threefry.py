@@ -111,3 +111,25 @@ def test_booster_key_chain():
         tq = threefry.fold_in(threefry.fold_in(gb._node_key(), 0x51475442),
                               0)
         assert tq == _key(jq)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", (2, 3, 8))
+def test_split_is_bit_equal(seed, num):
+    """``split(key, num)`` is ``jax.random.split`` in both variants: the
+    GOSS key stream and rank_xendcg's key."""
+    for part in (True, False):
+        with _partitionable(part):
+            jk = jax.random.fold_in(jax.random.PRNGKey(seed), 7)
+            want = [_key(k) for k in jax.random.split(jk, num)]
+        assert threefry.split(_key(jk), num, partitionable=part) == want
+
+
+def test_split_chain_follows_the_stream():
+    """Five iterations of ``key, sub = split(key)`` (GOSS's sampled
+    iterations) give JAX's keys and subkeys."""
+    jk, tk = jax.random.PRNGKey(3), threefry.prng_key(3)
+    for _ in range(5):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = threefry.split(tk)
+        assert (tk, tsub) == (_key(jk), _key(jsub))

@@ -15,9 +15,11 @@ histogram arm (``tpu_tree_growth="rounds"``, ``tpu_hist_method="fused"``).
   (measured: 2).  The hessian |r| (1 - |r|) cancels where |r| nears 1,
   so it is held to an absolute 4 * 2**-23 (measured: at most 13 ulps
   and 9.7e-8).
-- Configurations outside the port raise ``NotImplementedError``; those
-  it once refused (monotone constraints, extra trees, bynode sampling)
-  train the JAX package's trees.
+- Configurations outside the port (CEGB, forced splits, sharded
+  training, the serial grower) raise ``NotImplementedError``; those it
+  once refused (monotone constraints, extra trees, bynode sampling)
+  train the JAX package's trees, and multiclass, the other objectives,
+  GOSS, DART and RF are held in the ``test_torch_*`` files of their own.
 
 One-hot data that EFB bundles trains on the staged arm
 (``tpu_hist_method="pallas"``) to the same bars, ``binary`` and
@@ -268,13 +270,12 @@ def test_binary_gradients_within_two_ulps():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"use_quantized_grad": True, "objective": "multiclass",
-      "num_class": 3}, "quantized"),
-    ({"boosting": "goss"}, "GOSS"),
-    ({"boosting": "dart"}, "GOSS, DART and RF"),
-    ({"objective": "multiclass", "num_class": 3}, "multiclass"),
+    ({"cegb_penalty_split": 0.5}, "CEGB and forced splits"),
+    ({"forcedsplits_filename": "splits.json"}, "CEGB and forced splits"),
+    ({"tree_learner": "data"}, "sharded training"),
+    ({"tree_learner": "voting"}, "sharded training"),
     ({"tpu_tree_growth": "serial"}, "serial grower"),
-    ({"objective": "huber"}, "objectives"),
+    ({"num_machines": 2}, "sharded training"),
 ])
 def test_out_of_slice_configurations_raise(params, match):
     X, y = _data(5, 300, "binary")
