@@ -144,6 +144,8 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "metric": ["auc", "binary_logloss"],
                 "verbose": -1}
 HIST_SLOTS = 128
+# update_chunk's chunk against as many update() calls (train phase)
+CHUNK = 8
 # the categorical phases: the airline table at a tenth of the Flight Delay
 # set's rows, the training run's parameters; B3 is checked against the
 # host oracle on the first EFB_ORACLE_ROWS rows of the one-hot matrix
@@ -389,62 +391,66 @@ def cuda_event_kernel_ms(step) -> dict:
 
 def tree_kernel_ms(step, fused_arm: bool) -> dict:
     """Device time summed per training kernel over one call of ``step``
-    (one tree): ``torch.profiler``'s CUDA events by kernel symbol, or,
-    where the profiler does not start or records no device time,
-    ``cuda_event_kernel_ms`` over a further call.  B5 is split by the modes its launches took (from
+    (one tree, its round graph already captured): ``torch.profiler``'s
+    CUDA events by kernel symbol, or, where the profiler does not start
+    or records no device time, ``cuda_event_kernel_ms`` over a further
+    call with the round body run eagerly (a graph replay calls no
+    wrapper).  ``busy_share`` is the device time over the call's wall
+    time.  B5 is split by the modes its launches took (from
     ``fused.scan_modes``); on the fused arm B2 is the sum of its B4 and
     B5 launches.  An error of ``step`` itself propagates."""
+    from lightgbm_tpu_torch import grower_rounds
     from lightgbm_tpu_torch.ops import fused
     before = dict(fused.scan_modes)
-    ms, source = {}, "torch.profiler"
-    # what reached B5 on group histograms, and what was expanded
-    seen = {"b5_on_group_histograms": 0, "expand_groups_calls": 0}
-    scan, expand = fused._scan_cuda, fused.expand_groups
-
-    def scan_seen(*args, **kw):
-        seen["b5_on_group_histograms"] += kw.get("groups") is not None
-        return scan(*args, **kw)
-
-    def expand_seen(*args, **kw):
-        seen["expand_groups_calls"] += 1
-        return expand(*args, **kw)
-    fused._scan_cuda, fused.expand_groups = scan_seen, expand_seen
+    # what reached B5 on group histograms, and what was expanded (counted
+    # by the module, graph replays included)
+    paths = dict(fused.path_counts)
+    ms, source, wall_ms = {}, "torch.profiler", 0.0
     try:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    except Exception as exc:              # a profiler without CUPTI
+        prof = None
+        source = (f"cuda events (the profiler did not start: "
+                  f"{type(exc).__name__})")
+    if prof is not None:
         try:
-            from torch.profiler import ProfilerActivity, profile
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.__enter__()
-        except Exception as exc:              # a profiler without CUPTI
-            prof = None
-            source = (f"cuda events (the profiler did not start: "
-                      f"{type(exc).__name__})")
-        if prof is not None:
-            try:
-                step()
-                torch.cuda.synchronize()
-            finally:
-                prof.__exit__(None, None, None)
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    label = _tree_kernel(e.name)
-                    ms[label] = (ms.get(label, 0.0)
-                                 + e.time_range.elapsed_us() / 1e3)
-        if not any(v > 0 for k, v in ms.items()
-                   if k != "other device work"):
-            if source == "torch.profiler":
-                source = "cuda events (the profiler recorded no kernel time)"
-            # a further tree, every count below taken over it alone
-            before = dict(fused.scan_modes)
-            seen.update(dict.fromkeys(seen, 0))
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            prof.__exit__(None, None, None)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                label = _tree_kernel(e.name)
+                ms[label] = (ms.get(label, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+    if not any(v > 0 for k, v in ms.items() if k != "other device work"):
+        if source == "torch.profiler":
+            source = "cuda events (the profiler recorded no kernel time)"
+        # a further tree, every count below taken over it alone
+        source += "; eager round body"
+        before = dict(fused.scan_modes)
+        paths = dict(fused.path_counts)
+        grower_rounds.USE_GRAPHS = False
+        try:
+            t0 = time.perf_counter()
             ms = cuda_event_kernel_ms(step)
-    finally:
-        fused._scan_cuda, fused.expand_groups = scan, expand
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            grower_rounds.USE_GRAPHS = True
     modes = {k: v - before.get(k, 0) for k, v in fused.scan_modes.items()
              if v - before.get(k, 0)}
+    seen = {k: v - paths.get(k, 0) for k, v in fused.path_counts.items()}
+    busy = sum(ms.values())
     out = {"source": source, "b5_launches_by_mode": modes, **seen,
            **{k: ms.get(k, 0.0) for k, _ in TREE_KERNELS},
-           "other device work": ms.get("other device work", 0.0)}
+           "other device work": ms.get("other device work", 0.0),
+           "wall_ms": wall_ms, "device_busy_ms": busy,
+           "busy_share": busy / wall_ms if wall_ms > 0 else None}
     out["B5 by mode"] = {"+".join(sorted(modes)): out["B5"]}
     if fused_arm:
         out["B2 (B4 + its sort + B5)"] = out["B4"] + out["B4 sort"] \
@@ -816,10 +822,13 @@ def train_once(lt, X, y, Xv, yv, params, rounds, categorical,
 
 def plain_kernels():
     """Replace every training kernel's launcher by its plain version
-    (returns the originals for ``restore_kernels``)."""
+    (returns the originals for ``restore_kernels``); the plain versions
+    run the round body eagerly (they read the host)."""
+    from lightgbm_tpu_torch import grower_rounds
     from lightgbm_tpu_torch.ops import fused, histogram, ingest
     saved = (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda,
              histogram._histogram_cuda)
+    grower_rounds.USE_GRAPHS = False
     ingest._bin_cuda = lambda X, binner: binner.plain(X)
     fused._accumulate_cuda = fused.accumulate_plain
     fused._scan_cuda = (lambda *args, pair=False, plan=None, **kw:
@@ -829,21 +838,64 @@ def plain_kernels():
 
 
 def restore_kernels(saved) -> None:
+    from lightgbm_tpu_torch import grower_rounds
     from lightgbm_tpu_torch.ops import fused, histogram, ingest
     (ingest._bin_cuda, fused._accumulate_cuda, fused._scan_cuda,
      histogram._histogram_cuda) = saved
+    grower_rounds.USE_GRAPHS = True
+
+
+def used_graph(bst) -> dict:
+    """Fails unless ``bst``'s trees grew through the captured round graph
+    (every training run on the card does); returns the capture's
+    milliseconds and each tree's dead rounds (rounds run past its
+    end)."""
+    grower = bst.boosting.grower
+    if grower.graph is None:
+        raise AssertionError("the run did not grow its trees through the "
+                             "captured round graph")
+    return {"graph_capture_ms": grower.capture_ms,
+            "dead_rounds_per_tree": [ran - int(live) for ran, live
+                                     in grower.round_counts]}
+
+
+def host_reads(bst) -> dict:
+    """One more ``update()`` of ``bst`` (its round graph captured) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls
+    it made (host reads, D2H copies), and the round loop's waits on its
+    lagged stop flag (an event wait each, which that mode does not
+    see)."""
+    import warnings
+    grower = bst.boosting.grower
+    waits = grower.flag_waits
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            bst.update()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    return {"host_syncs_per_iteration": len(syncs),
+            "stop_flag_waits_per_iteration": grower.flag_waits - waits,
+            "trees_per_iteration": bst.num_tree_per_iteration}
 
 
 def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
                   datasets=None, falling="binary_logloss", rising="auc",
-                  groups=(None, None)):
+                  groups=(None, None), extras=False):
     """The training path on the card three times: the main run (counts
-    set to 0 just before it and read just after), the same run with every
-    kernel replaced by its plain version (its model text must be the same
-    bytes, since every sum is an exact integer, and no count may rise),
-    and a run through ``Booster.update()`` with a section timer (where a
-    tree's time goes; the timer synchronises the card at each section)
-    that logs each tree's (candidates, committed) per frontier round.
+    set to 0 just before it and read just after; its trees grow through
+    the captured round graph), the same run with every kernel replaced by
+    its plain version (the eager round body; its model text must be the
+    same bytes, since every sum is an exact integer, and no count may
+    rise), and a run through ``Booster.update()`` with a section timer
+    (the eager fixed-shape body: where a tree's time goes; the timer
+    synchronises the card at each section) that logs each tree's
+    (candidates, committed) per frontier round; its trees must be the
+    main run's.  ``extras`` (the ``train`` phase) adds an untimed eager
+    run (seconds a tree without the graph), one tree's host reads, and
+    ``update_chunk(8)`` against eight ``update()`` calls.
     Checks the trees, the valid metric ``falling`` (if any) falling every
     round, ``rising`` (if any) higher after the last round than after the
     first, and the card's predictions against the host's; returns what
@@ -851,7 +903,6 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     that every run reuses (else each run bins its own, the plain-version
     run through B3's plain version); ``groups``: the query sizes of the
     train and valid rows."""
-    from lightgbm_tpu_torch.boosting import gbdt as gbdt_mod
     from lightgbm_tpu_torch.ops import fused
     from lightgbm_tpu_torch.utils.timer import SectionTimer
     reset_training_counts()
@@ -859,6 +910,7 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         lt, X, y, Xv, yv, params, rounds, categorical, datasets, groups)
     launches = kernel_launches()
     modes = dict(fused.scan_modes)
+    graph = used_graph(bst)
     text = bst.model_to_string()
     K = bst.num_tree_per_iteration
     if bst.num_trees() != rounds * K:
@@ -901,40 +953,36 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
                              "run")
     del bst_p
 
-    grow = gbdt_mod.grow_tree_rounds
     rounds_log = []
-
-    def logged_grow(*args, **kw):
-        rounds_log.append([])
-        return grow(*args, rounds=rounds_log[-1], **kw)
-
     bst_t = lt.Booster(params, train_set=ds)
     bst_t.add_valid(vs, "valid")
     timer = SectionTimer(cuda=True)
     bst_t.boosting.timer = timer
-    gbdt_mod.grow_tree_rounds = logged_grow
+    bst_t.boosting.round_log = rounds_log
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        for _ in range(rounds):
-            bst_t.update()
-    finally:
-        gbdt_mod.grow_tree_rounds = grow
+    for _ in range(rounds):
+        bst_t.update()
     timed_s = time.perf_counter() - t0
+    bst_t.boosting.round_log = None
     if (bst_t.model_to_string().partition("end of trees")[0]
             != text.partition("end of trees")[0]):
         raise AssertionError("the timed run's trees differ")
     # seconds an iteration (num_class trees) by section
     per_tree = {k: v / rounds for k, v in timer.seconds.items()}
     per_tree["other"] = timed_s / rounds - sum(per_tree.values())
-    # one more tree, untimed by sections, for its device time by kernel
+    # one more tree through the graph (its capture), then, untimed by
+    # sections, a tree for its device time by kernel
     bst_t.boosting.timer = None
+    bst_t.update()
+    used_graph(bst_t)
+    extra = host_reads(bst_t) if extras else {}
     gb = bst_t.boosting
-    in_tree = tree_kernel_ms(bst_t.update, fused_arm=(
-        gb.grower_cfg.hist_method in ("auto", "fused")
-        and not gb.meta.has_bundles and not gb.grower_cfg.hp.extra_trees
-        and gb.grower_cfg.bynode_feature_cnt == 0))
+    in_tree = tree_kernel_ms(bst_t.update, fused_arm=gb.grower.fused_arm)
     del bst_t
+    if extras:
+        extra.update(eager_and_chunk(lt, ds, vs, params, rounds, text,
+                                     train_s))
     return {"ds": ds, "vs": vs, "bst": bst, "launches": launches,
             "rounds_log": rounds_log, "row": {
         "rows": X.shape[0], "valid_rows": Xv.shape[0],
@@ -954,11 +1002,62 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
             if m}),
         "launches": launches,
         "launches_per_tree": {k: v / rounds for k, v in launches.items()},
+        **graph, **extra,
         "b5_launches_by_mode": modes,
         "rounds_per_tree": [len(r) for r in rounds_log],
         "rollbacks_per_tree": [sum(m < k for k, m in r) for r in rounds_log],
         "predict_max_abs_err_vs_host_f64": pred_err,
         "checked": "model text byte-identical to the plain run"}}
+
+
+def eager_and_chunk(lt, ds, vs, params, rounds, text, graph_s) -> dict:
+    """Seconds a tree of the eager fixed-shape body (no graph, no
+    section timer) beside the graph run's, trees byte-identical; then
+    ``update_chunk(8)`` against eight ``update()`` calls of fresh
+    boosters, model text equal."""
+    from lightgbm_tpu_torch import grower_rounds
+    bst_e = lt.Booster(params, train_set=ds)
+    bst_e.add_valid(vs, "valid")
+    grower_rounds.USE_GRAPHS = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(rounds):
+            bst_e.update()
+        torch.cuda.synchronize()
+    finally:
+        grower_rounds.USE_GRAPHS = True
+    eager_s = time.perf_counter() - t0
+    if (bst_e.model_to_string().partition("end of trees")[0]
+            != text.partition("end of trees")[0]):
+        raise AssertionError("the eager run's trees differ from the graph "
+                             "run's")
+    del bst_e
+    # fresh boosters (each captures its graph in its first tree), in the
+    # order A B B A: host clocks spread between calls
+    out = {"updates": [], "update_chunk": []}
+    texts = set()
+    for name in ("updates", "update_chunk", "update_chunk", "updates"):
+        b = lt.Booster(params, train_set=ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "updates":
+            for _ in range(CHUNK):
+                b.update()
+        else:
+            b.update_chunk(CHUNK)
+        torch.cuda.synchronize()
+        out[name].append(time.perf_counter() - t0)
+        used_graph(b)
+        texts.add(b.model_to_string())
+        del b
+    if len(texts) != 1:
+        raise AssertionError(f"update_chunk({CHUNK}) differs from "
+                             f"{CHUNK} update() calls")
+    return {"eager_s_per_tree": eager_s / rounds,
+            "graph_s_per_tree": graph_s / rounds,
+            f"update_x{CHUNK}_s": out["updates"],
+            f"update_chunk_{CHUNK}_s": out["update_chunk"]}
 
 
 F32_ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
@@ -993,7 +1092,8 @@ def phase_train(lt):
     from lightgbm_tpu_torch.testing import higgs_like
     X, y = higgs_like(TRAIN_ROWS, seed=11)
     Xv, yv = higgs_like(VALID_ROWS, seed=12)
-    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
+    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS,
+                      extras=True)
     # the fused arm: B4 roots, B2 (B4 + B5) rounds, no B6
     expect_launches(r["launches"], positive=("ingest",) + F32_ENTRIES,
                     zero=("histogram_pallas",) + INT8_ENTRIES)
@@ -1370,9 +1470,12 @@ def phase_wide_bins(lt):
         ds = lt.Dataset(X, label=y,
                         params={"max_bin": WIDE_PARAMS["max_bin"]})
         bst = lt.train(WIDE_PARAMS, ds, WIDE_ROUNDS, verbose_eval=False)
-        return ds, bst.model_to_string()
+        return ds, bst
 
-    ds, text = run()
+    ds, bst = run()
+    used_graph(bst)
+    text = bst.model_to_string()
+    del bst
     if ds.binned_t.dtype != torch.int32:
         raise AssertionError(f"wide groups binned as {ds.binned_t.dtype}")
     ref = np.zeros((WIDE_ROWS, ds.num_groups), ds.binned_dtype())
@@ -1382,7 +1485,7 @@ def phase_wide_bins(lt):
                              "_bin_block")
     saved = plain_kernels()
     try:
-        _, text_p = run()
+        text_p = run()[1].model_to_string()
     finally:
         restore_kernels(saved)
     if text != text_p:
@@ -1948,6 +2051,7 @@ def short_run(lt, ds, params, positive, zero, quant=True,
     seconds = time.perf_counter() - t0
     launches = kernel_launches()
     modes = dict(fused.scan_modes)
+    used_graph(bst)
     expect_launches(launches, positive=positive, zero=zero)
     if (bst.boosting._quant_on != quant or bst.num_trees()
             != rounds * bst.num_tree_per_iteration):

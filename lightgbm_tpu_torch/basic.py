@@ -146,6 +146,37 @@ class Booster:
                                                 np.asarray(hess))
         return self.boosting.train_one_iter()
 
+    def update_chunk(self, chunk: int, learning_rates=None) -> bool:
+        """Train ``chunk`` iterations with no host read between them
+        beyond each tree's fixed-point scales and its lagged stop flag
+        (``boosting/macro.py``); the same model as ``chunk`` calls of
+        ``update()`` where ``boosting.chunk_supported()``, which it
+        requires.  ``learning_rates``: one learning rate an iteration.
+        True when training stopped (no more splits).  reference: the JAX
+        package's basic.py:206."""
+        return self.boosting.train_chunk(chunk, learning_rates)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and take them out of the
+        train and valid scores (reference: basic.py:2420)."""
+        self.boosting.rollback_one_iter()
+        return self
+
+    def reset_parameter(self, params: dict) -> "Booster":
+        """Change parameters between iterations; the port takes
+        ``learning_rate`` (a schedule's step) and raises for any other."""
+        from .config import Config
+        other = {k for k in params
+                 if Config.canonical_key(k) != "learning_rate"}
+        if other:
+            raise NotImplementedError(
+                f"reset_parameter({sorted(other)}) waits for ROADMAP queue "
+                "A (training options); the port resets learning_rate only")
+        self.params.update(params)
+        self.config.update(params)
+        self.boosting.shrinkage_rate = self.config.learning_rate
+        return self
+
     def current_iteration(self) -> int:
         if self.boosting is not None:
             return self.boosting.current_iteration()

@@ -25,47 +25,25 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-import torch
 
 from ..ops.split import f32
-from .gbdt import GBDT, K_EPSILON
+from .gbdt import GBDT
 
 
 class DART(GBDT):
     boosting_type = "dart"
     _quant_ok = False
+    # drops and rescales need the host every iteration
+    _macro_ok = False
 
     def __init__(self, config, train_set, objective):
         super().__init__(config, train_set, objective)
         self._drop_rng = np.random.RandomState(config.drop_seed)
         self.tree_weight: List[float] = []
         self.sum_weight = 0.0
-        # the iterations each call dropped
+        # the iterations each call dropped (the device trees and their
+        # scales are GBDT's tree_history and history_scale)
         self.drops: List[List[int]] = []
-        # each iteration's K device trees (shrunk, the first iteration's
-        # with the init scores folded in) and the scale each model has
-        # taken since (Normalize); a model absent from it has scale 1
-        self.tree_history: List[list] = []
-        self.history_scale: dict = {}
-
-    def _finish_iter(self, trees) -> bool:
-        first = self.iter == 0
-        if super()._finish_iter(trees):
-            return True
-        # a device tree's output equals its host tree's: the first
-        # iteration's carries the init score, as GBDT's add_bias
-        self.tree_history.append([
-            t._replace(leaf_value=t.leaf_value + f32(self.init_scores[k]))
-            if first and abs(self.init_scores[k]) > K_EPSILON else t
-            for k, t in enumerate(trees)])
-        return False
-
-    def _tree_pred(self, model_idx: int, dataset) -> torch.Tensor:
-        """Model ``model_idx``'s current output over ``dataset``'s rows."""
-        it, k = divmod(model_idx, self.num_tree_per_iteration)
-        out = self._tree_output(self.tree_history[it][k], dataset)
-        scale = self.history_scale.get(model_idx, 1.0)
-        return out * f32(scale) if scale != 1.0 else out
 
     def _dropping_trees(self) -> List[int]:
         """The iterations to drop; sets the new tree's shrinkage

@@ -51,7 +51,7 @@ import torch
 from ..config import Config
 from ..dataset import Dataset
 from ..grower import GrowerConfig, predict_leaf_index_binned
-from ..grower_rounds import grow_tree_rounds
+from ..grower_rounds import RoundGrower
 from ..objectives import ObjectiveFunction
 from ..ops.histogram import HIST_METHODS, quantize_gradients
 from ..ops.renew import leaf_percentile
@@ -61,6 +61,16 @@ from ..utils import threefry
 from ..utils.log import log_info, log_warning
 
 K_EPSILON = 1e-15
+
+
+def _route(arrays: dict) -> tuple:
+    """(depth, has a categorical split) of a tree from its host arrays:
+    the trip count of its routing."""
+    nl = int(arrays["num_leaves"])
+    if nl <= 1:
+        return 0, False
+    return (int(arrays["leaf_depth"][:nl].max()),
+            bool(arrays["is_categorical"][:nl - 1].any()))
 
 
 def check_supported(config: Config) -> None:
@@ -83,7 +93,7 @@ def check_supported(config: Config) -> None:
     tl = str(c.tree_learner).lower()
     if tl not in ("serial", "serial_tree_learner") or c.num_machines > 1:
         no(f"tree_learner={c.tree_learner}", "sharded training")
-    if c.tpu_tree_growth not in ("auto", "rounds"):
+    if c.tpu_tree_growth not in ("auto", "rounds", "fast"):
         no(f"tpu_tree_growth={c.tpu_tree_growth}", "the serial grower")
     if c.tpu_hist_method not in HIST_METHODS:
         raise ValueError(f"unknown tpu_hist_method {c.tpu_hist_method!r}; "
@@ -214,10 +224,24 @@ class GBDT:
             hist_method=config.tpu_hist_method, quant=quant_on,
             quant_bins=config.num_grad_quant_bins,
             quant_renew=config.quant_train_renew_leaf,
-            bynode_feature_cnt=bynode_cnt)
+            bynode_feature_cnt=bynode_cnt,
+            rounds_relaxed=config.tpu_tree_growth == "fast")
+        # the round loop of every tree: its buffers and, on the card, its
+        # CUDA graph
+        self.grower = RoundGrower(self.binned_t, self.meta, self.grower_cfg,
+                                  self.meta_t, self._monotone)
+        # each kept iteration's K device trees (the first iteration's
+        # with the init scores folded in) and the scale each model has
+        # taken since (DART's Normalize); rollback_one_iter reads them
+        self.tree_history: List[list] = []
+        self.history_scale: dict = {}
         # a utils.timer.SectionTimer here splits each iteration's time
-        # into sections; None keeps the run free of synchronisation
+        # into sections (and runs the round body eagerly); None keeps the
+        # run free of synchronisation
         self.timer = None
+        # a list here gets each tree's round log, [(k, m), ...] (one host
+        # read a tree)
+        self.round_log: Optional[list] = None
 
     def _section(self, name: str):
         if self.timer is None:
@@ -341,7 +365,13 @@ class GBDT:
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration; True when training should stop (no
         splittable leaf in any class's tree).  ``grad``/``hess``: a
-        custom objective's gradients.  reference: GBDT::TrainOneIter."""
+        custom objective's gradients.  reference: GBDT::TrainOneIter.
+        A supported booster runs it as a chunk of one
+        (``boosting/macro.py``), so training does not depend on how its
+        iterations are chunked."""
+        if grad is None and self.chunk_supported():
+            from .macro import run_chunk
+            return run_chunk(self, 1)
         self.boost_from_average()
         with self._section("objective"):
             if grad is None:
@@ -353,7 +383,8 @@ class GBDT:
 
     def _train_with(self, grad, hess, mask) -> bool:
         trees = self._grow(self.train_score, grad, hess, mask,
-                           self.shrinkage_rate)
+                           self.shrinkage_rate, self._feature_masks(),
+                           self._node_key())
         return self._finish_iter(trees)
 
     def _renew_residual(self, score: torch.Tensor, k: int) -> torch.Tensor:
@@ -361,13 +392,14 @@ class GBDT:
         ``label - score[k]``, the scores before this tree (RF overrides)."""
         return self._renew_label - score[k]
 
-    def _grow(self, score: torch.Tensor, grad, hess, mask, lr) -> list:
-        """Grow class k's tree from ``grad[k]``/``hess[k]`` for every k,
-        renew, shrink by ``lr`` and add it to ``score[k]`` in place;
-        returns the K trees (reference: the JAX package's ``iter_body``,
+    def _grow(self, score: torch.Tensor, grad, hess, mask, lr, fmask, rng,
+              alive: Optional[torch.Tensor] = None) -> list:
+        """Grow class k's tree from ``grad[k]``/``hess[k]`` for every k
+        (feature masks ``fmask`` [K, F], node key ``rng``), renew, shrink
+        by ``lr`` and add it to ``score[k]`` in place (only where the
+        device flag ``alive`` holds, if given); returns the K trees
+        (reference: the JAX package's ``iter_body``,
         boosting/gbdt.py:1019-1115)."""
-        fmask = self._feature_masks()
-        rng = self._node_key()
         cfg = self.grower_cfg
         lr32 = f32(lr)
         trees, scales = [], []
@@ -382,11 +414,12 @@ class GBDT:
                         self.config.num_grad_quant_bins, qkey,
                         stochastic=self.config.stochastic_rounding)
                     scales.append(quant_vals[2:])
-            tree, leaf_id = grow_tree_rounds(
-                self.binned_t, grad[k], hess[k], mask, self.meta, cfg,
-                feature_mask=fmask[k], meta_t=self.meta_t, timer=self.timer,
-                quant_vals=quant_vals, monotone_constraints=self._monotone,
-                rng_key=threefry.fold_in(rng, k))
+            log = [] if self.round_log is not None else None
+            tree, leaf_id = self.grower.grow(
+                grad[k], hess[k], mask, fmask[k], quant_vals,
+                threefry.fold_in(rng, k), self.timer, log)
+            if log is not None:
+                self.round_log.append(log)
             with self._section("score"):
                 if self._renew_pct is not None:
                     w = (mask if self._renew_weight is None
@@ -402,7 +435,12 @@ class GBDT:
                 tree = tree._replace(
                     leaf_value=tree.leaf_value * lr32,
                     internal_value=tree.internal_value * lr32)
-                score[k] += tree.leaf_value[leaf_id]
+                if alive is None:
+                    score[k] += tree.leaf_value[leaf_id]
+                else:
+                    score[k] = torch.where(
+                        alive, score[k] + tree.leaf_value[leaf_id],
+                        score[k])
             trees.append(tree)
         if self._quant_on:
             self._quant_scales = scales
@@ -431,30 +469,142 @@ class GBDT:
             self.models.extend(new_models)
         return True
 
-    def _finish_iter(self, trees) -> bool:
-        """Host trees, first-iteration bias, valid-score updates; True
-        when training should stop."""
-        new_models = self._host_trees(trees)
+    def _keep_iteration(self, new_models: List[HostTree], trees,
+                        it: int) -> bool:
+        """Host bookkeeping of iteration ``it``'s trees: the stop check,
+        the first iteration's bias, the model list and the device tree
+        history; True when training should stop."""
+        self.iter = it
         if self._stop(new_models):
             return True
-        first = self.iter == 0
+        first = it == 0
         for k, ht in enumerate(new_models):
             if first and abs(self.init_scores[k]) > K_EPSILON:
                 ht.add_bias(self.init_scores[k])
         self.models.extend(new_models)
+        # a device tree's output equals its host tree's: the first
+        # iteration's carries the init score, as add_bias
+        self.tree_history.append([
+            t._replace(leaf_value=t.leaf_value + f32(self.init_scores[k]))
+            if first and abs(self.init_scores[k]) > K_EPSILON else t
+            for k, t in enumerate(trees)])
+        return False
+
+    def _finish_iter(self, trees) -> bool:
+        """Host trees, first-iteration bias, valid-score updates of an
+        iteration trained outside a chunk (DART, a custom objective);
+        True when training should stop."""
+        new_models = self._host_trees(trees)
+        if self._keep_iteration(new_models, trees, self.iter):
+            return True
         with self._section("score"):
-            for i, vs in enumerate(self.valid_sets):
-                for k, t in enumerate(trees):
-                    self.valid_scores[i][k] += self._tree_output(t, vs)
+            self._valid_update(trees, self.iter)
         self.iter += 1
         return False
 
-    def _tree_output(self, tree, dataset: Dataset) -> torch.Tensor:
+    def _valid_update(self, trees, it: int, routes=None) -> None:
+        """Add iteration ``it``'s trees to the valid scores; ``routes``:
+        each tree's (depth, has categorical split), read on the host, so
+        the routing waits on nothing."""
+        for i, vs in enumerate(self.valid_sets):
+            for k, t in enumerate(trees):
+                self.valid_scores[i][k] += self._tree_output(
+                    t, vs, *(routes[k] if routes else ()))
+
+    def _tree_output(self, tree, dataset: Dataset, depth=None,
+                     has_cat=None) -> torch.Tensor:
         """A device tree's leaf values over the rows of a constructed
-        dataset."""
+        dataset (``depth``/``has_cat``: its depth and whether it has a
+        categorical split, when known on the host)."""
         leaf = predict_leaf_index_binned(tree, dataset.binned_t,
-                                         self.meta_t)
+                                         self.meta_t, depth, has_cat)
         return tree.leaf_value[leaf]
+
+    def _tree_pred(self, model_idx: int, dataset) -> torch.Tensor:
+        """Model ``model_idx``'s current output over ``dataset``'s rows:
+        its device tree times the scale it has taken since."""
+        it, k = divmod(model_idx, self.num_tree_per_iteration)
+        out = self._tree_output(self.tree_history[it][k], dataset)
+        scale = self.history_scale.get(model_idx, 1.0)
+        return out * f32(scale) if scale != 1.0 else out
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's trees out of the train and valid
+        scores, then drop them (reference: GBDT::RollbackOneIter,
+        gbdt.cpp:422; the JAX package's boosting/gbdt.py:2023-2049)."""
+        if self.iter <= 0:
+            return
+        K = self.num_tree_per_iteration
+        first = len(self.models) - K
+        for k in range(K):
+            self.train_score[k] -= self._tree_pred(first + k,
+                                                   self.train_set)
+            for i, vs in enumerate(self.valid_sets):
+                self.valid_scores[i][k] -= self._tree_pred(first + k, vs)
+            self.history_scale.pop(first + k, None)
+        del self.models[-K:]
+        self.tree_history.pop()
+        self.iter -= 1
+
+    # ----------------------------------------------------------- chunks
+
+    # a chunk trains every boosting type but DART (per-iteration drops)
+    _macro_ok = True
+
+    def chunk_supported(self) -> bool:
+        """True when ``boosting/macro.py`` can train this booster (False
+        for DART and a custom objective, which need the host every
+        iteration; the engine then trains one iteration at a time)."""
+        return type(self)._macro_ok and self.objective is not None
+
+    def train_chunk(self, c: int, lrs=None) -> bool:
+        """Train ``c`` iterations as one chunk; the same model as ``c``
+        calls of ``train_one_iter``.  True when training stopped."""
+        from .macro import run_chunk
+        return run_chunk(self, c, lrs)
+
+    def _chunk_goss_keys(self, its, lrs) -> list:
+        return [None] * len(its)
+
+    def _chunk_gradients(self, score):
+        return self._gradients(score)
+
+    def _chunk_mask(self, grad, hess, mask, goss_key):
+        return mask
+
+    def _chunk_step(self, score, grad, hess, mask, xs, j: int, alive):
+        """Iteration ``j`` of a chunk: its trees, and the train score
+        after them (unchanged where ``alive`` is False)."""
+        trees = self._grow(score, grad, hess, mask, xs.lrs[j], xs.fmasks[j],
+                           xs.keys[j], alive)
+        return trees, score
+
+    def _finish_chunk(self, stacked, xs, it0: int) -> bool:
+        """The host side of a chunk: every device tree's fields in one
+        transfer a field, the host trees, the stop check (a stop
+        truncates the chunk there), the valid scores of the kept
+        iterations.  True when training stopped."""
+        K = self.num_tree_per_iteration
+        flat = [t for trees in stacked for t in trees]
+        with self._section("host_tree"):
+            bulk = {f: torch.stack([getattr(t, f) for t in flat]).cpu()
+                    .numpy() for f in flat[0]._fields}
+        stopped, routes = False, []
+        for j, trees in enumerate(stacked):
+            arrays = [{f: a[j * K + k] for f, a in bulk.items()}
+                      for k in range(K)]
+            with self._section("host_tree"):
+                new_models = [tree_to_host(a, self.train_set, xs.lrs[j])
+                              for a in arrays]
+            if self._keep_iteration(new_models, trees, xs.its[j]):
+                stopped = True
+                break
+            routes.append([_route(a) for a in arrays])
+        with self._section("score"):
+            for j, r in enumerate(routes):
+                self._valid_update(stacked[j], xs.its[j], r)
+        self.iter = it0 + len(routes)
+        return stopped
 
     # ------------------------------------------------------------------- eval
 

@@ -62,19 +62,27 @@ class GOSS(GBDT):
     def _bagging_mask(self, it):
         return self._row_valid
 
-    def train_one_iter(self, grad=None, hess=None) -> bool:
-        # warm-up: no sampling for the first 1 / learning_rate iterations;
+    def _chunk_goss_keys(self, its, lrs) -> list:
+        """The subkeys of a chunk's iterations, split off the stream in
+        iteration order; None for an iteration of the warm-up (the first
+        1 / learning_rate iterations, at that iteration's rate), which
+        leaves the stream as it is."""
+        keys = []
+        for it, lr in zip(its, lrs):
+            if it >= 1.0 / max(lr, 1e-12):
+                self._goss_key, sub = threefry.split(self._goss_key)
+                keys.append(sub)
+            else:
+                keys.append(None)
+        return keys
+
+    def _chunk_mask(self, grad, hess, mask, goss_key):
         # a custom objective's gradients train unsampled, as in the JAX
-        # package
-        warmup = 1.0 / max(self.config.learning_rate, 1e-12)
-        if grad is not None or self.iter < warmup:
-            return super().train_one_iter(grad, hess)
-        self.boost_from_average()
-        with self._section("objective"):
-            g, h = self._gradients(self.train_score)
-            self._goss_key, sub = threefry.split(self._goss_key)
-            mask = goss_mask(g, h, sub, self.config.top_rate,
-                             self.config.other_rate)
+        # package (they never reach a chunk)
+        if goss_key is None:
+            return mask
+        m = goss_mask(grad, hess, goss_key, self.config.top_rate,
+                      self.config.other_rate)
         self.sampled_iters += 1
-        self.kept_share.append(mask.count_nonzero() / mask.numel())
-        return self._train_with(g, h, mask)
+        self.kept_share.append(m.count_nonzero() / m.numel())
+        return m

@@ -51,19 +51,23 @@ class RF(GBDT):
     def train_one_iter(self, grad=None, hess=None) -> bool:
         if grad is not None:
             raise ValueError("RF mode does not support custom objectives")
-        it = self.iter
-        with self._section("objective"):
-            mask = self._bagging_mask(it)
+        return super().train_one_iter()
+
+    def _chunk_gradients(self, score):
+        return self._grad, self._hess
+
+    def _chunk_step(self, score, grad, hess, mask, xs, j, alive):
         # grow on it * mean (so "+ tree" keeps the sum), then back to the
         # running mean with the tree's bias
-        s = self.train_score * it
-        trees = self._grow(s, self._grad, self._hess, mask, 1.0)
+        it = xs.its[j]
+        s = score * it
+        trees = self._grow(s, grad, hess, mask, 1.0, xs.fmasks[j],
+                           xs.keys[j])
         div = torch.tensor(it + 1, dtype=torch.float32, device=self.device)
-        self.train_score = (s + self._init_col) / div
-        return self._finish_rf(trees, div)
+        return trees, torch.where(alive, (s + self._init_col) / div, score)
 
-    def _finish_rf(self, trees, div) -> bool:
-        new_models = self._host_trees(trees)
+    def _keep_iteration(self, new_models, trees, it) -> bool:
+        self.iter = it
         for k, ht in enumerate(new_models):
             if abs(self.init_scores[k]) > K_EPSILON:
                 ht.add_bias(self.init_scores[k])
@@ -72,12 +76,14 @@ class RF(GBDT):
                         "that meet the split requirements")
             return True
         self.models.extend(new_models)
-        it = self.iter
-        with self._section("score"):
-            for i, vs in enumerate(self.valid_sets):
-                v = self.valid_scores[i] * it
-                for k, t in enumerate(trees):
-                    v[k] += self._tree_output(t, vs)
-                self.valid_scores[i] = (v + self._init_col) / div
-        self.iter += 1
+        self.tree_history.append(trees)
         return False
+
+    def _valid_update(self, trees, it, routes=None) -> None:
+        div = torch.tensor(it + 1, dtype=torch.float32, device=self.device)
+        for i, vs in enumerate(self.valid_sets):
+            v = self.valid_scores[i] * it
+            for k, t in enumerate(trees):
+                v[k] += self._tree_output(t, vs,
+                                          *(routes[k] if routes else ()))
+            self.valid_scores[i] = (v + self._init_col) / div

@@ -1,8 +1,13 @@
-"""Training callbacks: log/record evaluation and early stopping
-(counterpart of part of ``lightgbm_tpu/callback.py``).
+"""Training callbacks: log/record evaluation, learning-rate schedules
+and early stopping (counterpart of part of ``lightgbm_tpu/callback.py``).
 
 reference: python-package/lightgbm/callback.py (print_evaluation :60,
-record_evaluation :85, early_stopping :150).
+record_evaluation :85, reset_parameter :109, early_stopping :150).  A
+callback marked ``_chunk_safe`` may run once after a chunk of
+iterations (``engine.train``): it does nothing on an iteration without
+evaluation results.  ``reset_parameter`` of ``learning_rate`` alone
+carries its schedule as ``_lr_schedule``, which the engine feeds into a
+chunk as one learning rate an iteration.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ def log_evaluation(period: int = 1) -> Callable:
                                for x in env.evaluation_result_list)
             print(f"[{env.iteration + 1}]\t{result}")
     _callback.order = 10
+    _callback._chunk_safe = True
     return _callback
 
 
@@ -53,6 +59,32 @@ def record_evaluation(eval_result: dict) -> Callable:
             eval_result.setdefault(item[0], collections.OrderedDict())
             eval_result[item[0]].setdefault(item[1], []).append(item[2])
     _callback.order = 20
+    _callback._chunk_safe = True   # no-op on empty evaluation lists
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Before each iteration, set each parameter to its value in a list
+    (one entry an iteration) or returned by a function of the iteration
+    (reference: callback.py:109)."""
+    def _callback(env: CallbackEnv) -> None:
+        new_parameters = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(f"Length of list {key!r} has to equal "
+                                     "to 'num_boost_round'")
+                new_param = value[env.iteration - env.begin_iteration]
+            else:
+                new_param = value(env.iteration - env.begin_iteration)
+            new_parameters[key] = new_param
+        if new_parameters:
+            env.model.reset_parameter(new_parameters)
+            env.params.update(new_parameters)
+    _callback.before_iteration = True
+    _callback.order = 10
+    _callback._lr_schedule = (kwargs["learning_rate"]
+                              if set(kwargs) == {"learning_rate"} else None)
     return _callback
 
 
@@ -115,4 +147,5 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             if first_metric_only:
                 break
     _callback.order = 30
+    _callback._chunk_safe = True   # no-op on empty evaluation lists
     return _callback

@@ -1,11 +1,20 @@
 """Training entry point (counterpart of ``train`` in
 ``lightgbm_tpu/engine.py``).
 
-reference: python-package/lightgbm/engine.py:18.  One boosting iteration
-per step; the JAX package's macro-chunks and pause control are not
-ported.  Training runs on the Dataset's device: ``device=None`` keeps
-it (a new Dataset defaults to the CUDA card), ``device="cpu"`` moves a
-not-yet-constructed Dataset and its valid sets to the CPU.
+reference: python-package/lightgbm/engine.py:18.  The loop trains chunks
+of iterations (``boosting/macro.py``) as the JAX package's engine does
+(``lightgbm_tpu/engine.py:237-325``): each step takes ``c =
+pow2_chunk(distance to the next evaluation or the end, cap)``
+iterations, through ``Booster.update_chunk``, where nothing needs the
+host between them: no custom objective, a booster that
+``chunk_supported()``, every callback after an iteration ``_chunk_safe``
+and every callback before one a learning-rate schedule (whose values
+ride into the chunk, then a final ``reset_parameter``); otherwise c = 1
+through ``Booster.update``.  The JAX package's pause control,
+checkpoints, flight recorder and watchdog are not ported (ROADMAP queue
+A8 and A11).  Training runs on the Dataset's device: ``device=None``
+keeps it (a new Dataset defaults to the CUDA card), ``device="cpu"``
+moves a not-yet-constructed Dataset and its valid sets to the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import Callable, List, Optional
 
 from . import callback as callback_mod
 from .basic import Booster, resolve_device
+from .boosting.macro import DEFAULT_CHUNK_CAP, pow2_chunk
 from .config import Config
 from .dataset import Dataset
 
@@ -35,11 +45,14 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           evals_result: Optional[dict] = None,
           verbose_eval=True, callbacks: Optional[List[Callable]] = None,
           device=None, fobj: Optional[Callable] = None,
-          feval: Optional[Callable] = None, **unsupported) -> Booster:
+          feval: Optional[Callable] = None, learning_rates=None,
+          **unsupported) -> Booster:
     """Train a model; returns the Booster (reference: engine.py:18).
     ``fobj(score, train_set) -> (grad, hess)`` replaces the objective
     (``objective`` becomes "none"); ``feval(score, dataset) -> (name,
-    value, higher_better)`` (or a list of them) adds metrics."""
+    value, higher_better)`` (or a list of them) adds metrics;
+    ``learning_rates``: a list (one a round) or a function of the round
+    (``callback.reset_parameter``)."""
     for key, val in unsupported.items():
         if val is not None:
             raise NotImplementedError(
@@ -90,24 +103,71 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
         cbs.add(callback_mod.log_evaluation(verbose_eval))
     if evals_result is not None:
         cbs.add(callback_mod.record_evaluation(evals_result))
-    cbs_after = sorted(cbs, key=lambda cb: getattr(cb, "order", 0))
+    if learning_rates is not None:
+        cbs.add(callback_mod.reset_parameter(learning_rate=learning_rates))
+    cbs_before = sorted((cb for cb in cbs
+                         if getattr(cb, "before_iteration", False)),
+                        key=lambda cb: getattr(cb, "order", 0))
+    cbs_after = sorted((cb for cb in cbs
+                        if not getattr(cb, "before_iteration", False)),
+                       key=lambda cb: getattr(cb, "order", 0))
 
     mf = max(int(cfg.metric_freq), 1)
     eval_possible = bool(
         (valid_sets and booster.boosting.valid_metrics)
         or feval is not None or cfg.is_provide_training_metric
         or train_in_valid)
+    # chunks of iterations, each ending at the next boundary that needs
+    # the host (an evaluation every metric_freq, the end)
+    lr_cbs = [cb for cb in cbs_before
+              if getattr(cb, "_lr_schedule", None) is not None]
+    lr_lists_ok = all(not isinstance(cb._lr_schedule, list)
+                      or len(cb._lr_schedule) == num_boost_round
+                      for cb in lr_cbs)
+    can_chunk = (fobj is None and booster.boosting.chunk_supported()
+                 and len(lr_cbs) == len(cbs_before) and lr_lists_ok
+                 and all(getattr(cb, "_chunk_safe", False)
+                         for cb in cbs_after))
+
+    def lr_at(j):
+        v = None
+        for cb in lr_cbs:
+            sched = cb._lr_schedule
+            v = sched[j] if isinstance(sched, list) else sched(j)
+        return float(v)
+
     evaluation_result_list = []
-    for i in range(num_boost_round):
-        finished = booster.update(fobj=fobj)
+    i = 0
+    while i < num_boost_round:
+        c = 1
+        if can_chunk:
+            d = num_boost_round - i
+            if eval_possible:
+                d = min(d, mf - (i % mf))
+            c = pow2_chunk(d, DEFAULT_CHUNK_CAP)
+        if c > 1:
+            lrs = [lr_at(j) for j in range(i, i + c)] if lr_cbs else None
+            finished = booster.update_chunk(c, lrs)
+            if lrs is not None:
+                # the last reset_parameter of the chunk, as per-iteration
+                # training leaves it
+                booster.reset_parameter({"learning_rate": lrs[-1]})
+                params["learning_rate"] = lrs[-1]
+        else:
+            for cb in cbs_before:
+                cb(callback_mod.CallbackEnv(booster, params, i, 0,
+                                            num_boost_round, None))
+            finished = booster.update(fobj=fobj)
+        i += c
+        j = i - 1        # the last iteration of this step
         evaluation_result_list = []
-        if eval_possible and (i + 1) % mf == 0:
+        if eval_possible and (j + 1) % mf == 0:
             if cfg.is_provide_training_metric or train_in_valid:
                 evaluation_result_list.extend(booster.eval_train(feval))
             evaluation_result_list.extend(booster.eval_valid(feval))
         try:
             for cb in cbs_after:
-                cb(callback_mod.CallbackEnv(booster, params, i, 0,
+                cb(callback_mod.CallbackEnv(booster, params, j, 0,
                                             num_boost_round,
                                             evaluation_result_list))
         except callback_mod.EarlyStopException as e:

@@ -11,13 +11,28 @@ after the children's best splits are known; the round commits only the
 maximal exact prefix (at least one split: the single best-first step).
 Trees, node and leaf numbering included, are those of the serial grower.
 
-The JAX package runs this as a ``lax.while_loop``; here it is a Python
-loop that reads ``k`` and the committed prefix ``m`` on the host once per
-round.  Per round: candidate ranking, row routing (one gather of each
-row's split-feature bin, the EFB decode, the bitset test of categorical
+The JAX package runs this as a ``lax.while_loop``; here the round body
+has fixed shapes and keeps its scalars on the device, so the host reads
+nothing while a tree grows.  The candidate list is always the first
+``KCAP`` leaves of the (gain desc, leaf asc) order, a lane mask ``lane <
+k`` marks the live ones, every commit is a masked scatter whose dead
+lanes write a spare row past the end of each array (``_pad_scatter``),
+and a round once the tree is done (``k`` = 0) changes nothing.  The
+round log ``(k, m)`` stays on the device and is read once a tree.  The
+host learns that a tree is done from a flag copied after each round and
+read ``STOP_LAG`` rounds later, so a tree runs up to ``STOP_LAG`` dead
+rounds past its end (``RoundGrower.dead_rounds``).  On the card the body
+is captured once per grower as a CUDA graph and replayed every round
+(``RoundGrower``); the CPU, a ``SectionTimer`` run and the kernels'
+plain versions (``USE_GRAPHS`` off) run the same body eagerly.  Per
+round: candidate ranking, row routing (one gather of each row's
+split-feature bin, the EFB decode, the bitset test of categorical
 splits), the smaller-child slot of every row, the histogram and split
-search of both children of every candidate, the feature pick, the
-exact-prefix check and the commit.  Two arms, as in the JAX package:
+search of both children of every candidate lane, the feature pick, the
+exact-prefix check and the commit.  ``tpu_tree_growth="fast"``
+(``cfg.rounds_relaxed``) commits every candidate of a round (``m =
+k``), as the JAX package's fast mode does.  Two arms, as in the JAX
+package:
 
 - **fused** (no EFB bundles, ``hist_method`` ``auto`` or ``fused``): the
   histogram -> split pair ``ops.fused.frontier_splits`` (B4 then B5) on
@@ -79,9 +94,11 @@ a 255-leaf tree: ``chip_smoke.py`` ``rand_train``, NVIDIA H100 80GB
 HBM3, 700.00 W).
 """
 
+
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Optional
 
 import torch
@@ -96,16 +113,29 @@ from .ops.split import (QuantScales, SplitResult, _best_categorical,
                         quant_count_hist)
 from .utils import threefry
 
+# the host reads the flag "this tree is done" STOP_LAG rounds after the
+# round that wrote it, so rounds stay queued on the card; a tree runs up
+# to STOP_LAG dead rounds (no-ops) past its end
+STOP_LAG = 2
+# on the card the round body is replayed as a CUDA graph; False runs it
+# eagerly there too (the kernels' plain versions read the host, so a run
+# that swaps them in sets it)
+USE_GRAPHS = True
+
+# TreeArrays' fields indexed by node ([L - 1]) and by leaf ([L])
+_NODE_FIELDS = ("split_feature", "threshold_bin", "default_left",
+                "is_categorical", "cat_bitset", "left_child", "right_child",
+                "split_gain", "internal_value", "internal_weight",
+                "internal_count")
+_LEAF_FIELDS = ("leaf_value", "leaf_weight", "leaf_count", "leaf_parent",
+                "leaf_depth")
+
 
 def group_layout(meta_t: dict, num_bins: int) -> fused.GroupLayout:
     """Where the dataset's group histograms keep each feature, for B5's
     grouped leaf mode and ``ops.fused.expand_groups``."""
     return fused.GroupLayout(meta_t["feat_group"], meta_t["feat_start"],
                              int(num_bins))
-
-
-def _rows(r: SplitResult, sl) -> SplitResult:
-    return SplitResult(*(getattr(r, f)[sl] for f in r._fields))
 
 
 def node_draws(rng_key, parents: torch.Tensor, sides: torch.Tensor,
@@ -131,6 +161,544 @@ def node_draws(rng_key, parents: torch.Tensor, sides: torch.Tensor,
     return mask, eru
 
 
+def _pad_scatter(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+                 sel: torch.Tensor) -> None:
+    """``buf[idx] = val`` in place on the lanes where ``sel``; the other
+    lanes write ``buf``'s last row, a spare that nothing reads
+    (reference: grower_rounds.py _pad_scatter)."""
+    spare = torch.full_like(idx, buf.shape[0] - 1)
+    buf[torch.where(sel, idx, spare)] = val.to(buf.dtype)
+
+
+class _NullTimer:
+    @staticmethod
+    def section(_name):
+        return contextlib.nullcontext()
+
+
+class RoundGrower:
+    """Grows the trees of one booster (or one ``grow_tree_rounds`` call).
+
+    Built once: the hoisted constants (the arm, ``KCAP``, the meta
+    tensors, the categorical columns, B5's warp tasks, the group layout,
+    the monotone constraints), the static input buffers each tree copies
+    its values, scales, masks and draws into, and the carry buffers the
+    round body updates in place (each with a spare last row for
+    ``_pad_scatter``).  On a CUDA device the body is captured once, after
+    the first eager round, as a CUDA graph and replayed every round after
+    that; a capture failure raises.  ``capture_ms`` is the capture's
+    wall time, ``round_counts`` gets (rounds run, live-round count as a
+    device scalar) of every tree, ``flag_waits`` counts the host's waits
+    on a stop flag."""
+
+    def __init__(self, binned_t: torch.Tensor, meta, cfg: GrowerConfig,
+                 meta_t: Optional[dict] = None,
+                 monotone_constraints: Optional[torch.Tensor] = None):
+        meta = self.meta = meta.resolved()
+        dev = self.device = binned_t.device
+        self.binned_t = binned_t
+        self.cfg = cfg
+        G, n = binned_t.shape
+        L = self.L = cfg.num_leaves
+        self.Lm1 = max(L - 1, 1)
+        B = self.B = cfg.num_bins
+        hp = cfg.hp
+        F = self.F = len(meta.num_bin)
+        self.use_mc = monotone_constraints is not None
+        self.use_rng = hp.extra_trees or cfg.bynode_feature_cnt > 0
+        # the JAX trainer's arm election (boosting/gbdt.py:690-707,
+        # grower_rounds.py:168) for the configurations the port trains
+        self.fused_arm = (cfg.hist_method in ("auto", "fused")
+                          and not meta.has_bundles and not self.use_rng)
+        self.Bg = meta.max_group_bin if meta.has_bundles else B
+        K = self.KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
+        mt = self.mt = (meta_t if meta_t is not None
+                        else meta.tensors(dev))
+        self.num_bin, self.missing_type, self.default_bin = (
+            mt["num_bin"], mt["missing_type"], mt["default_bin"])
+        self.is_cat = torch.as_tensor(meta.is_categorical, device=dev)
+        cat = [f for f in range(F) if meta.is_categorical[f]]
+        # the categorical columns, found once (the search takes them)
+        self.cat_cols = torch.tensor(cat, dtype=torch.int64, device=dev)
+        self.cat_idx = self.cat_cols if cat else None
+        self.groups = group_layout(mt, B) if meta.has_bundles else None
+        # B5's warp tasks, planned once from the host meta
+        self.scan_plan = fused.scan_tasks(meta.num_bin, B, dev)
+        self.mc = (monotone_constraints.to(device=dev, dtype=torch.int32)
+                   if self.use_mc else None)
+        self.iota_L = torch.arange(L, device=dev)
+        self.iota_K = torch.arange(K, device=dev)
+        self.neg_inf = torch.tensor(-float("inf"), dtype=torch.float32,
+                                    device=dev)
+        self.graphs = dev.type == "cuda"
+        self.graph = None
+        self._graph_counts = None
+        self.capture_ms = None
+        self.round_counts: list = []
+        self.flag_waits = 0       # host waits on a round's stop flag
+
+        # static inputs, written by each tree
+        C = 2 if cfg.quant else 3
+        self.vals = torch.zeros((C, n), device=dev, dtype=(
+            torch.int8 if cfg.quant else torch.float32))
+        self.member = torch.zeros(n, dtype=torch.bool, device=dev)
+        self.exps = torch.zeros(3, dtype=torch.int32, device=dev)
+        self.qscales = torch.ones(2, dtype=torch.float64, device=dev)
+        self.fmask = torch.ones(F, dtype=torch.float32, device=dev)
+        self.draw_mask = self.draw_eru = None
+        if self.use_rng:
+            # every (parent, side) a tree can search: parent -1 (the
+            # root) .. L - 2, row (parent + 1) * 2 + side
+            self.draw_parents = torch.arange(
+                -1, L - 1, device=dev).repeat_interleave(2)
+            self.draw_sides = torch.arange(2, device=dev).repeat(L)
+            if cfg.bynode_feature_cnt > 0:
+                self.draw_mask = torch.zeros((2 * L, F), device=dev)
+            if hp.extra_trees:
+                self.draw_eru = torch.zeros((2 * L, F, 2), device=dev)
+
+        # the carry: node arrays [L - 1 + 1], leaf arrays [L + 1]
+        leaves = TreeArrays.empty(L + 1, dev)
+        self.tree = TreeArrays.empty(self.Lm1 + 2, dev)._replace(
+            **{f: getattr(leaves, f) for f in _LEAF_FIELDS})
+        self.best = _LeafBest.empty(L + 1, dev)
+        self.hist = torch.zeros((L + 1, C, G, self.Bg), device=dev,
+                                dtype=torch.int32 if cfg.quant
+                                else torch.int64)
+        z = torch.zeros(L + 1, dtype=torch.float32, device=dev)
+        self.leaf_sg, self.leaf_sh, self.leaf_cnt = z, z.clone(), z.clone()
+        self.leaf_min, self.leaf_max = z.clone(), z.clone()
+        self.leaf_parent_side = torch.zeros(L + 1, dtype=torch.int32,
+                                            device=dev)
+        self.leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.num_leaves = torch.ones((), dtype=torch.int64, device=dev)
+        self.split_idx = torch.zeros((), dtype=torch.int64, device=dev)
+        self.nround = torch.zeros((), dtype=torch.int64, device=dev)
+        self.round_log = torch.zeros((self.Lm1 + 1, 2), dtype=torch.int32,
+                                     device=dev)
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        # "done" after the root (row 0) and after each round
+        pin = dev.type == "cuda"
+        self.flags = torch.zeros(self.Lm1 + 1, dtype=torch.bool,
+                                 pin_memory=pin)
+        self.flags_np = self.flags.numpy()
+        self.events = ([torch.cuda.Event() for _ in range(self.Lm1 + 1)]
+                       if pin else None)
+
+    # ------------------------------------------------------------ helpers
+
+    def _scales(self):
+        return (QuantScales(self.qscales[0], self.qscales[1])
+                if self.cfg.quant else self.exps)
+
+    def _search(self, section, ghist, sums, bounds=None, parents=None,
+                sides=None) -> SplitResult:
+        """Best splits of children given their group histograms
+        [NC, C, G, Bg] and totals [3, NC] f32 (the staged arm's search,
+        and both arms' root; B5 reads the groups themselves); ``bounds``
+        ([NC], [NC]) their output bounds (monotone constraints),
+        ``parents``/``sides`` [NC] their node ids (per-node
+        randomness)."""
+        fm, eru = self.fmask, None
+        if self.use_rng:
+            with section("draws"):
+                row = ((parents + 1) * 2 + sides).clamp(0, 2 * self.L - 1)
+                if self.draw_mask is not None:
+                    fm = fm[None, :] * self.draw_mask[row]
+                if self.draw_eru is not None:
+                    eru = self.draw_eru[row]
+        with section("kernels"):
+            return best_split_for_leaf(
+                ghist, self._scales(), sums[0], sums[1], sums[2],
+                self.num_bin, self.missing_type, self.default_bin,
+                self.is_cat, self.cfg.hp, fm, self.mc, bounds, eru,
+                self.groups, self.scan_plan, cat_idx=self.cat_cols)
+
+    def _child_bounds(self, ids: torch.Tensor):
+        """The bounds the two children of each leaf ``ids``' cached split
+        inherit (reference: grower_rounds.py child_bounds): the parent's,
+        narrowed at the midpoint of the clamped child outputs on a
+        numeric split of a constrained feature."""
+        b, hp = self.best, self.cfg.hp
+        p_min, p_max = self.leaf_min[ids], self.leaf_max[ids]
+        l_out = clip(leaf_output(b.left_sum_grad[ids], b.left_sum_hess[ids],
+                                 hp.lambda_l1, hp.lambda_l2,
+                                 hp.max_delta_step), p_min, p_max)
+        r_out = clip(leaf_output(b.right_sum_grad[ids],
+                                 b.right_sum_hess[ids], hp.lambda_l1,
+                                 hp.lambda_l2, hp.max_delta_step),
+                     p_min, p_max)
+        mid = (l_out + r_out) * 0.5
+        mc_f = self.mc[b.feature[ids].clamp(0, self.F - 1)]
+        upd = ~b.is_categorical[ids] & (mc_f != 0)
+        lo, hi = torch.maximum(p_min, mid), torch.minimum(p_max, mid)
+        return (torch.where(upd & (mc_f < 0), lo, p_min),
+                torch.where(upd & (mc_f > 0), hi, p_max),
+                torch.where(upd & (mc_f > 0), lo, p_min),
+                torch.where(upd & (mc_f < 0), hi, p_max))
+
+    def _set_done(self) -> None:
+        """``done`` = not the reference's loop condition, ``split_idx <
+        L - 1 & max(active gains) > 0`` (grower_rounds.py:364-365)."""
+        L = self.L
+        gains = torch.where(self.iota_L < self.num_leaves,
+                            self.best.gain[:L], self.neg_inf)
+        self.done.copy_(~((self.split_idx < L - 1)
+                          & (gains.max() > 0.0)))
+
+    # --------------------------------------------------------------- body
+
+    def _round(self, section) -> None:
+        """One round at fixed shapes, every update in place; no host
+        read.  A round after the tree is done has k = 0 and writes only
+        spare rows."""
+        cfg, hp = self.cfg, self.cfg.hp
+        L, K, F = self.L, self.KCAP, self.F
+        dev = self.device
+        b = _LeafBest(*(f[:L] for f in self.best))
+        tree = self.tree
+        nl, si = self.num_leaves, self.split_idx
+        iota_K, neg_inf = self.iota_K, self.neg_inf
+        leaf_id, binned_t, mt = self.leaf_id, self.binned_t, self.mt
+        with section("routing"):
+            gains = torch.where(self.iota_L < nl, b.gain, neg_inf)
+            npos = (gains > 0.0).sum()
+            k = torch.minimum(torch.minimum(npos, L - nl),
+                              torch.full_like(npos, K))
+            live = iota_K < k
+            # total order (gain desc, leaf asc) = successive best-first
+            # picks; the candidates are its first KCAP entries
+            order = torch.argsort(-gains, stable=True)
+            idl = order[:K]
+            crank_leaf = torch.full((L,), K, dtype=torch.int64,
+                                    device=dev).scatter(
+                0, idl, torch.where(live, iota_K, K))
+            small_left_l = b.left_count <= b.right_count
+            # every row's goes-left bit under its leaf's cached split
+            crank = crank_leaf[leaf_id]
+            f_r = b.feature[leaf_id]
+            binf = feature_bin(binned_t, f_r, mt)
+            gl = row_goes_left(binf, b.threshold[leaf_id],
+                               b.default_left[leaf_id],
+                               self.missing_type[f_r], self.default_bin[f_r],
+                               self.num_bin[f_r],
+                               *((b.is_categorical[leaf_id],
+                                  b.cat_bitset[leaf_id])
+                                 if self.cat_idx is not None else ()))
+            row_small = gl == small_left_l[leaf_id]
+            slot = torch.where(row_small & (crank < K) & self.member, crank,
+                               K).to(torch.int32)
+            ph = self.hist[idl]
+            csums = torch.stack([
+                torch.cat([b.left_sum_grad[idl], b.right_sum_grad[idl]]),
+                torch.cat([b.left_sum_hess[idl], b.right_sum_hess[idl]]),
+                torch.cat([b.left_count[idl], b.right_count[idl]])])
+            cbounds = cb = None
+            if self.use_mc:
+                cb = self._child_bounds(idl)   # l_min, l_max, r_min, r_max
+                cbounds = (torch.cat([cb[0], cb[2]]),
+                           torch.cat([cb[1], cb[3]]))
+            sl = small_left_l[idl]
+            slb = sl[:, None, None, None]
+
+        scales = self._scales()
+        if self.fused_arm:
+            with section("kernels"):
+                seg, nfb = fused.frontier_splits(
+                    binned_t, self.vals, slot, K, self.B, scales, csums, sl,
+                    ph, self.num_bin, self.missing_type, self.default_bin,
+                    hp, monotone_constraints=self.mc, child_bounds=cbounds,
+                    plan=self.scan_plan)
+                h_left = torch.where(slb, seg, ph - seg)
+                cat_best = None
+                if self.cat_idx is not None:
+                    # the categorical columns of both children, derived
+                    # from the cached parents and the smaller children
+                    ci = self.cat_idx
+                    hl_c = h_left[:, :, ci]
+                    chc = torch.cat([hl_c, ph[:, :, ci] - hl_c])
+                    if cfg.quant:
+                        chc = quant_count_hist(chc, csums[2])
+                    cat_best = _best_categorical(
+                        chc, scales, csums[0], csums[1], csums[2],
+                        self.num_bin[ci], self.missing_type[ci], hp)
+                res = fused.pick_fused_best(nfb, csums[0], csums[1],
+                                            csums[2], self.fmask, cat_best,
+                                            self.cat_idx)
+        else:
+            with section("kernels"):
+                # the smaller children's segment histograms (B4)
+                seg = fused.accumulate(binned_t, self.vals, slot, K,
+                                       self.Bg, scales)
+            with section("siblings"):
+                h_left = torch.where(slb, seg, ph - seg)
+                children = torch.cat([h_left, ph - h_left])
+            node_k = si + iota_K
+            res = self._search(section, children, csums, cbounds,
+                               torch.cat([node_k, node_k]),
+                               torch.cat([torch.zeros_like(node_k),
+                                          torch.ones_like(node_k)]))
+
+        with section("routing"):
+            if cfg.max_depth > 0:
+                depth_c = tree.leaf_depth[idl] + 1
+                dd = torch.cat([depth_c, depth_c])
+                res = res._replace(gain=torch.where(dd >= cfg.max_depth,
+                                                    neg_inf, res.gain))
+            # maximal exact prefix: candidate i is the best-first pop at
+            # step i iff its gain >= every child of candidates 0..i-1
+            if cfg.rounds_relaxed:
+                m = k        # "fast": commit the whole batch
+            else:
+                cg = torch.where(torch.isnan(res.gain), neg_inf, res.gain)
+                pair = torch.where(live, torch.maximum(cg[:K], cg[K:]),
+                                   neg_inf)
+                pcm = torch.cummax(pair, dim=0).values
+                prev = torch.cat([neg_inf[None], pcm[:-1]])
+                follow = (iota_K == 0) | (gains[idl] >= prev)
+                m = torch.minimum(k, torch.cumprod(
+                    follow.to(torch.int64), dim=0).sum())
+            went = k > 0
+            _pad_scatter(self.round_log, self.nround[None],
+                         torch.stack([k, m]).to(torch.int32)[None],
+                         went[None])
+            self.nround.add_(went.to(torch.int64))
+
+            # -- commit the first m candidates
+            sel = iota_K < m
+            node_of = si + iota_K
+            newleaf = nl + iota_K
+            par = tree.leaf_parent[idl]
+            side = self.leaf_parent_side[idl]
+            pc = par.clamp_min(0)
+            lfix = sel & (par >= 0) & (side == 0)
+            rfix = sel & (par >= 0) & (side == 1)
+            sg, sh, cnt = (self.leaf_sg[idl], self.leaf_sh[idl],
+                           self.leaf_cnt[idl])
+            depth = tree.leaf_depth[idl] + 1
+            _pad_scatter(tree.left_child, pc, node_of, lfix)
+            _pad_scatter(tree.right_child, pc, node_of, rfix)
+            for field, val in (
+                    ("split_feature", b.feature[idl]),
+                    ("threshold_bin", b.threshold[idl]),
+                    ("default_left", b.default_left[idl]),
+                    ("is_categorical", b.is_categorical[idl]),
+                    ("cat_bitset", b.cat_bitset[idl]),
+                    ("left_child", ~idl),
+                    ("right_child", ~newleaf),
+                    ("split_gain", b.gain[idl]),
+                    ("internal_value", leaf_output(
+                        sg, sh, hp.lambda_l1, hp.lambda_l2,
+                        hp.max_delta_step)),
+                    ("internal_weight", sh),
+                    ("internal_count", cnt)):
+                _pad_scatter(getattr(tree, field), node_of, val, sel)
+            for buf, left, right in (
+                    (tree.leaf_parent, node_of, node_of),
+                    (tree.leaf_depth, depth, depth),
+                    (self.leaf_parent_side, torch.zeros_like(iota_K),
+                     torch.ones_like(iota_K)),
+                    (self.leaf_sg, b.left_sum_grad[idl],
+                     b.right_sum_grad[idl]),
+                    (self.leaf_sh, b.left_sum_hess[idl],
+                     b.right_sum_hess[idl]),
+                    (self.leaf_cnt, b.left_count[idl], b.right_count[idl]),
+                    *(((self.leaf_min, cb[0], cb[2]),
+                       (self.leaf_max, cb[1], cb[3])) if self.use_mc
+                      else ()),
+                    (self.hist, h_left, ph - h_left)):
+                _pad_scatter(buf, idl, left, sel)
+                _pad_scatter(buf, newleaf, right, sel)
+            # rows of a split leaf that go right take the new leaf
+            leaf_id.copy_(torch.where((crank < m) & ~gl, nl + crank,
+                                      leaf_id))
+            for name in _LeafBest._fields:
+                buf, val = getattr(self.best, name), getattr(res, name)
+                _pad_scatter(buf, idl, val[:K], sel)
+                _pad_scatter(buf, newleaf, val[K:], sel)
+            nl.add_(m)
+            si.add_(m)
+            self._set_done()
+
+    # --------------------------------------------------------------- tree
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             row_mask: torch.Tensor,
+             feature_mask: Optional[torch.Tensor] = None,
+             quant_vals: Optional[tuple] = None, rng_key=None, timer=None,
+             rounds: Optional[list] = None):
+        """Grow one tree (see ``grow_tree_rounds``); returns (TreeArrays,
+        leaf_id [n] int64), both the caller's own tensors."""
+        cfg, hp = self.cfg, self.cfg.hp
+        L, dev = self.L, self.device
+        section = (timer or _NullTimer).section
+        use_graph = self.graphs and USE_GRAPHS and timer is None
+        if self.use_rng and rng_key is None:
+            rng_key = threefry.prng_key(0)
+        with section("kernels"):
+            member = row_mask > 0
+            self.member.copy_(member)
+            slot0 = torch.where(member, 0, 1).to(torch.int32)
+            if cfg.quant:
+                if quant_vals is None:
+                    raise ValueError("cfg.quant needs quant_vals=(gq, hq, "
+                                     "g_scale, h_scale)")
+                gq, hq, g_scale, h_scale = quant_vals
+                self.vals.copy_(_vals_t_int(gq, hq, member))
+                self.qscales.copy_(torch.stack([
+                    torch.as_tensor(g_scale), torch.as_tensor(h_scale)]))
+                # B4 in int8 mode, slot 0 for every member row, on both
+                # arms
+                root = fused.accumulate(self.binned_t, self.vals, slot0, 1,
+                                        self.Bg)[0]
+                qsum = self.vals.to(torch.int64).sum(1).to(torch.float32)
+                root_sums = torch.stack([qsum[0] * g_scale,
+                                         qsum[1] * h_scale,
+                                         member.sum().to(torch.float32)])
+            else:
+                self.vals.copy_(_vals_t(grad, hess, row_mask))
+                # the tree's one host read before its rounds
+                scales = fixed_point_scales(self.vals)
+                self.exps.copy_(torch.tensor(scales, dtype=torch.int32))
+                if self.fused_arm:
+                    # the accumulate kernel, slot 0 for every member row
+                    root = fused.accumulate(self.binned_t, self.vals, slot0,
+                                            1, self.B, self.exps)[0]
+                else:
+                    root = histogram_fixed(self.binned_t, self.vals,
+                                           self.Bg, scales)
+                # group 0's bins partition the member rows: exact totals
+                root_sums = fixed_to_f32(root[:, 0, :].sum(-1), self.exps,
+                                         0)
+            if feature_mask is None:
+                self.fmask.fill_(1.0)
+            else:
+                self.fmask.copy_(feature_mask)
+        if self.use_rng:
+            with section("draws"):
+                mask, eru = node_draws(rng_key, self.draw_parents,
+                                       self.draw_sides, self.F,
+                                       cfg.bynode_feature_cnt,
+                                       hp.extra_trees)
+                if mask is not None:
+                    self.draw_mask.copy_(mask)
+                if eru is not None:
+                    self.draw_eru.copy_(eru)
+        self._init_carry(section, root, root_sums)
+        replays = self._run_rounds(section, use_graph)
+        self.round_counts.append((replays, self.nround.clone()))
+        if rounds is not None:
+            nr = int(self.nround)
+            rounds.extend(tuple(r) for r in self.round_log[:nr].tolist())
+        return self._finish(grad, hess, row_mask)
+
+    def _init_carry(self, section, root, root_sums) -> None:
+        L, dev = self.L, self.device
+        for f in _NODE_FIELDS + _LEAF_FIELDS:
+            getattr(self.tree, f).zero_()
+        self.tree.leaf_parent.fill_(-1)
+        for f in self.best:
+            f.zero_()
+        self.best.gain.fill_(-float("inf"))
+        self.hist.zero_()
+        self.hist[0] = root
+        for t in (self.leaf_sg, self.leaf_sh, self.leaf_cnt,
+                  self.leaf_parent_side, self.leaf_id, self.split_idx,
+                  self.nround, self.round_log):
+            t.zero_()
+        self.leaf_min.fill_(-float("inf"))
+        self.leaf_max.fill_(float("inf"))
+        self.num_leaves.fill_(1)
+        self.leaf_sg[0], self.leaf_sh[0], self.leaf_cnt[0] = (
+            root_sums[0], root_sums[1], root_sums[2])
+        root_ids = torch.tensor([-1], dtype=torch.int64, device=dev)
+        r0 = self._search(section, root[None], root_sums[:, None],
+                          (self.leaf_min[:1], self.leaf_max[:1])
+                          if self.use_mc else None,
+                          root_ids, torch.zeros_like(root_ids))
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        for name in _LeafBest._fields:
+            getattr(self.best, name)[zero] = getattr(r0, name).to(
+                getattr(self.best, name).dtype)
+        self._set_done()
+
+    def _flag(self, i: int) -> None:
+        """Copy ``done`` into host flag ``i`` (non-blocking on the card,
+        with an event to wait on)."""
+        self.flags[i].copy_(self.done, non_blocking=True)
+        if self.events is not None:
+            self.events[i].record()
+
+    def _flag_set(self, i: int) -> bool:
+        self.flag_waits += 1
+        if self.events is not None:
+            self.events[i].synchronize()
+        return bool(self.flags_np[i])
+
+    def _run_rounds(self, section, use_graph: bool) -> int:
+        """The rounds of one tree, each replayed (or run eagerly) without
+        a host read; flag r + 1 says the tree was done after round r,
+        and is read STOP_LAG rounds later.  Returns the rounds run."""
+        self._flag(0)
+        r = 0
+        while r < self.Lm1:
+            if r >= STOP_LAG and self._flag_set(r - STOP_LAG):
+                break
+            if use_graph and self.graph is not None:
+                self.graph.replay()
+                fused.add_launch_counts(self._graph_counts)
+            else:
+                self._round(section)
+                if use_graph:
+                    self._capture()
+            self._flag(r + 1)
+            r += 1
+        return r
+
+    def _capture(self) -> None:
+        """Capture the round body as a CUDA graph (after an eager round
+        has warmed up every kernel and buffer).  The launches recorded
+        are counted once per replay, not at capture."""
+        before = fused.launch_count_snapshot()
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._round(_NullTimer.section)
+        torch.cuda.synchronize(self.device)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self._graph_counts = fused.launch_count_delta(before)
+        fused.restore_launch_counts(before)
+        self.graph = graph
+
+    def _finish(self, grad, hess, row_mask):
+        cfg, hp = self.cfg, self.cfg.hp
+        L, Lm1 = self.L, self.Lm1
+        leaf_sg, leaf_sh = self.leaf_sg[:L], self.leaf_sh[:L]
+        leaf_id = self.leaf_id.clone()
+        if cfg.quant and cfg.quant_renew:
+            # leaf outputs from the true gradient sums of each leaf's rows
+            from .ops.renew import quant_train_renew_leaf
+            leaf_sg, leaf_sh = quant_train_renew_leaf(leaf_id, grad, hess,
+                                                      row_mask, L)
+        lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
+                         hp.max_delta_step)
+        if self.use_mc:
+            lv = clip(lv, self.leaf_min[:L], self.leaf_max[:L])  # the clamp
+        active = self.iota_L < self.num_leaves
+        zero = torch.zeros_like(lv)
+        t = self.tree
+        tree = TreeArrays(
+            **{f: getattr(t, f)[:Lm1].clone() for f in _NODE_FIELDS},
+            leaf_value=torch.where(active, lv, zero),
+            leaf_weight=torch.where(active, leaf_sh, zero),
+            leaf_count=torch.where(active, self.leaf_cnt[:L], zero),
+            leaf_parent=t.leaf_parent[:L].clone(),
+            leaf_depth=t.leaf_depth[:L].clone(),
+            num_leaves=self.num_leaves.clone())
+        return tree, leaf_id
+
+
 def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, row_mask: torch.Tensor, meta,
                      cfg: GrowerConfig,
@@ -143,315 +711,17 @@ def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
     """Grow one tree.  ``binned_t`` [G, n] uint8/int32 (the EFB group
     matrix), ``grad``/``hess``/``row_mask`` [n] f32 on the same device;
     ``feature_mask`` [F] (0 = feature not sampled); ``timer`` a
-    ``utils.timer.SectionTimer``; ``rounds``, when given, gets one
-    ``(k, m)`` per round: candidates, and splits committed (m < k is a
-    rollback to the exact prefix); ``quant_vals`` (``cfg.quant``): ``(gq,
-    hq, g_scale, h_scale)`` from ``ops.histogram.quantize_gradients``;
-    ``monotone_constraints`` [F] int32 in {-1, 0, 1} (used features);
-    ``rng_key`` the tree's threefry key (a pair of ints) for per-node
-    randomness, ``PRNGKey(0)`` when that is on and no key is given.
-    Returns (TreeArrays, leaf_id [n] int64)."""
-    meta = meta.resolved()
-    dev = binned_t.device
-    G, n = binned_t.shape
-    L = cfg.num_leaves
-    B = cfg.num_bins
-    hp = cfg.hp
-    F = len(meta.num_bin)
-    use_mc = monotone_constraints is not None
-    use_rng = hp.extra_trees or cfg.bynode_feature_cnt > 0
-    if use_rng and rng_key is None:
-        rng_key = threefry.prng_key(0)
-    # the JAX trainer's arm election (boosting/gbdt.py:690-707,
-    # grower_rounds.py:168) for the configurations the port trains
-    fused_arm = (cfg.hist_method in ("auto", "fused")
-                 and not meta.has_bundles and not use_rng)
-    Bg = meta.max_group_bin if meta.has_bundles else B
-    KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
-    mt = meta_t if meta_t is not None else meta.tensors(dev)
-    num_bin, missing_type, default_bin = (
-        mt["num_bin"], mt["missing_type"], mt["default_bin"])
-    is_cat = torch.as_tensor(meta.is_categorical, device=dev)
-    cat_idx = torch.nonzero(is_cat).flatten() if is_cat.any() else None
-    groups = group_layout(mt, B) if meta.has_bundles else None
-    # B5's warp tasks, planned once a tree from the host meta
-    scan_plan = fused.scan_tasks(meta.num_bin, B, dev)
-    if timer is None:
-        def section(_name):
-            return contextlib.nullcontext()
-    else:
-        section = timer.section
-    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
-    mc = (monotone_constraints.to(device=dev, dtype=torch.int32)
-          if use_mc else None)
-    if use_rng:
-        with section("draws"):
-            # every (parent, side) a tree can search: parent -1 (the
-            # root) .. L - 2, row (parent + 1) * 2 + side
-            ids = torch.arange(-1, L - 1, device=dev).repeat_interleave(2)
-            all_mask, all_eru = node_draws(
-                rng_key, ids, torch.arange(2, device=dev).repeat(L), F,
-                cfg.bynode_feature_cnt, hp.extra_trees)
-
-    def search(ghist: torch.Tensor, sums: torch.Tensor, bounds=None,
-               parents=None, sides=None) -> SplitResult:
-        """Best splits of children given their group histograms
-        [NC, 3, G, Bg] int64 and totals [3, NC] f32 (the staged arm's
-        search, and both arms' root; B5 reads the groups themselves);
-        ``bounds`` ([NC], [NC]) their output bounds (monotone
-        constraints), ``parents``/``sides`` [NC] their node ids (per-node
-        randomness)."""
-        fm, eru = feature_mask, None
-        if use_rng:
-            with section("draws"):
-                row = (parents + 1) * 2 + sides
-                if all_mask is not None:
-                    fm = all_mask[row] if fm is None else \
-                        fm[None, :] * all_mask[row]
-                if all_eru is not None:
-                    eru = all_eru[row]
-        with section("kernels"):
-            return best_split_for_leaf(ghist, scales, sums[0], sums[1],
-                                       sums[2], num_bin, missing_type,
-                                       default_bin, is_cat, hp, fm, mc,
-                                       bounds, eru, groups, scan_plan)
-
-    with section("kernels"):
-        member = row_mask > 0
-        slot0 = torch.where(member, 0, 1).to(torch.int32)
-        if cfg.quant:
-            if quant_vals is None:
-                raise ValueError("cfg.quant needs quant_vals=(gq, hq, "
-                                 "g_scale, h_scale)")
-            gq, hq, g_scale, h_scale = quant_vals
-            vals = _vals_t_int(gq, hq, member).contiguous()
-            scales = QuantScales(float(g_scale), float(h_scale))
-            # B4 in int8 mode, slot 0 for every member row, on both arms
-            root = fused.accumulate(binned_t, vals, slot0, 1, Bg)[0]
-            qsum = vals.to(torch.int64).sum(1).to(torch.float32)
-            root_sums = torch.stack([qsum[0] * g_scale, qsum[1] * h_scale,
-                                     member.sum().to(torch.float32)])
-        else:
-            vals = _vals_t(grad, hess, row_mask).contiguous()
-            scales = fixed_point_scales(vals)
-            if fused_arm:
-                # the accumulate kernel with slot 0 for every member row
-                root = fused.accumulate(binned_t, vals, slot0, 1, B,
-                                        scales)[0]
-            else:
-                root = histogram_fixed(binned_t, vals, Bg, scales)
-            # group 0's bins partition the member rows: exact totals
-            root_sums = fixed_to_f32(root[:, 0, :].sum(-1), scales, 0)
-    leaf_min = torch.full((L,), -float("inf"), dtype=torch.float32,
-                          device=dev)
-    leaf_max = torch.full_like(leaf_min, float("inf"))
-    root_ids = torch.tensor([-1], dtype=torch.int64, device=dev)
-    r0 = search(root[None], root_sums[:, None],
-                (leaf_min[:1], leaf_max[:1]) if use_mc else None,
-                root_ids, torch.zeros_like(root_ids))
-
-    tree = TreeArrays.empty(L, dev)
-    best = _LeafBest.empty(L, dev)
-    best.store(torch.zeros(1, dtype=torch.int64, device=dev), r0)
-    hist = torch.zeros((L,) + tuple(root.shape), dtype=root.dtype,
-                       device=dev)
-    hist[0] = root
-    leaf_sg = torch.zeros(L, dtype=torch.float32, device=dev)
-    leaf_sh = torch.zeros_like(leaf_sg)
-    leaf_cnt = torch.zeros_like(leaf_sg)
-    leaf_sg[0], leaf_sh[0], leaf_cnt[0] = root_sums[0], root_sums[1], \
-        root_sums[2]
-    leaf_parent_side = torch.zeros(L, dtype=torch.int32, device=dev)
-    leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
-    iota_L = torch.arange(L, device=dev)
-    num_leaves, split_idx = 1, 0
-
-    def child_bounds(ids: torch.Tensor):
-        """The bounds the two children of each leaf ``ids``' cached split
-        inherit (reference: grower_rounds.py child_bounds): the parent's,
-        narrowed at the midpoint of the clamped child outputs on a
-        numeric split of a constrained feature."""
-        b = best
-        p_min, p_max = leaf_min[ids], leaf_max[ids]
-        l_out = clip(leaf_output(b.left_sum_grad[ids], b.left_sum_hess[ids],
-                                 hp.lambda_l1, hp.lambda_l2,
-                                 hp.max_delta_step), p_min, p_max)
-        r_out = clip(leaf_output(b.right_sum_grad[ids],
-                                 b.right_sum_hess[ids], hp.lambda_l1,
-                                 hp.lambda_l2, hp.max_delta_step),
-                     p_min, p_max)
-        mid = (l_out + r_out) * 0.5
-        mc_f = mc[b.feature[ids].clamp(0, F - 1)]
-        upd = ~b.is_categorical[ids] & (mc_f != 0)
-        lo, hi = torch.maximum(p_min, mid), torch.minimum(p_max, mid)
-        return (torch.where(upd & (mc_f < 0), lo, p_min),
-                torch.where(upd & (mc_f > 0), hi, p_max),
-                torch.where(upd & (mc_f > 0), lo, p_min),
-                torch.where(upd & (mc_f < 0), hi, p_max))
-
-    while split_idx < L - 1:
-        with section("routing"):
-            gains = torch.where(iota_L < num_leaves, best.gain, neg_inf)
-            pos = gains > 0.0
-            npos = int(pos.sum())
-            if npos == 0:
-                break
-            k = min(npos, L - num_leaves, KCAP)
-            # total order (gain desc, leaf asc) = successive best-first picks
-            order = torch.argsort(-gains, stable=True)
-            idl = order[:k]
-            crank_leaf = torch.full((L,), k, dtype=torch.int64, device=dev)
-            crank_leaf[idl] = torch.arange(k, device=dev)
-            small_left_l = best.left_count <= best.right_count
-            # every row's goes-left bit under its leaf's cached split
-            crank = crank_leaf[leaf_id]
-            f_r = best.feature[leaf_id]
-            binf = feature_bin(binned_t, f_r, mt)
-            gl = row_goes_left(binf, best.threshold[leaf_id],
-                               best.default_left[leaf_id], missing_type[f_r],
-                               default_bin[f_r], num_bin[f_r],
-                               *((best.is_categorical[leaf_id],
-                                  best.cat_bitset[leaf_id])
-                                 if cat_idx is not None else ()))
-            row_small = gl == small_left_l[leaf_id]
-            slot = torch.where(row_small & (crank < k) & member, crank,
-                               k).to(torch.int32)
-            ph = hist[idl]
-            b = best
-            csums = torch.stack([
-                torch.cat([b.left_sum_grad[idl], b.right_sum_grad[idl]]),
-                torch.cat([b.left_sum_hess[idl], b.right_sum_hess[idl]]),
-                torch.cat([b.left_count[idl], b.right_count[idl]])])
-            cbounds = cb = None
-            if use_mc:
-                cb = child_bounds(idl)     # l_min, l_max, r_min, r_max
-                cbounds = (torch.cat([cb[0], cb[2]]),
-                           torch.cat([cb[1], cb[3]]))
-
-        sl = small_left_l[idl]
-        if fused_arm:
-            with section("kernels"):
-                seg, nfb = fused.frontier_splits(
-                    binned_t, vals, slot, k, B, scales, csums, sl, ph,
-                    num_bin, missing_type, default_bin, hp,
-                    monotone_constraints=mc, child_bounds=cbounds,
-                    plan=scan_plan)
-                cat_best = None
-                if cat_idx is not None:
-                    # the categorical columns of both children, derived
-                    # from the cached parents and the smaller children
-                    sm_c, ph_c = seg[:, :, cat_idx], ph[:, :, cat_idx]
-                    hl_c = torch.where(sl[:, None, None, None], sm_c,
-                                       ph_c - sm_c)
-                    chc = torch.cat([hl_c, ph_c - hl_c])
-                    if cfg.quant:
-                        chc = quant_count_hist(chc, csums[2])
-                    cat_best = _best_categorical(
-                        chc, scales, csums[0], csums[1], csums[2],
-                        num_bin[cat_idx], missing_type[cat_idx], hp)
-                res = fused.pick_fused_best(nfb, csums[0], csums[1],
-                                            csums[2], feature_mask,
-                                            cat_best, cat_idx)
-        else:
-            with section("kernels"):
-                # the smaller children's segment histograms (B4)
-                seg = fused.accumulate(binned_t, vals, slot, k, Bg, scales)
-            with section("siblings"):
-                h_left = torch.where(sl[:, None, None, None], seg, ph - seg)
-                children = torch.cat([h_left, ph - h_left])
-            node_k = split_idx + torch.arange(k, device=dev)
-            res = search(children, csums, cbounds,
-                         torch.cat([node_k, node_k]),
-                         torch.cat([torch.zeros_like(node_k),
-                                    torch.ones_like(node_k)]))
-
-        with section("routing"):
-            if cfg.max_depth > 0:
-                depth_c = tree.leaf_depth[idl] + 1
-                dd = torch.cat([depth_c, depth_c])
-                res = res._replace(gain=torch.where(dd >= cfg.max_depth,
-                                                    neg_inf, res.gain))
-            # maximal exact prefix: candidate i is the best-first pop at
-            # step i iff its gain >= every child of candidates 0..i-1
-            cg = torch.where(torch.isnan(res.gain), neg_inf, res.gain)
-            pcm = torch.cummax(torch.maximum(cg[:k], cg[k:]), dim=0).values
-            prev = torch.cat([neg_inf[None], pcm[:-1]])
-            follow = gains[idl] >= prev
-            follow[0] = True
-            m = min(k, int(torch.cumprod(follow.to(torch.int64),
-                                         dim=0).sum()))
-            if rounds is not None:
-                rounds.append((k, m))
-
-            # -- commit the first m candidates
-            ids = idl[:m]
-            r_ = torch.arange(m, device=dev)
-            node_of = split_idx + r_
-            newleaf = num_leaves + r_
-            par = tree.leaf_parent[ids]
-            side = leaf_parent_side[ids]
-            lfix = (par >= 0) & (side == 0)
-            rfix = (par >= 0) & (side == 1)
-            tree.left_child[par[lfix]] = node_of[lfix].to(torch.int32)
-            tree.right_child[par[rfix]] = node_of[rfix].to(torch.int32)
-            tree.split_feature[node_of] = b.feature[ids]
-            tree.threshold_bin[node_of] = b.threshold[ids]
-            tree.default_left[node_of] = b.default_left[ids]
-            tree.is_categorical[node_of] = b.is_categorical[ids]
-            tree.cat_bitset[node_of] = b.cat_bitset[ids]
-            tree.left_child[node_of] = (~ids).to(torch.int32)
-            tree.right_child[node_of] = (~newleaf).to(torch.int32)
-            tree.split_gain[node_of] = b.gain[ids]
-            tree.internal_value[node_of] = leaf_output(
-                leaf_sg[ids], leaf_sh[ids], hp.lambda_l1, hp.lambda_l2,
-                hp.max_delta_step)
-            tree.internal_weight[node_of] = leaf_sh[ids]
-            tree.internal_count[node_of] = leaf_cnt[ids]
-            depth = tree.leaf_depth[ids] + 1
-            tree.leaf_parent[ids] = node_of
-            tree.leaf_parent[newleaf] = node_of
-            tree.leaf_depth[ids] = depth
-            tree.leaf_depth[newleaf] = depth
-            leaf_parent_side[ids] = 0
-            leaf_parent_side[newleaf] = 1
-            if use_mc:
-                leaf_min[ids], leaf_max[ids] = cb[0][:m], cb[1][:m]
-                leaf_min[newleaf], leaf_max[newleaf] = cb[2][:m], cb[3][:m]
-            # rows of a split leaf that go right take the new leaf
-            leaf_id = torch.where((crank < m) & ~gl, num_leaves + crank,
-                                  leaf_id)
-            leaf_sg[newleaf] = b.right_sum_grad[ids]
-            leaf_sh[newleaf] = b.right_sum_hess[ids]
-            leaf_cnt[newleaf] = b.right_count[ids]
-            leaf_sg[ids] = b.left_sum_grad[ids]
-            leaf_sh[ids] = b.left_sum_hess[ids]
-            leaf_cnt[ids] = b.left_count[ids]
-            small = seg[:m]
-            h_par = hist[ids]
-            h_left = torch.where(small_left_l[ids][:, None, None, None],
-                                 small, h_par - small)
-            hist[ids] = h_left
-            hist[newleaf] = h_par - h_left
-            best.store(ids, _rows(res, slice(0, m)))
-            best.store(newleaf, _rows(res, slice(k, k + m)))
-            num_leaves += m
-            split_idx += m
-
-    if cfg.quant and cfg.quant_renew:
-        # leaf outputs from the true gradient sums of each leaf's rows
-        from .ops.renew import quant_train_renew_leaf
-        with section("kernels"):
-            leaf_sg, leaf_sh = quant_train_renew_leaf(leaf_id, grad, hess,
-                                                      row_mask, L)
-    lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
-                     hp.max_delta_step)
-    if use_mc:
-        lv = clip(lv, leaf_min, leaf_max)      # the output clamp
-    active = iota_L < num_leaves
-    zero = torch.zeros_like(lv)
-    tree = tree._replace(
-        leaf_value=torch.where(active, lv, zero),
-        leaf_weight=torch.where(active, leaf_sh, zero),
-        leaf_count=torch.where(active, leaf_cnt, zero),
-        num_leaves=num_leaves)
-    return tree, leaf_id
+    ``utils.timer.SectionTimer`` (the body then runs eagerly);
+    ``rounds``, when given, gets one ``(k, m)`` per live round:
+    candidates, and splits committed (m < k is a rollback to the exact
+    prefix), read once after the tree; ``quant_vals`` (``cfg.quant``):
+    ``(gq, hq, g_scale, h_scale)`` from
+    ``ops.histogram.quantize_gradients``; ``monotone_constraints`` [F]
+    int32 in {-1, 0, 1} (used features); ``rng_key`` the tree's threefry
+    key (a pair of ints) for per-node randomness, ``PRNGKey(0)`` when
+    that is on and no key is given.  Builds a ``RoundGrower`` for the
+    one tree (a trainer keeps one per booster).  Returns (TreeArrays
+    with ``num_leaves`` a 0-dim device tensor, leaf_id [n] int64)."""
+    grower = RoundGrower(binned_t, meta, cfg, meta_t, monotone_constraints)
+    return grower.grow(grad, hess, row_mask, feature_mask, quant_vals,
+                       rng_key, timer, rounds)

@@ -102,3 +102,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+_prepared: set = set()
+
+
+def prepare(name: str, lib: ctypes.CDLL) -> None:
+    """Run ``lib``'s ``<name>_prepare`` entry once for the current CUDA
+    device: it raises the kernels' shared-memory limits, which no launch
+    may do inside a CUDA graph capture."""
+    import torch
+    key = (name, torch.cuda.current_device())
+    with _lock:
+        if key in _prepared:
+            return
+        rc = getattr(lib, f"{name}_prepare")()
+        if rc != 0:
+            raise RuntimeError(f"{name}_prepare failed: CUDA error {rc}")
+        _prepared.add(key)

@@ -281,8 +281,8 @@ __global__ void slot_scan_kernel(int* __restrict__ counts, int nblk, int K,
 template <typename ValT>
 __global__ void slot_scatter_kernel(const int* __restrict__ slot, int n, int K,
                                     int nblk, const int* __restrict__ counts,
-                                    const ValT* __restrict__ vals, int s0,
-                                    int s1, int s2,
+                                    const ValT* __restrict__ vals,
+                                    const int* __restrict__ exps,
                                     typename ValTraits<ValT>::Q* __restrict__ sv,
                                     int* __restrict__ order) {
   constexpr int C = ValTraits<ValT>::kChannels;
@@ -303,7 +303,12 @@ __global__ void slot_scatter_kernel(const int* __restrict__ slot, int n, int K,
     }
   }
   __syncthreads();
-  const int sc[3] = {s0, s1, s2};
+  // the fixed-point exponents from the device (none in the int8 mode)
+  int sc[3] = {0, 0, 0};
+  if (exps != nullptr) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) sc[c] = exps[c];
+  }
   const unsigned below = (1u << lane) - 1u;
 #pragma unroll
   for (int u = 0; u < kSteps; ++u) {
@@ -605,7 +610,7 @@ __global__ void __launch_bounds__(kScanWarps * 32)
                 const int* __restrict__ mono,
                 const float* __restrict__ bounds,
                 const int* __restrict__ rand_thr, int K, int F, int B, int G,
-                int Bg, int NC, double m0, double m1, double m2, Hyper hp,
+                int Bg, int NC, const void* __restrict__ scales, Hyper hp,
                 float* __restrict__ out_gain, int* __restrict__ out_thr,
                 int* __restrict__ out_dl, float* __restrict__ out_lg,
                 float* __restrict__ out_lh, float* __restrict__ out_lc) {
@@ -738,7 +743,23 @@ __global__ void __launch_bounds__(kScanWarps * 32)
     for (int ch = 0; ch < C; ++ch) mv[ch] = value(ch, miss_bin);
     if constexpr (kQuant) mv[2] = count(mv[1]);
   }
-  const double mult[3] = {m0, m1, m2};
+  // the channel multipliers, read from the device: 2^-s_c from the
+  // int32 exponents, or (g_scale, h_scale, 1) from the f64 scales
+  double mult[3];
+  if constexpr (kQuant) {
+    const double* q = static_cast<const double*>(scales);
+    mult[0] = q[0];
+    mult[1] = q[1];
+    mult[2] = 1.0;
+  } else {
+    // 2^-s_c built from its bits (exact; |s_c| < 1022 at any scale
+    // fixed_point_scales gives), no ldexp call
+    const int* e = static_cast<const int*>(scales);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      mult[ch] = __longlong_as_double(static_cast<long long>(1023 - e[ch])
+                                      << 52);
+  }
   float ms[3];
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) ms[ch] = fixed_to_f32(mv[ch], mult[ch]);
@@ -847,15 +868,68 @@ __global__ void __launch_bounds__(kScanWarps * 32)
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+// The dynamic shared memory a launch of this file may take beyond the
+// default 48 KiB: fused_prepare raises every kernel's limit to the
+// card's opt-in maximum once a device, before any launch, so that no
+// launch sets an attribute (a launch captured into a CUDA graph must
+// not); a launch asking for more than the prepared limit is refused.
+constexpr int kMaxDevices = 64;
+int g_smem_limit[kMaxDevices] = {0};
+
+cudaError_t check_smem(size_t smem) {
   if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices ||
+      smem > static_cast<size_t>(g_smem_limit[dev]))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <typename Kernel>
+cudaError_t raise_smem(Kernel kernel, int optin, int* limit) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  const int dyn = optin - static_cast<int>(a.sharedSizeBytes);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return err;
+  if (dyn < *limit) *limit = dyn;
+  return cudaSuccess;
 }
 
 }  // namespace
+
+// Raise the shared memory limit of every kernel that takes more than
+// 48 KiB on the current device; call once a device before the first
+// launch (and so before any graph capture).  Idempotent.
+extern "C" int fused_prepare() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidValue;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  int limit = optin;
+#define RAISE(K)                                                \
+  do {                                                          \
+    if ((err = raise_smem(K, optin, &limit)) != cudaSuccess)    \
+      return err;                                               \
+  } while (0)
+  RAISE(slot_count_kernel);
+  RAISE(slot_scatter_kernel<float>);
+  RAISE(slot_scatter_kernel<int8_t>);
+  RAISE((accumulate_kernel<uint8_t, float>));
+  RAISE((accumulate_kernel<int, float>));
+  RAISE((accumulate_kernel<uint8_t, int8_t>));
+  RAISE((accumulate_kernel<int, int8_t>));
+#undef RAISE
+  g_smem_limit[dev] = limit;
+  return 0;
+}
 
 // B4, step 1: order [n] (slotted rows by slot, ascending row id within a
 // slot, dropped rows last), offsets [K + 1] and seg_start [K + 1] (the
@@ -864,14 +938,18 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // refused), and counts int32 scratch of (K + 1) * nblk entries.
 // val_bytes 4 takes vals [3, n] f32 and writes sv [n, 3] int64 at the
 // scales s0-s2, val_bytes 1 takes vals [2, n] int8 and writes sv [n, 2]
-// int8, each slotted row's values at its sorted position.
+// int8, each slotted row's values at its sorted position.  exps is the
+// f32 mode's exponents s0-s2, int32 [3] on the device (read by the
+// kernel, so one captured launch serves every tree's scales); null in
+// the int8 mode.
 extern "C" int fused_slot_order(const void* slot, int n, int K, int nblk,
-                                const void* vals, int val_bytes, int s0,
-                                int s1, int s2, int acc_rows, void* counts,
+                                const void* vals, int val_bytes,
+                                const void* exps, int acc_rows, void* counts,
                                 void* order, void* offsets, void* seg_start,
                                 void* sv, void* stream) {
   if (n <= 0 || K <= 0) return 0;
   if (acc_rows <= 0 || vals == nullptr || sv == nullptr ||
+      (val_bytes == 4 && exps == nullptr) ||
       nblk != (n + kSortBlockRows - 1) / kSortBlockRows ||
       static_cast<long long>(K + 1) * nblk > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -880,17 +958,16 @@ extern "C" int fused_slot_order(const void* slot, int n, int K, int nblk,
   const int* sl = static_cast<const int*>(slot);
   int* cn = static_cast<int*>(counts);
   cudaError_t err;
-  if ((err = allow_smem(slot_count_kernel, smem)) != cudaSuccess) return err;
+  if ((err = check_smem(smem)) != cudaSuccess) return err;
   slot_count_kernel<<<nblk, kSortWarps * 32, smem, st>>>(sl, n, K, nblk, cn);
   slot_scan_kernel<<<1, 1024, 0, st>>>(cn, nblk, K, acc_rows,
                                        static_cast<int*>(offsets),
                                        static_cast<int*>(seg_start));
 #define SCATTER(ValT)                                                       \
   do {                                                                      \
-    if ((err = allow_smem(slot_scatter_kernel<ValT>, smem)) != cudaSuccess) \
-      return err;                                                           \
     slot_scatter_kernel<ValT><<<nblk, kSortWarps * 32, smem, st>>>(         \
-        sl, n, K, nblk, cn, static_cast<const ValT*>(vals), s0, s1, s2,     \
+        sl, n, K, nblk, cn, static_cast<const ValT*>(vals),                 \
+        static_cast<const int*>(exps),                                      \
         static_cast<ValTraits<ValT>::Q*>(sv), static_cast<int*>(order));    \
   } while (0)
   if (val_bytes == 4) {
@@ -934,9 +1011,7 @@ extern "C" int fused_accumulate(const void* binned, int bin_bytes,
     const size_t smem = static_cast<size_t>(ft) * Tr::kChannels * B *         \
                         sizeof(unsigned int) *                                \
                         (std::is_same<ValT, float>::value ? 2 : 1);           \
-    if ((err = allow_smem(accumulate_kernel<BinT, ValT>, smem)) !=            \
-        cudaSuccess)                                                          \
-      return err;                                                             \
+    if ((err = check_smem(smem)) != cudaSuccess) return err;                  \
     accumulate_kernel<BinT, ValT><<<grid, threads, smem, st>>>(               \
         static_cast<const BinT*>(binned), n, F, K, B, od,                     \
         static_cast<const Tr::Q*>(sv), off, ss, seg_rows, feat_tile,          \
@@ -962,8 +1037,11 @@ extern "C" int fused_accumulate(const void* binned, int bin_bytes,
 // quant == 0: int64 cells, quant == 1: int32 levels.  small (and parent)
 // [K, C, F, B]; or, with feat_group and feat_start [F] int32 (leaf mode
 // only), the group histograms [NC, C, G, Bg].  plan: tasks x 32 lane
-// entries (ops/planner.py scan_plan for num_bin and B).  m0-m2 are the
-// channel multipliers (2^-s_c, or g_scale, h_scale, 1).  mono [F] int32,
+// entries (ops/planner.py scan_plan for num_bin and B).  scales, on the
+// device, gives the channel multipliers: the exponents s_c, int32 [3]
+// (2^-s_c), or with quant the f64 [2] (g_scale, h_scale) (and 1 for the
+// count); the kernel reads them, so one captured launch serves every
+// tree's scales.  mono [F] int32,
 // bounds [2, NC] f32 and rand_thr [NC, F] int32 (leaf mode only) may each
 // be null: the mode is off.
 extern "C" int fused_scan(const void* small, const void* parent,
@@ -973,14 +1051,15 @@ extern "C" int fused_scan(const void* small, const void* parent,
                           const void* missing_type, const void* default_bin,
                           const void* mono, const void* bounds,
                           const void* rand_thr, int K, int F, int B, int G,
-                          int Bg, int NC, int quant, double m0, double m1,
-                          double m2, int use_l1, float l1, float l2,
+                          int Bg, int NC, int quant, const void* scales,
+                          int use_l1, float l1, float l2,
                           float min_gain, float min_data, float min_hess,
                           float max_delta_step, void* gain, void* thr,
                           void* dl, void* lg, void* lh, void* lc,
                           void* stream) {
   if (NC <= 0 || F <= 0) return 0;
-  if (B <= 0 || tasks <= 0 || plan == nullptr) return cudaErrorInvalidValue;
+  if (B <= 0 || tasks <= 0 || plan == nullptr || scales == nullptr)
+    return cudaErrorInvalidValue;
   const bool grouped = feat_group != nullptr;
   if (grouped && (feat_start == nullptr || parent != nullptr || G <= 0 ||
                   Bg <= 0))
@@ -1008,7 +1087,7 @@ extern "C" int fused_scan(const void* small, const void* parent,
       static_cast<const int*>(missing_type),                                  \
       static_cast<const int*>(default_bin), static_cast<const int*>(mono),    \
       static_cast<const float*>(bounds), static_cast<const int*>(rand_thr),   \
-      K, F, B, G, Bg, NC, m0, m1, m2, hp, static_cast<float*>(gain),          \
+      K, F, B, G, Bg, NC, scales, hp, static_cast<float*>(gain),              \
       static_cast<int*>(thr), static_cast<int*>(dl), static_cast<float*>(lg), \
       static_cast<float*>(lh), static_cast<float*>(lc))
 #define BY_GROUPED(Q, M)      \

@@ -158,12 +158,34 @@ __global__ void __launch_bounds__(512)
   }
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+// histogram_prepare raises the kernels' shared memory limit once a
+// device before any launch, so that no launch sets an attribute (as in
+// fused.cu); a launch beyond the prepared limit is refused.
+constexpr int kMaxDevices = 64;
+int g_smem_limit[kMaxDevices] = {0};
+
+cudaError_t check_smem(size_t smem) {
   if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices ||
+      smem > static_cast<size_t>(g_smem_limit[dev]))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <typename Kernel>
+cudaError_t raise_smem(Kernel kernel, int* limit) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  const int dyn = kMaxSmem - static_cast<int>(a.sharedSizeBytes);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return err;
+  if (dyn < *limit) *limit = dyn;
+  return cudaSuccess;
 }
 
 template <typename BinT, bool kVec>
@@ -172,7 +194,7 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t s,
                    int s0, int s1, int s2, int rows_per_chunk, int feat_tile,
                    unsigned long long* o) {
   auto kernel = histogram_kernel<BinT, kVec>;
-  const cudaError_t err = allow_smem(kernel, smem);
+  const cudaError_t err = check_smem(smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, s>>>(static_cast<const BinT*>(binned), v, n,
                                      F, B, s0, s1, s2, rows_per_chunk,
@@ -181,6 +203,23 @@ cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t s,
 }
 
 }  // namespace
+
+// Raise every kernel's shared memory limit on the current device; call
+// once a device before the first launch.  Idempotent.
+extern "C" int histogram_prepare() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidValue;
+  int limit = kMaxSmem;
+  if ((err = raise_smem(histogram_kernel<uint8_t, true>, &limit)) ||
+      (err = raise_smem(histogram_kernel<uint8_t, false>, &limit)) ||
+      (err = raise_smem(histogram_kernel<int, true>, &limit)) ||
+      (err = raise_smem(histogram_kernel<int, false>, &limit)))
+    return err;
+  g_smem_limit[dev] = limit;
+  return 0;
+}
 
 // out [3, F, B] int64 must be zeroed by the caller; bin_bytes is 1 (uint8)
 // or 4 (int32).

@@ -43,7 +43,11 @@ launch that completes its pair, and B4's sort under
 ``fused_slot_order`` (once before every accumulate).  ``scan_modes``
 splits B5's launches by the optional inputs they took (``plain``,
 ``monotone``, ``bounds``, ``rand_thr``, joined by ``+``; ``_int8`` for
-the quantized mode).
+the quantized mode), and ``path_counts`` counts B5's launches on group
+histograms and the calls of ``expand_groups``.  A CUDA graph replays
+launches without calling a wrapper, so the grower counts each replay
+as the launches its capture recorded (``launch_count_delta``,
+``add_launch_counts``).
 
 The functions named after the JAX package's (``fused_frontier_splits``,
 ``fused_segment_splits``, ``fused_frontier_accumulate``,
@@ -63,13 +67,13 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import planner
-from .histogram import (INT32_SAFE_ROWS, accumulate_plain,
+from . import _build, planner
+from .histogram import (INT32_SAFE_ROWS, accumulate_plain, exponent_tensor,
                         fixed_point_scales, hist_scales, to_fixed)
 from .split import (NumericFeatureBest, PerFeatureBest, QuantScales,
-                    SplitHyperparams, SplitResult, channel_multipliers, f32,
+                    SplitHyperparams, SplitResult, f32,
                     fixed_to_f32, merge_categorical, numeric_feature_scan,
-                    pick_best_feature, quant_count_hist)
+                    pick_best_feature, quant_count_hist, scale_tensor)
 
 _ENTRIES = ("fused_frontier_splits", "fused_frontier_accumulate",
             "fused_sibling_scan", "fused_slot_order")
@@ -77,6 +81,9 @@ _counts_lock = threading.Lock()
 launch_counts = {name + mode: 0 for mode in ("", "_int8")
                  for name in _ENTRIES}
 scan_modes: dict = {}
+# B5 launches that read the staged arm's group histograms, and calls of
+# expand_groups (what the staged search expands)
+path_counts = {"b5_on_group_histograms": 0, "expand_groups_calls": 0}
 
 
 def reset_launch_counts() -> None:
@@ -84,11 +91,45 @@ def reset_launch_counts() -> None:
         for k in launch_counts:
             launch_counts[k] = 0
         scan_modes.clear()
+        for k in path_counts:
+            path_counts[k] = 0
 
 
 def _count(name: str, quant: bool) -> None:
     with _counts_lock:
         launch_counts[name + ("_int8" if quant else "")] += 1
+
+
+def launch_count_snapshot() -> tuple:
+    """The counts now (``launch_counts``, ``scan_modes``,
+    ``path_counts``)."""
+    with _counts_lock:
+        return dict(launch_counts), dict(scan_modes), dict(path_counts)
+
+
+def launch_count_delta(before: tuple) -> tuple:
+    """What the counts rose by since ``before``: the launches a CUDA
+    graph captured, counted again at each replay (``add_launch_counts``)
+    since a replay goes through no wrapper."""
+    now = launch_count_snapshot()
+    return tuple({k: v - b.get(k, 0) for k, v in n.items()
+                  if v != b.get(k, 0)} for n, b in zip(now, before))
+
+
+def restore_launch_counts(before: tuple) -> None:
+    with _counts_lock:
+        launch_counts.update(before[0])
+        scan_modes.clear()
+        scan_modes.update(before[1])
+        path_counts.update(before[2])
+
+
+def add_launch_counts(delta: tuple) -> None:
+    with _counts_lock:
+        for counts, d in zip((launch_counts, scan_modes, path_counts),
+                             delta):
+            for k, v in d.items():
+                counts[k] = counts.get(k, 0) + v
 
 
 # ----------------------------------------------------------------------
@@ -155,6 +196,8 @@ def expand_groups(ghist: torch.Tensor, groups: GroupLayout,
     minus the feature's other bins.  The totals are the sum over group
     0's bins (every group column holds one bin per row), so the rebuilt
     bin is exact."""
+    with _counts_lock:
+        path_counts["expand_groups_calls"] += 1
     NC, C, G, Bg = ghist.shape
     B = int(groups.num_bins)
     fg, fs, nb = (t.to(device=ghist.device, dtype=torch.int64)
@@ -201,13 +244,11 @@ def _lib():
     global _lib_handle
     with _lib_lock:
         if _lib_handle is None:
-            from . import _build
             lib = _build.load("fused")
             p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            d = ctypes.c_double
             lib.fused_slot_order.argtypes = [
                 p, i, i, i, p, i,              # slot n K nblk vals bytes
-                i, i, i, i,                    # s0-2 acc_rows
+                p, i,                          # exps acc_rows
                 p, p, p, p, p, p]              # counts order offsets
             #                                    seg_start sv stream
             lib.fused_slot_order.restype = ctypes.c_int
@@ -223,13 +264,19 @@ def _lib():
                 p, p, p, p,                    # sums nb mt db
                 p, p, p,                       # mono bounds rand_thr
                 i, i, i, i, i, i, i,           # K F B G Bg NC quant
-                d, d, d,                       # m0 m1 m2
+                p,                             # scales
                 i, fl, fl, fl, fl, fl, fl,     # use_l1 l1 l2 mgain mdata
                 #                                mhess max_delta_step
                 p, p, p, p, p, p, p]           # six outputs, stream
             lib.fused_scan.restype = ctypes.c_int
+            lib.fused_prepare.argtypes = []
+            lib.fused_prepare.restype = ctypes.c_int
             _lib_handle = lib
-        return _lib_handle
+    # the kernels' shared-memory limits, raised once for the current
+    # device before its first launch (no launch sets them, so launches
+    # can be captured into a CUDA graph)
+    _build.prepare("fused", _lib_handle)
+    return _lib_handle
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -240,9 +287,10 @@ def _slot_order_cuda(slot, num_slots, vals_t, scales=None):
     """B4's sort on the card: (order [n], meta [2(K + 1)] = offsets then
     the accumulate's segment starts, sv = the slotted rows' values in
     sorted order, [n, C] of which the first offsets[K] rows are written:
-    int64 fixed point at ``scales``, or the int8 levels as they are).
-    Three launches on the current stream, no host sync; the plain
-    version is ``slot_order_plain`` and ``sorted_values_plain``."""
+    int64 fixed point at ``scales``, the int32 [3] exponents on the card,
+    or the int8 levels as they are).  Three launches on the current
+    stream, no host sync; the plain version is ``slot_order_plain`` and
+    ``sorted_values_plain``."""
     n, K = slot.shape[0], int(num_slots)
     dev = slot.device
     nblk = planner.sort_blocks(n)
@@ -252,12 +300,12 @@ def _slot_order_cuda(slot, num_slots, vals_t, scales=None):
     quant = vals_t.dtype == torch.int8
     sv = torch.empty((n, vals_t.shape[0]), device=dev,
                      dtype=torch.int8 if quant else torch.int64)
-    lib = _lib()
     with torch.cuda.device(dev):
+        lib = _lib()
         rc = lib.fused_slot_order(
             slot.data_ptr(), n, K, nblk, vals_t.data_ptr(),
             vals_t.element_size(),
-            *(scales if scales is not None else (0, 0, 0)),
+            None if quant else exponent_tensor(scales, dev).data_ptr(),
             planner.acc_seg_rows(n), counts.data_ptr(), order.data_ptr(),
             meta.data_ptr(), meta.data_ptr() + 4 * (K + 1), sv.data_ptr(),
             _stream(slot))
@@ -279,8 +327,8 @@ def _accumulate_cuda(binned_t, vals_t, slot, num_slots, num_bins,
         return out
     ft = planner.acc_feat_tile(F, B, quant)
     order, meta, sv = _slot_order_cuda(slot, K, vals_t, scales)
-    lib = _lib()
     with torch.cuda.device(binned_t.device):
+        lib = _lib()
         rc = lib.fused_accumulate(
             binned_t.data_ptr(), binned_t.element_size(),
             vals_t.element_size(), order.data_ptr(), sv.data_ptr(),
@@ -325,8 +373,9 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
     sl = (small_left.to(torch.int32).contiguous()
           if small_left is not None else None)
     quant = isinstance(scales, QuantScales)
-    lib = _lib()
+    sc = scale_tensor(scales, dev)
     with torch.cuda.device(dev):
+        lib = _lib()
         rc = lib.fused_scan(
             small.data_ptr(),
             None if parent is None else parent.data_ptr(),
@@ -338,7 +387,7 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
             missing_type.data_ptr(), default_bin.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (monotone_constraints, child_bounds, rand_thr)),
-            K, F, B, G, Bg, NC, int(quant), *channel_multipliers(scales),
+            K, F, B, G, Bg, NC, int(quant), sc.data_ptr(),
             int(hp.lambda_l1 > 0.0),
             f32(hp.lambda_l1), f32(hp.lambda_l2),
             f32(hp.min_gain_to_split), f32(hp.min_data_in_leaf),
@@ -353,6 +402,7 @@ def _scan_cuda(small, scales, child_sums, num_bin, missing_type,
     with _counts_lock:
         key = mode + ("_int8" if quant else "")
         scan_modes[key] = scan_modes.get(key, 0) + 1
+        path_counts["b5_on_group_histograms"] += groups is not None
     if pair:
         # the launch that completes an accumulate -> scan pair (B2)
         _count("fused_frontier_splits", quant)
@@ -387,9 +437,11 @@ def accumulate(binned_t: torch.Tensor, vals_t: torch.Tensor,
     """Kernel B4: [K, 3, F, B] int64 sums of ``round(vals * 2**s)`` per
     (slot, channel, feature, bin); ``slot == num_slots`` drops a row.
     ``binned_t`` [F, n] uint8/int32, ``vals_t`` [3, n] f32, ``slot`` [n]
-    int32, all contiguous.  An int8 ``vals_t`` [2, n] (quantized levels;
-    ``scales`` unused) gives the [K, 2, F, B] int32 sums of the levels,
-    for at most ``INT32_SAFE_ROWS`` rows."""
+    int32, all contiguous; ``scales`` the exponents s, three ints or an
+    int tensor [3] (on the card the kernel reads them from the device,
+    so a tensor there costs no copy).  An int8 ``vals_t`` [2, n]
+    (quantized levels; ``scales`` unused) gives the [K, 2, F, B] int32
+    sums of the levels, for at most ``INT32_SAFE_ROWS`` rows."""
     if vals_t.dtype == torch.int8:
         if vals_t.dim() != 2 or vals_t.shape[0] != 2:
             raise ValueError(f"int8 vals_t must be [2, n], got "
@@ -414,7 +466,8 @@ def accumulate(binned_t: torch.Tensor, vals_t: torch.Tensor,
         raise ValueError("accumulate takes contiguous tensors")
     return _accumulate_cuda(
         binned_t, vals_t, slot, num_slots, num_bins,
-        None if vals_t.dtype == torch.int8 else tuple(int(s) for s in scales))
+        None if vals_t.dtype == torch.int8
+        else exponent_tensor(scales, binned_t.device))
 
 
 def sibling_scan(small: torch.Tensor, scales: Sequence[int],
@@ -494,7 +547,8 @@ def sibling_scan(small: torch.Tensor, scales: Sequence[int],
         if thr.shape != (NC, F):
             raise ValueError(f"rand_thr must be [{NC}, {F}]")
     return _scan_cuda(small.contiguous(),
-                      scales if quant else tuple(int(s) for s in scales),
+                      scales if quant
+                      else exponent_tensor(scales, small.device),
                       child_sums.to(torch.float32).contiguous(), *meta, hp,
                       small_left,
                       None if parent is None else parent.contiguous(),

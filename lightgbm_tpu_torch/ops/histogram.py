@@ -59,13 +59,14 @@ sharded int16/int32 all-reduce) waits for multi-GPU training.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Tuple
 
 import torch
 
-from . import planner
+from . import _build, planner
 
 # every sum of up to n scaled values stays below 2**62 in magnitude
 FIXED_POINT_BITS = 62
@@ -108,14 +109,40 @@ def hist_scales(*hists: torch.Tensor) -> Tuple[int, int, int]:
                  for m in peak.to(torch.float64).cpu().tolist())
 
 
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """``2**e`` in f64 for integer exponents ``e`` in [-1022, 1023],
+    exactly: each f64 is built from its bits, on ``e``'s device."""
+    return torch.bitwise_left_shift(e.to(torch.int64) + 1023, 52).view(
+        torch.float64)
+
+
+def exponent_tensor(scales, device) -> torch.Tensor:
+    """Fixed-point exponents as the kernels read them: int32 [C] on
+    ``device``, from a tensor (no host read) or a sequence of ints (copied
+    to the device once a distinct sequence, ``host_constant``, so a
+    launch captured into a CUDA graph after a first call copies
+    nothing)."""
+    if isinstance(scales, torch.Tensor):
+        return scales.to(device=device, dtype=torch.int32).contiguous()
+    return host_constant(tuple(int(s) for s in scales), "int32",
+                         str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=64)
+def host_constant(values: tuple, dtype: str, device: str) -> torch.Tensor:
+    """A small host constant as a tensor on ``device``, kept (callers do
+    not write to it)."""
+    return torch.tensor(values, dtype=getattr(torch, dtype), device=device)
+
+
 def to_fixed(x: torch.Tensor, scales, channel_dim: int) -> torch.Tensor:
     """f32 values -> int64 ``round_half_even(x * 2**s_c)`` (the f64
-    product is exact; the kernel's ``llrint(ldexp((double)v, s))``)."""
+    product is exact; the kernel's ``llrint(ldexp((double)v, s))``).
+    ``scales``: the exponents, ints or an int tensor on any device."""
+    mul = pow2(exponent_tensor(scales, x.device))
     shape = [1] * x.dim()
-    shape[channel_dim] = len(scales)
-    mul = torch.tensor([math.ldexp(1.0, int(s)) for s in scales],
-                       dtype=torch.float64, device=x.device).view(shape)
-    return torch.round(x.to(torch.float64) * mul).to(torch.int64)
+    shape[channel_dim] = mul.numel()
+    return torch.round(x.to(torch.float64) * mul.view(shape)).to(torch.int64)
 
 
 def accumulate_plain(binned_t: torch.Tensor, vals_t: torch.Tensor,
@@ -133,20 +160,23 @@ def accumulate_plain(binned_t: torch.Tensor, vals_t: torch.Tensor,
     C = 2 if quant else 3
     out = torch.zeros(K * C * F * B, dtype=torch.int64,
                       device=binned_t.device)
-    keep = (slot >= 0) & (slot < K)
-    rows = torch.nonzero(keep).flatten()
-    if rows.numel() == 0:
-        out = out.view(K, C, F, B)
-        return out.to(torch.int32) if quant else out
-    q = (vals_t[:, rows].to(torch.int64) if quant
-         else to_fixed(vals_t[:, rows], scales, 0))         # [C, m]
-    s = slot[rows].to(torch.int64)
-    for f in range(F):
-        b = binned_t[f, rows].to(torch.int64)
-        inb = b < B                                         # one-hot drops
-        base = (s * C * F + f) * B + b
-        for c in range(C):
-            out.index_add_(0, (base + c * F * B)[inb], q[c][inb])
+    if K and n:
+        # every row adds: a dropped one (its slot, or a bin past B) adds
+        # 0 to a cell in range, so the shapes are fixed and nothing is
+        # read on the host
+        q = (vals_t.to(torch.int64) if quant
+             else to_fixed(vals_t, scales, 0))               # [C, n]
+        s = slot.to(torch.int64)
+        keep = (s >= 0) & (s < K)
+        s = torch.where(keep, s, 0)
+        zero = torch.zeros_like(q[0])
+        for f in range(F):
+            b = binned_t[f].to(torch.int64)
+            ok = keep & (b < B)                             # one-hot drops
+            base = (s * C * F + f) * B + b.clamp(max=B - 1)
+            for c in range(C):
+                out.index_add_(0, base + c * F * B,
+                               torch.where(ok, q[c], zero))
     out = out.view(K, C, F, B)
     return out.to(torch.int32) if quant else out
 
@@ -184,15 +214,17 @@ def _lib():
     global _lib_handle
     with _lib_lock:
         if _lib_handle is None:
-            from . import _build
             lib = _build.load("histogram")
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.histogram_build.argtypes = [
                 p, i, p, i, i, i,          # binned, bytes, vals, n, F, B
                 i, i, i, p, i, i, i, p]    # s0-2, out, chunks, ft, threads,
             lib.histogram_build.restype = ctypes.c_int   # stream
+            lib.histogram_prepare.argtypes = []
+            lib.histogram_prepare.restype = ctypes.c_int
             _lib_handle = lib
-        return _lib_handle
+    _build.prepare("histogram", _lib_handle)    # once a device
+    return _lib_handle
 
 
 def _histogram_cuda(binned_t, vals_t, num_bins, scales):
@@ -203,8 +235,8 @@ def _histogram_cuda(binned_t, vals_t, num_bins, scales):
         return out
     ft = planner.hist_feat_tile(F, B)
     chunks = planner.hist_row_chunks(n, F, ft)
-    lib = _lib()
     with torch.cuda.device(binned_t.device):
+        lib = _lib()
         rc = lib.histogram_build(
             binned_t.data_ptr(), binned_t.element_size(), vals_t.data_ptr(),
             n, F, B, *scales, out.data_ptr(), chunks, ft,

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from ..binning import MissingType
+from .histogram import exponent_tensor, host_constant, pow2
 
 K_EPSILON = 1e-15
 K_MIN_SCORE = -math.inf
@@ -179,36 +180,63 @@ class QuantScales(NamedTuple):
     """The f32 scales of quantized gradients and hessians: a level q of
     channel c stands for ``q * scale_c`` (``ops.histogram.
     quantize_gradients``).  Passed where the f32 mode passes its
-    fixed-point exponents, it selects the scans' quantized mode."""
+    fixed-point exponents, it selects the scans' quantized mode.  Each
+    field is a float or a 0-dim f32 tensor (the grower passes views of
+    a device buffer, so nothing is read on the host)."""
 
     g: float
     h: float
 
 
 def channel_multipliers(scales) -> tuple:
-    """Per-channel multipliers that turn integer sums into values: the
-    f32 mode's ``2**-s_c`` for fixed-point exponents ``s_c``; ``(g_scale,
-    h_scale, 1)`` for ``QuantScales`` (grad, hess, estimated count)."""
+    """Per-channel multipliers that turn integer sums into values, on
+    the host: the f32 mode's ``2**-s_c`` for fixed-point exponents
+    ``s_c``; ``(g_scale, h_scale, 1)`` for ``QuantScales`` (grad, hess,
+    estimated count).  The scans take ``scale_tensor`` instead."""
     if isinstance(scales, QuantScales):
         return float(scales.g), float(scales.h), 1.0
     return tuple(math.ldexp(1.0, -int(s)) for s in scales)
 
 
+def scale_tensor(scales, device) -> torch.Tensor:
+    """The scales as kernels B4 and B5 read them from the device, with
+    no host read: the f32 mode's exponents as int32 [C] (a sequence of
+    ints or a tensor; ``ops.histogram.exponent_tensor``), ``QuantScales``
+    as f64 [2] (0-dim f32 tensors, each exact in f64, or floats, copied
+    once a distinct pair, ``ops.histogram.host_constant``)."""
+    if isinstance(scales, QuantScales):
+        if not any(isinstance(v, torch.Tensor) for v in scales):
+            return host_constant(tuple(float(v) for v in scales), "float64",
+                                 str(torch.device(device)))
+        return torch.stack([torch.as_tensor(
+            v, dtype=torch.float64, device=device).reshape(())
+            for v in scales])
+    return exponent_tensor(scales, device)
+
+
+def multiplier_tensor(scales, device) -> torch.Tensor:
+    """``channel_multipliers`` as an f64 tensor on ``device``, computed
+    there from ``scale_tensor`` (``2**-s_c`` built exactly from its
+    bits)."""
+    t = scale_tensor(scales, device)
+    if isinstance(scales, QuantScales):
+        return torch.cat([t, torch.ones(1, dtype=torch.float64,
+                                        device=device)])
+    return pow2(-t.to(torch.int64))
+
+
 def fixed_to_f32(p: torch.Tensor, scales, channel_dim: int) -> torch.Tensor:
     """Integer sums -> f32: ``float((double)p * m_c)`` with ``m_c`` the
     multiplier of the channel along ``channel_dim``
-    (``channel_multipliers``).  The int64 -> f64 conversion is exact
+    (``multiplier_tensor``).  The int64 -> f64 conversion is exact
     below 2**53; in the f32 mode the scaling by 2**-s_c is exact too,
     and the f64 -> f32 conversion rounds to nearest — the kernel's
     steps.  A quantized sum below 2**24 times an f32 scale is exact in
     f64, so it rounds once, as the JAX package's f32 product does."""
-    mult = channel_multipliers(scales)
-    if isinstance(scales, QuantScales):
-        mult = mult[:p.shape[channel_dim]]
+    m = multiplier_tensor(scales, p.device)[:p.shape[channel_dim]]
     shape = [1] * p.dim()
-    shape[channel_dim] = len(mult)
-    m = torch.tensor(mult, dtype=torch.float64, device=p.device).view(shape)
-    return (p.to(torch.float64) * m).to(torch.float32)
+    shape[channel_dim] = m.numel()
+    return (p.to(torch.float64) * m.view(shape)).to(torch.float32)
 
 
 def quant_count_hist(hist_int: torch.Tensor, num_data: torch.Tensor,
@@ -322,7 +350,7 @@ def numeric_feature_scan(hist: torch.Tensor, scales: Sequence[int],
     nd = num_data[:, None, None]
     min_data = f32(hp.min_data_in_leaf)
     min_hess = f32(hp.min_sum_hessian_in_leaf)
-    neg_inf = torch.tensor(K_MIN_SCORE, dtype=torch.float32, device=dev)
+    neg_inf = torch.full((), K_MIN_SCORE, dtype=torch.float32, device=dev)
 
     def eval_dir(missing_left: bool):
         if missing_left:
@@ -428,7 +456,7 @@ def _best_categorical(hist: torch.Tensor, scales: Sequence[int],
     NC, _, F, B = hist.shape
     dev = hist.device
     l1, l2 = hp.lambda_l1, hp.lambda_l2 + hp.cat_l2
-    neg_inf = torch.tensor(K_MIN_SCORE, dtype=torch.float32, device=dev)
+    neg_inf = torch.full((), K_MIN_SCORE, dtype=torch.float32, device=dev)
     cells = fixed_to_f32(hist, scales, -3)
     g, h, c = cells[:, 0], cells[:, 1], cells[:, 2]               # [NC,F,B]
     sg = sum_grad.to(torch.float32)[:, None]
@@ -610,7 +638,8 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
                         leaf_output_bounds: Optional[tuple] = None,
                         extra_rand_u: Optional[torch.Tensor] = None,
                         groups=None,
-                        scan_plan: Optional[torch.Tensor] = None
+                        scan_plan: Optional[torch.Tensor] = None,
+                        cat_idx: Optional[torch.Tensor] = None
                         ) -> PerFeatureBest:
     """Best split PER FEATURE of each child.
 
@@ -629,7 +658,9 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
     give the numeric scan its thresholds (column 0,
     ``random_thresholds``) and the categorical search its draws (column
     1).  ``scan_plan``: B5's warp tasks for ``num_bin``
-    (``ops.fused.scan_tasks``), planned by the scan where None."""
+    (``ops.fused.scan_tasks``), planned by the scan where None.
+    ``cat_idx``: the categorical columns (int64 [Fc], maybe empty), found
+    from ``is_categorical`` (a host read) where None."""
     from .fused import expand_groups, sibling_scan
     sums = torch.stack([sum_grad.to(torch.float32),
                         sum_hess.to(torch.float32),
@@ -641,7 +672,8 @@ def feature_best_splits(hist: torch.Tensor, scales: Sequence[int],
                        monotone_constraints=monotone_constraints,
                        child_bounds=leaf_output_bounds, rand_thr=rand_thr,
                        groups=groups, plan=scan_plan)
-    cat_idx = torch.nonzero(is_categorical.to(torch.bool)).flatten()
+    if cat_idx is None:
+        cat_idx = torch.nonzero(is_categorical.to(torch.bool)).flatten()
     cat_best = None
     if cat_idx.numel():
         cat_idx = cat_idx.to(hist.device)
@@ -670,7 +702,8 @@ def best_split_for_leaf(hist: torch.Tensor, scales: Sequence[int],
                         leaf_output_bounds: Optional[tuple] = None,
                         extra_rand_u: Optional[torch.Tensor] = None,
                         groups=None,
-                        scan_plan: Optional[torch.Tensor] = None
+                        scan_plan: Optional[torch.Tensor] = None,
+                        cat_idx: Optional[torch.Tensor] = None
                         ) -> SplitResult:
     """Best split over all features of each child (see
     ``feature_best_splits``); [NC] fields."""
@@ -678,5 +711,5 @@ def best_split_for_leaf(hist: torch.Tensor, scales: Sequence[int],
                              num_bin, missing_type, default_bin,
                              is_categorical, hp, feature_mask,
                              monotone_constraints, leaf_output_bounds,
-                             extra_rand_u, groups, scan_plan)
+                             extra_rand_u, groups, scan_plan, cat_idx)
     return pick_best_feature(pf, sum_grad, sum_hess, num_data)

@@ -135,11 +135,13 @@ class HostTree:
 
 def tree_to_host(tree_arrays, train_set, shrinkage: float) -> HostTree:
     """Trained ``TreeArrays`` (bin thresholds over used features, on any
-    device) -> a self-contained HostTree (double thresholds, real feature
-    indices).  A categorical split's bin bitset becomes a bitset over
-    category values (``cat_boundaries``/``cat_threshold``, the node's
-    threshold its index), as the JAX package's ``tree_to_host`` does."""
-    ta = tree_arrays.to_numpy()
+    device; or its fields already on the host, a dict of arrays) -> a
+    self-contained HostTree (double thresholds, real feature indices).
+    A categorical split's bin bitset becomes a bitset over category
+    values (``cat_boundaries``/``cat_threshold``, the node's threshold
+    its index), as the JAX package's ``tree_to_host`` does."""
+    ta = (tree_arrays if isinstance(tree_arrays, dict)
+          else tree_arrays.to_numpy())
     nl = int(ta["num_leaves"])
     ns = max(nl - 1, 0)
     used = train_set.used_features
