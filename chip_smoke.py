@@ -95,6 +95,20 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   lambdarank gradients, also timed alone); then B5 at the run's shape
   (row ``fused_sibling_scan[rank shape]``) and 3 rounds of
   ``rank_xendcg`` against their plain-version run;
+- ``sparse_cv`` (after ``efb_train``): the same one-hot table given to
+  ``Dataset`` as a scipy CSR matrix (f32, 8 stored entries a row): its
+  bin mappers, EFB groups and [G, n] bytes equal to the dense table's
+  (the CSR rows binned in densified chunks through B3); a binary cache
+  reloads the same bytes and trains the same 3-round model; ``cv`` (5
+  folds, 10 rounds, ``Dataset.subset``) raises every fold's valid AUC,
+  its fold 0 equals a ``train`` on that subset and its first 3 rounds
+  the plain-version run's; continued training from a 5-round model (5
+  more rounds, a 100,000-row valid set; init scores from B1's scores
+  mode on CSR chunks, equal to the host's) and ``refit`` on 200,000
+  fresh rows (B1's leaves mode) equal their plain-version runs;
+  ``pred_contrib`` on 10,000 CSR rows sums to the raw scores (host
+  f64); the phase's launches of B1, B3, B4, B5 and B6 are counted from
+  0 and must each be above 0;
 - ``wide_ingest``: B3 at 200,000 x 2,000 f32 features (chunks that
   stage their own columns) and on one EFB group whose tables exceed 96
   KiB (member parts over successive launches), each byte-identical to
@@ -221,6 +235,16 @@ VARIANT_PARAMS = {
     "quantile": dict(MONO_PARAMS, objective="quantile", alpha=0.9,
                      metric=["quantile"]),
 }
+# sparse_cv (queue A7): the airline_onehot_1m table as a scipy CSR matrix
+# (f32, 8 stored entries a row): CSR binning against the dense table's
+# Dataset, a binary cache, 5-fold cv for 10 rounds, continued training
+# (5 + 5 rounds, a 100,000-row valid set), refit on 200,000 fresh rows
+# and pred_contrib on 10,000 rows; only 3-round runs against plain
+# versions
+SPARSE_CV_ROUNDS, SPARSE_CV_FOLDS, SPARSE_BASE_ROUNDS = 10, 5, 5
+SPARSE_PLAIN_ROUNDS = 3
+SPARSE_REFIT_ROWS, SPARSE_SHAP_ROWS = 200_000, 10_000
+SPARSE_HOST_ROWS = 100_000
 # C-1: B3 at 2,000 features (200,000 rows, a tenth NaN); mappers from a
 # 10,000-row sample; _bin_block checks the first WIDE_ORACLE_ROWS rows
 # and the edge rows (B3's plain version all of them); an EFB group of the
@@ -2678,6 +2702,248 @@ def phase_boost_variants(lt, mono_ds):
                                    "plain runs"})
 
 
+def plain_traverse():
+    """B1's launcher replaced by its plain version (returns the original
+    for ``restore_traverse``)."""
+    from lightgbm_tpu_torch.ops import predict_kernels as pk
+    saved = pk.fused_traverse
+    pk.fused_traverse = (lambda dev, X, num_class=1, emit_scores=False,
+                         plan=None: pk.traverse_plain(dev, X, num_class,
+                                                      emit_scores))
+    return saved
+
+
+def restore_traverse(saved) -> None:
+    from lightgbm_tpu_torch.ops import predict_kernels as pk
+    pk.fused_traverse = saved
+
+
+def trees_of(text: str) -> str:
+    return text.partition("end of trees")[0]
+
+
+def phase_sparse_cv(lt, pk, dense_ds, smi: str) -> dict:
+    """``sparse_cv``: the ``airline_onehot_1m`` table given to ``Dataset``
+    as a scipy CSR matrix.  Checks: the CSR Dataset's bin mappers, EFB
+    groups and [G, n] bytes equal the dense table's (``dense_ds``, binned
+    from the same rows as a dense f32 matrix); a binary cache reloads the
+    same bytes and trains the same 3-round model; ``cv`` (5 folds, 10
+    rounds, through ``Dataset.subset``) raises every fold's valid AUC,
+    its fold 0 equals a ``train`` on that subset and its first 3 rounds
+    the plain-version run's; continued training (5 + 5 rounds, a
+    100,000-row valid set) starts from the old model's raw scores (B1's
+    scores mode on CSR chunks, equal to the host's) and its first 3 new
+    rounds equal the plain-version run's; ``refit`` on 200,000 fresh rows
+    (leaves from B1's leaves mode) equals the plain-version run's;
+    ``pred_contrib`` on 10,000 CSR rows sums to the raw scores within
+    1e-9 relative.  The kernels' launches over the phase (every count set
+    to 0 at its start; the plain-version runs launch nothing) must show
+    B1, B3, B4, B5 and B6."""
+    from lightgbm_tpu_torch.engine import _make_n_folds, _raw_scores
+    from lightgbm_tpu_torch.testing import airline_like, one_hot_csr
+    params = TRAIN_PARAMS
+    t_phase = time.perf_counter()
+    X8, y = airline_like(EFB_ROWS, seed=11)
+    csr = one_hot_csr(X8)
+    Xv8, yv = airline_like(EFB_VALID_ROWS, seed=12)
+    csr_v = one_hot_csr(Xv8)
+    del X8, Xv8
+    reset_training_counts()
+    pk.reset_launch_counts()
+    row = {"phase": "sparse_cv", "config": "airline_onehot_1m (CSR)",
+           "card": smi, "rows": csr.shape[0], "features": csr.shape[1],
+           "nnz_per_row": csr.nnz / csr.shape[0],
+           "csr_mb": (csr.data.nbytes + csr.indices.nbytes
+                      + csr.indptr.nbytes) / 1e6}
+
+    # 1. CSR binning, against the dense table's Dataset
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset(csr, label=y, free_raw_data=False).construct()
+    torch.cuda.synchronize()
+    row["construct_csr_s"] = time.perf_counter() - t0
+    row["construct_dense_s"] = dense_ds.construct_seconds
+    row["bin_route"] = ds.bin_route
+    row["construct_b3_launches"] = kernel_launches()["ingest"]
+    if ds.bin_route != "kernel" or row["construct_b3_launches"] <= 0:
+        raise AssertionError("the CSR rows did not bin through B3")
+    same = (json.dumps([m.to_dict() for m in ds.bin_mappers])
+            == json.dumps([m.to_dict() for m in dense_ds.bin_mappers])
+            and np.array_equal(ds.feat_group, dense_ds.feat_group)
+            and np.array_equal(ds.feat_start, dense_ds.feat_start)
+            and torch.equal(ds.binned_t, dense_ds.binned_t))
+    if not same:
+        raise AssertionError("the CSR Dataset's bins differ from the dense "
+                             "table's")
+    row["groups"] = ds.num_groups
+
+    # 2. the binary cache
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "sparse_cv.bin")
+    t0 = time.perf_counter()
+    ds.save_binary(path)
+    row["save_binary_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cached = lt.Dataset(path).construct()
+    torch.cuda.synchronize()
+    row["load_binary_s"] = time.perf_counter() - t0
+    row["cache_mb"] = os.path.getsize(path) / 1e6
+    os.remove(path)
+    if not torch.equal(cached.binned_t, ds.binned_t) or not np.array_equal(
+            cached.get_label(), ds.get_label()):
+        raise AssertionError("the binary cache did not reload the same "
+                             "bytes")
+    a = lt.train(params, ds, SPARSE_PLAIN_ROUNDS, verbose_eval=False)
+    b = lt.train(params, cached, SPARSE_PLAIN_ROUNDS, verbose_eval=False)
+    if trees_of(a.model_to_string()) != trees_of(b.model_to_string()):
+        raise AssertionError("training from the cache differs from the CSR")
+    del cached, a, b
+
+    # 3. cv through Dataset.subset
+    fold_auc = {}
+
+    def record(env):
+        if env.iteration in (0, env.end_iteration - 1):
+            fold_auc[env.iteration] = [
+                dict((m, v) for _, m, v, _ in bst.eval_valid())["auc"]
+                for bst in env.model.boosters]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lt.cv(params, ds, SPARSE_CV_ROUNDS, nfold=SPARSE_CV_FOLDS,
+                stratified=False, shuffle=True, seed=0,
+                return_cvbooster=True, callbacks=[record])
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    first, last = fold_auc[0], fold_auc[SPARSE_CV_ROUNDS - 1]
+    if not all(b > a for a, b in zip(first, last)):
+        raise AssertionError(f"a fold's valid AUC did not rise: {first} -> "
+                             f"{last}")
+    cvb = res.pop("cvbooster")
+    row.update(cv_s=cv_s, cv_s_per_fold=cv_s / SPARSE_CV_FOLDS,
+               cv_fold_auc_first=first, cv_fold_auc_last=last,
+               cv_auc_mean=res["auc-mean"], cv_auc_stdv=res["auc-stdv"])
+    folds = _make_n_folds(ds, None, SPARSE_CV_FOLDS, params, 0, False, True)
+    tr = ds.subset(folds[0][0], params)
+    te = ds.subset(folds[0][1], params)
+    ev = {}
+    one = lt.train(params, tr, SPARSE_CV_ROUNDS, valid_sets=[te],
+                   valid_names=["valid"], evals_result=ev,
+                   verbose_eval=False)
+    fold0 = cvb.boosters[0].model_to_string()
+    if trees_of(one.model_to_string()) != trees_of(fold0) \
+            or ev["valid"]["auc"][-1] != last[0]:
+        raise AssertionError("cv's fold 0 differs from a train on its "
+                             "subset")
+    saved, saved_b1 = plain_kernels(), plain_traverse()
+    try:
+        plain = lt.train(params, ds.subset(folds[0][0], params),
+                         SPARSE_PLAIN_ROUNDS, verbose_eval=False)
+    finally:
+        restore_kernels(saved)
+        restore_traverse(saved_b1)
+    if trees_of(plain.model_to_string()) != trees_of(
+            cvb.boosters[0].model_to_string(
+                num_iteration=SPARSE_PLAIN_ROUNDS)):
+        raise AssertionError("cv's fold 0 differs from its plain-version "
+                             "run")
+    del cvb, tr, te, one, plain
+
+    # 4. continued training
+    base = lt.train(params, ds, SPARSE_BASE_ROUNDS, verbose_eval=False)
+    vs = ds.create_valid(csr_v, label=yv)
+    ev = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cont = lt.train(params, ds, SPARSE_BASE_ROUNDS, init_model=base,
+                    valid_sets=[vs], valid_names=["valid"],
+                    evals_result=ev, verbose_eval=False)
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    init = _raw_scores(base, csr, cont).cpu().numpy()[0]
+    raw_card = base.predict(csr, raw_score=True)
+    raw_host = base.predict(csr[:SPARSE_HOST_ROWS], raw_score=True,
+                            device=False)
+    if not np.array_equal(init, raw_card.astype(np.float32)):
+        raise AssertionError("the init scores differ from predict on the "
+                             "card")
+    host_err = float(np.abs(raw_card[:SPARSE_HOST_ROWS] - raw_host).max())
+    if not np.allclose(raw_card[:SPARSE_HOST_ROWS], raw_host, rtol=1e-5,
+                       atol=1e-6):
+        raise AssertionError(f"the init scores differ from the host's: "
+                             f"{host_err}")
+    auc = ev["valid"]["auc"]
+    if not auc[-1] > auc[0]:
+        raise AssertionError(f"the continued run's valid AUC fell: {auc}")
+    saved, saved_b1 = plain_kernels(), plain_traverse()
+    try:
+        cont_p = lt.train(params, ds, SPARSE_PLAIN_ROUNDS, init_model=base,
+                          valid_sets=[ds.create_valid(csr_v, label=yv)],
+                          verbose_eval=False)
+    finally:
+        restore_kernels(saved)
+        restore_traverse(saved_b1)
+    n_it = SPARSE_BASE_ROUNDS + SPARSE_PLAIN_ROUNDS
+    if trees_of(cont_p.model_to_string()) != trees_of(
+            cont.model_to_string(num_iteration=n_it)):
+        raise AssertionError("the continued run differs from its "
+                             "plain-version run")
+    row.update(continued_s_per_tree=cont_s / SPARSE_BASE_ROUNDS,
+               continued_valid_auc=auc,
+               init_score_max_abs_err_vs_host_f64=host_err)
+    del cont, cont_p, vs
+
+    # 5. refit on fresh rows
+    Xr8, yr = airline_like(SPARSE_REFIT_ROWS, seed=13)
+    csr_r = one_hot_csr(Xr8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refit = base.refit(csr_r, yr)
+    torch.cuda.synchronize()
+    row["refit_s"] = time.perf_counter() - t0
+    saved, saved_b1 = plain_kernels(), plain_traverse()
+    try:
+        refit_p = base.refit(csr_r, yr)
+    finally:
+        restore_kernels(saved)
+        restore_traverse(saved_b1)
+    if refit.model_to_string() != refit_p.model_to_string():
+        raise AssertionError("refit differs from its plain-version run")
+
+    # 6. SHAP contributions (host f64)
+    rows = csr[:SPARSE_SHAP_ROWS]
+    t0 = time.perf_counter()
+    contrib = base.predict(rows, pred_contrib=True)
+    shap_s = time.perf_counter() - t0
+    raw = base.predict(rows.toarray().astype(np.float64), raw_score=True,
+                       device=False)
+    if contrib.shape != (SPARSE_SHAP_ROWS, csr.shape[1] + 1) or not \
+            np.allclose(contrib.sum(axis=1), raw, rtol=1e-9, atol=0.0):
+        raise AssertionError("pred_contrib does not sum to the raw scores")
+    row.update(pred_contrib_s=shap_s,
+               pred_contrib_rows_per_s=SPARSE_SHAP_ROWS / shap_s,
+               pred_contrib_trees=base.num_trees())
+
+    launches = {**kernel_launches(), **pk.launch_counts}
+    named = {"B1": launches[KERNEL], "B1_leaves": launches[KERNEL
+                                                             + "[leaves]"],
+             "B1_scores": launches[KERNEL + "[scores]"],
+             "B3": launches["ingest"],
+             "B4": launches["fused_frontier_accumulate"],
+             "B4_sort": launches["fused_slot_order"],
+             "B5": launches["fused_sibling_scan"],
+             "B6": launches["histogram_pallas"],
+             "B2": launches["fused_frontier_splits"]}
+    for k in ("B1_leaves", "B1_scores", "B3", "B4", "B5", "B6"):
+        if named[k] <= 0:
+            raise AssertionError(f"the sparse_cv path never launched {k}")
+    expect_launches(launches, zero=INT8_ENTRIES)
+    row["launches"] = named
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2748,6 +3014,7 @@ def main() -> int:
     train_run.pop("bst")
     phase_wide_bins(lt)
     efb_launches, efb_ds, efb_bst = phase_efb_train(lt, pk)
+    sparse_launches = phase_sparse_cv(lt, pk, efb_ds, smi)
     hist6 = phase_hist6(efb_ds, efb_bst, "airline_onehot_1m")
     onehot = phase_onehot_scan(efb_ds, efb_bst)
     del efb_bst
@@ -2878,6 +3145,18 @@ def main() -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # each row's launches on the sparse_cv path as well (B2 and the int8
+    # entries launch nothing there)
+    sparse_of = {KERNEL: KERNEL + "[leaves]",
+                 f"{KERNEL}[scores]": KERNEL + "[scores]",
+                 "ingest": "ingest", "fused_slot_order": "fused_slot_order",
+                 "fused_frontier_accumulate": "fused_frontier_accumulate",
+                 "fused_sibling_scan": "fused_sibling_scan",
+                 "histogram_pallas": "histogram_pallas",
+                 "fused_frontier_splits": "fused_frontier_splits"}
+    for row in table:
+        if row["name"] in sparse_of:
+            row["sparse_cv_launches"] = sparse_launches[sparse_of[row["name"]]]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -472,6 +472,42 @@ class BinMapper:
             return _find_bin_with_predefined_bin(dv, ct, max_bin, total_cnt, min_data_in_bin, forced)
         return _find_bin_with_zero_as_one_bin(dv, ct, max_bin, total_cnt, min_data_in_bin)
 
+    # ---- (de)serialization: the binary cache's mapper records, as the
+    #      JAX package writes them ---------------------------------------
+
+    def to_dict(self) -> dict:
+        d = {
+            "num_bin": self.num_bin,
+            "missing_type": self.missing_type,
+            "is_trivial": self.is_trivial,
+            "sparse_rate": self.sparse_rate,
+            "bin_type": self.bin_type,
+            "min_val": self.min_val,
+            "max_val": self.max_val,
+            "default_bin": self.default_bin,
+            "most_freq_bin": self.most_freq_bin,
+        }
+        if self.bin_type == BinType.NUMERICAL:
+            d["bin_upper_bound"] = [float(x) for x in self.bin_upper_bound]
+        else:
+            d["bin_2_categorical"] = list(self.bin_2_categorical)
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "BinMapper":
+        m = BinMapper(**{k: d[k] for k in (
+            "num_bin", "missing_type", "is_trivial", "sparse_rate",
+            "bin_type", "min_val", "max_val", "default_bin",
+            "most_freq_bin")})
+        if m.bin_type == BinType.NUMERICAL:
+            m.bin_upper_bound = np.asarray(d["bin_upper_bound"],
+                                           dtype=np.float64)
+        else:
+            m.bin_2_categorical = list(d["bin_2_categorical"])
+            m.categorical_2_bin = {c: i for i, c in
+                                   enumerate(m.bin_2_categorical)}
+        return m
+
     # ---- application -------------------------------------------------------
 
     def value_to_bin(self, values: np.ndarray) -> np.ndarray:

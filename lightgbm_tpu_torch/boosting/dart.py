@@ -52,8 +52,11 @@ class DART(GBDT):
         drop: List[int] = []
         if self._drop_rng.rand() >= c.skip_drop:
             drop_rate = c.drop_rate
+            # this run's iterations only (reference: dart.hpp drops
+            # num_init_iteration_ + i)
             n_own = min(self.iter,
-                        len(self.models) // self.num_tree_per_iteration)
+                        len(self.models) // self.num_tree_per_iteration) \
+                - self.num_init_iteration
             if not c.uniform_drop and self.sum_weight > 0:
                 n_own = min(n_own, len(self.tree_weight))
                 inv_avg = len(self.tree_weight) / self.sum_weight
@@ -91,9 +94,10 @@ class DART(GBDT):
         # the dropped trees leave the train score before the gradients
         # (reference: GetTrainingScore -> DroppingTrees, dart.hpp:131-137)
         drop_preds = {}
+        off = self.num_init_iteration    # drop i -> model (off + i) * K + kk
         for i in drop:
             for kk in range(K):
-                p = self._tree_pred(i * K + kk, self.train_set)
+                p = self._tree_pred((off + i) * K + kk, self.train_set)
                 drop_preds[(i, kk)] = p
                 self.train_score[kk] -= p
         if super().train_one_iter(grad, hess):
@@ -106,7 +110,7 @@ class DART(GBDT):
             w = (k / (k + 1.0) if not c.xgboost_dart_mode
                  else k / (k + c.learning_rate))
             for (i, kk), p in drop_preds.items():
-                mi = i * K + kk
+                mi = (off + i) * K + kk
                 self.train_score[kk] += f32(w) * p
                 for vi, vs in enumerate(self.valid_sets):
                     self.valid_scores[vi][kk] += (f32(-(1.0 - w))

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..dataset import Dataset
+from ..dataset import Dataset, same_bins
 from ..grower import GrowerConfig, predict_leaf_index_binned
 from ..grower_rounds import RoundGrower
 from ..objectives import ObjectiveFunction
@@ -170,6 +170,32 @@ class GBDT:
         self._row_valid = torch.ones(n, dtype=torch.float32,
                                      device=self.device)
         self._ones_fmask = None
+        # per-node randomness base key; advanced by iteration
+        self._node_key_base = threefry.prng_key(
+            (config.extra_trees_seed * 2654435761
+             ^ config.feature_fraction_seed) % (2 ** 31))
+        self._configure()
+        # each kept iteration's K device trees (the first iteration's
+        # with the init scores folded in) and the scale each model has
+        # taken since (DART's Normalize); rollback_one_iter reads them
+        self.tree_history: List[list] = []
+        self.history_scale: dict = {}
+        # a utils.timer.SectionTimer here splits each iteration's time
+        # into sections (and runs the round body eagerly); None keeps the
+        # run free of synchronisation
+        self.timer = None
+        # a list here gets each tree's round log, [(k, m), ...] (one host
+        # read a tree)
+        self.round_log: Optional[list] = None
+        # iterations of an init model (continued training): they come
+        # first in ``models`` and have no device trees
+        self.num_init_iteration = 0
+
+    def _configure(self) -> None:
+        """What the trees take from the config: the quantized arm,
+        per-node sampling, monotone constraints and the grower with its
+        round loop (``reset_config`` runs it again)."""
+        config = self.config
         # the JAX package's f32 fallback (boosting/gbdt.py:642-666), as it
         # is there; check_supported has already refused CEGB
         quant_on = bool(config.use_quantized_grad)
@@ -194,10 +220,6 @@ class GBDT:
         # the last iteration's (g_scale, h_scale) of each class, 0-dim f32
         # tensors
         self._quant_scales = None
-        # per-node randomness base key; advanced by iteration
-        self._node_key_base = threefry.prng_key(
-            (config.extra_trees_seed * 2654435761
-             ^ config.feature_fraction_seed) % (2 ** 31))
         # feature_fraction_bynode -> the per-node sample count (reference:
         # ColSampler::GetCnt, col_sampler.hpp:28-33, as the JAX package
         # computes it, boosting/gbdt.py:587-594)
@@ -230,18 +252,6 @@ class GBDT:
         # CUDA graph
         self.grower = RoundGrower(self.binned_t, self.meta, self.grower_cfg,
                                   self.meta_t, self._monotone)
-        # each kept iteration's K device trees (the first iteration's
-        # with the init scores folded in) and the scale each model has
-        # taken since (DART's Normalize); rollback_one_iter reads them
-        self.tree_history: List[list] = []
-        self.history_scale: dict = {}
-        # a utils.timer.SectionTimer here splits each iteration's time
-        # into sections (and runs the round body eagerly); None keeps the
-        # run free of synchronisation
-        self.timer = None
-        # a list here gets each tree's round log, [(k, m), ...] (one host
-        # read a tree)
-        self.round_log: Optional[list] = None
 
     def _section(self, name: str):
         if self.timer is None:
@@ -524,6 +534,11 @@ class GBDT:
         """Model ``model_idx``'s current output over ``dataset``'s rows:
         its device tree times the scale it has taken since."""
         it, k = divmod(model_idx, self.num_tree_per_iteration)
+        it -= self.num_init_iteration
+        if it < 0:
+            raise ValueError(
+                f"model {model_idx} belongs to the init model, whose trees "
+                "have no device copy to route binned rows through")
         out = self._tree_output(self.tree_history[it][k], dataset)
         scale = self.history_scale.get(model_idx, 1.0)
         return out * f32(scale) if scale != 1.0 else out
@@ -545,6 +560,104 @@ class GBDT:
         del self.models[-K:]
         self.tree_history.pop()
         self.iter -= 1
+
+    # ------------------------------------------------ refit and resets
+
+    def reset_config(self) -> None:
+        """Re-derive what the trees take from ``self.config`` after a
+        parameter reset (the JAX package rebuilds its jitted functions)."""
+        check_supported(self.config)
+        self._configure()
+
+    def refit_leaf_values(self, leaf_preds: np.ndarray,
+                          decay_rate: float) -> None:
+        """Refit every tree's leaf values to this dataset's gradients,
+        the structures fixed: iteration by iteration, the gradients of
+        the current train scores are summed by leaf (f64, in row order),
+        and each leaf becomes ``decay * old + (1 - decay) * output *
+        shrinkage``.  ``leaf_preds``: [n, trees] leaf indices.
+        reference: GBDT::RefitTree (gbdt.cpp:267-290),
+        SerialTreeLearner::FitByExistingTree (serial_tree_learner.cpp:
+        198-229); the JAX package's boosting/gbdt.py:1949."""
+        K = self.num_tree_per_iteration
+        n = self.num_data
+        leaf_preds = np.asarray(leaf_preds)
+        if leaf_preds.ndim == 1:
+            leaf_preds = leaf_preds[:, None]
+        if leaf_preds.shape != (n, len(self.models)):
+            raise ValueError(f"leaf_preds shape {leaf_preds.shape} != "
+                             f"({n}, {len(self.models)})")
+        c = self.config
+        for it in range(len(self.models) // K):
+            grad, hess = self._gradients(self.train_score)
+            g = grad.cpu().numpy()
+            h = hess.cpu().numpy()
+            for k in range(K):
+                m = self.models[it * K + k]
+                lp = leaf_preds[:, it * K + k].astype(np.int64)
+                if lp.max(initial=0) >= m.num_leaves:
+                    raise ValueError("leaf prediction out of range")
+                sg = np.bincount(lp, weights=g[k], minlength=m.num_leaves)
+                sh = np.bincount(lp, weights=h[k],
+                                 minlength=m.num_leaves) + K_EPSILON
+                reg = np.sign(sg) * np.maximum(np.abs(sg) - c.lambda_l1, 0.0)
+                out = -reg / (sh + c.lambda_l2)
+                if c.max_delta_step > 0:
+                    out = np.clip(out, -c.max_delta_step, c.max_delta_step)
+                m.leaf_value = (decay_rate * m.leaf_value
+                                + (1.0 - decay_rate) * out * m.shrinkage)
+                self.train_score[k] += torch.as_tensor(
+                    m.leaf_value[lp].astype(np.float32), device=self.device)
+
+    def reset_training_data(self, train_set: Dataset, raw_scores=None) -> None:
+        """Train on ``train_set`` from now on (reference:
+        GBDT::ResetTrainingData, gbdt.cpp:653): it must be binned with the
+        current bin mappers; its train scores are its init scores plus
+        every tree so far, this run's trees routed on the card through
+        their device copies.  ``raw_scores``: the init model's raw scores
+        of the new rows ([K, n]), which continued training needs."""
+        train_set.construct()
+        old = self.train_set
+        if not same_bins(train_set.bin_mappers, old.bin_mappers) \
+                or not np.array_equal(train_set.feat_group, old.feat_group):
+            from ..utils.log import LightGBMError
+            raise LightGBMError(
+                "Cannot reset training data, since new training data has "
+                "different bin mappers")
+        if train_set.device != self.device:
+            raise ValueError(f"the new train set lives on {train_set.device},"
+                             f" the booster on {self.device}")
+        if self.num_init_iteration and raw_scores is None:
+            raise ValueError(
+                "resetting the training data of a continued training needs "
+                "the init model's scores of the new rows")
+        K = self.num_tree_per_iteration
+        self.train_set = train_set
+        self.num_data = n = train_set.num_data
+        self.binned_t = train_set.binned_t
+        md = train_set.metadata
+        if self.objective is not None:
+            self.objective.init(md, n, self.device)
+        score = torch.zeros((K, n), dtype=torch.float32, device=self.device)
+        if md.init_score is not None:
+            score += self._init_score_rows(md.init_score, n)
+        if raw_scores is not None:
+            score += torch.as_tensor(np.asarray(raw_scores, np.float32)
+                                     .reshape(K, n), device=self.device)
+        for mi in range(self.num_init_iteration * K, len(self.models)):
+            score[mi % K] += self._tree_pred(mi, train_set)
+        self.train_score = score
+        if self._renew_pct is not None:
+            self._renew_label = torch.as_tensor(
+                np.asarray(md.label, np.float32), device=self.device)
+            self._renew_weight = (
+                torch.as_tensor(np.asarray(md.weight, np.float32),
+                                device=self.device)
+                if md.weight is not None else None)
+        self._cur_mask = None
+        self._row_valid = torch.ones(n, dtype=torch.float32,
+                                     device=self.device)
+        self._configure()
 
     # ----------------------------------------------------------- chunks
 

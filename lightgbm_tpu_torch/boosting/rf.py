@@ -45,6 +45,11 @@ class RF(GBDT):
         self._grad, self._hess = self._gradients(
             self._init_col.expand(K, self.num_data).contiguous())
 
+    def reset_training_data(self, train_set, raw_scores=None) -> None:
+        raise NotImplementedError(
+            "Booster.update(train_set=) of a random forest waits for ROADMAP "
+            "queue A7b (its running-mean scores and fixed gradients)")
+
     def _renew_residual(self, score, k):
         return self._renew_label - self._init_col[k, 0]
 

@@ -28,16 +28,20 @@ class EarlyStopException(Exception):
         self.best_score = best_score
 
 
-def _format_eval_result(value) -> str:
+def _format_eval_result(value, show_stdv: bool = True) -> str:
+    """A (data, metric, value, higher_better) result, or cv's
+    (..., stdv)."""
+    if len(value) == 5 and show_stdv:
+        return f"{value[0]}'s {value[1]}: {value[2]:g} + {value[4]:g}"
     return f"{value[0]}'s {value[1]}: {value[2]:g}"
 
 
-def log_evaluation(period: int = 1) -> Callable:
+def log_evaluation(period: int = 1, show_stdv: bool = True) -> Callable:
     """Print the evaluation results every ``period`` iterations."""
     def _callback(env: CallbackEnv) -> None:
         if period > 0 and env.evaluation_result_list and \
                 (env.iteration + 1) % period == 0:
-            result = "\t".join(_format_eval_result(x)
+            result = "\t".join(_format_eval_result(x, show_stdv)
                                for x in env.evaluation_result_list)
             print(f"[{env.iteration + 1}]\t{result}")
     _callback.order = 10
@@ -129,6 +133,10 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                 best_score_list[i] = env.evaluation_result_list
             name = env.evaluation_result_list[i][1].split(" ")
             if first_metric_only and first_metric[0] != name[-1]:
+                continue
+            # cv's train metrics never stop it
+            if env.evaluation_result_list[i][0] == "cv_agg" and \
+                    name[0] == "train":
                 continue
             if env.iteration - best_iter[i] >= stopping_rounds:
                 if verbose:

@@ -1,5 +1,5 @@
-"""Dataset: binned feature matrix + metadata (counterpart of the in-memory
-dense half of ``lightgbm_tpu/dataset.py``).
+"""Dataset: binned feature matrix + metadata (counterpart of
+``lightgbm_tpu/dataset.py``).
 
 reference: include/LightGBM/dataset.h:41,333, src/io/dataset_loader.cpp.
 Construction fits the bin mappers on a row sample on the host (NumPy,
@@ -14,13 +14,26 @@ the Dataset's torch device (``binned_t``), the layout the trainer reads:
   against f32 values.
 
 ``_bin_block`` is also the kernel's oracle: the two give the same bytes.
-Streaming, spill, binary files, ``subset``, pandas and sparse input are
-not ported.  ``device=None`` means the CUDA card, and a host without one
-raises; tests pass ``device="cpu"``.
+
+Inputs: a dense matrix (or a list of row blocks), a pandas DataFrame
+(category columns become their codes; the category lists are kept in
+``pandas_categorical`` and re-applied to valid sets and at predict), a
+scipy sparse matrix (the bin mappers fit on the densified sample rows;
+every row is binned in densified chunks of ``SPARSE_CHUNK_ROWS`` rows,
+f32 chunks through the binning kernel), or a file path: a binary cache
+written by ``save_binary`` (recognised by its magic bytes, whatever
+the name, and interchangeable with the JAX package's), or a CSV, TSV
+or LibSVM text file (``io_utils.py``; ``two_round`` reads it twice and
+never holds its float matrix).  Streaming and spill are not ported.
+``device=None`` means the CUDA card, and a host without one raises;
+tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -28,15 +41,82 @@ import numpy as np
 import torch
 
 from .binning import BinMapper, BinType
+from .compat import is_pandas_frame
+
+_BINARY_MAGIC = b"lgbm_tpu.dataset.v1\n"
+# rows of a sparse matrix densified at a time (176 MB of f32 at 674
+# features)
+SPARSE_CHUNK_ROWS = 1 << 16
+# the layout a validation set, a subset and a binary cache share with
+# their reference
+_LAYOUT = ("num_total_features", "bin_mappers", "used_features",
+           "feature_names", "feat_group", "feat_start", "num_groups",
+           "_group_size", "group_num_bin", "max_group_bin")
+
+
+def same_bins(a: Sequence[BinMapper], b: Sequence[BinMapper]) -> bool:
+    """Two lists of bin mappers bin alike (their records compared as
+    JSON text, so NaN bounds compare equal)."""
+    return a is b or (len(a) == len(b) and json.dumps(
+        [m.to_dict() for m in a]) == json.dumps([m.to_dict() for m in b]))
+
+
+def _is_sparse(data) -> bool:
+    return hasattr(data, "tocsc") and hasattr(data, "nnz")
 
 
 def _as_2d(data) -> np.ndarray:
+    if hasattr(data, "values") and not callable(data.values):
+        data = data.values
+    if isinstance(data, (list, tuple)) and data and all(
+            isinstance(a, np.ndarray) for a in data):
+        data = np.vstack([np.atleast_2d(a) for a in data])
     arr = np.asarray(data)
     if arr.ndim != 2:
         raise ValueError(f"data must be 2-D, got shape {arr.shape}")
     if arr.dtype not in (np.float32, np.float64):
         arr = arr.astype(np.float64)
     return arr
+
+
+def _data_from_pandas(data, feature_name, categorical_feature,
+                      pandas_categorical):
+    """DataFrame -> (float matrix, feature names, categorical features,
+    category lists): category columns become their codes (-1 and unseen
+    values NaN); the category lists are recorded on a train set and
+    re-applied to a valid set; "auto" categorical features are the
+    unordered category columns.  reference: _data_from_pandas
+    (python-package/lightgbm/basic.py:331)."""
+    if not is_pandas_frame(data):
+        return data, feature_name, categorical_feature, pandas_categorical
+    if feature_name in ("auto", None):
+        data = data.rename(columns=str)
+    cat_cols = [str(c) for c in
+                data.select_dtypes(include=["category"]).columns]
+    cat_cols_not_ordered = [c for c in cat_cols if not data[c].cat.ordered]
+    if pandas_categorical is None:
+        pandas_categorical = [list(data[c].cat.categories) for c in cat_cols]
+    else:
+        if len(cat_cols) != len(pandas_categorical):
+            raise ValueError(
+                "train and valid dataset categorical_feature do not match.")
+        for col, category in zip(cat_cols, pandas_categorical):
+            if list(data[col].cat.categories) != list(category):
+                data[col] = data[col].cat.set_categories(category)
+    if cat_cols:
+        data = data.copy()
+        data[cat_cols] = (data[cat_cols].apply(lambda x: x.cat.codes)
+                          .replace({-1: np.nan}))
+    if categorical_feature is not None:
+        categorical_feature = (cat_cols_not_ordered
+                               if categorical_feature == "auto"
+                               else list(categorical_feature))
+    if feature_name == "auto":
+        feature_name = [str(c) for c in data.columns]
+    values = data.values
+    if values.dtype not in (np.float32, np.float64):
+        values = values.astype(np.float32)
+    return values, feature_name, categorical_feature, pandas_categorical
 
 
 def _sample_indices(num_data: int, sample_cnt: int, seed: int) -> np.ndarray:
@@ -56,6 +136,14 @@ def _avoid_inf(value):
     if np.isnan(a).any() or np.isinf(a).any():
         a = np.nan_to_num(a, nan=0.0, posinf=lim, neginf=-lim)
     return a
+
+
+def _f32(v):
+    return None if v is None else np.asarray(v, np.float32).reshape(-1)
+
+
+def _f64(v):
+    return None if v is None else np.asarray(v, np.float64)
 
 
 @dataclass
@@ -81,6 +169,10 @@ class Metadata:
         g = np.asarray(group, dtype=np.int64)
         self.query_boundaries = np.concatenate(
             [[0], np.cumsum(g)]).astype(np.int32)
+
+    def num_queries(self) -> int:
+        return (0 if self.query_boundaries is None
+                else len(self.query_boundaries) - 1)
 
     def check(self, num_data: int) -> None:
         if self.label is not None and len(self.label) != num_data:
@@ -109,16 +201,14 @@ class Dataset:
         self.device = (reference.device if device is None
                        and reference is not None else resolve_device(device))
         self.metadata = Metadata()
-        if label is not None:
-            self.metadata.label = np.asarray(label, np.float32).reshape(-1)
-        if weight is not None:
-            self.metadata.weight = np.asarray(weight, np.float32).reshape(-1)
+        self.metadata.label = _f32(label)
+        self.metadata.weight = _f32(weight)
         if group is not None:
             self.metadata.set_group(group)
-        if init_score is not None:
-            self.metadata.init_score = np.asarray(init_score, np.float64)
+        self.metadata.init_score = _f64(init_score)
         self._feature_name_param = feature_name
         self._categorical_feature_param = categorical_feature
+        self.pandas_categorical = None
         self.constructed = False
         self.bin_mappers: List[BinMapper] = []
         self.used_features: List[int] = []
@@ -127,13 +217,15 @@ class Dataset:
         self.num_data = 0
         self.num_total_features = 0
         self.construct_seconds = 0.0
+        # how the rows were binned: "kernel" (DeviceBinner) or "host"
+        self.bin_route = None
+        self._binner = None
 
     # -- construction --------------------------------------------------------
 
     def construct(self) -> "Dataset":
         if self.constructed:
             return self
-        import time
         t0 = time.perf_counter()
         self._construct_inner()
         self.construct_seconds = time.perf_counter() - t0
@@ -143,41 +235,61 @@ class Dataset:
         if self.raw_data is None:
             raise RuntimeError("cannot construct Dataset: raw data was freed")
         data = self.raw_data
-        if hasattr(data, "tocsc") or isinstance(data, str) \
-                or hasattr(data, "columns"):
-            raise NotImplementedError(
-                "lightgbm_tpu_torch bins dense NumPy matrices only; sparse, "
-                "pandas and file input wait for ROADMAP queue A "
-                "(Dataset input formats)")
-        raw = _as_2d(data)
+        if is_pandas_frame(data):
+            pc_in = None
+            if self.reference is not None:
+                pc_in = self.reference.construct().pandas_categorical
+            data, fn, cf, pc = _data_from_pandas(
+                data, self._feature_name_param,
+                self._categorical_feature_param, pc_in)
+            self.pandas_categorical = pc
+            if self._categorical_feature_param in ("auto", None):
+                self._categorical_auto_resolved = cf or []
+        if isinstance(data, (str, os.PathLike)):
+            if _is_binary_cache(str(data)):
+                self._construct_from_cache(str(data))
+                return
+            from .io_utils import (_param_bool, load_text_dataset,
+                                   load_text_dataset_two_round)
+            if _param_bool(self.params, "two_round"):
+                load_text_dataset_two_round(str(data), self)
+                return
+            data = load_text_dataset(str(data), self)
+        if _is_sparse(data):
+            raw = data.tocsr()
+        else:
+            raw = _as_2d(data)
         self.num_data, self.num_total_features = raw.shape
         p = self.params
-        sample_cnt = int(p.get("bin_construct_sample_cnt", 200000))
-        seed = int(p.get("data_random_seed", 1))
         if self._feature_name_param in ("auto", None):
-            self.feature_names = [f"Column_{i}"
-                                  for i in range(self.num_total_features)]
+            if is_pandas_frame(self.raw_data):
+                self.feature_names = [str(c) for c in self.raw_data.columns]
+            else:
+                self.feature_names = [f"Column_{i}"
+                                      for i in range(self.num_total_features)]
         else:
             self.feature_names = list(self._feature_name_param)
         categorical = self._resolve_categorical()
-
         if self.reference is not None:
             # validation set: the reference's bin mappers and EFB layout
-            ref = self.reference.construct()
-            self.bin_mappers = ref.bin_mappers
-            self.used_features = ref.used_features
-            self.feature_names = ref.feature_names
-            self.feat_group = ref.feat_group
-            self.feat_start = ref.feat_start
-            self.num_groups = ref.num_groups
-            self._group_size = ref._group_size
-            self.group_num_bin = ref.group_num_bin
-            self.max_group_bin = ref.max_group_bin
+            self._align_with(self.reference.construct())
         else:
-            sample_idx = _sample_indices(self.num_data, sample_cnt, seed)
-            self._fit_bin_mappers(raw, sample_idx, categorical)
+            sample_idx = _sample_indices(
+                self.num_data, int(p.get("bin_construct_sample_cnt", 200000)),
+                int(p.get("data_random_seed", 1)))
+            if _is_sparse(raw):
+                # the sampled rows densified: the values the JAX package
+                # reads column by column from its CSC copy
+                sample = raw[sample_idx].toarray()
+                self._fit_bin_mappers(sample, np.arange(len(sample_idx)),
+                                      categorical)
+            else:
+                self._fit_bin_mappers(raw, sample_idx, categorical)
+        self.binned_t = (self._bin_sparse(raw) if _is_sparse(raw)
+                         else self._bin_rows(raw))
+        self._finish_construct()
 
-        self.binned_t = self._bin_rows(raw)
+    def _finish_construct(self) -> None:
         self.metadata.check(self.num_data)
         if self.metadata.label is None:
             self.metadata.label = np.zeros(self.num_data, dtype=np.float32)
@@ -185,21 +297,43 @@ class Dataset:
         if self.free_raw_data:
             self.raw_data = None
 
-    def _bin_rows(self, raw: np.ndarray) -> torch.Tensor:
-        """Every row into the [G, n] matrix on the Dataset's device."""
+    def _align_with(self, ref: "Dataset") -> None:
+        """Take ``ref``'s bin mappers and EFB layout."""
+        for k in _LAYOUT:
+            setattr(self, k, getattr(ref, k))
+
+    def _binner_for(self):
         from .ops import ingest as ING
+        if self._binner is None or self._binner.bounds.device != self.device:
+            self._binner = ING.DeviceBinner(ING.build_ingest_tables(self),
+                                            self.device)
+        return self._binner
+
+    def _bin_rows(self, raw: np.ndarray) -> torch.Tensor:
+        """Rows into the [G, rows] matrix on the Dataset's device."""
         if raw.dtype == np.float32:
-            tables = ING.build_ingest_tables(self)
-            binner = ING.DeviceBinner(tables, self.device)
-            return binner(torch.from_numpy(np.ascontiguousarray(raw)).to(
-                self.device))
-        out = np.zeros((self.num_data, self.num_groups),
+            self.bin_route = "kernel"
+            return self._binner_for()(
+                torch.from_numpy(np.ascontiguousarray(raw)).to(self.device))
+        self.bin_route = "host"
+        out = np.zeros((raw.shape[0], self.num_groups),
                        dtype=self.binned_dtype())
         self._bin_block(raw, out)
-        dt = torch.uint8 if out.dtype == np.uint8 else torch.int32
+        dt = np.uint8 if out.dtype == np.uint8 else np.int32
         return torch.from_numpy(
-            np.ascontiguousarray(out.T).astype(
-                np.uint8 if dt == torch.uint8 else np.int32)).to(self.device)
+            np.ascontiguousarray(out.T).astype(dt)).to(self.device)
+
+    def _bin_sparse(self, csr) -> torch.Tensor:
+        """A CSR matrix into [G, n]: ``SPARSE_CHUNK_ROWS`` rows at a time,
+        each chunk densified on the host and binned as dense rows (f32
+        chunks through the binning kernel)."""
+        n = csr.shape[0]
+        dt = torch.uint8 if self.max_group_bin <= 256 else torch.int32
+        out = torch.empty((self.num_groups, n), dtype=dt, device=self.device)
+        for s in range(0, n, SPARSE_CHUNK_ROWS):
+            e = min(s + SPARSE_CHUNK_ROWS, n)
+            out[:, s:e] = self._bin_rows(csr[s:e].toarray())
+        return out
 
     def _fit_bin_mappers(self, raw, sample_idx, categorical) -> None:
         """FindBin per feature over a row sample + EFB grouping.
@@ -364,9 +498,15 @@ class Dataset:
     def _resolve_categorical(self) -> set:
         cf = self._categorical_feature_param
         if cf == "auto" or cf is None:
+            cats = set()
+            auto = getattr(self, "_categorical_auto_resolved", None)
+            if auto:
+                cats |= self._names_to_indices(auto)
             pcf = (self.params.get("categorical_feature")
                    or self.params.get("categorical_column"))
-            return self._names_to_indices(pcf) if pcf else set()
+            if pcf:
+                cats |= self._names_to_indices(pcf)
+            return cats
         return self._names_to_indices(cf)
 
     def _names_to_indices(self, spec) -> set:
@@ -383,6 +523,143 @@ class Dataset:
                 out.add(int(s))
         return out
 
+    # -- binary cache (reference: Dataset::SaveBinaryFile dataset.cpp:890;
+    #    the JAX package's format, byte for byte) ---------------------------
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned rows, bin mappers, EFB layout, construction
+        parameters and metadata to ``filename`` atomically."""
+        from .utils.file_io import open_atomic
+        self.construct()
+        binned = self.host_binned()
+        meta = {
+            "version": 1,
+            "params": {k: v for k, v in self.params.items()
+                       if isinstance(v, (int, float, str, bool, list))
+                       or v is None},
+            "num_data": int(self.num_data),
+            "num_total_features": int(self.num_total_features),
+            "used_features": list(map(int, self.used_features)),
+            "feature_names": self.feature_names,
+            "bin_mappers": [m.to_dict() for m in self.bin_mappers],
+            "dtype": str(binned.dtype),
+            "feat_group": list(map(int, self.feat_group)),
+            "feat_start": list(map(int, self.feat_start)),
+            "num_groups": int(self.num_groups),
+            "group_size": list(map(int, self._group_size)),
+            "group_num_bin": list(map(int, self.group_num_bin)),
+            "has_label": self.metadata.label is not None,
+            "has_weight": self.metadata.weight is not None,
+            "has_group": self.metadata.query_boundaries is not None,
+            "has_init_score": self.metadata.init_score is not None,
+        }
+        with open_atomic(filename, "wb") as fh:
+            fh.write(_BINARY_MAGIC)
+            hdr = json.dumps(meta).encode()
+            fh.write(len(hdr).to_bytes(8, "little"))
+            fh.write(hdr)
+            fh.write(binned.tobytes())
+            for arr in (self.metadata.label, self.metadata.weight,
+                        self.metadata.query_boundaries,
+                        self.metadata.init_score):
+                if arr is not None:
+                    fh.write(np.ascontiguousarray(arr).tobytes())
+        return self
+
+    @staticmethod
+    def load_binary(filename: str, params: Optional[dict] = None,
+                    device=None) -> "Dataset":
+        """A constructed Dataset from a binary cache, its binned rows on
+        ``device`` (the CUDA card by default)."""
+        ds = Dataset(None, params=params, device=device)
+        ds._read_cache(filename, params)
+        return ds
+
+    def _read_cache(self, filename: str, params: Optional[dict]) -> None:
+        from .utils.file_io import open_file
+        with open_file(filename, "rb") as fh:
+            if fh.read(len(_BINARY_MAGIC)) != _BINARY_MAGIC:
+                raise ValueError(
+                    f"{filename} is not a lightgbm_tpu binary dataset")
+            n = int.from_bytes(fh.read(8), "little")
+            meta = json.loads(fh.read(n).decode())
+            self.params = dict(params or meta.get("params") or {})
+            self._feature_name_param = meta["feature_names"]
+            self._categorical_feature_param = None
+            self.num_data = meta["num_data"]
+            self.num_total_features = meta["num_total_features"]
+            self.used_features = meta["used_features"]
+            self.feature_names = meta["feature_names"]
+            self.bin_mappers = [BinMapper.from_dict(d)
+                                for d in meta["bin_mappers"]]
+            F = len(self.used_features)
+            if "feat_group" in meta:
+                self.feat_group = np.asarray(meta["feat_group"], np.int32)
+                self.feat_start = np.asarray(meta["feat_start"], np.int32)
+                self.num_groups = int(meta["num_groups"])
+                self._group_size = list(meta["group_size"])
+                self.group_num_bin = list(meta["group_num_bin"])
+            else:    # a file from before EFB: identity groups
+                self.feat_group = np.arange(F, dtype=np.int32)
+                self.feat_start = np.ones(F, np.int32)
+                self.num_groups = F
+                self._group_size = [1] * F
+                self.group_num_bin = [self.bin_mappers[f].num_bin
+                                      for f in self.used_features]
+            self.max_group_bin = max(self.group_num_bin, default=2)
+            dtype = np.dtype(meta["dtype"])
+            nd, G = self.num_data, self.num_groups
+            binned = np.frombuffer(fh.read(nd * G * dtype.itemsize),
+                                   dtype=dtype).reshape(nd, G)
+            self.binned_t = torch.from_numpy(np.ascontiguousarray(
+                binned.T).astype(np.uint8 if dtype == np.uint8
+                                 else np.int32)).to(self.device)
+            md = self.metadata = Metadata()
+            if meta["has_label"]:
+                md.label = np.frombuffer(fh.read(nd * 4), np.float32).copy()
+            if meta["has_weight"]:
+                md.weight = np.frombuffer(fh.read(nd * 4), np.float32).copy()
+            rest = fh.read()
+        isc_bytes = nd * 8 if meta["has_init_score"] else 0
+        if meta["has_group"]:
+            md.query_boundaries = np.frombuffer(
+                rest[:len(rest) - isc_bytes], np.int32).copy()
+        if isc_bytes:
+            md.init_score = np.frombuffer(rest[len(rest) - isc_bytes:],
+                                          np.float64).copy()
+        self.bin_route = "cache"
+        self.constructed = True
+
+    def _construct_from_cache(self, path: str) -> None:
+        """A path that holds a binary cache: the cache's bins, layout and
+        parameters (the file's win, so the Booster's parameter check
+        sees the true old values); fields given to the constructor
+        override the file's."""
+        pre = self.metadata
+        keep = (self._feature_name_param, self._categorical_feature_param)
+        self._read_cache(path, None)
+        self._feature_name_param, self._categorical_feature_param = keep
+        if self.free_raw_data:
+            self.raw_data = None
+        self._from_binary_cache = True
+        if self.reference is not None:
+            ref = self.reference.construct()
+            aligned = (
+                same_bins(ref.bin_mappers, self.bin_mappers)
+                and list(ref.used_features) == list(self.used_features)
+                and np.array_equal(ref.feat_group, self.feat_group)
+                and np.array_equal(ref.feat_start, self.feat_start))
+            if not aligned:
+                from .utils.log import LightGBMError
+                raise LightGBMError(
+                    "Cannot add validation data, since it has different bin "
+                    "mappers with training data")
+        for f in ("label", "weight", "init_score", "query_boundaries"):
+            v = getattr(pre, f, None)
+            if v is not None:
+                setattr(self.metadata, f, v)
+        self.metadata.check(self.num_data)
+
     # -- accessors -----------------------------------------------------------
 
     def create_valid(self, data, label=None, weight=None, group=None,
@@ -395,6 +672,187 @@ class Dataset:
                        categorical_feature=self._categorical_feature_param,
                        params=dict(params or self.params),
                        free_raw_data=self.free_raw_data, device=self.device)
+
+    # 'group' is set as per-query SIZES and read back as the cumulative
+    # boundaries (reference: Dataset.get_field/set_field, basic.py:1255)
+    _FIELDS = ("label", "weight", "init_score", "group")
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        if field_name not in self._FIELDS:
+            raise ValueError(f"unknown field {field_name!r}")
+        if field_name == "group":
+            self.metadata.set_group(data)
+        elif field_name == "init_score":
+            self.metadata.init_score = _f64(data)
+        else:
+            setattr(self.metadata, field_name, _f32(data))
+        return self
+
+    def get_field(self, field_name: str):
+        if field_name not in self._FIELDS:
+            raise ValueError(f"unknown field {field_name!r}")
+        if field_name == "group":
+            return self.metadata.query_boundaries
+        return getattr(self.metadata, field_name)
+
+    def set_label(self, label):
+        return self.set_field("label", label)
+
+    def set_weight(self, weight):
+        return self.set_field("weight", weight)
+
+    def set_init_score(self, init_score):
+        return self.set_field("init_score", init_score)
+
+    def set_group(self, group):
+        return self.set_field("group", group)
+
+    def get_label(self):
+        return self.metadata.label
+
+    def get_weight(self):
+        return self.metadata.weight
+
+    def get_init_score(self):
+        return self.metadata.init_score
+
+    def get_group(self):
+        """Per-query group SIZES."""
+        qb = self.metadata.query_boundaries
+        return None if qb is None else np.diff(qb)
+
+    label = property(get_label, set_label)
+    weight = property(get_weight, set_weight)
+    init_score = property(get_init_score, set_init_score)
+    group = property(get_group, set_group)
+
+    def get_data(self):
+        """The raw data this Dataset was built from (raises after it was
+        freed)."""
+        if self.raw_data is None and self.constructed:
+            raise RuntimeError(
+                "Cannot get data: raw data was freed after construction "
+                "(pass free_raw_data=False to keep it)")
+        return self.raw_data
+
+    def get_feature_names(self) -> List[str]:
+        return self.feature_names
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        if self._categorical_feature_param == categorical_feature:
+            return self
+        if self.constructed:
+            raise RuntimeError(
+                "Cannot set categorical feature after dataset construction; "
+                "create a new Dataset")
+        self._categorical_feature_param = categorical_feature
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        if feature_name != "auto":
+            self._feature_name_param = feature_name
+            if self.constructed:
+                if len(feature_name) != self.num_total_features:
+                    raise ValueError(
+                        f"Length of feature names ({len(feature_name)}) does "
+                        f"not equal number of features "
+                        f"({self.num_total_features})")
+                self.feature_names = list(feature_name)
+        return self
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        if self.reference is reference:
+            return self
+        if self.constructed:
+            raise RuntimeError(
+                "Cannot set reference after dataset construction; "
+                "create a new Dataset")
+        self.reference = reference
+        return self
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s features (both constructed, with as many
+        rows): its groups follow this one's, each keeping its EFB
+        bundles.  reference: Dataset::AddFeaturesFrom (dataset.cpp)."""
+        if not (self.constructed and other.constructed):
+            raise ValueError("Both source and target Datasets must be "
+                             "constructed before adding features")
+        if self.num_data != other.num_data:
+            from .utils.log import LightGBMError
+            raise LightGBMError(
+                f"Cannot add features from {other.num_data}-row Dataset to "
+                f"{self.num_data}-row Dataset")
+        base = self.num_total_features
+        self.bin_mappers = list(self.bin_mappers) + list(other.bin_mappers)
+        self.used_features = list(self.used_features) + [
+            base + f for f in other.used_features]
+        wide = max(self.max_group_bin, other.max_group_bin) > 256
+        dt = torch.int32 if wide else torch.uint8
+        self.binned_t = torch.cat([self.binned_t.to(dt),
+                                   other.binned_t.to(self.device, dt)])
+        self.feat_group = np.concatenate(
+            [self.feat_group, other.feat_group + self.num_groups]
+        ).astype(np.int32)
+        self.feat_start = np.concatenate(
+            [self.feat_start, other.feat_start]).astype(np.int32)
+        self._group_size = list(self._group_size) + list(other._group_size)
+        self.group_num_bin = (list(self.group_num_bin)
+                              + list(other.group_num_bin))
+        self.num_groups += other.num_groups
+        self.max_group_bin = max(self.max_group_bin, other.max_group_bin)
+        self.num_total_features += other.num_total_features
+        self.feature_names = (list(self.feature_names)
+                              + list(other.feature_names))
+        self._binner = None
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` (in that order) as a constructed
+        Dataset with this one's bins: a gather of the [G, n] matrix on
+        the device.  Rows of one query must stay contiguous and in
+        order.  reference: the JAX package's dataset.py:1203."""
+        self.construct()
+        idx = np.asarray(used_indices, dtype=np.int64)
+        sub = Dataset(None, params=dict(params or self.params),
+                      device=self.device)
+        if self.raw_data is not None and not isinstance(
+                self.raw_data, (str, os.PathLike)):
+            sub.raw_data = (self.raw_data.iloc[idx]
+                            if hasattr(self.raw_data, "iloc")
+                            else self.raw_data[idx])
+            sub.free_raw_data = self.free_raw_data
+        elif self.raw_data is not None:
+            sub.raw_data = self.raw_data
+            sub.free_raw_data = self.free_raw_data
+        sub.reference = self
+        md = self.metadata
+        qb = None
+        if md.query_boundaries is not None:
+            gid = np.searchsorted(md.query_boundaries, idx, side="right") - 1
+            if np.any(np.diff(gid) < 0):
+                raise ValueError(
+                    "subset() of grouped (ranking) data requires "
+                    "used_indices to keep each query's rows contiguous and "
+                    "in order")
+            change = np.flatnonzero(np.diff(gid)) + 1
+            qb = np.concatenate([[0], change, [len(idx)]]).astype(np.int32)
+        sub.metadata = Metadata(
+            label=None if md.label is None else md.label[idx],
+            weight=None if md.weight is None else md.weight[idx],
+            init_score=None if md.init_score is None else
+            np.asarray(md.init_score).reshape(self.num_data, -1)[idx]
+            .reshape(-1),
+            query_boundaries=qb)
+        sub._feature_name_param = self.feature_names
+        sub._categorical_feature_param = self._categorical_feature_param
+        sub.pandas_categorical = self.pandas_categorical
+        sub._align_with(self)
+        sub.binned_t = self.binned_t[:, torch.from_numpy(idx).to(
+            self.device)]
+        sub.num_data = len(idx)
+        sub.bin_route = "subset"
+        sub.constructed = True
+        return sub
 
     def host_binned(self) -> np.ndarray:
         """The binned matrix as a host [n, G] array of ``binned_dtype``."""
@@ -410,18 +868,14 @@ class Dataset:
         return np.dtype(np.uint8 if self.max_group_bin <= 256
                         else np.uint16)
 
-    def get_label(self):
-        return self.metadata.label
-
-    @property
-    def label(self):
-        return self.metadata.label
-
-    @property
-    def weight(self):
-        return self.metadata.weight
-
     def num_feature(self) -> int:
+        """The number of original features (reference:
+        LGBM_DatasetGetNumFeature)."""
+        self.construct()
+        return self.num_total_features
+
+    def num_features(self) -> int:
+        """The number of used (non-trivial) features."""
         self.construct()
         return len(self.used_features)
 
@@ -431,6 +885,18 @@ class Dataset:
             [self.bin_mappers[f] for f in self.used_features],
             feat_group=self.feat_group, feat_start=self.feat_start,
             num_groups=self.num_groups, max_group_bin=self.max_group_bin)
+
+
+def _is_binary_cache(path: str) -> bool:
+    """A file that starts with the cache's magic bytes, whatever its name
+    (reference: DatasetLoader::LoadFromFile checks the binary token
+    first, dataset_loader.cpp:273)."""
+    from .utils.file_io import open_file
+    try:
+        with open_file(path, "rb") as fh:
+            return fh.read(len(_BINARY_MAGIC)) == _BINARY_MAGIC
+    except OSError:
+        return False
 
 
 @dataclass(frozen=True)

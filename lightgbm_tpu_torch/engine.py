@@ -20,13 +20,13 @@ moves a not-yet-constructed Dataset and its valid sets to the CPU.
 from __future__ import annotations
 
 import collections
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from . import callback as callback_mod
 from .basic import Booster, resolve_device
 from .boosting.macro import DEFAULT_CHUNK_CAP, pow2_chunk
 from .config import Config
-from .dataset import Dataset
+from .dataset import Dataset, same_bins
 
 
 def _place(ds: Dataset, device) -> None:
@@ -38,27 +38,51 @@ def _place(ds: Dataset, device) -> None:
     ds.device = device
 
 
+_CHECKPOINT_ARGS = ("snapshot_freq", "snapshot_out", "snapshot_keep",
+                    "resume_from", "pause_control")
+
+
+def _refuse_checkpoints(kwargs: dict) -> None:
+    for key, val in kwargs.items():
+        if key not in _CHECKPOINT_ARGS:
+            raise TypeError(f"train() got an unexpected keyword argument "
+                            f"{key!r}")
+        if val is not None and not (key == "snapshot_freq" and val <= 0):
+            raise NotImplementedError(
+                f"train(..., {key}=) waits for ROADMAP queue A8 "
+                "(checkpoints and pause control)")
+
+
 def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
+          fobj: Optional[Callable] = None, feval: Optional[Callable] = None,
+          init_model=None, feature_name="auto", categorical_feature="auto",
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[dict] = None,
-          verbose_eval=True, callbacks: Optional[List[Callable]] = None,
-          device=None, fobj: Optional[Callable] = None,
-          feval: Optional[Callable] = None, learning_rates=None,
-          **unsupported) -> Booster:
+          verbose_eval=True, learning_rates=None,
+          keep_training_booster: bool = False,
+          callbacks: Optional[List[Callable]] = None,
+          device=None, **checkpoints) -> Booster:
     """Train a model; returns the Booster (reference: engine.py:18).
     ``fobj(score, train_set) -> (grad, hess)`` replaces the objective
     (``objective`` becomes "none"); ``feval(score, dataset) -> (name,
     value, higher_better)`` (or a list of them) adds metrics;
     ``learning_rates``: a list (one a round) or a function of the round
-    (``callback.reset_parameter``)."""
-    for key, val in unsupported.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"train(..., {key}=) waits for ROADMAP queue A "
-                "(training options)")
+    (``callback.reset_parameter``).  ``init_model`` (a Booster or a model
+    file) continues training: its trees come first and its raw scores,
+    from the traversal kernel's scores mode on the training device,
+    start the train and valid scores (the train set and the valid sets
+    keep their raw rows for that: ``free_raw_data=False`` where they
+    were constructed before).  ``keep_training_booster`` is accepted for
+    the reference's signature: the returned Booster always keeps its
+    training state."""
+    _refuse_checkpoints(checkpoints)
     params = dict(params)
+    if feature_name != "auto":
+        train_set._feature_name_param = feature_name
+    if categorical_feature != "auto":
+        train_set._categorical_feature_param = categorical_feature
     if fobj is not None:
         params["objective"] = "none"
     cfg = Config.from_params(params)
@@ -74,7 +98,17 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
         for ds in [train_set] + list(valid_sets or []):
             _place(ds, dev)
 
+    predictor = None
+    if init_model is not None:
+        predictor = (init_model if isinstance(init_model, Booster)
+                     else Booster(model_file=init_model, params=params,
+                                  device=train_set.device))
+    # the raw rows, before construction frees them
+    train_raw = train_set.raw_data if predictor is not None else None
+
     booster = Booster(params=params, train_set=train_set)
+    if predictor is not None:
+        _apply_init_model(booster, predictor, train_set, raw=train_raw)
     train_in_valid = False
     if valid_sets:
         names_given = valid_names is not None
@@ -86,7 +120,15 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
                 if names_given:
                     booster._train_data_name = name
                 continue
+            raw = vs.raw_data
             booster.add_valid(vs, name)
+            if predictor is not None:
+                if raw is None:
+                    raise ValueError(
+                        "continued training requires free_raw_data=False "
+                        "on validation Datasets")
+                booster.boosting.valid_scores[-1] += _raw_scores(
+                    predictor, raw, booster)
 
     cbs = set(callbacks or [])
     if early_stopping_rounds is not None and early_stopping_rounds > 0:
@@ -185,3 +227,238 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
             booster.best_score.setdefault(item[0], collections.OrderedDict())
             booster.best_score[item[0]][item[1]] = item[2]
     return booster
+
+
+class InitModelCompatibilityError(ValueError):
+    """The ``init_model`` cannot continue training on this train set
+    (feature count or trees an iteration differ)."""
+
+
+def _validate_init_model(booster: Booster, predictor: Booster,
+                         train_set: Dataset) -> None:
+    """reference: the JAX package's engine.py:425-470."""
+    f_model = predictor.num_features()
+    f_train = train_set.num_total_features
+    if f_model != f_train:
+        raise InitModelCompatibilityError(
+            f"init_model was trained on {f_model} features but the "
+            f"training data has {f_train}; continued training requires the "
+            "same feature layout")
+    k_model = max(predictor.num_tree_per_iteration, 1)
+    k_train = max(booster.boosting.num_tree_per_iteration, 1)
+    if k_model != k_train:
+        raise InitModelCompatibilityError(
+            f"init_model has {k_model} tree(s) per iteration but this "
+            f"training is configured for {k_train} (num_class / objective "
+            "mismatch); continued training cannot mix them")
+    pts = predictor.train_set
+    if (pts is not None and pts.constructed and train_set.bin_mappers
+            and not same_bins(pts.bin_mappers, train_set.bin_mappers)):
+        from .utils.log import log_warning
+        log_warning(
+            "continued training: the new train set's bin mappers differ "
+            "from the init model's training grid; init scores stay exact "
+            "(trees hold real thresholds), but new histograms live on a "
+            "different grid")
+
+
+def _raw_scores(predictor: Booster, raw, booster: Booster):
+    """[K, n] f32 raw scores of ``predictor`` over ``raw`` on the
+    booster's device (the traversal kernel's scores mode)."""
+    import numpy as np
+    import torch
+    K = booster.boosting.num_tree_per_iteration
+    if predictor.device != booster.device:
+        predictor = Booster(model_str=predictor.model_to_string(
+            num_iteration=0), device=booster.device)
+    pred = np.asarray(predictor.predict(raw, raw_score=True,
+                                        num_iteration=-1), np.float32)
+    return torch.as_tensor(np.ascontiguousarray(pred.reshape(-1, K).T),
+                           device=booster.device)
+
+
+def _apply_init_model(booster: Booster, predictor: Booster,
+                      train_set: Dataset, raw=None) -> None:
+    """The init model's trees first and its raw scores added to the
+    train scores (reference: basic.py:840 _set_init_score_by_predictor;
+    the JAX package's engine.py:473-500)."""
+    _validate_init_model(booster, predictor, train_set)
+    if raw is None:
+        raw = train_set.raw_data
+    if raw is None:
+        raise ValueError("continued training requires free_raw_data=False "
+                         "on the training Dataset")
+    b = booster.boosting
+    K = b.num_tree_per_iteration
+    b.train_score += _raw_scores(predictor, raw, booster)
+    b._init_score_added = True
+    b.models = list(predictor.models)
+    b.iter = b.num_init_iteration = len(predictor.models) // K
+
+
+class CVBooster:
+    """The folds' Boosters; a method call calls it on each (reference:
+    engine.py CVBooster)."""
+
+    def __init__(self):
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def _append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name):
+        def handler_function(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+        return handler_function
+
+
+def _make_n_folds(full_data: Dataset, folds, nfold: int, params: dict,
+                  seed: int, stratified: bool, shuffle: bool):
+    """The (train rows, test rows) of each fold, drawn as the JAX package
+    draws them: ``folds`` (pairs, or a splitter with ``split``); whole
+    queries for ranking data (scikit-learn's GroupKFold where it is
+    installed); scikit-learn's StratifiedKFold when ``stratified``; else
+    a RandomState(seed) shuffle cut into ``nfold`` chunks."""
+    import numpy as np
+    full_data.construct()
+    num_data = full_data.num_data
+    if folds is not None:
+        if not hasattr(folds, "__iter__") and hasattr(folds, "split"):
+            group = full_data.get_group()
+            if group is not None:
+                group = np.repeat(np.arange(len(group)), group)
+            folds = folds.split(X=np.empty(num_data),
+                                y=full_data.get_label(), groups=group)
+        return list(folds)
+    rng = np.random.RandomState(seed)
+    qb = full_data.metadata.query_boundaries
+    if qb is not None:
+        nq = len(qb) - 1
+        if nfold > nq:
+            raise ValueError(
+                f"nfold={nfold} exceeds the number of query groups ({nq})")
+        from .compat import SKLEARN_INSTALLED
+        if SKLEARN_INSTALLED:
+            from sklearn.model_selection import GroupKFold
+            flat = np.repeat(np.arange(nq), np.diff(qb))
+            return list(GroupKFold(n_splits=nfold).split(
+                X=np.empty(num_data), groups=flat))
+        q_idx = np.arange(nq)
+        if shuffle:
+            rng.shuffle(q_idx)
+        q_chunks = np.array_split(q_idx, nfold)
+
+        def rows(qs):
+            return np.concatenate([np.arange(qb[q], qb[q + 1])
+                                   for q in np.sort(qs)])
+
+        return [(rows(np.concatenate([c for j, c in enumerate(q_chunks)
+                                      if j != i])), rows(q_chunks[i]))
+                for i in range(nfold)]
+    if stratified:
+        from sklearn.model_selection import StratifiedKFold
+        skf = StratifiedKFold(n_splits=nfold, shuffle=shuffle,
+                              random_state=seed if shuffle else None)
+        return list(skf.split(np.empty(num_data), full_data.get_label()))
+    idx = np.arange(num_data)
+    if shuffle:
+        rng.shuffle(idx)
+    chunks = np.array_split(idx, nfold)
+    return [(np.concatenate([c for j, c in enumerate(chunks) if j != i]),
+             chunks[i]) for i in range(nfold)]
+
+
+def cv(params: dict, train_set: Dataset, num_boost_round: int = 100,
+       folds=None, nfold: int = 5, stratified: bool = True,
+       shuffle: bool = True, metrics=None, fobj=None, feval=None,
+       init_model=None, feature_name="auto", categorical_feature="auto",
+       early_stopping_rounds=None, fpreproc=None, verbose_eval=None,
+       show_stdv: bool = True, seed: int = 0, callbacks=None,
+       eval_train_metric: bool = False, return_cvbooster: bool = False,
+       fused: bool = False, device=None) -> Dict[str, List[float]]:
+    """Cross-validation (reference: engine.py:375): each fold trains on
+    ``train_set.subset`` of its rows (a gather of the binned matrix on
+    the device) and is evaluated on the rest; the result holds each
+    metric's mean and standard deviation over the folds a round
+    (``"valid <metric>-mean"`` and ``"train ..."`` with
+    ``eval_train_metric``, else ``"<metric>-mean"``).  The folds advance
+    one iteration each in turn.  ``stratified`` folds need scikit-learn
+    (``ImportError`` without it; ``stratified=False`` or ``folds=`` do
+    not).  ``init_model``, ``feature_name`` and ``categorical_feature``
+    are accepted and unused, as in the JAX package."""
+    import numpy as np
+    if fused:
+        raise NotImplementedError(
+            "cv(fused=True) waits for ROADMAP queue A12 (multi/: the folds "
+            "batched along a model axis)")
+    params = dict(params)
+    if fobj is not None:
+        params["objective"] = "none"
+    if metrics is not None:
+        for k in [k for k in params if Config.canonical_key(k) == "metric"]:
+            params.pop(k)
+        params["metric"] = metrics
+    cfg = Config.from_params(params)
+    if not (cfg.objective == "binary"
+            or cfg.objective.startswith("multiclass")):
+        stratified = False
+    if device is not None:
+        _place(train_set, resolve_device(device))
+    folds_idx = _make_n_folds(train_set, folds, nfold, params, seed,
+                              stratified, shuffle)
+    cvbooster = CVBooster()
+    results = collections.defaultdict(list)
+    boosters = []
+    for tr_idx, te_idx in folds_idx:
+        tr = train_set.subset(tr_idx, params)
+        te = train_set.subset(te_idx, params)
+        if fpreproc is not None:
+            tr, te, params = fpreproc(tr, te, dict(params))
+        bst = Booster(params=params, train_set=tr)
+        bst.add_valid(te, "valid")
+        boosters.append(bst)
+        cvbooster._append(bst)
+
+    cbs = set(callbacks or [])
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        cbs.add(callback_mod.early_stopping(
+            early_stopping_rounds, cfg.first_metric_only, verbose=False))
+    if verbose_eval is True:
+        cbs.add(callback_mod.log_evaluation(show_stdv=show_stdv))
+    elif isinstance(verbose_eval, int) and verbose_eval:
+        cbs.add(callback_mod.log_evaluation(verbose_eval, show_stdv))
+    cbs = sorted(cbs, key=lambda cb: getattr(cb, "order", 0))
+
+    for i in range(num_boost_round):
+        agg = collections.defaultdict(list)
+        for bst in boosters:
+            bst.update(fobj=fobj)
+        for bst in boosters:
+            res = ([("train", mn, v, h)
+                    for (_, mn, v, h) in bst.eval_train(feval)]
+                   if eval_train_metric else []) + bst.eval_valid(feval)
+            for dname, mname, val, hib in res:
+                agg[(dname if eval_train_metric else "valid", mname,
+                     hib)].append(val)
+        evaluation_result_list = [
+            ("cv_agg", f"{d} {m}" if eval_train_metric else m,
+             float(np.mean(v)), h, float(np.std(v)))
+            for (d, m, h), v in agg.items()]
+        for _, m, mean, _, std in evaluation_result_list:
+            results[m + "-mean"].append(mean)
+            results[m + "-stdv"].append(std)
+        try:
+            for cb in cbs:
+                cb(callback_mod.CallbackEnv(cvbooster, params, i, 0,
+                                            num_boost_round,
+                                            evaluation_result_list))
+        except callback_mod.EarlyStopException as e:
+            cvbooster.best_iteration = e.best_iteration + 1
+            for k in results:
+                results[k] = results[k][:cvbooster.best_iteration]
+            break
+    out = dict(results)
+    if return_cvbooster:
+        out["cvbooster"] = cvbooster
+    return out

@@ -18,6 +18,13 @@ valid leaf-wise trees over a seeded feature distribution:
 float32 precision (the device path's exactness domain), with NaNs,
 zeros and out-of-range categories planted; ``salt_rows`` overwrites the
 first rows with the routing edge cases.
+
+``one_thread`` (built on first access, so that importing this module
+needs no pytest) is the autouse module fixture the ``test_torch_*``
+files import: their CPU trainings and predictions run on one torch
+thread, which keeps parallel test workers from oversubscribing the
+cores and makes the f32 sums independent of the core count; the old
+count comes back after the module.
 """
 
 from __future__ import annotations
@@ -384,3 +391,44 @@ def one_hot(X: np.ndarray) -> np.ndarray:
             out[np.arange(X.shape[0]), at + X[:, j].astype(np.int64) - lo] = 1
         at += widths[j]
     return out
+
+
+def one_hot_csr(X: np.ndarray):
+    """``one_hot(X)`` as a scipy CSR matrix (f32), built without the dense
+    matrix: 8 stored entries a row (six ones, DepTime, Distance)."""
+    import scipy.sparse as sps
+    n = X.shape[0]
+    widths = [1 if lo is None else k for _, lo, k in AIRLINE_COLUMNS]
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    cols = np.empty((n, len(AIRLINE_COLUMNS)), np.int64)
+    vals = np.ones((n, len(AIRLINE_COLUMNS)), np.float32)
+    for j, (_, lo, k) in enumerate(AIRLINE_COLUMNS):
+        if lo is None:
+            cols[:, j] = starts[j]
+            vals[:, j] = X[:, j]
+        else:
+            cols[:, j] = starts[j] + X[:, j].astype(np.int64) - lo
+    indptr = np.arange(0, n * len(AIRLINE_COLUMNS) + 1, len(AIRLINE_COLUMNS))
+    return sps.csr_matrix((vals.reshape(-1), cols.reshape(-1), indptr),
+                          shape=(n, sum(widths)))
+
+
+_ONE_THREAD = None
+
+
+def __getattr__(name):
+    global _ONE_THREAD
+    if name != "one_thread":
+        raise AttributeError(name)
+    if _ONE_THREAD is None:
+        import pytest
+        import torch
+
+        @pytest.fixture(autouse=True, scope="module")
+        def one_thread():
+            n = torch.get_num_threads()
+            torch.set_num_threads(1)
+            yield
+            torch.set_num_threads(n)
+        _ONE_THREAD = one_thread
+    return _ONE_THREAD

@@ -116,6 +116,16 @@ class HostTree:
                            self.leaf_value[0] if len(self.leaf_value) else 0.0)
         return self.leaf_value[self.predict_leaf_np(X)]
 
+    def expected_value(self) -> float:
+        """reference: Tree::ExpectedValue: the leaves' outputs weighted by
+        their counts."""
+        if self.num_leaves <= 1:
+            return float(self.leaf_value[0]) if len(self.leaf_value) else 0.0
+        tot = float(self.internal_count[0]) if len(self.internal_count) else 0.0
+        if tot <= 0:
+            return 0.0
+        return float((self.leaf_value * self.leaf_count).sum() / tot)
+
     def max_depth(self) -> int:
         """Decisions on the deepest root-to-leaf path (0 for one leaf)."""
         if self.num_leaves <= 1:

@@ -25,6 +25,7 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import binning as tbin
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.ops import ingest as ting
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 PARAMS = [
     {},
@@ -186,8 +187,11 @@ def test_binner_refuses_bad_input():
 
 
 def test_dataset_refuses_input_it_does_not_bin():
+    """Forced bin bounds are the one Dataset input still refused (text
+    files, sparse and pandas input bin: tests/test_torch_dataset_formats.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.Dataset("train.csv", device="cpu").construct()
+        lt.Dataset(_matrix(), device="cpu",
+                   params={"forcedbins_filename": "bins.json"}).construct()
 
 
 # ----------------------------------------------------------------------

@@ -34,6 +34,7 @@ from lightgbm_tpu.ops.split import K_EPSILON, leaf_gain
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.model_text import load_model_from_string
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = {"objective": "binary", "num_leaves": 7, "min_data_in_leaf": 5,

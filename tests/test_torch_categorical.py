@@ -46,6 +46,7 @@ from lightgbm_tpu_torch.model_text import load_model_from_string
 from lightgbm_tpu_torch.ops.split import SplitHyperparams as THP
 from lightgbm_tpu_torch.testing import (AIRLINE_CATEGORICAL, airline_like,
                                         one_hot)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,

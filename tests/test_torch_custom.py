@@ -19,9 +19,11 @@ import torch
 import lightgbm_tpu as lgb
 
 import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.utils.log import LightGBMError
 
 from test_torch_objectives import (BASE, assert_same_trees, table,
                                    train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = dict(BASE, objective="binary")
@@ -94,7 +96,13 @@ def test_update_refuses_another_train_set():
     ds = lt.Dataset(X, label=y, device="cpu")
     bt = lt.Booster(PARAMS, train_set=ds)
     bt.update(train_set=ds, fobj=logloss_obj)
-    other = lt.Dataset(X[::-1].copy(), label=y[::-1].copy(), device="cpu")
-    with pytest.raises(NotImplementedError, match="training options"):
+    # a train set binned with other bin mappers is refused; one binned
+    # with the booster's (its reference) becomes the training data
+    other = lt.Dataset(X[::-1].copy() * 2.0, label=y[::-1].copy(),
+                       device="cpu").construct()
+    with pytest.raises(LightGBMError, match="different bin mappers"):
         bt.update(train_set=other)
     assert bt.current_iteration() == 1
+    aligned = lt.Dataset(X[::-1].copy(), label=y[::-1].copy(), device="cpu")
+    bt.update(train_set=aligned, fobj=logloss_obj)
+    assert bt.train_set is aligned and bt.current_iteration() == 2

@@ -14,6 +14,7 @@ import pytest
 import lightgbm_tpu_torch as lt
 
 from test_torch_objectives import query_sizes, table
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 SMALL = {"verbose": -1, "num_leaves": 7, "max_bin": 63,
          "min_data_in_leaf": 5}

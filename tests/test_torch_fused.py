@@ -42,6 +42,7 @@ from lightgbm_tpu_torch.ops.histogram import (_vals_t, accumulate_plain,
                                               fixed_point_scales, to_fixed)
 from lightgbm_tpu_torch.ops.split import SplitHyperparams as THP
 from lightgbm_tpu_torch.ops.split import fixed_to_f32
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 N, F, B, K = 2000, 8, 16, 3
 NUM_BIN = np.array([16, 16, 16, 2, 9, 1, 0, 12], np.int32)

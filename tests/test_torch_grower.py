@@ -29,6 +29,7 @@ from lightgbm_tpu_torch.dataset import FeatureMeta as TMeta
 from lightgbm_tpu_torch.grower import GrowerConfig as TConfig
 from lightgbm_tpu_torch.grower_rounds import grow_tree_rounds as tgrow
 from lightgbm_tpu_torch.ops.split import SplitHyperparams as THP
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 N, F, B, LEAVES, WIDTH = 2000, 6, 32, 15, 8
 HP = dict(min_data_in_leaf=5, lambda_l2=1.0)

@@ -30,6 +30,7 @@ from lightgbm_tpu.ops import histogram as JH
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops import planner
 from lightgbm_tpu_torch.ops.split import fixed_to_f32
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 M32 = (1 << 32) - 1
 M64 = (1 << 64) - 1

@@ -39,6 +39,7 @@ from lightgbm_tpu_torch.grower_rounds import group_layout
 from lightgbm_tpu_torch.ops.fused import expand_groups
 from lightgbm_tpu_torch.ops import histogram as TH
 from lightgbm_tpu_torch.ops.split import fixed_to_f32
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 SHAPES = [(1, 1), (7, 511), (9, 513), (28, 5000)]
 # compiled once per shape (interpret mode runs the Pallas grid in XLA)

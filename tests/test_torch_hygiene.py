@@ -11,6 +11,7 @@ import pytest
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.testing import synthetic_model_text
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +40,8 @@ def test_import_pulls_in_no_jax():
                 "serving.registry", "serving.server", "utils.log",
                 "binning", "dataset", "engine", "grower", "grower_rounds",
                 "boosting.gbdt", "ops.fused", "ops.histogram", "ops.ingest",
-                "ops.split", "tools.torch_ingest_compare"):
+                "ops.split", "tools.torch_ingest_compare", "compat",
+                "io_utils", "sklearn", "utils.file_io", "utils.shap"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
@@ -53,3 +55,64 @@ def test_default_device_is_cuda_and_never_falls_back():
     with pytest.raises(RuntimeError, match="CUDA"):
         lt.Booster(model_str=text, device="cuda")
     assert lt.Booster(model_str=text, device="cpu").device.type == "cpu"
+
+
+_NO_OPTIONAL = r"""
+import json, sys
+for name in ("pandas", "sklearn", "matplotlib"):
+    sys.modules[name] = None          # import raises ImportError
+import numpy as np
+import scipy.sparse as sps
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch import compat
+rng = np.random.RandomState(0)
+X = rng.randn(600, 5).astype(np.float32)
+X[X < 0.2] = 0.0
+y = (X[:, 0] + 0.3 * rng.randn(600) > 0.1).astype(np.float32)
+params = {"objective": "binary", "num_leaves": 5, "verbose": -1,
+          "min_data_in_leaf": 10}
+ds = lt.Dataset(sps.csr_matrix(X), label=y, device="cpu")
+res = lt.cv(params, ds, 2, nfold=3, stratified=False)
+try:
+    lt.cv(params, lt.Dataset(X, label=y, device="cpu"), 1, nfold=3)
+    strat = "ran"
+except ImportError:
+    strat = "ImportError"
+bst = lt.train(params, lt.Dataset(sps.csr_matrix(X), label=y, device="cpu"),
+               2, verbose_eval=False)
+refit = bst.refit(X, y, decay_rate=0.5)
+contrib = bst.predict(sps.csr_matrix(X), pred_contrib=True)
+raw = bst.predict(X, raw_score=True, device=False)
+from lightgbm_tpu_torch import sklearn as sk
+est = sk.LGBMRegressor(device="cpu", n_estimators=2).fit(X, y)
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu",
+                                     "pandas", "sklearn", "matplotlib"))
+print(json.dumps({
+    "flags": [compat.PANDAS_INSTALLED, compat.SKLEARN_INSTALLED,
+              compat.MATPLOTLIB_INSTALLED],
+    "cv_keys": sorted(res), "stratified": strat,
+    "refit_trees": refit.num_trees(),
+    "contrib_ok": bool(np.allclose(contrib.sum(axis=1), raw, rtol=1e-9)),
+    "sk_pred": int(len(est.predict(X))), "bad": bad}))
+"""
+
+
+def test_optional_packages_stay_optional():
+    """With pandas, scikit-learn and matplotlib unimportable, the package
+    imports, bins CSR input, cross-validates without stratification
+    (stratified folds raise ImportError, as the JAX package's do), refits,
+    gives SHAP contributions and fits the stand-in estimators, on the
+    CPU; none of its modules pulls in JAX or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _NO_OPTIONAL], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["flags"] == [False, False, False]
+    assert res["cv_keys"] == ["binary_logloss-mean", "binary_logloss-stdv"]
+    assert res["stratified"] == "ImportError"
+    assert res["refit_trees"] == 2 and res["contrib_ok"]
+    assert res["sk_pred"] == 600
+    assert res["bad"] == []

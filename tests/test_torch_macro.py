@@ -35,16 +35,7 @@ from lightgbm_tpu_torch.model_text import load_model_from_string
 
 from test_macro import N, PARITY_CASES, X, XV, Y_BIN, YV_BIN
 from test_torch_objectives import TREE_EXACT, assert_same_trees
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The port's CPU trainings here run on one thread, so parallel test
-    workers do not oversubscribe the cores (chunked and per-iteration
-    runs take the same thread count, so their bits agree)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 
 PLANS = ([8, 4], [2, 1, 4, 2, 2, 1])

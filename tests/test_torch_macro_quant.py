@@ -21,12 +21,11 @@ import lightgbm_tpu_torch as lt
 from test_macro import PARITY_CASES
 from test_torch_macro import (check_chunked_equals_per_iteration,
                               check_trees_match_the_jax_package, jax_runs,
-                              one_thread, port_runs)
+                              port_runs)
 from test_torch_objectives import BASE, assert_same_trees, table
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 CASES = ("fused", "fused_quant", "multiclass", "quant", "quant_renew")
-# one CPU thread for the port's trainings, as in test_torch_macro.py
-one_thread = one_thread
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from lightgbm_tpu_torch.dataset import Metadata as TMeta
 from lightgbm_tpu_torch.metrics import create_metric as tmetric
 
 from test_torch_objectives import objective_pair
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 N = 3000
 K = 4

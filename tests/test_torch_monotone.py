@@ -46,6 +46,7 @@ from lightgbm_tpu_torch.ops import fused as TFU
 from lightgbm_tpu_torch.ops import split as TS
 from lightgbm_tpu_torch.ops.histogram import hist_scales, to_fixed
 from lightgbm_tpu_torch.testing import MONOTONE_CONSTRAINTS, monotone_like
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 N, F, B, K = 2000, 6, 16, 3
 NUM_BIN = np.array([16, 16, 16, 2, 12, 16], np.int32)

@@ -21,6 +21,7 @@ import torch
 from test_torch_objectives import (BASE, assert_predictions_carry,
                                    assert_same_metrics, assert_same_trees,
                                    table, train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = dict(BASE, objective="multiclass", num_class=3,

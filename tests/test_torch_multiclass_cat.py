@@ -18,6 +18,7 @@ from lightgbm_tpu_torch.testing import (AIRLINE_CATEGORICAL,
 from test_torch_objectives import (BASE, assert_predictions_carry,
                                    assert_same_metrics, assert_same_trees,
                                    train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 3
 PARAMS = dict(BASE, objective="multiclass", num_class=3,

@@ -41,6 +41,7 @@ from lightgbm_tpu_torch.model_text import load_model_from_string
 from lightgbm_tpu_torch.objectives import _percentile as t_percentile
 from lightgbm_tpu_torch.objectives import create_objective as tcreate
 from lightgbm_tpu_torch.objectives import softmax0
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 N = 4000
 # name -> (params, label kind, gradient bar in ulps of the largest value;

@@ -19,6 +19,7 @@ from lightgbm_tpu_torch.ops import planner
 from lightgbm_tpu_torch.predict import DeviceForest
 from lightgbm_tpu_torch.testing import (salt_rows, synthetic_model_text,
                                         synthetic_rows)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROWS = 400
 

@@ -25,6 +25,7 @@ from lightgbm_tpu_torch.ops import predict_kernels as tpk
 from lightgbm_tpu_torch.predict import DeviceForest
 from lightgbm_tpu_torch.testing import (salt_rows, synthetic_model_text,
                                         synthetic_rows)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 # 300 rows: the JAX kernel's last 128-row tile is ragged
 ROWS = 300

@@ -28,6 +28,7 @@ from lightgbm_tpu_torch.utils import threefry
 
 from test_torch_objectives import (BASE, TREE_EXACT, assert_same_metrics,
                                    table, train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 3
 PARAMS = dict(BASE, objective="multiclass", num_class=3,

@@ -16,6 +16,7 @@ import lightgbm_tpu_torch as lt
 
 from test_torch_objectives import (BASE, assert_predictions_carry,
                                    assert_same_trees, table)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = dict(BASE, objective="quantile", alpha=0.3, metric=["quantile"])

@@ -53,7 +53,9 @@ from lightgbm_tpu_torch.ops import split as TS
 from lightgbm_tpu_torch.testing import AIRLINE_CATEGORICAL, airline_like
 from lightgbm_tpu_torch.utils import threefry
 
-from test_torch_train import _data, _onehot_data
+from test_torch_train import _data
+from test_torch_train_onehot import _onehot_data
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 BASE = {"num_leaves": 15, "min_data_in_leaf": 5, "verbose": -1,

@@ -44,6 +44,7 @@ from lightgbm_tpu_torch.ops.split import SplitHyperparams as THP
 from lightgbm_tpu_torch.ops.split import random_thresholds
 from lightgbm_tpu_torch.testing import AIRLINE_CATEGORICAL, airline_like
 from lightgbm_tpu_torch.utils import threefry
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 TREE_EXACT = ("split_feature", "threshold", "decision_type", "left_child",
               "right_child", "leaf_count", "cat_boundaries", "cat_threshold")

@@ -24,6 +24,7 @@ from lightgbm_tpu_torch.ops.renew import leaf_percentile as t_pct
 from test_torch_objectives import (BASE, assert_predictions_carry,
                                    assert_same_metrics, assert_same_trees,
                                    table, train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = dict(BASE, objective="regression_l1", bagging_freq=1,

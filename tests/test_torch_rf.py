@@ -19,6 +19,7 @@ import lightgbm_tpu_torch as lt
 from test_torch_objectives import (BASE, assert_predictions_carry,
                                    assert_same_metrics, assert_same_trees,
                                    table, train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = dict(BASE, objective="binary", boosting="rf", bagging_freq=1,

@@ -42,6 +42,7 @@ from lightgbm_tpu_torch import grower_rounds, testing
 from lightgbm_tpu_torch.model_text import load_model_from_string
 
 import test_torch_train as train_cases
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 # ----------------------------------------------------------------------
 # the cases: (params, data, rounds)
@@ -152,18 +153,6 @@ def print_digests() -> None:
     torch.set_num_threads(1)
     for case in sorted(CASES):
         print(f'    "{case}": "{sha256(port_text(case))}",')
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The port's CPU trainings here run on one thread: their f32 sums
-    then do not depend on the host's core count (the saved digests are
-    one thread's), and parallel test workers do not oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 _HOST_READS = ("aten._local_scalar_dense", "aten.item", "aten.nonzero",

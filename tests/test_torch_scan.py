@@ -45,6 +45,7 @@ from lightgbm_tpu_torch.ops.split import (QuantScales, SplitHyperparams,
                                           channel_multipliers,
                                           feature_best_splits, fixed_to_f32,
                                           random_thresholds)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 FIELDS = ("gain", "threshold", "default_left", "left_sum_grad",
           "left_sum_hess", "left_count")

@@ -18,6 +18,7 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.serving import (DeadlineExceeded, QueueFull,
                                         ServerClosed, ServingError)
 from lightgbm_tpu_torch.testing import synthetic_model_text, synthetic_rows
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 F = 8
 CATS = (2,)

@@ -31,6 +31,7 @@ from lightgbm_tpu.ops import split as JS
 
 from lightgbm_tpu_torch.ops import split as TS
 from lightgbm_tpu_torch.ops.histogram import hist_scales, to_fixed
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 N, B = 3000, 40
 NUM_BIN = np.array([40, 33, 3, 24, 40, 18, 12, 0], np.int32)

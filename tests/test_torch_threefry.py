@@ -20,6 +20,7 @@ import lightgbm_tpu as lgb
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.utils import threefry
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 SEEDS = (0, 1, 6, 2 ** 31 - 1)
 SIZES = (1, 7, 1000, 10007)

@@ -33,6 +33,7 @@ from lightgbm_tpu_torch.ops import planner
 from lightgbm_tpu_torch.ops import predict_kernels as tpk
 from lightgbm_tpu_torch.testing import (salt_rows, synthetic_model_text,
                                         synthetic_rows)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROWS = 300
 TILE = 128

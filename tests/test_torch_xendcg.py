@@ -27,6 +27,7 @@ from test_torch_objectives import (BASE, assert_predictions_carry,
                                    assert_same_metrics, assert_same_trees,
                                    objective_pair, query_sizes, table,
                                    train_both)
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 ROUNDS = 4
 PARAMS = dict(BASE, objective="rank_xendcg", metric=["ndcg"],
