@@ -12,6 +12,16 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   and times both modes, then serves a HIGGS-width model (28 features,
   500 trees, 255 leaves, binary; random trees from a seed) through
   ``Booster.serve()`` and ``Booster.predict()`` on the card;
+- ``swap_serve``: at the same width, ``swap_model`` to a second forest
+  while ``serving.loadgen`` fires the serve phase's 320 requests from 8
+  threads (every answer bit-equal to the host float64 path of the model
+  its request was admitted against), a NaN-leaf swap quarantined, a swap
+  to a 5-class forest (100 iterations x 5 trees), ``apredict``, bf16 and
+  int8 servers (answers equal to the quantised forest's host path, B1's
+  leaves mode on their planes against its plain version at every bucket
+  shape, a budget under the measured delta quarantined), and the native
+  host library (``backend="host"`` serving, 100,000 rows of
+  ``StackedForest.predict_raw`` against the NumPy route's bits);
 - ``train``: trains a HIGGS-width binary model (1,000,000 x 28 f32 rows
   from a seed, 255 leaves, 255 bins, 10 rounds, a 100,000-row valid set)
   through ``Dataset`` and ``train`` on the card — binning (B3), root and
@@ -151,6 +161,12 @@ CHECK_ROWS = (8, 64, 1000, 1024, 65536 + 37)
 TIMED_ROWS = (8, 64, 101, 1024, 65536)
 SERVE_REQUESTS, SERVE_THREADS, MAX_REQUEST_ROWS = 320, 8, 1500
 PREDICT_ROWS = 100_000
+# swap_serve: the 5-class forest it swaps to (100 iterations of 5 trees),
+# the requests of each of its later steps, and the rows the NumPy host
+# route is timed on (the native route takes all PREDICT_ROWS)
+SWAP_MULTI_ITERS, SWAP_CLASSES = 100, 5
+SWAP_K_REQUESTS, LOWPREC_REQUESTS, HOST_REQUESTS = 32, 64, 32
+APREDICT_REQUESTS, NUMPY_ROWS = 16, 5_000
 # the training run (BASELINE's HIGGS width) and the histogram check's
 # frontier width: one level of KCAP = 128 candidates
 TRAIN_ROWS, VALID_ROWS, TRAIN_ROUNDS = 1_000_000, 100_000, 10
@@ -542,7 +558,7 @@ def reads(pk, dev, X):
         need["left"][t[went_left], nd[went_left]] = True
         need["right"][t[~went_left], nd[~went_left]] = True
         node = nxt
-    leaf_need = torch.zeros(dev.leaf_value.shape, dtype=torch.bool,
+    leaf_need = torch.zeros(dev.forest.leaf_value.shape, dtype=torch.bool,
                             device=X.device)
     leaf_need[tid, (~node).long()] = True
     entries = {k: int(v.sum()) for k, v in need.items()}
@@ -746,7 +762,7 @@ def phase_serve(pk, bst, F, seed):
         raise AssertionError("Booster.predict never launched the kernel")
     lat_ms = np.array([lat[i] for i in range(n_req)])
     hist = metrics["histograms"]
-    emit({"phase": "serve", "requests": n_req, "threads": n_threads,
+    row = {"phase": "serve", "requests": n_req, "threads": n_threads,
           "rows": int(sizes.sum()), "wall_s": wall,
           "rows_per_s": int(sizes.sum()) / wall,
           "p50_ms": float(np.percentile(lat_ms, 50)),
@@ -758,8 +774,9 @@ def phase_serve(pk, bst, F, seed):
           **batch_breakdown(dev, forest, F, seed),
           "predict_rows": Xbig.shape[0],
           "predict_rows_per_s": Xbig.shape[0] / predict_s,
-          "launches": launches, "checked": "bit-exact"})
-    return launches
+          "launches": launches, "checked": "bit-exact"}
+    emit(row)
+    return launches, row
 
 
 def batch_breakdown(dev, forest, F, seed, reps: int = 21) -> dict:
@@ -780,6 +797,269 @@ def batch_breakdown(dev, forest, F, seed, reps: int = 21) -> dict:
         gather.append((time.perf_counter() - t) * 1e3)
     return {"bucket1024_route_ms": float(np.median(route)),
             "bucket1024_gather_ms": float(np.median(gather))}
+
+
+def timed_calls(obj, name: str, store: dict) -> None:
+    """Wrap ``obj.<name>`` so that each call adds its wall seconds to
+    ``store[name]``."""
+    fn = getattr(obj, name)
+
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            store[name] = store.get(name, 0.0) + time.perf_counter() - t
+
+    setattr(obj, name, run)
+
+
+def check_load(res: dict, n: int, models, what: str) -> None:
+    """A load generator's run: every request answered, none failed, each
+    bit-equal to the host path of the model it was admitted against."""
+    if res["errors"] or res["mismatches"]:
+        raise AssertionError(f"{what}: errors {res['errors'][:3]}, "
+                             f"mismatches {res['mismatches'][:3]}")
+    if res["requests"] != n or res["shed"] or res["expired"]:
+        raise AssertionError(f"{what}: {res['requests']} of {n} answered")
+    if not set(res["model_digests"]) <= {m.digest for m in models}:
+        raise AssertionError(f"{what}: answers from an unknown model")
+
+
+def phase_swap_serve(pk, lt, bst, F, seed, serve_row):
+    """Hot-swap and low-precision serving at the serve phase's width (28
+    features, 500 trees, 255 leaves): a swap to a second forest under the
+    serve phase's traffic, a quarantined NaN swap, a swap to a 5-class
+    forest, bf16 and int8 servers (B1 in leaves mode on their planes),
+    ``apredict``, and the native host route."""
+    import asyncio
+
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.serving import (LowPrecisionQuarantined,
+                                            SwapQuarantined, loadgen)
+    from lightgbm_tpu_torch.serving.registry import CompiledModel
+    from lightgbm_tpu_torch.testing import (salt_rows, synthetic_model_text,
+                                            synthetic_rows)
+    t_phase = time.perf_counter()
+    text_b = synthetic_model_text(F, 500, 255, seed=seed + 1)
+    bst_b = lt.Booster(model_str=text_b)
+    bst_k = lt.Booster(model_str=synthetic_model_text(
+        F, SWAP_MULTI_ITERS, 255, num_class=SWAP_CLASSES, seed=seed + 2))
+    ma, mb, mk = (CompiledModel(b, backend="host")
+                  for b in (bst, bst_b, bst_k))
+    setup_s = time.perf_counter() - t_phase
+
+    # 1. a swap from A to B under the serve phase's traffic
+    pk.reset_launch_counts()
+    with bst.serve() as srv:
+        timing: dict = {}
+        timed_calls(srv.models, "_probe", timing)
+        timed_calls(srv.programs, "warm", timing)
+        res: dict = {}
+        traffic = threading.Thread(target=lambda: res.update(
+            loadgen.fire_requests(srv, SERVE_REQUESTS, SERVE_THREADS,
+                                  MAX_REQUEST_ROWS, F,
+                                  verify_models=[ma, mb], timeout=600,
+                                  seed=seed)))
+        traffic.start()
+        done = srv.metrics.counter("requests_completed")
+        limit = time.monotonic() + 600
+        while (done.value < SERVE_REQUESTS // 4 and traffic.is_alive()
+               and time.monotonic() < limit):
+            time.sleep(0.002)
+        answered_before = done.value
+        t0 = time.perf_counter()
+        handle = srv.swap_model(bst_b, warm=True, block=False)
+        handle.join(600)
+        swap_s = time.perf_counter() - t0
+        traffic.join(900)
+        if handle.is_alive() or traffic.is_alive():
+            raise AssertionError("the swap or the traffic hung")
+        if handle.exception is not None:
+            raise handle.exception
+        swap_launches = {m: pk.launch_counts[f"{KERNEL}[{m}]"]
+                         for m in ("leaves", "scores")}
+        check_load(res, SERVE_REQUESTS, (ma, mb), "swap under load")
+        if res["model_digests"].get(mb.digest, 0) <= 0 or \
+                res["model_digests"].get(ma.digest, 0) <= 0:
+            raise AssertionError(f"the swap did not land mid-traffic: "
+                                 f"{res['model_digests']}")
+        Xq = synthetic_rows(F, 1000, seed=seed, row_seed=81)
+        if not np.array_equal(srv.predict(Xq, timeout=600),
+                              loadgen.expected_answer(mb, Xq)):
+            raise AssertionError("post-swap answers are not model B's")
+        md = srv.metrics_dict()
+        if md["counters"]["hot_swaps"] != 1 or \
+                md["gauges"]["model_generation"] != 1 or \
+                md["gauges"]["active_model_digest"] != mb.digest:
+            raise AssertionError(f"swap counters: {md['counters']}")
+        warmed = len({b for b, _k in srv.programs.seen_buckets})
+
+        # 2. a NaN leaf is quarantined; B keeps serving
+        bad = lt.Booster(model_str=text_b)
+        bad.models[0].leaf_value[0] = np.nan
+        try:
+            srv.swap_model(bad)
+        except SwapQuarantined:
+            pass
+        else:
+            raise AssertionError("a forest with a NaN leaf was promoted")
+        if srv.models.active.digest != mb.digest or \
+                srv.metrics.counter("swap_quarantines").value != 1:
+            raise AssertionError("the quarantined swap moved the model")
+
+        # 3. across num_class: warm rebuilds every seen bucket for K = 5
+        t0 = time.perf_counter()
+        srv.swap_model(bst_k, warm=True)
+        swap_k_s = time.perf_counter() - t0
+        misses_warm = srv.metrics.counter("bucket_misses").value
+        res_k = loadgen.fire_requests(srv, SWAP_K_REQUESTS, SERVE_THREADS,
+                                      MAX_REQUEST_ROWS, F,
+                                      verify_models=[mk], timeout=600,
+                                      seed=seed + 50)
+        check_load(res_k, SWAP_K_REQUESTS, (mk,), "5-class swap")
+        if srv.metrics.gauge("model_generation").value != 2:
+            raise AssertionError("the 5-class swap did not land")
+
+        # 5. apredict: requests awaited from one event loop
+        Xa = [synthetic_rows(F, int(n), seed=seed, row_seed=90 + i)
+              for i, n in enumerate(np.linspace(1, MAX_REQUEST_ROWS,
+                                                APREDICT_REQUESTS))]
+
+        async def gather():
+            return await asyncio.wait_for(
+                asyncio.gather(*[srv.apredict(x) for x in Xa]), 600)
+
+        outs = asyncio.run(gather())
+        for x, out in zip(Xa, outs):
+            if out.shape != (len(x), SWAP_CLASSES) or not np.array_equal(
+                    out, srv.predict(x, timeout=600)):
+                raise AssertionError("apredict differs from predict")
+        # buckets the 5-class traffic met that no earlier request had
+        cold_misses_k = (srv.metrics.counter("bucket_misses").value
+                         - misses_warm)
+
+    # 4. bf16 and int8 servers of A: answers are the quantised forest's
+    # host path; B1 in leaves mode on their planes
+    X1024 = torch.from_numpy(synthetic_rows(
+        F, 1024, seed=seed, row_seed=83).astype(np.float32)).cuda()
+    devs = {"f32": bst._device_forest(ma.forest)}
+    lowprec = {}
+    for prec in ("bf16", "int8"):
+        pk.reset_launch_counts()
+        with bst.serve(precision=prec) as lp:
+            m = lp.models.active
+            delta = lp.metrics.gauge("lowprec_accuracy_delta").value
+            r = loadgen.fire_requests(lp, LOWPREC_REQUESTS, SERVE_THREADS,
+                                      MAX_REQUEST_ROWS, F,
+                                      verify_models=[m], timeout=600,
+                                      seed=seed + 60)
+            launched = pk.launch_counts[f"{KERNEL}[leaves]"]
+            scores_launched = pk.launch_counts[f"{KERNEL}[scores]"]
+            buckets = list(lp.ladder.buckets)
+        check_load(r, LOWPREC_REQUESTS, (m,), f"{prec} serving")
+        if launched <= 0 or scores_launched:
+            raise AssertionError(f"{prec} serving launched B1 leaves "
+                                 f"{launched}, scores {scores_launched}")
+        dev = devs[prec] = m.device_forest
+        err, shapes = 0.0, {}
+        for b in buckets:
+            Xt = torch.from_numpy(salt_rows(synthetic_rows(
+                F, b, seed=seed, row_seed=b)).astype(np.float32)).cuda()
+            want = pk.traverse_plain(dev, Xt)
+            for label, plan in plan_variants(dev, Xt, 1, False):
+                got = pk.fused_traverse(dev, Xt, plan=plan)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"B1 on the {prec} plane differs "
+                                         f"from its plain version ({b} "
+                                         f"rows, {label})")
+                shapes[f"{b}:{label}"] = f"{plan.rows}x{plan.trees}"
+        try:
+            bst.serve(precision=prec, accuracy_budget=delta / 2).close()
+        except LowPrecisionQuarantined:
+            pass
+        else:
+            raise AssertionError(f"{prec} under half its delta served")
+        lowprec[prec] = {"accuracy_delta": delta, "launches": launched,
+                         "max_abs_err": err, "shapes_checked": len(shapes),
+                         "rows_per_s": r["rows"] / r["wall_seconds"],
+                         "p50_ms": r["latency_ms"]["p50"],
+                         "p99_ms": r["latency_ms"]["p99"]}
+    # B1's leaves mode at 1024 rows on each plane, in one stretch
+    times = {p: [] for p in devs}
+    for p in ("f32", "bf16", "int8", "int8", "bf16", "f32"):
+        times[p].append(graph_ms(
+            lambda d=devs[p]: pk.fused_traverse(d, X1024), 50))
+    b1 = {p: {"ms": float(np.mean(v)), "ms_runs": v,
+              "plain_ms": graph_ms(
+                  lambda d=devs[p]: pk.traverse_plain(d, X1024), 5),
+              **{k: v2 for k, v2 in bound(pk, devs[p], X1024, 1,
+                                          False).items()
+                 if k in ("bound_ms", "bound_by")}}
+          for p, v in times.items()}
+
+    # 6. the native host route: backend="host" serving, then 100,000 rows
+    if native.load_native_lib() is None:
+        raise AssertionError("the native host library did not build")
+    native.reset_route_counts()
+    with bst.serve(backend="host") as hs:
+        r_host = loadgen.fire_requests(hs, HOST_REQUESTS, SERVE_THREADS,
+                                       MAX_REQUEST_ROWS, F,
+                                       verify_models=[ma], timeout=600,
+                                       seed=seed + 70)
+    check_load(r_host, HOST_REQUESTS, (ma,), "host serving")
+    Xn = synthetic_rows(F, PREDICT_ROWS, seed=seed, row_seed=82)
+    forest = ma.forest
+    t0 = time.perf_counter()
+    raw_native = forest.predict_raw(Xn)
+    native_s = time.perf_counter() - t0
+    routes = dict(native.route_counts)
+    if routes["predict[native]"] <= 0 or routes["predict[numpy]"]:
+        raise AssertionError(f"the host path missed the native route: "
+                             f"{routes}")
+    forest._native_lib = None
+    try:
+        t0 = time.perf_counter()
+        raw_numpy = forest.predict_raw(Xn[:NUMPY_ROWS])
+        numpy_s = time.perf_counter() - t0
+    finally:
+        del forest._native_lib
+    if not np.array_equal(raw_native[:, :NUMPY_ROWS].view(np.uint64),
+                          raw_numpy.view(np.uint64)):
+        raise AssertionError("the native and NumPy routes differ")
+
+    row = {"phase": "swap_serve", "setup_s": setup_s,
+           "requests": SERVE_REQUESTS, "threads": SERVE_THREADS,
+           "rows": res["rows"], "wall_s": res["wall_seconds"],
+           "rows_per_s": res["rows"] / res["wall_seconds"],
+           "p50_ms": res["latency_ms"]["p50"],
+           "p99_ms": res["latency_ms"]["p99"],
+           "serve_rows_per_s": serve_row["rows_per_s"],
+           "serve_p50_ms": serve_row["p50_ms"],
+           "serve_p99_ms": serve_row["p99_ms"],
+           "answered_before_swap": answered_before,
+           "answers_by_model": {"A": res["model_digests"].get(ma.digest, 0),
+                                "B": res["model_digests"].get(mb.digest,
+                                                              0)},
+           "swap_s": swap_s, "probe_s": timing.get("_probe"),
+           "warm_s": timing.get("warm"), "warmed_buckets": warmed,
+           "swap_launches": swap_launches,
+           "quarantined": "SwapQuarantined (NaN leaf)",
+           "swap_k5_s": swap_k_s, "k5_requests": res_k["requests"],
+           "k5_cold_bucket_misses": cold_misses_k,
+           "apredict_requests": APREDICT_REQUESTS,
+           "lowprec": lowprec, "b1_leaves_1024": b1,
+           "host_serving_rows_per_s": (r_host["rows"]
+                                       / r_host["wall_seconds"]),
+           "native_rows": PREDICT_ROWS,
+           "native_rows_per_s": PREDICT_ROWS / native_s,
+           "numpy_rows": NUMPY_ROWS, "numpy_rows_per_s": NUMPY_ROWS / numpy_s,
+           "native_routes": routes, "phase_s": time.perf_counter() - t_phase,
+           "checked": "bit-exact to each request's admitted model"}
+    emit(row)
+    return row
 
 
 def bytes_or_ops(nbytes: float, ops: float) -> dict:
@@ -2965,7 +3245,25 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
     t0 = time.perf_counter()
+    # the native host library (g++) builds beside the four nvcc processes
+    from lightgbm_tpu_torch.native import build as native_build
+    host_lib: dict = {}
+
+    def build_host_lib():
+        t = time.perf_counter()
+        try:
+            host_lib["path"] = native_build.build()
+        except Exception as e:  # noqa: BLE001 - raised below
+            host_lib["error"] = e
+        host_lib["seconds"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_host_lib)
+    host_thread.start()
     libs = _build.build(["traverse", "ingest", "fused", "histogram"])
+    host_thread.join(300)
+    if "error" in host_lib or "path" not in host_lib:
+        raise RuntimeError(f"the native host library did not build: "
+                           f"{host_lib.get('error')!r}")
     root = os.path.dirname(os.path.abspath(__file__))
     # the shared atomics of the two histogram kernels (B4, B6)
     atomics = {"fused": ("accumulate_atomics", "accumulate_kernel"),
@@ -2981,7 +3279,10 @@ def main() -> int:
                                if "registers" in ln or "spill" in ln],
                      **({atomics[name][0]: atomics[name][1]}
                         if name in atomics else {})}
-              for name, lib in libs.items()}})
+              for name, lib in libs.items()},
+          "native_host_library": {
+              "path": os.path.relpath(host_lib["path"], root),
+              "seconds": host_lib["seconds"]}})
     for _key, found, kernel in atomics.values():
         native_shared_atomics(found, kernel)
 
@@ -3000,7 +3301,9 @@ def main() -> int:
           "higgs_text_bytes": len(higgs)})
 
     rows, max_err = phase_kernel(pk, models)
-    launches = phase_serve(pk, models["higgs_500x255"][0], 28, 7)
+    launches, serve_row = phase_serve(pk, models["higgs_500x255"][0], 28, 7)
+    swap_row = phase_swap_serve(pk, lt, models["higgs_500x255"][0], 28, 7,
+                                serve_row)
     del models
     train_run, train_data = phase_train(lt)
     train_launches, ds, bst = (train_run["launches"], train_run["ds"],
@@ -3053,7 +3356,22 @@ def main() -> int:
             "launches": launches[mode], "max_abs_err": max_err[mode],
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "swap_serve_launches": swap_row["swap_launches"][mode]})
+    # leaves mode on the bf16 and int8 planes (swap_serve's servers)
+    for prec in ("bf16", "int8"):
+        lp, b1 = swap_row["lowprec"][prec], swap_row["b1_leaves_1024"][prec]
+        if lp["launches"] <= 0:
+            raise AssertionError(f"{prec} serving never launched B1")
+        table.append({
+            "name": f"{KERNEL}[{prec} planes]", "route": "cuda",
+            "source": "lightgbm_tpu_torch/ops/csrc/traverse.cu",
+            "replaces": "lightgbm_tpu/ops/predict_kernels.py:238",
+            "launches": lp["launches"], "max_abs_err": lp["max_abs_err"],
+            "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+            "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+            "library_ms": None,
+            "f32_planes_ms": swap_row["b1_leaves_1024"]["f32"]["ms"]})
     fused_src = "lightgbm_tpu_torch/ops/csrc/fused.cu"
     for name, src, replaces, r in (
             ("ingest", "lightgbm_tpu_torch/ops/csrc/ingest.cu",

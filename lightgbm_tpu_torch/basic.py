@@ -774,10 +774,11 @@ class Booster:
         """In-process inference server over this model: thread-safe
         ``submit``/``predict`` with micro-batching into power-of-two
         shape buckets, per-request deadlines, queue backpressure, a
-        JSON-dumpable metrics registry, and graceful drain on
-        ``close()``.  Keyword overrides populate a
-        ``serving.ServingConfig`` (e.g. ``max_batch_rows=512,
-        backend="host"``)."""
+        JSON-dumpable metrics registry, model hot-swap
+        (``swap_model``) and graceful drain on ``close()``.  Keyword
+        overrides populate a ``serving.ServingConfig`` (e.g.
+        ``max_batch_rows=512, backend="host"``, ``precision="bf16",
+        accuracy_budget=1e-2, probe_X=X``, ``max_programs=32``)."""
         from .serving import Server
         return Server(self, config=config, **overrides)
 

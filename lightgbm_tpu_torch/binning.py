@@ -1,5 +1,5 @@
 """Host-side feature binning (quantization); the port's copy of
-``lightgbm_tpu/binning.py`` without its native ``GreedyFindBin``.
+``lightgbm_tpu/binning.py``.
 
 LightGBM's BinMapper (reference: include/LightGBM/bin.h:61-219,
 src/io/bin.cpp:54-534).  Fitting the bin bounds is a host-side, one-shot
@@ -45,6 +45,27 @@ def _check_double_equal_ordered(a: float, b: float) -> bool:
     return b <= math.nextafter(a, math.inf)
 
 
+def _greedy_find_bin_native(distinct_values, counts, max_bin, total_cnt,
+                            min_data_in_bin):
+    """``GreedyFindBin`` in the native library (``native/findbin.cpp``),
+    or None where the library is unavailable."""
+    from . import native
+    lib = native.load_native_lib()
+    if lib is None:
+        native.count_route("find_bin", "numpy")
+        return None
+    native.count_route("find_bin", "native")
+    dv = np.ascontiguousarray(distinct_values, dtype=np.float64)
+    ct = np.ascontiguousarray(counts, dtype=np.int64)
+    if len(ct) != len(dv):
+        raise ValueError("counts and distinct values differ in length")
+    out = np.empty(max(max_bin, 1), np.float64)
+    n = lib.lgbt_greedy_find_bin(dv.ctypes.data, ct.ctypes.data, len(dv),
+                                 int(max_bin), int(total_cnt),
+                                 int(min_data_in_bin), out.ctypes.data)
+    return out[:n].tolist()
+
+
 def greedy_find_bin(
     distinct_values: np.ndarray,
     counts: np.ndarray,
@@ -56,10 +77,16 @@ def greedy_find_bin(
 
     reference: GreedyFindBin (src/io/bin.cpp:77-155).  Returns the list of
     bin upper bounds, last element is +inf.  The greedy scan is
-    sequential over up to the sampled distinct-value count (the JAX
-    package also has a native C version of this loop; the port keeps only
-    the NumPy body, whose float semantics that version reproduces).
+    sequential over up to the sampled distinct-value count: above 512
+    distinct values it runs in the native library (``native/findbin.cpp``,
+    the same float semantics and the same list of floats), with this
+    Python body where the library is unavailable.
     """
+    if len(distinct_values) > 512 and max_bin > 0:
+        native = _greedy_find_bin_native(distinct_values, counts, max_bin,
+                                         total_cnt, min_data_in_bin)
+        if native is not None:
+            return native
     num_distinct_values = len(distinct_values)
     bin_upper_bound: List[float] = []
     assert max_bin > 0

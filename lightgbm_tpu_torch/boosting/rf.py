@@ -46,9 +46,30 @@ class RF(GBDT):
             self._init_col.expand(K, self.num_data).contiguous())
 
     def reset_training_data(self, train_set, raw_scores=None) -> None:
-        raise NotImplementedError(
-            "Booster.update(train_set=) of a random forest waits for ROADMAP "
-            "queue A7b (its running-mean scores and fixed gradients)")
+        """Train on ``train_set`` from now on: its scores are the running
+        mean of every tree so far over its rows, replayed in the f32
+        order training takes (``_chunk_step``), and its gradients are
+        taken once more from the constant init scores (rf.hpp:77-98)."""
+        if self.num_init_iteration:
+            raise ValueError(
+                "the running mean of a continued random forest needs each "
+                "init iteration's scores of the new rows; train the new "
+                "rows from the saved model with init_model instead")
+        super().reset_training_data(train_set, raw_scores)
+        K, n = self.num_tree_per_iteration, self.num_data
+        score = torch.zeros((K, n), dtype=torch.float32, device=self.device)
+        if train_set.metadata.init_score is not None:
+            score += self._init_score_rows(train_set.metadata.init_score, n)
+        for it, trees in enumerate(self.tree_history):
+            s = score * it
+            for k, t in enumerate(trees):
+                s[k] += self._tree_output(t, train_set)
+            div = torch.tensor(it + 1, dtype=torch.float32,
+                               device=self.device)
+            score = (s + self._init_col) / div
+        self.train_score = score
+        self._grad, self._hess = self._gradients(
+            self._init_col.expand(K, n).contiguous())
 
     def _renew_residual(self, score, k):
         return self._renew_label - self._init_col[k, 0]

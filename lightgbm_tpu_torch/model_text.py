@@ -4,7 +4,9 @@ of ``lightgbm_tpu/model_text.py``).
 reference: src/boosting/gbdt_model_text.cpp — SaveModelToString (:301),
 LoadModelFromString (:405), Tree::ToString (src/io/tree.cpp:560+),
 Tree::Tree(const char*) text parsing ctor.  Text saved by the JAX package
-loads here and saves back as the same text.
+loads here and saves back as the same text.  ``model_to_if_else`` writes
+the model as standalone C++ (reference: ModelToIfElse,
+gbdt_model_text.cpp:117), the same source as the JAX package's.
 """
 
 from __future__ import annotations
@@ -210,3 +212,88 @@ def load_model_from_string(s: str) -> dict:
         except ValueError:
             out["pandas_categorical"] = None
     return out
+
+
+def _tree_to_if_else(t: HostTree, idx: int) -> str:
+    """One tree as a C++ function (reference: gbdt_model_text.cpp:117
+    ModelToIfElse / Tree::ToIfElse, src/io/tree.cpp)."""
+    lines = [f"double PredictTree{idx}(const double* arr) {{"]
+
+    # explicit work stack — deep unbalanced trees (depth > ~1000) would
+    # overflow Python recursion
+    if t.num_leaves <= 1:
+        val = t.leaf_value[0] if len(t.leaf_value) else 0.0
+        lines.append(f"  return {float(val)!r};")
+        lines.append("}")
+        return "\n".join(lines)
+
+    stack = [("node", 0, 0)]
+    while stack:
+        kind, a, depth = stack.pop()
+        pad = "  " * (depth + 1)
+        if kind == "text":
+            lines.append(a)
+            continue
+        node = a
+        if node < 0:
+            lines.append(f"{pad}return {float(t.leaf_value[~node])!r};")
+            continue
+        f = int(t.split_feature[node])
+        dt = int(t.decision_type[node])
+        left, right = int(t.left_child[node]), int(t.right_child[node])
+        if dt & 1:  # categorical: bitset membership goes left
+            cat_idx = int(t.threshold[node])
+            lo, hi = int(t.cat_boundaries[cat_idx]), int(t.cat_boundaries[cat_idx + 1])
+            words = ",".join(f"{int(w)}u" for w in t.cat_threshold[lo:hi])
+            nw = hi - lo
+            lines.append(
+                f"{pad}{{ static const uint32_t bits[] = {{{words}}};"
+                f" int iv = std::isnan(arr[{f}]) ? -1 : (int)arr[{f}];"
+                f" if (iv >= 0 && iv < {nw * 32} && ((bits[iv / 32] >> (iv % 32)) & 1)) {{")
+            close = f"{pad}}} }}"
+        else:
+            missing_type = (dt >> 2) & 3
+            default_left = bool(dt & 2)
+            thr = repr(float(t.threshold[node]))
+            v = f"arr[{f}]"
+            if missing_type == 2:       # NaN-aware
+                cond = (f"(std::isnan({v}) ? {str(default_left).lower()} : "
+                        f"{v} <= {thr})")
+            elif missing_type == 1:     # zero as missing
+                zv = f"(std::isnan({v}) ? 0.0 : {v})"
+                cond = (f"(std::fabs({zv}) <= 1e-35 ? {str(default_left).lower()} : "
+                        f"{zv} <= {thr})")
+            else:
+                cond = f"((std::isnan({v}) ? 0.0 : {v}) <= {thr})"
+            lines.append(f"{pad}if ({cond}) {{")
+            close = f"{pad}}}"
+        stack.extend(reversed([
+            ("node", left, depth + 1),
+            ("text", f"{pad}}} else {{", 0),
+            ("node", right, depth + 1),
+            ("text", close, 0),
+        ]))
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def model_to_if_else(booster) -> str:
+    """Standalone C++ source evaluating the model
+    (reference: ModelToIfElse, gbdt_model_text.cpp:117)."""
+    models = booster.models
+    K = booster.num_tree_per_iteration
+    avg = getattr(booster, "average_output", False)
+    parts = ["#include <cmath>", "#include <cstdint>", ""]
+    for i, t in enumerate(models):
+        parts.append(_tree_to_if_else(t, i))
+        parts.append("")
+    n_iter = len(models) // max(K, 1)
+    parts.append("extern \"C\" void Predict(const double* features, "
+                 "double* output) {")
+    for k in range(K):
+        calls = " + ".join(f"PredictTree{it * K + k}(features)"
+                           for it in range(n_iter)) or "0.0"
+        scale = f" / {n_iter}.0" if (avg and n_iter) else ""
+        parts.append(f"  output[{k}] = ({calls}){scale};")
+    parts.append("}")
+    return "\n".join(parts)

@@ -29,6 +29,18 @@ _MIN_BUCKET = 8
 _PAIR_BUDGET = 1 << 22   # elements of one [chunk, Q, Q] intermediate
 
 
+def query_sums(a: torch.Tensor) -> torch.Tensor:
+    """[c, Q, Q] -> [c], each query's sum in one serial pass.  On the
+    CPU torch splits a reduction with a single output across its threads,
+    so the sum of a lone query's pairs would depend on the thread count
+    (ROADMAP C-19); two outputs (the second a stride-0 view of the first)
+    keep one pass an output, which is the one-thread order."""
+    flat = a.reshape(a.shape[0], -1)
+    if flat.shape[0] == 1:
+        return flat.expand(2, -1).sum(dim=1)[:1]
+    return flat.sum(dim=1)
+
+
 def _bucket_queries(qb: np.ndarray) -> Dict[int, np.ndarray]:
     """Query ids by padded size {Q: ids}, buckets in the order their
     first query appears."""
@@ -146,7 +158,7 @@ class LambdarankNDCG(RankingObjective):
         lam = p_lambda.sum(dim=2) - p_lambda.sum(dim=1)   # high minus low
         hes = p_hess.sum(dim=2) + p_hess.sum(dim=1)
         if self.norm:
-            sum_lambdas = -2.0 * p_lambda.sum(dim=(1, 2))
+            sum_lambdas = -2.0 * query_sums(p_lambda)
             factor = torch.where(
                 sum_lambdas > 0,
                 torch.log2(1.0 + sum_lambdas)

@@ -4,9 +4,13 @@ the ``Counter``/``Gauge``/``Histogram``/``MetricsRegistry`` surface of
 
 ``MetricsRegistry.to_dict()`` keeps the JAX package's key layout
 (``counters``/``gauges``/``histograms``), so a dashboard reads either
-package's snapshot the same way.  A histogram is fixed upper-bound
+package's snapshot the same way, and ``to_prometheus()`` renders the
+same instruments in the Prometheus text exposition format (cumulative
+buckets) as the JAX package does.  A histogram is fixed upper-bound
 buckets plus count/sum/min/max; every mutation takes the owning
-registry's single lock.  Stdlib only.
+registry's single lock.  Stdlib only.  The JAX package's labelled
+series and child registries belong to its serving fleet (ROADMAP queue
+A6) and its HTTP endpoint to its env registry (A11).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import tempfile
 import threading
 from typing import Dict, List, Optional, Sequence
@@ -113,6 +118,43 @@ class Histogram:
             }
 
 
+    def cumulative(self) -> tuple:
+        """(list of (upper_bound, cumulative_count), sum, count): the
+        Prometheus exposition shape (buckets are cumulative there)."""
+        with self._lock:
+            out, running = [], 0
+            for b, c in zip(self.bounds, self._counts):
+                running += c
+                out.append((b, running))
+            return out, self._sum, self._count
+
+
+def _prom_name(name: str, prefix: str = "") -> str:
+    """An instrument name as a legal Prometheus metric name."""
+    s = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    if prefix:
+        s = f"{prefix}_{s}"
+    if s and s[0].isdigit():
+        s = "_" + s
+    return s
+
+
+def _esc_label(v) -> str:
+    # backslash, quote and line feed must be escaped in a label value, or
+    # one bad value splits a sample across lines
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _series(name: str, labels: Optional[dict] = None) -> str:
+    """One sample's name: the metric name and its sorted label set."""
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{_esc_label(v)}"'
+                     for k, v in sorted(labels.items()))
+    return name + "{" + inner + "}"
+
+
 class MetricsRegistry:
     """Named instrument registry; ``counter``/``gauge``/``histogram`` are
     get-or-create so call sites never race on registration."""
@@ -154,6 +196,41 @@ class MetricsRegistry:
             "gauges": {k: g.value for k, g in sorted(gauges.items())},
             "histograms": {k: h.snapshot() for k, h in sorted(hists.items())},
         }
+
+    def to_prometheus(self, prefix: str = "lgbt") -> str:
+        """Prometheus text exposition (version 0.0.4) of every instrument.
+        A non-numeric gauge (a model digest, a precision) is exported as
+        ``<name>_info{value="..."} 1``."""
+        with self._reg_lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = dict(self._histograms)
+        lines: List[str] = []
+        for k, c in sorted(counters.items()):
+            n = _prom_name(k, prefix)
+            lines.append(f"# TYPE {n} counter")
+            lines.append(f"{n} {c.value}")
+        for k, g in sorted(gauges.items()):
+            n = _prom_name(k, prefix)
+            v = g.value
+            if isinstance(v, bool):
+                v = int(v)
+            if isinstance(v, (int, float)) and math.isfinite(v):
+                lines.append(f"# TYPE {n} gauge")
+                lines.append(f"{n} {v}")
+            else:
+                lines.append(f"# TYPE {n}_info gauge")
+                lines.append(f"{_series(n + '_info', {'value': v})} 1")
+        for k, h in sorted(hists.items()):
+            n = _prom_name(k, prefix)
+            cum, total, count = h.cumulative()
+            lines.append(f"# TYPE {n} histogram")
+            for bound, c in cum:
+                le = "+Inf" if math.isinf(bound) else repr(float(bound))
+                lines.append(f"{_series(n + '_bucket', {'le': le})} {c}")
+            lines.append(f"{n}_sum {total}")
+            lines.append(f"{n}_count {count}")
+        return "\n".join(lines) + "\n"
 
     def dump_json(self, path: Optional[str] = None, indent: int = 1) -> str:
         """The snapshot as JSON; with ``path``, also written atomically

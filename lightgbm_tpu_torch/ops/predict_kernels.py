@@ -93,9 +93,18 @@ def decide_step(node, Xc, sf, thr, left, right, mt, dl, has_cat,
 
 
 def full_threshold_f32(dev) -> torch.Tensor:
-    """The complete [T, I] f32 threshold plane.  The port serves f32
-    thresholds only (bf16/int8 planes come with low-precision serving),
-    so this is the stored plane itself."""
+    """The complete [T, I] f32 threshold plane of ``dev``, whatever its
+    storage precision: bf16 widens, int8 dequantizes (``q * scale`` of
+    its tree, in f32) with the fix-mask keeping the f32 value of the
+    nodes that were not quantized (categorical bitset indices, the +inf
+    padding).  Elementwise, so every value is the host grid's
+    (``fleet.lowprec.int8_rows``) bit for bit."""
+    precision = getattr(dev, "precision", "f32")
+    if precision == "bf16":
+        return dev.threshold.float()
+    if precision == "int8":
+        thr = dev.threshold.float() * dev.threshold_scale
+        return torch.where(dev.threshold_fix_mask, dev.threshold_fix, thr)
     return dev.threshold
 
 
@@ -243,6 +252,9 @@ def _check(dev, X: torch.Tensor, num_class: int, emit_scores: bool) -> None:
         raise ValueError(f"X has {X.shape[1]} features, the forest splits "
                          f"on feature {dev.num_features - 1}")
     if emit_scores:
+        if dev.leaf_value is None:
+            raise ValueError("a routing-only forest has no leaf values to "
+                             "sum: traverse it for leaf ids")
         K = max(num_class, 1)
         if dev.num_trees % K:
             raise ValueError(f"{dev.num_trees} trees are not whole "

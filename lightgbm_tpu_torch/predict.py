@@ -5,11 +5,14 @@ reference: src/application/predictor.hpp:29 (row-parallel Predictor),
 include/LightGBM/tree.h:190 (inline Tree::Predict traversal), and
 src/boosting/prediction_early_stop.cpp:13-90 (margin-based early stop).
 
-``StackedForest`` packs all trees into padded [T, nodes] NumPy arrays and
-advances every row one level per step on the host in float64.
-``DeviceForest`` holds the same forest as torch tensors on one device and
-routes rows through ``ops.predict_kernels.fused_traverse``: the CUDA
-kernel on a card, its plain torch version on the CPU.
+``StackedForest`` packs all trees into padded [T, nodes] NumPy arrays
+and predicts on the host in float64: through the native C++ library
+(``native/predictor.cpp``, a row-parallel scalar walk) where it builds,
+else by advancing every row one level per step in NumPy; both give the
+same bits.  ``DeviceForest`` holds the same forest as torch tensors on
+one device (thresholds in f32, or on a bf16 or int8 grid) and routes
+rows through ``ops.predict_kernels.fused_traverse``: the CUDA kernel on a
+card, its plain torch version on the CPU.
 """
 
 from __future__ import annotations
@@ -154,10 +157,80 @@ class StackedForest:
             out[sel] = ~node
         return out
 
+    # ---------------------------------------------------------- native path
+
+    def _native(self):
+        """ctypes handle to the native predictor, or None."""
+        if not hasattr(self, "_native_lib"):
+            from .native import load_native_lib
+            self._native_lib = load_native_lib()
+        return self._native_lib
+
+    @property
+    def _cat_u8(self):
+        if not hasattr(self, "_cat_u8_arr"):
+            self._cat_u8_arr = np.ascontiguousarray(self.is_cat, np.uint8)
+        return self._cat_u8_arr
+
+    @property
+    def _dl_u8(self):
+        if not hasattr(self, "_dl_u8_arr"):
+            self._dl_u8_arr = np.ascontiguousarray(self.default_left,
+                                                   np.uint8)
+        return self._dl_u8_arr
+
+    def _native_predict(self, X: np.ndarray, num_class: int,
+                        early_stop=None, want_leaf: bool = False):
+        """Run ``lgbt_predict``: (raw [K, n] or None, leaf [n, T] or
+        None), or None where the native library is unavailable.  Each
+        row sums its trees in order in float64, the order of the NumPy
+        route, and stops early where that route does."""
+        from . import native
+        lib = self._native()
+        # rows narrower than the forest's features take the NumPy route,
+        # which raises where the C loop would read past a row
+        if lib is None or X.shape[1] <= int(self.split_feature.max(
+                initial=0)):
+            native.count_route("predict", "numpy")
+            return None
+        native.count_route("predict", "native")
+        n = X.shape[0]
+        K = max(num_class, 1)
+        X = np.ascontiguousarray(X, np.float64)
+        out = None if want_leaf else np.zeros((K, n), np.float64)
+        leaf = np.zeros((n, self.num_trees), np.int32) if want_leaf else None
+        kind, freq, margin = 0, 0, 0.0
+        if early_stop is not None:
+            kind, freq, margin = (early_stop.kind_code, early_stop.freq,
+                                  early_stop.margin)
+        # the pointers' arrays, in the C types lgbt_predict reads
+        planes = [(self.split_feature, np.int32), (self.threshold, np.float64),
+                  (self.left, np.int32), (self.right, np.int32),
+                  (self._cat_u8, np.uint8), (self._dl_u8, np.uint8),
+                  (self.missing_type, np.int8), (self.leaf_value, np.float64),
+                  (self.cat_offset, np.int64), (self.cat_nwords, np.int32),
+                  (self.cat_words, np.uint32)]
+        for a, dtype in planes:
+            if a.dtype != dtype or not a.flags.c_contiguous:
+                raise ValueError(f"a forest plane is {a.dtype}, not a "
+                                 f"contiguous {np.dtype(dtype)}")
+
+        def p(a):
+            return None if a is None else a.ctypes.data
+
+        lib.lgbt_predict(
+            p(X), n, X.shape[1], self.num_trees, self.split_feature.shape[1],
+            self.leaf_value.shape[1], *(p(a) for a, _ in planes),
+            K, kind, freq, margin, p(out), p(leaf))
+        return out, leaf
+
     def predict_leaf(self, X: np.ndarray,
                      chunk_rows: int = _CHUNK_ROWS) -> np.ndarray:
         """Leaf indices [n, T] (reference pred_leaf output layout)."""
         X = np.ascontiguousarray(X, np.float64)
+        native = self._native_predict(X, 1, want_leaf=True)
+        if native is not None:
+            return native[1]
         n = X.shape[0]
         out = np.zeros((n, self.num_trees), np.int32)
         for s in range(0, n, chunk_rows):
@@ -183,6 +256,9 @@ class StackedForest:
         K = max(num_class, 1)
         iters = self.num_trees // K
         X = np.ascontiguousarray(X, np.float64)
+        native = self._native_predict(X, K, early_stop=early_stop)
+        if native is not None:
+            return native[0]
         out = np.zeros((K, n), np.float64)
         for s in range(0, n, chunk_rows):
             e = min(s + chunk_rows, n)
@@ -233,21 +309,55 @@ class DeviceForest:
     float64 host path exactly for f32-precision data (float64 inputs with
     sub-f32 precision may route differently at bin boundaries — use the
     host path when that matters).
+
+    ``precision`` is the device storage of the thresholds: "bf16" keeps
+    a ``torch.bfloat16`` plane, "int8" the int8 codes, one f32 scale a
+    tree and the f32 values of the nodes that were not quantized.  Both
+    need a forest already on that grid (``fleet.lowprec.quantize_forest``),
+    so the f32 round-down is the identity (checked here) and routing
+    matches that forest's host path exactly; the kernel reads the plane
+    widened back to f32 (``predict_kernels.full_threshold_f32``).
+    ``routing_only`` uploads no leaf values: ``predict_raw`` then
+    refuses, and ``predict_raw_padded`` gathers leaves on the host.
     """
 
-    def __init__(self, forest: StackedForest, device):
+    def __init__(self, forest: StackedForest, device,
+                 precision: str = "f32", routing_only: bool = False):
+        if precision not in ("f32", "bf16", "int8"):
+            raise ValueError(f"unknown DeviceForest precision {precision!r}")
         self.forest = forest
         self.device = torch.device(device)
+        self.precision = precision
+        self.routing_only = routing_only
         f = forest
         # round thresholds toward -inf in f32
         thr32 = f.threshold.astype(np.float32)
         over = thr32.astype(np.float64) > f.threshold
         thr32[over] = np.nextafter(thr32[over], -np.inf, dtype=np.float32)
+        if precision != "f32" and not np.array_equal(
+                thr32.astype(np.float64), f.threshold):
+            raise ValueError(
+                f"a {precision} DeviceForest needs thresholds on the "
+                f"{precision} grid (fleet.lowprec.quantize_forest)")
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        self.threshold = put(thr32)
+        if precision == "bf16":
+            self.threshold = put(thr32).to(torch.bfloat16)
+        elif precision == "int8":
+            if getattr(f, "threshold_q", None) is None:
+                raise ValueError(
+                    "an int8 DeviceForest needs a forest quantized by "
+                    "fleet.lowprec.quantize_forest (threshold_q missing)")
+            self.threshold = put(f.threshold_q.astype(np.int8))
+            self.threshold_scale = put(
+                f.threshold_scale.astype(np.float32)[:, None])    # [T, 1]
+            self.threshold_fix_mask = put(
+                np.asarray(f.threshold_skip, bool))
+            self.threshold_fix = put(thr32)
+        else:
+            self.threshold = put(thr32)
         self.device = self.threshold.device      # "cuda" -> "cuda:0"
         self.split_feature = put(_int32_plane(f.split_feature, "split_feature"))
         self.left = put(_int32_plane(f.left, "left"))
@@ -260,7 +370,8 @@ class DeviceForest:
         # u32 words travel as int32 bit patterns (torch's uint32 is thin)
         self.cat_words = put(np.ascontiguousarray(f.cat_words, np.uint32)
                              .view(np.int32))
-        self.leaf_value = put(f.leaf_value.astype(np.float32))
+        self.leaf_value = (None if routing_only
+                           else put(f.leaf_value.astype(np.float32)))
         # the kernel's packed node records; the planes above stay for the
         # plain version
         self.nodes, self.cat_records = _pk.pack_nodes(self)
@@ -287,7 +398,7 @@ class DeviceForest:
         it bit-exactly on a battery of synthetic leaf patterns — any
         divergence keeps the serving bit-parity contract on the host."""
         K = max(num_class, 1)
-        if self.forest.num_trees % K:
+        if self.leaf_value is None or self.forest.num_trees % K:
             return False
         ok = self._epilogue_ok.get(K)
         if ok is None:
@@ -335,6 +446,10 @@ class DeviceForest:
     def predict_raw(self, X: np.ndarray, num_class: int = 1) -> np.ndarray:
         """Summed raw scores [K, n] (float32, pinned order, in the kernel's
         scores mode)."""
+        if self.leaf_value is None:
+            raise ValueError(
+                "a routing-only DeviceForest has no device leaf values; use "
+                "predict_raw_padded (host leaf gather) instead")
         n = X.shape[0]
         K = max(num_class, 1)
         out = np.zeros((K, n), np.float64)

@@ -6,23 +6,29 @@ Quick start::
     server = booster.serve(max_batch_rows=512)
     fut = server.submit(X)                         # thread-safe, batched
     scores = fut.result()
-    print(server.metrics_json())
+    server.swap_model(new_booster)                 # hot-swap, no drops
+    print(server.prometheus_text())
     server.close()                                 # graceful drain
 
-Module map: ``server`` (facade: submit/deadlines/backpressure/drain),
-``batcher`` (micro-batch scheduler + bucket ladder), ``registry``
-(program cache + the active model), ``errors`` (typed rejections); the
-metrics registry is ``obs.metrics``.
+Module map: ``server`` (facade: submit/apredict/deadlines/backpressure/
+hot-swap/drain), ``batcher`` (micro-batch scheduler + bucket ladder),
+``registry`` (program LRU + the active model + swap probe/quarantine),
+``loadgen`` (concurrent load generator with bit-exact verification),
+``errors`` (typed rejections); the metrics registry is ``obs.metrics``
+and low-precision models come from ``fleet.lowprec``.
 """
 
 from ..obs.metrics import MetricsRegistry
 from .batcher import BucketLadder
-from .errors import DeadlineExceeded, QueueFull, ServerClosed, ServingError
-from .registry import CompiledModel, ModelRegistry, ProgramRegistry
+from .errors import (DeadlineExceeded, LowPrecisionQuarantined, QueueFull,
+                     ServerClosed, ServingError, SwapQuarantined)
+from .registry import (CompiledModel, ModelRegistry, ProgramRegistry,
+                       forest_digest)
 from .server import Server, ServingConfig
 
 __all__ = [
     "Server", "ServingConfig", "BucketLadder", "MetricsRegistry",
-    "ProgramRegistry", "ModelRegistry", "CompiledModel",
+    "ProgramRegistry", "ModelRegistry", "CompiledModel", "forest_digest",
     "ServingError", "QueueFull", "DeadlineExceeded", "ServerClosed",
+    "SwapQuarantined", "LowPrecisionQuarantined",
 ]

@@ -2,7 +2,9 @@
 
 All inherit LightGBMError so callers' except clauses still catch them,
 with distinct types for the three rejection reasons the
-backpressure/deadline/shutdown semantics need.
+backpressure/deadline/shutdown semantics need and for a hot-swap
+candidate held back by its probe.  ``ModelNotFound`` and ``DeviceLost``
+of the JAX package belong to its serving fleet (ROADMAP queue A6).
 """
 
 from ..utils.log import LightGBMError
@@ -26,3 +28,16 @@ class DeadlineExceeded(ServingError):
 
 class ServerClosed(ServingError):
     """Submit after close(), or pending work failed by close(drain=False)."""
+
+
+class SwapQuarantined(ServingError):
+    """A hot-swap candidate failed its probe batch before promotion (it
+    raised, or gave non-finite output) and was NOT promoted; serving goes
+    on with the previous model (``registry.ModelRegistry._probe``)."""
+
+
+class LowPrecisionQuarantined(SwapQuarantined):
+    """A bf16/int8 candidate's accuracy delta on the probe batch exceeded
+    its declared ``accuracy_budget`` and it was NOT promoted
+    (``registry.ModelRegistry._probe_lowprec``).  A subclass of
+    SwapQuarantined, so quarantine handlers catch it too."""

@@ -1,5 +1,6 @@
-"""In-process serving facade: sync submit, deadlines, backpressure,
-graceful drain (counterpart of ``lightgbm_tpu/serving/server.py``).
+"""In-process serving facade: sync and async submit, deadlines,
+backpressure, model hot-swap, graceful drain (counterpart of
+``lightgbm_tpu/serving/server.py``).
 
 ``Server`` is the one class users touch (``Booster.serve()`` /
 ``lightgbm_tpu_torch.serve()`` construct it).  A request is validated and
@@ -15,9 +16,10 @@ future resolves to are bit-identical to ``Booster.predict(raw_score=True,
 device=False)`` — ``StackedForest.predict_raw`` plus the average_output
 division — unconditionally on the "host" backend, and for
 float32-precision feature values on the "device" backend (see
-DeviceForest.predict_raw_padded).  Overload is surfaced as typed errors
-at submit (QueueFull) or completion (DeadlineExceeded), never as
-unbounded queueing latency.
+DeviceForest.predict_raw_padded).  A request is pinned to the model it
+was admitted against, so through a ``swap_model`` every answer is that
+model's.  Overload is surfaced as typed errors at submit (QueueFull) or
+completion (DeadlineExceeded), never as unbounded queueing latency.
 """
 
 from __future__ import annotations
@@ -47,19 +49,46 @@ class ServingConfig:
     max_queue_rows: int = 1 << 16     # backpressure: reject beyond this
     default_deadline_ms: Optional[float] = None   # None = no deadline
     backend: str = "device"           # "device" (the Booster's) | "host"
+    max_programs: int = 64            # program-LRU capacity
     raw_score: bool = True            # False: predict()-style transform
     num_iteration: Optional[int] = None
     start_iteration: int = 0
+    # opt-in low-precision serving: "bf16" / "int8" serve the quantized
+    # twin of the model, held to accuracy_budget on a probe batch
+    # (probe_X, else fixed noise) at admission and at every hot-swap;
+    # "f32" (default) keeps raw-score bit parity with
+    # Booster.predict(raw_score=True, device=False)
+    precision: str = "f32"
+    accuracy_budget: Optional[float] = None
+    probe_X: Optional[object] = None
+    # the JAX package's AOT program cache and batcher heartbeat; the
+    # port has neither yet (ROADMAP queue A6, A11)
+    aot_dir: Optional[str] = None
+    heartbeat_name: str = "serving.batcher"
 
     def __post_init__(self):
         if self.backend not in ("device", "host"):
             raise ValueError(f"unknown serving backend {self.backend!r}")
+        if self.precision not in ("f32", "bf16", "int8"):
+            raise ValueError(f"unknown serving precision "
+                             f"{self.precision!r}")
+        if self.aot_dir is not None and str(self.aot_dir).strip().lower() \
+                not in ("", "0", "off", "none"):
+            raise NotImplementedError(
+                "AOT serving programs (aot_dir) wait for ROADMAP queue A6")
+        if self.heartbeat_name != "serving.batcher":
+            raise NotImplementedError(
+                "the batcher's liveness heartbeat (heartbeat_name) waits "
+                "for ROADMAP queue A11")
 
 
 class _Request:
     """Submit-side accounting for one predict call: result buffer, item
     countdown, future, deadline, and the model the request was admitted
-    against."""
+    against: pinned at submit, so a hot-swap mid-flight can neither mix
+    model generations inside one multi-item request nor run rows
+    validated for F features through a model expecting F' (and the old
+    model's device forest lives until its last request completes)."""
 
     __slots__ = ("n", "out", "future", "submitter", "deadline", "model",
                  "t_submit", "_remaining", "_lock", "_settled")
@@ -79,7 +108,8 @@ class _Request:
 
     def is_settled(self) -> bool:
         """True once the future has an outcome — including caller-side
-        cancellation: the scheduler drops settled items at pop time
+        cancellation (``asyncio.wait_for`` on ``apredict`` cancels the
+        wrapped Future): the scheduler drops settled items at pop time
         instead of spending device work on results nobody will read."""
         with self._lock:
             if not self._settled and self.future.cancelled():
@@ -115,7 +145,7 @@ class _Request:
 
 
 class Server:
-    """Micro-batched, shape-bucketed forest inference."""
+    """Micro-batched, shape-bucketed, hot-swappable forest inference."""
 
     def __init__(self, booster, config: Optional[ServingConfig] = None,
                  **overrides):
@@ -127,11 +157,15 @@ class Server:
         self.metrics = MetricsRegistry()
         self.ladder = BucketLadder(config.min_bucket_rows,
                                    config.max_batch_rows)
-        self.programs = ProgramRegistry(self.metrics)
+        self.programs = ProgramRegistry(self.metrics,
+                                        max_programs=config.max_programs)
         self.models = ModelRegistry(
-            booster, self.metrics, backend=config.backend,
+            booster, self.programs, self.metrics, backend=config.backend,
             num_iteration=config.num_iteration,
-            start_iteration=config.start_iteration)
+            start_iteration=config.start_iteration,
+            precision=config.precision,
+            accuracy_budget=config.accuracy_budget,
+            probe_X=config.probe_X)
         self._batcher = MicroBatcher(
             self.ladder, self._run_batch, self.metrics,
             batch_window_ms=config.batch_window_ms,
@@ -142,7 +176,8 @@ class Server:
 
     def submit(self, X, deadline_ms: Optional[float] = None) -> Future:
         """Enqueue a predict request; returns a concurrent.futures.Future
-        resolving to raw scores [n] (num_class == 1) or [n, K].
+        resolving to raw scores [n] (num_class == 1) or [n, K], whose
+        ``model_digest`` names the model that answers it.
 
         Raises QueueFull / ServerClosed synchronously; resolves the
         future with DeadlineExceeded if the request's deadline (argument,
@@ -178,6 +213,8 @@ class Server:
         top = self.ladder.max_rows
         n_items = max((n + top - 1) // top, 1)
         req = _Request(n, K, n_items, deadline, model)
+        # which model will answer: a load generator verifies against it
+        req.future.model_digest = model.digest
         if n == 0:
             req.future.set_result(self._shape_result(req.out, K))
             return req.future
@@ -208,19 +245,40 @@ class Server:
             fut.cancel()
             raise
 
+    async def apredict(self, X, deadline_ms: Optional[float] = None):
+        """Asyncio-native submit: awaits the result without blocking the
+        event loop (the concurrent Future is bridged to an asyncio one;
+        bound the wait with ``asyncio.wait_for``)."""
+        import asyncio
+        loop = asyncio.get_running_loop()
+        return await asyncio.wrap_future(
+            self.submit(X, deadline_ms=deadline_ms), loop=loop)
+
     # ------------------------------------------------------------ execution
 
     def _run_batch(self, batch: Batch) -> None:
-        model = self.models.active
-        prog = self.programs.get(model, batch.bucket)
-        t0 = time.perf_counter()
-        raw = prog(batch.padded_input())       # [K, bucket] f64
-        self.metrics.histogram("batch_latency_ms").observe(
-            (time.perf_counter() - t0) * 1e3)
-        pos = 0
+        # items carry the model their request was pinned to at submit;
+        # outside a swap that is one group (one program run on the
+        # batch's own bucket), during one it is two, never a mix of
+        # generations inside one program run
+        groups: dict = {}
         for it in batch.items:
-            it.request.complete_item(self, it.offset, raw[:, pos:pos + it.n])
-            pos += it.n
+            groups.setdefault(id(it.request.model), []).append(it)
+        for items in groups.values():
+            model = items[0].request.model
+            sub = (batch if len(groups) == 1 else
+                   Batch(items, self.ladder.bucket_for(
+                       sum(it.n for it in items))))
+            prog = self.programs.get(model, sub.bucket)
+            t0 = time.perf_counter()
+            raw = prog(sub.padded_input())       # [K, bucket] f64
+            self.metrics.histogram("batch_latency_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
+            pos = 0
+            for it in items:
+                it.request.complete_item(self, it.offset,
+                                         raw[:, pos:pos + it.n])
+                pos += it.n
 
     @staticmethod
     def _shape_result(raw: np.ndarray, K: int) -> np.ndarray:
@@ -251,7 +309,43 @@ class Server:
         rows = {self.ladder.bucket_for(min(b, self.ladder.max_rows))
                 for b in (buckets if buckets is not None
                           else self.ladder.buckets)}
-        return self.programs.warm(model, rows)
+        return self.programs.warm(model,
+                                  {(b, model.num_class) for b in rows})
+
+    def export_aot(self, path: Optional[str] = None, buckets=None) -> int:
+        """The JAX package serializes its bucket programs here; on the
+        card that is one captured graph a bucket, ROADMAP queue A6."""
+        raise NotImplementedError(
+            "AOT serving programs (export_aot) wait for ROADMAP queue A6")
+
+    # ------------------------------------------------------------- hot swap
+
+    def swap_model(self, booster_or_path, warm: bool = True,
+                   block: bool = True, probe: bool = True):
+        """Replace the serving model without dropping in-flight requests.
+
+        ``booster_or_path``: a Booster or a model-file path (loaded on
+        the active model's device).  With ``warm=True`` (default) every
+        bucket shape served so far runs once for the new model before
+        the atomic pointer flip; ``block=False`` runs probe, warm and
+        flip in a background thread and returns it at once (join it, or
+        poll the ``model_generation`` gauge; a failure sets the thread's
+        ``exception`` and the ``swap_failures`` counter instead of
+        flipping).  With ``probe=True`` (default) the candidate first
+        runs a probe batch and is quarantined (``SwapQuarantined``, the
+        ``swap_quarantines`` counter) on a raise or non-finite output."""
+        booster = self._as_booster(booster_or_path)
+        return self.models.swap(
+            booster, warm=warm, block=block, probe=probe,
+            num_iteration=self.config.num_iteration,
+            start_iteration=self.config.start_iteration)
+
+    def _as_booster(self, booster_or_path):
+        from ..basic import Booster
+        if isinstance(booster_or_path, Booster):
+            return booster_or_path
+        return Booster(model_file=str(booster_or_path),
+                       device=self.models.active.booster.device)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -277,3 +371,9 @@ class Server:
 
     def metrics_json(self, path: Optional[str] = None) -> str:
         return self.metrics.dump_json(path)
+
+    def prometheus_text(self, prefix: str = "lgbt_serving") -> str:
+        """This server's instruments in the Prometheus text exposition
+        format (the JAX package's; its HTTP endpoint is ROADMAP queue
+        A11)."""
+        return self.metrics.to_prometheus(prefix=prefix)

@@ -41,7 +41,9 @@ def test_import_pulls_in_no_jax():
                 "binning", "dataset", "engine", "grower", "grower_rounds",
                 "boosting.gbdt", "ops.fused", "ops.histogram", "ops.ingest",
                 "ops.split", "tools.torch_ingest_compare", "compat",
-                "io_utils", "sklearn", "utils.file_io", "utils.shap"):
+                "io_utils", "sklearn", "utils.file_io", "utils.shap",
+                "fleet", "fleet.lowprec", "native", "native.build",
+                "serving.loadgen", "plotting"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
@@ -85,6 +87,11 @@ contrib = bst.predict(sps.csr_matrix(X), pred_contrib=True)
 raw = bst.predict(X, raw_score=True, device=False)
 from lightgbm_tpu_torch import sklearn as sk
 est = sk.LGBMRegressor(device="cpu", n_estimators=2).fit(X, y)
+try:
+    lt.plot_importance(bst)
+    plot = "ran"
+except ImportError:
+    plot = "ImportError"
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None
              and m.split(".")[0] in ("jax", "jaxlib", "lightgbm_tpu",
                                      "pandas", "sklearn", "matplotlib"))
@@ -94,7 +101,7 @@ print(json.dumps({
     "cv_keys": sorted(res), "stratified": strat,
     "refit_trees": refit.num_trees(),
     "contrib_ok": bool(np.allclose(contrib.sum(axis=1), raw, rtol=1e-9)),
-    "sk_pred": int(len(est.predict(X))), "bad": bad}))
+    "sk_pred": int(len(est.predict(X))), "plot": plot, "bad": bad}))
 """
 
 
@@ -103,7 +110,8 @@ def test_optional_packages_stay_optional():
     imports, bins CSR input, cross-validates without stratification
     (stratified folds raise ImportError, as the JAX package's do), refits,
     gives SHAP contributions and fits the stand-in estimators, on the
-    CPU; none of its modules pulls in JAX or the JAX package."""
+    CPU, and a plotting call raises ImportError; none of its modules
+    pulls in JAX or the JAX package."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _NO_OPTIONAL], cwd=REPO,
                          env=env, capture_output=True, text=True,
@@ -115,4 +123,5 @@ def test_optional_packages_stay_optional():
     assert res["stratified"] == "ImportError"
     assert res["refit_trees"] == 2 and res["contrib_ok"]
     assert res["sk_pred"] == 600
+    assert res["plot"] == "ImportError"
     assert res["bad"] == []
