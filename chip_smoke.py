@@ -84,6 +84,21 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   byte-identical to the plain-version run, sampled rounds counted and
   the kept rows' share printed; then 3 GOSS rounds of the one-hot table
   at lr 0.5 (staged arm, B6 roots, sampling from round 3);
+- ``serial_train`` (queue A4): the serial grower, one best-first split
+  at a time, on the training run's datasets: ``higgs_cegb_1m`` (10
+  rounds of CEGB: the split, coupled and lazy penalties; ``auto``
+  growth grows serially, every iteration splits, the valid logloss
+  falls, fewer distinct features and no more leaves than ``train``'s
+  model), ``higgs_forced_1m`` (10 rounds on a Dataset built with forced
+  bin bounds, a 7-split forced plan heading every tree; then 3 rounds
+  with ``tpu_forced_split_parity`` and 3 with a plan abandoned at its
+  second split), ``higgs_serial_1m`` (3 rounds each of the staged f32
+  arm, the quantized one and the fused one, each equal to the rounds
+  grower's trees; the staged arm's tree profiled, timed by section and
+  its synchronising calls counted) and 3 rounds of coupled CEGB on the
+  one-hot table (EFB, the staged arm on group histograms); each against
+  its plain-version run (3 rounds), the launches exact (B6 or B4 and B5
+  once a tree and once a split step) and the host reads a tree counted;
 - ``boost_variants``: ``dart`` (a tree must be dropped), ``rf``
   (averaged output), ``regression_l1`` and ``quantile`` (the percentile
   renewal on the card), 5 rounds each on ``mono_train``'s dataset, each
@@ -240,6 +255,27 @@ MULTI_QUANT_PARAMS = dict(MULTI_PARAMS, use_quantized_grad=True)
 GOSS_ROUNDS = 15
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss")
 GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
+# serial_train (queue A4): the serial grower on the training run's data.
+# higgs_cegb_1m takes LightGBM's cegb_* parameters (docs/Parameters.rst;
+# Peter et al., "Cost Efficient Gradient Boosting", NIPS 2017): a penalty
+# a row of each split, a coupled one a feature (paid once for the model)
+# and a lazy one a feature and row (paid once a row).  The train run's
+# model splits on the 8 features that carry signal and no other, so a
+# coupled penalty must price some of those out: the odd features cost
+# 1e5 (a weak feature's root gain at 1 M rows is a few thousand), the
+# even ones 1e2.  higgs_forced_1m a
+# 3-level forced plan (the features below, at training-sample medians)
+# and forced bin bounds (quartiles) on two of its features; each config
+# against its plain-version twin over SERIAL_PLAIN_ROUNDS
+SERIAL_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3
+CEGB_PARAMS = dict(
+    TRAIN_PARAMS, cegb_tradeoff=1.0, cegb_penalty_split=1e-4,
+    cegb_penalty_feature_coupled=[1e5 if f % 2 else 1e2
+                                  for f in range(28)],
+    cegb_penalty_feature_lazy=[1e-3] * 28)
+FORCED_FEATURES = (0, 4, 5, 1, 2, 6, 7)        # the plan's BFS order
+FORCED_BIN_FEATURES = (0, 4)
+SERIAL_PARAMS = dict(TRAIN_PARAMS, tpu_tree_growth="serial")
 VARIANT_ROUNDS = 5
 VARIANT_PARAMS = {
     "dart": dict(MONO_PARAMS, boosting="dart", drop_rate=0.5,
@@ -438,14 +474,16 @@ def tree_kernel_ms(step, fused_arm: bool) -> dict:
     wrapper).  ``busy_share`` is the device time over the call's wall
     time.  B5 is split by the modes its launches took (from
     ``fused.scan_modes``); on the fused arm B2 is the sum of its B4 and
-    B5 launches.  An error of ``step`` itself propagates."""
+    B5 launches.  ``device_events``: the device events the profiler
+    recorded (kernels and copies).  An error of ``step`` itself
+    propagates."""
     from lightgbm_tpu_torch import grower_rounds
     from lightgbm_tpu_torch.ops import fused
     before = dict(fused.scan_modes)
     # what reached B5 on group histograms, and what was expanded (counted
     # by the module, graph replays included)
     paths = dict(fused.path_counts)
-    ms, source, wall_ms = {}, "torch.profiler", 0.0
+    ms, source, wall_ms, kernels = {}, "torch.profiler", 0.0, None
     try:
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU,
@@ -463,8 +501,10 @@ def tree_kernel_ms(step, fused_arm: bool) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         finally:
             prof.__exit__(None, None, None)
+        kernels = 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernels += 1
                 label = _tree_kernel(e.name)
                 ms[label] = (ms.get(label, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
@@ -490,6 +530,7 @@ def tree_kernel_ms(step, fused_arm: bool) -> dict:
            **{k: ms.get(k, 0.0) for k, _ in TREE_KERNELS},
            "other device work": ms.get("other device work", 0.0),
            "wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_events": kernels if source == "torch.profiler" else None,
            "busy_share": busy / wall_ms if wall_ms > 0 else None}
     out["B5 by mode"] = {"+".join(sorted(modes)): out["B5"]}
     if fused_arm:
@@ -1151,10 +1192,14 @@ def restore_kernels(saved) -> None:
 
 def used_graph(bst) -> dict:
     """Fails unless ``bst``'s trees grew through the captured round graph
-    (every training run on the card does); returns the capture's
-    milliseconds and each tree's dead rounds (rounds run past its
-    end)."""
+    (every rounds-grower run on the card does); returns the capture's
+    milliseconds and each tree's dead rounds (rounds run past its end).
+    A serial grower has no graph: returns each tree's host reads (the
+    tree's scales and its per-split stop test) and split steps."""
     grower = bst.boosting.grower
+    if type(grower).__name__ == "SerialGrower":
+        return {"host_syncs_per_tree": list(grower.host_reads),
+                "split_steps_per_tree": list(grower.steps)}
     if grower.graph is None:
         raise AssertionError("the run did not grow its trees through the "
                              "captured round graph")
@@ -1168,10 +1213,11 @@ def host_reads(bst) -> dict:
     ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising calls
     it made (host reads, D2H copies), and the round loop's waits on its
     lagged stop flag (an event wait each, which that mode does not
-    see)."""
+    see); for a serial grower, its stop-test reads instead."""
     import warnings
     grower = bst.boosting.grower
-    waits = grower.flag_waits
+    serial = type(grower).__name__ == "SerialGrower"
+    waits = len(grower.host_reads) if serial else grower.flag_waits
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1180,9 +1226,14 @@ def host_reads(bst) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
-    return {"host_syncs_per_iteration": len(syncs),
-            "stop_flag_waits_per_iteration": grower.flag_waits - waits,
-            "trees_per_iteration": bst.num_tree_per_iteration}
+    out = {"host_syncs_per_iteration": len(syncs),
+           "trees_per_iteration": bst.num_tree_per_iteration}
+    if serial:
+        out["grower_host_reads_per_iteration"] = sum(
+            grower.host_reads[waits:])
+    else:
+        out["stop_flag_waits_per_iteration"] = grower.flag_waits - waits
+    return out
 
 
 def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
@@ -2953,6 +3004,318 @@ def phase_goss_train(lt, f32_run, data, efb_ds):
     return r["launches"]
 
 
+def head_trees(text: str, k: int) -> list:
+    """The first ``k`` tree blocks of a model text (a tree's block does
+    not depend on how many rounds followed it)."""
+    return [t.strip() for t in trees_of(text).split("\nTree=")[1:k + 1]]
+
+
+def serial_expected(grower, arm: str) -> dict:
+    """Each kernel's exact launches over a serial grower's trees: T
+    trees of S split steps in all.  Every tree's root is one histogram
+    and one search; every step one smaller-child histogram and one
+    search of both children: the staged arm's B6 and B5 (f32) or B4 int8
+    (with its sort) and B5 int8 (quantized), the fused arm's B4 root and
+    a B2 (B4, its sort and B5) a step."""
+    T, S = len(grower.steps), sum(grower.steps)
+    if arm == "staged":
+        return {"histogram_pallas": T + S, "fused_sibling_scan": T + S,
+                **{k: 0 for k in F32_ENTRIES + INT8_ENTRIES
+                   if k != "fused_sibling_scan"}}
+    if arm == "quant":
+        return {"fused_frontier_accumulate_int8": T + S,
+                "fused_slot_order_int8": T + S,
+                "fused_sibling_scan_int8": T + S, "histogram_pallas": 0,
+                "fused_frontier_splits_int8": 0,
+                **{k: 0 for k in F32_ENTRIES}}
+    return {"fused_frontier_accumulate": T + S, "fused_slot_order": T + S,
+            "fused_sibling_scan": T + S, "fused_frontier_splits": S,
+            "histogram_pallas": 0, **{k: 0 for k in INT8_ENTRIES}}
+
+
+def serial_run(lt, ds, vs, params, rounds, arm="staged",
+               falling="binary_logloss") -> tuple:
+    """``rounds`` rounds of ``params`` on constructed datasets through the
+    serial grower, timed (seconds a tree, the valid set ``vs``, if any,
+    evaluated every round), its launches held to ``serial_expected``;
+    then
+    ``SERIAL_PLAIN_ROUNDS`` rounds on the plain versions, whose trees
+    must be the same bytes and whose launch counts must read 0.  Returns
+    (booster, the run's row)."""
+    reset_training_counts()
+    evals = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, rounds,
+                   valid_sets=[vs] if vs is not None else [],
+                   valid_names=["valid"] if vs is not None else [],
+                   evals_result=evals, verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    grower = bst.boosting.grower
+    if type(grower).__name__ != "SerialGrower":
+        raise AssertionError(f"{params} did not grow serially")
+    if bst.num_trees() != rounds:
+        raise AssertionError(f"trained {bst.num_trees()} trees, not {rounds}")
+    expect_launches(launches, exact=serial_expected(grower, arm))
+    ll = evals["valid"].get(falling) if falling else None
+    if falling and not all(b < a for a, b in zip(ll, ll[1:])):
+        raise AssertionError(f"valid {falling} does not fall: {ll}")
+    text = bst.model_to_string()
+    syncs = used_graph(bst)
+    saved = plain_kernels()
+    reset_training_counts()
+    try:
+        t0 = time.perf_counter()
+        bst_p = lt.train(params, ds, SERIAL_PLAIN_ROUNDS, verbose_eval=False)
+        plain_s = time.perf_counter() - t0
+    finally:
+        restore_kernels(saved)
+    if any(kernel_launches().values()):
+        raise AssertionError(f"launch counts rose with no kernel launched: "
+                             f"{kernel_launches()}")
+    if (head_trees(bst_p.model_to_string(), SERIAL_PLAIN_ROUNDS)
+            != head_trees(text, SERIAL_PLAIN_ROUNDS)):
+        raise AssertionError("the trees differ from the plain-version run")
+    del bst_p
+    leaves = [m.num_leaves for m in bst.models]
+    return bst, {
+        "rounds": rounds, "leaves_per_tree": leaves,
+        "s_per_tree": train_s / rounds,
+        "plain_s_per_tree": plain_s / SERIAL_PLAIN_ROUNDS,
+        **syncs, "launches": launches,
+        "expected_launches": serial_expected(grower, arm),
+        **({"valid_" + falling: ll} if falling else {}),
+        "checked": f"first {SERIAL_PLAIN_ROUNDS} trees byte-identical to "
+                   "the plain run, launches exact"}
+
+
+def first_divergence(a: str, b: str) -> dict:
+    """Where two model texts' trees first differ: the tree and its
+    field line."""
+    for i, (ta, tb) in enumerate(zip(trees_of(a).split("\nTree="),
+                                     trees_of(b).split("\nTree="))):
+        if ta != tb:
+            for la, lb in zip(ta.splitlines(), tb.splitlines()):
+                if la != lb:
+                    return {"tree": i - 1, "field": la.split("=")[0],
+                            "serial": la[:200], "rounds": lb[:200]}
+    return {}
+
+
+def serial_tree_profile(lt, ds, params) -> dict:
+    """Where a serial tree's time goes, on a fresh booster after one
+    warm-up tree: one tree's device time by kernel and busy share
+    (``tree_kernel_ms``), one tree's sections (a ``SectionTimer``
+    synchronising the card at each), and one iteration's synchronising
+    calls (``host_reads``)."""
+    from lightgbm_tpu_torch.utils.timer import SectionTimer
+    bst = lt.Booster(params, train_set=ds)
+    bst.update()
+    out = {"tree_device_ms": tree_kernel_ms(bst.update, fused_arm=False)}
+    timer = SectionTimer(cuda=True)
+    bst.boosting.timer = timer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst.update()
+    wall = time.perf_counter() - t0
+    bst.boosting.timer = None
+    sections = dict(timer.seconds)
+    sections["other"] = wall - sum(sections.values())
+    out["breakdown_s_per_tree"] = sections
+    out.update(host_reads(bst))
+    return out
+
+
+def used_features(bst) -> set:
+    return {int(f) for m in bst.models
+            for f in m.split_feature[:m.num_leaves - 1]}
+
+
+def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
+    """The serial grower (queue A4) on the card; returns the phase's
+    launches summed over its kernel runs."""
+    import json as _json
+    t_phase = time.perf_counter()
+    X, y, Xv, yv = data
+    ds, vs = f32_run["ds"], f32_run["vs"]
+    total: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            if isinstance(v, int):
+                total[k] = total.get(k, 0) + v
+
+    # higgs_cegb_1m: tpu_tree_growth stays "auto"
+    # the checks' failures, raised after the phase's line is printed
+    failed = []
+    bst, cegb = serial_run(lt, ds, vs, CEGB_PARAMS, SERIAL_ROUNDS)
+    add(cegb["launches"])
+    if min(cegb["leaves_per_tree"]) < 2:
+        failed.append("a CEGB iteration did not split")
+    feats = used_features(bst)
+    if not len(feats) < train_stats["features"]:
+        failed.append(f"CEGB used {len(feats)} features, train "
+                      f"{train_stats['features']}")
+    if sum(cegb["leaves_per_tree"]) > train_stats["leaves"]:
+        failed.append("CEGB grew more leaves than train")
+    used, rows = bst.boosting.grower.cegb_state
+    cegb.update({"features_used": sorted(feats),
+                 "train_features_used": train_stats["features"],
+                 "total_leaves": sum(cegb["leaves_per_tree"]),
+                 "train_total_leaves": train_stats["leaves"],
+                 "paid_rows_per_feature": rows.sum(1).tolist(),
+                 "features_flagged_used": int(used.sum()),
+                 "params": {k: CEGB_PARAMS[k] for k in (
+                     "cegb_tradeoff", "cegb_penalty_split",
+                     "cegb_penalty_feature_coupled",
+                     "cegb_penalty_feature_lazy")}})
+    del bst
+
+    # higgs_forced_1m: forced bins (quartiles of two features) and a
+    # 3-level forced plan at the training sample's medians
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "serial_train")
+    os.makedirs(out_dir, exist_ok=True)
+    sample = X[:100_000]
+    med = {f: float(np.median(sample[:, f])) for f in FORCED_FEATURES}
+
+    def node(i):
+        n = {"feature": FORCED_FEATURES[i], "threshold":
+             med[FORCED_FEATURES[i]]}
+        if 2 * i + 1 < len(FORCED_FEATURES):
+            n["left"], n["right"] = node(2 * i + 1), node(2 * i + 2)
+        return n
+    # BFS numbering: node i's children are 2i + 1 and 2i + 2 of the BFS
+    # list when every level is full
+    plan = {"feature": FORCED_FEATURES[0], "threshold": med[0],
+            "left": node(1), "right": node(2)}
+    bins = [{"feature": f, "bin_upper_bound": [
+        float(np.quantile(sample[:, f], q)) for q in (0.25, 0.5, 0.75)]}
+        for f in FORCED_BIN_FEATURES]
+    fs_path = os.path.join(out_dir, "forced_splits.json")
+    fb_path = os.path.join(out_dir, "forced_bins.json")
+    with open(fs_path, "w") as fh:
+        _json.dump(plan, fh)
+    with open(fb_path, "w") as fh:
+        _json.dump(bins, fh)
+    fparams = dict(TRAIN_PARAMS, forcedsplits_filename=fs_path,
+                   forcedbins_filename=fb_path)
+    fds = lt.Dataset(X, label=y, params={"forcedbins_filename": fb_path})
+    fvs = fds.create_valid(Xv, label=yv)
+    fds.construct()
+    fvs.construct()
+    for spec in bins:
+        ub = fds.bin_mappers[spec["feature"]].bin_upper_bound
+        if not all(np.any(np.isclose(ub, b, rtol=0, atol=1e-12))
+                   for b in spec["bin_upper_bound"]):
+            failed.append(f"feature {spec['feature']}'s bin bounds miss "
+                          "the forced bounds")
+    plan_bins = []
+    for f in FORCED_FEATURES:
+        m = fds.bin_mappers[f]
+        plan_bins.append(min(max(int(m.value_to_bin(
+            np.array([med[f]]))[0]), 0), m.num_bin - 2))
+    bst, forced = serial_run(lt, fds, fvs, fparams, SERIAL_ROUNDS)
+    add(forced["launches"])
+    kids = [(1, 2), (3, 4), (5, 6)]
+    for t in bst.models:
+        if (t.split_feature[:7].tolist() != list(FORCED_FEATURES)
+                or t.threshold_in_bin[:7].tolist() != plan_bins
+                or [(int(t.left_child[i]), int(t.right_child[i]))
+                    for i in range(3)] != kids):
+            failed.append("a tree does not start with the forced plan")
+    forced.update({"plan_features": list(FORCED_FEATURES),
+                   "plan_threshold_bins": plan_bins,
+                   "forced_bins": bins})
+    del bst
+    # the reference's stats convention, and a plan abandoned at its
+    # second split (its left child splits the root's feature again above
+    # the root's threshold: an empty right side, gain 0)
+    # (its sums follow another rule than its partition, so the valid
+    # logloss need not fall)
+    _, parity = serial_run(lt, fds, fvs,
+                           dict(fparams, tpu_forced_split_parity=True),
+                           SERIAL_PLAIN_ROUNDS, falling=None)
+    add(parity["launches"])
+    bad = {"feature": 0, "threshold": med[0],
+           "left": {"feature": 0,
+                    "threshold": float(np.quantile(sample[:, 0], 0.75))}}
+    bad_path = os.path.join(out_dir, "forced_abandoned.json")
+    with open(bad_path, "w") as fh:
+        _json.dump(bad, fh)
+    bst, abandoned = serial_run(
+        lt, fds, fvs, dict(fparams, forcedsplits_filename=bad_path),
+        SERIAL_PLAIN_ROUNDS)
+    add(abandoned["launches"])
+    for t in bst.models:
+        if (int(t.split_feature[0]) != 0
+                or int(t.threshold_in_bin[0]) != plan_bins[0]
+                or (int(t.split_feature[1]) == 0
+                    and int(t.left_child[0]) == 1
+                    and t.threshold_in_bin[1] > plan_bins[0])
+                or t.num_leaves != TRAIN_PARAMS["num_leaves"]):
+            failed.append("the abandoned plan was not abandoned at its "
+                          "second split")
+    del bst, fds, fvs
+
+    # higgs_serial_1m: each arm against its plain twin and the rounds
+    # grower's trees
+    arms = {}
+    for arm, params in (
+            ("staged", SERIAL_PARAMS),
+            ("quant", dict(QUANT_PARAMS, tpu_tree_growth="serial")),
+            ("fused", dict(SERIAL_PARAMS, tpu_hist_method="fused"))):
+        bst, row = serial_run(lt, ds, vs, params, SERIAL_PLAIN_ROUNDS, arm)
+        add(row["launches"])
+        if bst.boosting.grower.fused_arm != (arm == "fused"):
+            failed.append(f"{arm}: the serial grower took the wrong arm")
+        rparams = dict(params, tpu_tree_growth="rounds")
+        rb = lt.train(rparams, ds, SERIAL_PLAIN_ROUNDS, verbose_eval=False)
+        a, b = bst.model_to_string(), rb.model_to_string()
+        row["equals_rounds_grower"] = trees_of(a) == trees_of(b)
+        if not row["equals_rounds_grower"]:
+            row["first_divergence"] = first_divergence(a, b)
+            ja, jb = (load_structures(t) for t in (a, b))
+            if ja != jb:
+                failed.append(f"{arm}: the serial and rounds structures "
+                              f"differ: {row['first_divergence']}")
+        if arm == "staged":
+            row.update(serial_tree_profile(lt, ds, params))
+        arms[arm] = row
+        del bst, rb
+
+    # airline_onehot_1m with coupled CEGB: EFB, the staged arm on group
+    # histograms
+    F1 = efb_ds.num_total_features
+    oparams = dict(TRAIN_PARAMS, cegb_penalty_feature_coupled=[
+        round(float(c), 3) for c in np.geomspace(1e2, 1e3, F1)])
+    _, onehot = serial_run(lt, efb_ds, None, oparams, SERIAL_PLAIN_ROUNDS,
+                           falling=None)
+    add(onehot["launches"])
+    row = {"phase": "serial_train", "higgs_cegb_1m": cegb,
+           "higgs_forced_1m": forced, "forced_parity": parity,
+           "forced_abandoned": abandoned, "higgs_serial_1m": arms,
+           "airline_onehot_1m_coupled_cegb": onehot,
+           "launches": total, "phase_s": time.perf_counter() - t_phase,
+           "failed": failed}
+    emit(row)
+    if failed:
+        raise AssertionError(f"serial_train: {failed}")
+    return total
+
+
+def load_structures(text: str) -> list:
+    """Each tree's split features, bin thresholds and children from a
+    model text (the structure without floats)."""
+    from lightgbm_tpu_torch.model_text import load_model_from_string
+    return [(m.split_feature.tolist(), m.threshold_in_bin.tolist()
+             if hasattr(m, "threshold_in_bin") else None,
+             m.left_child.tolist(), m.right_child.tolist())
+            for m in load_model_from_string(text)["models"]]
+
+
 def phase_boost_variants(lt, mono_ds):
     """``dart``, ``rf``, ``regression_l1`` and ``quantile`` (the last two
     renew their leaves on the card), 5 rounds each on the monotone run's
@@ -3309,6 +3672,9 @@ def main() -> int:
     train_launches, ds, bst = (train_run["launches"], train_run["ds"],
                                train_run["bst"])
     train_modes = train_run["row"]["b5_launches_by_mode"]
+    # what the serial grower's CEGB run is held to
+    train_stats = {"features": len(used_features(bst)),
+                   "leaves": sum(m.num_leaves for m in bst.models)}
     ing = phase_ingest(ds, train_data[0])
     hist = phase_hist(ds, bst)
     hist6_rand = phase_hist6(ds, bst, "higgs_rand_1m")
@@ -3324,6 +3690,8 @@ def main() -> int:
     quant_launches = phase_quant_train(lt, train_run, train_data, efb_ds)
     rand_launches, rand_modes = phase_rand_train(lt, train_run, train_data)
     phase_goss_train(lt, train_run, train_data, efb_ds)
+    serial_launches = phase_serial_train(lt, train_run, train_data, efb_ds,
+                                         train_stats)
     del train_run, train_data
     mono_launches, mono_modes, mono_ds = phase_mono_train(lt, pk, efb_ds)
     del efb_ds
@@ -3475,6 +3843,11 @@ def main() -> int:
     for row in table:
         if row["name"] in sparse_of:
             row["sparse_cv_launches"] = sparse_launches[sparse_of[row["name"]]]
+    # and on the serial_train path (every training entry, f32 and int8)
+    for row in table:
+        key = row["name"].replace("[int8]", "_int8")
+        if key in serial_launches:
+            row["serial_train_launches"] = serial_launches[key]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

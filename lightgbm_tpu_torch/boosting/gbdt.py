@@ -6,9 +6,11 @@ Bagging (:163), BoostFromAverage (:302), UpdateScore (:459).  One
 iteration: gradients of every class from the objective (torch, on the
 device; or from a custom ``fobj``) -> bagging mask -> K trees, one a
 class, by the batched-frontier grower (its fused arm, or its staged arm
-for a dataset with EFB bundles or a staged ``tpu_hist_method``) -> leaf
-renewal (the percentile objectives) -> shrinkage -> train and valid
-score updates -> the host trees.  Scores are [K, n] (K =
+for a dataset with EFB bundles or a staged ``tpu_hist_method``), or by
+the serial grower (``tpu_tree_growth="serial"``, and ``auto`` with CEGB
+or forced splits, which run only there) -> leaf renewal (the percentile
+objectives) -> shrinkage -> train and valid score updates -> the host
+trees.  Scores are [K, n] (K =
 ``num_tree_per_iteration``: the number of classes of ``multiclass`` and
 ``multiclassova``, else 1).  Bagging and column sampling draw from NumPy
 ``RandomState`` streams seeded as the JAX package seeds them (the [K,
@@ -36,8 +38,12 @@ MAPE) re-fit each leaf to the weighted percentile of the residuals
 shrinkage.  GOSS, DART and RF are subclasses (``goss.py``, ``dart.py``,
 ``rf.py``); ``boosting.create_boosting`` picks one.
 
-The configurations the port does not cover raise ``NotImplementedError``
-naming the ROADMAP item that brings them; none is trained another way.
+CEGB (cost-efficient gradient boosting: split, coupled and lazy
+penalties) keeps its cross-tree state in the serial grower; forced
+splits come from ``forcedsplits_filename`` as a BFS plan
+(``_build_forced_plan``).  The configurations the port does not cover
+(sharded training) raise ``NotImplementedError`` naming the ROADMAP item
+that brings them; none is trained another way.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import torch
 
 from ..config import Config
 from ..dataset import Dataset, same_bins
-from ..grower import GrowerConfig, predict_leaf_index_binned
+from ..grower import GrowerConfig, SerialGrower, predict_leaf_index_binned
 from ..grower_rounds import RoundGrower
 from ..objectives import ObjectiveFunction
 from ..ops.histogram import HIST_METHODS, quantize_gradients
@@ -77,7 +83,8 @@ def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError`` for every configuration outside the
     port so far (single-device gbdt, goss, dart and rf; every objective;
     f32 or quantized gradients; numeric, bundled and categorical
-    features)."""
+    features; the serial and the rounds grower, CEGB and forced
+    splits)."""
     c = config
 
     def no(what: str, item: str) -> None:
@@ -85,16 +92,9 @@ def check_supported(config: Config) -> None:
             f"{what} is not ported to lightgbm_tpu_torch yet; it waits for "
             f"ROADMAP queue A ({item})")
 
-    if (c.cegb_penalty_split > 0.0 or c.cegb_penalty_feature_lazy
-            or c.cegb_penalty_feature_coupled):
-        no("CEGB", "CEGB and forced splits")
-    if c.forcedsplits_filename:
-        no("forced splits", "CEGB and forced splits")
     tl = str(c.tree_learner).lower()
     if tl not in ("serial", "serial_tree_learner") or c.num_machines > 1:
         no(f"tree_learner={c.tree_learner}", "sharded training")
-    if c.tpu_tree_growth not in ("auto", "rounds", "fast"):
-        no(f"tpu_tree_growth={c.tpu_tree_growth}", "the serial grower")
     if c.tpu_hist_method not in HIST_METHODS:
         raise ValueError(f"unknown tpu_hist_method {c.tpu_hist_method!r}; "
                          f"expected one of {', '.join(HIST_METHODS)}")
@@ -192,17 +192,39 @@ class GBDT:
         self.num_init_iteration = 0
 
     def _configure(self) -> None:
-        """What the trees take from the config: the quantized arm,
-        per-node sampling, monotone constraints and the grower with its
-        round loop (``reset_config`` runs it again)."""
+        """What the trees take from the config: CEGB's penalties, the
+        forced plan, the quantized arm, per-node sampling, monotone
+        constraints and the grower, serial or rounds (``reset_config``
+        runs it again, which resets the cross-tree CEGB state as the JAX
+        package's rebuild does)."""
         config = self.config
-        # the JAX package's f32 fallback (boosting/gbdt.py:642-666), as it
-        # is there; check_supported has already refused CEGB
+        # CEGB (reference: CostEfficientGradientBoosting::IsEnable + Init,
+        # cost_effective_gradient_boosting.hpp:25-49; the JAX package's
+        # boosting/gbdt.py:595-641): per-original-feature penalty lists
+        # onto the used features
+        coupled = list(config.cegb_penalty_feature_coupled or [])
+        lazy = list(config.cegb_penalty_feature_lazy or [])
+        cegb_on = bool(config.cegb_penalty_split > 0.0 or coupled or lazy)
+        ntf = self.train_set.num_total_features
+        uf = np.asarray(self.train_set.used_features, np.int64)
+        pens = {}
+        if cegb_on:
+            for name, lst in (("cegb_penalty_feature_coupled", coupled),
+                              ("cegb_penalty_feature_lazy", lazy)):
+                if lst and len(lst) != ntf:
+                    raise ValueError(
+                        f"{name} should be the same size as feature number "
+                        f"({len(lst)} vs {ntf})")
+                pens[name] = (np.asarray(lst, np.float32)[uf] if lst
+                              else None)
+        # the JAX package's f32 fallback (boosting/gbdt.py:642-666)
         quant_on = bool(config.use_quantized_grad)
         if quant_on:
             blockers = []
             if not type(self)._quant_ok:
                 blockers.append(f"boosting={self.boosting_type}")
+            if cegb_on:
+                blockers.append("CEGB")
             if config.monotone_constraints:
                 blockers.append("monotone_constraints")
             if config.extra_trees:
@@ -217,6 +239,18 @@ class GBDT:
                         + "; falling back to f32 histograms for this "
                         "booster (training proceeds unquantized)")
         self._quant_on = quant_on
+        forced_plan = self._build_forced_plan()
+        # the growth (the JAX package's boosting/gbdt.py:960-986, its
+        # accelerator rule: the port treats the CPU as the card's twin)
+        growth = config.tpu_tree_growth
+        rounds_ok = not cegb_on and forced_plan is None
+        if growth in ("rounds", "fast") and not rounds_ok:
+            raise ValueError(
+                f"tpu_tree_growth={growth} does not support CEGB, voting, "
+                "feature-parallel or forced splits; use serial or auto")
+        if growth not in ("auto", "serial", "rounds", "fast"):
+            raise ValueError(f"unknown tpu_tree_growth {growth!r}")
+        serial = growth == "serial" or not rounds_ok
         # the last iteration's (g_scale, h_scale) of each class, 0-dim f32
         # tensors
         self._quant_scales = None
@@ -247,11 +281,79 @@ class GBDT:
             quant_bins=config.num_grad_quant_bins,
             quant_renew=config.quant_train_renew_leaf,
             bynode_feature_cnt=bynode_cnt,
-            rounds_relaxed=config.tpu_tree_growth == "fast")
-        # the round loop of every tree: its buffers and, on the card, its
-        # CUDA graph
-        self.grower = RoundGrower(self.binned_t, self.meta, self.grower_cfg,
-                                  self.meta_t, self._monotone)
+            rounds_relaxed=growth == "fast",
+            cegb_tradeoff=config.cegb_tradeoff,
+            cegb_penalty_split=config.cegb_penalty_split,
+            cegb_coupled=bool(coupled), cegb_lazy=bool(lazy),
+            n_forced=0 if forced_plan is None else len(forced_plan[0]),
+            forced_exact_parity=config.tpu_forced_split_parity)
+        if serial:
+            # one split at a time; it carries the CEGB state across trees
+            self.grower = SerialGrower(
+                self.binned_t, self.meta, self.grower_cfg, self.meta_t,
+                self._monotone, pens.get("cegb_penalty_feature_coupled"),
+                pens.get("cegb_penalty_feature_lazy"), forced_plan)
+        else:
+            # the round loop of every tree: its buffers and, on the card,
+            # its CUDA graph
+            self.grower = RoundGrower(self.binned_t, self.meta,
+                                      self.grower_cfg, self.meta_t,
+                                      self._monotone)
+
+    def _build_forced_plan(self):
+        """``forcedsplits_filename`` as plan arrays (leaf, used feature,
+        threshold bin), each [n_forced] int32, or None (reference: the
+        ForceSplits BFS, serial_tree_learner.cpp:411-521; the JAX
+        package's boosting/gbdt.py:280-335).  The leaves are known in
+        advance: the splits apply in BFS order, the left child keeps the
+        parent's leaf and the right child of the i-th split is leaf i +
+        1.  A numerical threshold bin is clamped to [0, num_bin - 2]; a
+        split on a feature binning dropped ends the plan there, with a
+        warning."""
+        fname = self.config.forcedsplits_filename
+        if not fname:
+            return None
+        import json
+        from collections import deque
+
+        from ..binning import BinType
+        from ..utils.file_io import open_file
+        with open_file(fname) as f:
+            root = json.load(f)
+        inner = {orig: j for j, orig in
+                 enumerate(self.train_set.used_features)}
+        mappers = self.train_set.bin_mappers
+        leaves, feats, thrs = [], [], []
+        q = deque()
+        if isinstance(root, dict) and "feature" in root \
+                and "threshold" in root:
+            q.append((root, 0))
+        while q and len(leaves) < self.config.num_leaves - 1:
+            node, leaf = q.popleft()
+            forig = int(node["feature"])
+            if forig not in inner:
+                log_warning(
+                    f"forced split on unused/trivial feature {forig}; "
+                    "the rest of the forced-splits plan is dropped")
+                break
+            m = mappers[forig]
+            tb = int(m.value_to_bin(
+                np.array([float(node["threshold"])]))[0])
+            if m.bin_type == BinType.NUMERICAL:
+                tb = min(max(tb, 0), max(m.num_bin - 2, 0))
+            leaves.append(leaf)
+            feats.append(inner[forig])
+            thrs.append(tb)
+            right_leaf = len(leaves)      # i + 1 for the i-th split
+            for side, child_leaf in (("left", leaf), ("right", right_leaf)):
+                ch = node.get(side)
+                if isinstance(ch, dict) and "feature" in ch \
+                        and "threshold" in ch:
+                    q.append((ch, child_leaf))
+        if not leaves:
+            return None
+        return (np.asarray(leaves, np.int32), np.asarray(feats, np.int32),
+                np.asarray(thrs, np.int32))
 
     def _section(self, name: str):
         if self.timer is None:

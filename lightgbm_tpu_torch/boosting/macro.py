@@ -15,7 +15,12 @@ is on the card or drawn on the host before the chunk:
   host in the exact per-iteration order (``chunk_host_inputs``);
 - GOSS masks come from the in-chunk gradients and those subkeys;
 - RF's running mean rides on the iteration index (``score * it`` before
-  the tree, ``(score + init) / (it + 1)`` after).
+  the tree, ``(score + init) / (it + 1)`` after);
+- the serial grower's cross-tree CEGB state (``SerialGrower.
+  cegb_state``) carries from iteration to iteration in order, as the
+  JAX chunk's ``fori_loop`` carries it, and an iteration after a stop
+  leaves it as it was (``alive``), so a chunk that stops mid-way leaves
+  the state of per-iteration training.
 
 The c x K device trees are kept; the host builds the trees once, at the
 chunk's end, from one transfer a field (``GBDT._finish_chunk``), and
@@ -117,11 +122,17 @@ def run_chunk(b, c: int, lrs: Optional[Sequence[float]] = None) -> bool:
     # False once an earlier iteration of the chunk grew no split
     alive = torch.ones((), dtype=torch.bool, device=b.device)
     stacked = []
+    state = getattr(b.grower, "cegb_state", None)
     for j in range(c):
         with b._section("objective"):
             g, h = b._chunk_gradients(score)
             mask = b._chunk_mask(g, h, xs.masks[j], xs.goss[j])
+        before = ([t.clone() for t in state if t is not None]
+                  if state is not None and j else None)
         trees, score = b._chunk_step(score, g, h, mask, xs, j, alive)
+        if before is not None:
+            for t, old in zip((t for t in state if t is not None), before):
+                t.copy_(torch.where(alive, t, old))
         stacked.append(trees)
         alive = alive & torch.stack([t.num_leaves > 1 for t in trees]).any()
     b.train_score = score

@@ -350,10 +350,7 @@ class Dataset:
         if mbbf and len(mbbf) != self.num_total_features:
             raise LightGBMError("Length of max_bin_by_feature is not same "
                                 "with feature number")
-        if p.get("forcedbins_filename"):
-            raise NotImplementedError(
-                "forcedbins_filename waits for ROADMAP queue A (forced "
-                "bins)")
+        forced_bounds = _load_forced_bins(p)
         min_data_in_bin = int(p.get("min_data_in_bin", 3))
         min_data_in_leaf = int(p.get("min_data_in_leaf", 20))
         use_missing = bool(p.get("use_missing", True))
@@ -375,7 +372,7 @@ class Dataset:
                        pre_filter=pre_filter, bin_type=btype,
                        use_missing=use_missing,
                        zero_as_missing=zero_as_missing,
-                       forced_upper_bounds=())
+                       forced_upper_bounds=forced_bounds.get(f, ()))
             self.bin_mappers.append(m)
         self.used_features = [f for f, m in enumerate(self.bin_mappers)
                               if not m.is_trivial]
@@ -897,6 +894,21 @@ def _is_binary_cache(path: str) -> bool:
             return fh.read(len(_BINARY_MAGIC)) == _BINARY_MAGIC
     except OSError:
         return False
+
+
+def _load_forced_bins(params: dict) -> Dict[int, List[float]]:
+    """``forcedbins_filename``: a JSON list of ``{"feature": f,
+    "bin_upper_bound": [...]}``, as each feature's forced upper bounds
+    (reference: the DatasetLoader constructor, dataset_loader.cpp; the
+    JAX package's dataset.py:1469)."""
+    fn = params.get("forcedbins_filename", "")
+    if not fn:
+        return {}
+    from .utils.file_io import open_file
+    with open_file(fn) as fh:
+        spec = json.load(fh)
+    return {int(e["feature"]): [float(x) for x in e["bin_upper_bound"]]
+            for e in spec}
 
 
 @dataclass(frozen=True)

@@ -97,21 +97,19 @@ HBM3, 700.00 W).
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Optional
 
 import torch
 
-from .grower import (GrowerConfig, TreeArrays, _LeafBest, feature_bin,
-                     row_goes_left)
+from .grower import (GrowerConfig, _GrowerCommon, _LeafBest, _NullTimer,
+                     _pad_scatter, child_bounds, feature_bin, row_goes_left)
+# the per-node draws and the group layout live beside the serial grower;
+# callers of this module still find them here
+from .grower import group_layout, node_draws  # noqa: F401
 from .ops import fused
-from .ops.histogram import (_vals_t, _vals_t_int, fixed_point_scales,
-                            histogram_fixed)
-from .ops.split import (QuantScales, SplitResult, _best_categorical,
-                        best_split_for_leaf, clip, fixed_to_f32, leaf_output,
-                        quant_count_hist)
-from .utils import threefry
+from .ops.histogram import histogram_fixed
+from .ops.split import _best_categorical, leaf_output, quant_count_hist
 
 # the host reads the flag "this tree is done" STOP_LAG rounds after the
 # round that wrote it, so rounds stay queued on the card; a tree runs up
@@ -122,61 +120,7 @@ STOP_LAG = 2
 # that swaps them in sets it)
 USE_GRAPHS = True
 
-# TreeArrays' fields indexed by node ([L - 1]) and by leaf ([L])
-_NODE_FIELDS = ("split_feature", "threshold_bin", "default_left",
-                "is_categorical", "cat_bitset", "left_child", "right_child",
-                "split_gain", "internal_value", "internal_weight",
-                "internal_count")
-_LEAF_FIELDS = ("leaf_value", "leaf_weight", "leaf_count", "leaf_parent",
-                "leaf_depth")
-
-
-def group_layout(meta_t: dict, num_bins: int) -> fused.GroupLayout:
-    """Where the dataset's group histograms keep each feature, for B5's
-    grouped leaf mode and ``ops.fused.expand_groups``."""
-    return fused.GroupLayout(meta_t["feat_group"], meta_t["feat_start"],
-                             int(num_bins))
-
-
-def node_draws(rng_key, parents: torch.Tensor, sides: torch.Tensor,
-               num_features: int, bynode_cnt: int, extra_trees: bool):
-    """Per-node randomness of the searched nodes (reference:
-    grower_rounds.py one_leaf_best): the node keys
-    ``fold_in(fold_in(rng_key, parent + 1), side)``, then the bynode
-    mask [N, F] f32 (the ``bynode_cnt`` smallest of ``uniform(fold_in(key,
-    0), (F,))``, ties kept) and the extra-trees uniforms [N, F, 2]
-    (``uniform(fold_in(key, 1), (F, 2))``); None for a mode that is
-    off."""
-    F = int(num_features)
-    keys = threefry.fold_in(threefry.fold_in(
-        threefry.key_tensor(rng_key, parents.device),
-        parents.to(torch.int64) + 1), sides.to(torch.int64))
-    mask = eru = None
-    if bynode_cnt > 0:
-        u = threefry.uniform(threefry.fold_in(keys, 0), (F,))
-        kth = torch.kthvalue(u, min(int(bynode_cnt), F), dim=-1).values
-        mask = (u <= kth[:, None]).to(torch.float32)
-    if extra_trees:
-        eru = threefry.uniform(threefry.fold_in(keys, 1), (F, 2))
-    return mask, eru
-
-
-def _pad_scatter(buf: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
-                 sel: torch.Tensor) -> None:
-    """``buf[idx] = val`` in place on the lanes where ``sel``; the other
-    lanes write ``buf``'s last row, a spare that nothing reads
-    (reference: grower_rounds.py _pad_scatter)."""
-    spare = torch.full_like(idx, buf.shape[0] - 1)
-    buf[torch.where(sel, idx, spare)] = val.to(buf.dtype)
-
-
-class _NullTimer:
-    @staticmethod
-    def section(_name):
-        return contextlib.nullcontext()
-
-
-class RoundGrower:
+class RoundGrower(_GrowerCommon):
     """Grows the trees of one booster (or one ``grow_tree_rounds`` call).
 
     Built once: the hoisted constants (the arm, ``KCAP``, the meta
@@ -194,85 +138,22 @@ class RoundGrower:
     def __init__(self, binned_t: torch.Tensor, meta, cfg: GrowerConfig,
                  meta_t: Optional[dict] = None,
                  monotone_constraints: Optional[torch.Tensor] = None):
-        meta = self.meta = meta.resolved()
-        dev = self.device = binned_t.device
-        self.binned_t = binned_t
-        self.cfg = cfg
-        G, n = binned_t.shape
-        L = self.L = cfg.num_leaves
-        self.Lm1 = max(L - 1, 1)
-        B = self.B = cfg.num_bins
-        hp = cfg.hp
-        F = self.F = len(meta.num_bin)
-        self.use_mc = monotone_constraints is not None
-        self.use_rng = hp.extra_trees or cfg.bynode_feature_cnt > 0
+        super().__init__(binned_t, meta, cfg, meta_t, monotone_constraints)
+        meta, dev, L = self.meta, self.device, self.L
         # the JAX trainer's arm election (boosting/gbdt.py:690-707,
         # grower_rounds.py:168) for the configurations the port trains
         self.fused_arm = (cfg.hist_method in ("auto", "fused")
                           and not meta.has_bundles and not self.use_rng)
-        self.Bg = meta.max_group_bin if meta.has_bundles else B
         K = self.KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
-        mt = self.mt = (meta_t if meta_t is not None
-                        else meta.tensors(dev))
-        self.num_bin, self.missing_type, self.default_bin = (
-            mt["num_bin"], mt["missing_type"], mt["default_bin"])
-        self.is_cat = torch.as_tensor(meta.is_categorical, device=dev)
-        cat = [f for f in range(F) if meta.is_categorical[f]]
-        # the categorical columns, found once (the search takes them)
-        self.cat_cols = torch.tensor(cat, dtype=torch.int64, device=dev)
-        self.cat_idx = self.cat_cols if cat else None
-        self.groups = group_layout(mt, B) if meta.has_bundles else None
-        # B5's warp tasks, planned once from the host meta
-        self.scan_plan = fused.scan_tasks(meta.num_bin, B, dev)
-        self.mc = (monotone_constraints.to(device=dev, dtype=torch.int32)
-                   if self.use_mc else None)
-        self.iota_L = torch.arange(L, device=dev)
+        self.cat_idx = self.cat_cols if len(self.cat_cols) else None
         self.iota_K = torch.arange(K, device=dev)
-        self.neg_inf = torch.tensor(-float("inf"), dtype=torch.float32,
-                                    device=dev)
         self.graphs = dev.type == "cuda"
         self.graph = None
         self._graph_counts = None
         self.capture_ms = None
         self.round_counts: list = []
         self.flag_waits = 0       # host waits on a round's stop flag
-
-        # static inputs, written by each tree
-        C = 2 if cfg.quant else 3
-        self.vals = torch.zeros((C, n), device=dev, dtype=(
-            torch.int8 if cfg.quant else torch.float32))
-        self.member = torch.zeros(n, dtype=torch.bool, device=dev)
-        self.exps = torch.zeros(3, dtype=torch.int32, device=dev)
-        self.qscales = torch.ones(2, dtype=torch.float64, device=dev)
-        self.fmask = torch.ones(F, dtype=torch.float32, device=dev)
-        self.draw_mask = self.draw_eru = None
-        if self.use_rng:
-            # every (parent, side) a tree can search: parent -1 (the
-            # root) .. L - 2, row (parent + 1) * 2 + side
-            self.draw_parents = torch.arange(
-                -1, L - 1, device=dev).repeat_interleave(2)
-            self.draw_sides = torch.arange(2, device=dev).repeat(L)
-            if cfg.bynode_feature_cnt > 0:
-                self.draw_mask = torch.zeros((2 * L, F), device=dev)
-            if hp.extra_trees:
-                self.draw_eru = torch.zeros((2 * L, F, 2), device=dev)
-
-        # the carry: node arrays [L - 1 + 1], leaf arrays [L + 1]
-        leaves = TreeArrays.empty(L + 1, dev)
-        self.tree = TreeArrays.empty(self.Lm1 + 2, dev)._replace(
-            **{f: getattr(leaves, f) for f in _LEAF_FIELDS})
         self.best = _LeafBest.empty(L + 1, dev)
-        self.hist = torch.zeros((L + 1, C, G, self.Bg), device=dev,
-                                dtype=torch.int32 if cfg.quant
-                                else torch.int64)
-        z = torch.zeros(L + 1, dtype=torch.float32, device=dev)
-        self.leaf_sg, self.leaf_sh, self.leaf_cnt = z, z.clone(), z.clone()
-        self.leaf_min, self.leaf_max = z.clone(), z.clone()
-        self.leaf_parent_side = torch.zeros(L + 1, dtype=torch.int32,
-                                            device=dev)
-        self.leaf_id = torch.zeros(n, dtype=torch.int64, device=dev)
-        self.num_leaves = torch.ones((), dtype=torch.int64, device=dev)
-        self.split_idx = torch.zeros((), dtype=torch.int64, device=dev)
         self.nround = torch.zeros((), dtype=torch.int64, device=dev)
         self.round_log = torch.zeros((self.Lm1 + 1, 2), dtype=torch.int32,
                                      device=dev)
@@ -285,57 +166,22 @@ class RoundGrower:
         self.events = ([torch.cuda.Event() for _ in range(self.Lm1 + 1)]
                        if pin else None)
 
+    def _whole_histogram(self, vals: torch.Tensor) -> torch.Tensor:
+        # this module's name, so a caller can route it
+        return histogram_fixed(self.binned_t, vals, self.Bg,
+                               self.host_scales)
+
     # ------------------------------------------------------------ helpers
-
-    def _scales(self):
-        return (QuantScales(self.qscales[0], self.qscales[1])
-                if self.cfg.quant else self.exps)
-
-    def _search(self, section, ghist, sums, bounds=None, parents=None,
-                sides=None) -> SplitResult:
-        """Best splits of children given their group histograms
-        [NC, C, G, Bg] and totals [3, NC] f32 (the staged arm's search,
-        and both arms' root; B5 reads the groups themselves); ``bounds``
-        ([NC], [NC]) their output bounds (monotone constraints),
-        ``parents``/``sides`` [NC] their node ids (per-node
-        randomness)."""
-        fm, eru = self.fmask, None
-        if self.use_rng:
-            with section("draws"):
-                row = ((parents + 1) * 2 + sides).clamp(0, 2 * self.L - 1)
-                if self.draw_mask is not None:
-                    fm = fm[None, :] * self.draw_mask[row]
-                if self.draw_eru is not None:
-                    eru = self.draw_eru[row]
-        with section("kernels"):
-            return best_split_for_leaf(
-                ghist, self._scales(), sums[0], sums[1], sums[2],
-                self.num_bin, self.missing_type, self.default_bin,
-                self.is_cat, self.cfg.hp, fm, self.mc, bounds, eru,
-                self.groups, self.scan_plan, cat_idx=self.cat_cols)
 
     def _child_bounds(self, ids: torch.Tensor):
         """The bounds the two children of each leaf ``ids``' cached split
-        inherit (reference: grower_rounds.py child_bounds): the parent's,
-        narrowed at the midpoint of the clamped child outputs on a
-        numeric split of a constrained feature."""
-        b, hp = self.best, self.cfg.hp
-        p_min, p_max = self.leaf_min[ids], self.leaf_max[ids]
-        l_out = clip(leaf_output(b.left_sum_grad[ids], b.left_sum_hess[ids],
-                                 hp.lambda_l1, hp.lambda_l2,
-                                 hp.max_delta_step), p_min, p_max)
-        r_out = clip(leaf_output(b.right_sum_grad[ids],
-                                 b.right_sum_hess[ids], hp.lambda_l1,
-                                 hp.lambda_l2, hp.max_delta_step),
-                     p_min, p_max)
-        mid = (l_out + r_out) * 0.5
-        mc_f = self.mc[b.feature[ids].clamp(0, self.F - 1)]
-        upd = ~b.is_categorical[ids] & (mc_f != 0)
-        lo, hi = torch.maximum(p_min, mid), torch.minimum(p_max, mid)
-        return (torch.where(upd & (mc_f < 0), lo, p_min),
-                torch.where(upd & (mc_f > 0), hi, p_max),
-                torch.where(upd & (mc_f > 0), lo, p_min),
-                torch.where(upd & (mc_f < 0), hi, p_max))
+        inherit (reference: grower_rounds.py child_bounds)."""
+        b = self.best
+        return child_bounds(self.cfg.hp, self.mc, b.left_sum_grad[ids],
+                            b.left_sum_hess[ids], b.right_sum_grad[ids],
+                            b.right_sum_hess[ids], self.leaf_min[ids],
+                            self.leaf_max[ids], b.feature[ids],
+                            b.is_categorical[ids])
 
     def _set_done(self) -> None:
         """``done`` = not the reference's loop condition, ``split_idx <
@@ -529,61 +375,11 @@ class RoundGrower:
              rounds: Optional[list] = None):
         """Grow one tree (see ``grow_tree_rounds``); returns (TreeArrays,
         leaf_id [n] int64), both the caller's own tensors."""
-        cfg, hp = self.cfg, self.cfg.hp
-        L, dev = self.L, self.device
         section = (timer or _NullTimer).section
         use_graph = self.graphs and USE_GRAPHS and timer is None
-        if self.use_rng and rng_key is None:
-            rng_key = threefry.prng_key(0)
-        with section("kernels"):
-            member = row_mask > 0
-            self.member.copy_(member)
-            slot0 = torch.where(member, 0, 1).to(torch.int32)
-            if cfg.quant:
-                if quant_vals is None:
-                    raise ValueError("cfg.quant needs quant_vals=(gq, hq, "
-                                     "g_scale, h_scale)")
-                gq, hq, g_scale, h_scale = quant_vals
-                self.vals.copy_(_vals_t_int(gq, hq, member))
-                self.qscales.copy_(torch.stack([
-                    torch.as_tensor(g_scale), torch.as_tensor(h_scale)]))
-                # B4 in int8 mode, slot 0 for every member row, on both
-                # arms
-                root = fused.accumulate(self.binned_t, self.vals, slot0, 1,
-                                        self.Bg)[0]
-                qsum = self.vals.to(torch.int64).sum(1).to(torch.float32)
-                root_sums = torch.stack([qsum[0] * g_scale,
-                                         qsum[1] * h_scale,
-                                         member.sum().to(torch.float32)])
-            else:
-                self.vals.copy_(_vals_t(grad, hess, row_mask))
-                # the tree's one host read before its rounds
-                scales = fixed_point_scales(self.vals)
-                self.exps.copy_(torch.tensor(scales, dtype=torch.int32))
-                if self.fused_arm:
-                    # the accumulate kernel, slot 0 for every member row
-                    root = fused.accumulate(self.binned_t, self.vals, slot0,
-                                            1, self.B, self.exps)[0]
-                else:
-                    root = histogram_fixed(self.binned_t, self.vals,
-                                           self.Bg, scales)
-                # group 0's bins partition the member rows: exact totals
-                root_sums = fixed_to_f32(root[:, 0, :].sum(-1), self.exps,
-                                         0)
-            if feature_mask is None:
-                self.fmask.fill_(1.0)
-            else:
-                self.fmask.copy_(feature_mask)
-        if self.use_rng:
-            with section("draws"):
-                mask, eru = node_draws(rng_key, self.draw_parents,
-                                       self.draw_sides, self.F,
-                                       cfg.bynode_feature_cnt,
-                                       hp.extra_trees)
-                if mask is not None:
-                    self.draw_mask.copy_(mask)
-                if eru is not None:
-                    self.draw_eru.copy_(eru)
+        root, root_sums = self._tree_inputs(section, grad, hess, row_mask,
+                                            feature_mask, quant_vals,
+                                            rng_key)
         self._init_carry(section, root, root_sums)
         replays = self._run_rounds(section, use_graph)
         self.round_counts.append((replays, self.nround.clone()))
@@ -593,30 +389,11 @@ class RoundGrower:
         return self._finish(grad, hess, row_mask)
 
     def _init_carry(self, section, root, root_sums) -> None:
-        L, dev = self.L, self.device
-        for f in _NODE_FIELDS + _LEAF_FIELDS:
-            getattr(self.tree, f).zero_()
-        self.tree.leaf_parent.fill_(-1)
-        for f in self.best:
-            f.zero_()
-        self.best.gain.fill_(-float("inf"))
-        self.hist.zero_()
-        self.hist[0] = root
-        for t in (self.leaf_sg, self.leaf_sh, self.leaf_cnt,
-                  self.leaf_parent_side, self.leaf_id, self.split_idx,
-                  self.nround, self.round_log):
-            t.zero_()
-        self.leaf_min.fill_(-float("inf"))
-        self.leaf_max.fill_(float("inf"))
-        self.num_leaves.fill_(1)
-        self.leaf_sg[0], self.leaf_sh[0], self.leaf_cnt[0] = (
-            root_sums[0], root_sums[1], root_sums[2])
-        root_ids = torch.tensor([-1], dtype=torch.int64, device=dev)
-        r0 = self._search(section, root[None], root_sums[:, None],
-                          (self.leaf_min[:1], self.leaf_max[:1])
-                          if self.use_mc else None,
-                          root_ids, torch.zeros_like(root_ids))
-        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._reset_carry(root, root_sums)
+        self.nround.zero_()
+        self.round_log.zero_()
+        r0 = self._root_search(section, root, root_sums)
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
         for name in _LeafBest._fields:
             getattr(self.best, name)[zero] = getattr(r0, name).to(
                 getattr(self.best, name).dtype)
@@ -670,34 +447,6 @@ class RoundGrower:
         self._graph_counts = fused.launch_count_delta(before)
         fused.restore_launch_counts(before)
         self.graph = graph
-
-    def _finish(self, grad, hess, row_mask):
-        cfg, hp = self.cfg, self.cfg.hp
-        L, Lm1 = self.L, self.Lm1
-        leaf_sg, leaf_sh = self.leaf_sg[:L], self.leaf_sh[:L]
-        leaf_id = self.leaf_id.clone()
-        if cfg.quant and cfg.quant_renew:
-            # leaf outputs from the true gradient sums of each leaf's rows
-            from .ops.renew import quant_train_renew_leaf
-            leaf_sg, leaf_sh = quant_train_renew_leaf(leaf_id, grad, hess,
-                                                      row_mask, L)
-        lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
-                         hp.max_delta_step)
-        if self.use_mc:
-            lv = clip(lv, self.leaf_min[:L], self.leaf_max[:L])  # the clamp
-        active = self.iota_L < self.num_leaves
-        zero = torch.zeros_like(lv)
-        t = self.tree
-        tree = TreeArrays(
-            **{f: getattr(t, f)[:Lm1].clone() for f in _NODE_FIELDS},
-            leaf_value=torch.where(active, lv, zero),
-            leaf_weight=torch.where(active, leaf_sh, zero),
-            leaf_count=torch.where(active, self.leaf_cnt[:L], zero),
-            leaf_parent=t.leaf_parent[:L].clone(),
-            leaf_depth=t.leaf_depth[:L].clone(),
-            num_leaves=self.num_leaves.clone())
-        return tree, leaf_id
-
 
 def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, row_mask: torch.Tensor, meta,

@@ -11,6 +11,7 @@ card by chip_smoke.py.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -186,12 +187,24 @@ def test_binner_refuses_bad_input():
         binner(torch.zeros((4, X.shape[1] + 1), dtype=torch.float32))
 
 
-def test_dataset_refuses_input_it_does_not_bin():
-    """Forced bin bounds are the one Dataset input still refused (text
-    files, sparse and pandas input bin: tests/test_torch_dataset_formats.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.Dataset(_matrix(), device="cpu",
-                   params={"forcedbins_filename": "bins.json"}).construct()
+def test_dataset_refuses_input_it_does_not_bin(tmp_path):
+    """A forced-bins file that does not exist is refused as the JAX
+    package refuses it; one that exists bins as the JAX package bins
+    (forced bins on every input route: tests/test_torch_cegb_forced.py;
+    text files, sparse and pandas input:
+    tests/test_torch_dataset_formats.py)."""
+    X = _matrix()
+    missing = {"forcedbins_filename": str(tmp_path / "bins.json")}
+    for mod, kw in ((lt, {"device": "cpu"}), (lgb, {})):
+        with pytest.raises(FileNotFoundError):
+            mod.Dataset(X, params=dict(missing), **kw).construct()
+    with open(missing["forcedbins_filename"], "w") as fh:
+        fh.write('[{"feature": 1, "bin_upper_bound": [-0.5, 0.25, 1.5]}]')
+    j, t = _pair(X, dict(missing, max_bin=15))
+    # as JSON, where NaN bounds compare equal
+    assert json.dumps([m.to_dict() for m in j.bin_mappers]) == \
+        json.dumps([m.to_dict() for m in t.bin_mappers])
+    assert np.asarray(j.binned).tobytes() == t.host_binned().tobytes()
 
 
 # ----------------------------------------------------------------------

@@ -412,16 +412,17 @@ def test_zero_monotone_constraints_fall_back_to_f32():
 @pytest.mark.parametrize("params,blocker", [
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, "monotone_constraints"),
     ({"extra_trees": True}, "extra_trees"),
-], ids=["monotone", "extra_trees"])
+    ({"cegb_penalty_split": 1e-3, "tpu_tree_growth": "auto"}, "CEGB"),
+], ids=["monotone", "extra_trees", "cegb"])
 def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
-    """Quantization with monotone constraints or extra trees trains f32
-    histograms, with the JAX package's warning, once; the trees are the
-    f32 run's."""
+    """Quantization with monotone constraints, extra trees or CEGB (on
+    the serial grower) trains f32 histograms, with the JAX package's
+    warning, once; the trees are the f32 run's."""
     from lightgbm_tpu_torch.boosting import gbdt as tgbdt
     warnings = []
     monkeypatch.setattr(tgbdt, "log_warning", warnings.append)
     X, y = _data(5, 1000, "binary")
-    p = dict(BASE, **BINARY, tpu_hist_method="fused", **params)
+    p = {**BASE, **BINARY, "tpu_hist_method": "fused", **params}
     bt = lt.train(dict(p), lt.Dataset(X, label=y, device="cpu"), 2)
     assert not bt.boosting._quant_on and not bt.boosting.grower_cfg.quant
     assert len(warnings) == 1 and blocker in warnings[0]
@@ -435,7 +436,6 @@ def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"cegb_penalty_split": 0.5}, "CEGB and forced splits"),
     ({"tree_learner": "data"}, "sharded training"),
 ])
 def test_unported_combinations_raise(params, match):

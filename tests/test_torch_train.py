@@ -15,11 +15,16 @@ histogram arm (``tpu_tree_growth="rounds"``, ``tpu_hist_method="fused"``).
   (measured: 2).  The hessian |r| (1 - |r|) cancels where |r| nears 1,
   so it is held to an absolute 4 * 2**-23 (measured: at most 13 ulps
   and 9.7e-8).
-- Configurations outside the port (CEGB, forced splits, sharded
-  training, the serial grower) raise ``NotImplementedError``; those it
-  once refused (monotone constraints, extra trees, bynode sampling)
-  train the JAX package's trees, and multiclass, the other objectives,
-  GOSS, DART and RF are held in the ``test_torch_*`` files of their own.
+- Sharded training, outside the port, raises ``NotImplementedError``;
+  what it once refused follows the JAX package: CEGB and forced splits
+  with this file's ``tpu_tree_growth="rounds"`` raise the JAX package's
+  ``ValueError`` (a missing forced-splits file its ``OSError``), and
+  ``tpu_tree_growth="serial"`` trains its trees (tests/
+  test_torch_cegb_forced.py and tests/test_torch_serial_grower.py hold
+  the serial grower); monotone constraints, extra trees and bynode
+  sampling train the JAX package's trees, and multiclass, the other
+  objectives, GOSS, DART and RF are held in the ``test_torch_*`` files
+  of their own.
 
 One-hot data that EFB bundles trains on the staged arm to the same
 bars in tests/test_torch_train_onehot.py; the configurations the port
@@ -270,11 +275,8 @@ def test_binary_gradients_within_two_ulps():
 
 
 @pytest.mark.parametrize("params,match", [
-    ({"cegb_penalty_split": 0.5}, "CEGB and forced splits"),
-    ({"forcedsplits_filename": "splits.json"}, "CEGB and forced splits"),
     ({"tree_learner": "data"}, "sharded training"),
     ({"tree_learner": "voting"}, "sharded training"),
-    ({"tpu_tree_growth": "serial"}, "serial grower"),
     ({"num_machines": 2}, "sharded training"),
 ])
 def test_out_of_slice_configurations_raise(params, match):
@@ -283,6 +285,49 @@ def test_out_of_slice_configurations_raise(params, match):
         lt.train({**BASE, "objective": "binary", **params},
                  lt.Dataset(X, label=y, device="cpu"), 1,
                  verbose_eval=False)
+
+
+@pytest.mark.parametrize("params,raises", [
+    ({"cegb_penalty_split": 0.5}, ValueError),
+    ({"forcedsplits_filename": "splits.json"}, OSError),
+    ({"tpu_tree_growth": "serial"}, None),
+])
+def test_once_refused_configurations_follow_the_jax_package(params, raises):
+    """CEGB and forced splits on this file's rounds growth raise what the
+    JAX package raises (the forced-splits file here does not exist).
+    The serial growth trains the rounds growth's model text, byte for
+    byte, and so the JAX package's rounds trees; the JAX package's own
+    serial grower breaks an exact tie of this data differently (ROADMAP
+    queue C, C-20: tests/test_torch_serial_grower.py)."""
+    X, y = _data(5, 300, "binary")
+    p = {**BASE, "objective": "binary", **params}
+    if raises is not None:
+        msgs = []
+        for mod, kw in ((lt, {"device": "cpu"}), (lgb, {})):
+            with pytest.raises(raises) as err:
+                mod.train(dict(p), mod.Dataset(X, label=y, **kw), 1,
+                          verbose_eval=False)
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1]
+        return
+    texts = {}
+    for growth in ("serial", "rounds"):
+        bt = lt.train(dict(p, tpu_tree_growth=growth),
+                      lt.Dataset(X, label=y, device="cpu"), 2,
+                      verbose_eval=False)
+        texts[growth] = bt.model_to_string().partition("end of trees")[0]
+    assert type(bt.boosting.grower).__name__ == "RoundGrower"
+    assert texts["serial"] == texts["rounds"]
+    bj = lgb.train(dict(p, tpu_tree_growth="rounds"), lgb.Dataset(X, label=y),
+                   2, verbose_eval=False)
+    jm = load_model_from_string(bj.model_to_string())["models"]
+    tm = load_model_from_string(texts["serial"] + "end of trees\n")["models"]
+    assert len(jm) == len(tm) == 2
+    for j, t in zip(jm, tm):
+        for f in TREE_EXACT:
+            assert np.array_equal(getattr(j, f), getattr(t, f)), f
+        np.testing.assert_allclose(t.leaf_value, j.leaf_value, rtol=1e-4,
+                                   atol=1e-6)
 
 
 def test_staged_method_on_unbundled_data_matches_the_fused_arm(trained):
