@@ -99,6 +99,17 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   one-hot table (EFB, the staged arm on group histograms); each against
   its plain-version run (3 rounds), the launches exact (B6 or B4 and B5
   once a tree and once a split step) and the host reads a tree counted;
+- ``sharded_train`` (queue A9): two ranks as two spawned processes on
+  the one card, in an explicit gloo group over a FileStore (NCCL refuses
+  two ranks on one GPU): each bins its half of the training run's rows
+  through B3 with bin mappers both agree on, then trains the 1,000,000
+  x 28 data for 3 rounds data-parallel (the serial text, byte for
+  byte), quantized data-parallel (its plain-version run's text),
+  feature-parallel and voting at full top-k (the serial grower's text),
+  and voting at top_k 4 (its plain-version run's text; whether the vote
+  left the serial tree is printed as ``equals_serial``), each rank's
+  launches and collectives held to ``shard_expected``; a
+  rank that fails fails the script;
 - ``boost_variants``: ``dart`` (a tree must be dropped), ``rf``
   (averaged output), ``regression_l1`` and ``quantile`` (the percentile
   renewal on the card), 5 rounds each on ``mono_train``'s dataset, each
@@ -3306,6 +3317,304 @@ def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
     return total
 
 
+# sharded_train (queue A9): two ranks, two processes on the one card,
+# over an explicit gloo group (NCCL refuses two ranks on one GPU), each
+# training higgs_train_1m's data (1,000,000 x 28, 255 leaves) for
+# SHARD_ROUNDS rounds in five modes, each held to its twin:
+# data-parallel on the rounds grower (the serial text), quantized
+# data-parallel (its plain-version run's text: the rank folds into the
+# rounding key), feature-parallel and voting at full top-k on the serial
+# grower (the serial grower's text), and voting at top_k 4 of 28 (its
+# plain-version run's text: the vote, not the serial search, picks)
+SHARD_WORLD, SHARD_ROUNDS, SHARD_TIMEOUT_S = 2, 3, 600
+SHARD_MODES = (
+    ("data", dict(TRAIN_PARAMS, tree_learner="data"), "rounds"),
+    ("data_quant", dict(QUANT_PARAMS, tree_learner="data"), "plain"),
+    ("feature", dict(SERIAL_PARAMS, tree_learner="feature"), "serial"),
+    ("voting", dict(SERIAL_PARAMS, tree_learner="voting", top_k=28),
+     "serial"),
+    ("voting_top4", dict(SERIAL_PARAMS, tree_learner="voting", top_k=4),
+     "plain"),
+)
+
+
+def shard_expected(mode: str, grower) -> dict:
+    """A rank's exact launches and collectives over T trees: R frontier
+    rounds run (data modes, the rounds grower) or S split steps (the
+    serial grower).  data: B4 and B5 once a tree's root and once a round
+    (the seam: no B2 pair), an all-reduce for the fixed-point peaks, one
+    for the root and one a round; quantized: int8 kernels only, and the
+    scale peaks and root totals summed instead of the fixed-point peaks;
+    feature: B6 and B5 at the root and each step, one all-reduce a step
+    (the owner's row sides) and one all-gather a search (the per-feature
+    candidates); voting: B6 at the root and each step, B5 twice at the
+    root (the local search, the elected one) and three times a step (one
+    local search, one elected search a child), the peaks, root totals
+    and each child's elected histograms summed, two all-gathers a vote;
+    every data and voting tree all-gathers its rows' leaf ids once, and
+    every booster all-gathers once as it is built (the ranks' training
+    sets agree, ``GBDT._check_same_data``)."""
+    if mode in ("data", "data_quant"):
+        T = len(grower.round_counts)
+        R = sum(r for r, _ in grower.round_counts)
+        q = "_int8" if mode == "data_quant" else ""
+        other = "" if q else "_int8"
+        return {"fused_frontier_accumulate" + q: T + R,
+                "fused_slot_order" + q: T + R,
+                "fused_sibling_scan" + q: T + R,
+                "fused_frontier_splits" + q: 0, "histogram_pallas": 0,
+                **{k + other: 0 for k in F32_ENTRIES},
+                "all_reduce": (3 if q else 2) * T + R,
+                "all_gather": T + 1}
+    T, S = len(grower.steps), sum(grower.steps)
+    out = {"histogram_pallas": T + S, "fused_frontier_accumulate": 0,
+           "fused_frontier_splits": 0,
+           **{k: 0 for k in INT8_ENTRIES}}
+    if mode == "feature":
+        out.update(fused_sibling_scan=T + S, all_reduce=S,
+                   all_gather=T + S + 1)
+    else:
+        out.update(fused_sibling_scan=2 * T + 3 * S,
+                   all_reduce=3 * T + 2 * S, all_gather=3 * T + 2 * S + 1)
+    return out
+
+
+def sharded_worker(rank, tmp, device, rows, rounds, leaves, counted):
+    """One rank of ``phase_sharded_train`` (a spawned process): the gloo
+    group over a FileStore in ``tmp``, this rank's rows binned through
+    B3 with mappers every rank agrees on (``construct_distributed``,
+    checked against B3's plain version), then the five modes on the
+    whole dataset, each run's model text, seconds, launches and
+    collectives written to ``tmp``.  ``counted``: hold the launches to
+    ``shard_expected`` (False where the kernels' plain versions run)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.parallel import collectives
+    from lightgbm_tpu_torch.parallel.dist_data import construct_distributed
+    from lightgbm_tpu_torch.parallel.learners import contiguous_layout
+    from lightgbm_tpu_torch.parallel.network import use_group
+    from lightgbm_tpu_torch.testing import higgs_like
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    group = dist.ProcessGroupGloo(
+        dist.FileStore(os.path.join(tmp, "store"), SHARD_WORLD), rank,
+        SHARD_WORLD, datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        collectives.psum_tiered(torch.zeros(1, dtype=torch.int64), group)
+
+    X, y = higgs_like(rows, seed=11)
+    mine = contiguous_layout(rows, SHARD_WORLD).rows(rank)
+    reset_training_counts()
+    local = construct_distributed(X[mine], label=y[mine], group=group,
+                                  device=device)
+    b3 = kernel_launches()["ingest"]
+    plain = local._binner_for().plain(
+        torch.from_numpy(np.ascontiguousarray(X[mine])).to(device))
+    digest = hashlib.sha256(json.dumps(
+        [m.to_dict() for m in local.bin_mappers],
+        sort_keys=True).encode()).hexdigest().encode()
+    out = {"rank": rank, "backend": group.name(), "rows": len(mine),
+           "b3_launches": b3,
+           "b3_max_abs_err": max_abs_err(local.binned_t.int(), plain.int()),
+           "mappers_agree": len(set(collectives.all_gather_bytes(
+               digest, group))) == 1, "modes": {}}
+    del local, plain
+    with use_group(group):
+        ds = lt.Dataset(X, label=y, device=device).construct()
+        for name, params, twin in SHARD_MODES:
+            params = dict(params, num_leaves=leaves)
+            sync()
+            reset_training_counts()
+            collectives.reset_op_counts()
+            t0 = time.perf_counter()
+            bst = lt.train(params, ds, rounds, verbose_eval=False)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            grower = bst.boosting.grower
+            rec = {"s_per_tree": seconds / rounds,
+                   "launches": kernel_launches(),
+                   "collectives": dict(collectives.op_counts),
+                   "leaves_per_tree": [m.num_leaves for m in bst.models],
+                   "expected": shard_expected(name, grower),
+                   "hist_sums_per_tree": hist_sums_per_tree(name, grower),
+                   "num_bins": grower.B,
+                   "b5_modes": dict(fused.scan_modes)}
+            if counted:
+                got = dict(rec["launches"], **rec["collectives"])
+                bad = {k: (got[k], v) for k, v in rec["expected"].items()
+                       if got[k] != v}
+                if bad:
+                    raise AssertionError(f"rank {rank} {name}: (counted, "
+                                         f"expected) {bad}")
+            with open(os.path.join(tmp, f"{name}_{rank}.txt"), "w") as f:
+                f.write(bst.model_to_string())
+            if twin == "plain":
+                sync()
+                saved = plain_kernels()
+                reset_training_counts()
+                try:
+                    bst_p = lt.train(params, ds, rounds, verbose_eval=False)
+                finally:
+                    restore_kernels(saved)
+                if any(kernel_launches().values()):
+                    raise AssertionError("launch counts rose with no "
+                                         f"kernel launched: "
+                                         f"{kernel_launches()}")
+                with open(os.path.join(tmp, f"{name}_plain_{rank}.txt"),
+                          "w") as f:
+                    f.write(bst_p.model_to_string())
+            out["modes"][name] = rec
+    with open(os.path.join(tmp, f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_sharded_train(lt, f32_run, smi, device="cuda", rows=None,
+                        leaves=255, counted=True) -> dict:
+    """Sharded training (queue A9) on the card: the serial twins in this
+    process, then ``SHARD_WORLD`` spawned ranks (``sharded_worker``);
+    fails if a rank fails or any text differs from its twin.  Returns
+    rank 0's launches summed over the five modes."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as torch_mp
+    t_phase = time.perf_counter()
+    rows = rows or TRAIN_ROWS
+    ds = f32_run["ds"]
+    refs, serial_s = {}, {}
+    for ref, params in (("rounds", TRAIN_PARAMS), ("serial", SERIAL_PARAMS)):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(dict(params, num_leaves=leaves), ds, SHARD_ROUNDS,
+                       verbose_eval=False)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        serial_s[ref] = (time.perf_counter() - t0) / SHARD_ROUNDS
+        refs[ref] = trees_of(bst.model_to_string())
+        del bst
+    emit({"phase": "sharded_train", "backend": "gloo",
+          "why": "NCCL refuses two ranks on one GPU; the one card's two "
+                 "ranks meet in an explicit gloo group (FileStore), which "
+                 "stages the card's tensors through the host"})
+    tmp = tempfile.mkdtemp(prefix="lgbt-shard-")
+    try:
+        ctx = torch_mp.start_processes(
+            sharded_worker, args=(tmp, device, rows, SHARD_ROUNDS, leaves,
+                                  counted),
+            nprocs=SHARD_WORLD, join=False, start_method="spawn")
+        deadline = time.perf_counter() + SHARD_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise TimeoutError(f"the ranks ran past {SHARD_TIMEOUT_S} s")
+        ranks = []
+        for r in range(SHARD_WORLD):
+            with open(os.path.join(tmp, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+        texts = {}
+        for name, _, ref in SHARD_MODES:
+            for r in range(SHARD_WORLD):
+                with open(os.path.join(tmp, f"{name}_{r}.txt")) as f:
+                    texts[(name, r)] = trees_of(f.read())
+                if ref == "plain":
+                    with open(os.path.join(tmp,
+                                           f"{name}_plain_{r}.txt")) as f:
+                        texts[(name + "_plain", r)] = trees_of(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rk in ranks:
+        if rk["backend"] != "gloo" or not rk["mappers_agree"] \
+                or rk["b3_max_abs_err"] != 0.0:
+            raise AssertionError(f"rank {rk['rank']}: {rk['backend']}, "
+                                 f"mappers agree {rk['mappers_agree']}, B3 "
+                                 f"vs plain {rk['b3_max_abs_err']}")
+        if counted and rk["b3_launches"] <= 0:
+            raise AssertionError(f"rank {rk['rank']} never launched B3")
+    modes = {}
+    for name, params, ref in SHARD_MODES:
+        want = (texts[(name + "_plain", 0)] if ref == "plain"
+                else refs[ref])
+        for r in range(SHARD_WORLD):
+            if texts[(name, r)] != want:
+                raise AssertionError(f"{name} on rank {r}: the trees differ "
+                                     f"from the {ref} twin")
+        recs = [rk["modes"][name] for rk in ranks]
+        hist_bytes = histogram_payload(params, recs[0]["num_bins"])
+        modes[name] = {
+            "s_per_tree": [rec["s_per_tree"] for rec in recs],
+            "serial_s_per_tree": serial_s[
+                "serial" if params.get("tpu_tree_growth") == "serial"
+                else "rounds"],
+            "leaves_per_tree": recs[0]["leaves_per_tree"],
+            "launches_rank0": {k: v for k, v in recs[0]["launches"].items()
+                               if v},
+            "expected_rank0": recs[0]["expected"],
+            "collectives_rank0": recs[0]["collectives"],
+            "all_reduces_per_tree":
+                recs[0]["collectives"]["all_reduce"] / SHARD_ROUNDS,
+            "all_reduce_bytes_per_tree":
+                recs[0]["collectives"]["all_reduce_bytes"] / SHARD_ROUNDS,
+            "hist_payload_bytes": hist_bytes,
+            "hist_payload_bytes_per_tree":
+                hist_bytes * recs[0]["hist_sums_per_tree"],
+            "twin": ref,
+            "equals_serial": texts[(name, 0)] == refs["serial"]}
+    summed = {}
+    for name in modes:
+        for k, v in ranks[0]["modes"][name]["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    summed["ingest"] = summed.get("ingest", 0) + ranks[0]["b3_launches"]
+    emit({"phase": "sharded_train", "world": SHARD_WORLD,
+          "rows": rows, "rounds": SHARD_ROUNDS, "num_leaves": leaves,
+          "rank_rows": [rk["rows"] for rk in ranks],
+          "b3_max_abs_err": [rk["b3_max_abs_err"] for rk in ranks],
+          "modes": modes, "nvidia_smi": smi,
+          "phase_s": time.perf_counter() - t_phase,
+          "checked": "data text = serial (rounds) text; data_quant text = "
+                     "its plain-version run's; feature and voting (top_k = "
+                     "28) text = the serial grower's; voting_top4 text = "
+                     "its plain-version run's; both ranks equal; "
+                     "launches and collectives exact per rank"})
+    return summed
+
+
+def hist_sums_per_tree(mode: str, grower) -> float:
+    """[F, B] histograms a tree sums over the group: data, the root and
+    ``KCAP`` slots a round run; voting, the root and both children of
+    each step (of the top_k elected features); feature, none."""
+    if mode in ("data", "data_quant"):
+        T = len(grower.round_counts)
+        R = sum(r for r, _ in grower.round_counts)
+        return (T + R * grower.KCAP) / T
+    if mode.startswith("voting"):
+        return (len(grower.steps) + 2 * sum(grower.steps)) / len(
+            grower.steps)
+    return 0.0
+
+
+def histogram_payload(params, B: int) -> int:
+    """The bytes one [F, B] histogram sum moves in ``params``' mode
+    (``ops.histogram.hist_payload_bytes``; F = 28, or the ``top_k``
+    elected features of a vote; B the dataset's bin axis)."""
+    from lightgbm_tpu_torch.ops.histogram import hist_payload_bytes
+    F = (min(params["top_k"], 28) if params.get("tree_learner") == "voting"
+         else 28)
+    return hist_payload_bytes(F, B,
+                              quant=bool(params.get("use_quantized_grad")))
+
+
 def load_structures(text: str) -> list:
     """Each tree's split features, bin thresholds and children from a
     model text (the structure without floats)."""
@@ -3692,6 +4001,7 @@ def main() -> int:
     phase_goss_train(lt, train_run, train_data, efb_ds)
     serial_launches = phase_serial_train(lt, train_run, train_data, efb_ds,
                                          train_stats)
+    sharded_launches = phase_sharded_train(lt, train_run, smi)
     del train_run, train_data
     mono_launches, mono_modes, mono_ds = phase_mono_train(lt, pk, efb_ds)
     del efb_ds
@@ -3843,11 +4153,14 @@ def main() -> int:
     for row in table:
         if row["name"] in sparse_of:
             row["sparse_cv_launches"] = sparse_launches[sparse_of[row["name"]]]
-    # and on the serial_train path (every training entry, f32 and int8)
+    # and on the serial_train and sharded_train paths (every training
+    # entry, f32 and int8; sharded_train's: rank 0's)
     for row in table:
         key = row["name"].replace("[int8]", "_int8")
         if key in serial_launches:
             row["serial_train_launches"] = serial_launches[key]
+        if key in sharded_launches:
+            row["sharded_train_launches"] = sharded_launches[key]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -41,8 +41,23 @@ shrinkage.  GOSS, DART and RF are subclasses (``goss.py``, ``dart.py``,
 CEGB (cost-efficient gradient boosting: split, coupled and lazy
 penalties) keeps its cross-tree state in the serial grower; forced
 splits come from ``forcedsplits_filename`` as a BFS plan
-(``_build_forced_plan``).  The configurations the port does not cover
-(sharded training) raise ``NotImplementedError`` naming the ROADMAP item
+(``_build_forced_plan``).
+
+Sharded training (``tree_learner`` data, feature or voting, under the
+process group of ``parallel.network.current_group``; with one rank
+every learner trains serially, as the JAX package does on one device;
+the JAX package's ``_setup_distribution``, boosting/gbdt.py:336-430):
+the scores, the objective, bagging and GOSS masks, metrics and valid
+sets stay global on every rank, as the JAX package's one controller
+sees them; the tree is the part that is sharded.  Data and voting: the
+grower gets this rank's rows (``parallel.learners.contiguous_layout``,
+or whole queries for ranking, ``query_layout``), their gradients and
+mask sliced from the global ones, and the trees' leaf ids of every
+rank's rows are gathered after each tree; the quantization key folds in
+the rank (the JAX package's boosting/gbdt.py:1025-1036).  Feature: the
+grower gets every row and this rank's EFB groups
+(``parallel.learners.feature_layout``).  The configurations the port
+does not cover raise ``NotImplementedError`` naming the ROADMAP item
 that brings them; none is trained another way.
 """
 
@@ -62,6 +77,9 @@ from ..objectives import ObjectiveFunction
 from ..ops.histogram import HIST_METHODS, quantize_gradients
 from ..ops.renew import leaf_percentile
 from ..ops.split import MAX_CAT_WORDS, f32
+from ..parallel import learners
+from ..parallel.collectives import (all_gather_tiered, axis_index_flat,
+                                    axis_size)
 from ..tree import HostTree, tree_to_host
 from ..utils import threefry
 from ..utils.log import log_info, log_warning
@@ -81,23 +99,31 @@ def _route(arrays: dict) -> tuple:
 
 def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError`` for every configuration outside the
-    port so far (single-device gbdt, goss, dart and rf; every objective;
-    f32 or quantized gradients; numeric, bundled and categorical
-    features; the serial and the rounds grower, CEGB and forced
-    splits)."""
+    port so far (gbdt, goss, dart and rf; every objective; f32 or
+    quantized gradients; numeric, bundled and categorical features; the
+    serial and the rounds grower, CEGB and forced splits; the serial,
+    data-, feature- and voting-parallel tree learners)."""
     c = config
-
-    def no(what: str, item: str) -> None:
+    learners.resolve_tree_learner(c.tree_learner)
+    if c.pre_partition and axis_size(_group_of(c)) > 1:
         raise NotImplementedError(
-            f"{what} is not ported to lightgbm_tpu_torch yet; it waits for "
-            f"ROADMAP queue A ({item})")
-
-    tl = str(c.tree_learner).lower()
-    if tl not in ("serial", "serial_tree_learner") or c.num_machines > 1:
-        no(f"tree_learner={c.tree_learner}", "sharded training")
+            "pre_partition=true (each rank's Dataset holds only its own "
+            "rows) is not ported to lightgbm_tpu_torch yet; it waits for "
+            "ROADMAP queue A9 (sharded training on pre-partitioned rows)")
     if c.tpu_hist_method not in HIST_METHODS:
         raise ValueError(f"unknown tpu_hist_method {c.tpu_hist_method!r}; "
                          f"expected one of {', '.join(HIST_METHODS)}")
+
+
+def _group_of(config: Config):
+    """The process group a booster of ``config`` trains in: the current
+    group (``parallel.network.current_group``) for a sharded tree
+    learner with more than one rank, else None."""
+    from ..parallel.network import current_group
+    if learners.resolve_tree_learner(config.tree_learner) == "serial":
+        return None
+    g = current_group()
+    return g if axis_size(g) > 1 else None
 
 
 class GBDT:
@@ -130,9 +156,19 @@ class GBDT:
                 f"categorical features {wide} (used-feature indices) have "
                 f"more than {32 * MAX_CAT_WORDS} bins; categorical split "
                 f"bitsets cover {32 * MAX_CAT_WORDS} (lower max_bin)")
-        if config.tpu_hist_method == "fused" and self.meta.has_bundles:
-            log_warning("tpu_hist_method=fused does not apply to a dataset "
-                        "with EFB bundles; training on the staged arm")
+        # the tree learner and its process group, fixed for the booster
+        self.tree_learner_type = self._learner_asked = (
+            learners.resolve_tree_learner(config.tree_learner))
+        self.group = _group_of(config)
+        self.world = axis_size(self.group)
+        self.rank = axis_index_flat(self.group)
+        if self.group is None:
+            self.tree_learner_type = "serial"
+        else:
+            from ..parallel.network import mesh_plan
+            mesh_plan(self.world, num_machines=config.num_machines or None,
+                      local_listen_port=config.local_listen_port)
+            self._check_same_data()
         self.num_data = self.train_set.num_data
         self.num_bins = int(self.meta.max_num_bin)
         self.binned_t = self.train_set.binned_t
@@ -243,7 +279,9 @@ class GBDT:
         # the growth (the JAX package's boosting/gbdt.py:960-986, its
         # accelerator rule: the port treats the CPU as the card's twin)
         growth = config.tpu_tree_growth
-        rounds_ok = not cegb_on and forced_plan is None
+        tl = self.tree_learner_type
+        rounds_ok = (not cegb_on and forced_plan is None
+                     and tl in ("serial", "data"))
         if growth in ("rounds", "fast") and not rounds_ok:
             raise ValueError(
                 f"tpu_tree_growth={growth} does not support CEGB, voting, "
@@ -273,6 +311,24 @@ class GBDT:
             self._monotone = torch.as_tensor(
                 full[np.asarray(self.train_set.used_features, np.int64)],
                 device=self.device)
+        # the JAX package's "fused does not apply" warning
+        # (boosting/gbdt.py:688-731), once a booster
+        fused_ctx = (not cegb_on and tl not in ("feature", "voting")
+                     and forced_plan is None and not config.extra_trees
+                     and bynode_cnt == 0 and not self.meta.has_bundles)
+        if growth == "serial" and (bool(self.meta.is_categorical.any())
+                                   or tl == "data"):
+            fused_ctx = False
+        if config.tpu_hist_method == "fused" and not fused_ctx \
+                and not getattr(self, "_fused_warned", False):
+            self._fused_warned = True
+            log_warning(
+                "tpu_hist_method=fused does not apply to this "
+                "configuration (EFB bundles, extra_trees, per-node "
+                "column sampling, CEGB, forced splits, streaming, "
+                "feature/voting sharding — or categorical/data-parallel "
+                "under tpu_tree_growth=serial); falling back to the "
+                "staged kernel family")
         self.grower_cfg = GrowerConfig(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             hp=config.split_hyperparams(), num_bins=self.num_bins,
@@ -286,19 +342,89 @@ class GBDT:
             cegb_penalty_split=config.cegb_penalty_split,
             cegb_coupled=bool(coupled), cegb_lazy=bool(lazy),
             n_forced=0 if forced_plan is None else len(forced_plan[0]),
-            forced_exact_parity=config.tpu_forced_split_parity)
+            forced_exact_parity=config.tpu_forced_split_parity,
+            voting_top_k=config.top_k if tl == "voting" else 0)
+        binned, meta, meta_t, shard = self._shard_inputs()
         if serial:
             # one split at a time; it carries the CEGB state across trees
             self.grower = SerialGrower(
-                self.binned_t, self.meta, self.grower_cfg, self.meta_t,
+                binned, meta, self.grower_cfg, meta_t,
                 self._monotone, pens.get("cegb_penalty_feature_coupled"),
-                pens.get("cegb_penalty_feature_lazy"), forced_plan)
+                pens.get("cegb_penalty_feature_lazy"), forced_plan,
+                shard=shard)
         else:
             # the round loop of every tree: its buffers and, on the card,
             # its CUDA graph
-            self.grower = RoundGrower(self.binned_t, self.meta,
-                                      self.grower_cfg, self.meta_t,
-                                      self._monotone)
+            self.grower = RoundGrower(binned, meta, self.grower_cfg, meta_t,
+                                      self._monotone, shard=shard)
+
+    def _check_same_data(self) -> None:
+        """Every rank must hold the same training set, whose rows the
+        booster shards: one all-gather of the row count and a digest of
+        the labels, raising where a rank differs (a Dataset of each
+        rank's own rows would be sliced again as if it held every row,
+        and the trees would be silently wrong)."""
+        import hashlib
+        label = np.ascontiguousarray(self.train_set.metadata.label,
+                                     np.float32)
+        digest = np.frombuffer(hashlib.sha256(label.tobytes()).digest(),
+                               np.int64)
+        mine = torch.as_tensor(np.concatenate(
+            [[self.train_set.num_data], digest]))
+        every = all_gather_tiered(mine, self.group)
+        if not bool((every == every[0]).all()):
+            raise ValueError(
+                f"tree_learner={self.tree_learner_type} needs the same "
+                "training set on every rank (the booster shards its "
+                f"rows); the ranks hold {every[:, 0].tolist()} rows and "
+                f"{len({tuple(r) for r in every[:, 1:].tolist()})} "
+                "different label sets.  Training on a Dataset of each "
+                "rank's own rows (pre_partition, parallel.dist_data."
+                "construct_distributed) waits for ROADMAP queue A9 "
+                "(sharded training on pre-partitioned rows)")
+
+    def _shard_inputs(self):
+        """This rank's share of the training set for the grower:
+        (binned [G, rows], meta, meta tensors, ``ShardSpec`` or None),
+        and the row layout the trees' gathers use (``_rows_t``: this
+        rank's global rows, or None for all of them)."""
+        self._slot_of_row = self._n_shard = self.layout = None
+        tl = self.tree_learner_type
+        if tl in ("data", "voting"):
+            n = self.num_data
+            need_group = getattr(self.objective, "need_group", False)
+            md = self.train_set.metadata
+            if need_group and md.query_boundaries is None:
+                raise RuntimeError("Ranking tasks require query information")
+            self.layout = (learners.query_layout(md.query_boundaries,
+                                                 self.world)
+                           if need_group
+                           else learners.contiguous_layout(n, self.world))
+            self._n_shard = self.layout.n_shard
+            slot = np.empty(n, np.int64)
+            real = self.layout.perm < n
+            slot[self.layout.perm[real]] = np.nonzero(real)[0]
+            self._slot_of_row = torch.as_tensor(slot, device=self.device)
+        share = learners.grower_inputs(tl, self.group, self.binned_t,
+                                       self.meta, self.layout)
+        self._rows_t = share.rows
+        meta_t = (self.meta_t if share.meta is self.meta
+                  else share.meta.tensors(self.device))
+        return share.binned_t, share.meta, meta_t, share.spec
+
+    def _local(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-row tensor [n] -> this rank's rows (data, voting)."""
+        return x if self._rows_t is None else x.index_select(0, self._rows_t)
+
+    def _global_leaf_id(self, leaf_id: torch.Tensor) -> torch.Tensor:
+        """This rank's rows' leaf ids -> every row's, in row order: one
+        all-gather of each rank's block, padded to ``n_shard``."""
+        if self._rows_t is None:
+            return leaf_id
+        pad = leaf_id.new_zeros(self._n_shard, dtype=torch.int32)
+        pad[:leaf_id.shape[0]] = leaf_id
+        allb = all_gather_tiered(pad, self.group).reshape(-1)
+        return allb.index_select(0, self._slot_of_row).to(torch.int64)
 
     def _build_forced_plan(self):
         """``forcedsplits_filename`` as plan arrays (leaf, used feature,
@@ -515,21 +641,29 @@ class GBDT:
         cfg = self.grower_cfg
         lr32 = f32(lr)
         trees, scales = [], []
+        row_group = None if self._rows_t is None else self.group
+        mask_l = self._local(mask)
         for k in range(self.num_tree_per_iteration):
             quant_vals = None
+            g_l, h_l = self._local(grad[k]), self._local(hess[k])
             if self._quant_on:
                 with self._section("quantize"):
                     qkey = threefry.fold_in(
                         threefry.fold_in(rng, 0x51475442), k)
+                    if row_group is not None:
+                        # i.i.d. rounding noise across the ranks' rows
+                        qkey = threefry.fold_in(qkey, self.rank)
                     quant_vals = quantize_gradients(
-                        grad[k], hess[k], mask,
+                        g_l, h_l, mask_l,
                         self.config.num_grad_quant_bins, qkey,
-                        stochastic=self.config.stochastic_rounding)
+                        stochastic=self.config.stochastic_rounding,
+                        group=row_group, draw_rows=self._n_shard)
                     scales.append(quant_vals[2:])
             log = [] if self.round_log is not None else None
             tree, leaf_id = self.grower.grow(
-                grad[k], hess[k], mask, fmask[k], quant_vals,
+                g_l, h_l, mask_l, fmask[k], quant_vals,
                 threefry.fold_in(rng, k), self.timer, log)
+            leaf_id = self._global_leaf_id(leaf_id)
             if log is not None:
                 self.round_log.append(log)
             with self._section("score"):
@@ -667,8 +801,16 @@ class GBDT:
 
     def reset_config(self) -> None:
         """Re-derive what the trees take from ``self.config`` after a
-        parameter reset (the JAX package rebuilds its jitted functions)."""
+        parameter reset (the JAX package rebuilds its jitted functions).
+        The tree learner cannot change: the rows' layout over the ranks
+        is fixed when the booster is built."""
         check_supported(self.config)
+        tl = learners.resolve_tree_learner(self.config.tree_learner)
+        if tl != self._learner_asked:
+            raise ValueError(
+                f"Cannot change tree_learner during training (from "
+                f"{self._learner_asked} to {tl}): the layout of the rows "
+                "over the ranks is fixed when the booster is built")
         self._configure()
 
     def refit_leaf_values(self, leaf_preds: np.ndarray,

@@ -61,6 +61,28 @@ cross-tree state, the used-feature flags [F] and (lazy mode) the paid
 (feature, row) bitmap [F, n], lives in the grower (``cegb_state``) and
 carries from tree to tree.  The lazy penalty's row count is an integer
 count.
+
+Sharded (``shard``, a ``parallel.learners.ShardSpec``; the JAX package's
+``axis_name`` and ``feature_axis_name`` branches, grower.py:332-760):
+
+- **data**: the grower holds a rank's rows; the root and every smaller
+  child's histogram are summed over the group (``_sync_hist``: exact
+  integers, so every rank finds the serial split), as are the root
+  totals of quantized training, the lazy CEGB counts and the leaf
+  renewal's sums; the fixed-point and quantization scales take the
+  group's peaks and its row count;
+- **feature**: the grower holds every row and a rank's EFB groups; each
+  search runs on them and one all-gather gives every rank every
+  feature's candidates in the global order (``_gather_features``), so
+  the pick, the CEGB cache and the forced plan see every feature; the
+  rank that owns a split's feature sends the rows' sides
+  (``_goes_left``) and a forced split's left sums;
+- **voting**: rows as in data, histograms kept local; each search votes
+  (``_vote``) and sums only the elected features' histograms.
+
+Under a group the serial grower takes the staged family (the JAX
+package's "fused does not apply"); the rounds grower runs data-parallel
+only (``grower_rounds.py``).
 """
 
 from __future__ import annotations
@@ -76,10 +98,11 @@ from .ops import fused
 from .ops.histogram import (_vals_t, _vals_t_int, fixed_point_scales,
                             histogram_fixed)
 from .ops.split import (_EPS32, _TWO_EPS32, MAX_CAT_WORDS,
-                        QuantScales, SplitHyperparams, SplitResult, clip,
-                        best_split_for_leaf, f32, feature_best_splits,
-                        fixed_to_f32, leaf_gain, leaf_output,
-                        quant_count_hist)
+                        PerFeatureBest, QuantScales, SplitHyperparams,
+                        SplitResult, clip, best_split_for_leaf, f32,
+                        feature_best_splits, fixed_to_f32, leaf_gain,
+                        leaf_output, pick_best_feature, quant_count_hist)
+from .parallel.collectives import all_gather_tiered, psum_tiered
 from .utils import threefry
 
 
@@ -187,7 +210,7 @@ class GrowerConfig(NamedTuple):
     (splits in the forced plan) and ``forced_exact_parity``
     (``tpu_forced_split_parity``: a forced split's sums take the
     reference's GatherInfoForThreshold convention, the threshold bin
-    on the right)."""
+    on the right); voting-parallel's ``voting_top_k``."""
 
     num_leaves: int = 31
     max_depth: int = -1
@@ -206,6 +229,8 @@ class GrowerConfig(NamedTuple):
     cegb_lazy: bool = False
     n_forced: int = 0
     forced_exact_parity: bool = False
+    voting_top_k: int = 0          # voting-parallel: features each rank
+    #                                votes and the group elects
 
 
 def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,
@@ -375,12 +400,23 @@ class _GrowerCommon:
 
     def __init__(self, binned_t: torch.Tensor, meta, cfg: GrowerConfig,
                  meta_t: Optional[dict] = None,
-                 monotone_constraints: Optional[torch.Tensor] = None):
+                 monotone_constraints: Optional[torch.Tensor] = None,
+                 shard=None):
         meta = self.meta = meta.resolved()
         dev = self.device = binned_t.device
         self.binned_t = binned_t
         self.cfg = cfg
         G, n = binned_t.shape
+        # sharded training (parallel/learners.py): the mode, the group,
+        # the group the rows are summed over (data and voting) and the
+        # rows over every rank
+        self.shard = shard
+        self.mode = "serial" if shard is None else shard.mode
+        self.group = None if shard is None else shard.group
+        self.row_group = (self.group if self.mode in ("data", "voting")
+                          else None)
+        self.rows_global = (shard.rows_global if self.row_group is not None
+                            else n)
         L = self.L = cfg.num_leaves
         self.Lm1 = max(L - 1, 1)
         B = self.B = cfg.num_bins
@@ -401,6 +437,32 @@ class _GrowerCommon:
         self.scan_plan = fused.scan_tasks(meta.num_bin, B, dev)
         self.mc = (monotone_constraints.to(device=dev, dtype=torch.int32)
                    if self.use_mc else None)
+        # what splits and routing read by used feature: every feature's
+        # (``g_*``, [gF]); in feature mode the rank searches only its own
+        # features (``local_ids``: their global ids; ``local_index``: a
+        # global feature's local index, -1 where another rank owns it)
+        self.gF = F
+        self.g_num_bin, self.g_missing_type, self.g_default_bin = (
+            self.num_bin, self.missing_type, self.default_bin)
+        self.g_is_cat, self.g_mc = self.is_cat, self.mc
+        self.local_ids = None
+        if self.mode == "feature":
+            gm = shard.global_meta
+            self.gF = len(gm.num_bin)
+            gt = gm.tensors(dev)
+            self.g_num_bin, self.g_missing_type, self.g_default_bin = (
+                gt["num_bin"], gt["missing_type"], gt["default_bin"])
+            self.g_is_cat = torch.as_tensor(gm.is_categorical, device=dev)
+            ids = np.asarray(shard.local_features, np.int64)
+            self.local_ids = torch.as_tensor(ids, device=dev)
+            li = np.full(self.gF, -1, np.int64)
+            li[ids] = np.arange(len(ids))
+            self.local_index = torch.as_tensor(li, device=dev)
+            self.gather_order = torch.as_tensor(shard.gather_order,
+                                                device=dev)
+            if self.use_mc:
+                self.g_mc = self.mc
+                self.mc = self.g_mc[self.local_ids]
         self.iota_L = torch.arange(L, device=dev)
         self.neg_inf = torch.tensor(-float("inf"), dtype=torch.float32,
                                     device=dev)
@@ -470,16 +532,21 @@ class _GrowerCommon:
                     torch.as_tensor(g_scale), torch.as_tensor(h_scale)]))
                 # B4 in int8 mode, slot 0 for every member row, on both
                 # arms
-                root = fused.accumulate(self.binned_t, self.vals, slot0, 1,
-                                        self.Bg)[0]
-                qsum = self.vals.to(torch.int64).sum(1).to(torch.float32)
+                root = self._sync_hist(fused.accumulate(
+                    self.binned_t, self.vals, slot0, 1, self.Bg)[0])
+                tot = self._psum_rows(torch.cat([
+                    self.vals.to(torch.int64).sum(1),
+                    member.sum().reshape(1)]))
+                qsum = tot[:2].to(torch.float32)
                 root_sums = torch.stack([qsum[0] * g_scale,
                                          qsum[1] * h_scale,
-                                         member.sum().to(torch.float32)])
+                                         tot[2].to(torch.float32)])
             else:
                 self.vals.copy_(_vals_t(grad, hess, row_mask))
-                # the tree's one host read before its splits
-                self.host_scales = fixed_point_scales(self.vals)
+                # the tree's one host read before its splits (the peaks
+                # over the row group: every rank scales alike)
+                self.host_scales = fixed_point_scales(
+                    self.vals, self.row_group, self.rows_global)
                 self.exps.copy_(torch.tensor(self.host_scales,
                                              dtype=torch.int32))
                 if self.fused_arm:
@@ -488,24 +555,47 @@ class _GrowerCommon:
                                             1, self.B, self.exps)[0]
                 else:
                     root = self._whole_histogram(self.vals)
+                root = self._sync_hist(root)
                 # group 0's bins partition the member rows: exact totals
-                root_sums = fixed_to_f32(root[:, 0, :].sum(-1), self.exps,
-                                         0)
+                root_sums = fixed_to_f32(
+                    self._psum_rows(root[:, 0, :].sum(-1))
+                    if self.mode == "voting" else root[:, 0, :].sum(-1),
+                    self.exps, 0)
             if feature_mask is None:
                 self.fmask.fill_(1.0)
+            elif self.local_ids is not None:
+                self.fmask.copy_(feature_mask[self.local_ids])
             else:
                 self.fmask.copy_(feature_mask)
         if self.use_rng:
             with section("draws"):
+                # drawn over every feature (the bynode sample counts
+                # them all), then this rank's columns
                 mask, eru = node_draws(rng_key, self.draw_parents,
-                                       self.draw_sides, self.F,
+                                       self.draw_sides, self.gF,
                                        cfg.bynode_feature_cnt,
                                        hp.extra_trees)
+                if self.local_ids is not None:
+                    mask = None if mask is None else mask[:, self.local_ids]
+                    eru = None if eru is None else eru[:, self.local_ids]
                 if mask is not None:
                     self.draw_mask.copy_(mask)
                 if eru is not None:
                     self.draw_eru.copy_(eru)
         return root, root_sums
+
+    def _sync_hist(self, h: torch.Tensor) -> torch.Tensor:
+        """A histogram of this rank's rows -> of every rank's rows (data
+        mode: the group's exact integer sum, int64 fixed point or int32
+        levels); unchanged in the other modes (voting sums only what the
+        vote elects)."""
+        if self.mode != "data":
+            return h
+        return psum_tiered(h, self.row_group)
+
+    def _psum_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Integer totals of this rank's rows -> of every rank's."""
+        return psum_tiered(x, self.row_group)
 
     def _reset_carry(self, root, root_sums) -> None:
         """The carry of a new tree: one leaf holding every row, its
@@ -557,13 +647,134 @@ class _GrowerCommon:
                     fm = fm[None, :] * self.draw_mask[row]
                 if self.draw_eru is not None:
                     eru = self.draw_eru[row]
-        search = feature_best_splits if per_feature else best_split_for_leaf
+        if self.mode == "voting":
+            return self._vote(section, ghist, sums, bounds, fm, eru)
+        feature_mode = self.mode == "feature"
+        search = (feature_best_splits if per_feature or feature_mode
+                  else best_split_for_leaf)
         with section("kernels"):
-            return search(
+            out = search(
                 ghist, self._scales(), sums[0], sums[1], sums[2],
                 self.num_bin, self.missing_type, self.default_bin,
                 self.is_cat, self.cfg.hp, fm, self.mc, bounds, eru,
                 self.groups, self.scan_plan, cat_idx=self.cat_cols)
+        if not feature_mode:
+            return out
+        # feature mode: every feature's candidates, in the global order,
+        # then the serial pick (ties -> the smaller feature)
+        with section("collectives"):
+            pf = self._gather_features(out)
+        return pf if per_feature else pick_best_feature(pf, sums[0], sums[1],
+                                                        sums[2])
+
+    def _gather_features(self, pf: PerFeatureBest) -> PerFeatureBest:
+        """This rank's per-feature candidates [NC, F_local] -> every
+        feature's [NC, gF], by one all-gather of the fields packed as f64
+        (each value is exact there: f32 sums and gains, int32 bins,
+        flags, uint32 bitset words)."""
+        NC, Fl = pf.gain.shape
+        Fs = self.shard.feature_shard
+        cols = [pf.gain, pf.threshold, pf.default_left, pf.left_sum_grad,
+                pf.left_sum_hess, pf.left_count, pf.is_categorical]
+        packed = torch.cat([torch.stack([c.to(torch.float64) for c in cols],
+                                        -1),
+                            pf.cat_bitset.to(torch.float64)], -1)
+        pad = packed.new_zeros((NC, Fs, packed.shape[-1]))
+        pad[:, :, 0] = -float("inf")
+        pad[:, :Fl] = packed
+        allp = all_gather_tiered(pad, self.group)        # [W, NC, Fs, C]
+        allp = allp.permute(1, 0, 2, 3).reshape(NC, -1, packed.shape[-1])
+        g = allp[:, self.gather_order]                   # [NC, gF, C]
+        return PerFeatureBest(
+            gain=g[..., 0].to(torch.float32),
+            threshold=g[..., 1].to(torch.int32),
+            default_left=g[..., 2] != 0,
+            left_sum_grad=g[..., 3].to(torch.float32),
+            left_sum_hess=g[..., 4].to(torch.float32),
+            left_count=g[..., 5].to(torch.float32),
+            is_categorical=g[..., 6] != 0,
+            cat_bitset=g[..., 7:].to(torch.int64))
+
+    def _vote(self, section, ghist, sums, bounds, fm, eru) -> SplitResult:
+        """Voting-parallel (PV-Tree) best splits of children whose group
+        histograms ``ghist`` hold this rank's rows (the JAX package's
+        ``leaf_best_voting``; reference: voting_parallel_tree_learner.
+        cpp): each rank searches its local histograms with the
+        constraints scaled by the rank count (:57-59) and ranks its
+        features by gain weighted with its share of the leaf's rows
+        (GlobalVoting, :153-182); the ranks' top-k lists are gathered,
+        each feature takes its best vote, the top-k of the votes are
+        elected (stable: ties -> the smaller feature, as ``lax.top_k``),
+        and only the elected features' histograms are summed over the
+        group and searched, in ascending feature order (so that with
+        ``voting_top_k`` >= F the pick is the serial one)."""
+        cfg, hp = self.cfg, self.cfg.hp
+        W = self.row_group.size()
+        F = self.F
+        k = min(int(cfg.voting_top_k), F)
+        NC = ghist.shape[0]
+        scales = self._scales()
+        with section("kernels"):
+            tot = ghist[:, :, 0, :].sum(-1).to(torch.int64)   # [NC, C]
+            if cfg.quant:
+                gs, hs = self.qscales.to(torch.float32)
+                tf = tot.to(torch.float32)
+                cnt_f = sums[2] / torch.clamp_min(torch.round(sums[1] / hs),
+                                                  1.0)
+                loc = (tf[:, 0] * gs, tf[:, 1] * hs, tf[:, 1] * cnt_f)
+            else:
+                lf = fixed_to_f32(tot, self.exps, 1)
+                loc = (lf[:, 0], lf[:, 1], lf[:, 2])
+            hp_local = hp._replace(
+                min_data_in_leaf=max(1, hp.min_data_in_leaf // W),
+                min_sum_hessian_in_leaf=hp.min_sum_hessian_in_leaf / W)
+            pf = feature_best_splits(
+                ghist, scales, loc[0], loc[1], loc[2], self.num_bin,
+                self.missing_type, self.default_bin, self.is_cat, hp_local,
+                fm, self.mc, bounds, eru, self.groups, self.scan_plan,
+                cat_idx=self.cat_cols)
+            mean_cnt = torch.clamp_min(sums[2] / W, 1.0)[:, None]
+            rc_loc = loc[2][:, None] - pf.left_count
+            ninf = torch.full_like(pf.gain, -float("inf"))
+            wgain = torch.where(torch.isfinite(pf.gain),
+                                pf.gain * (pf.left_count + rc_loc) / mean_cnt,
+                                ninf)
+            top = torch.sort(wgain, dim=1, descending=True,
+                             stable=True).indices[:, :k]
+            top_g = wgain.gather(1, top)
+        with section("collectives"):
+            all_i = all_gather_tiered(top, self.row_group)     # [W, NC, k]
+            all_g = all_gather_tiered(top_g, self.row_group)
+        with section("kernels"):
+            all_i = all_i.permute(1, 0, 2).reshape(NC, -1)
+            all_g = all_g.permute(1, 0, 2).reshape(NC, -1)
+            votes = ninf.scatter_reduce(1, all_i, all_g, "amax")
+            elected = torch.sort(torch.sort(
+                votes, dim=1, descending=True, stable=True).indices[:, :k],
+                dim=1).values                                  # [NC, k]
+        out = []
+        for c in range(NC):
+            e = elected[c]
+            with section("kernels"):
+                sub = (fused.expand_groups(ghist[c:c + 1], self.groups,
+                                           self.num_bin, e)
+                       if self.groups is not None else ghist[c:c + 1][:, :, e])
+            with section("collectives"):
+                sub = psum_tiered(sub, self.row_group)
+            fm_c = None if fm is None else (fm[c] if fm.dim() == 2 else fm)
+            with section("kernels"):
+                r = best_split_for_leaf(
+                    sub, scales, sums[0][c:c + 1], sums[1][c:c + 1],
+                    sums[2][c:c + 1], self.num_bin[e], self.missing_type[e],
+                    self.default_bin[e], self.is_cat[e], hp,
+                    None if fm_c is None else fm_c[e],
+                    None if self.mc is None else self.mc[e],
+                    None if bounds is None else (bounds[0][c:c + 1],
+                                                 bounds[1][c:c + 1]),
+                    None if eru is None else eru[c:c + 1][:, e])
+            out.append(r._replace(feature=e[r.feature]))
+        return SplitResult(*(torch.cat([getattr(r, f) for r in out])
+                             for f in SplitResult._fields))
 
     def _finish(self, grad, hess, row_mask):
         cfg, hp = self.cfg, self.cfg.hp
@@ -573,8 +784,9 @@ class _GrowerCommon:
         if cfg.quant and cfg.quant_renew:
             # leaf outputs from the true gradient sums of each leaf's rows
             from .ops.renew import quant_train_renew_leaf
-            leaf_sg, leaf_sh = quant_train_renew_leaf(leaf_id, grad, hess,
-                                                      row_mask, L)
+            leaf_sg, leaf_sh = quant_train_renew_leaf(
+                leaf_id, grad, hess, row_mask, L, self.row_group,
+                self.rows_global)
         lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
                          hp.max_delta_step)
         if self.use_mc:
@@ -660,22 +872,42 @@ class SerialGrower(_GrowerCommon):
                  monotone_constraints: Optional[torch.Tensor] = None,
                  cegb_coupled: Optional[np.ndarray] = None,
                  cegb_lazy: Optional[np.ndarray] = None,
-                 forced_plan: Optional[tuple] = None):
-        super().__init__(binned_t, meta, cfg, meta_t, monotone_constraints)
-        meta, dev, F = self.meta, self.device, self.F
+                 forced_plan: Optional[tuple] = None, shard=None):
+        super().__init__(binned_t, meta, cfg, meta_t, monotone_constraints,
+                         shard)
+        meta, dev, F = self.meta, self.device, self.gF
         self.cegb_on = (cfg.cegb_penalty_split > 0.0 or cfg.cegb_coupled
                         or cfg.cegb_lazy)
         if cfg.quant and self.cegb_on:
             raise NotImplementedError(
                 "quantized-gradient training does not support CEGB; the "
                 "booster falls back to f32 histograms for this combination")
+        if self.mode == "voting" and cfg.voting_top_k <= 0:
+            raise ValueError("voting-parallel needs voting_top_k > 0 (the "
+                             f"reference's top_k), got {cfg.voting_top_k}")
+        if self.mode == "voting" and shard.local_features is not None:
+            # the JAX package's refusal (grower.py:538-553)
+            raise NotImplementedError(
+                "voting-parallel is a data-axis mode; combining it with "
+                "feature sharding is contradictory (the vote needs all-"
+                "feature local histograms) — use a data x feature mesh "
+                "without voting")
+        if self.cegb_on and self.mode == "voting":
+            # the JAX package's refusal (grower.py:572-585): exact CEGB
+            # needs every feature's global candidates, which voting
+            # exists not to build
+            raise NotImplementedError(
+                "CEGB needs global per-feature candidates; voting-parallel "
+                "exists to avoid building exactly those — use "
+                "tree_learner=data with CEGB instead")
         self.n_forced = int(cfg.n_forced)
-        self.has_cat = bool(np.asarray(meta.is_categorical).any())
-        # the JAX package's serial arm election (grower.py:659-662)
+        self.has_cat = bool(self.g_is_cat.any())
+        # the JAX package's serial arm election (grower.py:659-662); a
+        # sharded grower takes the staged family
         self.fused_arm = (cfg.hist_method == "fused"
                           and not meta.has_bundles and not self.has_cat
                           and not self.use_rng and not self.cegb_on
-                          and self.n_forced == 0)
+                          and self.n_forced == 0 and self.mode == "serial")
         self.sides = torch.arange(2, device=dev)
         self.bins = torch.arange(self.B, device=dev)
         self.words = torch.arange(MAX_CAT_WORDS, device=dev)
@@ -742,11 +974,11 @@ class SerialGrower(_GrowerCommon):
         """[F] on-demand penalty of one leaf's rows (reference:
         CalculateOndemandCosts, cost_effective_gradient_boosting.hpp:93):
         the penalty times the leaf's rows that have not paid for the
-        feature yet, counted as integers."""
+        feature yet, counted as integers (over every rank's rows)."""
         if self.lazy_coef is None:
-            return torch.zeros(self.F, dtype=torch.float32,
+            return torch.zeros(self.gF, dtype=torch.float32,
                                device=self.device)
-        cnt = (~self.cegb_state[1] & in_leaf[None, :]).sum(1)
+        cnt = self._psum_rows((~self.cegb_state[1] & in_leaf[None, :]).sum(1))
         return self.lazy_coef * cnt.to(torch.float32)
 
     def _more(self) -> torch.Tensor:
@@ -762,9 +994,27 @@ class SerialGrower(_GrowerCommon):
     # throughout the step: indexing with a 0-dim tensor reads it on the
     # host, indexing with a [1] tensor gathers on the device.
 
+    def _goes_left(self, feat: torch.Tensor, r) -> torch.Tensor:
+        """Every row's side under split ``r`` of used feature ``feat``
+        ([1]).  In feature mode the rank that owns the feature decides
+        and the group sums its answer (the others add zeros): the
+        reference's partition broadcast."""
+        cat = ((r.is_categorical, r.cat_bitset[0]) if self.has_cat else ())
+        if self.local_ids is None:
+            return row_goes_left(self._column(feat), r.threshold,
+                                 r.default_left, self.missing_type[feat],
+                                 self.default_bin[feat], self.num_bin[feat],
+                                 *cat)
+        li = self.local_index[feat]
+        lf = li.clamp_min(0)
+        gl = row_goes_left(self._column(lf), r.threshold, r.default_left,
+                           self.missing_type[lf], self.default_bin[lf],
+                           self.num_bin[lf], *cat)
+        return psum_tiered((gl & (li >= 0)).to(torch.uint8), self.group) > 0
+
     def _column(self, feat: torch.Tensor) -> torch.Tensor:
-        """Every row's bin of used feature ``feat`` ([1]): its group's
-        column, EFB-decoded."""
+        """Every row's bin of local used feature ``feat`` ([1]): its
+        group's column, EFB-decoded."""
         mt = self.mt
         g = mt["feat_group"][feat].to(torch.int64)
         col = self.binned_t.index_select(0, g)[0].to(torch.int32)
@@ -795,15 +1045,24 @@ class SerialGrower(_GrowerCommon):
         leaf, feat, thr = self.fp_leaf[s], self.fp_feat[s], self.fp_thr[s]
         sg, sh, cnt = (self.leaf_sg[leaf], self.leaf_sh[leaf],
                        self.leaf_cnt[leaf])
-        hf = self._feature_hist(self.hist[leaf][0], feat)     # [C, B]
+        if self.local_ids is not None:
+            # feature mode: the owner's histogram, summed with zeros
+            li = self.local_index[feat]
+            hf = self._feature_hist(self.hist[leaf][0], li.clamp_min(0))
+            hf = psum_tiered(hf * (li >= 0).to(hf.dtype), self.group)
+        else:
+            hf = self._feature_hist(self.hist[leaf][0], feat)  # [C, B]
+            if self.mode == "voting":
+                # local histograms: this one is summed over the group
+                hf = psum_tiered(hf, self.row_group)
         if self.cfg.quant:
             hf = quant_count_hist(hf[None, :, None], cnt)[0, :, 0]
-        b, nb = self.bins, self.num_bin[feat]
-        mtp, cat = self.missing_type[feat], self.is_cat[feat]
+        b, nb = self.bins, self.g_num_bin[feat]
+        mtp, cat = self.g_missing_type[feat], self.g_is_cat[feat]
         valid = b < nb
         miss_bin = torch.where(
             mtp == MissingType.NAN, nb - 1,
-            torch.where(mtp == MissingType.ZERO, self.default_bin[feat],
+            torch.where(mtp == MissingType.ZERO, self.g_default_bin[feat],
                         torch.full_like(nb, -1)))
         below = (b < thr) if self.cfg.forced_exact_parity else (b <= thr)
         sel = torch.where(cat, valid & (b == thr),
@@ -847,7 +1106,8 @@ class SerialGrower(_GrowerCommon):
             right_sum_grad=self.leaf_sg[leaf] - lg,
             right_sum_hess=self.leaf_sh[leaf] - lh,
             right_count=self.leaf_cnt[leaf] - lc,
-            is_categorical=self.is_cat[f], cat_bitset=b.cat_bitset[leaf, f])
+            is_categorical=self.g_is_cat[f],
+            cat_bitset=b.cat_bitset[leaf, f])
 
     # --------------------------------------------------------------- step
 
@@ -901,7 +1161,7 @@ class SerialGrower(_GrowerCommon):
                 _pad_scatter(getattr(tree, field), s, val, do)
             bounds = None
             if self.use_mc:
-                bounds = child_bounds(hp, self.mc, lg, lh, rg, rh,
+                bounds = child_bounds(hp, self.g_mc, lg, lh, rg, rh,
                                       self.leaf_min[leaf],
                                       self.leaf_max[leaf], feat,
                                       r.is_categorical)
@@ -917,11 +1177,7 @@ class SerialGrower(_GrowerCommon):
                 _pad_scatter(buf, pair, torch.cat([left, right]), two)
 
             # partition the leaf's rows (reference: DataPartition::Split)
-            gl = row_goes_left(self._column(feat), r.threshold,
-                               r.default_left, self.missing_type[feat],
-                               self.default_bin[feat], self.num_bin[feat],
-                               *((r.is_categorical, r.cat_bitset[0])
-                                 if self.has_cat else ()))
+            gl = self._goes_left(feat, r)
             in_leaf = self.leaf_id == leaf
             self.leaf_id.copy_(torch.where(in_leaf & ~gl & do, new_leaf,
                                            self.leaf_id))
@@ -965,6 +1221,8 @@ class SerialGrower(_GrowerCommon):
             else:
                 small_hist = self._whole_histogram(
                     (self.vals * small).contiguous())
+        with section("collectives"):
+            small_hist = self._sync_hist(small_hist)
         with section("siblings"):
             large = parent - small_hist
             hist_l = torch.where(left_smaller, small_hist, large)
@@ -1053,7 +1311,8 @@ def grow_tree(binned_t: torch.Tensor, grad: torch.Tensor,
               meta_t: Optional[dict] = None,
               quant_vals: Optional[tuple] = None, timer=None):
     """Grow one tree one split at a time (reference: the JAX package's
-    ``grow_tree``, without its sharded modes).  ``binned_t`` [G, n]
+    ``grow_tree``; its sharded modes are ``parallel.learners.
+    create_parallel_grower``'s).  ``binned_t`` [G, n]
     uint8/int32 (the EFB group matrix), ``grad``/``hess``/``row_mask``
     [n] f32 on the same device; ``feature_mask`` [F]; ``monotone_
     constraints`` [F] int32; ``rng_key`` the tree's threefry key for

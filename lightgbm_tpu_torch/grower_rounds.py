@@ -1,5 +1,5 @@
-"""Batched-frontier leaf-wise tree growth (counterpart of the unsharded
-arms of ``lightgbm_tpu/grower_rounds.py``).
+"""Batched-frontier leaf-wise tree growth (counterpart of
+``lightgbm_tpu/grower_rounds.py``, its serial and data-parallel arms).
 
 Same semantics as LightGBM's best-first growth (reference:
 src/treelearner/serial_tree_learner.cpp:149-193), a ROUND of splits at a
@@ -92,6 +92,16 @@ starts (``node_draws``, ~1,000 tensor operations of threefry) and each
 search gathers its nodes' rows (a call a round cost 1.12 s of launches
 a 255-leaf tree: ``chip_smoke.py`` ``rand_train``, NVIDIA H100 80GB
 HBM3, 700.00 W).
+
+Data-parallel (a ``parallel.learners.ShardSpec`` of mode "data"): the
+grower holds a rank's rows.  The root histogram is summed over the
+group, and each round's smaller children too, between the kernels: the
+fused arm runs B4 (``fused.accumulate``), the group's exact integer
+sum of the [KCAP, C, F, B] arena, then B5 (``fused.sibling_scan``) on
+the summed arena, where the serial run launches the pair as B2; the
+staged arm sums B4's segment histograms before the siblings.  The body
+runs eagerly under a group (a CUDA graph cannot capture gloo's host
+round-trip).
 """
 
 
@@ -137,8 +147,14 @@ class RoundGrower(_GrowerCommon):
 
     def __init__(self, binned_t: torch.Tensor, meta, cfg: GrowerConfig,
                  meta_t: Optional[dict] = None,
-                 monotone_constraints: Optional[torch.Tensor] = None):
-        super().__init__(binned_t, meta, cfg, meta_t, monotone_constraints)
+                 monotone_constraints: Optional[torch.Tensor] = None,
+                 shard=None):
+        super().__init__(binned_t, meta, cfg, meta_t, monotone_constraints,
+                         shard)
+        if self.mode not in ("serial", "data"):
+            raise ValueError(
+                f"the rounds grower runs serial and data-parallel growth, "
+                f"not {self.mode}-parallel (the serial grower does)")
         meta, dev, L = self.meta, self.device, self.L
         # the JAX trainer's arm election (boosting/gbdt.py:690-707,
         # grower_rounds.py:168) for the configurations the port trains
@@ -147,7 +163,9 @@ class RoundGrower(_GrowerCommon):
         K = self.KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
         self.cat_idx = self.cat_cols if len(self.cat_cols) else None
         self.iota_K = torch.arange(K, device=dev)
-        self.graphs = dev.type == "cuda"
+        # a graph cannot capture the group's sums (gloo stages them on
+        # the host): a sharded body runs eagerly
+        self.graphs = dev.type == "cuda" and self.row_group is None
         self.graph = None
         self._graph_counts = None
         self.capture_ms = None
@@ -248,13 +266,30 @@ class RoundGrower(_GrowerCommon):
             slb = sl[:, None, None, None]
 
         scales = self._scales()
-        if self.fused_arm:
+        if self.fused_arm and self.row_group is not None:
+            # the data-parallel seam: the local smaller children (B4),
+            # their exact sum over the group, then the scan of the summed
+            # arena (B5), as the JAX package splits its megakernel
+            with section("kernels"):
+                seg = fused.accumulate(binned_t, self.vals, slot, K, self.B,
+                                       scales)
+            with section("collectives"):
+                seg = self._sync_hist(seg)
+            with section("kernels"):
+                nfb = fused.sibling_scan(
+                    seg, scales, csums, self.num_bin, self.missing_type,
+                    self.default_bin, hp, small_left=sl, parent=ph,
+                    monotone_constraints=self.mc, child_bounds=cbounds,
+                    plan=self.scan_plan)
+        elif self.fused_arm:
             with section("kernels"):
                 seg, nfb = fused.frontier_splits(
                     binned_t, self.vals, slot, K, self.B, scales, csums, sl,
                     ph, self.num_bin, self.missing_type, self.default_bin,
                     hp, monotone_constraints=self.mc, child_bounds=cbounds,
                     plan=self.scan_plan)
+        if self.fused_arm:
+            with section("kernels"):
                 h_left = torch.where(slb, seg, ph - seg)
                 cat_best = None
                 if self.cat_idx is not None:
@@ -276,6 +311,8 @@ class RoundGrower(_GrowerCommon):
                 # the smaller children's segment histograms (B4)
                 seg = fused.accumulate(binned_t, self.vals, slot, K,
                                        self.Bg, scales)
+            with section("collectives"):
+                seg = self._sync_hist(seg)
             with section("siblings"):
                 h_left = torch.where(slb, seg, ph - seg)
                 children = torch.cat([h_left, ph - h_left])

@@ -47,7 +47,9 @@ the quantized mode), and ``path_counts`` counts B5's launches on group
 histograms and the calls of ``expand_groups``.  A CUDA graph replays
 launches without calling a wrapper, so the grower counts each replay
 as the launches its capture recorded (``launch_count_delta``,
-``add_launch_counts``).
+``add_launch_counts``).  ``thread_launch_counts`` keeps the calling
+thread's launches beside the process-wide counts (one rank's, where
+ranks train in threads of one process).
 
 The functions named after the JAX package's (``fused_frontier_splits``,
 ``fused_segment_splits``, ``fused_frontier_accumulate``,
@@ -86,6 +88,19 @@ scan_modes: dict = {}
 path_counts = {"b5_on_group_histograms": 0, "expand_groups_calls": 0}
 
 
+_thread = threading.local()
+
+
+def thread_launch_counts() -> dict:
+    """The calling thread's kernel launches by entry and mode (one
+    rank's, when ranks train in threads of one process): counted beside
+    ``launch_counts`` at every launch and replay."""
+    d = getattr(_thread, "counts", None)
+    if d is None:
+        d = _thread.counts = {}
+    return d
+
+
 def reset_launch_counts() -> None:
     with _counts_lock:
         for k in launch_counts:
@@ -93,11 +108,15 @@ def reset_launch_counts() -> None:
         scan_modes.clear()
         for k in path_counts:
             path_counts[k] = 0
+    thread_launch_counts().clear()
 
 
 def _count(name: str, quant: bool) -> None:
+    key = name + ("_int8" if quant else "")
+    mine = thread_launch_counts()
     with _counts_lock:
-        launch_counts[name + ("_int8" if quant else "")] += 1
+        launch_counts[key] += 1
+        mine[key] = mine.get(key, 0) + 1
 
 
 def launch_count_snapshot() -> tuple:
@@ -125,11 +144,14 @@ def restore_launch_counts(before: tuple) -> None:
 
 
 def add_launch_counts(delta: tuple) -> None:
+    mine = thread_launch_counts()
     with _counts_lock:
         for counts, d in zip((launch_counts, scan_modes, path_counts),
                              delta):
             for k, v in d.items():
                 counts[k] = counts.get(k, 0) + v
+        for k, v in delta[0].items():
+            mine[k] = mine.get(k, 0) + v
 
 
 # ----------------------------------------------------------------------

@@ -52,8 +52,18 @@ Not ported: ``compacted_segment_histogram`` and ``capacity_schedule``
 the TPU layout work (``histogram_matmul*``, ``segment_histogram_sorted*``,
 ``pack_cols_u32*``, ``take_from_table``), with their integer twins
 (``histogram_matmul_int``, ``histogram_scatter_int``, the packed,
-sorted and compacted ``*_int`` variants); ``psum_quant_hist`` (the
-sharded int16/int32 all-reduce) waits for multi-GPU training.
+sorted and compacted ``*_int`` variants).
+
+Sharded training (``parallel/``): ``fixed_point_scales`` and
+``quantize_gradients`` take the process group, so that every rank
+scales by the global peak (and, in fixed point, the global row count:
+otherwise the ranks' int64 sums would not add); ``hist_payload_bytes``
+counts what one histogram sum moves.  Quantized level histograms are
+summed as int32 (``parallel.collectives.psum_tiered``, exact in any
+order).  The JAX package narrows that sum to int16 where ``rows *
+hess_levels < 2**15``; neither NCCL nor gloo reduces int16, and the
+bound holds only below ~11,000 rows at the default 4 bins, so the port
+has no narrow wire (ROADMAP A9's remainder).
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,14 +92,20 @@ def _vals_t(grad: torch.Tensor, hess: torch.Tensor,
     return torch.stack([grad, hess, torch.ones_like(grad)]) * mask[None, :]
 
 
-def fixed_point_scales(vals_t: torch.Tensor) -> Tuple[int, int, int]:
+def fixed_point_scales(vals_t: torch.Tensor, group=None,
+                       rows: Optional[int] = None) -> Tuple[int, int, int]:
     """Per-channel power-of-two scales ``s_c = 62 - ceil(log2(max_i
     |v_c,i| * n + 1))``: any sum of at most n scaled values fits in
     int64, and rounding a value to an integer at that scale costs at
-    most 2**-(s_c + 1) (dyadic values like k/8 convert exactly)."""
-    n = max(int(vals_t.shape[1]), 1)
-    peak = vals_t.abs().amax(dim=1).to(torch.float64).cpu().tolist()
-    return tuple(_scale_for(m * n) for m in peak)
+    most 2**-(s_c + 1) (dyadic values like k/8 convert exactly).  Under
+    a process ``group`` the peak is the max over the ranks and ``rows``
+    the rows over every rank, so that every rank scales alike."""
+    from ..parallel.collectives import pmax_tiered
+    n = max(int(vals_t.shape[1] if rows is None else rows), 1)
+    peak = (vals_t.abs().amax(dim=1) if vals_t.shape[1]
+            else vals_t.new_zeros(vals_t.shape[0]))
+    peak = pmax_tiered(peak.to(torch.float64), group)
+    return tuple(_scale_for(m * n) for m in peak.cpu().tolist())
 
 
 def _scale_for(bound: float) -> int:
@@ -189,12 +205,31 @@ HIST_METHODS = ("auto", "matmul", "matmul_f32", "scatter", "pallas", "fused")
 
 _counts_lock = threading.Lock()
 launch_counts = {"histogram_pallas": 0}
+_thread = threading.local()
+
+
+def thread_launch_counts() -> dict:
+    """The calling thread's B6 launches (one rank's, when ranks train in
+    threads of one process)."""
+    d = getattr(_thread, "counts", None)
+    if d is None:
+        d = _thread.counts = {k: 0 for k in launch_counts}
+    return d
+
+
+def _count(name: str) -> None:
+    mine = thread_launch_counts()
+    with _counts_lock:
+        launch_counts[name] += 1
+        mine[name] += 1
 
 
 def reset_launch_counts() -> None:
     with _counts_lock:
         for k in launch_counts:
             launch_counts[k] = 0
+    for k in thread_launch_counts():
+        thread_launch_counts()[k] = 0
 
 
 def histogram_plain(binned_t: torch.Tensor, vals_t: torch.Tensor,
@@ -244,8 +279,7 @@ def _histogram_cuda(binned_t, vals_t, num_bins, scales):
             torch.cuda.current_stream(binned_t.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"histogram kernel launch failed: CUDA error {rc}")
-    with _counts_lock:
-        launch_counts["histogram_pallas"] += 1
+    _count("histogram_pallas")
     return out
 
 
@@ -351,7 +385,8 @@ def quant_levels(num_bins: int) -> Tuple[int, int]:
 
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        weights: torch.Tensor, num_bins: int, key,
-                       stochastic: bool = True):
+                       stochastic: bool = True, group=None,
+                       draw_rows: Optional[int] = None):
     """One class's grad/hess as int8 levels (the JAX function's
     arithmetic, f32 throughout).
 
@@ -365,7 +400,14 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     The scales stay device tensors on purpose: PyTorch's CUDA true
     division by a CPU scalar multiplies by its reciprocal, which can
     round differently from a division; dividing by a tensor on the
-    card divides."""
+    card divides.
+
+    Under a process ``group`` (a rank's rows) the peaks are the max over
+    the ranks (the JAX function's ``pmax``), and the draws are made at
+    ``draw_rows`` rows (the rank's padded block, as the JAX package's
+    shard draws them) of which the first n are this rank's; the caller
+    folds the rank into ``key``."""
+    from ..parallel.collectives import pmax_tiered
     from ..utils import threefry
     qg, qh = quant_levels(num_bins)
     gw = grad * weights
@@ -373,10 +415,15 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     dev = gw.device
     lg = torch.tensor(qg, dtype=torch.float32, device=dev)
     lh = torch.tensor(qh, dtype=torch.float32, device=dev)
-    g_scale = torch.clamp_min(gw.abs().amax(), 1e-30) / lg
-    h_scale = torch.clamp_min(hw.abs().amax(), 1e-30) / lh
+    peaks = torch.stack([gw.abs().amax(), hw.abs().amax()]) if gw.numel() \
+        else torch.zeros(2, dtype=torch.float32, device=dev)
+    peaks = pmax_tiered(peaks, group)
+    g_scale = torch.clamp_min(peaks[0], 1e-30) / lg
+    h_scale = torch.clamp_min(peaks[1], 1e-30) / lh
     if stochastic:
-        u = threefry.uniform(key, (2,) + tuple(gw.shape), device=dev)
+        n = int(gw.shape[0])
+        u = threefry.uniform(key, (2, max(n, int(draw_rows or 0))),
+                             device=dev)[:, :n]
         gq = torch.floor(gw / g_scale + u[0])
         hq = torch.floor(hw / h_scale + u[1])
     else:
@@ -422,3 +469,16 @@ def segment_histogram_int(binned_t: torch.Tensor, gq: torch.Tensor,
     slot_m = torch.where(member.to(torch.bool), slot.to(torch.int32),
                          int(num_slots)).to(torch.int32).contiguous()
     return fused.accumulate(binned_t, vals, slot_m, num_slots, num_bins)
+
+
+# ----------------------------------------------------------------------
+# sums over a process group (sharded training)
+# ----------------------------------------------------------------------
+
+def hist_payload_bytes(num_features: int, num_bins: int,
+                       quant: bool = False) -> int:
+    """The bytes one [*, F, B] histogram sum moves: the f32 pipeline's
+    three int64 fixed-point channels (the JAX package moves three f32
+    ones), or the quantized pipeline's two int32 level channels.
+    Accounting only, kept next to the dtypes that are summed."""
+    return num_features * num_bins * (2 * 4 if quant else 3 * 8)

@@ -42,12 +42,24 @@ _CAT_HUGE = float(np.float32(2147483648.0))
 
 _counts_lock = threading.Lock()
 launch_counts = {"ingest": 0}
+_thread = threading.local()
+
+
+def thread_launch_counts() -> dict:
+    """The calling thread's B3 launches (one rank's, when ranks bin in
+    threads of one process)."""
+    d = getattr(_thread, "counts", None)
+    if d is None:
+        d = _thread.counts = {k: 0 for k in launch_counts}
+    return d
 
 
 def reset_launch_counts() -> None:
     with _counts_lock:
         for k in launch_counts:
             launch_counts[k] = 0
+    for k in thread_launch_counts():
+        thread_launch_counts()[k] = 0
 
 
 class IngestUnsupported(ValueError):
@@ -339,8 +351,10 @@ def _bin_cuda(X: torch.Tensor, binner: "DeviceBinner") -> torch.Tensor:
             if rc != 0:
                 raise RuntimeError(
                     f"ingest kernel launch failed: CUDA error {rc}")
+            mine = thread_launch_counts()
             with _counts_lock:
                 launch_counts["ingest"] += 1
+                mine["ingest"] += 1
             first += len(launch)
     return out
 

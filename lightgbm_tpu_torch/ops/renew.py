@@ -18,7 +18,7 @@ comes with those objectives.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,16 +28,21 @@ from .split import fixed_to_f32
 
 def quant_train_renew_leaf(leaf_id: torch.Tensor, grad: torch.Tensor,
                            hess: torch.Tensor, weight: torch.Tensor,
-                           num_leaves: int
+                           num_leaves: int, group=None,
+                           rows: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """True per-leaf sums ``(sum g * w, sum h * w)``, each [num_leaves]
-    f32: the f32 of the exact sum of each leaf's rows."""
+    f32: the f32 of the exact sum of each leaf's rows (under a process
+    ``group``, of every rank's rows: the scales take the group's peak
+    and ``rows``, the integer sums are summed over the group)."""
+    from ..parallel.collectives import psum_tiered
     from . import fused
     vals = _vals_t(grad, hess, weight).contiguous()
-    scales = fixed_point_scales(vals)
+    scales = fixed_point_scales(vals, group, rows)
     leaf = leaf_id.to(torch.int32)[None, :].contiguous()
     slot = torch.zeros(leaf.shape[1], dtype=torch.int32, device=leaf.device)
-    sums = fused.accumulate(leaf, vals, slot, 1, num_leaves, scales)[0, :, 0]
+    sums = psum_tiered(fused.accumulate(leaf, vals, slot, 1, num_leaves,
+                                        scales)[0, :, 0], group)
     out = fixed_to_f32(sums, scales, 0)                      # [3, L]
     return out[0], out[1]
 

@@ -19,6 +19,9 @@ float32 precision (the device path's exactness domain), with NaNs,
 zeros and out-of-range categories planted; ``salt_rows`` overwrites the
 first rows with the routing edge cases.
 
+``thread_ranks`` runs a function in W thread ranks, each in its own
+gloo group (the CPU tests of sharded training).
+
 ``one_thread`` (built on first access, so that importing this module
 needs no pytest) is the autouse module fixture the ``test_torch_*``
 files import: their CPU trainings and predictions run on one torch
@@ -411,6 +414,46 @@ def one_hot_csr(X: np.ndarray):
     indptr = np.arange(0, n * len(AIRLINE_COLUMNS) + 1, len(AIRLINE_COLUMNS))
     return sps.csr_matrix((vals.reshape(-1), cols.reshape(-1), indptr),
                           shape=(n, sum(widths)))
+
+
+def thread_ranks(world: int, fn, timeout: float = 300.0,
+                 name: str = "ranks") -> list:
+    """Run ``fn(rank, group)`` for ranks 0..world-1 in threads of this
+    process, each rank in its own gloo process group over one
+    ``HashStore`` and inside ``parallel.network.use_group(group)``;
+    returns the results in rank order.  Every join and every collective
+    has ``timeout``; a rank's exception is raised here, and a rank still
+    running after the timeout fails the call."""
+    import datetime
+    import threading
+
+    import torch.distributed as dist
+
+    from .parallel.network import use_group
+    store = dist.HashStore()
+    out, errs = [None] * world, []
+
+    def run(r):
+        try:
+            pg = dist.ProcessGroupGloo(
+                dist.PrefixStore(name, store), r, world,
+                datetime.timedelta(seconds=timeout))
+            with use_group(pg):
+                out[r] = fn(r, pg)
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errs.append((r, e))
+
+    threads = [threading.Thread(target=run, args=(r,), daemon=True)
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if errs:
+        raise errs[0][1]
+    if any(t.is_alive() for t in threads):
+        raise TimeoutError(f"a rank of {world} ran past {timeout} s")
+    return out
 
 
 _ONE_THREAD = None

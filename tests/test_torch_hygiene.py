@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
                 "ops.split", "tools.torch_ingest_compare", "compat",
                 "io_utils", "sklearn", "utils.file_io", "utils.shap",
                 "fleet", "fleet.lowprec", "native", "native.build",
-                "serving.loadgen", "plotting"):
+                "serving.loadgen", "plotting", "parallel",
+                "parallel.collectives", "parallel.network",
+                "parallel.learners", "parallel.dist_data",
+                "tools.torch_dist_check"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 

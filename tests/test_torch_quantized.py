@@ -417,7 +417,9 @@ def test_zero_monotone_constraints_fall_back_to_f32():
 def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
     """Quantization with monotone constraints, extra trees or CEGB (on
     the serial grower) trains f32 histograms, with the JAX package's
-    warning, once; the trees are the f32 run's."""
+    warning, once; the trees are the f32 run's.  Extra trees and CEGB
+    also take ``tpu_hist_method=fused`` off the fused arm, and that
+    warning (the JAX package's too) comes once beside it."""
     from lightgbm_tpu_torch.boosting import gbdt as tgbdt
     warnings = []
     monkeypatch.setattr(tgbdt, "log_warning", warnings.append)
@@ -425,6 +427,10 @@ def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
     p = {**BASE, **BINARY, "tpu_hist_method": "fused", **params}
     bt = lt.train(dict(p), lt.Dataset(X, label=y, device="cpu"), 2)
     assert not bt.boosting._quant_on and not bt.boosting.grower_cfg.quant
+    fused_off = [w for w in warnings if "does not apply" in w]
+    assert len(fused_off) == (0 if blocker == "monotone_constraints"
+                              else 1)
+    warnings = [w for w in warnings if w not in fused_off]
     assert len(warnings) == 1 and blocker in warnings[0]
     assert "falling back to f32" in warnings[0]
     jb = lgb.Booster(dict(p), train_set=lgb.Dataset(X, label=y))
@@ -435,11 +441,28 @@ def test_quantized_blockers_fall_back_to_f32(params, blocker, monkeypatch):
         bt.model_to_string().partition("parameters:")[0]
 
 
-@pytest.mark.parametrize("params,match", [
-    ({"tree_learner": "data"}, "sharded training"),
-])
-def test_unported_combinations_raise(params, match):
+@pytest.mark.parametrize("params", [{"tree_learner": "data"}])
+def test_unported_combinations_raise(params):
+    """Once refused as "sharded training": quantized data-parallel
+    training on two thread ranks.  Each rank folds its index into the
+    rounding key, so the trees are not the serial run's; they are the
+    same on both ranks and on a second run, and the fit is the serial
+    run's to 1e-2 in training logloss."""
+    from lightgbm_tpu_torch.testing import thread_ranks
     X, y = _data(5, 300, "binary")
-    with pytest.raises(NotImplementedError, match=match):
-        lt.train({**BASE, **BINARY, **params},
-                 lt.Dataset(X, label=y, device="cpu"), 1)
+    p = {**BASE, **BINARY, **params}
+
+    def run(rank, group):
+        ev = {}
+        ds = lt.Dataset(X, label=y, device="cpu")
+        bst = lt.train(dict(p), ds, 3, valid_sets=[ds], evals_result=ev,
+                       verbose_eval=False)
+        assert bst.boosting._quant_on and bst.boosting.world == 2
+        return bst.model_to_string(), ev["training"]["binary_logloss"][-1]
+    first, second = thread_ranks(2, run), thread_ranks(2, run)
+    assert first[0] == first[1] == second[0] == second[1]
+    ev = {}
+    ds = lt.Dataset(X, label=y, device="cpu")
+    lt.train({**BASE, **BINARY}, ds, 3, valid_sets=[ds], evals_result=ev,
+             verbose_eval=False)
+    assert abs(first[0][1] - ev["training"]["binary_logloss"][-1]) < 1e-2

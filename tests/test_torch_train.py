@@ -274,17 +274,27 @@ def test_binary_gradients_within_two_ulps():
     np.testing.assert_allclose(th, jh, rtol=0, atol=4 * 2.0 ** -23)
 
 
-@pytest.mark.parametrize("params,match", [
-    ({"tree_learner": "data"}, "sharded training"),
-    ({"tree_learner": "voting"}, "sharded training"),
-    ({"num_machines": 2}, "sharded training"),
+@pytest.mark.parametrize("params", [
+    {"tree_learner": "data"},
+    {"tree_learner": "voting"},
+    {"num_machines": 2},
 ])
-def test_out_of_slice_configurations_raise(params, match):
+def test_out_of_slice_configurations_raise(params):
+    """Once refused as "sharded training": each now trains on two thread
+    ranks (``num_machines`` alone keeps the serial learner; voting's
+    default top_k of 20 elects all six features) and every rank's trees
+    are the serial grower's, byte for byte."""
+    from lightgbm_tpu_torch.testing import thread_ranks
     X, y = _data(5, 300, "binary")
-    with pytest.raises(NotImplementedError, match=match):
-        lt.train({**BASE, "objective": "binary", **params},
-                 lt.Dataset(X, label=y, device="cpu"), 1,
-                 verbose_eval=False)
+    p = {**BASE, "objective": "binary", "tpu_tree_growth": "serial"}
+
+    def text(bst):
+        return bst.model_to_string().partition("parameters:")[0]
+    want = text(lt.train(dict(p), lt.Dataset(X, label=y, device="cpu"), 3))
+    texts = thread_ranks(2, lambda rank, group: text(lt.train(
+        {**p, **params}, lt.Dataset(X, label=y, device="cpu"), 3,
+        verbose_eval=False)))
+    assert texts == [want, want]
 
 
 @pytest.mark.parametrize("params,raises", [
