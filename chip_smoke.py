@@ -97,7 +97,7 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   grower's trees; the staged arm's tree profiled, timed by section and
   its synchronising calls counted) and 3 rounds of coupled CEGB on the
   one-hot table (EFB, the staged arm on group histograms); each against
-  its plain-version run (3 rounds), the launches exact (B6 or B4 and B5
+  its plain-version run's first 2 trees, the launches exact (B6 or B4 and B5
   once a tree and once a split step) and the host reads a tree counted;
 - ``sharded_train`` (queue A9): two ranks as two spawned processes on
   the one card, in an explicit gloo group over a FileStore (NCCL refuses
@@ -110,6 +110,22 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   left the serial tree is printed as ``equals_serial``), each rank's
   launches and collectives held to ``shard_expected``; a
   rank that fails fails the script;
+- ``stream_train`` (queue A10): the training run's 1,000,000 x 28 f32
+  rows through ``Dataset.from_sample`` (bins from 200,000 rows) and
+  ``push_rows`` in 100,000-row chunks (B3 once a chunk), spilled to a
+  store of eight 131,072-row blocks whose bytes equal the resident
+  twin's matrix; 10 rounds streamed (the root B6 a block, each round B4
+  a block and one B5) and resident, f32 and quantized, model texts
+  byte-identical; 3 rounds with the plain versions and 3 at 250,000-row
+  blocks equal to the first 3 trees; launches exact; the
+  card's peaks held to 0.75-1.05 x the planner's predictions, the
+  host's (VmRSS sampled over a spilled construct and 3 streamed trees
+  in a fresh process) beside its prediction, and the planner's
+  verdict at half the resident peak; then ``BulkScorer`` over the rows
+  in 65,536-row blocks (B1 once a block), every banked block bit-equal
+  to ``Booster.predict(raw_score=True)`` on the serving epilogue's path,
+  and a run stopped after 3 blocks and resumed byte-identical to an
+  uninterrupted one;
 - ``boost_variants``: ``dart`` (a tree must be dropped), ``rf``
   (averaged output), ``regression_l1`` and ``quantile`` (the percentile
   renewal on the card), 5 rounds each on ``mono_train``'s dataset, each
@@ -277,8 +293,11 @@ GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
 # even ones 1e2.  higgs_forced_1m a
 # 3-level forced plan (the features below, at training-sample medians)
 # and forced bin bounds (quartiles) on two of its features; each config
-# against its plain-version twin over SERIAL_PLAIN_ROUNDS
-SERIAL_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3
+# against its plain-version twin over SERIAL_PLAIN_ROUNDS; the forced
+# plan's variants, the arms and the EFB run train SERIAL_SHORT_ROUNDS
+# (2: a plain-version serial tree takes 4-7 s on the card's host, and
+# the script has a time limit)
+SERIAL_ROUNDS, SERIAL_SHORT_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3, 2
 CEGB_PARAMS = dict(
     TRAIN_PARAMS, cegb_tradeoff=1.0, cegb_penalty_split=1e-4,
     cegb_penalty_feature_coupled=[1e5 if f % 2 else 1e2
@@ -314,6 +333,23 @@ SPARSE_HOST_ROWS = 100_000
 # first OVERSIZE_MEMBERS of those features, whose tables exceed 96 KiB
 WIDE_INGEST_ROWS, WIDE_INGEST_FEATURES = 200_000, 2_000
 WIDE_SAMPLE_ROWS, WIDE_ORACLE_ROWS, OVERSIZE_MEMBERS = 10_000, 20_000, 120
+# stream_train (queue A10): the training run's rows through
+# Dataset.from_sample (bins from the first STREAM_SAMPLE_ROWS rows) and
+# push_rows in STREAM_PUSH_ROWS-row f32 chunks, spilled in
+# STREAM_BLOCK_ROWS-row blocks (8 at 1 M rows) and trained streamed for
+# STREAM_ROUNDS rounds, f32 and quantized, against the resident twin;
+# STREAM_SHORT_ROUNDS with the kernels' plain versions, and at
+# STREAM_BIG_BLOCK_ROWS-row blocks (4); bulk
+# scoring of the f32 rows stored in BULK_BLOCK_ROWS-row blocks (16),
+# stopped after BULK_STOP_BLOCKS blocks and resumed
+STREAM_SAMPLE_ROWS, STREAM_PUSH_ROWS = 200_000, 100_000
+STREAM_BLOCK_ROWS, STREAM_BIG_BLOCK_ROWS = 131_072, 250_000
+STREAM_ROUNDS, STREAM_SHORT_ROUNDS = 10, 3
+BULK_BLOCK_ROWS, BULK_STOP_BLOCKS = 65_536, 3
+# a training run's card peak (torch.cuda.max_memory_allocated) over the
+# planner's prediction: at most 5% above it (the election must not call
+# a run that does not fit feasible), and not below three quarters of it
+PEAK_RATIO = (0.75, 1.05)
 
 
 def emit(obj) -> None:
@@ -3248,7 +3284,7 @@ def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
     # logloss need not fall)
     _, parity = serial_run(lt, fds, fvs,
                            dict(fparams, tpu_forced_split_parity=True),
-                           SERIAL_PLAIN_ROUNDS, falling=None)
+                           SERIAL_SHORT_ROUNDS, falling=None)
     add(parity["launches"])
     bad = {"feature": 0, "threshold": med[0],
            "left": {"feature": 0,
@@ -3258,7 +3294,7 @@ def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
         _json.dump(bad, fh)
     bst, abandoned = serial_run(
         lt, fds, fvs, dict(fparams, forcedsplits_filename=bad_path),
-        SERIAL_PLAIN_ROUNDS)
+        SERIAL_SHORT_ROUNDS)
     add(abandoned["launches"])
     for t in bst.models:
         if (int(t.split_feature[0]) != 0
@@ -3278,12 +3314,12 @@ def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
             ("staged", SERIAL_PARAMS),
             ("quant", dict(QUANT_PARAMS, tpu_tree_growth="serial")),
             ("fused", dict(SERIAL_PARAMS, tpu_hist_method="fused"))):
-        bst, row = serial_run(lt, ds, vs, params, SERIAL_PLAIN_ROUNDS, arm)
+        bst, row = serial_run(lt, ds, vs, params, SERIAL_SHORT_ROUNDS, arm)
         add(row["launches"])
         if bst.boosting.grower.fused_arm != (arm == "fused"):
             failed.append(f"{arm}: the serial grower took the wrong arm")
         rparams = dict(params, tpu_tree_growth="rounds")
-        rb = lt.train(rparams, ds, SERIAL_PLAIN_ROUNDS, verbose_eval=False)
+        rb = lt.train(rparams, ds, SERIAL_SHORT_ROUNDS, verbose_eval=False)
         a, b = bst.model_to_string(), rb.model_to_string()
         row["equals_rounds_grower"] = trees_of(a) == trees_of(b)
         if not row["equals_rounds_grower"]:
@@ -3302,7 +3338,7 @@ def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
     F1 = efb_ds.num_total_features
     oparams = dict(TRAIN_PARAMS, cegb_penalty_feature_coupled=[
         round(float(c), 3) for c in np.geomspace(1e2, 1e3, F1)])
-    _, onehot = serial_run(lt, efb_ds, None, oparams, SERIAL_PLAIN_ROUNDS,
+    _, onehot = serial_run(lt, efb_ds, None, oparams, SERIAL_SHORT_ROUNDS,
                            falling=None)
     add(onehot["launches"])
     row = {"phase": "serial_train", "higgs_cegb_1m": cegb,
@@ -3588,6 +3624,352 @@ def phase_sharded_train(lt, f32_run, smi, device="cuda", rows=None,
                      "its plain-version run's; both ranks equal; "
                      "launches and collectives exact per rank"})
     return summed
+
+
+def stream_dataset(lt, X, y, spill, block_rows, push_rows=None):
+    """``Dataset.from_sample`` of the first ``STREAM_SAMPLE_ROWS`` rows on
+    the card and ``push_rows`` of every row in ``STREAM_PUSH_ROWS``-row
+    f32 chunks (``spill``: the store's directory, or None for the
+    resident matrix); returns (dataset, seconds)."""
+    push_rows = push_rows or STREAM_PUSH_ROWS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = lt.Dataset.from_sample(X[:STREAM_SAMPLE_ROWS], len(X), spill=spill,
+                                spill_block_rows=block_rows, device="cuda")
+    for s in range(0, len(X), push_rows):
+        ds.push_rows(X[s:s + push_rows])
+    ds.set_label(y)
+    torch.cuda.synchronize()
+    return ds, time.perf_counter() - t0
+
+
+def stream_run(lt, ds, params, rounds) -> dict:
+    """``rounds`` ``update()`` calls of a fresh booster on ``ds``: the
+    booster, seconds a tree, and the card's peak bytes above what was
+    allocated before (``torch.cuda.max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bst = lt.Booster(dict(params), train_set=ds)
+    for _ in range(rounds):
+        bst.update()
+    torch.cuda.synchronize()
+    return {"bst": bst, "s_per_tree": (time.perf_counter() - t0) / rounds,
+            "device_peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def stream_host_worker(_rank, tmp):
+    """``phase_stream_train``'s host reading in a fresh process (spawned):
+    a small streamed run first (CUDA, the kernels and the allocator
+    warm), then the phase's spilled construct and ``STREAM_SHORT_ROUNDS``
+    streamed trees of the training rows, while a thread samples VmRSS
+    every millisecond.  Writes the growth of VmRSS over that run (its
+    peak less its value at the start, the rows already made) beside
+    ``predict_host_peak_bytes`` to ``tmp``/host.json."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.data import host_rss_bytes, host_rss_peak_bytes
+    from lightgbm_tpu_torch.ops import planner
+    from lightgbm_tpu_torch.testing import higgs_like
+    X, y = higgs_like(TRAIN_ROWS, seed=11)
+    n, F = X.shape
+    warm, _ = stream_dataset(lt, X[:STREAM_SAMPLE_ROWS], y[:STREAM_SAMPLE_ROWS],
+                             os.path.join(tmp, "warm"), STREAM_BLOCK_ROWS // 4)
+    stream_run(lt, warm, TRAIN_PARAMS, 1)
+    del warm
+    start = host_rss_bytes()
+    peak = [start]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.001):
+            peak[0] = max(peak[0], host_rss_bytes())
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        ds, _ = stream_dataset(lt, X, y, os.path.join(tmp, "st"),
+                               STREAM_BLOCK_ROWS)
+        stream_run(lt, ds, TRAIN_PARAMS, STREAM_SHORT_ROUNDS)
+    finally:
+        done.set()
+        t.join(10)
+    peak[0] = max(peak[0], host_rss_bytes())
+    with open(os.path.join(tmp, "host.json"), "w") as f:
+        json.dump({"rss_at_start_bytes": start,
+                   "rss_growth_peak_bytes": peak[0] - start,
+                   "vmhwm_bytes": host_rss_peak_bytes(),
+                   "predicted_stream_host_peak_bytes":
+                       planner.predict_host_peak_bytes(
+                           n, F, 1, STREAM_BLOCK_ROWS)[0],
+                   "predicted_resident_host_peak_bytes":
+                       planner.predict_host_peak_bytes(n, F, 1)[0]}, f)
+
+
+def stream_host_peak() -> dict:
+    """``stream_host_worker``'s reading, in a fresh spawned process (the
+    phase's own host memory, not that of the phases before it)."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as torch_mp
+    tmp = tempfile.mkdtemp(prefix="lgbt-stream-host-")
+    try:
+        ctx = torch_mp.start_processes(stream_host_worker, args=(tmp,),
+                                       nprocs=1, join=False,
+                                       start_method="spawn")
+        deadline = time.perf_counter() + SHARD_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise TimeoutError("the host-peak process ran past "
+                                   f"{SHARD_TIMEOUT_S} s")
+        with open(os.path.join(tmp, "host.json")) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def stream_expected(grower, quant: bool) -> dict:
+    """Each kernel's exact launches over a streamed grower's trees: T
+    trees, R rounds run (no dead rounds: the stop test is read every
+    round), nb blocks.  A tree's root is one B6 a block (f32) or one B4
+    int8 a block with its sort (quantized), and one B5 search; a round is
+    one B4 a block with its sort and one B5 scan of the summed arena; B2
+    never runs."""
+    T = len(grower.round_counts)
+    R = sum(int(live) for _, live in grower.round_counts)
+    nb = grower.store.num_blocks
+    if quant:
+        return {"fused_frontier_accumulate_int8": nb * (T + R),
+                "fused_slot_order_int8": nb * (T + R),
+                "fused_sibling_scan_int8": R + T, "histogram_pallas": 0,
+                "fused_frontier_splits_int8": 0,
+                **{k: 0 for k in F32_ENTRIES}}
+    return {"histogram_pallas": nb * T, "fused_frontier_accumulate": nb * R,
+            "fused_slot_order": nb * R, "fused_sibling_scan": R + T,
+            "fused_frontier_splits": 0, **{k: 0 for k in INT8_ENTRIES}}
+
+
+def phase_stream_train(lt, pk, train_data, smi) -> dict:
+    """The out-of-core data plane (queue A10) at the training run's
+    width: a spilled ``from_sample`` + ``push_rows`` construct (B3 once a
+    chunk) whose blocks hold the resident twin's bytes; streamed training
+    (f32 and quantized) byte-identical to resident training, launches
+    exact; 3 rounds with the plain versions and 3 at 4 blocks equal to
+    the first 3 trees; the planner's verdict under a card budget
+    below the resident peak; bulk scoring through ``BulkScorer`` (B1 once
+    a block) bit-equal to ``Booster.predict``, stopped and resumed
+    byte-identically.  Returns the phase's launches (B3: the spilled
+    construct; B4/B5/B6: the f32 and quantized streamed runs; B1: the
+    uninterrupted bulk run)."""
+    import shutil
+    import tempfile
+
+    from lightgbm_tpu_torch.data import (BlockStore, BulkScorer, ScoreSink,
+                                         host_rss_bytes)
+    from lightgbm_tpu_torch.ops import planner
+    from lightgbm_tpu_torch.predict import DeviceForest
+    t_phase = time.perf_counter()
+    rss_start = host_rss_bytes()
+    X, y = train_data[0], train_data[1]
+    n, F = X.shape
+    tmp = tempfile.mkdtemp(prefix="lgbt-stream-")
+    try:
+        reset_training_counts()
+        sds, construct_s = stream_dataset(lt, X, y, os.path.join(tmp, "st"),
+                                          STREAM_BLOCK_ROWS)
+        chunks = -(-n // STREAM_PUSH_ROWS)
+        store = sds._block_store
+        b3 = kernel_launches()["ingest"]
+        if b3 != chunks:
+            raise AssertionError(f"B3 launched {b3} times for {chunks} "
+                                 "pushed chunks")
+        if sds.binned_t is not None or store.num_blocks != -(
+                -n // STREAM_BLOCK_ROWS):
+            raise AssertionError("the spilled Dataset holds a matrix on the "
+                                 f"card or {store.num_blocks} blocks")
+        rds, resident_construct_s = stream_dataset(lt, X, y, None, None)
+        for i in range(store.num_blocks):
+            s, r = store.block_bounds(i)
+            if not np.array_equal(np.asarray(store.read_block(i)),
+                                  rds.binned_t[:, s:s + r].cpu().numpy()):
+                raise AssertionError(f"spilled block {i} differs from the "
+                                     "resident matrix")
+        runs, launches, texts = {}, {}, {}
+        for name, params in (("f32", TRAIN_PARAMS), ("quant", QUANT_PARAMS)):
+            reset_training_counts()
+            st = stream_run(lt, sds, params, STREAM_ROUNDS)
+            got = kernel_launches()
+            g = st["bst"].boosting.grower
+            if type(g).__name__ != "StreamGrower":
+                raise AssertionError(f"{name}: the booster did not stream")
+            want = stream_expected(g, name == "quant")
+            for k, v in want.items():
+                if got[k] != v:
+                    raise AssertionError(f"{name}: {k} launched {got[k]} "
+                                         f"times, not {v}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            res = stream_run(lt, rds, params, STREAM_ROUNDS)
+            if res["bst"].boosting._stream is not None:
+                raise AssertionError("the resident twin streamed")
+            texts[name] = st["bst"].model_to_string()
+            if texts[name] != res["bst"].model_to_string():
+                raise AssertionError(f"{name}: the streamed model text "
+                                     "differs from the resident run's")
+            T = len(g.round_counts)
+            plan = st["bst"].boosting.stream_plan
+            runs[name] = {
+                "s_per_tree": st["s_per_tree"],
+                "resident_s_per_tree": res["s_per_tree"],
+                "rounds_per_tree": [int(live) for _, live in g.round_counts],
+                "block_passes_per_tree": g.pump.passes / T,
+                "h2d_bytes_per_tree": g.pump.h2d_bytes / T,
+                "host_reads_per_tree": g.host_reads / T,
+                "launches": {k: v for k, v in got.items() if v},
+                "device_peak_bytes": st["device_peak_bytes"],
+                "predicted_stream_device_peak_bytes":
+                    plan.predicted_device_peak_bytes,
+                "resident_device_peak_bytes": res["device_peak_bytes"],
+                "predicted_resident_device_peak_bytes":
+                    planner.predict_peak_bytes(
+                        n, F, 255, params["num_leaves"], 1,
+                        name == "quant")[0]}
+            for mode in ("", "resident_"):
+                ratio = (runs[name][mode + "device_peak_bytes"]
+                         / runs[name]["predicted_" + (mode or "stream_")
+                                      + "device_peak_bytes"])
+                runs[name][mode + "peak_over_predicted"] = ratio
+                if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+                    raise AssertionError(
+                        f"{name} {mode or 'streamed '}card peak "
+                        f"{ratio:.3f} x the planner's prediction, outside "
+                        f"{PEAK_RATIO}")
+            if name == "f32":
+                bst = st["bst"]
+            del st, res
+        saved = plain_kernels()
+        reset_training_counts()
+        try:
+            plain = stream_run(lt, sds, TRAIN_PARAMS, STREAM_SHORT_ROUNDS)
+        finally:
+            restore_kernels(saved)
+        if any(kernel_launches().values()):
+            raise AssertionError("launch counts rose in the plain-version "
+                                 "run")
+        if head_trees(plain["bst"].model_to_string(),
+                      STREAM_SHORT_ROUNDS) != head_trees(
+                          texts["f32"], STREAM_SHORT_ROUNDS):
+            raise AssertionError("the plain versions' streamed trees "
+                                 "differ")
+        plain_s = plain["s_per_tree"]
+        del plain
+        big, _ = stream_dataset(lt, X, y, os.path.join(tmp, "st4"),
+                                STREAM_BIG_BLOCK_ROWS)
+        if big._block_store.num_blocks != -(-n // STREAM_BIG_BLOCK_ROWS):
+            raise AssertionError("the 250,000-row store is not 4 blocks")
+        short = stream_run(lt, big, TRAIN_PARAMS, STREAM_SHORT_ROUNDS)
+        if head_trees(short["bst"].model_to_string(),
+                      STREAM_SHORT_ROUNDS) != head_trees(
+                          texts["f32"], STREAM_SHORT_ROUNDS):
+            raise AssertionError("the 4-block run's trees differ from the "
+                                 "8-block run's first trees")
+        del short, big
+        resident_peak = runs["f32"]["predicted_resident_device_peak_bytes"]
+        verdict = planner.plan_stream(
+            rows=n, features=F, num_bins=255,
+            num_leaves=TRAIN_PARAMS["num_leaves"],
+            device_budget_bytes=int(resident_peak / 2 / planner.HEADROOM))
+
+        # bulk scoring: the f32 rows, BULK_BLOCK_ROWS a block
+        fstore = BlockStore.from_array(os.path.join(tmp, "features"), X,
+                                       BULK_BLOCK_ROWS)
+        dev = DeviceForest(bst._forest(0, STREAM_ROUNDS), "cuda")
+        full = os.path.join(tmp, "sink_full")
+        pk.reset_launch_counts()
+        torch.cuda.synchronize()
+        bulk_base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stats = BulkScorer(dev, fstore, full).run()
+        bulk_peak = torch.cuda.max_memory_allocated() - bulk_base
+        b1 = pk.launch_counts["fused_traverse[leaves]"]
+        if b1 != fstore.num_blocks or pk.launch_counts[
+                "fused_traverse[scores]"] != 0 or not stats["complete"]:
+            raise AssertionError(f"bulk scoring launched B1 {b1} times for "
+                                 f"{fstore.num_blocks} blocks")
+        on_device = stats["epilogue"] == "device"
+        ref = bst.predict(X, raw_score=True, device=on_device)
+        banked = ScoreSink.open_or_create(
+            full, n, 1, BULK_BLOCK_ROWS, fstore.num_blocks,
+            BulkScorer(dev, fstore, full).digest)
+        for i in range(fstore.num_blocks):
+            s, r = fstore.block_bounds(i)
+            if not np.array_equal(banked.read_block(i)[0], ref[s:s + r]):
+                raise AssertionError(f"banked block {i} differs from "
+                                     "Booster.predict(raw_score=True)")
+        last_s, last_r = fstore.block_bounds(fstore.num_blocks - 1)
+        pad = np.zeros((BULK_BLOCK_ROWS, F), np.float32)
+        pad[:last_r] = X[last_s:last_s + last_r]
+        if not np.array_equal(banked.read_block(fstore.num_blocks - 1),
+                              dev.predict_raw_padded(pad)[:, :last_r]):
+            raise AssertionError("the ragged block differs from "
+                                 "predict_raw_padded")
+        device_err = float(np.abs(
+            ref - bst.predict(X, raw_score=True)).max())
+        resumed = os.path.join(tmp, "sink_resumed")
+        part = BulkScorer(dev, fstore, resumed).run(
+            max_blocks=BULK_STOP_BLOCKS)
+        rest = BulkScorer(dev, fstore, resumed).run()
+        if (part["blocks_scored"] != BULK_STOP_BLOCKS
+                or rest["skipped_blocks"] != BULK_STOP_BLOCKS
+                or not rest["complete"]):
+            raise AssertionError(f"resume: {part} then {rest}")
+        for f in sorted(os.listdir(full)):
+            with open(os.path.join(full, f), "rb") as a, \
+                    open(os.path.join(resumed, f), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"resumed sink file {f} differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    host = stream_host_peak()
+    launches["ingest"] = b3
+    launches["fused_traverse[leaves]"] = b1
+    emit({"phase": "stream_train", "rows": n, "features": F,
+          "rounds": STREAM_ROUNDS, "num_leaves": TRAIN_PARAMS["num_leaves"],
+          "construct_s": construct_s,
+          "resident_construct_s": resident_construct_s,
+          "b3_launches": b3, "pushed_chunks": chunks,
+          "store_blocks": store.num_blocks, "store_bytes": store.nbytes(),
+          "block_rows": store.block_rows, "runs": runs,
+          "plain_s_per_tree": plain_s,
+          "host_rss_bytes_at_start": rss_start,
+          "host_rss_bytes": host_rss_bytes(),
+          "host_peak_in_a_fresh_process": host,
+          "plan_at_half_the_resident_peak": verdict.summary(),
+          "bulk": {"blocks": fstore.num_blocks, "block_rows": BULK_BLOCK_ROWS,
+                   "store_bytes": fstore.nbytes(),
+                   "rows_per_s": stats["rows_per_sec"],
+                   "seconds": stats["seconds"], "b1_launches": b1,
+                   "epilogue": stats["epilogue"],
+                   "max_abs_err_vs_device_predict": device_err,
+                   "device_peak_bytes": bulk_peak,
+                   "predicted_device_peak_bytes":
+                       stats["predicted_device_peak_bytes"],
+                   "resumed_after": BULK_STOP_BLOCKS},
+          "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase,
+          "checked": "spilled blocks = resident bytes; B3 once a chunk; "
+                     "streamed text = resident text (f32, quantized); "
+                     "plain-version streamed trees and 4-block trees = "
+                     "the first 8-block trees; launches exact; card "
+                     f"peaks {PEAK_RATIO[0]}-{PEAK_RATIO[1]} x the "
+                     "planner's predictions; banked "
+                     "blocks = "
+                     "Booster.predict(raw_score=True) on the epilogue's "
+                     "path and predict_raw_padded; resumed sink = "
+                     "uninterrupted sink, byte for byte"})
+    return launches
 
 
 def hist_sums_per_tree(mode: str, grower) -> float:
@@ -4002,6 +4384,7 @@ def main() -> int:
     serial_launches = phase_serial_train(lt, train_run, train_data, efb_ds,
                                          train_stats)
     sharded_launches = phase_sharded_train(lt, train_run, smi)
+    stream_launches = phase_stream_train(lt, pk, train_data, smi)
     del train_run, train_data
     mono_launches, mono_modes, mono_ds = phase_mono_train(lt, pk, efb_ds)
     del efb_ds
@@ -4153,14 +4536,18 @@ def main() -> int:
     for row in table:
         if row["name"] in sparse_of:
             row["sparse_cv_launches"] = sparse_launches[sparse_of[row["name"]]]
-    # and on the serial_train and sharded_train paths (every training
-    # entry, f32 and int8; sharded_train's: rank 0's)
+    # and on the serial_train, sharded_train and stream_train paths
+    # (every training entry, f32 and int8; sharded_train's: rank 0's;
+    # stream_train's B1: the bulk scorer's leaves mode)
     for row in table:
         key = row["name"].replace("[int8]", "_int8")
         if key in serial_launches:
             row["serial_train_launches"] = serial_launches[key]
         if key in sharded_launches:
             row["sharded_train_launches"] = sharded_launches[key]
+        key = KERNEL + "[leaves]" if row["name"] == KERNEL else key
+        if key in stream_launches:
+            row["stream_train_launches"] = stream_launches[key]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -103,6 +103,13 @@ class Booster:
             train_set.params.update({k: ds_params[k] for k in diff})
             train_set.constructed = False
             train_set.binned_t = None
+            # a spill store holds the OLD binning: dropped, so the next
+            # streaming election spills again
+            store = getattr(train_set, "_block_store", None)
+            if store is not None:
+                if getattr(train_set, "_block_store_owned", False):
+                    store.cleanup()
+                train_set._block_store = None
             return
         for k in sorted(diff):
             if k == "min_data_in_leaf":

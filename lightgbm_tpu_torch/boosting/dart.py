@@ -35,6 +35,8 @@ class DART(GBDT):
     _quant_ok = False
     # drops and rescales need the host every iteration
     _macro_ok = False
+    # drops re-evaluate saved trees over the resident binned matrix
+    _stream_ok = False
 
     def __init__(self, config, train_set, objective):
         super().__init__(config, train_set, objective)

@@ -59,6 +59,17 @@ grower gets every row and this rank's EFB groups
 (``parallel.learners.feature_layout``).  The configurations the port
 does not cover raise ``NotImplementedError`` naming the ROADMAP item
 that brings them; none is trained another way.
+
+Out-of-core training (``data/stream.py``; the JAX package's
+boosting/gbdt.py:133, :1468-1495): ``maybe_stream_setup`` elects it in
+``__init__`` where ``ops.planner.plan_stream`` rules residency out or
+the Dataset is block-backed, and the booster's grower is then a
+``data.stream.StreamGrower`` over the spill store, so every iteration
+path (chunks of one, GOSS's masks, custom objectives) streams through
+``_grow`` unchanged; such a booster trains one iteration at a time
+(``chunk_supported`` False) and refuses ``rollback_one_iter``; DART and
+RF (``_stream_ok``) and the configurations of
+``data.stream._config_stream_blockers`` train resident.
 """
 
 from __future__ import annotations
@@ -133,6 +144,10 @@ class GBDT:
     # quantized-gradient training applies (the JAX package's DART clears
     # it: its reweighting would compound round-local quantization scales)
     _quant_ok = True
+    # out-of-core streamed training applies (DART and RF clear it, as in
+    # the JAX package); a streamed booster's ``data.stream.StreamContext``
+    _stream_ok = True
+    _stream = None
 
     def __init__(self, config: Config, train_set: Dataset,
                  objective: Optional[ObjectiveFunction]):
@@ -173,6 +188,15 @@ class GBDT:
         self.num_bins = int(self.meta.max_num_bin)
         self.binned_t = self.train_set.binned_t
         self.meta_t = self.meta.tensors(self.device)
+        # the out-of-core election (data/stream.py): where the planner
+        # rules residency out on the card or the host, or the Dataset is
+        # block-backed, the matrix stays in its spill store and every
+        # histogram pass streams its blocks (the JAX package's
+        # boosting/gbdt.py:133)
+        self.stream_plan = None
+        from ..data.stream import maybe_stream_setup
+        if maybe_stream_setup(self):
+            self.binned_t = None
         n = self.num_data
         md = self.train_set.metadata
         if objective is not None:
@@ -344,6 +368,24 @@ class GBDT:
             n_forced=0 if forced_plan is None else len(forced_plan[0]),
             forced_exact_parity=config.tpu_forced_split_parity,
             voting_top_k=config.top_k if tl == "voting" else 0)
+        if self._stream is not None:
+            # the streamed rounds grower over the spill store (streaming
+            # grows by rounds whatever tpu_tree_growth says, as in the JAX
+            # package); a reset to a config it does not cover raises
+            from ..data.stream import StreamGrower, _config_stream_blockers
+            blockers = _config_stream_blockers(self)
+            if blockers:
+                from ..utils.log import LightGBMError
+                raise LightGBMError(
+                    "this booster trains out of core (streamed from its "
+                    "spill store), which requires a streaming-compatible "
+                    "config; unsupported here: " + ", ".join(blockers))
+            self._slot_of_row = self._n_shard = self.layout = None
+            self._rows_t = None      # every row is the grower's
+            self.grower = self._stream.grower = StreamGrower(
+                self._stream.store, self.meta, self.grower_cfg, self.meta_t,
+                self.device)
+            return
         binned, meta, meta_t, shard = self._shard_inputs()
         if serial:
             # one split at a time; it carries the CEGB state across trees
@@ -607,7 +649,7 @@ class GBDT:
         A supported booster runs it as a chunk of one
         (``boosting/macro.py``), so training does not depend on how its
         iterations are chunked."""
-        if grad is None and self.chunk_supported():
+        if grad is None and self._chunk_ok():
             from .macro import run_chunk
             return run_chunk(self, 1)
         self.boost_from_average()
@@ -762,8 +804,17 @@ class GBDT:
         """A device tree's leaf values over the rows of a constructed
         dataset (``depth``/``has_cat``: its depth and whether it has a
         categorical split, when known on the host)."""
-        leaf = predict_leaf_index_binned(tree, dataset.binned_t,
-                                         self.meta_t, depth, has_cat)
+        if dataset.binned_t is None:
+            # a block-backed dataset: its spill store's blocks in turn
+            from ..data.stream import BlockPump
+            leaf = torch.cat([
+                predict_leaf_index_binned(tree, block, self.meta_t, depth,
+                                          has_cat)
+                for _i, _s, _r, block in BlockPump(dataset._block_store,
+                                                   self.device)])
+        else:
+            leaf = predict_leaf_index_binned(tree, dataset.binned_t,
+                                             self.meta_t, depth, has_cat)
         return tree.leaf_value[leaf]
 
     def _tree_pred(self, model_idx: int, dataset) -> torch.Tensor:
@@ -785,6 +836,12 @@ class GBDT:
         gbdt.cpp:422; the JAX package's boosting/gbdt.py:2023-2049)."""
         if self.iter <= 0:
             return
+        if self._stream is not None:
+            raise RuntimeError(
+                "rollback_one_iter re-evaluates trees over the resident "
+                "binned matrix; an out-of-core streamed booster has none "
+                "(DART and rollback stay resident — "
+                "stream_override(force=False))")
         K = self.num_tree_per_iteration
         first = len(self.models) - K
         for k in range(K):
@@ -876,9 +933,19 @@ class GBDT:
                 "resetting the training data of a continued training needs "
                 "the init model's scores of the new rows")
         K = self.num_tree_per_iteration
-        self.train_set = train_set
+        # the election again, for the new set: it streams from its own
+        # store where the planner or its spill says so (a refused config
+        # leaves the booster on its old set)
+        from ..data.stream import maybe_stream_setup
+        kept = self.train_set, self._stream, self.stream_plan
+        self.train_set, self._stream, self.stream_plan = train_set, None, None
+        try:
+            streamed = maybe_stream_setup(self)
+        except Exception:
+            self.train_set, self._stream, self.stream_plan = kept
+            raise
         self.num_data = n = train_set.num_data
-        self.binned_t = train_set.binned_t
+        self.binned_t = None if streamed else train_set.binned_t
         md = train_set.metadata
         if self.objective is not None:
             self.objective.init(md, n, self.device)
@@ -908,16 +975,30 @@ class GBDT:
     # a chunk trains every boosting type but DART (per-iteration drops)
     _macro_ok = True
 
-    def chunk_supported(self) -> bool:
-        """True when ``boosting/macro.py`` can train this booster (False
-        for DART and a custom objective, which need the host every
-        iteration; the engine then trains one iteration at a time)."""
+    def _chunk_ok(self) -> bool:
+        """True when ``boosting/macro.py`` can train this booster's
+        iterations (False for DART and a custom objective, which need the
+        host every iteration)."""
         return type(self)._macro_ok and self.objective is not None
+
+    def chunk_supported(self) -> bool:
+        """True when ``train_chunk`` queues several iterations at once;
+        False where ``_chunk_ok`` is, and for a streamed booster, whose
+        pump is driven from the host (the JAX package's
+        boosting/gbdt.py:1484-1495): the engine then trains one
+        iteration at a time."""
+        return self._chunk_ok() and self._stream is None
 
     def train_chunk(self, c: int, lrs=None) -> bool:
         """Train ``c`` iterations as one chunk; the same model as ``c``
-        calls of ``train_one_iter``.  True when training stopped."""
+        calls of ``train_one_iter``.  A streamed booster trains them one
+        at a time.  True when training stopped."""
         from .macro import run_chunk
+        if self._stream is not None and self._chunk_ok():
+            for j in range(c):
+                if run_chunk(self, 1, None if lrs is None else [lrs[j]]):
+                    return True
+            return False
         return run_chunk(self, c, lrs)
 
     def _chunk_goss_keys(self, its, lrs) -> list:

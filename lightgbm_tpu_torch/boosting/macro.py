@@ -110,7 +110,7 @@ def run_chunk(b, c: int, lrs: Optional[Sequence[float]] = None) -> bool:
     there."""
     if c < 1:
         raise ValueError(f"chunk size must be >= 1, got {c}")
-    if not b.chunk_supported():
+    if not b._chunk_ok():
         raise RuntimeError(
             f"boosting={b.boosting_type!r} with this configuration needs "
             "per-iteration host logic; train it with train_one_iter (the "

@@ -22,6 +22,9 @@ from .gbdt import GBDT, K_EPSILON
 
 class RF(GBDT):
     boosting_type = "rf"
+    # trains resident, as in the JAX package (its running-mean renorm
+    # rides the resident iteration program)
+    _stream_ok = False
 
     def __init__(self, config, train_set, objective):
         if not (config.bagging_freq > 0

@@ -24,9 +24,25 @@ f32 chunks through the binning kernel), or a file path: a binary cache
 written by ``save_binary`` (recognised by its magic bytes, whatever
 the name, and interchangeable with the JAX package's), or a CSV, TSV
 or LibSVM text file (``io_utils.py``; ``two_round`` reads it twice and
-never holds its float matrix).  Streaming and spill are not ported.
-``device=None`` means the CUDA card, and a host without one raises;
-tests pass ``device="cpu"``.
+never holds its float matrix).  ``device=None`` means the CUDA card, and
+a host without one raises; tests pass ``device="cpu"``.
+
+Streamed construction (the JAX package's dataset.py:597-790; reference:
+LGBM_DatasetCreateFromSampledColumn + LGBM_DatasetPushRows, c_api.h:98-
+144): ``Dataset.from_sample`` fits the bins on a row sample and
+``push_rows`` bins chunks of rows (dense or CSR, in any order over
+disjoint ranges) into the preallocated ``binned_t`` on the card; the
+load finishes itself when every row is in.  f32 chunks bin through B3
+over ``data.stream.IngestPump`` (one launch a chunk of
+``ops.planner.INGEST_CHUNK_ROWS`` rows), f64 chunks on the host.  With
+``spill=`` the rows go, in order, to a checksummed block store
+(``data/blockstore.py``) instead, and training streams them
+(``data/stream.py``).  A Dataset whose resident training peak does not
+fit the card (``ops.planner.plan_stream``'s device verdict at
+construct) never allocates ``binned_t``: it bins chunk by chunk straight
+into a spill store, as ``from_sample(spill=True)`` would.  The JAX
+package builds its resident matrix on the host and spills it only when
+a booster elects streaming (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -220,12 +236,29 @@ class Dataset:
         # how the rows were binned: "kernel" (DeviceBinner) or "host"
         self.bin_route = None
         self._binner = None
+        # the out-of-core spill store holding the binned rows instead of
+        # binned_t, and whether this Dataset made it (and deletes it)
+        self._block_store = None
+        self._block_store_owned = False
+        # a from_sample load: rows pushed so far, the append cursor
+        self._streaming = False
+        self._pushed = None
+        self._append_cursor = 0
 
     # -- construction --------------------------------------------------------
 
     def construct(self) -> "Dataset":
         if self.constructed:
             return self
+        if self._streaming:
+            # name the first gap, so that an out-of-order loader sees
+            # where its coverage broke
+            missing = np.flatnonzero(~self._pushed)
+            first = int(missing[0]) if len(missing) else 0
+            raise RuntimeError(
+                f"streaming dataset load incomplete: "
+                f"{int(self._pushed.sum())}/{self.num_data} rows pushed "
+                f"(first unpushed row: {first})")
         t0 = time.perf_counter()
         self._construct_inner()
         self.construct_seconds = time.perf_counter() - t0
@@ -285,8 +318,17 @@ class Dataset:
                                       categorical)
             else:
                 self._fit_bin_mappers(raw, sample_idx, categorical)
-        self.binned_t = (self._bin_sparse(raw) if _is_sparse(raw)
-                         else self._bin_rows(raw))
+        if self.reference is None and self._spill_at_construct():
+            # the resident matrix would not fit the card: bin chunk by
+            # chunk straight into a spill store
+            self._setup_spill(True, self.binned_dtype(), None)
+            self._fill(raw, 0, atomic=False)
+            self._block_store.finalize()
+        elif _is_sparse(raw):
+            self._alloc_binned()
+            self._fill(raw, 0)
+        else:
+            self.binned_t = self._bin_rows(raw).to(self.device)
         self._finish_construct()
 
     def _finish_construct(self) -> None:
@@ -304,36 +346,215 @@ class Dataset:
 
     def _binner_for(self):
         from .ops import ingest as ING
-        if self._binner is None or self._binner.bounds.device != self.device:
+        held = None if self._binner is None else self._binner.bounds.device
+        if held is None or held.type != self.device.type or (
+                self.device.index is not None
+                and held.index != self.device.index):
             self._binner = ING.DeviceBinner(ING.build_ingest_tables(self),
                                             self.device)
         return self._binner
 
-    def _bin_rows(self, raw: np.ndarray) -> torch.Tensor:
-        """Rows into the [G, rows] matrix on the Dataset's device."""
-        if raw.dtype == np.float32:
-            self.bin_route = "kernel"
-            return self._binner_for()(
-                torch.from_numpy(np.ascontiguousarray(raw)).to(self.device))
-        self.bin_route = "host"
+    def _bin_rows(self, raw) -> torch.Tensor:
+        """Rows into their [G, rows] binned matrix: f32 rows (a host
+        array, or a tensor on the Dataset's device) through B3 on the
+        device, other rows on the host (the f64 path; a CPU tensor,
+        uint8 or int32)."""
+        if isinstance(raw, torch.Tensor) or raw.dtype == np.float32:
+            self._note_route("kernel")
+            if not isinstance(raw, torch.Tensor):
+                raw = torch.from_numpy(np.ascontiguousarray(raw)).to(
+                    self.device)
+            return self._binner_for()(raw)
+        self._note_route("host")
         out = np.zeros((raw.shape[0], self.num_groups),
                        dtype=self.binned_dtype())
         self._bin_block(raw, out)
         dt = np.uint8 if out.dtype == np.uint8 else np.int32
-        return torch.from_numpy(
-            np.ascontiguousarray(out.T).astype(dt)).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(out.T).astype(dt))
 
-    def _bin_sparse(self, csr) -> torch.Tensor:
-        """A CSR matrix into [G, n]: ``SPARSE_CHUNK_ROWS`` rows at a time,
-        each chunk densified on the host and binned as dense rows (f32
-        chunks through the binning kernel)."""
-        n = csr.shape[0]
-        dt = torch.uint8 if self.max_group_bin <= 256 else torch.int32
-        out = torch.empty((self.num_groups, n), dtype=dt, device=self.device)
-        for s in range(0, n, SPARSE_CHUNK_ROWS):
-            e = min(s + SPARSE_CHUNK_ROWS, n)
-            out[:, s:e] = self._bin_rows(csr[s:e].toarray())
-        return out
+    # -- streamed construction ---------------------------------------------
+
+    def _spill_at_construct(self) -> bool:
+        """The card side of ``plan_stream``'s verdict for training on
+        this Dataset resident (its own ``num_leaves``,
+        ``use_quantized_grad`` and ``num_class``)."""
+        from .ops.planner import plan_stream
+        p = self.params
+        plan = plan_stream(
+            rows=self.num_data, features=self.num_groups,
+            num_bins=self.max_group_bin,
+            num_leaves=int(p.get("num_leaves", 31)),
+            num_class=max(int(p.get("num_class", 1)), 1),
+            quant=bool(p.get("use_quantized_grad", False)),
+            device=self.device)
+        return not plan.resident_device_ok
+
+    def _alloc_binned(self) -> None:
+        """A zeroed [G, n] ``binned_t`` on the Dataset's device (uint8, or
+        int32 past 256 bins) for chunks to fill."""
+        self.binned_t = torch.zeros(
+            (self.num_groups, self.num_data),
+            dtype=torch.uint8 if self.max_group_bin <= 256 else torch.int32,
+            device=self.device)
+
+    def _binned_chunks(self, raw, base: int = 0):
+        """Bin rows in chunks (``_bin_rows`` each): yields (start, rows,
+        [G, rows] binned tensor) with ``start`` offset by ``base``.  f32
+        rows cross to the Dataset's device over one ``IngestPump`` (B3
+        once a chunk); CSR rows are densified a chunk of
+        ``SPARSE_CHUNK_ROWS`` at a time."""
+        from .data.stream import IngestPump
+        from .ops.planner import INGEST_CHUNK_ROWS
+        step = SPARSE_CHUNK_ROWS if _is_sparse(raw) else INGEST_CHUNK_ROWS
+        if raw.dtype == np.float32:
+            for _i, s, r, chunk in IngestPump(raw, step, device=self.device):
+                yield base + s, r, self._bin_rows(chunk)
+            return
+        for s in range(0, raw.shape[0], step):
+            part = raw[s:s + step]
+            part = part.toarray() if _is_sparse(part) else part
+            yield base + s, part.shape[0], self._bin_rows(part)
+
+    def _note_route(self, route: str) -> None:
+        self.bin_route = (route if self.bin_route in (None, route)
+                          else "mixed")
+
+    def _fill(self, raw, start: int, atomic: bool = True) -> None:
+        """Bin rows ``[start, start + len(raw))`` into ``binned_t``, or
+        append them to the spill store: ``atomic``, every chunk binned
+        before any is appended (a failed push leaves the store as it
+        was), else each chunk as it comes (host memory O(chunk))."""
+        store = self._block_store
+        if store is None:
+            for s, r, t in self._binned_chunks(raw, start):
+                self.binned_t[:, s:s + r] = t
+            return
+        parts = (t.cpu().numpy().T for _s, _r, t in
+                 self._binned_chunks(raw, start))
+        for part in (list(parts) if atomic else parts):
+            store.append_rows(part)
+
+    def _setup_spill(self, spill, dtype, block_rows: Optional[int]) -> None:
+        """Route the binned rows to a block store: ``spill`` a directory,
+        or True for a temporary one this Dataset deletes; ``block_rows``
+        None takes ``plan_stream``'s (or every row)."""
+        import weakref
+
+        from .data.blockstore import BlockStore
+        from .data.stream import default_spill_dir
+        path = (spill if isinstance(spill, (str, os.PathLike))
+                else default_spill_dir())
+        if block_rows is None:
+            from .ops.planner import plan_stream
+            plan = plan_stream(rows=self.num_data, features=self.num_groups,
+                               num_bins=self.max_group_bin,
+                               device=self.device)
+            block_rows = plan.block_rows or self.num_data
+        self.binned_t = None
+        self._block_store = BlockStore.create(
+            str(path), self.num_data, self.num_groups, dtype,
+            int(block_rows))
+        self._block_store_owned = not isinstance(spill, (str, os.PathLike))
+        if self._block_store_owned:
+            weakref.finalize(self, BlockStore.cleanup, self._block_store)
+
+    def _start_streaming(self, spill, spill_block_rows) -> None:
+        if spill:
+            self._setup_spill(spill, self.binned_dtype(), spill_block_rows)
+        else:
+            self._alloc_binned()
+        self.raw_data = None
+        self._pushed = np.zeros(self.num_data, bool)
+        self._streaming = True
+        self._append_cursor = 0
+
+    @classmethod
+    def from_sample(cls, sample, num_total_rows: int,
+                    params: Optional[dict] = None, feature_name="auto",
+                    categorical_feature="auto", spill=None,
+                    spill_block_rows: Optional[int] = None,
+                    device=None) -> "Dataset":
+        """A streaming Dataset: the bin mappers and EFB layout from the
+        rows ``sample`` (every one of them), the binned matrix of
+        ``num_total_rows`` rows filled by ``push_rows``.  ``spill``: a
+        directory for a block store of the binned rows (True: a
+        temporary one), whose pushes must append in order; the store's
+        blocks are ``spill_block_rows`` rows (None: ``plan_stream``'s).
+        ``device=None`` is the CUDA card.  reference:
+        LGBM_DatasetCreateFromSampledColumn (c_api.cpp)."""
+        ds = cls(None, params=params, feature_name=feature_name,
+                 categorical_feature=categorical_feature, device=device)
+        sample = _as_2d(sample)
+        ds.num_data = int(num_total_rows)
+        ds.num_total_features = sample.shape[1]
+        if feature_name in ("auto", None):
+            ds.feature_names = [f"Column_{i}"
+                                for i in range(ds.num_total_features)]
+        else:
+            ds.feature_names = list(feature_name)
+        categorical = ds._resolve_categorical()
+        ds._fit_bin_mappers(sample, np.arange(sample.shape[0]), categorical)
+        ds._start_streaming(spill, spill_block_rows)
+        return ds
+
+    @classmethod
+    def from_reference_streaming(cls, reference: "Dataset",
+                                 num_total_rows: int,
+                                 params: Optional[dict] = None
+                                 ) -> "Dataset":
+        """An empty streaming Dataset binned with ``reference``'s
+        mappers and layout, on its device; fill it with ``push_rows``
+        (reference: LGBM_DatasetCreateByReference, c_api.h)."""
+        ref = reference.construct()
+        ds = cls(None, reference=reference,
+                 params=dict(params or ref.params))
+        ds._align_with(ref)
+        ds.pandas_categorical = ref.pandas_categorical
+        ds.num_data = int(num_total_rows)
+        ds._start_streaming(None, None)
+        return ds
+
+    def push_rows(self, chunk, start_row: Optional[int] = None) -> "Dataset":
+        """Bin a chunk of raw rows (dense or scipy sparse) into rows
+        ``[start_row, start_row + len)`` (None: after the last push;
+        chunk sizes may vary, the last one ragged).  A push over rows
+        already pushed raises, a failed push may be retried (rows count
+        as pushed once binned); a spilled Dataset's pushes must append
+        in order.  The load finishes itself when every row is in.
+        reference: LGBM_DatasetPushRows (c_api.h:98)."""
+        if not self._streaming:
+            raise RuntimeError(
+                "push_rows requires a Dataset created by from_sample")
+        if self.constructed:
+            raise RuntimeError("dataset load already finished")
+        raw = chunk.tocsr() if _is_sparse(chunk) else _as_2d(chunk)
+        rows = raw.shape[0]
+        if start_row is None:
+            start_row = self._append_cursor
+        if start_row + rows > self.num_data:
+            raise ValueError(
+                f"push past the end: {start_row}+{rows} > {self.num_data}")
+        already = np.flatnonzero(self._pushed[start_row:start_row + rows])
+        if len(already):
+            raise ValueError(
+                f"push_rows overlap: row {start_row + int(already[0])} was "
+                f"already pushed (chunk covers [{start_row}, "
+                f"{start_row + rows})); pushes must cover disjoint row "
+                "ranges — only a failed push may be retried")
+        store = self._block_store
+        if store is not None and start_row != self._append_cursor:
+            raise ValueError(
+                f"spill-mode push_rows must append in order: expected "
+                f"start_row={self._append_cursor}, got {start_row} "
+                "(the block store is append-only)")
+        self._fill(raw, start_row)
+        self._pushed[start_row:start_row + rows] = True
+        self._append_cursor = max(self._append_cursor, start_row + rows)
+        if self._pushed.all():             # auto-finish, as the C API
+            if store is not None:
+                store.finalize()
+            self._finish_construct()
+        return self
 
     def _fit_bin_mappers(self, raw, sample_idx, categorical) -> None:
         """FindBin per feature over a row sample + EFB grouping.
@@ -785,8 +1006,9 @@ class Dataset:
             base + f for f in other.used_features]
         wide = max(self.max_group_bin, other.max_group_bin) > 256
         dt = torch.int32 if wide else torch.uint8
-        self.binned_t = torch.cat([self.binned_t.to(dt),
-                                   other.binned_t.to(self.device, dt)])
+        self.binned_t = torch.cat([self._resident_binned().to(dt),
+                                   other._resident_binned().to(self.device,
+                                                               dt)])
         self.feat_group = np.concatenate(
             [self.feat_group, other.feat_group + self.num_groups]
         ).astype(np.int32)
@@ -844,20 +1066,35 @@ class Dataset:
         sub._categorical_feature_param = self._categorical_feature_param
         sub.pandas_categorical = self.pandas_categorical
         sub._align_with(self)
-        sub.binned_t = self.binned_t[:, torch.from_numpy(idx).to(
+        sub.binned_t = self._resident_binned()[:, torch.from_numpy(idx).to(
             self.device)]
         sub.num_data = len(idx)
         sub.bin_route = "subset"
         sub.constructed = True
         return sub
 
-    def host_binned(self) -> np.ndarray:
-        """The binned matrix as a host [n, G] array of ``binned_dtype``."""
+    def _resident_binned(self) -> torch.Tensor:
+        """``binned_t``, or the error of a Dataset without it."""
         self.construct()
+        if self.binned_t is None and self._block_store is not None:
+            raise RuntimeError(
+                "this Dataset's binned matrix lives in an out-of-core "
+                "block store (lightgbm_tpu_torch/data/), not on the "
+                "device; metadata consumers should use binned_shape()/"
+                "binned_dtype(), bulk consumers must stream blocks via "
+                "Dataset._block_store.read_block")
+        return self.binned_t
+
+    def host_binned(self) -> np.ndarray:
+        """The binned matrix as a host [n, G] array of ``binned_dtype``
+        (raises for a block-backed Dataset)."""
         return np.ascontiguousarray(
-            self.binned_t.cpu().numpy().T).astype(self.binned_dtype())
+            self._resident_binned().cpu().numpy().T).astype(
+                self.binned_dtype())
 
     def binned_shape(self) -> tuple:
+        """(num_data, num_groups): metadata, valid on the card and for a
+        block-backed Dataset alike."""
         self.construct()
         return (self.num_data, self.num_groups)
 

@@ -509,6 +509,21 @@ class _GrowerCommon:
         return histogram_fixed(self.binned_t, vals, self.Bg,
                                self.host_scales)
 
+    def _root_levels(self, slot0: torch.Tensor) -> torch.Tensor:
+        """The root's int32 sums of the quantized levels: B4 in int8
+        mode, slot 0 for every member row (``slot0``), on both arms."""
+        return fused.accumulate(self.binned_t, self.vals, slot0, 1,
+                                self.Bg)[0]
+
+    def _root_fixed(self, slot0: torch.Tensor) -> torch.Tensor:
+        """The root's int64 fixed-point sums at the tree's scales: B4
+        with slot 0 for every member row on the fused arm, B6 over every
+        row (the others' values are 0) on the staged one."""
+        if self.fused_arm:
+            return fused.accumulate(self.binned_t, self.vals, slot0, 1,
+                                    self.B, self.exps)[0]
+        return self._whole_histogram(self.vals)
+
     def _tree_inputs(self, section, grad, hess, row_mask, feature_mask,
                      quant_vals, rng_key):
         """Copy one tree's values, scales, feature mask and node draws
@@ -532,8 +547,7 @@ class _GrowerCommon:
                     torch.as_tensor(g_scale), torch.as_tensor(h_scale)]))
                 # B4 in int8 mode, slot 0 for every member row, on both
                 # arms
-                root = self._sync_hist(fused.accumulate(
-                    self.binned_t, self.vals, slot0, 1, self.Bg)[0])
+                root = self._sync_hist(self._root_levels(slot0))
                 tot = self._psum_rows(torch.cat([
                     self.vals.to(torch.int64).sum(1),
                     member.sum().reshape(1)]))
@@ -549,13 +563,7 @@ class _GrowerCommon:
                     self.vals, self.row_group, self.rows_global)
                 self.exps.copy_(torch.tensor(self.host_scales,
                                              dtype=torch.int32))
-                if self.fused_arm:
-                    # the accumulate kernel, slot 0 for every member row
-                    root = fused.accumulate(self.binned_t, self.vals, slot0,
-                                            1, self.B, self.exps)[0]
-                else:
-                    root = self._whole_histogram(self.vals)
-                root = self._sync_hist(root)
+                root = self._sync_hist(self._root_fixed(slot0))
                 # group 0's bins partition the member rows: exact totals
                 root_sums = fixed_to_f32(
                     self._psum_rows(root[:, 0, :].sum(-1))

@@ -102,6 +102,13 @@ the summed arena, where the serial run launches the pair as B2; the
 staged arm sums B4's segment histograms before the siblings.  The body
 runs eagerly under a group (a CUDA graph cannot capture gloo's host
 round-trip).
+
+The body reads the binned matrix in two places only, the root's
+histogram (``_root_fixed``/``_root_levels``) and each round's pass over
+the rows (``_row_pass``: the routing and B4); the streamed grower
+(``data.stream.StreamGrower``) runs those a row block at a time and
+sums the blocks' arenas exactly, as the data-parallel seam sums the
+ranks'.
 """
 
 
@@ -160,6 +167,10 @@ class RoundGrower(_GrowerCommon):
         # grower_rounds.py:168) for the configurations the port trains
         self.fused_arm = (cfg.hist_method in ("auto", "fused")
                           and not meta.has_bundles and not self.use_rng)
+        # B2 takes each round's accumulate -> scan pair, unless the
+        # arena is summed over row shares first (data-parallel ranks,
+        # streamed blocks): then B4, the sum, B5
+        self.split_pair = self.fused_arm and self.row_group is None
         K = self.KCAP = min(max(L - 1, 1), max(1, cfg.round_width))
         self.cat_idx = self.cat_cols if len(self.cat_cols) else None
         self.iota_K = torch.arange(K, device=dev)
@@ -188,6 +199,25 @@ class RoundGrower(_GrowerCommon):
         # this module's name, so a caller can route it
         return histogram_fixed(self.binned_t, vals, self.Bg,
                                self.host_scales)
+
+    def _row_pass(self, section, route, K: int, Bx: int, scales):
+        """A round's pass over the rows, the one step of the body that
+        reads the binned matrix: each row's candidate rank, goes-left bit
+        and smaller-child slot (``route(binned, leaf_id, member)``) and,
+        unless B2 takes the pair (``split_pair``), the smaller children's
+        B4 arena [K, C, F, Bx] summed over the row group.  Returns
+        (crank, gl, slot, arena or None); the streamed grower runs it a
+        row block at a time."""
+        with section("routing"):
+            crank, gl, slot = route(self.binned_t, self.leaf_id, self.member)
+        if self.split_pair:
+            return crank, gl, slot, None
+        with section("kernels"):
+            seg = fused.accumulate(self.binned_t, self.vals, slot, K, Bx,
+                                   scales)
+        with section("collectives"):
+            seg = self._sync_hist(seg)
+        return crank, gl, slot, seg
 
     # ------------------------------------------------------------ helpers
 
@@ -223,7 +253,6 @@ class RoundGrower(_GrowerCommon):
         tree = self.tree
         nl, si = self.num_leaves, self.split_idx
         iota_K, neg_inf = self.iota_K, self.neg_inf
-        leaf_id, binned_t, mt = self.leaf_id, self.binned_t, self.mt
         with section("routing"):
             gains = torch.where(self.iota_L < nl, b.gain, neg_inf)
             npos = (gains > 0.0).sum()
@@ -238,20 +267,6 @@ class RoundGrower(_GrowerCommon):
                                     device=dev).scatter(
                 0, idl, torch.where(live, iota_K, K))
             small_left_l = b.left_count <= b.right_count
-            # every row's goes-left bit under its leaf's cached split
-            crank = crank_leaf[leaf_id]
-            f_r = b.feature[leaf_id]
-            binf = feature_bin(binned_t, f_r, mt)
-            gl = row_goes_left(binf, b.threshold[leaf_id],
-                               b.default_left[leaf_id],
-                               self.missing_type[f_r], self.default_bin[f_r],
-                               self.num_bin[f_r],
-                               *((b.is_categorical[leaf_id],
-                                  b.cat_bitset[leaf_id])
-                                 if self.cat_idx is not None else ()))
-            row_small = gl == small_left_l[leaf_id]
-            slot = torch.where(row_small & (crank < K) & self.member, crank,
-                               K).to(torch.int32)
             ph = self.hist[idl]
             csums = torch.stack([
                 torch.cat([b.left_sum_grad[idl], b.right_sum_grad[idl]]),
@@ -265,16 +280,33 @@ class RoundGrower(_GrowerCommon):
             sl = small_left_l[idl]
             slb = sl[:, None, None, None]
 
+        def route(binned, leaf_id, member):
+            """The rows' candidate rank, goes-left bit under their leaf's
+            cached split, and smaller-child slot (``K``: none)."""
+            crank = crank_leaf[leaf_id]
+            f_r = b.feature[leaf_id]
+            binf = feature_bin(binned, f_r, self.mt)
+            gl = row_goes_left(binf, b.threshold[leaf_id],
+                               b.default_left[leaf_id],
+                               self.missing_type[f_r], self.default_bin[f_r],
+                               self.num_bin[f_r],
+                               *((b.is_categorical[leaf_id],
+                                  b.cat_bitset[leaf_id])
+                                 if self.cat_idx is not None else ()))
+            row_small = gl == small_left_l[leaf_id]
+            slot = torch.where(row_small & (crank < K) & member, crank,
+                               K).to(torch.int32)
+            return crank, gl, slot
+
         scales = self._scales()
-        if self.fused_arm and self.row_group is not None:
-            # the data-parallel seam: the local smaller children (B4),
-            # their exact sum over the group, then the scan of the summed
-            # arena (B5), as the JAX package splits its megakernel
-            with section("kernels"):
-                seg = fused.accumulate(binned_t, self.vals, slot, K, self.B,
-                                       scales)
-            with section("collectives"):
-                seg = self._sync_hist(seg)
+        crank, gl, slot, seg = self._row_pass(
+            section, route, K, self.B if self.fused_arm else self.Bg,
+            scales)
+        if self.fused_arm and not self.split_pair:
+            # the smaller children summed over the rows' shares (B4 a
+            # rank or a block, then their exact sum), then the scan of
+            # the summed arena (B5), as the JAX package splits its
+            # megakernel
             with section("kernels"):
                 nfb = fused.sibling_scan(
                     seg, scales, csums, self.num_bin, self.missing_type,
@@ -284,10 +316,10 @@ class RoundGrower(_GrowerCommon):
         elif self.fused_arm:
             with section("kernels"):
                 seg, nfb = fused.frontier_splits(
-                    binned_t, self.vals, slot, K, self.B, scales, csums, sl,
-                    ph, self.num_bin, self.missing_type, self.default_bin,
-                    hp, monotone_constraints=self.mc, child_bounds=cbounds,
-                    plan=self.scan_plan)
+                    self.binned_t, self.vals, slot, K, self.B, scales,
+                    csums, sl, ph, self.num_bin, self.missing_type,
+                    self.default_bin, hp, monotone_constraints=self.mc,
+                    child_bounds=cbounds, plan=self.scan_plan)
         if self.fused_arm:
             with section("kernels"):
                 h_left = torch.where(slb, seg, ph - seg)
@@ -307,12 +339,6 @@ class RoundGrower(_GrowerCommon):
                                             csums[2], self.fmask, cat_best,
                                             self.cat_idx)
         else:
-            with section("kernels"):
-                # the smaller children's segment histograms (B4)
-                seg = fused.accumulate(binned_t, self.vals, slot, K,
-                                       self.Bg, scales)
-            with section("collectives"):
-                seg = self._sync_hist(seg)
             with section("siblings"):
                 h_left = torch.where(slb, seg, ph - seg)
                 children = torch.cat([h_left, ph - h_left])
@@ -393,8 +419,8 @@ class RoundGrower(_GrowerCommon):
                 _pad_scatter(buf, idl, left, sel)
                 _pad_scatter(buf, newleaf, right, sel)
             # rows of a split leaf that go right take the new leaf
-            leaf_id.copy_(torch.where((crank < m) & ~gl, nl + crank,
-                                      leaf_id))
+            self.leaf_id.copy_(torch.where((crank < m) & ~gl, nl + crank,
+                                           self.leaf_id))
             for name in _LeafBest._fields:
                 buf, val = getattr(self.best, name), getattr(res, name)
                 _pad_scatter(buf, idl, val[:K], sel)

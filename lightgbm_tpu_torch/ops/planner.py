@@ -113,12 +113,16 @@ grid does not apply:
   ``HIST_TARGET_BLOCKS`` blocks over the feature tiles, at least
   ``HIST_MIN_CHUNK_ROWS`` rows a chunk, since every chunk flushes its
   non-zero cells into the output with global atomics.
+
+The out-of-core data plane's two-level budget (``plan_stream``, the
+card's and the host's peaks, ``stream_override``) closes the module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 PREDICT_CHUNK_ROWS = 1 << 16
 SM_COUNT = 132
@@ -521,3 +525,332 @@ def ingest_grid(plan: IngestPlan, rows: int, launch: int = 0) -> int:
     chunks = len(plan.launches[launch])
     tiles = -(-int(rows) // plan.tile_rows)
     return max(1, min(tiles, SM_COUNT * per_sm // max(chunks, 1)))
+
+
+# ----------------------------------------------------------------------
+# the two-level budget of the out-of-core data plane (the JAX planner's
+# plan_stream, ops/planner.py:1128-1215 and :1485-1590)
+# ----------------------------------------------------------------------
+#
+# Training keeps its per-row state (values, scores, gradients, leaf
+# routing) on the card either way; what streaming moves off the card is
+# the binned [G, n] matrix, which then lives in a checksummed spill
+# store (``data/blockstore.py``) and crosses to the card a row block at
+# a time, every histogram pass.  ``plan_stream`` elects streaming when
+# the resident training peak blows the card's budget or the resident
+# host peak blows the host's, and searches a block size whose streamed
+# peaks fit both.  The device side is modelled on the port's own
+# tensors (``predict_peak_bytes``): the JAX package's model prices TPU
+# lane padding and XLA scatter transients, which the card does not
+# have.  The host side (``predict_host_peak_bytes``) is the JAX
+# package's model, number for number.
+
+# the share of a limit a plan may claim: the CUDA context, the caching
+# allocator's slack and the phases' other tensors need the rest of the
+# card; the OS and the Python runtime the rest of the host
+HEADROOM = 0.85
+HOST_HEADROOM = 0.8
+DEFAULT_HOST_BYTES = 8 * (1 << 30)
+# smallest and largest streamed row block: a transfer and a kernel pass
+# over fewer rows are dominated by launch overhead (tests force smaller
+# blocks through ``stream_override``)
+MIN_STREAM_BLOCK_ROWS = 1 << 16
+MAX_STREAM_BLOCK_ROWS = 1 << 24
+# rows of raw f32 input binned a launch when the input streams in
+# chunks (``data.stream.IngestPump``): one B3 launch a chunk
+INGEST_CHUNK_ROWS = 1 << 17
+
+# the in-process override of the election (the JAX package's
+# LGBM_TPU_STREAM and LGBM_TPU_STREAM_BLOCK_ROWS; the port has no
+# environment knobs until ROADMAP queue A11's registry maps those names
+# onto this seam)
+_override = {"force": None, "block_rows": None}
+
+
+@contextlib.contextmanager
+def stream_override(force: Optional[bool] = None,
+                    block_rows: Optional[int] = None):
+    """Within the block, ``force=True`` elects streaming whatever the
+    budgets say, ``force=False`` never streams, and ``block_rows`` fixes
+    the streamed block (at least 128 rows); None leaves either to the
+    planner.  Nests: the inner block's values win, the outer ones come
+    back on exit."""
+    saved = dict(_override)
+    _override["force"] = force
+    _override["block_rows"] = (None if block_rows is None
+                               else max(int(block_rows), 128))
+    try:
+        yield
+    finally:
+        _override.update(saved)
+
+
+def host_limit_bytes() -> tuple:
+    """(limit_bytes, source) of the host side of the budget:
+    /proc/meminfo's MemAvailable (what this process may still claim),
+    else ``DEFAULT_HOST_BYTES``.  Never raises."""
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable:"):
+                    kb = int(line.split()[1])
+                    if kb > 0:
+                        return kb * 1024, "meminfo"
+    except (OSError, ValueError, IndexError):
+        pass
+    return DEFAULT_HOST_BYTES, "default"
+
+
+def device_limit_bytes(device) -> tuple:
+    """(limit_bytes, source) of the card side: the free bytes
+    ``torch.cuda.mem_get_info`` reports on ``device`` plus what the
+    caching allocator holds reserved and unused.  A CPU device has no
+    card limit (None): only a caller's budget applies there."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None, "none"
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    free, _total = torch.cuda.mem_get_info(idx)
+    cached = (torch.cuda.memory_reserved(idx)
+              - torch.cuda.memory_allocated(idx))
+    return int(free + cached), "mem_get_info"
+
+
+def predict_host_peak_bytes(rows: int, groups: int, bin_item: int = 1,
+                            block_rows: int = 0) -> tuple:
+    """(peak_bytes, breakdown) of the HOST side of one training run (the
+    JAX package's model).  ``block_rows == 0``: the resident loader, the
+    whole [n, G] binned matrix, one f64 column of binning scratch per
+    worker and the per-row metadata; ``block_rows > 0``: the streaming
+    loader, three block windows (the spill writer's buffer and the
+    pump's two read windows) in place of the matrix."""
+    n = max(int(rows), 1)
+    G = max(int(groups), 1)
+    b = {}
+    b["row_meta"] = 16 * n
+    if block_rows <= 0:
+        b["binned"] = n * G * bin_item
+        b["bin_scratch"] = 8 * 8 * n
+    else:
+        C = int(block_rows)
+        b["block_windows"] = 3 * C * G * bin_item
+        b["bin_scratch"] = 8 * 8 * C
+    return sum(b.values()), b
+
+
+def _row_state_bytes(n: int, num_class: int, quant: bool) -> dict:
+    """The per-row tensors a booster keeps on the card either way."""
+    K = max(int(num_class), 1)
+    b = {}
+    # the grower's value block [3, n] f32 ([2, n] int8 levels quantized)
+    b["vals"] = 2 * n if quant else 12 * n
+    # scores [K, n] f32, gradients and hessians [K, n] f32 each, and the
+    # quantized levels' [K, 2, n] int8
+    b["scores"] = 4 * K * n
+    b["grads"] = 8 * K * n + (2 * K * n if quant else 0)
+    # leaf_id [n] int64 with the tree's returned copy; the row mask f32,
+    # member bool and the booster's all-ones mask f32
+    b["leaf_id"] = 16 * n
+    b["row_masks"] = 9 * n
+    return b
+
+
+def _hist_cache_bytes(features: int, num_bins: int, num_leaves: int,
+                      quant: bool) -> int:
+    """The tree's histogram cache [L + 1, C, F, B]: int64 fixed point,
+    int32 level sums quantized."""
+    cell = (2 * 4) if quant else (3 * 8)
+    return (max(int(num_leaves), 2) + 1) * max(int(features), 1) \
+        * max(int(num_bins), 2) * cell
+
+
+def _transient_bytes(n: int, rows: int, features: int, num_bins: int,
+                     num_leaves: int, quant: bool, round_width: int,
+                     streamed: bool) -> dict:
+    """The peak of each step's transients; the step with the largest
+    sets the card's peak (they are never live together).  ``rows``: the
+    rows of a B4 pass (every row resident, a block streamed).
+
+    - ``round_commit``: four [KCAP, C, F, B] arenas (the parents
+      gathered, the smaller children, the left and the right children)
+      and, over every row, the new leaf ids (``torch.where`` of an int64
+      and its int64 operand, and bits), with the rows' candidate rank
+      (int64) and goes-left bits where they are not the streamed
+      grower's own [n] buffers;
+    - ``round_accumulate``: two arenas (the parents and B4's output) and
+      the routing and B4's slot sort over ``rows`` rows (rank, feature
+      and bin indices, bits, slot, order, and the slotted values: int64
+      fixed point a channel, int8 levels quantized), with a streamed
+      block's copy of its values;
+    - ``quantize`` (quantized): the stochastic rounding's threefry draw,
+      eight [2, n] int64 words live at once, and the weighted gradients.
+
+    Measured at 1 M x 28 rows, 255 leaves and bins (NVIDIA H100 80GB
+    HBM3, 700.00 W; ``tools/torch_stream_compare.py --what memory``):
+    the quantized peaks are the draw's, the f32 peaks the commit's."""
+    F = max(int(features), 1)
+    B = max(int(num_bins), 2)
+    L = max(int(num_leaves), 2)
+    KCAP = min(max(L - 1, 1), max(int(round_width), 1))
+    arena = KCAP * F * B * ((2 * 4) if quant else (3 * 8))
+    r = max(int(rows), 1)
+    t = {"round_commit": 4 * arena + 17 * n + (0 if streamed else 9 * n),
+         "round_accumulate": 2 * arena + r * (48 if quant else 70)
+         + (r * (2 if quant else 12) if streamed else 0)}
+    if quant:
+        t["quantize"] = 136 * n
+    return t
+
+
+def _device_peak(persistent: dict, transient: dict) -> tuple:
+    """(peak_bytes, breakdown): what stays, plus the largest step."""
+    step = max(transient, key=transient.get)
+    b = dict(persistent)
+    b[step] = transient[step]
+    return int(sum(b.values())), b
+
+
+def predict_peak_bytes(rows: int, features: int, num_bins: int,
+                       num_leaves: int = 31, num_class: int = 1,
+                       quant: bool = False, round_width: int = 128
+                       ) -> tuple:
+    """(peak_bytes, breakdown) of one resident training step on the card:
+    the binned [G, n] matrix (uint8, or int32 past 256 bins), the
+    per-row state and the histogram cache, and the largest step's
+    transients (``_transient_bytes``).  The right order for the
+    fits-or-not verdict, not an allocator simulation."""
+    n = max(int(rows), 1)
+    G = max(int(features), 1)
+    b = {"binned": G * n * (1 if num_bins <= 256 else 4)}
+    b.update(_row_state_bytes(n, num_class, quant))
+    b["hist_cache"] = _hist_cache_bytes(G, num_bins, num_leaves, quant)
+    return _device_peak(b, _transient_bytes(
+        n, n, G, num_bins, num_leaves, quant, round_width, False))
+
+
+def predict_stream_device_peak_bytes(rows: int, features: int,
+                                     num_bins: int, block_rows: int,
+                                     num_leaves: int = 31,
+                                     num_class: int = 1,
+                                     quant: bool = False,
+                                     round_width: int = 128) -> int:
+    """The card's peak of one STREAMED training step: the resident model
+    with the matrix replaced by the pump's two block windows (the block
+    in use and the next), the streamed grower's [n] candidate rank
+    (int64) and goes-left bits, and B4's transients at block scale."""
+    n = max(int(rows), 1)
+    G = max(int(features), 1)
+    C = min(max(int(block_rows), 1), n)
+    b = {"block_windows": 2 * G * C * (1 if num_bins <= 256 else 4)}
+    b.update(_row_state_bytes(n, num_class, quant))
+    b["hist_cache"] = _hist_cache_bytes(G, num_bins, num_leaves, quant)
+    b["round_rows"] = 9 * n
+    return _device_peak(b, _transient_bytes(
+        n, C, G, num_bins, num_leaves, quant, round_width, True))[0]
+
+
+class StreamPlan(NamedTuple):
+    """The two-level budget's verdict (the JAX package's fields)."""
+
+    stream: bool                       # row-block streaming elected
+    block_rows: int                    # rows a streamed block (0 = resident)
+    num_blocks: int
+    resident_device_ok: bool           # full residency fits the card
+    resident_host_ok: bool             # full residency fits the host
+    predicted_device_peak_bytes: int   # for the chosen mode
+    predicted_host_peak_bytes: int     # for the chosen mode
+    device_budget_bytes: int
+    host_budget_bytes: int
+    host_limit_bytes: int
+    host_limit_source: str             # "meminfo" | "default" | "caller"
+    feasible: bool                     # the chosen mode fits both budgets
+    reason: str                        # why streaming was or was not elected
+
+    def summary(self) -> dict:
+        """JSON-friendly form."""
+        return {k: getattr(self, k) for k in self._fields}
+
+
+def plan_stream(rows: int, features: int, num_bins: int,
+                num_leaves: int = 31, num_class: int = 1,
+                quant: bool = False, round_width: int = 128, device=None,
+                device_budget_bytes: Optional[int] = None,
+                host_budget_bytes: Optional[int] = None) -> StreamPlan:
+    """Resident or row-block-streamed training for a shape.
+
+    Streaming is elected when the resident peak blows either budget (the
+    card's, ``predict_peak_bytes``; the host's,
+    ``predict_host_peak_bytes``), or ``stream_override(force=True)`` is
+    in effect.  The block search takes the largest power of two from
+    ``MAX_STREAM_BLOCK_ROWS`` down whose streamed peaks fit both budgets
+    (a block of every row is residency, so it is skipped); the port's
+    fold is exact for any partition, so no tile alignment applies.
+    ``feasible=False`` means not even ``MIN_STREAM_BLOCK_ROWS`` fits.
+    Budgets: ``device_budget_bytes``/``host_budget_bytes`` given by the
+    caller (times ``HEADROOM``; the host's times ``HOST_HEADROOM``), else
+    the card's free memory on ``device`` (``device_limit_bytes``; a CPU
+    device sets no card limit) and the host's available memory."""
+    n = max(int(rows), 1)
+    if device_budget_bytes is not None:
+        dev_budget = int(device_budget_bytes * HEADROOM)
+    else:
+        lim, _ = (device_limit_bytes(device) if device is not None
+                  else (None, "none"))
+        dev_budget = (int(lim * HEADROOM) if lim is not None
+                      else (1 << 62))
+    if host_budget_bytes is not None:
+        host_limit, host_src = int(host_budget_bytes), "caller"
+    else:
+        host_limit, host_src = host_limit_bytes()
+    host_budget = int(host_limit * HOST_HEADROOM)
+    bin_item = 1 if num_bins <= 256 else 2
+
+    resident_dev = predict_peak_bytes(n, features, num_bins, num_leaves,
+                                      num_class, quant, round_width)[0]
+    resident_host = predict_host_peak_bytes(n, features, bin_item)[0]
+    dev_ok = resident_dev <= dev_budget
+    host_ok = resident_host <= host_budget
+    forced = _override["force"]
+    want = forced if forced is not None else not (dev_ok and host_ok)
+
+    def mk(stream, block, reason, dev_peak, host_peak):
+        nb = 0 if block <= 0 else -(-n // block)
+        return StreamPlan(
+            stream=stream, block_rows=block, num_blocks=nb,
+            resident_device_ok=dev_ok, resident_host_ok=host_ok,
+            predicted_device_peak_bytes=int(dev_peak),
+            predicted_host_peak_bytes=int(host_peak),
+            device_budget_bytes=dev_budget, host_budget_bytes=host_budget,
+            host_limit_bytes=host_limit, host_limit_source=host_src,
+            feasible=(dev_peak <= dev_budget and host_peak <= host_budget),
+            reason=reason)
+
+    if not want:
+        reason = ("disabled by stream_override(force=False)"
+                  if forced is False else "resident fits both budgets")
+        return mk(False, 0, reason, resident_dev, resident_host)
+
+    def peaks(block):
+        return (predict_stream_device_peak_bytes(
+                    n, features, num_bins, block, num_leaves, num_class,
+                    quant, round_width),
+                predict_host_peak_bytes(n, features, bin_item, block)[0])
+
+    reason = ("forced by stream_override(force=True)" if forced else
+              ("device+host" if not dev_ok and not host_ok else
+               "device" if not dev_ok else "host") + " budget exceeded")
+    if _override["block_rows"] is not None:
+        block = min(_override["block_rows"], n)
+        dp, hp = peaks(block)
+        return mk(True, block, reason + " (block forced)", dp, hp)
+    block = MAX_STREAM_BLOCK_ROWS
+    while block > MIN_STREAM_BLOCK_ROWS:
+        if block < n:              # a single-block "stream" is residency
+            dp, hp = peaks(block)
+            if dp <= dev_budget and hp <= host_budget:
+                return mk(True, block, reason, dp, hp)
+        block //= 2
+    block = min(MIN_STREAM_BLOCK_ROWS, n)
+    dp, hp = peaks(block)
+    return mk(True, block, reason, dp, hp)

@@ -193,7 +193,7 @@ def construct_distributed(
     ds._build_groups({j: sample_nonzero[f]
                       for j, f in enumerate(ds.used_features)},
                      total_sample_cnt)
-    ds.binned_t = ds._bin_rows(data)
+    ds.binned_t = ds._bin_rows(data).to(ds.device)
     ds._finish_construct()
     return ds
 

@@ -1,0 +1,224 @@
+"""Bulk offline scoring in the port (``lightgbm_tpu_torch/data/score.py``)
+held against the JAX package's (tests/test_bulk_score.py) on the CPU,
+where B1 runs as its plain version.
+
+- ``ScoreSink`` round-trips, resumes, and refuses a foreign geometry, a
+  corrupt block and a wrong shape; a sink written by either package
+  opens in the other.
+- Banked scores equal ``predict_raw_padded`` and ``Booster.predict
+  (raw_score=True)`` on the path the serving epilogue elects (the host
+  float64 path for these real-valued forests) bit for bit, and the JAX
+  package's ``BulkScorer`` on the same store byte for byte (the score
+  files and the manifest).
+- A run stopped after some blocks and resumed by a fresh scorer banks
+  byte-identical files; two specs each bank only their own blocks; a
+  non-f32 store and the arguments of other queues raise.
+"""
+
+import filecmp
+import os
+
+import numpy as np
+import pytest
+
+import lightgbm_tpu as lgb
+from lightgbm_tpu.data.blockstore import BlockStore as JBlockStore
+from lightgbm_tpu.data.score import BulkScorer as JBulkScorer
+from lightgbm_tpu.data.score import ScoreSink as JScoreSink
+from lightgbm_tpu.predict import DeviceForest as JDeviceForest
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.data import (BlockStore, BulkScorer, DeviceSpec,
+                                     ScoreSink, ScoreSinkError,
+                                     plan_block_shards)
+from lightgbm_tpu_torch.ops import predict_kernels as pk
+from lightgbm_tpu_torch.predict import DeviceForest
+from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
+
+BLOCK_ROWS = 512
+ROWS = 2200           # 5 blocks, a ragged last one (2200 = 4 * 512 + 152)
+
+
+def _mk_sink(path, num_blocks=3, num_class=1, lib=ScoreSink):
+    return lib.open_or_create(
+        str(path), num_rows=num_blocks * BLOCK_ROWS, num_class=num_class,
+        block_rows=BLOCK_ROWS, num_blocks=num_blocks, model_digest="d1")
+
+
+def test_sink_write_read_roundtrip(tmp_path):
+    sink = _mk_sink(tmp_path / "s")
+    b0 = np.random.RandomState(0).randn(1, BLOCK_ROWS)
+    sink.write_block(0, b0)
+    assert sink.banked() == {0} and not sink.complete
+    np.testing.assert_array_equal(sink.read_block(0), b0)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_sinks_pass_both_ways_and_resume(tmp_path, writer):
+    W, R = (ScoreSink, JScoreSink) if writer == "port" \
+        else (JScoreSink, ScoreSink)
+    sink = _mk_sink(tmp_path / "s", lib=W)
+    blocks = {1: np.arange(BLOCK_ROWS, dtype=np.float64)[None],
+              2: np.full((1, 152), 0.25)}
+    sink.write_block(1, blocks[1])
+    again = _mk_sink(tmp_path / "s", lib=R)          # reopen = resume
+    assert again.banked() == {1}
+    again.write_block(2, blocks[2])
+    back = _mk_sink(tmp_path / "s", lib=W)
+    assert back.banked() == {1, 2} and not back.complete
+    for i, b in blocks.items():
+        np.testing.assert_array_equal(back.read_block(i), b)
+    back.write_block(0, np.zeros((1, BLOCK_ROWS)))
+    assert _mk_sink(tmp_path / "s", lib=R).complete
+
+
+def test_sink_rejects_foreign_geometry(tmp_path):
+    _mk_sink(tmp_path / "s")
+    with pytest.raises(ScoreSinkError, match="disagrees"):
+        ScoreSink.open_or_create(str(tmp_path / "s"), 3 * BLOCK_ROWS, 1,
+                                 BLOCK_ROWS, 3, "another-model")
+    with pytest.raises(ScoreSinkError, match="disagrees"):
+        ScoreSink.open_or_create(str(tmp_path / "s"), 3 * BLOCK_ROWS, 2,
+                                 BLOCK_ROWS, 3, "d1")
+
+
+def test_sink_detects_corrupt_block(tmp_path):
+    sink = _mk_sink(tmp_path / "s")
+    sink.write_block(0, np.ones((1, BLOCK_ROWS)))
+    fp = os.path.join(str(tmp_path / "s"), "scores_00000.bin")
+    raw = bytearray(open(fp, "rb").read())
+    raw[5] ^= 0x10
+    with open(fp, "wb") as fh:
+        fh.write(raw)
+    with pytest.raises(ScoreSinkError, match="checksum"):
+        _mk_sink(tmp_path / "s").read_block(0)
+
+
+def test_sink_rejects_wrong_shape(tmp_path):
+    sink = _mk_sink(tmp_path / "s", num_class=3)
+    with pytest.raises(ValueError, match="rows"):
+        sink.write_block(0, np.zeros((1, BLOCK_ROWS)))
+    with pytest.raises(ScoreSinkError, match="not banked"):
+        sink.read_block(1)
+
+
+def test_shards():
+    assert plan_block_shards(4, [DeviceSpec(0, 7)]) == (7, 7, 7, 7)
+    devs = [DeviceSpec(1, 10), DeviceSpec(2, 20), DeviceSpec(1, 11)]
+    assert plan_block_shards(6, devs) == (10, 11, 20, 10, 11, 20)
+    with pytest.raises(ValueError):
+        plan_block_shards(3, [])
+
+
+# ----------------------------------------------------------------------
+# BulkScorer end to end
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def scoring_setup(tmp_path_factory):
+    root = tmp_path_factory.mktemp("bulk")
+    rng = np.random.RandomState(5)
+    X = rng.randn(ROWS, 6).astype(np.float32)
+    X[rng.rand(ROWS) < 0.1, 1] = np.nan
+    y = (X[:, 0] + X[:, 2] > 0).astype(float)
+    bst = lt.train({"objective": "binary", "verbosity": -1,
+                    "num_leaves": 15, "min_data_in_leaf": 5},
+                   lt.Dataset(X.astype(np.float64), label=y, device="cpu"),
+                   num_boost_round=6, verbose_eval=False)
+    forest = bst._forest(0, bst.num_trees())
+    store = BlockStore.from_array(str(root / "features"), X,
+                                  block_rows=BLOCK_ROWS)
+    return root, bst, forest, store, X
+
+
+def _banked(path, store, digest):
+    sink = ScoreSink.open_or_create(path, ROWS, 1, BLOCK_ROWS,
+                                    store.num_blocks, digest)
+    return np.concatenate([sink.read_block(i)
+                           for i in range(store.num_blocks)], axis=1)
+
+
+def test_bulk_scores_match_the_booster_and_the_jax_package(scoring_setup):
+    root, bst, forest, store, X = scoring_setup
+    dev = DeviceForest(forest, "cpu")
+    pk.reset_launch_counts()
+    scorer = BulkScorer(dev, store, str(root / "sink_full"))
+    stats = scorer.run()
+    assert pk.launch_counts == {"fused_traverse": 0,
+                                "fused_traverse[leaves]": 0,
+                                "fused_traverse[scores]": 0}
+    assert stats["complete"] and stats["blocks_scored"] == store.num_blocks
+    assert stats["rows_scored"] == ROWS and stats["epilogue"] == "host"
+    got = _banked(str(root / "sink_full"), store, scorer.digest)
+    X64 = X.astype(np.float64)
+    assert np.array_equal(got[0], bst.predict(X64, raw_score=True,
+                                              device=False))
+    for i in range(store.num_blocks):
+        s, r = store.block_bounds(i)
+        pad = np.zeros((BLOCK_ROWS, X.shape[1]), np.float32)
+        pad[:r] = X[s:s + r]
+        assert np.array_equal(got[:, s:s + r],
+                              dev.predict_raw_padded(pad)[:, :r])
+    # the device f32 path sums in another order: close, not bit-equal
+    np.testing.assert_allclose(got[0], bst.predict(X64, raw_score=True),
+                               rtol=1e-6, atol=1e-6)
+    # the JAX package's scorer on the same store and model: the same files
+    jb = lgb.Booster(model_str=bst.model_to_string())
+    jdev = JDeviceForest(jb._forest(0, len(jb.models)), variant="fori")
+    jstore = JBlockStore.open(store.path)
+    JBulkScorer(jdev, jstore, str(root / "sink_jax")).run()
+    for f in sorted(os.listdir(str(root / "sink_full"))):
+        assert filecmp.cmp(os.path.join(str(root / "sink_full"), f),
+                           os.path.join(str(root / "sink_jax"), f),
+                           shallow=False), f
+
+
+def test_bulk_crash_resume_byte_identical(scoring_setup):
+    root, bst, forest, store, X = scoring_setup
+    dev = DeviceForest(forest, "cpu")
+    a, b = str(root / "sink_a"), str(root / "sink_b")
+    BulkScorer(dev, store, a).run()
+    cut = 2
+    partial = BulkScorer(dev, store, b).run(max_blocks=cut)
+    assert partial["blocks_scored"] == cut and not partial["complete"]
+    resumed = BulkScorer(dev, store, b).run()       # a fresh scorer
+    assert resumed["skipped_blocks"] == cut
+    assert resumed["blocks_scored"] == store.num_blocks - cut
+    assert resumed["complete"]
+    names = sorted(os.listdir(a))
+    assert names == sorted(os.listdir(b))
+    for f in names:
+        assert filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                           shallow=False), f"resumed {f} diverged"
+
+
+def test_bulk_refuses_non_f32_store_and_other_queues(tmp_path,
+                                                     scoring_setup):
+    _, _, forest, store, _ = scoring_setup
+    dev = DeviceForest(forest, "cpu")
+    q = BlockStore.from_array(str(tmp_path / "u8"),
+                              np.zeros((64, 3), np.uint8), block_rows=32)
+    with pytest.raises(ValueError, match="float32"):
+        BulkScorer(dev, q, str(tmp_path / "sink"))
+    for kw, queue in (({"aot_store": object()}, "A6"),
+                      ({"ledger": object()}, "A11"),
+                      ({"devices": 2}, "A6")):
+        with pytest.raises(NotImplementedError, match=queue):
+            BulkScorer(dev, store, str(tmp_path / "sink"), **kw)
+
+
+def test_bulk_sharded_run_scores_only_its_blocks(scoring_setup):
+    root, bst, forest, store, X = scoring_setup
+    dev = DeviceForest(forest, "cpu")
+    devs = [DeviceSpec(0, 0), DeviceSpec(0, 1)]
+    sink = str(root / "sink_sharded")
+    s0 = BulkScorer(dev, store, sink, devices=devs, local_device_id=0).run()
+    assert not s0["complete"]
+    assert s0["blocks_scored"] == (store.num_blocks + 1) // 2
+    digest = BulkScorer(dev, store, sink).digest
+    banked = ScoreSink.open_or_create(sink, ROWS, 1, BLOCK_ROWS,
+                                      store.num_blocks, digest)
+    assert banked.banked() == {0, 2, 4}
+    s1 = BulkScorer(dev, store, sink, devices=devs, local_device_id=1).run()
+    assert s1["complete"]
+    assert s0["blocks_scored"] + s1["blocks_scored"] == store.num_blocks

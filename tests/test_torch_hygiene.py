@@ -46,7 +46,8 @@ def test_import_pulls_in_no_jax():
                 "serving.loadgen", "plotting", "parallel",
                 "parallel.collectives", "parallel.network",
                 "parallel.learners", "parallel.dist_data",
-                "tools.torch_dist_check"):
+                "tools.torch_dist_check", "data", "data.blockstore",
+                "data.stream", "data.score"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
@@ -60,6 +61,80 @@ def test_default_device_is_cuda_and_never_falls_back():
     with pytest.raises(RuntimeError, match="CUDA"):
         lt.Booster(model_str=text, device="cuda")
     assert lt.Booster(model_str=text, device="cpu").device.type == "cpu"
+
+
+def test_data_plane_never_falls_back_to_the_cpu(tmp_path):
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.data import BlockPump, BlockStore, IngestPump
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal needs a host without")
+    X = np.zeros((10, 3), np.float32)
+    store = BlockStore.from_array(str(tmp_path / "st"), X, 4)
+    for make in (lambda: BlockPump(store), lambda: IngestPump(X, 4),
+                 lambda: lt.Dataset.from_sample(X, 10)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+@pytest.mark.parametrize("kind", ["block", "ingest"])
+def test_pumps_start_no_thread_and_stop_with_the_consumer(tmp_path, kind):
+    """A pump reads each item in its consumer's thread: it starts no
+    thread, a consumer that stops early leaves nothing running, and the
+    next pass starts again at the first item."""
+    import threading
+
+    import numpy as np
+    from lightgbm_tpu_torch.data import BlockPump, BlockStore, IngestPump
+    X = np.arange(4000 * 3, dtype=np.float32).reshape(4000, 3)
+    if kind == "block":
+        pump = BlockPump(BlockStore.from_array(str(tmp_path / "st"), X, 100),
+                         device="cpu")
+    else:
+        pump = IngestPump(X, 100, device="cpu")
+    before = threading.active_count()
+    it = iter(pump)
+    first = next(it)
+    assert first[:3] == (0, 0, 100)
+    assert threading.active_count() == before
+    it.close()                        # the consumer stops after one item
+    assert threading.active_count() == before
+    assert pump.blocks == 1 and pump.passes == 1
+    assert next(iter(pump))[:3] == (0, 0, 100)
+    assert pump.passes == 2
+
+
+@pytest.mark.parametrize("kind", ["block", "ingest"])
+def test_read_ahead_thread_is_a_daemon_that_stops_with_the_consumer(
+        tmp_path, kind):
+    """``ReadAhead`` (bulk scoring's reader thread) runs its pump in a
+    daemon thread, yields the pump's items in order (the blocks of a
+    pass without it), and ends that thread when the consumer stops
+    early."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.data import (BlockPump, BlockStore, IngestPump,
+                                         ReadAhead)
+    X = np.arange(4000 * 3, dtype=np.float32).reshape(4000, 3)
+    if kind == "block":
+        pump = BlockPump(BlockStore.from_array(str(tmp_path / "st"), X, 100),
+                         device="cpu")
+    else:
+        pump = IngestPump(X, 100, device="cpu")
+    plain = [(i, s, r, t.clone()) for i, s, r, t in pump]
+    ahead = ReadAhead(pump, depth=2)
+    got = list(ahead)
+    assert [g[:3] for g in got] == [(i, 100 * i, 100) for i in range(40)]
+    for (_, _, _, a), (_, _, _, b) in zip(got, plain):
+        assert torch.equal(a, b)
+    assert not ahead.thread.is_alive() and ahead.passes == 2
+    it = iter(ahead)
+    assert next(it)[:3] == (0, 0, 100)
+    t = ahead.thread
+    assert t.daemon and t.is_alive()
+    it.close()                        # the consumer stops after one item
+    assert not t.is_alive()
+    assert ahead.passes == 3 and ahead.blocks <= 80 + 1 + 3
 
 
 _NO_OPTIONAL = r"""
