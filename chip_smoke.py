@@ -41,8 +41,10 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   EFB bundles; ``testing.airline_like``) trained on the staged arm: B3's
   EFB fold, the whole-dataset histogram (B6) for each root, B4 segment
   histograms and B5 in leaf mode on the group histograms (nothing
-  expanded); then ``Booster.predict`` through B1 against B1's plain
-  version;
+  expanded), its first 4 trees against the plain-version run's (as
+  ``rand_train``'s, ``rank_train``'s and ``multiclass_train``'s:
+  ``PLAIN_SHORT_ROUNDS``); then ``Booster.predict`` through B1 against
+  B1's plain version;
 - ``hist6``: B6 against its plain version on that group matrix and on
   the ``train`` run's 28 uint8 features (``rand_train``'s root shape),
   timed; the build line shows that its shared atomics are native 32-bit
@@ -69,8 +71,9 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   run;
 - ``rand_train``: ``higgs_rand_1m``, the training run's datasets with
   ``extra_trees`` and ``feature_fraction_bynode=0.5`` (the staged arm:
-  B6 roots, B4 segments, B5 with random thresholds in leaf mode), model
-  text byte-identical to the plain-version run, valid AUC rising; then
+  B6 roots, B4 segments, B5 with random thresholds in leaf mode), the
+  first 4 trees byte-identical to the plain-version run's, valid AUC
+  rising; then
   3 quantized rounds with bynode only (B4 and B5 int8 in leaf mode);
 - ``mono_train``: ``mono_train_1m``, upstream LightGBM's monotone data
   at HIGGS width (1,000,000 x 28, constraints +1, -1, 0), regression,
@@ -126,6 +129,19 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   to ``Booster.predict(raw_score=True)`` on the serving epilogue's path,
   and a run stopped after 3 blocks and resumed byte-identical to an
   uninterrupted one;
+- ``obs_trace`` (queue A11, first part; after ``stream_train``, on
+  ``train``'s constructed datasets): 5 rounds with tracing, the flight
+  recorder and the watchdog's sentry on, through the round graph: the
+  model text equal to ``train``'s first five trees, the host syncs and
+  stop-flag waits of tree 12 and B2's launches equal to those of twins
+  trained untraced and with the recorder off, one
+  ``trace.grow_tree_rounds`` span a tree, ``engine.train`` covered above
+  0.9, the dumped trace a Chrome trace; seconds a tree traced, untraced
+  and with the recorder off (A B C C B A); 200 requests through ``serve`` (B1, every answer bit-equal to
+  the host path) with the batcher's heartbeat under 1 s old and the
+  server's series in the process registry; a NaN forest's swap
+  quarantined into a temporary flight directory, the bundle's
+  fingerprint naming the card; at most 60 s;
 - ``boost_variants``: ``dart`` (a tree must be dropped), ``rf``
   (averaged output), ``regression_l1`` and ``quantile`` (the percentile
   renewal on the card), 5 rounds each on ``mono_train``'s dataset, each
@@ -133,7 +149,8 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``multiclass_train``: ``airline_multiclass_1m``, the airline table
   with its six categorical columns native and a 5-class delay band,
   ``multiclass`` (the default ``max_cat_threshold``), 10 rounds of 5
-  trees: model text byte-identical to the plain-version run, valid
+  trees: the first 4 iterations' trees byte-identical to the
+  plain-version run's, valid
   multi_logloss falling every round, B1's scores mode at K = 5 equal to
   the host's and to its plain version; then 3 rounds of
   ``multiclassova`` and 3 of quantized multiclass (per-class scales,
@@ -141,8 +158,9 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``rank_train``: ``mslr_lambdarank_1m``, lambdarank at MSLR-WEB30K
   width (1,000,000 x 136 f32, ~8,100 queries of 1 to 1,250 documents,
   grades 0-4; ``testing.mslr_like``), 255 leaves, ``eval_at`` 1, 3, 5,
-  10, 10 rounds with a 100,000-row valid set: model text byte-identical
-  to the plain-version run, valid NDCG@10 rising, predictions through B1
+  10, 10 rounds with a 100,000-row valid set: the first 4 trees
+  byte-identical to the plain-version run's, valid NDCG@10 rising,
+  predictions through B1
   equal to the host's; each tree's time by section (``objective`` is the
   lambdarank gradients, also timed alone); then B5 at the run's shape
   (row ``fused_sibling_scan[rank shape]``) and 3 rounds of
@@ -298,6 +316,10 @@ GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
 # (2: a plain-version serial tree takes 4-7 s on the card's host, and
 # the script has a time limit)
 SERIAL_ROUNDS, SERIAL_SHORT_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3, 2
+# the plain-version twins of efb_train, rand_train, rank_train and
+# multiclass_train train this many rounds (their first trees held byte
+# for byte to the main run's), to keep the script inside its time limit
+PLAIN_SHORT_ROUNDS = 4
 CEGB_PARAMS = dict(
     TRAIN_PARAMS, cegb_tradeoff=1.0, cegb_penalty_split=1e-4,
     cegb_penalty_feature_coupled=[1e5 if f % 2 else 1e2
@@ -1285,7 +1307,7 @@ def host_reads(bst) -> dict:
 
 def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
                   datasets=None, falling="binary_logloss", rising="auc",
-                  groups=(None, None), extras=False):
+                  groups=(None, None), extras=False, plain_rounds=None):
     """The training path on the card three times: the main run (counts
     set to 0 just before it and read just after; its trees grow through
     the captured round graph), the same run with every kernel replaced by
@@ -1295,7 +1317,9 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     (the eager fixed-shape body: where a tree's time goes; the timer
     synchronises the card at each section) that logs each tree's
     (candidates, committed) per frontier round; its trees must be the
-    main run's.  ``extras`` (the ``train`` phase) adds an untimed eager
+    main run's.  ``plain_rounds``: the plain-version run trains that many
+    rounds, and its trees must be the main run's first ones.  ``extras``
+    (the ``train`` phase) adds an untimed eager
     run (seconds a tree without the graph), one tree's host reads, and
     ``update_chunk(8)`` against eight ``update()`` calls.
     Checks the trees, the valid metric ``falling`` (if any) falling every
@@ -1340,9 +1364,10 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
 
     saved = plain_kernels()
     reset_training_counts()
+    plain_rounds = plain_rounds or rounds
     try:
         _, _, bst_p, _, _, plain_train_s = train_once(
-            lt, X, y, Xv, yv, params, rounds, categorical, datasets,
+            lt, X, y, Xv, yv, params, plain_rounds, categorical, datasets,
             groups)
     finally:
         restore_kernels(saved)
@@ -1350,7 +1375,9 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
     if any(plain_launches.values()):
         raise AssertionError(f"launch counts rose with no kernel launched: "
                              f"{plain_launches}")
-    if bst_p.model_to_string() != text:
+    if (bst_p.model_to_string() != text if plain_rounds == rounds else
+            head_trees(bst_p.model_to_string(), plain_rounds * K)
+            != head_trees(text, plain_rounds * K)):
         raise AssertionError("the model text differs from the plain-version "
                              "run")
     del bst_p
@@ -1386,14 +1413,15 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         extra.update(eager_and_chunk(lt, ds, vs, params, rounds, text,
                                      train_s))
     return {"ds": ds, "vs": vs, "bst": bst, "launches": launches,
-            "rounds_log": rounds_log, "row": {
+            "text": text, "rounds_log": rounds_log, "row": {
         "rows": X.shape[0], "valid_rows": Xv.shape[0],
         "features": X.shape[1], "rounds": rounds,
         "num_leaves": params["num_leaves"],
         "leaves_per_tree": [m.num_leaves for m in bst.models],
         "construct_s": construct_s, "train_s": train_s,
         "s_per_tree": train_s / rounds,
-        "plain_s_per_tree": plain_train_s / rounds,
+        "plain_s_per_tree": plain_train_s / plain_rounds,
+        "plain_rounds": plain_rounds,
         "timed_s_per_tree": timed_s / rounds,
         "breakdown_s_per_tree": per_tree,
         "tree_device_ms": in_tree,
@@ -1409,7 +1437,10 @@ def training_runs(lt, X, y, Xv, yv, params, rounds, categorical="auto",
         "rounds_per_tree": [len(r) for r in rounds_log],
         "rollbacks_per_tree": [sum(m < k for k, m in r) for r in rounds_log],
         "predict_max_abs_err_vs_host_f64": pred_err,
-        "checked": "model text byte-identical to the plain run"}}
+        "checked": ("model text byte-identical to the plain run"
+                    if plain_rounds == rounds else
+                    f"first {plain_rounds} iterations' trees byte-identical "
+                    "to the plain run")}}
 
 
 def eager_and_chunk(lt, ds, vs, params, rounds, text, graph_s) -> dict:
@@ -2055,7 +2086,8 @@ def phase_efb_train(lt, pk):
     Xv8, yv = airline_like(EFB_VALID_ROWS, seed=12)
     X, Xv = one_hot(X8), one_hot(Xv8)
     del X8, Xv8
-    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS)
+    r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS,
+                      plain_rounds=PLAIN_SHORT_ROUNDS)
     ds = r["ds"]
     if not ds.feature_meta().has_bundles:
         raise AssertionError("the one-hot table did not bundle")
@@ -2711,7 +2743,8 @@ def phase_rand_train(lt, f32_run, data):
     quantized rounds with bynode only (B4 and B5 int8 in leaf mode).
     Returns (the main run's launches, B5's launches by mode)."""
     r = training_runs(lt, *data, RAND_PARAMS, TRAIN_ROUNDS,
-                      datasets=(f32_run["ds"], f32_run["vs"]))
+                      datasets=(f32_run["ds"], f32_run["vs"]),
+                      plain_rounds=PLAIN_SHORT_ROUNDS)
     expect_launches(r["launches"], positive=(
         "fused_frontier_accumulate", "fused_sibling_scan",
         "fused_slot_order"), zero=("fused_frontier_splits", "ingest")
@@ -2927,7 +2960,8 @@ def phase_rank_train(lt, pk):
     X, y, group = mslr_like(RANK_ROWS, seed=31)
     Xv, yv, vgroup = mslr_like(RANK_VALID_ROWS, seed=32)
     r = training_runs(lt, X, y, Xv, yv, RANK_PARAMS, RANK_ROUNDS,
-                      falling=None, rising="ndcg@10", groups=(group, vgroup))
+                      falling=None, rising="ndcg@10", groups=(group, vgroup),
+                      plain_rounds=PLAIN_SHORT_ROUNDS)
     ds = r["ds"]
     if ds.feature_meta().has_bundles:
         raise AssertionError("the MSLR-width table bundled")
@@ -2982,7 +3016,8 @@ def phase_multiclass_train(lt, pk):
     Xv, yv = airline_multiclass_like(MULTI_VALID_ROWS, seed=42)
     r = training_runs(lt, X, y, Xv, yv, MULTI_PARAMS, MULTI_ROUNDS,
                       categorical=list(AIRLINE_CATEGORICAL),
-                      falling="multi_logloss", rising=None)
+                      falling="multi_logloss", rising=None,
+                      plain_rounds=PLAIN_SHORT_ROUNDS)
     ds = r["ds"]
     expect_launches(r["launches"], positive=F32_ENTRIES,
                     zero=("histogram_pallas",) + INT8_ENTRIES,
@@ -4007,6 +4042,249 @@ def load_structures(text: str) -> list:
             for m in load_model_from_string(text)["models"]]
 
 
+OBS_ROUNDS = 5
+OBS_EXTRA_UPDATES = 6        # the checked run's host reads: tree 12
+OBS_REQUESTS, OBS_THREADS, OBS_REQUEST_ROWS = 200, 4, 1500
+# the phase's timed runs: traced (tracing + recorder), untraced (the
+# recorder, on by default) and the recorder off, in A B C C B A order
+OBS_MODES = ("untraced", "traced", "recorder_off", "recorder_off",
+             "traced", "untraced")
+OBS_PHASE_LIMIT_S = 60.0
+
+
+def _obs_mode(mode: str) -> None:
+    from lightgbm_tpu_torch.obs import global_flight, global_tracer
+    global_tracer.reset()
+    global_tracer.enabled = mode == "traced"
+    global_flight.enabled = mode != "recorder_off"
+
+
+def obs_run(lt, ds, vs, mode: str, updates: int = 0):
+    """``train`` of ``OBS_ROUNDS`` rounds on the constructed pair in
+    ``mode`` (the launch counts set to 0 just before it), then
+    ``updates`` more trees and one under ``host_reads``; returns
+    (booster, seconds a tree of the ``train`` call, its launches, host
+    reads, trace events of the ``train`` call)."""
+    from lightgbm_tpu_torch.obs import global_tracer
+    _obs_mode(mode)
+    try:
+        reset_training_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(TRAIN_PARAMS, ds, OBS_ROUNDS, valid_sets=[vs],
+                       valid_names=["valid"], verbose_eval=False)
+        torch.cuda.synchronize()
+        s_tree = (time.perf_counter() - t0) / OBS_ROUNDS
+        launches = kernel_launches()
+        events = global_tracer.events()
+        for _ in range(updates):
+            bst.update()
+        reads = host_reads(bst)
+    finally:
+        _obs_mode("untraced")
+    return bst, s_tree, launches, reads, events
+
+
+def phase_obs_trace(lt, pk, train_run, smi) -> dict:
+    """The observability core on the card (queue A11, first part):
+    ``higgs_train_1m``'s constructed datasets trained 5 rounds with
+    tracing, the flight recorder and the watchdog on, through the round
+    graph: the main run's first five trees byte for byte, the host syncs
+    and stop-flag waits of tree 12 (``host_reads``) and B2's launches
+    those of its untraced and recorder-off twins (each trained the same
+    way), one ``trace.grow_tree_rounds`` span a tree, the root span
+    covered, the trace a Chrome trace; s a tree traced, untraced and
+    with the recorder off (A B C C B A); then ~200 requests through
+    ``serve`` (B1) with the batcher's heartbeat and the server's series
+    in the process registry; then a quarantined swap dumped to a
+    temporary flight directory, its fingerprint naming the card."""
+    import tempfile
+
+    from lightgbm_tpu_torch.obs import (SLOConfig, global_flight,
+                                        global_registry, global_tracer,
+                                        global_watchdog, span_coverage)
+    from lightgbm_tpu_torch.serving import loadgen
+    from lightgbm_tpu_torch.serving.errors import SwapQuarantined
+    t_phase = time.perf_counter()
+    ds, vs = train_run["ds"], train_run["vs"]
+    want = head_trees(train_run["text"], OBS_ROUNDS)
+    main_reads = {k: train_run["row"][k] for k in
+                  ("host_syncs_per_iteration",
+                   "stop_flag_waits_per_iteration")}
+    # the sentry thread watches the engine's heartbeat while it trains
+    wd_config = global_watchdog.config
+    global_watchdog.config = SLOConfig(heartbeat_stale_s=60.0,
+                                       check_interval_s=0.5)
+    global_watchdog.start()
+    breaches0 = {k: v for k, v in global_registry.to_dict()["counters"]
+                 .items() if k.startswith("slo_breach_total")}
+    flight_was = global_flight.enabled
+    try:
+        bst, traced_s, traced_launches, reads, events = obs_run(
+            lt, ds, vs, "traced", OBS_EXTRA_UPDATES)
+    finally:
+        global_watchdog.stop()
+        global_watchdog.config = wd_config
+    if global_watchdog.running:
+        raise AssertionError("the watchdog's sentry thread did not stop")
+    breaches = {k: v for k, v in global_registry.to_dict()["counters"]
+                .items() if k.startswith("slo_breach_total")}
+    if breaches != breaches0:
+        raise AssertionError(f"SLO breaches during the traced run: "
+                             f"{breaches}")
+    used_graph(bst)
+    text = bst.model_to_string()
+    if head_trees(text, OBS_ROUNDS) != want:
+        raise AssertionError("the traced run's trees differ from the main "
+                             "run's first five")
+    reads_cmp = {k: reads[k] for k in main_reads}
+    names = [e["name"] for e in events]
+    counts = {n: names.count(n) for n in set(names)}
+    for name in ("engine.train", "engine.step", "planner.plan",
+                 "engine.eval"):
+        if not counts.get(name):
+            raise AssertionError(f"no {name} event in the traced run")
+    if counts.get("trace.grow_tree_rounds") != OBS_ROUNDS:
+        raise AssertionError(f"{counts.get('trace.grow_tree_rounds')} "
+                             f"trace.grow_tree_rounds spans for "
+                             f"{OBS_ROUNDS} trees")
+    if not (counts.get("gbdt.finish_iter") or counts.get("macro.host_fetch")):
+        raise AssertionError("no host tree fetch span")
+    coverage = span_coverage(events, "engine.train")
+    if coverage is None or not coverage > 0.9:
+        raise AssertionError(f"engine.train's coverage {coverage}")
+    flight_dir = tempfile.mkdtemp(prefix="lgbt_obs_")
+    try:
+        trace_path = os.path.join(flight_dir, "trace.json")
+        global_tracer.dump(trace_path, events)
+        trace_bytes = os.path.getsize(trace_path)
+        with open(trace_path) as fh:
+            doc = json.load(fh)
+        evs = doc["traceEvents"]
+        if evs[0]["ph"] != "M" or len(evs) != len(events) + 1 or any(
+                e["ph"] not in ("X", "i") or "ts" not in e
+                for e in evs[1:]):
+            raise AssertionError("the dumped trace is not a Chrome trace")
+        ring = [e["name"] for e in global_flight.ring_events()]
+        if "engine.step" not in ring:
+            raise AssertionError("the flight ring holds no engine.step")
+
+        # s a tree in each mode (A B C C B A; the host clock spreads);
+        # every mode's tree 6 makes the same host reads
+        times = {m: [] for m in OBS_MODES}
+        mode_reads = {}
+        b2 = "fused_frontier_splits"
+        for mode in OBS_MODES:
+            # each twin's tree 12 under host_reads, as the checked run's
+            b, s_tree, launches, r, _ev = obs_run(lt, ds, vs, mode,
+                                                  OBS_EXTRA_UPDATES)
+            times[mode].append(s_tree)
+            r = {k: r[k] for k in main_reads}
+            mode_reads.setdefault(mode, r)
+            if head_trees(b.model_to_string(), OBS_ROUNDS) != want:
+                raise AssertionError(f"the {mode} run's trees differ")
+            if r != reads_cmp:
+                raise AssertionError(f"host reads at tree 12: traced "
+                                     f"{reads_cmp}, {mode} {r}")
+            # every mode's five trees launch B2 as often as the traced
+            # run's: nothing is recorded inside the round graph
+            if launches[b2] != traced_launches[b2] or launches[b2] <= 0:
+                raise AssertionError(f"B2 launches {mode} {launches[b2]}, "
+                                     f"traced {traced_launches[b2]}")
+            del b
+
+        # serving through the round's model (B1), traced
+        _obs_mode("traced")
+        pk.reset_launch_counts()
+        with bst.serve(heartbeat_name="serving.batcher") as srv:
+            # the served model (the booster's best iteration)
+            res = loadgen.fire_requests(srv, OBS_REQUESTS, OBS_THREADS,
+                                        OBS_REQUEST_ROWS, 28,
+                                        verify_forest=srv.models.active
+                                        .forest, timeout=300, seed=17)
+            beat_age = global_watchdog.beat_age("serving.batcher")
+            prom = global_registry.to_prometheus()
+        serve_events = [e["name"] for e in global_tracer.events()]
+        _obs_mode("untraced")
+        b1 = pk.launch_counts[KERNEL]
+        if res["errors"] or res["mismatches"] or \
+                res["requests"] != res["requests_planned"]:
+            raise AssertionError(f"serving: {res['errors'][:3]} "
+                                 f"{res['mismatches'][:3]}")
+        if beat_age is None or not beat_age < 1.0:
+            raise AssertionError(f"the batcher's heartbeat is {beat_age} s "
+                                 "old")
+        if "lgbt_serving_requests_total" not in prom:
+            raise AssertionError("the process registry lacks the server's "
+                                 "series")
+        for name in ("serving.batch", "serving.dispatch", "serving.admit",
+                     "serving.complete"):
+            if name not in serve_events:
+                raise AssertionError(f"no {name} event while serving")
+        if b1 <= 0:
+            raise AssertionError("serving never launched B1")
+
+        # a quarantined swap, dumped into a temporary flight directory
+        saved_dir, saved_dumps = os.environ.get("LIGHTGBM_TPU_FLIGHT_DIR"), \
+            global_flight.dumps
+        os.environ["LIGHTGBM_TPU_FLIGHT_DIR"] = flight_dir
+        global_flight.dumps = 0
+        bad = lt.Booster(model_str=text)
+        bad.models[0].leaf_value[:] = np.nan     # every row reads a NaN
+        try:
+            with bst.serve() as srv:
+                try:
+                    srv.swap_model(bad)
+                except SwapQuarantined:
+                    pass
+                else:
+                    raise AssertionError("a NaN forest was promoted")
+        finally:
+            if saved_dir is None:
+                os.environ.pop("LIGHTGBM_TPU_FLIGHT_DIR", None)
+            else:
+                os.environ["LIGHTGBM_TPU_FLIGHT_DIR"] = saved_dir
+            global_flight.dumps = saved_dumps
+        files = sorted(os.listdir(flight_dir))
+        bundles = [f for f in files if f.startswith("flight_serving.swap")]
+        if len(bundles) != 1 or any(".tmp" in f for f in files):
+            raise AssertionError(f"flight directory: {files}")
+        with open(os.path.join(flight_dir, bundles[0])) as fh:
+            bundle = json.load(fh)
+        fp = bundle["fingerprint"]
+        if fp.get("device_kind") != torch.cuda.get_device_name(0) or \
+                fp.get("torch_version") != torch.__version__ or \
+                bundle["exception"]["type"] != "SwapQuarantined":
+            raise AssertionError(f"the bundle's fingerprint: {fp}")
+    finally:
+        import shutil
+        shutil.rmtree(flight_dir, ignore_errors=True)
+        global_tracer.reset()
+        global_flight.enabled = flight_was
+    phase_s = time.perf_counter() - t_phase
+    row = {"phase": "obs_trace", "rows": ds.num_data, "rounds": OBS_ROUNDS,
+           "trees_equal_main_run": True,
+           "host_reads_traced": reads_cmp, "host_reads_by_mode": mode_reads,
+           "host_reads_train_phase_timer_booster": main_reads,
+           "s_per_tree": times, "s_per_tree_traced_checked_run": traced_s,
+           "trace_events_per_tree": len(events) / OBS_ROUNDS,
+           "trace_bytes_per_tree": trace_bytes / OBS_ROUNDS,
+           "trace_event_counts": counts,
+           "span_coverage_engine_train": coverage,
+           "b2_launches_per_tree": traced_launches[b2] / OBS_ROUNDS,
+           "serve_requests": res["requests"], "serve_rows": res["rows"],
+           "serve_p99_ms": res["latency_ms"].get("p99"),
+           "batcher_beat_age_s": beat_age, "b1_launches": b1,
+           "quarantine_bundle_keys": sorted(bundle),
+           "fingerprint_device": fp.get("device_kind"),
+           "phase_s": phase_s, "device": smi}
+    emit(row)
+    if phase_s > OBS_PHASE_LIMIT_S:
+        raise AssertionError(f"obs_trace took {phase_s:.1f} s, over its "
+                             f"{OBS_PHASE_LIMIT_S} s")
+    return row
+
+
 def phase_boost_variants(lt, mono_ds):
     """``dart``, ``rf``, ``regression_l1`` and ``quantile`` (the last two
     renew their leaves on the card), 5 rounds each on the monotone run's
@@ -4298,6 +4576,19 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
+    # the flight recorder's bundles (a quarantined swap dumps one) go to
+    # a temporary directory, not the checkout
+    import shutil
+    import tempfile
+    flight_tmp = tempfile.mkdtemp(prefix="lgbt_flight_")
+    os.environ.setdefault("LIGHTGBM_TPU_FLIGHT_DIR", flight_tmp)
+    try:
+        return run_phases(lt, _build, pk, synthetic_model_text, smi)
+    finally:
+        shutil.rmtree(flight_tmp, ignore_errors=True)
+
+
+def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     t0 = time.perf_counter()
     # the native host library (g++) builds beside the four nvcc processes
     from lightgbm_tpu_torch.native import build as native_build
@@ -4385,6 +4676,7 @@ def main() -> int:
                                          train_stats)
     sharded_launches = phase_sharded_train(lt, train_run, smi)
     stream_launches = phase_stream_train(lt, pk, train_data, smi)
+    phase_obs_trace(lt, pk, train_run, smi)
     del train_run, train_data
     mono_launches, mono_modes, mono_ds = phase_mono_train(lt, pk, efb_ds)
     del efb_ds

@@ -15,14 +15,27 @@ sparse and pandas input, text files and binary caches; ``cv``,
 hot-swaps models (``swap_model``) and serves bf16 or int8 twins
 (``precision=``); the host paths run in the native C++ library
 (``native/``) where it builds; the plotting functions need matplotlib
-(and graphviz for trees) only when called.  Configurations outside the
-port raise ``NotImplementedError``.
+(and graphviz for trees) only when called.  ``obs`` holds the tracer,
+the process metrics registry, the flight recorder and the SLO watchdog,
+under the JAX package's names and environment knobs.  Configurations
+outside the port raise ``NotImplementedError``.
+
+The public names are the JAX package's (``lightgbm_tpu.__all__``), but
+for those of modules not ported yet (the fleet, the model lifecycle,
+the model axis and co-residency: ROADMAP queue A6 and A12); the
+scikit-learn estimators are exported where scikit-learn is installed,
+as the JAX package exports them.
 """
 
+from . import compat
 from .basic import Booster
-from .callback import early_stopping, log_evaluation, record_evaluation
+from .callback import (EarlyStopException, early_stopping, log_evaluation,
+                       print_evaluation, record_evaluation, reset_parameter)
+from .config import Config
 from .dataset import Dataset
-from .engine import CVBooster, cv, train
+from . import obs  # noqa: F401  (tracing, metrics, flight recorder, watchdog)
+from . import serving  # noqa: F401  (in-process inference server)
+from .engine import CVBooster, InitModelCompatibilityError, cv, train
 from .plotting import (create_tree_digraph, plot_importance, plot_metric,
                        plot_split_value_histogram, plot_tree)
 from .utils.log import LightGBMError
@@ -41,8 +54,15 @@ def serve(model, config=None, device=None, **overrides):
     return Server(model, config=config, **overrides)
 
 
-__all__ = ["Booster", "CVBooster", "Dataset", "LightGBMError", "cv",
+__all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
+           "InitModelCompatibilityError", "LightGBMError", "cv",
            "create_tree_digraph", "early_stopping", "log_evaluation",
-           "plot_importance", "plot_metric", "plot_split_value_histogram",
-           "plot_tree", "record_evaluation", "serve", "train",
-           "__version__"]
+           "obs", "plot_importance", "plot_metric",
+           "plot_split_value_histogram", "plot_tree", "print_evaluation",
+           "record_evaluation", "reset_parameter", "serve", "serving",
+           "train", "__version__"]
+
+if compat.SKLEARN_INSTALLED:
+    from .sklearn import (LGBMClassifier, LGBMModel, LGBMRanker,  # noqa: F401
+                          LGBMRegressor)
+    __all__ += ["LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker"]

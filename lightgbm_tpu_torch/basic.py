@@ -411,6 +411,25 @@ class Booster:
     def free_dataset(self) -> "Booster":
         return self
 
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Start ``torch.distributed``'s default group from a
+        reference-style machine list (reference: Booster.set_network,
+        basic.py:1867 -> LGBM_NetworkInit; ``parallel.network.
+        init_network``)."""
+        from .parallel.network import init_network
+        init_network(machines=machines, local_listen_port=local_listen_port,
+                     listen_time_out=listen_time_out,
+                     num_machines=num_machines)
+        return self
+
+    def free_network(self) -> "Booster":
+        """reference: Booster.free_network -> LGBM_NetworkFree."""
+        from .parallel.network import free_network
+        free_network()
+        return self
+
     def __copy__(self):
         return self.__deepcopy__(None)
 
@@ -636,6 +655,10 @@ class Booster:
     def num_trees(self) -> int:
         return len(self.models)
 
+    def num_model_per_iteration(self) -> int:
+        """Trees an iteration (reference: LGBM_BoosterNumModelPerIteration)."""
+        return self.num_tree_per_iteration
+
     def num_features(self) -> int:
         if self.boosting is not None:
             return self.train_set.num_total_features
@@ -712,6 +735,17 @@ class Booster:
                                  **kwargs)
                     for s in range(0, csr.shape[0], SPARSE_CHUNK_ROWS)]
             return np.concatenate(outs, axis=0) if outs else np.zeros((0,))
+        from .utils.timer import global_timer
+        with global_timer.section("Booster::Predict"):
+            return self._predict_rows(data, num_iteration, raw_score,
+                                      pred_leaf, pred_contrib,
+                                      start_iteration, device, kwargs)
+
+    def _predict_rows(self, data, num_iteration, raw_score, pred_leaf,
+                      pred_contrib, start_iteration, device,
+                      kwargs) -> np.ndarray:
+        """``predict`` of dense rows (the ``Booster::Predict`` timer
+        section)."""
         X = np.ascontiguousarray(np.asarray(data, np.float64))
         if X.ndim == 1:
             X = X[None, :]

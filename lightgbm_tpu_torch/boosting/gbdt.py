@@ -70,6 +70,21 @@ path (chunks of one, GOSS's masks, custom objectives) streams through
 (``chunk_supported`` False) and refuses ``rollback_one_iter``; DART and
 RF (``_stream_ok``) and the configurations of
 ``data.stream._config_stream_blockers`` train resident.
+
+Observability (``obs/``; the JAX package's boosting/gbdt.py:845-895 and
+its timer tags): where ``_configure`` settles the arm (rounds, serial or
+streamed; fused or staged; f32 or quantized; ``KCAP``) it emits the
+``planner.plan`` instant with the planner's predicted card peak and
+budget, sets the ``train_hist_method``,
+``train_hist_predicted_peak_bytes``, ``train_hbm_budget_bytes`` (on a
+card: the CPU has no limit) and, under a process group,
+``train_psum_payload_bytes`` gauges, and puts
+the plan in the flight recorder's context.  ``train_one_iter`` is the
+``GBDT::TrainOneIter`` section, an iteration outside a chunk the
+``gbdt.dispatch`` and ``gbdt.finish_iter`` spans, a chunk's host side
+``macro.host_fetch``, an evaluation ``gbdt.eval``.  These are host
+events: none reads the card, and none runs inside the captured round
+body.
 """
 
 from __future__ import annotations
@@ -84,6 +99,9 @@ from ..config import Config
 from ..dataset import Dataset, same_bins
 from ..grower import GrowerConfig, SerialGrower, predict_leaf_index_binned
 from ..grower_rounds import RoundGrower
+from ..obs.flight import global_flight as _flight
+from ..obs.metrics import global_registry as _obs_registry
+from ..obs.trace import instant as _instant, span as _span
 from ..objectives import ObjectiveFunction
 from ..ops.histogram import HIST_METHODS, quantize_gradients
 from ..ops.renew import leaf_percentile
@@ -94,6 +112,7 @@ from ..parallel.collectives import (all_gather_tiered, axis_index_flat,
 from ..tree import HostTree, tree_to_host
 from ..utils import threefry
 from ..utils.log import log_info, log_warning
+from ..utils.timer import global_timer
 
 K_EPSILON = 1e-15
 
@@ -148,6 +167,9 @@ class GBDT:
     # the JAX package); a streamed booster's ``data.stream.StreamContext``
     _stream_ok = True
     _stream = None
+    # the streaming election's ``ops.planner.StreamPlan`` (resident or
+    # not), which the planner.plan event reads
+    stream_election = None
 
     def __init__(self, config: Config, train_set: Dataset,
                  objective: Optional[ObjectiveFunction]):
@@ -385,6 +407,7 @@ class GBDT:
             self.grower = self._stream.grower = StreamGrower(
                 self._stream.store, self.meta, self.grower_cfg, self.meta_t,
                 self.device)
+            self._publish_plan()
             return
         binned, meta, meta_t, shard = self._shard_inputs()
         if serial:
@@ -399,6 +422,61 @@ class GBDT:
             # its CUDA graph
             self.grower = RoundGrower(binned, meta, self.grower_cfg, meta_t,
                                       self._monotone, shard=shard)
+        self._publish_plan()
+
+    def _publish_plan(self) -> None:
+        """The settled arm as the ``planner.plan`` instant, the registry's
+        training gauges and the flight recorder's context (the JAX
+        package's boosting/gbdt.py:845-895): the growth (rounds, serial
+        or stream), the histogram arm (fused or staged, never "auto"),
+        f32 or quantized, the round's candidate lanes (``KCAP``; 1 for
+        the serial grower), and the planner's predicted card peak
+        (``ops.planner.predict_peak_bytes``, or the streamed peak) beside
+        the election's budget (``device_limit_bytes`` times the
+        headroom).  Host arithmetic only."""
+        from ..ops.histogram import hist_payload_bytes
+        from ..ops.planner import (NO_DEVICE_LIMIT, predict_peak_bytes,
+                                   predict_stream_device_peak_bytes)
+        g, cfg, c = self.grower, self.grower_cfg, self.config
+        n, G = self.train_set.binned_shape()
+        growth = ("stream" if self._stream is not None
+                  else "serial" if isinstance(g, SerialGrower)
+                  else "rounds")
+        variant = "fused" if g.fused_arm else "staged"
+        args = (n, G, self.num_bins)
+        if self._stream is not None:
+            peak = predict_stream_device_peak_bytes(
+                *args, self._stream.store.block_rows, cfg.num_leaves,
+                self.num_tree_per_iteration, self._quant_on,
+                cfg.round_width)
+        else:
+            peak = predict_peak_bytes(*args, cfg.num_leaves,
+                                      self.num_tree_per_iteration,
+                                      self._quant_on, cfg.round_width)[0]
+        el = self.stream_election
+        # None: no card limit (the CPU), so no budget gauge
+        budget = (int(el.device_budget_bytes) if el is not None
+                  and el.device_budget_bytes < NO_DEVICE_LIMIT else None)
+        plan = {"variant": variant, "growth": growth,
+                "fused": variant == "fused", "quant": self._quant_on,
+                "kcap": int(getattr(g, "KCAP", 1)),
+                "tree_learner": self.tree_learner_type,
+                "predicted_peak_bytes": int(peak), "budget_bytes": budget,
+                "feasible": budget is None or peak <= budget,
+                "stream": self._stream is not None}
+        _instant("planner.plan", rows=n, features=G, **plan)
+        _obs_registry.gauge("train_hist_method").set(variant)
+        _obs_registry.gauge("train_hist_predicted_peak_bytes").set(int(peak))
+        if budget is not None:
+            _obs_registry.gauge("train_hbm_budget_bytes").set(budget)
+        if self.group is not None:
+            _obs_registry.gauge("train_psum_payload_bytes").set(
+                hist_payload_bytes(len(self.meta.num_bin), self.num_bins,
+                                   quant=self._quant_on))
+        # the plan rides every forensic bundle's fingerprint: the ring
+        # may have rolled past the instant when a long run dies
+        _flight.set_context(hist_plan=plan, num_leaves=c.num_leaves,
+                            objective=c.objective)
 
     def _check_same_data(self) -> None:
         """Every rank must hold the same training set, whose rows the
@@ -649,22 +727,27 @@ class GBDT:
         A supported booster runs it as a chunk of one
         (``boosting/macro.py``), so training does not depend on how its
         iterations are chunked."""
-        if grad is None and self._chunk_ok():
-            from .macro import run_chunk
-            return run_chunk(self, 1)
-        self.boost_from_average()
-        with self._section("objective"):
-            if grad is None:
-                grad, hess = self._gradients(self.train_score)
-            else:
-                grad, hess = self._given_gradients(grad, hess)
-            mask = self._bagging_mask(self.iter)
-        return self._train_with(grad, hess, mask)
+        with global_timer.section("GBDT::TrainOneIter"):
+            if grad is None and self._chunk_ok():
+                from .macro import run_chunk
+                return run_chunk(self, 1)
+            self.boost_from_average()
+            with self._section("objective"):
+                if grad is None:
+                    with global_timer.section("GBDT::Boosting(gradients)"):
+                        grad, hess = self._gradients(self.train_score)
+                else:
+                    grad, hess = self._given_gradients(grad, hess)
+                with global_timer.section("GBDT::Bagging"):
+                    mask = self._bagging_mask(self.iter)
+            return self._train_with(grad, hess, mask)
 
     def _train_with(self, grad, hess, mask) -> bool:
-        trees = self._grow(self.train_score, grad, hess, mask,
-                           self.shrinkage_rate, self._feature_masks(),
-                           self._node_key())
+        with global_timer.section("TreeLearner::Train(dispatch)"), \
+                _span("gbdt.dispatch", iteration=self.iter):
+            trees = self._grow(self.train_score, grad, hess, mask,
+                               self.shrinkage_rate, self._feature_masks(),
+                               self._node_key())
         return self._finish_iter(trees)
 
     def _renew_residual(self, score: torch.Tensor, k: int) -> torch.Tensor:
@@ -782,13 +865,15 @@ class GBDT:
         """Host trees, first-iteration bias, valid-score updates of an
         iteration trained outside a chunk (DART, a custom objective);
         True when training should stop."""
-        new_models = self._host_trees(trees)
-        if self._keep_iteration(new_models, trees, self.iter):
-            return True
-        with self._section("score"):
-            self._valid_update(trees, self.iter)
-        self.iter += 1
-        return False
+        with global_timer.section("GBDT::FinishIter(host trees)"), \
+                _span("gbdt.finish_iter", iteration=self.iter):
+            new_models = self._host_trees(trees)
+            if self._keep_iteration(new_models, trees, self.iter):
+                return True
+            with self._section("score"):
+                self._valid_update(trees, self.iter)
+            self.iter += 1
+            return False
 
     def _valid_update(self, trees, it: int, routes=None) -> None:
         """Add iteration ``it``'s trees to the valid scores; ``routes``:
@@ -994,12 +1079,14 @@ class GBDT:
         calls of ``train_one_iter``.  A streamed booster trains them one
         at a time.  True when training stopped."""
         from .macro import run_chunk
-        if self._stream is not None and self._chunk_ok():
-            for j in range(c):
-                if run_chunk(self, 1, None if lrs is None else [lrs[j]]):
-                    return True
-            return False
-        return run_chunk(self, c, lrs)
+        with global_timer.section("GBDT::TrainChunk"):
+            if self._stream is not None and self._chunk_ok():
+                for j in range(c):
+                    if run_chunk(self, 1,
+                                 None if lrs is None else [lrs[j]]):
+                        return True
+                return False
+            return run_chunk(self, c, lrs)
 
     def _chunk_goss_keys(self, its, lrs) -> list:
         return [None] * len(its)
@@ -1021,7 +1108,16 @@ class GBDT:
         """The host side of a chunk: every device tree's fields in one
         transfer a field, the host trees, the stop check (a stop
         truncates the chunk there), the valid scores of the kept
-        iterations.  True when training stopped."""
+        iterations.  True when training stopped.  The JAX package's
+        ``macro.host_fetch`` span (``gbdt.finish_iter`` for a streamed
+        booster's iteration)."""
+        with global_timer.section("GBDT::FinishIter(host trees)"), \
+                (_span("gbdt.finish_iter", iteration=it0)
+                 if self._stream is not None else
+                 _span("macro.host_fetch", c=len(stacked), it0=it0)):
+            return self._finish_chunk_inner(stacked, xs, it0)
+
+    def _finish_chunk_inner(self, stacked, xs, it0: int) -> bool:
         K = self.num_tree_per_iteration
         flat = [t for trees in stacked for t in trees]
         with self._section("host_tree"):
@@ -1057,6 +1153,11 @@ class GBDT:
         return out
 
     def _eval(self, dataname, score, metrics):
+        with global_timer.section("GBDT::EvalMetrics"), \
+                _span("gbdt.eval", dataset=dataname):
+            return self._eval_inner(dataname, score, metrics)
+
+    def _eval_inner(self, dataname, score, metrics):
         s = score.cpu().numpy()
         if self.num_tree_per_iteration == 1:
             s = s[0]

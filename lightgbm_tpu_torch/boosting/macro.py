@@ -37,10 +37,20 @@ so a model does not depend on how its iterations were chunked.  DART and
 a custom objective need the host every iteration: ``chunk_supported`` is
 False for them, and the engine falls back to c = 1 there.
 
-The chunk size cap is the constant ``DEFAULT_CHUNK_CAP`` (the JAX
-package's ``LGBM_TPU_CHUNK`` knob waits for an env registry: ROADMAP
-queue A11); the engine picks ``pow2_chunk`` of the distance to its next
-boundary.
+The chunk size cap is ``chunk_cap()``: ``DEFAULT_CHUNK_CAP``, or the
+JAX package's knob ``LGBM_TPU_CHUNK`` where it is set ("0"/"off"
+disables chunking, a positive integer sets the cap); the engine picks
+``pow2_chunk`` of the distance to its next boundary.  A caller's
+``Booster.update_chunk(c)`` takes ``c`` whatever the knob says.
+
+Each chunk counts ``train_chunk_dispatches`` and observes its size in
+the ``train_chunk_size`` histogram of the process registry, and runs
+inside the ``TreeLearner::Train(dispatch)`` timer section and a
+``macro.dispatch`` span, as the JAX package's chunk does; the host side
+of the chunk is ``GBDT._finish_chunk``'s ``macro.host_fetch``.  A
+streamed booster's iteration is a ``stream.iteration`` span and a
+``gbdt.finish_iter``, the JAX package's per-iteration streamed step.
+None of them reads the card.
 """
 
 from __future__ import annotations
@@ -49,9 +59,28 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
-from ..utils import threefry
+from ..obs.metrics import global_registry as _obs_registry
+from ..obs.trace import span as _span
+from ..utils import envflags, threefry
+from ..utils.timer import global_timer
 
 DEFAULT_CHUNK_CAP = 32
+
+
+def chunk_cap() -> int:
+    """The engine's chunk size cap: ``LGBM_TPU_CHUNK`` where set ("0",
+    "off", "false", "no": 0, chunking off; a positive integer: that cap;
+    "", "on", "auto" or another word: the default), else
+    ``DEFAULT_CHUNK_CAP``."""
+    env = envflags.get("LGBM_TPU_CHUNK").strip().lower()
+    if env in ("0", "off", "false", "no"):
+        return 0
+    if env in ("", "on", "true", "auto", "default"):
+        return DEFAULT_CHUNK_CAP
+    try:
+        return max(0, int(env))
+    except ValueError:
+        return DEFAULT_CHUNK_CAP
 
 
 def pow2_chunk(distance: int, cap: int) -> int:
@@ -118,6 +147,22 @@ def run_chunk(b, c: int, lrs: Optional[Sequence[float]] = None) -> bool:
     b.boost_from_average()
     it0 = b.iter
     xs = chunk_host_inputs(b, c, lrs)
+    streamed = b._stream is not None
+    if not streamed:
+        _obs_registry.counter("train_chunk_dispatches").inc()
+        _obs_registry.histogram(
+            "train_chunk_size",
+            buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)).observe(c)
+    with global_timer.section("TreeLearner::Train(dispatch)"), \
+            (_span("stream.iteration", iteration=it0) if streamed
+             else _span("macro.dispatch", c=c, it0=it0)):
+        stacked = _dispatch(b, c, xs)
+    return b._finish_chunk(stacked, xs, it0)
+
+
+def _dispatch(b, c: int, xs: ChunkInputs) -> list:
+    """Queue the chunk's ``c`` iterations on the device; returns each
+    iteration's K device trees (the train score carried in ``b``)."""
     score = b.train_score
     # False once an earlier iteration of the chunk grew no split
     alive = torch.ones((), dtype=torch.bool, device=b.device)
@@ -136,4 +181,4 @@ def run_chunk(b, c: int, lrs: Optional[Sequence[float]] = None) -> bool:
         stacked.append(trees)
         alive = alive & torch.stack([t.num_leaves > 1 for t in trees]).any()
     b.train_score = score
-    return b._finish_chunk(stacked, xs, it0)
+    return stacked

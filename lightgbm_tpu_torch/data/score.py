@@ -26,7 +26,9 @@
   shared sink.
 
 The sink's format and commit protocol are the JAX package's, so sinks
-pass both ways.  The JAX package's ``aot_store=`` (serialized programs
+pass both ways, and so are its events: the ``bulk.plan`` instant, a
+``bulk.run`` span with a ``bulk.block`` span a block inside it, and the
+``bulk_blocks_total`` counter of the process registry.  The JAX package's ``aot_store=`` (serialized programs
 of ``fleet.aot``), ``ledger=`` (the residency ledger) and its
 ``fleet.topology.plan_devices`` device planning are not ported: each
 raises ``NotImplementedError`` naming its ROADMAP queue.
@@ -43,6 +45,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.metrics import global_registry as _obs_registry
+from ..obs.trace import instant as _instant, span as _span
 from ..utils.file_io import write_atomic
 from ..utils.log import log_info
 from .blockstore import BlockStore
@@ -219,7 +223,7 @@ class BulkScorer:
             raise NotImplementedError(
                 "BulkScorer(ledger=): the residency ledger is not ported "
                 "to lightgbm_tpu_torch yet; it waits for ROADMAP queue A11 "
-                "(the observability registry and the residency ledger)")
+                "(rest: the residency ledger)")
         if devices is None:
             devices = (DeviceSpec(0, int(local_device_id)),)
         elif isinstance(devices, int):
@@ -296,16 +300,22 @@ class BulkScorer:
             todo = todo[:max(int(max_blocks), 0)]
         pred_dev, pred_host = self._predicted_peaks()
         from ..ops.predict_kernels import fused_traverse
+        _instant("bulk.plan", blocks=nb, mine=len(mine), skipped=skipped,
+                 todo=len(todo), predicted_device_peak_bytes=pred_dev,
+                 predicted_host_peak_bytes=pred_host)
         rows_scored = blocks_scored = 0
         t0 = time.perf_counter()
         # the reader thread reads ahead while the epilogue and the sink
         # run on the host (measured faster, PERF.md section 6)
-        for i, _start, rows, xb in ReadAhead(
-                BlockPump(self.store, self.dev.device, blocks=todo)):
-            leaves = fused_traverse(self.dev, self._prep(xb))
-            sink.write_block(i, self._score_block(leaves, rows))
-            rows_scored += int(rows)
-            blocks_scored += 1
+        with _span("bulk.run", blocks=len(todo)):
+            for i, _start, rows, xb in ReadAhead(
+                    BlockPump(self.store, self.dev.device, blocks=todo)):
+                with _span("bulk.block", block=i, rows=rows):
+                    leaves = fused_traverse(self.dev, self._prep(xb))
+                    sink.write_block(i, self._score_block(leaves, rows))
+                _obs_registry.counter("bulk_blocks_total").inc()
+                rows_scored += int(rows)
+                blocks_scored += 1
         elapsed = max(time.perf_counter() - t0, 1e-9)
         dev = self.dev.device
         measured_dev = (int(torch.cuda.max_memory_allocated(dev))

@@ -34,17 +34,26 @@ ANY block partition, f32 included; the JAX package promises that only
 for quantized payloads or for f32 in one pinned block order.
 
 The body runs eagerly (the pump is driven from the host) and reads the
-stop test once a round, as the JAX package does; no CUDA graph.  The
-counters a later registry (ROADMAP queue A11) will publish are plain
-attributes here: a pump's ``passes``, ``blocks`` and ``h2d_bytes``, a
-grower's ``host_reads`` and its pump's counters.  Pumps run on one
-device; the JAX package's multi-device placement waits for ROADMAP
-queue A6.
+stop test once a round, as the JAX package does; no CUDA graph.  A
+pump's ``passes``, ``blocks`` and ``h2d_bytes`` and a grower's
+``host_reads`` count one object's work; the process registry
+(``obs.metrics.global_registry``) gets the JAX package's series too:
+``stream_passes_total``, ``stream_blocks_total`` and
+``ingest_blocks_total``, ``stream_blocks_inflight`` and
+``ingest_blocks_inflight`` (``ReadAhead``'s queue), the election's
+``stream_block_rows``, ``stream_num_blocks`` and ``host_rss_peak_bytes``
+gauges, a ``stream.pump``/``ingest.pump`` heartbeat a block, and the
+``stream.block_put``, ``stream.spill``, ``stream.root_pass``,
+``stream.round_pass`` and ``stream.tree`` spans with the
+``planner.plan_stream`` instant; none of them reads the card.  Pumps
+run on one device; the JAX package's multi-device placement waits for
+ROADMAP queue A6.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import tempfile
 import threading
@@ -55,8 +64,12 @@ import numpy as np
 import torch
 
 from ..grower_rounds import RoundGrower
+from ..obs.metrics import global_registry as _obs_registry
+from ..obs.trace import instant as _instant, span as _span
+from ..obs.watchdog import beat as _beat
 from ..ops import fused
 from ..ops import histogram as _hist
+from ..utils import envflags
 from ..utils.log import LightGBMError, log_info, log_warning
 from .blockstore import BlockStore
 
@@ -85,7 +98,13 @@ def _proc_status_kb(key: str) -> int:
 
 
 def default_spill_dir() -> str:
-    """A fresh temporary directory for a spill store."""
+    """A fresh temporary directory for a spill store: under
+    ``LGBM_TPU_STREAM_DIR`` where it is set (created if missing), else
+    under the system's temporary directory."""
+    base = envflags.read("LGBM_TPU_STREAM_DIR")
+    if base:
+        os.makedirs(base, exist_ok=True)
+        return tempfile.mkdtemp(prefix="blocks_", dir=base)
     return tempfile.mkdtemp(prefix="lgbm_tpu_stream_")
 
 
@@ -101,11 +120,14 @@ class _Pump:
     each item to the card.  A subclass gives ``_items`` (the item
     indices of a pass, in order), ``_host_item(i, buf)`` -> (start, rows,
     host array) and ``_buffer_bytes``, and may shape the delivered
-    tensor (``_shape``)."""
+    tensor (``_shape``).  ``KIND`` names the pump's registry series,
+    heartbeat and span (``<kind>_blocks_total``, ``<kind>.pump``,
+    ``<kind>.block_put``)."""
 
     # pinned host buffers, used in turn: the next item is read while the
     # copy of the one before may still run
     NUM_BUFFERS = 2
+    KIND = "stream"
 
     def __init__(self, device):
         from ..basic import resolve_device
@@ -163,9 +185,17 @@ class _Pump:
         if self._cuda:
             self._setup_cuda()
         self.passes += 1
+        kind = self.KIND
+        if kind == "stream":
+            _obs_registry.counter("stream_passes_total").inc()
+        blocks = _obs_registry.counter(f"{kind}_blocks_total")
         for k, i in enumerate(self._items()):
-            i, start, rows, t = self._load(i, k)
+            with _span(f"{kind}.block_put", block=i):
+                i, start, rows, t = self._load(i, k)
             self.blocks += 1
+            blocks.inc()
+            # the pump's heartbeat: a wedged store read goes stale here
+            _beat(f"{kind}.pump", count=i + 1)
             yield i, start, rows, self._shape(t)
 
 
@@ -219,6 +249,7 @@ class ReadAhead:
         t = self.thread = threading.Thread(target=reader, daemon=True,
                                            name="lgbm-read-ahead")
         t.start()
+        inflight = _obs_registry.gauge(f"{self.pump.KIND}_blocks_inflight")
         try:
             while True:
                 try:
@@ -232,9 +263,11 @@ class ReadAhead:
                     return
                 if isinstance(item, BaseException):
                     raise item
+                inflight.set(q.qsize() + 1)
                 yield item
         finally:
             stop.set()
+            inflight.set(0)
             t.join(self.JOIN_TIMEOUT_S)
 
 
@@ -288,6 +321,8 @@ class IngestPump(_Pump):
     chunk)`` in ascending order.  One device: ``devices`` with more than
     one entry (the JAX package's placement of chunks over devices)
     raises ``NotImplementedError``."""
+
+    KIND = "ingest"
 
     def __init__(self, source, chunk_rows: int, device=None, devices=None):
         if devices is not None and len(list(devices)) > 1:
@@ -395,6 +430,9 @@ def maybe_stream_setup(b) -> bool:
         rows=n, features=G, num_bins=b.num_bins,
         num_leaves=b.config.num_leaves, num_class=b.num_tree_per_iteration,
         quant=quant, round_width=b.config.tpu_round_width, device=b.device)
+    # the election's verdict, kept for the booster's planner.plan event
+    b.stream_election = plan
+    _instant("planner.plan_stream", rows=n, features=G, **plan.summary())
     if not plan.stream and (store is None or ds.binned_t is not None):
         # residency fits and the matrix is on the card: a spill store
         # left by an earlier booster does not force streaming
@@ -411,7 +449,8 @@ def maybe_stream_setup(b) -> bool:
             f"planner ({plan.reason}) but not supported with "
             + ", ".join(blockers)
             + "; training resident — expect memory pressure "
-            "(stream_override(force=False) silences this)")
+            "(stream_override(force=False) or LGBM_TPU_STREAM=0 "
+            "silences this)")
         return False
     if not plan.feasible and store is None:
         log_warning(
@@ -422,8 +461,9 @@ def maybe_stream_setup(b) -> bool:
             f"{plan.block_rows}; training may run out of memory")
     if store is None:
         path = default_spill_dir()
-        store = spill_binned(ds.binned_t, path, plan.block_rows,
-                             ds.binned_dtype())
+        with _span("stream.spill", rows=n, block_rows=plan.block_rows):
+            store = spill_binned(ds.binned_t, path, plan.block_rows,
+                                 ds.binned_dtype())
         ds._block_store = store
         ds._block_store_owned = True
         weakref.finalize(ds, BlockStore.cleanup, store)
@@ -450,7 +490,10 @@ def maybe_stream_setup(b) -> bool:
             reason="block-backed dataset (the spill store is the only "
                    "copy of the binned matrix)")
     b._stream = StreamContext(store, plan)
-    b.stream_plan = plan
+    b.stream_plan = b.stream_election = plan
+    _obs_registry.gauge("stream_block_rows").set(int(store.block_rows))
+    _obs_registry.gauge("stream_num_blocks").set(int(store.num_blocks))
+    _obs_registry.gauge("host_rss_peak_bytes").set(host_rss_peak_bytes())
     return True
 
 
@@ -465,7 +508,11 @@ class StreamGrower(RoundGrower):
     The body runs eagerly with one host read of the stop test a round
     (``host_reads``).  Quantized folds add int32 arenas over the blocks,
     so the rows in all, not a block's, are held to
-    ``ops.histogram.INT32_SAFE_ROWS``."""
+    ``ops.histogram.INT32_SAFE_ROWS``.  A tree is a ``stream.tree``
+    span, with ``stream.root_pass`` and a ``stream.round_pass`` a round
+    inside it (the body is eager, so each pass records)."""
+
+    grow_span = "stream.tree"
 
     def __init__(self, store: BlockStore, meta, cfg, meta_t=None,
                  device=None):
@@ -486,8 +533,14 @@ class StreamGrower(RoundGrower):
         self.split_pair = False
         self.pump = BlockPump(store, dev)
         self.host_reads = 0
+        self._round_index = 0
         self._crank = torch.zeros(n, dtype=torch.int64, device=dev)
         self._gl = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def grow(self, *args, **kwargs):
+        out = super().grow(*args, **kwargs)
+        _obs_registry.gauge("host_rss_peak_bytes").set(host_rss_peak_bytes())
+        return out
 
     def _block_vals(self, start: int, rows: int) -> torch.Tensor:
         """The block's columns of the value block, contiguous (B4 and B6
@@ -496,34 +549,37 @@ class StreamGrower(RoundGrower):
 
     def _root_fixed(self, slot0: torch.Tensor) -> torch.Tensor:
         acc = None
-        for _i, s, r, blk in self.pump:
-            part = _hist.histogram_fixed(blk, self._block_vals(s, r),
-                                         self.Bg, self.host_scales)
-            acc = part if acc is None else acc + part
+        with _span("stream.root_pass"):
+            for _i, s, r, blk in self.pump:
+                part = _hist.histogram_fixed(blk, self._block_vals(s, r),
+                                             self.Bg, self.host_scales)
+                acc = part if acc is None else acc + part
         return acc
 
     def _root_levels(self, slot0: torch.Tensor) -> torch.Tensor:
         acc = None
-        for _i, s, r, blk in self.pump:
-            part = fused.accumulate(blk, self._block_vals(s, r),
-                                    slot0[s:s + r].contiguous(), 1,
-                                    self.Bg)[0]
-            acc = part if acc is None else acc + part
+        with _span("stream.root_pass"):
+            for _i, s, r, blk in self.pump:
+                part = fused.accumulate(blk, self._block_vals(s, r),
+                                        slot0[s:s + r].contiguous(), 1,
+                                        self.Bg)[0]
+                acc = part if acc is None else acc + part
         return acc
 
     def _row_pass(self, section, route, K: int, Bx: int, scales):
         seg = None
-        for _i, s, r, blk in self.pump:
-            rows = slice(s, s + r)
-            with section("routing"):
-                crank, gl, slot = route(blk, self.leaf_id[rows],
-                                        self.member[rows])
-                self._crank[rows] = crank
-                self._gl[rows] = gl
-            with section("kernels"):
-                part = fused.accumulate(blk, self._block_vals(s, r), slot,
-                                        K, Bx, scales)
-                seg = part if seg is None else seg + part
+        with _span("stream.round_pass", round=self._round_index):
+            for _i, s, r, blk in self.pump:
+                rows = slice(s, s + r)
+                with section("routing"):
+                    crank, gl, slot = route(blk, self.leaf_id[rows],
+                                            self.member[rows])
+                    self._crank[rows] = crank
+                    self._gl[rows] = gl
+                with section("kernels"):
+                    part = fused.accumulate(blk, self._block_vals(s, r),
+                                            slot, K, Bx, scales)
+                    seg = part if seg is None else seg + part
         return self._crank, self._gl, None, seg
 
     def _run_rounds(self, section, use_graph: bool) -> int:
@@ -532,6 +588,7 @@ class StreamGrower(RoundGrower):
             self.host_reads += 1
             if bool(self.done):
                 break
+            self._round_index = r
             self._round(section)
             r += 1
         return r

@@ -259,8 +259,10 @@ class Dataset:
                 f"streaming dataset load incomplete: "
                 f"{int(self._pushed.sum())}/{self.num_data} rows pushed "
                 f"(first unpushed row: {first})")
+        from .utils.timer import global_timer
         t0 = time.perf_counter()
-        self._construct_inner()
+        with global_timer.section("Dataset::Construct"):
+            self._construct_inner()
         self.construct_seconds = time.perf_counter() - t0
         return self
 
@@ -358,13 +360,27 @@ class Dataset:
         """Rows into their [G, rows] binned matrix: f32 rows (a host
         array, or a tensor on the Dataset's device) through B3 on the
         device, other rows on the host (the f64 path; a CPU tensor,
-        uint8 or int32)."""
+        uint8 or int32).  The kernel route is the JAX package's
+        ``ingest.device_bin`` span, and adds to ``ingest_rows_total`` and
+        sets ``bin_rows_per_sec`` on the process registry: host seconds,
+        since nothing here waits for the card (B3's time lands in
+        whatever first reads the binned rows)."""
         if isinstance(raw, torch.Tensor) or raw.dtype == np.float32:
+            from .obs.metrics import global_registry
+            from .obs.trace import span
             self._note_route("kernel")
-            if not isinstance(raw, torch.Tensor):
-                raw = torch.from_numpy(np.ascontiguousarray(raw)).to(
-                    self.device)
-            return self._binner_for()(raw)
+            n = int(raw.shape[0])
+            t0 = time.perf_counter()
+            with span("ingest.device_bin", rows=n):
+                if not isinstance(raw, torch.Tensor):
+                    raw = torch.from_numpy(np.ascontiguousarray(raw)).to(
+                        self.device)
+                out = self._binner_for()(raw)
+            dt = time.perf_counter() - t0
+            global_registry.counter("ingest_rows_total").inc(n)
+            global_registry.gauge("bin_rows_per_sec").set(
+                round(n / max(dt, 1e-9), 1))
+            return out
         self._note_route("host")
         out = np.zeros((raw.shape[0], self.num_groups),
                        dtype=self.binned_dtype())
@@ -1101,6 +1117,33 @@ class Dataset:
     def binned_dtype(self) -> np.dtype:
         return np.dtype(np.uint8 if self.max_group_bin <= 256
                         else np.uint16)
+
+    def get_params(self) -> dict:
+        """A copy of the Dataset's parameters."""
+        return dict(self.params)
+
+    def get_ref_chain(self, ref_limit: int = 100) -> set:
+        """The Datasets reachable through ``.reference``, this one
+        included (reference: Dataset.get_ref_chain, basic.py:1633; the
+        JAX package's dataset.py:1013)."""
+        head, chain = self, set()
+        while len(chain) < ref_limit:
+            if isinstance(head, Dataset):
+                chain.add(head)
+                if head.reference is not None \
+                        and head.reference not in chain:
+                    head = head.reference
+                else:
+                    break
+            else:
+                break
+        return chain
+
+    @property
+    def categorical_feature(self):
+        """The ``categorical_feature`` spec as given (reference keeps the
+        user's names or indices on the Dataset)."""
+        return self._categorical_feature_param
 
     def num_feature(self) -> int:
         """The number of original features (reference:

@@ -10,9 +10,22 @@ host between them: no custom objective, a booster that
 ``chunk_supported()``, every callback after an iteration ``_chunk_safe``
 and every callback before one a learning-rate schedule (whose values
 ride into the chunk, then a final ``reset_parameter``); otherwise c = 1
-through ``Booster.update``.  The JAX package's pause control,
-checkpoints, flight recorder and watchdog are not ported (ROADMAP queue
-A8 and A11).  Training runs on the Dataset's device: ``device=None``
+through ``Booster.update``; the cap is ``macro.chunk_cap()``
+(``LGBM_TPU_CHUNK``).  The JAX package's pause control and checkpoints
+are not ported (ROADMAP queue A8).
+
+Observability, at the JAX package's call sites
+(``lightgbm_tpu/engine.py:80-84, 266-391``): ``train`` starts the
+env-gated watchdog sentry and metrics endpoint, puts the run in the
+flight recorder's context, watches the ``engine.step`` heartbeat (with
+the trees/s floor of ``LIGHTGBM_TPU_SLO_TREES_PER_SEC``) while the loop
+runs, records the ``engine.train`` root span, an ``engine.step`` span a
+step and ``engine.eval`` around the evaluations, notes each step in the
+flight ring, sets the ``train_iter_seconds``,
+``train_trees_per_sec_live``, ``train_iterations_total`` and
+``train_trees_per_sec`` instruments, and dumps a forensic bundle when
+the loop raises.  All of it is host bookkeeping: nothing reads the
+card.  Training runs on the Dataset's device: ``device=None``
 keeps it (a new Dataset defaults to the CUDA card), ``device="cpu"``
 moves a not-yet-constructed Dataset and its valid sets to the CPU.
 """
@@ -20,13 +33,18 @@ moves a not-yet-constructed Dataset and its valid sets to the CPU.
 from __future__ import annotations
 
 import collections
+import time
 from typing import Callable, Dict, List, Optional
 
 from . import callback as callback_mod
 from .basic import Booster, resolve_device
-from .boosting.macro import DEFAULT_CHUNK_CAP, pow2_chunk
+from .boosting.macro import chunk_cap, pow2_chunk
 from .config import Config
 from .dataset import Dataset, same_bins
+from .obs.flight import global_flight as _flight
+from .obs.metrics import global_registry as _obs_registry
+from .obs.trace import span as _span
+from .obs.watchdog import global_watchdog as _watchdog
 
 
 def _place(ds: Dataset, device) -> None:
@@ -78,6 +96,11 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     the reference's signature: the returned Booster always keeps its
     training state."""
     _refuse_checkpoints(checkpoints)
+    # the env-gated SLO sentry and metrics endpoint
+    from .obs.http import maybe_start_from_env as _http_from_env
+    from .obs.watchdog import maybe_start_from_env as _wd_from_env
+    _wd_from_env()
+    _http_from_env()
     params = dict(params)
     if feature_name != "auto":
         train_set._feature_name_param = feature_name
@@ -166,7 +189,9 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     lr_lists_ok = all(not isinstance(cb._lr_schedule, list)
                       or len(cb._lr_schedule) == num_boost_round
                       for cb in lr_cbs)
-    can_chunk = (fobj is None and booster.boosting.chunk_supported()
+    cap = chunk_cap()
+    can_chunk = (cap > 1 and fobj is None
+                 and booster.boosting.chunk_supported()
                  and len(lr_cbs) == len(cbs_before) and lr_lists_ok
                  and all(getattr(cb, "_chunk_safe", False)
                          for cb in cbs_after))
@@ -180,47 +205,93 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
 
     evaluation_result_list = []
     i = 0
-    while i < num_boost_round:
-        c = 1
-        if can_chunk:
-            d = num_boost_round - i
-            if eval_possible:
-                d = min(d, mf - (i % mf))
-            c = pow2_chunk(d, DEFAULT_CHUNK_CAP)
-        if c > 1:
-            lrs = [lr_at(j) for j in range(i, i + c)] if lr_cbs else None
-            finished = booster.update_chunk(c, lrs)
-            if lrs is not None:
-                # the last reset_parameter of the chunk, as per-iteration
-                # training leaves it
-                booster.reset_parameter({"learning_rate": lrs[-1]})
-                params["learning_rate"] = lrs[-1]
-        else:
-            for cb in cbs_before:
-                cb(callback_mod.CallbackEnv(booster, params, i, 0,
-                                            num_boost_round, None))
-            finished = booster.update(fobj=fobj)
-        i += c
-        j = i - 1        # the last iteration of this step
-        evaluation_result_list = []
-        if eval_possible and (j + 1) % mf == 0:
-            if cfg.is_provide_training_metric or train_in_valid:
-                evaluation_result_list.extend(booster.eval_train(feval))
-            evaluation_result_list.extend(booster.eval_valid(feval))
-        try:
-            for cb in cbs_after:
-                cb(callback_mod.CallbackEnv(booster, params, j, 0,
-                                            num_boost_round,
-                                            evaluation_result_list))
-        except callback_mod.EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            for item in e.best_score:
-                booster.best_score.setdefault(item[0],
-                                              collections.OrderedDict())
-                booster.best_score[item[0]][item[1]] = item[2]
-            break
-        if finished:
-            break
+    t_loop0 = time.perf_counter()
+    K_per_iter = booster.boosting.num_tree_per_iteration
+    _flight.set_context(
+        phase="train", num_boost_round=num_boost_round, start_iter=0,
+        objective=cfg.objective, num_leaves=cfg.num_leaves,
+        rows=train_set.num_data)
+    # the loop's heartbeat is stale-watched only WHILE the loop runs (a
+    # finished loop never breaches)
+    _watchdog.watch_heartbeat(
+        "engine.step", floor=_watchdog.config.trees_per_sec_floor)
+    try:
+        with _span("engine.train", start_iter=0,
+                   num_boost_round=num_boost_round):
+            while i < num_boost_round:
+                c = 1
+                if can_chunk:
+                    d = num_boost_round - i
+                    if eval_possible:
+                        d = min(d, mf - (i % mf))
+                    c = pow2_chunk(d, cap)
+                t_step0 = time.perf_counter()
+                if c > 1:
+                    lrs = ([lr_at(j) for j in range(i, i + c)] if lr_cbs
+                           else None)
+                    with _span("engine.step", i=i, c=c):
+                        finished = booster.update_chunk(c, lrs)
+                    if lrs is not None:
+                        # the last reset_parameter of the chunk, as
+                        # per-iteration training leaves it
+                        booster.reset_parameter({"learning_rate": lrs[-1]})
+                        params["learning_rate"] = lrs[-1]
+                else:
+                    for cb in cbs_before:
+                        cb(callback_mod.CallbackEnv(booster, params, i, 0,
+                                                    num_boost_round, None))
+                    with _span("engine.step", i=i, c=1):
+                        finished = booster.update(fobj=fobj)
+                i += c
+                # the step boundary: the flight ring, the live-rate gauges
+                # and the heartbeat (host accounting: no device work)
+                step_s = time.perf_counter() - t_step0
+                _flight.note("engine.step", i=i - c, c=c, dur_us=step_s * 1e6)
+                _flight.sample_metrics()
+                _obs_registry.gauge("train_iter_seconds").set(
+                    round(step_s / max(c, 1), 6))
+                live = i * K_per_iter / max(time.perf_counter() - t_loop0,
+                                            1e-9)
+                _obs_registry.gauge("train_trees_per_sec_live").set(
+                    round(live, 3))
+                _watchdog.beat("engine.step", count=i * K_per_iter)
+                j = i - 1        # the last iteration of this step
+                evaluation_result_list = []
+                if eval_possible and (j + 1) % mf == 0:
+                    with _span("engine.eval", iteration=j):
+                        if cfg.is_provide_training_metric or train_in_valid:
+                            evaluation_result_list.extend(
+                                booster.eval_train(feval))
+                        evaluation_result_list.extend(
+                            booster.eval_valid(feval))
+                try:
+                    for cb in cbs_after:
+                        cb(callback_mod.CallbackEnv(booster, params, j, 0,
+                                                    num_boost_round,
+                                                    evaluation_result_list))
+                except callback_mod.EarlyStopException as e:
+                    booster.best_iteration = e.best_iteration + 1
+                    for item in e.best_score:
+                        booster.best_score.setdefault(
+                            item[0], collections.OrderedDict())
+                        booster.best_score[item[0]][item[1]] = item[2]
+                    break
+                if finished:
+                    break
+    except BaseException as e:
+        # an unhandled loop failure (the span above closed tagged with
+        # it): the forensic bundle (ring, metrics, fingerprint) before
+        # the raise unwinds the process
+        _flight.on_exception("engine.train", e)
+        raise
+    finally:
+        _watchdog.unwatch("engine.step")
+    wall = time.perf_counter() - t_loop0
+    if i > 0:
+        _obs_registry.counter("train_iterations_total").inc(i)
+        if wall > 0:
+            _obs_registry.gauge("train_trees_per_sec").set(
+                round(i * K_per_iter / wall, 3))
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
         for item in evaluation_result_list:

@@ -94,6 +94,7 @@ import numpy as np
 import torch
 
 from .binning import MissingType
+from .obs.trace import span as _span
 from .ops import fused
 from .ops.histogram import (_vals_t, _vals_t_int, fixed_point_scales,
                             histogram_fixed)
@@ -396,7 +397,22 @@ class _GrowerCommon:
     scales, masks and draws into, the carry buffers (each with a spare
     last row for ``_pad_scatter``), the tree's inputs and root, the
     search and the leaf finish.  A subclass sets ``fused_arm`` and
-    ``best``."""
+    ``best``, and grows a tree in ``_grow``; ``grow`` records the tree
+    as one ``grow_span`` span (the JAX package's ``trace.grow_tree`` and
+    ``trace.grow_tree_rounds``), outside any captured body."""
+
+    grow_span = "trace.grow_tree"
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             row_mask: torch.Tensor,
+             feature_mask: Optional[torch.Tensor] = None,
+             quant_vals: Optional[tuple] = None, rng_key=None, timer=None,
+             rounds: Optional[list] = None):
+        """Grow one tree; returns (TreeArrays, leaf_id [n] int64), both
+        the caller's own tensors."""
+        with _span(self.grow_span, rows=self.n):
+            return self._grow(grad, hess, row_mask, feature_mask,
+                              quant_vals, rng_key, timer, rounds)
 
     def __init__(self, binned_t: torch.Tensor, meta, cfg: GrowerConfig,
                  meta_t: Optional[dict] = None,
@@ -407,6 +423,7 @@ class _GrowerCommon:
         self.binned_t = binned_t
         self.cfg = cfg
         G, n = binned_t.shape
+        self.n = n
         # sharded training (parallel/learners.py): the mode, the group,
         # the group the rows are summed over (data and voting) and the
         # rows over every rank
@@ -1265,15 +1282,11 @@ class SerialGrower(_GrowerCommon):
 
     # --------------------------------------------------------------- tree
 
-    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
-             row_mask: torch.Tensor,
-             feature_mask: Optional[torch.Tensor] = None,
-             quant_vals: Optional[tuple] = None, rng_key=None, timer=None,
-             rounds: Optional[list] = None):
-        """Grow one tree (see ``grow_tree``); returns (TreeArrays, leaf_id
-        [n] int64), both the caller's own tensors.  ``rounds``, when
-        given, gets a ``(1, 1)`` per split (one candidate, committed),
-        from one host read after the tree."""
+    def _grow(self, grad, hess, row_mask, feature_mask, quant_vals,
+              rng_key, timer, rounds):
+        """One tree (see ``grow_tree``); ``rounds``, when given, gets a
+        ``(1, 1)`` per split (one candidate, committed), from one host
+        read after the tree."""
         section = (timer or _NullTimer).section
         root, root_sums = self._tree_inputs(section, grad, hess, row_mask,
                                             feature_mask, quant_vals,

@@ -431,13 +431,11 @@ class RoundGrower(_GrowerCommon):
 
     # --------------------------------------------------------------- tree
 
-    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
-             row_mask: torch.Tensor,
-             feature_mask: Optional[torch.Tensor] = None,
-             quant_vals: Optional[tuple] = None, rng_key=None, timer=None,
-             rounds: Optional[list] = None):
-        """Grow one tree (see ``grow_tree_rounds``); returns (TreeArrays,
-        leaf_id [n] int64), both the caller's own tensors."""
+    grow_span = "trace.grow_tree_rounds"
+
+    def _grow(self, grad, hess, row_mask, feature_mask, quant_vals,
+              rng_key, timer, rounds):
+        """One tree (see ``grow_tree_rounds``); ``grow`` wraps it."""
         section = (timer or _NullTimer).section
         use_graph = self.graphs and USE_GRAPHS and timer is None
         root, root_sums = self._tree_inputs(section, grad, hess, row_mask,

@@ -1,25 +1,34 @@
-"""Counters, gauges and histograms for the serving path (counterpart of
-the ``Counter``/``Gauge``/``Histogram``/``MetricsRegistry`` surface of
-``lightgbm_tpu/obs/metrics.py``).
+"""The process metrics registry: counters, gauges, histograms
+(counterpart of ``lightgbm_tpu/obs/metrics.py``).
 
-``MetricsRegistry.to_dict()`` keeps the JAX package's key layout
-(``counters``/``gauges``/``histograms``), so a dashboard reads either
-package's snapshot the same way, and ``to_prometheus()`` renders the
-same instruments in the Prometheus text exposition format (cumulative
-buckets) as the JAX package does.  A histogram is fixed upper-bound
-buckets plus count/sum/min/max; every mutation takes the owning
-registry's single lock.  Stdlib only.  The JAX package's labelled
-series and child registries belong to its serving fleet (ROADMAP queue
-A6) and its HTTP endpoint to its env registry (A11).
+One instrument model for training, serving and the data plane:
+
+- serving keeps a registry per ``Server`` (tests read per-server
+  counters), and each server attaches it to the process registry as a
+  named component (``attach_child``), so a process-wide snapshot sees
+  it;
+- training's gauges and counters (trees/s, the resolved arm, the
+  planner's predicted peak and budget, chunk sizes, collective
+  payloads) and the data plane's (stream passes and blocks, bulk
+  blocks) land directly on ``global_registry``.
+
+Two export formats, both the JAX package's byte for byte: ``to_dict()``
+(``counters``/``gauges``/``histograms``, plus ``components`` when
+children are attached) and ``to_prometheus()`` (the text exposition
+format, cumulative buckets), so a dashboard or scraper built for
+``lightgbm_tpu`` reads the port's output unchanged.
+
+Instruments are deliberately simple: a histogram is fixed upper-bound
+buckets plus count/sum/min/max.  Every mutation takes the owning
+registry's single lock; nothing here touches a torch tensor.  Stdlib
+only.
 """
 
 from __future__ import annotations
 
 import json
 import math
-import os
 import re
-import tempfile
 import threading
 from typing import Dict, List, Optional, Sequence
 
@@ -117,9 +126,8 @@ class Histogram:
                 },
             }
 
-
     def cumulative(self) -> tuple:
-        """(list of (upper_bound, cumulative_count), sum, count): the
+        """(list of (upper_bound, cumulative_count), sum, count) — the
         Prometheus exposition shape (buckets are cumulative there)."""
         with self._lock:
             out, running = [], 0
@@ -130,7 +138,7 @@ class Histogram:
 
 
 def _prom_name(name: str, prefix: str = "") -> str:
-    """An instrument name as a legal Prometheus metric name."""
+    """Sanitize an instrument name into a legal Prometheus metric name."""
     s = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
     if prefix:
         s = f"{prefix}_{s}"
@@ -140,24 +148,46 @@ def _prom_name(name: str, prefix: str = "") -> str:
 
 
 def _esc_label(v) -> str:
-    # backslash, quote and line feed must be escaped in a label value, or
-    # one bad value splits a sample across lines
+    # Prometheus text format: backslash, quote AND line feed must be
+    # escaped in label values or one bad value splits the sample across
+    # lines and the scraper rejects the whole exposition
     return (str(v).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
 
 
-def _series(name: str, labels: Optional[dict] = None) -> str:
-    """One sample's name: the metric name and its sorted label set."""
+def _labels_suffix(labels: Optional[dict]) -> str:
+    """Canonical ``{k="v",...}`` series suffix (sorted keys) — also the
+    instrument-key suffix, so the same (name, labels) pair always
+    resolves to the same instrument."""
     if not labels:
-        return name
+        return ""
     inner = ",".join(f'{k}="{_esc_label(v)}"'
                      for k, v in sorted(labels.items()))
-    return name + "{" + inner + "}"
+    return "{" + inner + "}"
+
+
+def _series(name: str, labels: Optional[dict],
+            extra: Optional[dict] = None) -> str:
+    """One exposition sample name: metric name + merged label set
+    (instrument labels first, then per-sample ones like ``le``)."""
+    merged = dict(labels or {})
+    if extra:
+        merged.update(extra)
+    return name + _labels_suffix(merged)
 
 
 class MetricsRegistry:
     """Named instrument registry; ``counter``/``gauge``/``histogram`` are
-    get-or-create so call sites never race on registration."""
+    get-or-create so call sites never race on registration.  Child
+    registries (``attach_child``) appear in snapshots as components.
+
+    ``labels={"model": "ranker"}`` creates a LABELLED series of the same
+    metric (the serving fleet's per-model instruments): distinct label
+    values are distinct instruments, keyed ``name{k="v"}``.  Unlabelled
+    instruments keep their exact historical keys in ``to_dict`` — the
+    labelled series appear ADDITIVELY under their suffixed keys — and
+    ``to_prometheus`` emits proper label sets (one # TYPE line per
+    metric name, per-sample labels like ``le`` merged in)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -165,85 +195,150 @@ class MetricsRegistry:
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        self._children: Dict[str, "MetricsRegistry"] = {}
+        # key -> (bare name, labels dict) for labelled series only
+        self._meta: Dict[str, tuple] = {}
 
-    def counter(self, name: str) -> Counter:
-        with self._reg_lock:
-            if name not in self._counters:
-                self._counters[name] = Counter(self._lock)
-            return self._counters[name]
+    def _key(self, name: str, labels: Optional[dict]) -> str:
+        if not labels:
+            return name
+        key = name + _labels_suffix(labels)
+        self._meta.setdefault(key, (name, dict(labels)))
+        return key
 
-    def gauge(self, name: str) -> Gauge:
+    def counter(self, name: str, labels: Optional[dict] = None) -> Counter:
         with self._reg_lock:
-            if name not in self._gauges:
-                self._gauges[name] = Gauge(self._lock)
-            return self._gauges[name]
+            key = self._key(name, labels)
+            if key not in self._counters:
+                self._counters[key] = Counter(self._lock)
+            return self._counters[key]
+
+    def gauge(self, name: str, labels: Optional[dict] = None) -> Gauge:
+        with self._reg_lock:
+            key = self._key(name, labels)
+            if key not in self._gauges:
+                self._gauges[key] = Gauge(self._lock)
+            return self._gauges[key]
 
     def histogram(self, name: str,
-                  buckets: Sequence[float] = LATENCY_BUCKETS_MS) -> Histogram:
+                  buckets: Sequence[float] = LATENCY_BUCKETS_MS,
+                  labels: Optional[dict] = None) -> Histogram:
         with self._reg_lock:
-            if name not in self._histograms:
-                self._histograms[name] = Histogram(self._lock, buckets)
-            return self._histograms[name]
+            key = self._key(name, labels)
+            if key not in self._histograms:
+                self._histograms[key] = Histogram(self._lock, buckets)
+            return self._histograms[key]
+
+    # ----------------------------------------------------------- components
+
+    def attach_child(self, name: str, child: "MetricsRegistry") -> str:
+        """Register a component registry (e.g. one serving Server) under
+        ``name``; a taken name gets a numeric suffix.  Returns the name
+        actually used (pass it to ``detach_child``)."""
+        with self._reg_lock:
+            key, i = name, 1
+            while key in self._children:
+                i += 1
+                key = f"{name}_{i}"
+            self._children[key] = child
+            return key
+
+    def detach_child(self, name: str) -> None:
+        with self._reg_lock:
+            self._children.pop(name, None)
+
+    def children(self) -> Dict[str, "MetricsRegistry"]:
+        with self._reg_lock:
+            return dict(self._children)
+
+    # -------------------------------------------------------------- export
 
     def to_dict(self) -> dict:
-        """JSON-ready snapshot: ``counters``/``gauges``/``histograms``."""
+        """JSON-ready snapshot (the JAX package's layout: ``components``
+        appears only when child registries are attached)."""
         with self._reg_lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             hists = dict(self._histograms)
-        return {
+            children = dict(self._children)
+        out = {
             "counters": {k: c.value for k, c in sorted(counters.items())},
             "gauges": {k: g.value for k, g in sorted(gauges.items())},
             "histograms": {k: h.snapshot() for k, h in sorted(hists.items())},
         }
+        if children:
+            out["components"] = {k: c.to_dict()
+                                 for k, c in sorted(children.items())}
+        return out
+
+    def dump_json(self, path: Optional[str] = None, indent: int = 1) -> str:
+        s = json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+        if path is not None:
+            # operators read these snapshots back; the atomic seam means
+            # a scrape never sees a half-written one
+            from ..utils.file_io import write_atomic
+            write_atomic(path, s)
+        return s
 
     def to_prometheus(self, prefix: str = "lgbt") -> str:
-        """Prometheus text exposition (version 0.0.4) of every instrument.
-        A non-numeric gauge (a model digest, a precision) is exported as
-        ``<name>_info{value="..."} 1``."""
+        """Prometheus text exposition (version 0.0.4) of every instrument,
+        children included (component name joins the prefix).  Non-numeric
+        gauges (model digests) export as ``<name>_info{value="..."} 1``.
+        """
         with self._reg_lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             hists = dict(self._histograms)
+            children = dict(self._children)
+            meta = dict(self._meta)
         lines: List[str] = []
+        typed: set = set()      # one # TYPE line per metric name
+
+        def head(key):
+            name, labels = meta.get(key, (key, None))
+            return _prom_name(name, prefix), labels
+
+        def declare(n, kind):
+            if n not in typed:
+                typed.add(n)
+                lines.append(f"# TYPE {n} {kind}")
+
         for k, c in sorted(counters.items()):
-            n = _prom_name(k, prefix)
-            lines.append(f"# TYPE {n} counter")
-            lines.append(f"{n} {c.value}")
+            n, labels = head(k)
+            declare(n, "counter")
+            lines.append(f"{_series(n, labels)} {c.value}")
         for k, g in sorted(gauges.items()):
-            n = _prom_name(k, prefix)
+            n, labels = head(k)
             v = g.value
             if isinstance(v, bool):
                 v = int(v)
             if isinstance(v, (int, float)) and math.isfinite(v):
-                lines.append(f"# TYPE {n} gauge")
-                lines.append(f"{n} {v}")
+                declare(n, "gauge")
+                lines.append(f"{_series(n, labels)} {v}")
             else:
-                lines.append(f"# TYPE {n}_info gauge")
-                lines.append(f"{_series(n + '_info', {'value': v})} 1")
+                declare(f"{n}_info", "gauge")
+                lines.append(
+                    f"{_series(n + '_info', labels, {'value': v})} 1")
         for k, h in sorted(hists.items()):
-            n = _prom_name(k, prefix)
+            n, labels = head(k)
             cum, total, count = h.cumulative()
-            lines.append(f"# TYPE {n} histogram")
+            declare(n, "histogram")
             for bound, c in cum:
                 le = "+Inf" if math.isinf(bound) else repr(float(bound))
-                lines.append(f"{_series(n + '_bucket', {'le': le})} {c}")
-            lines.append(f"{n}_sum {total}")
-            lines.append(f"{n}_count {count}")
+                lines.append(
+                    f"{_series(n + '_bucket', labels, {'le': le})} {c}")
+            lines.append(f"{_series(n + '_sum', labels)} {total}")
+            lines.append(f"{_series(n + '_count', labels)} {count}")
+        for name, child in sorted(children.items()):
+            lines.append(child.to_prometheus(
+                prefix=_prom_name(name, prefix)).rstrip("\n"))
         return "\n".join(lines) + "\n"
 
-    def dump_json(self, path: Optional[str] = None, indent: int = 1) -> str:
-        """The snapshot as JSON; with ``path``, also written atomically
-        (temp sibling + ``os.replace``) so a reader never sees half."""
-        s = json.dumps(self.to_dict(), indent=indent, sort_keys=True)
-        if path is not None:
-            d = os.path.dirname(os.path.abspath(path))
-            fd, tmp = tempfile.mkstemp(dir=d, prefix=".metrics.")
-            try:
-                with os.fdopen(fd, "w") as fh:
-                    fh.write(s)
-                os.replace(tmp, path)
-            except BaseException:
-                os.unlink(tmp)
-                raise
-        return s
+
+# THE process registry: training and data-plane instruments land here and
+# serving Servers attach their per-server registries as components.
+global_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return global_registry

@@ -116,6 +116,11 @@ grid does not apply:
 
 The out-of-core data plane's two-level budget (``plan_stream``, the
 card's and the host's peaks, ``stream_override``) closes the module.
+The JAX package's knobs steer it the same way, through
+``utils.envflags``: ``LGBM_TPU_STREAM`` and ``LGBM_TPU_STREAM_BLOCK_ROWS``
+where ``stream_override`` leaves the choice to the planner,
+``LGBM_TPU_HOST_BYTES`` for the host's limit and ``LGBM_TPU_HBM_BYTES``
+for the card's; an explicit argument wins over each.
 """
 
 from __future__ import annotations
@@ -123,6 +128,8 @@ from __future__ import annotations
 import contextlib
 import functools
 from typing import NamedTuple, Optional, Tuple
+
+from ..utils import envflags
 
 PREDICT_CHUNK_ROWS = 1 << 16
 SM_COUNT = 132
@@ -550,6 +557,8 @@ def ingest_grid(plan: IngestPlan, rows: int, launch: int = 0) -> int:
 # card; the OS and the Python runtime the rest of the host
 HEADROOM = 0.85
 HOST_HEADROOM = 0.8
+# the device budget of a plan on a device with no card limit (the CPU)
+NO_DEVICE_LIMIT = 1 << 62
 DEFAULT_HOST_BYTES = 8 * (1 << 30)
 # smallest and largest streamed row block: a transfer and a kernel pass
 # over fewer rows are dominated by launch overhead (tests force smaller
@@ -560,10 +569,10 @@ MAX_STREAM_BLOCK_ROWS = 1 << 24
 # chunks (``data.stream.IngestPump``): one B3 launch a chunk
 INGEST_CHUNK_ROWS = 1 << 17
 
-# the in-process override of the election (the JAX package's
-# LGBM_TPU_STREAM and LGBM_TPU_STREAM_BLOCK_ROWS; the port has no
-# environment knobs until ROADMAP queue A11's registry maps those names
-# onto this seam)
+# the in-process override of the election; where it leaves a choice to
+# the planner (None), the JAX package's LGBM_TPU_STREAM and
+# LGBM_TPU_STREAM_BLOCK_ROWS knobs make it (``_stream_force``,
+# ``_stream_block_rows``)
 _override = {"force": None, "block_rows": None}
 
 
@@ -573,8 +582,9 @@ def stream_override(force: Optional[bool] = None,
     """Within the block, ``force=True`` elects streaming whatever the
     budgets say, ``force=False`` never streams, and ``block_rows`` fixes
     the streamed block (at least 128 rows); None leaves either to the
-    planner.  Nests: the inner block's values win, the outer ones come
-    back on exit."""
+    planner (and to ``LGBM_TPU_STREAM`` / ``LGBM_TPU_STREAM_BLOCK_ROWS``
+    where they are set).  Nests: the inner block's values win, the outer
+    ones come back on exit."""
     saved = dict(_override)
     _override["force"] = force
     _override["block_rows"] = (None if block_rows is None
@@ -585,10 +595,50 @@ def stream_override(force: Optional[bool] = None,
         _override.update(saved)
 
 
+def _stream_force() -> tuple:
+    """(force, what set it): ``stream_override``'s force, else the
+    ``LGBM_TPU_STREAM`` knob's ("1" forces streaming, "0" forbids it;
+    unset or another word: None, the budgets decide)."""
+    if _override["force"] is not None:
+        f = _override["force"]
+        return f, f"stream_override(force={f})"
+    v = (envflags.read("LGBM_TPU_STREAM") or "").strip().lower()
+    if v in ("1", "on", "force", "true", "yes"):
+        return True, "LGBM_TPU_STREAM=1"
+    if v in ("0", "off", "false", "no", "none"):
+        return False, "LGBM_TPU_STREAM=0"
+    return None, ""
+
+
+def _stream_block_rows() -> Optional[int]:
+    """``stream_override``'s block, else ``LGBM_TPU_STREAM_BLOCK_ROWS``
+    (at least 128 rows), else None."""
+    if _override["block_rows"] is not None:
+        return _override["block_rows"]
+    v = (envflags.read("LGBM_TPU_STREAM_BLOCK_ROWS") or "").strip()
+    try:
+        return max(int(float(v)), 128) if v else None
+    except ValueError:
+        return None
+
+
+def _env_bytes(name: str) -> Optional[int]:
+    """A byte-count knob's value (at least 1), or None unset or unparsable."""
+    v = (envflags.read(name) or "").strip()
+    try:
+        return max(int(float(v)), 1) if v else None
+    except ValueError:
+        return None
+
+
 def host_limit_bytes() -> tuple:
     """(limit_bytes, source) of the host side of the budget:
-    /proc/meminfo's MemAvailable (what this process may still claim),
-    else ``DEFAULT_HOST_BYTES``.  Never raises."""
+    ``LGBM_TPU_HOST_BYTES`` where set, else /proc/meminfo's MemAvailable
+    (what this process may still claim), else ``DEFAULT_HOST_BYTES``.
+    Never raises."""
+    env = _env_bytes("LGBM_TPU_HOST_BYTES")
+    if env is not None:
+        return env, "env"
     try:
         with open("/proc/meminfo") as fh:
             for line in fh:
@@ -602,10 +652,14 @@ def host_limit_bytes() -> tuple:
 
 
 def device_limit_bytes(device) -> tuple:
-    """(limit_bytes, source) of the card side: the free bytes
-    ``torch.cuda.mem_get_info`` reports on ``device`` plus what the
-    caching allocator holds reserved and unused.  A CPU device has no
-    card limit (None): only a caller's budget applies there."""
+    """(limit_bytes, source) of the card side: ``LGBM_TPU_HBM_BYTES``
+    where set (on any device: a fake memory size for tests), else the
+    free bytes ``torch.cuda.mem_get_info`` reports on ``device`` plus
+    what the caching allocator holds reserved and unused.  A CPU device
+    has no card limit (None): only a caller's budget applies there."""
+    env = _env_bytes("LGBM_TPU_HBM_BYTES")
+    if env is not None:
+        return env, "env"
     import torch
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -798,7 +852,7 @@ def plan_stream(rows: int, features: int, num_bins: int,
         lim, _ = (device_limit_bytes(device) if device is not None
                   else (None, "none"))
         dev_budget = (int(lim * HEADROOM) if lim is not None
-                      else (1 << 62))
+                      else NO_DEVICE_LIMIT)
     if host_budget_bytes is not None:
         host_limit, host_src = int(host_budget_bytes), "caller"
     else:
@@ -811,7 +865,7 @@ def plan_stream(rows: int, features: int, num_bins: int,
     resident_host = predict_host_peak_bytes(n, features, bin_item)[0]
     dev_ok = resident_dev <= dev_budget
     host_ok = resident_host <= host_budget
-    forced = _override["force"]
+    forced, forced_by = _stream_force()
     want = forced if forced is not None else not (dev_ok and host_ok)
 
     def mk(stream, block, reason, dev_peak, host_peak):
@@ -827,8 +881,8 @@ def plan_stream(rows: int, features: int, num_bins: int,
             reason=reason)
 
     if not want:
-        reason = ("disabled by stream_override(force=False)"
-                  if forced is False else "resident fits both budgets")
+        reason = ("disabled by " + forced_by if forced is False
+                  else "resident fits both budgets")
         return mk(False, 0, reason, resident_dev, resident_host)
 
     def peaks(block):
@@ -837,11 +891,12 @@ def plan_stream(rows: int, features: int, num_bins: int,
                     quant, round_width),
                 predict_host_peak_bytes(n, features, bin_item, block)[0])
 
-    reason = ("forced by stream_override(force=True)" if forced else
+    reason = ("forced by " + forced_by if forced else
               ("device+host" if not dev_ok and not host_ok else
                "device" if not dev_ok else "host") + " budget exceeded")
-    if _override["block_rows"] is not None:
-        block = min(_override["block_rows"], n)
+    forced_block = _stream_block_rows()
+    if forced_block is not None:
+        block = min(forced_block, n)
         dp, hp = peaks(block)
         return mk(True, block, reason + " (block forced)", dp, hp)
     block = MAX_STREAM_BLOCK_ROWS

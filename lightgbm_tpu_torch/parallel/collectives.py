@@ -28,6 +28,13 @@ host tensor (a row count, a byte payload) rides the current card.
 ``op_counts`` counts each collective and its payload bytes,
 process-wide, and ``thread_op_counts`` the calling thread's (one
 rank's, when ranks are threads).
+
+Observability, as in the JAX package's collectives.py:49-163: each sum
+notes its route in the flight ring (``collective.route``: the tier, the
+bytes) and runs in a ``collective.reduce`` span with its bytes; a
+collective that raises dumps a flight-recorder bundle
+(``collective:<error>``) before the error propagates.  The sharded
+round body runs eagerly, so these record on every call.
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ from typing import List
 
 import torch
 import torch.distributed as dist
+
+from ..obs.flight import global_flight as _flight
+from ..obs.trace import span as _span
 
 _counts_lock = threading.Lock()
 _KINDS = ("all_reduce", "all_gather")
@@ -92,15 +102,28 @@ def _wire(group, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+def _wait(work) -> None:
+    """Wait for a collective; a failure dumps a forensic bundle first."""
+    try:
+        work.wait()
+    except Exception as e:  # noqa: BLE001 - re-raised after the dump
+        _flight.on_exception("collective", e)
+        raise
+
+
+def _all_reduce(x: torch.Tensor, group, op, tier: str) -> torch.Tensor:
     out = x.contiguous().clone()
     wire = _wire(group, out)
+    nbytes = _nbytes(wire)
+    _flight.note("collective.route", tiers=[tier], hierarchical=False,
+                 pinned=False, bytes=nbytes)
     opts = dist.AllreduceOptions()
     opts.reduceOp = op
-    group.allreduce([wire], opts).wait()
+    with _span("collective.reduce", tier=tier, bytes=nbytes):
+        _wait(group.allreduce([wire], opts))
     if wire is not out:
         out.copy_(wire)
-    _count("all_reduce", _nbytes(wire))
+    _count("all_reduce", nbytes)
     return out
 
 
@@ -111,14 +134,14 @@ def psum_tiered(x: torch.Tensor, group) -> torch.Tensor:
     if x.is_floating_point():
         raise TypeError("psum_tiered sums integer tensors only: a float "
                         "sum depends on the order of the ranks")
-    return _all_reduce(x, group, dist.ReduceOp.SUM)
+    return _all_reduce(x, group, dist.ReduceOp.SUM, group.name())
 
 
 def pmax_tiered(x: torch.Tensor, group) -> torch.Tensor:
     """The max of ``x`` over ``group``'s ranks (exact in any order)."""
     if group is None or group.size() == 1:
         return x
-    return _all_reduce(x, group, dist.ReduceOp.MAX)
+    return _all_reduce(x, group, dist.ReduceOp.MAX, group.name())
 
 
 def all_gather_tiered(x: torch.Tensor, group) -> torch.Tensor:
@@ -128,7 +151,7 @@ def all_gather_tiered(x: torch.Tensor, group) -> torch.Tensor:
         return x[None]
     wire = _wire(group, x.contiguous())
     outs = [torch.empty_like(wire) for _ in range(group.size())]
-    group.allgather([outs], [wire]).wait()
+    _wait(group.allgather([outs], [wire]))
     _count("all_gather", _nbytes(wire) * group.size())
     return torch.stack(outs).to(x.device)
 

@@ -29,7 +29,10 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..obs.flight import global_flight as _flight
 from ..obs.metrics import RATIO_BUCKETS
+from ..obs.trace import span as _span
+from ..obs.watchdog import beat as _beat
 from .errors import DeadlineExceeded, QueueFull, ServerClosed
 
 
@@ -113,13 +116,18 @@ class MicroBatcher:
 
     ``run_batch(batch)`` is the execution callback (the Server binds it to
     the program registry); it must scatter results / exceptions onto the
-    items' requests itself.
+    items' requests itself.  The scheduler thread beats ``beat_name``
+    (``obs.watchdog``) every turn, idle turns included, runs each batch
+    in a ``serving.dispatch`` span and notes it in the flight ring
+    (``serving.batch``).
     """
 
     def __init__(self, ladder: BucketLadder, run_batch: Callable,
                  metrics, batch_window_ms: float = 2.0,
-                 max_queue_rows: int = 1 << 16):
+                 max_queue_rows: int = 1 << 16,
+                 beat_name: str = "serving.batcher"):
         self.ladder = ladder
+        self.beat_name = beat_name
         self.run_batch = run_batch
         self.metrics = metrics
         self.batch_window_s = max(batch_window_ms, 0.0) / 1e3
@@ -197,6 +205,10 @@ class MicroBatcher:
 
     def _loop(self) -> None:
         while True:
+            # the liveness heartbeat every scheduler turn (an idle turn
+            # wakes at the pop timeout): a dead batcher thread goes stale
+            # within ~0.1 s, whatever the queue holds
+            _beat(self.beat_name)
             item = self._pop(timeout=0.1)
             if item is None:
                 with self._lock:
@@ -242,7 +254,9 @@ class MicroBatcher:
             batch = Batch(items, self.ladder.bucket_for(rows))
             self._record_batch(batch)
             try:
-                self.run_batch(batch)
+                with _span("serving.dispatch", rows=batch.rows,
+                           bucket=batch.bucket, items=len(batch.items)):
+                    self.run_batch(batch)
             except Exception as e:  # noqa: BLE001 — fail items, keep serving
                 for it in batch.items:
                     it.request.fail_item(e)
@@ -250,6 +264,9 @@ class MicroBatcher:
     def _record_batch(self, batch: Batch) -> None:
         m = self.metrics
         m.counter("batches_total").inc()
+        # the flight ring sees every dispatched batch, tracing off too
+        _flight.note("serving.batch", rows=batch.rows,
+                     bucket=batch.bucket, items=len(batch.items))
         m.histogram("batch_rows", buckets=tuple(
             float(b) for b in self.ladder.buckets)).observe(batch.rows)
         m.histogram("batch_fill_ratio", buckets=RATIO_BUCKETS).observe(

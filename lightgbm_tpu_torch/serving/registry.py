@@ -18,10 +18,10 @@ quarantines it, ``SwapQuarantined``), holds a bf16/int8 model to its
 seen bucket once (``warm``), then flips ``active`` in one assignment.
 Requests are pinned to the model they were admitted against
 (server.py), so a swap never drops, corrupts or mixes generations of
-in-flight work.  The JAX package also dumps a quarantine to its flight
-recorder (ROADMAP queue A11), keeps AOT programs and can evict a model's
-device arrays for the fleet (A6); the port raises and counts the same
-errors.
+in-flight work.  A quarantine dumps a flight-recorder bundle
+(``obs.flight``; the JAX package's serving/registry.py:339-346) before
+its error is raised.  The JAX package also keeps AOT programs and can
+evict a model's device arrays for the fleet (ROADMAP queue A6).
 """
 
 from __future__ import annotations
@@ -248,14 +248,24 @@ class ModelRegistry:
             raw = model.scale_raw(np.asarray(raw, np.float64))
         except Exception as e:  # noqa: BLE001 - any probe failure quarantines
             self.metrics.counter("swap_quarantines").inc()
-            raise SwapQuarantined(
+            raise self._quarantine(SwapQuarantined(
                 f"hot-swap candidate {model.digest} failed its probe batch "
-                f"({rows} rows): {e!r}; swap rolled back") from e
+                f"({rows} rows): {e!r}; swap rolled back"),
+                digest=model.digest) from e
         if not np.isfinite(raw).all():
             self.metrics.counter("swap_quarantines").inc()
-            raise SwapQuarantined(
+            raise self._quarantine(SwapQuarantined(
                 f"hot-swap candidate {model.digest} produced non-finite "
-                f"probe output; swap rolled back")
+                f"probe output; swap rolled back"), digest=model.digest)
+
+    def _quarantine(self, err: SwapQuarantined, **extra) -> SwapQuarantined:
+        """Dump the quarantine to the flight recorder (the serving pointer
+        never flipped: the bundle is the postmortem of why) and hand the
+        error back for the caller to raise.  Dumping never raises."""
+        from ..obs.flight import global_flight
+        global_flight.dump(f"serving.swap:{type(err).__name__}", exc=err,
+                           extra=extra or None)
+        return err
 
     def _probe_rows(self, model: CompiledModel) -> np.ndarray:
         """Probe rows for the low-precision accuracy measurement: the
@@ -280,10 +290,12 @@ class ModelRegistry:
         if self.accuracy_budget is not None and delta > self.accuracy_budget:
             self.metrics.counter("swap_quarantines").inc()
             self.metrics.counter("lowprec_quarantines").inc()
-            raise LowPrecisionQuarantined(
+            raise self._quarantine(LowPrecisionQuarantined(
                 f"{model.precision} candidate {model.digest} measured "
                 f"probe accuracy delta {delta:.3e} over the declared "
-                f"budget {self.accuracy_budget:.3e}; not promoted")
+                f"budget {self.accuracy_budget:.3e}; not promoted"),
+                digest=model.digest, precision=model.precision,
+                accuracy_delta=delta)
 
     def swap(self, booster, warm: bool = True, block: bool = True,
              num_iteration: Optional[int] = None,

@@ -20,6 +20,16 @@ DeviceForest.predict_raw_padded).  A request is pinned to the model it
 was admitted against, so through a ``swap_model`` every answer is that
 model's.  Overload is surfaced as typed errors at submit (QueueFull) or
 completion (DeadlineExceeded), never as unbounded queueing latency.
+
+Observability (the JAX package's serving/server.py:176-190, 294-362,
+416): a server attaches its registry to the process registry
+(``obs.metrics.global_registry``) as a ``serving`` component and
+detaches it at ``close``, holds its request-latency p99 to the
+watchdog's serving ceiling (``LIGHTGBM_TPU_SLO_SERVING_P99_MS``), starts
+the env-gated sentry and metrics endpoint, and records the
+``serving.admit`` and ``serving.complete`` instants and a
+``serving.batch`` span a program run; its batcher beats
+``ServingConfig.heartbeat_name``.
 """
 
 from __future__ import annotations
@@ -34,6 +44,9 @@ from typing import Optional
 import numpy as np
 
 from ..obs.metrics import MetricsRegistry
+from ..obs.metrics import global_registry as _obs_registry
+from ..obs.trace import instant as _instant
+from ..obs.trace import span as _span
 from .batcher import Batch, BucketLadder, MicroBatcher, WorkItem
 from .errors import QueueFull, ServerClosed, ServingError
 from .registry import ModelRegistry, ProgramRegistry
@@ -61,9 +74,11 @@ class ServingConfig:
     precision: str = "f32"
     accuracy_budget: Optional[float] = None
     probe_X: Optional[object] = None
-    # the JAX package's AOT program cache and batcher heartbeat; the
-    # port has neither yet (ROADMAP queue A6, A11)
+    # the JAX package's AOT program cache: not ported yet (ROADMAP
+    # queue A6)
     aot_dir: Optional[str] = None
+    # the batcher thread's liveness heartbeat (obs.watchdog); a fleet
+    # of servers gives each its own name
     heartbeat_name: str = "serving.batcher"
 
     def __post_init__(self):
@@ -76,10 +91,6 @@ class ServingConfig:
                 not in ("", "0", "off", "none"):
             raise NotImplementedError(
                 "AOT serving programs (aot_dir) wait for ROADMAP queue A6")
-        if self.heartbeat_name != "serving.batcher":
-            raise NotImplementedError(
-                "the batcher's liveness heartbeat (heartbeat_name) waits "
-                "for ROADMAP queue A11")
 
 
 class _Request:
@@ -169,8 +180,25 @@ class Server:
         self._batcher = MicroBatcher(
             self.ladder, self._run_batch, self.metrics,
             batch_window_ms=config.batch_window_ms,
-            max_queue_rows=config.max_queue_rows)
+            max_queue_rows=config.max_queue_rows,
+            beat_name=config.heartbeat_name)
         self._closed = False
+        # the per-server registry stays authoritative (tests read it);
+        # a process-wide snapshot or scrape sees it as a named
+        # component, detached at close()
+        self._obs_component = _obs_registry.attach_child(
+            "serving", self.metrics)
+        # hold this server's request p99 to the configured ceiling (it
+        # never breaches unless one is set), and start the env-gated
+        # sentry and metrics endpoint
+        from ..obs.http import maybe_start_from_env as _http_from_env
+        from ..obs.watchdog import (global_watchdog,
+                                    maybe_start_from_env as _wd_from_env)
+        self._wd_hist = f"serving_p99:{self._obs_component}"
+        global_watchdog.watch_histogram_p99(
+            self._wd_hist, self.metrics.histogram("request_latency_ms"))
+        _wd_from_env()
+        _http_from_env()
 
     # --------------------------------------------------------------- submit
 
@@ -232,6 +260,8 @@ class Server:
                 self.metrics.counter("requests_rejected_closed").inc()
             req.fail_item(e)
             raise
+        # after submit_items: a rejected request is not traced as admitted
+        _instant("serving.admit", rows=n, items=n_items)
         return req.future
 
     def predict(self, X, deadline_ms: Optional[float] = None,
@@ -271,7 +301,8 @@ class Server:
                        sum(it.n for it in items))))
             prog = self.programs.get(model, sub.bucket)
             t0 = time.perf_counter()
-            raw = prog(sub.padded_input())       # [K, bucket] f64
+            with _span("serving.batch", rows=sub.rows, bucket=sub.bucket):
+                raw = prog(sub.padded_input())       # [K, bucket] f64
             self.metrics.histogram("batch_latency_ms").observe(
                 (time.perf_counter() - t0) * 1e3)
             pos = 0
@@ -297,8 +328,9 @@ class Server:
             self.metrics.counter("requests_cancelled").inc()
             return                      # saw a timeout, not a completion
         self.metrics.counter("requests_completed").inc()
-        self.metrics.histogram("request_latency_ms").observe(
-            (time.monotonic() - req.t_submit) * 1e3)
+        lat_ms = (time.monotonic() - req.t_submit) * 1e3
+        self.metrics.histogram("request_latency_ms").observe(lat_ms)
+        _instant("serving.complete", rows=req.n, latency_ms=round(lat_ms, 3))
 
     def warm(self, buckets=None) -> int:
         """Run the active model's program once for ``buckets`` (an
@@ -357,6 +389,9 @@ class Server:
             return
         self._closed = True
         self._batcher.close(drain=drain, timeout=timeout)
+        _obs_registry.detach_child(self._obs_component)
+        from ..obs.watchdog import global_watchdog
+        global_watchdog.unwatch_histogram(self._wd_hist)
 
     def __enter__(self) -> "Server":
         return self
@@ -374,6 +409,7 @@ class Server:
 
     def prometheus_text(self, prefix: str = "lgbt_serving") -> str:
         """This server's instruments in the Prometheus text exposition
-        format (the JAX package's; its HTTP endpoint is ROADMAP queue
-        A11)."""
+        format (the process-wide scrape is
+        ``obs.metrics.global_registry.to_prometheus()``, and
+        ``obs.http`` serves it)."""
         return self.metrics.to_prometheus(prefix=prefix)

@@ -1,6 +1,7 @@
 """Hygiene of the port package lightgbm_tpu_torch: it imports neither JAX
-nor the JAX package, and its entry points never fall back to the CPU
-quietly."""
+nor the JAX package, its entry points never fall back to the CPU
+quietly, its threads are daemons that end with their owner, and its
+observability never starts a CUDA context or reads a tensor's values."""
 
 import json
 import os
@@ -47,7 +48,9 @@ def test_import_pulls_in_no_jax():
                 "parallel.collectives", "parallel.network",
                 "parallel.learners", "parallel.dist_data",
                 "tools.torch_dist_check", "data", "data.blockstore",
-                "data.stream", "data.score"):
+                "data.stream", "data.score", "obs", "obs.trace",
+                "obs.flight", "obs.watchdog", "obs.http",
+                "serving.metrics", "utils.envflags", "utils.timer"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
@@ -135,6 +138,101 @@ def test_read_ahead_thread_is_a_daemon_that_stops_with_the_consumer(
     it.close()                        # the consumer stops after one item
     assert not t.is_alive()
     assert ahead.passes == 3 and ahead.blocks <= 80 + 1 + 3
+
+
+def test_sentry_and_http_threads_are_daemons_that_end_on_stop():
+    """The watchdog's sentry and the metrics endpoint are host threads:
+    daemons, named, ended (and joined) by ``stop()``."""
+    import threading
+
+    from lightgbm_tpu_torch.obs.flight import FlightRecorder
+    from lightgbm_tpu_torch.obs.http import MetricsHTTPServer
+    from lightgbm_tpu_torch.obs.metrics import MetricsRegistry
+    from lightgbm_tpu_torch.obs.watchdog import SLOConfig, Watchdog
+    before = threading.active_count()
+    wd = Watchdog(SLOConfig(check_interval_s=0.01),
+                  registry=MetricsRegistry(),
+                  flight=FlightRecorder(enabled=False))
+    wd.start()
+    srv = MetricsHTTPServer(registry=MetricsRegistry(), port=0)
+    srv.start()
+    threads = [wd._thread, srv._thread]
+    assert all(t.daemon and t.is_alive() for t in threads)
+    assert {t.name for t in threads} == {"lgbt-slo-watchdog",
+                                         "lgbt-metrics-http"}
+    wd.stop()
+    srv.stop()
+    assert not any(t.is_alive() for t in threads) and not wd.running
+    assert threading.active_count() == before
+
+
+def test_fingerprint_starts_no_cuda_context(monkeypatch):
+    """``flight.fingerprint()`` leaves ``torch.cuda.is_initialized()`` as
+    it found it: it names the card only where CUDA is initialised, and
+    never calls the lazy initialiser."""
+    import torch
+    from lightgbm_tpu_torch.obs.flight import FlightRecorder
+    was = torch.cuda.is_initialized()
+    inits = []
+    monkeypatch.setattr(torch.cuda, "_lazy_init",
+                        lambda *a, **k: inits.append(1))
+    fp = FlightRecorder(enabled=True).fingerprint()
+    assert torch.cuda.is_initialized() == was and inits == []
+    assert fp["torch_version"] == torch.__version__
+    assert fp["cuda_version"] == torch.version.cuda
+    if not was:
+        assert fp["backend"] == "cpu" and "device_kind" not in fp
+    # where a context exists, the card is named
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda i=None: "Example Card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    fp = FlightRecorder(enabled=True).fingerprint()
+    assert fp["backend"] == "cuda" and fp["device_kind"] == "Example Card"
+    assert fp["n_devices"] == 1 and inits == []
+
+
+def test_flight_never_reads_a_tensors_values(tmp_path):
+    """A tensor among a note's arguments becomes its shape, dtype and
+    device: no ATen op runs on it (``float(t)``, ``repr(t)`` or
+    ``t.tolist()`` of a CUDA tensor would copy it to the host), and a
+    meta tensor, which has no values to read, dumps fine."""
+    import json
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from lightgbm_tpu_torch.obs.flight import FlightRecorder, _json_safe
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    t = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    scalar = torch.tensor(1.5)
+    with Ops() as mode:
+        got = _json_safe({"t": t, "s": scalar, "deep": [[[[t]]]],
+                          "pair": (t, 3)})
+    assert mode.ops == []
+    assert got["t"] == {"tensor": [2, 3], "dtype": "torch.float32",
+                        "device": "cpu"}
+    assert got["s"]["tensor"] == [] and got["pair"][1] == 3
+    fr = FlightRecorder(enabled=True, out_dir=str(tmp_path))
+    meta = torch.empty((4, 5), device="meta")
+    fr.note("x", peak=meta, k=torch.zeros((), device="meta"))
+    with Ops() as mode:
+        path = fr.dump("manual", extra={"leaf": meta})
+    assert mode.ops == []
+    with open(path) as fh:
+        b = json.load(fh)
+    ev = [e for e in b["ring"]["traceEvents"] if e["name"] == "x"][0]
+    assert ev["args"]["peak"]["device"] == "meta"
+    assert b["extra"]["leaf"]["tensor"] == [4, 5]
 
 
 _NO_OPTIONAL = r"""

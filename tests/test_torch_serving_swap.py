@@ -338,8 +338,12 @@ def test_prometheus_text_equals_the_jax_rendering():
 def test_unported_config_fields_raise(binary_booster):
     with pytest.raises(NotImplementedError, match="A6"):
         binary_booster.serve(aot_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="A11"):
-        binary_booster.serve(heartbeat_name="replica0")
+    # the batcher's heartbeat is ported (obs.watchdog): the name is taken
+    from lightgbm_tpu_torch.obs import global_watchdog
+    with binary_booster.serve(heartbeat_name="replica0") as srv:
+        srv.predict(np.zeros((2, srv.models.active.num_features)),
+                    timeout=30)
+        assert global_watchdog.beat_age("replica0") is not None
     with binary_booster.serve(aot_dir="off") as srv:
         with pytest.raises(NotImplementedError, match="A6"):
             srv.export_aot()
