@@ -22,6 +22,28 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   shape, a budget under the measured delta quarantined), and the native
   host library (``backend="host"`` serving, 100,000 rows of
   ``StackedForest.predict_raw`` against the NumPy route's bits);
+- ``fleet_serve`` (queue A6): a ``Fleet`` of the serve model,
+  swap_serve's second forest and its 5-class forest (weights 3/1/1,
+  classes interactive/standard/batch) under 240 requests of 1-512 rows
+  from 8 threads, every answer bit-equal to its model's host float64
+  path; a replan under a budget that fits only the hot model, the card's
+  allocated memory falling by at least 0.9x the evicted forests' bytes
+  and coming back on restore, the evicted models answering on the host
+  with no B1 launch; each precision's ``DeviceForest`` against the byte
+  model (``predict_forest_bytes``: the bytes its tensors requested of
+  the allocator equal it, and ``memory_allocated`` is no less); the AOT
+  store exported and restored by a fresh fleet (no program built, one
+  forest a model built from the stored records, the bytes the fleet
+  requested equal to the byte model's three forests, first requests
+  timed cold and restored), a
+  corrupt blob and a foreign torch version each a miss; two
+  ``PodFleet(devices=2)`` drills on the one card (``kill_device``, then
+  a chaos vanish) under load with availability 1.0 and no request
+  answered on the host, a redispatch, a replan and a flight bundle
+  each; chunks binned by B3 over two logical devices and
+  ``BulkScorer(devices=plan_devices(2), aot_store=)`` twice, the first
+  participant storing the program and every later one restoring it,
+  scores bit-equal to ``Booster.predict``;
 - ``train``: trains a HIGGS-width binary model (1,000,000 x 28 f32 rows
   from a seed, 255 leaves, 255 bins, 10 rounds, a 100,000-row valid set)
   through ``Dataset`` and ``train`` on the card — binning (B3), root and
@@ -1170,6 +1192,504 @@ def phase_swap_serve(pk, lt, bst, F, seed, serve_row):
            "checked": "bit-exact to each request's admitted model"}
     emit(row)
     return row
+
+
+# fleet_serve: the fleet's load (requests, threads, rows a request), the
+# rows of a first request, the pod drills' load and the bulk scorer's
+# rows and blocks
+FLEET_REQUESTS, FLEET_THREADS, FLEET_MAX_ROWS = 240, 8, 512
+FLEET_FIRST_ROWS = 64
+POD_REQUESTS, POD_MAX_ROWS = 160, 256
+FLEET_BULK_ROWS, FLEET_BULK_BLOCK_ROWS = 200_000, 65_536
+FLEET_PHASE_LIMIT_S = 90.0
+
+
+def _allocated() -> int:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _requested() -> int:
+    """The bytes the live tensors asked the caching allocator for, before
+    its rounding: ``memory_allocated`` also counts a reused cached block
+    whole, up to 1 MiB over the request (seen on the card: a forest
+    +650,240 bytes when the phase ran twice in one process)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    return int(torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def _tensor_count(obj) -> int:
+    return sum(isinstance(t, torch.Tensor) for t in vars(obj).values())
+
+
+def _fleet_load(fleet, mix, verify, n, threads, max_rows, seed, what):
+    """``loadgen.fire_fleet_requests`` with every answer held bit-equal to
+    its model's host float64 path; no failure, no mismatch."""
+    from lightgbm_tpu_torch.serving.loadgen import fire_fleet_requests
+    res = fire_fleet_requests(fleet, mix, n, threads, max_rows,
+                              verify=verify, timeout=600, seed=seed)
+    if res["errors"] or res["failures"] or res["mismatches"]:
+        raise AssertionError(f"{what}: errors {res['errors'][:3]}, "
+                             f"failures {res['failures'][:3]}, "
+                             f"mismatches {res['mismatches']}")
+    if res["requests"] + res["shed"] + res["expired"] != \
+            res["requests_planned"] or res["requests"] <= 0:
+        raise AssertionError(f"{what}: outcomes {res['outcomes']}")
+    return res
+
+
+def _pod_drill(pk, lt, path, host_forest, victim_down, router, chaos, seed,
+               what):
+    """A ``PodFleet(devices=2)`` of the hot model under load: replicas
+    bit-identical, then ``victim_down(pod, device)`` while the victim has
+    requests in flight; availability 1.0 through it with no request
+    answered on the host, positive redispatch and replan counts, a
+    ``flight_fleet_device_lost_*`` bundle."""
+    import glob
+
+    from lightgbm_tpu_torch.fleet import PodFleet
+    from lightgbm_tpu_torch.obs.flight import global_flight
+    from lightgbm_tpu_torch.testing import synthetic_rows
+    pod = PodFleet(devices=2, router=router, chaos=chaos,
+                   max_batch_rows=1024,
+                   deadline_classes={"interactive": 60_000.0,
+                                     "standard": 60_000.0, "batch": None})
+    try:
+        pod.add_model("hot", path, weight=3.0,
+                      deadline_class="interactive")
+        pod.warm()
+        X = synthetic_rows(28, 300, seed=7, row_seed=seed)
+        want = host_forest.predict_raw(X)[0]
+        replicas = list(pod._replicas["hot"])
+        if len(replicas) != 2:
+            raise AssertionError(f"{what}: {len(replicas)} replicas")
+        for r in replicas:
+            if not np.array_equal(r.fleet.predict(r.inner_name, X,
+                                                  timeout=600), want):
+                raise AssertionError(f"{what}: replica on device "
+                                     f"{r.device_id} differs")
+        if not np.array_equal(pod.predict("hot", X, timeout=600), want):
+            raise AssertionError(f"{what}: routed answer differs")
+        victim = pod.topology.replicas["hot"][0]
+        replans = pod.metrics.counter("fleet_replans_total")
+        replans0 = replans.value
+        before = set(glob.glob(os.path.join(global_flight.out_dir(),
+                                            "flight_fleet_device_lost_*")))
+        res: dict = {}
+
+        def load():
+            try:
+                res.update(_fleet_load(
+                    pod, {"hot": 1.0}, {"hot": host_forest}, POD_REQUESTS,
+                    FLEET_THREADS, POD_MAX_ROWS, seed, what))
+            except Exception as e:  # noqa: BLE001 — raised below
+                res["error"] = e
+
+        traffic = threading.Thread(target=load)
+        pk.reset_launch_counts()
+        traffic.start()
+        limit = time.monotonic() + 120
+        victim_rep = next(r for r in replicas if r.device_id == victim)
+        while not victim_rep.inflight and time.monotonic() < limit:
+            time.sleep(0.0005)
+        if not victim_rep.inflight:
+            raise AssertionError(f"{what}: no request in flight on the "
+                                 "victim")
+        t_kill = time.perf_counter()
+        victim_down(pod, victim)
+        limit = time.monotonic() + 60
+        while replans.value == replans0 and time.monotonic() < limit:
+            time.sleep(0.0005)
+        kill_to_replan_ms = (time.perf_counter() - t_kill) * 1e3
+        traffic.join(900)
+        if "error" in res:
+            raise res["error"]
+        if traffic.is_alive() or not res:
+            raise AssertionError(f"{what}: the load hung")
+        launches = pk.launch_counts[KERNEL]
+        m = pod.metrics
+        redispatch = m.counter("fleet_failover_redispatch_total",
+                               labels={"model": "hot"}).value
+        limit = time.monotonic() + 30
+        bundles: set = set()
+        while not bundles and time.monotonic() < limit:
+            bundles = set(glob.glob(os.path.join(
+                global_flight.out_dir(),
+                "flight_fleet_device_lost_*"))) - before
+            time.sleep(0.01)
+        row = {"victim": victim, "live_devices": pod.live_devices(),
+               "availability": pod.availability("hot"),
+               "loadgen_availability": res["availability"],
+               "requests": res["requests"], "expired": res["expired"],
+               "shed": res["shed"], "redispatched": redispatch,
+               "replans": replans.value - replans0,
+               "kill_to_replan_ms": kill_to_replan_ms,
+               "devices_lost": m.counter("fleet_devices_lost_total").value,
+               "hedges": m.counter("fleet_hedges_total",
+                                   labels={"model": "hot"}).value,
+               "host_fallbacks": m.counter("fleet_host_fallback_total",
+                                           labels={"model": "hot"}).value,
+               "b1_launches": launches,
+               "flight_bundles": len(bundles)}
+        if row["availability"] != 1.0 or res["availability"] != 1.0 or \
+                redispatch <= 0 or row["replans"] <= 0 or not bundles or \
+                victim in row["live_devices"] or launches <= 0 or \
+                row["host_fallbacks"] != 0:
+            raise AssertionError(f"{what}: {row}")
+        if not np.array_equal(pod.predict("hot", X, timeout=600), want):
+            raise AssertionError(f"{what}: the answer after the loss "
+                                 "differs")
+        return row
+    finally:
+        pod.close(drain=False, timeout=5.0)
+
+
+def phase_fleet_serve(pk, lt, text_a, F, seed, smi):
+    """Queue A6 at the serve phase's width: a ``Fleet`` of the serve
+    model, swap_serve's second forest and its 5-class forest (load,
+    eviction with the card's memory, the byte model against the
+    allocator, stored programs), two ``PodFleet(devices=2)`` failover
+    drills, and bulk scoring and chunk binning on two logical devices."""
+    import glob
+    import shutil
+    import tempfile
+
+    from lightgbm_tpu_torch.data import BlockStore, BulkScorer, IngestPump
+    from lightgbm_tpu_torch.fleet import (AOTStore, Fleet, RouterConfig,
+                                          plan_devices, quantize_forest)
+    from lightgbm_tpu_torch.obs.flight import global_flight
+    from lightgbm_tpu_torch.ops import ingest
+    from lightgbm_tpu_torch.ops.planner import HEADROOM, predict_forest_bytes
+    from lightgbm_tpu_torch.predict import DeviceForest
+    from lightgbm_tpu_torch.resilience import ChaosRegistry
+    from lightgbm_tpu_torch.testing import (synthetic_model_text,
+                                            synthetic_rows)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lgbt_fleet_")
+    saved_dir = os.environ.get("LIGHTGBM_TPU_FLIGHT_DIR")
+    saved_dumps = global_flight.dumps
+    os.environ["LIGHTGBM_TPU_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+    os.makedirs(os.environ["LIGHTGBM_TPU_FLIGHT_DIR"])
+    global_flight.dumps = 0
+    fleet = None
+    try:
+        texts = {"hot": text_a,
+                 "second": synthetic_model_text(F, 500, 255, seed=seed + 1),
+                 "multi5": synthetic_model_text(
+                     F, SWAP_MULTI_ITERS, 255, num_class=SWAP_CLASSES,
+                     seed=seed + 2)}
+        paths = {}
+        for name, text in texts.items():
+            paths[name] = os.path.join(tmp, f"{name}.txt")
+            with open(paths[name], "w") as fh:
+                fh.write(text)
+        classes = {"hot": (3.0, "interactive"), "second": (1.0, "standard"),
+                   "multi5": (1.0, "batch")}
+
+        def make_fleet(**kw):
+            f = Fleet(max_batch_rows=1024, **kw)
+            for name, (w, cls) in classes.items():
+                f.add_model(name, paths[name], weight=w, deadline_class=cls)
+            return f
+
+        def first_requests(f) -> dict:
+            out = {}
+            for name in classes:
+                X = synthetic_rows(F, FLEET_FIRST_ROWS, seed=seed,
+                                   row_seed=300)
+                t = time.perf_counter()
+                got = f.predict(name, X, timeout=600)
+                out[name] = (time.perf_counter() - t) * 1e3
+                want = expected(name, X)
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"{name}'s first answer differs")
+            return out
+
+        def expected(name, X):
+            forest = host[name]
+            K = SWAP_CLASSES if name == "multi5" else 1
+            raw = forest.predict_raw(X, num_class=K)
+            return raw[0] if K == 1 else raw.T
+
+        t0 = time.perf_counter()
+        fleet = make_fleet()
+        setup_s = time.perf_counter() - t0
+        host = {n: fleet.entry(n).model.forest for n in classes}
+        # 1. the fleet under load: every answer its model's host f64 path
+        cold_ms = first_requests(fleet)
+        pk.reset_launch_counts()
+        load = _fleet_load(fleet, {"hot": 3.0, "second": 1.0,
+                                   "multi5": 1.0}, host, FLEET_REQUESTS,
+                           FLEET_THREADS, FLEET_MAX_ROWS, seed,
+                           "fleet load")
+        load_launches = {m: pk.launch_counts[f"{KERNEL}[{m}]"]
+                         for m in ("leaves", "scores")}
+        if sum(load_launches.values()) <= 0:
+            raise AssertionError("the fleet never launched B1")
+        wall = load["wall_seconds"]
+        per_model = {n: {"requests": s["requests"], "rows": s["rows"],
+                         "rows_per_s": s["rows"] / wall,
+                         "p50_ms": s["latency_ms"].get("p50"),
+                         "p99_ms": s["latency_ms"].get("p99"),
+                         "shed": s["shed"], "expired": s["expired"]}
+                     for n, s in load["models"].items()}
+
+        # 2. eviction under a budget that fits only the hot model
+        plan = fleet.replan()
+        mp = next(m for m in plan.models if m.name == "hot")
+        budget = int((mp.forest_bytes + mp.program_bytes + 1024) / HEADROOM)
+        mem0 = _allocated()
+        fleet.config.hbm_budget_bytes = budget
+        plan = fleet.replan()
+        mem1 = _allocated()
+        evicted = set(plan.evicted)
+        if evicted != {"second", "multi5"}:
+            raise AssertionError(f"evicted {plan.evicted}")
+        evicted_bytes = sum(m.forest_bytes for m in plan.models
+                            if m.name in evicted)
+        if mem0 - mem1 < 0.9 * evicted_bytes:
+            raise AssertionError(f"eviction freed {mem0 - mem1} bytes of "
+                                 f"{evicted_bytes}")
+        pk.reset_launch_counts()
+        for name in sorted(evicted):
+            X = synthetic_rows(F, 700, seed=seed, row_seed=301)
+            if not np.array_equal(fleet.predict(name, X, timeout=600),
+                                  expected(name, X)):
+                raise AssertionError(f"evicted {name} answers differ")
+        evicted_launches = pk.launch_counts[KERNEL]
+        if evicted_launches:
+            raise AssertionError(f"evicted models launched B1 "
+                                 f"{evicted_launches} times")
+        fleet.config.hbm_budget_bytes = None
+        plan = fleet.replan()
+        mem2 = _allocated()
+        if plan.evicted or mem2 - mem1 < 0.9 * evicted_bytes:
+            raise AssertionError(f"restore: evicted {plan.evicted}, "
+                                 f"{mem2 - mem1} bytes back")
+        pk.reset_launch_counts()
+        for name in sorted(evicted):
+            X = synthetic_rows(F, 700, seed=seed, row_seed=302)
+            if not np.array_equal(fleet.predict(name, X, timeout=600),
+                                  expected(name, X)):
+                raise AssertionError(f"restored {name} answers differ")
+        restored_launches = pk.launch_counts[KERNEL]
+        if restored_launches <= 0:
+            raise AssertionError("restored models never launched B1")
+
+        # 3. the byte model against the allocator (ROADMAP C-24)
+        forest = host["hot"]
+        T, I = forest.split_feature.shape
+        byte_model = {}
+        for prec in ("f32", "bf16", "int8"):
+            src = forest if prec == "f32" else quantize_forest(forest, prec)
+            m0, r0 = _allocated(), _requested()
+            dev = (DeviceForest(src, "cuda") if prec == "f32" else
+                   DeviceForest(src, "cuda", precision=prec,
+                                routing_only=True))
+            delta, requested = _allocated() - m0, _requested() - r0
+            want = predict_forest_bytes(T, I, forest.leaf_value.shape[1],
+                                        prec, routing_only=prec != "f32")
+            byte_model[prec] = {"allocator_bytes": delta,
+                                "requested_bytes": requested,
+                                "predicted_bytes": want,
+                                "tensors": _tensor_count(dev)}
+            if requested != want or delta < want:
+                raise AssertionError(f"{prec} forest: allocator {delta} "
+                                     f"(requested {requested}), byte "
+                                     f"model {want}")
+            del dev
+
+        # 4. stored programs: export, then a fresh fleet restores them
+        store_dir = os.path.join(tmp, "aot")
+        exported = fleet.export_aot(store_dir)
+        fleet.close()
+        fleet = None
+        mem_pre, req_pre = _allocated(), _requested()
+        t0 = time.perf_counter()
+        fleet = make_fleet(aot_dir=store_dir)
+        aot_setup_s = time.perf_counter() - t0
+        restored_ms = first_requests(fleet)
+        fleet.warm()
+        aot_counts = {}
+        for name in classes:
+            c = fleet.entry(name).server.metrics_dict()["counters"]
+            aot_counts[name] = {k: c.get(k, 0) for k in (
+                "compile_events", "aot_program_loads", "bucket_misses")}
+            if aot_counts[name]["compile_events"] != 0 or \
+                    aot_counts[name]["aot_program_loads"] < 1:
+                raise AssertionError(f"{name}: {aot_counts[name]}")
+        # one forest a restored model on the card, as the byte model
+        # counts it: the stored records build it, nothing is uploaded twice
+        restored_mem = _allocated() - mem_pre
+        restored_req = _requested() - req_pre
+        restored_want = 0
+        for name in classes:
+            m = fleet.entry(name).model
+            if m.device_forest.aot_records_sha is None:
+                raise AssertionError(f"{name} was not built from the store")
+            Tm, Im = m.forest.split_feature.shape
+            restored_want += predict_forest_bytes(
+                Tm, Im, m.forest.leaf_value.shape[1])
+        if restored_req != restored_want or restored_mem < restored_want:
+            raise AssertionError(f"restored fleet holds {restored_mem} "
+                                 f"bytes (requested {restored_req}), byte "
+                                 f"model {restored_want}")
+        pk.reset_launch_counts()
+        _fleet_load(fleet, {"hot": 3.0, "second": 1.0, "multi5": 1.0},
+                    host, FLEET_REQUESTS // 4, FLEET_THREADS,
+                    FLEET_MAX_ROWS, seed + 1, "restored fleet load")
+        aot_launches = pk.launch_counts[KERNEL]
+        if aot_launches <= 0:
+            raise AssertionError("restored programs never launched B1")
+        fleet.close()
+        fleet = None
+        # a corrupt blob and a foreign torch version are each a miss
+        store = AOTStore(store_dir)
+        srv = lt.serve(paths["hot"], aot_dir=store_dir, max_batch_rows=1024)
+        try:
+            digest = srv.models.active.digest
+            if len(store.buckets_for(digest)) != len(srv.ladder.buckets):
+                raise AssertionError("the store lacks buckets")
+            with open(os.path.join(store_dir, f"{digest}-b64.bin"),
+                      "wb") as fh:
+                fh.write(b"not a stored program")
+            meta_path = os.path.join(store_dir, f"{digest}-b128.json")
+            with open(meta_path) as fh:
+                meta = json.load(fh)
+            meta["torch"] = "0.0.0"
+            with open(meta_path, "w") as fh:
+                json.dump(meta, fh)
+            misses = []
+            for rows in (40, 100, 8):
+                X = synthetic_rows(F, rows, seed=seed, row_seed=303)
+                if not np.array_equal(srv.predict(X, timeout=600),
+                                      expected("hot", X)):
+                    raise AssertionError(f"answer at {rows} rows differs")
+                misses.append(srv.metrics.counter("compile_events").value)
+            if misses != [1, 2, 2] or \
+                    srv.metrics.counter("aot_program_loads").value != 1:
+                raise AssertionError(f"corrupt entries: compile events "
+                                     f"{misses}")
+        finally:
+            srv.close()
+
+        # 5. PodFleet(devices=2) on the one card: kill_device, then a
+        # chaos vanish, each under load
+        fast = RouterConfig(health_interval_s=0.1)
+        slow = ",".join(f"device.delay@{i}:sec=0.003" for i in range(4000))
+        pod_kill = _pod_drill(
+            pk, lt, paths["hot"], host["hot"],
+            lambda pod, d: pod.kill_device(d), fast,
+            ChaosRegistry(slow), seed + 10, "kill_device")
+        chaos = ChaosRegistry(slow)
+        pod_vanish = _pod_drill(
+            pk, lt, paths["hot"], host["hot"],
+            lambda pod, d: chaos.down_device(d, "vanish"), fast, chaos,
+            seed + 20, "chaos vanish")
+
+        # 6. two logical devices: chunks binned by B3, bulk scoring twice
+        Xb = synthetic_rows(F, FLEET_BULK_ROWS, seed=seed, row_seed=304) \
+            .astype(np.float32)
+        ingest.reset_launch_counts()
+        ds = lt.Dataset(Xb, label=np.zeros(len(Xb))).construct()
+        binned = ds.binned_t.cpu().numpy()
+        pump = IngestPump(Xb, FLEET_BULK_BLOCK_ROWS,
+                          devices=["cuda:0", "cuda:0"])
+        parts = {s: ds._bin_rows(chunk).cpu().numpy()
+                 for _i, s, _r, chunk in pump}
+        if not np.array_equal(np.concatenate(
+                [parts[s] for s in sorted(parts)], axis=1), binned):
+            raise AssertionError("two-device chunks bin differently")
+        b3_launches = ingest.launch_counts["ingest"]
+        del ds
+        bst_a = lt.Booster(model_file=paths["hot"])
+        dev_a = bst_a._device_forest(host["hot"])
+        fstore = BlockStore.from_array(os.path.join(tmp, "features"), Xb,
+                                       FLEET_BULK_BLOCK_ROWS)
+        bulk_aot = AOTStore(os.path.join(tmp, "bulk_aot"))
+        bulk = []
+        pk.reset_launch_counts()
+        for run in range(2):
+            sink = os.path.join(tmp, f"sink{run}")
+            before = bulk_aot.entries()
+            stats = [BulkScorer(dev_a, fstore, sink, devices=plan_devices(2),
+                                local_device_id=d, aot_store=bulk_aot).run()
+                     for d in (0, 1)]
+            sources = [st["program_source"] for st in stats]
+            if not stats[1]["complete"] or sources != (
+                    ["live", "aot"] if run == 0 else ["aot", "aot"]):
+                raise AssertionError(f"bulk run {run}: {stats}")
+            scorer = BulkScorer(dev_a, fstore, sink)
+            from lightgbm_tpu_torch.data import ScoreSink
+            sk = ScoreSink.open_or_create(
+                sink, FLEET_BULK_ROWS, 1, FLEET_BULK_BLOCK_ROWS,
+                fstore.num_blocks, scorer.digest)
+            got = np.concatenate([sk.read_block(i) for i in
+                                  range(fstore.num_blocks)], axis=1)[0]
+            epilogue = stats[0]["epilogue"]
+            want = bst_a.predict(Xb, raw_score=True,
+                                 device=epilogue != "host")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"bulk run {run} differs from "
+                                     "Booster.predict")
+            bulk.append({"entry_before": bool(before), "sources": sources,
+                         "rows_per_s": [st["rows_per_sec"] for st in stats],
+                         "blocks": [st["blocks_scored"] for st in stats],
+                         "epilogue": epilogue})
+        if bulk[0]["entry_before"] or not bulk[1]["entry_before"]:
+            raise AssertionError(f"bulk restores: {bulk}")
+        bulk_launches = pk.launch_counts[f"{KERNEL}[leaves]"]
+        if bulk_launches != 2 * fstore.num_blocks:
+            raise AssertionError(f"bulk B1 launches {bulk_launches}")
+        phase_s = time.perf_counter() - t_phase
+        row = {"phase": "fleet_serve", "card": smi, "setup_s": setup_s,
+               "requests": FLEET_REQUESTS, "threads": FLEET_THREADS,
+               "rows": load["rows"], "wall_s": wall,
+               "rows_per_s": load["rows"] / wall,
+               "p50_ms": load["latency_ms"]["p50"],
+               "p99_ms": load["latency_ms"]["p99"],
+               "shed": load["shed"], "expired": load["expired"],
+               "models": per_model, "b1_launches": load_launches,
+               "evicted": sorted(evicted), "budget_bytes": budget,
+               "memory_allocated": [mem0, mem1, mem2],
+               "evicted_forest_bytes": evicted_bytes,
+               "evicted_b1_launches": evicted_launches,
+               "restored_b1_launches": restored_launches,
+               "byte_model": byte_model,
+               "aot_entries": exported, "aot_setup_s": aot_setup_s,
+               "restored_memory_allocated": restored_mem,
+               "restored_requested_bytes": restored_req,
+               "restored_forest_bytes": restored_want,
+               "first_request_ms": {"cold": cold_ms,
+                                    "restored": restored_ms},
+               "aot_counters": aot_counts, "aot_b1_launches": aot_launches,
+               "corrupt_compile_events": misses,
+               "pod_kill": pod_kill, "pod_vanish": pod_vanish,
+               "b3_launches": b3_launches, "bulk": bulk,
+               "bulk_b1_launches": bulk_launches, "phase_s": phase_s,
+               "checked": "bit-exact to each model's host f64 path"}
+        emit(row)
+        if phase_s > FLEET_PHASE_LIMIT_S:
+            print(f"fleet_serve took {phase_s:.1f} s, over its "
+                  f"{FLEET_PHASE_LIMIT_S} s share", file=sys.stderr)
+        return {"leaves": load_launches["leaves"] + bulk_launches
+                + pod_kill["b1_launches"] + pod_vanish["b1_launches"]
+                + restored_launches + aot_launches,
+                "scores": load_launches["scores"],
+                "ingest": b3_launches, "row": row}
+    finally:
+        if fleet is not None:
+            fleet.close(drain=False)
+        global_flight.dumps = saved_dumps
+        if saved_dir is None:
+            os.environ.pop("LIGHTGBM_TPU_FLIGHT_DIR", None)
+        else:
+            os.environ["LIGHTGBM_TPU_FLIGHT_DIR"] = saved_dir
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def bytes_or_ops(nbytes: float, ops: float) -> dict:
@@ -4650,6 +5170,7 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     swap_row = phase_swap_serve(pk, lt, models["higgs_500x255"][0], 28, 7,
                                 serve_row)
     del models
+    fleet_launches = phase_fleet_serve(pk, lt, higgs, 28, 7, smi)
     train_run, train_data = phase_train(lt)
     train_launches, ds, bst = (train_run["launches"], train_run["ds"],
                                train_run["bst"])
@@ -4710,7 +5231,8 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,
-            "swap_serve_launches": swap_row["swap_launches"][mode]})
+            "swap_serve_launches": swap_row["swap_launches"][mode],
+            "fleet_serve_launches": fleet_launches[mode]})
     # leaves mode on the bf16 and int8 planes (swap_serve's servers)
     for prec in ("bf16", "int8"):
         lp, b1 = swap_row["lowprec"][prec], swap_row["b1_leaves_1024"][prec]
@@ -4828,6 +5350,8 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     for row in table:
         if row["name"] in sparse_of:
             row["sparse_cv_launches"] = sparse_launches[sparse_of[row["name"]]]
+        if row["name"] == "ingest":
+            row["fleet_serve_launches"] = fleet_launches["ingest"]
     # and on the serial_train, sharded_train and stream_train paths
     # (every training entry, f32 and int8; sharded_train's: rank 0's;
     # stream_train's B1: the bulk scorer's leaves mode)

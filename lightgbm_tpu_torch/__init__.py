@@ -14,15 +14,18 @@ sparse and pandas input, text files and binary caches; ``cv``,
 (imported only where scikit-learn is installed).  A ``serve`` server
 hot-swaps models (``swap_model``) and serves bf16 or int8 twins
 (``precision=``); the host paths run in the native C++ library
-(``native/``) where it builds; the plotting functions need matplotlib
+(``native/``) where it builds; ``Fleet`` serves many models behind one
+front door that shares the card's memory, and ``PodFleet`` replicates
+them over logical devices with failover (``fleet/``); the plotting
+functions need matplotlib
 (and graphviz for trees) only when called.  ``obs`` holds the tracer,
 the process metrics registry, the flight recorder and the SLO watchdog,
 under the JAX package's names and environment knobs.  Configurations
 outside the port raise ``NotImplementedError``.
 
 The public names are the JAX package's (``lightgbm_tpu.__all__``), but
-for those of modules not ported yet (the fleet, the model lifecycle,
-the model axis and co-residency: ROADMAP queue A6 and A12); the
+for those of modules not ported yet (the model lifecycle, the model
+axis and co-residency: ROADMAP queue A12); the
 scikit-learn estimators are exported where scikit-learn is installed,
 as the JAX package exports them.
 """
@@ -35,6 +38,8 @@ from .config import Config
 from .dataset import Dataset
 from . import obs  # noqa: F401  (tracing, metrics, flight recorder, watchdog)
 from . import serving  # noqa: F401  (in-process inference server)
+from . import fleet  # noqa: F401  (multi-model serving fleet)
+from .fleet import Fleet, PodFleet
 from .engine import CVBooster, InitModelCompatibilityError, cv, train
 from .plotting import (create_tree_digraph, plot_importance, plot_metric,
                        plot_split_value_histogram, plot_tree)
@@ -55,8 +60,10 @@ def serve(model, config=None, device=None, **overrides):
 
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
-           "InitModelCompatibilityError", "LightGBMError", "cv",
-           "create_tree_digraph", "early_stopping", "log_evaluation",
+           "Fleet", "InitModelCompatibilityError", "LightGBMError",
+           "PodFleet", "cv",
+           "create_tree_digraph", "early_stopping", "fleet",
+           "log_evaluation",
            "obs", "plot_importance", "plot_metric",
            "plot_split_value_histogram", "plot_tree", "print_evaluation",
            "record_evaluation", "reset_parameter", "serve", "serving",

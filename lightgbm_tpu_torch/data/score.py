@@ -21,17 +21,21 @@
   banked blocks, and the rest come out byte-identical (the scores of a
   row do not depend on the block it is scored in);
 - **placement**: ``plan_block_shards`` assigns blocks to the caller's
-  device specs (each with ``slice_id`` and ``device_id``), the first
-  spec's slice first; each participant scores its own blocks into the
-  shared sink.
+  device specs (each with ``slice_id`` and ``device_id``; a count is
+  planned by ``fleet.topology.plan_devices``), the first spec's slice
+  first; each participant scores its own blocks into the shared sink;
+- **stored program**: with ``aot_store`` the routing program of the
+  block bucket comes from ``fleet.aot.make_bulk_program``: a run
+  restores its launch plan and epilogue verdict (``program_source``
+  "aot"), or runs live and stores them so that the next run, a resumed
+  one too, restores them.
 
 The sink's format and commit protocol are the JAX package's, so sinks
 pass both ways, and so are its events: the ``bulk.plan`` instant, a
 ``bulk.run`` span with a ``bulk.block`` span a block inside it, and the
-``bulk_blocks_total`` counter of the process registry.  The JAX package's ``aot_store=`` (serialized programs
-of ``fleet.aot``), ``ledger=`` (the residency ledger) and its
-``fleet.topology.plan_devices`` device planning are not ported: each
-raises ``NotImplementedError`` naming its ROADMAP queue.
+``bulk_blocks_total`` counter of the process registry.  The JAX
+package's ``ledger=`` (the residency ledger) is not ported and raises
+``NotImplementedError`` naming its ROADMAP queue.
 """
 
 from __future__ import annotations
@@ -201,10 +205,13 @@ def plan_block_shards(num_blocks: int, devices: Sequence) -> Tuple[int, ...]:
 class BulkScorer:
     """Score a float32 feature ``BlockStore`` with a ``DeviceForest`` and
     bank the raw scores in a ``ScoreSink`` at ``sink_path``, resumable
-    (module docstring).  ``devices``: the participants' specs (None: this
-    device alone); this scorer takes the blocks ``plan_block_shards``
-    gives ``local_device_id``.  ``digest``: the model's digest in the
-    sink (None: ``serving.registry.forest_digest`` of the forest)."""
+    (module docstring).  ``devices``: the participants' specs, or their
+    count (``fleet.topology.plan_devices``; None: this device alone);
+    this scorer takes the blocks ``plan_block_shards`` gives
+    ``local_device_id``.  ``aot_store``: a ``fleet.aot.AOTStore`` for
+    the routing program.  ``digest``: the model's digest in the sink
+    and the store (None: ``serving.registry.forest_digest`` of the
+    forest)."""
 
     def __init__(self, device_forest, store: BlockStore, sink_path: str,
                  num_class: int = 1, devices=None, local_device_id: int = 0,
@@ -213,12 +220,6 @@ class BulkScorer:
             raise ValueError(
                 f"bulk scoring expects a float32 feature store, got "
                 f"{store.dtype}")
-        if aot_store is not None:
-            raise NotImplementedError(
-                "BulkScorer(aot_store=): serialized routing programs "
-                "(the JAX package's fleet.aot) are not ported to "
-                "lightgbm_tpu_torch yet; they wait for ROADMAP queue A6 "
-                "(the serving and device fleet)")
         if ledger is not None:
             raise NotImplementedError(
                 "BulkScorer(ledger=): the residency ledger is not ported "
@@ -227,18 +228,15 @@ class BulkScorer:
         if devices is None:
             devices = (DeviceSpec(0, int(local_device_id)),)
         elif isinstance(devices, int):
-            raise NotImplementedError(
-                "BulkScorer(devices=<count>): planning devices from the "
-                "topology (the JAX package's fleet.topology.plan_devices) "
-                "is not ported to lightgbm_tpu_torch yet; it waits for "
-                "ROADMAP queue A6 — pass the device specs (slice_id, "
-                "device_id) instead")
+            from ..fleet.topology import plan_devices
+            devices = plan_devices(devices)
         self.dev = device_forest
         self.store = store
         self.sink_path = str(sink_path)
         self.K = max(int(num_class), 1)
         self.devices = tuple(devices)
         self.local_device_id = int(local_device_id)
+        self.aot_store = aot_store
         if digest is None:
             from ..serving.registry import forest_digest
             digest = forest_digest(device_forest.forest)
@@ -299,9 +297,13 @@ class BulkScorer:
         if max_blocks is not None:
             todo = todo[:max(int(max_blocks), 0)]
         pred_dev, pred_host = self._predicted_peaks()
-        from ..ops.predict_kernels import fused_traverse
+        from ..fleet.aot import make_bulk_program
+        program, source = make_bulk_program(
+            self.dev, int(self.store.num_cols), int(self.store.block_rows),
+            self.digest, self.aot_store, num_class=self.K)
         _instant("bulk.plan", blocks=nb, mine=len(mine), skipped=skipped,
-                 todo=len(todo), predicted_device_peak_bytes=pred_dev,
+                 todo=len(todo), program=source,
+                 predicted_device_peak_bytes=pred_dev,
                  predicted_host_peak_bytes=pred_host)
         rows_scored = blocks_scored = 0
         t0 = time.perf_counter()
@@ -311,7 +313,7 @@ class BulkScorer:
             for i, _start, rows, xb in ReadAhead(
                     BlockPump(self.store, self.dev.device, blocks=todo)):
                 with _span("bulk.block", block=i, rows=rows):
-                    leaves = fused_traverse(self.dev, self._prep(xb))
+                    leaves = program(self._prep(xb))
                     sink.write_block(i, self._score_block(leaves, rows))
                 _obs_registry.counter("bulk_blocks_total").inc()
                 rows_scored += int(rows)
@@ -331,6 +333,7 @@ class BulkScorer:
             "rows_per_sec": rps,
             "bulk_rows_per_sec_per_device": rps / max(len(self.devices), 1),
             "num_devices": len(self.devices),
+            "program_source": source,
             "epilogue": ("device" if self.dev._epilogue_verified(self.K)
                          else "host"),
             "predicted_device_peak_bytes": pred_dev,
@@ -341,5 +344,5 @@ class BulkScorer:
         log_info(
             f"bulk scorer: {blocks_scored} blocks / {rows_scored} rows in "
             f"{elapsed:.2f}s ({rps / 1e6:.3f} Mrow/s, {skipped} banked "
-            f"blocks skipped)")
+            f"blocks skipped, program={source})")
         return stats

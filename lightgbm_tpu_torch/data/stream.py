@@ -45,9 +45,11 @@ pump's ``passes``, ``blocks`` and ``h2d_bytes`` and a grower's
 gauges, a ``stream.pump``/``ingest.pump`` heartbeat a block, and the
 ``stream.block_put``, ``stream.spill``, ``stream.root_pass``,
 ``stream.round_pass`` and ``stream.tree`` spans with the
-``planner.plan_stream`` instant; none of them reads the card.  Pumps
-run on one device; the JAX package's multi-device placement waits for
-ROADMAP queue A6.
+``planner.plan_stream`` instant; none of them reads the card.  An
+``IngestPump`` over several devices places its chunks as the JAX
+package does: ``fleet.topology.plan_devices`` describes the devices and
+``data.score.plan_block_shards`` deals the chunks out, home slice
+first.
 """
 
 from __future__ import annotations
@@ -138,7 +140,7 @@ class _Pump:
         self._cuda = self.device.type == "cuda"
         self._bufs = None      # pinned host buffers, used in rotation
         self._last = None      # each buffer's last copy event
-        self._side = None      # the copies' CUDA stream
+        self._side = None      # the copies' CUDA stream, a device
 
     def _setup_cuda(self) -> None:
         if self._bufs is not None:
@@ -148,14 +150,19 @@ class _Pump:
                                   pin_memory=True)
                       for _ in range(self.NUM_BUFFERS)]
         self._last = [None] * self.NUM_BUFFERS
-        self._side = torch.cuda.Stream(self.device)
+        self._side = {}
+
+    def _device_of(self, i: int) -> torch.device:
+        """The device item ``i`` is placed on."""
+        return self.device
 
     def _load(self, i: int, k: int):
-        """Item ``i``, the ``k``-th of its pass, on the device: (index,
+        """Item ``i``, the ``k``-th of its pass, on its device: (index,
         start, rows, tensor)."""
+        device = self._device_of(i)
         if not self._cuda:
             start, rows, host = self._host_item(i, None)
-            t = torch.from_numpy(host)
+            t = torch.from_numpy(host).to(device)
             self.h2d_bytes += t.numel() * t.element_size()
             return i, start, rows, t
         j = k % len(self._bufs)
@@ -164,13 +171,16 @@ class _Pump:
             self._last[j].synchronize()
         start, rows, host = self._host_item(i, self._bufs[j].numpy())
         nbytes = host.nbytes
-        with torch.cuda.stream(self._side):
-            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+        side = self._side.get(device)
+        if side is None:
+            side = self._side[device] = torch.cuda.Stream(device)
+        with torch.cuda.stream(side):
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=device)
             dev.copy_(self._bufs[j][:nbytes], non_blocking=True)
             ev = torch.cuda.Event()
-            ev.record(self._side)
+            ev.record(side)
         self._last[j] = ev
-        stream = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.current_stream(device)
         stream.wait_event(ev)
         # the block was allocated on the side stream
         dev.record_stream(stream)
@@ -315,28 +325,45 @@ class BlockPump(_Pump):
 
 class IngestPump(_Pump):
     """Double-buffered host -> card iterator over raw rows: the source
-    [n, F] (anything row-sliceable, a scipy CSR matrix too) in chunks of ``chunk_rows`` rows,
-    each as a contiguous [rows, F] float32 tensor on ``device`` (the
-    binning kernel B3's input).  Yields ``(index, start_row, rows,
-    chunk)`` in ascending order.  One device: ``devices`` with more than
-    one entry (the JAX package's placement of chunks over devices)
-    raises ``NotImplementedError``."""
+    [n, F] (anything row-sliceable, a scipy CSR matrix too) in chunks of
+    ``chunk_rows`` rows, each as a contiguous [rows, F] float32 tensor on
+    ``device`` (the binning kernel B3's input).  Yields ``(index,
+    start_row, rows, chunk)`` in ascending order.  With several
+    ``devices`` (all of one type; on one card they may all be
+    ``cuda:0``), chunk i goes to ``devices[owner[i]]``: the devices are
+    described through ``fleet.topology.plan_devices`` (device i is spec
+    i) and the chunks dealt out by ``data.score.plan_block_shards``, so
+    each device bins its own row shard of the construction."""
 
     KIND = "ingest"
 
     def __init__(self, source, chunk_rows: int, device=None, devices=None):
-        if devices is not None and len(list(devices)) > 1:
-            raise NotImplementedError(
-                "IngestPump over several devices (the JAX package places "
-                "chunks through fleet.topology and plan_block_shards) is "
-                "not ported to lightgbm_tpu_torch yet; it waits for "
-                "ROADMAP queue A6 (the serving and device fleet)")
         self.source = source
         self.n = int(source.shape[0])
         self.num_features = int(source.shape[1])
         self.chunk_rows = max(int(chunk_rows), 1)
         self.num_chunks = max(-(-self.n // self.chunk_rows), 1)
+        self.devices = None
+        self.owner = [0] * self.num_chunks
+        if devices is not None and len(list(devices)) > 1:
+            from ..basic import resolve_device
+            from ..fleet.topology import plan_devices
+            from .score import plan_block_shards
+            self.devices = [resolve_device(d) for d in devices]
+            if len({d.type for d in self.devices}) != 1:
+                raise ValueError("an IngestPump's devices must all be of "
+                                 "one type")
+            self.owner = list(plan_block_shards(
+                self.num_chunks, plan_devices(len(self.devices))))
+            device = self.devices[0]
+        elif devices is not None and len(list(devices)) == 1:
+            device = list(devices)[0]
         super().__init__(device)
+
+    def _device_of(self, i: int) -> torch.device:
+        if self.devices is None:
+            return self.device
+        return self.devices[self.owner[i]]
 
     def _items(self):
         return range(self.num_chunks)

@@ -15,9 +15,7 @@ bytes in both packages: bf16 rounds to nearest even (``torch.bfloat16``
 here, ``ml_dtypes`` there), int8 takes the f32 scale ``mag / 127``,
 ``np.round`` of the f64 quotient, and the f32 ``q * scale``.
 
-A leaf module: numpy and torch, no serving imports.  The rest of the
-JAX ``fleet`` package (registry, router, topology, AOT programs) is
-ROADMAP queue A6.
+A leaf module: numpy and torch, no serving imports.
 """
 
 from __future__ import annotations

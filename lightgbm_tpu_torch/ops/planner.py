@@ -115,7 +115,9 @@ grid does not apply:
   non-zero cells into the output with global atomics.
 
 The out-of-core data plane's two-level budget (``plan_stream``, the
-card's and the host's peaks, ``stream_override``) closes the module.
+card's and the host's peaks, ``stream_override``) and the serving
+fleet's shared-memory residency election (``plan_fleet``, over the
+byte model of the port's ``DeviceForest``) close the module.
 The JAX package's knobs steer it the same way, through
 ``utils.envflags``: ``LGBM_TPU_STREAM`` and ``LGBM_TPU_STREAM_BLOCK_ROWS``
 where ``stream_override`` leaves the choice to the planner,
@@ -909,3 +911,230 @@ def plan_stream(rows: int, features: int, num_bins: int,
     block = min(MIN_STREAM_BLOCK_ROWS, n)
     dp, hp = peaks(block)
     return mk(True, block, reason, dp, hp)
+
+
+# ----------------------------------------------------------------------
+# the serving fleet's residency election
+# ----------------------------------------------------------------------
+#
+# A fleet (``fleet/``) keeps N models' ``DeviceForest`` tensors in the
+# memory of one card.  ``plan_fleet`` models each model's resident bytes
+# and the bytes one call of each warmed bucket allocates, elects which
+# models (and which of their buckets) stay on the card under the budget,
+# and marks the rest evicted: an evicted model serves through the host
+# path, bit-identical, until a replan readmits it.  The byte model is
+# the card's own: it counts exactly the tensors the port's
+# ``DeviceForest`` holds (the JAX package's model pads to TPU tiles and
+# prices 22 bytes a node, neither of which the card has).  The plain
+# planes stay beside the kernel's packed records, and B1 reads the bf16
+# and int8 planes widened to f32, so a routing-only int8 forest holds
+# more bytes than a bf16 one (ROADMAP C-24).
+
+# bytes a node of the eight int32 planes (split_feature, left, right,
+# missing_type, default_left, is_cat, cat_offset, cat_nwords)
+_FOREST_PLANE_BYTES = 8 * 4
+# the threshold plane's bytes a node, by storage precision; int8 adds
+# the fix mask (bool) and the f32 values of the nodes left unquantized
+_THRESHOLD_BYTES = {"f32": 4, "bf16": 2, "int8": 1 + 1 + 4}
+
+
+def predict_forest_bytes(num_trees: int, nodes_dim: int, leaves_dim: int,
+                         precision: str = "f32", cat_words: int = 0,
+                         accel: Optional[bool] = None,
+                         routing_only: bool = False) -> int:
+    """Bytes on the card of ONE model's ``DeviceForest`` tensors, exactly:
+    the threshold plane at ``precision`` (int8: its codes, fix mask, f32
+    fix values and a f32 scale a tree), the eight int32 planes, the
+    packed records ``nodes`` [T, I, 4] and ``cat_records`` ([T, I, 2]
+    with categorical splits, else [1, 1, 2]), the bitset words
+    (``cat_words`` of them; 0 means a forest without categorical splits,
+    which keeps one word), and the f32 leaf values unless
+    ``routing_only``.  ``nodes_dim``/``leaves_dim`` are the stacked
+    forest's [T, I]/[T, L] axes.  ``accel`` is the JAX package's TPU
+    padding switch, kept so its callers run: it has no effect on the
+    card."""
+    T = max(int(num_trees), 1)
+    I = max(int(nodes_dim), 1)
+    L = max(int(leaves_dim), 1)
+    W = int(cat_words)
+    if precision not in _THRESHOLD_BYTES:
+        raise ValueError(f"unknown forest precision {precision!r}")
+    b = T * I * (_THRESHOLD_BYTES[precision] + _FOREST_PLANE_BYTES
+                 + NODE_RECORD_BYTES)
+    if precision == "int8":
+        b += T * 4                          # threshold_scale [T, 1] f32
+    b += T * I * CAT_RECORD_BYTES if W > 0 else CAT_RECORD_BYTES
+    b += 4 * max(W, 1)                      # cat_words
+    if not routing_only:
+        b += T * L * 4                      # leaf_value f32
+    return int(b)
+
+
+def predict_program_bytes(num_trees: int, bucket_rows: int, features: int,
+                          accel: Optional[bool] = None, num_class: int = 1,
+                          emit_scores: bool = False) -> int:
+    """Bytes one call of a bucket-shaped serving program allocates on the
+    card: the [bucket, F] f32 input and B1's output, leaf ids [T, bucket]
+    int32, or with ``emit_scores`` the [K, bucket] f32 scores and the
+    [T, bucket] f32 scratch of the ordered sum.  The residency election
+    charges it a warmed bucket.  ``accel`` has no effect on the card."""
+    T = max(int(num_trees), 1)
+    C = max(int(bucket_rows), 1)
+    F = max(int(features), 1)
+    b = C * F * 4
+    if emit_scores:
+        b += max(int(num_class), 1) * C * 4 + T * C * 4
+    else:
+        b += T * C * 4
+    return int(b)
+
+
+def fleet_replica_bytes(m: "FleetModelShape",
+                        accel: Optional[bool] = None):
+    """The card's cost of ONE replica of ``m``: ``(forest_bytes,
+    {bucket: program_bytes})``, the unit both the one-card residency
+    election (``plan_fleet``) and the placement planner
+    (``fleet.topology.plan_topology``) charge.  A f32 model's buckets
+    are charged the scores mode (it serves in that mode once its
+    epilogue verifies), a low-precision model's the leaves mode
+    (routing only)."""
+    lowprec = m.precision != "f32"
+    fb = predict_forest_bytes(
+        m.num_trees, m.nodes_dim, m.leaves_dim, m.precision,
+        m.cat_words, accel, routing_only=lowprec)
+    ladder = sorted(set(int(b) for b in m.buckets)) or [8]
+    prog = {b: predict_program_bytes(m.num_trees, b, m.features, accel,
+                                     m.num_class, emit_scores=not lowprec)
+            for b in ladder}
+    return fb, prog
+
+
+class FleetModelShape(NamedTuple):
+    """One serving model's shape as the fleet election sees it."""
+
+    name: str
+    num_trees: int
+    nodes_dim: int              # padded internal-node axis I
+    leaves_dim: int             # padded leaf axis L
+    features: int
+    num_class: int = 1
+    buckets: tuple = ()         # the model's bucket ladder (row counts)
+    weight: float = 1.0         # admission weight (fleet config)
+    age_s: float = 0.0          # seconds since last request (0 = hot)
+    precision: str = "f32"      # "f32" | "bf16" | "int8"
+    cat_words: int = 0
+
+
+class FleetModelPlan(NamedTuple):
+    """Residency verdict for one model."""
+
+    name: str
+    resident: bool              # its DeviceForest stays on the card
+    resident_buckets: tuple     # buckets whose programs stay warm
+    forest_bytes: int           # charged when resident
+    program_bytes: int          # charged for the resident buckets
+    priority: float             # weight / (1 + age): the election key
+
+
+class FleetPlan(NamedTuple):
+    """Shared-memory residency plan of a serving fleet.  Always
+    servable: an evicted model serves through the host path, so
+    ``feasible`` is about residency on the card, not about serving."""
+
+    models: tuple               # FleetModelPlan per input model, input order
+    total_resident_bytes: int
+    budget_bytes: int
+    limit_bytes: int
+    limit_source: str           # "mem_get_info" | "env" | "none" | "caller"
+    evicted: tuple              # names of non-resident models
+    pressure: float             # wanted-resident bytes / budget
+    feasible: bool              # every model got residency
+
+    def summary(self) -> dict:
+        """JSON-friendly form for telemetry (the JAX package's keys)."""
+        return {
+            "models": [
+                {"name": m.name, "resident": m.resident,
+                 "resident_buckets": list(m.resident_buckets),
+                 "forest_bytes": m.forest_bytes,
+                 "program_bytes": m.program_bytes,
+                 "priority": round(m.priority, 6)}
+                for m in self.models
+            ],
+            "total_resident_bytes": self.total_resident_bytes,
+            "budget_bytes": self.budget_bytes,
+            "hbm_limit_bytes": self.limit_bytes,
+            "limit_source": self.limit_source,
+            "evicted": list(self.evicted),
+            "pressure": round(self.pressure, 4),
+            "feasible": self.feasible,
+        }
+
+
+def fleet_limit_bytes(device=None) -> tuple:
+    """(limit_bytes, budget_bytes, source) of a fleet on ``device`` (None:
+    the current CUDA device, which a host without CUDA refuses):
+    ``device_limit_bytes`` with ``HEADROOM`` applied; a CPU device has no
+    card limit (``NO_DEVICE_LIMIT``)."""
+    from ..basic import resolve_device
+    lim, source = device_limit_bytes(resolve_device(device))
+    if lim is None:
+        return NO_DEVICE_LIMIT, NO_DEVICE_LIMIT, source
+    return int(lim), int(lim * HEADROOM), source
+
+
+def plan_fleet(models, budget_bytes: Optional[int] = None,
+               accel: Optional[bool] = None, ledger=None,
+               device=None) -> FleetPlan:
+    """Elect per-model residency for a serving fleet on ``device``.
+
+    Greedy by priority ``weight / (1 + age_s)``, hot heavily-weighted
+    models first.  A model is admitted when its forest plus at least its
+    smallest bucket's program fit what the budget has left; further
+    buckets are admitted smallest first.  Models that do not fit are
+    evicted.  The budget is ``budget_bytes`` (the caller's limit) or the
+    card's (``fleet_limit_bytes``), ``HEADROOM`` applied either way.
+    ``ledger`` (the JAX package's residency ledger) is not ported."""
+    if ledger is not None:
+        raise NotImplementedError(
+            "plan_fleet(ledger=): the residency ledger is not ported to "
+            "lightgbm_tpu_torch yet; it waits for ROADMAP queue A11 "
+            "(residency ledger)")
+    if budget_bytes is not None:
+        limit, source = int(budget_bytes), "caller"
+        budget = int(limit * HEADROOM)
+    else:
+        limit, budget, source = fleet_limit_bytes(device)
+    models = list(models)
+
+    def prio(m) -> float:
+        return m.weight / (1.0 + max(m.age_s, 0.0))
+
+    order = sorted(range(len(models)), key=lambda i: (-prio(models[i]), i))
+    plans: dict = {}
+    used = 0
+    wanted = 0
+    for i in order:
+        m = models[i]
+        fb, prog = fleet_replica_bytes(m, accel)
+        ladder = sorted(prog)
+        wanted += fb + sum(prog.values())
+        if used + fb + prog[ladder[0]] > budget:
+            plans[i] = FleetModelPlan(m.name, False, (), fb, 0, prio(m))
+            continue
+        used += fb
+        taken, pb = [], 0
+        for b in ladder:
+            if used + prog[b] <= budget:
+                taken.append(b)
+                used += prog[b]
+                pb += prog[b]
+        plans[i] = FleetModelPlan(m.name, True, tuple(taken), fb, pb,
+                                  prio(m))
+    ordered = tuple(plans[i] for i in range(len(models)))
+    evicted = tuple(p.name for p in ordered if not p.resident)
+    return FleetPlan(
+        models=ordered, total_resident_bytes=used, budget_bytes=budget,
+        limit_bytes=limit, limit_source=source, evicted=evicted,
+        pressure=(wanted / budget) if budget > 0 else float("inf"),
+        feasible=not evicted)

@@ -17,7 +17,7 @@ card, its plain torch version on the CPU.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -319,10 +319,19 @@ class DeviceForest:
     widened back to f32 (``predict_kernels.full_threshold_f32``).
     ``routing_only`` uploads no leaf values: ``predict_raw`` then
     refuses, and ``predict_raw_padded`` gathers leaves on the host.
+    ``stored`` is this forest's entry of the AOT store (``fleet.aot``):
+    its packed records ``nodes``/``cats``, ``cat_words`` and, unless
+    routing-only, ``leaf_value`` are uploaded in place of packing them
+    and of the forest's own, and its ``epilogue`` ({num_class: verdict})
+    stands in for the probe.  ``aot_records_sha`` names the records it
+    came from (None for a forest built live).
     """
 
+    aot_records_sha: Optional[str] = None
+
     def __init__(self, forest: StackedForest, device,
-                 precision: str = "f32", routing_only: bool = False):
+                 precision: str = "f32", routing_only: bool = False,
+                 stored: Optional[dict] = None):
         if precision not in ("f32", "bf16", "int8"):
             raise ValueError(f"unknown DeviceForest precision {precision!r}")
         self.forest = forest
@@ -368,16 +377,23 @@ class DeviceForest:
         self.cat_offset = put(_int32_plane(f.cat_offset, "cat_offset"))
         self.cat_nwords = put(_int32_plane(f.cat_nwords, "cat_nwords"))
         # u32 words travel as int32 bit patterns (torch's uint32 is thin)
-        self.cat_words = put(np.ascontiguousarray(f.cat_words, np.uint32)
-                             .view(np.int32))
-        self.leaf_value = (None if routing_only
-                           else put(f.leaf_value.astype(np.float32)))
+        self.cat_words = put(
+            stored["cat_words"] if stored is not None else
+            np.ascontiguousarray(f.cat_words, np.uint32).view(np.int32))
+        self.leaf_value = (None if routing_only else put(
+            stored["leaf_value"] if stored is not None
+            else f.leaf_value.astype(np.float32)))
         # the kernel's packed node records; the planes above stay for the
         # plain version
-        self.nodes, self.cat_records = _pk.pack_nodes(self)
+        if stored is not None:
+            self.nodes = put(stored["nodes"])
+            self.cat_records = put(stored["cats"])
+        else:
+            self.nodes, self.cat_records = _pk.pack_nodes(self)
         self.num_trees = f.num_trees
         self.num_features = int(f.split_feature.max(initial=0)) + 1
-        self._epilogue_ok: dict = {}
+        self._epilogue_ok: dict = (dict(stored["epilogue"])
+                                   if stored is not None else {})
 
     def _to_device(self, X: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(X, np.float32)) \
@@ -422,8 +438,8 @@ class DeviceForest:
             self._epilogue_ok[K] = ok
         return bool(ok)
 
-    def predict_raw_padded(self, Xpad: np.ndarray,
-                           num_class: int = 1) -> np.ndarray:
+    def predict_raw_padded(self, Xpad: np.ndarray, num_class: int = 1,
+                           plans: Optional[dict] = None) -> np.ndarray:
         """Raw scores [K, rows] for ONE already-padded, bucket-shaped
         batch — the serving subsystem's entry point (serving/registry.py).
 
@@ -433,14 +449,19 @@ class DeviceForest:
         bit-identical to the host path.  When ``_epilogue_verified`` shows
         that the float32 pinned-order sum reproduces that host gather for
         this forest, the kernel sums the scores itself (scores mode) and
-        only [K, rows] leaves the device.
+        only [K, rows] leaves the device.  ``plans`` ({"leaves": ...,
+        "scores": ...} ``planner.TraversePlan``s, a stored program's) sets
+        B1's launch shape; None plans it for the batch.
         """
         X = self._to_device(Xpad)
+        plans = plans or {}
         if self._epilogue_verified(num_class):
             K = max(num_class, 1)
-            return _pk.fused_traverse(self, X, K, emit_scores=True) \
+            return _pk.fused_traverse(self, X, K, emit_scores=True,
+                                      plan=plans.get("scores")) \
                 .cpu().numpy().astype(np.float64)
-        leaves = self._leaves(X).cpu().numpy()
+        leaves = _pk.fused_traverse(self, X, plan=plans.get("leaves")) \
+            .cpu().numpy()
         return gather_leaf_sum(self.forest, leaves, num_class)
 
     def predict_raw(self, X: np.ndarray, num_class: int = 1) -> np.ndarray:

@@ -14,14 +14,16 @@ Module map: ``server`` (facade: submit/apredict/deadlines/backpressure/
 hot-swap/drain), ``batcher`` (micro-batch scheduler + bucket ladder),
 ``registry`` (program LRU + the active model + swap probe/quarantine),
 ``loadgen`` (concurrent load generator with bit-exact verification),
-``errors`` (typed rejections); the metrics registry is ``obs.metrics``
-and low-precision models come from ``fleet.lowprec``.
+``errors`` (typed rejections); the metrics registry is ``obs.metrics``,
+low-precision models come from ``fleet.lowprec``, and many models
+behind one front door are ``fleet.Fleet`` and ``fleet.PodFleet``.
 """
 
 from ..obs.metrics import MetricsRegistry
 from .batcher import BucketLadder
-from .errors import (DeadlineExceeded, LowPrecisionQuarantined, QueueFull,
-                     ServerClosed, ServingError, SwapQuarantined)
+from .errors import (DeadlineExceeded, DeviceLost, LowPrecisionQuarantined,
+                     ModelNotFound, QueueFull, ServerClosed, ServingError,
+                     SwapQuarantined)
 from .registry import (CompiledModel, ModelRegistry, ProgramRegistry,
                        forest_digest)
 from .server import Server, ServingConfig
@@ -30,5 +32,6 @@ __all__ = [
     "Server", "ServingConfig", "BucketLadder", "MetricsRegistry",
     "ProgramRegistry", "ModelRegistry", "CompiledModel", "forest_digest",
     "ServingError", "QueueFull", "DeadlineExceeded", "ServerClosed",
-    "SwapQuarantined", "LowPrecisionQuarantined",
+    "SwapQuarantined", "LowPrecisionQuarantined", "ModelNotFound",
+    "DeviceLost",
 ]

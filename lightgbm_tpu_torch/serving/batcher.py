@@ -150,6 +150,13 @@ class MicroBatcher:
         self.metrics.gauge("queue_depth_items").set(
             len(self._q) + (1 if self._carry is not None else 0))
 
+    def queued_rows(self) -> int:
+        """Rows occupying the queue, the carried item included: the
+        fleet's weighted-admission input (``fleet/registry.py``).  A
+        plain int read, atomic under the GIL, lock-free on the submit
+        path."""
+        return self._queued_rows
+
     # ------------------------------------------------------------- enqueue
 
     def submit_items(self, items: List[WorkItem]) -> None:

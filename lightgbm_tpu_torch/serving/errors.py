@@ -3,8 +3,8 @@
 All inherit LightGBMError so callers' except clauses still catch them,
 with distinct types for the three rejection reasons the
 backpressure/deadline/shutdown semantics need and for a hot-swap
-candidate held back by its probe.  ``ModelNotFound`` and ``DeviceLost``
-of the JAX package belong to its serving fleet (ROADMAP queue A6).
+candidate held back by its probe; ``ModelNotFound`` and ``DeviceLost``
+are the serving fleet's (``fleet/``).
 """
 
 from ..utils.log import LightGBMError
@@ -41,3 +41,16 @@ class LowPrecisionQuarantined(SwapQuarantined):
     its declared ``accuracy_budget`` and it was NOT promoted
     (``registry.ModelRegistry._probe_lowprec``).  A subclass of
     SwapQuarantined, so quarantine handlers catch it too."""
+
+
+class ModelNotFound(ServingError):
+    """A fleet request named a model the registry does not hold
+    (``fleet/registry.py``): a routing error, not an overload."""
+
+
+class DeviceLost(ServingError):
+    """A serving device of a pod fleet is gone (vanished, wedged or
+    declared dead by its health).  Retriable by construction: replicas
+    serve bit-identical scores, so the router re-dispatches the request
+    to a surviving replica instead of surfacing this to the caller
+    (``fleet/router.py``)."""

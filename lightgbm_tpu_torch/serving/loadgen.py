@@ -6,14 +6,16 @@ counts and client-side latencies; it is not a benchmark harness.
 **Shadow mode**: a ``mirror_fraction`` sample of live requests is
 replayed against a candidate server, and the summary's ``shadow``
 section reports the raw-score drift and latency deltas, counted apart
-from the live path.  The JAX package's ``fire_fleet_requests`` drives
-its serving fleet (ROADMAP queue A6).
+from the live path.  ``fire_fleet_requests`` drives a ``fleet.Fleet``
+or ``fleet.PodFleet`` with a weighted mix of models, counting typed
+sheds, expiries and failures and the availability they leave.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -181,4 +183,144 @@ def _latency_summary(lat_ms: list) -> dict:
         "p90": round(float(np.percentile(a, 90)), 3),
         "p99": round(float(np.percentile(a, 99)), 3),
         "max": round(float(a.max()), 3),
+    }
+
+
+def fire_fleet_requests(fleet, mix: dict, n_requests: int, n_threads: int,
+                        max_request_rows: int, verify: Optional[dict] = None,
+                        timeout: float = 300.0, seed: int = 100) -> dict:
+    """Multi-model traffic storm against a ``fleet.Fleet`` or
+    ``fleet.PodFleet``.
+
+    ``mix`` maps model name -> traffic weight: every request picks its
+    model by weighted draw (one mixed workload, not N single-model
+    storms).  Sheds
+    (``QueueFull`` — the fleet's weighted-admission or brownout
+    verdict) and deadline expiries (``DeadlineExceeded`` — the model's
+    SLO class rejecting queue-aged work) are counted per model, NOT as
+    errors: under deliberate overload both are the correct, typed
+    behavior.  Any OTHER per-request failure is a typed-``failed``
+    outcome — counted, recorded, and the storm continues, so a failover
+    drill measures exactly how many requests a lost device cost instead
+    of losing a whole thread's numbers.  ``verify`` maps model name ->
+    ``StackedForest``; every verified response must be bit-equal to its
+    ``predict_raw`` (the serving contract; for a low-precision model pass
+    its quantized forest).
+
+    The summary carries per-model request/row counts, CLIENT-measured
+    latency percentiles, per-outcome counts (``outcomes``:
+    completed/shed/expired/failed), and **availability** = 1 −
+    failed / (completed + failed) — typed shed/expired excluded from
+    both sides, because rejecting work you cannot serve on time is
+    correct behavior, not unavailability (None before any non-typed
+    outcome).
+    """
+    from .errors import DeadlineExceeded, QueueFull
+
+    names = sorted(mix)
+    w = np.asarray([float(mix[n]) for n in names], np.float64)
+    p = w / w.sum()
+    feats = {n: fleet.entry(n).model.num_features for n in names}
+    classes = {n: fleet.entry(n).model.num_class for n in names}
+    per_thread = n_requests // n_threads
+    lock = threading.Lock()
+    per_model = {n: {"requests": 0, "rows": 0, "shed": 0, "expired": 0,
+                     "failed": 0, "lat_ms": [], "mismatches": 0}
+                 for n in names}
+    errors: list = []
+    failures: list = []
+
+    def worker(tidx: int) -> None:
+        r = np.random.RandomState(seed + tidx)
+        try:
+            for _ in range(per_thread):
+                name = names[int(r.choice(len(names), p=p))]
+                m = int(r.randint(1, max_request_rows + 1))
+                Xr = r.randn(m, feats[name]).astype(np.float32) \
+                    .astype(np.float64)
+                t0 = time.perf_counter()
+                try:
+                    out = fleet.predict(name, Xr, timeout=timeout)
+                except QueueFull:
+                    with lock:
+                        per_model[name]["shed"] += 1
+                    continue
+                except DeadlineExceeded:
+                    with lock:
+                        per_model[name]["expired"] += 1
+                    continue
+                except Exception as e:  # noqa: BLE001 — a failed request
+                    with lock:          # is an OUTCOME, not a dead thread
+                        per_model[name]["failed"] += 1
+                        failures.append(
+                            f"thread {tidx} [{name}]: "
+                            f"{type(e).__name__}: {str(e)[:200]}")
+                    continue
+                lat = (time.perf_counter() - t0) * 1e3
+                ok = True
+                if verify is not None and name in verify:
+                    K = classes[name]
+                    ref = verify[name].predict_raw(Xr, num_class=K)
+                    ok = np.array_equal(out, ref[0] if K == 1 else ref.T)
+                with lock:
+                    s = per_model[name]
+                    s["requests"] += 1
+                    s["rows"] += m
+                    s["lat_ms"].append(lat)
+                    if not ok:
+                        s["mismatches"] += 1
+        except Exception as e:  # a dead thread must not bank clean numbers
+            errors.append(
+                f"thread {tidx}: {type(e).__name__}: {str(e)[:200]}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+
+    def availability(completed: int, failed: int):
+        return (None if completed + failed == 0
+                else round(1.0 - failed / (completed + failed), 6))
+
+    models_out = {}
+    for n in names:
+        s = per_model[n]
+        models_out[n] = {
+            "weight": float(mix[n]),
+            "requests": s["requests"],
+            "rows": s["rows"],
+            "shed": s["shed"],
+            "expired": s["expired"],
+            "failed": s["failed"],
+            "availability": availability(s["requests"], s["failed"]),
+            "mismatches": s["mismatches"],
+            "latency_ms": _latency_summary(s["lat_ms"]),
+        }
+    completed = sum(s["requests"] for s in per_model.values())
+    failed = sum(s["failed"] for s in per_model.values())
+    shed = sum(s["shed"] for s in per_model.values())
+    expired = sum(s["expired"] for s in per_model.values())
+    return {
+        "requests": completed,
+        "requests_planned": per_thread * n_threads,
+        "rows": sum(s["rows"] for s in per_model.values()),
+        "shed": shed,
+        "expired": expired,
+        "failed": failed,
+        "outcomes": {"completed": completed, "shed": shed,
+                     "expired": expired, "failed": failed},
+        "availability": availability(completed, failed),
+        # client latencies over every model (the JAX summary has only the
+        # per-model ones)
+        "latency_ms": _latency_summary(
+            [v for s in per_model.values() for v in s["lat_ms"]]),
+        "mismatches": sum(s["mismatches"] for s in per_model.values()),
+        "wall_seconds": wall,
+        "errors": errors,
+        "failures": failures,
+        "models": models_out,
     }

@@ -4,12 +4,18 @@
 
 ``ProgramRegistry`` is an LRU of predict callables keyed
 ``(digest, bucket_rows, num_class)``; a miss builds the callable and
-counts ``bucket_misses``, a hit counts ``bucket_hits``, and an entry
-pushed out past ``max_programs`` counts ``program_evictions``.  PyTorch
-runs eagerly, so a program is a closure over the model's
-``DeviceForest``: eviction frees no device memory, which the model
-holds until its last request completes.  ``seen_buckets`` (every
-(bucket, num_class) shape served) is the warm set of a swap.
+counts ``bucket_misses`` and, by where the program came from, the JAX
+package's ``compile_events`` (built from the forest),
+``aot_program_loads`` (restored from the fleet's AOT store,
+``fleet/aot.py``, on a device forest built from the stored records) or ``host_fallback_builds`` (built while the model
+was evicted); a hit counts ``bucket_hits``, and an entry pushed out
+past ``max_programs`` counts ``program_evictions``.  PyTorch runs
+eagerly, so a program is a closure over its ``CompiledModel`` that
+reads the model's ``DeviceForest`` at call time: a model whose device
+tensors the fleet dropped (``drop_device``) serves through the
+bit-identical host path and its programs hold none of its memory.
+``seen_buckets`` (every (bucket, num_class) shape served) is the warm
+set of a swap.
 
 ``ModelRegistry`` owns the serving pointer.  ``swap()`` builds the new
 model, runs a probe batch through it (a raise or a non-finite score
@@ -20,8 +26,7 @@ Requests are pinned to the model they were admitted against
 (server.py), so a swap never drops, corrupts or mixes generations of
 in-flight work.  A quarantine dumps a flight-recorder bundle
 (``obs.flight``; the JAX package's serving/registry.py:339-346) before
-its error is raised.  The JAX package also keeps AOT programs and can
-evict a model's device arrays for the fleet (ROADMAP queue A6).
+its error is raised.
 """
 
 from __future__ import annotations
@@ -56,14 +61,21 @@ class CompiledModel:
     ``precision`` ("bf16" / "int8") serves the quantized twin
     (``fleet.lowprec.quantize_forest``): its own digest, leaves gathered
     on the host, a routing-only device forest on the narrowed grid;
-    ``forest_full`` keeps the exact forest for the accuracy probe."""
+    ``forest_full`` keeps the exact forest for the accuracy probe.
+    ``aot`` is an optional ``fleet.aot.AOTStore`` consulted before a
+    bucket program is built.  The device tensors are evictable
+    (``drop_device``/``restore_device``, driven by the fleet's
+    residency plan): programs read the pointer at call time and take
+    the bit-identical host path while the model is evicted."""
 
     def __init__(self, booster, backend: str = "device",
                  num_iteration: Optional[int] = None,
-                 start_iteration: int = 0, precision: str = "f32"):
+                 start_iteration: int = 0, precision: str = "f32",
+                 aot=None):
         self.booster = booster
         self.backend = backend
         self.precision = precision
+        self.aot = aot
         K = max(booster.num_tree_per_iteration, 1)
         self.num_class = K
         n_total_iter = len(booster.models) // K
@@ -80,43 +92,108 @@ class CompiledModel:
             self.forest = self.forest_full
         self.num_features = booster.num_features()
         self.device_forest = None
-        if backend == "device":
-            if precision == "f32":
-                # share Booster.predict's cached DeviceForest: one upload
-                self.device_forest = booster._device_forest(self.forest)
-            else:
-                from ..predict import DeviceForest
-                self.device_forest = DeviceForest(
-                    self.forest, booster.device, precision=precision,
-                    routing_only=True)
         self.digest = forest_digest(self.forest)
         self.average_output = bool(booster.average_output)
+        if backend == "device":
+            self.restore_device()
+
+    # --------------------------------------------------------- device state
+
+    def restore_device(self) -> None:
+        """(Re-)upload the device forest; a no-op off the device backend
+        or when it is resident.  With an AOT store the forest is built
+        from the model's stored records and epilogue verdict where the
+        store has them (``fleet.aot``), else packed and probed live."""
+        if self.backend != "device" or self.device_forest is not None:
+            return
+        f32 = self.precision == "f32"
+        cache = getattr(self.booster, "_device_forest_cache", None)
+        if f32 and cache is not None and cache[0] is self.forest:
+            # share Booster.predict's DeviceForest: one upload
+            self.device_forest = cache[1]
+            return
+        dev = None
+        if self.aot is not None:
+            dev = self.aot.restore_device_forest(
+                self.forest, self.digest, self.booster.device,
+                num_class=self.num_class, precision=self.precision,
+                routing_only=not f32)
+        if f32:
+            if dev is None:
+                dev = self.booster._device_forest(self.forest)
+            else:
+                self.booster._device_forest_cache = (self.forest, dev)
+        elif dev is None:
+            from ..predict import DeviceForest
+            dev = DeviceForest(self.forest, self.booster.device,
+                               precision=self.precision, routing_only=True)
+        self.device_forest = dev
+
+    def drop_device(self) -> None:
+        """Release the device forest (fleet eviction) and the Booster's
+        cached one with it.  Serving goes on through the host path,
+        bit-identical for the same inputs, until ``restore_device``."""
+        dropped, self.device_forest = self.device_forest, None
+        cache = getattr(self.booster, "_device_forest_cache", None)
+        if (cache is not None and dropped is not None
+                and cache[1] is dropped):
+            self.booster._device_forest_cache = None
 
     def make_program(self, bucket_rows: int) -> Callable:
         """Predict callable for one bucket shape: [bucket, F] float64
-        padded batch -> raw scores [K, bucket] float64.
+        padded batch -> raw scores [K, bucket] float64: restored from
+        the AOT store where it holds the bucket (``fleet.aot``), else
+        built (``program``)."""
+        if self.backend == "device" and self.aot is not None:
+            from ..fleet.aot import make_aot_program
+            prog = make_aot_program(self.aot, self, bucket_rows)
+            if prog is not None:
+                return prog
+        return self.program()
 
-        Both backends are bit-identical to ``StackedForest.predict_raw``
-        of the SERVED forest (the quantized twin under low precision) per
-        row: "host" unconditionally (it IS predict_raw on the padded
-        batch), "device" for float32-precision feature values (the
-        DeviceForest's routing-exactness domain; leaf values are summed
-        on the host in float64 in the order of predict_raw).
+    def program(self, plans: Optional[dict] = None) -> Callable:
+        """The predict callable.  Both backends are bit-identical to
+        ``StackedForest.predict_raw`` of the SERVED forest (the quantized
+        twin under low precision) per row: "host" unconditionally (it IS
+        predict_raw on the padded batch), "device" for float32-precision
+        feature values (the DeviceForest's routing-exactness domain; leaf
+        values are summed on the host in float64 in the order of
+        predict_raw, or on the card where its epilogue probe proved that
+        bit-exact).  ``plans`` are a stored program's B1 launch plans
+        (the program is then tagged ``aot``); a program built while the
+        model is evicted is tagged ``host_fallback``.
         """
         K = self.num_class
+        forest = self.forest
         if self.backend == "host":
-            forest = self.forest
 
             def run(Xpad: np.ndarray) -> np.ndarray:
                 return forest.predict_raw(Xpad, num_class=K)
 
             return run
-        dev = self.device_forest
+        model = self
 
         def run(Xpad: np.ndarray) -> np.ndarray:
-            return dev.predict_raw_padded(Xpad, num_class=K)
+            # read at call time: an evicted model's programs route on the
+            # host and keep none of its device memory
+            dev = model.device_forest
+            if dev is None:
+                return forest.predict_raw(Xpad, num_class=K)
+            return dev.predict_raw_padded(Xpad, num_class=K, plans=plans)
 
+        run.aot = plans is not None
+        run.host_fallback = self.device_forest is None
         return run
+
+    def export_aot(self, store, buckets) -> int:
+        """Write this model's bucket programs for ``buckets`` into
+        ``store`` (``fleet.aot.AOTStore``); returns the entries written
+        (0 while evicted)."""
+        if self.device_forest is None:
+            return 0
+        return store.export_device_forest(
+            self.device_forest, self.num_features, buckets, self.digest,
+            num_class=self.num_class)
 
     def measure_accuracy(self, X: np.ndarray) -> float:
         """max |served raw - full-precision raw| over probe rows ``X``
@@ -161,17 +238,36 @@ class ProgramRegistry:
                 self._lru.move_to_end(key)
                 self.metrics.counter("bucket_hits").inc()
                 return prog
-            prog = self._lru[key] = model.make_program(bucket_rows)
+        # built outside the lock: a restore reads the AOT store and a
+        # build may probe the forest; other buckets must not wait on it
+        prog = model.make_program(bucket_rows)
+        with self._lock:
+            race = self._lru.get(key)
+            if race is not None:
+                self._lru.move_to_end(key)
+                self.metrics.counter("bucket_hits").inc()
+                return race
+            self._lru[key] = prog
             self.seen_buckets.add((bucket_rows, model.num_class))
             self.metrics.counter("bucket_misses").inc()
+            if getattr(prog, "aot", False):
+                # restored from the AOT store (the cold-start
+                # discriminator)
+                self.metrics.counter("aot_program_loads").inc()
+            elif getattr(prog, "host_fallback", False):
+                # a device program built while the model is evicted
+                self.metrics.counter("host_fallback_builds").inc()
+            else:
+                self.metrics.counter("compile_events").inc()
             while len(self._lru) > self.max_programs:
                 self._lru.popitem(last=False)
                 self.metrics.counter("program_evictions").inc()
         return prog
 
     def evict_model(self, digest: str) -> int:
-        """Drop every cached program of one model digest; returns the
-        number evicted."""
+        """Drop every cached program of one model digest (a fleet
+        eviction or restore: the next ``get`` rebuilds against the
+        model's current state); returns the number evicted."""
         with self._lock:
             keys = [k for k in self._lru if k[0] == digest]
             for k in keys:
@@ -208,8 +304,10 @@ class ModelRegistry:
                  backend: str = "device",
                  num_iteration: Optional[int] = None,
                  start_iteration: int = 0, precision: str = "f32",
-                 accuracy_budget: Optional[float] = None, probe_X=None):
+                 accuracy_budget: Optional[float] = None, probe_X=None,
+                 aot=None):
         self.programs = programs
+        self.aot = aot
         self.metrics = metrics
         self.backend = backend
         self.precision = precision
@@ -220,7 +318,7 @@ class ModelRegistry:
         self._active = CompiledModel(booster, backend=backend,
                                      num_iteration=num_iteration,
                                      start_iteration=start_iteration,
-                                     precision=precision)
+                                     precision=precision, aot=aot)
         # a low-precision model meets its budget before it ever serves
         self._probe_lowprec(self._active)
         metrics.gauge("active_model_digest").set(self._active.digest)
@@ -314,7 +412,7 @@ class ModelRegistry:
         new = CompiledModel(booster, backend=self.backend,
                             num_iteration=num_iteration,
                             start_iteration=start_iteration,
-                            precision=self.precision)
+                            precision=self.precision, aot=self.aot)
         # ticket taken at CALL time: two block=False swaps whose threads
         # take the lock out of order still converge on the later call's
         # model

@@ -74,8 +74,8 @@ class ServingConfig:
     precision: str = "f32"
     accuracy_budget: Optional[float] = None
     probe_X: Optional[object] = None
-    # the JAX package's AOT program cache: not ported yet (ROADMAP
-    # queue A6)
+    # the AOT store of bucket programs (fleet/aot.py); None follows
+    # LGBM_TPU_COMPILE_CACHE/serving, "" / "off" disables
     aot_dir: Optional[str] = None
     # the batcher thread's liveness heartbeat (obs.watchdog); a fleet
     # of servers gives each its own name
@@ -87,10 +87,14 @@ class ServingConfig:
         if self.precision not in ("f32", "bf16", "int8"):
             raise ValueError(f"unknown serving precision "
                              f"{self.precision!r}")
-        if self.aot_dir is not None and str(self.aot_dir).strip().lower() \
-                not in ("", "0", "off", "none"):
-            raise NotImplementedError(
-                "AOT serving programs (aot_dir) wait for ROADMAP queue A6")
+
+
+def as_booster(booster_or_path, device):
+    """A Booster as given, or a model file loaded onto ``device``."""
+    from ..basic import Booster
+    if isinstance(booster_or_path, Booster):
+        return booster_or_path
+    return Booster(model_file=str(booster_or_path), device=device)
 
 
 class _Request:
@@ -170,13 +174,14 @@ class Server:
                                    config.max_batch_rows)
         self.programs = ProgramRegistry(self.metrics,
                                         max_programs=config.max_programs)
+        self.aot = self._resolve_aot(config.aot_dir)
         self.models = ModelRegistry(
             booster, self.programs, self.metrics, backend=config.backend,
             num_iteration=config.num_iteration,
             start_iteration=config.start_iteration,
             precision=config.precision,
             accuracy_budget=config.accuracy_budget,
-            probe_X=config.probe_X)
+            probe_X=config.probe_X, aot=self.aot)
         self._batcher = MicroBatcher(
             self.ladder, self._run_batch, self.metrics,
             batch_window_ms=config.batch_window_ms,
@@ -199,6 +204,29 @@ class Server:
             self._wd_hist, self.metrics.histogram("request_latency_ms"))
         _wd_from_env()
         _http_from_env()
+
+    @staticmethod
+    def _resolve_aot(aot_dir):
+        """The AOT store of bucket programs (``fleet/aot.py``): an
+        explicit directory wins; None follows
+        ``LGBM_TPU_COMPILE_CACHE``/serving; "" / "0" / "off" / "none"
+        disables."""
+        from ..fleet.aot import AOTStore, aot_dir_from_env
+        if aot_dir is None:
+            aot_dir = aot_dir_from_env()
+        elif not str(aot_dir).strip() or \
+                str(aot_dir).strip().lower() in ("0", "off", "none"):
+            aot_dir = None
+        return AOTStore(aot_dir) if aot_dir else None
+
+    def _ladder_rows(self, buckets) -> set:
+        """Row counts mapped through the bucket ladder (default: the
+        whole ladder): traffic only ever meets bucket shapes.  Shared by
+        ``warm`` and ``export_aot``, so the exported buckets are the
+        warmed ones."""
+        return {self.ladder.bucket_for(min(b, self.ladder.max_rows))
+                for b in (buckets if buckets is not None
+                          else self.ladder.buckets)}
 
     # --------------------------------------------------------------- submit
 
@@ -338,17 +366,23 @@ class Server:
         ladder, so the first real requests pay no kernel build or first
         launch.  Returns the number of buckets warmed."""
         model = self.models.active
-        rows = {self.ladder.bucket_for(min(b, self.ladder.max_rows))
-                for b in (buckets if buckets is not None
-                          else self.ladder.buckets)}
+        rows = self._ladder_rows(buckets)
         return self.programs.warm(model,
                                   {(b, model.num_class) for b in rows})
 
     def export_aot(self, path: Optional[str] = None, buckets=None) -> int:
-        """The JAX package serializes its bucket programs here; on the
-        card that is one captured graph a bucket, ROADMAP queue A6."""
-        raise NotImplementedError(
-            "AOT serving programs (export_aot) wait for ROADMAP queue A6")
+        """Write the active model's bucket programs for ``buckets``
+        (default: the whole ladder) into the AOT store at ``path`` (else
+        the configured one), so a fresh replica restores them instead of
+        building them (``fleet/aot.py``).  Returns the entries written."""
+        from ..fleet.aot import AOTStore
+        store = AOTStore(path) if path is not None else self.aot
+        if store is None:
+            raise ServingError(
+                "no AOT store configured: pass path=, set aot_dir, or "
+                "set LGBM_TPU_COMPILE_CACHE")
+        return self.models.active.export_aot(store,
+                                             self._ladder_rows(buckets))
 
     # ------------------------------------------------------------- hot swap
 
@@ -373,11 +407,8 @@ class Server:
             start_iteration=self.config.start_iteration)
 
     def _as_booster(self, booster_or_path):
-        from ..basic import Booster
-        if isinstance(booster_or_path, Booster):
-            return booster_or_path
-        return Booster(model_file=str(booster_or_path),
-                       device=self.models.active.booster.device)
+        return as_booster(booster_or_path,
+                          self.models.active.booster.device)
 
     # ------------------------------------------------------------- lifecycle
 

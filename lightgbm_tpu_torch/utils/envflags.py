@@ -55,6 +55,10 @@ FLAGS: Dict[str, EnvFlag] = {f.name: f for f in [
        "directory for the spill blockstore (default: a tmpdir)"),
     _f("LGBM_TPU_CHUNK", "", "boosting/macro.py",
        "macro-chunk size override ('0'/'off' disables chunking)"),
+    # ------------------------------------------------------ serving fleet
+    _f("LGBM_TPU_COMPILE_CACHE", "", "fleet/aot.py",
+       "<dir>/serving is the AOT store of serving bucket programs "
+       "('0'/'off'/'none' disables)"),
     # ------------------------------------------------------ observability
     _f("LIGHTGBM_TPU_TIMETAG", "", "utils/timer.py",
        "'1' timer table at exit; 'json'/'json:<path>' machine form"),

@@ -14,7 +14,6 @@ from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 
 # the JAX package's public names that belong to modules not ported yet
 UNPORTED = {
-    "fleet": "A6", "Fleet": "A6", "PodFleet": "A6",
     "lifecycle": "A12", "LifecycleController": "A12",
     "multi": "A12", "train_many": "A12", "expand_param_grid": "A12",
     "coresident": "A12",
@@ -27,10 +26,12 @@ def test_every_public_name_resolves_or_is_unported():
     assert missing == []
     for n in UNPORTED:
         assert n in lgb.__all__ and n not in lt.__all__, n
-        # the port's fleet package holds only fleet.lowprec (queue A5),
-        # which serving imports, so the submodule is an attribute
-        assert n == "fleet" or not hasattr(lt, n), n
+        assert not hasattr(lt, n), n
     assert set(lgb.__all__) - set(UNPORTED) <= set(lt.__all__)
+    # the serving fleet (queue A6) resolves to the port's own classes
+    from lightgbm_tpu_torch.fleet import registry, router
+    assert lt.Fleet is registry.Fleet and lt.PodFleet is router.PodFleet
+    assert set(lgb.fleet.__all__) <= set(lt.fleet.__all__)
 
 
 def test_public_names_are_the_ports_own():

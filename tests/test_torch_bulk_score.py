@@ -200,11 +200,14 @@ def test_bulk_refuses_non_f32_store_and_other_queues(tmp_path,
                               np.zeros((64, 3), np.uint8), block_rows=32)
     with pytest.raises(ValueError, match="float32"):
         BulkScorer(dev, q, str(tmp_path / "sink"))
-    for kw, queue in (({"aot_store": object()}, "A6"),
-                      ({"ledger": object()}, "A11"),
-                      ({"devices": 2}, "A6")):
-        with pytest.raises(NotImplementedError, match=queue):
-            BulkScorer(dev, store, str(tmp_path / "sink"), **kw)
+    with pytest.raises(NotImplementedError, match="A11"):
+        BulkScorer(dev, store, str(tmp_path / "sink"), ledger=object())
+    # a device count is planned through fleet.topology (the JAX package's
+    # plan_devices), and a store is taken (fleet.aot)
+    from lightgbm_tpu_torch.fleet import AOTStore, plan_devices
+    s = BulkScorer(dev, store, str(tmp_path / "sink"), devices=2,
+                   aot_store=AOTStore(str(tmp_path / "aot")))
+    assert s.devices == plan_devices(2)
 
 
 def test_bulk_sharded_run_scores_only_its_blocks(scoring_setup):
@@ -222,3 +225,64 @@ def test_bulk_sharded_run_scores_only_its_blocks(scoring_setup):
     s1 = BulkScorer(dev, store, sink, devices=devs, local_device_id=1).run()
     assert s1["complete"]
     assert s0["blocks_scored"] + s1["blocks_scored"] == store.num_blocks
+
+
+def test_plan_block_shards_equals_the_jax_package():
+    from lightgbm_tpu.data.score import plan_block_shards as jshards
+    from lightgbm_tpu.fleet.topology import plan_devices as jplan
+    from lightgbm_tpu_torch.fleet import plan_devices
+    for n in range(1, 6):
+        for blocks in (0, 1, 7, 12):
+            assert plan_block_shards(blocks, plan_devices(n)) == \
+                jshards(blocks, jplan(n))
+    mixed = [(1, 10), (0, 20), (1, 11), (2, 5)]      # (slice, device)
+    want = jshards(9, [_jax_spec(sl, d) for sl, d in mixed])
+    assert plan_block_shards(9, [DeviceSpec(sl, d) for sl, d in mixed]) \
+        == want
+
+
+def _jax_spec(slice_id, device_id):
+    from lightgbm_tpu.fleet.topology import DeviceSpec as JDeviceSpec
+    return JDeviceSpec(device_id, slice_id)
+
+
+def test_bulk_two_devices_restore_the_stored_program_bit_for_bit(
+        scoring_setup, tmp_path):
+    """``BulkScorer(devices=2, aot_store=)``: the first run scores live
+    and stores the block bucket's program, the resumed runs restore it
+    ("aot", the epilogue verdict taken from the store on a fresh
+    forest), the two participants together complete the sink, and every
+    block equals an uninterrupted live run and
+    ``Booster.predict(raw_score=True, device=False)``."""
+    from lightgbm_tpu_torch.fleet import AOTStore
+    root, bst, forest, store, X = scoring_setup
+    dev = DeviceForest(forest, "cpu")
+    aot = AOTStore(str(tmp_path / "aot"))
+    live = str(tmp_path / "live")
+    BulkScorer(dev, store, live).run()
+    sink = str(tmp_path / "sharded")
+    s0 = BulkScorer(dev, store, sink, devices=2, local_device_id=0,
+                    aot_store=aot).run(max_blocks=1)
+    digest = BulkScorer(dev, store, sink).digest
+    assert s0["program_source"] == "live"
+    assert aot.buckets_for(digest) == [BLOCK_ROWS]
+    from lightgbm_tpu_torch.fleet.aot import make_bulk_program
+    fresh = DeviceForest(forest, "cpu")
+    _prog, source = make_bulk_program(fresh, store.num_cols, BLOCK_ROWS,
+                                      digest, aot)
+    assert source == "aot" and fresh._epilogue_ok == dev._epilogue_ok
+    s0b = BulkScorer(DeviceForest(forest, "cpu"), store, sink, devices=2,
+                     local_device_id=0, aot_store=aot).run()
+    s1 = BulkScorer(DeviceForest(forest, "cpu"), store, sink, devices=2,
+                    local_device_id=1, aot_store=aot).run()
+    assert s0b["program_source"] == s1["program_source"] == "aot"
+    assert s0b["skipped_blocks"] == 1 and s1["complete"]
+    assert s0["blocks_scored"] + s0b["blocks_scored"] + \
+        s1["blocks_scored"] == store.num_blocks
+    for f in sorted(os.listdir(live)):
+        assert filecmp.cmp(os.path.join(live, f), os.path.join(sink, f),
+                           shallow=False), f
+    got = _banked(sink, store, digest)
+    assert np.array_equal(got[0], bst.predict(X.astype(np.float64),
+                                              raw_score=True, device=False))
+

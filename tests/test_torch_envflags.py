@@ -68,8 +68,6 @@ SKIPPED = {
                               "is INGEST_CHUNK_ROWS"),
     "LGBM_TPU_FREE_BINNED": (_TPU, "frees the host binned copy; the port "
                              "keeps none"),
-    "LGBM_TPU_COMPILE_CACHE": (_TPU, "the XLA compile cache "
-                               "(utils/platform.py, skipped on purpose)"),
     "LGBT_DEFER_HOST_TREES": ("unported", "the deferred host-tree fetch: "
                               "ROADMAP P1 (step 3)"),
     "LGBM_TPU_HIER_REDUCE": ("unported", "hybrid two-tier groups: ROADMAP "

@@ -50,7 +50,9 @@ def test_import_pulls_in_no_jax():
                 "tools.torch_dist_check", "data", "data.blockstore",
                 "data.stream", "data.score", "obs", "obs.trace",
                 "obs.flight", "obs.watchdog", "obs.http",
-                "serving.metrics", "utils.envflags", "utils.timer"):
+                "serving.metrics", "utils.envflags", "utils.timer",
+                "fleet.aot", "fleet.registry", "fleet.router",
+                "fleet.topology", "resilience", "resilience.faults"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
@@ -64,6 +66,10 @@ def test_default_device_is_cuda_and_never_falls_back():
     with pytest.raises(RuntimeError, match="CUDA"):
         lt.Booster(model_str=text, device="cuda")
     assert lt.Booster(model_str=text, device="cpu").device.type == "cpu"
+    # the serving fleet's default device is the card too
+    for make in (lt.Fleet, lt.PodFleet):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_data_plane_never_falls_back_to_the_cpu(tmp_path):
@@ -164,6 +170,36 @@ def test_sentry_and_http_threads_are_daemons_that_end_on_stop():
     srv.stop()
     assert not any(t.is_alive() for t in threads) and not wd.running
     assert threading.active_count() == before
+
+
+def test_pod_fleet_threads_are_daemons_that_end_on_close():
+    """A ``PodFleet``'s health sweep is a daemon thread, its host-path
+    fallback pool and its device fleets' batchers are host threads, and
+    ``close()`` ends every one of them within a timeout."""
+    import threading
+    import time
+
+    import numpy as np
+    before = {t.ident for t in threading.enumerate()}
+    pod = lt.PodFleet(devices=2, device="cpu", max_batch_rows=16)
+    b = lt.Booster(model_str=synthetic_model_text(4, 3, 6, seed=2),
+                   device="cpu")
+    pod.add_model("m", b)
+    assert pod.predict("m", np.zeros((3, 4)), timeout=30).shape == (3,)
+    pod._fallback_pool.submit(lambda: None).result(timeout=30)
+    health = pod._health_thread
+    pool = list(pod._fallback_pool._threads)
+    assert health.daemon and health.is_alive()
+    assert health.name == "lgbt-pod-health" and pool
+    started = [t for t in threading.enumerate() if t.ident not in before]
+    assert health in started and set(pool) <= set(started)
+    pod.close(timeout=10)
+    deadline = time.monotonic() + 10
+    while any(t.is_alive() for t in started) and \
+            time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert not any(t.is_alive() for t in started), \
+        [t.name for t in started if t.is_alive()]
 
 
 def test_fingerprint_starts_no_cuda_context(monkeypatch):

@@ -335,17 +335,23 @@ def test_prometheus_text_equals_the_jax_rendering():
     assert texts[0] == texts[1]
 
 
-def test_unported_config_fields_raise(binary_booster):
-    with pytest.raises(NotImplementedError, match="A6"):
-        binary_booster.serve(aot_dir="/nonexistent")
+def test_unported_config_fields_raise(binary_booster, tmp_path):
+    # the AOT store is ported (fleet.aot): an absent directory is a miss
+    with binary_booster.serve(aot_dir=str(tmp_path / "none")) as srv:
+        assert srv.aot is not None and srv.aot.entries() == []
+        srv.predict(np.zeros((2, srv.models.active.num_features)),
+                    timeout=30)
+        assert srv.metrics_dict()["counters"]["compile_events"] == 1
     # the batcher's heartbeat is ported (obs.watchdog): the name is taken
     from lightgbm_tpu_torch.obs import global_watchdog
     with binary_booster.serve(heartbeat_name="replica0") as srv:
         srv.predict(np.zeros((2, srv.models.active.num_features)),
                     timeout=30)
         assert global_watchdog.beat_age("replica0") is not None
+    # a store switched off has nowhere to export to
     with binary_booster.serve(aot_dir="off") as srv:
-        with pytest.raises(NotImplementedError, match="A6"):
+        assert srv.aot is None
+        with pytest.raises(ServingError, match="no AOT store"):
             srv.export_aot()
     with pytest.raises(ValueError, match="precision"):
         binary_booster.serve(precision="fp4")

@@ -502,3 +502,34 @@ def test_host_peak_model_is_the_jax_packages():
     stream = predict_host_peak_bytes(100_000_000, 28, 1, 1 << 20)[0]
     assert stream < res / 4
     assert predict_host_peak_bytes(100_000_000, 28, 1, 1 << 16)[0] < stream
+
+
+def test_ingest_pump_over_two_devices_stores_the_same_bytes():
+    """``IngestPump(devices=)``: chunks dealt over the devices as the JAX
+    package deals them (``plan_devices`` + ``plan_block_shards``,
+    round-robin here), each binned on its device (B3's plain version on
+    the CPU), and the binned matrix is the one-device pump's, byte for
+    byte."""
+    from lightgbm_tpu.data.score import plan_block_shards as jshards
+    from lightgbm_tpu.fleet.topology import plan_devices as jplan
+    from lightgbm_tpu_torch.data import IngestPump
+    X32 = X.astype(np.float32)
+    ds = Dataset(X32, label=Y_BIN, device="cpu").construct()
+
+    def binned(pump):
+        parts = {}
+        for i, s, r, chunk in pump:
+            assert chunk.device.type == "cpu" and chunk.shape[0] == r
+            parts[s] = ds._bin_rows(chunk).numpy()
+        return np.concatenate([parts[s] for s in sorted(parts)], axis=1)
+
+    one = IngestPump(X32, 256, device="cpu")
+    two = IngestPump(X32, 256, devices=["cpu", "cpu"])
+    assert two.owner == list(jshards(two.num_chunks, jplan(2)))
+    assert set(two.owner) == {0, 1}
+    got = binned(two)
+    assert np.array_equal(got, binned(one))
+    assert np.array_equal(got, ds.binned_t.numpy())
+    assert two.blocks == two.num_chunks
+    with pytest.raises(ValueError, match="one type"):
+        IngestPump(X32, 256, devices=["cpu", "meta"])
