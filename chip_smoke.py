@@ -335,9 +335,10 @@ GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
 # and forced bin bounds (quartiles) on two of its features; each config
 # against its plain-version twin over SERIAL_PLAIN_ROUNDS; the forced
 # plan's variants, the arms and the EFB run train SERIAL_SHORT_ROUNDS
-# (2: a plain-version serial tree takes 4-7 s on the card's host, and
-# the script has a time limit)
-SERIAL_ROUNDS, SERIAL_SHORT_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3, 2
+# (1: a plain-version serial tree takes 4-7 s on the card's host, and
+# the script has a time limit; the CEGB state across trees is held by
+# the main runs' launches, features and paid rows)
+SERIAL_ROUNDS, SERIAL_SHORT_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3, 1
 # the plain-version twins of efb_train, rand_train, rank_train and
 # multiclass_train train this many rounds (their first trees held byte
 # for byte to the main run's), to keep the script inside its time limit
@@ -4805,6 +4806,302 @@ def phase_obs_trace(lt, pk, train_run, smi) -> dict:
     return row
 
 
+CKPT_FREQ, CKPT_PAUSE_AT = 5, 3
+CKPT_QUANT_ROUNDS, CKPT_QUANT_FREQ = 6, 3
+CKPT_QUANT_PARAMS = dict(QUANT_PARAMS, bagging_fraction=0.7, bagging_freq=1)
+CKPT_STREAM_ROUNDS, CKPT_STREAM_FREQ = 4, 2
+CKPT_CAPI_ROWS = 65_536
+CKPT_PHASE_LIMIT_S = 90.0
+
+
+class _ResumeProbe:
+    """A ``pause_control`` that never pauses: the engine consults it at
+    every chunk boundary, the first one right after the restore, so its
+    first call time is when the first resumed tree starts."""
+
+    def __init__(self, pause_at=None):
+        self.pause_at = pause_at
+        self.first = None
+
+    def consult(self, i):
+        if self.first is None:
+            self.first = time.perf_counter()
+        return "pause" if i == self.pause_at else "run"
+
+    def chunk_cap(self):
+        return 1 << 30
+
+
+def _conf_value(v) -> str:
+    return ",".join(map(str, v)) if isinstance(v, (list, tuple)) else str(v)
+
+
+def _cli(args, cwd, log):
+    """``python -m lightgbm_tpu_torch`` in a subprocess that inherits the
+    card; returns (seconds, stdout); a non-zero exit fails the phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch"] + args,
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=300)
+    secs = time.perf_counter() - t0
+    with open(log, "a") as fh:
+        fh.write(f"$ {' '.join(args)}\n{r.stdout}{r.stderr}\n")
+    if r.returncode != 0:
+        raise AssertionError(f"the CLI ({' '.join(args)}) exited "
+                             f"{r.returncode}: {r.stderr[-3000:]}")
+    return secs, r.stdout
+
+
+def phase_ckpt_cli(lt, pk, train_run, train_data, smi) -> dict:
+    """Checkpoints, pause control, the CLI and the C API on the card
+    (queue A8) at ``higgs_train_1m`` width, on the ``train`` phase's
+    constructed datasets and parameters, against its uninterrupted model
+    text: (1) the same training with a bundle every 5 iterations (text
+    unchanged), resumed from the bundle of iteration 5 to the same text
+    and evaluation history; (2) quantized with bagging, 6 rounds, resumed
+    from 3; (3) paused at iteration 3 (``TrainingPaused``) and resumed;
+    (4) a streamed run in the ``stream_train`` phase's spill geometry, 4
+    rounds, resumed from 2 streamed and resident; (5) the CLI in
+    subprocesses on the card: ``task=train`` on a binary Dataset file and
+    a TSV valid set, then ``task=predict``; (6) the C API in process:
+    ``LGBM_DatasetCreateFromMat`` (B3), 10 ``LGBM_BoosterUpdateOneIter``
+    (B2), ``LGBM_BoosterPredictForMat`` (B1) bit-equal to the Booster.
+    Counts are set to 0 at the start; B1, B2, B3 (and B4, B5 in the
+    streamed step) must each launch."""
+    import shutil
+    import tempfile
+
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.engine import TrainingPaused
+    from lightgbm_tpu_torch.resilience import (load_checkpoint,
+                                               save_checkpoint)
+    t_phase = time.perf_counter()
+    ds, vs, want = train_run["ds"], train_run["vs"], train_run["text"]
+    X, y, Xv, yv = train_data
+    want_evals = {"auc": train_run["row"]["valid_auc"],
+                  "binary_logloss": train_run["row"]["valid_logloss"]}
+    tmp = tempfile.mkdtemp(prefix="lgbt-ckpt-")
+    log = os.path.join(tmp, "cli.log")
+    row = {"phase": "ckpt_cli", "config": "higgs_train_1m"}
+
+    def train(params, data, rounds, valid=True, **kw):
+        ev = {}
+        extra = ({"valid_sets": [vs], "valid_names": ["valid"],
+                  "evals_result": ev} if valid else {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(params, data, rounds, verbose_eval=False, **extra,
+                       **kw)
+        torch.cuda.synchronize()
+        return bst, ev, time.perf_counter() - t0
+
+    def bundle(snap, it):
+        return os.path.join(snap + ".ckpt", f"ckpt_iter_{it:08d}.lgbckpt")
+
+    try:
+        reset_training_counts()
+        pk.reset_launch_counts()
+        # (1) snapshots every 5, then the resume from iteration 5
+        snap = os.path.join(tmp, "m.txt")
+        bst1, ev1, s1 = train(TRAIN_PARAMS, ds, TRAIN_ROUNDS,
+                              snapshot_freq=CKPT_FREQ, snapshot_out=snap)
+        text1 = bst1.model_to_string()
+        if text1 != want:
+            raise AssertionError("snapshots changed the train phase's model "
+                                 "text")
+        if ev1["valid"] != want_evals:
+            raise AssertionError("snapshots changed the evaluation history")
+        one = os.path.join(tmp, "one.lgbckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(bst1, one, iteration=TRAIN_ROUNDS)
+        write_s = time.perf_counter() - t0
+        man = load_checkpoint(bundle(snap, CKPT_FREQ)).manifest
+        probe = _ResumeProbe()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, ev_res, _ = train(TRAIN_PARAMS, ds, TRAIN_ROUNDS,
+                               resume_from=bundle(snap, CKPT_FREQ),
+                               pause_control=probe)
+        t1 = time.perf_counter()
+        if res.model_to_string() != want:
+            raise AssertionError("the run resumed from iteration 5 ends with "
+                                 "another model text")
+        if ev_res["valid"] != want_evals:
+            raise AssertionError("the resumed evaluation history (6-10) "
+                                 "differs")
+        row.update({
+            "bundle_bytes": os.path.getsize(bundle(snap, CKPT_FREQ)),
+            "bundle_bytes_10": os.path.getsize(one),
+            "bundle_write_s": write_s, "snapshot_run_s": s1,
+            "resume_to_first_tree_s": probe.first - t0,
+            "resumed_s_per_tree": (t1 - probe.first)
+            / (TRAIN_ROUNDS - CKPT_FREQ),
+            "hist_plan": man["hist_plan"], "chunk_cap": man["chunk_cap"]})
+        del res
+
+        # (2) quantized with bagging
+        qsnap = os.path.join(tmp, "q.txt")
+        qfull, _, _ = train(CKPT_QUANT_PARAMS, ds, CKPT_QUANT_ROUNDS,
+                            snapshot_freq=CKPT_QUANT_FREQ,
+                            snapshot_out=qsnap)
+        qres, _, _ = train(CKPT_QUANT_PARAMS, ds, CKPT_QUANT_ROUNDS,
+                           resume_from=bundle(qsnap, CKPT_QUANT_FREQ))
+        if qres.model_to_string() != qfull.model_to_string():
+            raise AssertionError("the quantized resume differs")
+        row["quant_resume_equal"] = True
+        del qfull, qres
+
+        # (3) pause at iteration 3, then resume
+        psnap = os.path.join(tmp, "p.txt")
+        try:
+            train(TRAIN_PARAMS, ds, TRAIN_ROUNDS, snapshot_out=psnap,
+                  pause_control=_ResumeProbe(pause_at=CKPT_PAUSE_AT))
+            raise AssertionError("the pause control did not pause")
+        except TrainingPaused as e:
+            paused = e
+        pres, pev, _ = train(TRAIN_PARAMS, ds, TRAIN_ROUNDS,
+                             resume_from=paused.bundle_path)
+        if paused.iteration != CKPT_PAUSE_AT or \
+                pres.model_to_string() != want or pev["valid"] != want_evals:
+            raise AssertionError("the run resumed after the pause differs")
+        row["paused_at"] = paused.iteration
+        del pres
+
+        # (4) mid-stream: the stream_train phase's spill geometry
+        before = kernel_launches()
+        sds, _ = stream_dataset(lt, X, y, os.path.join(tmp, "st"),
+                                STREAM_BLOCK_ROWS)
+        ssnap = os.path.join(tmp, "s.txt")
+        sfull, _, _ = train(TRAIN_PARAMS, sds, CKPT_STREAM_ROUNDS, False,
+                            snapshot_freq=CKPT_STREAM_FREQ,
+                            snapshot_out=ssnap)
+        if sfull.boosting._stream is None:
+            raise AssertionError("the spilled Dataset did not stream")
+        stext = sfull.model_to_string()
+        sman = load_checkpoint(bundle(ssnap, CKPT_STREAM_FREQ)).manifest
+        sp = sman["stream_plan"] or {}
+        if (sp.get("store_block_rows") != STREAM_BLOCK_ROWS
+                or sp.get("store_num_blocks") != -(-len(X)
+                                                  // STREAM_BLOCK_ROWS)):
+            raise AssertionError(f"the manifest's stream plan {sp} does not "
+                                 "name the store's geometry")
+        sres, _, _ = train(TRAIN_PARAMS, sds, CKPT_STREAM_ROUNDS, False,
+                           resume_from=bundle(ssnap, CKPT_STREAM_FREQ))
+        rds, _ = stream_dataset(lt, X, y, None, None)
+        rres, _, _ = train(TRAIN_PARAMS, rds, CKPT_STREAM_ROUNDS, False,
+                           resume_from=bundle(ssnap, CKPT_STREAM_FREQ))
+        if rres.boosting._stream is not None:
+            raise AssertionError("the resident twin streamed")
+        if sres.model_to_string() != stext or rres.model_to_string() != stext:
+            raise AssertionError("a mid-stream resume (streamed or resident) "
+                                 "differs")
+        got = kernel_launches()
+        stream_launches = {k: got[k] - before[k] for k in got}
+        for k in ("fused_frontier_accumulate", "fused_sibling_scan"):
+            if stream_launches[k] <= 0:
+                raise AssertionError(f"the streamed step never launched {k}")
+        row["stream_manifest"] = {k: sp.get(k) for k in (
+            "stream", "block_rows", "store_block_rows", "store_num_blocks")}
+        del sfull, sres, rres, sds, rds
+
+        # (5) the CLI on the card
+        cli = os.path.join(tmp, "cli")
+        os.makedirs(cli)
+        ds.save_binary(os.path.join(cli, "train.bin"))
+        np.savetxt(os.path.join(cli, "valid.tsv"),
+                   np.column_stack([yv, Xv]), delimiter="\t", fmt="%.9g")
+        conf = dict(TRAIN_PARAMS, task="train", data="train.bin",
+                    valid_data="valid.tsv", num_iterations=TRAIN_ROUNDS,
+                    snapshot_freq=CKPT_FREQ, output_model="cli_model.txt")
+        with open(os.path.join(cli, "train.conf"), "w") as fh:
+            fh.writelines(f"{k} = {_conf_value(v)}\n" for k, v in conf.items())
+        train_s, out = _cli(["config=train.conf"], cli, log)
+        with open(os.path.join(cli, "cli_model.txt")) as fh:
+            cli_text = fh.read()
+        if trees_of(cli_text) != trees_of(want):
+            raise AssertionError("the CLI's model differs from the train "
+                                 "phase's")
+        if "runs on device cuda" not in out:
+            raise AssertionError("the CLI's log names no cuda device")
+        predict_s, out = _cli(["task=predict", "data=valid.tsv",
+                               "input_model=cli_model.txt",
+                               "output_result=preds.txt"], cli, log)
+        if "runs on device cuda" not in out:
+            raise AssertionError("the CLI's predict log names no cuda device")
+        cli_pred = np.loadtxt(os.path.join(cli, "preds.txt"))
+        in_proc = bst1.predict(Xv)
+        if not np.allclose(cli_pred, in_proc, rtol=1e-9, atol=0.0):
+            raise AssertionError("the CLI's predictions differ from "
+                                 "Booster.predict: max |d| "
+                                 f"{np.abs(cli_pred - in_proc).max()}")
+        row.update({"cli_train_s": train_s, "cli_predict_s": predict_s,
+                    "cli_bundles": sorted(os.listdir(os.path.join(
+                        cli, "cli_model.txt.ckpt")))})
+
+        # (6) the C API in process
+        pstr = " ".join(f"{k}={_conf_value(v)}"
+                        for k, v in TRAIN_PARAMS.items())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dh, vh, bh, fin = [0], [0], [0], [0]
+        rcs = [capi.LGBM_DatasetCreateFromMat(X, pstr, y, dh),
+               capi.LGBM_DatasetCreateFromMat(Xv, pstr, yv, vh),
+               capi.LGBM_BoosterCreate(dh[0], pstr, bh),
+               capi.LGBM_BoosterAddValidData(bh[0], vh[0])]
+        for _ in range(TRAIN_ROUNDS):
+            rcs.append(capi.LGBM_BoosterUpdateOneIter(bh[0], fin))
+        ev, pred, ctext = [], [None], [None]
+        rcs += [capi.LGBM_BoosterGetEval(bh[0], 1, ev),
+                capi.LGBM_BoosterPredictForMat(bh[0], Xv[:CKPT_CAPI_ROWS], 1,
+                                               -1, pred),
+                capi.LGBM_BoosterSaveModelToString(bh[0], ctext)]
+        torch.cuda.synchronize()
+        capi_s = time.perf_counter() - t0
+        if set(rcs) != {0}:
+            raise AssertionError(f"the C API failed: {rcs} "
+                                 f"{capi.LGBM_GetLastError()}")
+        if capi._get(dh[0]).device.type != "cuda":
+            raise AssertionError("the C API's Dataset is not on the card")
+        if trees_of(ctext[0]) != trees_of(want):
+            raise AssertionError("the C API's model differs from the train "
+                                 "phase's")
+        ref = bst1.predict(Xv[:CKPT_CAPI_ROWS], raw_score=True)
+        if not np.array_equal(pred[0], ref):
+            raise AssertionError("LGBM_BoosterPredictForMat differs from "
+                                 "Booster.predict(raw_score=True)")
+        if not np.allclose(ev, [want_evals["auc"][-1],
+                                want_evals["binary_logloss"][-1]],
+                           rtol=1e-6):
+            raise AssertionError(f"LGBM_BoosterGetEval gave {ev}")
+        for h in (dh[0], vh[0]):
+            capi.LGBM_DatasetFree(h)
+        capi.LGBM_BoosterFree(bh[0])
+        row.update({"capi_s": capi_s, "capi_eval": ev})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = kernel_launches()
+    launches = {"fused_traverse": pk.launch_counts[KERNEL],
+                "fused_frontier_splits": got["fused_frontier_splits"],
+                "ingest": got["ingest"],
+                "fused_frontier_accumulate": got["fused_frontier_accumulate"],
+                "fused_sibling_scan": got["fused_sibling_scan"],
+                "streamed_step": {k: v for k, v in stream_launches.items()
+                                  if v}}
+    for k in ("fused_traverse", "fused_frontier_splits", "ingest"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the phase never launched {k}")
+    phase_s = time.perf_counter() - t_phase
+    row.update({"launches": launches, "phase_s": phase_s, "device": smi})
+    emit(row)
+    if phase_s > CKPT_PHASE_LIMIT_S:
+        raise AssertionError(f"ckpt_cli took {phase_s:.1f} s, over its "
+                             f"{CKPT_PHASE_LIMIT_S:.0f} s budget")
+    return launches
+
+
 def phase_boost_variants(lt, mono_ds):
     """``dart``, ``rf``, ``regression_l1`` and ``quantile`` (the last two
     renew their leaves on the card), 5 rounds each on the monotone run's
@@ -5198,6 +5495,7 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     sharded_launches = phase_sharded_train(lt, train_run, smi)
     stream_launches = phase_stream_train(lt, pk, train_data, smi)
     phase_obs_trace(lt, pk, train_run, smi)
+    ckpt_launches = phase_ckpt_cli(lt, pk, train_run, train_data, smi)
     del train_run, train_data
     mono_launches, mono_modes, mono_ds = phase_mono_train(lt, pk, efb_ds)
     del efb_ds
@@ -5352,6 +5650,16 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
             row["sparse_cv_launches"] = sparse_launches[sparse_of[row["name"]]]
         if row["name"] == "ingest":
             row["fleet_serve_launches"] = fleet_launches["ingest"]
+    # the ckpt_cli phase: its own process's launches (B1 in scores mode,
+    # the f32 B2/B3/B4/B5); the CLI's subprocesses are not counted here
+    ckpt_of = {f"{KERNEL}[scores]": "fused_traverse",
+               "ingest": "ingest",
+               "fused_frontier_splits": "fused_frontier_splits",
+               "fused_frontier_accumulate": "fused_frontier_accumulate",
+               "fused_sibling_scan": "fused_sibling_scan"}
+    for row in table:
+        if row["name"] in ckpt_of:
+            row["ckpt_cli_launches"] = ckpt_launches[ckpt_of[row["name"]]]
     # and on the serial_train, sharded_train and stream_train paths
     # (every training entry, f32 and int8; sharded_train's: rank 0's;
     # stream_train's B1: the bulk scorer's leaves mode)

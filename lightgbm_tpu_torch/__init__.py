@@ -27,7 +27,8 @@ The public names are the JAX package's (``lightgbm_tpu.__all__``), but
 for those of modules not ported yet (the model lifecycle, the model
 axis and co-residency: ROADMAP queue A12); the
 scikit-learn estimators are exported where scikit-learn is installed,
-as the JAX package exports them.
+as the JAX package exports them (scikit-learn is imported when one of
+them is first used).
 """
 
 from . import compat
@@ -69,7 +70,16 @@ __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
            "record_evaluation", "reset_parameter", "serve", "serving",
            "train", "__version__"]
 
+_SKLEARN_NAMES = ("LGBMModel", "LGBMRegressor", "LGBMClassifier",
+                  "LGBMRanker")
 if compat.SKLEARN_INSTALLED:
-    from .sklearn import (LGBMClassifier, LGBMModel, LGBMRanker,  # noqa: F401
-                          LGBMRegressor)
-    __all__ += ["LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker"]
+    __all__ += list(_SKLEARN_NAMES)
+
+
+def __getattr__(name):
+    # the estimators import scikit-learn on first use, so that importing
+    # the package (the CLI's start among them) does not pay for it
+    if name in _SKLEARN_NAMES and compat.SKLEARN_INSTALLED:
+        from . import sklearn as _sklearn
+        return getattr(_sklearn, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

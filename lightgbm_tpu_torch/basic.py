@@ -38,6 +38,28 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_from_params(params: dict, device=None) -> torch.device:
+    """The device of a C API handle or a CLI task: ``device`` where
+    given; else the parameters' ``device_type`` (alias ``device``):
+    ``cpu`` asks for the CPU; unset (or empty), ``tpu``, ``gpu`` or
+    ``cuda`` mean the CUDA card (which must exist); any other value
+    raises."""
+    if device is not None:
+        return resolve_device(device)
+    from .config import Config
+    val = None
+    for k, v in (params or {}).items():
+        if Config.canonical_key(k) == "device_type":
+            val = v
+    val = "" if val is None else str(val).strip().lower()
+    if val == "cpu":
+        return torch.device("cpu")
+    if val in ("", "tpu", "gpu", "cuda"):
+        return resolve_device(None)
+    raise ValueError(f"device_type={val!r}: lightgbm_tpu_torch runs on "
+                     "'cpu' or the CUDA card ('cuda', 'gpu' or 'tpu')")
+
+
 class Booster:
     def __init__(self, params: Optional[dict] = None, train_set=None,
                  model_file: Optional[str] = None,

@@ -47,6 +47,21 @@ class DART(GBDT):
         # scales are GBDT's tree_history and history_scale)
         self.drops: List[List[int]] = []
 
+    def capture_state(self) -> dict:
+        st = super().capture_state()
+        st["drop_rng"] = self._drop_rng.get_state()
+        st["tree_weight"] = list(self.tree_weight)
+        st["sum_weight"] = float(self.sum_weight)
+        st["drops"] = [list(d) for d in self.drops]
+        return st
+
+    def restore_state(self, st: dict) -> None:
+        super().restore_state(st)
+        self._drop_rng.set_state(st["drop_rng"])
+        self.tree_weight = list(st["tree_weight"])
+        self.sum_weight = float(st["sum_weight"])
+        self.drops = [list(d) for d in st.get("drops", [])]
+
     def _dropping_trees(self) -> List[int]:
         """The iterations to drop; sets the new tree's shrinkage
         (reference: dart.hpp:97-151)."""

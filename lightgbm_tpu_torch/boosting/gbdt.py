@@ -71,6 +71,15 @@ path (chunks of one, GOSS's masks, custom objectives) streams through
 RF (``_stream_ok``) and the configurations of
 ``data.stream._config_stream_blockers`` train resident.
 
+Checkpoints (``resilience/checkpoint.py``; the JAX package's
+boosting/gbdt.py:1793-1958): ``capture_state`` gives every mutable
+state of the loop as host values (the scores, both ``RandomState``
+streams and the bagging mask, the host and device trees, DART's and
+GOSS's streams in their subclasses, the serial grower's CEGB state),
+and ``restore_state`` puts it into a fresh booster of the same config
+and data, which then trains on as the uninterrupted one did; a bundle
+of another row layout raises (ROADMAP queue A9, resilience/elastic.py).
+
 Observability (``obs/``; the JAX package's boosting/gbdt.py:845-895 and
 its timer tags): where ``_configure`` settles the arm (rounds, serial or
 streamed; fused or staged; f32 or quantized; ``KCAP``) it emits the
@@ -464,6 +473,8 @@ class GBDT:
                 "predicted_peak_bytes": int(peak), "budget_bytes": budget,
                 "feasible": budget is None or peak <= budget,
                 "stream": self._stream is not None}
+        # a checkpoint bundle's manifest records it (provenance only)
+        self.hist_plan = plan
         _instant("planner.plan", rows=n, features=G, **plan)
         _obs_registry.gauge("train_hist_method").set(variant)
         _obs_registry.gauge("train_hist_predicted_peak_bytes").set(int(peak))
@@ -938,6 +949,129 @@ class GBDT:
         del self.models[-K:]
         self.tree_history.pop()
         self.iter -= 1
+
+    # ------------------------------------------------------------ checkpoint
+
+    def _row_layout(self) -> dict:
+        """How this booster's rows lie over its ranks (the tree learner,
+        the world and this rank): a bundle restores only into the same
+        layout."""
+        return {"tree_learner": self.tree_learner_type,
+                "world": int(self.world), "rank": int(self.rank)}
+
+    def capture_state(self) -> dict:
+        """Every mutable state of the training loop as host values (NumPy
+        arrays, builtins and the port's host trees), so a bundle does not
+        depend on the device it was written on; ``restore_state`` of it
+        into a fresh booster of the same config and data replays the
+        same random draws and the same f32 sums (the JAX package's
+        boosting/gbdt.py:1793-1854, under its keys where the state
+        exists in the port).  The per-iteration node and quantization
+        keys are ``fold_in(base, iter)``: restoring ``iter`` restores
+        them.  GOSS's key stream is ``goss_rng_key`` (``goss.py``);
+        CEGB's cross-tree state is the serial grower's ``cegb_state``."""
+        import copy as _copy
+
+        def host(t):
+            return t.detach().cpu().numpy() if isinstance(
+                t, torch.Tensor) else t
+
+        cegb = getattr(self.grower, "cegb_state", None)
+        return {
+            "boosting_type": self.boosting_type,
+            "iter": int(self.iter),
+            "num_init_iteration": int(self.num_init_iteration),
+            "num_data": int(self.num_data),
+            "row_layout": self._row_layout(),
+            "models": [_copy.deepcopy(m) for m in self.models],
+            "train_score": host(self.train_score),
+            "valid_scores": [host(v) for v in self.valid_scores],
+            "init_scores": list(self.init_scores),
+            "init_score_added": bool(self._init_score_added),
+            "shrinkage_rate": float(self.shrinkage_rate),
+            "bagging_rng": self._rng.get_state(),
+            "feature_rng": self._feature_rng.get_state(),
+            "cur_mask": host(self._cur_mask),
+            "history_scale": dict(self.history_scale),
+            "tree_history": [[{f: host(getattr(t, f)) for f in t._fields}
+                              for t in trees]
+                             for trees in self.tree_history],
+            "cegb_state": (None if cegb is None
+                           else tuple(host(a) for a in cegb)),
+            "quant_scales": (None if self._quant_scales is None else
+                             [tuple(host(s) for s in sc)
+                              for sc in self._quant_scales]),
+        }
+
+    def restore_state(self, st: dict) -> None:
+        """Inverse of ``capture_state`` into a freshly built booster of
+        the same config, training data and valid sets (the engine builds
+        it first).  Refuses a booster whose round graph is already
+        captured, and a bundle of another row layout: an elastic resume
+        into another layout waits for ROADMAP queue A9
+        (resilience/elastic.py)."""
+        import copy as _copy
+        from ..grower import TreeArrays
+        if st.get("boosting_type") != self.boosting_type:
+            raise ValueError(
+                f"checkpoint was boosting={st.get('boosting_type')!r}, this "
+                f"run is boosting={self.boosting_type!r}")
+        if len(st["valid_scores"]) != len(self.valid_scores):
+            raise ValueError(
+                f"checkpoint has {len(st['valid_scores'])} valid sets, this "
+                f"run has {len(self.valid_scores)}")
+        if (int(st["num_data"]) != self.num_data
+                or st["row_layout"] != self._row_layout()):
+            raise ValueError(
+                f"the checkpoint holds {st['num_data']} rows laid out as "
+                f"{st['row_layout']}; this run has {self.num_data} rows "
+                f"laid out as {self._row_layout()}; resuming into another "
+                "row layout (an elastic resume) waits for ROADMAP queue A9 "
+                "(resilience/elastic.py)")
+        if getattr(self.grower, "graph", None) is not None:
+            raise RuntimeError(
+                "restore_state needs a fresh booster: this one has already "
+                "captured its round graph")
+        dev = self.device
+
+        def dev_t(a):
+            return (torch.as_tensor(np.asarray(a), device=dev)
+                    if isinstance(a, np.ndarray) else a)
+
+        self.iter = int(st["iter"])
+        self.num_init_iteration = int(st["num_init_iteration"])
+        self.models[:] = [_copy.deepcopy(m) for m in st["models"]]
+        self.train_score = dev_t(st["train_score"]).clone()
+        self.valid_scores = [dev_t(v).clone() for v in st["valid_scores"]]
+        self.init_scores = list(st["init_scores"])
+        self._init_score_added = bool(st["init_score_added"])
+        self.shrinkage_rate = float(st["shrinkage_rate"])
+        self._rng.set_state(st["bagging_rng"])
+        self._feature_rng.set_state(st["feature_rng"])
+        self._cur_mask = (None if st["cur_mask"] is None
+                          else dev_t(st["cur_mask"]))
+        self.history_scale = dict(st["history_scale"])
+        self.tree_history = [[TreeArrays(**{f: dev_t(v)
+                                            for f, v in t.items()})
+                              for t in trees]
+                             for trees in st["tree_history"]]
+        cegb = getattr(self.grower, "cegb_state", None)
+        saved = st.get("cegb_state")
+        if (cegb is None) != (saved is None):
+            raise ValueError("the checkpoint's CEGB state does not match "
+                             "this run's CEGB configuration")
+        if cegb is not None:
+            # the grower's buffers in place: already charged penalties
+            # stay charged
+            for buf, a in zip(cegb, saved):
+                if (buf is None) != (a is None):
+                    raise ValueError("the checkpoint's lazy CEGB bitmap "
+                                     "does not match this run's")
+                if buf is not None:
+                    buf.copy_(dev_t(a))
+        qs = st.get("quant_scales")
+        self._quant_scales = (None if qs is None else
+                              [tuple(dev_t(s) for s in sc) for sc in qs])
 
     # ------------------------------------------------ refit and resets
 

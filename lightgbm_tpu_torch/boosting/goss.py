@@ -20,6 +20,7 @@ quantized training counts the rows of weight above 0.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.split import f32
@@ -61,6 +62,21 @@ class GOSS(GBDT):
 
     def _bagging_mask(self, it):
         return self._row_valid
+
+    def capture_state(self) -> dict:
+        st = super().capture_state()
+        # the key stream under the JAX package's name (a uint32 pair)
+        st["goss_rng_key"] = np.asarray(self._goss_key, np.uint32)
+        st["goss_sampled_iters"] = int(self.sampled_iters)
+        st["goss_kept_share"] = [float(v) for v in self.kept_share]
+        return st
+
+    def restore_state(self, st: dict) -> None:
+        super().restore_state(st)
+        self._goss_key = tuple(int(v) for v in st["goss_rng_key"])
+        self.sampled_iters = int(st.get("goss_sampled_iters", 0))
+        self.kept_share = [torch.tensor(v) for v in
+                           st.get("goss_kept_share", [])]
 
     def _chunk_goss_keys(self, its, lrs) -> list:
         """The subkeys of a chunk's iterations, split off the stream in

@@ -8,6 +8,13 @@ iterations (``engine.train``): it does nothing on an iteration without
 evaluation results.  ``reset_parameter`` of ``learning_rate`` alone
 carries its schedule as ``_lr_schedule``, which the engine feeds into a
 chunk as one learning rate an iteration.
+
+``record_evaluation`` and ``early_stopping`` carry a ``_resume_token``
+and ``get_state``/``set_state`` (the JAX package's resume seam,
+``lightgbm_tpu/callback.py:73, :211``): the recorded history and the
+best-so-far tracking are training state that a checkpoint bundle
+(``resilience/checkpoint.py``) keeps, so a resumed run stops at the same
+iteration with the same best score as the uninterrupted one.
 """
 
 from __future__ import annotations
@@ -62,8 +69,21 @@ def record_evaluation(eval_result: dict) -> Callable:
         for item in env.evaluation_result_list:
             eval_result.setdefault(item[0], collections.OrderedDict())
             eval_result[item[0]].setdefault(item[1], []).append(item[2])
+
+    def _get_state():
+        import copy
+        return copy.deepcopy(eval_result)
+
+    def _set_state(state) -> None:
+        import copy
+        eval_result.clear()
+        eval_result.update(copy.deepcopy(state))
+
     _callback.order = 20
     _callback._chunk_safe = True   # no-op on empty evaluation lists
+    _callback._resume_token = "record_evaluation"
+    _callback.get_state = _get_state
+    _callback.set_state = _set_state
     return _callback
 
 
@@ -99,9 +119,20 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
     best_iter: List = []
     best_score_list: List = []
     cmp_op: List = []
+    higher_better: List[bool] = []
+    enabled: List[bool] = [True]
     first_metric: List[str] = [""]
 
     def _init(env: CallbackEnv) -> None:
+        # the reference disables early stopping under DART (a dropped
+        # tree changes every earlier iteration's score)
+        enabled[0] = not any(
+            env.params.get(alias, "") == "dart"
+            for alias in ("boosting", "boosting_type", "boost"))
+        if not enabled[0]:
+            import warnings
+            warnings.warn("Early stopping is not available in dart mode")
+            return
         if not env.evaluation_result_list:
             raise ValueError(
                 "For early stopping, at least one dataset and eval metric is "
@@ -113,6 +144,7 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
         for eval_ret in env.evaluation_result_list:
             best_iter.append(0)
             best_score_list.append(None)
+            higher_better.append(bool(eval_ret[3]))
             if eval_ret[3]:
                 best_score.append(float("-inf"))
                 cmp_op.append(lambda x, y: x > y)
@@ -125,6 +157,8 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
             if not env.evaluation_result_list:
                 return
             _init(env)
+        if not enabled[0]:
+            return
         for i in range(len(env.evaluation_result_list)):
             score = env.evaluation_result_list[i][2]
             if best_score_list[i] is None or cmp_op[i](score, best_score[i]):
@@ -154,6 +188,33 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                 raise EarlyStopException(best_iter[i], best_score_list[i])
             if first_metric_only:
                 break
+
+    # the best-so-far tracking is training state: without it a resumed
+    # run would restart the patience window.  cmp_op holds lambdas (no
+    # pickle), so the state carries the higher_better flags instead
+    def _get_state():
+        return {"best_score": list(best_score), "best_iter": list(best_iter),
+                "best_score_list": list(best_score_list),
+                "higher_better": list(higher_better),
+                "enabled": enabled[0], "first_metric": first_metric[0]}
+
+    def _set_state(state) -> None:
+        for lst in (best_score, best_iter, best_score_list, cmp_op,
+                    higher_better):
+            del lst[:]
+        best_score.extend(state["best_score"])
+        best_iter.extend(state["best_iter"])
+        best_score_list.extend(state["best_score_list"])
+        higher_better.extend(state["higher_better"])
+        cmp_op.extend((lambda x, y: x > y) if hib else (lambda x, y: x < y)
+                      for hib in state["higher_better"])
+        enabled[0] = state["enabled"]
+        first_metric[0] = state["first_metric"]
+
     _callback.order = 30
     _callback._chunk_safe = True   # no-op on empty evaluation lists
+    _callback._resume_token = (f"early_stopping({stopping_rounds},"
+                               f"{first_metric_only})")
+    _callback.get_state = _get_state
+    _callback.set_state = _set_state
     return _callback

@@ -1108,6 +1108,36 @@ class Dataset:
             self._resident_binned().cpu().numpy().T).astype(
                 self.binned_dtype())
 
+    def _dump_text(self, filename: str) -> "Dataset":
+        """A debugging dump of the binned matrix (reference:
+        Dataset::DumpTextFile, src/io/dataset.cpp:994, through
+        LGBM_DatasetDumpText; the JAX package's dataset.py:1103): the
+        header, the feature names, then each row's bin of every used
+        feature.  Not loadable back."""
+        self.construct()
+        from .utils.file_io import open_atomic
+        F = len(self.used_features)
+        meta = self.feature_meta()
+        group = (meta.feat_group if meta.feat_group is not None
+                 else np.arange(F))
+        start = (meta.feat_start if meta.feat_start is not None
+                 else np.ones(F, np.int32))
+        binned = self.host_binned()
+        with open_atomic(filename, "w") as fh:
+            fh.write(f"num_features: {F}\n")
+            fh.write(f"num_total_features: {self.num_total_features}\n")
+            fh.write(f"num_groups: {self.num_groups}\n")
+            fh.write(f"num_data: {self.num_data}\n")
+            fh.write("feature_names: " + ", ".join(self.feature_names)
+                     + "\n")
+            for row in binned:
+                bins = []
+                for j in range(F):
+                    dec = int(row[group[j]]) - int(start[j]) + 1
+                    bins.append(dec if 1 <= dec < meta.num_bin[j] else 0)
+                fh.write(", ".join(str(b) for b in bins) + "\n")
+        return self
+
     def binned_shape(self) -> tuple:
         """(num_data, num_groups): metadata, valid on the card and for a
         block-backed Dataset alike."""

@@ -11,8 +11,20 @@ host between them: no custom objective, a booster that
 and every callback before one a learning-rate schedule (whose values
 ride into the chunk, then a final ``reset_parameter``); otherwise c = 1
 through ``Booster.update``; the cap is ``macro.chunk_cap()``
-(``LGBM_TPU_CHUNK``).  The JAX package's pause control and checkpoints
-are not ported (ROADMAP queue A8).
+(``LGBM_TPU_CHUNK``).
+
+Checkpoints and pause control (the JAX package's engine.py:26-36,
+:180-213, :279-306): ``snapshot_freq`` writes a checkpoint bundle
+(``resilience/checkpoint.py``: atomic, sha256-manifested, the whole
+training state) into ``<snapshot_out>.ckpt/`` every ``snapshot_freq``
+iterations, keeping the last ``snapshot_keep``; a snapshot boundary ends
+a chunk.  ``resume_from`` (a bundle file or that directory) restores the
+state into the freshly built booster and the callbacks, so the resumed
+run ends with the uninterrupted run's model text and evaluation history
+whatever the chunk plans of the two runs.  ``pause_control`` (any object
+with ``consult(i)`` and ``chunk_cap()``) is consulted at every chunk
+boundary: ``"pause"`` saves a bundle and raises ``TrainingPaused``;
+``chunk_cap()`` caps the chunk.
 
 Observability, at the JAX package's call sites
 (``lightgbm_tpu/engine.py:80-84, 266-391``): ``train`` starts the
@@ -24,7 +36,9 @@ step and ``engine.eval`` around the evaluations, notes each step in the
 flight ring, sets the ``train_iter_seconds``,
 ``train_trees_per_sec_live``, ``train_iterations_total`` and
 ``train_trees_per_sec`` instruments, and dumps a forensic bundle when
-the loop raises.  All of it is host bookkeeping: nothing reads the
+the loop raises (not on a pause); bundles add the ``checkpoint.save``
+and ``checkpoint.load`` spans and an ``engine.pause`` flight note.  All
+of it is host bookkeeping: nothing reads the
 card.  Training runs on the Dataset's device: ``device=None``
 keeps it (a new Dataset defaults to the CUDA card), ``device="cpu"``
 moves a not-yet-constructed Dataset and its valid sets to the CPU.
@@ -45,6 +59,9 @@ from .obs.flight import global_flight as _flight
 from .obs.metrics import global_registry as _obs_registry
 from .obs.trace import span as _span
 from .obs.watchdog import global_watchdog as _watchdog
+from .resilience.checkpoint import (CheckpointManager,
+                                    resolve_resume_point, restore_booster)
+from .utils.log import log_info
 
 
 def _place(ds: Dataset, device) -> None:
@@ -56,19 +73,19 @@ def _place(ds: Dataset, device) -> None:
     ds.device = device
 
 
-_CHECKPOINT_ARGS = ("snapshot_freq", "snapshot_out", "snapshot_keep",
-                    "resume_from", "pause_control")
+class TrainingPaused(Exception):
+    """Raised out of ``train()`` when its ``pause_control`` orders a
+    pause: the whole training state was saved to a checkpoint bundle
+    first, so the caller resumes byte-identically by calling ``train``
+    again with the same arguments and ``resume_from=e.bundle_path``.
+    Not an error: the engine's forensic dump does not fire."""
 
-
-def _refuse_checkpoints(kwargs: dict) -> None:
-    for key, val in kwargs.items():
-        if key not in _CHECKPOINT_ARGS:
-            raise TypeError(f"train() got an unexpected keyword argument "
-                            f"{key!r}")
-        if val is not None and not (key == "snapshot_freq" and val <= 0):
-            raise NotImplementedError(
-                f"train(..., {key}=) waits for ROADMAP queue A8 "
-                "(checkpoints and pause control)")
+    def __init__(self, iteration: int, bundle_path: str):
+        super().__init__(
+            f"training paused at iteration {iteration}; state evicted "
+            f"to {bundle_path}")
+        self.iteration = int(iteration)
+        self.bundle_path = bundle_path
 
 
 def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
@@ -81,7 +98,9 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
           verbose_eval=True, learning_rates=None,
           keep_training_booster: bool = False,
           callbacks: Optional[List[Callable]] = None,
-          device=None, **checkpoints) -> Booster:
+          snapshot_freq: int = -1, snapshot_out: str = "model.txt",
+          snapshot_keep: int = 3, resume_from: Optional[str] = None,
+          pause_control=None, device=None) -> Booster:
     """Train a model; returns the Booster (reference: engine.py:18).
     ``fobj(score, train_set) -> (grad, hess)`` replaces the objective
     (``objective`` becomes "none"); ``feval(score, dataset) -> (name,
@@ -94,8 +113,9 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     keep their raw rows for that: ``free_raw_data=False`` where they
     were constructed before).  ``keep_training_booster`` is accepted for
     the reference's signature: the returned Booster always keeps its
-    training state."""
-    _refuse_checkpoints(checkpoints)
+    training state.  ``snapshot_freq``/``snapshot_out``/
+    ``snapshot_keep``, ``resume_from`` and ``pause_control``: the
+    module docstring."""
     # the env-gated SLO sentry and metrics endpoint
     from .obs.http import maybe_start_from_env as _http_from_env
     from .obs.watchdog import maybe_start_from_env as _wd_from_env
@@ -177,6 +197,24 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
                         if not getattr(cb, "before_iteration", False)),
                        key=lambda cb: getattr(cb, "order", 0))
 
+    start_iter = 0
+    if resume_from is not None:
+        ck = resolve_resume_point(resume_from)
+        restore_booster(booster, ck)
+        _restore_callback_states(cbs_before + cbs_after,
+                                 ck.engine_state.get("callbacks", {}))
+        start_iter = ck.iteration
+        log_info(f"resume: restored iteration {start_iter} from "
+                 f"{ck.path or resume_from}")
+    ckpt_mgr = None
+    if snapshot_freq > 0:
+        ckpt_mgr = CheckpointManager(f"{snapshot_out}.ckpt",
+                                     keep_last=snapshot_keep)
+
+    def engine_state() -> dict:
+        return {"callbacks": _collect_callback_states(cbs_before
+                                                      + cbs_after)}
+
     mf = max(int(cfg.metric_freq), 1)
     eval_possible = bool(
         (valid_sets and booster.boosting.valid_metrics)
@@ -204,11 +242,12 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
         return float(v)
 
     evaluation_result_list = []
-    i = 0
+    i = start_iter
     t_loop0 = time.perf_counter()
     K_per_iter = booster.boosting.num_tree_per_iteration
     _flight.set_context(
-        phase="train", num_boost_round=num_boost_round, start_iter=0,
+        phase="train", num_boost_round=num_boost_round,
+        start_iter=start_iter,
         objective=cfg.objective, num_leaves=cfg.num_leaves,
         rows=train_set.num_data)
     # the loop's heartbeat is stale-watched only WHILE the loop runs (a
@@ -216,15 +255,33 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     _watchdog.watch_heartbeat(
         "engine.step", floor=_watchdog.config.trees_per_sec_floor)
     try:
-        with _span("engine.train", start_iter=0,
-                   num_boost_round=num_boost_round):
+        with _span("engine.train", start_iter=start_iter,
+                   num_boost_round=num_boost_round) as train_root:
             while i < num_boost_round:
+                if pause_control is not None \
+                        and pause_control.consult(i) == "pause":
+                    # the whole state goes to a bundle before the card
+                    # is yielded: the resumed run is byte-identical
+                    mgr = ckpt_mgr or CheckpointManager(
+                        f"{snapshot_out}.ckpt",
+                        keep_last=max(snapshot_keep, 1))
+                    path = mgr.save(booster, iteration=i,
+                                    engine_state=engine_state())
+                    _flight.note("engine.pause", i=i, bundle=str(path))
+                    train_root.set(paused=True)
+                    raise TrainingPaused(i, path)
                 c = 1
                 if can_chunk:
                     d = num_boost_round - i
                     if eval_possible:
                         d = min(d, mf - (i % mf))
+                    if ckpt_mgr is not None:
+                        # a snapshot boundary ends a chunk
+                        d = min(d, snapshot_freq - (i % snapshot_freq))
                     c = pow2_chunk(d, cap)
+                    if pause_control is not None:
+                        c = pow2_chunk(c, max(int(
+                            pause_control.chunk_cap()), 1))
                 t_step0 = time.perf_counter()
                 if c > 1:
                     lrs = ([lr_at(j) for j in range(i, i + c)] if lr_cbs
@@ -250,13 +307,14 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
                 _flight.sample_metrics()
                 _obs_registry.gauge("train_iter_seconds").set(
                     round(step_s / max(c, 1), 6))
-                live = i * K_per_iter / max(time.perf_counter() - t_loop0,
-                                            1e-9)
+                live = (i - start_iter) * K_per_iter / max(
+                    time.perf_counter() - t_loop0, 1e-9)
                 _obs_registry.gauge("train_trees_per_sec_live").set(
                     round(live, 3))
                 _watchdog.beat("engine.step", count=i * K_per_iter)
                 j = i - 1        # the last iteration of this step
                 evaluation_result_list = []
+                early_stopped = False
                 if eval_possible and (j + 1) % mf == 0:
                     with _span("engine.eval", iteration=j):
                         if cfg.is_provide_training_metric or train_in_valid:
@@ -275,9 +333,18 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
                         booster.best_score.setdefault(
                             item[0], collections.OrderedDict())
                         booster.best_score[item[0]][item[1]] = item[2]
+                    early_stopped = True
+                # a snapshot also on the iteration that stopped early
+                # (reference: GBDT::Train reaches the snapshot write,
+                # gbdt.cpp:259-263)
+                if ckpt_mgr is not None and (j + 1) % snapshot_freq == 0:
+                    ckpt_mgr.save(booster, iteration=j + 1,
+                                  engine_state=engine_state())
+                if early_stopped or finished:
                     break
-                if finished:
-                    break
+    except TrainingPaused:
+        # an ordered yield, not a failure: no forensic bundle
+        raise
     except BaseException as e:
         # an unhandled loop failure (the span above closed tagged with
         # it): the forensic bundle (ring, metrics, fingerprint) before
@@ -287,17 +354,33 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
     finally:
         _watchdog.unwatch("engine.step")
     wall = time.perf_counter() - t_loop0
-    if i > 0:
-        _obs_registry.counter("train_iterations_total").inc(i)
+    trained = i - start_iter
+    if trained > 0:
+        _obs_registry.counter("train_iterations_total").inc(trained)
         if wall > 0:
             _obs_registry.gauge("train_trees_per_sec").set(
-                round(i * K_per_iter / wall, 3))
+                round(trained * K_per_iter / wall, 3))
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
         for item in evaluation_result_list:
             booster.best_score.setdefault(item[0], collections.OrderedDict())
             booster.best_score[item[0]][item[1]] = item[2]
     return booster
+
+
+def _collect_callback_states(cbs) -> dict:
+    """The resumable callbacks' states, keyed by each one's
+    ``_resume_token`` (``early_stopping`` and ``record_evaluation``)."""
+    return {cb._resume_token: cb.get_state() for cb in cbs
+            if getattr(cb, "_resume_token", None) is not None
+            and hasattr(cb, "get_state")}
+
+
+def _restore_callback_states(cbs, states: dict) -> None:
+    for cb in cbs:
+        tok = getattr(cb, "_resume_token", None)
+        if tok is not None and tok in states and hasattr(cb, "set_state"):
+            cb.set_state(states[tok])
 
 
 class InitModelCompatibilityError(ValueError):

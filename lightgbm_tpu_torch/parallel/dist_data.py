@@ -17,8 +17,17 @@ samples' nonzero masks ride along: the EFB groups define the [G, n]
 layout that the data-parallel histogram sums assume, so every rank
 groups from the global sample.  Each rank then bins its own rows
 through the binning kernel B3 (``Dataset._bin_rows``: f32 rows on the
-kernel route, f64 on the host).  The JAX package's resilient transport
-(``resilience=``) waits for ROADMAP queue A8.
+kernel route, f64 on the host).
+
+``resilience=`` (a ``resilience.retry.ResilienceConfig``, or implied by
+``params['network_resilience']``) routes both all-gather rounds through
+``resilient_allgather``: CRC framing, deadline and backoff, a verdict
+every rank shares, so a flaky transport retries or aborts on every rank
+alike instead of hanging or consuming a corrupted payload.  With its
+``degraded_fallback`` a permanent failure falls back, with a warning, to
+binning this rank's sample alone (the mappers then differ between
+ranks: for salvage runs only).  ``resilience.faults.ChaosRegistry.
+wrap_allgather`` injects faults at this seam.
 """
 
 from __future__ import annotations
@@ -92,12 +101,14 @@ def distributed_bin_mappers(
     world: Optional[int] = None,
     allgather_bytes: Optional[AllgatherBytes] = None,
     group=None,
+    resilience=None,
 ):
     """Returns (bin_mappers [F], sample_nonzero {feature -> bool
     [S_total]}, total_sample_cnt), the same on every rank.
     ``local_sample`` [S_local, F]: this rank's sampled rows.  The
     transport is ``allgather_bytes`` (with ``rank``/``world``), else
-    ``group`` (else the current group).
+    ``group`` (else the current group); ``resilience``: the module
+    docstring.
 
     The feature shard is ``f % world == rank`` (the reference's mod
     partition, dataset_loader.cpp:924).  FindBin for a shard runs over
@@ -108,6 +119,32 @@ def distributed_bin_mappers(
     sample = _as_2d(local_sample)
     rank, world, allgather_bytes = _transport(rank, world, allgather_bytes,
                                               group)
+    from ..resilience.retry import ResilienceConfig
+    res = (resilience if resilience is not None
+           else ResilienceConfig.from_params(p))
+    if res is not None and world > 1:
+        from ..resilience.retry import CollectiveError, make_resilient
+        from ..utils.log import log_warning
+        wrapped = make_resilient(allgather_bytes, world=world, rank=rank,
+                                 config=res, label="distributed_bin_mappers")
+        try:
+            return _bin_mappers_impl(sample, p, categorical, rank, world,
+                                     wrapped)
+        except CollectiveError:
+            if not res.degraded_fallback:
+                raise
+            log_warning(
+                "distributed_bin_mappers: COLLECTIVE FAILED PERMANENTLY; "
+                f"rank {rank} continuing DEGRADED as a single-rank binning "
+                "over its local sample ONLY — bin mappers will NOT agree "
+                "across ranks (network_degraded_fallback=True)")
+            return _bin_mappers_impl(sample, p, categorical, 0, 1,
+                                     lambda b: [b])
+    return _bin_mappers_impl(sample, p, categorical, rank, world,
+                             allgather_bytes)
+
+
+def _bin_mappers_impl(sample, p, categorical, rank, world, allgather_bytes):
     S, F = sample.shape
     # phase 1: every rank's sampled values of every feature (NaN and
     # non-zero only: zeros are implicit, as in the reference's sparse
@@ -166,6 +203,7 @@ def construct_distributed(
     allgather_bytes: Optional[AllgatherBytes] = None,
     group=None,
     device=None,
+    resilience=None,
 ) -> Dataset:
     """This rank's Dataset over its own rows with bin mappers and an EFB
     layout that every rank agrees on (so that data-parallel histogram
@@ -182,7 +220,7 @@ def construct_distributed(
     mappers, sample_nonzero, total_sample_cnt = distributed_bin_mappers(
         data[sample_idx], params=p, categorical=categorical_feature,
         rank=rank, world=world, allgather_bytes=allgather_bytes,
-        group=group)
+        group=group, resilience=resilience)
     ds = Dataset(None, label=label, params=p,
                  categorical_feature=list(categorical_feature) or "auto",
                  device=device)

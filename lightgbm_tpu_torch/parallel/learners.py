@@ -303,4 +303,4 @@ def shrink_and_resume(*args, **kwargs):
     raise NotImplementedError(
         "elastic resume after a lost rank is not ported to "
         "lightgbm_tpu_torch yet; it waits for ROADMAP queue A9 "
-        "(resilience/elastic.py, after A8's checkpoints)")
+        "(resilience/elastic.py)")

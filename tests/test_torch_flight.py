@@ -9,8 +9,8 @@ Parity with ``lightgbm_tpu``: a bundle from each package has the same
 top-level keys, and its ring, metrics and fingerprint sections the same
 shape; the port's recorder on and off give the same model text.  The
 aggregate, doctor, slice-lost and bench cases of tests/test_flight.py
-belong to modules the port has not ported (ROADMAP queue A8, A9 rest
-and A11 rest).
+belong to modules the port has not ported (ROADMAP queue A9 rest and
+A11 rest).
 """
 
 import glob

@@ -52,7 +52,9 @@ def test_import_pulls_in_no_jax():
                 "obs.flight", "obs.watchdog", "obs.http",
                 "serving.metrics", "utils.envflags", "utils.timer",
                 "fleet.aot", "fleet.registry", "fleet.router",
-                "fleet.topology", "resilience", "resilience.faults"):
+                "fleet.topology", "resilience", "resilience.faults",
+                "resilience.checkpoint", "resilience.retry", "capi",
+                "application"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 

@@ -125,7 +125,9 @@ def test_continued_training_checks_its_init_model():
         lt.train(dict(BINARY), lt.Dataset(X, label=Y, params=dict(BINARY),
                                           device="cpu").construct(), 1,
                  init_model=same, verbose_eval=False)
-    with pytest.raises(NotImplementedError, match="A8"):
+    # a resume point that does not exist (checkpoints: test_torch_checkpoint)
+    from lightgbm_tpu_torch.resilience import CheckpointNotFoundError
+    with pytest.raises(CheckpointNotFoundError):
         lt.train(dict(BINARY), lt.Dataset(X, label=Y, device="cpu"), 1,
                  resume_from="ckpt", verbose_eval=False)
 

@@ -15,8 +15,9 @@ versions).
 - The engine with a valid set, the blockers (the JAX package's warning
   and error texts), DART and rollback, ``update_chunk``, the spill
   store (both ways between the packages, corruption, short reads, an
-  unfinalized store), ``BlockPump`` over every block and over a list, and
-  the
+  unfinalized store), ``BlockPump`` over every block and over a list,
+  a checkpoint written mid-stream (resumed streamed and resident, its
+  manifest naming the store's geometry), and the
   planner's verdicts (tests/test_stream.py:367-421, on the port's
   device model) and host model (the JAX package's numbers).
 """
@@ -140,6 +141,48 @@ def test_engine_train_with_valid_set():
     m_s, ev_s = run(300)
     assert m_s == m_r
     assert ev_s == ev_r
+
+
+def test_resume_mid_stream(tmp_path):
+    """tests/test_stream.py's case: a bundle written mid-stream resumes
+    to the byte-identical final model, streamed and restored into a
+    resident run (streamed equals resident, so bundles cross)."""
+    snap = str(tmp_path / "m.txt")
+    params = dict(BASE, bagging_fraction=0.7, bagging_freq=1)
+
+    def run(stream, resume=None):
+        ds = lt.Dataset(X, label=Y_BIN, free_raw_data=False, device="cpu")
+        with stream_override(force=stream, block_rows=256 if stream
+                             else None):
+            b = lt.train(params, ds, num_boost_round=14, verbose_eval=False,
+                         snapshot_freq=5, snapshot_out=snap,
+                         resume_from=resume)
+        assert (b.boosting._stream is not None) == stream
+        return b.model_to_string()
+
+    full = run(True)
+    assert run(True, resume=snap + ".ckpt") == full
+    assert run(False, resume=snap + ".ckpt") == full
+
+
+def test_checkpoint_records_stream_provenance(tmp_path):
+    import glob
+    import json
+    import zipfile
+    snap = str(tmp_path / "m.txt")
+    ds = lt.Dataset(X, label=Y_BIN, free_raw_data=False, device="cpu")
+    with stream_override(force=True, block_rows=256):
+        b = lt.train(BASE, ds, num_boost_round=4, verbose_eval=False,
+                     snapshot_freq=2, snapshot_out=snap)
+    bundle = sorted(glob.glob(snap + ".ckpt/*.lgbckpt"))[-1]
+    with zipfile.ZipFile(bundle) as zf:
+        man = json.loads(zf.read("manifest.json"))
+    sp = man["stream_plan"]
+    assert sp is not None and sp["stream"]
+    assert sp["store_num_blocks"] >= 2
+    assert sp["store_block_rows"] == 256
+    assert sp["store_path"] == b.boosting._stream.store.path
+    assert man["hist_plan"]["growth"] == "stream"
 
 
 def test_update_chunk_trains_one_iteration_at_a_time():
