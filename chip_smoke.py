@@ -135,6 +135,19 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   left the serial tree is printed as ``equals_serial``), each rank's
   launches and collectives held to ``shard_expected``; a
   rank that fails fails the script;
+- ``hybrid_train`` (queue A9, rest): four ranks as four spawned
+  processes on the one card, gloo over a FileStore, on a 2 x 2 two-tier
+  mesh (``LGBM_TPU_NUM_SLICES=2``): 400,000 x 28, 255 leaves, f32 and
+  quantized data-parallel with hierarchical and with flat sums (the
+  serial rounds twin's text; one quantized text), voting at top_k 4
+  per slice (its plain-version run's text; whether its first tree is
+  flat voting's is printed), one 2-D tree on a (data, feature) mesh (the
+  serial grower's tree) and the elastic shrink (a bundle every 2 of 4
+  rounds, a membership probe with slice 1 stalled that fails on every
+  rank, the survivors' 2-rank group resuming to 6 rounds, equal to 2
+  ranks from scratch, its ``predict`` through B1 equal to the plain
+  version); each rank's launches and per-tier collectives exact
+  (``hybrid_expected``, ``twod_expected``);
 - ``stream_train`` (queue A10): the training run's 1,000,000 x 28 f32
   rows through ``Dataset.from_sample`` (bins from 200,000 rows) and
   ``push_rows`` in 100,000-row chunks (B3 once a chunk), spilled to a
@@ -4182,6 +4195,517 @@ def phase_sharded_train(lt, f32_run, smi, device="cuda", rows=None,
     return summed
 
 
+# hybrid_train (queue A9, rest): four ranks, four spawned processes on
+# the one card in a gloo group over a FileStore, LGBM_TPU_NUM_SLICES=2
+# (a 2 x 2 two-tier mesh), HYBRID_ROWS rows of the training run's
+# HIGGS-width data, 255 leaves, 255 bins: HYBRID_ROUNDS rounds of f32
+# data hierarchical (the serial rounds twin's text) and flat (the same
+# text), quantized hierarchical and flat (one text); VOTING_ROUNDS of
+# voting at top_k 4 per slice (its plain-version run's text) and one
+# round flat (whether its tree is the per-slice vote's first is printed);
+# one 2-D tree on a (data, feature) mesh (the serial grower's tree); and
+# the elastic shrink, quantized with deterministic rounding (a world-
+# free model, and a third of f32's bytes a sum): 4 ranks train
+# ELASTIC_FIRST rounds with a bundle every 2, a membership probe with
+# slice 1's transport stalled fails on ranks 0 and 1, ranks 2 and 3
+# exit, and the survivors resume to ELASTIC_ROUNDS in a fresh 2-rank
+# group, equal to 2 ranks from scratch.  Cuts, so the phase stays under
+# 150 s: 1,000,000 rows to 400,000, voting's 3 rounds to 2 per slice and
+# 1 flat (gloo's host round-trips, ~60-150 ms a 22 MB data round and
+# ~7-10 ms a voting sum, not the rows, set the time)
+HYBRID_WORLD, HYBRID_SLICES, HYBRID_ROUNDS, VOTING_ROUNDS = 4, 2, 3, 2
+HYBRID_ROWS, HYBRID_VALID_ROWS, HYBRID_TIMEOUT_S = 400_000, 50_000, 600
+ELASTIC_FIRST, ELASTIC_ROUNDS = 4, 6
+ELASTIC_PARAMS = dict(QUANT_PARAMS, tree_learner="data",
+                      stochastic_rounding=False)
+HYBRID_TOPK = 4
+HYBRID_MODES = (
+    # name, params, LGBM_TPU_HIER_REDUCE, rounds, twin
+    ("data_hier", dict(TRAIN_PARAMS, tree_learner="data"), "1",
+     HYBRID_ROUNDS, "serial"),
+    ("data_flat", dict(TRAIN_PARAMS, tree_learner="data"), "0",
+     HYBRID_ROUNDS, "data_hier"),
+    ("quant_hier", dict(QUANT_PARAMS, tree_learner="data"), "1",
+     HYBRID_ROUNDS, None),
+    ("quant_flat", dict(QUANT_PARAMS, tree_learner="data"), "0",
+     HYBRID_ROUNDS, "quant_hier"),
+    ("voting_slice", dict(SERIAL_PARAMS, tree_learner="voting",
+                          top_k=HYBRID_TOPK), "1", VOTING_ROUNDS, "plain"),
+    ("voting_flat", dict(SERIAL_PARAMS, tree_learner="voting",
+                         top_k=HYBRID_TOPK), "0", 1, None),
+)
+
+
+def hybrid_expected(mode: str, grower, hier: bool, B: int) -> dict:
+    """A rank's exact launches and per-tier collectives over T trees (R
+    rounds run, or S split steps) on the 2 x 2 mesh: the data modes'
+    kernels as ``shard_expected``; each tree's peaks one flat all-reduce
+    (``dcn+ici``); every histogram sum (the root, ``KCAP`` slots a
+    round) one all-reduce a tier hierarchical (``ici`` then ``dcn``,
+    each moving ``hist_payload_bytes``), one over ``dcn+ici`` flat, as
+    are the quantized root totals; voting per slice sums each search's
+    whole histograms over ``ici``, gathers the votes and sums the
+    elected ones over ``dcn``; every tree gathers its leaf ids over the
+    mesh, every booster its data check over the group."""
+    from lightgbm_tpu_torch.ops.histogram import hist_payload_bytes
+    quant = mode.startswith("quant")
+    out = {"all_gather@flat": 1}
+    if mode.startswith("voting"):
+        T, S = len(grower.steps), sum(grower.steps)
+        out.update({
+            "histogram_pallas": T + S, "fused_sibling_scan": 2 * T + 3 * S,
+            "fused_frontier_accumulate": 0, "fused_frontier_splits": 0})
+        full = hist_payload_bytes(28, B)
+        vote = hist_payload_bytes(HYBRID_TOPK, B)
+        if hier:
+            out.update({
+                "all_reduce@dcn+ici": T, "all_reduce@ici": 2 * T + S,
+                "all_reduce@ici_bytes": 24 * T + full * (T + 2 * S),
+                "all_reduce@dcn": 2 * T + 2 * S,
+                "all_reduce@dcn_bytes": 24 * T + vote * (T + 2 * S),
+                "all_gather@dcn": 2 * T + 2 * S, "all_gather@dcn+ici": T})
+        else:
+            out.update({"all_reduce@dcn+ici": 3 * T + 2 * S,
+                        "all_gather@dcn+ici": 3 * T + 2 * S})
+        return out
+    T = len(grower.round_counts)
+    R = sum(r for r, _ in grower.round_counts)
+    q = "_int8" if quant else ""
+    other = "" if q else "_int8"
+    out.update({"fused_frontier_accumulate" + q: T + R,
+                "fused_slot_order" + q: T + R,
+                "fused_sibling_scan" + q: T + R,
+                "fused_frontier_splits" + q: 0, "histogram_pallas": 0,
+                **{k + other: 0 for k in F32_ENTRIES},
+                "all_gather@dcn+ici": T})
+    hist = hist_payload_bytes(28, B, quant=quant) * (T + R * grower.KCAP)
+    sums = (2 if quant else 1) * T + R       # histograms (+ root totals)
+    if hier:
+        tier_bytes = hist + (24 * T if quant else 0)
+        out.update({"all_reduce@dcn+ici": T, "all_reduce@ici": sums,
+                    "all_reduce@dcn": sums, "all_reduce@ici_bytes":
+                    tier_bytes, "all_reduce@dcn_bytes": tier_bytes})
+    else:
+        out["all_reduce@dcn+ici"] = T + sums
+    return out
+
+
+def twod_expected(grower) -> dict:
+    """The 2-D tree's launches and collectives on the (data, feature)
+    mesh: B6 and B5 at the root and each split step; over the data axis
+    the peaks, the root and each smaller child's histogram of this
+    rank's features; over the feature axis each step's row sides and
+    each search's gathered candidates."""
+    from lightgbm_tpu_torch.ops.histogram import hist_payload_bytes
+    S = sum(grower.steps)
+    local = hist_payload_bytes(grower.F, grower.B)
+    return {"histogram_pallas": 1 + S, "fused_sibling_scan": 1 + S,
+            "fused_frontier_accumulate": 0, "all_reduce@data": 2 + S,
+            "all_reduce@data_bytes": 24 + local * (1 + S),
+            "all_reduce@feature": S,
+            "all_reduce@feature_bytes": S * grower.n,
+            "all_gather@feature": 1 + S}
+
+
+def _sync_group(device, group):
+    from lightgbm_tpu_torch.parallel import collectives
+    if device == "cuda":
+        torch.cuda.synchronize()
+    collectives.psum_tiered(torch.zeros(1, dtype=torch.int64), group)
+
+
+def _counted_ok(rank, name, got, expected, counted) -> None:
+    """Fails unless each expected collective (a key with a tier, ``@``)
+    and, where ``counted``, each expected launch count is ``got``'s."""
+    bad = {k: (got.get(k, 0), v) for k, v in expected.items()
+           if (counted or "@" in k) and got.get(k, 0) != v}
+    if bad:
+        raise AssertionError(f"rank {rank} {name}: (counted, expected) "
+                             f"{bad}")
+
+
+def hybrid_worker(rank, tmp, device, rows, rounds, leaves, counted):
+    """One rank of ``phase_hybrid_train`` (a spawned process): the gloo
+    group over a FileStore in ``tmp`` (``parallel.network.new_group``),
+    the Dataset of every row through B3, the modes of ``HYBRID_MODES``,
+    the 2-D tree and the elastic shrink; each run's model text,
+    seconds, launches, collectives and plan written to ``tmp``.
+    ``counted``: hold the launches to ``hybrid_expected`` (False where
+    the kernels' plain versions run).  Ends with ``os._exit``: a rank
+    whose slice was lost keeps a transport thread blocked in the old
+    group, which must not hold the process at exit."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    out = {"rank": rank, "modes": {}}
+    try:
+        _hybrid_rank(rank, tmp, device, rows, rounds, leaves, counted, out)
+    except BaseException as e:      # noqa: BLE001 - reported to the parent
+        import traceback
+        out["error"] = "".join(traceback.format_exception(e))
+    with open(os.path.join(tmp, f"hybrid_rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def _hybrid_rank(rank, tmp, device, rows, rounds, leaves, counted, out):
+    import torch.distributed as dist
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.grower import GrowerConfig, SerialGrower
+    from lightgbm_tpu_torch.ops import fused
+    from lightgbm_tpu_torch.ops import predict_kernels as pk
+    from lightgbm_tpu_torch.parallel import collectives, learners
+    from lightgbm_tpu_torch.parallel.network import new_group, use_group
+    from lightgbm_tpu_torch.resilience import (ChaosRegistry,
+                                               ResilienceConfig,
+                                               SliceLostError,
+                                               membership_probe,
+                                               shrink_and_resume)
+    from lightgbm_tpu_torch.testing import higgs_like
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    os.environ["LGBM_TPU_NUM_SLICES"] = str(HYBRID_SLICES)
+    os.environ.pop("LGBM_TPU_SLICE_DEVICES", None)
+    group = new_group(dist.FileStore(os.path.join(tmp, "store"),
+                                     HYBRID_WORLD), rank, HYBRID_WORLD,
+                      HYBRID_TIMEOUT_S, prefix="hybrid")
+    X, y = higgs_like(rows, seed=11)
+    Xv, _ = higgs_like(HYBRID_VALID_ROWS, seed=12)
+
+    def text_to(name, text):
+        with open(os.path.join(tmp, f"{name}_{rank}.txt"), "w") as f:
+            f.write(text)
+
+    def counts():
+        return dict(kernel_launches(), **collectives.op_counts)
+
+    reset_training_counts()
+    with use_group(group):
+        ds = lt.Dataset(X, label=y, device=device).construct()
+        out["b3_launches"] = kernel_launches()["ingest"]
+        for name, params, hier, mode_rounds, twin in HYBRID_MODES:
+            params = dict(params, num_leaves=leaves)
+            mode_rounds = min(rounds, mode_rounds)
+            os.environ["LGBM_TPU_HIER_REDUCE"] = hier
+            _sync_group(device, group)
+            reset_training_counts()
+            collectives.reset_op_counts()
+            t0 = time.perf_counter()
+            bst = lt.train(params, ds, mode_rounds, verbose_eval=False)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            b = bst.boosting
+            got = counts()
+            rec = {"s_per_tree": seconds / mode_rounds,
+                   "launches": kernel_launches(),
+                   "collectives": dict(collectives.op_counts),
+                   "plan": b.collective_plan.summary(),
+                   "mesh": dict(b.group.shape),
+                   "leaves_per_tree": [m.num_leaves for m in bst.models],
+                   "expected": hybrid_expected(name, b.grower, hier == "1",
+                                               b.grower.B),
+                   "b5_modes": dict(fused.scan_modes)}
+            rec["num_bins"] = b.grower.B
+            _counted_ok(rank, name, got, rec["expected"], counted)
+            text_to(name, bst.model_to_string())
+            if twin == "plain":
+                _sync_group(device, group)
+                saved = plain_kernels()
+                reset_training_counts()
+                try:
+                    bst_p = lt.train(params, ds, mode_rounds,
+                                     verbose_eval=False)
+                finally:
+                    restore_kernels(saved)
+                if any(kernel_launches().values()):
+                    raise AssertionError("launch counts rose with no "
+                                         f"kernel launched: "
+                                         f"{kernel_launches()}")
+                text_to(name + "_plain", bst_p.model_to_string())
+            out["modes"][name] = rec
+            del bst, b
+
+        # (e) one 2-D tree on a (data, feature) mesh, the staged arm
+        os.environ.pop("LGBM_TPU_HIER_REDUCE")
+        meta = ds.feature_meta()
+        cfg = GrowerConfig(num_leaves=leaves, num_bins=int(meta.max_num_bin),
+                           hp=Config.from_params(
+                               dict(TRAIN_PARAMS)).split_hyperparams())
+        yt = torch.as_tensor(y, device=device)
+        grad, hess = 0.5 - yt, torch.full_like(yt, 0.25)
+        mesh2 = learners.make_mesh(group, (learners.DATA_AXIS,
+                                           learners.FEATURE_AXIS), (2, 2))
+        i = mesh2.coords[learners.DATA_AXIS]
+        mine = torch.as_tensor(learners.contiguous_layout(rows, 2).rows(i),
+                               device=device)
+        serial = SerialGrower(ds.binned_t, meta, cfg)
+        ref, ref_leaf = serial.grow(grad, hess, torch.ones_like(grad))
+        _sync_group(device, group)
+        reset_training_counts()
+        collectives.reset_op_counts()
+        t0 = time.perf_counter()
+        g2 = learners.create_parallel_grower("data_feature", mesh2,
+                                             ds.binned_t, meta, cfg)
+        tree, leaf = g2.grow(grad[mine], hess[mine],
+                             torch.ones(len(mine), device=device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0,
+               "launches": kernel_launches(),
+               "collectives": dict(collectives.op_counts),
+               "expected": twod_expected(g2), "steps": sum(g2.steps),
+               "equal_to_serial": all(
+                   torch.equal(getattr(tree, f).cpu(),
+                               getattr(ref, f).cpu())
+                   for f in tree._fields if f != "num_leaves")
+               and int(tree.num_leaves) == int(ref.num_leaves)
+               and torch.equal(leaf, ref_leaf[mine])}
+        _counted_ok(rank, "2d", counts(), rec["expected"], counted)
+        if not rec["equal_to_serial"]:
+            raise AssertionError(f"rank {rank}: the 2-D tree differs from "
+                                 "the serial grower's")
+        out["modes"]["2d"] = rec
+        del serial, g2
+
+        # (f) elastic: 4 ranks, a bundle every 2 rounds, then slice 1's
+        # transport stalls and the probe fails on the survivors
+        params = dict(ELASTIC_PARAMS, num_leaves=leaves)
+        ck = os.path.join(tmp, f"elastic_{rank}", "m.txt")
+        _sync_group(device, group)
+        reset_training_counts()
+        collectives.reset_op_counts()
+        t0 = time.perf_counter()
+        first = lt.train(params, ds, ELASTIC_FIRST, verbose_eval=False,
+                         snapshot_freq=2, snapshot_out=ck)
+        rec = {"first_s": time.perf_counter() - t0,
+               "first_plan": first.boosting.collective_plan.summary(),
+               "first_launches": kernel_launches()}
+        del first
+        stalled = (2, 3)
+        chaos = ChaosRegistry(",".join(
+            f"allgather.stall@{i}:rank={r}:sec=3600"
+            for r in stalled for i in range(4)), seed=11)
+        t0 = time.perf_counter()
+        try:
+            membership_probe(
+                chaos.wrap_allgather(lambda p: collectives.all_gather_bytes(
+                    p, group), rank), world=HYBRID_WORLD, rank=rank,
+                config=ResilienceConfig(deadline_s=3.0, max_retries=2,
+                                        base_backoff_s=0.01))
+            rec["probe"] = "committed"
+        except SliceLostError:
+            rec["probe"] = "SliceLostError"
+        rec["probe_s"] = time.perf_counter() - t0
+        out["modes"]["elastic"] = rec
+        if rank in stalled:
+            rec["exited"] = True
+            return
+    # the survivors' fresh group: ranks 0 and 1 of a new FileStore
+    survivors = new_group(dist.FileStore(os.path.join(tmp, "store2"), 2),
+                          rank, 2, HYBRID_TIMEOUT_S, prefix="survivors")
+    with use_group(survivors):
+        _sync_group(device, survivors)
+        reset_training_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = shrink_and_resume(params, ds, os.path.dirname(ck) + "/m.txt"
+                                ".ckpt", num_slices=HYBRID_SLICES,
+                                devices_per_slice=HYBRID_WORLD
+                                // HYBRID_SLICES, lost_slices=1,
+                                num_boost_round=ELASTIC_ROUNDS,
+                                verbose_eval=False)
+        rec["resume_s"] = time.perf_counter() - t0
+        rec["resume_launches"] = kernel_launches()
+        rec["resume_world"] = res.boosting.world
+        rec["resume_mesh_shape"] = res.boosting._row_layout()["mesh_shape"]
+        text_to("elastic_resumed", res.model_to_string())
+        rec["predict_b1_launches"] = predict_vs_plain_on(pk, res, Xv,
+                                                         device, counted)
+        fresh = lt.train(params, ds, ELASTIC_ROUNDS, verbose_eval=False)
+        text_to("elastic_fresh", fresh.model_to_string())
+
+
+def predict_vs_plain_on(pk, bst, Xv, device, counted=True) -> int:
+    """``predict_vs_plain`` on ``device``: ``Booster.predict`` of ``Xv``
+    through B1's scores mode, bit for bit against its plain version;
+    returns the launches, held (where ``counted``) to one a
+    ``PREDICT_CHUNK_ROWS`` chunk."""
+    from lightgbm_tpu_torch.ops import planner
+    pk.reset_launch_counts()
+    raw = bst.predict(Xv, raw_score=True)
+    launches = pk.launch_counts[KERNEL + "[scores]"]
+    dev = bst._device_forest(bst._forest(0, len(bst.models)))
+    plain = pk.traverse_plain(dev, torch.from_numpy(
+        np.ascontiguousarray(Xv, np.float32)).to(device), 1,
+        emit_scores=True)[0].cpu().numpy().astype(np.float64)
+    if not np.array_equal(raw.view(np.uint64), plain.view(np.uint64)):
+        raise AssertionError("the resumed Booster.predict differs from "
+                             "B1's plain version")
+    want = -(-len(Xv) // planner.PREDICT_CHUNK_ROWS)
+    if counted and launches != want:
+        raise AssertionError(f"the resumed Booster.predict launched B1 "
+                             f"{launches} times, not {want}")
+    return launches
+
+
+def phase_hybrid_train(lt, smi, device="cuda", rows=None, leaves=255,
+                       counted=True) -> dict:
+    """Two tiers, the 2-D layout and the elastic shrink (queue A9, rest)
+    on the card: the serial twins in this process, then ``HYBRID_WORLD``
+    spawned ranks (``hybrid_worker``); fails if a rank fails or hangs,
+    or a text, a launch count or a tier's collectives differ from what
+    they are held to.  Returns rank 0's launches summed over its runs."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as torch_mp
+
+    from lightgbm_tpu_torch.ops.histogram import hist_payload_bytes
+    t_phase = time.perf_counter()
+    from lightgbm_tpu_torch.testing import higgs_like
+    rows = rows or HYBRID_ROWS
+    X, y = higgs_like(rows, seed=11)
+    reset_training_counts()
+    ds = lt.Dataset(X, label=y, device=device).construct()
+    b3_lone = kernel_launches()["ingest"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = lt.train(dict(TRAIN_PARAMS, num_leaves=leaves), ds,
+                    HYBRID_ROUNDS, verbose_eval=False)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    serial_s = (time.perf_counter() - t0) / HYBRID_ROUNDS
+    serial_text = trees_of(twin.model_to_string())
+    del twin, ds
+    tmp = tempfile.mkdtemp(prefix="lgbt-hybrid-")
+    try:
+        ctx = torch_mp.start_processes(
+            hybrid_worker, args=(tmp, device, rows, HYBRID_ROUNDS, leaves,
+                                 counted),
+            nprocs=HYBRID_WORLD, join=False, start_method="spawn")
+        deadline = time.perf_counter() + HYBRID_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise TimeoutError(f"the ranks ran past {HYBRID_TIMEOUT_S}"
+                                   " s")
+        ranks = []
+        for r in range(HYBRID_WORLD):
+            with open(os.path.join(tmp, f"hybrid_rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+        for rk in ranks:
+            if "error" in rk:
+                raise AssertionError(f"hybrid_train rank {rk['rank']}:\n"
+                                     f"{rk['error']}")
+        texts = {}
+        names = [n for n, *_ in HYBRID_MODES] + ["voting_slice_plain"]
+        for r in range(HYBRID_WORLD):
+            for name in names:
+                with open(os.path.join(tmp, f"{name}_{r}.txt")) as f:
+                    texts[(name, r)] = trees_of(f.read())
+        for r in range(2):
+            for name in ("elastic_resumed", "elastic_fresh"):
+                with open(os.path.join(tmp, f"{name}_{r}.txt")) as f:
+                    texts[(name, r)] = trees_of(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = []
+    for rk in ranks:
+        if rk["b3_launches"] != b3_lone:
+            failed.append(f"rank {rk['rank']}: B3 {rk['b3_launches']} "
+                          f"launches, a lone construct {b3_lone}")
+    want = {"data_hier": serial_text,
+            "data_flat": texts[("data_hier", 0)],
+            "quant_hier": texts[("quant_hier", 0)],
+            "quant_flat": texts[("quant_hier", 0)],
+            "voting_slice": texts[("voting_slice_plain", 0)],
+            "voting_flat": texts[("voting_flat", 0)]}
+    for name, text in want.items():
+        for r in range(HYBRID_WORLD):
+            if texts[(name, r)] != text:
+                failed.append(f"{name} on rank {r}: the trees differ from "
+                              "its twin")
+    for r in range(2):
+        if texts[("elastic_resumed", r)] != texts[("elastic_fresh", 0)]:
+            failed.append(f"elastic on rank {r}: the resumed trees differ "
+                          "from 2 ranks' from scratch")
+    modes = {}
+    r0 = ranks[0]["modes"]
+    for name, params, hier, mode_rounds, _ in HYBRID_MODES:
+        mode_rounds = min(HYBRID_ROUNDS, mode_rounds)
+        rec = r0[name]
+        if rec["plan"]["mesh_shape"] != [HYBRID_SLICES, HYBRID_WORLD
+                                         // HYBRID_SLICES]:
+            failed.append(f"{name}: mesh {rec['plan']['mesh_shape']}")
+        if rec["plan"]["hierarchy_elected"] != (hier == "1"):
+            failed.append(f"{name}: hierarchy_elected "
+                          f"{rec['plan']['hierarchy_elected']}")
+        c = rec["collectives"]
+        modes[name] = {
+            "s_per_tree": [rk["modes"][name]["s_per_tree"] for rk in ranks],
+            "serial_s_per_tree": serial_s,
+            "leaves_per_tree": rec["leaves_per_tree"],
+            "elected": rec["plan"]["elected"],
+            "plan": rec["plan"],
+            "tiers": {k: v for k, v in c.items() if "@" in k},
+            "rounds": mode_rounds,
+            "all_reduces_per_tree": c["all_reduce"] / mode_rounds,
+            "hist_payload_bytes": hist_payload_bytes(
+                28, rec["num_bins"],
+                quant=bool(params.get("use_quantized_grad"))),
+            "launches_rank0": {k: v for k, v in rec["launches"].items()
+                               if v},
+            "expected_rank0": rec["expected"]}
+    modes["voting_slice"]["first_tree_equals_flat_voting"] = (
+        head_trees(texts[("voting_slice", 0)], 1)
+        == head_trees(texts[("voting_flat", 0)], 1))
+    el = ranks[0]["modes"]["elastic"]
+    for rk in ranks:
+        e = rk["modes"]["elastic"]
+        if e["probe"] != "SliceLostError":
+            failed.append(f"rank {rk['rank']}: the probe {e['probe']}")
+        if rk["rank"] >= 2 and not e.get("exited"):
+            failed.append(f"rank {rk['rank']} did not exit")
+    if el.get("resume_world") != 2 or el.get("resume_mesh_shape") != [1, 2]:
+        failed.append(f"elastic: resumed world {el.get('resume_world')}, "
+                      f"mesh {el.get('resume_mesh_shape')}")
+    summed = {}
+    for name in list(r0):
+        for key in ("launches", "first_launches", "resume_launches"):
+            for k, v in r0[name].get(key, {}).items():
+                summed[k] = summed.get(k, 0) + v
+    summed["ingest"] = summed.get("ingest", 0) + ranks[0]["b3_launches"]
+    summed[KERNEL + "[scores]"] = el.get("predict_b1_launches", 0)
+    emit({"phase": "hybrid_train", "world": HYBRID_WORLD,
+          "mesh": [HYBRID_SLICES, HYBRID_WORLD // HYBRID_SLICES],
+          "rows": rows, "rounds": HYBRID_ROUNDS, "num_leaves": leaves,
+          "backend": "gloo", "modes": modes,
+          "twod": {k: r0["2d"][k] for k in ("seconds", "steps",
+                                            "equal_to_serial",
+                                            "collectives", "expected")},
+          "elastic": {k: el.get(k) for k in (
+              "first_s", "first_plan", "probe", "probe_s", "resume_s",
+              "resume_world", "resume_mesh_shape",
+              "predict_b1_launches")},
+          "nvidia_smi": smi, "phase_s": time.perf_counter() - t_phase,
+          "failed": failed,
+          "checked": "data hier text = serial rounds twin's = data flat; "
+                     "quant hier = quant flat; voting per slice = its "
+                     "plain-version run's; 2-D tree = serial grower's; "
+                     "elastic resumed = 2 ranks from scratch, B1 predict "
+                     "= plain; per-rank launches and per-tier collectives "
+                     "exact"})
+    if failed:
+        raise AssertionError(f"hybrid_train: {failed}")
+    return summed
+
+
+
 def stream_dataset(lt, X, y, spill, block_rows, push_rows=None):
     """``Dataset.from_sample`` of the first ``STREAM_SAMPLE_ROWS`` rows on
     the card and ``push_rows`` of every row in ``STREAM_PUSH_ROWS``-row
@@ -5493,6 +6017,7 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     serial_launches = phase_serial_train(lt, train_run, train_data, efb_ds,
                                          train_stats)
     sharded_launches = phase_sharded_train(lt, train_run, smi)
+    hybrid_launches = phase_hybrid_train(lt, smi)
     stream_launches = phase_stream_train(lt, pk, train_data, smi)
     phase_obs_trace(lt, pk, train_run, smi)
     ckpt_launches = phase_ckpt_cli(lt, pk, train_run, train_data, smi)
@@ -5660,15 +6185,19 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     for row in table:
         if row["name"] in ckpt_of:
             row["ckpt_cli_launches"] = ckpt_launches[ckpt_of[row["name"]]]
-    # and on the serial_train, sharded_train and stream_train paths
-    # (every training entry, f32 and int8; sharded_train's: rank 0's;
-    # stream_train's B1: the bulk scorer's leaves mode)
+    # and on the serial_train, sharded_train, hybrid_train and
+    # stream_train paths (every training entry, f32 and int8;
+    # sharded_train's and hybrid_train's: rank 0's, hybrid_train's B1
+    # the resumed booster's predict; stream_train's B1: the bulk
+    # scorer's leaves mode)
     for row in table:
         key = row["name"].replace("[int8]", "_int8")
         if key in serial_launches:
             row["serial_train_launches"] = serial_launches[key]
         if key in sharded_launches:
             row["sharded_train_launches"] = sharded_launches[key]
+        if key in hybrid_launches:
+            row["hybrid_train_launches"] = hybrid_launches[key]
         key = KERNEL + "[leaves]" if row["name"] == KERNEL else key
         if key in stream_launches:
             row["stream_train_launches"] = stream_launches[key]

@@ -56,9 +56,18 @@ mask sliced from the global ones, and the trees' leaf ids of every
 rank's rows are gathered after each tree; the quantization key folds in
 the rank (the JAX package's boosting/gbdt.py:1025-1036).  Feature: the
 grower gets every row and this rank's EFB groups
-(``parallel.learners.feature_layout``).  The configurations the port
-does not cover raise ``NotImplementedError`` naming the ROADMAP item
-that brings them; none is trained another way.
+(``parallel.learners.feature_layout``).  Data and voting on two tiers:
+``parallel.network.mesh_plan`` (one slice a host, or
+``LGBM_TPU_NUM_SLICES``) elects the ``("dcn", "ici")`` mesh, whose
+linear order is the group's, so every rank keeps its rows, and
+``ops.planner.plan_collectives`` (``collective_plan``) elects flat or
+hierarchical sums for the grower, with the tier gauges
+``train_ici_payload_bytes``, ``train_dcn_payload_bytes``,
+``train_num_slices`` and ``train_hier_reduce``.  The 2-D layout
+(``data_feature``) raises the JAX booster's ``ValueError``; it is
+``parallel.learners.create_parallel_grower``'s.  The configurations the
+port does not cover raise ``NotImplementedError`` naming the ROADMAP
+item that brings them; none is trained another way.
 
 Out-of-core training (``data/stream.py``; the JAX package's
 boosting/gbdt.py:133, :1468-1495): ``maybe_stream_setup`` elects it in
@@ -77,8 +86,9 @@ state of the loop as host values (the scores, both ``RandomState``
 streams and the bagging mask, the host and device trees, DART's and
 GOSS's streams in their subclasses, the serial grower's CEGB state),
 and ``restore_state`` puts it into a fresh booster of the same config
-and data, which then trains on as the uninterrupted one did; a bundle
-of another row layout raises (ROADMAP queue A9, resilience/elastic.py).
+and data, which then trains on as the uninterrupted one did, in any row
+layout: the state is global, so a bundle of a larger world resumes in
+a smaller one (``resilience/elastic.py``).
 
 Observability (``obs/``; the JAX package's boosting/gbdt.py:845-895 and
 its timer tags): where ``_configure`` settles the arm (rounds, serial or
@@ -136,14 +146,27 @@ def _route(arrays: dict) -> tuple:
             bool(arrays["is_categorical"][:nl - 1].any()))
 
 
+def booster_tree_learner(name: str) -> str:
+    """The booster's tree learner: serial, data, feature or voting (the
+    JAX package's booster, boosting/gbdt.py:362-367, raises the same
+    ``ValueError`` for any other name; the 2-D layout is
+    ``parallel.learners.create_parallel_grower``'s)."""
+    tl = learners.resolve_tree_learner(name)
+    if tl not in ("serial", "data", "feature", "voting"):
+        raise ValueError(f"unknown tree_learner {str(name).lower()!r}")
+    return tl
+
+
 def check_supported(config: Config) -> None:
     """Raise ``NotImplementedError`` for every configuration outside the
     port so far (gbdt, goss, dart and rf; every objective; f32 or
     quantized gradients; numeric, bundled and categorical features; the
     serial and the rounds grower, CEGB and forced splits; the serial,
-    data-, feature- and voting-parallel tree learners)."""
+    data-, feature- and voting-parallel tree learners, on a flat group
+    or a two-tier mesh), and the JAX booster's ``ValueError`` for a tree
+    learner it does not take."""
     c = config
-    learners.resolve_tree_learner(c.tree_learner)
+    booster_tree_learner(c.tree_learner)
     if c.pre_partition and axis_size(_group_of(c)) > 1:
         raise NotImplementedError(
             "pre_partition=true (each rank's Dataset holds only its own "
@@ -159,7 +182,7 @@ def _group_of(config: Config):
     group (``parallel.network.current_group``) for a sharded tree
     learner with more than one rank, else None."""
     from ..parallel.network import current_group
-    if learners.resolve_tree_learner(config.tree_learner) == "serial":
+    if booster_tree_learner(config.tree_learner) == "serial":
         return None
     g = current_group()
     return g if axis_size(g) > 1 else None
@@ -204,17 +227,15 @@ class GBDT:
                 f"bitsets cover {32 * MAX_CAT_WORDS} (lower max_bin)")
         # the tree learner and its process group, fixed for the booster
         self.tree_learner_type = self._learner_asked = (
-            learners.resolve_tree_learner(config.tree_learner))
+            booster_tree_learner(config.tree_learner))
         self.group = _group_of(config)
         self.world = axis_size(self.group)
         self.rank = axis_index_flat(self.group)
+        self.mesh_plan = None
         if self.group is None:
             self.tree_learner_type = "serial"
         else:
-            from ..parallel.network import mesh_plan
-            mesh_plan(self.world, num_machines=config.num_machines or None,
-                      local_listen_port=config.local_listen_port)
-            self._check_same_data()
+            self._setup_mesh(self._check_same_data())
         self.num_data = self.train_set.num_data
         self.num_bins = int(self.meta.max_num_bin)
         self.binned_t = self.train_set.binned_t
@@ -399,6 +420,22 @@ class GBDT:
             n_forced=0 if forced_plan is None else len(forced_plan[0]),
             forced_exact_parity=config.tpu_forced_split_parity,
             voting_top_k=config.top_k if tl == "voting" else 0)
+        # the two-tier mesh's route of every sum over the rows (the JAX
+        # package's boosting/gbdt.py:800-820): the planner's link model
+        # elects flat or hierarchical; on a flat group the plan is flat
+        self.collective_plan = None
+        if self.group is not None and tl in ("data", "voting"):
+            from ..ops.planner import plan_collectives
+            s = self.mesh_plan.num_slices
+            cp = self.collective_plan = plan_collectives(
+                features=len(self.meta.num_bin), num_bins=self.num_bins,
+                rows_global=self.num_data, quant=quant_on,
+                quant_bins=config.num_grad_quant_bins, num_slices=s,
+                devices_per_slice=self.world // s,
+                voting_k=self.grower_cfg.voting_top_k)
+            self.grower_cfg = self.grower_cfg._replace(
+                num_slices=s, hier_reduce=cp.hierarchical,
+                pinned_reduce=cp.pinned)
         if self._stream is not None:
             # the streamed rounds grower over the spill store (streaming
             # grows by rounds whatever tpu_tree_growth says, as in the JAX
@@ -484,25 +521,69 @@ class GBDT:
             _obs_registry.gauge("train_psum_payload_bytes").set(
                 hist_payload_bytes(len(self.meta.num_bin), self.num_bins,
                                    quant=self._quant_on))
-        # the plan rides every forensic bundle's fingerprint: the ring
-        # may have rolled past the instant when a long run dies
+        cp = self.collective_plan
+        if cp is not None:
+            # what one histogram sum moves over each tier under the
+            # elected route (the trace's per-tier collective.reduce spans)
+            for name, v in (("train_ici_payload_bytes", cp.ici_bytes),
+                            ("train_dcn_payload_bytes", cp.dcn_bytes),
+                            ("train_num_slices", cp.num_slices),
+                            ("train_hier_reduce", cp.hierarchical)):
+                _obs_registry.gauge(name).set(int(v))
+        # the plans ride every forensic bundle's fingerprint: the ring
+        # may have rolled past the instants when a long run dies
         _flight.set_context(hist_plan=plan, num_leaves=c.num_leaves,
-                            objective=c.objective)
+                            objective=c.objective,
+                            collective_plan=(cp.summary() if cp is not None
+                                             else None))
 
-    def _check_same_data(self) -> None:
+    def _setup_mesh(self, hosts: list) -> None:
+        """Data and voting: the two-tier mesh of ``parallel.network.
+        mesh_plan`` (the ranks' ``hosts``, ``LGBM_TPU_NUM_SLICES``,
+        ``num_machines``; the JAX package's boosting/gbdt.py:380-420) in
+        place of the flat group.  Its linear order is the group's rank
+        order, so electing it never moves a row.  A plan whose shards
+        are not the group's ranks raises: no rank drops out."""
+        from ..parallel.network import mesh_plan
+        config = self.config
+        if self.tree_learner_type not in ("data", "voting"):
+            return
+        mp = self.mesh_plan = mesh_plan(
+            self.world, num_machines=config.num_machines or None,
+            local_listen_port=config.local_listen_port, hosts=hosts)
+        if mp.total_shards != self.world:
+            raise ValueError(
+                f"the mesh plan ({mp.num_slices} slice(s) x "
+                f"{mp.devices_per_slice} rank(s) = {mp.total_shards} "
+                f"shards, from {mp.source}) does not hold the process "
+                f"group's {self.world} ranks; set LGBM_TPU_NUM_SLICES / "
+                "LGBM_TPU_SLICE_DEVICES (or num_machines) to the group, or "
+                "train in a group of that size")
+        if mp.hybrid:
+            self.group = learners.make_hybrid_mesh(
+                self.group, num_slices=mp.num_slices)
+
+    def _check_same_data(self) -> list:
         """Every rank must hold the same training set, whose rows the
         booster shards: one all-gather of the row count and a digest of
         the labels, raising where a rank differs (a Dataset of each
         rank's own rows would be sliced again as if it held every row,
-        and the trees would be silently wrong)."""
+        and the trees would be silently wrong).  The same all-gather
+        carries a digest of each rank's host name; returns them, in rank
+        order (the live topology of ``parallel.network.mesh_plan``)."""
         import hashlib
+        import socket
         label = np.ascontiguousarray(self.train_set.metadata.label,
                                      np.float32)
         digest = np.frombuffer(hashlib.sha256(label.tobytes()).digest(),
                                np.int64)
+        host = np.frombuffer(hashlib.sha256(
+            socket.gethostname().encode()).digest()[:8], np.int64)
         mine = torch.as_tensor(np.concatenate(
-            [[self.train_set.num_data], digest]))
+            [[self.train_set.num_data], digest, host]))
         every = all_gather_tiered(mine, self.group)
+        hosts = every[:, -1].tolist()
+        every = every[:, :-1]
         if not bool((every == every[0]).all()):
             raise ValueError(
                 f"tree_learner={self.tree_learner_type} needs the same "
@@ -513,6 +594,7 @@ class GBDT:
                 "rank's own rows (pre_partition, parallel.dist_data."
                 "construct_distributed) waits for ROADMAP queue A9 "
                 "(sharded training on pre-partitioned rows)")
+        return hosts
 
     def _shard_inputs(self):
         """This rank's share of the training set for the grower:
@@ -547,15 +629,23 @@ class GBDT:
         """A per-row tensor [n] -> this rank's rows (data, voting)."""
         return x if self._rows_t is None else x.index_select(0, self._rows_t)
 
+    def _global_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``x`` [..., rows] -> every row's [..., n],
+        in row order: one all-gather of each rank's block, padded to
+        ``n_shard`` (``x`` itself where the rank holds every row)."""
+        if self._rows_t is None:
+            return x
+        pad = x.new_zeros(x.shape[:-1] + (self._n_shard,))
+        pad[..., :x.shape[-1]] = x
+        allb = all_gather_tiered(pad, self.group)        # [W, ..., n_shard]
+        allb = allb.movedim(0, -2).reshape(x.shape[:-1] + (-1,))
+        return allb.index_select(-1, self._slot_of_row)
+
     def _global_leaf_id(self, leaf_id: torch.Tensor) -> torch.Tensor:
-        """This rank's rows' leaf ids -> every row's, in row order: one
-        all-gather of each rank's block, padded to ``n_shard``."""
+        """This rank's rows' leaf ids -> every row's, in row order."""
         if self._rows_t is None:
             return leaf_id
-        pad = leaf_id.new_zeros(self._n_shard, dtype=torch.int32)
-        pad[:leaf_id.shape[0]] = leaf_id
-        allb = all_gather_tiered(pad, self.group).reshape(-1)
-        return allb.index_select(0, self._slot_of_row).to(torch.int64)
+        return self._global_rows(leaf_id.to(torch.int32)).to(torch.int64)
 
     def _build_forced_plan(self):
         """``forcedsplits_filename`` as plan arrays (leaf, used feature,
@@ -953,11 +1043,21 @@ class GBDT:
     # ------------------------------------------------------------ checkpoint
 
     def _row_layout(self) -> dict:
-        """How this booster's rows lie over its ranks (the tree learner,
-        the world and this rank): a bundle restores only into the same
-        layout."""
+        """How this booster's rows lie over its ranks: the tree learner,
+        the world, the mesh shape (the collective plan's ``[slices,
+        ranks a slice]`` for data and voting) and the rows' layout
+        (``contiguous`` blocks, whole ``query`` sets, or ``all`` rows on
+        every rank).  A bundle's state is global, so it restores into
+        any layout (``restore_state``)."""
+        cp = self.collective_plan
+        rows = ("all" if self.layout is None else "query"
+                if getattr(self.objective, "need_group", False)
+                else "contiguous")
         return {"tree_learner": self.tree_learner_type,
-                "world": int(self.world), "rank": int(self.rank)}
+                "world": int(self.world),
+                "mesh_shape": (cp.summary()["mesh_shape"] if cp is not None
+                               else [int(self.world)]),
+                "rows": rows}
 
     def capture_state(self) -> dict:
         """Every mutable state of the training loop as host values (NumPy
@@ -969,7 +1069,12 @@ class GBDT:
         exists in the port).  The per-iteration node and quantization
         keys are ``fold_in(base, iter)``: restoring ``iter`` restores
         them.  GOSS's key stream is ``goss_rng_key`` (``goss.py``);
-        CEGB's cross-tree state is the serial grower's ``cegb_state``."""
+        CEGB's cross-tree state is the serial grower's ``cegb_state``.
+
+        The state is global, whatever the layout: the scores, the masks
+        and the streams are every row's on every rank, and the lazy CEGB
+        bitmap, which holds this rank's rows, is gathered into row order
+        (a collective: every rank captures together)."""
         import copy as _copy
 
         def host(t):
@@ -977,6 +1082,9 @@ class GBDT:
                 t, torch.Tensor) else t
 
         cegb = getattr(self.grower, "cegb_state", None)
+        if cegb is not None and cegb[1] is not None:
+            cegb = (cegb[0], self._global_rows(
+                cegb[1].to(torch.uint8)).to(torch.bool))
         return {
             "boosting_type": self.boosting_type,
             "iter": int(self.iter),
@@ -1006,10 +1114,15 @@ class GBDT:
     def restore_state(self, st: dict) -> None:
         """Inverse of ``capture_state`` into a freshly built booster of
         the same config, training data and valid sets (the engine builds
-        it first).  Refuses a booster whose round graph is already
-        captured, and a bundle of another row layout: an elastic resume
-        into another layout waits for ROADMAP queue A9
-        (resilience/elastic.py)."""
+        it first), in any row layout: the bundle's state is global, and
+        the lazy CEGB bitmap is cut to this rank's rows, as the JAX
+        package's ``retile`` re-tiles (boosting/gbdt.py:1855-1930): an
+        elastic resume into a smaller world
+        (``resilience.elastic.shrink_and_resume``).  Refuses a booster
+        whose round graph is already captured, a bundle of another
+        training set (another row count), and a bundle written before
+        the state was global (it holds a rank's ``row_layout``) in any
+        other layout than its own."""
         import copy as _copy
         from ..grower import TreeArrays
         if st.get("boosting_type") != self.boosting_type:
@@ -1020,14 +1133,20 @@ class GBDT:
             raise ValueError(
                 f"checkpoint has {len(st['valid_scores'])} valid sets, this "
                 f"run has {len(self.valid_scores)}")
-        if (int(st["num_data"]) != self.num_data
-                or st["row_layout"] != self._row_layout()):
+        if int(st["num_data"]) != self.num_data:
             raise ValueError(
-                f"the checkpoint holds {st['num_data']} rows laid out as "
-                f"{st['row_layout']}; this run has {self.num_data} rows "
-                f"laid out as {self._row_layout()}; resuming into another "
-                "row layout (an elastic resume) waits for ROADMAP queue A9 "
-                "(resilience/elastic.py)")
+                f"the checkpoint holds {st['num_data']} rows; this run has "
+                f"{self.num_data}: a bundle resumes only on its own "
+                "training set")
+        old = st["row_layout"]
+        if "rank" in old and old != {"tree_learner": self.tree_learner_type,
+                                     "world": int(self.world),
+                                     "rank": int(self.rank)}:
+            raise ValueError(
+                f"the checkpoint holds one rank's state laid out as {old} "
+                f"(a bundle written before the state was global); this "
+                f"run is {self.tree_learner_type} on {self.world} rank(s), "
+                f"rank {self.rank}: it restores only into its own layout")
         if getattr(self.grower, "graph", None) is not None:
             raise RuntimeError(
                 "restore_state needs a fresh booster: this one has already "
@@ -1068,7 +1187,12 @@ class GBDT:
                     raise ValueError("the checkpoint's lazy CEGB bitmap "
                                      "does not match this run's")
                 if buf is not None:
-                    buf.copy_(dev_t(a))
+                    t = dev_t(a)
+                    if buf.dim() == 2 and "rank" not in old \
+                            and self._rows_t is not None:
+                        # the bitmap is every row's: this rank's rows
+                        t = t.index_select(1, self._rows_t)
+                    buf.copy_(t)
         qs = st.get("quant_scales")
         self._quant_scales = (None if qs is None else
                               [tuple(dev_t(s) for s in sc) for sc in qs])
@@ -1081,7 +1205,7 @@ class GBDT:
         The tree learner cannot change: the rows' layout over the ranks
         is fixed when the booster is built."""
         check_supported(self.config)
-        tl = learners.resolve_tree_learner(self.config.tree_learner)
+        tl = booster_tree_learner(self.config.tree_learner)
         if tl != self._learner_asked:
             raise ValueError(
                 f"Cannot change tree_learner during training (from "

@@ -6,10 +6,9 @@ partition the cold tail for capacity (counterpart of
 planner: which device hosts which replica of which model.
 
 * **devices** come from the mesh-plan seam
-  (``parallel.network.mesh_plan``): the port's plan has one tier, so
-  every device is in slice 0 and the router's same-slice-first order is
-  device-local-first; the JAX package's hybrid slices wait for ROADMAP
-  queue A9's remainder.
+  (``parallel.network.mesh_plan``): on one host every device is in
+  slice 0 unless ``LGBM_TPU_NUM_SLICES`` simulates slices, and the
+  router's same-slice-first order is device-local-first.
 * **placement** is a two-pass greedy election charged with the same
   per-replica cost the one-card residency election uses
   (``ops.planner.fleet_replica_bytes``).  Pass 1 partitions: every
@@ -51,7 +50,8 @@ def plan_devices(n_devices: int,
                  ) -> Tuple[DeviceSpec, ...]:
     """Describe ``n_devices`` serving devices through the mesh-plan seam
     (``parallel.network.mesh_plan``): device ``i`` belongs to slice
-    ``i // devices_per_slice`` (the port's plan is one tier: slice 0)."""
+    ``i // devices_per_slice``, the row-major order of the two-tier
+    mesh."""
     from ..parallel.network import mesh_plan
     n = max(int(n_devices), 1)
     mp = mesh_plan(n)

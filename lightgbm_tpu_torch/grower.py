@@ -78,9 +78,16 @@ Sharded (``shard``, a ``parallel.learners.ShardSpec``; the JAX package's
   rank that owns a split's feature sends the rows' sides
   (``_goes_left``) and a forced split's left sums;
 - **voting**: rows as in data, histograms kept local; each search votes
-  (``_vote``) and sums only the elected features' histograms.
+  (``_vote``) and sums only the elected features' histograms;
+- **data_feature** (the 2-D mesh): a rank's rows and its features; the
+  histograms are summed over the data axis (``row_group``), the
+  candidates gathered and the row sides sent over the feature axis
+  (``group``).
 
-Under a group the serial grower takes the staged family (the JAX
+Every sum over the rows takes the config's route (``hier_reduce``,
+``pinned_reduce``: ``parallel.collectives.psum_tiered``); on a two-tier
+mesh under hierarchical sums the vote is per slice.  Under a group the
+serial grower takes the staged family (the JAX
 package's "fused does not apply"); the rounds grower runs data-parallel
 only (``grower_rounds.py``).
 """
@@ -103,7 +110,9 @@ from .ops.split import (_EPS32, _TWO_EPS32, MAX_CAT_WORDS,
                         SplitResult, clip, best_split_for_leaf, f32,
                         feature_best_splits, fixed_to_f32, leaf_gain,
                         leaf_output, pick_best_feature, quant_count_hist)
-from .parallel.collectives import all_gather_tiered, psum_tiered
+from .parallel.collectives import (DCN_AXIS, HYBRID_AXES, ICI_AXIS,
+                                   ProcessMesh, all_gather_tiered, axis_size,
+                                   psum_tiered)
 from .utils import threefry
 
 
@@ -211,7 +220,10 @@ class GrowerConfig(NamedTuple):
     (splits in the forced plan) and ``forced_exact_parity``
     (``tpu_forced_split_parity``: a forced split's sums take the
     reference's GatherInfoForThreshold convention, the threshold bin
-    on the right); voting-parallel's ``voting_top_k``."""
+    on the right); voting-parallel's ``voting_top_k``.  On a two-tier
+    mesh (``parallel.learners._hybrid_cfg``): its ``num_slices`` and the
+    planner's ``hier_reduce`` and ``pinned_reduce``, the route of every
+    sum over the rows."""
 
     num_leaves: int = 31
     max_depth: int = -1
@@ -232,6 +244,12 @@ class GrowerConfig(NamedTuple):
     forced_exact_parity: bool = False
     voting_top_k: int = 0          # voting-parallel: features each rank
     #                                votes and the group elects
+    num_slices: int = 1            # slices of the two-tier mesh: a
+    #                                hierarchical vote is per slice
+    hier_reduce: bool = False      # sums the fast tier first, then the
+    #                                slow one (collectives.psum_tiered)
+    pinned_reduce: bool = False    # each tier's sum as an all-gather
+    #                                and a fixed-order sum
 
 
 def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,
@@ -424,14 +442,13 @@ class _GrowerCommon:
         self.cfg = cfg
         G, n = binned_t.shape
         self.n = n
-        # sharded training (parallel/learners.py): the mode, the group,
-        # the group the rows are summed over (data and voting) and the
-        # rows over every rank
+        # sharded training (parallel/learners.py): the mode, the group
+        # the features are sharded over, the group (or mesh) the rows are
+        # summed over (data, voting, 2-D) and the rows over every rank
         self.shard = shard
         self.mode = "serial" if shard is None else shard.mode
         self.group = None if shard is None else shard.group
-        self.row_group = (self.group if self.mode in ("data", "voting")
-                          else None)
+        self.row_group = None if shard is None else shard.row_group
         self.rows_global = (shard.rows_global if self.row_group is not None
                             else n)
         L = self.L = cfg.num_leaves
@@ -463,7 +480,7 @@ class _GrowerCommon:
             self.num_bin, self.missing_type, self.default_bin)
         self.g_is_cat, self.g_mc = self.is_cat, self.mc
         self.local_ids = None
-        if self.mode == "feature":
+        if shard is not None and shard.local_features is not None:
             gm = shard.global_meta
             self.gF = len(gm.num_bin)
             gt = gm.tensors(dev)
@@ -611,16 +628,20 @@ class _GrowerCommon:
 
     def _sync_hist(self, h: torch.Tensor) -> torch.Tensor:
         """A histogram of this rank's rows -> of every rank's rows (data
-        mode: the group's exact integer sum, int64 fixed point or int32
-        levels); unchanged in the other modes (voting sums only what the
-        vote elects)."""
-        if self.mode != "data":
+        and 2-D modes: the exact integer sum over the row group, int64
+        fixed point or int32 levels); unchanged in the other modes
+        (voting sums only what the vote elects)."""
+        if self.mode not in ("data", "data_feature"):
             return h
-        return psum_tiered(h, self.row_group)
+        return self._psum_rows(h)
 
-    def _psum_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """Integer totals of this rank's rows -> of every rank's."""
-        return psum_tiered(x, self.row_group)
+    def _psum_rows(self, x: torch.Tensor, axis=None) -> torch.Tensor:
+        """Integer totals of this rank's rows -> of every rank's (or of
+        the ranks of ``axis`` of a two-tier mesh), by the route the
+        config elected."""
+        return psum_tiered(x, self.row_group, axis,
+                           hierarchical=self.cfg.hier_reduce,
+                           pinned=self.cfg.pinned_reduce)
 
     def _reset_carry(self, root, root_sums) -> None:
         """The carry of a new tree: one leaf holding every row, its
@@ -674,7 +695,7 @@ class _GrowerCommon:
                     eru = self.draw_eru[row]
         if self.mode == "voting":
             return self._vote(section, ghist, sums, bounds, fm, eru)
-        feature_mode = self.mode == "feature"
+        feature_mode = self.local_ids is not None
         search = (feature_best_splits if per_feature or feature_mode
                   else best_split_for_leaf)
         with section("kernels"):
@@ -732,9 +753,23 @@ class _GrowerCommon:
         elected (stable: ties -> the smaller feature, as ``lax.top_k``),
         and only the elected features' histograms are summed over the
         group and searched, in ascending feature order (so that with
-        ``voting_top_k`` >= F the pick is the serial one)."""
+        ``voting_top_k`` >= F the pick is the serial one).
+
+        Per slice (the JAX package's hierarchical voting, grower.py:
+        690-760): on a two-tier mesh under hierarchical sums the whole
+        histogram is first summed over the fast tier, so each slice is
+        one voter: its constraints scale by the slice count, its top-k
+        is gathered over the slow tier, and only the elected features'
+        histograms cross it.  The trees then differ from flat voting's."""
         cfg, hp = self.cfg, self.cfg.hp
-        W = self.row_group.size()
+        rg = self.row_group
+        per_slice = (cfg.hier_reduce and isinstance(rg, ProcessMesh)
+                     and rg.axis_names == HYBRID_AXES)
+        vote_axis = DCN_AXIS if per_slice else None
+        if per_slice:
+            with section("collectives"):
+                ghist = self._psum_rows(ghist, ICI_AXIS)
+        W = max(cfg.num_slices, 1) if per_slice else axis_size(rg)
         F = self.F
         k = min(int(cfg.voting_top_k), F)
         NC = ghist.shape[0]
@@ -768,8 +803,8 @@ class _GrowerCommon:
                              stable=True).indices[:, :k]
             top_g = wgain.gather(1, top)
         with section("collectives"):
-            all_i = all_gather_tiered(top, self.row_group)     # [W, NC, k]
-            all_g = all_gather_tiered(top_g, self.row_group)
+            all_i = all_gather_tiered(top, rg, vote_axis)      # [W, NC, k]
+            all_g = all_gather_tiered(top_g, rg, vote_axis)
         with section("kernels"):
             all_i = all_i.permute(1, 0, 2).reshape(NC, -1)
             all_g = all_g.permute(1, 0, 2).reshape(NC, -1)
@@ -785,7 +820,8 @@ class _GrowerCommon:
                                            self.num_bin, e)
                        if self.groups is not None else ghist[c:c + 1][:, :, e])
             with section("collectives"):
-                sub = psum_tiered(sub, self.row_group)
+                sub = psum_tiered(sub, rg, vote_axis,
+                                  pinned=cfg.pinned_reduce)
             fm_c = None if fm is None else (fm[c] if fm.dim() == 2 else fm)
             with section("kernels"):
                 r = best_split_for_leaf(
@@ -811,7 +847,8 @@ class _GrowerCommon:
             from .ops.renew import quant_train_renew_leaf
             leaf_sg, leaf_sh = quant_train_renew_leaf(
                 leaf_id, grad, hess, row_mask, L, self.row_group,
-                self.rows_global)
+                self.rows_global, hierarchical=cfg.hier_reduce,
+                pinned=cfg.pinned_reduce)
         lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
                          hp.max_delta_step)
         if self.use_mc:
@@ -1079,7 +1116,7 @@ class SerialGrower(_GrowerCommon):
             hf = self._feature_hist(self.hist[leaf][0], feat)  # [C, B]
             if self.mode == "voting":
                 # local histograms: this one is summed over the group
-                hf = psum_tiered(hf, self.row_group)
+                hf = self._psum_rows(hf)
         if self.cfg.quant:
             hf = quant_count_hist(hf[None, :, None], cnt)[0, :, 0]
         b, nb = self.bins, self.g_num_bin[feat]

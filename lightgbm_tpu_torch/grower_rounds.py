@@ -99,9 +99,11 @@ group, and each round's smaller children too, between the kernels: the
 fused arm runs B4 (``fused.accumulate``), the group's exact integer
 sum of the [KCAP, C, F, B] arena, then B5 (``fused.sibling_scan``) on
 the summed arena, where the serial run launches the pair as B2; the
-staged arm sums B4's segment histograms before the siblings.  The body
-runs eagerly under a group (a CUDA graph cannot capture gloo's host
-round-trip).
+staged arm sums B4's segment histograms before the siblings.  On a
+two-tier mesh each sum takes the route the config elects
+(``parallel.collectives.psum_tiered``: flat, or the fast tier then the
+slow one).  The body runs eagerly under a group (a CUDA graph cannot
+capture gloo's host round-trip).
 
 The body reads the binned matrix in two places only, the root's
 histogram (``_root_fixed``/``_root_levels``) and each round's pass over

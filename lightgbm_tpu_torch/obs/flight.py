@@ -76,7 +76,9 @@ _ENV_PREFIXES = ("LGBM_TPU", "LIGHTGBM_TPU", "CUDA_", "PYTORCH_",
 # the registry's gauges a bundle's fingerprint repeats (the ring may
 # have rolled past the planner's instants when a long run dies)
 _PLAN_GAUGES = ("train_hist_method", "train_hist_predicted_peak_bytes",
-                "train_hbm_budget_bytes", "train_psum_payload_bytes")
+                "train_hbm_budget_bytes", "train_psum_payload_bytes",
+                "train_num_slices", "train_hier_reduce",
+                "train_ici_payload_bytes", "train_dcn_payload_bytes")
 
 
 def _env_int(name: str, default: int) -> int:

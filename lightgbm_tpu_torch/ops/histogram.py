@@ -55,15 +55,18 @@ the TPU layout work (``histogram_matmul*``, ``segment_histogram_sorted*``,
 sorted and compacted ``*_int`` variants).
 
 Sharded training (``parallel/``): ``fixed_point_scales`` and
-``quantize_gradients`` take the process group, so that every rank
-scales by the global peak (and, in fixed point, the global row count:
-otherwise the ranks' int64 sums would not add); ``hist_payload_bytes``
-counts what one histogram sum moves.  Quantized level histograms are
-summed as int32 (``parallel.collectives.psum_tiered``, exact in any
-order).  The JAX package narrows that sum to int16 where ``rows *
-hess_levels < 2**15``; neither NCCL nor gloo reduces int16, and the
-bound holds only below ~11,000 rows at the default 4 bins, so the port
-has no narrow wire (ROADMAP A9's remainder).
+``quantize_gradients`` take the process group or mesh whose ranks'
+histograms are summed (the whole two-tier mesh, the 2-D mesh's data
+axis), so that every rank scales by their peak (and, in fixed point,
+their row count: otherwise the ranks' int64 sums would not add);
+``hist_payload_bytes`` counts what one histogram sum moves, and
+``ops.planner.plan_collectives`` plans the tiers with it.  Quantized
+level histograms are summed as int32 (``parallel.collectives.
+psum_tiered``, exact in any order and route).  The JAX package narrows
+that sum to int16 where ``rows * hess_levels < 2**15``; neither NCCL nor
+gloo reduces int16, and the bound holds only below ~11,000 rows at the
+default 4 bins, so the port has no narrow wire (ROADMAP A9: it waits
+for a backend with int16 sums).
 """
 
 from __future__ import annotations

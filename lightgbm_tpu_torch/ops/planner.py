@@ -122,7 +122,9 @@ The JAX package's knobs steer it the same way, through
 ``utils.envflags``: ``LGBM_TPU_STREAM`` and ``LGBM_TPU_STREAM_BLOCK_ROWS``
 where ``stream_override`` leaves the choice to the planner,
 ``LGBM_TPU_HOST_BYTES`` for the host's limit and ``LGBM_TPU_HBM_BYTES``
-for the card's; an explicit argument wins over each.
+for the card's; an explicit argument wins over each.  The two-tier
+mesh's election of flat or hierarchical sums (``plan_collectives``)
+closes it.
 """
 
 from __future__ import annotations
@@ -1138,3 +1140,162 @@ def plan_fleet(models, budget_bytes: Optional[int] = None,
         limit_bytes=limit, limit_source=source, evicted=evicted,
         pressure=(wanted / budget) if budget > 0 else float("inf"),
         feasible=not evicted)
+
+
+# ======================================================================
+# The two-tier mesh's reduction election (parallel/collectives.py; the
+# JAX package's planner.py:939-1107).
+#
+# ``plan_collectives`` models one histogram sum on a ("dcn", "ici") mesh
+# of ``num_slices`` slices of ``devices_per_slice`` ranks: flat (one
+# all-reduce over every rank: the whole payload of every rank of a slice
+# crosses the slow tier), hierarchical (the fast tier first, so the slow
+# tier sums ``num_slices`` pre-reduced payloads) and voting (only the
+# elected features' columns cross the slow tier), and elects the
+# cheaper of flat and hierarchical.  The port's tiers are the links
+# inside a host and the links between hosts.
+# ======================================================================
+
+# The link rates the election runs against (GB/s).  These are spec
+# values, not measurements:
+# - the fast tier: NVLink 4 of the H100 SXM, 900 GB/s a card (NVIDIA
+#   H100 Tensor Core GPU data sheet: "NVLink: 900GB/s");
+# - the slow tier: one 400 Gb/s NIC a card, 50 GB/s (NVIDIA ConnectX-7,
+#   NDR InfiniBand / 400GbE, as DGX H100 pairs one with each card).
+# On one host under gloo (the simulated slices of LGBM_TPU_NUM_SLICES)
+# both tiers are the host's memory: the election then changes only the
+# route and the bytes.  LGBM_TPU_ICI_GBPS / LGBM_TPU_DCN_GBPS override.
+DEFAULT_ICI_GBPS = 900.0
+DEFAULT_DCN_GBPS = 50.0
+
+
+def _env_gbps(name: str, default: float) -> float:
+    v = (envflags.read(name) or "").strip()
+    if v:
+        try:
+            return max(float(v), 1e-6)
+        except ValueError:
+            pass
+    return default
+
+
+def _hier_override() -> Optional[bool]:
+    """``LGBM_TPU_HIER_REDUCE``: None = the planner elects, True/False
+    forced."""
+    v = (envflags.read("LGBM_TPU_HIER_REDUCE") or "").strip().lower()
+    if v in ("1", "on", "true", "yes", "force"):
+        return True
+    if v in ("0", "off", "false", "no"):
+        return False
+    return None
+
+
+def pinned_reduce_env() -> bool:
+    """``LGBM_TPU_PINNED_REDUCE=1``: each tier's sum as an all-gather in
+    rank order and a fixed-order sum (``collectives.psum_tiered``'s
+    pinned route).  The port's sums are exact integers, so it changes
+    the route and the bytes, never the model."""
+    return (envflags.read("LGBM_TPU_PINNED_REDUCE") or "").strip().lower() \
+        in ("1", "on", "true", "yes")
+
+
+class CollectivePlan(NamedTuple):
+    """The reduction verdict for one histogram sum.  Byte fields are a
+    sum's: what one [C, F, B] histogram moves over each tier."""
+
+    num_slices: int             # slow-tier participants (1 = one tier)
+    devices_per_slice: int      # fast-tier participants a slice
+    total_shards: int
+    hierarchical: bool          # the fast tier first
+    pinned: bool                # all-gather + fixed-order sum a tier
+    voting_k: int               # >0: only k elected features cross dcn
+    payload_bytes: int          # one whole histogram's bytes
+    ici_bytes: int              # bytes over the fast tier, a rank
+    dcn_bytes: int              # bytes over the slow tier, a slice
+    flat_dcn_bytes: int         # what the flat route moves there
+    est_flat_us: float          # the link model's time of each route
+    est_hier_us: float
+    ici_gbps: float
+    dcn_gbps: float
+    elected: str                # "single" | "flat" | "hierarchical"
+    #                             | "hierarchical+voting"
+
+    def summary(self) -> dict:
+        """JSON form for checkpoint manifests and the probe tool."""
+        return {
+            "mesh_shape": [self.num_slices, self.devices_per_slice],
+            "num_slices": self.num_slices,
+            "total_shards": self.total_shards,
+            "hierarchy_elected": self.hierarchical,
+            "pinned": self.pinned,
+            "voting_k": self.voting_k,
+            "payload_bytes": self.payload_bytes,
+            "ici_bytes": self.ici_bytes,
+            "dcn_bytes": self.dcn_bytes,
+            "flat_dcn_bytes": self.flat_dcn_bytes,
+            "est_flat_us": round(self.est_flat_us, 3),
+            "est_hier_us": round(self.est_hier_us, 3),
+            "ici_gbps": self.ici_gbps,
+            "dcn_gbps": self.dcn_gbps,
+            "elected": self.elected,
+        }
+
+
+def plan_collectives(features: int, num_bins: int, rows_global: int,
+                     quant: bool = False, quant_bins: int = 4,
+                     num_slices: int = 1, devices_per_slice: int = 1,
+                     voting_k: int = 0, pinned: Optional[bool] = None,
+                     ici_gbps: Optional[float] = None,
+                     dcn_gbps: Optional[float] = None) -> CollectivePlan:
+    """Elect flat or hierarchical sums for a (two-tier) data mesh.
+
+    ``features == 0`` plans without shapes (a unit payload: the
+    standalone growers elect before the booster knows F).  ``voting_k``
+    caps at ``features`` when both are known.  ``rows_global`` and
+    ``quant_bins`` are the JAX package's arguments: the port's level
+    sums are int32 whatever the rows (no int16 wire).  The verdict is
+    the ``planner.plan_collectives`` trace instant."""
+    from .histogram import hist_payload_bytes
+    del rows_global, quant_bins
+    s = max(int(num_slices), 1)
+    d = max(int(devices_per_slice), 1)
+    F = max(int(features), 0)
+    k = min(int(voting_k), F) if (voting_k and F) else int(voting_k or 0)
+    ici_bw = ici_gbps if ici_gbps is not None else _env_gbps(
+        "LGBM_TPU_ICI_GBPS", DEFAULT_ICI_GBPS)
+    dcn_bw = dcn_gbps if dcn_gbps is not None else _env_gbps(
+        "LGBM_TPU_DCN_GBPS", DEFAULT_DCN_GBPS)
+    payload = hist_payload_bytes(F or 1, max(int(num_bins), 2), quant=quant)
+    # over the slow tier: the pre-reduced payload (hierarchical), the
+    # elected columns and the vote (voting; without F no saving is
+    # modelled), or every rank's payload (flat)
+    vote_ratio = (k / F) if (k and F) else 1.0
+    dcn_hier = int(payload * (vote_ratio if k else 1.0))
+    if k:
+        dcn_hier += 8 * max(k, 1) * s
+    flat_dcn = payload * d if s > 1 else 0
+    us = 1e6 / 1e9
+    est_flat = ((flat_dcn / dcn_bw + payload / ici_bw) * us if s > 1
+                else (payload / ici_bw) * us)
+    est_hier = (payload / ici_bw + dcn_hier / dcn_bw) * us
+    forced = _hier_override()
+    if s <= 1:
+        hier = False
+        elected = "single" if d <= 1 else "flat"
+    else:
+        hier = forced if forced is not None else est_hier <= est_flat
+        elected = ("hierarchical+voting" if (hier and k) else
+                   "hierarchical" if hier else "flat")
+    pin = pinned_reduce_env() if pinned is None else bool(pinned)
+    plan = CollectivePlan(
+        num_slices=s, devices_per_slice=d, total_shards=s * d,
+        hierarchical=hier, pinned=pin, voting_k=k,
+        payload_bytes=int(payload),
+        ici_bytes=int(payload) if s * d > 1 else 0,
+        dcn_bytes=int(dcn_hier if hier else flat_dcn) if s > 1 else 0,
+        flat_dcn_bytes=int(flat_dcn),
+        est_flat_us=float(est_flat), est_hier_us=float(est_hier),
+        ici_gbps=float(ici_bw), dcn_gbps=float(dcn_bw), elected=elected)
+    from ..obs.trace import instant
+    instant("planner.plan_collectives", features=F, **plan.summary())
+    return plan

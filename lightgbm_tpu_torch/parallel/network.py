@@ -22,6 +22,14 @@ with ``use_group`` (how ranks that are threads of one process, as in the
 CPU tests, each train in their own group), else the default group
 ``init_network`` started, else None (one rank: every tree learner trains
 serially, as the JAX package does on one device).
+
+Two tiers: ``mesh_plan`` partitions a group's ranks into slices (one a
+host, or ``LGBM_TPU_NUM_SLICES`` simulated ones on one host), and
+``parallel.learners.make_mesh`` splits the group into the sub-groups of
+each slice and across them.  A sub-group meets on the store its group
+was built on: ``new_group`` builds a group and remembers its store
+(``sub_groups``), and the default group splits with
+``torch.distributed.new_group``.
 """
 
 from __future__ import annotations
@@ -30,8 +38,10 @@ import contextlib
 import datetime
 import socket
 import threading
-from typing import List, NamedTuple, Optional, Tuple
+import weakref
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+from ..utils import envflags
 from ..utils.log import log_info, log_warning
 
 # the last real (non-dry-run) init_network call
@@ -40,14 +50,19 @@ _thread = threading.local()
 
 
 class MeshPlan(NamedTuple):
-    """How the data-parallel ranks partition into tiers.  The port has
-    one tier (``num_slices`` 1): the JAX package's hybrid ICI x DCN
-    layout waits for ROADMAP A9's remainder."""
+    """How the data-parallel ranks partition into tiers.
+
+    ``num_slices > 1`` elects the two-tier ``("dcn", "ici")`` mesh
+    (``parallel.learners.make_hybrid_mesh``); 1 keeps the flat group.
+    ``source`` records which signal decided (the live topology >
+    simulated slices > num_machines > flat; ``elastic`` for a plan of
+    ``resilience.elastic.plan_shrunk_world``)."""
 
     num_slices: int
     devices_per_slice: int
     total_shards: int
-    source: str                 # "distributed" | "num_machines" | "flat"
+    source: str                 # "distributed" | "env" | "num_machines"
+    #                             | "flat" | "elastic"
 
     @property
     def hybrid(self) -> bool:
@@ -59,27 +74,171 @@ def last_network_init() -> Optional[dict]:
     return _LAST_INIT
 
 
+def _slice_env() -> Tuple[int, int]:
+    """(``LGBM_TPU_NUM_SLICES``, ``LGBM_TPU_SLICE_DEVICES``), 0 where
+    unset or not an integer."""
+    from .learners import simulated_slices
+    per_env = (envflags.read("LGBM_TPU_SLICE_DEVICES") or "").strip()
+    try:
+        per = max(int(per_env), 1) if per_env else 0
+    except ValueError:
+        per = 0
+    return simulated_slices(), per
+
+
 def mesh_plan(world_size: int, num_machines: Optional[int] = None,
-              local_listen_port: Optional[int] = None) -> MeshPlan:
-    """The one-tier plan of ``world_size`` ranks.  A configured
-    ``num_machines`` (or the last ``init_network``'s) that disagrees
-    with the ranks present warns: the reference would wait for the
-    missing machines."""
+              local_listen_port: Optional[int] = None, group=None,
+              hosts: Optional[Sequence] = None) -> MeshPlan:
+    """Partition ``world_size`` data-parallel ranks into slices (the JAX
+    package's priority, network.py:63-135):
+
+    1. the live topology: where the ranks span more than one host, one
+       slice per host (``hosts``: each rank's host, as the booster
+       gathers them; else found once by an all-gather of the host names
+       over ``group``, ``host_ids``).  The hosts must hold equal,
+       contiguous blocks of ranks, else the plan is flat;
+    2. ``LGBM_TPU_NUM_SLICES`` (simulated slices on one host), its
+       slices bounded to ``LGBM_TPU_SLICE_DEVICES`` ranks where set
+       (how an elastic shrink, ``resilience/elastic.py``, states the
+       survivors' world);
+    3. ``num_machines`` (or the last ``init_network``'s): that many
+       slices where it divides the ranks and leaves a slice more than
+       one rank;
+    4. flat.
+
+    A configured ``num_machines`` that disagrees with the world the plan
+    found warns (the reference would wait for the missing machines).
+    Unlike the JAX package, which can leave devices out of its mesh, a
+    flat plan holds every rank: the booster refuses a plan whose shards
+    are not its group's ranks."""
     nd = max(int(world_size), 1)
     if num_machines is None and _LAST_INIT is not None:
         num_machines = _LAST_INIT.get("num_machines")
         if local_listen_port is None:
             local_listen_port = _LAST_INIT.get("local_listen_port")
     nm = int(num_machines or 0)
-    if nm > 1 and nm != nd:
-        log_warning(
-            f"num_machines={nm} disagrees with the process group's "
-            f"{nd} ranks; using the group — fix num_machines / the "
-            "machine list so the configured world matches the ranks "
-            "actually present"
-            + (f" (local_listen_port={local_listen_port})"
-               if local_listen_port else ""))
-    return MeshPlan(1, nd, nd, "distributed" if nd > 1 else "flat")
+
+    def warn_mismatch(actual: int, what: str):
+        if nm > 1 and nm != actual:
+            log_warning(
+                f"num_machines={nm} disagrees with {what} ({actual}); "
+                "using the actual topology — fix num_machines / the "
+                "machine list so the configured world matches the "
+                "devices actually present"
+                + (f" (local_listen_port={local_listen_port})"
+                   if local_listen_port else ""))
+
+    if hosts is None and group is not None and nd > 1:
+        hosts = host_ids(group)
+    if hosts is not None:
+        order = list(dict.fromkeys(hosts))
+        h = len(order)
+        if h > 1:
+            warn_mismatch(h, "the live host count")
+            per = nd // h if nd % h == 0 else 0
+            if per and list(hosts) == [order[r // per] for r in range(nd)]:
+                return MeshPlan(h, per, nd, "distributed")
+            log_warning(f"the {nd} ranks do not lie in equal blocks of "
+                        f"consecutive ranks on their {h} hosts; the mesh "
+                        "is flat")
+            return MeshPlan(1, nd, nd, "flat")
+    sim, per = _slice_env()
+    if sim >= 1 and (sim > 1 or per):
+        per_c = per or (nd // sim if nd % sim == 0 else 0)
+        if per_c and sim * per_c <= nd:
+            warn_mismatch(sim, "LGBM_TPU_NUM_SLICES")
+            return MeshPlan(sim, per_c, sim * per_c, "env")
+    if nm > 1 and nd % nm == 0 and nd // nm > 1:
+        return MeshPlan(nm, nd // nm, nd, "num_machines")
+    warn_mismatch(nd, "the process group's ranks")
+    return MeshPlan(1, nd, nd, "flat")
+
+
+# ----------------------------------------------------------------------
+# groups a mesh can split: the store each was built on
+# ----------------------------------------------------------------------
+
+class _GroupInfo(NamedTuple):
+    store: object
+    prefix: str
+    timeout: datetime.timedelta
+
+
+# the store, prefix and timeout of each group ``new_group`` built, and
+# the host names ``host_ids`` found; keyed weakly by group
+_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_HOSTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_registry_lock = threading.Lock()
+
+
+def new_group(store, rank: int, world: int, timeout: float = 300.0,
+              prefix: str = "lgbt"):
+    """A gloo process group of ``world`` ranks over ``store`` (a
+    ``torch.distributed`` Store: ``FileStore``, ``TCPStore``,
+    ``HashStore`` for thread ranks), this one ``rank``, every wait
+    bounded by ``timeout`` seconds: the CPU's ranks, and several ranks
+    on one card (NCCL refuses two ranks on one GPU; NCCL ranks, one a
+    card, take the default group of ``init_network``).  The store is
+    remembered, so that ``parallel.learners.make_mesh`` can build the
+    group's sub-groups on it (a ``ProcessGroup`` does not give its store
+    back)."""
+    td = datetime.timedelta(seconds=float(timeout))
+    pg = _gloo_group(store, prefix, rank, world, td)
+    with _registry_lock:
+        _GROUPS[pg] = _GroupInfo(store, prefix, td)
+    return pg
+
+
+def _gloo_group(store, prefix: str, rank: int, world: int,
+                timeout: datetime.timedelta):
+    import torch.distributed as dist
+    return dist.ProcessGroupGloo(dist.PrefixStore(prefix, store), rank,
+                                 world, timeout)
+
+
+def sub_groups(group, blocks: List[List[int]], key: str):
+    """This rank's group among ``blocks`` (disjoint lists of ``group``
+    ranks that cover it): every rank of ``group`` calls this with the
+    same ``blocks`` and ``key``, and each builds only its own block's
+    group, on the store ``new_group`` remembered under ``<prefix>/<key>/
+    <block>`` (the default group of ``init_network``/
+    ``init_process_group`` splits with ``torch.distributed.new_group``,
+    every block in order on every rank)."""
+    import torch.distributed as dist
+    rank = int(group.rank())
+    info = _GROUPS.get(group)
+    if info is None:
+        if dist.is_initialized() and group is dist.group.WORLD:
+            mine = None
+            for b in blocks:
+                g = dist.new_group(ranks=b)
+                if rank in b:
+                    mine = g
+            return mine
+        raise ValueError(
+            "this process group was not built by parallel.network."
+            "new_group (or init_network), so its sub-groups have no store "
+            "to meet on: build the group with new_group(store, rank, "
+            "world) to train on a mesh of it")
+    for i, b in enumerate(blocks):
+        if rank in b:
+            return _gloo_group(info.store, f"{info.prefix}/{key}/{i}",
+                               b.index(rank), len(b), info.timeout)
+    raise ValueError(f"rank {rank} is in none of the blocks {blocks}")
+
+
+def host_ids(group) -> List[str]:
+    """Each rank's host name, in rank order: one all-gather over
+    ``group`` the first time a group is asked, remembered after."""
+    with _registry_lock:
+        got = _HOSTS.get(group)
+    if got is None:
+        from .collectives import all_gather_bytes
+        got = [b.decode() for b in all_gather_bytes(
+            socket.gethostname().encode(), group)]
+        with _registry_lock:
+            _HOSTS[group] = got
+    return got
 
 
 def parse_machine_list(machines: Optional[str] = None,

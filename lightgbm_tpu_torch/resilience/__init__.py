@@ -6,15 +6,17 @@
   file-system, serving and pod-device seams.
 - ``retry``: ``resilient_allgather``: CRC framing, deadline and
   backoff, a verdict every rank shares, a consistent abort.
-
-The JAX package's elastic shrink-rejoin (``resilience/elastic.py``) is
-ROADMAP queue A9 (rest).
+- ``elastic``: shrink-and-resume after a lost slice: a membership probe
+  every rank agrees on, the shrunk world's plan, the resume in the
+  survivors' group.
 """
 
 from .checkpoint import (Checkpoint, CheckpointCorruptError, CheckpointError,
                          CheckpointManager, CheckpointNotFoundError,
                          load_checkpoint, resolve_resume_point,
                          restore_booster, save_checkpoint)
+from .elastic import (SliceLostError, apply_world, membership_probe,
+                      plan_shrunk_world, shrink_and_resume)
 from .faults import (ChaosRegistry, FaultInjected, FaultSpec,
                      parse_schedule)
 from .retry import (CollectiveError, ResilienceConfig, make_resilient,
@@ -27,4 +29,6 @@ __all__ = [
     "ChaosRegistry", "FaultInjected", "FaultSpec", "parse_schedule",
     "CollectiveError", "ResilienceConfig", "make_resilient",
     "resilient_allgather",
+    "SliceLostError", "apply_world", "membership_probe",
+    "plan_shrunk_world", "shrink_and_resume",
 ]

@@ -137,9 +137,14 @@ def _provenance(booster) -> dict:
             stream_prov["store_path"] = sctx.store.path
             stream_prov["store_block_rows"] = int(sctx.store.block_rows)
             stream_prov["store_num_blocks"] = int(sctx.store.num_blocks)
+    # the mesh and the elected route this bundle trained under (the JAX
+    # package's checkpoint.py:120-135), with the row layout: provenance,
+    # never validated, since a resume re-tiles into any layout
     cplan = None
     if getattr(b, "group", None) is not None:
-        cplan = {"mesh_shape": [int(b.world)], **b._row_layout()}
+        cp = getattr(b, "collective_plan", None)
+        cplan = {**(cp.summary() if cp is not None else {}),
+                 **b._row_layout()}
     plan = getattr(b, "hist_plan", None)
     return {"chunk_cap": chunk_cap(),
             "hist_plan": dict(plan) if plan is not None else None,

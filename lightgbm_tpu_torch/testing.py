@@ -420,24 +420,22 @@ def thread_ranks(world: int, fn, timeout: float = 300.0,
                  name: str = "ranks") -> list:
     """Run ``fn(rank, group)`` for ranks 0..world-1 in threads of this
     process, each rank in its own gloo process group over one
-    ``HashStore`` and inside ``parallel.network.use_group(group)``;
-    returns the results in rank order.  Every join and every collective
-    has ``timeout``; a rank's exception is raised here, and a rank still
+    ``HashStore`` (``parallel.network.new_group``, so a mesh of it can be
+    built) and inside ``parallel.network.use_group(group)``; returns the
+    results in rank order.  Every join and every collective has
+    ``timeout``; a rank's exception is raised here, and a rank still
     running after the timeout fails the call."""
-    import datetime
     import threading
 
     import torch.distributed as dist
 
-    from .parallel.network import use_group
+    from .parallel.network import new_group, use_group
     store = dist.HashStore()
     out, errs = [None] * world, []
 
     def run(r):
         try:
-            pg = dist.ProcessGroupGloo(
-                dist.PrefixStore(name, store), r, world,
-                datetime.timedelta(seconds=timeout))
+            pg = new_group(store, r, world, timeout, prefix=name)
             with use_group(pg):
                 out[r] = fn(r, pg)
         except BaseException as e:   # noqa: BLE001 — re-raised below

@@ -55,6 +55,19 @@ FLAGS: Dict[str, EnvFlag] = {f.name: f for f in [
        "directory for the spill blockstore (default: a tmpdir)"),
     _f("LGBM_TPU_CHUNK", "", "boosting/macro.py",
        "macro-chunk size override ('0'/'off' disables chunking)"),
+    # ------------------------------------------------------ sharded training
+    _f("LGBM_TPU_NUM_SLICES", "", "parallel/learners.py",
+       "slice count of the simulated two-tier mesh on one host"),
+    _f("LGBM_TPU_SLICE_DEVICES", "", "parallel/network.py",
+       "ranks a slice in the mesh plan (an elastic shrink sets it)"),
+    _f("LGBM_TPU_HIER_REDUCE", "", "ops/planner.py",
+       "force ('1') / forbid ('0') hierarchical two-tier sums"),
+    _f("LGBM_TPU_PINNED_REDUCE", "", "ops/planner.py",
+       "'1': each tier's sum as an all-gather and a fixed-order sum"),
+    _f("LGBM_TPU_ICI_GBPS", "", "ops/planner.py",
+       "the fast tier's link rate (GB/s) the collective plan models"),
+    _f("LGBM_TPU_DCN_GBPS", "", "ops/planner.py",
+       "the slow tier's link rate (GB/s) the collective plan models"),
     # ------------------------------------------------------ serving fleet
     _f("LGBM_TPU_COMPILE_CACHE", "", "fleet/aot.py",
        "<dir>/serving is the AOT store of serving bucket programs "

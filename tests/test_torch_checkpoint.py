@@ -394,13 +394,60 @@ def test_resume_missing_location_raises(tmp_path):
 
 
 def test_resume_into_another_row_layout_raises(tmp_path):
+    """A bundle's state is global, so it resumes in any row layout of its
+    own training set (a smaller world: ``test_resume_into_a_smaller_
+    world``).  Still refused: another training set, and a bundle that
+    holds one rank's state (its ``row_layout`` names the rank, as
+    bundles did before the state was global) in another layout than its
+    own."""
     X, y, _, _ = _data()
     bst = lt.train(BASE, _ds(X, y), 3, verbose_eval=False)
     p = str(tmp_path / "b.lgbckpt")
     save_checkpoint(bst, p, iteration=3)
-    with pytest.raises(ValueError, match=r"A9 \(resilience/elastic.py\)"):
+    with pytest.raises(ValueError, match="its own training set"):
         lt.train(BASE, _ds(X[:300], y[:300]), 6, verbose_eval=False,
                  resume_from=p)
+    st = load_checkpoint(p).boosting_state
+    st["row_layout"] = {"tree_learner": "data", "world": 2, "rank": 1}
+    fresh = lt.Booster(BASE, train_set=_ds(X, y))
+    with pytest.raises(ValueError, match="only into its own layout"):
+        fresh.boosting.restore_state(st)
+
+
+def test_resume_into_a_smaller_world(tmp_path):
+    """The elastic resume's restore: four data-parallel thread ranks
+    write bundles every 2 iterations, with lazy CEGB on, whose [F, n]
+    bitmap each rank holds for its own rows (the bundle gathers it into
+    row order); two ranks resume from iteration 2 and end with the model
+    text of two ranks trained from scratch, which is the serial text."""
+    from lightgbm_tpu_torch.testing import thread_ranks
+    X, y, _, _ = _data()
+    P = dict(BASE, tree_learner="data", tpu_tree_growth="serial",
+             cegb_penalty_feature_lazy=[0.05] * X.shape[1])
+
+    def body(b):
+        return b.model_to_string().partition("parameters:")[0]
+
+    def big(rank, group):
+        return lt.train(P, _ds(X, y), 4, verbose_eval=False,
+                        snapshot_freq=2,
+                        snapshot_out=str(tmp_path / f"r{rank}" / "m.txt"))
+    thread_ranks(4, big)
+    ck = str(tmp_path / "r0" / "m.txt.ckpt" / "ckpt_iter_00000002.lgbckpt")
+    assert load_checkpoint(ck).manifest["collective_plan"]["world"] == 4
+
+    def small(rank, group):
+        res = lt.train(P, _ds(X, y), 4, verbose_eval=False, resume_from=ck)
+        paid = res.boosting.grower.cegb_state[1]
+        assert paid.shape[1] < len(y) and bool(paid.any())
+        assert [m.num_leaves for m in res.models] == [7] * 4
+        return body(res), body(lt.train(P, _ds(X, y), 4,
+                                        verbose_eval=False))
+    out = thread_ranks(2, small)
+    serial = {k: v for k, v in P.items() if k != "tree_learner"}
+    want = body(lt.train(serial, _ds(X, y), 4, verbose_eval=False))
+    for resumed, fresh in out:
+        assert resumed == fresh == want
 
 
 def test_bundle_model_txt_member_loads_standalone(tmp_path):

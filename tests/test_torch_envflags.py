@@ -53,8 +53,6 @@ SKIPPED = {
     "LGBM_TPU_ROUTER": (_TPU, "the in-program XLA row router"),
     "LGBM_TPU_VMEM_BYTES": (_TPU, "the fused kernel's VMEM budget"),
     "LGBM_TPU_TILE_ROWS": (_TPU, "the histogram row tile"),
-    "LGBM_TPU_ICI_GBPS": (_TPU, "the ICI link model"),
-    "LGBM_TPU_DCN_GBPS": (_TPU, "the DCN link model"),
     "LGBM_TPU_PREDICT_KERNEL": (_TPU, "the XLA traversal variants; the "
                                 "card runs B1"),
     "LGBM_TPU_PREDICT_CHUNK": (_TPU, "the planner's predict plan; the "
@@ -70,14 +68,6 @@ SKIPPED = {
                              "keeps none"),
     "LGBT_DEFER_HOST_TREES": ("unported", "the deferred host-tree fetch: "
                               "ROADMAP P1 (step 3)"),
-    "LGBM_TPU_HIER_REDUCE": ("unported", "hybrid two-tier groups: ROADMAP "
-                             "queue A9 (rest)"),
-    "LGBM_TPU_PINNED_REDUCE": ("unported", "hybrid two-tier groups: "
-                               "ROADMAP queue A9 (rest)"),
-    "LGBM_TPU_NUM_SLICES": ("unported", "hybrid two-tier groups: ROADMAP "
-                            "queue A9 (rest)"),
-    "LGBM_TPU_SLICE_DEVICES": ("unported", "hybrid two-tier groups: "
-                               "ROADMAP queue A9 (rest)"),
     "LGBM_TPU_MODEL_BATCH": ("unported", "multi/ (the model axis): "
                              "ROADMAP queue A12"),
     "LGBM_TPU_LIFECYCLE_DIR": ("unported", "lifecycle/: ROADMAP queue A12"),
@@ -296,3 +286,38 @@ def test_chunk_knob_moves_the_engine_not_the_model(unset):
     assert global_registry.counter("train_chunk_dispatches").value \
         == before + 1
     assert b.model_to_string().partition("end of trees")[0] == text
+
+
+def test_two_tier_knobs_steer_the_mesh_plan_and_the_election(monkeypatch):
+    """``LGBM_TPU_NUM_SLICES`` / ``LGBM_TPU_SLICE_DEVICES`` simulate
+    slices in ``mesh_plan``; ``LGBM_TPU_HIER_REDUCE`` forces the route,
+    ``LGBM_TPU_PINNED_REDUCE`` pins it, ``LGBM_TPU_ICI_GBPS`` /
+    ``LGBM_TPU_DCN_GBPS`` move the link model; an argument wins, and
+    unset knobs leave one tier and the planner's own election."""
+    from lightgbm_tpu_torch.parallel.network import mesh_plan
+    for k in ("LGBM_TPU_NUM_SLICES", "LGBM_TPU_SLICE_DEVICES",
+              "LGBM_TPU_HIER_REDUCE", "LGBM_TPU_PINNED_REDUCE",
+              "LGBM_TPU_ICI_GBPS", "LGBM_TPU_DCN_GBPS"):
+        monkeypatch.delenv(k, raising=False)
+    assert mesh_plan(8).num_slices == 1
+    kw = dict(features=28, num_bins=64, rows_global=1000, num_slices=2,
+              devices_per_slice=4)
+    p = planner.plan_collectives(**kw)
+    assert p.hierarchical and not p.pinned
+    assert (p.ici_gbps, p.dcn_gbps) == (planner.DEFAULT_ICI_GBPS,
+                                        planner.DEFAULT_DCN_GBPS)
+    monkeypatch.setenv("LGBM_TPU_NUM_SLICES", "4")
+    assert (mesh_plan(8).num_slices, mesh_plan(8).source) == (4, "env")
+    monkeypatch.setenv("LGBM_TPU_SLICE_DEVICES", "1")
+    assert mesh_plan(8).total_shards == 4
+    monkeypatch.setenv("LGBM_TPU_HIER_REDUCE", "0")
+    monkeypatch.setenv("LGBM_TPU_PINNED_REDUCE", "1")
+    monkeypatch.setenv("LGBM_TPU_ICI_GBPS", "10")
+    monkeypatch.setenv("LGBM_TPU_DCN_GBPS", "1")
+    p = planner.plan_collectives(**kw)
+    assert not p.hierarchical and p.pinned and p.elected == "flat"
+    assert (p.ici_gbps, p.dcn_gbps) == (10.0, 1.0)
+    assert planner.plan_collectives(pinned=False, ici_gbps=5.0,
+                                    **kw).ici_gbps == 5.0
+    monkeypatch.delenv("LGBM_TPU_HIER_REDUCE")
+    assert planner.plan_collectives(**kw).hierarchical

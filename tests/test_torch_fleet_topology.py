@@ -101,10 +101,9 @@ def test_plan_devices_mesh_seam(monkeypatch):
     flat = plan_devices(4)
     assert [d.device_id for d in flat] == [0, 1, 2, 3]
     assert {d.slice_id for d in flat} == {0}
-    # the port's mesh plan is one tier: the JAX package's simulated
-    # slices (LGBM_TPU_NUM_SLICES) wait for ROADMAP queue A9's remainder
+    # simulated slices (LGBM_TPU_NUM_SLICES), as in the JAX package
     monkeypatch.setenv("LGBM_TPU_NUM_SLICES", "2")
-    assert [d.slice_id for d in plan_devices(4)] == [0, 0, 0, 0]
+    assert [d.slice_id for d in plan_devices(4)] == [0, 0, 1, 1]
 
 
 def _shapes():

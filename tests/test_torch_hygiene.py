@@ -54,7 +54,8 @@ def test_import_pulls_in_no_jax():
                 "fleet.aot", "fleet.registry", "fleet.router",
                 "fleet.topology", "resilience", "resilience.faults",
                 "resilience.checkpoint", "resilience.retry", "capi",
-                "application"):
+                "application", "resilience.elastic",
+                "tools.torch_collective_probe"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 

@@ -191,16 +191,51 @@ def test_feature_parallel_matches_serial(problem):
         np.testing.assert_array_equal(leaf, ref_leaf)
 
 
-def test_2d_layout_raises_naming_its_roadmap_item():
+def test_2d_mesh_matches_serial(problem):
+    """tests/test_parallel.py's 2-D case on a (4, 2) mesh of 8 thread
+    ranks: rank (i, j) holds row block i and feature share j; the
+    histograms are summed over the data axis and the candidates gathered
+    over the feature axis.  The sums are exact, so the tree is the serial
+    grower's, byte for byte, and so are the row blocks' leaf ids."""
+    binned, grad, hess, B, F = problem
+    ref_tree, ref_leaf = _serial_tree(problem)
+
+    def fn(rank, group):
+        mesh = learners.make_mesh(group, (learners.DATA_AXIS,
+                                          learners.FEATURE_AXIS), (4, 2))
+        i, j = mesh.coords["data"], mesh.coords["feature"]
+        rows = learners.contiguous_layout(len(grad), 4).rows(i)
+        grower = learners.create_parallel_grower(
+            "data_feature", mesh,
+            torch.as_tensor(np.ascontiguousarray(binned.T)), _meta(B, F),
+            _cfg(B))
+        assert grower.binned_t.shape == (F // 2, len(rows))
+        tree, leaf = grower.grow(torch.as_tensor(grad[rows]),
+                                 torch.as_tensor(hess[rows]),
+                                 torch.ones(len(rows)))
+        return tree.to_numpy(), leaf.numpy(), j
+    out = thread_ranks(8, fn)
+    for tree, _, _ in out:
+        _same_tree(ref_tree, tree)
+    leaf = np.concatenate([lf for _, lf, j in out if j == 0])
+    np.testing.assert_array_equal(leaf, ref_leaf)
+
+
+def test_booster_refuses_the_2d_layout():
+    """The JAX booster takes serial, data, feature and voting and raises
+    ``ValueError("unknown tree_learner ...")`` for the 2-D names
+    (lightgbm_tpu/boosting/gbdt.py:362-367); so does the port's, which
+    builds the 2-D layout only through ``create_parallel_grower``."""
     X, y = _binary_xy(300)
     for tl in ("data_feature", "2d"):
-        with pytest.raises(NotImplementedError, match=r"A9 \(2-D layout\)"):
+        with pytest.raises(ValueError, match=f"unknown tree_learner '{tl}'"):
+            lgb.train(dict(BINARY, tree_learner=tl), lgb.Dataset(X, label=y),
+                      1)
+        with pytest.raises(ValueError, match=f"unknown tree_learner '{tl}'"):
             lt.train(dict(BINARY, tree_learner=tl),
                      lt.Dataset(X, label=y, device="cpu"), 1)
-    with pytest.raises(NotImplementedError, match="A9 \\(hybrid"):
-        learners.make_hybrid_mesh(8, num_slices=2)
-    with pytest.raises(NotImplementedError, match="elastic"):
-        learners.shrink_and_resume({}, None, "ckpt")
+    assert learners.resolve_tree_learner("2d") == "data_feature"
+    assert not hasattr(learners, "shrink_and_resume")
 
 
 # ---------------------------------------------------------------------------
