@@ -146,7 +146,8 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   rounds, a membership probe with slice 1 stalled that fails on every
   rank, the survivors' 2-rank group resuming to 6 rounds, equal to 2
   ranks from scratch, its ``predict`` through B1 equal to the plain
-  version); each rank's launches and per-tier collectives exact
+  version); each rank's launches and per-tier collectives exact in
+  every run, the elastic first, resumed and from-scratch runs included
   (``hybrid_expected``, ``twod_expected``);
 - ``stream_train`` (queue A10): the training run's 1,000,000 x 28 f32
   rows through ``Dataset.from_sample`` (bins from 200,000 rows) and
@@ -4314,6 +4315,17 @@ def _sync_group(device, group):
     collectives.psum_tiered(torch.zeros(1, dtype=torch.int64), group)
 
 
+def on_flat_group(expected: dict) -> dict:
+    """``hybrid_expected`` of a flat-route mode on a bare group (the
+    elastic survivors' 1 x 2 world): every collective's tier is
+    ``flat``."""
+    out = {}
+    for k, v in expected.items():
+        k = k.replace("@dcn+ici", "@flat")
+        out[k] = out.get(k, 0) + v
+    return out
+
+
 def _counted_ok(rank, name, got, expected, counted) -> None:
     """Fails unless each expected collective (a key with a tier, ``@``)
     and, where ``counted``, each expected launch count is ``got``'s."""
@@ -4480,10 +4492,16 @@ def _hybrid_rank(rank, tmp, device, rows, rounds, leaves, counted, out):
         t0 = time.perf_counter()
         first = lt.train(params, ds, ELASTIC_FIRST, verbose_eval=False,
                          snapshot_freq=2, snapshot_out=ck)
+        b = first.boosting
         rec = {"first_s": time.perf_counter() - t0,
-               "first_plan": first.boosting.collective_plan.summary(),
-               "first_launches": kernel_launches()}
-        del first
+               "first_plan": b.collective_plan.summary(),
+               "first_launches": kernel_launches(),
+               "first_expected": hybrid_expected(
+                   "quant_elastic", b.grower, b.collective_plan.hierarchical,
+                   b.grower.B)}
+        _counted_ok(rank, "elastic first", counts(), rec["first_expected"],
+                    counted)
+        del first, b
         stalled = (2, 3)
         chaos = ChaosRegistry(",".join(
             f"allgather.stall@{i}:rank={r}:sec=3600"
@@ -4509,6 +4527,7 @@ def _hybrid_rank(rank, tmp, device, rows, rounds, leaves, counted, out):
     with use_group(survivors):
         _sync_group(device, survivors)
         reset_training_counts()
+        collectives.reset_op_counts()
         pk.reset_launch_counts()
         t0 = time.perf_counter()
         res = shrink_and_resume(params, ds, os.path.dirname(ck) + "/m.txt"
@@ -4519,12 +4538,26 @@ def _hybrid_rank(rank, tmp, device, rows, rounds, leaves, counted, out):
                                 verbose_eval=False)
         rec["resume_s"] = time.perf_counter() - t0
         rec["resume_launches"] = kernel_launches()
+        rec["resume_expected"] = on_flat_group(hybrid_expected(
+            "quant_elastic", res.boosting.grower, False,
+            res.boosting.grower.B))
+        _counted_ok(rank, "elastic resume", counts(),
+                    rec["resume_expected"], counted)
         rec["resume_world"] = res.boosting.world
         rec["resume_mesh_shape"] = res.boosting._row_layout()["mesh_shape"]
         text_to("elastic_resumed", res.model_to_string())
         rec["predict_b1_launches"] = predict_vs_plain_on(pk, res, Xv,
                                                          device, counted)
+        _sync_group(device, survivors)
+        reset_training_counts()
+        collectives.reset_op_counts()
         fresh = lt.train(params, ds, ELASTIC_ROUNDS, verbose_eval=False)
+        rec["fresh_launches"] = kernel_launches()
+        rec["fresh_expected"] = on_flat_group(hybrid_expected(
+            "quant_elastic", fresh.boosting.grower, False,
+            fresh.boosting.grower.B))
+        _counted_ok(rank, "elastic fresh", counts(), rec["fresh_expected"],
+                    counted)
         text_to("elastic_fresh", fresh.model_to_string())
 
 
@@ -4676,7 +4709,8 @@ def phase_hybrid_train(lt, smi, device="cuda", rows=None, leaves=255,
                       f"mesh {el.get('resume_mesh_shape')}")
     summed = {}
     for name in list(r0):
-        for key in ("launches", "first_launches", "resume_launches"):
+        for key in ("launches", "first_launches", "resume_launches",
+                    "fresh_launches"):
             for k, v in r0[name].get(key, {}).items():
                 summed[k] = summed.get(k, 0) + v
     summed["ingest"] = summed.get("ingest", 0) + ranks[0]["b3_launches"]
@@ -4699,7 +4733,8 @@ def phase_hybrid_train(lt, smi, device="cuda", rows=None, leaves=255,
                      "plain-version run's; 2-D tree = serial grower's; "
                      "elastic resumed = 2 ranks from scratch, B1 predict "
                      "= plain; per-rank launches and per-tier collectives "
-                     "exact"})
+                     "exact in every mode, the 2-D tree and the elastic "
+                     "first, resumed and from-scratch runs"})
     if failed:
         raise AssertionError(f"hybrid_train: {failed}")
     return summed

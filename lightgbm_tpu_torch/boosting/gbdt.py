@@ -429,13 +429,11 @@ class GBDT:
             s = self.mesh_plan.num_slices
             cp = self.collective_plan = plan_collectives(
                 features=len(self.meta.num_bin), num_bins=self.num_bins,
-                rows_global=self.num_data, quant=quant_on,
-                quant_bins=config.num_grad_quant_bins, num_slices=s,
+                quant=quant_on, num_slices=s,
                 devices_per_slice=self.world // s,
                 voting_k=self.grower_cfg.voting_top_k)
             self.grower_cfg = self.grower_cfg._replace(
-                num_slices=s, hier_reduce=cp.hierarchical,
-                pinned_reduce=cp.pinned)
+                num_slices=s, hier_reduce=cp.hierarchical)
         if self._stream is not None:
             # the streamed rounds grower over the spill store (streaming
             # grows by rounds whatever tpu_tree_growth says, as in the JAX

@@ -84,8 +84,8 @@ Sharded (``shard``, a ``parallel.learners.ShardSpec``; the JAX package's
   candidates gathered and the row sides sent over the feature axis
   (``group``).
 
-Every sum over the rows takes the config's route (``hier_reduce``,
-``pinned_reduce``: ``parallel.collectives.psum_tiered``); on a two-tier
+Every sum over the rows takes the config's route (``hier_reduce``:
+``parallel.collectives.psum_tiered``); on a two-tier
 mesh under hierarchical sums the vote is per slice.  Under a group the
 serial grower takes the staged family (the JAX
 package's "fused does not apply"); the rounds grower runs data-parallel
@@ -222,8 +222,7 @@ class GrowerConfig(NamedTuple):
     reference's GatherInfoForThreshold convention, the threshold bin
     on the right); voting-parallel's ``voting_top_k``.  On a two-tier
     mesh (``parallel.learners._hybrid_cfg``): its ``num_slices`` and the
-    planner's ``hier_reduce`` and ``pinned_reduce``, the route of every
-    sum over the rows."""
+    planner's ``hier_reduce``, the route of every sum over the rows."""
 
     num_leaves: int = 31
     max_depth: int = -1
@@ -248,8 +247,6 @@ class GrowerConfig(NamedTuple):
     #                                hierarchical vote is per slice
     hier_reduce: bool = False      # sums the fast tier first, then the
     #                                slow one (collectives.psum_tiered)
-    pinned_reduce: bool = False    # each tier's sum as an all-gather
-    #                                and a fixed-order sum
 
 
 def row_goes_left(col: torch.Tensor, node_thr, node_dl, missing_type,
@@ -640,8 +637,7 @@ class _GrowerCommon:
         the ranks of ``axis`` of a two-tier mesh), by the route the
         config elected."""
         return psum_tiered(x, self.row_group, axis,
-                           hierarchical=self.cfg.hier_reduce,
-                           pinned=self.cfg.pinned_reduce)
+                           hierarchical=self.cfg.hier_reduce)
 
     def _reset_carry(self, root, root_sums) -> None:
         """The carry of a new tree: one leaf holding every row, its
@@ -820,8 +816,7 @@ class _GrowerCommon:
                                            self.num_bin, e)
                        if self.groups is not None else ghist[c:c + 1][:, :, e])
             with section("collectives"):
-                sub = psum_tiered(sub, rg, vote_axis,
-                                  pinned=cfg.pinned_reduce)
+                sub = psum_tiered(sub, rg, vote_axis)
             fm_c = None if fm is None else (fm[c] if fm.dim() == 2 else fm)
             with section("kernels"):
                 r = best_split_for_leaf(
@@ -847,8 +842,7 @@ class _GrowerCommon:
             from .ops.renew import quant_train_renew_leaf
             leaf_sg, leaf_sh = quant_train_renew_leaf(
                 leaf_id, grad, hess, row_mask, L, self.row_group,
-                self.rows_global, hierarchical=cfg.hier_reduce,
-                pinned=cfg.pinned_reduce)
+                self.rows_global, hierarchical=cfg.hier_reduce)
         lv = leaf_output(leaf_sg, leaf_sh, hp.lambda_l1, hp.lambda_l2,
                          hp.max_delta_step)
         if self.use_mc:

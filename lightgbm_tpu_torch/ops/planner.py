@@ -1190,15 +1190,6 @@ def _hier_override() -> Optional[bool]:
     return None
 
 
-def pinned_reduce_env() -> bool:
-    """``LGBM_TPU_PINNED_REDUCE=1``: each tier's sum as an all-gather in
-    rank order and a fixed-order sum (``collectives.psum_tiered``'s
-    pinned route).  The port's sums are exact integers, so it changes
-    the route and the bytes, never the model."""
-    return (envflags.read("LGBM_TPU_PINNED_REDUCE") or "").strip().lower() \
-        in ("1", "on", "true", "yes")
-
-
 class CollectivePlan(NamedTuple):
     """The reduction verdict for one histogram sum.  Byte fields are a
     sum's: what one [C, F, B] histogram moves over each tier."""
@@ -1207,7 +1198,6 @@ class CollectivePlan(NamedTuple):
     devices_per_slice: int      # fast-tier participants a slice
     total_shards: int
     hierarchical: bool          # the fast tier first
-    pinned: bool                # all-gather + fixed-order sum a tier
     voting_k: int               # >0: only k elected features cross dcn
     payload_bytes: int          # one whole histogram's bytes
     ici_bytes: int              # bytes over the fast tier, a rank
@@ -1227,7 +1217,6 @@ class CollectivePlan(NamedTuple):
             "num_slices": self.num_slices,
             "total_shards": self.total_shards,
             "hierarchy_elected": self.hierarchical,
-            "pinned": self.pinned,
             "voting_k": self.voting_k,
             "payload_bytes": self.payload_bytes,
             "ici_bytes": self.ici_bytes,
@@ -1241,22 +1230,19 @@ class CollectivePlan(NamedTuple):
         }
 
 
-def plan_collectives(features: int, num_bins: int, rows_global: int,
-                     quant: bool = False, quant_bins: int = 4,
+def plan_collectives(features: int, num_bins: int, quant: bool = False,
                      num_slices: int = 1, devices_per_slice: int = 1,
-                     voting_k: int = 0, pinned: Optional[bool] = None,
-                     ici_gbps: Optional[float] = None,
+                     voting_k: int = 0, ici_gbps: Optional[float] = None,
                      dcn_gbps: Optional[float] = None) -> CollectivePlan:
     """Elect flat or hierarchical sums for a (two-tier) data mesh.
 
     ``features == 0`` plans without shapes (a unit payload: the
     standalone growers elect before the booster knows F).  ``voting_k``
-    caps at ``features`` when both are known.  ``rows_global`` and
-    ``quant_bins`` are the JAX package's arguments: the port's level
-    sums are int32 whatever the rows (no int16 wire).  The verdict is
-    the ``planner.plan_collectives`` trace instant."""
+    caps at ``features`` when both are known.  Unlike the JAX package's,
+    it takes no row or quantized-bin count: the port's level sums are
+    int32 whatever the rows (no int16 wire).  The verdict is the
+    ``planner.plan_collectives`` trace instant."""
     from .histogram import hist_payload_bytes
-    del rows_global, quant_bins
     s = max(int(num_slices), 1)
     d = max(int(devices_per_slice), 1)
     F = max(int(features), 0)
@@ -1286,10 +1272,9 @@ def plan_collectives(features: int, num_bins: int, rows_global: int,
         hier = forced if forced is not None else est_hier <= est_flat
         elected = ("hierarchical+voting" if (hier and k) else
                    "hierarchical" if hier else "flat")
-    pin = pinned_reduce_env() if pinned is None else bool(pinned)
     plan = CollectivePlan(
         num_slices=s, devices_per_slice=d, total_shards=s * d,
-        hierarchical=hier, pinned=pin, voting_k=k,
+        hierarchical=hier, voting_k=k,
         payload_bytes=int(payload),
         ici_bytes=int(payload) if s * d > 1 else 0,
         dcn_bytes=int(dcn_hier if hier else flat_dcn) if s > 1 else 0,

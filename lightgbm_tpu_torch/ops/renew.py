@@ -30,13 +30,13 @@ def quant_train_renew_leaf(leaf_id: torch.Tensor, grad: torch.Tensor,
                            hess: torch.Tensor, weight: torch.Tensor,
                            num_leaves: int, group=None,
                            rows: Optional[int] = None,
-                           hierarchical: bool = False, pinned: bool = False
+                           hierarchical: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """True per-leaf sums ``(sum g * w, sum h * w)``, each [num_leaves]
     f32: the f32 of the exact sum of each leaf's rows (under a process
     ``group`` or mesh, of every rank's rows: the scales take the group's
     peak and ``rows``, the integer sums are summed over the group by the
-    route ``hierarchical``/``pinned`` name)."""
+    route ``hierarchical`` names)."""
     from ..parallel.collectives import psum_tiered
     from . import fused
     vals = _vals_t(grad, hess, weight).contiguous()
@@ -45,7 +45,7 @@ def quant_train_renew_leaf(leaf_id: torch.Tensor, grad: torch.Tensor,
     slot = torch.zeros(leaf.shape[1], dtype=torch.int32, device=leaf.device)
     sums = psum_tiered(fused.accumulate(leaf, vals, slot, 1, num_leaves,
                                         scales)[0, :, 0], group,
-                       hierarchical=hierarchical, pinned=pinned)
+                       hierarchical=hierarchical)
     out = fixed_to_f32(sums, scales, 0)                      # [3, L]
     return out[0], out[1]
 

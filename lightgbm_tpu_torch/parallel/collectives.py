@@ -21,14 +21,14 @@ host).  Every function takes ``axis`` (a name or an outermost-first
 tuple of the mesh's names; None = all of them); ``ProcessMesh.over``
 gives the mesh of one or more of its axes as a value to pass around.
 
-- ``psum_tiered``: the sum of an INTEGER tensor.  Three routes: **flat**
-  (one all-reduce over every rank of the axes), **hierarchical** (the
-  innermost tier first, then each tier outwards, one all-reduce a tier)
-  and **pinned** (per tier, inner first, an all-gather in rank order and
-  a sum in that fixed order).  The port's histograms and totals are
-  exact integers (int64 fixed point, or int32 quantized levels), so all
-  three give the same bits; they move different bytes over different
-  groups, which ``op_counts`` counts per tier;
+- ``psum_tiered``: the sum of an INTEGER tensor.  Two routes: **flat**
+  (one all-reduce over every rank of the axes) and **hierarchical** (the
+  innermost tier first, then each tier outwards, one all-reduce a tier).
+  The port's histograms and totals are exact integers (int64 fixed
+  point, or int32 quantized levels), so both give the same bits in any
+  order (the JAX package's third, pinned route fixes the order of float
+  sums, which the port has none of); they move different bytes over
+  different groups, which ``op_counts`` counts per tier;
 - ``pmax_tiered``: the max (the quantization scales, the fixed-point
   peaks): exact in any order, one all-reduce;
 - ``all_gather_tiered``: ``[W, *shape]`` in the linear rank order, and
@@ -48,7 +48,7 @@ bare group).
 
 Observability, as in the JAX package's collectives.py:49-163: each sum
 notes its route in the flight ring (``collective.route``: the tiers,
-hierarchical or not, pinned or not, the bytes) and runs each tier's
+hierarchical or not, the bytes) and runs each tier's
 all-reduce in a ``collective.reduce`` span tagged with the tier and its
 bytes; a collective that raises dumps a flight-recorder bundle
 (``collective:<error>``) before the error propagates.  The sharded
@@ -256,12 +256,11 @@ def _all_gather(x: torch.Tensor, group, tier: str) -> torch.Tensor:
 
 
 def psum_tiered(x: torch.Tensor, group, axis: AxisName = None, *,
-                hierarchical: bool = False,
-                pinned: bool = False) -> torch.Tensor:
+                hierarchical: bool = False) -> torch.Tensor:
     """The sum of integer ``x`` over ``group``'s ranks along ``axis``
     under the route the caller elected (a new tensor; see the module
     docstring).  ``hierarchical`` applies where there are two or more
-    tiers; ``pinned`` implies the tier order."""
+    tiers."""
     if group is None or axis_size(group, axis) == 1:
         return x
     if x.is_floating_point():
@@ -270,17 +269,7 @@ def psum_tiered(x: torch.Tensor, group, axis: AxisName = None, *,
     tiers, (flat_tier, flat_group) = _tiers(group, axis)
     hier = hierarchical and len(tiers) > 1
     _flight.note("collective.route", tiers=[t for t, _ in tiers],
-                 hierarchical=hier, pinned=bool(pinned), bytes=_nbytes(x))
-    if pinned:
-        for tier, g in reversed(tiers):
-            if g.size() > 1:
-                with _span("collective.reduce", tier=tier, bytes=_nbytes(x),
-                           pinned=True):
-                    allx = _all_gather(x, g, tier)
-                x = allx[0].clone()
-                for r in range(1, allx.shape[0]):
-                    x += allx[r]
-        return x
+                 hierarchical=hier, bytes=_nbytes(x))
     if hier:
         for tier, g in reversed(tiers):
             if g.size() > 1:

@@ -100,10 +100,16 @@ def mesh_plan(world_size: int, num_machines: Optional[int] = None,
     2. ``LGBM_TPU_NUM_SLICES`` (simulated slices on one host), its
        slices bounded to ``LGBM_TPU_SLICE_DEVICES`` ranks where set
        (how an elastic shrink, ``resilience/elastic.py``, states the
-       survivors' world);
+       survivors' world).  A slice count that cannot partition the
+       ranks raises: the mesh never quietly becomes flat;
     3. ``num_machines`` (or the last ``init_network``'s): that many
        slices where it divides the ranks and leaves a slice more than
-       one rank;
+       one rank, unless the live topology is known and is one host.
+       The JAX package's one process has no live topology and simulates
+       them; the port's ranks on one host would only pay a second
+       all-reduce a sum for a slow tier they do not have, so the plan
+       stays flat and says so (``LGBM_TPU_NUM_SLICES`` simulates slices
+       on one host);
     4. flat.
 
     A configured ``num_machines`` that disagrees with the world the plan
@@ -130,6 +136,7 @@ def mesh_plan(world_size: int, num_machines: Optional[int] = None,
 
     if hosts is None and group is not None and nd > 1:
         hosts = host_ids(group)
+    h = 0
     if hosts is not None:
         order = list(dict.fromkeys(hosts))
         h = len(order)
@@ -145,11 +152,23 @@ def mesh_plan(world_size: int, num_machines: Optional[int] = None,
     sim, per = _slice_env()
     if sim >= 1 and (sim > 1 or per):
         per_c = per or (nd // sim if nd % sim == 0 else 0)
-        if per_c and sim * per_c <= nd:
-            warn_mismatch(sim, "LGBM_TPU_NUM_SLICES")
-            return MeshPlan(sim, per_c, sim * per_c, "env")
+        if not per_c or sim * per_c > nd:
+            raise ValueError(
+                f"LGBM_TPU_NUM_SLICES={sim}"
+                + (f" x LGBM_TPU_SLICE_DEVICES={per}" if per else "")
+                + f" cannot partition the {nd} ranks into equal slices; "
+                "set a slice count that divides the ranks, or unset it "
+                "to train on one tier")
+        warn_mismatch(sim, "LGBM_TPU_NUM_SLICES")
+        return MeshPlan(sim, per_c, sim * per_c, "env")
     if nm > 1 and nd % nm == 0 and nd // nm > 1:
-        return MeshPlan(nm, nd // nm, nd, "num_machines")
+        if h != 1:
+            return MeshPlan(nm, nd // nm, nd, "num_machines")
+        log_warning(
+            f"num_machines={nm} would split the {nd} ranks into {nm} "
+            "slices, but every rank runs on one host: the mesh is flat "
+            "(set LGBM_TPU_NUM_SLICES to simulate slices on one host)")
+        return MeshPlan(1, nd, nd, "flat")
     warn_mismatch(nd, "the process group's ranks")
     return MeshPlan(1, nd, nd, "flat")
 

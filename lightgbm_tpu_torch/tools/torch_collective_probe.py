@@ -37,7 +37,7 @@ import numpy as np
 
 
 def run_probe(rows: int = 200_000, features: int = 28, max_bin: int = 63,
-              quant_bins: int = 4, leaves: int = 255, trees: int = 100,
+              leaves: int = 255, trees: int = 100,
               world: int = 8, num_slices: int = 2, top_k: int = 8,
               reps: int = 5, device: str = "cuda") -> dict:
     import torch
@@ -118,8 +118,8 @@ def run_probe(rows: int = 200_000, features: int = 28, max_bin: int = 63,
            "measured_ms": {n: m[0] for n, m in measured.items()},
            "measured_bytes_rank0": {n: m[1] for n, m in measured.items()}}
     for name, quant in (("f32", False), ("quant", True)):
-        kw = dict(features=F, num_bins=B, rows_global=int(rows), quant=quant,
-                  quant_bins=quant_bins, num_slices=s, devices_per_slice=d)
+        kw = dict(features=F, num_bins=B, quant=quant, num_slices=s,
+                  devices_per_slice=d)
         data = plan_collectives(voting_k=0, **kw)
         voting = plan_collectives(voting_k=k, **kw)
         reductions = levels_per_tree * trees
@@ -149,7 +149,6 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=200_000)
     ap.add_argument("--features", type=int, default=28)
     ap.add_argument("--max-bin", type=int, default=63)
-    ap.add_argument("--quant-bins", type=int, default=4)
     ap.add_argument("--leaves", type=int, default=255)
     ap.add_argument("--trees", type=int, default=100)
     ap.add_argument("--world", type=int, default=8)
@@ -159,8 +158,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run_probe(rows=args.rows, features=args.features,
-                    max_bin=args.max_bin, quant_bins=args.quant_bins,
-                    leaves=args.leaves, trees=args.trees, world=args.world,
+                    max_bin=args.max_bin, leaves=args.leaves,
+                    trees=args.trees, world=args.world,
                     num_slices=args.slices, top_k=args.top_k,
                     reps=args.reps, device=args.device)
     print(json.dumps(out, indent=1))

@@ -62,8 +62,6 @@ FLAGS: Dict[str, EnvFlag] = {f.name: f for f in [
        "ranks a slice in the mesh plan (an elastic shrink sets it)"),
     _f("LGBM_TPU_HIER_REDUCE", "", "ops/planner.py",
        "force ('1') / forbid ('0') hierarchical two-tier sums"),
-    _f("LGBM_TPU_PINNED_REDUCE", "", "ops/planner.py",
-       "'1': each tier's sum as an all-gather and a fixed-order sum"),
     _f("LGBM_TPU_ICI_GBPS", "", "ops/planner.py",
        "the fast tier's link rate (GB/s) the collective plan models"),
     _f("LGBM_TPU_DCN_GBPS", "", "ops/planner.py",

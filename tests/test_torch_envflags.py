@@ -66,6 +66,10 @@ SKIPPED = {
                               "is INGEST_CHUNK_ROWS"),
     "LGBM_TPU_FREE_BINNED": (_TPU, "frees the host binned copy; the port "
                              "keeps none"),
+    "LGBM_TPU_PINNED_REDUCE": (_TPU, "pins the order of the JAX package's "
+                               "float sums; the port's are exact "
+                               "integers: every route gives the same "
+                               "bits"),
     "LGBT_DEFER_HOST_TREES": ("unported", "the deferred host-tree fetch: "
                               "ROADMAP P1 (step 3)"),
     "LGBM_TPU_MODEL_BATCH": ("unported", "multi/ (the model axis): "
@@ -291,8 +295,9 @@ def test_chunk_knob_moves_the_engine_not_the_model(unset):
 def test_two_tier_knobs_steer_the_mesh_plan_and_the_election(monkeypatch):
     """``LGBM_TPU_NUM_SLICES`` / ``LGBM_TPU_SLICE_DEVICES`` simulate
     slices in ``mesh_plan``; ``LGBM_TPU_HIER_REDUCE`` forces the route,
-    ``LGBM_TPU_PINNED_REDUCE`` pins it, ``LGBM_TPU_ICI_GBPS`` /
-    ``LGBM_TPU_DCN_GBPS`` move the link model; an argument wins, and
+    ``LGBM_TPU_ICI_GBPS`` / ``LGBM_TPU_DCN_GBPS`` move the link model
+    (``LGBM_TPU_PINNED_REDUCE`` is the JAX package's alone and changes
+    nothing here); an argument wins, and
     unset knobs leave one tier and the planner's own election."""
     from lightgbm_tpu_torch.parallel.network import mesh_plan
     for k in ("LGBM_TPU_NUM_SLICES", "LGBM_TPU_SLICE_DEVICES",
@@ -300,10 +305,9 @@ def test_two_tier_knobs_steer_the_mesh_plan_and_the_election(monkeypatch):
               "LGBM_TPU_ICI_GBPS", "LGBM_TPU_DCN_GBPS"):
         monkeypatch.delenv(k, raising=False)
     assert mesh_plan(8).num_slices == 1
-    kw = dict(features=28, num_bins=64, rows_global=1000, num_slices=2,
-              devices_per_slice=4)
+    kw = dict(features=28, num_bins=64, num_slices=2, devices_per_slice=4)
     p = planner.plan_collectives(**kw)
-    assert p.hierarchical and not p.pinned
+    assert p.hierarchical
     assert (p.ici_gbps, p.dcn_gbps) == (planner.DEFAULT_ICI_GBPS,
                                         planner.DEFAULT_DCN_GBPS)
     monkeypatch.setenv("LGBM_TPU_NUM_SLICES", "4")
@@ -315,9 +319,9 @@ def test_two_tier_knobs_steer_the_mesh_plan_and_the_election(monkeypatch):
     monkeypatch.setenv("LGBM_TPU_ICI_GBPS", "10")
     monkeypatch.setenv("LGBM_TPU_DCN_GBPS", "1")
     p = planner.plan_collectives(**kw)
-    assert not p.hierarchical and p.pinned and p.elected == "flat"
+    assert not p.hierarchical and p.elected == "flat"
+    assert "pinned" not in p.summary()
     assert (p.ici_gbps, p.dcn_gbps) == (10.0, 1.0)
-    assert planner.plan_collectives(pinned=False, ici_gbps=5.0,
-                                    **kw).ici_gbps == 5.0
+    assert planner.plan_collectives(ici_gbps=5.0, **kw).ici_gbps == 5.0
     monkeypatch.delenv("LGBM_TPU_HIER_REDUCE")
     assert planner.plan_collectives(**kw).hierarchical

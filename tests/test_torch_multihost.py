@@ -5,12 +5,15 @@ and ``LGBM_TPU_NUM_SLICES`` splits them into simulated slices, as the JAX
 package splits its 8 CPU devices.
 
 - The meshes (``parallel.learners.make_hybrid_mesh``), the mesh plan's
-  priority and warnings, and the three routes of ``psum_tiered``: the
-  port's sums are exact integers, so flat, hierarchical and pinned give
-  the same bits, and the counts show each route's all-reduces per tier;
+  priority, warnings and refusals, and the two routes of
+  ``psum_tiered``: the port's sums are exact integers, so flat and
+  hierarchical give the same bits (the JAX package's pinned route, which
+  fixes the order of float sums, has nothing to pin here), and the
+  counts show each route's all-reduces per tier;
 - ``ops.planner.plan_collectives``'s three cases on fake link rates;
-- trained texts: quantized hierarchical, flat and pinned byte-identical,
-  f32 ones the serial text; hierarchical voting per slice with its plan,
+- trained texts: quantized hierarchical and flat byte-identical, and so
+  under ``LGBM_TPU_PINNED_REDUCE=1`` (which the port does not read), f32
+  ones the serial text; hierarchical voting per slice with its plan,
   tier gauges and per-tier spans;
 - the elastic loop: a membership probe that commits and one that fails
   on every survivor under seeded chaos, the shrunk plan, and a 4 x 2
@@ -23,9 +26,11 @@ package splits its 8 CPU devices.
 - ``tools/torch_collective_probe.py``'s JSON, as tests/test_multihost.py
   holds ``tools/collective_probe.py``'s.
 
-To keep the whole test run short the trainings are smaller than tests/
-test_multihost.py's (2 to 4 rounds of 7 leaves, not 8 of 15; 4 ranks
-where a case needs no 8 shards).
+The comparisons against the JAX package and the elastic run train
+tests/test_multihost.py's 15 leaves for 4 rounds (not 8); the
+within-port cases, whose texts must be byte-identical, train 7 leaves
+for 2 to 3 rounds, and 4 ranks where a case needs no 8 shards, to keep
+the whole test run short.
 """
 
 import json
@@ -115,10 +120,13 @@ def _ranks(world, params, rounds=ROUNDS, X_=X, Y_=Y, **kw):
 # ---------------------------------------------------------------- meshes
 
 
-def test_make_hybrid_mesh_shapes_and_refusal():
+def test_make_hybrid_mesh_shapes_and_refusal(monkeypatch):
     """The two-tier meshes of 8 ranks: axes, shapes, a linear order that
     is the group's rank order (``axis_index_flat``), so electing a mesh
-    never moves a row; a slice count that does not divide is refused."""
+    never moves a row; a slice count that does not divide is refused,
+    and so is a mesh plan that leaves ranks out (no rank drops out)."""
+    _env(_mp(monkeypatch), slices=2, per=2)
+
     def fn(rank, group):
         out = {}
         for s in (2, 4):
@@ -133,6 +141,8 @@ def test_make_hybrid_mesh_shapes_and_refusal():
                       mesh.over(ICI_AXIS).group.size())
         with pytest.raises(ValueError, match="partition"):
             learners.make_hybrid_mesh(group, num_slices=3)
+        with pytest.raises(ValueError, match="does not hold"):
+            learners.make_hybrid_mesh(group)
         return out
     for rank, out in enumerate(thread_ranks(8, fn)):
         for s in (2, 4):
@@ -146,18 +156,16 @@ def test_make_hybrid_mesh_shapes_and_refusal():
 
 @pytest.mark.parametrize("slices", [2, 4])
 def test_tiered_psum_matches_flat(slices):
-    """Flat, hierarchical and pinned sums of int32 and int64 payloads are
-    the same bits, the sum of every rank's; the counts show one
-    all-reduce flat, one a tier hierarchical, one all-gather a tier
-    pinned; the max and the gather run over every rank in linear
-    order."""
+    """Flat and hierarchical sums of int32 and int64 payloads are the
+    same bits, the sum of every rank's; the counts show one all-reduce
+    flat and one a tier hierarchical; the max and the gather run over
+    every rank in linear order."""
     def fn(rank, group):
         mesh = learners.make_hybrid_mesh(group, num_slices=slices)
         xi = torch.arange(24, dtype=torch.int32) * (rank + 1) - 91
         xl = xi.to(torch.int64) * (1 << 40)
         out = {}
-        for route, kw in (("flat", {}), ("hier", {"hierarchical": True}),
-                          ("pinned", {"pinned": True})):
+        for route, kw in (("flat", {}), ("hier", {"hierarchical": True})):
             collectives.reset_op_counts()
             out[route] = ([psum_tiered(x, mesh, **kw) for x in (xi, xl)],
                           {k: v for k, v in
@@ -175,8 +183,6 @@ def test_tiered_psum_matches_flat(slices):
             assert torch.equal(sl, want * (1 << 40)), route
         assert out["flat"][1] == {"all_reduce@dcn+ici": 2}
         assert out["hier"][1] == {"all_reduce@ici": 2, "all_reduce@dcn": 2}
-        assert out["pinned"][1] == {"all_gather@ici": 2,
-                                    "all_gather@dcn": 2}
         assert peak == 7 and order == list(range(8))
 
 
@@ -218,6 +224,23 @@ def test_mesh_plan_priority(monkeypatch):
     monkeypatch.setattr(net, "log_warning", seen.append)
     mp = net.mesh_plan(4, hosts=["a", "b", "a", "b"])
     assert (mp.num_slices, mp.source) == (1, "flat") and seen
+    # simulated slices that cannot partition the ranks are refused, not
+    # quietly flat
+    monkeypatch.setenv("LGBM_TPU_NUM_SLICES", "3")
+    with pytest.raises(ValueError, match="cannot partition the 4 ranks"):
+        net.mesh_plan(4, hosts=["a"] * 4)
+    monkeypatch.setenv("LGBM_TPU_NUM_SLICES", "2")
+    monkeypatch.setenv("LGBM_TPU_SLICE_DEVICES", "4")
+    with pytest.raises(ValueError, match="SLICE_DEVICES=4"):
+        net.mesh_plan(4)
+    monkeypatch.delenv("LGBM_TPU_NUM_SLICES")
+    monkeypatch.delenv("LGBM_TPU_SLICE_DEVICES")
+    # num_machines on ranks of one live host: flat, and it says so (the
+    # slow tier it would model is not there)
+    seen.clear()
+    mp = net.mesh_plan(8, num_machines=4, hosts=["a"] * 8)
+    assert (mp.num_slices, mp.total_shards, mp.source) == (1, 8, "flat")
+    assert len(seen) == 1 and "one host" in seen[0]
 
 
 def test_mesh_plan_mismatch_warns(monkeypatch):
@@ -251,9 +274,9 @@ def test_init_network_roundtrips_into_mesh_plan(monkeypatch):
 
 
 def test_plan_collectives_elects_hierarchical_on_slow_dcn():
-    plan = plan_collectives(features=28, num_bins=64, rows_global=10**6,
-                            num_slices=2, devices_per_slice=4,
-                            ici_gbps=100.0, dcn_gbps=5.0)
+    plan = plan_collectives(features=28, num_bins=64, num_slices=2,
+                            devices_per_slice=4, ici_gbps=100.0,
+                            dcn_gbps=5.0)
     assert plan.hierarchical and plan.elected == "hierarchical"
     assert plan.dcn_bytes == plan.payload_bytes
     assert plan.flat_dcn_bytes == plan.payload_bytes * 4
@@ -263,28 +286,28 @@ def test_plan_collectives_elects_hierarchical_on_slow_dcn():
 
 def test_plan_collectives_flat_cases(monkeypatch):
     _env(_mp(monkeypatch))
-    p1 = plan_collectives(features=28, num_bins=64, rows_global=1000,
-                          num_slices=1, devices_per_slice=8)
+    p1 = plan_collectives(features=28, num_bins=64, num_slices=1,
+                          devices_per_slice=8)
     assert not p1.hierarchical and p1.dcn_bytes == 0
     assert p1.elected == "flat"
     monkeypatch.setenv("LGBM_TPU_HIER_REDUCE", "0")
-    p2 = plan_collectives(features=28, num_bins=64, rows_global=1000,
-                          num_slices=2, devices_per_slice=4)
+    p2 = plan_collectives(features=28, num_bins=64, num_slices=2,
+                          devices_per_slice=4)
     assert not p2.hierarchical and p2.elected == "flat"
     assert p2.dcn_bytes == p2.flat_dcn_bytes
 
 
 def test_plan_collectives_voting_shrinks_dcn(monkeypatch):
     _env(_mp(monkeypatch))
-    kw = dict(features=28, num_bins=64, rows_global=10**6, num_slices=2,
-              devices_per_slice=4, ici_gbps=100.0, dcn_gbps=5.0)
+    kw = dict(features=28, num_bins=64, num_slices=2, devices_per_slice=4,
+              ici_gbps=100.0, dcn_gbps=5.0)
     data = plan_collectives(**kw)
     vote = plan_collectives(voting_k=8, **kw)
     assert vote.elected == "hierarchical+voting"
     assert vote.dcn_bytes < data.dcn_bytes
     assert vote.ici_bytes == data.ici_bytes
     # int32 level histograms: two channels of 4 bytes against three of 8
-    quant = plan_collectives(quant=True, quant_bins=16, **kw)
+    quant = plan_collectives(quant=True, **kw)
     assert quant.payload_bytes * 3 == data.payload_bytes
 
 
@@ -293,9 +316,12 @@ def test_plan_collectives_voting_shrinks_dcn(monkeypatch):
 
 @pytest.mark.parametrize("payload", ["f32", "quant"])
 def test_hierarchical_flat_and_pinned_texts(monkeypatch, payload):
-    """On 2 x 2 thread ranks the three routes give one model text, byte
-    for byte, quantized as in f32 (the sums are exact integers: no
-    pinning is needed), and the f32 text is the serial one."""
+    """On 2 x 2 thread ranks hierarchical and flat sums give one model
+    text, byte for byte, quantized as in f32, and the f32 text is the
+    serial one.  The sums are exact integers, so nothing needs pinning:
+    the JAX package's ``LGBM_TPU_PINNED_REDUCE=1`` is not read by the
+    port, and a run under it takes the same all-reduces to the same
+    text."""
     setenv = _mp(monkeypatch)
     extra = QUANT if payload == "quant" else {}
     texts = {}
@@ -306,12 +332,12 @@ def test_hierarchical_flat_and_pinned_texts(monkeypatch, payload):
         plan = out[0][0].boosting.collective_plan
         assert plan.summary()["mesh_shape"] == [2, 2]
         assert plan.hierarchical == kw["hier"]
-        assert plan.pinned == kw.get("pinned", False)
         counts = out[0][1]
-        hist = "all_gather" if kw.get("pinned") else "all_reduce"
         tiers = ("ici", "dcn") if kw["hier"] else ("dcn+ici",)
         for t in tiers:
-            assert counts.get(f"{hist}@{t}", 0) > 0, (route, t)
+            assert counts.get(f"all_reduce@{t}", 0) > 0, (route, t)
+        assert "all_gather@ici" not in counts, route
+        assert "all_gather@dcn" not in counts, route
         assert len({_body(b.model_to_string()) for b, _ in out}) == 1
         texts[route] = _body(out[0][0].model_to_string())
     assert texts["hier"] == texts["flat"] == texts["pinned"]
@@ -403,7 +429,7 @@ def test_plan_shrunk_world():
         plan_shrunk_world(2, 4, lost_slices=2)
 
 
-ELASTIC = dict(BASE, stochastic_rounding=False, **QUANT)
+ELASTIC = dict(BASE, num_leaves=15, stochastic_rounding=False, **QUANT)
 ELASTIC_FIRST, ELASTIC_ROUNDS = 2, 4
 
 
@@ -498,10 +524,13 @@ def test_elastic_bundle_names_the_shrunk_mesh(elastic):
 
 # ------------------------------------------------- against the JAX package
 
-# top_k 4 of 16: at 2 rounds of 7 leaves the per-slice vote elects
-# other features than the flat vote (top_k 6 leaves them equal there)
-VOTE = dict(BASE, tree_learner="voting", top_k=4, tpu_tree_growth="serial")
-JAX_ROUNDS = 2
+# tests/test_multihost.py's 15 leaves; 4 rounds of its 8 (each round
+# more costs about 6 s of thread ranks here).  At top_k 6 of 16 the
+# per-slice vote elects other features than the flat vote.
+JAX_BASE = dict(BASE, num_leaves=15)
+VOTE = dict(JAX_BASE, tree_learner="voting", top_k=6,
+            tpu_tree_growth="serial")
+JAX_ROUNDS = 4
 
 
 def _jax_env(**kw):
@@ -535,7 +564,7 @@ def jax_hybrid():
     out = {}
     Xv, yv = _vote_xy()
     for name, params, data, env, rounds in (
-            ("data_quant", dict(BASE, **QUANT), (X, Y),
+            ("data_quant", dict(JAX_BASE, **QUANT), (X, Y),
              dict(slices=2, hier=True), JAX_ROUNDS),
             ("voting", VOTE, (Xv, yv), dict(slices=2, hier=True),
              JAX_ROUNDS),
@@ -559,7 +588,7 @@ def test_quant_hybrid_data_matches_the_jax_package(jax_hybrid, monkeypatch):
     (both packages fold the rank into the key): equal trees, leaf values
     within 1e-5 plus 1e-5 of the largest leaf."""
     _env(_mp(monkeypatch), slices=2, hier=True)
-    out = _ranks(8, dict(BASE, **QUANT), rounds=JAX_ROUNDS)
+    out = _ranks(8, dict(JAX_BASE, **QUANT), rounds=JAX_ROUNDS)
     assert out[0][0].boosting.collective_plan.elected == "hierarchical"
     assert len({_body(b.model_to_string()) for b, _ in out}) == 1
     assert_same_trees(jax_hybrid["data_quant"], out[0][0], JAX_ROUNDS,
