@@ -63,7 +63,7 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   EFB bundles; ``testing.airline_like``) trained on the staged arm: B3's
   EFB fold, the whole-dataset histogram (B6) for each root, B4 segment
   histograms and B5 in leaf mode on the group histograms (nothing
-  expanded), its first 4 trees against the plain-version run's (as
+  expanded), its first 2 trees against the plain-version run's (as
   ``rand_train``'s, ``rank_train``'s and ``multiclass_train``'s:
   ``PLAIN_SHORT_ROUNDS``); then ``Booster.predict`` through B1 against
   B1's plain version;
@@ -86,27 +86,28 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   with ``use_quantized_grad`` (LightGBM's defaults: 4 bins, stochastic
   rounding, no leaf renewal): the card's quantized gradients of the
   first tree and of the scores after the last bit-equal to the CPU
-  port's, the model text byte-identical to the
-  plain-version run, only the int8 kernels launched; then 3 rounds at 16
-  bins without stochastic rounding and with leaf renewal, and 3 rounds
-  of the one-hot table on the staged arm, each against its plain-version
-  run;
+  port's, the first 2 trees byte-identical to the
+  plain-version run's, only the int8 kernels launched; then 3 rounds at
+  16 bins without stochastic rounding and with leaf renewal, and 3
+  rounds of the one-hot table on the staged arm, each against its
+  plain-version run's first 2 rounds (``SHORT_PLAIN_ROUNDS``, as every
+  3-round run below but GOSS's);
 - ``rand_train``: ``higgs_rand_1m``, the training run's datasets with
   ``extra_trees`` and ``feature_fraction_bynode=0.5`` (the staged arm:
   B6 roots, B4 segments, B5 with random thresholds in leaf mode), the
-  first 4 trees byte-identical to the plain-version run's, valid AUC
+  first 2 trees byte-identical to the plain-version run's, valid AUC
   rising; then
   3 quantized rounds with bynode only (B4 and B5 int8 in leaf mode);
 - ``mono_train``: ``mono_train_1m``, upstream LightGBM's monotone data
   at HIGGS width (1,000,000 x 28, constraints +1, -1, 0), regression,
   255 leaves, 10 rounds, on the fused arm (B2 with B5 in the monotone +
-  bounds mode), model text byte-identical to the plain-version run,
-  valid l2 falling, and predictions through B1 monotone on a sweep of
+  bounds mode), the first 2 trees byte-identical to the plain-version
+  run's, valid l2 falling, and predictions through B1 monotone on a sweep of
   x0 and x1; then 3 constrained rounds of the one-hot table (the staged
   arm, B5 in leaf mode with bounds);
 - ``goss_train``: ``higgs_goss_1m``, the training run's datasets with
-  ``boosting=goss`` for 15 rounds (11-15 sample): model text
-  byte-identical to the plain-version run, sampled rounds counted and
+  ``boosting=goss`` for 15 rounds (11-15 sample): the first 11 trees
+  byte-identical to the plain-version run's, sampled rounds counted and
   the kept rows' share printed; then 3 GOSS rounds of the one-hot table
   at lr 0.5 (staged arm, B6 roots, sampling from round 3);
 - ``serial_train`` (queue A4): the serial grower, one best-first split
@@ -122,16 +123,18 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   grower's trees; the staged arm's tree profiled, timed by section and
   its synchronising calls counted) and 3 rounds of coupled CEGB on the
   one-hot table (EFB, the staged arm on group histograms); each against
-  its plain-version run's first 2 trees, the launches exact (B6 or B4 and B5
+  its plain-version run's first tree, the launches exact (B6 or B4 and B5
   once a tree and once a split step) and the host reads a tree counted;
 - ``sharded_train`` (queue A9): two ranks as two spawned processes on
   the one card, in an explicit gloo group over a FileStore (NCCL refuses
   two ranks on one GPU): each bins its half of the training run's rows
   through B3 with bin mappers both agree on, then trains the 1,000,000
   x 28 data for 3 rounds data-parallel (the serial text, byte for
-  byte), quantized data-parallel (its plain-version run's text),
+  byte), quantized data-parallel (its plain-version run's first 2
+  trees),
   feature-parallel and voting at full top-k (the serial grower's text),
-  and voting at top_k 4 (its plain-version run's text; whether the vote
+  and voting at top_k 4 (its plain-version run's first 2 trees; whether
+  the vote
   left the serial tree is printed as ``equals_serial``), each rank's
   launches and collectives held to ``shard_expected``; a
   rank that fails fails the script;
@@ -140,7 +143,8 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   mesh (``LGBM_TPU_NUM_SLICES=2``): 400,000 x 28, 255 leaves, f32 and
   quantized data-parallel with hierarchical and with flat sums (the
   serial rounds twin's text; one quantized text), voting at top_k 4
-  per slice (its plain-version run's text; whether its first tree is
+  per slice (its plain-version run's first tree; whether its first tree
+  is
   flat voting's is printed), one 2-D tree on a (data, feature) mesh (the
   serial grower's tree) and the elastic shrink (a bundle every 2 of 4
   rounds, a membership probe with slice 1 stalled that fails on every
@@ -155,8 +159,8 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   store of eight 131,072-row blocks whose bytes equal the resident
   twin's matrix; 10 rounds streamed (the root B6 a block, each round B4
   a block and one B5) and resident, f32 and quantized, model texts
-  byte-identical; 3 rounds with the plain versions and 3 at 250,000-row
-  blocks equal to the first 3 trees; launches exact; the
+  byte-identical; 1 round with the plain versions and 3 at 250,000-row
+  blocks equal to the first trees; launches exact; the
   card's peaks held to 0.75-1.05 x the planner's predictions, the
   host's (VmRSS sampled over a spilled construct and 3 streamed trees
   in a fresh process) beside its prediction, and the planner's
@@ -185,7 +189,7 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``multiclass_train``: ``airline_multiclass_1m``, the airline table
   with its six categorical columns native and a 5-class delay band,
   ``multiclass`` (the default ``max_cat_threshold``), 10 rounds of 5
-  trees: the first 4 iterations' trees byte-identical to the
+  trees: the first 2 iterations' trees byte-identical to the
   plain-version run's, valid
   multi_logloss falling every round, B1's scores mode at K = 5 equal to
   the host's and to its plain version; then 3 rounds of
@@ -194,7 +198,7 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``rank_train``: ``mslr_lambdarank_1m``, lambdarank at MSLR-WEB30K
   width (1,000,000 x 136 f32, ~8,100 queries of 1 to 1,250 documents,
   grades 0-4; ``testing.mslr_like``), 255 leaves, ``eval_at`` 1, 3, 5,
-  10, 10 rounds with a 100,000-row valid set: the first 4 trees
+  10, 10 rounds with a 100,000-row valid set: the first 2 trees
   byte-identical to the plain-version run's, valid NDCG@10 rising,
   predictions through B1
   equal to the host's; each tree's time by section (``objective`` is the
@@ -218,7 +222,23 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
 - ``wide_ingest``: B3 at 200,000 x 2,000 f32 features (chunks that
   stage their own columns) and on one EFB group whose tables exceed 96
   KiB (member parts over successive launches), each byte-identical to
-  ``Dataset._bin_block`` and equal to its plain version.
+  ``Dataset._bin_block`` and equal to its plain version;
+- ``devprof`` (queue A11, rest; after ``quant_hist``): ``obs.devprof``'s
+  histogram table at ``higgs_train_1m``'s 1 M x 28 x 255, K = 128 (B6,
+  B2 and B4 then B5, f32 and quantized), its predict table on
+  ``higgs_500x255`` at 65,536 rows (B1 both modes) and its ingest table
+  binning the 1 M x 28 rows (B3 and the host): each row's bytes and
+  operations equal to the kernel table's at that shape, utilizations at
+  most 1.05, launches counted, then ``obs.diagnose.run_doctor``;
+- ``coresident`` (``coresident/``): a ``Fleet`` serves
+  ``higgs_500x255`` to 8 client threads under a ``ResidencyLedger`` of
+  the card's memory while ``Scheduler.refresh`` trains 200,000 rows of
+  the training data for 5 rounds beside it; an injected
+  ``serving.delay`` throttles and then pauses the refresh, which
+  resumes to a text byte-identical to a solo ``train``; every answer
+  bit-equal to its model's host path (after the swap, the refreshed
+  model's), none failed; the contention verdict; the refresh's peak
+  allocation against its lease and the bytes a pause frees.
 
 Every training phase also profiles one more tree (``tree_kernel_ms``):
 the device time summed per kernel (B4 with its sort, B5 by mode, B2, B6,
@@ -227,7 +247,8 @@ where the profiler records no device time.
 
 Each phase prints one JSON line.  Any failed check raises, and the
 script exits non-zero; it exits non-zero without a result where CUDA is
-absent or the package is missing.  The last lines are the kernel table,
+absent or the package is missing (the work counts of every bound are
+``lightgbm_tpu_torch.obs.devprof``'s, imported at start).  The last lines are the kernel table,
 the card's name and power limit as ``nvidia-smi`` reports them, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -242,13 +263,15 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores; the card's power limit is printed beside them
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# f32 operations per node visit: isnan, the NaN->0 select, |v| <= 1e-35,
-# v <= threshold
-OPS_PER_VISIT = 4
+# the work counts and the card's peaks behind every bound below (the
+# larger of bytes over 3.35 TB/s and f32 operations over 67 TFLOP/s, the
+# H100 SXM's published rates; the card's power limit is printed beside
+# them): lightgbm_tpu_torch/obs/devprof.py, from this checkout
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from lightgbm_tpu_torch.obs.devprof import (  # noqa: E402
+    grouped_scan_cells, ingest_steps_per_row, kernel_cost, roofline,
+    traverse_cost)
+
 KERNEL = "fused_traverse"
 # rows checked against the plain version (ragged tiles included) and the
 # timed shapes: the serving buckets, the monotone sweep's batch (101) and
@@ -270,6 +293,14 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "metric": ["auc", "binary_logloss"],
                 "verbose": -1}
 HIST_SLOTS = 128
+# devprof: timed calls a table row (after a warm one)
+DEVPROF_REPS = 5
+# coresident: the refresh's rows of higgs_train_1m's data and rounds; the
+# serving load (client threads, rows a request from a pool of HIGGS-width
+# rows); the guard's p99 ceiling and the injected serving delays
+CORES_ROWS, CORES_ROUNDS = 200_000, 5
+CORES_THREADS, CORES_MAX_ROWS, CORES_POOL_ROWS = 8, 64, 20_000
+CORES_CEILING_MS, CORES_DELAYS, CORES_DELAY_S = 100.0, 40, 0.3
 # update_chunk's chunk against as many update() calls (train phase)
 CHUNK = 8
 # the categorical phases: the airline table at a tenth of the Flight Delay
@@ -281,11 +312,6 @@ EFB_ROWS, EFB_VALID_ROWS, EFB_ORACLE_ROWS = 1_000_000, 100_000, 250_000
 WIDE_ROWS, WIDE_ROUNDS = 200_000, 3
 WIDE_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 1023,
                "verbose": -1}
-# f32 operations per (child, feature, bin) of the gain scan: two
-# directions of ~20 adds/multiplies/divides/compares each; the quantized
-# scan adds the count estimate (convert, multiply, round) per cell
-SCAN_OPS_PER_CELL = 40
-QUANT_COUNT_OPS_PER_CELL = 3
 # quantized training (higgs_quant_1m): the training run's data and
 # parameters with LightGBM's quantized-training defaults; the two short
 # runs take the other rounding/renewal branches and the staged arm
@@ -294,6 +320,9 @@ QUANT_BRANCH_PARAMS = dict(QUANT_PARAMS, num_grad_quant_bins=16,
                            stochastic_rounding=False,
                            quant_train_renew_leaf=True)
 QUANT_SHORT_ROUNDS = 3
+# the short runs' plain-version twins train this many of those rounds
+# (their trees held byte for byte to the short run's first ones)
+SHORT_PLAIN_ROUNDS = 2
 # monotone constraints (mono_train): upstream LightGBM's monotone data at
 # HIGGS width, regression, the training run's size and tree parameters;
 # then the one-hot airline table with DepTime (column 50) increasing
@@ -307,10 +336,6 @@ RAND_PARAMS = dict(TRAIN_PARAMS, extra_trees=True,
                    feature_fraction_bynode=0.5)
 RAND_QUANT_PARAMS = dict(TRAIN_PARAMS, feature_fraction_bynode=0.5,
                          use_quantized_grad=True)
-# f32 operations per (child, feature, bin) of the monotone scan: the
-# plain scan's 40 plus, in each direction, two leaf outputs, two clamps,
-# the direction test and two gains from outputs (~30 more)
-MONO_OPS_PER_CELL = 70
 # the slice of multiclass, ranking and the boosting variants.
 # rank_train (mslr_lambdarank_1m): MSLR-WEB30K width (136 features,
 # grades 0-4; testing.mslr_like), a million of its 2,270,296 training rows
@@ -334,6 +359,9 @@ MULTI_PARAMS = {"objective": "multiclass", "num_class": MULTI_CLASSES,
 OVA_PARAMS = dict(MULTI_PARAMS, objective="multiclassova")
 MULTI_QUANT_PARAMS = dict(MULTI_PARAMS, use_quantized_grad=True)
 GOSS_ROUNDS = 15
+# the GOSS plain twin: the 10 warm-up rounds (1 / lr) and the first
+# sampled one
+GOSS_PLAIN_ROUNDS = 11
 GOSS_PARAMS = dict(TRAIN_PARAMS, boosting="goss")
 GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
 # serial_train (queue A4): the serial grower on the training run's data.
@@ -353,10 +381,11 @@ GOSS_ONEHOT_PARAMS = dict(TRAIN_PARAMS, boosting="goss", learning_rate=0.5)
 # the script has a time limit; the CEGB state across trees is held by
 # the main runs' launches, features and paid rows)
 SERIAL_ROUNDS, SERIAL_SHORT_ROUNDS, SERIAL_PLAIN_ROUNDS = 10, 3, 1
-# the plain-version twins of efb_train, rand_train, rank_train and
-# multiclass_train train this many rounds (their first trees held byte
-# for byte to the main run's), to keep the script inside its time limit
-PLAIN_SHORT_ROUNDS = 4
+# the plain-version twins of efb_train, rand_train, rank_train,
+# multiclass_train, quant_train, mono_train and cat_train train this
+# many rounds (their first trees held byte for byte to the main run's),
+# to keep the script inside its time limit
+PLAIN_SHORT_ROUNDS = 2
 CEGB_PARAMS = dict(
     TRAIN_PARAMS, cegb_tradeoff=1.0, cegb_penalty_split=1e-4,
     cegb_penalty_feature_coupled=[1e5 if f % 2 else 1e2
@@ -397,13 +426,14 @@ WIDE_SAMPLE_ROWS, WIDE_ORACLE_ROWS, OVERSIZE_MEMBERS = 10_000, 20_000, 120
 # push_rows in STREAM_PUSH_ROWS-row f32 chunks, spilled in
 # STREAM_BLOCK_ROWS-row blocks (8 at 1 M rows) and trained streamed for
 # STREAM_ROUNDS rounds, f32 and quantized, against the resident twin;
-# STREAM_SHORT_ROUNDS with the kernels' plain versions, and at
+# STREAM_PLAIN_ROUNDS with the kernels' plain versions (its first tree;
+# the resident twin holds every tree), STREAM_SHORT_ROUNDS at
 # STREAM_BIG_BLOCK_ROWS-row blocks (4); bulk
 # scoring of the f32 rows stored in BULK_BLOCK_ROWS-row blocks (16),
 # stopped after BULK_STOP_BLOCKS blocks and resumed
 STREAM_SAMPLE_ROWS, STREAM_PUSH_ROWS = 200_000, 100_000
 STREAM_BLOCK_ROWS, STREAM_BIG_BLOCK_ROWS = 131_072, 250_000
-STREAM_ROUNDS, STREAM_SHORT_ROUNDS = 10, 3
+STREAM_ROUNDS, STREAM_SHORT_ROUNDS, STREAM_PLAIN_ROUNDS = 10, 3, 1
 BULK_BLOCK_ROWS, BULK_STOP_BLOCKS = 65_536, 3
 # a training run's card peak (torch.cuda.max_memory_allocated) over the
 # planner's prediction: at most 5% above it (the election must not call
@@ -411,7 +441,15 @@ BULK_BLOCK_ROWS, BULK_STOP_BLOCKS = 65_536, 3
 PEAK_RATIO = (0.75, 1.05)
 
 
+_T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's row also carries ``t_s``, the
+    script's seconds when it was printed (where a whole run's time
+    went)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T_START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -645,92 +683,16 @@ def tree_kernel_ms(step, fused_arm: bool) -> dict:
     return out
 
 
-# node planes the traversal function reads (kernel_args' names)
-PLANES = ("sf", "thr", "left", "right", "mt", "dl", "ic", "co", "cn")
-
-
-def reads(pk, dev, X):
-    """What the traversal function must read for this input, each item
-    once: per plane, the (tree, node) entries some row's decision needs;
-    the bitset words some categorical decision tests; the (tree, leaf)
-    values reached; and the (tree, row, level) visits.
-
-    A decision reads ``sf`` (and ``ic`` where the forest has categories);
-    a numerical one reads ``mt``, then ``dl`` if the value is missing or
-    ``thr`` if not; a categorical one reads ``cn``, ``co`` and, for a value
-    inside the bitset, one word; every decision reads the child it takes."""
-    p = pk.kernel_args(dev)
-    has_cat = dev.forest.has_cat
-    T, I = dev.split_feature.shape
-    n = X.shape[0]
-    need = {k: torch.zeros((T, I), dtype=torch.bool, device=X.device)
-            for k in PLANES}
-    word_need = torch.zeros(dev.cat_words.numel(), dtype=torch.bool,
-                            device=X.device)
-    node = torch.zeros((T, n), dtype=torch.int32, device=X.device)
-    tid = torch.arange(T, device=X.device)[:, None].expand_as(node)
-    rid = torch.arange(n, device=X.device)[None, :].expand_as(node)
-    visits = 0
-    for _ in range(max(int(dev.forest.max_depth), 1)):
-        live = node >= 0
-        if not bool(live.any()):
-            break
-        visits += int(live.sum())
-        t, nd, r = tid[live], node[live].long(), rid[live]
-        v = X[r, p["sf"][t, nd].long()]
-        m = p["mt"][t, nd]
-        nan = torch.isnan(v)
-        fz = torch.where(nan & (m != 2), torch.zeros_like(v), v)
-        missing = ((m == 1) & (fz.abs() <= pk.K_ZERO_F32)) | ((m == 2) & nan)
-        cat = (p["ic"][t, nd] != 0) if has_cat else torch.zeros_like(nan)
-        num = ~cat
-        need["sf"][t, nd] = True
-        if has_cat:
-            need["ic"][t, nd] = True
-        need["mt"][t[num], nd[num]] = True
-        need["dl"][t[num & missing], nd[num & missing]] = True
-        need["thr"][t[num & ~missing], nd[num & ~missing]] = True
-        if has_cat and bool(cat.any()):
-            need["co"][t[cat], nd[cat]] = True
-            need["cn"][t[cat], nd[cat]] = True
-            iv = torch.where(nan, torch.full_like(v, -1.0), v).trunc()
-            iv = iv.clamp(-1.0, pk._CAT_IV_MAX).to(torch.int32)
-            nw = p["cn"][t, nd]
-            inside = cat & (iv >= 0) & (iv < nw * 32)
-            widx = p["co"][t, nd] + torch.minimum(
-                iv.clamp_min(0) // 32, (nw - 1).clamp_min(0))
-            word_need[widx[inside].long()] = True
-        nxt = pk.decide_step(node, X, **pk._planes(dev))
-        went_left = nxt[live] == p["left"][t, nd]
-        need["left"][t[went_left], nd[went_left]] = True
-        need["right"][t[~went_left], nd[~went_left]] = True
-        node = nxt
-    leaf_need = torch.zeros(dev.forest.leaf_value.shape, dtype=torch.bool,
-                            device=X.device)
-    leaf_need[tid, (~node).long()] = True
-    entries = {k: int(v.sum()) for k, v in need.items()}
-    return entries, int(word_need.sum()), int(leaf_need.sum()), visits
-
-
 def bound(pk, dev, X, num_class, emit_scores):
-    """Least time the card could take: the larger of bytes over HBM rate
-    (X, the plane entries, bitset words and leaf values this input needs,
-    and the output, each once) and f32 operations over the f32 rate."""
-    n, F = X.shape
-    T = dev.num_trees
-    entries, words, leaves, visits = reads(pk, dev, X)
-    nbytes = n * F * 4 + sum(entries.values()) * 4 + words * 4
-    ops = visits * OPS_PER_VISIT
-    if emit_scores:
-        nbytes += leaves * 4 + max(num_class, 1) * n * 4
-        ops += T * n
-    else:
-        nbytes += T * n * 4
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
-    return {"bytes": nbytes, "plane_entries": entries, "bitset_words": words,
-            "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    """Least time the card could take for B1 on ``X``: its work
+    (``devprof.traverse_cost``: the plane entries, bitset words and leaf
+    values this input needs, X and the output, each once; the f32
+    operations of every visit) against the card's rates."""
+    c = traverse_cost(dev, X, num_class, emit_scores)
+    return {"bytes": c["bytes"], "plane_entries": c["plane_entries"],
+            "bitset_words": c["bitset_words"],
+            **{k: v for k, v in roofline(c["bytes"], c["ops"]).items()
+               if k != "bytes"}}
 
 
 def plan_variants(dev, X, K, scores: bool) -> list:
@@ -1707,13 +1669,11 @@ def phase_fleet_serve(pk, lt, text_a, F, seed, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def bytes_or_ops(nbytes: float, ops: float) -> dict:
-    """Least time on the card: the larger of bytes over the HBM rate and
-    operations over the f32 rate."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
-    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+def cost_bound(kernel: str, **shape) -> dict:
+    """``devprof.kernel_cost`` of ``kernel`` at ``shape`` with its least
+    time on the card (``devprof.roofline``)."""
+    c = kernel_cost(kernel, **shape)
+    return roofline(c["bytes"], c["ops"])
 
 
 def max_abs_err(a, b) -> float:
@@ -2131,9 +2091,9 @@ def phase_ingest(ds, X):
            "plain_ms": event_ms(lambda: binner.plain(Xt), 3, warmup=1),
            "library_ms": event_ms(
                lambda: torch.searchsorted(binner.bounds, XT), 20),
-           **bytes_or_ops(4 * n * F + n * tables.num_groups,
-                          n * tables.num_groups
-                          * (int(np.ceil(np.log2(bw + 1))) + 4))}
+           **cost_bound("B3", rows=n, columns=F, groups=tables.num_groups,
+                        steps_per_row=ingest_steps_per_row(
+                            tables.num_groups, bw))}
     emit(row)
     return row
 
@@ -2256,16 +2216,12 @@ def phase_hist(ds, bst):
     torch.cuda.synchronize()
 
     m = int((slot < K).sum())
-    NC = 2 * K
-    hist_bytes = K * 3 * F * B * 8
-    tuple_bytes = NC * F * 4 * 6
-    scan = bytes_or_ops(2 * hist_bytes + 3 * NC * 4 + K * 4 + 3 * F * 4
-                        + tuple_bytes, NC * F * B * SCAN_OPS_PER_CELL)
+    scan = cost_bound("B5", children=2 * K, features=F, bins=B)
     shapes = b4_shapes(fused, accumulate_plain, binned_t, vals, scales, B,
                        slot, seed=7)
     acc = shapes["frontier"]
-    pair = bytes_or_ops(acc["bytes"] + hist_bytes + 3 * NC * 4 + K * 4
-                        + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
+    pair = cost_bound("B2", rows=n, features=F, bins=B, slots=K,
+                      slotted_rows=m)
     edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, scales, B)
     modes = b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp,
                          small_left, parent, plan, quant=False)
@@ -2286,22 +2242,13 @@ def phase_hist(ds, bst):
           "checked": "bit-identical to the plain versions",
           "b4_shapes": shapes, "b4_edge_cases": edges,
           "b5_modes": modes, **{k: v for k, v in rows_out.items()}})
-    return dict(rows_out, b5_modes=modes)
+    return dict(rows_out, b5_modes=modes, frontier_slot=slot)
 
 
 # B4's frontier shapes besides the training run's level (K = 128 with
 # about half the rows slotted): a root (one slot holding every row) and a
 # deep round (K = 128, about 5% of the rows slotted)
 B4_SHAPES = (("root", 1, 1.0), ("deep", HIST_SLOTS, 0.05))
-
-
-def b4_bound(n, F, B, K, m, quant, bin_bytes=1):
-    """B4's least time: each slot read once, the slotted rows' bins and
-    values once, the [K, C, F, B] sums written once; one add per
-    (slotted row, feature, channel)."""
-    C, val_bytes, cell = (2, 2, 4) if quant else (3, 12, 8)
-    return bytes_or_ops(4 * n + m * (F * bin_bytes + val_bytes)
-                        + K * C * F * B * cell, C * m * F)
 
 
 def b4_shapes(fused, accumulate_plain, binned_t, vals, scales, B, slot,
@@ -2354,7 +2301,9 @@ def b4_shapes(fused, accumulate_plain, binned_t, vals, scales, B, slot,
             "library_ms": event_ms(library, 5),
             "sort_ms": graph_ms(lambda: fused._slot_order_cuda(
                 slot, K, vals, scales), 10),
-            **b4_bound(n, F, B, K, m, quant, binned_t.element_size())}
+            **cost_bound("B4", rows=n, features=F, bins=B, slots=K,
+                         slotted_rows=m, quant=quant,
+                         bin_bytes=binned_t.element_size())}
         del idx, wts
     return out
 
@@ -2386,7 +2335,6 @@ def slot_order_row(fused, slot, K, vals, scales):
     n = slot.shape[0]
     err = sort_vs_plain(fused, slot, K, vals, scales, "the frontier shape")
     m = int((slot < K).sum())
-    C, in_b, out_b = (2, 1, 1) if vals.dtype == torch.int8 else (3, 4, 8)
 
     def plain():
         order, offsets = fused.slot_order_plain(slot, K)
@@ -2399,7 +2347,8 @@ def slot_order_row(fused, slot, K, vals, scales):
             "argsort_order_only_ms": event_ms(
                 lambda: torch.argsort(slot, stable=True), 5),
             "max_abs_err": err, "slotted_rows": m,
-            **bytes_or_ops(8 * n + 8 * (K + 1) + m * C * (in_b + out_b), n)}
+            **cost_bound("B4_sort", rows=n, slots=K, slotted_rows=m,
+                         quant=vals.dtype == torch.int8)}
 
 
 def b4_edge_cases(fused, accumulate_plain, binned_t, vals, scales, B):
@@ -2603,10 +2552,10 @@ def b3_at(ds, X) -> dict:
                lambda: torch.searchsorted(binner.bounds, XT), 5),
            "max_abs_err": err, "host_tables_s": tables_s,
            "host_copy_x_s": copy_s,
-           **bytes_or_ops(4 * n * read + n * tables.num_groups
-                          * (1 if ING.device_dtype(tables) == torch.uint8
-                             else 4),
-                          n * depth)}
+           **cost_bound("B3", rows=n, columns=read,
+                        groups=tables.num_groups, steps_per_row=depth,
+                        out_bytes=(1 if ING.device_dtype(tables)
+                                   == torch.uint8 else 4))}
     del Xt, XT
     return row
 
@@ -2662,7 +2611,8 @@ def phase_cat_train(lt, pk):
     X, y = airline_like(EFB_ROWS, seed=11)
     Xv, yv = airline_like(EFB_VALID_ROWS, seed=12)
     r = training_runs(lt, X, y, Xv, yv, TRAIN_PARAMS, TRAIN_ROUNDS,
-                      categorical=list(AIRLINE_CATEGORICAL))
+                      categorical=list(AIRLINE_CATEGORICAL),
+                      plain_rounds=PLAIN_SHORT_ROUNDS)
     ds = r["ds"]
     meta = ds.feature_meta()
     if meta.has_bundles or int(meta.is_categorical.sum()) != 6:
@@ -2750,9 +2700,8 @@ def b5_run_row(ds, bst, K: int) -> dict:
             "max_abs_err": max_abs_err(best_k, best_p),
             "kernel_ms": graph_ms(k, 50),
             "plain_ms": event_ms(p, 5, warmup=1), "library_ms": None,
-            **bytes_or_ops(2 * K * 3 * walked * 8 + 3 * NC * 4 + K * 4
-                           + 3 * F * 4 + plan.numel() * 4 + NC * F * 4 * 6,
-                           NC * walked * SCAN_OPS_PER_CELL)}
+            **cost_bound("B5", children=NC, features=F, cells=walked,
+                         plan_entries=plan.numel())}
 
 
 def phase_hist6(ds, bst, config: str):
@@ -2818,8 +2767,8 @@ def phase_hist6(ds, bst, config: str):
                lambda: H.histogram_plain(binned_t, vals, Bg, scales), 3,
                warmup=1),
            "library_ms": event_ms(library, 5),
-           **bytes_or_ops(binned_t.element_size() * G * n + 12 * n
-                          + 3 * G * Bg * 8, 3 * n * G)}
+           **cost_bound("B6", rows=n, features=G, bins=Bg,
+                        bin_bytes=binned_t.element_size())}
     emit(row)
     return row
 
@@ -2966,17 +2915,12 @@ def phase_quant_hist(ds, bst):
     torch.cuda.synchronize()
 
     m = int((slot < K).sum())
-    NC = 2 * K
-    hist_bytes = K * 2 * F * B * 4
-    tuple_bytes = NC * F * 4 * 6
-    scan_ops = NC * F * B * (SCAN_OPS_PER_CELL + QUANT_COUNT_OPS_PER_CELL)
-    scan = bytes_or_ops(2 * hist_bytes + 3 * NC * 4 + K * 4 + 3 * F * 4
-                        + tuple_bytes, scan_ops)
+    scan = cost_bound("B5", children=2 * K, features=F, bins=B, quant=True)
     shapes = b4_shapes(fused, accumulate_plain, binned_t, vals, None, B,
                        slot, seed=8)
     acc = shapes["frontier"]
-    pair = bytes_or_ops(acc["bytes"] + hist_bytes + 3 * NC * 4 + K * 4
-                        + 3 * F * 4 + tuple_bytes, acc["ops"] + scan["ops"])
+    pair = cost_bound("B2", rows=n, features=F, bins=B, slots=K,
+                      slotted_rows=m, quant=True)
     edges = b4_edge_cases(fused, accumulate_plain, binned_t, vals, None, B)
     modes = b5_mode_rows(fused, small, qs, sums, nb, mty, db, hp,
                          small_left, parent, plan, quant=True)
@@ -3002,14 +2946,14 @@ def phase_quant_hist(ds, bst):
           "quantize_gradients_ms": quant_ms,
           "quantize_gradients_bytes": 8 * n + 2 * n,
           "b5_modes": modes, **rows_out})
-    return dict(rows_out, b5_modes=modes)
+    return dict(rows_out, b5_modes=modes, b4_shapes=shapes)
 
 
 def short_run(lt, ds, params, positive, zero, quant=True,
-              rounds=QUANT_SHORT_ROUNDS):
+              rounds=QUANT_SHORT_ROUNDS, plain_rounds=SHORT_PLAIN_ROUNDS):
     """``rounds`` rounds of ``params`` on a reused dataset, on the kernels
-    and then on their plain versions: the model texts must be the same
-    bytes.  Returns the kernel run's launch counts, with B5's launches by
+    and then ``plain_rounds`` of them on their plain versions: the model
+    text (at fewer rounds, its first trees) must be the same bytes.  Returns the kernel run's launch counts, with B5's launches by
     mode under ``b5_modes``, and its booster.
     ``quant``: the run must train quantized (or, False, f32) trees."""
     from lightgbm_tpu_torch.ops import fused
@@ -3026,11 +2970,15 @@ def short_run(lt, ds, params, positive, zero, quant=True,
             != rounds * bst.num_tree_per_iteration):
         raise AssertionError("the short run did not train the trees asked")
     saved = plain_kernels()
+    plain_rounds = min(rounds, plain_rounds)
     try:
-        bst_p = lt.train(params, ds, rounds, verbose_eval=False)
+        bst_p = lt.train(params, ds, plain_rounds, verbose_eval=False)
     finally:
         restore_kernels(saved)
-    if bst_p.model_to_string() != bst.model_to_string():
+    if (bst_p.model_to_string() != bst.model_to_string()
+            if plain_rounds == rounds else
+            trees_of(bst_p.model_to_string()) != trees_of(
+                bst.model_to_string(num_iteration=plain_rounds))):
         raise AssertionError("the short run's model text differs from its "
                              "plain-version run")
     return dict(launches, b5_modes=modes, seconds=seconds), bst
@@ -3044,7 +2992,8 @@ def phase_quant_train(lt, f32_run, data, efb_ds):
     rounds each.  Returns the main run's launch counts."""
     ds, f32_row = f32_run["ds"], f32_run["row"]
     r = training_runs(lt, *data, QUANT_PARAMS, TRAIN_ROUNDS,
-                      datasets=(ds, f32_run["vs"]))
+                      datasets=(ds, f32_run["vs"]),
+                      plain_rounds=PLAIN_SHORT_ROUNDS)
     expect_launches(r["launches"], positive=INT8_ENTRIES,
                     zero=F32_ENTRIES + ("histogram_pallas", "ingest"))
     if not r["bst"].boosting._quant_on:
@@ -3114,10 +3063,6 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
     hi = 0.02 + 0.1 * torch.rand(NC, device=dev, generator=g)
     bounds = (torch.where(free, torch.full_like(lo, -np.inf), lo),
               torch.where(free, torch.full_like(hi, np.inf), hi))
-    cell = 4 if quant else 8
-    count_ops = QUANT_COUNT_OPS_PER_CELL if quant else 0
-    meta_bytes = 3 * NC * 4 + 3 * F * 4
-    tuple_bytes = NC * F * 4 * 6
     rows = {}
 
     def check(name, k, p, free_k):
@@ -3150,9 +3095,8 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
         "children": NC, "features": F, "bins": B, "max_abs_err": err,
         "kernel_ms": graph_ms(mono_k, 10),
         "plain_ms": event_ms(mono_p, 2, warmup=1), "library_ms": None,
-        **bytes_or_ops(2 * K * C * F * B * cell + meta_bytes + K * 4
-                       + F * 4 + 2 * NC * 4 + tuple_bytes,
-                       NC * F * B * (MONO_OPS_PER_CELL + count_ops))}
+        **cost_bound("B5", children=NC, features=F, bins=B, quant=quant,
+                     monotone=True, bounds=True)}
     if quant:
         return rows
     leaf = fused.derive_children(small, small_left, parent).contiguous()
@@ -3172,23 +3116,9 @@ def b5_mode_rows(fused, small, scales, sums, nb, mty, db, hp, small_left,
         "children": NC, "features": F, "bins": B, "max_abs_err": err,
         "kernel_ms": graph_ms(rand_k, 10),
         "plain_ms": event_ms(rand_p, 2, warmup=1), "library_ms": None,
-        **bytes_or_ops(NC * C * F * B * cell + meta_bytes + NC * F * 4
-                       + tuple_bytes, NC * F * B * SCAN_OPS_PER_CELL)}
+        **cost_bound("B5", children=NC, features=F, bins=B, leaf_mode=True,
+                     rand_thr=True)}
     return rows
-
-
-def grouped_scan_cells(mt, B: int, Bg: int) -> int:
-    """Cells of one child's channel that B5 in grouped leaf mode must
-    read, each once: group 0's Bg bins (the child's totals) and each
-    feature's bins 1 .. min(num_bin, B) - 1 at their merged places
-    (``feat_start[f] + b - 1`` of column ``feat_group[f]``)."""
-    fg, fs, nb = (mt[k].cpu().numpy().astype(np.int64)
-                  for k in ("feat_group", "feat_start", "num_bin"))
-    reps = np.maximum(np.minimum(nb, B) - 1, 0)
-    f = np.repeat(np.arange(len(nb)), reps)
-    b = 1 + np.arange(int(reps.sum())) - np.repeat(np.cumsum(reps) - reps,
-                                                   reps)
-    return len(np.union1d(np.arange(Bg), fg[f] * Bg + fs[f] + b - 1))
 
 
 def phase_onehot_scan(ds, bst):
@@ -3238,10 +3168,8 @@ def phase_onehot_scan(ds, bst):
                              "differs from its plain version in bits")
     if not bool(torch.isfinite(best_k.gain).any()):
         raise AssertionError("B5 (onehot leaf mode) found no split")
-    tuple_bytes = NC * F * 4 * 6
-    # sums, the five meta vectors, the plan's lane entries
-    meta_bytes = 3 * NC * 4 + 5 * F * 4 + plan.numel() * 4
-    cells = grouped_scan_cells(mt, B, Bg)
+    cells = grouped_scan_cells(mt["feat_group"], mt["feat_start"],
+                               mt["num_bin"], B, Bg)
     walked = int(torch.clamp(nb, max=B).sum())
     row = {"phase": "onehot_scan", "children": NC, "features": F,
            "groups": G, "group_bins": Bg, "bins": B,
@@ -3255,16 +3183,16 @@ def phase_onehot_scan(ds, bst):
            # the group cells the scan needs (group 0's row for the
            # totals, each feature's own bins), once; the meta; the
            # tuples; the gain arithmetic of every bin a feature has
-           **bytes_or_ops(NC * 3 * cells * 8 + meta_bytes + tuple_bytes,
-                          NC * walked * SCAN_OPS_PER_CELL)}
+           **cost_bound("B5", children=NC, features=F, cells=cells,
+                        walked=walked, leaf_mode=True, feature_meta=5,
+                        plan_entries=plan.numel())}
     # the old path: the expansion the grower ran before every search, and
     # the byte bound of a scan over its [NC, 3, F, B] output
     row["expansion_old_path"] = {
         "ms": graph_ms(lambda: expand(ghist), 5),
-        **bytes_or_ops(NC * 3 * G * Bg * 8 + NC * 3 * F * B * 8, 0)}
-    row["expanded_input_bound"] = bytes_or_ops(
-        NC * 3 * F * B * 8 + 3 * NC * 4 + 3 * F * 4 + tuple_bytes,
-        NC * F * B * SCAN_OPS_PER_CELL)
+        **roofline(NC * 3 * G * Bg * 8 + NC * 3 * F * B * 8, 0)}
+    row["expanded_input_bound"] = cost_bound("B5", children=NC, features=F,
+                                             bins=B, leaf_mode=True)
     del ghist, best_p
     emit(row)
     return row
@@ -3336,7 +3264,7 @@ def phase_mono_train(lt, pk, efb_ds):
     (1,000,000 x 28, constraints +1, -1, 0 on x0..x2), regression, 255
     leaves, through ``training_runs`` on the fused arm: B3, B4 roots and
     B2 (B4 + B5) in the monotone + bounds mode; the valid l2 falls every
-    round, the model text equals the plain-version run's, and B1's
+    round, the first trees equal the plain-version run's, and B1's
     predictions keep the constraints on a sweep.  Then 3 rounds of the
     one-hot airline table (staged arm) with DepTime constrained: B5 in
     leaf mode with constraints and bounds.  Returns (the main run's
@@ -3347,7 +3275,7 @@ def phase_mono_train(lt, pk, efb_ds):
     params = dict(MONO_PARAMS,
                   monotone_constraints=list(MONOTONE_CONSTRAINTS))
     r = training_runs(lt, X, y, Xv, yv, params, TRAIN_ROUNDS, falling="l2",
-                      rising=None)
+                      rising=None, plain_rounds=PLAIN_SHORT_ROUNDS)
     expect_launches(r["launches"], positive=("ingest",) + F32_ENTRIES,
                     zero=("histogram_pallas",) + INT8_ENTRIES)
     modes = r["row"]["b5_launches_by_mode"]
@@ -3482,7 +3410,7 @@ def phase_rank_train(lt, pk):
     ``testing.mslr_like``) with a 100,000-row valid set, through
     ``training_runs`` on the fused arm (B3, B4 roots, B2), each run
     binning its own train and valid rows (the plain-version run through
-    B3's plain version): the model text equals the plain-version run's,
+    B3's plain version): the first trees equal the plain-version run's,
     valid NDCG@10 rises, and the card's predictions equal the host's and
     B1's plain version; the section ``objective`` of each tree is the
     lambdarank gradients (plain PyTorch), also timed alone.  B3 at 136
@@ -3540,7 +3468,7 @@ def phase_multiclass_train(lt, pk):
     categorical columns native and a 5-class delay band
     (``testing.airline_multiclass_like``), 10 rounds of 5 trees, through
     ``training_runs`` on the fused arm with the categorical merge: the
-    model text equals the plain-version run's, valid multi_logloss falls
+    first trees equal the plain-version run's, valid multi_logloss falls
     every round, and B1's scores mode at K = 5 equals the host's and its
     plain version.  Then 3 rounds of ``multiclassova`` and 3 of quantized
     multiclass (per-class scales; int8 B4/B5/B2 only), each against its
@@ -3593,7 +3521,8 @@ def phase_goss_train(lt, f32_run, data, efb_ds):
     main run's launches."""
     r = training_runs(lt, *data, GOSS_PARAMS, GOSS_ROUNDS,
                       datasets=(f32_run["ds"], f32_run["vs"]),
-                      falling=None, rising="auc")
+                      falling=None, rising="auc",
+                      plain_rounds=GOSS_PLAIN_ROUNDS)
     expect_launches(r["launches"], positive=F32_ENTRIES,
                     zero=("histogram_pallas", "ingest") + INT8_ENTRIES)
     gb = r["bst"].boosting
@@ -3606,7 +3535,8 @@ def phase_goss_train(lt, f32_run, data, efb_ds):
         lt, efb_ds, GOSS_ONEHOT_PARAMS,
         positive=("fused_frontier_accumulate", "fused_sibling_scan",
                   "fused_slot_order", "histogram_pallas"),
-        zero=("fused_frontier_splits",) + INT8_ENTRIES, quant=False)
+        zero=("fused_frontier_splits",) + INT8_ENTRIES, quant=False,
+        plain_rounds=QUANT_SHORT_ROUNDS)    # round 3 is the sampled one
     if obst.boosting.sampled_iters != 1:
         raise AssertionError("the one-hot GOSS run did not sample round 3")
     emit({"phase": "goss_train", "config": "higgs_goss_1m", **r["row"],
@@ -3931,8 +3861,10 @@ def phase_serial_train(lt, f32_run, data, efb_ds, train_stats) -> dict:
 # data-parallel (its plain-version run's text: the rank folds into the
 # rounding key), feature-parallel and voting at full top-k on the serial
 # grower (the serial grower's text), and voting at top_k 4 of 28 (its
-# plain-version run's text: the vote, not the serial search, picks)
+# plain-version run's text: the vote, not the serial search, picks); the
+# plain-version runs train SHARD_PLAIN_ROUNDS, held to the first trees
 SHARD_WORLD, SHARD_ROUNDS, SHARD_TIMEOUT_S = 2, 3, 600
+SHARD_PLAIN_ROUNDS = 1
 SHARD_MODES = (
     ("data", dict(TRAIN_PARAMS, tree_learner="data"), "rounds"),
     ("data_quant", dict(QUANT_PARAMS, tree_learner="data"), "plain"),
@@ -4069,7 +4001,9 @@ def sharded_worker(rank, tmp, device, rows, rounds, leaves, counted):
                 saved = plain_kernels()
                 reset_training_counts()
                 try:
-                    bst_p = lt.train(params, ds, rounds, verbose_eval=False)
+                    bst_p = lt.train(params, ds,
+                                     min(rounds, SHARD_PLAIN_ROUNDS),
+                                     verbose_eval=False)
                 finally:
                     restore_kernels(saved)
                 if any(kernel_launches().values()):
@@ -4152,8 +4086,11 @@ def phase_sharded_train(lt, f32_run, smi, device="cuda", rows=None,
     for name, params, ref in SHARD_MODES:
         want = (texts[(name + "_plain", 0)] if ref == "plain"
                 else refs[ref])
+        # the plain run's trees are the first trees
+        head = ((lambda t: head_trees(t, SHARD_PLAIN_ROUNDS))
+                if ref == "plain" else (lambda t: t))
         for r in range(SHARD_WORLD):
-            if texts[(name, r)] != want:
+            if head(texts[(name, r)]) != head(want):
                 raise AssertionError(f"{name} on rank {r}: the trees differ "
                                      f"from the {ref} twin")
         recs = [rk["modes"][name] for rk in ranks]
@@ -4213,8 +4150,10 @@ def phase_sharded_train(lt, f32_run, smi, device="cuda", rows=None,
 # group, equal to 2 ranks from scratch.  Cuts, so the phase stays under
 # 150 s: 1,000,000 rows to 400,000, voting's 3 rounds to 2 per slice and
 # 1 flat (gloo's host round-trips, ~60-150 ms a 22 MB data round and
-# ~7-10 ms a voting sum, not the rows, set the time)
+# ~7-10 ms a voting sum, not the rows, set the time), and per-slice
+# voting's plain-version twin to HYBRID_PLAIN_ROUNDS (its first tree)
 HYBRID_WORLD, HYBRID_SLICES, HYBRID_ROUNDS, VOTING_ROUNDS = 4, 2, 3, 2
+HYBRID_PLAIN_ROUNDS = 1
 HYBRID_ROWS, HYBRID_VALID_ROWS, HYBRID_TIMEOUT_S = 400_000, 50_000, 600
 ELASTIC_FIRST, ELASTIC_ROUNDS = 4, 6
 ELASTIC_PARAMS = dict(QUANT_PARAMS, tree_learner="data",
@@ -4428,7 +4367,8 @@ def _hybrid_rank(rank, tmp, device, rows, rounds, leaves, counted, out):
                 saved = plain_kernels()
                 reset_training_counts()
                 try:
-                    bst_p = lt.train(params, ds, mode_rounds,
+                    bst_p = lt.train(params, ds,
+                                     min(mode_rounds, HYBRID_PLAIN_ROUNDS),
                                      verbose_eval=False)
                 finally:
                     restore_kernels(saved)
@@ -4659,8 +4599,11 @@ def phase_hybrid_train(lt, smi, device="cuda", rows=None, leaves=255,
             "voting_slice": texts[("voting_slice_plain", 0)],
             "voting_flat": texts[("voting_flat", 0)]}
     for name, text in want.items():
+        # the plain run's trees are the first trees
+        head = ((lambda t: head_trees(t, HYBRID_PLAIN_ROUNDS))
+                if name == "voting_slice" else (lambda t: t))
         for r in range(HYBRID_WORLD):
-            if texts[(name, r)] != text:
+            if head(texts[(name, r)]) != head(text):
                 failed.append(f"{name} on rank {r}: the trees differ from "
                               "its twin")
     for r in range(2):
@@ -4968,15 +4911,15 @@ def phase_stream_train(lt, pk, train_data, smi) -> dict:
         saved = plain_kernels()
         reset_training_counts()
         try:
-            plain = stream_run(lt, sds, TRAIN_PARAMS, STREAM_SHORT_ROUNDS)
+            plain = stream_run(lt, sds, TRAIN_PARAMS, STREAM_PLAIN_ROUNDS)
         finally:
             restore_kernels(saved)
         if any(kernel_launches().values()):
             raise AssertionError("launch counts rose in the plain-version "
                                  "run")
         if head_trees(plain["bst"].model_to_string(),
-                      STREAM_SHORT_ROUNDS) != head_trees(
-                          texts["f32"], STREAM_SHORT_ROUNDS):
+                      STREAM_PLAIN_ROUNDS) != head_trees(
+                          texts["f32"], STREAM_PLAIN_ROUNDS):
             raise AssertionError("the plain versions' streamed trees "
                                  "differ")
         plain_s = plain["s_per_tree"]
@@ -5671,7 +5614,9 @@ def phase_boost_variants(lt, mono_ds):
         launches, bst = short_run(
             lt, mono_ds, params, positive=F32_ENTRIES,
             zero=("histogram_pallas", "ingest") + INT8_ENTRIES,
-            quant=False, rounds=VARIANT_ROUNDS)
+            quant=False, rounds=VARIANT_ROUNDS,
+            # DART rescales earlier trees and RF averages them: all rounds
+            plain_rounds=VARIANT_ROUNDS)
         extra = {}
         if name == "dart":
             extra["drops"] = bst.boosting.drops
@@ -5932,6 +5877,350 @@ def phase_sparse_cv(lt, pk, dense_ds, smi: str) -> dict:
     return launches
 
 
+def all_launches(pk) -> dict:
+    """Every kernel's launch count now: B1 by mode, then the training
+    kernels (``kernel_launches``)."""
+    return {**{k: v for k, v in pk.launch_counts.items()},
+            **kernel_launches()}
+
+
+def reset_all_counts(pk) -> None:
+    pk.reset_launch_counts()
+    reset_training_counts()
+
+
+def phase_devprof(lt, pk, higgs_text, ds, X, kernel_rows, ing, hist,
+                  hist6_rand, qhist, smi):
+    """``obs.devprof``'s three tables on the card, each at one shape:
+    the histogram family at ``higgs_train_1m``'s 1 M x 28 x 255 on the
+    hist phase's K = 128 frontier, the predict family on
+    ``higgs_500x255`` at the kernel phase's 65,536 rows, the ingest
+    family binning the 1 M x 28 training rows.  Each row's bytes and
+    operations are held to the kernel table's at that shape, to the
+    byte: B1, B3, B6, B4's quantized root and the f32 B2 and B4 + B5
+    rows to the rows the other phases printed; the int8 B2 and B4 + B5
+    rows to ``kernel_cost`` at the slotted rows the hist phase counted.
+    No utilization above 1.05, each kernel's launches counted; then
+    ``run_doctor``'s verdicts."""
+    from lightgbm_tpu_torch.obs import devprof as D
+    from lightgbm_tpu_torch.obs.diagnose import run_doctor
+    from lightgbm_tpu_torch.testing import salt_rows, synthetic_rows
+    t_phase = time.perf_counter()
+    bst = lt.Booster(model_str=higgs_text)
+    dev = bst._device_forest(bst._forest(0, len(bst.models)))
+    X65 = salt_rows(synthetic_rows(28, 65536, (), seed=7,
+                                   row_seed=65536 + 1)).astype(np.float32)
+    reset_all_counts(pk)
+    htab = D.histogram_utilization_table(
+        rows=TRAIN_ROWS, features=28, num_bins=255, slots=HIST_SLOTS,
+        reps=DEVPROF_REPS, slot=hist["frontier_slot"])
+    pred = D.predict_utilization_table(dev, reps=DEVPROF_REPS, X=X65)
+    ingest = D.ingest_utilization_table(ds, X, reps=1)
+    torch.cuda.synchronize()
+    launches = all_launches(pk)
+    m = htab["slotted_rows"]
+    acc, scan = hist["fused_frontier_accumulate"], hist["fused_sibling_scan"]
+    if m != acc["slotted_rows"]:
+        raise AssertionError(f"devprof's frontier slots {m} rows; the hist "
+                             f"phase's {acc['slotted_rows']}")
+    shape4 = dict(rows=TRAIN_ROWS, features=28, bins=255, slots=HIST_SLOTS,
+                  slotted_rows=acc["slotted_rows"])
+    b5q = D.kernel_cost("B5", children=2 * HIST_SLOTS, features=28,
+                        bins=255, quant=True)
+    pair = hist["fused_frontier_splits"]
+    kt = {
+        ("hist", "f32/pallas"): (hist6_rand["bytes"], hist6_rand["ops"]),
+        ("hist", "quant/pallas"): (qhist["b4_shapes"]["root"]["bytes"],
+                                   qhist["b4_shapes"]["root"]["ops"]),
+        ("hist", "f32/fused"): (pair["bytes"], pair["ops"]),
+        ("hist", "quant/fused"): tuple(D.kernel_cost(
+            "B2", quant=True, **shape4).values()),
+        ("hist", "f32/fused_sharded_flat"): (acc["bytes"] + scan["bytes"],
+                                             acc["ops"] + scan["ops"]),
+        ("hist", "quant/fused_sharded_flat"): tuple(
+            a + b for a, b in zip(D.kernel_cost(
+                "B4", quant=True, **shape4).values(), b5q.values())),
+        ("pred", "fused"): (
+            kernel_rows[("higgs_500x255", 65536, False)]["bytes"],
+            kernel_rows[("higgs_500x255", 65536, False)]["ops"]),
+        ("pred", "fused_scores"): (
+            kernel_rows[("higgs_500x255", 65536, True)]["bytes"],
+            kernel_rows[("higgs_500x255", 65536, True)]["ops"]),
+    }
+    kkey = next(k for k in ingest if k.startswith("kernel/"))
+    kt[("ingest", kkey)] = (ing["bytes"], ing["ops"])
+    tables = {"hist": htab, "pred": pred, "ingest": ingest}
+    rows_out = {}
+    for (table, name), (nbytes, ops) in kt.items():
+        r = tables[table][name]
+        if r["route"] != "cuda":
+            raise AssertionError(f"devprof {table} {name} ran {r['route']}")
+        if (r["bytes_accessed"], r["flops"]) != (nbytes, ops):
+            raise AssertionError(
+                f"devprof {table} {name}: {r['bytes_accessed']} bytes, "
+                f"{r['flops']} ops; the kernel table's: {nbytes}, {ops}")
+        for k in ("mfu", "hbm_util"):
+            if k not in r or not 0 < r[k] <= 1.05:
+                raise AssertionError(f"devprof {table} {name}: {k} "
+                                     f"{r.get(k)}")
+        rows_out[f"{table}:{name}"] = {
+            k: r[k] for k in ("kernel", "seconds_per_call", "bytes_accessed",
+                              "flops", "hbm_gbps", "hbm_util", "mfu")}
+    for key in ("histogram_pallas", "fused_frontier_splits",
+                "fused_frontier_splits_int8", "fused_frontier_accumulate",
+                "fused_frontier_accumulate_int8", "fused_sibling_scan",
+                "fused_sibling_scan_int8", "fused_slot_order",
+                "fused_traverse[leaves]", "fused_traverse[scores]",
+                "ingest"):
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"devprof launched no {key}")
+    report = run_doctor()
+    emit({"phase": "devprof", "device": smi,
+          "shapes": {"hist": [TRAIN_ROWS, 28, 255, HIST_SLOTS, m],
+                     "pred": [65536, 28, dev.num_trees],
+                     "ingest": [ingest["rows"], ingest["features"]]},
+          "rows": rows_out, "host_bin_s": ingest["host"]["seconds_per_call"],
+          "kernel_speedup_vs_host": ingest["kernel_speedup_vs_host"],
+          "launches": {k: v for k, v in launches.items() if v},
+          "doctor": {"top_verdict": report["top_verdict"],
+                     "verdicts": [(v["name"], v["score"])
+                                  for v in report["verdicts"]]},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_coresident(lt, pk, higgs_text, train_data, smi):
+    """A ``Fleet`` serves ``higgs_500x255`` on the card under a
+    ``ResidencyLedger`` of the card's whole memory (its resident bytes
+    leased on the serving plane) to ``CORES_THREADS`` client threads
+    while ``coresident.Scheduler.refresh`` trains ``CORES_ROWS`` rows of
+    ``higgs_train_1m``'s data for ``CORES_ROUNDS`` rounds beside it,
+    and a host reader reads a value back from the card every
+    millisecond (the refresh's round-graph captures must survive other
+    threads' calls: ROADMAP C-29).  The first consult arms ``resilience.faults``' ``serving.delay`` on
+    the clients' calls (``CORES_DELAYS`` calls of ``CORES_DELAY_S``); the
+    guard's windowed p99 breaches its ceiling, which throttles the
+    refresh, and the breach persists, which pauses it (state to a bundle,
+    the non-data lease released); quiet resumes it.  Held: the refreshed
+    text byte-identical to a solo ``train`` of the same rows and rounds;
+    every answer bit-equal to its model's host float64 path and every
+    answer after the swap to the refreshed model's; no failed request;
+    the contention verdict.  Printed: the card's peak allocation over the
+    refresh against its lease, and the bytes a pause frees against the
+    bytes it releases (``empty_cache`` first)."""
+    import gc
+
+    from lightgbm_tpu_torch.coresident import (CoresidentConfig,
+                                               PauseControl, Scheduler)
+    from lightgbm_tpu_torch.obs.diagnose import run_doctor
+    from lightgbm_tpu_torch.obs.flight import global_flight
+    from lightgbm_tpu_torch.obs.metrics import MetricsRegistry
+    from lightgbm_tpu_torch.obs.watchdog import Watchdog, histogram_p99_ms
+    from lightgbm_tpu_torch.ops.planner import ResidencyLedger
+    from lightgbm_tpu_torch.resilience.faults import ChaosRegistry, FaultSpec
+    from lightgbm_tpu_torch.testing import synthetic_rows
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    X, y = train_data[0][:CORES_ROWS], train_data[1][:CORES_ROWS]
+    params = dict(TRAIN_PARAMS)
+    # the solo run's construct and training, as refresh_s times the
+    # refresh's (which also waits out its throttle and pause)
+    t0 = time.perf_counter()
+    solo = lt.train(dict(params), lt.Dataset(X, label=y), CORES_ROUNDS,
+                    verbose_eval=False).model_to_string()
+    solo_s = time.perf_counter() - t0
+    old = lt.Booster(model_str=higgs_text)
+    pool = synthetic_rows(28, CORES_POOL_ROWS, (), seed=7, row_seed=3)
+    want_old = old.predict(pool, raw_score=True, device=False)
+    tmp = tempfile.mkdtemp(prefix="lgbt_coresident_")
+    # the brownout's breach bundles must not spend the dump budget of the
+    # phases after this one
+    saved_dumps = global_flight.dumps
+    fleet = lt.Fleet(max_batch_rows=1024)
+    sched = None
+    stop = threading.Event()
+    armed = threading.Event()
+    try:
+        fleet.add_model("higgs", old)
+        fleet.warm()
+        ledger = ResidencyLedger()
+        ledger.lease("fleet:resident", fleet.plan.total_resident_bytes,
+                     plane="serving")
+        wd = Watchdog()
+        cfg = CoresidentConfig(brownout_p99_ms=CORES_CEILING_MS,
+                               throttle_delay_s=0.05, escalate_s=0.2,
+                               recovery_s=0.3, chunk_cap=1,
+                               poll_interval_s=0.01, max_pause_s=120.0)
+        sched = Scheduler(fleet=fleet, ledger=ledger, config=cfg,
+                          watchdog=wd, workdir=tmp)
+        lat = MetricsRegistry().histogram("coresident_client_latency_ms")
+        sched.guard_latency("higgs", lat)
+        chaos = ChaosRegistry([FaultSpec(site="serving", kind="delay", at=i,
+                                         arg=CORES_DELAY_S)
+                               for i in range(CORES_DELAYS)])
+
+        def plain(Xr):
+            return fleet.predict("higgs", Xr, timeout=120)
+        delayed = chaos.wrap_predict(plain)
+        answers, failures = [], []
+
+        def client(k):
+            rng = np.random.RandomState(100 + k)
+            while not stop.is_set():
+                n = int(rng.randint(1, CORES_MAX_ROWS + 1))
+                s = int(rng.randint(0, CORES_POOL_ROWS - n))
+                t0 = time.perf_counter()
+                try:
+                    out = (delayed if armed.is_set() else plain)(
+                        pool[s:s + n])
+                except Exception as e:  # noqa: BLE001 - counted below
+                    failures.append(repr(e))
+                    continue
+                t1 = time.perf_counter()
+                lat.observe((t1 - t0) * 1e3)
+                answers.append((t0, s, n, out))
+
+        def sweeper():
+            while not stop.is_set():
+                wd.check_once()
+                time.sleep(0.01)
+
+        # a host reader beside the clients: a read back from the card
+        # every millisecond (a launch, a copy and a wait on this thread's
+        # stream, as serving's reads), so that the refresh's round-graph
+        # captures (one a booster: the first and the resumed) overlap
+        # another thread's synchronising calls every time; a device-wide
+        # synchronize is not among them (it waits on the capture too)
+        syncs = [0]
+
+        def syncer():
+            probe = torch.zeros(1, device="cuda")
+            while not stop.is_set():
+                probe.add_(1.0).item()
+                syncs[0] += 1
+                time.sleep(0.001)
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(CORES_THREADS)]
+        threads.append(threading.Thread(target=sweeper, daemon=True))
+        threads.append(threading.Thread(target=syncer, daemon=True))
+        for t in threads:
+            t.start()
+        time.sleep(0.5)                      # serving alone first
+        mem = {}
+        state = {"paused": False}
+        orig_consult = sched.control.consult
+
+        def wait_for(pred, what):
+            t_end = time.monotonic() + 60
+            while not pred():
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"coresident: no {what} within "
+                                         "60 s of the injected delay")
+                time.sleep(0.005)
+
+        def consult(i):
+            if i == 0:
+                armed.set()
+            elif i == 1 and not state["paused"]:
+                wait_for(lambda: sched.control.state != PauseControl.RUN,
+                         "throttle")
+            elif i == 2 and not state["paused"]:
+                wait_for(lambda: sched.control.state == PauseControl.PAUSE,
+                         "pause")
+                torch.cuda.synchronize()
+                mem["before_pause"] = torch.cuda.memory_allocated()
+                state["paused"] = True
+            return orig_consult(i)
+        sched.control.consult = consult
+        orig_await = sched._await_resume
+
+        def await_resume(name, want):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            mem["during_pause"] = torch.cuda.memory_allocated()
+            mem["released_bytes"] = int(want)
+            mem["held_leases"] = ledger.table()
+            return orig_await(name, want)
+        sched._await_resume = await_resume
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts(pk)
+        t0 = time.perf_counter()
+        refreshed, stats = sched.refresh(
+            "higgs", lt.Dataset(X, label=y), dict(params), CORES_ROUNDS)
+        t_swap = time.perf_counter()
+        refresh_s = t_swap - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        time.sleep(0.5)                      # serve the refreshed model
+        stop.set()
+        for t in threads:
+            t.join(120)
+        launches = all_launches(pk)
+        report = run_doctor()
+    finally:
+        stop.set()
+        if sched is not None:
+            sched.close()
+        fleet.close(drain=False)
+        global_flight.dumps = saved_dumps
+        shutil.rmtree(tmp, ignore_errors=True)
+    text = refreshed.model_to_string()
+    if text != solo:
+        raise AssertionError("coresident: the refreshed text differs from "
+                             "a solo train of the same rows and rounds")
+    want_new = refreshed.predict(pool, raw_score=True, device=False)
+    after = mismatched = 0
+    for t_start, s, n, out in answers:
+        new = np.array_equal(out, want_new[s:s + n])
+        if t_start > t_swap:
+            after += 1
+            mismatched += not new
+        elif not (new or np.array_equal(out, want_old[s:s + n])):
+            mismatched += 1
+    if failures or mismatched or after == 0:
+        raise AssertionError(f"coresident: {len(failures)} failed "
+                             f"({failures[:3]}), {mismatched} mismatched, "
+                             f"{after} answers after the swap")
+    if stats["pauses"] < 1 or stats["throttles"] < 1:
+        raise AssertionError(f"coresident: the delay drove {stats}")
+    names = [v["name"] for v in report["verdicts"]]
+    if "contention" not in names:
+        raise AssertionError(f"coresident: no contention verdict: {names}")
+    for key in ("fused_traverse[leaves]", "ingest", "fused_frontier_splits",
+                "fused_frontier_accumulate", "fused_sibling_scan"):
+        if launches.get(key, 0) <= 0:
+            raise AssertionError(f"coresident launched no {key}")
+    freed = mem["before_pause"] - mem["during_pause"]
+    emit({"phase": "coresident", "device": smi, "rows": CORES_ROWS,
+          "rounds": CORES_ROUNDS, "clients": CORES_THREADS,
+          "requests": len(answers), "answers_after_swap": after,
+          "syncer_reads": syncs[0],
+          "text": "byte-identical to a solo train", "stats": stats,
+          "refresh_s": refresh_s, "solo_s": solo_s,
+          "lease_bytes": stats["predicted_peak_bytes"],
+          "held_bytes": stats["held_bytes"],
+          "allocated_before_refresh": base,
+          "peak_allocated_over_refresh": peak,
+          "peak_over_lease": peak / max(stats["predicted_peak_bytes"], 1),
+          "allocated_before_pause": mem["before_pause"],
+          "allocated_during_pause": mem["during_pause"],
+          "freed_by_pause": freed,
+          "released_by_pause": mem["released_bytes"],
+          "kept_by_pause": mem["during_pause"] - base,
+          "leases_during_pause": mem["held_leases"],
+          "client_p99_ms": histogram_p99_ms(lat),
+          "doctor": [(v["name"], v["score"]) for v in report["verdicts"]],
+          "launches": {k: v for k, v in launches.items() if v},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -6038,6 +6327,9 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     hist = phase_hist(ds, bst)
     hist6_rand = phase_hist6(ds, bst, "higgs_rand_1m")
     qhist = phase_quant_hist(ds, bst)
+    devprof_launches = phase_devprof(lt, pk, higgs, ds, train_data[0], rows,
+                                     ing, hist, hist6_rand, qhist, smi)
+    coresident_launches = phase_coresident(lt, pk, higgs, train_data, smi)
     del ds, bst
     train_run.pop("bst")
     phase_wide_bins(lt)
@@ -6236,6 +6528,17 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
         key = KERNEL + "[leaves]" if row["name"] == KERNEL else key
         if key in stream_launches:
             row["stream_train_launches"] = stream_launches[key]
+    # and on the devprof and coresident paths (their tables' and the
+    # refresh beside serving's launches)
+    of_row = {KERNEL: KERNEL + "[leaves]",
+              f"{KERNEL}[scores]": KERNEL + "[scores]"}
+    for row in table:
+        key = of_row.get(row["name"],
+                         row["name"].replace("[int8]", "_int8"))
+        if key in devprof_launches:
+            row["devprof_launches"] = devprof_launches[key]
+        if key in coresident_launches:
+            row["coresident_launches"] = coresident_launches[key]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

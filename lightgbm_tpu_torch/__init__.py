@@ -20,12 +20,15 @@ them over logical devices with failover (``fleet/``); the plotting
 functions need matplotlib
 (and graphviz for trees) only when called.  ``obs`` holds the tracer,
 the process metrics registry, the flight recorder and the SLO watchdog,
-under the JAX package's names and environment knobs.  Configurations
-outside the port raise ``NotImplementedError``.
+under the JAX package's names and environment knobs, with device
+profiling, pod telemetry and the bottleneck diagnosis; ``coresident``
+runs training refreshes beside serving on one card under a shared
+residency ledger.  Configurations outside the port raise
+``NotImplementedError``.
 
 The public names are the JAX package's (``lightgbm_tpu.__all__``), but
-for those of modules not ported yet (the model lifecycle, the model
-axis and co-residency: ROADMAP queue A12); the
+for those of modules not ported yet (the model lifecycle and the model
+axis: ROADMAP queue A12); the
 scikit-learn estimators are exported where scikit-learn is installed,
 as the JAX package exports them (scikit-learn is imported when one of
 them is first used).
@@ -40,6 +43,7 @@ from .dataset import Dataset
 from . import obs  # noqa: F401  (tracing, metrics, flight recorder, watchdog)
 from . import serving  # noqa: F401  (in-process inference server)
 from . import fleet  # noqa: F401  (multi-model serving fleet)
+from . import coresident  # noqa: F401  (co-resident train+serve)
 from .fleet import Fleet, PodFleet
 from .engine import CVBooster, InitModelCompatibilityError, cv, train
 from .plotting import (create_tree_digraph, plot_importance, plot_metric,
@@ -62,7 +66,7 @@ def serve(model, config=None, device=None, **overrides):
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
            "Fleet", "InitModelCompatibilityError", "LightGBMError",
-           "PodFleet", "cv",
+           "PodFleet", "coresident", "cv",
            "create_tree_digraph", "early_stopping", "fleet",
            "log_evaluation",
            "obs", "plot_importance", "plot_metric",

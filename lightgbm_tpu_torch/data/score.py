@@ -33,9 +33,12 @@
 The sink's format and commit protocol are the JAX package's, so sinks
 pass both ways, and so are its events: the ``bulk.plan`` instant, a
 ``bulk.run`` span with a ``bulk.block`` span a block inside it, and the
-``bulk_blocks_total`` counter of the process registry.  The JAX
-package's ``ledger=`` (the residency ledger) is not ported and raises
-``NotImplementedError`` naming its ROADMAP queue.
+``bulk_blocks_total`` counter of the process registry.  With
+``ledger=`` (an ``ops.planner.ResidencyLedger``) a run leases its
+predicted card peak on the serving plane for its blocks and releases
+it after; where the ledger has less left, the run raises its
+``LedgerError`` before it scores a block (the JAX package logs a warning
+and scores anyway).
 """
 
 from __future__ import annotations
@@ -209,9 +212,10 @@ class BulkScorer:
     count (``fleet.topology.plan_devices``; None: this device alone);
     this scorer takes the blocks ``plan_block_shards`` gives
     ``local_device_id``.  ``aot_store``: a ``fleet.aot.AOTStore`` for
-    the routing program.  ``digest``: the model's digest in the sink
-    and the store (None: ``serving.registry.forest_digest`` of the
-    forest)."""
+    the routing program.  ``ledger``: a co-residency ledger that the
+    run leases its card peak from (module docstring).  ``digest``: the
+    model's digest in the sink and the store (None:
+    ``serving.registry.forest_digest`` of the forest)."""
 
     def __init__(self, device_forest, store: BlockStore, sink_path: str,
                  num_class: int = 1, devices=None, local_device_id: int = 0,
@@ -220,11 +224,6 @@ class BulkScorer:
             raise ValueError(
                 f"bulk scoring expects a float32 feature store, got "
                 f"{store.dtype}")
-        if ledger is not None:
-            raise NotImplementedError(
-                "BulkScorer(ledger=): the residency ledger is not ported "
-                "to lightgbm_tpu_torch yet; it waits for ROADMAP queue A11 "
-                "(rest: the residency ledger)")
         if devices is None:
             devices = (DeviceSpec(0, int(local_device_id)),)
         elif isinstance(devices, int):
@@ -237,6 +236,7 @@ class BulkScorer:
         self.devices = tuple(devices)
         self.local_device_id = int(local_device_id)
         self.aot_store = aot_store
+        self.ledger = ledger
         if digest is None:
             from ..serving.registry import forest_digest
             digest = forest_digest(device_forest.forest)
@@ -301,23 +301,31 @@ class BulkScorer:
         program, source = make_bulk_program(
             self.dev, int(self.store.num_cols), int(self.store.block_rows),
             self.digest, self.aot_store, num_class=self.K)
+        # the blocks' bytes on the card, leased from the co-residency
+        # ledger for the run (a denial raises before any block is read)
+        lease = (None if self.ledger is None else self.ledger.lease(
+            f"bulk:{self.digest}", pred_dev, plane="serving"))
         _instant("bulk.plan", blocks=nb, mine=len(mine), skipped=skipped,
                  todo=len(todo), program=source,
                  predicted_device_peak_bytes=pred_dev,
                  predicted_host_peak_bytes=pred_host)
         rows_scored = blocks_scored = 0
         t0 = time.perf_counter()
-        # the reader thread reads ahead while the epilogue and the sink
-        # run on the host (measured faster, PERF.md section 6)
-        with _span("bulk.run", blocks=len(todo)):
-            for i, _start, rows, xb in ReadAhead(
-                    BlockPump(self.store, self.dev.device, blocks=todo)):
-                with _span("bulk.block", block=i, rows=rows):
-                    leaves = program(self._prep(xb))
-                    sink.write_block(i, self._score_block(leaves, rows))
-                _obs_registry.counter("bulk_blocks_total").inc()
-                rows_scored += int(rows)
-                blocks_scored += 1
+        try:
+            # the reader thread reads ahead while the epilogue and the
+            # sink run on the host (measured faster, PERF.md section 6)
+            with _span("bulk.run", blocks=len(todo)):
+                for i, _start, rows, xb in ReadAhead(
+                        BlockPump(self.store, self.dev.device, blocks=todo)):
+                    with _span("bulk.block", block=i, rows=rows):
+                        leaves = program(self._prep(xb))
+                        sink.write_block(i, self._score_block(leaves, rows))
+                    _obs_registry.counter("bulk_blocks_total").inc()
+                    rows_scored += int(rows)
+                    blocks_scored += 1
+        finally:
+            if lease is not None:
+                self.ledger.release(lease)
         elapsed = max(time.perf_counter() - t0, 1e-9)
         dev = self.dev.device
         measured_dev = (int(torch.cuda.max_memory_allocated(dev))

@@ -295,6 +295,10 @@ class Dataset:
         else:
             raw = _as_2d(data)
         self.num_data, self.num_total_features = raw.shape
+        # the binner holds the tables of the bins fitted last: a Dataset
+        # constructed again under other parameters (a booster's
+        # max_bin) fits new bins and needs new tables (ROADMAP C-27)
+        self._binner = None
         p = self.params
         if self._feature_name_param in ("auto", None):
             if is_pandas_frame(self.raw_data):
@@ -393,7 +397,7 @@ class Dataset:
     def _spill_at_construct(self) -> bool:
         """The card side of ``plan_stream``'s verdict for training on
         this Dataset resident (its own ``num_leaves``,
-        ``use_quantized_grad`` and ``num_class``)."""
+        ``use_quantized_grad``, ``num_class`` and ``tpu_round_width``)."""
         from .ops.planner import plan_stream
         p = self.params
         plan = plan_stream(
@@ -402,6 +406,7 @@ class Dataset:
             num_leaves=int(p.get("num_leaves", 31)),
             num_class=max(int(p.get("num_class", 1)), 1),
             quant=bool(p.get("use_quantized_grad", False)),
+            round_width=int(p.get("tpu_round_width", 128)),
             device=self.device)
         return not plan.resident_device_ok
 

@@ -32,7 +32,9 @@ env-gated watchdog sentry and metrics endpoint, puts the run in the
 flight recorder's context, watches the ``engine.step`` heartbeat (with
 the trees/s floor of ``LIGHTGBM_TPU_SLO_TREES_PER_SEC``) while the loop
 runs, records the ``engine.train`` root span, an ``engine.step`` span a
-step and ``engine.eval`` around the evaluations, notes each step in the
+step and ``engine.eval`` around the evaluations (after which a
+registered pod transport gathers ``obs.aggregate``'s telemetry), notes
+each step in the
 flight ring, sets the ``train_iter_seconds``,
 ``train_trees_per_sec_live``, ``train_iterations_total`` and
 ``train_trees_per_sec`` instruments, and dumps a forensic bundle when
@@ -57,6 +59,7 @@ from .config import Config
 from .dataset import Dataset, same_bins
 from .obs.flight import global_flight as _flight
 from .obs.metrics import global_registry as _obs_registry
+from .obs.aggregate import maybe_gather_at_eval as _maybe_gather_at_eval
 from .obs.trace import span as _span
 from .obs.watchdog import global_watchdog as _watchdog
 from .resilience.checkpoint import (CheckpointManager,
@@ -322,6 +325,9 @@ def train(params: dict, train_set: Dataset, num_boost_round: int = 100,
                                 booster.eval_train(feval))
                         evaluation_result_list.extend(
                             booster.eval_valid(feval))
+                    # pod telemetry at the eval boundary: a no-op unless
+                    # a transport is registered (obs/aggregate.py)
+                    _maybe_gather_at_eval()
                 try:
                     for cb in cbs_after:
                         cb(callback_mod.CallbackEnv(booster, params, j, 0,

@@ -115,14 +115,13 @@ def plan_topology(models, devices, accel: Optional[bool] = None,
     lower device id / earlier model).
 
     ``device`` is the backend whose limit a spec without a budget gets
-    (None: the CUDA card).  ``ledgers`` (the JAX package's co-residency
-    ledgers) are not ported."""
-    if ledgers:
-        raise NotImplementedError(
-            "plan_topology(ledgers=): the residency ledger is not ported "
-            "to lightgbm_tpu_torch yet; it waits for ROADMAP queue A11 "
-            "(residency ledger)")
+    (None: the CUDA card).  ``ledgers`` maps device ids to co-residency
+    ledgers (``ops.planner.ResidencyLedger``): a device with a ledger is
+    planned against the ledger's remainder (bytes an in-flight training
+    refresh leased are not the replicas'), and its residency election
+    runs through ``plan_fleet(ledger=)``, so the two verdicts agree."""
     models = list(models)
+    ledgers = ledgers or {}
     devices = tuple(sorted(devices, key=lambda d: d.device_id))
     if not devices:
         raise ValueError("plan_topology needs at least one device")
@@ -132,6 +131,13 @@ def plan_topology(models, devices, accel: Optional[bool] = None,
     limits: Dict[int, int] = {}
     budgets: Dict[int, int] = {}
     for d in devices:
+        lg = ledgers.get(d.device_id)
+        if lg is not None:
+            # the ledger applied HEADROOM once: its remainder is the
+            # device's placement budget
+            limits[d.device_id] = int(lg.limit_bytes)
+            budgets[d.device_id] = int(lg.available_bytes())
+            continue
         limit = d.hbm_budget_bytes
         if limit is None:
             if default_limit is None:
@@ -198,8 +204,13 @@ def plan_topology(models, devices, accel: Optional[bool] = None,
     for d in devices:
         placed = [shapes[p.name] for p in placements
                   if p.device_id == d.device_id]
-        device_plans[d.device_id] = plan_fleet(
-            placed, budget_bytes=limits[d.device_id], accel=accel)
+        lg = ledgers.get(d.device_id)
+        if lg is not None:
+            device_plans[d.device_id] = plan_fleet(placed, accel=accel,
+                                                   ledger=lg)
+        else:
+            device_plans[d.device_id] = plan_fleet(
+                placed, budget_bytes=limits[d.device_id], accel=accel)
 
     return TopologyPlan(
         devices=devices, placements=tuple(placements),

@@ -498,12 +498,15 @@ class RoundGrower(_GrowerCommon):
     def _capture(self) -> None:
         """Capture the round body as a CUDA graph (after an eager round
         has warmed up every kernel and buffer).  The launches recorded
-        are counted once per replay, not at capture."""
+        are counted once per replay, not at capture.  Only this thread's
+        calls may break the capture: other threads of the process (a
+        co-resident fleet's batchers and clients) go on allocating,
+        copying and synchronising on their own streams meanwhile."""
         before = fused.launch_count_snapshot()
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._round(_NullTimer.section)
         torch.cuda.synchronize(self.device)
         self.capture_ms = (time.perf_counter() - t0) * 1e3

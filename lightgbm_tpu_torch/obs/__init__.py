@@ -11,11 +11,14 @@ file formats, so a script, dashboard or trace viewer built for
 - ``obs.flight``: the always-on bounded ring and its atomic forensic
   bundles;
 - ``obs.watchdog``: heartbeats and the SLO sentry;
-- ``obs.http``: the opt-in HTTP exposition of the process registry.
+- ``obs.http``: the opt-in HTTP exposition of the process registry;
+- ``obs.devprof``: each kernel's work counts, its measured time and
+  roofline shares on the card, the histogram, predict and ingest tables;
+- ``obs.aggregate``: pod telemetry frames gathered at eval boundaries;
+- ``obs.diagnose``: ranked bottleneck verdicts (``tools/obs_doctor.py``).
 
-Every module is stdlib only and never reads a torch tensor.  The JAX
-package's ``devprof``, ``aggregate`` and ``diagnose`` wait for ROADMAP
-queue A11 (rest).
+Every module but ``devprof`` is stdlib only and never reads a torch
+tensor; ``devprof`` imports torch where it times.
 """
 
 from .metrics import (LATENCY_BUCKETS_MS, RATIO_BUCKETS, Counter, Gauge,

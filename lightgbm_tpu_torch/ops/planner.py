@@ -131,6 +131,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 from ..utils import envflags
@@ -834,7 +836,8 @@ def plan_stream(rows: int, features: int, num_bins: int,
                 num_leaves: int = 31, num_class: int = 1,
                 quant: bool = False, round_width: int = 128, device=None,
                 device_budget_bytes: Optional[int] = None,
-                host_budget_bytes: Optional[int] = None) -> StreamPlan:
+                host_budget_bytes: Optional[int] = None,
+                ledger: Optional["ResidencyLedger"] = None) -> StreamPlan:
     """Resident or row-block-streamed training for a shape.
 
     Streaming is elected when the resident peak blows either budget (the
@@ -848,10 +851,15 @@ def plan_stream(rows: int, features: int, num_bins: int,
     Budgets: ``device_budget_bytes``/``host_budget_bytes`` given by the
     caller (times ``HEADROOM``; the host's times ``HOST_HEADROOM``), else
     the card's free memory on ``device`` (``device_limit_bytes``; a CPU
-    device sets no card limit) and the host's available memory."""
+    device sets no card limit) and the host's available memory.  With
+    ``ledger`` (a ``ResidencyLedger``; a caller's budget wins over it)
+    the card's budget is the ledger's remainder, ``HEADROOM`` already
+    applied by the ledger."""
     n = max(int(rows), 1)
     if device_budget_bytes is not None:
         dev_budget = int(device_budget_bytes * HEADROOM)
+    elif ledger is not None:
+        dev_budget = int(ledger.available_bytes())
     else:
         lim, _ = (device_limit_bytes(device) if device is not None
                   else (None, "none"))
@@ -1048,6 +1056,7 @@ class FleetPlan(NamedTuple):
     budget_bytes: int
     limit_bytes: int
     limit_source: str           # "mem_get_info" | "env" | "none" | "caller"
+    #                             | "ledger"
     evicted: tuple              # names of non-resident models
     pressure: float             # wanted-resident bytes / budget
     feasible: bool              # every model got residency
@@ -1095,16 +1104,16 @@ def plan_fleet(models, budget_bytes: Optional[int] = None,
     smallest bucket's program fit what the budget has left; further
     buckets are admitted smallest first.  Models that do not fit are
     evicted.  The budget is ``budget_bytes`` (the caller's limit) or the
-    card's (``fleet_limit_bytes``), ``HEADROOM`` applied either way.
-    ``ledger`` (the JAX package's residency ledger) is not ported."""
-    if ledger is not None:
-        raise NotImplementedError(
-            "plan_fleet(ledger=): the residency ledger is not ported to "
-            "lightgbm_tpu_torch yet; it waits for ROADMAP queue A11 "
-            "(residency ledger)")
+    card's (``fleet_limit_bytes``), ``HEADROOM`` applied either way;
+    with ``ledger`` (a ``ResidencyLedger``) and no ``budget_bytes`` it is
+    the ledger's remainder: bytes another plane holds (an in-flight
+    training refresh) are not the fleet's."""
     if budget_bytes is not None:
         limit, source = int(budget_bytes), "caller"
         budget = int(limit * HEADROOM)
+    elif ledger is not None:
+        limit, source = int(ledger.limit_bytes), "ledger"
+        budget = int(ledger.available_bytes())
     else:
         limit, budget, source = fleet_limit_bytes(device)
     models = list(models)
@@ -1140,6 +1149,250 @@ def plan_fleet(models, budget_bytes: Optional[int] = None,
         limit_bytes=limit, limit_source=source, evicted=evicted,
         pressure=(wanted / budget) if budget > 0 else float("inf"),
         feasible=not evicted)
+
+
+# ======================================================================
+# The residency ledger: one budget a card, which the serving and the
+# training planes lease from (the JAX package's planner.py:1590-1814).
+#
+# Each planner above models its own plane's peak against a budget it
+# takes as its own, which is how a training refresh beside a resident
+# fleet over-commits a card.  ``ResidencyLedger`` arbitrates: one
+# post-``HEADROOM`` budget a card, explicit leases (owner, plane, bytes,
+# preemptible) and a ``ledger=`` arm on ``plan_stream``, ``plan_fleet``
+# (and ``fleet.topology.plan_topology``, ``data.BulkScorer``) that makes
+# each election run against the ledger's remainder.  An infeasible
+# co-residency is a ``LedgerError`` that carries the lease table, not an
+# out-of-memory error.  Every ledger event is a ``planner.ledger`` trace
+# instant, mirrored to the ``ledger_*`` gauges.
+#
+# The ledger's default limit is the card's whole memory (the second
+# value of ``torch.cuda.mem_get_info``), as the JAX ledger takes the
+# device's whole HBM: ``device_limit_bytes`` (free memory plus the
+# allocator's unused cache) would charge a resident fleet twice, once as
+# allocated and again as its lease.  ``LGBM_TPU_HBM_BYTES`` and
+# ``limit_bytes=`` override it, as in the JAX package.
+# ======================================================================
+
+
+class LedgerError(RuntimeError):
+    """A lease asks for more than the ledger has left: co-residency is
+    refused rather than run out of memory.  The message carries the
+    lease table, so the operator sees who holds the card."""
+
+
+class Lease(NamedTuple):
+    """One admitted residency claim."""
+
+    lease_id: int
+    owner: str                  # e.g. "fleet:ranker" / "refresh:ranker"
+    plane: str                  # "serving" | "train"
+    nbytes: int
+    preemptible: bool           # preempt() may evict it
+
+
+def ledger_limit_bytes(device=None) -> tuple:
+    """(limit_bytes, source) of a ledger on ``device`` (None: the current
+    CUDA device, which a host without CUDA refuses):
+    ``LGBM_TPU_HBM_BYTES`` where set, else the card's total memory; a
+    CPU device has no card limit (``NO_DEVICE_LIMIT``)."""
+    env = _env_bytes("LGBM_TPU_HBM_BYTES")
+    if env is not None:
+        return env, "env"
+    import torch
+    from ..basic import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return NO_DEVICE_LIMIT, "none"
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return int(torch.cuda.mem_get_info(idx)[1]), "mem_get_info_total"
+
+
+class ResidencyLedger:
+    """One card's budget, shared by the serving and the training planes.
+
+    Thread-safe: a fleet's replan and a co-resident refresh lease and
+    release concurrently.  The ledger applies ``HEADROOM`` once to the
+    limit (``limit_bytes``, else ``ledger_limit_bytes(device)``); a
+    planner handed the ledger takes ``available_bytes()`` as it is, so
+    the slack is never charged twice."""
+
+    def __init__(self, limit_bytes: Optional[int] = None, device=None):
+        if limit_bytes is not None:
+            limit, source = max(int(limit_bytes), 1), "caller"
+        else:
+            limit, source = ledger_limit_bytes(device)
+        self.limit_bytes = limit
+        self.limit_source = source
+        self.budget_bytes = int(limit * HEADROOM)
+        self._lock = threading.Lock()
+        self._leases = {}       # guarded-by: _lock
+        self._next_id = 1       # guarded-by: _lock
+
+    # -- accounting --------------------------------------------------
+
+    def leased_bytes(self, plane: Optional[str] = None) -> int:
+        with self._lock:
+            return sum(l.nbytes for l in self._leases.values()
+                       if plane is None or l.plane == plane)
+
+    def available_bytes(self) -> int:
+        """What is left of the post-``HEADROOM`` budget: what a
+        co-resident planner may claim without over-committing the card."""
+        return max(self.budget_bytes - self.leased_bytes(), 0)
+
+    def train_limit_bytes(self, *leases: Lease) -> int:
+        """The remainder as a limit (before ``HEADROOM``), for the
+        planners that apply ``HEADROOM`` themselves (the readers of
+        ``LGBM_TPU_HBM_BYTES``); floored, so that applying ``HEADROOM``
+        again lands at most on the remainder.  Each of ``leases`` that
+        the ledger holds is added back: the training plane's envelope is
+        its own leases plus what is left."""
+        grant = self.available_bytes()
+        with self._lock:
+            grant += sum(l.nbytes for l in leases
+                         if l is not None and l.lease_id in self._leases)
+        return max(int(grant / HEADROOM), 1)
+
+    def table(self) -> list:
+        """The lease table in lease order, JSON-friendly (flight bundles,
+        the doctor's evidence, ``LedgerError`` messages)."""
+        with self._lock:
+            leases = sorted(self._leases.values())
+        return [{"lease_id": l.lease_id, "owner": l.owner,
+                 "plane": l.plane, "bytes": l.nbytes,
+                 "preemptible": l.preemptible} for l in leases]
+
+    def summary(self) -> dict:
+        """JSON-friendly totals (the JAX package's keys)."""
+        with self._lock:
+            leased = sum(l.nbytes for l in self._leases.values())
+            by_plane: dict = {}
+            for l in self._leases.values():
+                by_plane[l.plane] = by_plane.get(l.plane, 0) + l.nbytes
+            count = len(self._leases)
+        return {"limit_bytes": self.limit_bytes,
+                "limit_source": self.limit_source,
+                "budget_bytes": self.budget_bytes,
+                "leased_bytes": leased,
+                "available_bytes": max(self.budget_bytes - leased, 0),
+                "num_leases": count,
+                "leased_by_plane": by_plane}
+
+    # -- leases --------------------------------------------------------
+
+    def lease(self, owner: str, nbytes: int, plane: str = "train",
+              preemptible: bool = False) -> Lease:
+        """Admit a residency claim, or raise ``LedgerError``."""
+        need = max(int(nbytes), 0)
+        with self._lock:
+            leased = sum(l.nbytes for l in self._leases.values())
+            granted = None
+            if leased + need <= self.budget_bytes:
+                granted = Lease(self._next_id, str(owner), str(plane),
+                                need, bool(preemptible))
+                self._leases[granted.lease_id] = granted
+                self._next_id += 1
+        if granted is None:
+            self._emit("deny", owner=str(owner), plane=str(plane),
+                       bytes=need)
+            raise LedgerError(
+                f"residency ledger: lease '{owner}' ({plane}) wants "
+                f"{need} bytes but only {self.available_bytes()} of the "
+                f"{self.budget_bytes}-byte budget remain "
+                f"(limit {self.limit_bytes}, source "
+                f"{self.limit_source}); held leases: {self.table()}")
+        self._emit("lease", owner=granted.owner, plane=granted.plane,
+                   bytes=granted.nbytes, lease_id=granted.lease_id)
+        return granted
+
+    def try_lease(self, owner: str, nbytes: int, plane: str = "train",
+                  preemptible: bool = False) -> Optional[Lease]:
+        """``lease``, but None where it would raise."""
+        try:
+            return self.lease(owner, nbytes, plane, preemptible)
+        except LedgerError:
+            return None
+
+    def release(self, lease) -> None:
+        """Give a lease's bytes back (a ``Lease`` or its id; a second
+        release does nothing)."""
+        lid = getattr(lease, "lease_id", lease)
+        with self._lock:
+            gone = self._leases.pop(lid, None)
+        if gone is not None:
+            self._emit("release", owner=gone.owner, plane=gone.plane,
+                       bytes=gone.nbytes, lease_id=gone.lease_id)
+
+    def preempt(self, plane: str = "train") -> int:
+        """Evict every preemptible lease of ``plane``; returns the bytes
+        freed.  A co-resident refresh's training lease is preemptible,
+        so serving under pressure preempts training, never the other way
+        round."""
+        with self._lock:
+            victims = [l for l in self._leases.values()
+                       if l.plane == plane and l.preemptible]
+            for v in victims:
+                del self._leases[v.lease_id]
+        freed = sum(v.nbytes for v in victims)
+        if victims:
+            self._emit("preempt", plane=plane, freed_bytes=freed,
+                       victims=[v.owner for v in victims])
+        return freed
+
+    @contextlib.contextmanager
+    def train_env(self, *leases: Lease):
+        """Within the block ``LGBM_TPU_HBM_BYTES`` is the training plane's
+        envelope (``train_limit_bytes(*leases)``), so that every election
+        inside ``engine.train`` (``plan_stream`` at a Dataset's construct
+        and at the booster's) plans against the remainder plus its own
+        lease instead of the whole card."""
+        key = "LGBM_TPU_HBM_BYTES"
+        prev = os.environ.get(key)
+        os.environ[key] = str(self.train_limit_bytes(*leases))
+        try:
+            yield self
+        finally:
+            if prev is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = prev
+
+    # -- telemetry ---------------------------------------------------
+
+    def _emit(self, event: str, **extra) -> None:
+        s = self.summary()
+        from ..obs.metrics import global_registry
+        from ..obs.trace import instant
+        instant("planner.ledger", event=event, **extra, **s)
+        global_registry.gauge("ledger_budget_bytes").set(s["budget_bytes"])
+        global_registry.gauge("ledger_available_bytes").set(
+            s["available_bytes"])
+        for plane in ("serving", "train"):
+            global_registry.gauge(
+                "ledger_leased_bytes", labels={"plane": plane}).set(
+                    s["leased_by_plane"].get(plane, 0))
+
+
+# the process's co-residency ledger, where a ``coresident.Scheduler`` (or
+# an operator) installed one; the diagnosis reads its lease table for
+# the contention verdict's evidence
+_active_ledger: Optional[ResidencyLedger] = None
+_active_ledger_lock = threading.Lock()
+
+
+def set_active_ledger(ledger: Optional[ResidencyLedger]):
+    """Install ``ledger`` as the process's co-residency ledger; returns
+    the one it replaces (restore it when a scheduler closes)."""
+    global _active_ledger
+    with _active_ledger_lock:
+        prev = _active_ledger
+        _active_ledger = ledger
+    return prev
+
+
+def active_ledger() -> Optional[ResidencyLedger]:
+    return _active_ledger
 
 
 # ======================================================================

@@ -104,6 +104,15 @@ FLAGS: Dict[str, EnvFlag] = {f.name: f for f in [
        "opt-in HTTP metrics port ('0' = ephemeral)"),
     _f("LIGHTGBM_TPU_METRICS_HOST", "127.0.0.1", "obs/http.py",
        "bind host for the HTTP metrics endpoint"),
+    # co-resident train and serve
+    _f("LGBM_TPU_CORESIDENT_CHUNK_CAP", "", "coresident/scheduler.py",
+       "chunk cap ceiling of co-resident refreshes (default: the "
+       "LGBM_TPU_CHUNK cap)"),
+    _f("LGBM_TPU_CORESIDENT_THROTTLE_S", "0.02", "coresident/scheduler.py",
+       "host-side yield a consult while brownout-throttled (seconds)"),
+    _f("LGBM_TPU_CORESIDENT_RECOVERY_S", "1.0", "coresident/scheduler.py",
+       "quiet time after the last breach before throttled or paused "
+       "training resumes at the whole cap (seconds)"),
 ]}
 
 

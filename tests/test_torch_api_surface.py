@@ -16,7 +16,6 @@ from lightgbm_tpu_torch.testing import one_thread  # noqa: F401
 UNPORTED = {
     "lifecycle": "A12", "LifecycleController": "A12",
     "multi": "A12", "train_many": "A12", "expand_param_grid": "A12",
-    "coresident": "A12",
 }
 
 
@@ -32,6 +31,10 @@ def test_every_public_name_resolves_or_is_unported():
     from lightgbm_tpu_torch.fleet import registry, router
     assert lt.Fleet is registry.Fleet and lt.PodFleet is router.PodFleet
     assert set(lgb.fleet.__all__) <= set(lt.fleet.__all__)
+    # co-residency resolves to the port's own scheduler
+    from lightgbm_tpu_torch.coresident import scheduler
+    assert lt.coresident.Scheduler is scheduler.Scheduler
+    assert set(lgb.coresident.__all__) == set(lt.coresident.__all__)
 
 
 def test_public_names_are_the_ports_own():

@@ -200,8 +200,31 @@ def test_bulk_refuses_non_f32_store_and_other_queues(tmp_path,
                               np.zeros((64, 3), np.uint8), block_rows=32)
     with pytest.raises(ValueError, match="float32"):
         BulkScorer(dev, q, str(tmp_path / "sink"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        BulkScorer(dev, store, str(tmp_path / "sink"), ledger=object())
+    # a residency ledger: the run leases its predicted card peak on the
+    # serving plane and releases it after; a denial refuses before any
+    # block is scored (the other queue, once unported, is the ledger)
+    from lightgbm_tpu_torch.ops.planner import LedgerError, ResidencyLedger
+    lg = ResidencyLedger(limit_bytes=1 << 30)
+    s = BulkScorer(dev, store, str(tmp_path / "leased"), ledger=lg)
+    peak = s._predicted_peaks()[0]
+    events = []
+    orig = lg._emit
+    lg._emit = lambda ev, **kw: (events.append((ev, kw.get("bytes"))),
+                                 orig(ev, **kw))
+    stats = s.run()
+    assert stats["complete"] and lg.leased_bytes() == 0
+    assert events == [("lease", peak), ("release", peak)]
+    small = ResidencyLedger(limit_bytes=1 << 30)
+    small.lease("fleet:resident", small.budget_bytes - peak + 1,
+                plane="serving")
+    with pytest.raises(LedgerError, match="bulk:"):
+        BulkScorer(dev, store, str(tmp_path / "denied"), ledger=small).run()
+    assert small.leased_bytes(plane="serving") == \
+        small.budget_bytes - peak + 1
+    # the denied run banked nothing: a run with room scores every block
+    again = BulkScorer(dev, store, str(tmp_path / "denied"), ledger=lg).run()
+    assert again["skipped_blocks"] == 0
+    assert again["blocks_scored"] == store.num_blocks
     # a device count is planned through fleet.topology (the JAX package's
     # plan_devices), and a store is taken (fleet.aot)
     from lightgbm_tpu_torch.fleet import AOTStore, plan_devices

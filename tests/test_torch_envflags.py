@@ -82,12 +82,6 @@ SKIPPED = {
     "LGBM_TPU_LIFECYCLE_MIRROR": ("unported",
                                   "lifecycle/: ROADMAP queue A12"),
     "LGBM_TPU_LIFECYCLE_RAMP": ("unported", "lifecycle/: ROADMAP queue A12"),
-    "LGBM_TPU_CORESIDENT_CHUNK_CAP": ("unported",
-                                      "coresident/: ROADMAP queue A12"),
-    "LGBM_TPU_CORESIDENT_THROTTLE_S": ("unported",
-                                       "coresident/: ROADMAP queue A12"),
-    "LGBM_TPU_CORESIDENT_RECOVERY_S": ("unported",
-                                       "coresident/: ROADMAP queue A12"),
 }
 # the JAX package's bench.py knobs: all of them BENCH_*
 _BENCH_PREFIX = "BENCH_"
@@ -325,3 +319,20 @@ def test_two_tier_knobs_steer_the_mesh_plan_and_the_election(monkeypatch):
     assert planner.plan_collectives(ici_gbps=5.0, **kw).ici_gbps == 5.0
     monkeypatch.delenv("LGBM_TPU_HIER_REDUCE")
     assert planner.plan_collectives(**kw).hierarchical
+
+
+def test_coresident_knobs_steer_the_config(monkeypatch):
+    from lightgbm_tpu_torch.coresident import CoresidentConfig
+    for k in ("LGBM_TPU_CORESIDENT_CHUNK_CAP",
+              "LGBM_TPU_CORESIDENT_THROTTLE_S",
+              "LGBM_TPU_CORESIDENT_RECOVERY_S"):
+        monkeypatch.delenv(k, raising=False)
+    assert CoresidentConfig.from_env() == CoresidentConfig()
+    monkeypatch.setenv("LGBM_TPU_CORESIDENT_CHUNK_CAP", "8")
+    monkeypatch.setenv("LGBM_TPU_CORESIDENT_THROTTLE_S", "0.5")
+    monkeypatch.setenv("LGBM_TPU_CORESIDENT_RECOVERY_S", "-1")
+    cfg = CoresidentConfig.from_env()
+    assert (cfg.chunk_cap, cfg.throttle_delay_s, cfg.recovery_s) == \
+        (8, 0.5, 0.0)
+    # an explicit config wins over the knobs
+    assert CoresidentConfig(chunk_cap=2).chunk_cap == 2

@@ -192,16 +192,29 @@ def test_low_precision_ladder_on_the_card_c24():
 
 
 def test_default_budget_is_the_device_and_the_ledger_is_unported():
+    """The default budget is the device's; with a residency ledger (the
+    name's "unported" is history: the ledger arm is ported) the fleet and
+    the topology plan against the ledger's remainder, and a caller's
+    budget wins over the ledger."""
     import torch
     shapes = [planner.FleetModelShape("m", 10, 7, 8, F, buckets=(8,))]
     plan = planner.plan_fleet(shapes, device="cpu")
     assert plan.limit_source == "none" and plan.feasible
     assert plan.budget_bytes == planner.NO_DEVICE_LIMIT
-    with pytest.raises(NotImplementedError, match="A11"):
-        planner.plan_fleet(shapes, ledger=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        topology.plan_topology(shapes, topology.plan_devices(2),
-                               ledgers={0: object()})
+    lg = planner.ResidencyLedger(limit_bytes=8 << 20)
+    lg.lease("refresh:m", lg.budget_bytes - 200_000, plane="train")
+    co = planner.plan_fleet(shapes, ledger=lg)
+    assert (co.limit_source, co.limit_bytes) == ("ledger", 8 << 20)
+    assert co.budget_bytes == lg.available_bytes() == 200_000
+    assert co.total_resident_bytes <= 200_000
+    assert planner.plan_fleet(shapes, budget_bytes=1 << 20,
+                              ledger=lg).limit_source == "caller"
+    topo = topology.plan_topology(
+        shapes, topology.plan_devices(2, budget_bytes_per_device=8 << 20),
+        ledgers={0: lg})
+    assert topo.device_plans[0].budget_bytes == 200_000
+    assert topo.device_plans[1].budget_bytes == int(
+        (8 << 20) * planner.HEADROOM)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             planner.plan_fleet(shapes)

@@ -8,9 +8,9 @@ watchdog, the HTTP endpoint and the tracer's event cap.
 Parity with ``lightgbm_tpu``: a bundle from each package has the same
 top-level keys, and its ring, metrics and fingerprint sections the same
 shape; the port's recorder on and off give the same model text.  The
-aggregate, doctor, slice-lost and bench cases of tests/test_flight.py
-belong to modules the port has not ported (ROADMAP queue A9 rest and
-A11 rest).
+aggregate and doctor cases of tests/test_flight.py are in
+tests/test_torch_diagnose.py; its slice-lost and bench cases belong to
+the JAX package's bench and its multi-host launcher.
 """
 
 import glob

@@ -55,7 +55,10 @@ def test_import_pulls_in_no_jax():
                 "fleet.topology", "resilience", "resilience.faults",
                 "resilience.checkpoint", "resilience.retry", "capi",
                 "application", "resilience.elastic",
-                "tools.torch_collective_probe"):
+                "tools.torch_collective_probe", "obs.aggregate",
+                "obs.devprof", "obs.diagnose", "coresident",
+                "coresident.control", "coresident.scheduler",
+                "tools.obs_doctor"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 

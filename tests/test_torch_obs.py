@@ -15,10 +15,9 @@ Parity with ``lightgbm_tpu``, on the same inputs made from a NumPy seed:
 The card's constraint is held here on the CPU's eager round body: a
 tree is one ``trace.grow_tree_rounds`` span and no event is recorded a
 round (the round body is a captured CUDA graph on the card, where an
-event would record once, at capture).  The devprof case of
-tests/test_obs.py belongs to a module the port has not ported (ROADMAP
-queue A11 rest); its checkpoint and chaos cases are in
-test_torch_checkpoint.py and test_torch_retry.py.
+event would record once, at capture).  The devprof cases of
+tests/test_obs.py are in test_torch_devprof.py; its checkpoint and
+chaos cases are in test_torch_checkpoint.py and test_torch_retry.py.
 """
 
 import json
