@@ -238,7 +238,27 @@ Builds the CUDA kernels from ``lightgbm_tpu_torch/ops/csrc`` with
   resumes to a text byte-identical to a solo ``train``; every answer
   bit-equal to its model's host path (after the swap, the refreshed
   model's), none failed; the contention verdict; the refresh's peak
-  allocation against its lease and the bytes a pause frees.
+  allocation against its lease and the bytes a pause frees;
+- ``multi_train`` (queue A12, ``multi/``): 8 lane configs (their own
+  learning rate, bagging seed and feature fraction) over 200,000 rows of
+  the training data at its full width (28 features, 255 bins, 255
+  leaves) for 10 rounds, each alone on the card, then all as one
+  ``train_many`` group: every lane's text equal to its solo text, each
+  all-lane round one replay of the group's graph, every training
+  kernel's launches equal to the solo runs' sum; ``cv(fused=True)`` of 5
+  stacked folds for 5 rounds equal to serial ``cv``; two lanes under
+  learning-rate schedules over 3 chunks equal to solo, their group graph
+  captured once; seconds a lane tree both ways and the predicted peak of
+  the plan ``train_many`` elected beside the allocator's;
+- ``lifecycle`` (queue A12, ``lifecycle/``): ``higgs_500x255`` behind a
+  ``Fleet``; a refresh of 5 warm-started trees over 100,000 fresh rows
+  promoted through the probe, the shadow mirror, a two-step canary ramp
+  and the cutover under threaded traffic, then served bit-identically; a
+  second refresh under an impossible drift budget rolled back,
+  byte-identical, with a flight bundle naming ``drift``; a NaN
+  candidate stopped at the probe and never registered; no device-wide
+  synchronize while the traffic threads ran; ``refresh_many`` of 2
+  segments equal to the serial candidates.
 
 Every training phase also profiles one more tree (``tree_kernel_ms``):
 the device time summed per kernel (B4 with its sort, B5 by mode, B2, B6,
@@ -301,6 +321,24 @@ DEVPROF_REPS = 5
 CORES_ROWS, CORES_ROUNDS = 200_000, 5
 CORES_THREADS, CORES_MAX_ROWS, CORES_POOL_ROWS = 8, 64, 20_000
 CORES_CEILING_MS, CORES_DELAYS, CORES_DELAY_S = 100.0, 40, 0.3
+# multi_train (the model axis): MANY_LANES configs over the first
+# MANY_ROWS rows of higgs_train_1m's data at its full width (28
+# features, 255 bins, 255 leaves) for MANY_ROUNDS rounds, shared mode;
+# then MANY_CV_FOLDS stacked folds of the same rows, MANY_CV_ROUNDS
+# rounds, cv(fused=True) against serial cv
+MANY_ROWS, MANY_ROUNDS, MANY_LANES = 200_000, 10, 8
+MANY_CV_FOLDS, MANY_CV_ROUNDS = 5, 5
+# two of those lanes under learning-rate schedules, as one group over
+# chunks of 4, 2 and 1 rounds
+MANY_LR_ROUNDS = 7
+# lifecycle: higgs_500x255 behind a Fleet; a refresh of LC_TREES
+# warm-started trees over LC_ROWS fresh rows (the deployed grid: the
+# first LC_ROWS rows of the training data); the promotion's threaded
+# traffic (LC_THREADS threads, LC_REQUESTS a phase window, at most
+# LC_MAX_ROWS rows a request); refresh_many of 2 segments of
+# LC_SEGMENT_ROWS rows
+LC_ROWS, LC_TREES, LC_SEGMENT_ROWS = 100_000, 5, 50_000
+LC_THREADS, LC_REQUESTS, LC_MAX_ROWS = 4, 64, 256
 # update_chunk's chunk against as many update() calls (train phase)
 CHUNK = 8
 # the categorical phases: the airline table at a tenth of the Flight Delay
@@ -5930,6 +5968,9 @@ def phase_devprof(lt, pk, higgs_text, ds, X, kernel_rows, ing, hist,
     pair = hist["fused_frontier_splits"]
     kt = {
         ("hist", "f32/pallas"): (hist6_rand["bytes"], hist6_rand["ops"]),
+        # the model axis: 8 lanes' B6 over the one matrix, 8 launches
+        ("hist", "f32/scatter_batched8"): (8 * hist6_rand["bytes"],
+                                           8 * hist6_rand["ops"]),
         ("hist", "quant/pallas"): (qhist["b4_shapes"]["root"]["bytes"],
                                    qhist["b4_shapes"]["root"]["ops"]),
         ("hist", "f32/fused"): (pair["bytes"], pair["ops"]),
@@ -6221,6 +6262,427 @@ def phase_coresident(lt, pk, higgs_text, train_data, smi):
     return launches
 
 
+def sweep_lanes() -> list:
+    """The sweep's lane configs: the training run's params, each lane
+    its own learning rate, bagging seed and feature fraction."""
+    return [dict(TRAIN_PARAMS, learning_rate=0.05 + 0.02 * i,
+                 bagging_fraction=0.8, bagging_freq=1, bagging_seed=3 + i,
+                 feature_fraction=(1.0, 0.9, 0.8, 0.7)[i % 4])
+            for i in range(MANY_LANES)]
+
+
+def group_programs():
+    """Collect every ``multi.batch.BatchedChunkProgram`` built while the
+    returned lists live, each counting its dispatches (``chunks``), and
+    every plan ``multi.driver._group_plan`` elected for a group (restore
+    with ``stop()``)."""
+    from lightgbm_tpu_torch.multi import batch as mb
+    from lightgbm_tpu_torch.multi import driver as md
+    made, plans = [], []
+    orig_init, orig_plan = mb.BatchedChunkProgram.__init__, md._group_plan
+
+    def spy(self, group):
+        orig_init(self, group)
+        self.chunks = 0
+        run = self.dispatch
+
+        def counted(*a, **k):
+            self.chunks += 1
+            return run(*a, **k)
+        self.dispatch = counted
+        made.append(self)
+
+    def plan_spy(g):
+        plan = orig_plan(g)
+        plans.append(plan)
+        return plan
+    mb.BatchedChunkProgram.__init__ = spy
+    md._group_plan = plan_spy
+
+    def stop():
+        mb.BatchedChunkProgram.__init__ = orig_init
+        md._group_plan = orig_plan
+    return made, plans, stop
+
+
+def group_rounds_row(prog) -> dict:
+    """A group's round counts; fails unless every round that ran all of
+    its lanes together was one group-graph replay (or the one eager round
+    before a capture)."""
+    rg = prog.rounds
+    row = {"lanes": len(prog.group.boosters), "group_rounds": rg.group_rounds,
+           "group_graph_replays": rg.replays, "captures": rg.captures,
+           "capture_ms": rg.capture_ms, "lane_rounds": rg.lane_rounds}
+    if rg.replays + rg.captures != rg.group_rounds or rg.replays <= 0:
+        raise AssertionError(f"the group's rounds were not one graph "
+                             f"replay each: {row}")
+    row["group_graph_replays_per_round"] = (
+        rg.replays / (rg.group_rounds - rg.captures))
+    return row
+
+
+TRAIN_KERNELS = ("fused_frontier_splits", "fused_frontier_accumulate",
+                 "fused_slot_order", "fused_sibling_scan", "histogram_pallas",
+                 "ingest")
+
+
+def lr_schedule_group(lt, ds) -> dict:
+    """Two lanes under learning-rate schedules (``reset_parameter``
+    callbacks) as one ``train_many`` group over ``MANY_LR_ROUNDS``
+    rounds: the chunks 4, 2, 1, each followed by the lanes' learning
+    rate reset.  Held: each lane's text equal to its solo card run, at
+    least 3 dispatches, and the group graph captured once (the resets
+    keep every lane's grower, so the graph replays across chunks)."""
+    params = sweep_lanes()[:2]
+
+    def sched(i):
+        base = params[i]["learning_rate"]
+        return lt.reset_parameter(learning_rate=lambda j: base * 0.9 ** j)
+    solo = [lt.train(dict(p), ds, MANY_LR_ROUNDS, verbose_eval=False,
+                     callbacks=[sched(i)]).model_to_string()
+            for i, p in enumerate(params)]
+    programs, _, stop = group_programs()
+    try:
+        many = lt.train_many([dict(p) for p in params], ds, MANY_LR_ROUNDS,
+                             callbacks=[[sched(i)] for i in range(2)])
+    finally:
+        stop()
+    if [b.model_to_string() for b in many] != solo:
+        raise AssertionError("multi_train: an lr_schedule lane differs "
+                             "from its solo card run")
+    if len(programs) != 1:
+        raise AssertionError(f"multi_train: the lr_schedule lanes formed "
+                             f"{len(programs)} group programs")
+    row = group_rounds_row(programs[0])
+    row["chunks"] = programs[0].chunks
+    if row["chunks"] < 3 or row["captures"] != 1:
+        raise AssertionError(f"multi_train: the lr_schedule group ran "
+                             f"{row['chunks']} chunks with "
+                             f"{row['captures']} captures")
+    return dict(row, rounds=MANY_LR_ROUNDS,
+                texts="every lane byte-identical to its solo card run")
+
+
+def phase_multi_train(lt, pk, train_data, smi) -> dict:
+    """The model axis on the card (``multi/``).  ``MANY_LANES`` configs
+    (``sweep_lanes``) over ``MANY_ROWS`` rows of the training data, at
+    its full width, each trained alone on the card, then all of them as
+    one ``train_many`` group (the main path: counts from 0).  Held: each
+    lane's text equal to its solo text; one group program whose every
+    all-lane round was one graph replay; every training kernel's
+    launches equal to the solo runs' sum (B4, its sort and B5 through
+    B2; each lane runs its solo rounds).  Then ``lr_schedule_group``
+    (two lanes under learning-rate schedules over several chunks), and
+    ``cv(fused=True)`` of ``MANY_CV_FOLDS`` stacked folds for
+    ``MANY_CV_ROUNDS`` rounds equal to serial ``cv`` on the card.
+    Printed: seconds a lane tree batched and solo (a record, not a
+    claim), and the predicted peak of the plan that ``train_many``
+    elected for the group (``multi.driver._group_plan``) beside the
+    allocator's peak over it (above the allocation before it, plus the
+    shared binned matrix the prediction counts)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    X, y = train_data[0][:MANY_ROWS], train_data[1][:MANY_ROWS]
+    ds = lt.Dataset(X, label=y)
+    ds.construct()
+    lanes = sweep_lanes()
+    # each lane alone on the card
+    reset_all_counts(pk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solo = [lt.train(dict(p), ds, MANY_ROUNDS, verbose_eval=False)
+            for p in lanes]
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo_launches = all_launches(pk)
+    solo_texts = [b.model_to_string() for b in solo]
+    del solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the main path: the lanes as one group
+    programs, plans, stop = group_programs()
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts(pk)
+        t0 = time.perf_counter()
+        many = lt.train_many([dict(p) for p in lanes], ds, MANY_ROUNDS)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        launches = all_launches(pk)
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        stop()
+    texts = [b.model_to_string() for b in many]
+    bad = [i for i, (a, b) in enumerate(zip(texts, solo_texts)) if a != b]
+    if bad:
+        raise AssertionError(f"multi_train: lanes {bad} differ from their "
+                             "solo card runs")
+    if len(programs) != 1 or len(programs[0].group.boosters) != MANY_LANES:
+        raise AssertionError(f"multi_train: {len(programs)} group programs")
+    group = group_rounds_row(programs[0])
+    if group["captures"] != 1:
+        raise AssertionError(f"multi_train: the group was captured "
+                             f"{group['captures']} times")
+    diff = {k: (launches.get(k, 0), solo_launches.get(k, 0))
+            for k in TRAIN_KERNELS
+            if launches.get(k, 0) != solo_launches.get(k, 0)}
+    if diff:
+        raise AssertionError(f"multi_train: launches (group, solo sum) "
+                             f"differ: {diff}")
+    for k in ("fused_frontier_splits", "fused_frontier_accumulate",
+              "fused_slot_order"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"multi_train launched no {k}")
+    # the plan the main path elected for the group (_dispatch_groups)
+    if len(plans) != 1:
+        raise AssertionError(f"multi_train: {len(plans)} group plans")
+    plan = plans[0]
+    if plan.b_chunk != MANY_LANES:
+        raise AssertionError(f"multi_train: the plan elected "
+                             f"{plan.b_chunk} lanes")
+    b0 = many[0].boosting
+    binned = b0.binned_t.numel() * b0.binned_t.element_size()
+    del many
+    gc.collect()
+    lr_group = lr_schedule_group(lt, ds)
+    # cv: the folds as stacked lanes, against serial cv on the card
+    cv_params = dict(TRAIN_PARAMS, metric="binary_logloss")
+    kw = dict(nfold=MANY_CV_FOLDS, stratified=False, shuffle=False,
+              verbose_eval=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = lt.cv(dict(cv_params), ds, MANY_CV_ROUNDS, **kw)
+    torch.cuda.synchronize()
+    cv_serial_s = time.perf_counter() - t0
+    programs, _, stop = group_programs()
+    try:
+        t0 = time.perf_counter()
+        fused_cv = lt.cv(dict(cv_params), ds, MANY_CV_ROUNDS, fused=True,
+                         **kw)
+        torch.cuda.synchronize()
+        cv_fused_s = time.perf_counter() - t0
+    finally:
+        stop()
+    if fused_cv != serial:
+        raise AssertionError("multi_train: cv(fused=True) differs from "
+                             "serial cv")
+    if len(programs) != 1 or len(programs[0].group.boosters) != \
+            MANY_CV_FOLDS:
+        raise AssertionError(f"multi_train: cv formed {len(programs)} "
+                             "group programs")
+    cv_group = group_rounds_row(programs[0])
+    trees = MANY_LANES * MANY_ROUNDS
+    emit({"phase": "multi_train", "device": smi, "rows": MANY_ROWS,
+          "features": 28, "leaves": TRAIN_PARAMS["num_leaves"],
+          "bins": TRAIN_PARAMS["max_bin"], "lanes": MANY_LANES,
+          "rounds": MANY_ROUNDS,
+          "texts": "every lane byte-identical to its solo card run",
+          "group": group,
+          "launches_equal_solo_sum": {k: launches.get(k, 0)
+                                      for k in TRAIN_KERNELS},
+          "batched_s": batched_s, "solo_s": solo_s,
+          "s_per_lane_tree_batched": batched_s / trees,
+          "s_per_lane_tree_solo": solo_s / trees,
+          "plan": plan.summary(),
+          "predicted_peak_bytes": plan.predicted_peak_bytes,
+          "measured_peak_bytes": peak + binned,
+          "measured_over_predicted": (peak + binned)
+          / max(plan.predicted_peak_bytes, 1),
+          "lr_schedule_group": lr_group,
+          "cv": {"folds": MANY_CV_FOLDS, "rounds": MANY_CV_ROUNDS,
+                 "equal_to_serial": True, "group": cv_group,
+                 "fused_s": cv_fused_s, "serial_s": cv_serial_s},
+          "launches": {k: v for k, v in launches.items() if v},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+class CountSyncs:
+    """Count the calls of ``torch.cuda.synchronize`` (device-wide) made
+    while the block runs, from any thread."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._orig = torch.cuda.synchronize
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self._orig(*a, **k)
+        torch.cuda.synchronize = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize = self._orig
+        return False
+
+
+def phase_lifecycle(lt, pk, higgs_text, train_data, smi) -> dict:
+    """The guarded lifecycle on the card (``lifecycle/``): a ``Fleet``
+    serves ``higgs_500x255``; ``LifecycleController.refresh`` warm-starts
+    ``LC_TREES`` trees over ``LC_ROWS`` fresh rows binned on the deployed
+    grid (the first ``LC_ROWS`` rows of the training data), and
+    ``promote`` drives the candidate through the probe, the shadow
+    mirror, a two-step canary ramp and the cutover under threaded
+    traffic; the fleet then serves it bit-identically (the serving
+    contract's host float64 sums).  A second refresh promoted under an
+    impossible drift budget rolls back: the fleet serves the promoted
+    model byte-identically and a flight bundle names ``drift``.  A
+    candidate poisoned to NaN is stopped at the probe and never
+    registered.  No device-wide ``torch.cuda.synchronize()`` while the
+    traffic threads run (``CountSyncs``).  The launches of that main
+    path are counted from 0.  Then ``refresh_many`` of 2 segments of
+    ``LC_SEGMENT_ROWS`` rows equals the serial candidates."""
+    import shutil
+    import tempfile
+
+    from lightgbm_tpu_torch.lifecycle import (LifecycleConfig,
+                                              LifecycleController,
+                                              booster_digest)
+    from lightgbm_tpu_torch.lifecycle.refresh import (fresh_dataset,
+                                                      refresh_many,
+                                                      train_candidate)
+    from lightgbm_tpu_torch.obs.flight import global_flight
+    from lightgbm_tpu_torch.resilience.checkpoint import build_bundle_bytes
+    from lightgbm_tpu_torch.tools.torch_lifecycle_smoke import (
+        _loadgen_traffic)
+    from lightgbm_tpu_torch.utils.file_io import write_atomic
+    t_phase = time.perf_counter()
+    X, y = train_data[0], train_data[1]
+    rows = [slice(i * LC_ROWS, (i + 1) * LC_ROWS) for i in range(3)]
+    base = lt.Dataset(X[rows[0]], label=y[rows[0]], free_raw_data=False)
+    base.construct()
+    params = dict(TRAIN_PARAMS, metric="binary_logloss")
+    deployed = lt.Booster(model_str=higgs_text)
+    probe = X[:1024].astype(np.float64)
+    traffic = _loadgen_traffic(LC_REQUESTS, LC_THREADS, LC_MAX_ROWS)
+    tmp = tempfile.mkdtemp(prefix="lgbt_lifecycle_")
+    saved_dumps = global_flight.dumps
+    global_flight.dumps = 0
+    fleet = lt.Fleet(max_batch_rows=1024)
+    try:
+        # the gates judge latency; no queue deadline of the fleet's
+        # classes may expire a request of the check
+        fleet.add_model("live", deployed, deadline_class="batch")
+        fleet.warm()
+        reset_all_counts(pk)
+        ctl = LifecycleController(
+            fleet, "live", directory=f"{tmp}/ok",
+            config=LifecycleConfig(drift_budget=1e3, mirror_fraction=0.5,
+                                   ramp=(0.25, 0.5)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle, cand = ctl.refresh(X[rows[1]], y[rows[1]], params=params,
+                                   num_boost_round=LC_TREES, base=base)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with CountSyncs() as syncs_ok:
+            res = ctl.promote(bundle, probe_X=probe, traffic=traffic)
+        promote_s = time.perf_counter() - t0
+        served = fleet.predict("live", probe, timeout=120)
+        want = cand.predict(probe, raw_score=True, device=False)
+        if res["status"] != "promoted" or not np.array_equal(served, want):
+            raise AssertionError(f"lifecycle: promotion {res['status']} "
+                                 f"{res.get('gate')}, served bit-equal "
+                                 f"{np.array_equal(served, want)}")
+        if fleet.entry("live").model.digest != booster_digest(cand):
+            raise AssertionError("lifecycle: the live digest is not the "
+                                 "candidate's")
+        # a refresh under an impossible drift budget: rolled back
+        pre = fleet.predict("live", probe, timeout=120)
+        ctl2 = LifecycleController(
+            fleet, "live", directory=f"{tmp}/bad",
+            config=LifecycleConfig(drift_budget=1e-12, mirror_fraction=1.0,
+                                   ramp=(0.5,)))
+        bundle2, cand2 = ctl2.refresh(X[rows[2]], y[rows[2]], params=params,
+                                      num_boost_round=LC_TREES, base=base)
+        with CountSyncs() as syncs_bad:
+            res2 = ctl2.promote(bundle2, probe_X=probe, traffic=traffic)
+        post = fleet.predict("live", probe, timeout=120)
+        dumps = sorted(d for d in os.listdir(global_flight.out_dir())
+                       if d.startswith("flight_lifecycle") and "drift" in d)
+        if (res2["status"], res2.get("gate")) != ("rolled_back", "drift") \
+                or not np.array_equal(pre, post) or not dumps:
+            raise AssertionError(
+                f"lifecycle: drift run {res2['status']} {res2.get('gate')},"
+                f" byte-identical {np.array_equal(pre, post)}, bundles "
+                f"{dumps}")
+        # a NaN candidate: stopped at the probe, never registered
+        cand2.boosting.models[-1].leaf_value[:] = np.nan
+        write_atomic(bundle2, build_bundle_bytes(
+            cand2, cand2.current_iteration()))
+        added = []
+        orig_add = fleet.add_model
+        fleet.add_model = lambda name, *a, **k: (added.append(name),
+                                                 orig_add(name, *a, **k))[1]
+        ctl3 = LifecycleController(
+            fleet, "live", directory=f"{tmp}/bad",
+            config=LifecycleConfig(drift_budget=1e3, ramp=(0.5,)))
+        res3 = ctl3.promote(bundle2, probe_X=probe, traffic=traffic)
+        fleet.add_model = orig_add
+        if (res3["status"], res3.get("gate")) != ("rolled_back", "probe") \
+                or added or fleet.models() != ["live"] \
+                or not np.array_equal(
+                    pre, fleet.predict("live", probe, timeout=120)):
+            raise AssertionError(f"lifecycle: NaN candidate {res3['status']}"
+                                 f" {res3.get('gate')}, registered {added}")
+        torch.cuda.synchronize()
+        launches = all_launches(pk)
+        if syncs_ok.calls or syncs_bad.calls:
+            raise AssertionError(
+                f"lifecycle: {syncs_ok.calls + syncs_bad.calls} device-wide "
+                "synchronize calls while the traffic threads ran")
+        for key in ("fused_traverse[leaves]", "fused_traverse[scores]",
+                    "ingest", "fused_frontier_splits",
+                    "fused_frontier_accumulate", "fused_slot_order"):
+            if launches.get(key, 0) <= 0:
+                raise AssertionError(f"lifecycle launched no {key}")
+    finally:
+        fleet.close(drain=False)
+        global_flight.dumps = saved_dumps
+        shutil.rmtree(tmp, ignore_errors=True)
+    # a family of two segments in one run against the serial candidates
+    seg = [slice(3 * LC_ROWS + i * LC_SEGMENT_ROWS,
+                 3 * LC_ROWS + (i + 1) * LC_SEGMENT_ROWS) for i in range(2)]
+    seg_params = [dict(params), dict(params, learning_rate=0.2)]
+
+    def fresh_sets():
+        return [fresh_dataset(base, X[s], y[s]) for s in seg]
+    t0 = time.perf_counter()
+    family = refresh_many([deployed, deployed], fresh_sets(), seg_params,
+                          LC_TREES)
+    torch.cuda.synchronize()
+    family_s = time.perf_counter() - t0
+    serial = [train_candidate(deployed, d, p, LC_TREES)
+              for d, p in zip(fresh_sets(), seg_params)]
+    if [c.model_to_string() for c in family] != \
+            [c.model_to_string() for c in serial]:
+        raise AssertionError("lifecycle: refresh_many differs from the "
+                             "serial candidates")
+    emit({"phase": "lifecycle", "device": smi, "fresh_rows": LC_ROWS,
+          "refresh_trees": LC_TREES,
+          "candidate_iterations": cand.current_iteration(),
+          "promotion": {"status": res["status"],
+                        "served": "bit-identical to the candidate",
+                        "shadow": res["phases"].get("shadow"),
+                        "ramp": res["phases"].get("ramp")},
+          "drift_rollback": {"status": res2["status"],
+                             "gate": res2["gate"],
+                             "served": "byte-identical to the promoted "
+                                       "model", "flight_bundles": dumps},
+          "nan_candidate": {"gate": res3["gate"], "registered": added},
+          "device_wide_syncs_under_traffic": 0,
+          "refresh_s": refresh_s, "promote_s": promote_s,
+          "refresh_many": {"segments": 2, "rows": LC_SEGMENT_ROWS,
+                           "equal_to_serial": True, "seconds": family_s},
+          "launches": {k: v for k, v in launches.items() if v},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -6330,6 +6792,8 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
     devprof_launches = phase_devprof(lt, pk, higgs, ds, train_data[0], rows,
                                      ing, hist, hist6_rand, qhist, smi)
     coresident_launches = phase_coresident(lt, pk, higgs, train_data, smi)
+    multi_launches = phase_multi_train(lt, pk, train_data, smi)
+    lifecycle_launches = phase_lifecycle(lt, pk, higgs, train_data, smi)
     del ds, bst
     train_run.pop("bst")
     phase_wide_bins(lt)
@@ -6539,6 +7003,11 @@ def run_phases(lt, _build, pk, synthetic_model_text, smi) -> int:
             row["devprof_launches"] = devprof_launches[key]
         if key in coresident_launches:
             row["coresident_launches"] = coresident_launches[key]
+        # the model axis' group run and the lifecycle's main path
+        if key in multi_launches:
+            row["multi_train_launches"] = multi_launches[key]
+        if key in lifecycle_launches:
+            row["lifecycle_launches"] = lifecycle_launches[key]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

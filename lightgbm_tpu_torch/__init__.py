@@ -23,12 +23,14 @@ the process metrics registry, the flight recorder and the SLO watchdog,
 under the JAX package's names and environment knobs, with device
 profiling, pod telemetry and the bottleneck diagnosis; ``coresident``
 runs training refreshes beside serving on one card under a shared
-residency ledger.  Configurations outside the port raise
-``NotImplementedError``.
+residency ledger.  ``train_many`` (``multi``) trains sweeps, cv folds
+and model families as the lanes of group programs, each lane's model
+its solo model byte for byte; ``lifecycle`` refreshes a deployed model
+and promotes it through a guarded rollout (probe, shadow, canary ramp,
+cutover) with rollback on any breached gate.  Configurations outside
+the port raise ``NotImplementedError``.
 
-The public names are the JAX package's (``lightgbm_tpu.__all__``), but
-for those of modules not ported yet (the model lifecycle and the model
-axis: ROADMAP queue A12); the
+The public names are the JAX package's (``lightgbm_tpu.__all__``); the
 scikit-learn estimators are exported where scikit-learn is installed,
 as the JAX package exports them (scikit-learn is imported when one of
 them is first used).
@@ -46,6 +48,10 @@ from . import fleet  # noqa: F401  (multi-model serving fleet)
 from . import coresident  # noqa: F401  (co-resident train+serve)
 from .fleet import Fleet, PodFleet
 from .engine import CVBooster, InitModelCompatibilityError, cv, train
+from . import multi  # noqa: F401  (the model axis)
+from .multi import expand_param_grid, train_many
+from . import lifecycle  # noqa: F401  (guarded model lifecycle)
+from .lifecycle import LifecycleController
 from .plotting import (create_tree_digraph, plot_importance, plot_metric,
                        plot_split_value_histogram, plot_tree)
 from .utils.log import LightGBMError
@@ -65,14 +71,14 @@ def serve(model, config=None, device=None, **overrides):
 
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "EarlyStopException",
-           "Fleet", "InitModelCompatibilityError", "LightGBMError",
-           "PodFleet", "coresident", "cv",
-           "create_tree_digraph", "early_stopping", "fleet",
-           "log_evaluation",
+           "Fleet", "InitModelCompatibilityError", "LifecycleController",
+           "LightGBMError", "PodFleet", "coresident", "cv",
+           "create_tree_digraph", "early_stopping", "expand_param_grid",
+           "fleet", "lifecycle", "log_evaluation", "multi",
            "obs", "plot_importance", "plot_metric",
            "plot_split_value_histogram", "plot_tree", "print_evaluation",
            "record_evaluation", "reset_parameter", "serve", "serving",
-           "train", "__version__"]
+           "train", "train_many", "__version__"]
 
 _SKLEARN_NAMES = ("LGBMModel", "LGBMRegressor", "LGBMClassifier",
                   "LGBMRanker")

@@ -117,7 +117,7 @@ import torch
 from ..config import Config
 from ..dataset import Dataset, same_bins
 from ..grower import GrowerConfig, SerialGrower, predict_leaf_index_binned
-from ..grower_rounds import RoundGrower
+from ..grower_rounds import RoundGrower, run_alone
 from ..obs.flight import global_flight as _flight
 from ..obs.metrics import global_registry as _obs_registry
 from ..obs.trace import instant as _instant, span as _span
@@ -862,6 +862,28 @@ class GBDT:
         device flag ``alive`` holds, if given); returns the K trees
         (reference: the JAX package's ``iter_body``,
         boosting/gbdt.py:1019-1115)."""
+        return run_alone(self._grow_steps(score, grad, hess, mask, lr,
+                                          fmask, rng, alive))
+
+    def _grow_tree(self, grad, hess, mask, fmask, quant_vals, key, log):
+        """One tree, as a generator: a rounds grower's tree is begun and
+        the grower yielded, so that its rounds run alone
+        (``grower_rounds.run_alone``) or beside other boosters' trees
+        (``grower_rounds.RoundGroup``), which send back the rounds run;
+        any other grower grows the tree in one call.  Returns (tree,
+        leaf_id)."""
+        g = self.grower
+        if not getattr(g, "lane_steps", False):
+            return g.grow(grad, hess, mask, fmask, quant_vals, key,
+                          self.timer, log)
+        with _span(g.grow_span, rows=g.n):
+            g.begin(grad, hess, mask, fmask, quant_vals, key, self.timer)
+            replays = yield g
+            return g.end(replays, grad, hess, mask, log)
+
+    def _grow_steps(self, score: torch.Tensor, grad, hess, mask, lr, fmask,
+                    rng, alive: Optional[torch.Tensor] = None):
+        """``_grow`` as a generator of lane steps (``_grow_tree``)."""
         cfg = self.grower_cfg
         lr32 = f32(lr)
         trees, scales = [], []
@@ -884,9 +906,9 @@ class GBDT:
                         group=row_group, draw_rows=self._n_shard)
                     scales.append(quant_vals[2:])
             log = [] if self.round_log is not None else None
-            tree, leaf_id = self.grower.grow(
+            tree, leaf_id = yield from self._grow_tree(
                 g_l, h_l, mask_l, fmask[k], quant_vals,
-                threefry.fold_in(rng, k), self.timer, log)
+                threefry.fold_in(rng, k), log)
             leaf_id = self._global_leaf_id(leaf_id)
             if log is not None:
                 self.round_log.append(log)
@@ -1353,11 +1375,13 @@ class GBDT:
     def _chunk_mask(self, grad, hess, mask, goss_key):
         return mask
 
-    def _chunk_step(self, score, grad, hess, mask, xs, j: int, alive):
-        """Iteration ``j`` of a chunk: its trees, and the train score
-        after them (unchanged where ``alive`` is False)."""
-        trees = self._grow(score, grad, hess, mask, xs.lrs[j], xs.fmasks[j],
-                           xs.keys[j], alive)
+    def _chunk_steps(self, score, grad, hess, mask, xs, j: int, alive):
+        """Iteration ``j`` of a chunk, as a generator of lane steps
+        (``_grow_steps``): its trees, and the train score after them
+        (unchanged where ``alive`` is False)."""
+        trees = yield from self._grow_steps(score, grad, hess, mask,
+                                            xs.lrs[j], xs.fmasks[j],
+                                            xs.keys[j], alive)
         return trees, score
 
     def _finish_chunk(self, stacked, xs, it0: int) -> bool:

@@ -59,6 +59,7 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
+from ..grower_rounds import run_alone
 from ..obs.metrics import global_registry as _obs_registry
 from ..obs.trace import span as _span
 from ..utils import envflags, threefry
@@ -163,6 +164,19 @@ def run_chunk(b, c: int, lrs: Optional[Sequence[float]] = None) -> bool:
 def _dispatch(b, c: int, xs: ChunkInputs) -> list:
     """Queue the chunk's ``c`` iterations on the device; returns each
     iteration's K device trees (the train score carried in ``b``)."""
+    return run_alone(dispatch_steps(b, c, xs))
+
+
+def dispatch_steps(b, c: int, xs: ChunkInputs):
+    """``_dispatch`` as a generator of lane steps: it yields each rounds
+    grower whose tree it has begun and takes back the rounds run
+    (``GBDT._grow_tree``).  Alone, each tree runs its own rounds
+    (``grower_rounds.run_alone``); the model axis
+    (``multi.batch.BatchedChunkProgram``) advances several boosters'
+    generators together and runs their trees' rounds as one group
+    (``grower_rounds.RoundGroup``), iteration by iteration and class by
+    class, so that each booster's gradients, masks, trees and score
+    updates are its own, in its own order."""
     score = b.train_score
     # False once an earlier iteration of the chunk grew no split
     alive = torch.ones((), dtype=torch.bool, device=b.device)
@@ -174,7 +188,8 @@ def _dispatch(b, c: int, xs: ChunkInputs) -> list:
             mask = b._chunk_mask(g, h, xs.masks[j], xs.goss[j])
         before = ([t.clone() for t in state if t is not None]
                   if state is not None and j else None)
-        trees, score = b._chunk_step(score, g, h, mask, xs, j, alive)
+        trees, score = yield from b._chunk_steps(score, g, h, mask, xs, j,
+                                                 alive)
         if before is not None:
             for t, old in zip((t for t in state if t is not None), before):
                 t.copy_(torch.where(alive, t, old))

@@ -51,7 +51,7 @@ class RF(GBDT):
     def reset_training_data(self, train_set, raw_scores=None) -> None:
         """Train on ``train_set`` from now on: its scores are the running
         mean of every tree so far over its rows, replayed in the f32
-        order training takes (``_chunk_step``), and its gradients are
+        order training takes (``_chunk_steps``), and its gradients are
         taken once more from the constant init scores (rf.hpp:77-98)."""
         if self.num_init_iteration:
             raise ValueError(
@@ -85,13 +85,13 @@ class RF(GBDT):
     def _chunk_gradients(self, score):
         return self._grad, self._hess
 
-    def _chunk_step(self, score, grad, hess, mask, xs, j, alive):
+    def _chunk_steps(self, score, grad, hess, mask, xs, j, alive):
         # grow on it * mean (so "+ tree" keeps the sum), then back to the
         # running mean with the tree's bias
         it = xs.its[j]
         s = score * it
-        trees = self._grow(s, grad, hess, mask, 1.0, xs.fmasks[j],
-                           xs.keys[j])
+        trees = yield from self._grow_steps(s, grad, hess, mask, 1.0,
+                                            xs.fmasks[j], xs.keys[j])
         div = torch.tensor(it + 1, dtype=torch.float32, device=self.device)
         return trees, torch.where(alive, (s + self._init_col) / div, score)
 

@@ -36,9 +36,8 @@ pass both ways, and so are its events: the ``bulk.plan`` instant, a
 ``bulk_blocks_total`` counter of the process registry.  With
 ``ledger=`` (an ``ops.planner.ResidencyLedger``) a run leases its
 predicted card peak on the serving plane for its blocks and releases
-it after; where the ledger has less left, the run raises its
-``LedgerError`` before it scores a block (the JAX package logs a warning
-and scores anyway).
+it after; where the ledger has less left, the run logs the JAX
+package's warning and scores every block all the same.
 """
 
 from __future__ import annotations
@@ -55,7 +54,7 @@ import torch
 from ..obs.metrics import global_registry as _obs_registry
 from ..obs.trace import instant as _instant, span as _span
 from ..utils.file_io import write_atomic
-from ..utils.log import log_info
+from ..utils.log import log_info, log_warning
 from .blockstore import BlockStore
 from .stream import BlockPump, ReadAhead, host_rss_peak_bytes
 
@@ -302,9 +301,16 @@ class BulkScorer:
             self.dev, int(self.store.num_cols), int(self.store.block_rows),
             self.digest, self.aot_store, num_class=self.K)
         # the blocks' bytes on the card, leased from the co-residency
-        # ledger for the run (a denial raises before any block is read)
-        lease = (None if self.ledger is None else self.ledger.lease(
-            f"bulk:{self.digest}", pred_dev, plane="serving"))
+        # ledger for the run; a denial warns and the run scores anyway
+        lease = None
+        if self.ledger is not None:
+            lease = self.ledger.try_lease(
+                f"bulk:{self.digest}", pred_dev, plane="serving")
+            if lease is None:
+                log_warning(
+                    "bulk scorer: residency ledger denied a "
+                    f"{pred_dev}-byte serving lease; scoring anyway — "
+                    "expect HBM pressure against the co-resident planes")
         _instant("bulk.plan", blocks=nb, mine=len(mine), skipped=skipped,
                  todo=len(todo), program=source,
                  predicted_device_peak_bytes=pred_dev,

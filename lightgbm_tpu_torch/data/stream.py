@@ -540,6 +540,8 @@ class StreamGrower(RoundGrower):
     inside it (the body is eager, so each pass records)."""
 
     grow_span = "stream.tree"
+    # the pump's passes are driven from the host: a tree grows alone
+    lane_steps = False
 
     def __init__(self, store: BlockStore, meta, cfg, meta_t=None,
                  device=None):

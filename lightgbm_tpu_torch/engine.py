@@ -441,16 +441,29 @@ def _apply_init_model(booster: Booster, predictor: Booster,
                       train_set: Dataset, raw=None) -> None:
     """The init model's trees first and its raw scores added to the
     train scores (reference: basic.py:840 _set_init_score_by_predictor;
-    the JAX package's engine.py:473-500)."""
+    the JAX package's engine.py:473-500).  A streamed Dataset of fresh
+    rows (``lifecycle.fresh_dataset``) carries the init model's raw
+    scores, taken chunk by chunk at push time, as
+    ``_init_model_raw_scores``: they stand in for a prediction over raw
+    rows it never kept."""
+    import numpy as np
+    import torch
     _validate_init_model(booster, predictor, train_set)
-    if raw is None:
-        raw = train_set.raw_data
-    if raw is None:
-        raise ValueError("continued training requires free_raw_data=False "
-                         "on the training Dataset")
     b = booster.boosting
     K = b.num_tree_per_iteration
-    b.train_score += _raw_scores(predictor, raw, booster)
+    pre = getattr(train_set, "_init_model_raw_scores", None)
+    if pre is not None:
+        init = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(pre, np.float32).reshape(-1, K).T),
+            device=booster.device)
+    else:
+        if raw is None:
+            raw = train_set.raw_data
+        if raw is None:
+            raise ValueError("continued training requires "
+                             "free_raw_data=False on the training Dataset")
+        init = _raw_scores(predictor, raw, booster)
+    b.train_score += init
     b._init_score_added = True
     b.models = list(predictor.models)
     b.iter = b.num_init_iteration = len(predictor.models) // K
@@ -543,15 +556,15 @@ def cv(params: dict, train_set: Dataset, num_boost_round: int = 100,
     metric's mean and standard deviation over the folds a round
     (``"valid <metric>-mean"`` and ``"train ..."`` with
     ``eval_train_metric``, else ``"<metric>-mean"``).  The folds advance
-    one iteration each in turn.  ``stratified`` folds need scikit-learn
+    one iteration each in turn; ``fused=True`` advances them as lanes of
+    group programs (``multi.CVStepper``), with the same results dict bit
+    for bit, since both run each fold's chunk of one (a custom ``fobj``,
+    or no batchable fold pair, steps them in turn with a warning).
+    ``stratified`` folds need scikit-learn
     (``ImportError`` without it; ``stratified=False`` or ``folds=`` do
     not).  ``init_model``, ``feature_name`` and ``categorical_feature``
     are accepted and unused, as in the JAX package."""
     import numpy as np
-    if fused:
-        raise NotImplementedError(
-            "cv(fused=True) waits for ROADMAP queue A12 (multi/: the folds "
-            "batched along a model axis)")
     params = dict(params)
     if fobj is not None:
         params["objective"] = "none"
@@ -590,10 +603,13 @@ def cv(params: dict, train_set: Dataset, num_boost_round: int = 100,
         cbs.add(callback_mod.log_evaluation(verbose_eval, show_stdv))
     cbs = sorted(cbs, key=lambda cb: getattr(cb, "order", 0))
 
+    from .multi.driver import CVStepper
+    stepper = CVStepper(boosters, fused, fobj)
     for i in range(num_boost_round):
         agg = collections.defaultdict(list)
-        for bst in boosters:
-            bst.update(fobj=fobj)
+        # every fold first (as lanes of group programs when fused), then
+        # the evaluations: the folds are independent
+        stepper.step()
         for bst in boosters:
             res = ([("train", mn, v, h)
                     for (_, mn, v, h) in bst.eval_train(feval)]

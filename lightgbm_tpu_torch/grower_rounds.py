@@ -24,7 +24,12 @@ read ``STOP_LAG`` rounds later, so a tree runs up to ``STOP_LAG`` dead
 rounds past its end (``RoundGrower.dead_rounds``).  On the card the body
 is captured once per grower as a CUDA graph and replayed every round
 (``RoundGrower``); the CPU, a ``SectionTimer`` run and the kernels'
-plain versions (``USE_GRAPHS`` off) run the same body eagerly.  Per
+plain versions (``USE_GRAPHS`` off) run the same body eagerly.  A tree
+is begun (``begin``: its inputs, root and carry), its rounds run, and
+it is ended (``end``); the model axis (``multi/``) runs the rounds of
+several boosters' begun trees together (``RoundGroup``: one graph of
+every lane's body, replayed once a round, each lane stopping where its
+own loop would).  Per
 round: candidate ranking, row routing (one gather of each row's
 split-feature bin, the EFB decode, the bitset test of categorical
 splits), the smaller-child slot of every row, the histogram and split
@@ -153,6 +158,10 @@ class RoundGrower(_GrowerCommon):
     wall time, ``round_counts`` gets (rounds run, live-round count as a
     device scalar) of every tree, ``flag_waits`` counts the host's waits
     on a stop flag."""
+
+    # a booster's trees may run their rounds beside other boosters'
+    # (``begin``/``end`` around ``RoundGroup.run``)
+    lane_steps = True
 
     def __init__(self, binned_t: torch.Tensor, meta, cfg: GrowerConfig,
                  meta_t: Optional[dict] = None,
@@ -438,13 +447,27 @@ class RoundGrower(_GrowerCommon):
     def _grow(self, grad, hess, row_mask, feature_mask, quant_vals,
               rng_key, timer, rounds):
         """One tree (see ``grow_tree_rounds``); ``grow`` wraps it."""
-        section = (timer or _NullTimer).section
-        use_graph = self.graphs and USE_GRAPHS and timer is None
-        root, root_sums = self._tree_inputs(section, grad, hess, row_mask,
-                                            feature_mask, quant_vals,
-                                            rng_key)
-        self._init_carry(section, root, root_sums)
-        replays = self._run_rounds(section, use_graph)
+        self.begin(grad, hess, row_mask, feature_mask, quant_vals, rng_key,
+                   timer)
+        replays = self._run_rounds(self._section, self._use_graph)
+        return self.end(replays, grad, hess, row_mask, rounds)
+
+    def begin(self, grad, hess, row_mask, feature_mask=None,
+              quant_vals=None, rng_key=None, timer=None) -> None:
+        """Everything of a tree before its rounds: the inputs, the root
+        and the carry.  The rounds then run alone (``_run_rounds``) or
+        beside other growers' (``RoundGroup.run``), and ``end`` finishes
+        the tree."""
+        self._section = (timer or _NullTimer).section
+        self._use_graph = self.graphs and USE_GRAPHS and timer is None
+        root, root_sums = self._tree_inputs(self._section, grad, hess,
+                                            row_mask, feature_mask,
+                                            quant_vals, rng_key)
+        self._init_carry(self._section, root, root_sums)
+
+    def end(self, replays: int, grad, hess, row_mask, rounds=None):
+        """Finish the tree ``begin`` started, after ``replays`` rounds;
+        returns (TreeArrays, leaf_id) as ``grow`` does."""
         self.round_counts.append((replays, self.nround.clone()))
         if rounds is not None:
             nr = int(self.nround)
@@ -481,38 +504,159 @@ class RoundGrower(_GrowerCommon):
         and is read STOP_LAG rounds later.  Returns the rounds run."""
         self._flag(0)
         r = 0
-        while r < self.Lm1:
-            if r >= STOP_LAG and self._flag_set(r - STOP_LAG):
-                break
-            if use_graph and self.graph is not None:
-                self.graph.replay()
-                fused.add_launch_counts(self._graph_counts)
-            else:
-                self._round(section)
-                if use_graph:
-                    self._capture()
+        while r < self.Lm1 and not self._stops_at(r):
+            self._step(section, use_graph)
             self._flag(r + 1)
             r += 1
         return r
 
+    def _stops_at(self, r: int) -> bool:
+        """True when the tree's round loop ends before round ``r``: the
+        flag written after round ``r - STOP_LAG`` says it was done."""
+        return r >= STOP_LAG and self._flag_set(r - STOP_LAG)
+
+    def _step(self, section, use_graph: bool) -> None:
+        """One round: a replay of the captured body, or the body eagerly
+        (on the card, then captured for the rounds after it)."""
+        if use_graph and self.graph is not None:
+            self.graph.replay()
+            fused.add_launch_counts(self._graph_counts)
+        else:
+            self._round(section)
+            if use_graph:
+                self._capture()
+
     def _capture(self) -> None:
         """Capture the round body as a CUDA graph (after an eager round
-        has warmed up every kernel and buffer).  The launches recorded
-        are counted once per replay, not at capture.  Only this thread's
-        calls may break the capture: other threads of the process (a
-        co-resident fleet's batchers and clients) go on allocating,
-        copying and synchronising on their own streams meanwhile."""
-        before = fused.launch_count_snapshot()
-        graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._round(_NullTimer.section)
-        torch.cuda.synchronize(self.device)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self._graph_counts = fused.launch_count_delta(before)
-        fused.restore_launch_counts(before)
-        self.graph = graph
+        has warmed up every kernel and buffer; ``capture_rounds``)."""
+        self.graph, self._graph_counts, self.capture_ms = capture_rounds(
+            [self], self.device)
+
+
+def capture_rounds(growers, device) -> tuple:
+    """Capture the round bodies of ``growers``, in turn, as one CUDA
+    graph; returns (graph, the launches one replay makes, the capture's
+    wall ms).  The launches recorded are counted once per replay, not
+    at capture.  Only this thread's calls may break the capture: other
+    threads of the process (a co-resident fleet's batchers and clients)
+    go on allocating, copying and synchronising on their own streams
+    meanwhile."""
+    before = fused.launch_count_snapshot()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for g in growers:
+            g._round(_NullTimer.section)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = fused.launch_count_delta(before)
+    fused.restore_launch_counts(before)
+    return graph, counts, ms
+
+
+def run_alone(steps):
+    """Drive a generator of lane steps (``GBDT._grow_steps``) by itself:
+    each grower it yields, its tree begun, runs its own rounds, and the
+    rounds run are sent back.  Returns the generator's value."""
+    try:
+        g = next(steps)
+        while True:
+            g = steps.send(g._run_rounds(g._section, g._use_graph))
+    except StopIteration as e:
+        return e.value
+
+
+class RoundGroup:
+    """The rounds of several growers' current trees, run as one loop:
+    the lanes of a model-axis group (``multi.batch``).
+
+    Each lane's tree is begun (``RoundGrower.begin``) before ``run`` and
+    ended after it.  A round runs every lane whose own loop would still
+    run it: lane i stops where its solo ``_run_rounds`` stops, at the
+    first round ``r`` whose flag ``r - STOP_LAG`` says its tree was
+    done (or at ``Lm1``).  While every lane runs, a round is ONE replay
+    of the group's graph, which holds each lane's round body in lane
+    order; once some lanes have stopped, the others replay their own
+    graphs (``RoundGrower._step``).  So each lane runs exactly its solo
+    rounds and launches: a lane whose tree is done rides at most
+    ``STOP_LAG`` dead rounds, as it does alone, and never launches B4/B5
+    for rounds its solo loop would skip.  The graph is captured after
+    the first eager round of a lane set and captured again when the set
+    of lanes changes (a lane that stopped training leaves the group for
+    good, so a run captures at most once a lane).  A replay needs the
+    very grower objects the graph was captured from (``is``), and the
+    group holds them until it captures again: a grower rebuilt by a
+    parameter reset is a new object with buffers the graph never saw,
+    and the old one's buffers (which the graph writes) stay alive while
+    the graph does.  A group of lanes
+    that cannot be captured (a data-parallel lane's collectives stage
+    on the host) runs the bodies eagerly, in lane order, on every rank.
+
+    Counts: ``replays`` of the group graph, ``group_rounds`` (rounds
+    every lane ran together: the eager ones and the replays) and
+    ``lane_rounds`` (rounds a lane ran alone), ``captures`` and
+    ``capture_ms``."""
+
+    def __init__(self):
+        self.graph = None
+        self._growers = ()
+        self._graph_counts = None
+        self.replays = 0
+        self.group_rounds = 0
+        self.lane_rounds = 0
+        self.captures = 0
+        self.capture_ms = 0.0
+
+    def run(self, growers) -> list:
+        """The rounds of every grower's begun tree; returns the rounds
+        each ran."""
+        n = len(growers)
+        use_graph = all(g._use_graph for g in growers)
+        for g in growers:
+            g._flag(0)
+        rounds = [None] * n
+        r = 0
+        while True:
+            running = []
+            for i, g in enumerate(growers):
+                if rounds[i] is None:
+                    if r >= g.Lm1 or g._stops_at(r):
+                        rounds[i] = r
+                    else:
+                        running.append(i)
+            if not running:
+                return rounds
+            if len(running) == n and n > 1:
+                self._step_all(growers, use_graph)
+                self.group_rounds += 1
+            else:
+                for i in running:
+                    growers[i]._step(growers[i]._section, use_graph)
+                self.lane_rounds += len(running)
+            for i in running:
+                growers[i]._flag(r + 1)
+            r += 1
+
+    def _step_all(self, growers, use_graph: bool) -> None:
+        if (use_graph and self.graph is not None
+                and len(self._growers) == len(growers)
+                and all(a is b for a, b in zip(self._growers, growers))):
+            self.graph.replay()
+            fused.add_launch_counts(self._graph_counts)
+            self.replays += 1
+            return
+        for g in growers:
+            g._round(g._section)
+        if use_graph:
+            self.graph = None          # its pool goes before the next one
+            self._growers = ()
+            self.graph, self._graph_counts, ms = capture_rounds(
+                growers, growers[0].device)
+            self._growers = tuple(growers)
+            self.captures += 1
+            self.capture_ms += ms
+
 
 def grow_tree_rounds(binned_t: torch.Tensor, grad: torch.Tensor,
                      hess: torch.Tensor, row_mask: torch.Tensor, meta,

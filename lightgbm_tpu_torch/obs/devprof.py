@@ -29,8 +29,13 @@ row names for the variants the port has:
 - ``histogram_utilization_table``: ``f32/pallas`` (B6), ``quant/pallas``
   (the quantized whole-data histogram, which on the card is B4 in int8
   mode with one slot: B6 has no int8 mode), ``f32/fused`` and
-  ``quant/fused`` (B2), and ``*/fused_sharded_flat`` (B4 then B5, the
-  seam pair the sharded growers run);
+  ``quant/fused`` (B2), ``*/fused_sharded_flat`` (B4 then B5, the
+  seam pair the sharded growers run), and ``f32/scatter_batched8``, the
+  model axis (``multi/``): 8 lanes of gradients over one shared binned
+  matrix, each lane its own B6 launch (the JAX package vmaps one
+  build; the port has no batched kernel, ROADMAP queue B7), so its cost
+  counts the binned matrix read 8 times, against ``f32/pallas``, the
+  same kernel once at the same shape;
 - ``predict_utilization_table``: ``fused`` (B1 leaves) and
   ``fused_scores`` (B1 scores);
 - ``ingest_utilization_table``: ``kernel/t<tile>`` (B3 at the planned
@@ -38,8 +43,7 @@ row names for the variants the port has:
   (``Dataset._bin_block``).
 
 The TPU-only variants (``matmul*``, ``sorted``, ``expanded``, ``while``,
-``fori``, the tile ladders) have no row; ``f32/scatter_batched8`` waits
-for the model axis (ROADMAP queue A12).  On the card a kernel that fails
+``fori``, the tile ladders) have no row.  On the card a kernel that fails
 to build or launch raises out of a table; on the CPU a row times the
 plain version and says so (``"route": "plain"``).  A table publishes the
 best row's ``mfu`` as the ``mfu_measured_best`` gauge, which
@@ -518,6 +522,21 @@ def histogram_utilization_table(rows: int = 1_000_000, features: int = 28,
         _sum_costs(kernel_cost("B4", **shape4),
                    kernel_cost("B5", children=2 * K, features=F,
                                bins=B)), dev, "B4+B5")
+    # the model axis: 8 lanes of gradients (scaled apart, as the JAX
+    # package's row does) over the one binned matrix, each lane's B6 at
+    # its own fixed-point scales (a lane's tree reads its own)
+    lanes = 8
+    ones = torch.ones_like(grad)
+    lane_vals = [H._vals_t(grad * (1.0 + 0.01 * i), hess * (1.0 + 0.01 * i),
+                           ones).contiguous() for i in range(lanes)]
+    lane_scales = [H.fixed_point_scales(v) for v in lane_vals]
+    b6 = kernel_cost("B6", rows=n, features=F, bins=B)
+    out["f32/scatter_batched8"] = _row(
+        lambda: [H.histogram_fixed(binned, v, B, sc)
+                 for v, sc in zip(lane_vals, lane_scales)], reps,
+        {"bytes": lanes * b6["bytes"], "ops": lanes * b6["ops"]}, dev,
+        "B6")
+    out["f32/scatter_batched8"]["lanes"] = lanes
     if quant:
         gq = torch.from_numpy(
             rng.randint(-8, 8, n).astype(np.int8)).to(dev)

@@ -1537,3 +1537,165 @@ def plan_collectives(features: int, num_bins: int, quant: bool = False,
     from ..obs.trace import instant
     instant("planner.plan_collectives", features=F, **plan.summary())
     return plan
+
+
+# ======================================================================
+# The model axis (``multi/``): how many lanes one group program carries.
+#
+# ``multi.train_many`` trains B boosters as lanes of one group program:
+# one captured CUDA graph whose replay runs every lane's round body in
+# turn (``grower_rounds.RoundGroup``).  Per-lane state scales with the
+# lanes: scores, gradients, the histogram cache, the round transients,
+# and the lane's captured-graph buffers.  The binned matrix does not in
+# shared-data mode (every lane reads one [G, n] tensor) and does in
+# stacked mode (cv folds: each lane's own ``Dataset.subset``).
+# ``plan_model_batch`` elects the largest lane chunk Bc <= B whose
+# predicted peak fits the budget; the driver then trains ceil(B / Bc)
+# groups in turn.  ``LGBM_TPU_MODEL_BATCH``: "" = the planner's
+# election, "0"/"off" = one lane a group (solo), N = cap Bc at N.
+# ======================================================================
+
+
+def _model_batch_override() -> Optional[int]:
+    """``LGBM_TPU_MODEL_BATCH``: None = the planner elects, 1 = batching
+    off, N = the elected lane chunk capped at N."""
+    v = (envflags.read("LGBM_TPU_MODEL_BATCH") or "").strip().lower()
+    if not v:
+        return None
+    if v in ("0", "off", "false", "none", "no"):
+        return 1
+    try:
+        return max(int(v), 1)
+    except ValueError:
+        return None
+
+
+class ModelBatchPlan(NamedTuple):
+    """The lane-chunk verdict for one group of boosters (the JAX
+    package's fields)."""
+
+    b_total: int                # boosters in the group
+    b_chunk: int                # lanes a group program carries
+    num_dispatch_groups: int    # ceil(b_total / b_chunk)
+    stacked: bool               # the binned matrix scales with Bc
+    per_lane_bytes: int         # what one more lane costs
+    shared_bytes: int           # lane-independent (the shared matrix)
+    predicted_peak_bytes: int   # at the elected b_chunk
+    budget_bytes: int
+    limit_bytes: int
+    limit_source: str           # "mem_get_info" | "env" | "none" |
+                                # "caller" | "ledger"
+    feasible: bool              # even Bc = 1 fits the budget
+    degraded: bool              # the budget forced Bc < b_total
+    forced: bool                # LGBM_TPU_MODEL_BATCH capped the election
+
+    def summary(self) -> dict:
+        """JSON-friendly form (the JAX package's keys)."""
+        return {
+            "b_total": self.b_total,
+            "b_chunk": self.b_chunk,
+            "num_dispatch_groups": self.num_dispatch_groups,
+            "stacked": self.stacked,
+            "per_lane_bytes": self.per_lane_bytes,
+            "shared_bytes": self.shared_bytes,
+            "predicted_peak_bytes": self.predicted_peak_bytes,
+            "budget_bytes": self.budget_bytes,
+            "hbm_limit_bytes": self.limit_bytes,
+            "limit_source": self.limit_source,
+            "feasible": self.feasible,
+            "degraded": self.degraded,
+            "forced": self.forced,
+        }
+
+
+def round_graph_bytes(rows: int, features: int, num_bins: int,
+                      num_leaves: int = 31, quant: bool = False,
+                      round_width: int = 128) -> int:
+    """The private memory pool one captured round body keeps: the round
+    step's transients (the larger of ``round_commit`` and
+    ``round_accumulate``, ``_transient_bytes``), which a CUDA graph
+    holds for its lifetime instead of giving back to the allocator."""
+    t = _transient_bytes(max(int(rows), 1), max(int(rows), 1), features,
+                         num_bins, num_leaves, quant, round_width, False)
+    return int(max(t["round_commit"], t["round_accumulate"]))
+
+
+def plan_model_batch(
+    b_total: int,
+    rows: int,
+    features: int,
+    num_bins: int,
+    num_leaves: int = 31,
+    num_class: int = 1,
+    quant: bool = False,
+    round_width: int = 128,
+    stacked: bool = False,
+    budget_bytes: Optional[int] = None,
+    ledger: Optional["ResidencyLedger"] = None,
+    device=None,
+) -> ModelBatchPlan:
+    """Elect the lane chunk of a group of ``b_total`` boosters.
+
+    Memory model (the JAX package's form): ``total(Bc) = shared + Bc *
+    per_lane``.  ``shared`` is the binned [G, n] matrix in shared mode
+    and 0 in stacked mode.  ``per_lane`` is ``predict_peak_bytes``'s
+    solo peak without the matrix (with it, stacked: each fold has its
+    own), plus one ``round_graph_bytes`` for the lane's captured-graph
+    buffers: a lane's round body is captured twice, once in the group's
+    graph and once in its own graph (the rounds after some lanes'
+    trees have stopped).  The solo peak already holds one round
+    transient (the solo graph's pool); the second is the lane's share
+    of the group graph's pool.  That share is an upper bound: the group
+    capture may reuse blocks one lane's body freed for the next lane's,
+    so the measured pool is nearer one share than ``Bc``.
+
+    The budget: ``budget_bytes`` (a caller's limit, ``HEADROOM``
+    applied), else ``ledger.available_bytes()`` as it is, else the
+    card's free memory on ``device`` (``device_limit_bytes``;
+    ``NO_DEVICE_LIMIT`` on the CPU), ``HEADROOM`` applied.  Bc walks
+    down from B until the prediction fits; ``feasible=False`` means one
+    lane does not fit either (the group then trains solo, as a plan of
+    Bc = 1 says).  The JAX signature's TPU knobs (``method``,
+    ``machines``, ``tile_rows``, ``use_pack``, ``accel``) have no
+    counterpart.  Emits the ``planner.model_batch`` instant."""
+    B = max(int(b_total), 1)
+    if budget_bytes is not None:
+        limit, source = int(budget_bytes), "caller"
+        budget = int(limit * HEADROOM)
+    elif ledger is not None:
+        limit, source = int(ledger.limit_bytes), "ledger"
+        budget = int(ledger.available_bytes())   # HEADROOM already applied
+    else:
+        limit, source = device_limit_bytes("cuda" if device is None
+                                           else device)
+        if limit is None:
+            limit = NO_DEVICE_LIMIT
+        budget = int(limit * HEADROOM)
+    solo_peak, bd = predict_peak_bytes(rows, features, num_bins, num_leaves,
+                                       num_class, quant, round_width)
+    binned = bd["binned"]
+    shared = 0 if stacked else binned
+    per_lane = (solo_peak - binned + (binned if stacked else 0)
+                + round_graph_bytes(rows, features, num_bins, num_leaves,
+                                    quant, round_width))
+    forced_cap = _model_batch_override()
+    cap = B if forced_cap is None else min(B, forced_cap)
+
+    def total(bc):
+        return shared + bc * per_lane
+
+    bc = cap
+    while bc > 1 and total(bc) > budget:
+        bc -= 1
+    plan = ModelBatchPlan(
+        b_total=B, b_chunk=bc, num_dispatch_groups=-(-B // bc),
+        stacked=bool(stacked), per_lane_bytes=int(per_lane),
+        shared_bytes=int(shared), predicted_peak_bytes=int(total(bc)),
+        budget_bytes=budget, limit_bytes=int(limit), limit_source=source,
+        feasible=total(1) <= budget,
+        degraded=bc < B and (forced_cap is None or bc < cap),
+        forced=forced_cap is not None)
+    from ..obs.trace import instant
+    instant("planner.model_batch", rows=rows, features=features,
+            **plan.summary())
+    return plan

@@ -55,6 +55,9 @@ FLAGS: Dict[str, EnvFlag] = {f.name: f for f in [
        "directory for the spill blockstore (default: a tmpdir)"),
     _f("LGBM_TPU_CHUNK", "", "boosting/macro.py",
        "macro-chunk size override ('0'/'off' disables chunking)"),
+    _f("LGBM_TPU_MODEL_BATCH", "", "ops/planner.py",
+       "cap the model axis' lane chunk ('0'/'off' trains every lane "
+       "solo)"),
     # ------------------------------------------------------ sharded training
     _f("LGBM_TPU_NUM_SLICES", "", "parallel/learners.py",
        "slice count of the simulated two-tier mesh on one host"),
@@ -104,6 +107,17 @@ FLAGS: Dict[str, EnvFlag] = {f.name: f for f in [
        "opt-in HTTP metrics port ('0' = ephemeral)"),
     _f("LIGHTGBM_TPU_METRICS_HOST", "127.0.0.1", "obs/http.py",
        "bind host for the HTTP metrics endpoint"),
+    # the model lifecycle
+    _f("LGBM_TPU_LIFECYCLE_DIR", "", "lifecycle/rollout.py",
+       "bundle and rollout-journal directory of the model lifecycle"),
+    _f("LGBM_TPU_LIFECYCLE_DRIFT_BUDGET", "10.0", "lifecycle/rollout.py",
+       "largest candidate-vs-live raw-score drift a rollout tolerates"),
+    _f("LGBM_TPU_LIFECYCLE_P99_MS", "", "lifecycle/rollout.py",
+       "candidate p99 latency ceiling (ms) of the rollout gates"),
+    _f("LGBM_TPU_LIFECYCLE_MIRROR", "0.25", "lifecycle/rollout.py",
+       "share of live requests mirrored to the candidate"),
+    _f("LGBM_TPU_LIFECYCLE_RAMP", "0.05,0.25,0.5", "lifecycle/rollout.py",
+       "comma list of the staged canary traffic shares"),
     # co-resident train and serve
     _f("LGBM_TPU_CORESIDENT_CHUNK_CAP", "", "coresident/scheduler.py",
        "chunk cap ceiling of co-resident refreshes (default: the "

@@ -193,7 +193,7 @@ def test_bulk_crash_resume_byte_identical(scoring_setup):
 
 
 def test_bulk_refuses_non_f32_store_and_other_queues(tmp_path,
-                                                     scoring_setup):
+                                                     scoring_setup, capsys):
     _, _, forest, store, _ = scoring_setup
     dev = DeviceForest(forest, "cpu")
     q = BlockStore.from_array(str(tmp_path / "u8"),
@@ -201,9 +201,9 @@ def test_bulk_refuses_non_f32_store_and_other_queues(tmp_path,
     with pytest.raises(ValueError, match="float32"):
         BulkScorer(dev, q, str(tmp_path / "sink"))
     # a residency ledger: the run leases its predicted card peak on the
-    # serving plane and releases it after; a denial refuses before any
-    # block is scored (the other queue, once unported, is the ledger)
-    from lightgbm_tpu_torch.ops.planner import LedgerError, ResidencyLedger
+    # serving plane and releases it after; a denial warns and scores
+    # every block anyway, as the JAX package's scorer does
+    from lightgbm_tpu_torch.ops.planner import ResidencyLedger
     lg = ResidencyLedger(limit_bytes=1 << 30)
     s = BulkScorer(dev, store, str(tmp_path / "leased"), ledger=lg)
     peak = s._predicted_peaks()[0]
@@ -217,14 +217,23 @@ def test_bulk_refuses_non_f32_store_and_other_queues(tmp_path,
     small = ResidencyLedger(limit_bytes=1 << 30)
     small.lease("fleet:resident", small.budget_bytes - peak + 1,
                 plane="serving")
-    with pytest.raises(LedgerError, match="bulk:"):
-        BulkScorer(dev, store, str(tmp_path / "denied"), ledger=small).run()
-    assert small.leased_bytes(plane="serving") == \
-        small.budget_bytes - peak + 1
-    # the denied run banked nothing: a run with room scores every block
+    capsys.readouterr()
+    denied = BulkScorer(dev, store, str(tmp_path / "denied"),
+                        ledger=small).run()
+    err = capsys.readouterr().err
+    assert "residency ledger denied a" in err and "scoring anyway" in err
+    assert denied["complete"]
+    assert denied["blocks_scored"] == store.num_blocks
+    assert denied["rows_scored"] == store.num_rows
+    # the other lease is untouched and the denied run holds none
+    assert small.table() == [{"lease_id": 1, "owner": "fleet:resident",
+                              "plane": "serving",
+                              "bytes": small.budget_bytes - peak + 1,
+                              "preemptible": False}]
+    # the denied run banked every block: a second run skips them all
     again = BulkScorer(dev, store, str(tmp_path / "denied"), ledger=lg).run()
-    assert again["skipped_blocks"] == 0
-    assert again["blocks_scored"] == store.num_blocks
+    assert again["skipped_blocks"] == store.num_blocks
+    assert again["blocks_scored"] == 0
     # a device count is planned through fleet.topology (the JAX package's
     # plan_devices), and a store is taken (fleet.aot)
     from lightgbm_tpu_torch.fleet import AOTStore, plan_devices
@@ -248,6 +257,44 @@ def test_bulk_sharded_run_scores_only_its_blocks(scoring_setup):
     s1 = BulkScorer(dev, store, sink, devices=devs, local_device_id=1).run()
     assert s1["complete"]
     assert s0["blocks_scored"] + s1["blocks_scored"] == store.num_blocks
+
+
+def test_denied_lease_scores_every_block_in_both_packages(scoring_setup,
+                                                         tmp_path, capsys):
+    """The same denial through both packages' scorers: each warns that
+    the ledger denied the serving lease, scores every row, and leaves
+    the lease that filled the ledger as it was."""
+    from lightgbm_tpu.ops.planner import ResidencyLedger as JLedger
+    from lightgbm_tpu_torch.ops.planner import ResidencyLedger
+    _, bst, forest, store, _ = scoring_setup
+    jb = lgb.Booster(model_str=bst.model_to_string())
+    scorers = (
+        ("port", ResidencyLedger(limit_bytes=1 << 20),
+         lambda lg, path: BulkScorer(DeviceForest(forest, "cpu"), store,
+                                     path, ledger=lg)),
+        ("jax", JLedger(limit_bytes=1 << 20),
+         lambda lg, path: JBulkScorer(
+             JDeviceForest(jb._forest(0, len(jb.models)), variant="fori"),
+             JBlockStore.open(store.path), path, ledger=lg)))
+    seen = {}
+    for name, lg, make in scorers:
+        held = lg.lease("fleet:resident", lg.budget_bytes, plane="serving")
+        capsys.readouterr()
+        stats = make(lg, str(tmp_path / name)).run()
+        err = capsys.readouterr().err
+        warned = [ln.split("] ", 2)[-1] for ln in err.splitlines()
+                  if "residency ledger denied" in ln]
+        assert len(warned) == 1, err
+        assert lg.leased_bytes() == held.nbytes == lg.budget_bytes
+        assert [t["owner"] for t in lg.table()] == ["fleet:resident"]
+        # each package's own predicted peak is the lease it asked for
+        peak = stats["predicted_device_peak_bytes"]
+        assert f"denied a {peak}-byte serving lease" in warned[0]
+        seen[name] = (stats["rows_scored"], stats["blocks_scored"],
+                      stats["complete"],
+                      warned[0].replace(f"{peak}-byte", "<peak>-byte"))
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][:3] == (store.num_rows, store.num_blocks, True)
 
 
 def test_plan_block_shards_equals_the_jax_package():

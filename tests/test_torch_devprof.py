@@ -123,9 +123,11 @@ def test_devprof_histogram_table_small():
     keys = [k for k in t if "/" in k]
     assert sorted(keys) == sorted([
         "f32/pallas", "f32/fused", "f32/fused_sharded_flat",
+        "f32/scatter_batched8",
         "quant/pallas", "quant/fused", "quant/fused_sharded_flat"])
     kinds = {"f32/pallas": "B6", "f32/fused": "B2", "quant/fused": "B2",
-             "quant/pallas": "B4", "f32/fused_sharded_flat": "B4+B5"}
+             "quant/pallas": "B4", "f32/fused_sharded_flat": "B4+B5",
+             "f32/scatter_batched8": "B6"}
     for k in keys:
         v = t[k]
         assert v["seconds_per_call"] > 0, k
@@ -136,6 +138,11 @@ def test_devprof_histogram_table_small():
         "B2", rows=2000, features=6, bins=16, slots=4,
         slotted_rows=m)["bytes"]
     assert t["f32/pallas"]["flops"] == 3 * 2000 * 6
+    # the model axis' row: 8 lanes, each its own B6 over the one matrix
+    b8 = t["f32/scatter_batched8"]
+    assert b8["lanes"] == 8
+    assert b8["flops"] == 8 * t["f32/pallas"]["flops"]
+    assert b8["bytes_accessed"] == 8 * t["f32/pallas"]["bytes_accessed"]
     only_f32 = D.histogram_utilization_table(
         rows=500, features=3, num_bins=8, slots=2, reps=1, quant=False,
         device="cpu")

@@ -72,16 +72,6 @@ SKIPPED = {
                                "bits"),
     "LGBT_DEFER_HOST_TREES": ("unported", "the deferred host-tree fetch: "
                               "ROADMAP P1 (step 3)"),
-    "LGBM_TPU_MODEL_BATCH": ("unported", "multi/ (the model axis): "
-                             "ROADMAP queue A12"),
-    "LGBM_TPU_LIFECYCLE_DIR": ("unported", "lifecycle/: ROADMAP queue A12"),
-    "LGBM_TPU_LIFECYCLE_DRIFT_BUDGET": ("unported",
-                                        "lifecycle/: ROADMAP queue A12"),
-    "LGBM_TPU_LIFECYCLE_P99_MS": ("unported",
-                                  "lifecycle/: ROADMAP queue A12"),
-    "LGBM_TPU_LIFECYCLE_MIRROR": ("unported",
-                                  "lifecycle/: ROADMAP queue A12"),
-    "LGBM_TPU_LIFECYCLE_RAMP": ("unported", "lifecycle/: ROADMAP queue A12"),
 }
 # the JAX package's bench.py knobs: all of them BENCH_*
 _BENCH_PREFIX = "BENCH_"

@@ -58,7 +58,12 @@ def test_import_pulls_in_no_jax():
                 "tools.torch_collective_probe", "obs.aggregate",
                 "obs.devprof", "obs.diagnose", "coresident",
                 "coresident.control", "coresident.scheduler",
-                "tools.obs_doctor"):
+                "tools.obs_doctor", "multi", "multi.batch",
+                "multi.driver", "multi.group", "lifecycle",
+                "lifecycle.journal", "lifecycle.refresh",
+                "lifecycle.rollout", "tools.torch_sweep_probe",
+                "tools.torch_lifecycle_smoke",
+                "tools.torch_coresident_smoke"):
         assert f"lightgbm_tpu_torch.{mod}" in res["modules"]
 
 
